@@ -108,11 +108,28 @@ class OfflineDataProvider:
                 return prefix, parse_info_txt(f.read())
         raise ValueError(_USAGE)
 
-    def _iter_recordings(
+    @property
+    def pre(self) -> int:
+        """Prestimulus window samples (epoch geometry)."""
+        return self._pre
+
+    @property
+    def post(self) -> int:
+        """Poststimulus window samples (epoch geometry)."""
+        return self._post
+
+    @property
+    def n_channels(self) -> int:
+        """Selected channel count (the feature row's channel axis)."""
+        return len(self._channel_names)
+
+    def iter_recordings(
         self,
     ) -> Iterator[Tuple[str, int, brainvision.Recording]]:
-        """Parse each triplet in info.txt order; files with a missing
-        sibling are skipped with a log."""
+        """``(rel_path, guessed, recording)`` per triplet in info.txt
+        order; files with a missing sibling are skipped with a log. The
+        batch path and the serving layer (serve/pipeline.py) both read
+        the session through it."""
         prefix, files = self._resolve_files()
         for rel_path, guessed in files.items():
             eeg_path = prefix + rel_path
@@ -146,6 +163,11 @@ class OfflineDataProvider:
             self._last_indices[name] = idx
             indices.append(idx)
         return indices
+
+    def channel_indices_for(self, rec: brainvision.Recording) -> List[int]:
+        """Resolved channel indices for one recording, with the
+        reference's stale-index reuse (:meth:`_channel_indices`)."""
+        return self._channel_indices(rec.header)
 
     def load_features_device(
         self,
@@ -182,11 +204,11 @@ class OfflineDataProvider:
         rows: List[torch.Tensor] = []
         targets: List[np.ndarray] = []
         t0 = time.perf_counter()
-        for _rel_path, guessed, rec in self._iter_recordings():
+        for _rel_path, guessed, rec in self.iter_recordings():
             t1 = time.perf_counter()
             timings["parse"] += t1 - t0
             raw, res, n_samples = device_ingest.stage_raw(
-                rec, self._channel_indices(rec.header), self.device
+                rec, self.channel_indices_for(rec), self.device
             )
             plan = device_ingest.plan_ingest(
                 rec.markers, guessed, n_samples,

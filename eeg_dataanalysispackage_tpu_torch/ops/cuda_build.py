@@ -1,8 +1,8 @@
 """Build the package's CUDA sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``_build/<name>-<hash>.so``, keyed by a hash of the source and the
-flags, and loads with ``ctypes``. The kernels expose plain ``extern "C"``
+``_build/<name>-<hash>.so``, keyed by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, and loads with ``ctypes``. The kernels expose plain ``extern "C"``
 launchers that return ``cudaGetLastError()``, so no PyTorch header is
 compiled. A missing ``nvcc`` or a failed build raises.
 """
@@ -50,10 +50,15 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to for its current content."""
-    with open(os.path.join(SOURCE_DIR, name + ".cu"), "rb") as f:
-        source = f.read()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` builds to for its current content and
+    that of the headers it may include."""
+    headers = sorted(f for f in os.listdir(SOURCE_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256()
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(SOURCE_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

@@ -5,7 +5,8 @@ The reference's run-time configuration surface is one ``k=v&k=v`` string
 the port: ``fe=dwt-<i>-fused`` ingest on the device (the CUDA fused
 kernel), the seed-1 shuffle + 70/30 split, linear classifiers with
 MLlib-SGD semantics, ``config_*`` pass-through, ``save_clf``/``load_clf``
-and the ``result_path`` report file.
+and the ``result_path`` report file; and ``serve=true``, which drives the
+session through the resident inference service (``serve/pipeline.py``).
 
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
@@ -16,6 +17,7 @@ Keys whose paths are not ported yet raise ``ValueError``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import re
 import time
@@ -26,6 +28,7 @@ import torch
 
 from ..io import modelfiles, provider
 from ..models import registry, stats
+from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
 from ..utils.device import resolve_device
 
@@ -34,7 +37,7 @@ logger = logging.getLogger(__name__)
 #: query keys whose paths the port does not run yet (see ROADMAP.md)
 NOT_PORTED_KEYS = (
     "classifiers", "overlap", "devices", "mesh_axes", "processes",
-    "coordinator", "process_id", "serve", "cv", "cv_mode", "seeds",
+    "coordinator", "process_id", "cv", "cv_mode", "seeds",
     "sweep", "population_mode", "fe_sweep", "elastic", "checkpoint_path",
     "faults", "faults_seed", "report", "adapt",
 )
@@ -86,13 +89,31 @@ class PipelineBuilder:
         #: the last run's classifier and the row indices it was tested on
         self.classifier = None
         self.test_index: Optional[list] = None
+        #: the last serve=true run's serve block (service stats)
+        self.serve_block: Optional[dict] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Accumulate a stage's wall seconds into :attr:`timers`."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.timers[name] = self.timers.get(name, 0.0) + time.perf_counter() - t0
+
     def execute(self) -> stats.ClassificationStatistics:
         query_map = get_query_map(self.query)
+        serve = query_map.get("serve")
+        if serve == "true":
+            # the reference's conflict messages come before any
+            # not-yet-ported key of the conflicting modes
+            serve_pipeline.check_conflicts(query_map)
+        elif serve is not None:
+            raise ValueError(f"serve={serve} is not yet ported; see ROADMAP.md")
         _check_ported(query_map)
 
         # 1. input (PipelineBuilder.java:104-113)
@@ -102,6 +123,19 @@ class PipelineBuilder:
             files = [query_map["eeg_file"], query_map["guessed_num"]]
         else:
             raise ValueError("Missing the input file argument")
+
+        # serve=true: the saved classifier loads once and every kept
+        # epoch becomes a request through the resident micro-batching
+        # service; the statistics are the batch load_clf= run's
+        if serve == "true":
+            self.timers = {}
+            statistics, self.serve_block = serve_pipeline.run_serve(
+                query_map,
+                lambda: provider.OfflineDataProvider(files, device=self.device),
+                self._stage,
+                self.device,
+            )
+            return self._finish_run(statistics, query_map)
 
         # 2. feature extraction (PipelineBuilder.java:128-139)
         if "fe" not in query_map:

@@ -129,10 +129,12 @@ def test_no_silent_cpu_without_cuda(one_file):
 @pytest.mark.parametrize(
     "extra",
     ["classifiers=logreg,svm", "precision=bf16", "overlap=true", "devices=2",
-     "serve=true", "task=seizure", "cv=3", "elastic=true"],
+     # serve=true itself runs (tests/test_torch_serve.py); its adapt= does not
+     pytest.param("serve=true&adapt=true", id="serve=true"),
+     "task=seizure", "cv=3", "elastic=true"],
 )
 def test_unported_keys_raise(one_file, extra):
-    q = f"info_file={one_file}&fe=dwt-8-fused&train_clf=logreg&{extra}"
+    q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     with pytest.raises(ValueError, match="not yet ported"):
         PipelineBuilder(q, device="cpu").execute()
 
