@@ -3,27 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card — the batch run,
+Drives the port's paths on the card — the fused batch run,
 ``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``,
+the host ``fe=`` batch run (``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``),
 and the online service, ``…&serve=true&load_clf=logreg&load_name=…`` —
 and holds every CUDA kernel of them against its plain PyTorch version.
-Phases, one JSON line each (several for phases 3, 4 and 6):
+Phases, one JSON line each (several for phases 2 to 6):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
-2. build: compile every kernel from ``eeg_dataanalysispackage_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
-3. the fused ingest kernel against its plain version (random, DC-heavy,
+2. build: compile every kernel from ``eeg_dataanalysispackage_tpu_torch/csrc``
+   (three sources), one ``nvcc`` per source, all started together;
+3. each kernel against its plain version (max abs deviation <= 2e-6):
+   the fused ingest kernel on int16 streams (random, DC-heavy,
    overhanging, single-window, dense, odd-count and main-path-shaped
-   inputs; max abs deviation <= 2e-6); the serve megakernel against its
-   plain version (random and DC-heavy windows, n = 1 and n = capacity,
-   capacity 64, 128 and 2,048; max abs margin deviation <= 2e-6 * ||w||_1;
+   inputs) and on float32 streams (random, DC-heavy, overhanging); the
+   serve megakernel (random and DC-heavy windows, n = 1 and n =
+   capacity, capacity 64, 128 and 2,048; margins within 2e-6 * ||w||_1;
    padded rows exactly 0; a window's margin equal solo and in a batch);
-4. the batch path end to end: an 8-recording x 1,200-marker session
-   through the builder with logreg (its model saved), svm and the
-   ``-fused-pallas`` spelling on the card; the ingest kernel's launch
-   count over the logreg run; statistics equal to the port's CPU run (a
-   test row may differ only where its margin lies within 1e-4 of the
-   threshold on both runs);
+   the epoch-features kernel (B = 1, 5, 37, 128 and 32,768, DC-heavy
+   epochs, an all-zero epoch giving an exactly zero row, 5-channel input
+   reduced to 3, a window that does not fit raising);
+4. the batch paths end to end on an 8-recording x 1,200-marker session:
+   ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
+   ``-fused-pallas`` spelling; ``fe=dwt-8-pallas`` with logreg and svm,
+   ``fe=dwt-8`` and ``fe=dwt-8-tpu`` with logreg; then a 3-recording
+   IEEE_FLOAT_32 session through ``fe=dwt-8-fused`` and
+   ``fe=dwt-8-pallas``. Every run prints the launches of each kernel,
+   counted from 0 just before it (the ingest kernel once per recording,
+   the epoch-features kernel twice per ``-pallas`` train run), and its
+   statistics equal the port's CPU run (a test row may differ only where
+   its margin lies within 1e-4 of the threshold on both runs);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -34,9 +43,12 @@ Phases, one JSON line each (several for phases 3, 4 and 6):
    staging, host-to-device copy, kernel call, margin sync and the whole
    ``engine.execute`` (host wall, medians of 25); a 16-thread
    ``predict_window`` probe;
-6. timing (CUDA events, median of 25) beside the plain version's time
-   and the card's bound: the ingest kernel at 32,768 windows, the
-   megakernel at capacity 64 (one serve batch) and at 32,768 windows.
+6. timing (CUDA events around one wrapper call, median of 25; and the
+   kernel's own device time from ``torch.profiler``, mean of 10) beside
+   the plain version's time and the card's bound: the ingest kernel at 32,768 windows on an int16
+   and on a float32 stream, the megakernel at capacity 64 (one serve
+   batch) and at 32,768 windows, the epoch-features kernel at 32,768
+   epochs.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -112,6 +124,27 @@ def time_ms(fn, warmup: int = 3, runs: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return pystats.median(times)
+
+
+def profiled_device_ms(fn, kernel: str, runs: int = 10):
+    """Mean device time (ms) of the CUDA kernel whose name contains
+    ``kernel`` over ``runs`` calls of ``fn``, from ``torch.profiler``:
+    the kernel alone, without the wrapper's host work that a CUDA-event
+    pair around one call also counts. None when the profiler reports no
+    device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.count and ev.device_time_total > 0:
+            return ev.device_time_total / ev.count / 1e3
+    return None
 
 
 def needed_samples(starts, n_samples: int, pre: int, skip: int, epoch: int) -> int:
@@ -193,15 +226,12 @@ def write_session(directory: str, n_files: int = 8, n_markers: int = 1200) -> st
     return info
 
 
-def compare_runs(torch, np, gpu, cpu, label: str) -> None:
+def compare_runs(np, gpu, cpu, label: str) -> None:
     """Equal statistics, or differing test rows within MARGIN_BAND of the
     threshold on both runs (printed)."""
     rows = []
     if str(gpu.statistics) != str(cpu.statistics):
-        idx_g = torch.as_tensor(gpu.test_index, device=gpu.features.device)
-        idx_c = torch.as_tensor(cpu.test_index)
-        m_g = gpu.classifier.margin(gpu.features[idx_g]).double().cpu().numpy()
-        m_c = cpu.classifier.margin(cpu.features[idx_c]).double().numpy()
+        m_g, m_c = margins_on_test_rows(gpu), margins_on_test_rows(cpu)
         thr = gpu.classifier.margin_threshold
         differ = np.nonzero((m_g > thr) != (m_c > thr))[0]
         for r in differ:
@@ -419,6 +449,270 @@ def phase_serve(torch, np, info, model, kept):
     return launches
 
 
+def phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev):
+    """The fused ingest kernel's float32-sample instantiation against its
+    plain version: random and DC-heavy float32 streams (unit
+    resolutions, as a non-INT_16 recording is staged), with windows
+    overhanging the end. The baseline mean is not exact in float64 for
+    float samples, so the tolerance stays KERNEL_TOL, not bit equality."""
+    rng = np.random.RandomState(7)
+    S = 200_000
+    res = torch.ones(3, dtype=torch.float32, device=dev)
+    cases = {
+        "f32_random": ((0.0, 0.0, 0.0), 300.0, np.sort(rng.randint(0, S - 787, size=500))),
+        "f32_dc_heavy": ((3000.0, -3000.0, 2950.5), 150.0, 1000 * np.arange(150)),
+        "f32_overhang": ((0.0, 0.0, 0.0), 300.0, np.array([10, S - 300, S - 686, S - 1, S])),
+    }
+    worst = 0.0
+    for name, (dc, noise, starts_np) in cases.items():
+        x = rng.randn(3, S) * noise + np.asarray(dc)[:, None]
+        raw = torch.from_numpy(x.astype(np.float32)).to(dev)
+        starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
+        got = ingest_cuda.ingest_features(raw, res, starts, W)
+        torch.cuda.synchronize()
+        want = device_ingest.ingest_features_plain(raw, res, starts, W)
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        end_zero = bool((got[torch.from_numpy(starts_np >= S).to(dev)] == 0).all())
+        emit("kernel_vs_plain", kernel="ingest_features_f32", case=name,
+             windows=int(len(starts_np)), samples=S, max_abs_err=err, tol=KERNEL_TOL,
+             finite=finite, end_rows_zero=end_zero)
+        if not (err <= KERNEL_TOL and finite and end_zero and got.shape == (len(starts_np), 48)):
+            raise AssertionError(f"float32 ingest kernel disagrees with its plain version on {name}")
+        worst = max(worst, err)
+    return worst
+
+
+def random_epochs(np, B, seed, C=3, T=750, dc=300.0, noise=40.0):
+    """(B, C, T) float32 epochs: noise around a per-epoch DC offset."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, C, T) * noise + rng.randn(B, C, 1) * dc).astype(np.float32)
+
+
+def phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev):
+    """The epoch-features kernel against its plain version on the card:
+    B = 1, 5, 37, 128 and 32,768; DC-heavy epochs; an all-zero epoch
+    (an exactly zero row); 5-channel input reduced to 3 by the
+    extractor's host gather; a window that does not fit raising."""
+    cases = {f"B{B}": random_epochs(np, B, seed=B) for B in (1, 5, 37, 128, 32_768)}
+    cases["dc_heavy"] = random_epochs(np, 300, seed=3, dc=3000.0, noise=15.0) + np.float32(2500.0)
+    with_zero = random_epochs(np, 9, seed=4)
+    with_zero[4] = 0.0
+    cases["all_zero_epoch"] = with_zero
+    worst = 0.0
+    for name, x in cases.items():
+        xt = torch.from_numpy(x).to(dev)
+        got = dwt_cuda.epoch_features_cuda(xt)
+        torch.cuda.synchronize()
+        want = dwt.epoch_features(xt)
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        zero_row = name != "all_zero_epoch" or bool((got[4] == 0).all())
+        emit("kernel_vs_plain", kernel="epoch_features", case=name, epochs=int(x.shape[0]),
+             max_abs_err=err, tol=KERNEL_TOL, finite=finite, zero_row_exact=zero_row)
+        if not (err <= KERNEL_TOL and finite and zero_row and got.shape == (x.shape[0], 48)):
+            raise AssertionError(f"epoch-features kernel disagrees with its plain version on {name}")
+        worst = max(worst, err)
+    # 5 channels in, the configured (1, 2, 3) out: the gather is the host's
+    five = random_epochs(np, 64, seed=5, C=5).astype(np.float64)
+    fe = wavelet.WaveletTransform(backend="pallas", device=dev)
+    got = fe.extract_batch(five)
+    torch.cuda.synchronize()
+    want = dwt.epoch_features(torch.from_numpy(five[:, :3].astype(np.float32)).to(dev))
+    err = (got - want).abs().max().item()
+    emit("kernel_vs_plain", kernel="epoch_features", case="five_channels_select_three",
+         epochs=64, max_abs_err=err, tol=KERNEL_TOL, shape=list(got.shape))
+    if not (err <= KERNEL_TOL and got.shape == (64, 48)):
+        raise AssertionError("epoch-features kernel disagrees on 5-channel input")
+    worst = max(worst, err)
+    try:
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 600), device=dev))
+    except ValueError as e:
+        if "exceeds epoch length" not in str(e):
+            raise
+        emit("kernel_vs_plain", kernel="epoch_features", case="window_validation", raised=str(e))
+    else:
+        raise AssertionError("a 600-sample epoch did not raise")
+    return worst
+
+
+def margins_on_test_rows(builder):
+    """(n_test,) float64 margins of a run's classifier on its test rows:
+    the fused run's kept feature rows, or the host run's test epochs
+    featurized again by its extractor."""
+    import torch
+
+    if builder.features is not None:
+        idx = torch.as_tensor(builder.test_index, device=builder.features.device)
+        feats = builder.features[idx]
+    else:
+        feats = builder.fe.extract_batch(builder.batch.epochs[builder.test_index])
+    return builder.classifier.margin(feats).double().cpu().numpy()
+
+
+def run_builder(label, query, device, counters):
+    """One builder run with every named launch counter set to 0 just
+    before it; returns (builder, statistics, {counter: launches})."""
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    builder = PipelineBuilder(query, device=device)
+    stats = builder.execute()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    emit("e2e", run=label, device=str(builder.device), launches=launches,
+         rows=int(len(builder.targets)), accuracy=stats.calc_accuracy(),
+         wall_s=wall, stages_s=builder.timers)
+    return builder, stats, launches
+
+
+def phase_host_path(np, info, counters):
+    """The host fe= path on the card and the CPU: -pallas with logreg
+    and svm, the host-float64 fe=dwt-8 and the on-card contraction
+    -tpu, each against the port's CPU run; returns the epoch-features
+    kernel's launches over the -pallas logreg run."""
+    runs = {}
+    for fe in ("dwt-8-pallas", "dwt-8", "dwt-8-tpu"):
+        for clf in (("logreg", "svm") if fe == "dwt-8-pallas" else ("logreg",)):
+            q = f"info_file={info}&fe={fe}&train_clf={clf}"
+            gpu = run_builder(f"{fe}_{clf}_cuda", q, None, counters)
+            cpu = run_builder(f"{fe}_{clf}_cpu", q, "cpu", counters)
+            if gpu[0].device.type != "cuda" or gpu[2]["ingest_features"] != 0:
+                raise AssertionError(f"{fe} {clf}: not a host-epoch run on the card")
+            if cpu[2]["epoch_features"] != 0:
+                raise AssertionError(f"{fe} {clf}: the kernel launched on the CPU path")
+            compare_runs(np, gpu[0], cpu[0], f"{fe}_{clf}")
+            runs[(fe, clf)] = gpu
+    k4 = runs[("dwt-8-pallas", "logreg")][2]["epoch_features"]
+    if k4 != 2:
+        raise AssertionError(f"-pallas logreg launched the epoch-features kernel {k4} times, not 2")
+    for fe in ("dwt-8", "dwt-8-tpu"):
+        if runs[(fe, "logreg")][2]["epoch_features"] != 0:
+            raise AssertionError(f"{fe} launched the epoch-features kernel")
+    return k4
+
+
+def write_float_session(directory: str, n_files: int = 3, n_markers: int = 600) -> str:
+    """IEEE_FLOAT_32 recordings (4 channels, Fz/Cz/Pz among them, marker
+    stride 1,000) and their info.txt; returns the info.txt path."""
+    import numpy as np
+
+    lines = []
+    for i in range(n_files):
+        name, guessed = f"f32_{i:02d}", 1 + (i * 4) % 9
+        rng = np.random.RandomState(500 + i)
+        n_samples = 200 + n_markers * 1000 + 900
+        x = rng.randn(n_samples, 4) * 30.0 + rng.randn(1, 4) * 500.0
+        with open(os.path.join(directory, name + ".eeg"), "wb") as f:
+            f.write(x.astype("<f4").tobytes())
+        vhdr = ["Brain Vision Data Exchange Header File Version 1.0", "[Common Infos]",
+                f"DataFile={name}.eeg", f"MarkerFile={name}.vmrk", "DataFormat=BINARY",
+                "DataOrientation=MULTIPLEXED", "NumberOfChannels=4", "SamplingInterval=1000",
+                "[Binary Infos]", "BinaryFormat=IEEE_FLOAT_32", "[Channel Infos]"]
+        vhdr += [f"Ch{j + 1}={ch},,{res},uV"
+                 for j, (ch, res) in enumerate(zip(("Fz", "Cz", "Pz", "Oz"), (1, 0.5, 1, 1)))]
+        with open(os.path.join(directory, name + ".vhdr"), "w") as f:
+            f.write("\n".join(vhdr) + "\n")
+        vmrk = ["Brain Vision Data Exchange Marker File, Version 1.0", "[Marker Infos]"]
+        vmrk += [f"Mk{k + 1}=Stimulus,S  {k % 9 + 1},{200 + k * 1000},1,0"
+                 for k in range(n_markers)]
+        with open(os.path.join(directory, name + ".vmrk"), "w") as f:
+            f.write("\n".join(vmrk) + "\n")
+        lines.append(f"{name}.eeg {guessed}")
+    info = os.path.join(directory, "info.txt")
+    with open(info, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return info
+
+
+def phase_float_session(np, info, counters, n_files):
+    """A float32 session through the fused path (the ingest kernel's
+    float32 instantiation) and the -pallas path on the card, each
+    against the port's CPU run; returns the float32 ingest kernel's
+    launches over the fused logreg run."""
+    launches = {}
+    for fe in ("dwt-8-fused", "dwt-8-pallas"):
+        q = f"info_file={info}&fe={fe}&train_clf=logreg"
+        gpu = run_builder(f"float32_{fe}_cuda", q, None, counters)
+        cpu = run_builder(f"float32_{fe}_cpu", q, "cpu", counters)
+        compare_runs(np, gpu[0], cpu[0], f"float32_{fe}")
+        launches[fe] = gpu[2]
+    fused, pallas = launches["dwt-8-fused"], launches["dwt-8-pallas"]
+    if fused["ingest_features_f32"] != n_files or fused["ingest_features"] != 0:
+        raise AssertionError(f"the float32 session's fused run launched {fused}")
+    if pallas["epoch_features"] != 2:
+        raise AssertionError(f"the float32 session's -pallas run launched {pallas}")
+    return fused["ingest_features_f32"]
+
+
+def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
+    """The epoch-features kernel and its plain version on ``n`` (3, 750)
+    float32 epochs; bound: the 512-sample windows read once, the rows
+    written once, the operator read once."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
+    got = dwt_cuda.epoch_features_cuda(x)
+    want = dwt.epoch_features(x)
+    err = (got - want).abs().max().item()
+    if err > KERNEL_TOL:
+        raise AssertionError(f"epoch-features kernel disagrees at the timing size {n}: {err}")
+    del got, want
+    kernel_ms = time_ms(lambda: dwt_cuda.epoch_features_cuda(x))
+    plain_ms = time_ms(lambda: dwt.epoch_features(x))
+    device_ms = profiled_device_ms(lambda: dwt_cuda.epoch_features_cuda(x),
+                                   "epoch_features_kernel")
+    bytes_moved = n * 3 * 512 * 4 + n * 48 * 4 + 512 * 16 * 4
+    flops = 2 * n * 3 * 512 * 16
+    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+    emit("timing", kernel="epoch_features", epochs=n, kernel_ms=kernel_ms,
+         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
+    return kernel_ms, plain_ms, bound_ms, bound_by, err
+
+
+def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f32_peak, smi):
+    """The fused ingest kernel and its plain version at 32,768 windows
+    (3 channels, 1,000-sample stride) on an int16 or float32 stream;
+    bound: the needed samples read once, rows, starts, operator and
+    resolutions once."""
+    n, stride = 32_768, 1000
+    S = n * stride + 1000
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev,
+                        dtype=torch.int32).to(dtype)
+    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    starts = (torch.arange(n, device=dev, dtype=torch.int32) * stride).contiguous()
+    got = ingest_cuda.ingest_features(raw, res, starts, W)
+    want = device_ingest.ingest_features_plain(raw, res, starts, W)
+    err = (got - want).abs().max().item()
+    if err > KERNEL_TOL:
+        raise AssertionError(f"ingest kernel ({dtype}) disagrees at the timing size: {err}")
+    del got, want
+    kernel_ms = time_ms(lambda: ingest_cuda.ingest_features(raw, res, starts, W))
+    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(raw, res, starts, W))
+    device_ms = profiled_device_ms(lambda: ingest_cuda.ingest_features(raw, res, starts, W),
+                                   "ingest_features_kernel")
+    samples = needed_samples(starts.cpu().numpy(), S, 100, 175, 512)
+    bytes_moved = (3 * samples * raw.element_size() + n * 48 * 4 + n * 4 + W.numel() * 4
+                   + 3 * 4)
+    flops = 2 * n * 3 * 512 * 16
+    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+    name = "ingest_features" if dtype == torch.int16 else "ingest_features_f32"
+    emit("timing", kernel=name, windows=n, stride=stride,
+         stream_bytes=int(raw.numel() * raw.element_size()), kernel_ms=kernel_ms,
+         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
+    return kernel_ms, plain_ms, bound_ms, bound_by, err
+
+
 def mega_bound(n: int, bandwidth: float, f32_peak: float):
     """Least card time for the megakernel's function on ``n`` windows:
     the 612 needed int16 samples per channel and window read once, one
@@ -426,9 +720,7 @@ def mega_bound(n: int, bandwidth: float, f32_peak: float):
     resolutions read once; against its float32 operations."""
     bytes_moved = 3 * n * (100 + 512) * 2 + n * 4 + 512 * 16 * 4 + 48 * 4 + 3 * 4
     flops = 2 * n * 3 * 512 * 16 + 2 * n * 48
-    t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations"), \
-        bytes_moved, flops
+    return (*timed_bound(bytes_moved, flops, bandwidth, f32_peak), bytes_moved, flops)
 
 
 def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak, smi):
@@ -447,11 +739,22 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
         raise AssertionError(f"megakernel disagrees at the timing size {n}: {err}")
     kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_margins(*args))
     plain_ms = time_ms(lambda: serve_mega.serve_mega_margins_plain(*args))
+    device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_margins(*args),
+                                   "serve_mega_kernel")
     bound_ms, bound_by, bytes_moved, flops = mega_bound(n, bandwidth, f32_peak)
     emit("timing", kernel="serve_mega", windows=n, stride=stride, kernel_ms=kernel_ms,
-         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved,
-         flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
+         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, timing):
+    kernel_ms, plain_ms, bound_ms, bound_by = timing[:4]
+    return {"name": name, "route": "cuda",
+            "source": f"eeg_dataanalysispackage_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -464,10 +767,10 @@ def main() -> int:
     try:
         import numpy as np
 
+        from eeg_dataanalysispackage_tpu_torch.features import wavelet
         from eeg_dataanalysispackage_tpu_torch.ops import (
-            cuda_build, device_ingest, dwt, ingest_cuda, serve_mega, serve_mega_cuda,
+            cuda_build, device_ingest, dwt, dwt_cuda, ingest_cuda, serve_mega, serve_mega_cuda,
         )
-        from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -483,16 +786,23 @@ def main() -> int:
          cuda=torch.version.cuda, peak_bytes_per_s=bandwidth, peak_f32_flops=f32_peak)
 
     # 2. build every kernel from the checkout's sources
-    build_kernels(cuda_build, ["ingest_features", "serve_mega"])
+    build_kernels(cuda_build, ["ingest_features", "serve_mega", "epoch_features"])
     ingest_cuda.build()
     serve_mega_cuda.build()
+    dwt_cuda.build()
 
     # 3. each kernel against its plain version
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
     max_err = phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev)
+    f32_err = phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev)
     mega_err = phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
+    epoch_err = phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev)
 
-    # 4. the batch path end to end on an 8 x 1,200-marker session
+    # 4. the batch paths end to end on an 8 x 1,200-marker session, and a
+    # float32 session; every counter is set to 0 just before each run
+    counters = {"ingest_features": (ingest_cuda, "LAUNCHES"),
+                "ingest_features_f32": (ingest_cuda, "LAUNCHES_F32"),
+                "epoch_features": (dwt_cuda, "LAUNCHES")}
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
@@ -509,97 +819,62 @@ def main() -> int:
             ("logreg_cpu", base + "&fe=dwt-8-fused&train_clf=logreg", "cpu"),
             ("svm_cpu", base + "&fe=dwt-8-fused&train_clf=svm", "cpu"),
         ):
-            ingest_cuda.LAUNCHES = 0  # counts start at 0 just before each run
-            t0 = time.perf_counter()
-            builder = PipelineBuilder(query, device=device)
-            stats = builder.execute()
-            wall = time.perf_counter() - t0
-            launches = ingest_cuda.LAUNCHES
-            runs[label] = (builder, launches)
-            emit("e2e", run=label, device=str(builder.features.device), launches=launches,
-                 rows=int(len(builder.targets)), accuracy=stats.calc_accuracy(),
-                 wall_s=wall, stages_s=builder.timers)
+            builder, _stats, launches = run_builder(label, query, device, counters)
+            runs[label] = (builder, launches["ingest_features"])
             if device is None:
-                if builder.features.device.type != "cuda" or launches < 8:
+                if builder.features.device.type != "cuda" or launches["ingest_features"] < 8:
                     raise AssertionError(f"{label} did not run the kernel on the card")
-            elif launches != 0:
+            elif launches["ingest_features"] != 0:
                 raise AssertionError(f"{label} launched the kernel on the CPU path")
         gpu, cpu = runs["logreg_cuda"][0], runs["logreg_cpu"][0]
         feat_err = (gpu.features.cpu() - cpu.features).abs().max().item()
         emit("features_cuda_vs_cpu", max_abs_err=feat_err, tol=KERNEL_TOL)
         if feat_err > KERNEL_TOL:
             raise AssertionError("card features disagree with the CPU run")
-        compare_runs(torch, np, gpu, cpu, "logreg")
-        compare_runs(torch, np, runs["svm_cuda"][0], runs["svm_cpu"][0], "svm")
+        compare_runs(np, gpu, cpu, "logreg")
+        compare_runs(np, runs["svm_cuda"][0], runs["svm_cpu"][0], "svm")
         if str(runs["logreg_cuda_pallas_spelling"][0].statistics) != str(gpu.statistics):
             raise AssertionError("-fused-pallas spelling changed the statistics")
         main_launches = runs["logreg_cuda"][1]
+        k4_launches = phase_host_path(np, info, counters)
+
+        float_dir = os.path.join(work, "float32")
+        os.makedirs(float_dir)
+        float_info = write_float_session(float_dir, n_files=3)
+        f32_launches = phase_float_session(np, float_info, counters, n_files=3)
 
         # 5. the serving path end to end with the card's saved model
         serve_launches = phase_serve(torch, np, info, model, kept=int(len(gpu.targets)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 6. timing: the ingest kernel at 32,768 windows, 1,000-sample stride
-    n, stride = 32_768, 1000
-    S = n * stride + 1000
-    gen = torch.Generator(device=dev).manual_seed(0)
-    raw = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev,
-                        dtype=torch.int32).to(torch.int16)
-    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
-    starts = (torch.arange(n, device=dev, dtype=torch.int32) * stride).contiguous()
-    got = ingest_cuda.ingest_features(raw, res, starts, W)
-    want = device_ingest.ingest_features_plain(raw, res, starts, W)
-    timing_err = (got - want).abs().max().item()
-    if timing_err > KERNEL_TOL:
-        raise AssertionError(f"kernel disagrees at the timing size: {timing_err}")
-    del got, want
-    kernel_ms = time_ms(lambda: ingest_cuda.ingest_features(raw, res, starts, W))
-    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(raw, res, starts, W))
-    samples = needed_samples(starts.cpu().numpy(), S, 100, 175, 512)
-    bytes_moved = 3 * samples * 2 + n * 48 * 4 + n * 4 + W.numel() * 4 + 3 * 4
-    flops = 2 * n * 3 * 512 * 16
-    t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
-    bound_ms = max(t_bytes, t_flops)
-    bound_by = "bytes" if t_bytes >= t_flops else "operations"
-    emit("timing", kernel="ingest_features", windows=n, stride=stride,
-         stream_bytes=int(raw.numel() * 2), kernel_ms=kernel_ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
-         library_ms=None, max_abs_err=timing_err, nvidia_smi=smi)
-    del raw, starts
-    # the megakernel at one serve batch (the serving path's shape), then
-    # at 32,768 windows
+    # 6. timing: the ingest kernel at 32,768 windows (int16 and float32
+    # streams), the megakernel at one serve batch and at 32,768 windows,
+    # the epoch-features kernel at 32,768 epochs
+    k1 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
+                       bandwidth, f32_peak, smi)
+    k1_f32 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.float32,
+                           bandwidth, f32_peak, smi)
     mega_64 = mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, 64,
                           bandwidth, f32_peak, smi)
     mega_big = mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, 32_768,
                            bandwidth, f32_peak, smi)
+    k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
 
     # 7. the kernels line, then the card line, then the result
-    print(json.dumps({"kernels": [{
-        "name": "ingest_features",
-        "route": "cuda",
-        "source": "eeg_dataanalysispackage_tpu_torch/csrc/ingest_features.cu",
-        "replaces": "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314",
-        "launches": main_launches,
-        "max_abs_err": max(max_err, timing_err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }, {
-        "name": "serve_mega",
-        "route": "cuda",
-        "source": "eeg_dataanalysispackage_tpu_torch/csrc/serve_mega.cu",
-        "replaces": "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259",
-        "launches": serve_launches,
-        "max_abs_err": max(mega_err, mega_64[4], mega_big[4]),
-        "ms": mega_64[0],
-        "plain_ms": mega_64[1],
-        "bound_ms": mega_64[2],
-        "bound_by": mega_64[3],
-        "library_ms": None,
-    }]}), flush=True)
+    ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
+    print(json.dumps({"kernels": [
+        kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas, main_launches,
+                     max(max_err, k1[4]), k1),
+        kernel_entry("serve_mega", "serve_mega.cu",
+                     "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259", serve_launches,
+                     max(mega_err, mega_64[4], mega_big[4]), mega_64),
+        kernel_entry("epoch_features", "epoch_features.cu",
+                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
+                     max(epoch_err, k4[4]), k4),
+        kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
+                     max(f32_err, k1_f32[4]), k1_f32),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,5 +1,7 @@
-// Fused int16 ingest for Hopper (sm_90a): raw samples at irregular marker
-// positions -> L2-normalized Daubechies features, one pass.
+// Fused ingest for Hopper (sm_90a): raw samples at irregular marker
+// positions -> L2-normalized Daubechies features, one pass. The samples are
+// int16 (INT_16 recordings, scaled by their resolutions on the card) or
+// float32 (other formats, staged already scaled with unit resolutions).
 //
 // Replaces the TPU kernels of eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:
 //   _make_kernel          (mode "exact",    ingest_pallas.py:314)
@@ -17,10 +19,11 @@
 // all-zero window gives an all-zero row, not NaN.
 //
 // Bound on the H100: bytes. Per window at C = 3 the function needs
-// C*612 int16 samples (the baseline and analysis segments; the 175 skipped
-// samples are never read) and writes C*16 floats: about 3.9 KB, against
-// 2*C*512*16 = 49 kFLOP. At 3.35 TB/s and 67 TFLOP/s (f32, no tensor
-// cores) the bytes take the longer time.
+// C*612 samples (the baseline and analysis segments; the 175 skipped
+// samples are never read) and writes C*16 floats: about 3.9 KB for int16
+// samples and 7.5 KB for float32, against 2*C*512*16 = 49 kFLOP. At
+// 3.35 TB/s and 67 TFLOP/s (f32, no tensor cores) the bytes take the
+// longer time.
 //
 // Design: a grid-stride loop over windows, so each block loads W once;
 // the per-window work is window_features.cuh's.
@@ -39,8 +42,9 @@ namespace {
 
 using namespace window_features;
 
+template <class Sample>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-    ingest_features_kernel(const int16_t* __restrict__ raw,
+    ingest_features_kernel(const Sample* __restrict__ raw,
                            const float* __restrict__ res,
                            const int* __restrict__ starts,
                            const float* __restrict__ w,
@@ -61,6 +65,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   }
 }
 
+template <class Sample>
+int launch(const void* raw, const void* res, const void* starts, const void* w, void* out,
+           int n, int channels, int n_samples, int pre, int skip, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (channels <= 0 || pre <= 0 || skip < 0 || n_samples < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(channels, pre);
+  int grid = 0;
+  const cudaError_t err = plan_grid(ingest_features_kernel<Sample>, smem, n, &grid);
+  if (err != cudaSuccess) return err;
+  ingest_features_kernel<Sample><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Sample*>(raw), static_cast<const float*>(res),
+      static_cast<const int*>(starts), static_cast<const float*>(w),
+      static_cast<float*>(out), n, channels, n_samples, pre, skip);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -71,19 +93,14 @@ extern "C" {
 int ingest_features_launch(const void* raw, const void* res, const void* starts,
                            const void* w, void* out, int n, int channels,
                            int n_samples, int pre, int skip, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (channels <= 0 || pre <= 0 || skip < 0 || n_samples < 0) {
-    return cudaErrorInvalidValue;
-  }
-  const size_t smem = smem_bytes(channels, pre);
-  int grid = 0;
-  const cudaError_t err = plan_grid(ingest_features_kernel, smem, n, &grid);
-  if (err != cudaSuccess) return err;
-  ingest_features_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(raw), static_cast<const float*>(res),
-      static_cast<const int*>(starts), static_cast<const float*>(w),
-      static_cast<float*>(out), n, channels, n_samples, pre, skip);
-  return cudaGetLastError();
+  return launch<int16_t>(raw, res, starts, w, out, n, channels, n_samples, pre, skip, stream);
+}
+
+// As ingest_features_launch, for a (channels, n_samples) float32 stream.
+int ingest_features_f32_launch(const void* raw, const void* res, const void* starts,
+                               const void* w, void* out, int n, int channels,
+                               int n_samples, int pre, int skip, void* stream) {
+  return launch<float>(raw, res, starts, w, out, n, channels, n_samples, pre, skip, stream);
 }
 
 const char* ingest_features_error_string(int code) {

@@ -1,17 +1,22 @@
-// One window of int16 samples -> its C*16 Daubechies coefficients, for
-// one block of kThreads threads. Shared by the fused ingest kernel
+// One window of samples -> its C*16 Daubechies coefficients, for one
+// block of kThreads threads. Shared by the fused ingest kernel
 // (ingest_features.cu) and the serve megakernel (serve_mega.cu): both run
 // these instructions per window, so their feature rows agree bit for bit.
+// The epoch-features kernel (epoch_features.cu) stages already
+// baseline-corrected epochs itself and shares steps 4-5 only.
 //
 // Per channel c of a window starting at `start`:
-//   x     = float(raw[c, start + j]) * res[c]      (0 at or past n_samples)
+//   x     = float(raw[c, start + j]) * res[c]      (0 at or past n_samples;
+//                                                   raw is int16 or float)
 //   mean  = sum(x[0 .. pre)) / pre                 (accumulated in double)
 //   z     = x[pre + skip .. pre + skip + 512) - mean   (subtract first)
 //   y[k]  = sum_j z[j] * W[j, k],  k < 16          (f32 FMAs, CUDA cores)
 // The baseline is subtracted before the contraction, never folded into W:
 // on real EEG DC offsets the folded form cancels catastrophically in f32.
-// The double baseline sum is exact for int16 x resolution products, so the
-// mean does not depend on summation order and equals the plain version's.
+// For int16 samples the double baseline sum is exact (int16 x resolution
+// products), so the mean does not depend on summation order and equals the
+// plain version's bit for bit. For float samples the sum need not be exact,
+// and the mean may differ from the plain version's by an ulp.
 //
 // Thread (g, k) of the 256 (16 sample groups x 16 features) keeps its 32
 // rows of W's column k in registers; the window's samples are staged in
@@ -81,53 +86,19 @@ __device__ __forceinline__ void load_operator(const float* __restrict__ w,
   }
 }
 
-// Featurize the window at `start` of the (channels, n_samples) stream:
-// leaves the C*16 coefficients y in s.feat and returns max(||y||, 1e-30)
-// to every thread. Ends on a barrier; the caller may read s.feat at once.
-__device__ __forceinline__ float featurize_window(
-    const int16_t* __restrict__ raw, const float* __restrict__ res,
-    long long start, int channels, int n_samples, int pre, int skip,
-    const float (&wreg)[kPerGroup], const Smem& s) {
+// Steps 4-5 on the C*512 centred samples in s.z: leaves the C*16
+// coefficients y in s.feat and returns max(||y||, 1e-30) to every thread.
+// Expects s.z written and a barrier passed; ends on a barrier, so the caller
+// may read s.feat at once.
+__device__ __forceinline__ float contract_and_norm(int channels,
+                                                   const float (&wreg)[kPerGroup],
+                                                   const Smem& s) {
   const int tid = threadIdx.x;
   const int g = tid / kFeatures;
   const int k = tid % kFeatures;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int seg = pre + kEpoch;
-  const int live = channels * seg;
   const int nfeat = channels * kFeatures;
-
-  // 1. stage: int16 -> f32 x resolution; samples outside the stream read 0
-  for (int i = tid; i < live; i += kThreads) {
-    const int c = i / seg;
-    const int j = i - c * seg;
-    const long long src = start + (j < pre ? j : skip + j);
-    float v = 0.0f;
-    if (src >= 0 && src < n_samples) {
-      v = static_cast<float>(raw[static_cast<long long>(c) * n_samples + src]) *
-          res[c];
-    }
-    if (j < pre) {
-      s.base[c * pre + j] = v;
-    } else {
-      s.z[c * kEpoch + (j - pre)] = v;
-    }
-  }
-  __syncthreads();
-
-  // 2. baseline mean per channel, one warp per channel
-  for (int c = warp; c < channels; c += kWarps) {
-    double sum = 0.0;
-    for (int j = lane; j < pre; j += 32) sum += static_cast<double>(s.base[c * pre + j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) s.mean[c] = static_cast<float>(sum / static_cast<double>(pre));
-  }
-  __syncthreads();
-
-  // 3. subtract first
-  for (int i = tid; i < channels * kEpoch; i += kThreads) s.z[i] -= s.mean[i / kEpoch];
-  __syncthreads();
 
   // 4. contraction: thread (g, k) sums its 32 samples against W[:, k]
   for (int c = 0; c < channels; ++c) {
@@ -165,6 +136,56 @@ __device__ __forceinline__ float featurize_window(
   }
   __syncthreads();
   return s.red[kWarps];
+}
+
+// Featurize the window at `start` of the (channels, n_samples) stream of
+// int16_t or float samples: leaves the C*16 coefficients y in s.feat and
+// returns max(||y||, 1e-30) to every thread. Ends on a barrier; the caller
+// may read s.feat at once.
+template <class Sample>
+__device__ __forceinline__ float featurize_window(
+    const Sample* __restrict__ raw, const float* __restrict__ res,
+    long long start, int channels, int n_samples, int pre, int skip,
+    const float (&wreg)[kPerGroup], const Smem& s) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int seg = pre + kEpoch;
+  const int live = channels * seg;
+
+  // 1. stage: sample -> f32 x resolution; samples outside the stream read 0
+  for (int i = tid; i < live; i += kThreads) {
+    const int c = i / seg;
+    const int j = i - c * seg;
+    const long long src = start + (j < pre ? j : skip + j);
+    float v = 0.0f;
+    if (src >= 0 && src < n_samples) {
+      v = static_cast<float>(raw[static_cast<long long>(c) * n_samples + src]) *
+          res[c];
+    }
+    if (j < pre) {
+      s.base[c * pre + j] = v;
+    } else {
+      s.z[c * kEpoch + (j - pre)] = v;
+    }
+  }
+  __syncthreads();
+
+  // 2. baseline mean per channel, one warp per channel
+  for (int c = warp; c < channels; c += kWarps) {
+    double sum = 0.0;
+    for (int j = lane; j < pre; j += 32) sum += static_cast<double>(s.base[c * pre + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) s.mean[c] = static_cast<float>(sum / static_cast<double>(pre));
+  }
+  __syncthreads();
+
+  // 3. subtract first
+  for (int i = tid; i < channels * kEpoch; i += kThreads) s.z[i] -= s.mean[i / kEpoch];
+  __syncthreads();
+
+  return contract_and_norm(channels, wreg, s);
 }
 
 // Opt in to the block's shared memory and size a grid-stride grid: one

@@ -1,1 +1,1 @@
-"""Epoch metadata: window validity and class balancing."""
+"""Epochs: window validity, class balancing and host epoch extraction."""

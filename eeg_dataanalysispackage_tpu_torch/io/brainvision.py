@@ -1,10 +1,11 @@
 """BrainVision (.vhdr/.vmrk/.eeg) reader.
 
 Parses the Brain Vision Data Exchange format (INI-style header + marker
-files, multiplexed int16 binary data) the way the reference's closed
-``eegloader-hdfs`` jar does (OffLineDataProvider.java:167-196). Pure
-Python parsers and a numpy demux; the fused path ships the unscaled
-int16 samples to the card and scales them there.
+files, multiplexed or vectorized INT_16, INT_32 or IEEE_FLOAT_32 binary
+data) the way the reference's closed ``eegloader-hdfs`` jar does
+(OffLineDataProvider.java:167-196). Pure Python parsers and a numpy
+demux; the fused path ships the unscaled int16 samples to the card and
+scales them there, and the host path reads scaled float64 channels.
 """
 
 from __future__ import annotations
@@ -186,7 +187,8 @@ class Recording:
 
         The fused path stages these raw samples to the card and scales
         them there, halving host->device bytes against float32. Raises
-        TypeError for non-INT_16 recordings.
+        TypeError for non-INT_16 recordings (callers fall back to
+        :meth:`read_channels`).
         """
         if self._raw.dtype != np.int16:
             raise TypeError(
@@ -200,6 +202,18 @@ class Recording:
             [self.header.channels[i].resolution for i in indices],
             dtype=np.float32,
         )
+
+    def read_channels(self, indices: Sequence[int]) -> np.ndarray:
+        """(len(indices), num_samples) float64 scaled channel matrix.
+
+        Matches ``DataTransformer.readBinaryData`` returning double[]
+        (OffLineDataProvider.java:186-188): the closed eegloader jar
+        scales sample x resolution in float32 before widening to double,
+        for INT_16, INT_32 and IEEE_FLOAT_32 data alike.
+        """
+        res = self.resolutions(indices)
+        scaled32 = self._raw[:, list(indices)].T.astype(np.float32) * res[:, None]
+        return scaled32.astype(np.float64)
 
 
 def load_recording_bytes(

@@ -1,7 +1,9 @@
-"""Offline data provider: info.txt / .eeg inputs -> fused DWT features.
+"""Offline data provider: info.txt / .eeg inputs -> epochs or features.
 
-Port of the JAX package's ``io/provider.OfflineDataProvider`` fused path
-for one device. Input-contract parity with
+Port of the JAX package's ``io/provider.OfflineDataProvider`` for one
+device: :meth:`OfflineDataProvider.load` gives host epochs (the ``fe=``
+path), :meth:`OfflineDataProvider.load_features_device` gives fused
+DWT features with no host epochs. Input-contract parity with
 ``DataTransformation/OffLineDataProvider.java``:
 
 - args ``[<info.txt path>]`` or ``[<.eeg path>, <guessed number>]``
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from . import brainvision
+from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..ops import device_ingest, ingest_cuda
 from ..utils import constants
@@ -68,8 +71,10 @@ def parse_info_txt(text: str) -> Dict[str, int]:
 
 
 class OfflineDataProvider:
-    """Loads BrainVision recordings and featurizes balanced P300 epochs
-    on ``device`` (``None`` -> ``cuda``; raises without a card)."""
+    """Loads BrainVision recordings into balanced P300 epochs on the host
+    (:meth:`load`) or featurizes them on ``device``
+    (:meth:`load_features_device`; ``None`` -> ``cuda``, raises without
+    a card)."""
 
     def __init__(
         self,
@@ -88,8 +93,10 @@ class OfflineDataProvider:
         self._post = post
         self.device = resolve_device(device)
         self._last_indices: Dict[str, int] = {c: 0 for c in self._channel_names}
-        #: wall seconds of the last load_features_device, by stage
-        #: (parse, stage, featurize); featurize ends in a device sync
+        self._batch: Optional[extractor.EpochBatch] = None
+        #: wall seconds of the last load (parse, epoch) or
+        #: load_features_device (parse, stage, featurize; featurize
+        #: ends in a device sync), by stage
         self.timings: Dict[str, float] = {}
 
     def _resolve_files(self) -> Tuple[str, Dict[str, int]]:
@@ -169,6 +176,54 @@ class OfflineDataProvider:
         reference's stale-index reuse (:meth:`_channel_indices`)."""
         return self._channel_indices(rec.header)
 
+    def load(self) -> extractor.EpochBatch:
+        """Parse the inputs and extract host epochs from every resolvable
+        file, in info.txt order with one :class:`BalanceState` across
+        files: (n, C, 750) float64 epochs, targets and stimulus indices,
+        bit-equal to the JAX package's."""
+        balance = BalanceState()
+        timings = {"parse": 0.0, "epoch": 0.0}
+        batches: List[extractor.EpochBatch] = []
+        t0 = time.perf_counter()
+        for _rel_path, guessed, rec in self.iter_recordings():
+            t1 = time.perf_counter()
+            timings["parse"] += t1 - t0
+            batches.append(self._process_recording(rec, guessed, balance))
+            t0 = time.perf_counter()
+            timings["epoch"] += t0 - t1
+        self._batch = extractor.EpochBatch.concatenate(batches)
+        self.timings = timings
+        return self._batch
+
+    def _process_recording(
+        self,
+        rec: brainvision.Recording,
+        guessed: int,
+        balance: BalanceState,
+    ) -> extractor.EpochBatch:
+        channels = rec.read_channels(self.channel_indices_for(rec))
+        return extractor.extract_epochs(
+            channels, rec.markers, guessed,
+            pre=self._pre, post=self._post, balance=balance,
+        )
+
+    # -- reference-parity accessors ------------------------------------
+
+    @property
+    def batch(self) -> extractor.EpochBatch:
+        """The last :meth:`load`'s epochs, loading them first if needed."""
+        if self._batch is None:
+            return self.load()
+        return self._batch
+
+    def get_data(self) -> List[np.ndarray]:
+        """List of (3, 750) float64 epochs (reference ``getData``)."""
+        return [e for e in self.batch.epochs]
+
+    def get_data_labels(self) -> List[float]:
+        """List of 0.0/1.0 labels (reference ``getDataLabels``)."""
+        return [float(t) for t in self.batch.targets]
+
     def load_features_device(
         self,
         wavelet_index: int = 8,
@@ -180,8 +235,9 @@ class OfflineDataProvider:
         """info.txt run -> DWT features without host epochs.
 
         Per recording, in info.txt order with one shared
-        :class:`BalanceState`: the raw int16 channels are staged to the
-        device once, the host plans the kept markers, and one launch of
+        :class:`BalanceState`: the raw channels (int16, or scaled float32
+        for other binary formats) are staged to the device once, the host
+        plans the kept markers, and one launch of
         the fused kernel (``ops/ingest_cuda.py``) produces the
         L2-normalized feature rows. Returns (features (n, C*K) float32
         on the provider's device, targets (n,) float64).

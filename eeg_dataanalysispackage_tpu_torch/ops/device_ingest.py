@@ -1,4 +1,4 @@
-"""On-device ingest: raw int16 recording -> features, with no host epochs.
+"""On-device ingest: raw recording samples -> features, with no host epochs.
 
 Division of labour:
 
@@ -7,7 +7,8 @@ Division of labour:
   depend only on the marker sequence, never on sample values —
   producing an :class:`IngestPlan`;
 - device: everything touching the waveform. The unscaled int16 samples
-  are staged to the card once per recording (:func:`stage_raw`), and
+  (or, for other binary formats, the scaled float32 samples) are staged
+  to the card once per recording (:func:`stage_raw`), and
   the fused featurizer (``ops/ingest_cuda.py``) scales, cuts, baseline-
   corrects, contracts and normalizes in one kernel.
 
@@ -46,20 +47,27 @@ def stage_raw(
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Stage a recording's channels on ``device`` for fused ingest.
 
-    Returns (raw int16 (C, S_padded), resolutions float32 (C,),
-    n_samples). The samples stay UNSCALED int16 (half the float32
-    transfer bytes); the sample axis is zero-padded up to a multiple of
+    Returns (raw (C, S_padded), resolutions float32 (C,), n_samples).
+    INT_16 recordings stage their UNSCALED int16 samples (half the
+    float32 transfer bytes); other formats fall back to the already
+    scaled float32 channels with unit resolutions, as the JAX package
+    does. The sample axis is zero-padded up to a multiple of
     ``sample_multiple``. The padding is semantically free: window
     validity is decided against the true ``n_samples``, and windows
     overhanging the end read zeros exactly as Java's copyOfRange
-    zero-pads. Non-INT_16 recordings raise TypeError.
+    zero-pads.
     """
-    raw = recording.raw_int16(channel_indices)
-    res = recording.resolutions(channel_indices)
+    try:
+        raw = recording.raw_int16(channel_indices)
+        res = recording.resolutions(channel_indices)
+    except TypeError:
+        raw = recording.read_channels(channel_indices).astype(np.float32)
+        res = np.ones(len(channel_indices), dtype=np.float32)
     C, n_samples = raw.shape
     padded = _round_capacity(n_samples, sample_multiple)
-    staged = torch.empty((C, padded), dtype=torch.int16, device=device)
-    staged[:, :n_samples].copy_(torch.from_numpy(raw))
+    host = torch.from_numpy(raw)
+    staged = torch.empty((C, padded), dtype=host.dtype, device=device)
+    staged[:, :n_samples].copy_(host)
     staged[:, n_samples:].zero_()
     return staged, torch.from_numpy(res).to(device), n_samples
 
@@ -168,7 +176,7 @@ def ingest_matrix(
 
 
 def ingest_features_plain(
-    raw_i16: torch.Tensor,
+    raw: torch.Tensor,
     resolutions: torch.Tensor,
     starts: torch.Tensor,
     operator: torch.Tensor,
@@ -177,7 +185,7 @@ def ingest_features_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused ingest kernel.
 
-    ``raw_i16`` (C, S) int16, ``resolutions`` (C,) float32, ``starts``
+    ``raw`` (C, S) int16 or float32, ``resolutions`` (C,) float32, ``starts``
     (n,) int32 window starts (``position - pre``), ``operator`` (E, K)
     float32 cascade matrix. Per window and channel: scale the samples by
     the resolution; read ``[start, start + pre)`` (baseline) and
@@ -186,22 +194,24 @@ def ingest_features_plain(
     the analysis samples; contract with ``operator``; concatenate the
     channels and L2-normalize. Returns (n, C*K) float32 in input order.
 
-    The baseline mean is accumulated in float64: the int16 x resolution
-    products of one window sum exactly there, so the mean is the same
-    whatever the summation order — the kernel does the same, and the
-    two agree on it bit for bit at any DC offset.
+    The baseline mean is accumulated in float64. For int16 samples the
+    int16 x resolution products of one window sum exactly there, so the
+    mean is the same whatever the summation order — the kernel does the
+    same, and the two agree on it bit for bit at any DC offset. For
+    float32 samples the sum need not be exact, and the kernel's mean may
+    differ from this one by an ulp.
     """
-    C, S = raw_i16.shape
+    C, S = raw.shape
     E, K = operator.shape
     n = starts.shape[0]
-    dev = raw_i16.device
+    dev = raw.device
     offsets = torch.cat([
         torch.arange(pre, device=dev),
         pre + skip_samples + torch.arange(E, device=dev),
     ])
     idx = starts.to(torch.int64)[:, None] + offsets[None, :]  # (n, pre+E)
     inside = (idx >= 0) & (idx < S)
-    samples = raw_i16[:, idx.clamp(0, max(S - 1, 0))]  # (C, n, pre+E)
+    samples = raw[:, idx.clamp(0, max(S - 1, 0))]  # (C, n, pre+E)
     scaled = samples.to(torch.float32) * resolutions[:, None, None]
     scaled = torch.where(inside, scaled, torch.zeros((), device=dev))
     base = scaled[..., :pre].to(torch.float64).mean(dim=-1).to(torch.float32)

@@ -3,16 +3,24 @@
 The 6-level cascade is linear, so its first ``count`` coefficients
 compose into one (n, count) matrix (:func:`cascade_matrix`); features
 are that matrix applied to the analysis window, then L2-normalized.
+
+:func:`epoch_features` is the plain version of the epoch-features
+kernel (``ops/dwt_cuda.py``). :func:`make_batched_extractor` and
+:func:`make_compact_extractor` are the counterparts of the JAX
+package's XLA extractors (``fe=dwt-<i>-tpu`` and ``-tpu-compact``):
+plain PyTorch contractions on an explicit device.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from . import dwt_host, eegdsp_compat
+from ..utils.device import resolve_device
 
 
 @lru_cache(maxsize=None)
@@ -50,3 +58,91 @@ def epoch_features(
     window = epochs[:, :, skip_samples : skip_samples + epoch_size]
     coeffs = torch.einsum("bct,tk->bck", window, W)
     return safe_l2_normalize(coeffs.reshape(B, C * feature_size))
+
+
+def windowed_features(
+    flat: torch.Tensor, wavelet_index: int, count: int
+) -> torch.Tensor:
+    """(..., n) already-windowed signals -> (..., count) coefficients via
+    the composed-cascade contraction."""
+    W = torch.as_tensor(
+        cascade_matrix(wavelet_index, flat.shape[-1], count),
+        dtype=flat.dtype, device=flat.device,
+    )
+    return flat @ W
+
+
+def compact_epoch_features(
+    ep: torch.Tensor, wavelet_index: int, epoch_size: int, feature_size: int
+) -> torch.Tensor:
+    """(B, C, epoch_size) pre-windowed epochs -> (B, C*feature_size)
+    normalized features."""
+    B, C, n = ep.shape
+    if n != epoch_size:
+        # windowed_features sizes its cascade from the input, so a
+        # mis-sliced batch would silently get a different-depth
+        # transform; fail loudly instead
+        raise ValueError(
+            f"compact path built for epoch_size {epoch_size}; "
+            f"got windowed batch of width {n}"
+        )
+    coeffs = windowed_features(ep, wavelet_index, feature_size)
+    return safe_l2_normalize(coeffs.reshape(B, C * feature_size))
+
+
+def make_compact_extractor(
+    wavelet_index: int = 8,
+    epoch_size: int = 512,
+    feature_size: int = 16,
+    device: Optional[Union[str, torch.device]] = None,
+    dtype: torch.dtype = torch.float32,
+):
+    """``(B, C, epoch_size) -> (B, C*feature_size)`` extractor over
+    compact epochs (the analysis window only), on ``device``; takes a
+    numpy array or a tensor and returns a tensor on ``device``."""
+    dev = resolve_device(device)
+    cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
+
+    def extract(epochs) -> torch.Tensor:
+        ep = torch.as_tensor(epochs, device=dev).to(dtype)
+        return compact_epoch_features(ep, wavelet_index, epoch_size, feature_size)
+
+    return extract
+
+
+def make_batched_extractor(
+    wavelet_index: int = 8,
+    epoch_size: int = 512,
+    skip_samples: int = 175,
+    feature_size: int = 16,
+    channels: Sequence[int] = (1, 2, 3),
+    device: Optional[Union[str, torch.device]] = None,
+    dtype: torch.dtype = torch.float32,
+    method: str = "matmul",
+):
+    """``(B, n_ch, n_samples) -> (B, len(channels)*feature_size)``
+    extractor on ``device``: select the 1-based ``channels``, slice each
+    one's analysis window, contract with the cascade matrix, concatenate
+    and L2-normalize. Takes a numpy array or a tensor and returns a
+    tensor on ``device``. ``method="conv"`` (the JAX package's
+    level-by-level filter bank, which no path selects) is not ported."""
+    if method == "conv":
+        raise ValueError(
+            "method='conv' (the level-by-level filter bank) is not yet "
+            "ported; see ROADMAP.md"
+        )
+    if method != "matmul":
+        raise ValueError(f"unknown method {method!r}; use 'matmul' or 'conv'")
+    dev = resolve_device(device)
+    ch_idx = [c - 1 for c in channels]
+    cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
+
+    def extract(epochs) -> torch.Tensor:
+        ep = torch.as_tensor(epochs, device=dev).to(dtype)
+        # channel gather only when the selection isn't the identity — a
+        # no-op gather would copy the whole batch
+        if ch_idx != list(range(ep.shape[1])):
+            ep = ep[:, ch_idx, :]
+        return epoch_features(ep, wavelet_index, skip_samples, epoch_size, feature_size)
+
+    return extract

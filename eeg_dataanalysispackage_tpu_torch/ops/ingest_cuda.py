@@ -3,10 +3,13 @@
 Counterpart of the JAX package's Pallas ingest kernels
 (``ops/ingest_pallas.py``: the ``exact``, ``bank128`` and ``aligned8``
 formulations of one function): int16 stream + window starts ->
-(n, C*16) L2-normalized features in marker order.
+(n, C*16) L2-normalized features in marker order. A float32 stream (a
+recording in another binary format, staged already scaled) runs the
+kernel's float32-sample instantiation.
 
 :func:`ingest_features` checks its inputs, then for CUDA tensors
-launches the kernel (and counts the launch in :data:`LAUNCHES`), and
+launches the kernel (and counts the launch in :data:`LAUNCHES` or
+:data:`LAUNCHES_F32`), and
 for CPU tensors runs the plain version,
 ``device_ingest.ingest_features_plain``. A CUDA launch that fails
 raises; nothing falls back to the plain version on the card.
@@ -30,8 +33,10 @@ import torch
 from . import cuda_build, device_ingest, dwt
 from ..utils import constants
 
-#: kernel launches made by this process (the wrapper adds one per launch)
+#: kernel launches made by this process (the wrapper adds one per
+#: launch): int16 streams in LAUNCHES, float32 streams in LAUNCHES_F32
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 
 EPOCH_SIZE = 512  # the kernel's analysis window
 FEATURE_SIZE = 16  # the kernel's coefficients per channel
@@ -41,9 +46,9 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ingest_features")
-    fn = lib.ingest_features_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.ingest_features_launch, lib.ingest_features_f32_launch):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.ingest_features_error_string.argtypes = [ctypes.c_int]
     lib.ingest_features_error_string.restype = ctypes.c_char_p
     return lib
@@ -55,10 +60,12 @@ def build() -> str:
     return cuda_build.library_path("ingest_features")
 
 
-def _check(raw_i16, resolutions, starts, operator, pre, skip_samples) -> None:
-    if raw_i16.dim() != 2 or raw_i16.dtype != torch.int16:
-        raise ValueError(f"raw must be (C, S) int16, got {tuple(raw_i16.shape)} {raw_i16.dtype}")
-    C, S = raw_i16.shape
+def _check(raw, resolutions, starts, operator, pre, skip_samples) -> None:
+    if raw.dim() != 2 or raw.dtype not in (torch.int16, torch.float32):
+        raise ValueError(
+            f"raw must be (C, S) int16 or float32, got {tuple(raw.shape)} {raw.dtype}"
+        )
+    C, S = raw.shape
     if resolutions.shape != (C,) or resolutions.dtype != torch.float32:
         raise ValueError(
             f"resolutions must be ({C},) float32, got "
@@ -71,10 +78,10 @@ def _check(raw_i16, resolutions, starts, operator, pre, skip_samples) -> None:
             f"operator must be ({EPOCH_SIZE}, {FEATURE_SIZE}) float32, got "
             f"{tuple(operator.shape)} {operator.dtype}"
         )
-    for name, t in (("raw", raw_i16), ("resolutions", resolutions),
+    for name, t in (("raw", raw), ("resolutions", resolutions),
                     ("starts", starts), ("operator", operator)):
-        if t.device != raw_i16.device:
-            raise ValueError(f"{name} is on {t.device}, raw on {raw_i16.device}")
+        if t.device != raw.device:
+            raise ValueError(f"{name} is on {t.device}, raw on {raw.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if pre < 1 or skip_samples < 0:
@@ -84,34 +91,37 @@ def _check(raw_i16, resolutions, starts, operator, pre, skip_samples) -> None:
 
 
 def ingest_features(
-    raw_i16: torch.Tensor,
+    raw: torch.Tensor,
     resolutions: torch.Tensor,
     starts: torch.Tensor,
     operator: torch.Tensor,
     pre: int = constants.PRESTIMULUS_SAMPLES,
     skip_samples: int = 175,
 ) -> torch.Tensor:
-    """(C, S) int16 + (C,) res + (n,) int32 starts + (512, 16) operator
-    -> (n, C*16) float32 features; see ``device_ingest.ingest_features_plain``
-    for the exact function. Samples at or past ``S`` read 0."""
-    global LAUNCHES
-    _check(raw_i16, resolutions, starts, operator, pre, skip_samples)
-    if raw_i16.device.type == "cpu":
+    """(C, S) int16 or float32 + (C,) res + (n,) int32 starts + (512, 16)
+    operator -> (n, C*16) float32 features; see
+    ``device_ingest.ingest_features_plain`` for the exact function.
+    Samples at or past ``S`` read 0."""
+    global LAUNCHES, LAUNCHES_F32
+    _check(raw, resolutions, starts, operator, pre, skip_samples)
+    if raw.device.type == "cpu":
         return device_ingest.ingest_features_plain(
-            raw_i16, resolutions, starts, operator, pre, skip_samples
+            raw, resolutions, starts, operator, pre, skip_samples
         )
-    if raw_i16.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw_i16.device}")
-    C, S = raw_i16.shape
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    C, S = raw.shape
     n = starts.shape[0]
-    out = torch.empty((n, C * FEATURE_SIZE), dtype=torch.float32, device=raw_i16.device)
+    out = torch.empty((n, C * FEATURE_SIZE), dtype=torch.float32, device=raw.device)
     if n == 0:
         return out
     lib = _library()
-    with torch.cuda.device(raw_i16.device):
-        stream = torch.cuda.current_stream(raw_i16.device).cuda_stream
-        rc = lib.ingest_features_launch(
-            raw_i16.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
+    int16 = raw.dtype == torch.int16
+    launch = lib.ingest_features_launch if int16 else lib.ingest_features_f32_launch
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream(raw.device).cuda_stream
+        rc = launch(
+            raw.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
             operator.data_ptr(), out.data_ptr(),
             n, C, S, pre, skip_samples, stream,
         )
@@ -120,7 +130,10 @@ def ingest_features(
             f"ingest_features launch failed: CUDA error {rc} "
             f"({lib.ingest_features_error_string(rc).decode()})"
         )
-    LAUNCHES += 1
+    if int16:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_F32 += 1
     return out
 
 
@@ -136,7 +149,7 @@ def _operator(wavelet_index: int, epoch_size: int, feature_size: int,
 
 
 def ingest_features_cuda(
-    raw_i16: torch.Tensor,
+    raw: torch.Tensor,
     resolutions: torch.Tensor,
     positions: np.ndarray,
     wavelet_index: int = 8,
@@ -145,22 +158,22 @@ def ingest_features_cuda(
     feature_size: int = 16,
     pre: int = constants.PRESTIMULUS_SAMPLES,
 ) -> torch.Tensor:
-    """(C, S) int16 raw + (n,) marker positions -> (n, C*K) features in
+    """(C, S) int16 or float32 raw + (n,) marker positions -> (n, C*K) features in
     marker order — the counterpart of ``ingest_pallas.ingest_features_pallas``.
     Positions must be validated (``0 <= position - pre <= S``), as the
     planner guarantees; others raise."""
     starts = np.asarray(positions, dtype=np.int64) - pre
-    S = raw_i16.shape[1]
+    S = raw.shape[1]
     if starts.size and (starts.min() < 0 or starts.max() > S):
         raise ValueError(
             f"window starts must lie in [0, {S}]; got "
             f"[{int(starts.min())}, {int(starts.max())}]"
         )
     return ingest_features(
-        raw_i16,
+        raw,
         resolutions,
-        torch.from_numpy(starts.astype(np.int32)).to(raw_i16.device),
-        _operator(wavelet_index, epoch_size, feature_size, raw_i16.device),
+        torch.from_numpy(starts.astype(np.int32)).to(raw.device),
+        _operator(wavelet_index, epoch_size, feature_size, raw.device),
         pre,
         skip_samples,
     )
@@ -173,24 +186,24 @@ def make_cuda_ingest_featurizer(
     feature_size: int = 16,
     pre: int = constants.PRESTIMULUS_SAMPLES,
 ):
-    """Callable ``(raw int16 (C, S), resolutions, positions, mask) ->
+    """Callable ``(raw int16 or float32 (C, S), resolutions, positions, mask) ->
     (capacity, C*K)`` over an ``IngestPlan``'s padded positions/mask —
     the decode rung's form. Padded rows start at ``S``, read only zeros
     and come out as zero rows, so one launch covers the whole plan."""
     operators: Dict[torch.device, torch.Tensor] = {}
 
-    def featurize(raw_i16, resolutions, positions, mask):
-        dev = raw_i16.device
+    def featurize(raw, resolutions, positions, mask):
+        dev = raw.device
         if dev not in operators:
             operators[dev] = _operator(wavelet_index, epoch_size, feature_size, dev)
-        S = raw_i16.shape[1]
+        S = raw.shape[1]
         starts = np.where(
             np.asarray(mask, dtype=bool),
             np.clip(np.asarray(positions, dtype=np.int64) - pre, 0, S),
             S,
         ).astype(np.int32)
         return ingest_features(
-            raw_i16, resolutions, torch.from_numpy(starts).to(dev),
+            raw, resolutions, torch.from_numpy(starts).to(dev),
             operators[dev], pre, skip_samples,
         )
 

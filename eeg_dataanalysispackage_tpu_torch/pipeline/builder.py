@@ -2,11 +2,19 @@
 
 The reference's run-time configuration surface is one ``k=v&k=v`` string
 (PipelineBuilder.java:94-295). This builder runs its batch P300 path on
-the port: ``fe=dwt-<i>-fused`` ingest on the device (the CUDA fused
-kernel), the seed-1 shuffle + 70/30 split, linear classifiers with
-MLlib-SGD semantics, ``config_*`` pass-through, ``save_clf``/``load_clf``
-and the ``result_path`` report file; and ``serve=true``, which drives the
-session through the resident inference service (``serve/pipeline.py``).
+the port, in two forms:
+
+- ``fe=dwt-<i>-fused``: ingest on the device (the CUDA fused kernel),
+  no host epochs;
+- ``fe=dwt-<i>`` and ``-tpu``, ``-tpu-compact``, ``-pallas``: host epochs
+  (``provider.load``), featurized by the ``features/registry`` extractor
+  inside ``classifier.train``/``test`` (``-pallas`` runs the CUDA
+  epoch-features kernel);
+
+then the seed-1 shuffle + 70/30 split, linear classifiers with MLlib-SGD
+semantics, ``config_*`` pass-through, ``save_clf``/``load_clf`` and the
+``result_path`` report file. ``serve=true`` drives the session through
+the resident inference service (``serve/pipeline.py``).
 
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
@@ -26,6 +34,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..features import registry as fe_registry
 from ..io import modelfiles, provider
 from ..models import registry, stats
 from ..serve import pipeline as serve_pipeline
@@ -80,12 +89,17 @@ class PipelineBuilder:
         self.query = query
         self.device = resolve_device(device)
         self.statistics: Optional[stats.ClassificationStatistics] = None
-        #: wall seconds of the last run by stage: parse, stage,
-        #: featurize, train, test (each device stage ends in a sync)
+        #: wall seconds of the last run by stage: parse, stage (fused)
+        #: or epoch (host fe=), featurize, train, test (each device
+        #: stage ends in a sync)
         self.timers: Dict[str, float] = {}
-        #: the last run's feature rows (on ``device``) and targets
+        #: the last fused run's feature rows (on ``device``); the last
+        #: run's targets
         self.features: Optional[torch.Tensor] = None
         self.targets: Optional[np.ndarray] = None
+        #: the last host fe= run's epochs and feature extractor
+        self.batch = None
+        self.fe = None
         #: the last run's classifier and the row indices it was tested on
         self.classifier = None
         self.test_index: Optional[list] = None
@@ -141,30 +155,34 @@ class PipelineBuilder:
         if "fe" not in query_map:
             raise ValueError("Missing the feature extraction argument")
         fused = _FUSED_FE.fullmatch(query_map["fe"])
-        if fused is None:
-            raise ValueError(
-                f"fe={query_map['fe']} is not yet ported (the port runs "
-                "fe=dwt-<i>-fused); see ROADMAP.md"
-            )
+        # an unknown or unported fe= spelling raises here, before loading
+        fe = None if fused else fe_registry.create(query_map["fe"], device=self.device)
         if "train_clf" not in query_map and "load_clf" not in query_map:
             raise ValueError("Missing classifier argument")
-        wavelet_index = int(fused.group(1))
-        suffix = fused.group(2)
-        backend = "decode" if suffix is None else suffix[1:]
-        logger.info(
-            "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s "
-            "(no feature cache, no degradation ladder)",
-            query_map["fe"], backend, self.device,
-        )
-
         odp = provider.OfflineDataProvider(files, device=self.device)
-        features, targets = odp.load_features_device(
-            wavelet_index=wavelet_index, backend=backend
-        )
+        if fe is None:
+            wavelet_index = int(fused.group(1))
+            suffix = fused.group(2)
+            backend = "decode" if suffix is None else suffix[1:]
+            logger.info(
+                "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s "
+                "(no feature cache, no degradation ladder)",
+                query_map["fe"], backend, self.device,
+            )
+            features, targets = odp.load_features_device(
+                wavelet_index=wavelet_index, backend=backend
+            )
+            labels = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
+            batch = None
+        else:
+            # the host fe= path (JAX package: pipeline/builder.py:834-840,
+            # 904-990): host epochs; classifier.train and classifier.test
+            # each featurize their own rows with fe
+            batch = odp.load()
+            features, targets = None, batch.targets
         self.timers = dict(odp.timings)
-        self.features, self.targets = features, targets
+        self.features, self.targets, self.batch, self.fe = features, targets, batch, fe
         n = len(targets)
-        labels = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
 
         # 3. classifier (PipelineBuilder.java:151-284)
         if "train_clf" in query_map:
@@ -174,11 +192,15 @@ class PipelineBuilder:
             classifier.set_config(
                 {k: v for k, v in query_map.items() if k.startswith("config_")}
             )
-            train = torch.as_tensor(train_idx, dtype=torch.long, device=self.device)
-            t0 = time.perf_counter()
-            classifier.fit(features[train], labels[train])
-            self._sync()
-            self.timers["train"] = time.perf_counter() - t0
+            if fe is None:
+                train = torch.as_tensor(train_idx, dtype=torch.long, device=self.device)
+                t0 = time.perf_counter()
+                classifier.fit(features[train], labels[train])
+                self._sync()
+                self.timers["train"] = time.perf_counter() - t0
+            else:
+                rows = np.asarray(train_idx, dtype=np.int64)
+                classifier.train(batch.epochs[rows], batch.targets[rows], fe)
             logger.info("trained %s", name)
             if query_map.get("save_clf") == "true":
                 if "save_name" not in query_map:
@@ -194,14 +216,23 @@ class PipelineBuilder:
             # load mode tests on ALL shuffled data — no split
             # (PipelineBuilder.java:261-278)
             test_idx = java_compat.java_shuffle_indices(n, seed=1)
+            if fe is not None:
+                classifier.set_feature_extraction(fe)
             classifier.load(query_map["load_name"])
 
-        test = torch.as_tensor(test_idx, dtype=torch.long, device=self.device)
-        t0 = time.perf_counter()
-        statistics = classifier.test_features(
-            features[test], targets[np.asarray(test_idx, dtype=np.int64)]
-        )
-        self.timers["test"] = time.perf_counter() - t0
+        rows = np.asarray(test_idx, dtype=np.int64)
+        if fe is None:
+            test = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+            t0 = time.perf_counter()
+            statistics = classifier.test_features(features[test], targets[rows])
+            self.timers["test"] = time.perf_counter() - t0
+        else:
+            statistics = classifier.test(batch.epochs[rows], batch.targets[rows])
+            timings = classifier.timings
+            self.timers["featurize"] = timings["featurize"]
+            if "fit" in timings:
+                self.timers["train"] = timings["fit"]
+            self.timers["test"] = timings["predict"]
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
 

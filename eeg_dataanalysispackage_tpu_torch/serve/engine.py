@@ -314,15 +314,14 @@ def windows_from_recording(
     cross-file ``balance`` state, and the per-channel resolutions. The
     serve pipeline drives a batch session through the service with it.
     """
-    try:
-        raw, resolutions, n_samples = device_ingest.stage_raw(
-            recording, list(channel_indices), torch.device("cpu")
-        )
-    except TypeError as e:
+    raw, resolutions, n_samples = device_ingest.stage_raw(
+        recording, list(channel_indices), torch.device("cpu")
+    )
+    if raw.dtype != torch.int16:
         raise ValueError(
-            f"serving non-INT_16 recordings is not yet ported ({e}); "
-            "see ROADMAP.md"
-        ) from e
+            f"serving non-INT_16 recordings ({recording.header.binary_format}) "
+            "is not yet ported; see ROADMAP.md"
+        )
     plan = device_ingest.plan_ingest(
         recording.markers, guessed, n_samples,
         pre=pre, post=post, balance=balance,

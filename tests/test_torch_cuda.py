@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the fused
+ingest kernel (int16 and float32 streams), the serve megakernel and the
+epoch-features kernel.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
@@ -7,8 +9,9 @@ runs on a machine with only the port installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance 2e-6 on features: a kernel and its plain version compute the
-same float32 arithmetic and differ only in summation order (the
-baseline mean, summed exactly in float64 by both, agrees bit for bit).
+same float32 arithmetic and differ only in summation order (for int16
+streams the baseline mean, summed exactly in float64 by both, agrees bit
+for bit; for float32 streams it may differ by an ulp).
 On margins, 2e-6 * ||w||_1: the margin error a 2e-6 feature error can
 make.
 """
@@ -17,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from eeg_dataanalysispackage_tpu_torch.features import wavelet
 from eeg_dataanalysispackage_tpu_torch.ops import (
-    device_ingest, dwt, ingest_cuda, serve_mega, serve_mega_cuda,
+    device_ingest, dwt, dwt_cuda, ingest_cuda, serve_mega, serve_mega_cuda,
 )
 
 RES = np.array([0.1, 0.1, 0.2], np.float32)
@@ -139,3 +143,93 @@ def test_serve_mega_kernel_raises_on_a_refused_launch():
     weights = torch.zeros(200 * 16, dtype=torch.float32, device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
         serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STARTS))
+@pytest.mark.parametrize("dc,noise", [((0.0, 0.0, 0.0), 300.0), ((3000.0, -3000.0, 2950.5), 150.0)])
+def test_ingest_kernel_matches_plain_version_on_a_float32_stream(case, dc, noise):
+    dev = _card()
+    S = 30000
+    rng = np.random.RandomState(2)
+    x = rng.randn(3, S) * noise + np.asarray(dc)[:, None]
+    raw = torch.from_numpy(x.astype(np.float32)).to(dev)
+    res = torch.ones(3, dtype=torch.float32, device=dev)
+    W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
+    starts = torch.from_numpy(STARTS[case](S).astype(np.int32)).to(dev)
+    before = (ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_F32)
+    got = ingest_cuda.ingest_features(raw, res, starts, W)
+    torch.cuda.synchronize()
+    assert (ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_F32) == (before[0], before[1] + 1)
+    want = device_ingest.ingest_features_plain(raw, res, starts, W)
+    assert got.shape == want.shape == (starts.shape[0], 48)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
+    assert (got[starts >= S] == 0).all()
+
+
+def _epochs(B, C=3, T=750, seed=0, dc=300.0, noise=40.0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, C, T) * noise + rng.randn(B, C, 1) * dc).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 37, 128, 1000])
+@pytest.mark.parametrize("dc,noise", [(300.0, 40.0), (3000.0, 15.0)])
+def test_epoch_kernel_matches_plain_version(B, dc, noise):
+    dev = _card()
+    x = torch.from_numpy(_epochs(B, seed=B, dc=dc, noise=noise)).to(dev)
+    before = dwt_cuda.LAUNCHES
+    got = dwt_cuda.epoch_features_cuda(x)
+    torch.cuda.synchronize()
+    assert dwt_cuda.LAUNCHES == before + 1
+    want = dwt.epoch_features(x)
+    assert got.shape == want.shape == (B, 48)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_epoch_kernel_gives_an_all_zero_epoch_a_zero_row():
+    dev = _card()
+    x = _epochs(7, seed=1)
+    x[3] = 0.0
+    got = dwt_cuda.epoch_features_cuda(torch.from_numpy(x).to(dev))
+    assert (got[3] == 0).all() and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_epoch_kernel_behind_the_extractor_selects_channels_on_the_host():
+    dev = _card()
+    five = _epochs(16, C=5, seed=3).astype(np.float64)
+    fe = wavelet.WaveletTransform(backend="pallas", device=dev)
+    before = dwt_cuda.LAUNCHES
+    got = fe.extract_batch(five)
+    assert dwt_cuda.LAUNCHES == before + 1 and got.device.type == "cuda"
+    want = dwt.epoch_features(torch.from_numpy(five[:, :3].astype(np.float32)).to(dev))
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_epoch_kernel_wrapper_raises_rather_than_running_the_plain_version():
+    """A CUDA tensor the kernel does not take raises (no plain fallback),
+    and an empty batch returns (0, C*16) without a launch."""
+    dev = _card()
+    before = dwt_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="exceeds epoch length"):
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 600), device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 750), device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="epoch_size=512"):
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 750), device=dev), epoch_size=256)
+    empty = dwt_cuda.epoch_features_cuda(torch.zeros((0, 3, 750), device=dev))
+    assert empty.shape == (0, 48) and dwt_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_epoch_kernel_raises_on_a_refused_launch():
+    """More shared memory than a block may have, from a channel count no
+    recording has: the launch is refused and the wrapper raises."""
+    dev = _card()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 200, 750), device=dev))

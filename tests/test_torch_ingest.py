@@ -168,8 +168,11 @@ def test_wrapper_rejects_bad_inputs():
     res = torch.from_numpy(RES)
     W = torch.zeros((512, 16))
     starts = torch.zeros(4, dtype=torch.int32)
+    # int16 and float32 streams run; other sample types raise
     with pytest.raises(ValueError):
-        ingest_cuda.ingest_features(raw.float(), res, starts, W)
+        ingest_cuda.ingest_features(raw.double(), res, starts, W)
+    with pytest.raises(ValueError):
+        ingest_cuda.ingest_features(raw.int(), res, starts, W)
     with pytest.raises(ValueError):
         ingest_cuda.ingest_features(raw, res.double(), starts, W)
     with pytest.raises(ValueError):

@@ -139,7 +139,9 @@ def test_unported_keys_raise(one_file, extra):
         PipelineBuilder(q, device="cpu").execute()
 
 
-@pytest.mark.parametrize("fe", ["dwt-8", "dwt-8-tpu", "dwt-8-pallas"])
+# the host fe= modes run (tests/test_torch_host_path.py); their bf16
+# spellings and the subband grammar do not
+@pytest.mark.parametrize("fe", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16", "dwt-8:level=4"])
 def test_host_fe_modes_raise(one_file, fe):
     q = f"info_file={one_file}&fe={fe}&train_clf=logreg"
     with pytest.raises(ValueError, match="not yet ported"):
