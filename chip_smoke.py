@@ -32,7 +32,11 @@ Phases, one JSON line each (several for phases 2 to 6):
    counted from 0 just before it (the ingest kernel once per recording,
    the epoch-features kernel twice per ``-pallas`` train run), and its
    statistics equal the port's CPU run (a test row may differ only where
-   its margin lies within 1e-4 of the threshold on both runs);
+   its margin lies within 1e-4 of the threshold on both runs). The
+   features each kernel made in a run are held at 2e-6 against the CPU
+   run's: the fused runs' rows, and the ``-pallas`` logreg runs' own
+   train and test epochs through the run's extractor, also against the
+   plain version on the same float32 tensor;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -568,12 +572,52 @@ def run_builder(label, query, device, counters):
     return builder, stats, launches
 
 
+def host_features_vs_plain(np, gpu, cpu, label):
+    """A -pallas run's own train and test epochs through its extractor
+    on the card, i.e. the epoch-features kernel at the shapes the run
+    gave it, held against the plain version on the same float32 tensor
+    and against the CPU run's extractor on the CPU run's epochs; returns
+    the larger deviation. Called after the run's counts are read."""
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.ops import dwt
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    if gpu.batch.epochs.tobytes() != cpu.batch.epochs.tobytes():
+        raise AssertionError(f"{label}: host epochs differ between the card and CPU runs")
+    train_idx, _ = java_compat.train_test_split_indices(len(gpu.targets), seed=1)
+    worst = 0.0
+    for part, rows in (("train", train_idx), ("test", gpu.test_index)):
+        rows = np.asarray(rows, dtype=np.int64)
+        ep = gpu.batch.epochs[rows]
+        if ep.shape[1:] != (3, 750):
+            raise AssertionError(f"{label}: host epochs of shape {ep.shape}, not (n, 3, 750)")
+        got = gpu.fe.extract_batch(ep)
+        torch.cuda.synchronize()
+        want = dwt.epoch_features(torch.from_numpy(ep.astype(np.float32)).to(got.device))
+        on_cpu = cpu.fe.extract_batch(cpu.batch.epochs[rows])
+        err_plain = (got - want).abs().max().item()
+        err_cpu = (got.cpu() - on_cpu).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        emit("host_features_vs_plain", run=label, part=part, epochs=list(ep.shape),
+             device=str(got.device), max_abs_err_plain=err_plain, max_abs_err_cpu=err_cpu,
+             tol=KERNEL_TOL, finite=finite)
+        if not (got.device.type == "cuda" and got.shape == (len(rows), 48) and finite
+                and err_plain <= KERNEL_TOL and err_cpu <= KERNEL_TOL):
+            raise AssertionError(f"{label}: {part} features disagree with the plain version")
+        worst = max(worst, err_plain, err_cpu)
+    return worst
+
+
 def phase_host_path(np, info, counters):
     """The host fe= path on the card and the CPU: -pallas with logreg
     and svm, the host-float64 fe=dwt-8 and the on-card contraction
-    -tpu, each against the port's CPU run; returns the epoch-features
-    kernel's launches over the -pallas logreg run."""
+    -tpu, each against the port's CPU run; the -pallas logreg run's
+    features against the plain version. Returns the epoch-features
+    kernel's launches over the -pallas logreg run and the features'
+    largest deviation."""
     runs = {}
+    feat_err = None
     for fe in ("dwt-8-pallas", "dwt-8", "dwt-8-tpu"):
         for clf in (("logreg", "svm") if fe == "dwt-8-pallas" else ("logreg",)):
             q = f"info_file={info}&fe={fe}&train_clf={clf}"
@@ -584,6 +628,8 @@ def phase_host_path(np, info, counters):
             if cpu[2]["epoch_features"] != 0:
                 raise AssertionError(f"{fe} {clf}: the kernel launched on the CPU path")
             compare_runs(np, gpu[0], cpu[0], f"{fe}_{clf}")
+            if (fe, clf) == ("dwt-8-pallas", "logreg"):
+                feat_err = host_features_vs_plain(np, gpu[0], cpu[0], f"{fe}_{clf}")
             runs[(fe, clf)] = gpu
     k4 = runs[("dwt-8-pallas", "logreg")][2]["epoch_features"]
     if k4 != 2:
@@ -591,7 +637,7 @@ def phase_host_path(np, info, counters):
     for fe in ("dwt-8", "dwt-8-tpu"):
         if runs[(fe, "logreg")][2]["epoch_features"] != 0:
             raise AssertionError(f"{fe} launched the epoch-features kernel")
-    return k4
+    return k4, feat_err
 
 
 def write_float_session(directory: str, n_files: int = 3, n_markers: int = 600) -> str:
@@ -630,8 +676,10 @@ def write_float_session(directory: str, n_files: int = 3, n_markers: int = 600) 
 def phase_float_session(np, info, counters, n_files):
     """A float32 session through the fused path (the ingest kernel's
     float32 instantiation) and the -pallas path on the card, each
-    against the port's CPU run; returns the float32 ingest kernel's
-    launches over the fused logreg run."""
+    against the port's CPU run: statistics, and the features the run's
+    kernel made against the CPU run's (the plain version on the same
+    inputs). Returns the float32 ingest kernel's launches over the fused
+    run and the largest feature deviation of each kernel."""
     launches = {}
     for fe in ("dwt-8-fused", "dwt-8-pallas"):
         q = f"info_file={info}&fe={fe}&train_clf=logreg"
@@ -639,12 +687,20 @@ def phase_float_session(np, info, counters, n_files):
         cpu = run_builder(f"float32_{fe}_cpu", q, "cpu", counters)
         compare_runs(np, gpu[0], cpu[0], f"float32_{fe}")
         launches[fe] = gpu[2]
+        if fe == "dwt-8-fused":
+            f32_err = (gpu[0].features.cpu() - cpu[0].features).abs().max().item()
+            emit("features_cuda_vs_cpu", run=f"float32_{fe}", rows=int(cpu[0].features.shape[0]),
+                 max_abs_err=f32_err, tol=KERNEL_TOL)
+            if not (f32_err <= KERNEL_TOL and gpu[0].features.shape == cpu[0].features.shape):
+                raise AssertionError("the float32 session's card features disagree with the CPU run")
+        else:
+            k4_err = host_features_vs_plain(np, gpu[0], cpu[0], f"float32_{fe}")
     fused, pallas = launches["dwt-8-fused"], launches["dwt-8-pallas"]
     if fused["ingest_features_f32"] != n_files or fused["ingest_features"] != 0:
         raise AssertionError(f"the float32 session's fused run launched {fused}")
     if pallas["epoch_features"] != 2:
         raise AssertionError(f"the float32 session's -pallas run launched {pallas}")
-    return fused["ingest_features_f32"]
+    return fused["ingest_features_f32"], f32_err, k4_err
 
 
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
@@ -836,12 +892,13 @@ def main() -> int:
         if str(runs["logreg_cuda_pallas_spelling"][0].statistics) != str(gpu.statistics):
             raise AssertionError("-fused-pallas spelling changed the statistics")
         main_launches = runs["logreg_cuda"][1]
-        k4_launches = phase_host_path(np, info, counters)
+        k4_launches, k4_path_err = phase_host_path(np, info, counters)
 
         float_dir = os.path.join(work, "float32")
         os.makedirs(float_dir)
         float_info = write_float_session(float_dir, n_files=3)
-        f32_launches = phase_float_session(np, float_info, counters, n_files=3)
+        f32_launches, f32_path_err, k4_f32_path_err = phase_float_session(
+            np, float_info, counters, n_files=3)
 
         # 5. the serving path end to end with the card's saved model
         serve_launches = phase_serve(torch, np, info, model, kept=int(len(gpu.targets)))
@@ -871,9 +928,9 @@ def main() -> int:
                      max(mega_err, mega_64[4], mega_big[4]), mega_64),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
-                     max(epoch_err, k4[4]), k4),
+                     max(epoch_err, k4_path_err, k4_f32_path_err, k4[4]), k4),
         kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
-                     max(f32_err, k1_f32[4]), k1_f32),
+                     max(f32_err, f32_path_err, k1_f32[4]), k1_f32),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

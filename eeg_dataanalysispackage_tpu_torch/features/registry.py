@@ -56,13 +56,3 @@ def create(name: str, device: Device = None) -> base.FeatureExtraction:
             name=int(m.group(1)), backend=_BACKENDS[m.group(2)], device=device
         )
     raise ValueError("Unsupported feature extraction argument")
-
-
-for _name, _backend in (("dwt-8", "host"), ("dwt-8-tpu", "xla"),
-                        ("dwt-8-pallas", "pallas"), ("dwt-8-tpu-compact", "xla-compact")):
-    register(
-        _name,
-        lambda device, _backend=_backend: wavelet.WaveletTransform(
-            8, 512, 175, 16, backend=_backend, device=device
-        ),
-    )

@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: the largest count a kernel's C ``int`` launch argument holds
+INT32_MAX = 2**31 - 1
+
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: ptxas register / shared-memory report of each build made by this process

@@ -8,7 +8,9 @@ are that matrix applied to the analysis window, then L2-normalized.
 kernel (``ops/dwt_cuda.py``). :func:`make_batched_extractor` and
 :func:`make_compact_extractor` are the counterparts of the JAX
 package's XLA extractors (``fe=dwt-<i>-tpu`` and ``-tpu-compact``):
-plain PyTorch contractions on an explicit device.
+float32 PyTorch contractions on an explicit device.
+:func:`kernel_operator` is the cascade matrix in the form every CUDA
+kernel of the package takes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,31 @@ def cascade_matrix(wavelet_index: int, n: int, count: int) -> np.ndarray:
     eye = np.eye(n, dtype=np.float64)
     h, g = eegdsp_compat.filter_pair(wavelet_index)
     return np.ascontiguousarray(dwt_host.fwt_periodic(eye, h, g)[:, :count])
+
+
+#: the analysis window and coefficient count the CUDA kernels compute
+#: (``csrc/window_features.cuh``: kEpoch, kFeatures)
+KERNEL_EPOCH_SIZE = 512
+KERNEL_FEATURE_SIZE = 16
+
+
+def check_kernel_sizes(kernel: str, epoch_size: int, feature_size: int) -> None:
+    """Raise unless the sizes are the ones the CUDA kernels compute."""
+    if (epoch_size, feature_size) != (KERNEL_EPOCH_SIZE, KERNEL_FEATURE_SIZE):
+        raise ValueError(
+            f"the {kernel} kernel computes epoch_size={KERNEL_EPOCH_SIZE}, "
+            f"feature_size={KERNEL_FEATURE_SIZE}; got {epoch_size}, {feature_size}"
+        )
+
+
+# a few (wavelet, device) pairs per process; bounded all the same
+@lru_cache(maxsize=16)
+def kernel_operator(wavelet_index: int, device: torch.device) -> torch.Tensor:
+    """The (512, 16) float32 cascade matrix the CUDA kernels take,
+    contiguous on ``device``; one tensor per (wavelet, device), which
+    callers must not modify."""
+    W = cascade_matrix(wavelet_index, KERNEL_EPOCH_SIZE, KERNEL_FEATURE_SIZE)
+    return torch.as_tensor(W, dtype=torch.float32).to(device).contiguous()
 
 
 def safe_l2_normalize(feats: torch.Tensor) -> torch.Tensor:
@@ -95,16 +122,15 @@ def make_compact_extractor(
     epoch_size: int = 512,
     feature_size: int = 16,
     device: Optional[Union[str, torch.device]] = None,
-    dtype: torch.dtype = torch.float32,
 ):
-    """``(B, C, epoch_size) -> (B, C*feature_size)`` extractor over
-    compact epochs (the analysis window only), on ``device``; takes a
-    numpy array or a tensor and returns a tensor on ``device``."""
+    """``(B, C, epoch_size) -> (B, C*feature_size)`` float32 extractor
+    over compact epochs (the analysis window only), on ``device``; takes
+    a numpy array or a tensor and returns a tensor on ``device``."""
     dev = resolve_device(device)
     cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
 
     def extract(epochs) -> torch.Tensor:
-        ep = torch.as_tensor(epochs, device=dev).to(dtype)
+        ep = torch.as_tensor(epochs, device=dev).to(torch.float32)
         return compact_epoch_features(ep, wavelet_index, epoch_size, feature_size)
 
     return extract
@@ -117,28 +143,19 @@ def make_batched_extractor(
     feature_size: int = 16,
     channels: Sequence[int] = (1, 2, 3),
     device: Optional[Union[str, torch.device]] = None,
-    dtype: torch.dtype = torch.float32,
-    method: str = "matmul",
 ):
     """``(B, n_ch, n_samples) -> (B, len(channels)*feature_size)``
-    extractor on ``device``: select the 1-based ``channels``, slice each
-    one's analysis window, contract with the cascade matrix, concatenate
-    and L2-normalize. Takes a numpy array or a tensor and returns a
-    tensor on ``device``. ``method="conv"`` (the JAX package's
-    level-by-level filter bank, which no path selects) is not ported."""
-    if method == "conv":
-        raise ValueError(
-            "method='conv' (the level-by-level filter bank) is not yet "
-            "ported; see ROADMAP.md"
-        )
-    if method != "matmul":
-        raise ValueError(f"unknown method {method!r}; use 'matmul' or 'conv'")
+    float32 extractor on ``device``: select the 1-based ``channels``,
+    slice each one's analysis window, contract with the cascade matrix,
+    concatenate and L2-normalize. Takes a numpy array or a tensor and
+    returns a tensor on ``device``. The JAX package's other method, the
+    level-by-level filter bank, is selected by no path and not ported."""
     dev = resolve_device(device)
     ch_idx = [c - 1 for c in channels]
     cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
 
     def extract(epochs) -> torch.Tensor:
-        ep = torch.as_tensor(epochs, device=dev).to(dtype)
+        ep = torch.as_tensor(epochs, device=dev).to(torch.float32)
         # channel gather only when the selection isn't the identity — a
         # no-op gather would copy the whole batch
         if ch_idx != list(range(ep.shape[1])):

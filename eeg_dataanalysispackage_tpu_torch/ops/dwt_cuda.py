@@ -18,20 +18,13 @@ the card.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
-import numpy as np
 import torch
 
 from . import cuda_build, dwt
 
 #: kernel launches made by this process (the wrapper adds one per launch)
 LAUNCHES = 0
-
-EPOCH_SIZE = 512  # the kernel's analysis window
-FEATURE_SIZE = 16  # the kernel's coefficients per channel
-
-_INT32_MAX = int(np.iinfo(np.int32).max)
 
 
 def _library() -> ctypes.CDLL:
@@ -50,13 +43,6 @@ def build() -> str:
     return cuda_build.library_path("epoch_features")
 
 
-# a few (wavelet, device) pairs per process; bounded all the same
-@lru_cache(maxsize=16)
-def _operator(wavelet_index: int, device: torch.device) -> torch.Tensor:
-    W = dwt.cascade_matrix(wavelet_index, EPOCH_SIZE, FEATURE_SIZE)
-    return torch.as_tensor(W, dtype=torch.float32).to(device).contiguous()
-
-
 def _check(epochs: torch.Tensor, skip_samples: int, epoch_size: int) -> None:
     if epochs.dim() != 3 or epochs.dtype != torch.float32:
         raise ValueError(
@@ -70,7 +56,7 @@ def _check(epochs: torch.Tensor, skip_samples: int, epoch_size: int) -> None:
         )
     if not epochs.is_contiguous():
         raise ValueError("epochs must be contiguous")
-    if epochs.shape[0] > _INT32_MAX or epochs.shape[1] * T > _INT32_MAX:
+    if epochs.shape[0] > cuda_build.INT32_MAX or epochs.shape[1] * T > cuda_build.INT32_MAX:
         raise ValueError("the epoch count and the row length must fit in int32")
 
 
@@ -85,25 +71,22 @@ def epoch_features_cuda(
     see ``ops/dwt.epoch_features`` for the exact function. Channel
     selection is the caller's (``features/wavelet.py`` gathers on the
     host). The kernel computes ``epoch_size=512, feature_size=16``;
-    other sizes raise on the card."""
+    other sizes raise for any tensor off the CPU."""
     global LAUNCHES
     _check(epochs, skip_samples, epoch_size)
     if epochs.device.type == "cpu":
         return dwt.epoch_features(
             epochs, wavelet_index, skip_samples, epoch_size, feature_size
         )
+    # off the CPU the sizes are the kernel's, whatever the device
+    dwt.check_kernel_sizes("epoch-features", epoch_size, feature_size)
     if epochs.device.type != "cuda":
         raise ValueError(f"unsupported device {epochs.device}")
-    if (epoch_size, feature_size) != (EPOCH_SIZE, FEATURE_SIZE):
-        raise ValueError(
-            f"the epoch-features kernel computes epoch_size={EPOCH_SIZE}, "
-            f"feature_size={FEATURE_SIZE}; got {epoch_size}, {feature_size}"
-        )
     B, C, T = epochs.shape
-    out = torch.empty((B, C * FEATURE_SIZE), dtype=torch.float32, device=epochs.device)
+    out = torch.empty((B, C * feature_size), dtype=torch.float32, device=epochs.device)
     if B == 0:
         return out
-    operator = _operator(wavelet_index, epochs.device)
+    operator = dwt.kernel_operator(wavelet_index, epochs.device)
     lib = _library()
     with torch.cuda.device(epochs.device):
         stream = torch.cuda.current_stream(epochs.device).cuda_stream

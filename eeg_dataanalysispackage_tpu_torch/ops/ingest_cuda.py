@@ -25,7 +25,6 @@ zero).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import numpy as np
 import torch
@@ -37,11 +36,6 @@ from ..utils import constants
 #: launch): int16 streams in LAUNCHES, float32 streams in LAUNCHES_F32
 LAUNCHES = 0
 LAUNCHES_F32 = 0
-
-EPOCH_SIZE = 512  # the kernel's analysis window
-FEATURE_SIZE = 16  # the kernel's coefficients per channel
-
-_INT32_MAX = int(np.iinfo(np.int32).max)
 
 
 def _library() -> ctypes.CDLL:
@@ -73,9 +67,10 @@ def _check(raw, resolutions, starts, operator, pre, skip_samples) -> None:
         )
     if starts.dim() != 1 or starts.dtype != torch.int32:
         raise ValueError(f"starts must be (n,) int32, got {tuple(starts.shape)} {starts.dtype}")
-    if operator.shape != (EPOCH_SIZE, FEATURE_SIZE) or operator.dtype != torch.float32:
+    shape = (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE)
+    if operator.shape != shape or operator.dtype != torch.float32:
         raise ValueError(
-            f"operator must be ({EPOCH_SIZE}, {FEATURE_SIZE}) float32, got "
+            f"operator must be {shape} float32, got "
             f"{tuple(operator.shape)} {operator.dtype}"
         )
     for name, t in (("raw", raw), ("resolutions", resolutions),
@@ -86,7 +81,7 @@ def _check(raw, resolutions, starts, operator, pre, skip_samples) -> None:
             raise ValueError(f"{name} must be contiguous")
     if pre < 1 or skip_samples < 0:
         raise ValueError(f"need pre >= 1 and skip_samples >= 0, got {pre}, {skip_samples}")
-    if S > _INT32_MAX or starts.shape[0] > _INT32_MAX:
+    if S > cuda_build.INT32_MAX or starts.shape[0] > cuda_build.INT32_MAX:
         raise ValueError("stream length and window count must fit in int32")
 
 
@@ -112,7 +107,7 @@ def ingest_features(
         raise ValueError(f"unsupported device {raw.device}")
     C, S = raw.shape
     n = starts.shape[0]
-    out = torch.empty((n, C * FEATURE_SIZE), dtype=torch.float32, device=raw.device)
+    out = torch.empty((n, C * dwt.KERNEL_FEATURE_SIZE), dtype=torch.float32, device=raw.device)
     if n == 0:
         return out
     lib = _library()
@@ -137,17 +132,6 @@ def ingest_features(
     return out
 
 
-def _operator(wavelet_index: int, epoch_size: int, feature_size: int,
-              device: torch.device) -> torch.Tensor:
-    if (epoch_size, feature_size) != (EPOCH_SIZE, FEATURE_SIZE):
-        raise ValueError(
-            f"the fused kernel computes epoch_size={EPOCH_SIZE}, "
-            f"feature_size={FEATURE_SIZE}; got {epoch_size}, {feature_size}"
-        )
-    W = dwt.cascade_matrix(wavelet_index, epoch_size, feature_size)
-    return torch.as_tensor(W, dtype=torch.float32).to(device).contiguous()
-
-
 def ingest_features_cuda(
     raw: torch.Tensor,
     resolutions: torch.Tensor,
@@ -169,11 +153,12 @@ def ingest_features_cuda(
             f"window starts must lie in [0, {S}]; got "
             f"[{int(starts.min())}, {int(starts.max())}]"
         )
+    dwt.check_kernel_sizes("fused", epoch_size, feature_size)
     return ingest_features(
         raw,
         resolutions,
         torch.from_numpy(starts.astype(np.int32)).to(raw.device),
-        _operator(wavelet_index, epoch_size, feature_size, raw.device),
+        dwt.kernel_operator(wavelet_index, raw.device),
         pre,
         skip_samples,
     )
@@ -190,12 +175,9 @@ def make_cuda_ingest_featurizer(
     (capacity, C*K)`` over an ``IngestPlan``'s padded positions/mask —
     the decode rung's form. Padded rows start at ``S``, read only zeros
     and come out as zero rows, so one launch covers the whole plan."""
-    operators: Dict[torch.device, torch.Tensor] = {}
+    dwt.check_kernel_sizes("fused", epoch_size, feature_size)
 
     def featurize(raw, resolutions, positions, mask):
-        dev = raw.device
-        if dev not in operators:
-            operators[dev] = _operator(wavelet_index, epoch_size, feature_size, dev)
         S = raw.shape[1]
         starts = np.where(
             np.asarray(mask, dtype=bool),
@@ -203,8 +185,8 @@ def make_cuda_ingest_featurizer(
             S,
         ).astype(np.int32)
         return ingest_features(
-            raw, resolutions, torch.from_numpy(starts).to(dev),
-            operators[dev], pre, skip_samples,
+            raw, resolutions, torch.from_numpy(starts).to(raw.device),
+            dwt.kernel_operator(wavelet_index, raw.device), pre, skip_samples,
         )
 
     return featurize

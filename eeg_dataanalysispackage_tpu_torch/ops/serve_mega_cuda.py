@@ -16,18 +16,15 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from . import cuda_build, serve_mega
+from . import cuda_build, dwt, serve_mega
 
 #: kernel launches made by this process (the wrapper adds one per launch)
 LAUNCHES = 0
 
-EPOCH_SIZE = 512  # the kernel's analysis window
-FEATURE_SIZE = 16  # the kernel's coefficients per channel
-
-_INT32_MAX = int(np.iinfo(np.int32).max)
+EPOCH_SIZE = dwt.KERNEL_EPOCH_SIZE
+FEATURE_SIZE = dwt.KERNEL_FEATURE_SIZE
 
 
 def _library() -> ctypes.CDLL:
@@ -81,7 +78,7 @@ def _check(stream, resolutions, operator, weights, pre, skip_samples, stride) ->
         )
     if S % stride:
         raise ValueError(f"stream length {S} is not a multiple of the stride {stride}")
-    if S > _INT32_MAX:
+    if S > cuda_build.INT32_MAX:
         raise ValueError("stream length must fit in int32")
 
 

@@ -227,6 +227,20 @@ def test_epoch_kernel_wrapper_raises_rather_than_running_the_plain_version():
 
 
 @pytest.mark.cuda
+def test_pallas_extractor_refuses_other_sizes_on_the_card():
+    """The kernel computes a 512-sample window and 16 coefficients; a
+    pallas extractor set to other sizes raises on the card, where the
+    CPU runs the plain version."""
+    dev = _card()
+    fe = wavelet.WaveletTransform(backend="pallas", device=dev)
+    fe.set_feature_size(8)
+    before = dwt_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="feature_size=16; got 512, 8"):
+        fe.extract_batch(_epochs(4, seed=2).astype(np.float64))
+    assert dwt_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_epoch_kernel_raises_on_a_refused_launch():
     """More shared memory than a block may have, from a channel count no
     recording has: the launch is refused and the wrapper raises."""

@@ -220,15 +220,49 @@ def test_setter_changes_reach_the_device_extractors():
 def test_unknown_backend_and_conv_method_raise():
     with pytest.raises(ValueError, match="unknown backend"):
         wavelet.WaveletTransform(backend="tpu", device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
+    # the level-by-level filter bank is not ported: the extractors take
+    # no method at all, so nothing can select it
+    with pytest.raises(TypeError, match="method"):
         dwt.make_batched_extractor(method="conv", device="cpu")
-    with pytest.raises(ValueError, match="unknown method"):
-        dwt.make_batched_extractor(method="fft", device="cpu")
+    with pytest.raises(TypeError, match="method"):
+        dwt.make_compact_extractor(method="conv", device="cpu")
 
 
 def test_compact_extractor_rejects_a_mis_sliced_batch():
     with pytest.raises(ValueError, match="compact path built for epoch_size 512"):
         dwt.make_compact_extractor(device="cpu")(torch.zeros((2, 3, 500)))
+
+
+def test_pallas_backend_takes_other_sizes_on_the_cpu_only():
+    """The plain version (and the JAX package's Pallas kernel) take any
+    window and coefficient count; the CUDA kernel computes 512 and 16
+    only, and the wrapper refuses other sizes for any tensor off the CPU
+    before it looks for the kernel."""
+    ep = _epochs(4, seed=12)
+    ours = wavelet.WaveletTransform(backend="pallas", device="cpu")
+    theirs = jax_wavelet.WaveletTransform(backend="pallas")
+    for fe in (ours, theirs):
+        fe.set_feature_size(8)
+    got = ours.extract_batch(ep).numpy()
+    assert got.shape == (4, 24)
+    np.testing.assert_allclose(got, np.asarray(theirs.extract_batch(ep)), rtol=0, atol=5e-7)
+    off_cpu = torch.zeros((2, 3, 750), device="meta")
+    with pytest.raises(ValueError, match="epoch-features kernel computes epoch_size=512, "
+                                         "feature_size=16; got 512, 8"):
+        dwt_cuda.epoch_features_cuda(off_cpu, feature_size=8)
+    with pytest.raises(ValueError, match="got 256, 16"):
+        dwt_cuda.epoch_features_cuda(off_cpu, skip_samples=0, epoch_size=256)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        dwt_cuda.epoch_features_cuda(off_cpu)
+
+
+def test_kernel_operator_is_the_cascade_matrix_once_per_device():
+    W = dwt.kernel_operator(8, torch.device("cpu"))
+    assert W.shape == (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE) == (512, 16)
+    assert W.dtype == torch.float32 and W.is_contiguous()
+    np.testing.assert_array_equal(W.numpy(), dwt.cascade_matrix(8, 512, 16).astype(np.float32))
+    assert dwt.kernel_operator(8, torch.device("cpu")) is W
+    assert not torch.equal(dwt.kernel_operator(4, torch.device("cpu")), W)
 
 
 def test_extract_features_single_epoch_adapter():
