@@ -4,39 +4,55 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card — the fused batch run,
-``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``,
-the host ``fe=`` batch run (``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``),
-and the online service, ``…&serve=true&load_clf=logreg&load_name=…`` —
+``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``
+at f32 and at ``precision=bf16|int8|int4``, the host ``fe=`` batch run
+(``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``), and the online service,
+``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung —
 and holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
 2. build: compile every kernel from ``eeg_dataanalysispackage_tpu_torch/csrc``
-   (three sources), one ``nvcc`` per source, all started together;
+   (three sources, every precision instantiation in them), one ``nvcc``
+   per source, all started together, with ``ptxas`` registers and spills;
 3. each kernel against its plain version (max abs deviation <= 2e-6):
    the fused ingest kernel on int16 streams (random, DC-heavy,
    overhanging, single-window, dense, odd-count and main-path-shaped
-   inputs) and on float32 streams (random, DC-heavy, overhanging); the
-   serve megakernel (random and DC-heavy windows, n = 1 and n =
-   capacity, capacity 64, 128 and 2,048; margins within 2e-6 * ||w||_1;
-   padded rows exactly 0; a window's margin equal solo and in a batch);
-   the epoch-features kernel (B = 1, 5, 37, 128 and 32,768, DC-heavy
-   epochs, an all-zero epoch giving an exactly zero row, 5-channel input
-   reduced to 3, a window that does not fit raising);
+   inputs) and on float32 streams (random, DC-heavy, overhanging); on
+   every int16 case also its bf16 instantiation (K2-bf16: within 2e-6 of
+   its plain version, within BF16_GATE_TOL of the f32 rows) and its
+   int8/int4 instantiations (the quantize epilogue equal bit for bit to
+   the plain quantizer on the f32 kernel's rows; against the plain chain
+   within 2e-6 except counted boundary flips of one step); the serve
+   megakernel (random and DC-heavy windows, n = 1 and n = capacity,
+   capacity 64, 128 and 2,048; margins within 2e-6 * ||w||_1; padded
+   rows exactly 0; a window's margin equal solo and in a batch), and on
+   every case its int8/int4 instantiations (within 2e-6 * ||w||_1 of the
+   quantized ingest rows dotted with w, within the rung's tolerance of
+   the plain version with the row flips counted, padded rows 0, solo
+   equal to batch); the epoch-features kernel (B = 1, 5, 37, 128 and
+   32,768, DC-heavy epochs, an all-zero epoch giving an exactly zero row,
+   5-channel input reduced to 3, a window that does not fit raising);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
    ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
-   ``-fused-pallas`` spelling; ``fe=dwt-8-pallas`` with logreg and svm,
-   ``fe=dwt-8`` and ``fe=dwt-8-tpu`` with logreg; then a 3-recording
-   IEEE_FLOAT_32 session through ``fe=dwt-8-fused`` and
-   ``fe=dwt-8-pallas``. Every run prints the launches of each kernel,
-   counted from 0 just before it (the ingest kernel once per recording,
-   the epoch-features kernel twice per ``-pallas`` train run), and its
-   statistics equal the port's CPU run (a test row may differ only where
-   its margin lies within 1e-4 of the threshold on both runs). The
-   features each kernel made in a run are held at 2e-6 against the CPU
-   run's: the fused runs' rows, and the ``-pallas`` logreg runs' own
-   train and test epochs through the run's extractor, also against the
-   plain version on the same float32 tensor;
+   ``-fused-pallas`` spelling; ``fe=dwt-8-fused&precision=bf16|int8|int4``
+   with logreg (the rung used as requested, its gate record, the gate's
+   f32 and rung launches plus one rung launch per recording, features
+   against the CPU run's within 2e-6 except counted boundary flips), and
+   an int4 run forced to trip its gate (``EEG_TPU_INT4_GATE_TOL=1e-9``
+   for that run only: f32 used, statistics equal to the f32 run);
+   ``fe=dwt-8-pallas`` with logreg and svm, ``fe=dwt-8`` and
+   ``fe=dwt-8-tpu`` with logreg; then a 3-recording IEEE_FLOAT_32
+   session through ``fe=dwt-8-fused`` and ``fe=dwt-8-pallas``. Every run
+   prints the launches of each kernel, counted from 0 just before it
+   (the ingest kernel once per recording, the epoch-features kernel
+   twice per ``-pallas`` train run), and its statistics equal the port's
+   CPU run (a test row may differ only where its margin lies within 1e-4
+   of the threshold on both runs). The features each kernel made in a
+   run are held at 2e-6 against the CPU run's: the fused runs' rows, and
+   the ``-pallas`` logreg runs' own train and test epochs through the
+   run's extractor, also against the plain version on the same float32
+   tensor;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -46,13 +62,18 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``mega`` service predicts; one 64-window batch split into host
    staging, host-to-device copy, kernel call, margin sync and the whole
    ``engine.execute`` (host wall, medians of 25); a 16-thread
-   ``predict_window`` probe;
+   ``predict_window`` probe; then ``serve=true&precision=int8|int4`` on
+   the ``mega`` rung (the int8/int4 megakernel's launches) and
+   ``precision=bf16`` on the ``fused`` rung (K2-bf16's launches), each
+   with its statistics equal to the card's batch ``load_clf=`` run at
+   the same precision;
 6. timing (CUDA events around one wrapper call, median of 25; and the
    kernel's own device time from ``torch.profiler``, mean of 10) beside
-   the plain version's time and the card's bound: the ingest kernel at 32,768 windows on an int16
-   and on a float32 stream, the megakernel at capacity 64 (one serve
-   batch) and at 32,768 windows, the epoch-features kernel at 32,768
-   epochs.
+   the plain version's time and the card's bound: the ingest kernel at
+   32,768 windows on an int16 and on a float32 stream and at the bf16,
+   int8 and int4 rungs, the megakernel (f32, int8, int4) at capacity 64
+   (one serve batch) and at 32,768 windows, the epoch-features kernel at
+   32,768 epochs.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -171,8 +192,80 @@ def needed_samples(starts, n_samples: int, pre: int, skip: int, epoch: int) -> i
     return total
 
 
+def quantizers():
+    """The port's plain quantizers by rung, on CPU tensors."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest, quant
+
+    return {"int8": decode_ingest.int8_feature_path, "int4": quant.int4_feature_path}
+
+
+def flip_check(np, got, want, f32_rows, precision, label):
+    """Quantized rows against other quantized rows of the same windows:
+    equal within KERNEL_TOL except boundary flips, each exactly one
+    quantization step of its group (within KERNEL_TOL). Returns (flips,
+    max deviation of the other elements)."""
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    got, want = np.asarray(got), np.asarray(want)
+    qmax = {"int8": 127.0, "int4": 7.0}[precision]
+    scales = decode_ingest.quantize_levels(torch.as_tensor(np.asarray(f32_rows)), 16,
+                                           qmax)[1].numpy()
+    group_of = [g for g, (lo, hi) in enumerate(decode_ingest.subband_group_bounds(16))
+                for _ in range(lo, hi)]
+    diff = np.abs(got - want)
+    flips = np.argwhere(diff > KERNEL_TOL)
+    for r, i in flips:
+        step = scales[group_of[i % 16], r, i // 16]
+        if abs(diff[r, i] - step) > KERNEL_TOL:
+            raise AssertionError(f"{label}: row {r} col {i} differs by {diff[r, i]}, "
+                                 f"not one step {step}")
+    rest = np.where(diff > KERNEL_TOL, 0.0, diff)
+    return int(len(flips)), float(rest.max()) if rest.size else 0.0
+
+
+def check_rungs(torch, np, ingest_cuda, device_ingest, raw, res, starts, W, f32_rows, name,
+                worst):
+    """The bf16, int8 and int4 instantiations on one case: bf16 within
+    KERNEL_TOL of its plain version and within the bf16 gate of the f32
+    rung; int8/int4 equal bit for bit to the plain quantizer applied to
+    the f32 kernel's rows, and against the plain chain within KERNEL_TOL
+    except counted boundary flips; windows at the end give zero rows."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    at_end = starts >= raw.shape[1]
+    fields = {}
+    bf16 = ingest_cuda.ingest_features(raw, res, starts, W, precision="bf16")
+    torch.cuda.synchronize()
+    bf16_plain = device_ingest.ingest_features_plain(raw, res, starts, W, precision="bf16")
+    err = (bf16 - bf16_plain).abs().max().item()
+    vs_f32 = (bf16 - f32_rows).abs().max().item()
+    ok = (err <= KERNEL_TOL and vs_f32 <= decode_ingest.BF16_GATE_TOL
+          and bool(torch.isfinite(bf16).all()) and bool((bf16[at_end] == 0).all()))
+    fields["bf16"] = {"max_abs_err": err, "max_dev_vs_f32": vs_f32}
+    worst["bf16"] = max(worst.get("bf16", 0.0), err)
+    f32_cpu = f32_rows.cpu()
+    for precision, quantize in quantizers().items():
+        q = ingest_cuda.ingest_features(raw, res, starts, W, precision=precision)
+        torch.cuda.synchronize()
+        bit_equal = q.cpu().numpy().tobytes() == quantize(f32_cpu, 16).numpy().tobytes()
+        plain = device_ingest.ingest_features_plain(raw, res, starts, W, precision=precision)
+        flips, err = flip_check(np, q.cpu(), plain.cpu(), f32_cpu, precision, name)
+        ok = ok and bit_equal and bool((q[at_end] == 0).all())
+        fields[precision] = {"epilogue_bit_equal": bit_equal, "flips_vs_plain": flips,
+                             "max_abs_err": err}
+        worst[precision] = max(worst.get(precision, 0.0), err)
+    emit("rungs_vs_plain", case=name, windows=int(starts.shape[0]), tol=KERNEL_TOL,
+         bf16_gate=decode_ingest.BF16_GATE_TOL, **fields)
+    if not ok:
+        raise AssertionError(f"a precision instantiation disagrees on {name}: {fields}")
+
+
 def phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev):
-    """Kernel against its plain version on the card, per input case."""
+    """Kernel against its plain version on the card, per input case, at
+    every precision= instantiation. Returns the worst deviation per
+    rung ({"f32": …, "bf16": …, "int8": …, "int4": …})."""
     res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
     rng = np.random.RandomState(0)
 
@@ -192,7 +285,7 @@ def phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev):
         "odd_count": (stream(S), rng.randint(0, S, size=1001)),
         "main_path_shape": (stream(main_S), main_starts),
     }
-    worst = 0.0
+    worst = {"f32": 0.0}
     for name, (raw, starts_np) in cases.items():
         starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
         got = ingest_cuda.ingest_features(raw, res, starts, W)
@@ -208,7 +301,9 @@ def phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev):
         if not (err <= KERNEL_TOL and finite and zero_rows
                 and got.shape == (len(starts_np), 48)):
             raise AssertionError(f"kernel disagrees with its plain version on {name}")
-        worst = max(worst, err)
+        worst["f32"] = max(worst["f32"], err)
+        check_rungs(torch, np, ingest_cuda, device_ingest, raw, res, starts, W, got, name,
+                    worst)
     return worst
 
 
@@ -283,11 +378,56 @@ def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed):
     return torch.from_numpy(stream).to(dev), res, weights, stride
 
 
+def check_mega_rungs(torch, np, serve_mega, serve_mega_cuda, stream, res, W, weights, stride,
+                     n, name, worst):
+    """The int8 and int4 megakernels on one case: margins within
+    MARGIN_TOL_PER_L1 * ||w||_1 of the quantized ingest kernel's rows of
+    the same windows dotted with w; within the rung's tolerance of the
+    plain version, with the boundary flips between the kernel's and the
+    plain version's rows counted; padded rows 0; the last window's
+    margin the same solo and in the batch."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest, device_ingest, ingest_cuda
+
+    capacity = stream.shape[1] // stride
+    starts = (torch.arange(capacity, dtype=torch.int32, device=stream.device) * stride)
+    f32_rows = ingest_cuda.ingest_features(stream, res, starts, W).cpu()
+    fields, ok = {}, True
+    for precision in ("int8", "int4"):
+        got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride,
+                                                 precision)
+        torch.cuda.synchronize()
+        rows = ingest_cuda.ingest_features(stream, res, starts, W, 100, 175, precision)
+        err = (got - rows @ weights).abs().max().item()
+        plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175,
+                                                    stride, precision)
+        plain_rows = device_ingest.ingest_features_plain(stream, res, starts, W, 100, 175,
+                                                         precision)
+        flips, _ = flip_check(np, rows.cpu(), plain_rows.cpu(), f32_rows, precision, name)
+        dev_plain = (got - plain).abs().max().item()
+        tol = MARGIN_TOL_PER_L1 * weights.abs().sum().item()
+        solo = torch.zeros_like(stream)
+        solo[:, :stride] = stream[:, (n - 1) * stride:n * stride]
+        solo_m = serve_mega_cuda.serve_mega_margins(solo, res, W, weights, 100, 175, stride,
+                                                    precision)
+        solo_equal = solo_m[0].item() == got[n - 1].item()
+        pad_zero = bool((got[n:] == 0).all())
+        gate = decode_ingest.precision_gate_tolerance(precision)
+        ok = ok and err <= tol and dev_plain <= gate and solo_equal and pad_zero
+        fields[precision] = {"max_abs_err": err, "tol": tol, "max_dev_vs_plain": dev_plain,
+                             "rung_tol": gate, "row_flips_vs_plain": flips,
+                             "padded_rows_zero": pad_zero, "solo_equals_batch": solo_equal}
+        worst[precision] = max(worst.get(precision, 0.0), err)
+    emit("mega_rungs_vs_ingest", case=name, capacity=capacity, windows=n, **fields)
+    if not ok:
+        raise AssertionError(f"a quantized megakernel disagrees on {name}: {fields}")
+
+
 def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
     """The megakernel against its plain version on the card, per input
     case; padded rows exactly 0; one window's margin equal solo and in
-    a batch."""
-    worst = 0.0
+    a batch; the int8 and int4 instantiations on every case
+    (:func:`check_mega_rungs`). Returns the worst deviation per rung."""
+    worst = {"f32": 0.0}
     cases = []
     for capacity in (64, 128, 2048):
         for n in (1, capacity):
@@ -315,7 +455,9 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         if not (err <= tol and finite and pad_zero and solo_equal
                 and got.shape == (capacity,)):
             raise AssertionError(f"megakernel disagrees with its plain version on {name}")
-        worst = max(worst, err)
+        worst["f32"] = max(worst["f32"], err)
+        check_mega_rungs(torch, np, serve_mega, serve_mega_cuda, stream, res, W, weights,
+                         stride, n, name, worst)
     return worst
 
 
@@ -450,7 +592,69 @@ def phase_serve(torch, np, info, model, kept):
          predictions_equal=probe_ok)
     if pblock["requests"]["completed"] != n_probe or not probe_ok:
         raise AssertionError("the 16-thread probe lost requests or changed predictions")
-    return launches
+    return launches, windows, resolutions
+
+
+def phase_serve_precisions(np, info, model, kept, windows, resolutions):
+    """serve=true&precision=int8|int4|bf16 on the card: int8 and int4 on
+    the mega rung through their megakernel instantiations, bf16 on the
+    fused rung through K2-bf16; every kept epoch completed; statistics
+    equal to the card's batch load_clf= run at the same precision (a row
+    may differ only within MARGIN_BAND of the threshold on both).
+    Returns {precision: launches of the serving kernel}."""
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService
+
+    counters = {f"ingest_features_{p}": (ingest_cuda, f"LAUNCHES_{p.upper()}")
+                for p in ("bf16", "int8", "int4")}
+    counters.update({"ingest_features": (ingest_cuda, "LAUNCHES"),
+                     "serve_mega": (serve_mega_cuda, "LAUNCHES"),
+                     "serve_mega_int8": (serve_mega_cuda, "LAUNCHES_INT8"),
+                     "serve_mega_int4": (serve_mega_cuda, "LAUNCHES_INT4")})
+    served_launches = {}
+    for precision in ("int8", "int4", "bf16"):
+        base = (f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}"
+                f"&precision={precision}")
+        batch = PipelineBuilder(base)
+        batch_stats = batch.execute()
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        served_builder = PipelineBuilder(base + "&serve=true")
+        served = served_builder.execute()
+        counts = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        block = served_builder.serve_block
+        req = block["requests"]
+        kernel = "ingest_features_bf16" if precision == "bf16" else f"serve_mega_{precision}"
+        rung = "fused" if precision == "bf16" else "mega"
+        rows = []
+        if str(served) != str(batch_stats):
+            with InferenceService.from_saved("logreg", model, precision=precision) as svc:
+                results = svc.predict_all(windows, resolutions)
+            thr = batch.classifier.margin_threshold
+            batch_m = batch.classifier.margin(batch.features).double().cpu().numpy()
+            rows = differing_rows(np.array([r.prediction for r in results]),
+                                  np.array([r.margin for r in results], dtype=np.float64),
+                                  (batch_m > thr).astype(np.float64), batch_m, thr,
+                                  f"serve precision={precision} vs batch")
+            if not rows:
+                raise AssertionError(f"serve precision={precision}: statistics differ with "
+                                     "no near-threshold row")
+        emit("serve_precision", precision=precision, rung=block["rung"],
+             precision_record=block["precision"], mega=block["mega"], launches=counts,
+             stages_s=served_builder.timers, mean_batch_size=block["mean_batch_size"],
+             completed=req["completed"], shed=req["shed"], batches=block["batches"],
+             latency_ms=block["latency_ms"], statistics_equal_batch=not rows,
+             near_threshold_rows_batch=rows, drained_cleanly=block["drained_cleanly"])
+        mega_ok = (block["mega"] is None if precision == "bf16"
+                   else block["mega"]["precision"] == precision and block["mega"]["gate"]["ok"])
+        if not (block["rung"] == rung and mega_ok
+                and block["precision"]["used"] == precision
+                and counts[kernel] >= math.ceil(kept / 64) and req["completed"] == kept
+                and req["shed"] == 0 and block["drained_cleanly"] is True):
+            raise AssertionError(f"serve precision={precision} did not serve through {kernel}")
+        served_launches[precision] = counts[kernel]
+    return served_launches
 
 
 def phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev):
@@ -640,6 +844,54 @@ def phase_host_path(np, info, counters):
     return k4, feat_err
 
 
+def phase_precision_runs(np, info, counters, f32_gpu, n_files):
+    """fe=dwt-8-fused&precision=bf16|int8|int4&train_clf=logreg on the card
+    and the CPU: the rung used as requested; the gate's f32 and rung
+    launches plus one rung launch per recording; features against the
+    CPU run's within KERNEL_TOL (int8/int4: except counted boundary flips,
+    each one step); statistics under the near-threshold rule. Then an
+    int4 run forced to trip its gate (EEG_TPU_INT4_GATE_TOL=1e-9 for that
+    run only): f32 used, statistics equal to the card's f32 run. Returns
+    {precision: launches of its instantiation}."""
+    launches = {}
+    for precision in ("bf16", "int8", "int4"):
+        q = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&precision={precision}"
+        gpu = run_builder(f"logreg_{precision}_cuda", q, None, counters)
+        cpu = run_builder(f"logreg_{precision}_cpu", q, "cpu", counters)
+        counts, resolved = gpu[2], gpu[0].precision_resolved
+        rung = f"ingest_features_{precision}"
+        got, want = gpu[0].features.cpu(), cpu[0].features
+        if precision == "bf16":
+            flips, err = 0, (got - want).abs().max().item()
+        else:
+            flips, err = flip_check(np, got, want, f32_gpu.features.cpu(), precision,
+                                    f"{precision} run")
+        emit("precision_run", run=precision, precision_resolved=resolved, launches=counts,
+             features_max_abs_err_vs_cpu=err, feature_flips_vs_cpu=flips, tol=KERNEL_TOL)
+        others = {k: v for k, v in counts.items() if k not in (rung, "ingest_features")}
+        if not (resolved["used"] == precision and counts[rung] == n_files + 1
+                and counts["ingest_features"] == 1 and not any(others.values())
+                and err <= KERNEL_TOL and got.shape == want.shape):
+            raise AssertionError(f"precision={precision}: {resolved} {counts} err {err}")
+        compare_runs(np, gpu[0], cpu[0], f"logreg_{precision}")
+        launches[precision] = counts[rung]
+    os.environ["EEG_TPU_INT4_GATE_TOL"] = "1e-9"
+    try:
+        q = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&precision=int4"
+        tripped = run_builder("logreg_int4_gate_tripped_cuda", q, None, counters)
+    finally:
+        del os.environ["EEG_TPU_INT4_GATE_TOL"]
+    resolved, counts = tripped[0].precision_resolved, tripped[2]
+    equal = str(tripped[1]) == str(f32_gpu.statistics)
+    emit("precision_gate_tripped", precision_resolved=resolved, launches=counts,
+         statistics_equal_f32_run=equal)
+    if not (resolved["used"] == "f32" and not resolved["gate"]["ok"] and equal
+            and counts["ingest_features"] == n_files + 1
+            and counts["ingest_features_int4"] == 1):
+        raise AssertionError(f"the tripped int4 gate did not run f32: {resolved} {counts}")
+    return launches
+
+
 def write_float_session(directory: str, n_files: int = 3, n_markers: int = 600) -> str:
     """IEEE_FLOAT_32 recordings (4 channels, Fz/Cz/Pz among them, marker
     stride 1,000) and their info.txt; returns the info.txt path."""
@@ -734,11 +986,15 @@ def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
-def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f32_peak, smi):
-    """The fused ingest kernel and its plain version at 32,768 windows
-    (3 channels, 1,000-sample stride) on an int16 or float32 stream;
-    bound: the needed samples read once, rows, starts, operator and
-    resolutions once."""
+def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f32_peak, smi,
+                  precision="f32"):
+    """The fused ingest kernel at ``precision`` and its plain version at
+    32,768 windows (3 channels, 1,000-sample stride) on an int16 or
+    float32 stream; bound: the needed samples read once, rows, starts,
+    operator and resolutions once (the rungs stream the same bytes).
+    The int8/int4 rows are held bit for bit against the plain quantizer
+    on the f32 kernel's rows, the others within KERNEL_TOL of the plain
+    version."""
     n, stride = 32_768, 1000
     S = n * stride + 1000
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -746,15 +1002,22 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
                         dtype=torch.int32).to(dtype)
     res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
     starts = (torch.arange(n, device=dev, dtype=torch.int32) * stride).contiguous()
-    got = ingest_cuda.ingest_features(raw, res, starts, W)
-    want = device_ingest.ingest_features_plain(raw, res, starts, W)
-    err = (got - want).abs().max().item()
-    if err > KERNEL_TOL:
-        raise AssertionError(f"ingest kernel ({dtype}) disagrees at the timing size: {err}")
-    del got, want
-    kernel_ms = time_ms(lambda: ingest_cuda.ingest_features(raw, res, starts, W))
-    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(raw, res, starts, W))
-    device_ms = profiled_device_ms(lambda: ingest_cuda.ingest_features(raw, res, starts, W),
+    args = (raw, res, starts, W, 100, 175, precision)
+    got = ingest_cuda.ingest_features(*args)
+    if precision in ("int8", "int4"):
+        f32 = ingest_cuda.ingest_features(raw, res, starts, W).cpu()
+        err = (got.cpu() - quantizers()[precision](f32, 16)).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"{precision} epilogue differs from the quantizer: {err}")
+    else:
+        err = (got - device_ingest.ingest_features_plain(*args)).abs().max().item()
+        if err > KERNEL_TOL:
+            raise AssertionError(f"ingest kernel ({dtype}, {precision}) disagrees at the "
+                                 f"timing size: {err}")
+    del got
+    kernel_ms = time_ms(lambda: ingest_cuda.ingest_features(*args))
+    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(*args))
+    device_ms = profiled_device_ms(lambda: ingest_cuda.ingest_features(*args),
                                    "ingest_features_kernel")
     samples = needed_samples(starts.cpu().numpy(), S, 100, 175, 512)
     bytes_moved = (3 * samples * raw.element_size() + n * 48 * 4 + n * 4 + W.numel() * 4
@@ -762,6 +1025,8 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
     flops = 2 * n * 3 * 512 * 16
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
     name = "ingest_features" if dtype == torch.int16 else "ingest_features_f32"
+    if precision != "f32":
+        name = f"ingest_features_{precision}"
     emit("timing", kernel=name, windows=n, stride=stride,
          stream_bytes=int(raw.numel() * raw.element_size()), kernel_ms=kernel_ms,
          kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -779,26 +1044,36 @@ def mega_bound(n: int, bandwidth: float, f32_peak: float):
     return (*timed_bound(bytes_moved, flops, bandwidth, f32_peak), bytes_moved, flops)
 
 
-def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak, smi):
-    """Megakernel and plain times on ``n`` full windows."""
+def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak, smi,
+                precision="f32"):
+    """Megakernel (at ``precision``) and plain times on ``n`` full
+    windows; int8/int4 margins are held against the quantized ingest
+    kernel's rows of the same windows dotted with the weights."""
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda
+
     stride = serve_mega.padded_stride(100, 750)
     gen = torch.Generator(device=dev).manual_seed(n)
     stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
                            dtype=torch.int32).to(torch.int16)
     res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
     weights = torch.randn(48, generator=gen, device=dev, dtype=torch.float32)
-    args = (stream, res, W, weights, 100, 175, stride)
+    args = (stream, res, W, weights, 100, 175, stride, precision)
     got = serve_mega_cuda.serve_mega_margins(*args)
-    want = serve_mega.serve_mega_margins_plain(*args)
+    if precision == "f32":
+        want = serve_mega.serve_mega_margins_plain(*args)
+    else:
+        starts = torch.arange(n, dtype=torch.int32, device=dev) * stride
+        want = ingest_cuda.ingest_features(stream, res, starts, W, 100, 175, precision) @ weights
     err = (got - want).abs().max().item()
     if err > MARGIN_TOL_PER_L1 * weights.abs().sum().item():
-        raise AssertionError(f"megakernel disagrees at the timing size {n}: {err}")
+        raise AssertionError(f"megakernel ({precision}) disagrees at the timing size {n}: {err}")
     kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_margins(*args))
     plain_ms = time_ms(lambda: serve_mega.serve_mega_margins_plain(*args))
     device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_margins(*args),
                                    "serve_mega_kernel")
     bound_ms, bound_by, bytes_moved, flops = mega_bound(n, bandwidth, f32_peak)
-    emit("timing", kernel="serve_mega", windows=n, stride=stride, kernel_ms=kernel_ms,
+    name = "serve_mega" if precision == "f32" else f"serve_mega_{precision}"
+    emit("timing", kernel=name, windows=n, stride=stride, kernel_ms=kernel_ms,
          kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
          bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
@@ -858,6 +1133,9 @@ def main() -> int:
     # float32 session; every counter is set to 0 just before each run
     counters = {"ingest_features": (ingest_cuda, "LAUNCHES"),
                 "ingest_features_f32": (ingest_cuda, "LAUNCHES_F32"),
+                "ingest_features_bf16": (ingest_cuda, "LAUNCHES_BF16"),
+                "ingest_features_int8": (ingest_cuda, "LAUNCHES_INT8"),
+                "ingest_features_int4": (ingest_cuda, "LAUNCHES_INT4"),
                 "epoch_features": (dwt_cuda, "LAUNCHES")}
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -892,6 +1170,7 @@ def main() -> int:
         if str(runs["logreg_cuda_pallas_spelling"][0].statistics) != str(gpu.statistics):
             raise AssertionError("-fused-pallas spelling changed the statistics")
         main_launches = runs["logreg_cuda"][1]
+        rung_launches = phase_precision_runs(np, info, counters, gpu, n_files=8)
         k4_launches, k4_path_err = phase_host_path(np, info, counters)
 
         float_dir = os.path.join(work, "float32")
@@ -901,36 +1180,49 @@ def main() -> int:
             np, float_info, counters, n_files=3)
 
         # 5. the serving path end to end with the card's saved model
-        serve_launches = phase_serve(torch, np, info, model, kept=int(len(gpu.targets)))
+        kept = int(len(gpu.targets))
+        serve_launches, windows, resolutions = phase_serve(torch, np, info, model, kept)
+        served_launches = phase_serve_precisions(np, info, model, kept, windows, resolutions)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # 6. timing: the ingest kernel at 32,768 windows (int16 and float32
-    # streams), the megakernel at one serve batch and at 32,768 windows,
-    # the epoch-features kernel at 32,768 epochs
+    # streams, and the bf16, int8 and int4 rungs on int16), the
+    # megakernel (f32, int8, int4) at one serve batch and at 32,768
+    # windows, the epoch-features kernel at 32,768 epochs
     k1 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
                        bandwidth, f32_peak, smi)
     k1_f32 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.float32,
                            bandwidth, f32_peak, smi)
-    mega_64 = mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, 64,
-                          bandwidth, f32_peak, smi)
-    mega_big = mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, 32_768,
-                           bandwidth, f32_peak, smi)
+    k1_rungs = {p: ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
+                                 bandwidth, f32_peak, smi, precision=p)
+                for p in ("bf16", "int8", "int4")}
+    mega_64, mega_big = ({p: mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
+                                         bandwidth, f32_peak, smi, precision=p)
+                          for p in ("f32", "int8", "int4")} for n in (64, 32_768))
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
 
     # 7. the kernels line, then the card line, then the result
     ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
+    bank_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:462"
+    mega_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259"
     print(json.dumps({"kernels": [
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas, main_launches,
-                     max(max_err, k1[4]), k1),
-        kernel_entry("serve_mega", "serve_mega.cu",
-                     "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259", serve_launches,
-                     max(mega_err, mega_64[4], mega_big[4]), mega_64),
+                     max(max_err["f32"], k1[4]), k1),
+        kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
+                     max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
+                     mega_64["f32"]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4]), k4),
         kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
                      max(f32_err, f32_path_err, k1_f32[4]), k1_f32),
+        *(kernel_entry(f"ingest_features_{p}", "ingest_features.cu", bank_pallas,
+                       rung_launches[p], max(max_err[p], k1_rungs[p][4]), k1_rungs[p])
+          for p in ("bf16", "int8", "int4")),
+        *(kernel_entry(f"serve_mega_{p}", "serve_mega.cu", mega_pallas, served_launches[p],
+                       max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p])
+          for p in ("int8", "int4")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

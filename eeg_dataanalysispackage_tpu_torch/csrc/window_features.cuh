@@ -23,9 +23,23 @@
 // shared memory (scaled, then centred), each thread contracts its group
 // with float4 loads, and partial sums reduce through shared memory in a
 // fixed order. No tensor cores and no TF32.
+//
+// Precision instantiations (template argument P; ops/decode_ingest.py):
+//   kF32   the function above;
+//   kBf16  z and W each rounded to bfloat16 (round to nearest even)
+//          before the contraction: the centred samples as step 3 writes
+//          them, W as load_operator reads it. A product of two bf16
+//          values is exact in f32, so the contraction accumulates in f32
+//          in the same order as kF32; the norm is f32. This is the JAX
+//          package's decode slice twin (subtract first in f32, cast the
+//          centred operand, f32 accumulation);
+//   kInt8, kInt4  the kF32 row, then quantize_feature on each element.
+// The f32 form compiles to the same instructions as before the other
+// forms existed: every difference is an `if constexpr`.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -44,6 +58,23 @@ constexpr int kWarps = kThreads / 32;          // 8
 // cap the fused ingest kernel took 75 registers, three blocks per SM,
 // and ran 20% slower on the H100.
 constexpr int kMinBlocksPerSm = 4;
+
+// The precision= rungs, in the order of ops/decode_ingest.PRECISIONS (the
+// launchers take this code).
+enum class Precision : int { kF32 = 0, kBf16 = 1, kInt8 = 2, kInt4 = 3 };
+
+__host__ __device__ constexpr bool quantized(Precision p) {
+  return p == Precision::kInt8 || p == Precision::kInt4;
+}
+
+// Symmetric quantization levels of a quantized rung: q in [-qmax, qmax].
+__host__ __device__ constexpr float qmax_of(Precision p) {
+  return p == Precision::kInt8 ? 127.0f : 7.0f;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // The block's dynamic shared memory, carved per launch geometry.
 struct Smem {
@@ -75,7 +106,9 @@ inline size_t smem_bytes(int channels, int pre) {
   return floats * sizeof(float);
 }
 
-// Thread (g, k)'s 32 rows of the (512, 16) operator's column k.
+// Thread (g, k)'s 32 rows of the (512, 16) operator's column k (rounded
+// to bfloat16 for the kBf16 rung).
+template <Precision P = Precision::kF32>
 __device__ __forceinline__ void load_operator(const float* __restrict__ w,
                                               float (&wreg)[kPerGroup]) {
   const int g = threadIdx.x / kFeatures;
@@ -83,6 +116,7 @@ __device__ __forceinline__ void load_operator(const float* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < kPerGroup; ++i) {
     wreg[i] = w[(g * kPerGroup + i) * kFeatures + k];
+    if constexpr (P == Precision::kBf16) wreg[i] = round_bf16(wreg[i]);
   }
 }
 
@@ -142,7 +176,7 @@ __device__ __forceinline__ float contract_and_norm(int channels,
 // int16_t or float samples: leaves the C*16 coefficients y in s.feat and
 // returns max(||y||, 1e-30) to every thread. Ends on a barrier; the caller
 // may read s.feat at once.
-template <class Sample>
+template <class Sample, Precision P = Precision::kF32>
 __device__ __forceinline__ float featurize_window(
     const Sample* __restrict__ raw, const float* __restrict__ res,
     long long start, int channels, int n_samples, int pre, int skip,
@@ -181,11 +215,46 @@ __device__ __forceinline__ float featurize_window(
   }
   __syncthreads();
 
-  // 3. subtract first
-  for (int i = tid; i < channels * kEpoch; i += kThreads) s.z[i] -= s.mean[i / kEpoch];
+  // 3. subtract first (then, for kBf16, round the centred operand)
+  for (int i = tid; i < channels * kEpoch; i += kThreads) {
+    s.z[i] -= s.mean[i / kEpoch];
+    if constexpr (P == Precision::kBf16) s.z[i] = round_bf16(s.z[i]);
+  }
   __syncthreads();
 
   return contract_and_norm(channels, wreg, s);
+}
+
+// The quantize step of the int8 and int4 rungs: element i of the
+// L2-normalized row f (channels*16 floats in shared memory, complete
+// before the call) after quantize -> dequantize with the symmetric scale
+// of its (channel, subband group). The groups of a channel's 16
+// coefficients are [0,1) [1,2) [2,4) [4,8) [8,16), the eegdsp layout
+// [aK | dK | ... | d1]. These are the float32 operations, in order, of
+// the plain version (ops/decode_ingest.quantize_dequantize) and of the
+// JAX package's quantize_dequantize_int8/int4:
+//   s = max|g| / qmax   (IEEE division: the build has no --use_fast_math)
+//   s = max(s, 1e-30)   (an all-zero group: 0 / s stays 0)
+//   q = clamp(rint(g / s), -qmax, qmax)   (rint: half to even), as an
+//       integer (no negative zero)
+//   out = q * s
+// The group maximum is exact in any order, so the result is the plain
+// version's bit for bit on the same row. It reads only row f, so a
+// window's quantized row does not depend on the batch it rides in.
+template <Precision P>
+__device__ __forceinline__ float quantize_feature(const float* f, int i) {
+  static_assert(quantized(P), "quantize_feature is for the int8 and int4 rungs");
+  constexpr float qmax = qmax_of(P);
+  const int k = i % kFeatures;
+  const float* group = f + (i - k);
+  const int lo = k == 0 ? 0 : 1 << (31 - __clz(k));
+  const int hi = k == 0 ? 1 : 2 * lo;
+  float m = 0.0f;
+  for (int j = lo; j < hi; ++j) m = fmaxf(m, fabsf(group[j]));
+  const float s = fmaxf(m / qmax, 1e-30f);
+  const float q = fminf(fmaxf(rintf(f[i] / s), -qmax), qmax);
+  // an integer level, as the JAX package's int8 cast makes it: -0.0 -> 0
+  return static_cast<float>(static_cast<int>(q)) * s;
 }
 
 // Opt in to the block's shared memory and size a grid-stride grid: one

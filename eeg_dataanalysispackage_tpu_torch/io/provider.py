@@ -31,7 +31,7 @@ import torch
 from . import brainvision
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
-from ..ops import device_ingest, ingest_cuda
+from ..ops import decode_ingest, device_ingest, ingest_cuda
 from ..utils import constants
 from ..utils.device import resolve_device
 
@@ -231,6 +231,8 @@ class OfflineDataProvider:
         skip_samples: int = 175,
         feature_size: int = 16,
         backend: str = "decode",
+        precision: str = "f32",
+        recordings: Optional[Sequence[Tuple[str, int, brainvision.Recording]]] = None,
     ) -> Tuple[torch.Tensor, np.ndarray]:
         """info.txt run -> DWT features without host epochs.
 
@@ -245,22 +247,35 @@ class OfflineDataProvider:
         ``backend`` takes the JAX package's fused rung names
         (``decode``, ``pallas``, ``block``, ``xla``) so its call sites
         port unchanged; every one of them runs the CUDA kernel.
+        ``precision`` (one of ``decode_ingest.PRECISIONS``) picks the
+        kernel's rung; as in the JAX package, a non-f32 rung rides the
+        decode backend only. ``recordings``: the run's already parsed
+        ``(rel_path, guessed, recording)`` triplets (the builder parses
+        them first when a precision gate needs the first one), else
+        :meth:`iter_recordings` reads them.
         """
         if backend not in FUSED_BACKENDS:
             raise ValueError(f"unknown device-ingest backend {backend!r}")
+        if precision != "f32" and backend != "decode":
+            raise ValueError(
+                f"precision={precision!r} is a decode-rung feature; "
+                f"backend {backend!r} computes f32"
+            )
         featurize = ingest_cuda.make_cuda_ingest_featurizer(
             wavelet_index=wavelet_index,
             epoch_size=epoch_size,
             skip_samples=skip_samples,
             feature_size=feature_size,
             pre=self._pre,
+            precision=precision,
         )
         balance = BalanceState()
         timings = {"parse": 0.0, "stage": 0.0, "featurize": 0.0}
         rows: List[torch.Tensor] = []
         targets: List[np.ndarray] = []
         t0 = time.perf_counter()
-        for _rel_path, guessed, rec in self.iter_recordings():
+        source = self.iter_recordings() if recordings is None else iter(recordings)
+        for _rel_path, guessed, rec in source:
             t1 = time.perf_counter()
             timings["parse"] += t1 - t0
             raw, res, n_samples = device_ingest.stage_raw(
@@ -290,3 +305,55 @@ class OfflineDataProvider:
         timings["featurize"] += time.perf_counter() - t2
         self.timings = timings
         return features, target_arr
+
+    def precision_gate_check(
+        self,
+        recordings: Sequence[Tuple[str, int, brainvision.Recording]],
+        wavelet_index: int = 8,
+        precision: str = "bf16",
+        max_rows: int = 64,
+    ) -> dict:
+        """The per-run precision accuracy gate (bf16, int8 and int4 share
+        it): the first recording's first ``max_rows`` kept markers are
+        featurized by the fused kernel in both the requested precision
+        and f32 (one launch each on the card), and the rows compared
+        against that rung's tolerance
+        (``decode_ingest.feature_precision_gate``). The plan uses a fresh
+        :class:`BalanceState`: the gate compares feature values of the
+        same windows, and the run's own balance scan must not move.
+
+        Returns the gate record with ``gate_seconds`` (the double
+        featurize, so a report can tell gate overhead from steady
+        state) and ``cached``. ``cached`` is always False: the JAX
+        package memoizes the decision per content digest, and the port
+        computes no content digests (it has no feature cache yet).
+        """
+        t0 = time.perf_counter()
+        if not recordings:
+            gate = decode_ingest.feature_precision_gate(
+                np.zeros((0, 1), np.float32), np.zeros((0, 1), np.float32),
+                precision=precision,
+            )
+        else:
+            _rel, guessed, rec = recordings[0]
+            raw, res, n_samples = device_ingest.stage_raw(
+                rec, self.channel_indices_for(rec), self.device
+            )
+            plan = device_ingest.plan_ingest(
+                rec.markers, guessed, n_samples, pre=self._pre, post=self._post,
+            )
+            cap = min(max_rows, plan.capacity)
+            positions, mask = plan.positions[:cap], plan.mask[:cap]
+            n_real = int(mask.sum())  # the kept rows lead the plan
+            rows = {}
+            for p in ("f32", precision):
+                featurize = ingest_cuda.make_cuda_ingest_featurizer(
+                    wavelet_index=wavelet_index, pre=self._pre, precision=p,
+                )
+                rows[p] = featurize(raw, res, positions, mask)[:n_real]
+            gate = decode_ingest.feature_precision_gate(
+                rows[precision], rows["f32"], precision=precision,
+            )
+        gate["gate_seconds"] = round(time.perf_counter() - t0, 6)
+        gate["cached"] = False
+        return gate

@@ -14,9 +14,9 @@ Division of labour:
 
 :func:`ingest_features_plain` is that kernel's plain PyTorch version
 (the gather featurizer of the JAX package's
-``make_device_ingest_featurizer``); the kernel's wrapper takes it for
-CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
-against it.
+``make_device_ingest_featurizer``), at each ``precision=`` rung; the
+kernel's wrapper takes it for CPU tensors, and the tests and
+``chip_smoke.py`` hold the kernel against it.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import dwt
+from . import decode_ingest, dwt, quant
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..io.brainvision import Marker, Recording
@@ -182,6 +182,7 @@ def ingest_features_plain(
     operator: torch.Tensor,
     pre: int = constants.PRESTIMULUS_SAMPLES,
     skip_samples: int = 175,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused ingest kernel.
 
@@ -200,6 +201,12 @@ def ingest_features_plain(
     same, and the two agree on it bit for bit at any DC offset. For
     float32 samples the sum need not be exact, and the kernel's mean may
     differ from this one by an ulp.
+
+    ``precision``: ``"bf16"`` rounds the centred samples and the operator
+    to bfloat16 and contracts them in float32 (products of bf16 values
+    are exact in float32); ``"int8"`` and ``"int4"`` quantize the
+    finished f32 rows (``decode_ingest.int8_feature_path``,
+    ``quant.int4_feature_path``).
     """
     C, S = raw.shape
     E, K = operator.shape
@@ -216,5 +223,13 @@ def ingest_features_plain(
     scaled = torch.where(inside, scaled, torch.zeros((), device=dev))
     base = scaled[..., :pre].to(torch.float64).mean(dim=-1).to(torch.float32)
     z = scaled[..., pre:] - base[..., None]  # (C, n, E)
+    if precision == "bf16":
+        z = z.to(torch.bfloat16).to(torch.float32)
+        operator = operator.to(torch.bfloat16).to(torch.float32)
     coeffs = torch.einsum("cne,ek->nck", z, operator)
-    return dwt.safe_l2_normalize(coeffs.reshape(n, C * K))
+    rows = dwt.safe_l2_normalize(coeffs.reshape(n, C * K))
+    if precision == "int8":
+        return decode_ingest.int8_feature_path(rows, K)
+    if precision == "int4":
+        return quant.int4_feature_path(rows, K)
+    return rows

@@ -2,15 +2,17 @@
 
 Counterpart of the JAX package's Pallas ingest kernels
 (``ops/ingest_pallas.py``: the ``exact``, ``bank128`` and ``aligned8``
-formulations of one function): int16 stream + window starts ->
-(n, C*16) L2-normalized features in marker order. A float32 stream (a
-recording in another binary format, staged already scaled) runs the
-kernel's float32-sample instantiation.
+formulations of one function, and the ``bank128_bf16`` mode of the
+``precision=bf16`` rung): int16 stream + window starts -> (n, C*16)
+L2-normalized features in marker order. A float32 stream (a recording
+in another binary format, staged already scaled) runs the kernel's
+float32-sample instantiation. ``precision=`` picks the rung's
+instantiation: ``f32``, ``bf16`` (bfloat16 contraction operands),
+``int8`` and ``int4`` (the quantize step as an epilogue).
 
 :func:`ingest_features` checks its inputs, then for CUDA tensors
-launches the kernel (and counts the launch in :data:`LAUNCHES` or
-:data:`LAUNCHES_F32`), and
-for CPU tensors runs the plain version,
+launches the kernel (and counts the launch in the counter of its
+instantiation, below), and for CPU tensors runs the plain version,
 ``device_ingest.ingest_features_plain``. A CUDA launch that fails
 raises; nothing falls back to the plain version on the card.
 
@@ -29,20 +31,34 @@ import ctypes
 import numpy as np
 import torch
 
-from . import cuda_build, device_ingest, dwt
+from . import cuda_build, decode_ingest, device_ingest, dwt
 from ..utils import constants
 
 #: kernel launches made by this process (the wrapper adds one per
-#: launch): int16 streams in LAUNCHES, float32 streams in LAUNCHES_F32
+#: launch), one counter per instantiation: the f32 rung on int16 streams
+#: in LAUNCHES and on float32 streams in LAUNCHES_F32; the bf16, int8
+#: and int4 rungs (either sample type) in LAUNCHES_BF16, LAUNCHES_INT8
+#: and LAUNCHES_INT4
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_BF16 = 0
+LAUNCHES_INT8 = 0
+LAUNCHES_INT4 = 0
+
+#: the counter each (precision, float samples) instantiation adds to
+_COUNTERS = {
+    ("f32", False): "LAUNCHES", ("f32", True): "LAUNCHES_F32",
+    ("bf16", False): "LAUNCHES_BF16", ("bf16", True): "LAUNCHES_BF16",
+    ("int8", False): "LAUNCHES_INT8", ("int8", True): "LAUNCHES_INT8",
+    ("int4", False): "LAUNCHES_INT4", ("int4", True): "LAUNCHES_INT4",
+}
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ingest_features")
-    for fn in (lib.ingest_features_launch, lib.ingest_features_f32_launch):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = lib.ingest_features_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.ingest_features_error_string.argtypes = [ctypes.c_int]
     lib.ingest_features_error_string.restype = ctypes.c_char_p
     return lib
@@ -54,7 +70,11 @@ def build() -> str:
     return cuda_build.library_path("ingest_features")
 
 
-def _check(raw, resolutions, starts, operator, pre, skip_samples) -> None:
+def _check(raw, resolutions, starts, operator, pre, skip_samples, precision) -> None:
+    if precision not in decode_ingest.PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; use one of {decode_ingest.PRECISIONS}"
+        )
     if raw.dim() != 2 or raw.dtype not in (torch.int16, torch.float32):
         raise ValueError(
             f"raw must be (C, S) int16 or float32, got {tuple(raw.shape)} {raw.dtype}"
@@ -92,16 +112,16 @@ def ingest_features(
     operator: torch.Tensor,
     pre: int = constants.PRESTIMULUS_SAMPLES,
     skip_samples: int = 175,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """(C, S) int16 or float32 + (C,) res + (n,) int32 starts + (512, 16)
-    operator -> (n, C*16) float32 features; see
+    operator -> (n, C*16) float32 features at ``precision``; see
     ``device_ingest.ingest_features_plain`` for the exact function.
     Samples at or past ``S`` read 0."""
-    global LAUNCHES, LAUNCHES_F32
-    _check(raw, resolutions, starts, operator, pre, skip_samples)
+    _check(raw, resolutions, starts, operator, pre, skip_samples, precision)
     if raw.device.type == "cpu":
         return device_ingest.ingest_features_plain(
-            raw, resolutions, starts, operator, pre, skip_samples
+            raw, resolutions, starts, operator, pre, skip_samples, precision
         )
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
@@ -111,24 +131,22 @@ def ingest_features(
     if n == 0:
         return out
     lib = _library()
-    int16 = raw.dtype == torch.int16
-    launch = lib.ingest_features_launch if int16 else lib.ingest_features_f32_launch
+    float_samples = raw.dtype == torch.float32
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream(raw.device).cuda_stream
-        rc = launch(
+        rc = lib.ingest_features_launch(
             raw.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
             operator.data_ptr(), out.data_ptr(),
-            n, C, S, pre, skip_samples, stream,
+            n, C, S, pre, skip_samples, int(float_samples),
+            decode_ingest.PRECISIONS.index(precision), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"ingest_features launch failed: CUDA error {rc} "
             f"({lib.ingest_features_error_string(rc).decode()})"
         )
-    if int16:
-        LAUNCHES += 1
-    else:
-        LAUNCHES_F32 += 1
+    counter = _COUNTERS[(precision, float_samples)]
+    globals()[counter] += 1
     return out
 
 
@@ -141,11 +159,13 @@ def ingest_features_cuda(
     skip_samples: int = 175,
     feature_size: int = 16,
     pre: int = constants.PRESTIMULUS_SAMPLES,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """(C, S) int16 or float32 raw + (n,) marker positions -> (n, C*K) features in
-    marker order — the counterpart of ``ingest_pallas.ingest_features_pallas``.
-    Positions must be validated (``0 <= position - pre <= S``), as the
-    planner guarantees; others raise."""
+    marker order — the counterpart of ``ingest_pallas.ingest_features_pallas``
+    (``precision="bf16"``: its ``bank128_bf16`` mode). Positions must be
+    validated (``0 <= position - pre <= S``), as the planner guarantees;
+    others raise."""
     starts = np.asarray(positions, dtype=np.int64) - pre
     S = raw.shape[1]
     if starts.size and (starts.min() < 0 or starts.max() > S):
@@ -161,6 +181,7 @@ def ingest_features_cuda(
         dwt.kernel_operator(wavelet_index, raw.device),
         pre,
         skip_samples,
+        precision,
     )
 
 
@@ -170,12 +191,19 @@ def make_cuda_ingest_featurizer(
     skip_samples: int = 175,
     feature_size: int = 16,
     pre: int = constants.PRESTIMULUS_SAMPLES,
+    precision: str = "f32",
 ):
     """Callable ``(raw int16 or float32 (C, S), resolutions, positions, mask) ->
     (capacity, C*K)`` over an ``IngestPlan``'s padded positions/mask —
-    the decode rung's form. Padded rows start at ``S``, read only zeros
-    and come out as zero rows, so one launch covers the whole plan."""
+    the decode rung's form, at ``precision`` (one of
+    ``decode_ingest.PRECISIONS``). Padded rows start at ``S``, read only
+    zeros and come out as zero rows (at every precision), so one launch
+    covers the whole plan."""
     dwt.check_kernel_sizes("fused", epoch_size, feature_size)
+    if precision not in decode_ingest.PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; use one of {decode_ingest.PRECISIONS}"
+        )
 
     def featurize(raw, resolutions, positions, mask):
         S = raw.shape[1]
@@ -187,6 +215,7 @@ def make_cuda_ingest_featurizer(
         return ingest_features(
             raw, resolutions, torch.from_numpy(starts).to(raw.device),
             dwt.kernel_operator(wavelet_index, raw.device), pre, skip_samples,
+            precision,
         )
 
     return featurize

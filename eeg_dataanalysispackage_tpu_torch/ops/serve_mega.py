@@ -11,6 +11,9 @@ request path
 
 runs as one kernel (``csrc/serve_mega.cu``) whose only output is the
 ``(capacity,)`` margin vector: the features never reach device memory.
+At ``precision="int8"`` or ``"int4"`` the normalized feature row is
+quantized per (channel, subband group) before the margin, as the JAX
+package's kernel does (``quant.masked_quantize_dequantize``).
 
 :func:`make_serve_mega_program` returns the program: for CUDA tensors it
 launches the kernel (``ops/serve_mega_cuda.py``), for CPU tensors it runs
@@ -19,8 +22,7 @@ from the card to the plain version.
 
 Not ported: the JAX package's lowering and rung decisions
 (``default_lowering``, ``accelerator_decision``,
-``default_engine_rung``), which read TPU sweep artifacts; and the
-int8/int4 feature twins.
+``default_engine_rung``), which read TPU sweep artifacts.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ import torch
 
 from . import device_ingest, dwt
 from ..utils import constants
+
+#: the precisions the megakernel has (bf16 has none: its rung differs in
+#: the contraction's operands, not in the finished feature row)
+MEGA_PRECISIONS = ("f32", "int8", "int4")
 
 #: warmup parity gate: max abs deviation of mega margins vs the fused
 #: rung's margins on the same synthetic windows before the engine
@@ -76,6 +82,7 @@ def serve_mega_margins_plain(
     pre: int,
     skip_samples: int,
     stride: int,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch version of the megakernel: (C, capacity*stride)
     int16 stream + (C,) resolutions + (E, K) cascade matrix + (C*K,)
@@ -84,13 +91,24 @@ def serve_mega_margins_plain(
     Window ``i`` is cut at ``i * stride``; its features are
     ``device_ingest.ingest_features_plain``'s (scale, baseline mean
     accumulated in float64 and subtracted first, contraction,
-    ``safe_l2_normalize``), dotted with the weights."""
+    ``safe_l2_normalize``; at ``precision`` int8 or int4 the quantized
+    rows), dotted with the weights."""
+    _check_precision(precision)
     capacity = stream.shape[1] // stride
     starts = torch.arange(capacity, dtype=torch.int32, device=stream.device) * stride
     feats = device_ingest.ingest_features_plain(
-        stream, resolutions, starts, operator, pre, skip_samples
+        stream, resolutions, starts, operator, pre, skip_samples, precision
     )
     return feats @ weights
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in MEGA_PRECISIONS:
+        raise ValueError(
+            f"mega precision {precision!r}; use f32, int8, or int4 "
+            f"(bf16 has no mega twin — its cascade runs bf16 "
+            f"operands, not quantized f32 rows)"
+        )
 
 
 def make_serve_mega_program(
@@ -110,18 +128,10 @@ def make_serve_mega_program(
     intercept), with ``Wp = padded_stride(pre, post)``. Padded windows
     are zero and give margin 0.0; each window's compute is
     row-independent, so its margin is the same whatever batch it rides
-    in. Tensors on the card launch the kernel; CPU tensors run
-    :func:`serve_mega_margins_plain`."""
-    if precision in ("int8", "int4"):
-        raise ValueError(
-            f"mega precision {precision!r} is not yet ported; see ROADMAP.md"
-        )
-    if precision != "f32":
-        raise ValueError(
-            f"mega precision {precision!r}; use f32, int8, or int4 "
-            f"(bf16 has no mega twin — its cascade runs bf16 "
-            f"operands, not quantized f32 rows)"
-        )
+    in. ``precision`` int8 or int4 quantizes each window's feature row
+    before the margin. Tensors on the card launch the kernel; CPU
+    tensors run :func:`serve_mega_margins_plain`."""
+    _check_precision(precision)
     if pre < 1:
         raise ValueError(
             "the megakernel's baseline subtract needs pre >= 1 "
@@ -153,7 +163,7 @@ def make_serve_mega_program(
         if dev not in operators:
             operators[dev] = torch.from_numpy(cascade).to(dev)
         return serve_mega_cuda.serve_mega_margins(
-            stream, resolutions, operators[dev], weights, pre, skip_samples, Wp
+            stream, resolutions, operators[dev], weights, pre, skip_samples, Wp, precision
         )
 
     return run

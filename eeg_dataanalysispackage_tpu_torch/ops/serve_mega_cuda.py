@@ -3,11 +3,13 @@
 Counterpart of the JAX package's Pallas megakernel
 (``ops/serve_mega.py:259``, ``_make_mega_kernel``): a micro-batch of
 int16 windows at a regular stride -> one margin per window, features
-kept on chip.
+kept on chip; at ``precision`` int8 or int4, quantized before the
+margin.
 
 :func:`serve_mega_margins` checks its inputs, then for CUDA tensors
-launches the kernel (and counts the launch in :data:`LAUNCHES`), and for
-CPU tensors runs the plain version,
+launches the kernel (and counts the launch in the counter of its
+instantiation: :data:`LAUNCHES`, :data:`LAUNCHES_INT8` or
+:data:`LAUNCHES_INT4`), and for CPU tensors runs the plain version,
 ``serve_mega.serve_mega_margins_plain``. A CUDA launch that fails
 raises; nothing falls back to the plain version on the card.
 """
@@ -18,10 +20,15 @@ import ctypes
 
 import torch
 
-from . import cuda_build, dwt, serve_mega
+from . import cuda_build, decode_ingest, dwt, serve_mega
 
-#: kernel launches made by this process (the wrapper adds one per launch)
+#: kernel launches made by this process (the wrapper adds one per
+#: launch), one counter per instantiation: f32, int8, int4
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
+LAUNCHES_INT4 = 0
+
+_COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
 
 EPOCH_SIZE = dwt.KERNEL_EPOCH_SIZE
 FEATURE_SIZE = dwt.KERNEL_FEATURE_SIZE
@@ -30,7 +37,7 @@ FEATURE_SIZE = dwt.KERNEL_FEATURE_SIZE
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("serve_mega")
     fn = lib.serve_mega_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.serve_mega_error_string.argtypes = [ctypes.c_int]
     lib.serve_mega_error_string.restype = ctypes.c_char_p
@@ -90,15 +97,17 @@ def serve_mega_margins(
     pre: int,
     skip_samples: int,
     stride: int,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """(C, capacity*stride) int16 + (C,) res + (512, 16) operator +
-    (C*16,) weights -> (capacity,) float32 margins before the intercept;
-    see ``serve_mega.serve_mega_margins_plain`` for the exact function."""
-    global LAUNCHES
+    (C*16,) weights -> (capacity,) float32 margins before the intercept,
+    at ``precision`` (f32, int8 or int4); see
+    ``serve_mega.serve_mega_margins_plain`` for the exact function."""
+    serve_mega._check_precision(precision)
     _check(stream, resolutions, operator, weights, pre, skip_samples, stride)
     if stream.device.type == "cpu":
         return serve_mega.serve_mega_margins_plain(
-            stream, resolutions, operator, weights, pre, skip_samples, stride
+            stream, resolutions, operator, weights, pre, skip_samples, stride, precision
         )
     if stream.device.type != "cuda":
         raise ValueError(f"unsupported device {stream.device}")
@@ -113,12 +122,13 @@ def serve_mega_margins(
         rc = lib.serve_mega_launch(
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             weights.data_ptr(), out.data_ptr(),
-            capacity, C, stride, pre, skip_samples, cuda_stream,
+            capacity, C, stride, pre, skip_samples,
+            decode_ingest.PRECISIONS.index(precision), cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"serve_mega launch failed: CUDA error {rc} "
             f"({lib.serve_mega_error_string(rc).decode()})"
         )
-    LAUNCHES += 1
+    globals()[_COUNTERS[precision]] += 1
     return out

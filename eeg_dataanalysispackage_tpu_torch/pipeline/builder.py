@@ -18,9 +18,15 @@ the resident inference service (``serve/pipeline.py``).
 
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
-one CUDA kernel. The port has no feature cache and no degradation
-ladder: ``cache=`` and ``degrade=`` parse, and a kernel failure raises.
-Keys whose paths are not ported yet raise ``ValueError``.
+one CUDA kernel. ``precision=bf16|int8|int4`` (or ``EEG_TPU_PRECISION``)
+runs the kernel's reduced-precision rung on the bare ``-fused`` and
+``-fused-decode`` spellings, behind the JAX package's per-run accuracy
+gate: the first recording's first 64 rows in both precisions, and f32
+for the whole run above the rung's tolerance (recorded in
+:attr:`PipelineBuilder.precision_resolved`). The port has no feature
+cache and no degradation ladder: ``cache=`` and ``degrade=`` parse, and
+a kernel failure raises. Keys whose paths are not ported yet raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from ..features import registry as fe_registry
 from ..io import modelfiles, provider
 from ..models import registry, stats
+from ..ops import decode_ingest
 from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
 from ..utils.device import resolve_device
@@ -67,14 +74,34 @@ def get_query_map(query: str) -> Dict[str, str]:
     return out
 
 
+def resolve_precision(query_map: Dict[str, str]) -> str:
+    """The batch run's feature precision
+    (``decode_ingest.requested_precision``); raises the JAX package's
+    messages for a non-f32 rung with a non-fused ``fe=`` or with an
+    explicit fused backend other than decode."""
+    precision = decode_ingest.requested_precision(query_map)
+    if precision == "f32":
+        return precision
+    fused = _FUSED_FE.fullmatch(query_map.get("fe", ""))
+    if fused is None:
+        raise ValueError(
+            f"precision={precision} applies to the fused fe= modes "
+            "(fe=dwt-<i>-fused[-decode]); host-path features are "
+            "the bit-parity reference and stay f64"
+        )
+    suffix = fused.group(2)
+    if suffix not in (None, "-decode"):
+        raise ValueError(
+            f"precision={precision} rides the decode rung; it cannot combine "
+            f"with the explicit fe=...-fused{suffix} backend"
+        )
+    return precision
+
+
 def _check_ported(query_map: Dict[str, str]) -> None:
     for key in NOT_PORTED_KEYS:
         if key in query_map:
             raise ValueError(f"{key}= is not yet ported; see ROADMAP.md")
-    if query_map.get("precision", "f32") != "f32":
-        raise ValueError(
-            f"precision={query_map['precision']} is not yet ported; see ROADMAP.md"
-        )
     if query_map.get("task", "p300") != "p300":
         raise ValueError(f"task={query_map['task']} is not yet ported; see ROADMAP.md")
 
@@ -105,6 +132,10 @@ class PipelineBuilder:
         self.test_index: Optional[list] = None
         #: the last serve=true run's serve block (service stats)
         self.serve_block: Optional[dict] = None
+        #: the last fused run's precision decision, ``{"requested",
+        #: "used", "gate"}`` (``used`` is f32 when the gate tripped);
+        #: None at f32
+        self.precision_resolved: Optional[dict] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -137,6 +168,7 @@ class PipelineBuilder:
             files = [query_map["eeg_file"], query_map["guessed_num"]]
         else:
             raise ValueError("Missing the input file argument")
+        self.precision_resolved = None
 
         # serve=true: the saved classifier loads once and every kept
         # epoch becomes a request through the resident micro-batching
@@ -150,6 +182,9 @@ class PipelineBuilder:
                 self.device,
             )
             return self._finish_run(statistics, query_map)
+
+        # the JAX package checks precision= before the other arguments
+        precision = resolve_precision(query_map)
 
         # 2. feature extraction (PipelineBuilder.java:128-139)
         if "fe" not in query_map:
@@ -166,11 +201,18 @@ class PipelineBuilder:
             backend = "decode" if suffix is None else suffix[1:]
             logger.info(
                 "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s "
-                "(no feature cache, no degradation ladder)",
-                query_map["fe"], backend, self.device,
+                "at precision %s (no feature cache, no degradation ladder)",
+                query_map["fe"], backend, self.device, precision,
             )
+            recordings, pre_timers = None, {}
+            precision_used = precision
+            if precision != "f32":
+                recordings, pre_timers, precision_used = self._precision_gate(
+                    odp, wavelet_index, precision
+                )
             features, targets = odp.load_features_device(
-                wavelet_index=wavelet_index, backend=backend
+                wavelet_index=wavelet_index, backend=backend,
+                precision=precision_used, recordings=recordings,
             )
             labels = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
             batch = None
@@ -181,6 +223,9 @@ class PipelineBuilder:
             batch = odp.load()
             features, targets = None, batch.targets
         self.timers = dict(odp.timings)
+        if fe is None:
+            for name, seconds in pre_timers.items():
+                self.timers[name] = self.timers.get(name, 0.0) + seconds
         self.features, self.targets, self.batch, self.fe = features, targets, batch, fe
         n = len(targets)
 
@@ -235,6 +280,27 @@ class PipelineBuilder:
             self.timers["test"] = timings["predict"]
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
+
+    def _precision_gate(self, odp, wavelet_index: int, precision: str):
+        """Parse the session, then run the per-run accuracy gate on its
+        first recording (JAX package: pipeline/builder.py:524-570).
+        Returns ``(recordings, {"parse": s, "gate": s}, precision
+        used)``; above the rung's tolerance the run computes f32,
+        recorded in :attr:`precision_resolved`, never silently."""
+        t0 = time.perf_counter()
+        recordings = list(odp.iter_recordings())
+        t1 = time.perf_counter()
+        gate = odp.precision_gate_check(recordings, wavelet_index, precision=precision)
+        used = precision
+        if not gate["ok"]:
+            used = "f32"
+            logger.warning(
+                "pipeline.%s_gate auto-disable: max abs dev %.3e > gate %.3e; "
+                "the run computes f32",
+                precision, gate["max_abs_dev"], gate["tolerance"],
+            )
+        self.precision_resolved = {"requested": precision, "used": used, "gate": gate}
+        return recordings, {"parse": t1 - t0, "gate": time.perf_counter() - t1}, used
 
     def _finish_run(self, statistics, query_map):
         """Logging, the atomic ``result_path`` report, and the hand-off."""

@@ -21,7 +21,17 @@ threshold. The margins' device-to-host copy is the batch's one sync.
 rung is chosen from TPU evidence). :meth:`ServingEngine.warmup` builds
 the kernels and holds the mega rung's margins against the fused rung's
 on synthetic DC-heavy windows at ``serve_mega.mega_gate_tolerance()``;
-a gate miss raises. There is no degradation ladder: a mega failure
+a gate miss raises.
+
+``precision="bf16"|"int8"|"int4"`` first runs the JAX package's warmup
+precision gate on the same windows: the fused rung at the requested
+precision against f32, at the rung's tolerance; above it the engine
+serves f32 (recorded in :attr:`ServingEngine.precision_record`). The
+mega rung is then built at the effective precision and held against
+the fused rung at ``max(MEGA_GATE_TOL, rung tolerance)``; bf16 has no
+megakernel and stays on the fused rung (``mega_record`` None).
+
+There is no degradation ladder: a mega failure
 during residency raises to the batcher, which retries and then fails
 the requests with their history. Both rungs take a fixed capacity (the
 configured micro-batch size rounded up to 64), so every batch size from
@@ -29,7 +39,7 @@ configured micro-batch size rounded up to 64), so every batch size from
 depend on the batch it rides in.
 
 Not ported: float32 (non-INT_16) windows, the host-extractor mode,
-non-f32 precisions, non-linear classifiers and the multi-tenant program.
+non-linear classifiers and the multi-tenant program.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import torch
 
 from ..epochs.extractor import BalanceState
 from ..models import linear
-from ..ops import device_ingest, ingest_cuda, serve_mega
+from ..ops import decode_ingest, device_ingest, ingest_cuda, serve_mega
 from ..utils import constants
 from ..utils.device import resolve_device
 
@@ -78,14 +88,10 @@ class ServingEngine:
             )
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if precision in ("bf16", "int8", "int4"):
-            raise ValueError(
-                f"precision={precision} is not yet ported; see ROADMAP.md"
-            )
-        if precision != "f32":
+        if precision not in decode_ingest.PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; use one of "
-                f"('f32', 'bf16', 'int8', 'int4')"
+                f"{decode_ingest.PRECISIONS}"
             )
         if engine_rung not in ENGINE_RUNGS:
             raise ValueError(
@@ -120,29 +126,32 @@ class ServingEngine:
         self.skip_samples = int(skip_samples)
         self.feature_size = int(feature_size)
         self._engine_rung_requested = engine_rung
+        self._precision = precision
+        #: a non-f32 engine's precision request and its warmup gate
+        #: decision, ``{"requested", "used", "gate"}``; None at f32
+        self.precision_record: Optional[dict] = None
         #: mega-rung resolution and its warmup parity gate; None when
-        #: the engine was pinned to the fused rung
+        #: the engine was pinned to the fused rung or serves bf16
         self.mega_record: Optional[dict] = None
         self._rung = "fused"
         self._warmed = False
-        self._fused = ingest_cuda.make_cuda_ingest_featurizer(
-            wavelet_index=wavelet_index, epoch_size=epoch_size,
-            skip_samples=skip_samples, feature_size=feature_size, pre=self.pre,
-        )
+        self._fused = self._fused_featurizer(precision)
         # the synthetic stream's static plan: window i lives at
         # [i * window_len, (i + 1) * window_len), its marker at + pre
         self._positions = (
             np.arange(self.capacity, dtype=np.int32) * self.window_len + self.pre
         )
         self._mega_stride = serve_mega.padded_stride(self.pre, self.post)
+        # built at warmup, at the precision the precision gate leaves
         self._mega_program = None
-        if engine_rung != "fused":
-            self._mega_program = serve_mega.make_serve_mega_program(
-                wavelet_index=wavelet_index, epoch_size=epoch_size,
-                skip_samples=skip_samples, feature_size=feature_size,
-                n_channels=self.n_channels, pre=self.pre, post=self.post,
-                capacity=self.capacity,
-            )
+
+    def _fused_featurizer(self, precision: str):
+        """The fused rung's featurizer at ``precision``."""
+        return ingest_cuda.make_cuda_ingest_featurizer(
+            wavelet_index=self.wavelet_index, epoch_size=self.epoch_size,
+            skip_samples=self.skip_samples, feature_size=self.feature_size,
+            pre=self.pre, precision=precision,
+        )
 
     # -- execution ------------------------------------------------------
 
@@ -202,6 +211,11 @@ class ServingEngine:
         """The fused rung: the batch as a synthetic recording through
         the batch path's fused ingest kernel, then ``feats @ weights``;
         (capacity,) margins before the intercept, on the device."""
+        return self._fused_features(self._fused, windows, res) @ self._weights
+
+    def _fused_features(self, featurize, windows, res) -> torch.Tensor:
+        """(capacity, C*K) feature rows of the batch laid out as a
+        synthetic recording, through ``featurize``; padded rows zero."""
         self._check_windows(windows)
         n = len(windows)
         stream = np.zeros(
@@ -212,22 +226,31 @@ class ServingEngine:
         mask = np.zeros(self.capacity, dtype=bool)
         mask[:n] = True
         staged = torch.from_numpy(stream).to(self.device, non_blocking=False)
-        feats = self._fused(staged, res, self._positions, mask)
-        return feats @ self._weights
+        return featurize(staged, res, self._positions, mask)
 
     # -- warmup ---------------------------------------------------------
 
     def warmup(self) -> None:
         """Build the kernels and run them before traffic arrives, so a
         cold ``nvcc`` build never happens inside the batcher, where the
-        watchdog would read it as a wedge. An engine not pinned to
-        ``fused`` holds the mega rung against the fused rung here
-        (:meth:`_mega_warmup`) and raises if the gate fails.
-        Idempotent."""
+        watchdog would read it as a wedge. A non-f32 engine runs its
+        precision gate first (:meth:`_precision_warmup_gate`); an engine
+        not pinned to ``fused`` and not serving bf16 then holds the mega
+        rung against the fused rung (:meth:`_mega_warmup`) and raises if
+        that gate fails. Idempotent."""
         if self._warmed:
             return
-        if self._mega_program is not None:
-            self._mega_warmup()
+        effective = "f32"
+        if self._precision != "f32":
+            effective = self._precision_warmup_gate()
+        if self._engine_rung_requested != "fused" and effective != "bf16":
+            self._mega_program = serve_mega.make_serve_mega_program(
+                wavelet_index=self.wavelet_index, epoch_size=self.epoch_size,
+                skip_samples=self.skip_samples, feature_size=self.feature_size,
+                n_channels=self.n_channels, pre=self.pre, post=self.post,
+                capacity=self.capacity, precision=effective,
+            )
+            self._mega_warmup(effective)
         self.execute(
             [np.zeros((self.n_channels, self.window_len), np.int16)],
             np.ones(self.n_channels, np.float32),
@@ -251,16 +274,44 @@ class ServingEngine:
         ]
         return windows, np.full(self.n_channels, 0.1, np.float32)
 
-    def _mega_warmup(self) -> None:
+    def _precision_warmup_gate(self) -> str:
+        """The serving arm of the precision accuracy gate: the gate
+        windows through the fused rung at the requested precision and at
+        f32, judged at the rung's tolerance
+        (``decode_ingest.feature_precision_gate``). Above it the engine
+        serves f32. Returns the effective precision."""
+        windows, res_np = self._gate_windows()
+        res = torch.from_numpy(res_np).to(self.device)
+        f32 = self._fused_featurizer("f32")
+        n = len(windows)
+        rung_feats = self._fused_features(self._fused, windows, res)[:n]
+        f32_feats = self._fused_features(f32, windows, res)[:n]
+        gate = decode_ingest.feature_precision_gate(
+            rung_feats, f32_feats, precision=self._precision
+        )
+        used = self._precision if gate["ok"] else "f32"
+        self.precision_record = {"requested": self._precision, "used": used, "gate": gate}
+        if not gate["ok"]:
+            self._fused = f32
+            logger.warning(
+                "serve.%s_gate auto-disable: max abs dev %.3e > gate %.3e; serving f32",
+                self._precision, gate["max_abs_dev"], gate["tolerance"],
+            )
+        return used
+
+    def _mega_warmup(self, precision: str) -> None:
         """Promote the mega rung after its margins pass the parity gate
-        against the fused rung on the gate windows; raise otherwise."""
+        against the fused rung on the gate windows; raise otherwise.
+        At int8 or int4 the gate is the rung's tolerance where that is
+        looser than ``MEGA_GATE_TOL``: one quantization-boundary flip
+        between the two rungs moves a margin by a quantization step."""
         record = {
             "requested": self._engine_rung_requested,
             "resolved": "mega",
             "used": "fused",
             "lowering": "cuda" if self.device.type == "cuda" else "plain",
             "gate": None,
-            "precision": "f32",
+            "precision": precision,
         }
         self.mega_record = record
         windows, res_np = self._gate_windows()
@@ -269,6 +320,8 @@ class ServingEngine:
         mega = self._mega_margins(windows, res)[:n].cpu().numpy()
         fused = self._fused_margins(windows, res)[:n].cpu().numpy()
         tol = serve_mega.mega_gate_tolerance()
+        if precision != "f32":
+            tol = max(tol, decode_ingest.precision_gate_tolerance(precision))
         dev = float(np.max(np.abs(mega - fused)))
         gate = {
             "max_abs_dev": dev,

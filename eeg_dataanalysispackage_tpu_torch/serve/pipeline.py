@@ -15,6 +15,7 @@ Query surface::
         &fe=dwt-8-fused&info_file=...
         [&serve_deadline_ms=2000] [&serve_batch=64] [&serve_queue=256]
         [&serve_flush_us=0] [&serve_threshold=<margin>]
+        [&precision=f32|bf16|int8|int4]
 
 Not ported: multi-tenant serving, ``adapt=`` and ``task=seizure``.
 """
@@ -33,6 +34,7 @@ from ..epochs.extractor import BalanceState
 from ..models import linear as linear_mod
 from ..models import registry as clf_registry
 from ..models import stats
+from ..ops import decode_ingest
 from ..utils import java_compat
 
 logger = logging.getLogger(__name__)
@@ -167,11 +169,10 @@ def run_serve(query_map, provider_factory, stage, device):
             "program; fe= must be a dwt-<i>-fused form"
         )
     wavelet_index = int(fused_match.group(1))
-    precision = (
-        query_map.get("precision")
-        or os.environ.get("EEG_TPU_PRECISION")
-        or "f32"
-    )
+    # precision=bf16|int8|int4 serve through the reduced-precision rung
+    # behind the engine's warmup accuracy gate; the decision is the serve
+    # block's ``precision`` entry
+    precision = decode_ingest.requested_precision(query_map)
 
     classifier = clf_registry.create(query_map["load_clf"])
     classifier.load(query_map["load_name"])

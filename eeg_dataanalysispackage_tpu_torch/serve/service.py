@@ -318,7 +318,8 @@ class InferenceService:
         return {
             "mode": self.engine.mode,
             "rung": self.engine.rung,
-            "precision": None,
+            # a non-f32 engine's warmup gate decision; None at f32
+            "precision": self.engine.precision_record,
             "mega": self.engine.mega_record,
             "max_batch": self.config.max_batch,
             "queue_depth": self.config.queue_depth,

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the fused
-ingest kernel (int16 and float32 streams), the serve megakernel and the
-epoch-features kernel.
+ingest kernel (int16 and float32 streams, at every precision= rung), the
+serve megakernel (f32, int8, int4) and the epoch-features kernel.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
@@ -13,7 +13,10 @@ same float32 arithmetic and differ only in summation order (for int16
 streams the baseline mean, summed exactly in float64 by both, agrees bit
 for bit; for float32 streams it may differ by an ulp).
 On margins, 2e-6 * ||w||_1: the margin error a 2e-6 feature error can
-make.
+make. The int8/int4 rungs' quantize step is held bit for bit against the
+plain quantizer applied to the f32 kernel's own rows; against the plain
+version of the whole chain a row may differ where an f32 ulp moves a
+value across a quantization boundary, by one step of its group.
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ import torch
 
 from eeg_dataanalysispackage_tpu_torch.features import wavelet
 from eeg_dataanalysispackage_tpu_torch.ops import (
-    device_ingest, dwt, dwt_cuda, ingest_cuda, serve_mega, serve_mega_cuda,
+    decode_ingest, device_ingest, dwt, dwt_cuda, ingest_cuda, quant, serve_mega,
+    serve_mega_cuda,
 )
 
 RES = np.array([0.1, 0.1, 0.2], np.float32)
@@ -247,3 +251,104 @@ def test_epoch_kernel_raises_on_a_refused_launch():
     dev = _card()
     with pytest.raises(RuntimeError, match="launch failed"):
         dwt_cuda.epoch_features_cuda(torch.zeros((2, 200, 750), device=dev))
+
+
+_RUNG_COUNTERS = {"bf16": "LAUNCHES_BF16", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
+_QUANTIZE = {"int8": decode_ingest.int8_feature_path, "int4": quant.int4_feature_path}
+
+
+def _raw(dev, sample, dc, S, seed):
+    if sample == "int16":
+        return torch.from_numpy(_stream(dc, 3000, S, seed)).to(dev), torch.from_numpy(RES).to(dev)
+    x = np.random.RandomState(seed).randn(3, S) * 300.0 + np.asarray(dc, np.float64)[:, None] / 10
+    return torch.from_numpy(x.astype(np.float32)).to(dev), torch.ones(3, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STARTS))
+@pytest.mark.parametrize("sample", ["int16", "float32"])
+@pytest.mark.parametrize("dc", [(0, 0, 0), (30000, -30000, 29500)])
+def test_bf16_rung_matches_plain_version(case, sample, dc):
+    """K2-bf16: bfloat16-rounded operands, float32 accumulation; within
+    2e-6 of its plain version and within the bf16 gate of the f32 rung."""
+    dev = _card()
+    S = 30000
+    raw, res = _raw(dev, sample, dc, S, seed=4)
+    W = dwt.kernel_operator(8, dev)
+    starts = torch.from_numpy(STARTS[case](S).astype(np.int32)).to(dev)
+    before = ingest_cuda.LAUNCHES_BF16
+    got = ingest_cuda.ingest_features(raw, res, starts, W, precision="bf16")
+    torch.cuda.synchronize()
+    assert ingest_cuda.LAUNCHES_BF16 == before + 1
+    want = device_ingest.ingest_features_plain(raw, res, starts, W, precision="bf16")
+    f32 = ingest_cuda.ingest_features(raw, res, starts, W)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
+    assert (got - f32).abs().max().item() <= decode_ingest.BF16_GATE_TOL
+    assert (got[starts >= S] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("sample", ["int16", "float32"])
+@pytest.mark.parametrize("dc", [(0, 0, 0), (30000, -30000, 29500)])
+def test_quantize_epilogue_is_the_plain_quantizer_bit_for_bit(precision, sample, dc):
+    """K1-int8/int4: the kernel's rows equal the plain quantizer applied
+    to the f32 kernel's rows of the same windows, bit for bit."""
+    dev = _card()
+    S = 60000
+    raw, res = _raw(dev, sample, dc, S, seed=5)
+    W = dwt.kernel_operator(8, dev)
+    starts = torch.from_numpy(np.concatenate([
+        np.random.RandomState(6).randint(0, S - 787, size=700), [S - 300, S]
+    ]).astype(np.int32)).to(dev)
+    counter = _RUNG_COUNTERS[precision]
+    before = getattr(ingest_cuda, counter)
+    got = ingest_cuda.ingest_features(raw, res, starts, W, precision=precision)
+    torch.cuda.synchronize()
+    assert getattr(ingest_cuda, counter) == before + 1
+    f32 = ingest_cuda.ingest_features(raw, res, starts, W)
+    want = _QUANTIZE[precision](f32.cpu(), 16)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    assert (got[-1] == 0).all()  # a window at the end reads zeros
+    plain = device_ingest.ingest_features_plain(raw, res, starts, W, precision=precision)
+    assert (got - plain).abs().max().item() <= decode_ingest.precision_gate_tolerance(precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (128, 77), (2048, 2048)])
+def test_quantized_mega_kernel_matches_the_quantized_ingest_rows(precision, capacity, n):
+    """K5-int8/int4: margins within 2e-6 * ||w||_1 of K1-int8/int4's rows
+    of the same windows dotted with w, within the rung's tolerance of the
+    plain version; padded rows 0; a margin the same solo and in a batch."""
+    dev = _card()
+    stream, res, W, weights, stride = _mega_inputs(
+        dev, capacity, n, (15000, -12000, 9000), 3000, seed=n)
+    counter = _RUNG_COUNTERS[precision]
+    before = getattr(serve_mega_cuda, counter)
+    got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride,
+                                             precision)
+    torch.cuda.synchronize()
+    assert getattr(serve_mega_cuda, counter) == before + 1
+    starts = (torch.arange(capacity, dtype=torch.int32, device=dev) * stride).contiguous()
+    rows = ingest_cuda.ingest_features(stream, res, starts, W, 100, 175, precision)
+    tol = 2e-6 * weights.abs().sum().item()
+    assert (got - rows @ weights).abs().max().item() <= tol
+    plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175, stride,
+                                                precision)
+    assert (got - plain).abs().max().item() <= decode_ingest.precision_gate_tolerance(precision)
+    assert (got[n:] == 0).all()
+    solo = torch.zeros_like(stream)
+    solo[:, :stride] = stream[:, (n - 1) * stride:n * stride]
+    solo_m = serve_mega_cuda.serve_mega_margins(solo, res, W, weights, 100, 175, stride,
+                                                precision)
+    assert solo_m[0].item() == got[n - 1].item()
+
+
+@pytest.mark.cuda
+def test_mega_wrapper_refuses_bf16_on_the_card():
+    dev = _card()
+    stream, res, W, weights, stride = _mega_inputs(dev, 64, 1, (0, 0, 0), 3000, seed=0)
+    with pytest.raises(ValueError, match="bf16 has no mega twin"):
+        serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride, "bf16")

@@ -4,7 +4,8 @@ A fresh interpreter imports the port and every one of its submodules
 and must leave ``jax`` and ``eeg_dataanalysispackage_tpu`` out of
 ``sys.modules`` (a subprocess: tests/conftest.py imports JAX into this
 one). An AST scan pins the same for every source file of the port and
-for ``chip_smoke.py``, including imports inside functions.
+for ``chip_smoke.py`` and ``chip_compare.py``, including imports inside
+functions.
 """
 
 import ast
@@ -34,7 +35,7 @@ assert not leaked, leaked
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

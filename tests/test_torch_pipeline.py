@@ -128,7 +128,11 @@ def test_no_silent_cpu_without_cuda(one_file):
 
 @pytest.mark.parametrize(
     "extra",
-    ["classifiers=logreg,svm", "precision=bf16", "overlap=true", "devices=2",
+    ["classifiers=logreg,svm",
+     # precision=bf16 runs on the fused path (tests/test_torch_precision.py);
+     # the host path's bf16 spelling does not
+     pytest.param("fe=dwt-8-tpu-bf16", id="precision=bf16"),
+     "overlap=true", "devices=2",
      # serve=true itself runs (tests/test_torch_serve.py); its adapt= does not
      pytest.param("serve=true&adapt=true", id="serve=true"),
      "task=seizure", "cv=3", "elastic=true"],

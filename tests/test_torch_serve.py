@@ -194,13 +194,18 @@ def test_conflicts_raise_the_reference_messages(session):
 
 
 @pytest.mark.parametrize(
-    "extra", ["adapt=true", "task=seizure", "precision=bf16", "faults=serve.batch:once@1",
-              "report=/tmp/never", "save_clf=false&elastic=false"],
+    "extra,match",
+    [pytest.param(e, "not yet ported", id=e)
+     for e in ("adapt=true", "task=seizure", "faults=serve.batch:once@1",
+               "report=/tmp/never", "save_clf=false&elastic=false")]
+    # precision=bf16 serves (tests/test_torch_precision.py); a precision
+    # outside the ladder raises the JAX package's message
+    + [pytest.param("precision=f16", "must be f32, bf16, int8, or int4", id="precision=bf16")],
 )
-def test_unported_serve_keys_raise(session, extra):
+def test_unported_serve_keys_raise(session, extra, match):
     q = (f"info_file={session['info']}&fe=dwt-8-fused&serve=true"
          f"&load_clf=logreg&load_name={session['model']}&{extra}")
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match=match):
         PipelineBuilder(q, device="cpu").execute()
 
 
@@ -226,8 +231,11 @@ def test_unported_engine_inputs_raise(session):
     clf = session["classifier"]
     with pytest.raises(ValueError, match="engine_rung"):
         engine.ServingEngine(clf, engine_rung="turbo", device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        engine.ServingEngine(clf, precision="int8", device="cpu")
+    # int8 is served (tests/test_torch_precision.py); a bf16 engine pinned
+    # to the mega rung stays on fused: bf16 has no megakernel
+    bf16 = engine.ServingEngine(clf, precision="bf16", engine_rung="mega", device="cpu")
+    bf16.warmup()
+    assert bf16.rung == "fused" and bf16.mega_record is None
     with pytest.raises(ValueError, match="unknown precision"):
         engine.ServingEngine(clf, precision="f16", device="cpu")
     with pytest.raises(ValueError, match="host-extractor serving mode is not yet ported"):

@@ -108,10 +108,11 @@ def test_program_rejects_bad_geometry():
         serve_mega.make_serve_mega_program(n_channels=_C, pre=0, post=512)
     with pytest.raises(ValueError, match="exceeds the padded stride"):
         serve_mega.make_serve_mega_program(n_channels=_C, pre=100, post=600)
-    for precision in ("int8", "int4"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            serve_mega.make_serve_mega_program(precision=precision)
-    with pytest.raises(ValueError, match="precision"):
+    for precision in ("int8", "int4"):  # ported: zero windows give margin 0
+        quantized = serve_mega.make_serve_mega_program(precision=precision)
+        zeros = torch.zeros((3, 64 * 896), dtype=torch.int16)
+        assert bool((quantized(zeros, torch.ones(3), torch.ones(48)) == 0).all())
+    with pytest.raises(ValueError, match="bf16 has no mega twin"):
         serve_mega.make_serve_mega_program(precision="bf16")
     program = serve_mega.make_serve_mega_program(capacity=64)
     with pytest.raises(ValueError, match="stream must be"):
