@@ -18,7 +18,9 @@ on the same card in one call:
    kernel with ``identical``.
 
 A kernel counts as f32 when its name carries no precision template
-argument or precision 0 (``window_features::Precision::kF32``). Exits
+argument or precision 0 (``window_features::Precision::kF32``); the serve
+megakernel's tenant-stacked instantiation (``kMulti``) is keyed apart
+from the one-vector kernel, so each is compared with its own. Exits
 non-zero when a build, a timing or ``cuobjdump`` fails. Needs one card;
 imports nothing of JAX.
 """
@@ -76,6 +78,8 @@ def f32_sass(cuobjdump: str, library: str) -> dict:
             key = _KERNEL.search(name)
             f32 = "Precision" not in name or "PrecisionE0E" in name
             current = key.group(1) if key and f32 else None
+            if current and "Lb1E" in name:  # a true bool flag: the kMulti instantiation
+                current += "_multi"
             if current:
                 kernels[current] = []
             continue

@@ -6,8 +6,9 @@
 Drives the port's paths on the card — the fused batch run,
 ``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``
 at f32 and at ``precision=bf16|int8|int4``, the host ``fe=`` batch run
-(``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``), and the online service,
-``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung —
+(``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``), the online service,
+``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung, and
+the multi-tenant service (``serve.MultiplexedService``, 128 tenants) —
 and holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
@@ -30,7 +31,12 @@ Phases, one JSON line each (several for phases 2 to 6):
    every case its int8/int4 instantiations (within 2e-6 * ||w||_1 of the
    quantized ingest rows dotted with w, within the rung's tolerance of
    the plain version with the row flips counted, padded rows 0, solo
-   equal to batch); the epoch-features kernel (B = 1, 5, 37, 128 and
+   equal to batch); the tenant-stacked megakernel K6 (random and
+   DC-heavy windows, n = 1 and n = capacity at capacity 64, 128 and
+   2,048, lanes cycling over all 128 lanes and all on one tenant; margins
+   within 2e-6 * ||w_lane||_1 of the plain version and bit-equal to the
+   megakernel launched with that lane's weights; padded rows and a freed
+   lane exactly 0); the epoch-features kernel (B = 1, 5, 37, 128 and
    32,768, DC-heavy epochs, an all-zero epoch giving an exactly zero row,
    5-channel input reduced to 3, a window that does not fit raising);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
@@ -66,14 +72,28 @@ Phases, one JSON line each (several for phases 2 to 6):
    the ``mega`` rung (the int8/int4 megakernel's launches) and
    ``precision=bf16`` on the ``fused`` rung (K2-bf16's launches), each
    with its statistics equal to the card's batch ``load_clf=`` run at
-   the same precision;
+   the same precision; then a ``MultiplexedService`` of 128 tenants
+   (tenant 0 the saved model, the rest its weights with seeded
+   perturbations) serving the kept windows with tenants interleaved,
+   a swap, an add and a remove made while the first half is in flight
+   (no library built, the program object unchanged; the removed tenant's
+   requests still queued fail alone, every other request completes),
+   K6's launches over
+   the run, the rows of 8 tenants (lanes 0, 1, 63 and 127 among them)
+   equal bit for bit to a solo ``mega`` service of that tenant, tenant
+   0's statistics over every kept window equal to the card's batch
+   ``load_clf=`` run, one mixed 64-window batch split into host staging,
+   the stream's and the lanes' host-to-device copies, kernel call,
+   margin sync and ``engine.execute``, and a per-tenant quota shed probe
+   with its evidence;
 6. timing (CUDA events around one wrapper call, median of 25; and the
    kernel's own device time from ``torch.profiler``, mean of 10) beside
    the plain version's time and the card's bound: the ingest kernel at
    32,768 windows on an int16 and on a float32 stream and at the bf16,
    int8 and int4 rungs, the megakernel (f32, int8, int4) at capacity 64
-   (one serve batch) and at 32,768 windows, the epoch-features kernel at
-   32,768 epochs.
+   (one serve batch) and at 32,768 windows, K6 at the same sizes with
+   lanes cycling over 128 tenants, the epoch-features kernel at 32,768
+   epochs.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -461,6 +481,69 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
     return worst
 
 
+def multi_lanes(np, capacity, n, spread):
+    """Host lanes of a K6 case: cycling over all 128 lanes, or all on
+    one tenant; padded rows lane 0."""
+    lanes = np.zeros(capacity, np.int32)
+    lanes[:n] = np.arange(n) % 128 if spread == "cycling" else 77
+    return lanes
+
+
+def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
+    """K6, the tenant-stacked megakernel, against its plain version on
+    the card per input case: each row within MARGIN_TOL_PER_L1 *
+    ||w_lane||_1, bit-equal to the solo megakernel launched with that
+    lane's weights; padded rows and a freed (zero) lane exactly 0.
+    Returns the worst deviation."""
+    worst = 0.0
+    cases = []
+    for capacity in (64, 128, 2048):
+        for n in (1, capacity):
+            for spread in ("cycling", "one_lane"):
+                cases.append((f"random_cap{capacity}_n{n}_{spread}", capacity, n, spread,
+                              (0, 0, 0), 3000))
+                cases.append((f"dc_heavy_cap{capacity}_n{n}_{spread}", capacity, n, spread,
+                              (30000, -30000, 29500), 1500))
+    for seed, (name, capacity, n, spread, dc, noise) in enumerate(cases):
+        stream, res, _w, stride = mega_batch(torch, np, serve_mega, dev, capacity, n, dc,
+                                             noise, 500 + seed)
+        rng = np.random.RandomState(seed)
+        stack_np = rng.randn(serve_mega.MAX_TENANTS, 48).astype(np.float32)
+        stack_np[5] = 0.0  # a freed lane
+        stack = torch.from_numpy(stack_np).to(dev)
+        lanes_np = multi_lanes(np, capacity, n, spread)
+        lanes = torch.from_numpy(lanes_np)
+        got = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, 175,
+                                                       stride)
+        torch.cuda.synchronize()
+        want = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, 100,
+                                                         175, stride)
+        l1 = np.abs(stack_np).sum(axis=1)[lanes_np]
+        dev_rows = (got - want).abs().cpu().numpy()
+        within = bool((dev_rows <= MARGIN_TOL_PER_L1 * l1).all())
+        err = float(dev_rows.max())
+        got_np = got.cpu().numpy()
+        bit_equal = True
+        for lane in np.unique(lanes_np[:n]):
+            solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100,
+                                                      175, stride).cpu().numpy()
+            rows = np.nonzero(lanes_np[:n] == lane)[0]
+            bit_equal = bit_equal and got_np[rows].tobytes() == solo[rows].tobytes()
+        pad_zero = bool((got_np[n:] == 0).all())
+        freed_zero = bool((got_np[:n][lanes_np[:n] == 5] == 0).all())
+        finite = bool(np.isfinite(got_np).all())
+        emit("mega_multi_vs_plain", case=name, capacity=capacity, windows=n,
+             lanes_used=int(len(np.unique(lanes_np[:n]))), max_abs_err=err,
+             tol_per_l1=MARGIN_TOL_PER_L1, within_tol=within,
+             bit_equal_solo_kernel_per_lane=bit_equal, padded_rows_zero=pad_zero,
+             freed_lane_zero=freed_zero, finite=finite)
+        if not (within and bit_equal and pad_zero and freed_zero and finite
+                and got.shape == (capacity,)):
+            raise AssertionError(f"K6 disagrees on {name}")
+        worst = max(worst, err)
+    return worst
+
+
 def differing_rows(pred_a, m_a, pred_b, m_b, thr, label):
     """Rows whose predictions differ between two runs; each must lie
     within MARGIN_BAND of the threshold on both (raises otherwise)."""
@@ -655,6 +738,183 @@ def phase_serve_precisions(np, info, model, kept, windows, resolutions):
             raise AssertionError(f"serve precision={precision} did not serve through {kernel}")
         served_launches[precision] = counts[kernel]
     return served_launches
+
+
+def perturbed_tenant(np, base, seed):
+    """The saved model with its weights and intercept perturbed from
+    ``seed`` (numpy), as a port classifier."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+
+    rng = np.random.default_rng(seed)
+    state = base.to_numpy_state()
+    state["weights"] = (state["weights"] + rng.standard_normal(48).astype(np.float32)
+                        * 0.05).astype(np.float32)
+    state["intercept"] = float(rng.standard_normal() * 0.01)
+    clf = registry.create("logreg")
+    clf.from_numpy_state(state)
+    return clf
+
+
+def phase_multi_service(torch, np, info, model, kept, windows, resolutions):
+    """The multi-tenant service on the card: 128 tenants (tenant 0 the
+    saved model, the rest perturbed from it) serve the kept windows with
+    tenants interleaved; while the first half is in flight a tenant is
+    swapped, one removed and one added, with no library built and the
+    program object unchanged; 8 tenants' rows equal a solo mega service
+    bit for bit; tenant 0 over every kept window has the card's batch
+    load_clf= statistics (a row may differ only within MARGIN_BAND of
+    the threshold on both); a quota shed probe. Returns K6's launches
+    over the run."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry, stats
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        cuda_build, ingest_cuda, serve_mega, serve_mega_cuda,
+    )
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import (
+        InferenceService, MultiplexedService, RequestFailedError, ServeConfig, ShedError,
+    )
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    base = registry.create("logreg")
+    base.load(model)
+    names = [f"t{i:03d}" for i in range(128)]
+    tenants = {names[0]: base}
+    tenants.update({name: perturbed_tenant(np, base, i) for i, name in enumerate(names)
+                    if i})
+    n = len(windows)
+    mix = [names[i % 128] for i in range(n)]
+    half = n // 2
+    counters = {"serve_mega_multi": (serve_mega_cuda, "MULTI_LAUNCHES"),
+                "serve_mega": (serve_mega_cuda, "LAUNCHES"),
+                "ingest_features": (ingest_cuda, "LAUNCHES")}
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    svc = MultiplexedService(tenants)
+    with svc:
+        program, loaded = svc.engine._mega_program, dict(cuda_build._LOADED)
+        logs = dict(cuda_build.BUILD_LOGS)
+        budget = svc.config.default_deadline_s
+        first = [svc.submit(w, r, tenant=t, deadline_s=budget, block_s=budget)
+                 for w, r, t in zip(windows[:half], resolutions[:half], mix[:half])]
+        swapped = perturbed_tenant(np, base, 1005)
+        svc.swap_tenant("t005", swapped)
+        svc.remove_tenant("t006")
+        lane_new = svc.add_tenant("newcomer", perturbed_tenant(np, base, 1006))
+        second_mix = ["newcomer" if t == "t006" else t for t in mix[half:]]
+        second = svc.predict_all(windows[half:], resolutions[half:], second_mix)
+        results = []
+        for f, tenant in zip(first, mix[:half]):
+            try:
+                results.append(f.result(timeout=budget + 30.0))
+            except RequestFailedError as e:
+                # t006's requests still queued at its removal fail alone
+                if tenant != "t006" or "was removed" not in str(e):
+                    raise
+                results.append(None)
+        removed_failed = results.count(None)
+        results += second
+        admin_built = dict(cuda_build._LOADED) != loaded or dict(cuda_build.BUILD_LOGS) != logs
+        same_program = svc.engine._mega_program is program
+        t0_results = svc.predict_all(windows, resolutions, "t000")
+        block = svc.stats_block()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    checked = ["t000", "t001", "t002", "t003", "t063", "t064", "t100", "t127"]
+    bit_equal = {}
+    for name in checked:
+        rows = [i for i, t in enumerate(mix) if t == name]
+        with InferenceService(tenants[name]) as solo:
+            alone = solo.predict_all([windows[i] for i in rows], [resolutions[i] for i in rows])
+        bit_equal[name] = (solo.engine.rung == "mega"
+                           and [results[i].margin for i in rows] == [r.margin for r in alone]
+                           and [results[i].prediction for i in rows]
+                           == [r.prediction for r in alone])
+    batch = PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&load_clf=logreg"
+                            f"&load_name={model}")
+    batch_stats = batch.execute()
+    t0_pred = np.array([r.prediction for r in t0_results], dtype=np.float64)
+    perm = java_compat.java_shuffle_indices(n, seed=1)
+    t0_stats = stats.ClassificationStatistics.from_arrays(
+        t0_pred[perm], np.asarray(batch.targets)[perm], confusion_only=base.confusion_only_stats)
+    rows = []
+    if str(t0_stats) != str(batch_stats):
+        thr = base.margin_threshold
+        batch_m = base.margin(batch.features).double().cpu().numpy()
+        rows = differing_rows(t0_pred, np.array([r.margin for r in t0_results], np.float64),
+                              (batch_m > thr).astype(np.float64), batch_m, thr,
+                              "tenant 0 vs batch load_clf=")
+        if not rows:
+            raise AssertionError("tenant 0's statistics differ with no near-threshold row")
+    # one full mixed batch through the mega rung, step by step (medians
+    # of 25): the lanes' copy beside the stream's
+    eng = svc.engine
+    batch_w, res_np = windows[:64], resolutions[0]
+    batch_t = ["newcomer" if t == "t006" else t for t in mix[:64]]
+    res_t = torch.from_numpy(res_np).to(eng.device)
+    stack, lanes = eng._resolve(batch_t, 64)
+    lanes_host = eng._capacity_lanes(lanes)
+    stream = serve_mega.stage_mega_stream(batch_w, 3, 850, eng._mega_stride, eng.capacity)
+    staged = torch.from_numpy(stream).to(eng.device)
+    margins = eng._mega_program(staged, res_t, stack.weights, lanes_host)
+
+    def host_ms(fn, runs=25):
+        times = []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return pystats.median(times)
+
+    split = {
+        "host_staging_ms": host_ms(lambda: serve_mega.stage_mega_stream(
+            batch_w, 3, 850, eng._mega_stride, eng.capacity)),
+        "h2d_stream_ms": host_ms(lambda: torch.from_numpy(stream).to(eng.device)),
+        "h2d_lanes_ms": host_ms(lambda: lanes_host.to(eng.device)),
+        "kernel_call_ms": host_ms(lambda: eng._mega_program(staged, res_t, stack.weights,
+                                                            lanes_host)),
+        "margin_sync_ms": host_ms(lambda: margins.cpu()),
+        "engine_execute_ms": host_ms(lambda: eng.execute(batch_w, res_np, batch_t)),
+    }
+    emit("serve_split_multitenant", batch=64, tenants_in_batch=len(set(batch_t)),
+         kernel_call_includes="the lanes' copy", **split)
+
+    # a per-tenant quota shed probe: the queue only fills, nothing runs
+    probe = MultiplexedService({"a": base, "b": tenants["t001"]},
+                               config=ServeConfig(max_batch=16, tenant_quota=2))
+    probe._accepting = True
+    for _ in range(2):
+        probe.submit(windows[0], resolutions[0], tenant="a")
+    try:
+        probe.submit(windows[0], resolutions[0], tenant="a")
+        evidence = None
+    except ShedError as e:
+        evidence = e.evidence
+    probe.submit(windows[0], resolutions[0], tenant="b")
+    probe._accepting = False
+    req = block["requests"]
+    emit("serve_multitenant", tenants=128, rung=block["rung"], launches=launches, kept=kept,
+         requests=len(results) + n, completed=req["completed"], shed=req["shed"],
+         failed=req["failed"], removed_tenant_requests_failed=removed_failed,
+         batches=block["batches"],
+         mean_batch_size=block["mean_batch_size"], latency_ms=block["latency_ms"],
+         mega_gate=block["mega"]["gate"], wall_s=wall, admin_built_nothing=not admin_built,
+         program_unchanged=same_program, new_tenant_lane=lane_new,
+         swapped_generation=block["tenants"]["t005"]["generation"],
+         rows_equal_solo_mega=bit_equal, tenant0_statistics_equal_batch=not rows,
+         tenant0_near_threshold_rows=rows, shed_probe_evidence=evidence,
+         resident_weight_bytes=block["resident_weight_bytes"])
+    if not (block["rung"] == "mega" and all(bit_equal.values()) and not admin_built
+            and same_program and lane_new == 6
+            and req["completed"] == len(results) + n - removed_failed
+            and req["failed"] == removed_failed and req["shed"] == 0
+            and launches["serve_mega_multi"] >= 2 * math.ceil(n / 64)
+            and launches["serve_mega"] == 0
+            and evidence is not None and evidence["reason"] == "tenant_quota"
+            and evidence["tenant"] == "a" and evidence["tenant_depth"] == 2):
+        raise AssertionError("the multi-tenant service did not serve as the solo services")
+    return launches["serve_mega_multi"]
 
 
 def phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev):
@@ -1079,6 +1339,43 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
+def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak,
+                      smi):
+    """K6 and its plain version on ``n`` full windows, lanes cycling
+    over 128 tenants; held against the plain version and, bit for bit,
+    against the solo megakernel per lane. Bound: the megakernel's bytes
+    plus the lanes (4 B a window) and the 128-lane stack read once."""
+    stride = serve_mega.padded_stride(100, 750)
+    gen = torch.Generator(device=dev).manual_seed(n + 1)
+    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
+    lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+    args = (stream, res, W, stack, lanes, 100, 175, stride)
+    got = serve_mega_cuda.serve_mega_multi_margins(*args)
+    err = (got - serve_mega.serve_mega_multi_margins_plain(*args)).abs().max().item()
+    if err > MARGIN_TOL_PER_L1 * stack.abs().sum(dim=1).max().item():
+        raise AssertionError(f"K6 disagrees at the timing size {n}: {err}")
+    for lane in [t for t in (0, 63, 127) if t < n]:
+        rows = torch.arange(lane, n, serve_mega.MAX_TENANTS, device=dev)
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[lane], 100, 175, stride)
+        if got[rows].cpu().numpy().tobytes() != solo[rows].cpu().numpy().tobytes():
+            raise AssertionError(f"K6 lane {lane} is not the solo kernel's at size {n}")
+    kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_multi_margins(*args))
+    plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_margins_plain(*args))
+    device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_multi_margins(*args),
+                                   "serve_mega_kernel")
+    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak)
+    bytes_moved = mega_bytes - 48 * 4 + serve_mega.MAX_TENANTS * 48 * 4 + n * 4
+    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+    emit("timing", kernel="serve_mega_multi", windows=n, stride=stride, tenants=128,
+         kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
+         library_ms=None, max_abs_err=err, nvidia_smi=smi)
+    return kernel_ms, plain_ms, bound_ms, bound_by, err
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timing):
     kernel_ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
@@ -1127,6 +1424,7 @@ def main() -> int:
     max_err = phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev)
     f32_err = phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev)
     mega_err = phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
+    multi_err = phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     epoch_err = phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev)
 
     # 4. the batch paths end to end on an 8 x 1,200-marker session, and a
@@ -1183,6 +1481,8 @@ def main() -> int:
         kept = int(len(gpu.targets))
         serve_launches, windows, resolutions = phase_serve(torch, np, info, model, kept)
         served_launches = phase_serve_precisions(np, info, model, kept, windows, resolutions)
+        multi_launches = phase_multi_service(torch, np, info, model, kept, windows,
+                                             resolutions)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1200,6 +1500,8 @@ def main() -> int:
     mega_64, mega_big = ({p: mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
                                          bandwidth, f32_peak, smi, precision=p)
                           for p in ("f32", "int8", "int4")} for n in (64, 32_768))
+    multi_64, multi_big = (mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
+                                             bandwidth, f32_peak, smi) for n in (64, 32_768))
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
 
     # 7. the kernels line, then the card line, then the result
@@ -1223,6 +1525,9 @@ def main() -> int:
         *(kernel_entry(f"serve_mega_{p}", "serve_mega.cu", mega_pallas, served_launches[p],
                        max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p])
           for p in ("int8", "int4")),
+        kernel_entry("serve_mega_multi", "serve_mega.cu",
+                     "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484", multi_launches,
+                     max(multi_err, multi_64[4], multi_big[4]), multi_64),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -32,6 +32,20 @@
 // GFLOP at 67 TFLOP/s (f32, no tensor cores). At one serve batch (64
 // windows) the bound is under 0.1 us and launch latency sets the time.
 //
+// K6, the tenant-stacked instantiation (kMulti, f32 only), replaces the TPU
+// kernel eeg_dataanalysispackage_tpu/ops/serve_mega.py:484
+// (_mega_multi_program, pallas_call :645, built at serve/multiplex.py:864):
+// the same kernel, with the weights of row i at stack + lanes[i] * C*16 of a
+// tenant-major (128, C*16) stack instead of one vector. The Pallas kernel
+// takes the whole (tile_b, 128) margin matrix in one MXU dot and picks each
+// row's tenant column outside the kernel (a dynamic lane slice does not
+// compile in Mosaic); here the pick is one pointer offset inside the kernel,
+// so no 128-column product is computed, and the 48-term dot keeps K5's
+// fixed order: a tenant's margin is bit-identical to K5 run with that
+// tenant's weights. Bound: K5's bytes plus 4 B of lane per window (at
+// 32,768 windows ~120.6 MB, 0.036 ms at 3.35 TB/s); the stack (24 KB) is
+// read from L2.
+//
 // Later work for speed: the fused ingest kernel's (TMA staging, several
 // windows per block), and 16-byte int16 loads: every window starts on a
 // 16-byte boundary (stride 896 x 2 B).
@@ -46,14 +60,19 @@ namespace {
 
 using namespace window_features;
 
-template <Precision P>
+// kMulti: `weights` is the tenant-major (128, channels*16) stack and row i
+// dots with its row lanes[i] (K6); otherwise `weights` is one vector and
+// `lanes` is not read (K5, whose instructions do not change with the flag).
+template <Precision P, bool kMulti = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     serve_mega_kernel(const int16_t* __restrict__ stream,
                       const float* __restrict__ res,
                       const float* __restrict__ w,
                       const float* __restrict__ weights,
                       float* __restrict__ out, int capacity, int channels,
-                      int stride, int pre, int skip) {
+                      int stride, int pre, int skip,
+                      const int* __restrict__ lanes) {
+  static_assert(!kMulti || P == Precision::kF32, "the tenant stack is f32");
   extern __shared__ __align__(16) float smem[];
   const Smem s = carve(smem, channels, pre);
   const int nfeat = channels * kFeatures;
@@ -81,8 +100,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     // window rewrites after featurize_window's first barrier, so no
     // barrier is needed after it.
     if (threadIdx.x < 32) {
+      const float* wrow = weights;
+      if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
       float m = 0.0f;
-      for (int i = lane; i < nfeat; i += 32) m = fmaf(f[i], weights[i], m);
+      for (int i = lane; i < nfeat; i += 32) m = fmaf(f[i], wrow[i], m);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
       if (lane == 0) out[row] = m;
@@ -90,18 +111,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   }
 }
 
-template <Precision P>
+template <Precision P, bool kMulti = false>
 int launch(const void* stream, const void* res, const void* w, const void* weights,
            void* out, int capacity, int channels, int stride, int pre, int skip,
-           void* cuda_stream) {
+           void* cuda_stream, const void* lanes = nullptr) {
   const size_t smem = smem_bytes(channels, pre);
   int grid = 0;
-  const cudaError_t err = plan_grid(serve_mega_kernel<P>, smem, capacity, &grid);
+  const cudaError_t err =
+      plan_grid(serve_mega_kernel<P, kMulti>, smem, capacity, &grid);
   if (err != cudaSuccess) return err;
-  serve_mega_kernel<P><<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int16_t*>(stream), static_cast<const float*>(res),
-      static_cast<const float*>(w), static_cast<const float*>(weights),
-      static_cast<float*>(out), capacity, channels, stride, pre, skip);
+  serve_mega_kernel<P, kMulti>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+          static_cast<const int16_t*>(stream), static_cast<const float*>(res),
+          static_cast<const float*>(w), static_cast<const float*>(weights),
+          static_cast<float*>(out), capacity, channels, stride, pre, skip,
+          static_cast<const int*>(lanes));
   return cudaGetLastError();
 }
 
@@ -135,6 +159,22 @@ int serve_mega_launch(const void* stream, const void* res, const void* w,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K6: as serve_mega_launch at f32, with stack: (128, channels*16) float32,
+// tenant-major (row t is tenant lane t's weights), and lanes: (capacity,)
+// int32, each in [0, 128) (the wrapper checks them on the host). out[i] is
+// window i dotted with stack row lanes[i], before the intercept.
+int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
+                            const void* stack, const void* lanes, void* out,
+                            int capacity, int channels, int stride, int pre, int skip,
+                            void* cuda_stream) {
+  if (capacity <= 0) return cudaSuccess;
+  if (channels <= 0 || pre <= 0 || skip < 0 || pre + skip + kEpoch > stride) {
+    return cudaErrorInvalidValue;
+  }
+  return launch<Precision::kF32, true>(stream, res, w, stack, out, capacity, channels,
+                                       stride, pre, skip, cuda_stream, lanes);
 }
 
 const char* serve_mega_error_string(int code) {

@@ -16,6 +16,9 @@ DWT features with no host epochs. Input-contract parity with
 - channels named fz/cz/pz (case-insensitive) are selected, and a file
   missing one reuses the index resolved for the previous file (:172-183);
 - the balance counters span all files of a run, in info.txt order (:58-59).
+
+Remote inputs (``https://``, ``gs://``, ``hdfs://`` …) are not ported:
+they raise before anything is opened (``io/remote.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from . import brainvision
+from .remote import refuse_remote
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..ops import decode_ingest, device_ingest, ingest_cuda
@@ -102,6 +106,7 @@ class OfflineDataProvider:
     def _resolve_files(self) -> Tuple[str, Dict[str, int]]:
         """Returns (prefix, ordered {path: guessed number})."""
         loc = self._args[0]
+        refuse_remote(loc, "input")
         if loc.endswith(constants.EEG_EXTENSION):
             if len(self._args) < 2:
                 raise ValueError(

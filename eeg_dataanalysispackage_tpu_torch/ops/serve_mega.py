@@ -20,6 +20,15 @@ launches the kernel (``ops/serve_mega_cuda.py``), for CPU tensors it runs
 the plain version :func:`serve_mega_margins_plain`. Nothing falls back
 from the card to the plain version.
 
+:func:`make_serve_mega_multi_program` is the tenant-stacked twin (the JAX
+package's ``_mega_multi_program``, f32 weights): one program serves every
+tenant mix, row ``i`` dotted with row ``lanes[i]`` of a tenant-major
+``(MAX_TENANTS, C*K)`` weight stack. Its plain version is
+:func:`serve_mega_multi_margins_plain`; its kernel is the megakernel's
+``kMulti`` instantiation. A tenant's margin is bit-identical to the solo
+program's with that tenant's weights, on the card (the same kernel code)
+and on the CPU (the same matvec, :func:`lane_margins`).
+
 Not ported: the JAX package's lowering and rung decisions
 (``default_lowering``, ``accelerator_decision``,
 ``default_engine_rung``), which read TPU sweep artifacts.
@@ -35,6 +44,11 @@ import torch
 
 from . import device_ingest, dwt
 from ..utils import constants
+
+#: lane width of the tenant weight stack: one row per tenant in the
+#: tenant-major (MAX_TENANTS, C*K) matrix (the JAX package's 128-lane
+#: (C*K, 128) stack, transposed)
+MAX_TENANTS = 128
 
 #: the precisions the megakernel has (bf16 has none: its rung differs in
 #: the contraction's operands, not in the finished feature row)
@@ -102,6 +116,70 @@ def serve_mega_margins_plain(
     return feats @ weights
 
 
+def lane_margins(feats: torch.Tensor, stack: torch.Tensor, lanes) -> torch.Tensor:
+    """(n, C*K) rows + (T, C*K) tenant-major stack + (n,) host int lanes ->
+    (n,) margins, row ``i`` dotted with ``stack[lanes[i]]``.
+
+    For every lane present the one-vector product ``feats @ stack[lane]``
+    runs over all ``n`` rows, as the solo engine's ``feats @ weights``
+    does, and each row takes its lane's result. A single ``feats @
+    stack.T`` and a gather would not do: a matrix product's column need
+    not equal the matrix-vector product bit for bit (the JAX package
+    measured ~3e-5 on XLA:CPU, ``serve/engine.py:160-200``)."""
+    lanes = np.asarray(lanes)
+    present = np.unique(lanes)
+    columns = [feats @ stack[int(t)] for t in present]
+    if len(columns) == 1:
+        return columns[0]
+    pick = torch.from_numpy(np.searchsorted(present, lanes)).to(feats.device)
+    return torch.stack(columns).gather(0, pick[None])[0]
+
+
+def serve_mega_multi_margins_plain(
+    stream: torch.Tensor,
+    resolutions: torch.Tensor,
+    operator: torch.Tensor,
+    stack: torch.Tensor,
+    lanes: torch.Tensor,
+    pre: int,
+    skip_samples: int,
+    stride: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the tenant-stacked megakernel (K6):
+    (C, capacity*stride) int16 stream + (C,) resolutions + (E, K)
+    cascade matrix + (MAX_TENANTS, C*K) tenant-major f32 stack +
+    (capacity,) int32 lanes -> (capacity,) float32 margins before the
+    intercept: :func:`serve_mega_margins_plain`'s feature rows, row
+    ``i`` dotted with ``stack[lanes[i]]`` (:func:`lane_margins`), so a
+    row's margin is bit-identical to the plain solo version's with
+    that lane's weights."""
+    capacity = stream.shape[1] // stride
+    starts = torch.arange(capacity, dtype=torch.int32, device=stream.device) * stride
+    feats = device_ingest.ingest_features_plain(
+        stream, resolutions, starts, operator, pre, skip_samples
+    )
+    return lane_margins(feats, stack, lanes.cpu().numpy())
+
+
+def _checked_stride(pre: int, post: int, skip_samples: int, epoch_size: int) -> int:
+    """The padded stride of a serving geometry the megakernel takes;
+    raises for one it does not."""
+    if pre < 1:
+        raise ValueError(
+            "the megakernel's baseline subtract needs pre >= 1 "
+            "(pre=0 geometries serve through the host-extractor mode)"
+        )
+    Wp = padded_stride(pre, post)
+    live = pre + skip_samples + epoch_size
+    if live > Wp:
+        raise ValueError(
+            f"window geometry (pre {pre} + skip {skip_samples} + "
+            f"epoch {epoch_size} = {live}) exceeds the padded stride "
+            f"{Wp} (= pre+post rounded to 128)"
+        )
+    return Wp
+
+
 def _check_precision(precision: str) -> None:
     if precision not in MEGA_PRECISIONS:
         raise ValueError(
@@ -132,20 +210,8 @@ def make_serve_mega_program(
     before the margin. Tensors on the card launch the kernel; CPU
     tensors run :func:`serve_mega_margins_plain`."""
     _check_precision(precision)
-    if pre < 1:
-        raise ValueError(
-            "the megakernel's baseline subtract needs pre >= 1 "
-            "(pre=0 geometries serve through the host-extractor mode)"
-        )
     C, K = int(n_channels), int(feature_size)
-    Wp = padded_stride(pre, post)
-    live = pre + skip_samples + epoch_size
-    if live > Wp:
-        raise ValueError(
-            f"window geometry (pre {pre} + skip {skip_samples} + "
-            f"epoch {epoch_size} = {live}) exceeds the padded stride "
-            f"{Wp} (= pre+post rounded to 128)"
-        )
+    Wp = _checked_stride(pre, post, skip_samples, epoch_size)
     cascade = dwt.cascade_matrix(wavelet_index, epoch_size, feature_size).astype(np.float32)
     operators = {}
 
@@ -164,6 +230,47 @@ def make_serve_mega_program(
             operators[dev] = torch.from_numpy(cascade).to(dev)
         return serve_mega_cuda.serve_mega_margins(
             stream, resolutions, operators[dev], weights, pre, skip_samples, Wp, precision
+        )
+
+    return run
+
+
+def make_serve_mega_multi_program(
+    wavelet_index: int = 8,
+    epoch_size: int = 512,
+    skip_samples: int = 175,
+    feature_size: int = 16,
+    n_channels: int = len(constants.CHANNEL_NAMES),
+    pre: int = constants.PRESTIMULUS_SAMPLES,
+    post: int = constants.POSTSTIMULUS_SAMPLES,
+    capacity: int = 64,
+):
+    """The tenant-stacked megakernel program for one serving geometry:
+    a callable ``(stream (C, capacity*Wp) int16, resolutions (C,)
+    float32, stack (MAX_TENANTS, C*K) float32, lanes (capacity,) int32
+    on the host) -> margins (capacity,) float32`` (before the
+    intercept). Padded windows are zero and give margin 0.0, whatever
+    their lane (padded rows carry lane 0). Tensors on the card launch
+    the kernel; CPU tensors run
+    :func:`serve_mega_multi_margins_plain`."""
+    C = int(n_channels)
+    Wp = _checked_stride(pre, post, skip_samples, epoch_size)
+    cascade = dwt.cascade_matrix(wavelet_index, epoch_size, feature_size).astype(np.float32)
+    operators = {}
+
+    def run(stream: torch.Tensor, resolutions: torch.Tensor, stack: torch.Tensor,
+            lanes: torch.Tensor) -> torch.Tensor:
+        from . import serve_mega_cuda
+
+        if stream.shape != (C, capacity * Wp):
+            raise ValueError(
+                f"stream must be ({C}, {capacity * Wp}), got {tuple(stream.shape)}"
+            )
+        dev = stream.device
+        if dev not in operators:
+            operators[dev] = torch.from_numpy(cascade).to(dev)
+        return serve_mega_cuda.serve_mega_multi_margins(
+            stream, resolutions, operators[dev], stack, lanes, pre, skip_samples, Wp
         )
 
     return run

@@ -12,6 +12,13 @@ instantiation: :data:`LAUNCHES`, :data:`LAUNCHES_INT8` or
 :data:`LAUNCHES_INT4`), and for CPU tensors runs the plain version,
 ``serve_mega.serve_mega_margins_plain``. A CUDA launch that fails
 raises; nothing falls back to the plain version on the card.
+
+:func:`serve_mega_multi_margins` is K6, the tenant-stacked kernel
+(``ops/serve_mega.py:484`` of the JAX package, ``_mega_multi_program``):
+the same kernel's ``kMulti`` instantiation, each window dotted with its
+tenant's row of a (128, C*16) f32 stack, counted in
+:data:`MULTI_LAUNCHES`. Its lanes come from the host, where their range
+is checked before they are copied to the card.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from . import cuda_build, decode_ingest, dwt, serve_mega
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
 LAUNCHES_INT4 = 0
+#: launches of the tenant-stacked instantiation (K6)
+MULTI_LAUNCHES = 0
 
 _COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
 
@@ -39,6 +48,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.serve_mega_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    multi = lib.serve_mega_multi_launch
+    multi.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    multi.restype = ctypes.c_int
     lib.serve_mega_error_string.argtypes = [ctypes.c_int]
     lib.serve_mega_error_string.restype = ctypes.c_char_p
     return lib
@@ -50,7 +62,8 @@ def build() -> str:
     return cuda_build.library_path("serve_mega")
 
 
-def _check(stream, resolutions, operator, weights, pre, skip_samples, stride) -> None:
+def _check(stream, resolutions, operator, weights, pre, skip_samples, stride,
+           weights_name="weights", weights_shape=None) -> None:
     if stream.dim() != 2 or stream.dtype != torch.int16:
         raise ValueError(
             f"stream must be (C, capacity*stride) int16, got "
@@ -67,13 +80,14 @@ def _check(stream, resolutions, operator, weights, pre, skip_samples, stride) ->
             f"operator must be ({EPOCH_SIZE}, {FEATURE_SIZE}) float32, got "
             f"{tuple(operator.shape)} {operator.dtype}"
         )
-    if weights.shape != (C * FEATURE_SIZE,) or weights.dtype != torch.float32:
+    shape = weights_shape or (C * FEATURE_SIZE,)
+    if weights.shape != shape or weights.dtype != torch.float32:
         raise ValueError(
-            f"weights must be ({C * FEATURE_SIZE},) float32, got "
+            f"{weights_name} must be {shape} float32, got "
             f"{tuple(weights.shape)} {weights.dtype}"
         )
     for name, t in (("stream", stream), ("resolutions", resolutions),
-                    ("operator", operator), ("weights", weights)):
+                    ("operator", operator), (weights_name, weights)):
         if t.device != stream.device:
             raise ValueError(f"{name} is on {t.device}, stream on {stream.device}")
         if not t.is_contiguous():
@@ -131,4 +145,66 @@ def serve_mega_margins(
             f"({lib.serve_mega_error_string(rc).decode()})"
         )
     globals()[_COUNTERS[precision]] += 1
+    return out
+
+
+def serve_mega_multi_margins(
+    stream: torch.Tensor,
+    resolutions: torch.Tensor,
+    operator: torch.Tensor,
+    stack: torch.Tensor,
+    lanes: torch.Tensor,
+    pre: int,
+    skip_samples: int,
+    stride: int,
+) -> torch.Tensor:
+    """K6: (C, capacity*stride) int16 + (C,) res + (512, 16) operator +
+    (128, C*16) tenant-major f32 stack + (capacity,) int32 lanes on the
+    host -> (capacity,) float32 margins before the intercept, window
+    ``i`` dotted with ``stack[lanes[i]]``; see
+    ``serve_mega.serve_mega_multi_margins_plain`` for the exact
+    function. The stack and the lanes are checked here, on the host,
+    before the lanes are copied to the card and the kernel launches."""
+    C = stream.shape[0] if stream.dim() == 2 else 0
+    _check(stream, resolutions, operator, stack, pre, skip_samples, stride,
+           weights_name="stack", weights_shape=(serve_mega.MAX_TENANTS, C * FEATURE_SIZE))
+    capacity = stream.shape[1] // stride
+    if (not isinstance(lanes, torch.Tensor) or lanes.dtype != torch.int32
+            or lanes.shape != (capacity,)):
+        raise ValueError(f"lanes must be a ({capacity},) int32 tensor, got {lanes!r}")
+    if lanes.device.type != "cpu":
+        raise ValueError(
+            f"lanes must be on the host (got {lanes.device}): their range is "
+            "checked before they are copied to the card"
+        )
+    if capacity and (int(lanes.min()) < 0 or int(lanes.max()) >= serve_mega.MAX_TENANTS):
+        raise ValueError(
+            f"lanes must lie in [0, {serve_mega.MAX_TENANTS}); got "
+            f"[{int(lanes.min())}, {int(lanes.max())}]"
+        )
+    if stream.device.type == "cpu":
+        return serve_mega.serve_mega_multi_margins_plain(
+            stream, resolutions, operator, stack, lanes, pre, skip_samples, stride
+        )
+    if stream.device.type != "cuda":
+        raise ValueError(f"unsupported device {stream.device}")
+    out = torch.empty((capacity,), dtype=torch.float32, device=stream.device)
+    if capacity == 0:
+        return out
+    lanes_dev = lanes.to(stream.device)
+    lib = _library()
+    with torch.cuda.device(stream.device):
+        cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
+        rc = lib.serve_mega_multi_launch(
+            stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
+            stack.data_ptr(), lanes_dev.data_ptr(), out.data_ptr(),
+            capacity, C, stride, pre, skip_samples, cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"serve_mega_multi launch failed: CUDA error {rc} "
+            f"({lib.serve_mega_error_string(rc).decode()})"
+        )
+    global MULTI_LAUNCHES
+    MULTI_LAUNCHES += 1
     return out

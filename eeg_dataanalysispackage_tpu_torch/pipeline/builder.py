@@ -14,7 +14,8 @@ the port, in two forms:
 then the seed-1 shuffle + 70/30 split, linear classifiers with MLlib-SGD
 semantics, ``config_*`` pass-through, ``save_clf``/``load_clf`` and the
 ``result_path`` report file. ``serve=true`` drives the session through
-the resident inference service (``serve/pipeline.py``).
+the resident inference service (``serve/pipeline.py``); any other
+``serve=`` value runs the batch path, as in the JAX package.
 
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
@@ -152,13 +153,11 @@ class PipelineBuilder:
 
     def execute(self) -> stats.ClassificationStatistics:
         query_map = get_query_map(self.query)
-        serve = query_map.get("serve")
-        if serve == "true":
+        serve = query_map.get("serve") == "true"
+        if serve:
             # the reference's conflict messages come before any
             # not-yet-ported key of the conflicting modes
             serve_pipeline.check_conflicts(query_map)
-        elif serve is not None:
-            raise ValueError(f"serve={serve} is not yet ported; see ROADMAP.md")
         _check_ported(query_map)
 
         # 1. input (PipelineBuilder.java:104-113)
@@ -173,7 +172,7 @@ class PipelineBuilder:
         # serve=true: the saved classifier loads once and every kept
         # epoch becomes a request through the resident micro-batching
         # service; the statistics are the batch load_clf= run's
-        if serve == "true":
+        if serve:
             self.timers = {}
             statistics, self.serve_block = serve_pipeline.run_serve(
                 query_map,

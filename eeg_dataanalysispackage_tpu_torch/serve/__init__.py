@@ -1,6 +1,6 @@
 """Online inference serving for the P300 pipeline.
 
-Port of the JAX package's ``serve/`` for single-model services:
+Port of the JAX package's ``serve/``:
 
 - ``engine``   the serving engine: raw epoch-window bytes -> margins
                through the serve megakernel (``csrc/serve_mega.cu``),
@@ -12,11 +12,16 @@ Port of the JAX package's ``serve/`` for single-model services:
 - ``service``  the resident wrapper (:class:`InferenceService`):
                load a saved classifier once, serve until drained,
                export the ``serve`` stats block;
+- ``multiplex`` many tenants' linear models behind one engine
+               (:class:`MultiplexedService`): a tenant-major weight
+               stack, the tenant-stacked megakernel, admin that builds
+               nothing, per-tenant quotas and attribution (f32 stack);
 - ``pipeline`` the ``serve=true`` query mode: drive a batch session
                through the service epoch by epoch, with the batch
-               ``load_clf=`` run's statistics.
+               ``load_clf=`` run's statistics; the tenant spec loaders.
 
-Not ported yet: ``lifecycle`` and ``multiplex`` (see ROADMAP.md).
+Not ported yet: ``lifecycle`` and the quantized tenant stack (see
+ROADMAP.md).
 """
 
 from .batcher import (  # noqa: F401
@@ -29,4 +34,5 @@ from .batcher import (  # noqa: F401
     ShedError,
 )
 from .engine import ServingEngine, windows_from_recording  # noqa: F401
+from .multiplex import MultiplexedEngine, MultiplexedService, TenantStack  # noqa: F401
 from .service import InferenceService, ServeConfig  # noqa: F401

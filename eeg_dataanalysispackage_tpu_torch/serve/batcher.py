@@ -1,8 +1,8 @@
 """Micro-batching with admission control, deadlines and a watchdog.
 
-Port of the JAX package's ``serve/batcher.py`` for single-model
-services. The front end between callers and the serving engine
-(serve/engine.py); each failure mode has an explicit owner:
+Port of the JAX package's ``serve/batcher.py``. The front end between
+callers and the serving engine (serve/engine.py); each failure mode has
+an explicit owner:
 
 - **Bounded admission queue** — a burst past ``queue_depth`` is shed
   at the door with :class:`ShedError` carrying evidence (depth, limit,
@@ -23,9 +23,16 @@ services. The front end between callers and the serving engine
   :class:`ServiceClosedError`) while everything already admitted
   completes.
 
+- **Tenants** (multi-tenant services, serve/multiplex.py) — a request
+  may carry a tenant; the tenant is not in the batch key, so mixed
+  tenants coalesce into one batch. A per-tenant quota sheds one
+  tenant's burst against its own budget, with that tenant's depth and
+  oldest age as evidence, and a tenant-aware batcher keeps per-tenant
+  outcome counters, latency reservoirs and histograms.
+
 Counters and latencies live in the batcher's own snapshot. The JAX
-package's chaos points, per-plan fault domains, event spans and
-per-tenant accounting are not ported.
+package's chaos points (``serve.batch.tenant.<name>`` among them),
+per-plan fault domains and event spans are not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +76,19 @@ class ServiceWedgedError(ServeError):
 class RequestFailedError(ServeError):
     """The request exhausted its retry/deadline budget; the message
     carries the per-attempt history."""
+
+
+class UnknownTenantError(ValueError):
+    """A batch holds requests of tenants that are not registered, e.g.
+    removed after the requests were admitted; ``tenants`` names them. A
+    tenant-aware batcher fails those requests alone and runs the rest
+    of the batch."""
+
+    def __init__(self, tenants):
+        self.tenants = frozenset(tenants)
+        super().__init__(
+            "unknown tenant " + ", ".join(repr(t) for t in sorted(self.tenants))
+        )
 
 
 class ServeFuture:
@@ -126,10 +146,10 @@ class Request:
 
     __slots__ = (
         "window", "resolutions", "deadline", "future", "submitted_at",
-        "attempts", "history",
+        "attempts", "history", "tenant",
     )
 
-    def __init__(self, window, resolutions, deadline):
+    def __init__(self, window, resolutions, deadline, tenant=None):
         self.window = window
         self.resolutions = resolutions
         self.deadline: deadline_mod.Deadline = deadline
@@ -137,10 +157,16 @@ class Request:
         self.submitted_at = time.monotonic()
         self.attempts = 0
         self.history: List[str] = []
+        #: owning tenant (multi-tenant services); None for single-model
+        #: services. Not part of batch_key: mixed-tenant requests
+        #: coalesce into one batch
+        self.tenant: Optional[str] = tenant
 
     def batch_key(self):
         """Requests coalesce only when the engine can run them as one
-        stream: same dtype, same per-channel resolutions."""
+        stream: same dtype, same per-channel resolutions. The tenant is
+        not here: the multi-tenant engine picks each row's weights by
+        lane, so one batch mixes tenants freely."""
         return (self.window.dtype.str, self.resolutions.tobytes())
 
 
@@ -175,10 +201,17 @@ class AdmissionQueue:
     access, so this is a small purpose-built structure.
     """
 
-    def __init__(self, depth: int):
+    def __init__(self, depth: int, tenant_quota: Optional[int] = None):
         if depth < 1:
             raise ValueError(f"queue depth must be >= 1, got {depth}")
+        if tenant_quota is not None and tenant_quota < 1:
+            raise ValueError(f"tenant_quota must be >= 1, got {tenant_quota}")
         self.depth = int(depth)
+        #: per-tenant cap on queued requests (multi-tenant services): one
+        #: noisy tenant fills its quota and sheds, with its own evidence,
+        #: while the shared queue keeps admitting the others. None checks
+        #: only the global depth.
+        self.tenant_quota = None if tenant_quota is None else int(tenant_quota)
         self._items: "collections.deque" = collections.deque()
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -201,30 +234,71 @@ class AdmissionQueue:
     @property
     def last_shed_details(self) -> dict:
         """Structured evidence for the most recent shed decision —
-        ``{"reason", "queue_depth", "depth_limit", "oldest_age_s"}``."""
+        ``{"reason", "queue_depth", "depth_limit", "oldest_age_s"}``,
+        plus ``{"tenant", "tenant_depth", "tenant_quota"}`` when a
+        per-tenant quota shed the request."""
         with self._lock:
             return dict(self._last_shed_details)
+
+    def _admissible(self, request: Request) -> bool:
+        """Room in the queue and in the request's tenant quota (caller
+        holds the lock)."""
+        if len(self._items) >= self.depth:
+            return False
+        if self.tenant_quota is None or request.tenant is None:
+            return True
+        depth = sum(1 for item in self._items if item.tenant == request.tenant)
+        return depth < self.tenant_quota
+
+    def _record_shed(self, request: Request) -> None:
+        """The evidence of a shed decision (caller holds the lock)."""
+        now = time.monotonic()
+        if len(self._items) >= self.depth:
+            oldest_age = now - self._items[0].submitted_at
+            self._last_shed_details = {
+                "reason": "queue_full",
+                "queue_depth": len(self._items),
+                "depth_limit": self.depth,
+                "oldest_age_s": round(oldest_age, 3),
+            }
+            self._last_shed_evidence = (
+                f"queue at depth {self.depth}, oldest "
+                f"queued request is {oldest_age:.3f}s old"
+            )
+            return
+        tenant = request.tenant
+        tenant_items = [item for item in self._items if item.tenant == tenant]
+        oldest_age = now - tenant_items[0].submitted_at if tenant_items else 0.0
+        self._last_shed_details = {
+            "reason": "tenant_quota",
+            "tenant": tenant,
+            "tenant_depth": len(tenant_items),
+            "tenant_quota": self.tenant_quota,
+            "queue_depth": len(self._items),
+            "depth_limit": self.depth,
+            "oldest_age_s": round(oldest_age, 3),
+        }
+        self._last_shed_evidence = (
+            f"tenant {tenant!r} at its quota of {self.tenant_quota} queued "
+            f"requests (queue holds {len(self._items)}/{self.depth}); "
+            f"{tenant!r}'s oldest queued request is {oldest_age:.3f}s old"
+        )
 
     def offer(self, request: Request, block_s: float = 0.0) -> bool:
         """Admit one request; False = full (the caller sheds). With
         ``block_s`` the caller cooperates with backpressure by waiting
-        (on the pop-notified condition — no polling) for space."""
+        (on the pop-notified condition — no polling) for space.
+
+        With a ``tenant_quota``, a tenant's request is also refused while
+        that tenant already has ``tenant_quota`` requests queued: its
+        burst sheds against its own quota while the queue keeps
+        admitting the other tenants."""
         deadline = time.monotonic() + block_s
         with self._not_full:
-            while len(self._items) >= self.depth:
+            while not self._admissible(request):
                 remaining = deadline - time.monotonic()
                 if remaining <= 0.0:
-                    oldest_age = time.monotonic() - self._items[0].submitted_at
-                    self._last_shed_details = {
-                        "reason": "queue_full",
-                        "queue_depth": len(self._items),
-                        "depth_limit": self.depth,
-                        "oldest_age_s": round(oldest_age, 3),
-                    }
-                    self._last_shed_evidence = (
-                        f"queue at depth {self.depth}, oldest "
-                        f"queued request is {oldest_age:.3f}s old"
-                    )
+                    self._record_shed(request)
                     return False
                 self._not_full.wait(remaining)
             self._items.append(request)
@@ -322,7 +396,10 @@ class MicroBatcher:
 
     ``execute(windows, resolutions) -> (predictions, margins)`` is the
     engine seam (injectable for tests — a wedged executor is how the
-    watchdog is proven).
+    watchdog is proven). A ``tenant_aware`` batcher (multi-tenant
+    services) calls ``execute(windows, resolutions, tenants)`` instead,
+    and keeps per-tenant outcome counters (``tenant.<name>.<key>``), a
+    per-tenant latency reservoir and a per-tenant latency histogram.
     """
 
     def __init__(
@@ -336,12 +413,15 @@ class MicroBatcher:
         retry_backoff_s: float = 0.05,
         watchdog_s: float = 5.0,
         name: str = "serve",
+        tenant_aware: bool = False,
+        tenant_quota: Optional[int] = None,
     ):
         if flush_us < 0:
             raise ValueError(f"flush_us must be >= 0, got {flush_us}")
         self._execute = execute
+        self.tenant_aware = bool(tenant_aware)
         self.max_batch = int(max_batch)
-        self.queue = AdmissionQueue(queue_depth)
+        self.queue = AdmissionQueue(queue_depth, tenant_quota=tenant_quota)
         self.coalesce_s = float(coalesce_s)
         #: the bounded batch-fill window in seconds (serve_flush_us=)
         self.flush_s = int(flush_us) / 1e6
@@ -361,6 +441,10 @@ class MicroBatcher:
         #: fixed-bucket latency histogram (obs/metrics_export.py): never
         #: evicts; the SLO block reads it
         self.latency_hist = metrics_export.LatencyHistogram()
+        #: per-tenant latency reservoirs and histograms (tenant-aware
+        #: batchers), guarded by the counters lock
+        self.tenant_latencies: dict = {}
+        self.tenant_latency_hists: dict = {}
         self.counters = collections.Counter()
         self._counters_lock = threading.Lock()
 
@@ -400,6 +484,56 @@ class MicroBatcher:
     def count(self, key: str, n: int = 1) -> None:
         with self._counters_lock:
             self.counters[key] += n
+
+    def _count_tenant(self, tenant, key: str, n: int = 1) -> None:
+        """Per-tenant counter ``tenant.<name>.<key>``; the global key is
+        counted separately by :meth:`count`. Per-tenant keys are bounded
+        by the stack's 128 lanes, not by traffic."""
+        if tenant is None:
+            return
+        with self._counters_lock:
+            self.counters[f"tenant.{tenant}.{key}"] += n
+
+    def _tenant_latency(self, tenant, latency: float) -> None:
+        if tenant is None:
+            return
+        with self._counters_lock:
+            reservoir = self.tenant_latencies.get(tenant)
+            if reservoir is None:
+                reservoir = collections.deque(maxlen=8192)
+                self.tenant_latencies[tenant] = reservoir
+            reservoir.append(latency)
+            hist = self.tenant_latency_hists.get(tenant)
+            if hist is None:
+                hist = metrics_export.LatencyHistogram()
+                self.tenant_latency_hists[tenant] = hist
+            hist.observe(latency * 1e3)
+
+    def tenant_latency_snapshot(self) -> dict:
+        """Per-tenant latency reservoir copies under the lock (empty for
+        tenant-unaware batchers)."""
+        with self._counters_lock:
+            return {t: list(r) for t, r in self.tenant_latencies.items()}
+
+    def tenant_histogram_snapshot(self) -> dict:
+        """Per-tenant latency histogram copies under the lock (empty for
+        tenant-unaware batchers)."""
+        with self._counters_lock:
+            return {
+                t: metrics_export.LatencyHistogram.from_snapshot(h.snapshot())
+                for t, h in self.tenant_latency_hists.items()
+            }
+
+    def evict_tenant(self, tenant: str) -> None:
+        """Drop a departed tenant's reservoir, histogram and
+        ``tenant.<name>.*`` counters, so add/remove churn does not grow
+        them for the service's lifetime."""
+        prefix = f"tenant.{tenant}."
+        with self._counters_lock:
+            self.tenant_latencies.pop(tenant, None)
+            self.tenant_latency_hists.pop(tenant, None)
+            for key in [k for k in self.counters if k.startswith(prefix)]:
+                del self.counters[key]
 
     def snapshot(self):
         """(counters copy, latency list) under the lock — the safe
@@ -455,6 +589,7 @@ class MicroBatcher:
             if req.deadline.expired:
                 waited = time.monotonic() - req.submitted_at
                 self.count("deadline_exceeded")
+                self._count_tenant(req.tenant, "deadline_exceeded")
                 req.future.fail(deadline_mod.DeadlineExceededError(
                     f"deadline ({req.deadline.budget_s:.3f}s budget) "
                     f"exceeded after {waited:.3f}s in the admission "
@@ -468,10 +603,26 @@ class MicroBatcher:
         while True:
             self._heartbeat = time.monotonic()
             try:
-                predictions, margins = self._execute(
-                    [r.window for r in live], live[0].resolutions,
-                )
+                args = ([r.window for r in live], live[0].resolutions)
+                if self.tenant_aware:
+                    args += ([r.tenant for r in live],)
+                predictions, margins = self._execute(*args)
             except Exception as e:
+                gone = [r for r in live if isinstance(e, UnknownTenantError)
+                        and r.tenant in e.tenants]
+                if gone:
+                    # tenants removed after their requests were admitted:
+                    # those requests fail alone, the rest runs at once
+                    for req in gone:
+                        self.count("failed")
+                        req.future.fail(RequestFailedError(
+                            f"tenant {req.tenant!r} was removed before the "
+                            f"request ran"
+                        ))
+                    live = [r for r in live if r not in gone]
+                    if not live:
+                        return
+                    continue
                 self.count("batch_failures")
                 for req in live:
                     req.history.append(
@@ -491,6 +642,8 @@ class MicroBatcher:
                     return
                 live = survivors
                 self.count("retries", len(live))
+                for req in live:
+                    self._count_tenant(req.tenant, "retries")
                 time.sleep(self.retry_backoff_s)
                 continue
             now = time.monotonic()
@@ -514,6 +667,8 @@ class MicroBatcher:
                     # the latency reservoir
                     continue
                 delivered += 1
+                self._count_tenant(req.tenant, "completed")
+                self._tenant_latency(req.tenant, latency)
                 with self._counters_lock:
                     self.latencies.append(latency)
                     self.latency_hist.observe(latency * 1e3)
@@ -523,6 +678,7 @@ class MicroBatcher:
 
     def _fail_exhausted(self, req: Request) -> None:
         self.count("failed")
+        self._count_tenant(req.tenant, "failed")
         req.future.fail(RequestFailedError(
             f"request failed after {req.attempts} attempts "
             f"(budget {self.max_attempts}); attempts: {req.history}"
@@ -530,6 +686,7 @@ class MicroBatcher:
 
     def _fail_deadline(self, req: Request) -> None:
         self.count("deadline_exceeded")
+        self._count_tenant(req.tenant, "deadline_exceeded")
         req.future.fail(deadline_mod.DeadlineExceededError(
             f"deadline ({req.deadline.budget_s:.3f}s budget) cannot "
             f"cover another attempt after {req.attempts} failed; "

@@ -38,8 +38,14 @@ configured micro-batch size rounded up to 64), so every batch size from
 1 to capacity runs the same shapes, and a window's margin does not
 depend on the batch it rides in.
 
+The multi-tenant engine (``serve/multiplex.py``) is a subclass: it
+overrides the rungs' margin hooks (:meth:`ServingEngine._mega_margins`,
+:meth:`ServingEngine._fused_margins`), the intercept and threshold step
+(:meth:`ServingEngine._postprocess`) and the megakernel program
+(:meth:`ServingEngine._make_mega_program`), and keeps the rest.
+
 Not ported: float32 (non-INT_16) windows, the host-extractor mode,
-non-linear classifiers and the multi-tenant program.
+non-linear classifiers and hot swap of a solo engine (the lifecycle).
 """
 
 from __future__ import annotations
@@ -60,6 +66,11 @@ logger = logging.getLogger(__name__)
 
 #: the rungs an engine can be asked for
 ENGINE_RUNGS = ("auto", "mega", "fused")
+
+#: lane width of the multi-tenant weight stack (serve/multiplex.py): one
+#: tenant per row of a tenant-major (MAX_TENANTS, C*K) matrix, so one
+#: program serves any tenant mix and a tenant add or swap rewrites one row
+MAX_TENANTS = serve_mega.MAX_TENANTS
 
 
 class ServingEngine:
@@ -177,7 +188,13 @@ class ServingEngine:
         else:
             margins = self._fused_margins(windows, res)
         # the batch's one sync: the margins' device-to-host copy
-        margins = margins[:n].cpu().numpy() + np.float32(self._intercept)
+        return self._postprocess(margins[:n].cpu().numpy())
+
+    def _postprocess(self, margins: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(n,) float32 margins before the intercept -> ``(predictions
+        (n,) float64, margins (n,) float32)``: the intercept added and
+        the model's strict ``margin > threshold``, both in float32."""
+        margins = margins + np.float32(self._intercept)
         predictions = (margins > np.float32(self._threshold)).astype(np.float64)
         return predictions, margins
 
@@ -199,13 +216,16 @@ class ServingEngine:
         """The megakernel rung: the batch at the padded stride, one
         host-to-device copy, one launch; (capacity,) margins before the
         intercept, on the device."""
+        return self._mega_program(self._stage_mega(windows), res, self._weights)
+
+    def _stage_mega(self, windows) -> torch.Tensor:
+        """The batch at the padded stride on the device (one copy)."""
         self._check_windows(windows)
         stream = serve_mega.stage_mega_stream(
             windows, self.n_channels, self.window_len, self._mega_stride,
             self.capacity,
         )
-        staged = torch.from_numpy(stream).to(self.device, non_blocking=False)
-        return self._mega_program(staged, res, self._weights)
+        return torch.from_numpy(stream).to(self.device, non_blocking=False)
 
     def _fused_margins(self, windows, res) -> torch.Tensor:
         """The fused rung: the batch as a synthetic recording through
@@ -244,18 +264,40 @@ class ServingEngine:
         if self._precision != "f32":
             effective = self._precision_warmup_gate()
         if self._engine_rung_requested != "fused" and effective != "bf16":
-            self._mega_program = serve_mega.make_serve_mega_program(
-                wavelet_index=self.wavelet_index, epoch_size=self.epoch_size,
-                skip_samples=self.skip_samples, feature_size=self.feature_size,
-                n_channels=self.n_channels, pre=self.pre, post=self.post,
-                capacity=self.capacity, precision=effective,
-            )
+            self._mega_program = self._make_mega_program(effective)
             self._mega_warmup(effective)
         self.execute(
             [np.zeros((self.n_channels, self.window_len), np.int16)],
             np.ones(self.n_channels, np.float32),
         )
         self._warmed = True
+
+    def _make_mega_program(self, precision: str):
+        """The megakernel program of this engine's geometry at
+        ``precision``."""
+        return serve_mega.make_serve_mega_program(
+            wavelet_index=self.wavelet_index, epoch_size=self.epoch_size,
+            skip_samples=self.skip_samples, feature_size=self.feature_size,
+            n_channels=self.n_channels, pre=self.pre, post=self.post,
+            capacity=self.capacity, precision=precision,
+        )
+
+    def swap_model(self, classifier, tenant: Optional[str] = None):
+        """The JAX package's hot-swap surface. ``tenant`` is the
+        multi-tenant engine's keyed swap (serve/multiplex.py), and this
+        single-model engine refuses it rather than swap the wrong
+        tenant's traffic. A solo engine's own hot swap belongs to the
+        model lifecycle, which is not ported."""
+        if tenant is not None:
+            raise ValueError(
+                f"this engine serves one model; a tenant-keyed swap "
+                f"(tenant={tenant!r}) needs the MultiplexedEngine "
+                f"(serve/multiplex.py)"
+            )
+        raise ValueError(
+            "hot swap of a single-model engine (the serving lifecycle, "
+            "adapt=) is not yet ported; see ROADMAP.md"
+        )
 
     def _gate_windows(self):
         """Deterministic synthetic int16 gate windows — full-amplitude

@@ -17,7 +17,12 @@ Query surface::
         [&serve_flush_us=0] [&serve_threshold=<margin>]
         [&precision=f32|bf16|int8|int4]
 
-Not ported: multi-tenant serving, ``adapt=`` and ``task=seizure``.
+``serve_tenant_quota=<n>`` sets the per-tenant admission budget of a
+multi-tenant service (serve/multiplex.py), whose tenant registry
+:func:`parse_tenant_spec` and :func:`load_tenants` read from a
+``name=classifier@path,...`` spec.
+
+Not ported: ``adapt=`` and ``task=seizure``.
 """
 
 from __future__ import annotations
@@ -111,16 +116,67 @@ def default_flush_us() -> int:
 
 
 def serve_config_from_query(query_map) -> service_mod.ServeConfig:
+    tenant_quota = _int_knob(query_map, "serve_tenant_quota", 0)
     return service_mod.ServeConfig(
         max_batch=_int_knob(query_map, "serve_batch", 64),
         queue_depth=_int_knob(query_map, "serve_queue", 256),
         flush_us=_int_knob(query_map, "serve_flush_us", default_flush_us()),
+        # 0 or absent: no per-tenant budget (a single-model service has none)
+        tenant_quota=tenant_quota if tenant_quota > 0 else None,
         default_deadline_s=_int_knob(query_map, "serve_deadline_ms", 2000) / 1000.0,
         slo_latency_ms=_float_knob(query_map, "serve_slo_ms", 50.0),
         slo_availability_target=_float_knob(
             query_map, "serve_slo_availability", 0.999
         ),
     )
+
+
+def parse_tenant_spec(spec: str) -> dict:
+    """A multi-tenant model spec -> ``{tenant: (classifier, path)}``.
+
+    The spec is the operator's one-line tenant registry,
+    ``name=classifier@path`` entries joined by commas::
+
+        alice=logreg@/models/alice,bob=logreg@/models/bob
+
+    Order is kept (the first tenant anchors the engine's geometry). A
+    malformed entry raises ``ValueError`` naming it: a registry is
+    served whole or not at all."""
+    tenants = {}
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, sep, rest = entry.partition("=")
+        classifier_name, sep2, path = rest.partition("@")
+        if not (name.strip() and sep and classifier_name.strip()
+                and sep2 and path.strip()):
+            raise ValueError(
+                f"malformed tenant entry {entry!r}; expected "
+                f"name=classifier@path"
+            )
+        name = name.strip()
+        if name in tenants:
+            raise ValueError(f"duplicate tenant {name!r} in spec")
+        tenants[name] = (classifier_name.strip(), path.strip())
+    if not tenants:
+        raise ValueError(
+            "tenant spec is empty; expected name=classifier@path[,...]"
+        )
+    return tenants
+
+
+def load_tenants(spec: str) -> dict:
+    """Load every tenant of :func:`parse_tenant_spec` into ``{tenant:
+    classifier}``, each model once: the registry a
+    :class:`serve.multiplex.MultiplexedService` (or a running one's
+    ``add_tenant``) is built from."""
+    loaded = {}
+    for name, (classifier_name, path) in parse_tenant_spec(spec).items():
+        classifier = clf_registry.create(classifier_name)
+        classifier.load(path)
+        loaded[name] = classifier
+    return loaded
 
 
 def resolve_serve_threshold(query_map, classifier):

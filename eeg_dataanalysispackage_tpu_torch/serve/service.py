@@ -18,8 +18,9 @@ Typical use::
 
 Closing the context drains gracefully: in-flight requests complete,
 new ones are rejected with :class:`serve.batcher.ServiceClosedError`.
-The JAX package's model lifecycle (``adapt=``, ``feedback``) is not
-ported.
+Many tenants' models behind one engine: :class:`serve.multiplex.MultiplexedService`,
+a subclass. The JAX package's model lifecycle (``adapt=``, ``feedback``)
+is not ported.
 """
 
 from __future__ import annotations
@@ -57,6 +58,12 @@ class ServeConfig:
     #: waiting, the batcher holds dispatch up to this long for queued
     #: compatible requests to fill the bucket. 0 (the default) skips it.
     flush_us: int = 0
+    #: per-tenant admission budget of a multi-tenant service
+    #: (serve/multiplex.py): at most this many of one tenant's requests
+    #: queued at once, so one noisy tenant sheds against its own budget
+    #: instead of starving the shared queue. None (the default, and the
+    #: only meaningful value for a single-model service) disables it.
+    tenant_quota: Optional[int] = None
     default_deadline_s: float = 2.0
     max_attempts: int = 3
     retry_backoff_s: float = 0.05
@@ -98,7 +105,7 @@ class InferenceService:
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.config = config or ServeConfig()
-        self.engine = engine_mod.ServingEngine(
+        self._attach(engine_mod.ServingEngine(
             classifier,
             wavelet_index=wavelet_index,
             n_channels=n_channels,
@@ -109,9 +116,14 @@ class InferenceService:
             precision=precision,
             engine_rung=engine_rung,
             device=device,
-        )
+        ))
+
+    def _attach(self, engine, **batcher_kwargs) -> None:
+        """Serve ``engine`` through a micro-batcher configured from
+        :attr:`config` (``batcher_kwargs`` add the tenant options)."""
+        self.engine = engine
         self.batcher = batcher_mod.MicroBatcher(
-            self.engine.execute,
+            engine.execute,
             max_batch=self.config.max_batch,
             queue_depth=self.config.queue_depth,
             coalesce_s=self.config.coalesce_s,
@@ -119,6 +131,7 @@ class InferenceService:
             max_attempts=self.config.max_attempts,
             retry_backoff_s=self.config.retry_backoff_s,
             watchdog_s=self.config.watchdog_s,
+            **batcher_kwargs,
         )
         self._accepting = False
         self._started = False
@@ -219,7 +232,13 @@ class InferenceService:
         :class:`ServiceWedgedError` when the watchdog has declared the
         batcher wedged — all synchronously, with evidence.
         """
+        return self._submit(window, resolutions, deadline_s, block_s, tenant=None)
+
+    def _submit(self, window, resolutions, deadline_s, block_s, tenant):
+        """Admit one request owned by ``tenant`` (None for a
+        single-model service); see :meth:`submit`."""
         self.batcher.count("submitted")
+        self.batcher._count_tenant(tenant, "submitted")
         if not self._accepting:
             self.batcher.count("rejected_closed")
             raise batcher_mod.ServiceClosedError(
@@ -237,13 +256,18 @@ class InferenceService:
                 deadline_s if deadline_s is not None
                 else self.config.default_deadline_s
             ),
+            tenant=tenant,
         )
         if not self.batcher.queue.offer(req, block_s=block_s):
             self.batcher.count("shed")
+            self.batcher._count_tenant(tenant, "shed")
+            details = self.batcher.queue.last_shed_details
+            if tenant is not None:
+                details.setdefault("tenant", tenant)
             raise batcher_mod.ShedError(
                 f"request shed by admission control: "
                 f"{self.batcher.queue.last_shed_evidence}",
-                evidence=self.batcher.queue.last_shed_details,
+                evidence=details,
             )
         if not self._accepting:
             # stop() may have swept the queue between the accepting
@@ -288,6 +312,10 @@ class InferenceService:
         by every window, or a per-window sequence of them (the
         batcher's coalescing key keeps each micro-batch homogeneous).
         """
+        return self._predict_all(windows, resolutions, [None] * len(windows), deadline_s)
+
+    def _predict_all(self, windows, resolutions, tenants, deadline_s):
+        """:meth:`predict_all` with one owning tenant per window."""
         budget = (
             deadline_s if deadline_s is not None
             else self.config.default_deadline_s
@@ -299,9 +327,9 @@ class InferenceService:
                 f"{len(res_arr)} resolution vectors for {len(windows)} windows"
             )
         futures = [
-            self.submit(
+            self._submit(
                 w, res_arr[i] if per_window else res_arr,
-                deadline_s=budget, block_s=budget,
+                budget, budget, tenants[i],
             )
             for i, w in enumerate(windows)
         ]

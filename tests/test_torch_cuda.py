@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the fused
 ingest kernel (int16 and float32 streams, at every precision= rung), the
-serve megakernel (f32, int8, int4) and the epoch-features kernel.
+serve megakernel (f32, int8, int4), its tenant-stacked instantiation
+(K6, held bit for bit against the solo megakernel per lane, and through
+a multi-tenant service against solo services) and the epoch-features
+kernel.
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
@@ -24,9 +27,13 @@ import pytest
 import torch
 
 from eeg_dataanalysispackage_tpu_torch.features import wavelet
+from eeg_dataanalysispackage_tpu_torch.models import registry
 from eeg_dataanalysispackage_tpu_torch.ops import (
     decode_ingest, device_ingest, dwt, dwt_cuda, ingest_cuda, quant, serve_mega,
     serve_mega_cuda,
+)
+from eeg_dataanalysispackage_tpu_torch.serve import (
+    InferenceService, MultiplexedService, ServeConfig,
 )
 
 RES = np.array([0.1, 0.1, 0.2], np.float32)
@@ -352,3 +359,102 @@ def test_mega_wrapper_refuses_bf16_on_the_card():
     stream, res, W, weights, stride = _mega_inputs(dev, 64, 1, (0, 0, 0), 3000, seed=0)
     with pytest.raises(ValueError, match="bf16 has no mega twin"):
         serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride, "bf16")
+
+
+def _stack_and_lanes(dev, capacity, n, spread, seed):
+    """A random (128, 48) tenant stack on ``dev`` with one freed (zero)
+    lane, and host lanes: cycling over all 128 lanes, or all on one."""
+    rng = np.random.RandomState(seed)
+    stack = rng.randn(serve_mega.MAX_TENANTS, 48).astype(np.float32)
+    stack[5] = 0.0
+    lanes = np.zeros(capacity, np.int32)
+    lanes[:n] = np.arange(n) % 128 if spread == "cycling" else 77
+    return torch.from_numpy(stack).to(dev), torch.from_numpy(lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", ["cycling", "one_lane"])
+@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (128, 77), (2048, 2048)])
+@pytest.mark.parametrize("dc,noise", [((0, 0, 0), 3000), ((30000, -30000, 29500), 1500)])
+def test_multi_kernel_matches_plain_and_equals_solo_kernel_per_lane(capacity, n, spread, dc,
+                                                                    noise):
+    """K6: each row within 2e-6 * ||w_lane||_1 of the plain version, and
+    bit-equal to K5 launched with that lane's weights; padded rows and a
+    freed lane exactly 0."""
+    dev = _card()
+    stream, res, W, _weights, stride = _mega_inputs(dev, capacity, n, dc, noise, seed=n)
+    stack, lanes = _stack_and_lanes(dev, capacity, n, spread, seed=capacity + n)
+    before = serve_mega_cuda.MULTI_LAUNCHES
+    got = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, 175,
+                                                   stride)
+    torch.cuda.synchronize()
+    assert serve_mega_cuda.MULTI_LAUNCHES == before + 1
+    plain = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, 100, 175,
+                                                      stride)
+    l1 = stack.abs().sum(dim=1)[lanes.to(dev).long()]
+    assert ((got - plain).abs() <= 2e-6 * l1).all()
+    for lane in np.unique(lanes.numpy()[:n]):
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100, 175,
+                                                  stride)
+        rows = torch.from_numpy(np.nonzero(lanes.numpy()[:n] == lane)[0]).to(dev)
+        assert got[rows].cpu().numpy().tobytes() == solo[rows].cpu().numpy().tobytes()
+    assert (got[n:] == 0).all()
+    assert (got[:n][lanes[:n].to(dev) == 5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_multi_kernel_wrapper_checks_lanes_on_the_host():
+    dev = _card()
+    stream, res, W, _weights, stride = _mega_inputs(dev, 64, 3, (0, 0, 0), 3000, seed=0)
+    stack, lanes = _stack_and_lanes(dev, 64, 3, "cycling", seed=0)
+    call = serve_mega_cuda.serve_mega_multi_margins
+    with pytest.raises(ValueError, match="on the host"):
+        call(stream, res, W, stack, lanes.to(dev), 100, 175, stride)
+    with pytest.raises(ValueError, match=r"\[0, 128\)"):
+        call(stream, res, W, stack, torch.where(lanes == 2, 128, lanes), 100, 175, stride)
+    with pytest.raises(ValueError, match="stack is on cpu"):
+        call(stream, res, W, stack.cpu(), lanes, 100, 175, stride)
+    with pytest.raises(ValueError, match="stack must be"):
+        call(stream, res, W, stack[:64], lanes, 100, 175, stride)
+
+
+def _random_linear(seed):
+    rng = np.random.RandomState(seed)
+    clf = registry.create("logreg")
+    clf.from_numpy_state({"weights": rng.randn(48).astype(np.float32),
+                          "intercept": float(rng.randn() * 0.1), "margin_threshold": 0.0,
+                          "config": {}, "kind": "LogisticRegressionClassifier"})
+    return clf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["auto", "fused"])
+def test_multiplexed_service_on_the_card_equals_solo_services(rung):
+    """Mixed-tenant traffic through a multi-tenant service on the card:
+    each tenant's margins and predictions equal a solo service's on the
+    same rung bit for bit; admin after warmup builds no new library."""
+    _card()
+    from eeg_dataanalysispackage_tpu_torch.ops import cuda_build
+
+    rng = np.random.RandomState(3)
+    windows = [rng.randint(-3000, 3000, size=(3, 850)).astype(np.int16) for _ in range(150)]
+    tenants = {f"t{i}": _random_linear(i) for i in range(6)}
+    mix = [f"t{i % 6}" for i in range(150)]
+    config = ServeConfig(max_batch=64)
+    with MultiplexedService(tenants, config=config, engine_rung=rung) as svc:
+        loaded = dict(cuda_build._LOADED)
+        served = svc.predict_all(windows, RES, mix)
+        svc.swap_tenant("t1", _random_linear(11))
+        svc.add_tenant("t6", _random_linear(12))
+        svc.remove_tenant("t2")
+        after = svc.predict_all(windows[:6], RES, ["t1", "t6", "t0", "t3", "t4", "t5"])
+        assert cuda_build._LOADED == loaded
+    assert svc.engine.rung == ("mega" if rung == "auto" else "fused")
+    for name, clf in tenants.items():
+        with InferenceService(clf, config=config, engine_rung=rung) as solo:
+            alone = solo.predict_all(windows, RES)
+        rows = [i for i, t in enumerate(mix) if t == name]
+        assert [served[i].margin for i in rows] == [alone[i].margin for i in rows]
+        assert [served[i].prediction for i in rows] == [alone[i].prediction for i in rows]
+    with InferenceService(_random_linear(12), config=config, engine_rung=rung) as solo:
+        assert solo.predict_window(windows[1], RES).margin == after[1].margin

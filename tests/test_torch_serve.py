@@ -210,10 +210,16 @@ def test_unported_serve_keys_raise(session, extra, match):
 
 
 def test_serve_other_than_true_is_not_ported(session):
-    q = (f"info_file={session['info']}&fe=dwt-8-fused"
-         f"&load_clf=logreg&load_name={session['model']}&serve=false")
-    with pytest.raises(ValueError, match="serve=false is not yet ported"):
-        PipelineBuilder(q, device="cpu").execute()
+    """``serve=`` with a value other than ``true`` is not the serving
+    mode: it runs the batch path (train or load), as the JAX package
+    does, with the JAX package's statistics. (The name is kept from when
+    the port refused such a value.)"""
+    for clf_mode in ("train_clf=logreg", "load_clf=logreg"):
+        q = (f"info_file={session['info']}&fe=dwt-8-fused&{clf_mode}"
+             f"&load_name={session['model']}&serve=false&cache=false{_CONFIG}")
+        ours = PipelineBuilder(q, device="cpu")
+        assert str(ours.execute()) == str(JaxBuilder(q).execute()), clf_mode
+        assert ours.serve_block is None
 
 
 def test_no_silent_cpu_without_cuda(session):
