@@ -1,42 +1,71 @@
 #!/usr/bin/env python3
-"""Compare the port's f32 kernels of two checkouts on one NVIDIA card.
+"""Compare the port's kernels of two checkouts on one NVIDIA card.
 
     python3 chip_compare.py OTHER_CHECKOUT
 
-Shows whether a change to the CUDA sources left the f32 kernels alone,
-on the same card in one call:
+Shows, on the same card in one call, what a change to the CUDA sources
+did to the kernels:
 
 1. timing, in turns (other, this, this, other), each in a fresh process
-   that builds its own checkout's kernels and runs that checkout's
-   ``chip_smoke.py`` timing helpers: the fused ingest kernel at 32,768
-   windows on an int16 and a float32 stream, the serve megakernel at
-   capacity 64 and 32,768, the epoch-features kernel at 32,768 epochs
-   (CUDA events and ``torch.profiler`` device time, one JSON line each,
-   tagged with the checkout);
-2. the f32 kernels' SASS (``cuobjdump -sass`` of both builds), compared
+   that builds its own checkout's kernels and calls that checkout's
+   public wrappers on the same seeded inputs: the fused ingest kernel
+   (``ingest_cuda.ingest_features``) on int16 and on float32 samples, the
+   serve megakernel (``serve_mega_cuda.serve_mega_margins``), its
+   tenant-stacked form K6 (``serve_mega_multi_margins``, lanes cycling
+   over 128 tenants) and the epoch-features kernel
+   (``dwt_cuda.epoch_features_cuda``), each at 64, at one recording's
+   plan (the fused batch path's own launch: 320 rows of a staged
+   1,200-marker recording, ``chip_smoke.recording_plan``; 320 windows for
+   the others) and at 32,768 windows, and the precision rungs (the ingest
+   kernel's bf16, int8 and int4 on the int16 stream, the megakernel's int8
+   and int4) at 32,768 windows. One JSON line each: the kernel's mean
+   device time from ``torch.profiler`` (``device_ms``, 20 calls,
+   ``chip_smoke.profiled_device_ms``), the median CUDA-event time of one
+   wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``) and a
+   sha256 of the output, tagged with the checkout;
+2. ``outputs``: one line per kernel and size with ``bit_equal``, the
+   checkouts' output digests compared;
+3. the f32 kernels' SASS (``cuobjdump -sass`` of both builds), compared
    instruction by instruction, addresses left out: one JSON line per
-   kernel with ``identical``.
+   kernel with ``identical``; and the ``ptxas`` registers and spills of
+   every kernel each build made.
 
 A kernel counts as f32 when its name carries no precision template
 argument or precision 0 (``window_features::Precision::kF32``); the serve
-megakernel's tenant-stacked instantiation (``kMulti``) is keyed apart
-from the one-vector kernel, so each is compared with its own. Exits
+megakernel's tenant-stacked instantiation (``kMulti``) and the wide-ring
+instantiations (``kWide``, more than one piece of channels a window) are
+keyed apart, so each is compared with its own. Exits
 non-zero when a build, a timing or ``cuobjdump`` fails. Needs one card;
 imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
+import importlib.util
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("ingest_features", "serve_mega", "epoch_features")
 _KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_features_kernel)")
+SIZES = (64, 320, 32_768)
+
+
+def smoke_helpers():
+    """This checkout's ``chip_smoke.py`` as a module (not the timed tree's:
+    an older one may lack its helpers); what it imports of the package
+    resolves to the timed tree."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def time_checkout(tree: str, label: str) -> None:
@@ -46,24 +75,91 @@ def time_checkout(tree: str, label: str) -> None:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
     from eeg_dataanalysispackage_tpu_torch.ops import (
-        cuda_build, device_ingest, dwt, dwt_cuda, ingest_cuda, serve_mega, serve_mega_cuda,
+        cuda_build, dwt, dwt_cuda, ingest_cuda, serve_mega, serve_mega_cuda,
     )
 
-    cs.emit = lambda phase, **f: print(json.dumps({"checkout": label, "phase": phase, **f}),
-                                       flush=True)
+    def emit(**fields):
+        print(json.dumps({"checkout": label, **fields}), flush=True)
+
     libs = {name: cuda_build.build(name) for name in SOURCES}
-    print(json.dumps({"checkout": label, "phase": "libraries", "libraries": libs}), flush=True)
+    ptxas = {name: [ln.strip() for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln] for name in SOURCES}
+    emit(phase="libraries", libraries=libs, ptxas=ptxas)
     dev = torch.device("cuda")
-    bw, flops = cs.card_peaks(torch.cuda.get_device_name(0))
-    smi = cs.nvidia_smi_line()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
-    for dtype in (torch.int16, torch.float32):
-        cs.ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bw, flops, smi)
-    for n in (64, 32_768):
-        cs.mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bw, flops, smi)
-    cs.epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bw, flops, smi)
+
+    cs = smoke_helpers()
+
+    def run(kernel, symbol, size, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        device = cs.profiled_device_ms(fn, symbol, runs=20)
+        if device is None:
+            raise RuntimeError(f"the profiler saw no device time for {symbol}")
+        emit(phase="timing", kernel=kernel, windows=size, device_ms=device,
+             event_ms=cs.time_ms(fn), sha256=digest, nvidia_smi=smi)
+
+    # the fused ingest kernel: the plan's first 64 rows (the gate's launch),
+    # the plan (chip_smoke.py's first session recording, staged and planned
+    # by the timed tree), and 32,768 windows at a 1,000-sample stride
+    work = tempfile.mkdtemp(prefix="chip_compare_")
+    try:
+        raw, res, plan_starts, _kept = cs.recording_plan(cs.write_session(work, n_files=1), dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    big_S = 32_768 * 1000 + 1000
+    gen = torch.Generator(device=dev).manual_seed(0)
+    big = torch.randint(-3000, 3000, (3, big_S), generator=gen, device=dev, dtype=torch.int32)
+    big_starts = torch.arange(32_768, device=dev, dtype=torch.int32) * 1000
+    for dtype, kernel in ((torch.int16, "ingest_features"), (torch.float32, "ingest_features_f32")):
+        if dtype == torch.int16:
+            plan_raw, plan_res, big_raw = raw, res, big.to(torch.int16)
+            big_res = torch.tensor([0.1, 0.1, 0.2], device=dev)
+        else:  # a float32 recording is staged already scaled, unit resolutions
+            plan_raw = (raw.to(torch.float32) * res[:, None]).contiguous()
+            plan_res = torch.ones(3, device=dev)
+            big_raw, big_res = (big.to(torch.float32) * 0.1).contiguous(), torch.ones(3, device=dev)
+        for size, (r, rs, st) in zip(SIZES, ((plan_raw, plan_res, plan_starts[:64].contiguous()),
+                                             (plan_raw, plan_res, plan_starts),
+                                             (big_raw, big_res, big_starts))):
+            run(kernel, "ingest_features_kernel", size,
+                lambda r=r, rs=rs, st=st: ingest_cuda.ingest_features(r, rs, st, W))
+        if dtype == torch.int16:  # the precision rungs at 32,768 windows
+            for p in ("bf16", "int8", "int4"):
+                run(f"ingest_features_{p}", "ingest_features_kernel", SIZES[-1],
+                    lambda p=p: ingest_cuda.ingest_features(big_raw, big_res, big_starts, W,
+                                                            100, 175, p))
+        del big_raw
+
+    # the megakernel and K6 on full windows at the serve stride
+    stride = serve_mega.padded_stride(100, 750)
+    for n in SIZES:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int16)
+        sres = torch.tensor([0.1, 0.1, 0.2], device=dev)
+        weights = torch.randn(48, generator=gen, device=dev)
+        stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
+        lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+        run("serve_mega", "serve_mega_kernel", n,
+            lambda: serve_mega_cuda.serve_mega_margins(stream, sres, W, weights, 100, 175, stride))
+        for p in ("int8", "int4") if n == SIZES[-1] else ():
+            run(f"serve_mega_{p}", "serve_mega_kernel", n,
+                lambda p=p: serve_mega_cuda.serve_mega_margins(stream, sres, W, weights, 100, 175,
+                                                               stride, p))
+        run("serve_mega_multi", "serve_mega_kernel", n,
+            lambda: serve_mega_cuda.serve_mega_multi_margins(stream, sres, W, stack, lanes, 100,
+                                                             175, stride))
+
+    # the epoch-features kernel on (n, 3, 750) float32 epochs
+    for n in SIZES:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
+        run("epoch_features", "epoch_features_kernel", n, lambda: dwt_cuda.epoch_features_cuda(x))
 
 
 def f32_sass(cuobjdump: str, library: str) -> dict:
@@ -78,9 +174,14 @@ def f32_sass(cuobjdump: str, library: str) -> dict:
             key = _KERNEL.search(name)
             f32 = "Precision" not in name or "PrecisionE0E" in name
             current = key.group(1) if key and f32 else None
-            if current and "Lb1E" in name:  # a true bool flag: the kMulti instantiation
-                current += "_multi"
             if current:
+                # bool template arguments: the megakernel's kMulti, then
+                # run_windows' kWide (an older checkout may lack kWide)
+                flags = re.findall(r"Lb([01])E", name)
+                if current == "serve_mega_kernel" and flags and flags.pop(0) == "1":
+                    current += "_multi"
+                if flags and flags[0] == "1":
+                    current += "_wide"
                 kernels[current] = []
             continue
         if current and "/*" in line:
@@ -98,7 +199,7 @@ def main(argv) -> int:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     other = os.path.abspath(argv[1])
-    libraries = {}
+    libraries, digests = {}, {}
     for label, tree in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", tree, label],
                               capture_output=True, text=True)
@@ -109,8 +210,16 @@ def main(argv) -> int:
             record = json.loads(line)
             if record["phase"] == "libraries":
                 libraries[label] = record["libraries"]
-            else:
-                print(line, flush=True)
+                if any(record["ptxas"].values()):
+                    print(json.dumps({"phase": "ptxas", "checkout": label,
+                                      "ptxas": record["ptxas"]}), flush=True)
+                continue
+            digests.setdefault((record["kernel"], record["windows"]), {}).setdefault(
+                label, set()).add(record["sha256"])
+            print(line, flush=True)
+    for (kernel, windows), by in sorted(digests.items()):
+        print(json.dumps({"phase": "outputs", "kernel": kernel, "windows": windows,
+                          "bit_equal": len(by["other"] | by["this"]) == 1}), flush=True)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in SOURCES:

@@ -19,7 +19,11 @@ Phases, one JSON line each (several for phases 2 to 6):
 3. each kernel against its plain version (max abs deviation <= 2e-6):
    the fused ingest kernel on int16 streams (random, DC-heavy,
    overhanging, single-window, dense, odd-count and main-path-shaped
-   inputs) and on float32 streams (random, DC-heavy, overhanging); on
+   inputs, starts at every sample offset within a 16-byte chunk, and
+   negative starts, starts straddling the recording's end into its
+   zero padding and the stream's end, at it and past it, on rows that
+   are not 16-byte aligned) and on float32 streams (random, DC-heavy,
+   overhanging, every offset within a chunk, unaligned edges); on
    every int16 case also its bf16 instantiation (K2-bf16: within 2e-6 of
    its plain version, within BF16_GATE_TOL of the f32 rows) and its
    int8/int4 instantiations (the quantize epilogue equal bit for bit to
@@ -87,10 +91,13 @@ Phases, one JSON line each (several for phases 2 to 6):
    margin sync and ``engine.execute``, and a per-tenant quota shed probe
    with its evidence;
 6. timing (CUDA events around one wrapper call, median of 25; and the
-   kernel's own device time from ``torch.profiler``, mean of 10) beside
+   kernel's own device time from ``torch.profiler``, mean of 10, taken
+   before the plain version runs, with the SM clock read just after) beside
    the plain version's time and the card's bound: the ingest kernel at
    32,768 windows on an int16 and on a float32 stream and at the bf16,
-   int8 and int4 rungs, the megakernel (f32, int8, int4) at capacity 64
+   int8 and int4 rungs, and at the batch path's own launch size (the
+   session's first recording staged and planned, 320 rows), the
+   megakernel (f32, int8, int4) at capacity 64
    (one serve batch) and at 32,768 windows, K6 at the same sizes with
    lanes cycling over 128 tenants, the epoch-features kernel at 32,768
    epochs.
@@ -152,6 +159,16 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz():
+    """The card's SM clock now (``nvidia-smi``), or None where it reads none."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60)
+    try:
+        return int(proc.stdout.split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
 def time_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn`` after ``warmup``."""
     import torch
@@ -175,20 +192,22 @@ def profiled_device_ms(fn, kernel: str, runs: int = 10):
     """Mean device time (ms) of the CUDA kernel whose name contains
     ``kernel`` over ``runs`` calls of ``fn``, from ``torch.profiler``:
     the kernel alone, without the wrapper's host work that a CUDA-event
-    pair around one call also counts. None when the profiler reports no
-    device time for it."""
+    pair around one call also counts. A trace that holds no device time
+    for it (one comes back empty now and then) is taken again, up to
+    twice; None when none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if kernel in ev.key and ev.count and ev.device_time_total > 0:
-            return ev.device_time_total / ev.count / 1e3
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if kernel in ev.key and ev.count and ev.device_time_total > 0:
+                return ev.device_time_total / ev.count / 1e3
     return None
 
 
@@ -296,6 +315,12 @@ def phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev):
     S = 200_000
     main_S = 1_212_416  # a staged 1,200-marker recording (16,384-sample buckets)
     main_starts = np.concatenate([100 + 4500 * np.arange(267), np.full(53, main_S)])
+    # a stream whose rows are not 16-byte aligned, the recording's last
+    # 5,000 samples zeroed as the staged padding is
+    odd_S = S + 1
+    padded = stream(odd_S)
+    padded[:, odd_S - 5000:] = 0
+    n_true = odd_S - 5000
     cases = {
         "random": (stream(S), np.sort(rng.randint(0, S - 787, size=500))),
         "dc_heavy": (stream(S, (30000, -30000, 29500), 1500), 1000 * np.arange(150)),
@@ -304,6 +329,15 @@ def phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev):
         "dense": (stream(S), 3 + 37 * np.arange(2000)),
         "odd_count": (stream(S), rng.randint(0, S, size=1001)),
         "main_path_shape": (stream(main_S), main_starts),
+        # every sample offset within a 16-byte chunk (8 int16 samples), twice
+        "chunk_offsets": (stream(S, (15000, -12000, 9000), 3000),
+                          np.concatenate([b + np.arange(16) for b in (0, 77777, S - 800)])),
+        # negative starts, straddling the recording's end into its padding
+        # and the stream's end, at the end and past it, on unaligned rows
+        "edges_unaligned": (padded, np.array([
+            -900, -787, -612, -101, -100, -7, -1, 0, 3, n_true - 787, n_true - 612,
+            n_true - 300, n_true - 1, n_true, odd_S - 787, odd_S - 612, odd_S - 300,
+            odd_S - 1, odd_S, odd_S + 9])),
     }
     worst = {"f32": 0.0}
     for name, (raw, starts_np) in cases.items():
@@ -930,10 +964,18 @@ def phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev):
         "f32_random": ((0.0, 0.0, 0.0), 300.0, np.sort(rng.randint(0, S - 787, size=500))),
         "f32_dc_heavy": ((3000.0, -3000.0, 2950.5), 150.0, 1000 * np.arange(150)),
         "f32_overhang": ((0.0, 0.0, 0.0), 300.0, np.array([10, S - 300, S - 686, S - 1, S])),
+        # every sample offset within a 16-byte chunk (4 float32 samples)
+        "f32_chunk_offsets": ((1000.0, -800.0, 20.0), 300.0,
+                              np.concatenate([b + np.arange(8) for b in (0, 77777, S - 800)])),
+        # negative starts and the end, on rows that are not 16-byte aligned
+        "f32_edges_unaligned": ((0.0, 0.0, 0.0), 300.0, np.array(
+            [-900, -787, -612, -100, -3, -1, 0, 1, S - 786, S - 611, S - 300, S - 1, S + 1,
+             S + 9])),
     }
     worst = 0.0
     for name, (dc, noise, starts_np) in cases.items():
-        x = rng.randn(3, S) * noise + np.asarray(dc)[:, None]
+        length = S + 1 if name.endswith("unaligned") else S
+        x = rng.randn(3, length) * noise + np.asarray(dc)[:, None]
         raw = torch.from_numpy(x.astype(np.float32)).to(dev)
         starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
         got = ingest_cuda.ingest_features(raw, res, starts, W)
@@ -941,9 +983,9 @@ def phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev):
         want = device_ingest.ingest_features_plain(raw, res, starts, W)
         err = (got - want).abs().max().item()
         finite = bool(torch.isfinite(got).all())
-        end_zero = bool((got[torch.from_numpy(starts_np >= S).to(dev)] == 0).all())
+        end_zero = bool((got[torch.from_numpy(starts_np >= length).to(dev)] == 0).all())
         emit("kernel_vs_plain", kernel="ingest_features_f32", case=name,
-             windows=int(len(starts_np)), samples=S, max_abs_err=err, tol=KERNEL_TOL,
+             windows=int(len(starts_np)), samples=length, max_abs_err=err, tol=KERNEL_TOL,
              finite=finite, end_rows_zero=end_zero)
         if not (err <= KERNEL_TOL and finite and end_zero and got.shape == (len(starts_np), 48)):
             raise AssertionError(f"float32 ingest kernel disagrees with its plain version on {name}")
@@ -1234,34 +1276,64 @@ def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
         raise AssertionError(f"epoch-features kernel disagrees at the timing size {n}: {err}")
     del got, want
     kernel_ms = time_ms(lambda: dwt_cuda.epoch_features_cuda(x))
-    plain_ms = time_ms(lambda: dwt.epoch_features(x))
     device_ms = profiled_device_ms(lambda: dwt_cuda.epoch_features_cuda(x),
                                    "epoch_features_kernel")
+    clock = sm_clock_mhz()
+    plain_ms = time_ms(lambda: dwt.epoch_features(x))
     bytes_moved = n * 3 * 512 * 4 + n * 48 * 4 + 512 * 16 * 4
     flops = 2 * n * 3 * 512 * 16
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
     emit("timing", kernel="epoch_features", epochs=n, kernel_ms=kernel_ms,
-         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by,
          bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
+def recording_plan(info, dev):
+    """One launch of the fused batch path as it runs: the session's first
+    recording staged on the card and planned (``stage_raw``,
+    ``plan_ingest``), its starts as ``make_cuda_ingest_featurizer``
+    computes them (padded rows at the stream's end). Returns (raw, res,
+    starts, kept rows)."""
+    import numpy as np
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.ops import device_ingest
+
+    provider = OfflineDataProvider([info], device=dev)
+    _rel, guessed, rec = next(iter(provider.iter_recordings()))
+    raw, res, n_samples = device_ingest.stage_raw(rec, provider.channel_indices_for(rec), dev)
+    plan = device_ingest.plan_ingest(rec.markers, guessed, n_samples, pre=provider.pre,
+                                     post=provider.post)
+    S = raw.shape[1]
+    starts = np.where(plan.mask, np.clip(plan.positions.astype(np.int64) - provider.pre, 0, S),
+                      S).astype(np.int32)
+    return raw, res, torch.from_numpy(starts).to(dev), plan.n_kept
+
+
 def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f32_peak, smi,
-                  precision="f32"):
+                  precision="f32", plan=None):
     """The fused ingest kernel at ``precision`` and its plain version at
     32,768 windows (3 channels, 1,000-sample stride) on an int16 or
-    float32 stream; bound: the needed samples read once, rows, starts,
-    operator and resolutions once (the rungs stream the same bytes).
-    The int8/int4 rows are held bit for bit against the plain quantizer
-    on the f32 kernel's rows, the others within KERNEL_TOL of the plain
-    version."""
-    n, stride = 32_768, 1000
-    S = n * stride + 1000
-    gen = torch.Generator(device=dev).manual_seed(0)
-    raw = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev,
-                        dtype=torch.int32).to(dtype)
-    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
-    starts = (torch.arange(n, device=dev, dtype=torch.int32) * stride).contiguous()
+    float32 stream, or on ``plan`` (:func:`recording_plan`: one
+    recording's launch of the batch path); bound: the needed samples
+    read once, rows, starts, operator and resolutions once (the rungs
+    stream the same bytes). The int8/int4 rows are held bit for bit
+    against the plain quantizer on the f32 kernel's rows, the others
+    within KERNEL_TOL of the plain version."""
+    if plan is None:
+        n, stride = 32_768, 1000
+        S = n * stride + 1000
+        gen = torch.Generator(device=dev).manual_seed(0)
+        raw = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev,
+                            dtype=torch.int32).to(dtype)
+        res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+        starts = (torch.arange(n, device=dev, dtype=torch.int32) * stride).contiguous()
+    else:
+        raw, res, starts, _kept = plan
+        n, S, stride = int(starts.shape[0]), raw.shape[1], None
     args = (raw, res, starts, W, 100, 175, precision)
     got = ingest_cuda.ingest_features(*args)
     if precision in ("int8", "int4"):
@@ -1276,9 +1348,10 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
                                  f"timing size: {err}")
     del got
     kernel_ms = time_ms(lambda: ingest_cuda.ingest_features(*args))
-    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(*args))
     device_ms = profiled_device_ms(lambda: ingest_cuda.ingest_features(*args),
                                    "ingest_features_kernel")
+    clock = sm_clock_mhz()
+    plain_ms = time_ms(lambda: device_ingest.ingest_features_plain(*args))
     samples = needed_samples(starts.cpu().numpy(), S, 100, 175, 512)
     bytes_moved = (3 * samples * raw.element_size() + n * 48 * 4 + n * 4 + W.numel() * 4
                    + 3 * 4)
@@ -1287,9 +1360,12 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
     name = "ingest_features" if dtype == torch.int16 else "ingest_features_f32"
     if precision != "f32":
         name = f"ingest_features_{precision}"
+    if plan is not None:
+        name += "_recording_plan"
     emit("timing", kernel=name, windows=n, stride=stride,
          stream_bytes=int(raw.numel() * raw.element_size()), kernel_ms=kernel_ms,
-         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by,
          bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
@@ -1328,13 +1404,15 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
     if err > MARGIN_TOL_PER_L1 * weights.abs().sum().item():
         raise AssertionError(f"megakernel ({precision}) disagrees at the timing size {n}: {err}")
     kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_margins(*args))
-    plain_ms = time_ms(lambda: serve_mega.serve_mega_margins_plain(*args))
     device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_margins(*args),
                                    "serve_mega_kernel")
+    clock = sm_clock_mhz()
+    plain_ms = time_ms(lambda: serve_mega.serve_mega_margins_plain(*args))
     bound_ms, bound_by, bytes_moved, flops = mega_bound(n, bandwidth, f32_peak)
     name = "serve_mega" if precision == "f32" else f"serve_mega_{precision}"
     emit("timing", kernel=name, windows=n, stride=stride, kernel_ms=kernel_ms,
-         kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by,
          bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
@@ -1363,14 +1441,15 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
         if got[rows].cpu().numpy().tobytes() != solo[rows].cpu().numpy().tobytes():
             raise AssertionError(f"K6 lane {lane} is not the solo kernel's at size {n}")
     kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_multi_margins(*args))
-    plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_margins_plain(*args))
     device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_multi_margins(*args),
                                    "serve_mega_kernel")
+    clock = sm_clock_mhz()
+    plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_margins_plain(*args))
     _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak)
     bytes_moved = mega_bytes - 48 * 4 + serve_mega.MAX_TENANTS * 48 * 4 + n * 4
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
     emit("timing", kernel="serve_mega_multi", windows=n, stride=stride, tenants=128,
-         kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+         kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
          library_ms=None, max_abs_err=err, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
@@ -1468,6 +1547,9 @@ def main() -> int:
         if str(runs["logreg_cuda_pallas_spelling"][0].statistics) != str(gpu.statistics):
             raise AssertionError("-fused-pallas spelling changed the statistics")
         main_launches = runs["logreg_cuda"][1]
+        plan = recording_plan(info, dev)
+        emit("recording_plan", rows=int(plan[2].shape[0]), kept=plan[3],
+             samples=int(plan[0].shape[1]))
         rung_launches = phase_precision_runs(np, info, counters, gpu, n_files=8)
         k4_launches, k4_path_err = phase_host_path(np, info, counters)
 
@@ -1487,11 +1569,14 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # 6. timing: the ingest kernel at 32,768 windows (int16 and float32
-    # streams, and the bf16, int8 and int4 rungs on int16), the
+    # streams, and the bf16, int8 and int4 rungs on int16) and at one
+    # recording's plan (the batch path's own launch size), the
     # megakernel (f32, int8, int4) at one serve batch and at 32,768
     # windows, the epoch-features kernel at 32,768 epochs
     k1 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
                        bandwidth, f32_peak, smi)
+    ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16, bandwidth, f32_peak,
+                  smi, plan=plan)
     k1_f32 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.float32,
                            bandwidth, f32_peak, smi)
     k1_rungs = {p: ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,

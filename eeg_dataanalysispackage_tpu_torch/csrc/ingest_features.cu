@@ -34,14 +34,27 @@
 // samples are never read) and writes C*16 floats: about 3.9 KB for int16
 // samples and 7.5 KB for float32, against 2*C*512*16 = 49 kFLOP. At
 // 3.35 TB/s and 67 TFLOP/s (f32, no tensor cores) the bytes take the
-// longer time.
+// longer time: 0.038 ms for 32,768 int16 windows.
 //
-// Design: a grid-stride loop over windows, so each block loads W once;
-// the per-window work is window_features.cuh's.
-//
-// Later work for speed: cp.async/TMA staging that overlaps the next
-// window's loads with this window's contraction, several windows per
-// block sharing the staged W, and wider int16 loads.
+// What held the one-window-per-block kernel at 9% of that bound was its
+// serial chain: a block staged its window 2 bytes a thread at a time, ran
+// six barriers, and only then issued the next window's loads. The design
+// now is window_features.cuh's run_windows: one persistent wave of blocks,
+// each keeping its next window's samples in flight as 16-byte cp.async
+// chunks (the aligned superset of each segment at any start: a marker may
+// sit at any sample, and a start may be negative or at or past the end)
+// while it computes the current one; warp 0 runs the previous window's
+// epilogue (the norm) beside the means and the staging, and for the
+// int8/int4 rungs (the quantize step) through the centre as well, which
+// warps 1..7 then take alone.
+// The rows equal the one-window-per-block kernel's bit for bit (same
+// arithmetic, same order), and it takes every channel count and baseline
+// that kernel took (a wide montage runs in pieces of channels). What is
+// left (PERF.md section 6: about a fifth of the bound at 32,768 windows):
+// each block's per-window chain of dependent steps (means, centre,
+// contraction and their barriers), of which four blocks a multiprocessor
+// run at once, the 64 registers a thread allowing no more; a launch of
+// one recording's ~320 rows is one such chain.
 
 #include <cuda_runtime.h>
 
@@ -53,50 +66,77 @@ namespace {
 
 using namespace window_features;
 
-template <class Sample, Precision P>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+// Rows of the fused ingest: window `row` starts at starts[row]; warp 0
+// writes its normalized (and, for kInt8/kInt4, quantized) row.
+template <Precision P>
+struct IngestRows {
+  const int* __restrict__ starts;
+  float* __restrict__ out;
+  int channels;
+
+  __device__ __forceinline__ int start(int row) const { return starts[row]; }
+  __device__ __forceinline__ void epilogue(int row, const RingSmem& s, int lane) const {
+    const int nfeat = channels * kFeatures;
+    const float denom = reduce_and_norm(channels, s, lane);
+    float* dst = out + static_cast<long long>(row) * nfeat;
+    if constexpr (quantized(P)) {
+      // two rounds of 32 elements at a time, their chains independent
+      for (int base = 0; base < nfeat; base += 64) {
+        const int i0 = base + lane;
+        const int i1 = i0 + 32;
+        const float q0 = quantize_lane<P>(i0 < nfeat ? s.feat[i0] / denom : 0.0f, lane);
+        const float q1 = quantize_lane<P>(i1 < nfeat ? s.feat[i1] / denom : 0.0f, lane);
+        if (i0 < nfeat) dst[i0] = q0;
+        if (i1 < nfeat) dst[i1] = q1;
+      }
+    } else {
+      for (int i = lane; i < nfeat; i += 32) dst[i] = s.feat[i] / denom;
+    }
+  }
+};
+
+template <class Sample, Precision P, bool kWide>
+__global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
     ingest_features_kernel(const Sample* __restrict__ raw,
                            const float* __restrict__ res,
                            const int* __restrict__ starts,
                            const float* __restrict__ w,
                            float* __restrict__ out, int n, int channels,
-                           int n_samples, int pre, int skip) {
+                           int n_samples, int pre, int skip, Ring ring) {
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, channels, pre);
-  const int nfeat = channels * kFeatures;
-  float wreg[kPerGroup];
-  load_operator<P>(w, wreg);
+  const StreamView<Sample> v{raw, channels, n_samples};
+  run_windows<Sample, P, kWide>(smem, v, res, w, n, pre, skip, ring,
+                                IngestRows<P>{starts, out, channels});
+}
 
-  for (int row = blockIdx.x; row < n; row += gridDim.x) {
-    const float denom = featurize_window<Sample, P>(raw, res, starts[row], channels,
-                                                    n_samples, pre, skip, wreg, s);
-    float* dst = out + static_cast<long long>(row) * nfeat;
-    if constexpr (quantized(P)) {
-      // the quantize epilogue reads whole groups of the normalized row
-      for (int i = threadIdx.x; i < nfeat; i += kThreads) s.feat[i] = s.feat[i] / denom;
-      __syncthreads();
-      for (int i = threadIdx.x; i < nfeat; i += kThreads) {
-        dst[i] = quantize_feature<P>(s.feat, i);
-      }
-    } else {
-      for (int i = threadIdx.x; i < nfeat; i += kThreads) dst[i] = s.feat[i] / denom;
-    }
-    __syncthreads();
-  }
+template <class Sample, Precision P, bool kWide>
+int launch_ring(const Ring& ring, size_t smem, const void* raw, const void* res,
+                const void* starts, const void* w, void* out, int n, int channels,
+                int n_samples, int pre, int skip, void* stream) {
+  int grid = 0;
+  const cudaError_t err = plan_grid(ingest_features_kernel<Sample, P, kWide>, smem, n, &grid);
+  if (err != cudaSuccess) return err;
+  ingest_features_kernel<Sample, P, kWide>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const Sample*>(raw), static_cast<const float*>(res),
+          static_cast<const int*>(starts), static_cast<const float*>(w),
+          static_cast<float*>(out), n, channels, n_samples, pre, skip, ring);
+  return cudaGetLastError();
 }
 
 template <class Sample, Precision P>
 int launch(const void* raw, const void* res, const void* starts, const void* w, void* out,
            int n, int channels, int n_samples, int pre, int skip, void* stream) {
-  const size_t smem = smem_bytes(channels, pre);
-  int grid = 0;
-  const cudaError_t err = plan_grid(ingest_features_kernel<Sample, P>, smem, n, &grid);
+  Ring ring{};
+  size_t smem = 0;
+  const cudaError_t err = plan_ring<Sample>(channels, pre, &ring, &smem);
   if (err != cudaSuccess) return err;
-  ingest_features_kernel<Sample, P><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Sample*>(raw), static_cast<const float*>(res),
-      static_cast<const int*>(starts), static_cast<const float*>(w),
-      static_cast<float*>(out), n, channels, n_samples, pre, skip);
-  return cudaGetLastError();
+  if (wide_ring(ring, channels)) {
+    return launch_ring<Sample, P, true>(ring, smem, raw, res, starts, w, out, n, channels,
+                                        n_samples, pre, skip, stream);
+  }
+  return launch_ring<Sample, P, false>(ring, smem, raw, res, starts, w, out, n, channels,
+                                       n_samples, pre, skip, stream);
 }
 
 template <class Sample>

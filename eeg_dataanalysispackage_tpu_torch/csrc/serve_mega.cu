@@ -14,14 +14,15 @@
 // Per window i < capacity (one block computes it wholly, so its margin is
 // bit-identical whatever batch or grid it rides in):
 //   y      = window_features.cuh's C*16 coefficients of the window at
-//            i * stride (the same instructions as the fused ingest kernel,
-//            so the features equal that kernel's bit for bit)
+//            i * stride (the same engine and instructions as the fused
+//            ingest kernel, so the features equal that kernel's bit for bit)
 //   f      = y / max(||y||, 1e-30)
 //   f      = quantize_feature(f)     (the int8 and int4 instantiations only:
 //            window_features.cuh's quantize step, the one the fused ingest
 //            kernel's int8/int4 epilogue runs)
-//   out[i] = sum_k f_k * weights_k   (warp 0: lane-strided FMAs, then a
-//            butterfly; fixed order, no atomics), before the intercept.
+//   out[i] = sum_k f_k * weights_k   (warp 0: lane l sums k = l, l + 32, ...
+//            by FMAs, then a butterfly; fixed order, no atomics), before the
+//            intercept.
 // An all-zero (padded) window gives exactly 0.0. bf16 has no megakernel:
 // its rung differs in the contraction's operands, not in the finished row.
 //
@@ -30,7 +31,7 @@
 // about 3.7 KB, against 2*C*512*16 + 2*48 = 49 kFLOP. At 32,768 windows
 // that is 120.5 MB, 0.036 ms at 3.35 TB/s, against 0.024 ms for 1.61
 // GFLOP at 67 TFLOP/s (f32, no tensor cores). At one serve batch (64
-// windows) the bound is under 0.1 us and launch latency sets the time.
+// windows) the bound is under 0.1 us and one window's chain sets the time.
 //
 // K6, the tenant-stacked instantiation (kMulti, f32 only), replaces the TPU
 // kernel eeg_dataanalysispackage_tpu/ops/serve_mega.py:484
@@ -46,9 +47,21 @@
 // 32,768 windows ~120.6 MB, 0.036 ms at 3.35 TB/s); the stack (24 KB) is
 // read from L2.
 //
-// Later work for speed: the fused ingest kernel's (TMA staging, several
-// windows per block), and 16-byte int16 loads: every window starts on a
-// 16-byte boundary (stride 896 x 2 B).
+// Design: window_features.cuh's run_windows (a persistent wave of blocks,
+// each keeping its next window's samples in flight as 16-byte cp.async
+// chunks while it computes one; every window starts on a 16-byte boundary,
+// stride 896 x 2 B, and its analysis segment 3 samples into a chunk; warp
+// 0's epilogue, the norm and the dot, overlaps warps 1..7's means and
+// staging of the next window, and for the int8/int4 rungs, with the
+// quantize step, their centre as well). The
+// one-window-per-block kernel before it staged 2 bytes a thread at a time
+// and ran seven barriers a window; it reached 10% of the bound. K6's warp
+// 0 loads the row's lane, then its weights, before the reduce and the norm
+// (not after the norm), so both loads overlap them. What is left (PERF.md
+// section 6: about a fifth of the bound at 32,768 windows; one serve
+// batch is one window's chain): each block's chain of dependent steps per
+// window, of which four blocks a multiprocessor run at once (see
+// ingest_features.cu).
 
 #include <cuda_runtime.h>
 
@@ -60,73 +73,110 @@ namespace {
 
 using namespace window_features;
 
+// Margins of the megakernel: window `row` starts at row * stride and warp 0
+// dots its row with `weights` (kMulti: with row lanes[row] of the
+// tenant-major stack `weights`; K6).
+template <Precision P, bool kMulti>
+struct MegaMargins {
+  int stride;
+  const float* __restrict__ weights;
+  const int* __restrict__ lanes;
+  float* __restrict__ out;
+  int channels;
+
+  // capacity * stride fits an int (the wrapper checks the stream length)
+  __device__ __forceinline__ int start(int row) const { return row * stride; }
+  __device__ __forceinline__ void epilogue(int row, const RingSmem& s, int lane) const {
+    // the quantize step's addresses derive from the lane: opaque to the
+    // compiler, they are computed here rather than held across the window
+    // loop, where they do not fit 64 registers beside W's column
+    if constexpr (quantized(P)) asm volatile("" : "+r"(lane));
+    const int nfeat = channels * kFeatures;
+    // K6: the row's lane, then the first two terms' weights of its row of
+    // the stack, loaded ahead of the reduce and the norm, whose time they
+    // overlap
+    const float* wrow = weights;
+    if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
+    const float w0 = lane < nfeat ? wrow[lane] : 0.0f;
+    const float w1 = lane + 32 < nfeat ? wrow[lane + 32] : 0.0f;
+    const float denom = reduce_and_norm(channels, s, lane);
+    float m = 0.0f;
+    if constexpr (quantized(P)) {
+      // two rounds of 32 elements at a time, their chains independent;
+      // lane l's terms l, l + 32, ... in order
+      for (int base = 0; base < nfeat; base += 64) {
+        const int i0 = base + lane;
+        const int i1 = i0 + 32;
+        const float q0 = quantize_lane<P>(i0 < nfeat ? s.feat[i0] / denom : 0.0f, lane);
+        const float q1 = quantize_lane<P>(i1 < nfeat ? s.feat[i1] / denom : 0.0f, lane);
+        if (i0 < nfeat) m = fmaf(q0, base == 0 ? w0 : wrow[i0], m);
+        if (i1 < nfeat) m = fmaf(q1, base == 0 ? w1 : wrow[i1], m);
+      }
+    } else {
+      // the normalized row first, then the dot: fewer values live across
+      // the divisions' slow-path calls
+      for (int i = lane; i < nfeat; i += 32) s.feat[i] = s.feat[i] / denom;
+      if (lane < nfeat) m = fmaf(s.feat[lane], w0, m);
+      if (lane + 32 < nfeat) m = fmaf(s.feat[lane + 32], w1, m);
+      for (int i = lane + 64; i < nfeat; i += 32) m = fmaf(s.feat[i], wrow[i], m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
+    if (lane == 0) out[row] = m;
+  }
+};
+
 // kMulti: `weights` is the tenant-major (128, channels*16) stack and row i
 // dots with its row lanes[i] (K6); otherwise `weights` is one vector and
-// `lanes` is not read (K5, whose instructions do not change with the flag).
-template <Precision P, bool kMulti = false>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+// `lanes` is not read (K5). kWide: run_windows' wide instantiation.
+template <Precision P, bool kMulti, bool kWide>
+__global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
     serve_mega_kernel(const int16_t* __restrict__ stream,
                       const float* __restrict__ res,
                       const float* __restrict__ w,
                       const float* __restrict__ weights,
                       float* __restrict__ out, int capacity, int channels,
                       int stride, int pre, int skip,
-                      const int* __restrict__ lanes) {
+                      const int* __restrict__ lanes, Ring ring, int n_samples) {
   static_assert(!kMulti || P == Precision::kF32, "the tenant stack is f32");
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, channels, pre);
-  const int nfeat = channels * kFeatures;
-  const int n_samples = capacity * stride;
-  const int lane = threadIdx.x % 32;
-  float wreg[kPerGroup];
-  load_operator(w, wreg);
+  // n_samples = capacity * stride, a launch argument rather than a product
+  // the loop would hold in a register
+  const StreamView<int16_t> v{stream, channels, n_samples};
+  run_windows<int16_t, P, kWide>(smem, v, res, w, capacity, pre, skip, ring,
+                                 MegaMargins<P, kMulti>{stride, weights, lanes, out, channels});
+}
 
-  for (int row = blockIdx.x; row < capacity; row += gridDim.x) {
-    const float denom =
-        featurize_window(stream, res, static_cast<long long>(row) * stride, channels,
-                         n_samples, pre, skip, wreg, s);
-    for (int i = threadIdx.x; i < nfeat; i += kThreads) s.feat[i] = s.feat[i] / denom;
-    __syncthreads();
-    const float* f = s.feat;
-    if constexpr (quantized(P)) {
-      // the quantized row goes to s.part, free until the next window's step 4
-      for (int i = threadIdx.x; i < nfeat; i += kThreads) {
-        s.part[i] = quantize_feature<P>(s.feat, i);
-      }
-      __syncthreads();
-      f = s.part;
-    }
-    // Warp 0 reads only the row f (s.feat or s.part), which the next
-    // window rewrites after featurize_window's first barrier, so no
-    // barrier is needed after it.
-    if (threadIdx.x < 32) {
-      const float* wrow = weights;
-      if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
-      float m = 0.0f;
-      for (int i = lane; i < nfeat; i += 32) m = fmaf(f[i], wrow[i], m);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
-      if (lane == 0) out[row] = m;
-    }
-  }
+template <Precision P, bool kMulti, bool kWide>
+int launch_ring(const Ring& ring, size_t smem, const void* stream, const void* res,
+                const void* w, const void* weights, void* out, int capacity, int channels,
+                int stride, int pre, int skip, void* cuda_stream, const void* lanes) {
+  int grid = 0;
+  const cudaError_t err = plan_grid(serve_mega_kernel<P, kMulti, kWide>, smem, capacity, &grid);
+  if (err != cudaSuccess) return err;
+  serve_mega_kernel<P, kMulti, kWide>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+          static_cast<const int16_t*>(stream), static_cast<const float*>(res),
+          static_cast<const float*>(w), static_cast<const float*>(weights),
+          static_cast<float*>(out), capacity, channels, stride, pre, skip,
+          static_cast<const int*>(lanes), ring, capacity * stride);
+  return cudaGetLastError();
 }
 
 template <Precision P, bool kMulti = false>
 int launch(const void* stream, const void* res, const void* w, const void* weights,
            void* out, int capacity, int channels, int stride, int pre, int skip,
            void* cuda_stream, const void* lanes = nullptr) {
-  const size_t smem = smem_bytes(channels, pre);
-  int grid = 0;
-  const cudaError_t err =
-      plan_grid(serve_mega_kernel<P, kMulti>, smem, capacity, &grid);
+  Ring ring{};
+  size_t smem = 0;
+  const cudaError_t err = plan_ring<int16_t>(channels, pre, &ring, &smem);
   if (err != cudaSuccess) return err;
-  serve_mega_kernel<P, kMulti>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-          static_cast<const int16_t*>(stream), static_cast<const float*>(res),
-          static_cast<const float*>(w), static_cast<const float*>(weights),
-          static_cast<float*>(out), capacity, channels, stride, pre, skip,
-          static_cast<const int*>(lanes));
-  return cudaGetLastError();
+  if (wide_ring(ring, channels)) {
+    return launch_ring<P, kMulti, true>(ring, smem, stream, res, w, weights, out, capacity,
+                                        channels, stride, pre, skip, cuda_stream, lanes);
+  }
+  return launch_ring<P, kMulti, false>(ring, smem, stream, res, w, weights, out, capacity,
+                                       channels, stride, pre, skip, cuda_stream, lanes);
 }
 
 }  // namespace

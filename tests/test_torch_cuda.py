@@ -458,3 +458,277 @@ def test_multiplexed_service_on_the_card_equals_solo_services(rung):
         assert [served[i].prediction for i in rows] == [alone[i].prediction for i in rows]
     with InferenceService(_random_linear(12), config=config, engine_rung=rung) as solo:
         assert solo.predict_window(windows[1], RES).margin == after[1].margin
+
+
+# ---------------------------------------------------------------------------
+# The window ring (csrc/window_features.cuh run_windows): 16-byte chunks at
+# any sample offset, the stream's edges, launches that do not fill the
+# ring or the grid, and the margin's order.
+
+def _samples(dtype, C, S, seed, dc=0):
+    rng = np.random.RandomState(seed)
+    if dtype == "int16":
+        x = rng.randint(-3000, 3000, size=(C, S)) + dc
+        return np.clip(x, -32768, 32767).astype(np.int16)
+    return (rng.randn(C, S) * 300.0 + dc / 10).astype(np.float32)
+
+
+def _res(dtype, C):
+    return np.full(C, 0.1, np.float32) if dtype == "int16" else np.ones(C, np.float32)
+
+
+def _operator(dev):
+    return torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [30000, 30001])
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_ingest_kernel_at_every_offset_within_a_chunk(dtype, S):
+    """Starts at every sample offset within a 16-byte chunk (mod 8 for
+    int16, mod 4 for float32), on rows that are 16-byte aligned (S =
+    30,000) and rows that are not (30,001): within 2e-6 of the plain
+    version, and each row equal bit for bit to the same window's row
+    with the stream shifted right by r samples and its start by r."""
+    dev = _card()
+    v = 8 if dtype == "int16" else 4
+    x = _samples(dtype, 3, S, seed=S, dc=15000)
+    res = torch.from_numpy(_res(dtype, 3)).to(dev)
+    W = _operator(dev)
+    starts_np = np.concatenate([b + np.arange(2 * v) for b in (0, 1000, 17003, S - 800)])
+    raw = torch.from_numpy(x).to(dev)
+    starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
+    got = ingest_cuda.ingest_features(raw, res, starts, W)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, res, starts, W)
+    assert (got - want).abs().max().item() <= 2e-6
+    for r in range(1, v):
+        shifted = np.zeros((3, S + v), x.dtype)
+        shifted[:, r:r + S] = x
+        moved = ingest_cuda.ingest_features(torch.from_numpy(shifted).to(dev), res,
+                                            starts + r, W)
+        assert moved.cpu().numpy().tobytes() == got.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "odd_length", "misaligned_first_byte"])
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_ingest_kernel_at_the_stream_edges(dtype, layout):
+    """Negative starts, starts straddling the recording's last sample into
+    the staged zero padding, straddling the stream's end, at exactly the
+    end (C2's zero row) and past it; on an aligned stream, one whose rows
+    are not 16-byte aligned and one whose first byte is not. Within 2e-6
+    of the plain version; a window at or past the end is a zero row; a
+    window straddling into the padding equals, bit for bit, the same
+    window on the unpadded recording (the padding is semantically free)."""
+    dev = _card()
+    S = 30001 if layout == "odd_length" else 30000
+    n_true = S - 5000
+    x = _samples(dtype, 3, S, seed=7, dc=20000)
+    x[:, n_true:] = 0  # the staged padding after the recording
+    torch_dtype = torch.int16 if dtype == "int16" else torch.float32
+    if layout == "misaligned_first_byte":
+        buf = torch.zeros(3 * S + 1, dtype=torch_dtype, device=dev)
+        raw = buf[1:].view(3, S)
+        raw.copy_(torch.from_numpy(x))
+        assert raw.is_contiguous() and raw.data_ptr() % 16 != 0
+    else:
+        raw = torch.from_numpy(x).to(dev)
+    res = torch.from_numpy(_res(dtype, 3)).to(dev)
+    W = _operator(dev)
+    straddle = [n_true - 787, n_true - 700, n_true - 612, n_true - 300, n_true - 1]
+    starts_np = np.array([-900, -787, -612, -101, -100, -7, -1, 0, 3, *straddle, n_true,
+                          S - 787, S - 700, S - 612, S - 300, S - 1, S, S + 9])
+    starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
+    got = ingest_cuda.ingest_features(raw, res, starts, W)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, res, starts, W)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
+    assert (got[torch.from_numpy(starts_np >= S).to(dev)] == 0).all()
+    unpadded = torch.from_numpy(np.ascontiguousarray(x[:, :n_true])).to(dev)
+    part = torch.from_numpy(np.array(straddle, np.int32)).to(dev)
+    alone = ingest_cuda.ingest_features(unpadded, res, part, W)
+    rows = got[9:9 + len(straddle)]
+    assert alone.cpu().numpy().tobytes() == rows.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 320, 2048 + 7])
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_ingest_kernel_row_counts_that_do_not_fill_the_ring(n, precision):
+    """Row counts under one block per window, around one serve batch, one
+    recording's plan and past one wave of blocks: within 2e-6 of the plain
+    version (int8: the plain quantizer on the f32 rows, bit for bit), and
+    the first, a middle and the last row equal bit for bit to launches of
+    that window alone."""
+    dev = _card()
+    S = 200_000
+    raw = torch.from_numpy(_samples("int16", 3, S, seed=n)).to(dev)
+    res = torch.from_numpy(RES).to(dev)
+    W = _operator(dev)
+    starts = torch.from_numpy(
+        np.random.RandomState(n).randint(-50, S + 50, size=n).astype(np.int32)).to(dev)
+    got = ingest_cuda.ingest_features(raw, res, starts, W, precision=precision)
+    torch.cuda.synchronize()
+    f32 = ingest_cuda.ingest_features(raw, res, starts, W)
+    assert (f32 - device_ingest.ingest_features_plain(raw, res, starts, W)).abs().max() <= 2e-6
+    if precision == "int8":
+        want = decode_ingest.int8_feature_path(f32.cpu(), 16)
+        assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    for i in sorted({0, n // 2, n - 1}):
+        solo = ingest_cuda.ingest_features(raw, res, starts[i:i + 1].contiguous(), W,
+                                           precision=precision)
+        assert solo.cpu().numpy().tobytes() == got[i:i + 1].cpu().numpy().tobytes()
+
+
+def _round_f32(x):
+    """The float32 nearest the exact rational x (ties to even)."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    candidates = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    return min(candidates, key=lambda c: (abs(Fraction(float(c)) - x),
+                                          int(np.asarray(c).view(np.uint32)) & 1))
+
+
+def _fmaf(a, b, c):
+    from fractions import Fraction
+
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def _mega_order_dot(row, w):
+    """The megakernel's margin of one float32 row, in its order: lane l
+    sums features l, l + 32, ... by fmaf (rounded once), then the
+    shfl_xor butterfly (16, 8, 4, 2, 1); lane 0's value."""
+    lanes = []
+    for lane in range(32):
+        m = np.float32(0.0)
+        for i in range(lane, len(row), 32):
+            m = _fmaf(row[i], w[i], m)
+        lanes.append(m)
+    for off in (16, 8, 4, 2, 1):
+        lanes = [np.float32(lanes[l] + lanes[l ^ off]) for l in range(32)]
+    return lanes[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc", [(0, 0, 0), (30000, -30000, 29500)])
+def test_mega_margin_is_the_ingest_row_dotted_in_the_megakernel_order(dc):
+    """K5 at f32: each margin equal bit for bit to K1's row of the same
+    window dotted with the weights in K5's order (rows equal K1's, the
+    dot is the fixed 48-term order), emulated exactly on the host."""
+    dev = _card()
+    stream, res, W, weights, stride = _mega_inputs(dev, 64, 64, dc, 3000, seed=11)
+    got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride)
+    starts = (torch.arange(64, dtype=torch.int32, device=dev) * stride).contiguous()
+    rows = ingest_cuda.ingest_features(stream, res, starts, W).cpu().numpy()
+    w = weights.cpu().numpy()
+    want = np.array([_mega_order_dot(r, w) for r in rows], np.float32)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+def test_multi_kernel_with_random_lanes_over_many_windows_per_block():
+    """K6 with a random lane per row over 2,055 windows (several per block
+    of the wave, each row's lane loaded as its window starts): every row
+    bit-equal to K5 launched with its lane's weights."""
+    dev = _card()
+    capacity = 2048 + 7
+    stream, res, W, _w, stride = _mega_inputs(dev, capacity, capacity, (9000, -4000, 100),
+                                              3000, seed=5)
+    rng = np.random.RandomState(5)
+    stack = torch.from_numpy(rng.randn(serve_mega.MAX_TENANTS, 48).astype(np.float32)).to(dev)
+    lanes_np = rng.randint(0, serve_mega.MAX_TENANTS, size=capacity).astype(np.int32)
+    got = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack,
+                                                   torch.from_numpy(lanes_np), 100, 175, stride)
+    got_np = got.cpu().numpy()
+    for lane in np.unique(lanes_np):
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100, 175,
+                                                  stride).cpu().numpy()
+        rows = np.nonzero(lanes_np == lane)[0]
+        assert got_np[rows].tobytes() == solo[rows].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_widest_montage_launches_and_one_channel_more_is_refused(dtype):
+    """76 channels, the most the one-window-per-block kernels took at the
+    100-sample baseline (their shared memory, channels * 757 floats, in a
+    block's 227 KB): the ring runs them in pieces of channels, within 2e-6
+    of the plain version (int8: the plain quantizer on the f32 rows, bit
+    for bit), each row equal bit for bit to its window launched alone; 77
+    channels raise, as they did, and count no launch."""
+    dev = _card()
+    W = _operator(dev)
+    starts = torch.tensor([-30, 0, 5, 1003, 2999, 3500, 4000], dtype=torch.int32, device=dev)
+    counters = lambda: (ingest_cuda.LAUNCHES + ingest_cuda.LAUNCHES_F32  # noqa: E731
+                        + ingest_cuda.LAUNCHES_INT8)
+    for C in (76, 77):
+        raw = torch.from_numpy(_samples(dtype, C, 4000, seed=C)).to(dev)
+        res = torch.from_numpy(_res(dtype, C)).to(dev)
+        before = counters()
+        if C == 76:
+            got = ingest_cuda.ingest_features(raw, res, starts, W)
+            torch.cuda.synchronize()
+            want = device_ingest.ingest_features_plain(raw, res, starts, W)
+            assert (got - want).abs().max().item() <= 2e-6
+            q = ingest_cuda.ingest_features(raw, res, starts, W, precision="int8")
+            assert q.cpu().numpy().tobytes() == decode_ingest.int8_feature_path(
+                got.cpu(), 16).numpy().tobytes()
+            assert counters() == before + 2
+            for i in (0, 3, 6):
+                solo = ingest_cuda.ingest_features(raw, res, starts[i:i + 1].contiguous(), W)
+                assert solo.cpu().numpy().tobytes() == got[i:i + 1].cpu().numpy().tobytes()
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ingest_cuda.ingest_features(raw, res, starts, W)
+            assert counters() == before
+    if dtype == "int16":
+        stride = serve_mega.padded_stride(100, 750)
+        for C in (64, 76, 77):
+            stream = torch.from_numpy(_samples("int16", C, 5 * stride, seed=C)).to(dev)
+            res = torch.full((C,), 0.1, device=dev)
+            weights = torch.from_numpy(
+                np.random.RandomState(C).randn(C * 16).astype(np.float32)).to(dev)
+            if C < 77:
+                got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175,
+                                                         stride)
+                want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175,
+                                                           stride)
+                assert (got - want).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+                stack = torch.from_numpy(np.random.RandomState(C + 1).randn(
+                    serve_mega.MAX_TENANTS, C * 16).astype(np.float32)).to(dev)
+                lanes = torch.tensor([5, 127, 0, 64, 5], dtype=torch.int32)
+                multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes,
+                                                                 100, 175, stride).cpu()
+                for lane in (0, 5, 64, 127):
+                    solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[lane], 100,
+                                                              175, stride).cpu()
+                    rows = (lanes == lane).nonzero().flatten()
+                    assert multi[rows].numpy().tobytes() == solo[rows].numpy().tobytes()
+            else:
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175,
+                                                       stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C,pre", [("int16", 1, 57_000), ("float32", 1, 40_000),
+                                         ("float32", 2, 28_200), ("int16", 16, 2_800)])
+def test_ingest_kernel_on_long_baselines(dtype, C, pre):
+    """Baselines so long that one channel's does not fit two ring slots
+    (the means then read it from device memory; the last case keeps it in
+    the ring, in pieces of channels), each within the old kernels' reach:
+    within 2e-6 of the plain version."""
+    dev = _card()
+    S = pre + 3000
+    raw = torch.from_numpy(_samples(dtype, C, S, seed=pre)).to(dev)
+    res = torch.from_numpy(_res(dtype, C)).to(dev)
+    starts = torch.tensor([-9, 0, 13, 1001, 2000, S - 300, S], dtype=torch.int32, device=dev)
+    got = ingest_cuda.ingest_features(raw, res, starts, _operator(dev), pre=pre)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, res, starts, _operator(dev), pre=pre)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
