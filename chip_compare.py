@@ -16,9 +16,10 @@ did to the kernels:
    (``dwt_cuda.epoch_features_cuda``), each at 64, at one recording's
    plan (the fused batch path's own launch: 320 rows of a staged
    1,200-marker recording, ``chip_smoke.recording_plan``; 320 windows for
-   the others) and at 32,768 windows, and the precision rungs (the ingest
-   kernel's bf16, int8 and int4 on the int16 stream, the megakernel's int8
-   and int4) at 32,768 windows. One JSON line each: the kernel's mean
+   the others) and at 32,768 windows, the epoch-features kernel also at
+   the ``-pallas`` logreg run's 641 and 1,494 epochs, and the precision
+   rungs (the ingest kernel's bf16, int8 and int4 on the int16 stream, the
+   megakernel's int8 and int4) at 32,768 windows. One JSON line each: the kernel's mean
    device time from ``torch.profiler`` (``device_ms``, 20 calls,
    ``chip_smoke.profiled_device_ms``), the median CUDA-event time of one
    wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``) and a
@@ -32,9 +33,10 @@ did to the kernels:
 
 A kernel counts as f32 when its name carries no precision template
 argument or precision 0 (``window_features::Precision::kF32``); the serve
-megakernel's tenant-stacked instantiation (``kMulti``) and the wide-ring
-instantiations (``kWide``, more than one piece of channels a window) are
-keyed apart, so each is compared with its own. Exits
+megakernel's tenant-stacked instantiation (``kMulti``), the wide-ring
+instantiations (``kWide``, more than one piece of channels a window) and
+the epoch-features kernel's instantiations (ring kernel ``kMain``, small
+kernel ``kL``) are keyed apart, so each is compared with its own. Exits
 non-zero when a build, a timing or ``cuobjdump`` fails. Needs one card;
 imports nothing of JAX.
 """
@@ -55,6 +57,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("ingest_features", "serve_mega", "epoch_features")
 _KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_features_kernel)")
 SIZES = (64, 320, 32_768)
+EPOCH_RUN_SIZES = (641, 1494)
 
 
 def smoke_helpers():
@@ -155,8 +158,9 @@ def time_checkout(tree: str, label: str) -> None:
             lambda: serve_mega_cuda.serve_mega_multi_margins(stream, sres, W, stack, lanes, 100,
                                                              175, stride))
 
-    # the epoch-features kernel on (n, 3, 750) float32 epochs
-    for n in SIZES:
+    # the epoch-features kernel on (n, 3, 750) float32 epochs, also at the
+    # -pallas logreg run's own launches (641 and 1,494 epochs)
+    for n in sorted((*SIZES, *EPOCH_RUN_SIZES)):
         gen = torch.Generator(device=dev).manual_seed(n)
         x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
         run("epoch_features", "epoch_features_kernel", n, lambda: dwt_cuda.epoch_features_cuda(x))
@@ -176,8 +180,16 @@ def f32_sass(cuobjdump: str, library: str) -> dict:
             current = key.group(1) if key and f32 else None
             if current:
                 # bool template arguments: the megakernel's kMulti, then
-                # run_windows' kWide (an older checkout may lack kWide)
+                # run_windows' kWide (an older checkout may lack kWide);
+                # the epoch-features kernel's kMain (an older one has none)
                 flags = re.findall(r"Lb([01])E", name)
+                if current == "epoch_features_kernel":
+                    lanes = re.search(r"epoch_features_kernel_smallILi(\d+)E", name)
+                    if lanes:
+                        current += f"_small_{lanes.group(1)}"
+                    elif flags:
+                        current += "_main" if flags[0] == "1" else "_any_size"
+                    flags = []
                 if current == "serve_mega_kernel" and flags and flags.pop(0) == "1":
                     current += "_multi"
                 if flags and flags[0] == "1":
@@ -224,8 +236,8 @@ def main(argv) -> int:
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in SOURCES:
         sass = {label: f32_sass(cuobjdump, libraries[label][name]) for label in libraries}
-        for key in sorted(sass["other"]):
-            a, b = sass["other"][key], sass["this"].get(key, [])
+        for key in sorted(set(sass["other"]) | set(sass["this"])):
+            a, b = sass["other"].get(key, []), sass["this"].get(key, [])
             print(json.dumps({"phase": "sass_f32", "kernel": key, "identical": a == b,
                               "instructions_other": len(a), "instructions_this": len(b)}),
                   flush=True)

@@ -40,9 +40,13 @@ Phases, one JSON line each (several for phases 2 to 6):
    2,048, lanes cycling over all 128 lanes and all on one tenant; margins
    within 2e-6 * ||w_lane||_1 of the plain version and bit-equal to the
    megakernel launched with that lane's weights; padded rows and a freed
-   lane exactly 0); the epoch-features kernel (B = 1, 5, 37, 128 and
-   32,768, DC-heavy epochs, an all-zero epoch giving an exactly zero row,
-   5-channel input reduced to 3, a window that does not fit raising);
+   lane exactly 0); the epoch-features kernel (B = 1, 5, 37, 128, 641,
+   1,494 and 32,768, DC-heavy epochs, an all-zero epoch giving an exactly
+   zero row, windows at every 4-byte offset within a chunk on aligned and
+   misaligned tensors, bit-equal, sizes off the main path, up to 750
+   samples and 745 coefficients, at 1, 3, 5 and 64 channels, 5-channel
+   input reduced to 3, a window that does not fit and a coefficient count
+   past the cascade's columns raising);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
    ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
    ``-fused-pallas`` spelling; ``fe=dwt-8-fused&precision=bf16|int8|int4``
@@ -100,7 +104,11 @@ Phases, one JSON line each (several for phases 2 to 6):
    megakernel (f32, int8, int4) at capacity 64
    (one serve batch) and at 32,768 windows, K6 at the same sizes with
    lanes cycling over 128 tenants, the epoch-features kernel at 32,768
-   epochs.
+   epochs and at the ``-pallas`` run's 641 and 1,494, beside
+   ``library_ms``, one ``torch.matmul`` of the window view with W (TF32
+   off: the contraction without the normalize), and ``window_read_ms``,
+   one PyTorch reduction over the same window view; and at 4,096 epochs at
+   each size off the main path of phase 3.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -999,30 +1007,74 @@ def random_epochs(np, B, seed, C=3, T=750, dc=300.0, noise=40.0):
     return (rng.randn(B, C, T) * noise + rng.randn(B, C, 1) * dc).astype(np.float32)
 
 
+# (epoch_size, feature_size, skip) off the main path: sizes the reference's
+# setters allow, up to the most coefficients a 750-sample window has
+EPOCH_SIZES = ((256, 16, 175), (512, 64, 175), (750, 32, 0), (333, 20, 0), (16, 16, 0),
+               (1, 1, 0), (750, 745, 0))
+
+
+def epoch_case(torch, dwt, dwt_cuda, name, xt, sizes=(175, 512, 16), zero_row=None):
+    """One epoch-features case on the card: kernel against plain version;
+    returns the deviation and the kernel's rows."""
+    skip, n, K = sizes
+    got = dwt_cuda.epoch_features_cuda(xt, 8, skip, n, K)
+    torch.cuda.synchronize()
+    want = dwt.epoch_features(xt, 8, skip, n, K)
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    zero = zero_row is None or bool((got[zero_row] == 0).all())
+    B, C = int(xt.shape[0]), int(xt.shape[1])
+    emit("kernel_vs_plain", kernel="epoch_features", case=name, epochs=B, channels=C,
+         length=int(xt.shape[2]), skip=skip, epoch_size=n, feature_size=K, max_abs_err=err,
+         tol=KERNEL_TOL, finite=finite, zero_row_exact=zero)
+    if not (err <= KERNEL_TOL and finite and zero and got.shape == (B, C * K)):
+        raise AssertionError(f"epoch-features kernel disagrees with its plain version on {name}")
+    return err, got
+
+
 def phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev):
     """The epoch-features kernel against its plain version on the card:
-    B = 1, 5, 37, 128 and 32,768; DC-heavy epochs; an all-zero epoch
-    (an exactly zero row); 5-channel input reduced to 3 by the
-    extractor's host gather; a window that does not fit raising."""
-    cases = {f"B{B}": random_epochs(np, B, seed=B) for B in (1, 5, 37, 128, 32_768)}
+    B = 1, 5, 37, 128, 641, 1,494 and 32,768; DC-heavy epochs; an all-zero
+    epoch (an exactly zero row); windows at every 4-byte offset within a
+    16-byte chunk (T = 750, 749, 751, 753, skip 1-8 and 175), each on an
+    aligned tensor and on one whose first byte is not (rows bit-equal);
+    sizes off the main path at 1, 3, 5 and 64 channels; 5-channel input
+    reduced to 3 by the extractor's host gather; a window that does not
+    fit and a coefficient count past the cascade's columns raising."""
+    cases = {f"B{B}": random_epochs(np, B, seed=B) for B in (1, 5, 37, 128, 641, 1494, 32_768)}
     cases["dc_heavy"] = random_epochs(np, 300, seed=3, dc=3000.0, noise=15.0) + np.float32(2500.0)
     with_zero = random_epochs(np, 9, seed=4)
     with_zero[4] = 0.0
     cases["all_zero_epoch"] = with_zero
     worst = 0.0
     for name, x in cases.items():
-        xt = torch.from_numpy(x).to(dev)
-        got = dwt_cuda.epoch_features_cuda(xt)
-        torch.cuda.synchronize()
-        want = dwt.epoch_features(xt)
-        err = (got - want).abs().max().item()
-        finite = bool(torch.isfinite(got).all())
-        zero_row = name != "all_zero_epoch" or bool((got[4] == 0).all())
-        emit("kernel_vs_plain", kernel="epoch_features", case=name, epochs=int(x.shape[0]),
-             max_abs_err=err, tol=KERNEL_TOL, finite=finite, zero_row_exact=zero_row)
-        if not (err <= KERNEL_TOL and finite and zero_row and got.shape == (x.shape[0], 48)):
-            raise AssertionError(f"epoch-features kernel disagrees with its plain version on {name}")
+        err, _ = epoch_case(torch, dwt, dwt_cuda, name, torch.from_numpy(x).to(dev),
+                            zero_row=4 if name == "all_zero_epoch" else None)
         worst = max(worst, err)
+    # every offset of a row's window within a chunk, on an aligned tensor
+    # and on one that starts 4 bytes past a boundary
+    for T in (750, 749, 751, 753):
+        for skip in (1, 2, 3, 4, 5, 6, 7, 8, 175):
+            x = random_epochs(np, 37, seed=T + skip, T=T)
+            flat = torch.zeros(x.size + 1, device=dev)
+            flat[1:] = torch.from_numpy(x.reshape(-1)).to(dev)
+            rows = []
+            for label, xt in (("aligned", torch.from_numpy(x).to(dev)),
+                              ("first_byte_misaligned", flat[1:].view(x.shape))):
+                err, got = epoch_case(torch, dwt, dwt_cuda, f"T{T}_skip{skip}_{label}", xt,
+                                      sizes=(skip, 512, 16))
+                worst = max(worst, err)
+                rows.append(got)
+            if not torch.equal(rows[0], rows[1]):
+                raise AssertionError(f"T{T} skip {skip}: rows depend on the tensor's alignment")
+    # other sizes, at 1, 3, 5 and 64 channels, each with an all-zero epoch
+    for n, K, skip in EPOCH_SIZES:
+        for C in (1, 3, 5, 64):
+            x = random_epochs(np, 37, seed=n + K + C, C=C)
+            x[11] = 0.0
+            err, _ = epoch_case(torch, dwt, dwt_cuda, f"n{n}_K{K}_C{C}",
+                                torch.from_numpy(x).to(dev), sizes=(skip, n, K), zero_row=11)
+            worst = max(worst, err)
     # 5 channels in, the configured (1, 2, 3) out: the gather is the host's
     five = random_epochs(np, 64, seed=5, C=5).astype(np.float64)
     fe = wavelet.WaveletTransform(backend="pallas", device=dev)
@@ -1035,14 +1087,23 @@ def phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev):
     if not (err <= KERNEL_TOL and got.shape == (64, 48)):
         raise AssertionError("epoch-features kernel disagrees on 5-channel input")
     worst = max(worst, err)
-    try:
-        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 600), device=dev))
-    except ValueError as e:
-        if "exceeds epoch length" not in str(e):
-            raise
-        emit("kernel_vs_plain", kernel="epoch_features", case="window_validation", raised=str(e))
-    else:
-        raise AssertionError("a 600-sample epoch did not raise")
+    before = dwt_cuda.LAUNCHES
+    for label, call, text in (
+        ("window_validation", lambda: dwt_cuda.epoch_features_cuda(
+            torch.zeros((2, 3, 600), device=dev)), "exceeds epoch length"),
+        ("past_the_cascade_columns", lambda: dwt_cuda.epoch_features_cuda(
+            torch.zeros((2, 3, 750), device=dev), 8, 0, 128, 200), "exceeds the 128 coefficients"),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            if text not in str(e):
+                raise
+            emit("kernel_vs_plain", kernel="epoch_features", case=label, raised=str(e))
+        else:
+            raise AssertionError(f"{label}: the wrapper did not raise")
+    if dwt_cuda.LAUNCHES != before:
+        raise AssertionError("a refused epoch-features call launched the kernel")
     return worst
 
 
@@ -1266,7 +1327,13 @@ def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
 def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
     """The epoch-features kernel and its plain version on ``n`` (3, 750)
     float32 epochs; bound: the 512-sample windows read once, the rows
-    written once, the operator read once."""
+    written once, the operator read once. ``library_ms``: one
+    ``torch.matmul`` of the window view (B, 3, 512), strides (3*750, 750,
+    1), with the (512, 16) operator (cuBLAS SGEMM, TF32 off): the
+    contraction, all of the kernel's FMAs and most of its bytes, without
+    the normalize (``library_device_ms``: its GEMM kernel's device time).
+    ``window_read_ms``: the device time of one PyTorch reduction over that
+    view, what its strided read costs the card."""
     gen = torch.Generator(device=dev).manual_seed(n)
     x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
     got = dwt_cuda.epoch_features_cuda(x)
@@ -1280,14 +1347,58 @@ def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
                                    "epoch_features_kernel")
     clock = sm_clock_mhz()
     plain_ms = time_ms(lambda: dwt.epoch_features(x))
+    window = x[:, :, 175:175 + 512]
+    W = dwt.kernel_operator(8, 512, 16, dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        contraction = torch.matmul(window, W)
+        ref = torch.einsum("bct,tk->bck", window.double(), W.double())
+        # float32 rounding leaves ~1e-7 of the largest value; TF32 ~1e-3
+        if (contraction.double() - ref).abs().max().item() > 1e-5 * ref.abs().max().item():
+            raise AssertionError("the library contraction is not a float32 one")
+        del contraction, ref
+        library_ms = time_ms(lambda: torch.matmul(window, W))
+        library_device_ms = profiled_device_ms(lambda: torch.matmul(window, W), "gemm")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # the same window view read once by one PyTorch reduction: what this
+    # strided read costs the card, whatever is computed from it
+    window_read_ms = profiled_device_ms(lambda: window.sum(), "reduce_kernel")
     bytes_moved = n * 3 * 512 * 4 + n * 48 * 4 + 512 * 16 * 4
     flops = 2 * n * 3 * 512 * 16
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
     emit("timing", kernel="epoch_features", epochs=n, kernel_ms=kernel_ms,
          kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by,
-         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
-    return kernel_ms, plain_ms, bound_ms, bound_by, err
+         bound_by=bound_by, bytes=bytes_moved, flops=flops, library_ms=library_ms,
+         library="torch.matmul of the window view with W, TF32 off (contraction only)",
+         library_device_ms=library_device_ms, window_read_ms=window_read_ms,
+         max_abs_err=err, nvidia_smi=smi)
+    return kernel_ms, plain_ms, bound_ms, bound_by, err, library_ms
+
+
+def epoch_size_timing(torch, dwt, dwt_cuda, dev, sizes, bandwidth, f32_peak, smi, n=4096):
+    """The epoch-features kernel off the main path: ``n`` (3, 750) float32
+    epochs at (epoch_size, feature_size, skip), against the plain version;
+    bound: the windows read once, the rows written once, the operator read
+    once, or the contraction's float32 operations, whichever is longer."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
+    for size, K, skip in sizes:
+        fn = lambda: dwt_cuda.epoch_features_cuda(x, 8, skip, size, K)  # noqa: E731
+        err = (fn() - dwt.epoch_features(x, 8, skip, size, K)).abs().max().item()
+        if err > KERNEL_TOL:
+            raise AssertionError(f"epoch-features kernel disagrees at ({size}, {K}): {err}")
+        kernel_ms = time_ms(fn)
+        device_ms = profiled_device_ms(fn, "epoch_features_kernel")
+        plain_ms = time_ms(lambda: dwt.epoch_features(x, 8, skip, size, K))
+        bytes_moved = n * 3 * size * 4 + n * 3 * K * 4 + size * K * 4
+        flops = 2 * n * 3 * size * K
+        bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+        emit("timing", kernel="epoch_features", epochs=n, epoch_size=size, feature_size=K,
+             kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
+             max_abs_err=err, nvidia_smi=smi)
 
 
 def recording_plan(info, dev):
@@ -1455,13 +1566,13 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, timing):
+def kernel_entry(name, source, replaces, launches, max_abs_err, timing, library_ms=None):
     kernel_ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
             "source": f"eeg_dataanalysispackage_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def main() -> int:
@@ -1572,7 +1683,8 @@ def main() -> int:
     # streams, and the bf16, int8 and int4 rungs on int16) and at one
     # recording's plan (the batch path's own launch size), the
     # megakernel (f32, int8, int4) at one serve batch and at 32,768
-    # windows, the epoch-features kernel at 32,768 epochs
+    # windows, the epoch-features kernel at 32,768 epochs and at the
+    # -pallas run's 641 and 1,494
     k1 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
                        bandwidth, f32_peak, smi)
     ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16, bandwidth, f32_peak,
@@ -1588,6 +1700,9 @@ def main() -> int:
     multi_64, multi_big = (mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
                                              bandwidth, f32_peak, smi) for n in (64, 32_768))
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
+    k4_run = [epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi)
+              for n in (641, 1494)]  # the -pallas logreg run's own launches
+    epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
 
     # 7. the kernels line, then the card line, then the result
     ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
@@ -1601,7 +1716,8 @@ def main() -> int:
                      mega_64["f32"]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
-                     max(epoch_err, k4_path_err, k4_f32_path_err, k4[4]), k4),
+                     max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
+                     k4, library_ms=k4[5]),
         kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
                      max(f32_err, f32_path_err, k1_f32[4]), k1_f32),
         *(kernel_entry(f"ingest_features_{p}", "ingest_features.cu", bank_pallas,

@@ -2,9 +2,8 @@
 // block of kThreads threads. Shared by the fused ingest kernel
 // (ingest_features.cu) and the serve megakernel (serve_mega.cu): both walk
 // their windows through run_windows below, so their feature rows agree bit
-// for bit. The epoch-features kernel (epoch_features.cu) stages already
-// baseline-corrected epochs itself and shares steps 4-5 only, through
-// carve, smem_bytes and contract_and_norm, which stay as they were for it.
+// for bit. The epoch-features kernel (epoch_features.cu) uses only the
+// 16-byte chunk copies (copy_async16, commit_async, wait_async).
 //
 // Per channel c of a window starting at `start`:
 //   x     = float(raw[c, start + j]) * res[c]      (0 outside [0, n_samples);
@@ -132,28 +131,10 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The epoch-features kernel's dynamic shared memory, carved per launch
-// geometry (run_windows carves its own: carve_ring).
-struct Smem {
-  float* z;     // [channels][kEpoch]   centred analysis samples
-  float* base;  // [channels][pre]      scaled baseline samples
-  float* part;  // [kWarps][channels*16] partial contractions
-  float* feat;  // [channels*16]        coefficients of the window
-  float* mean;  // [channels]
-  float* red;   // [kWarps + 1]         norm partials, then the divisor
-};
-
-__device__ __forceinline__ Smem carve(float* smem, int channels, int pre) {
-  Smem s;
-  s.z = smem;
-  s.base = s.z + channels * kEpoch;
-  s.part = s.base + channels * pre;
-  s.feat = s.part + kWarps * channels * kFeatures;
-  s.mean = s.feat + channels * kFeatures;
-  s.red = s.mean + channels;
-  return s;
-}
-
+// The shared memory of the one-window-per-block kernel K1 and K5 replaced
+// (the window's centred samples, its baseline, the 8 warps' partials, the
+// coefficients, the means and the norm's partials): plan_ring refuses a
+// launch exactly where this exceeds the block's limit, as that kernel did.
 inline size_t smem_bytes(int channels, int pre) {
   const size_t floats = static_cast<size_t>(channels) * kEpoch +
                         static_cast<size_t>(channels) * pre +
@@ -161,72 +142,6 @@ inline size_t smem_bytes(int channels, int pre) {
                         static_cast<size_t>(channels) * kFeatures + channels +
                         kWarps + 1;
   return floats * sizeof(float);
-}
-
-// The epoch-features kernel's: thread (g, k)'s 32 rows of the (512, 16)
-// operator's column k (rounded to bfloat16 for the kBf16 rung).
-template <Precision P = Precision::kF32>
-__device__ __forceinline__ void load_operator(const float* __restrict__ w,
-                                              float (&wreg)[kPerGroup]) {
-  const int g = threadIdx.x / kFeatures;
-  const int k = threadIdx.x % kFeatures;
-#pragma unroll
-  for (int i = 0; i < kPerGroup; ++i) {
-    wreg[i] = w[(g * kPerGroup + i) * kFeatures + k];
-    if constexpr (P == Precision::kBf16) wreg[i] = round_bf16(wreg[i]);
-  }
-}
-
-// Steps 4-5 on the C*512 centred samples in s.z: leaves the C*16
-// coefficients y in s.feat and returns max(||y||, 1e-30) to every thread.
-// Expects s.z written and a barrier passed; ends on a barrier, so the caller
-// may read s.feat at once.
-__device__ __forceinline__ float contract_and_norm(int channels,
-                                                   const float (&wreg)[kPerGroup],
-                                                   const Smem& s) {
-  const int tid = threadIdx.x;
-  const int g = tid / kFeatures;
-  const int k = tid % kFeatures;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int nfeat = channels * kFeatures;
-
-  // 4. contraction: thread (g, k) sums its 32 samples against W[:, k]
-  for (int c = 0; c < channels; ++c) {
-    const float4* zc = reinterpret_cast<const float4*>(s.z + c * kEpoch + g * kPerGroup);
-    float acc = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kPerGroup / 4; ++q) {
-      const float4 v = zc[q];
-      acc = fmaf(v.x, wreg[4 * q + 0], acc);
-      acc = fmaf(v.y, wreg[4 * q + 1], acc);
-      acc = fmaf(v.z, wreg[4 * q + 2], acc);
-      acc = fmaf(v.w, wreg[4 * q + 3], acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 16);  // groups 2*warp, 2*warp+1
-    if (lane < kFeatures) s.part[warp * nfeat + c * kFeatures + k] = acc;
-  }
-  __syncthreads();
-
-  // 5. reduce the partial sums over warps, then the row's norm
-  float ss = 0.0f;
-  for (int i = tid; i < nfeat; i += kThreads) {
-    float y = 0.0f;
-    for (int p = 0; p < kWarps; ++p) y += s.part[p * nfeat + i];
-    s.feat[i] = y;
-    ss = fmaf(y, y, ss);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (lane == 0) s.red[warp] = ss;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-    for (int p = 0; p < kWarps; ++p) total += s.red[p];
-    s.red[kWarps] = fmaxf(sqrtf(total), 1e-30f);
-  }
-  __syncthreads();
-  return s.red[kWarps];
 }
 
 // The quantize step of the int8 and int4 rungs: element f of the
@@ -621,10 +536,10 @@ __device__ __forceinline__ void window_centre(const StreamView<Sample>& v, long 
   }
 }
 
-// Step 4 of contract_and_norm for the piece's channels c0 .. c0 + count:
-// thread (g, k) sums its 32 samples of each channel against W[:, k]; the
-// pair of groups of a warp adds by shfl_xor 16, and lanes 0..15 write the
-// warp's partials.
+// Step 4, the contraction, for the piece's channels c0 .. c0 + count:
+// thread (g, k) sums its 32 samples of each channel against W[:, k] in
+// sample order; the pair of groups of a warp adds by shfl_xor 16, and lanes
+// 0..15 write the warp's partials.
 __device__ __forceinline__ void contract_partials(int c0, int count, int channels,
                                                   const float (&wreg)[kHeldRows],
                                                   const RingSmem& s) {
@@ -674,11 +589,14 @@ __device__ __forceinline__ void contract_partials(int c0, int count, int channel
   }
 }
 
-// Step 5 by warp 0 alone, in contract_and_norm's block-wide order: for
-// each warp w that held features, lane l stands for thread 32w + l (its
-// features i = 32w + l, + 256, ... reduced over the 8 partials in order and
-// squared into its sum), then w's butterfly, whose lane-0 value adds to
-// the total in warp order. Two warps' rounds run interleaved; a round past
+// Step 5 by warp 0 alone, in the block-wide order of the one-window-per-
+// block kernel, in which thread t of the 256 reduced its features i = t,
+// t + 256, ... over the 8 warps' partials in warp order and summed their
+// squares in that order, each warp added its threads' sums by a butterfly
+// (shfl_xor 16, 8, 4, 2, 1), and the warps' sums added in warp order. Here,
+// for each warp w that held features, lane l stands for thread 32w + l,
+// then w's butterfly runs, whose lane-0 value adds to the total in warp
+// order. Two warps' rounds run interleaved; a round past
 // the last warp with features sums to 0, which adds exactly. Leaves y in
 // s.feat (feature i written by lane i % 32) and returns max(||y||, 1e-30)
 // to every lane.

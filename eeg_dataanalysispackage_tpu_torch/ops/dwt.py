@@ -9,8 +9,9 @@ kernel (``ops/dwt_cuda.py``). :func:`make_batched_extractor` and
 :func:`make_compact_extractor` are the counterparts of the JAX
 package's XLA extractors (``fe=dwt-<i>-tpu`` and ``-tpu-compact``):
 float32 PyTorch contractions on an explicit device.
-:func:`kernel_operator` is the cascade matrix in the form every CUDA
-kernel of the package takes.
+:func:`kernel_operator` is the cascade matrix as a float32 tensor on
+the card, the fused CUDA kernels' operand; ``ops/dwt_cuda.kernel_operand``
+lays it out for the epoch-features kernel.
 """
 
 from __future__ import annotations
@@ -35,14 +36,15 @@ def cascade_matrix(wavelet_index: int, n: int, count: int) -> np.ndarray:
     return np.ascontiguousarray(dwt_host.fwt_periodic(eye, h, g)[:, :count])
 
 
-#: the analysis window and coefficient count the CUDA kernels compute
-#: (``csrc/window_features.cuh``: kEpoch, kFeatures)
+#: the analysis window and coefficient count the fused CUDA kernels
+#: compute (``csrc/window_features.cuh``: kEpoch, kFeatures); the
+#: epoch-features kernel takes any
 KERNEL_EPOCH_SIZE = 512
 KERNEL_FEATURE_SIZE = 16
 
 
 def check_kernel_sizes(kernel: str, epoch_size: int, feature_size: int) -> None:
-    """Raise unless the sizes are the ones the CUDA kernels compute."""
+    """Raise unless the sizes are the ones the fused CUDA kernels compute."""
     if (epoch_size, feature_size) != (KERNEL_EPOCH_SIZE, KERNEL_FEATURE_SIZE):
         raise ValueError(
             f"the {kernel} kernel computes epoch_size={KERNEL_EPOCH_SIZE}, "
@@ -50,13 +52,29 @@ def check_kernel_sizes(kernel: str, epoch_size: int, feature_size: int) -> None:
         )
 
 
-# a few (wavelet, device) pairs per process; bounded all the same
+def check_feature_size(wavelet_index: int, epoch_size: int, feature_size: int) -> None:
+    """Raise ValueError where the cascade of an ``epoch_size`` window has
+    fewer than ``feature_size`` coefficients (e.g. 128 at epoch_size 128,
+    745 at 750). The JAX package returns all-NaN rows there; no feature
+    row exists, so the port refuses."""
+    columns = cascade_matrix(wavelet_index, epoch_size, feature_size).shape[1]
+    if feature_size > columns:
+        raise ValueError(
+            f"feature_size {feature_size} exceeds the {columns} coefficients "
+            f"the wavelet-{wavelet_index} cascade has for epoch_size {epoch_size}"
+        )
+
+
+# a few (wavelet, sizes, device) keys per process; bounded all the same
 @lru_cache(maxsize=16)
-def kernel_operator(wavelet_index: int, device: torch.device) -> torch.Tensor:
-    """The (512, 16) float32 cascade matrix the CUDA kernels take,
-    contiguous on ``device``; one tensor per (wavelet, device), which
-    callers must not modify."""
-    W = cascade_matrix(wavelet_index, KERNEL_EPOCH_SIZE, KERNEL_FEATURE_SIZE)
+def kernel_operator(
+    wavelet_index: int, epoch_size: int, feature_size: int, device: torch.device
+) -> torch.Tensor:
+    """The (epoch_size, feature_size) float32 cascade matrix the CUDA
+    kernels take, contiguous on ``device``; one tensor per key, which
+    callers must not modify. Raises as :func:`check_feature_size`."""
+    check_feature_size(wavelet_index, epoch_size, feature_size)
+    W = cascade_matrix(wavelet_index, epoch_size, feature_size)
     return torch.as_tensor(W, dtype=torch.float32).to(device).contiguous()
 
 
@@ -76,7 +94,9 @@ def epoch_features(
 ) -> torch.Tensor:
     """(B, C, T) float epochs -> (B, C*feature_size) normalized features:
     the analysis window [skip, skip+size) of each channel contracted
-    with the cascade matrix, channels concatenated."""
+    with the cascade matrix, channels concatenated. Raises as
+    :func:`check_feature_size`."""
+    check_feature_size(wavelet_index, epoch_size, feature_size)
     B, C, _ = epochs.shape
     W = torch.as_tensor(
         cascade_matrix(wavelet_index, epoch_size, feature_size),

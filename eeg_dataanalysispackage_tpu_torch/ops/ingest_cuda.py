@@ -178,7 +178,7 @@ def ingest_features_cuda(
         raw,
         resolutions,
         torch.from_numpy(starts.astype(np.int32)).to(raw.device),
-        dwt.kernel_operator(wavelet_index, raw.device),
+        dwt.kernel_operator(wavelet_index, epoch_size, feature_size, raw.device),
         pre,
         skip_samples,
         precision,
@@ -214,8 +214,8 @@ def make_cuda_ingest_featurizer(
         ).astype(np.int32)
         return ingest_features(
             raw, resolutions, torch.from_numpy(starts).to(raw.device),
-            dwt.kernel_operator(wavelet_index, raw.device), pre, skip_samples,
-            precision,
+            dwt.kernel_operator(wavelet_index, epoch_size, feature_size, raw.device),
+            pre, skip_samples, precision,
         )
 
     return featurize

@@ -3,7 +3,8 @@ ingest kernel (int16 and float32 streams, at every precision= rung), the
 serve megakernel (f32, int8, int4), its tenant-stacked instantiation
 (K6, held bit for bit against the solo megakernel per lane, and through
 a multi-tenant service against solo services) and the epoch-features
-kernel.
+kernel (at every window alignment, at any window and coefficient count
+the cascade has, and on wide montages).
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
@@ -185,7 +186,7 @@ def _epochs(B, C=3, T=750, seed=0, dc=300.0, noise=40.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 5, 37, 128, 1000])
+@pytest.mark.parametrize("B", [1, 5, 37, 128, 641, 1494, 32768])
 @pytest.mark.parametrize("dc,noise", [(300.0, 40.0), (3000.0, 15.0)])
 def test_epoch_kernel_matches_plain_version(B, dc, noise):
     dev = _card()
@@ -197,6 +198,56 @@ def test_epoch_kernel_matches_plain_version(B, dc, noise):
     want = dwt.epoch_features(x)
     assert got.shape == want.shape == (B, 48)
     assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [750, 749, 751, 753])
+@pytest.mark.parametrize("skip", [1, 2, 3, 4, 5, 6, 7, 8, 175])
+def test_epoch_kernel_at_every_alignment(T, skip):
+    """Rows whose windows start at every 4-byte offset within a 16-byte
+    chunk, on a tensor whose first byte is and is not 16-byte aligned
+    (chunks past either end of it copied float by float): the rows of the
+    misaligned tensor equal the aligned one's bit for bit."""
+    dev = _card()
+    B = 37
+    x = _epochs(B, T=T, seed=T + skip)
+    flat = torch.zeros(B * 3 * T + 1, device=dev)
+    flat[1:] = torch.from_numpy(x.reshape(-1)).to(dev)
+    shifted = flat[1:].view(B, 3, T)  # its first byte 4 past a 16-byte boundary
+    aligned = torch.from_numpy(x).to(dev)
+    n = min(512, T - skip)
+    want = dwt.epoch_features(aligned, 8, skip, n, 16)
+    for xt in (aligned, shifted):
+        got = dwt_cuda.epoch_features_cuda(xt, 8, skip, n, 16)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 2e-6
+    rows = [dwt_cuda.epoch_features_cuda(xt, 8, skip, n, 16) for xt in (aligned, shifted)]
+    assert torch.equal(rows[0], rows[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,skip", [(512, 16, 175), (256, 16, 175), (512, 64, 175),
+                                      (750, 32, 0), (333, 20, 0), (16, 16, 0), (1, 1, 0),
+                                      (750, 745, 0), (128, 128, 5)])
+@pytest.mark.parametrize("C", [1, 3, 5, 64])
+def test_epoch_kernel_at_any_size(n, K, skip, C):
+    """Any window and coefficient count the cascade has, at 1, 3, 5 and 64
+    channels, against the plain version; an all-zero epoch gives an
+    exactly zero row."""
+    dev = _card()
+    B = 37
+    x = _epochs(B, C=C, seed=n + K + C)
+    x[11] = 0.0
+    xt = torch.from_numpy(x).to(dev)
+    before = dwt_cuda.LAUNCHES
+    got = dwt_cuda.epoch_features_cuda(xt, 8, skip, n, K)
+    torch.cuda.synchronize()
+    assert dwt_cuda.LAUNCHES == before + 1
+    want = dwt.epoch_features(xt, 8, skip, n, K)
+    assert got.shape == want.shape == (B, C * K)
+    assert torch.isfinite(got).all() and (got[11] == 0).all()
     assert (got - want).abs().max().item() <= 2e-6
 
 
@@ -231,33 +282,61 @@ def test_epoch_kernel_wrapper_raises_rather_than_running_the_plain_version():
         dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 600), device=dev))
     with pytest.raises(ValueError, match="float32"):
         dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 750), device=dev, dtype=torch.float64))
-    with pytest.raises(ValueError, match="epoch_size=512"):
-        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 750), device=dev), epoch_size=256)
+    with pytest.raises(ValueError, match="exceeds the 128 coefficients"):
+        dwt_cuda.epoch_features_cuda(torch.zeros((2, 3, 750), device=dev), 8, 0, 128, 200)
     empty = dwt_cuda.epoch_features_cuda(torch.zeros((0, 3, 750), device=dev))
     assert empty.shape == (0, 48) and dwt_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
 def test_pallas_extractor_refuses_other_sizes_on_the_card():
-    """The kernel computes a 512-sample window and 16 coefficients; a
-    pallas extractor set to other sizes raises on the card, where the
-    CPU runs the plain version."""
+    """The pallas extractor set to other sizes through the reference's
+    setters runs them on the card: each launch counted, its rows within
+    2e-6 of the plain version. A coefficient count past the cascade's
+    columns is what it refuses, before any launch."""
     dev = _card()
+    ep = _epochs(40, seed=2).astype(np.float64)
+    for n, skip, K in ((512, 175, 8), (256, 175, 16), (750, 1, 32), (333, 10, 20),
+                       (16, 100, 16), (1, 1, 1)):
+        fe = wavelet.WaveletTransform(backend="pallas", device=dev)
+        fe.set_epoch_size(n)
+        fe.set_skip_samples(skip)
+        fe.set_feature_size(K)
+        x = np.zeros((40, 3, max(750, skip + n)), np.float64)
+        x[:, :, :750] = ep
+        before = dwt_cuda.LAUNCHES
+        got = fe.extract_batch(x)
+        torch.cuda.synchronize()
+        assert dwt_cuda.LAUNCHES == before + 1 and got.device.type == "cuda"
+        want = dwt.epoch_features(torch.from_numpy(x.astype(np.float32)).to(dev), 8, skip, n, K)
+        assert got.shape == (40, 3 * K)
+        assert (got - want).abs().max().item() <= 2e-6
     fe = wavelet.WaveletTransform(backend="pallas", device=dev)
-    fe.set_feature_size(8)
+    fe.set_epoch_size(128)
+    fe.set_feature_size(200)
     before = dwt_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="feature_size=16; got 512, 8"):
-        fe.extract_batch(_epochs(4, seed=2).astype(np.float64))
+    with pytest.raises(ValueError, match="feature_size 200 exceeds the 128 coefficients"):
+        fe.extract_batch(ep)
     assert dwt_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
 def test_epoch_kernel_raises_on_a_refused_launch():
-    """More shared memory than a block may have, from a channel count no
-    recording has: the launch is refused and the wrapper raises."""
+    """The launch the one-epoch-per-block kernel refused (200 channels, its
+    two window buffers past a block's shared memory) now runs: the
+    kernel's shared memory does not grow with the channel count, and it
+    refuses no launch for its size. Wide montages match the plain version
+    at the main size and at another."""
     dev = _card()
-    with pytest.raises(RuntimeError, match="launch failed"):
-        dwt_cuda.epoch_features_cuda(torch.zeros((2, 200, 750), device=dev))
+    for C, n, K in ((200, 512, 16), (1000, 512, 16), (200, 333, 20)):
+        x = torch.from_numpy(_epochs(9, C=C, seed=C)).to(dev)
+        before = dwt_cuda.LAUNCHES
+        got = dwt_cuda.epoch_features_cuda(x, 8, 175, n, K)
+        torch.cuda.synchronize()
+        assert dwt_cuda.LAUNCHES == before + 1
+        want = dwt.epoch_features(x, 8, 175, n, K)
+        assert got.shape == (9, C * K) and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 2e-6
 
 
 _RUNG_COUNTERS = {"bf16": "LAUNCHES_BF16", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
@@ -281,7 +360,7 @@ def test_bf16_rung_matches_plain_version(case, sample, dc):
     dev = _card()
     S = 30000
     raw, res = _raw(dev, sample, dc, S, seed=4)
-    W = dwt.kernel_operator(8, dev)
+    W = dwt.kernel_operator(8, 512, 16, dev)
     starts = torch.from_numpy(STARTS[case](S).astype(np.int32)).to(dev)
     before = ingest_cuda.LAUNCHES_BF16
     got = ingest_cuda.ingest_features(raw, res, starts, W, precision="bf16")
@@ -305,7 +384,7 @@ def test_quantize_epilogue_is_the_plain_quantizer_bit_for_bit(precision, sample,
     dev = _card()
     S = 60000
     raw, res = _raw(dev, sample, dc, S, seed=5)
-    W = dwt.kernel_operator(8, dev)
+    W = dwt.kernel_operator(8, 512, 16, dev)
     starts = torch.from_numpy(np.concatenate([
         np.random.RandomState(6).randint(0, S - 787, size=700), [S - 300, S]
     ]).astype(np.int32)).to(dev)
