@@ -19,26 +19,33 @@ did to the kernels:
    the others) and at 32,768 windows, the epoch-features kernel also at
    the ``-pallas`` logreg run's 641 and 1,494 epochs, and the precision
    rungs (the ingest kernel's bf16, int8 and int4 on the int16 stream, the
-   megakernel's int8 and int4) at 32,768 windows. One JSON line each: the kernel's mean
-   device time from ``torch.profiler`` (``device_ms``, 20 calls,
+   megakernel's int8 and int4) at 32,768 windows. One JSON line each: the kernel's
+   device time per call from ``torch.profiler`` (``device_ms``, 20 calls,
    ``chip_smoke.profiled_device_ms``), the median CUDA-event time of one
    wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``) and a
    sha256 of the output, tagged with the checkout;
 2. ``outputs``: one line per kernel and size with ``bit_equal``, the
    checkouts' output digests compared;
-3. the f32 kernels' SASS (``cuobjdump -sass`` of both builds), compared
-   instruction by instruction, addresses left out: one JSON line per
-   kernel with ``identical``; and the ``ptxas`` registers and spills of
-   every kernel each build made.
+3. the SASS of every kernel instantiation both builds have (``cuobjdump
+   -sass``), compared instruction by instruction, addresses left out: one
+   JSON line per instantiation with ``identical`` and ``f32``; an
+   instantiation only this build has is listed as ``new``; and the
+   ``ptxas`` registers and spills of every kernel each build made.
 
-A kernel counts as f32 when its name carries no precision template
-argument or precision 0 (``window_features::Precision::kF32``); the serve
-megakernel's tenant-stacked instantiation (``kMulti``), the wide-ring
-instantiations (``kWide``, more than one piece of channels a window) and
-the epoch-features kernel's instantiations (ring kernel ``kMain``, small
-kernel ``kL``) are keyed apart, so each is compared with its own. Exits
-non-zero when a build, a timing or ``cuobjdump`` fails. Needs one card;
-imports nothing of JAX.
+An instantiation is keyed by its kernel and template arguments, not by
+its mangled name (which carries a hash of its source file and its
+parameter list): the sample type, the precision
+(``window_features::Precision``), the megakernel's ``kMulti``, the
+wide-ring ``kWide``, the tenant stack's precision (``Weights``; the f32
+stack where a build has none), the epoch-features kernel's ``kMain`` and
+``kL``. It counts as f32 at precision 0 (``kF32``) on an f32 stack. The
+generic-size kernels (``*_any_kernel``) are not compared.
+
+Where this checkout has the quantized tenant stack's kernels (K6-w8,
+K6-w4) and the other does not, they are timed here alone, and each
+output is held against K6 on the dequantized stack
+(``bit_equal_k6_dequantized``). Exits non-zero when a build, a timing or
+``cuobjdump`` fails. Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -157,6 +164,24 @@ def time_checkout(tree: str, label: str) -> None:
         run("serve_mega_multi", "serve_mega_kernel", n,
             lambda: serve_mega_cuda.serve_mega_multi_margins(stream, sres, W, stack, lanes, 100,
                                                              175, stride))
+        if hasattr(serve_mega_cuda, "serve_mega_multi_packed_margins"):
+            from eeg_dataanalysispackage_tpu_torch.ops import quant
+
+            for wp in ("int8", "int4"):
+                packed_np, scales_np = quant.quantize_weight_stack(
+                    stack.t().cpu().numpy(), wp)
+                packed = torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev)
+                scales = torch.from_numpy(scales_np).to(dev)
+                deq = quant.dequantize_weight_stack(packed.t(), scales, wp, 48).t().contiguous()
+                k6 = serve_mega_cuda.serve_mega_multi_margins(stream, sres, W, deq, lanes, 100,
+                                                              175, stride)
+                fn = (lambda packed=packed, scales=scales, wp=wp:
+                      serve_mega_cuda.serve_mega_multi_packed_margins(
+                          stream, sres, W, packed, scales, lanes, 100, 175, stride, wp))
+                equal = fn().cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+                emit(phase="packed_vs_k6", kernel=f"serve_mega_multi_{wp}", windows=n,
+                     bit_equal_k6_dequantized=equal)
+                run(f"serve_mega_multi_{wp}", "serve_mega_kernel", n, fn)
 
     # the epoch-features kernel on (n, 3, 750) float32 epochs, also at the
     # -pallas logreg run's own launches (641 and 1,494 epochs)
@@ -166,40 +191,58 @@ def time_checkout(tree: str, label: str) -> None:
         run("epoch_features", "epoch_features_kernel", n, lambda: dwt_cuda.epoch_features_cuda(x))
 
 
-def f32_sass(cuobjdump: str, library: str) -> dict:
-    """{kernel key: [instruction text]} of a library's f32 kernels."""
+def instantiation_key(name: str):
+    """(key, f32) of a kernel's mangled name, or None for a kernel not
+    compared: the kernel and its template arguments, without the source
+    file's hash or the parameter list."""
+    key = _KERNEL.search(name)
+    if not key:
+        return None
+    current = key.group(1)
+    precision = re.search(r"9PrecisionE(\d)E", name)
+    weights = re.search(r"7WeightsE(\d)E", name)
+    p = int(precision.group(1)) if precision else 0
+    w = int(weights.group(1)) if weights else 0
+    # bool template arguments: the megakernel's kMulti, then run_windows'
+    # kWide (an older checkout may lack kWide); the epoch-features
+    # kernel's kMain (an older one has none)
+    flags = re.findall(r"Lb([01])E", name)
+    if current == "epoch_features_kernel":
+        lanes = re.search(r"epoch_features_kernel_smallILi(\d+)E", name)
+        if lanes:
+            current += f"_small_{lanes.group(1)}"
+        elif flags:
+            current += "_main" if flags[0] == "1" else "_any_size"
+        flags = []
+    if current == "serve_mega_kernel" and flags and flags.pop(0) == "1":
+        current += "_multi"
+    if flags and flags[0] == "1":
+        current += "_wide"
+    if precision:
+        current += f"_p{p}"
+    if current.startswith("serve_mega_kernel_multi"):
+        current += f"_w{w}"
+    return current, p == 0 and w == 0
+
+
+def kernel_sass(cuobjdump: str, library: str) -> dict:
+    """{instantiation key: (f32, [instruction text])} of a library's
+    kernels."""
     out = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                          check=True).stdout
     kernels, current = {}, None
     for line in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            name = m.group(1)
-            key = _KERNEL.search(name)
-            f32 = "Precision" not in name or "PrecisionE0E" in name
-            current = key.group(1) if key and f32 else None
+            keyed = instantiation_key(m.group(1))
+            current = keyed[0] if keyed else None
             if current:
-                # bool template arguments: the megakernel's kMulti, then
-                # run_windows' kWide (an older checkout may lack kWide);
-                # the epoch-features kernel's kMain (an older one has none)
-                flags = re.findall(r"Lb([01])E", name)
-                if current == "epoch_features_kernel":
-                    lanes = re.search(r"epoch_features_kernel_smallILi(\d+)E", name)
-                    if lanes:
-                        current += f"_small_{lanes.group(1)}"
-                    elif flags:
-                        current += "_main" if flags[0] == "1" else "_any_size"
-                    flags = []
-                if current == "serve_mega_kernel" and flags and flags.pop(0) == "1":
-                    current += "_multi"
-                if flags and flags[0] == "1":
-                    current += "_wide"
-                kernels[current] = []
+                kernels[current] = (keyed[1], [])
             continue
         if current and "/*" in line:
             text = re.sub(r"/\*[0-9a-f]{4}\*/", "", line.split(";")[0]).strip()
             if text:
-                kernels[current].append(text)
+                kernels[current][1].append(text)
     return kernels
 
 
@@ -220,6 +263,9 @@ def main(argv) -> int:
             return 1
         for line in proc.stdout.splitlines():
             record = json.loads(line)
+            if record["phase"] == "packed_vs_k6":
+                print(line, flush=True)
+                continue
             if record["phase"] == "libraries":
                 libraries[label] = record["libraries"]
                 if any(record["ptxas"].values()):
@@ -230,15 +276,24 @@ def main(argv) -> int:
                 label, set()).add(record["sha256"])
             print(line, flush=True)
     for (kernel, windows), by in sorted(digests.items()):
+        if "other" not in by:
+            print(json.dumps({"phase": "outputs", "kernel": kernel, "windows": windows,
+                              "new": True, "digests_stable": len(by["this"]) == 1}), flush=True)
+            continue
         print(json.dumps({"phase": "outputs", "kernel": kernel, "windows": windows,
                           "bit_equal": len(by["other"] | by["this"]) == 1}), flush=True)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in SOURCES:
-        sass = {label: f32_sass(cuobjdump, libraries[label][name]) for label in libraries}
+        sass = {label: kernel_sass(cuobjdump, libraries[label][name]) for label in libraries}
         for key in sorted(set(sass["other"]) | set(sass["this"])):
-            a, b = sass["other"].get(key, []), sass["this"].get(key, [])
-            print(json.dumps({"phase": "sass_f32", "kernel": key, "identical": a == b,
+            if key not in sass["other"]:
+                print(json.dumps({"phase": "sass", "kernel": key, "new": True,
+                                  "f32": sass["this"][key][0],
+                                  "instructions_this": len(sass["this"][key][1])}), flush=True)
+                continue
+            (f32, a), (_, b) = sass["other"][key], sass["this"].get(key, (None, []))
+            print(json.dumps({"phase": "sass", "kernel": key, "f32": f32, "identical": a == b,
                               "instructions_other": len(a), "instructions_this": len(b)}),
                   flush=True)
     return 0

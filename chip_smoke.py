@@ -6,9 +6,13 @@
 Drives the port's paths on the card — the fused batch run,
 ``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``
 at f32 and at ``precision=bf16|int8|int4``, the host ``fe=`` batch run
-(``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``), the online service,
-``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung, and
-the multi-tenant service (``serve.MultiplexedService``, 128 tenants) —
+(``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``, ``dwt-8-tpu-bf16``,
+``dwt-8-tpu-compact-bf16``), the online service,
+``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung, the
+multi-tenant service (``serve.MultiplexedService``, 128 tenants) on the
+f32 stack and on the quantized stacks (``weights_precision=int8|int4``),
+and the fused kernels' generic engine (a 256-sample window through
+``OfflineDataProvider.load_features_device`` and the serving engines) —
 and holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
@@ -46,7 +50,18 @@ Phases, one JSON line each (several for phases 2 to 6):
    misaligned tensors, bit-equal, sizes off the main path, up to 750
    samples and 745 coefficients, at 1, 3, 5 and 64 channels, 5-channel
    input reduced to 3, a window that does not fit and a coefficient count
-   past the cascade's columns raising);
+   past the cascade's columns raising); K6-w8 and K6-w4, the quantized
+   tenant stack's instantiations (DC-heavy windows, n = 1 and n =
+   capacity at capacity 64 and 2,048, lanes cycling or on one tenant:
+   margins bit-equal to K6 on the dequantized 128-lane stack, within
+   2e-6 * ||w_lane||_1 of the plain version, padded rows and a freed lane
+   0); and the generic engine at (epoch_size, feature_size, skip) =
+   (256, 16, 175), (512, 64, 175), (333, 20, 100) and (700, 32, 50) on 3
+   channels and (333, 20, 100) on 76: K1 at every rung (rows within
+   2e-6; int8/int4 bit for bit to the plain quantizer on the kernel's f32
+   rows, flips against the plain chain counted), K5 at f32/int8/int4, K6
+   and K6-w8/w4 (margins within MEGA_GATE_TOL, K6 bit-equal per lane to
+   K5, K6-w8/w4 bit-equal to K6 on the dequantized stack);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
    ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
    ``-fused-pallas`` spelling; ``fe=dwt-8-fused&precision=bf16|int8|int4``
@@ -57,7 +72,12 @@ Phases, one JSON line each (several for phases 2 to 6):
    for that run only: f32 used, statistics equal to the f32 run);
    ``fe=dwt-8-pallas`` with logreg and svm, ``fe=dwt-8`` and
    ``fe=dwt-8-tpu`` with logreg; then a 3-recording IEEE_FLOAT_32
-   session through ``fe=dwt-8-fused`` and ``fe=dwt-8-pallas``. Every run
+   session through ``fe=dwt-8-fused`` and ``fe=dwt-8-pallas``; then the
+   generic engine's path, ``load_features_device(epoch_size=256, …)`` on
+   both sessions at every rung (one generic launch per recording, the
+   features against the CPU provider's); and ``fe=dwt-8-tpu-bf16`` and
+   ``-tpu-compact-bf16`` with logreg on the card and the CPU (features
+   within BF16_GATE_TOL, both statistics printed). Every run
    prints the launches of each kernel, counted from 0 just before it
    (the ingest kernel once per recording, the epoch-features kernel
    twice per ``-pallas`` train run), and its statistics equal the port's
@@ -93,7 +113,15 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``load_clf=`` run, one mixed 64-window batch split into host staging,
    the stream's and the lanes' host-to-device copies, kernel call,
    margin sync and ``engine.execute``, and a per-tenant quota shed probe
-   with its evidence;
+   with its evidence; then the same 128 tenants at
+   ``weights_precision=int8`` and ``int4`` (admin mid-run): the weights
+   record and resident bytes, K6-w8/w4's launches, the largest margin
+   gap against an f32 service at the weights gate's tolerance, a mixed
+   batch bit-equal to K6 on the dequantized stack, and a swap that leaves
+   every other lane's packed bytes, scale and margins unchanged; then
+   serving at a 256-sample window (a ServingEngine at f32/int8/int4 and a
+   128-tenant MultiplexedEngine at f32/int8/int4: the generic K5 and K6
+   instantiations' launches, margins against the CPU engines);
 6. timing (CUDA events around one wrapper call, median of 25; and the
    kernel's own device time from ``torch.profiler``, mean of 10, taken
    before the plain version runs, with the SM clock read just after) beside
@@ -108,7 +136,9 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``library_ms``, one ``torch.matmul`` of the window view with W (TF32
    off: the contraction without the normalize), and ``window_read_ms``,
    one PyTorch reduction over the same window view; and at 4,096 epochs at
-   each size off the main path of phase 3.
+   each size off the main path of phase 3; K6-w8/w4 at capacity 64 and
+   32,768 beside K6; the generic instantiations (K1 at every rung, K5,
+   K6, K6-w8/w4) at 4,096 windows at each generic size of phase 3.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -134,14 +164,15 @@ KERNEL_TOL = 2e-6  # kernel vs plain version: summation orders only
 MARGIN_TOL_PER_L1 = KERNEL_TOL
 MARGIN_BAND = 1e-4  # a differing test row must sit this close to the threshold
 
-# Datasheet peaks (NVIDIA H100/H200 data sheets): memory bytes/s and
-# float32 FLOP/s outside the tensor cores, keyed by a substring of the
-# card's name; the first match wins.
+# Datasheet peaks (NVIDIA H100/H200 data sheets, dense rates): memory
+# bytes/s, float32 FLOP/s outside the tensor cores and bf16 FLOP/s on the
+# tensor cores, keyed by a substring of the card's name; the first match
+# wins.
 CARD_PEAKS = (
-    ("H100 PCIE", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIE", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 
@@ -151,9 +182,9 @@ def emit(phase: str, **fields) -> None:
 
 def card_peaks(name: str):
     upper = name.upper()
-    for key, bw, flops in CARD_PEAKS:
+    for key, bw, f32_flops, bf16_flops in CARD_PEAKS:
         if key in upper:
-            return bw, flops
+            return bw, f32_flops, bf16_flops
     raise RuntimeError(f"no datasheet peaks recorded for {name!r}")
 
 
@@ -197,25 +228,33 @@ def time_ms(fn, warmup: int = 3, runs: int = 25) -> float:
 
 
 def profiled_device_ms(fn, kernel: str, runs: int = 10):
-    """Mean device time (ms) of the CUDA kernel whose name contains
-    ``kernel`` over ``runs`` calls of ``fn``, from ``torch.profiler``:
-    the kernel alone, without the wrapper's host work that a CUDA-event
-    pair around one call also counts. A trace that holds no device time
-    for it (one comes back empty now and then) is taken again, up to
-    twice; None when none does."""
+    """Device time (ms) a call of ``fn`` spends in the CUDA kernels whose
+    names contain ``kernel``, from ``torch.profiler`` over ``runs``
+    calls: their summed device time over ``runs``, the kernels alone,
+    without the wrapper's host work that a CUDA-event pair around one
+    call also counts. A trace is taken only where it holds device time
+    and the number of matching kernel records is a whole multiple of
+    ``runs`` (the same launches in every call); any other trace is
+    printed as a ``profiler_retake`` line and taken again, up to twice.
+    None when no trace passes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if kernel in ev.key and ev.count and ev.device_time_total > 0:
-                return ev.device_time_total / ev.count / 1e3
+        found = [(ev.key, ev.count, ev.device_time_total) for ev in prof.key_averages()
+                 if kernel in ev.key and ev.count]
+        count = sum(c for _k, c, _t in found)
+        total_us = sum(t for _k, _c, t in found)
+        if count and count % runs == 0 and total_us > 0:
+            return total_us / runs / 1e3
+        emit("profiler_retake", kernel=kernel, attempt=attempt, runs=runs,
+             records=[{"key": k[:120], "count": c, "device_us": t} for k, c, t in found])
     return None
 
 
@@ -246,7 +285,7 @@ def quantizers():
     return {"int8": decode_ingest.int8_feature_path, "int4": quant.int4_feature_path}
 
 
-def flip_check(np, got, want, f32_rows, precision, label):
+def flip_check(np, got, want, f32_rows, precision, label, feature_size=16):
     """Quantized rows against other quantized rows of the same windows:
     equal within KERNEL_TOL except boundary flips, each exactly one
     quantization step of its group (within KERNEL_TOL). Returns (flips,
@@ -255,16 +294,17 @@ def flip_check(np, got, want, f32_rows, precision, label):
 
     from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
 
+    K = feature_size
     got, want = np.asarray(got), np.asarray(want)
     qmax = {"int8": 127.0, "int4": 7.0}[precision]
-    scales = decode_ingest.quantize_levels(torch.as_tensor(np.asarray(f32_rows)), 16,
+    scales = decode_ingest.quantize_levels(torch.as_tensor(np.asarray(f32_rows)), K,
                                            qmax)[1].numpy()
-    group_of = [g for g, (lo, hi) in enumerate(decode_ingest.subband_group_bounds(16))
+    group_of = [g for g, (lo, hi) in enumerate(decode_ingest.subband_group_bounds(K))
                 for _ in range(lo, hi)]
     diff = np.abs(got - want)
     flips = np.argwhere(diff > KERNEL_TOL)
     for r, i in flips:
-        step = scales[group_of[i % 16], r, i // 16]
+        step = scales[group_of[i % K], r, i // K]
         if abs(diff[r, i] - step) > KERNEL_TOL:
             raise AssertionError(f"{label}: row {r} col {i} differs by {diff[r, i]}, "
                                  f"not one step {step}")
@@ -1425,13 +1465,15 @@ def recording_plan(info, dev):
 
 
 def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f32_peak, smi,
-                  precision="f32", plan=None):
+                  precision="f32", plan=None, bf16_peak=None):
     """The fused ingest kernel at ``precision`` and its plain version at
     32,768 windows (3 channels, 1,000-sample stride) on an int16 or
     float32 stream, or on ``plan`` (:func:`recording_plan`: one
     recording's launch of the batch path); bound: the needed samples
     read once, rows, starts, operator and resolutions once (the rungs
-    stream the same bytes). The int8/int4 rows are held bit for bit
+    stream the same bytes; the bf16 rung's operations against
+    ``bf16_peak``, the tensor cores' rate for its operand type, the
+    others' against ``f32_peak``). The int8/int4 rows are held bit for bit
     against the plain quantizer on the f32 kernel's rows, the others
     within KERNEL_TOL of the plain version."""
     if plan is None:
@@ -1467,7 +1509,8 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
     bytes_moved = (3 * samples * raw.element_size() + n * 48 * 4 + n * 4 + W.numel() * 4
                    + 3 * 4)
     flops = 2 * n * 3 * 512 * 16
-    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+    peak = bf16_peak if precision == "bf16" else f32_peak
+    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, peak)
     name = "ingest_features" if dtype == torch.int16 else "ingest_features_f32"
     if precision != "f32":
         name = f"ingest_features_{precision}"
@@ -1566,6 +1609,680 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
+
+# ---------------------------------------------------------------------------
+# The generic engine (every window and coefficient count but 512 / 16) and
+# the quantized tenant stack (K6-w8, K6-w4)
+
+# (epoch_size, feature_size, skip) off the main path, on 3 channels; the
+# 76-channel montage runs at GENERIC_WIDE; the generic paths of phases 4
+# and 5 run at GENERIC_PATH_SIZE (the saved model's 48 weights fit it)
+GENERIC_SIZES = ((256, 16, 175), (512, 64, 175), (333, 20, 100), (700, 32, 50))
+GENERIC_WIDE = (333, 20, 100)
+GENERIC_PATH_SIZE = (256, 16, 175)
+PACKED = ("int8", "int4")
+
+
+def packed_stack(np, torch, dev, rng, terms, wp):
+    """A random (terms, 128) host mirror with a freed (zero) lane 5,
+    quantized as the multiplexed engine publishes it (tenant-major packed
+    rows and scales on ``dev``), and the stack dequantized on the card
+    ((128, terms) float32)."""
+    from eeg_dataanalysispackage_tpu_torch.ops import quant
+
+    w = rng.randn(terms, 128).astype(np.float32)
+    w[:, 5] = 0.0
+    packed_np, scales_np = quant.quantize_weight_stack(w, wp)
+    packed = torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev)
+    scales = torch.from_numpy(scales_np).to(dev)
+    deq = quant.dequantize_weight_stack(packed.t(), scales, wp, terms).t().contiguous()
+    return packed, scales, deq
+
+
+def phase_packed_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
+    """K6-w8 and K6-w4 at the main path's size: margins bit-equal to K6 on
+    the dequantized 128-lane stack (dequantized on the card), within
+    MARGIN_TOL_PER_L1 * ||w_lane||_1 of the plain version; padded rows
+    and the freed lane exactly 0; DC-heavy windows, n = 1 and n =
+    capacity at capacity 64 and 2,048, lanes cycling over all 128 or all
+    on one. Returns {weights precision: worst deviation from plain}."""
+    worst = {}
+    for wp in PACKED:
+        worst[wp] = 0.0
+        for capacity, n in ((64, 1), (64, 64), (2048, 2048)):
+            for spread in ("cycling", "one_lane"):
+                stream, res, _w, stride = mega_batch(torch, np, serve_mega, dev, capacity, n,
+                                                     (30000, -30000, 29500), 1500,
+                                                     seed=capacity + n)
+                rng = np.random.RandomState(capacity + n)
+                packed, scales, deq = packed_stack(np, torch, dev, rng, 48, wp)
+                lanes_np = multi_lanes(np, capacity, n, spread)
+                lanes = torch.from_numpy(lanes_np)
+                got = serve_mega_cuda.serve_mega_multi_packed_margins(
+                    stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
+                torch.cuda.synchronize()
+                k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100,
+                                                              175, stride)
+                got_np = got.cpu().numpy()
+                bit_equal = got_np.tobytes() == k6.cpu().numpy().tobytes()
+                plain = serve_mega.serve_mega_multi_packed_margins_plain(
+                    stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
+                l1 = deq.abs().sum(dim=1).cpu().numpy()[lanes_np]
+                dev_rows = np.abs(got_np - plain.cpu().numpy())
+                within = bool((dev_rows <= MARGIN_TOL_PER_L1 * l1).all())
+                pad_zero = bool((got_np[n:] == 0).all())
+                freed_zero = bool((got_np[:n][lanes_np[:n] == 5] == 0).all())
+                emit("mega_multi_packed_vs_k6", weights_precision=wp,
+                     case=f"cap{capacity}_n{n}_{spread}", capacity=capacity, windows=n,
+                     bit_equal_k6_dequantized=bit_equal, max_abs_err=float(dev_rows.max()),
+                     tol_per_l1=MARGIN_TOL_PER_L1, within_tol=within, padded_rows_zero=pad_zero,
+                     freed_lane_zero=freed_zero)
+                if not (bit_equal and within and pad_zero and freed_zero):
+                    raise AssertionError(f"K6-{wp} disagrees at capacity {capacity}, n {n}")
+                worst[wp] = max(worst[wp], float(dev_rows.max()))
+    return worst
+
+
+def int16_rows(np, rng, C, length, dc_scale=1.0):
+    """(C, length) int16 noise over per-channel DC offsets."""
+    dc = np.resize(np.array([15000, -12000, 9000]), C)[:, None] * dc_scale
+    x = rng.randint(-3000, 3000, size=(C, length)) + dc
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
+                        serve_mega_cuda, dev):
+    """The generic engine against its plain version, at every size of
+    GENERIC_SIZES on 3 channels and at GENERIC_WIDE on 76: K1 at every
+    rung on int16 windows (f32 and bf16 within KERNEL_TOL; int8/int4 equal
+    bit for bit to the plain quantizer on the kernel's own f32 rows, and
+    against the plain chain within KERNEL_TOL except counted boundary
+    flips) and f32 on a float32 stream, starts over the stream's edges;
+    K5 at f32/int8/int4, K6 and K6-w8/w4 on a capacity-128 batch of 77
+    windows: f32 margins within MEGA_GATE_TOL of the plain version,
+    int8/int4 within MARGIN_TOL_PER_L1 * ||w||_1 of the quantized generic
+    rows dotted with w (and within the rung's gate of the plain version),
+    K6 bit-equal per lane to K5, K6-w8/w4 bit-equal to K6 on the
+    dequantized stack and within MEGA_GATE_TOL of their plain version,
+    padded rows 0. Returns {kernel name: worst deviation}."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    worst = {}
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for (n, K, skip), C in [(size, 3) for size in GENERIC_SIZES] + [(GENERIC_WIDE, 76)]:
+        label = f"n{n}_K{K}_skip{skip}_C{C}"
+        rng = np.random.RandomState(n + K + C)
+        W = dwt.kernel_operator(8, n, K, dev)
+        S = 120_000
+        raw = torch.from_numpy(int16_rows(np, rng, C, S)).to(dev)
+        res = torch.full((C,), 0.1, dtype=torch.float32, device=dev)
+        starts_np = np.concatenate([np.sort(rng.randint(0, S - 1000, size=300)),
+                                    [-150, -1, 0, 3, S - n - skip - 100, S - 5, S, S + 7]])
+        starts = torch.from_numpy(starts_np.astype(np.int32)).to(dev)
+        at_end = torch.from_numpy(starts_np >= S).to(dev)
+        args = (raw, res, starts, W, 100, skip)
+        f32 = ingest_cuda.ingest_features(*args, "f32", n, K)
+        torch.cuda.synchronize()
+        err = (f32 - device_ingest.ingest_features_plain(*args)).abs().max().item()
+        ok = (err <= KERNEL_TOL and bool((f32[at_end] == 0).all())
+              and bool(torch.isfinite(f32).all()) and f32.shape == (len(starts_np), C * K))
+        fields = {"f32": err}
+        note("ingest_features_any", err)
+        bf16 = ingest_cuda.ingest_features(*args, "bf16", n, K)
+        err = (bf16 - device_ingest.ingest_features_plain(*args, "bf16")).abs().max().item()
+        ok = ok and err <= KERNEL_TOL
+        fields["bf16"] = err
+        note("ingest_features_any_bf16", err)
+        f32_cpu = f32.cpu()
+        for precision, qmax in (("int8", 127.0), ("int4", 7.0)):
+            q = ingest_cuda.ingest_features(*args, precision, n, K)
+            want = decode_ingest.quantize_dequantize(f32_cpu, K, qmax)[0]
+            bit_equal = q.cpu().numpy().tobytes() == want.numpy().tobytes()
+            plain = device_ingest.ingest_features_plain(*args, precision)
+            flips, err = flip_check(np, q.cpu(), plain.cpu(), f32_cpu, precision, label, K)
+            ok = ok and bit_equal
+            fields[precision] = {"epilogue_bit_equal": bit_equal, "flips_vs_plain": flips,
+                                 "max_abs_err": err}
+            note(f"ingest_features_any_{precision}", err)
+        # float32 samples, staged already scaled with unit resolutions
+        raw_f = (raw.to(torch.float32) * 0.1).contiguous()
+        ones = torch.ones(C, dtype=torch.float32, device=dev)
+        got = ingest_cuda.ingest_features(raw_f, ones, starts, W, 100, skip, "f32", n, K)
+        err = (got - device_ingest.ingest_features_plain(raw_f, ones, starts, W, 100, skip)
+               ).abs().max().item()
+        ok = ok and err <= KERNEL_TOL
+        fields["f32_samples"] = err
+        note("ingest_features_any_f32", err)
+        emit("generic_ingest_vs_plain", case=label, windows=int(len(starts_np)), tol=KERNEL_TOL,
+             **fields)
+        if not ok:
+            raise AssertionError(f"the generic ingest engine disagrees on {label}: {fields}")
+
+        capacity, count = 128, 77
+        stride = serve_mega.padded_stride(100, 750)
+        windows = [int16_rows(np, rng, C, 850) for _ in range(count)]
+        stream = torch.from_numpy(
+            serve_mega.stage_mega_stream(windows, C, 850, stride, capacity)).to(dev)
+        mstarts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+        weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
+        margin_tol = serve_mega.MEGA_GATE_TOL
+        mfields, ok = {}, True
+        for precision in ("f32", "int8", "int4"):
+            got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
+                                                     precision, n, K)
+            torch.cuda.synchronize()
+            plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, skip,
+                                                        stride, precision)
+            dev_plain = (got - plain).abs().max().item()
+            pad_zero = bool((got[count:] == 0).all())
+            if precision == "f32":
+                good, err = dev_plain <= margin_tol, dev_plain
+                name = "serve_mega_any"
+            else:
+                rows = ingest_cuda.ingest_features(stream, res, mstarts, W, 100, skip, precision,
+                                                   n, K)
+                err = (got - rows @ weights).abs().max().item()
+                gate = max(margin_tol, decode_ingest.precision_gate_tolerance(precision))
+                good = (err <= MARGIN_TOL_PER_L1 * weights.abs().sum().item()
+                        and dev_plain <= gate)
+                name = f"serve_mega_any_{precision}"
+            ok = ok and good and pad_zero
+            mfields[name] = {"max_abs_err": err, "max_dev_vs_plain": dev_plain,
+                             "padded_rows_zero": pad_zero}
+            note(name, err)
+        stack = torch.from_numpy(rng.randn(128, C * K).astype(np.float32)).to(dev)
+        lanes_np = np.where(np.arange(capacity) < count, rng.randint(0, 128, capacity),
+                            0).astype(np.int32)
+        lanes = torch.from_numpy(lanes_np)
+        margs = (stream, res, W)
+        multi = serve_mega_cuda.serve_mega_multi_margins(*margs, stack, lanes, 100, skip, stride,
+                                                         n, K)
+        plain = serve_mega.serve_mega_multi_margins_plain(*margs, stack, lanes, 100, skip, stride)
+        err = (multi - plain).abs().max().item()
+        multi_np = multi.cpu().numpy()
+        per_lane = True
+        for lane in np.unique(lanes_np[:count])[:6]:
+            solo = serve_mega_cuda.serve_mega_margins(*margs, stack[int(lane)], 100, skip, stride,
+                                                      "f32", n, K).cpu().numpy()
+            rows = np.nonzero(lanes_np[:count] == lane)[0]
+            per_lane = per_lane and multi_np[rows].tobytes() == solo[rows].tobytes()
+        ok = ok and err <= margin_tol and per_lane and bool((multi_np[count:] == 0).all())
+        mfields["serve_mega_multi_any"] = {"max_abs_err": err, "bit_equal_k5_per_lane": per_lane}
+        note("serve_mega_multi_any", err)
+        for wp in PACKED:
+            packed, scales, deq = packed_stack(np, torch, dev, rng, C * K, wp)
+            got = serve_mega_cuda.serve_mega_multi_packed_margins(
+                *margs, packed, scales, lanes, 100, skip, stride, wp, n, K)
+            k6 = serve_mega_cuda.serve_mega_multi_margins(*margs, deq, lanes, 100, skip, stride,
+                                                          n, K)
+            bit_equal = got.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+            plain = serve_mega.serve_mega_multi_packed_margins_plain(
+                *margs, packed, scales, lanes, 100, skip, stride, wp)
+            err = (got - plain).abs().max().item()
+            ok = ok and bit_equal and err <= margin_tol and bool((got[count:] == 0).all())
+            mfields[f"serve_mega_multi_any_{wp}"] = {"max_abs_err": err,
+                                                     "bit_equal_k6_dequantized": bit_equal}
+            note(f"serve_mega_multi_any_{wp}", err)
+        emit("generic_mega_vs_plain", case=label, capacity=capacity, windows=count,
+             margin_tol=margin_tol, **mfields)
+        if not ok:
+            raise AssertionError(f"the generic megakernel disagrees on {label}: {mfields}")
+    return worst
+
+
+def phase_generic_paths(np, torch, info, float_info, n_files, n_float_files):
+    """The fused batch path at GENERIC_PATH_SIZE, through
+    ``OfflineDataProvider.load_features_device(epoch_size=…,
+    feature_size=…)``: the 8-recording session at each precision= rung and
+    the float32 session at f32, every ingest counter set to 0 just before
+    each run and read just after (the rung's generic counter one launch
+    per recording, every other counter 0); features against the CPU
+    provider's (f32 and bf16 within KERNEL_TOL, int8/int4 except counted
+    boundary flips). Returns {kernel name: launches}."""
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda
+
+    n, K, skip = GENERIC_PATH_SIZE
+    counters = {name: attr for name, attr in (
+        ("ingest_features", "LAUNCHES"), ("ingest_features_f32", "LAUNCHES_F32"),
+        ("ingest_features_bf16", "LAUNCHES_BF16"), ("ingest_features_int8", "LAUNCHES_INT8"),
+        ("ingest_features_int4", "LAUNCHES_INT4"), ("ingest_features_any", "ANY_LAUNCHES"),
+        ("ingest_features_any_f32", "ANY_LAUNCHES_F32"),
+        ("ingest_features_any_bf16", "ANY_LAUNCHES_BF16"),
+        ("ingest_features_any_int8", "ANY_LAUNCHES_INT8"),
+        ("ingest_features_any_int4", "ANY_LAUNCHES_INT4"))}
+    launches, f32_rows = {}, None
+    for precision, path, kernel, files in (
+            ("f32", info, "ingest_features_any", n_files),
+            ("bf16", info, "ingest_features_any_bf16", n_files),
+            ("int8", info, "ingest_features_any_int8", n_files),
+            ("int4", info, "ingest_features_any_int4", n_files),
+            ("f32", float_info, "ingest_features_any_f32", n_float_files)):
+        for attr in counters.values():
+            setattr(ingest_cuda, attr, 0)
+        t0 = time.perf_counter()
+        feats, targets = OfflineDataProvider([path]).load_features_device(
+            8, n, skip, K, precision=precision)
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(ingest_cuda, attr) for name, attr in counters.items()}
+        cpu_feats, cpu_targets = OfflineDataProvider([path], device="cpu").load_features_device(
+            8, n, skip, K, precision=precision)
+        got = feats.cpu()
+        if kernel == "ingest_features_any":
+            f32_rows = got
+        if precision in PACKED:
+            flips, err = flip_check(np, got, cpu_feats, f32_rows, precision, kernel, K)
+        else:
+            flips, err = 0, (got - cpu_feats).abs().max().item()
+        emit("generic_path", kernel=kernel, precision=precision, epoch_size=n, feature_size=K,
+             skip=skip, rows=int(got.shape[0]), device=str(feats.device), launches=counts,
+             wall_s=wall, features_max_abs_err_vs_cpu=err, feature_flips_vs_cpu=flips,
+             tol=KERNEL_TOL)
+        others = {k: v for k, v in counts.items() if k != kernel}
+        if not (feats.device.type == "cuda" and counts[kernel] == files
+                and not any(others.values()) and got.shape == (len(targets), 3 * K)
+                and err <= KERNEL_TOL and np.array_equal(targets, cpu_targets)):
+            raise AssertionError(f"the generic fused path ({precision}) did not run as expected: "
+                                 f"{counts}, err {err}")
+        launches[kernel] = counts[kernel]
+    return launches
+
+
+def batches_of(items, size=64):
+    return [items[i:i + size] for i in range(0, len(items), size)]
+
+
+def phase_generic_serve(torch, np, model, windows, resolutions):
+    """Serving at GENERIC_PATH_SIZE: a ServingEngine of the saved model at
+    precision f32, int8 and int4 (K5's generic engine) and a
+    MultiplexedEngine of 128 tenants at weights_precision f32, int8 and
+    int4 (K6's), each warmed up and fed every kept window in batches of
+    64 (tenants interleaved), the megakernel counters set to 0 just before
+    each and read just after (the instantiation's generic counter at
+    least one launch a batch, the ring's none); margins against the same
+    engine on the CPU within MEGA_GATE_TOL (int8/int4 features: within
+    the rung's gate). Returns {kernel name: launches}."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest, serve_mega, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.serve import MultiplexedEngine, ServingEngine
+
+    n, K, skip = GENERIC_PATH_SIZE
+    base = registry.create("logreg")
+    base.load(model)
+    names = [f"t{i:03d}" for i in range(128)]
+    tenants = {names[0]: base}
+    tenants.update({name: perturbed_tenant(np, base, i) for i, name in enumerate(names) if i})
+    mix = [names[i % 128] for i in range(len(windows))]
+    attrs = ("LAUNCHES", "LAUNCHES_INT8", "LAUNCHES_INT4", "MULTI_LAUNCHES",
+             "MULTI_LAUNCHES_INT8", "MULTI_LAUNCHES_INT4", "ANY_LAUNCHES", "ANY_LAUNCHES_INT8",
+             "ANY_LAUNCHES_INT4", "ANY_MULTI_LAUNCHES", "ANY_MULTI_LAUNCHES_INT8",
+             "ANY_MULTI_LAUNCHES_INT4")
+    sizes = dict(epoch_size=n, feature_size=K, skip_samples=skip, capacity=64)
+    launches = {}
+    runs = [("serve_mega_any" + ("" if p == "f32" else f"_{p}"), "ANY_LAUNCHES"
+             + ("" if p == "f32" else f"_{p.upper()}"),
+             lambda device, p=p: ServingEngine(base, precision=p, device=device, **sizes), p,
+             None) for p in ("f32", "int8", "int4")]
+    runs += [("serve_mega_multi_any" + ("" if p == "f32" else f"_{p}"), "ANY_MULTI_LAUNCHES"
+              + ("" if p == "f32" else f"_{p.upper()}"),
+              lambda device, p=p: MultiplexedEngine(tenants, weights_precision=p, device=device,
+                                                    **sizes), "f32", p) for p in ("f32",) + PACKED]
+    for kernel, attr, make, precision, wp in runs:
+        for a in attrs:
+            setattr(serve_mega_cuda, a, 0)
+        t0 = time.perf_counter()
+        eng = make(None)
+        eng.warmup()
+        margins = []
+        for i, chunk in enumerate(batches_of(windows)):
+            args = (chunk, resolutions[0])
+            if wp is not None:
+                args += (mix[i * 64:i * 64 + len(chunk)],)
+            margins.append(eng.execute(*args)[1])
+        wall = time.perf_counter() - t0
+        counts = {a: getattr(serve_mega_cuda, a) for a in attrs}
+        cpu = make("cpu")
+        cpu.warmup()
+        cpu_margins = [cpu.execute(chunk, resolutions[0],
+                                   *(() if wp is None else (mix[i * 64:i * 64 + len(chunk)],)))[1]
+                       for i, chunk in enumerate(batches_of(windows))]
+        gap = float(np.max(np.abs(np.concatenate(margins) - np.concatenate(cpu_margins))))
+        tol = serve_mega.MEGA_GATE_TOL
+        if precision != "f32":
+            tol = max(tol, decode_ingest.precision_gate_tolerance(precision))
+        emit("generic_serve", kernel=kernel, epoch_size=n, feature_size=K, skip=skip,
+             precision=precision, weights_precision=wp, rung=eng.rung,
+             weights_record=getattr(eng, "weights_record", None), windows=len(windows),
+             launches=counts, wall_s=wall, max_margin_dev_vs_cpu=gap, tol=tol)
+        others = {a: v for a, v in counts.items() if a != attr}
+        if not (eng.rung == "mega" and counts[attr] >= math.ceil(len(windows) / 64)
+                and not any(others.values()) and gap <= tol
+                and (wp is None or eng.weights_precision == wp)):
+            raise AssertionError(f"the generic serve run ({kernel}) did not run as expected: "
+                                 f"{counts}, gap {gap}")
+        launches[kernel] = counts[attr]
+    return launches
+
+
+def phase_quant_multi_service(torch, np, model, kept, windows, resolutions):
+    """The quantized tenant stack at full width: a MultiplexedService of
+    128 tenants at weights_precision int8, then int4 (3 channels,
+    512-sample windows, 48 features, capacity 64) serving the kept windows
+    with tenants interleaved, a swap, a remove and an add made while the
+    first half is in flight; K6-w8/w4's launches over the run (every
+    counter set to 0 just before). Then, on the final tenants: the
+    largest margin gap against an f32 service at the weights gate's
+    tolerance; a 64-window mixed batch through K6-w8/w4 bit-equal to K6
+    on the dequantized stack; the swap left every other lane's packed
+    bytes, scale and margins unchanged. Returns {weights precision:
+    launches}."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        cuda_build, dwt, ingest_cuda, quant, serve_mega, serve_mega_cuda,
+    )
+    from eeg_dataanalysispackage_tpu_torch.serve import MultiplexedService, RequestFailedError
+
+    base = registry.create("logreg")
+    base.load(model)
+    names = [f"t{i:03d}" for i in range(128)]
+    tenants = {names[0]: base}
+    tenants.update({name: perturbed_tenant(np, base, i) for i, name in enumerate(names) if i})
+    n = len(windows)
+    mix = [names[i % 128] for i in range(n)]
+    half = n // 2
+    final_mix = ["newcomer" if t == "t006" else t for t in mix]
+    counted = {"serve_mega_multi": (serve_mega_cuda, "MULTI_LAUNCHES"),
+               "serve_mega_multi_int8": (serve_mega_cuda, "MULTI_LAUNCHES_INT8"),
+               "serve_mega_multi_int4": (serve_mega_cuda, "MULTI_LAUNCHES_INT4"),
+               "serve_mega": (serve_mega_cuda, "LAUNCHES"),
+               "ingest_features": (ingest_cuda, "LAUNCHES")}
+    swapped, newcomer = perturbed_tenant(np, base, 1005), perturbed_tenant(np, base, 1006)
+    final = dict(tenants, t005=swapped, newcomer=newcomer)
+    del final["t006"]
+    out = {}
+    for wp in PACKED:
+        for module, attr in counted.values():
+            setattr(module, attr, 0)
+        t0 = time.perf_counter()
+        svc = MultiplexedService(tenants, weights_precision=wp)
+        with svc:
+            eng = svc.engine
+            loaded = dict(cuda_build._LOADED)
+            budget = svc.config.default_deadline_s
+            first = [svc.submit(w, r, tenant=t, deadline_s=budget, block_s=budget)
+                     for w, r, t in zip(windows[:half], resolutions[:half], mix[:half])]
+            before = eng._stack
+            svc.swap_tenant("t005", swapped)
+            after = eng._stack
+            svc.remove_tenant("t006")
+            lane_new = svc.add_tenant("newcomer", newcomer)
+            second = svc.predict_all(windows[half:], resolutions[half:], final_mix[half:])
+            removed_failed = 0
+            for f, tenant in zip(first, mix[:half]):
+                try:
+                    f.result(timeout=budget + 30.0)
+                except RequestFailedError as e:
+                    if tenant != "t006" or "was removed" not in str(e):
+                        raise
+                    removed_failed += 1
+            served = svc.predict_all(windows, resolutions, final_mix)
+            block = svc.stats_block()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(m, a) for k, (m, a) in counted.items()}
+        admin_built = dict(cuda_build._LOADED) != loaded
+        with MultiplexedService(final) as ref:
+            f32_served = ref.predict_all(windows, resolutions, final_mix)
+        gap = max(abs(a.margin - b.margin) for a, b in zip(served, f32_served))
+        tol = quant.weights_gate_tolerance(wp, eng._w_host)
+        # one mixed batch: K6-w8/w4 against K6 on the stack dequantized on the card
+        stack, lanes = eng._resolve(final_mix[:64], 64)
+        lanes_host = eng._capacity_lanes(lanes)
+        res_t = torch.from_numpy(resolutions[0]).to(eng.device)
+        staged = torch.from_numpy(serve_mega.stage_mega_stream(
+            windows[:64], 3, 850, eng._mega_stride, eng.capacity)).to(eng.device)
+        packed_m = eng._mega_program(staged, res_t, stack.packed, stack.scales, lanes_host)
+        deq = eng._f32_stack(stack)
+        f32_m = serve_mega_cuda.serve_mega_multi_margins(
+            staged, res_t, dwt.kernel_operator(8, 512, 16, eng.device), deq, lanes_host, 100,
+            175, eng._mega_stride)
+        bit_equal = packed_m.cpu().numpy().tobytes() == f32_m.cpu().numpy().tobytes()
+        # the swap: every other lane's packed bytes, scale and margins unchanged
+        swapped_lane = eng.tenant_info("t005")["lane"]
+        others = [lane for lane in range(128) if lane != swapped_lane]
+        bytes_same = (before.packed[others].cpu().numpy().tobytes()
+                      == after.packed[others].cpu().numpy().tobytes()
+                      and before.scales[others].cpu().numpy().tobytes()
+                      == after.scales[others].cpu().numpy().tobytes())
+        other_lanes = torch.from_numpy(np.asarray(
+            [lane if lane != swapped_lane else 0 for lane in lanes_host.numpy()], np.int32))
+        margins_same = (
+            eng._mega_program(staged, res_t, before.packed, before.scales, other_lanes)
+            .cpu().numpy().tobytes()
+            == eng._mega_program(staged, res_t, after.packed, after.scales, other_lanes)
+            .cpu().numpy().tobytes())
+        req = block["requests"]
+        kernel = f"serve_mega_multi_{wp}"
+        emit("serve_multitenant_quantized", weights_precision=wp, tenants=128, rung=block["rung"],
+             weights=block["weights"], resident_weight_bytes=block["resident_weight_bytes"],
+             launches=launches, kept=kept, completed=req["completed"], failed=req["failed"],
+             shed=req["shed"], removed_tenant_requests_failed=removed_failed,
+             batches=block["batches"], mean_batch_size=block["mean_batch_size"],
+             latency_ms=block["latency_ms"], mega_gate=block["mega"]["gate"], wall_s=wall,
+             admin_built_nothing=not admin_built, new_tenant_lane=lane_new,
+             max_margin_gap_vs_f32_service=gap, weights_gate_tolerance=tol,
+             bit_equal_k6_dequantized=bit_equal, swap_left_other_lanes_bytes=bytes_same,
+             swap_left_other_lanes_margins=margins_same)
+        nbytes = {"int8": 6656, "int4": 3584}[wp]
+        if not (block["rung"] == "mega" and block["weights_precision"] == wp
+                and block["weights"]["used"] == wp and block["resident_weight_bytes"] == nbytes
+                and block["mega"]["weights_precision"] == wp and not admin_built
+                and launches[kernel] >= 2 * math.ceil(n / 64)
+                and launches["serve_mega_multi"] == 0 and launches["serve_mega"] == 0
+                and req["failed"] == removed_failed and req["shed"] == 0
+                and gap <= tol and bit_equal and bytes_same and margins_same):
+            raise AssertionError(f"the {wp} tenant stack did not serve as expected")
+        out[wp] = launches[kernel]
+    return out
+
+
+def phase_bf16_host_runs(np, info, counters):
+    """fe=dwt-8-tpu-bf16 and fe=dwt-8-tpu-compact-bf16 with logreg on the
+    card and the CPU: the card run's features (its extractor on the run's
+    test epochs) within BF16_GATE_TOL of the CPU run's, on the card, and
+    both runs' statistics printed side by side; no kernel of the port
+    launched (the contraction is a torch.matmul, as the JAX package's is
+    XLA's)."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    for fe in ("dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16"):
+        q = f"info_file={info}&fe={fe}&train_clf=logreg"
+        gpu = run_builder(f"{fe}_logreg_cuda", q, None, counters)
+        cpu = run_builder(f"{fe}_logreg_cpu", q, "cpu", counters)
+        if gpu[0].batch.epochs.tobytes() != cpu[0].batch.epochs.tobytes():
+            raise AssertionError(f"{fe}: host epochs differ between the card and CPU runs")
+        rows = np.asarray(gpu[0].test_index, dtype=np.int64)
+        got = gpu[0].fe.extract_batch(gpu[0].batch.epochs[rows])
+        want = cpu[0].fe.extract_batch(cpu[0].batch.epochs[rows])
+        err = (got.cpu() - want).abs().max().item()
+        emit("bf16_host_run", fe=fe, device=str(got.device), dtype=str(got.dtype),
+             rows=int(len(rows)), features_max_abs_err_vs_cpu=err,
+             tol=decode_ingest.BF16_GATE_TOL, launches=gpu[2],
+             statistics_cuda=str(gpu[1]), statistics_cpu=str(cpu[1]),
+             accuracy_cuda=gpu[1].calc_accuracy(), accuracy_cpu=cpu[1].calc_accuracy())
+        if not (got.device.type == "cuda" and got.dtype.is_floating_point
+                and err <= decode_ingest.BF16_GATE_TOL and not any(gpu[2].values())):
+            raise AssertionError(f"{fe}: card features {err} from the CPU run's")
+
+
+def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandwidth, f32_peak,
+                        smi, launches):
+    """K6-w8 / K6-w4 on ``n`` full windows, lanes cycling over 128 tenants,
+    in the same process as K6: held bit for bit against K6 on the
+    dequantized stack and against the plain version. Bound: K6's bytes
+    with the packed stack and the scales in place of the f32 stack.
+    ``launches``: the instantiation's launches over phase 5's run."""
+    import numpy as np
+
+    stride = serve_mega.padded_stride(100, 750)
+    gen = torch.Generator(device=dev).manual_seed(n + 2)
+    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    packed, scales, deq = packed_stack(np, torch, dev, np.random.RandomState(n), 48, wp)
+    lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+    args = (stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
+    got = serve_mega_cuda.serve_mega_multi_packed_margins(*args)
+    k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, 175, stride)
+    if got.cpu().numpy().tobytes() != k6.cpu().numpy().tobytes():
+        raise AssertionError(f"K6-{wp} is not K6 on the dequantized stack at size {n}")
+    err = (got - serve_mega.serve_mega_multi_packed_margins_plain(*args)).abs().max().item()
+    if err > MARGIN_TOL_PER_L1 * deq.abs().sum(dim=1).max().item():
+        raise AssertionError(f"K6-{wp} disagrees with its plain version at size {n}: {err}")
+    kernel_ms = time_ms(lambda: serve_mega_cuda.serve_mega_multi_packed_margins(*args))
+    device_ms = profiled_device_ms(lambda: serve_mega_cuda.serve_mega_multi_packed_margins(*args),
+                                   "serve_mega_kernel")
+    clock = sm_clock_mhz()
+    plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_packed_margins_plain(*args))
+    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak)
+    stack_bytes = packed.numel() * packed.element_size() + scales.numel() * 4
+    bytes_moved = mega_bytes - 48 * 4 + stack_bytes + n * 4
+    bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
+    emit("timing", kernel=f"serve_mega_multi_{wp}", windows=n, stride=stride, tenants=128,
+         kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
+         library_ms=None, max_abs_err=err, bit_equal_k6_dequantized=True, launches=launches,
+         nvidia_smi=smi)
+    return kernel_ms, plain_ms, bound_ms, bound_by, err
+
+
+def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve_mega_cuda, dev,
+                   sizes, bandwidth, f32_peak, bf16_peak, smi, launches, n=4096):
+    """The generic instantiations at ``n`` windows, 3 channels, for each
+    (epoch_size, feature_size, skip) of ``sizes``: K1 at each rung on an
+    int16 stream (1,000-sample stride) and f32 on a float32 one; K5 at
+    f32/int8/int4, K6 and K6-w8/w4 at the serve stride (lanes cycling).
+    Each beside its plain version's time and its bound (the needed
+    samples read once, rows or margins written once, operator, weights
+    or stack, lanes and resolutions once; operations against the float32
+    peak, the bf16 rung's against the bf16 tensor-core peak). Returns
+    {(kernel, size): (ms, plain ms, bound ms, bound by, max abs err)};
+    the outputs are held as in phase 3 (rows within
+    KERNEL_TOL, int8/int4 bit for bit to the plain quantizer on the
+    kernel's f32 rows, margins within MEGA_GATE_TOL, K6-w8/w4 bit-equal
+    to K6 on the dequantized stack). ``launches``: each instantiation's
+    launches over its path (phases 4 and 5), printed beside its times."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(n)
+    S = n * 1000 + 1000
+    big = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev, dtype=torch.int32)
+    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
+    stride = serve_mega.padded_stride(100, 750)
+    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+    mstarts = torch.arange(n, dtype=torch.int32, device=dev) * stride
+    lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+
+    def record(name, size, fn, plain_fn, err, bytes_moved, flops, symbol, peak=f32_peak):
+        kernel_ms = time_ms(fn)
+        device_ms = profiled_device_ms(fn, symbol)
+        plain_ms = time_ms(plain_fn)
+        bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, peak)
+        e, K, skip = size
+        emit("timing", kernel=name, windows=n, epoch_size=e, feature_size=K, skip=skip,
+             kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
+             library_ms=None, max_abs_err=err, launches=launches[name], nvidia_smi=smi)
+        out[(name, size)] = (kernel_ms, plain_ms, bound_ms, bound_by, err)
+
+    for size in sizes:
+        e, K, skip = size
+        W = dwt.kernel_operator(8, e, K, dev)
+        for dtype, precision in ((torch.int16, "f32"), (torch.int16, "bf16"),
+                                 (torch.int16, "int8"), (torch.int16, "int4"),
+                                 (torch.float32, "f32")):
+            raw = big.to(dtype) if dtype == torch.int16 else (big.to(torch.float32) * 0.1)
+            rs = res if dtype == torch.int16 else torch.ones(3, device=dev)
+            args = (raw, rs, starts, W, 100, skip, precision, e, K)
+            got = ingest_cuda.ingest_features(*args)
+            plain_args = (raw, rs, starts, W, 100, skip, precision)
+            if precision in PACKED:
+                f32 = ingest_cuda.ingest_features(raw, rs, starts, W, 100, skip, "f32", e, K).cpu()
+                qmax = 127.0 if precision == "int8" else 7.0
+                want = decode_ingest.quantize_dequantize(f32, K, qmax)[0]
+                err = (got.cpu() - want).abs().max().item()
+                if err != 0.0:
+                    raise AssertionError(f"generic {precision} epilogue differs at {size}")
+            else:
+                err = (got - device_ingest.ingest_features_plain(*plain_args)).abs().max().item()
+                if err > KERNEL_TOL:
+                    raise AssertionError(f"generic ingest ({precision}) disagrees at {size}: "
+                                         f"{err}")
+            del got
+            samples = needed_samples(starts.cpu().numpy(), S, 100, skip, e)
+            bytes_moved = (3 * samples * raw.element_size() + n * 3 * K * 4 + n * 4
+                           + W.numel() * 4 + 3 * 4)
+            name = "ingest_features_any" + ("_f32" if dtype == torch.float32 else
+                                            ("" if precision == "f32" else f"_{precision}"))
+            record(name, size, lambda a=args: ingest_cuda.ingest_features(*a),
+                   lambda a=plain_args: device_ingest.ingest_features_plain(*a), err,
+                   bytes_moved, 2 * n * 3 * e * K, "ingest_features_any_kernel",
+                   bf16_peak if precision == "bf16" else f32_peak)
+            del raw
+        weights = torch.randn(3 * K, generator=gen, device=dev)
+        mega_bytes = (3 * n * (100 + e) * 2 + n * 4 + W.numel() * 4 + 3 * K * 4 + 3 * 4)
+        flops = 2 * n * 3 * e * K + 2 * n * 3 * K
+        for precision in ("f32", "int8", "int4"):
+            args = (stream, res, W, weights, 100, skip, stride, precision, e, K)
+            got = serve_mega_cuda.serve_mega_margins(*args)
+            if precision == "f32":
+                want = serve_mega.serve_mega_margins_plain(*args[:8])
+            else:
+                want = ingest_cuda.ingest_features(stream, res, mstarts, W, 100, skip, precision,
+                                                   e, K) @ weights
+            err = (got - want).abs().max().item()
+            if err > serve_mega.MEGA_GATE_TOL:
+                raise AssertionError(f"generic megakernel ({precision}) disagrees at {size}")
+            name = "serve_mega_any" + ("" if precision == "f32" else f"_{precision}")
+            record(name, size, lambda a=args: serve_mega_cuda.serve_mega_margins(*a),
+                   lambda a=args: serve_mega.serve_mega_margins_plain(*a[:8]), err, mega_bytes,
+                   flops, "serve_mega_any_kernel")
+        stack = torch.randn((128, 3 * K), generator=gen, device=dev)
+        args = (stream, res, W, stack, lanes, 100, skip, stride, e, K)
+        got = serve_mega_cuda.serve_mega_multi_margins(*args)
+        err = (got - serve_mega.serve_mega_multi_margins_plain(*args[:8])).abs().max().item()
+        if err > serve_mega.MEGA_GATE_TOL:
+            raise AssertionError(f"generic K6 disagrees at {size}: {err}")
+        k6_bytes = mega_bytes - 3 * K * 4 + 128 * 3 * K * 4 + n * 4
+        record("serve_mega_multi_any", size,
+               lambda a=args: serve_mega_cuda.serve_mega_multi_margins(*a),
+               lambda a=args: serve_mega.serve_mega_multi_margins_plain(*a[:8]), err, k6_bytes,
+               flops, "serve_mega_any_kernel")
+        for wp in PACKED:
+            packed, scales, deq = packed_stack(np, torch, dev, np.random.RandomState(K), 3 * K,
+                                               wp)
+            args = (stream, res, W, packed, scales, lanes, 100, skip, stride, wp, e, K)
+            got = serve_mega_cuda.serve_mega_multi_packed_margins(*args)
+            k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, skip,
+                                                          stride, e, K)
+            if got.cpu().numpy().tobytes() != k6.cpu().numpy().tobytes():
+                raise AssertionError(f"generic K6-{wp} is not K6 on the dequantized stack")
+            err = (got - serve_mega.serve_mega_multi_packed_margins_plain(*args[:10])
+                   ).abs().max().item()
+            packed_bytes = (mega_bytes - 3 * K * 4 + packed.numel() * packed.element_size()
+                            + 128 * 4 + n * 4)
+            record(f"serve_mega_multi_any_{wp}", size,
+                   lambda a=args: serve_mega_cuda.serve_mega_multi_packed_margins(*a),
+                   lambda a=args: serve_mega.serve_mega_multi_packed_margins_plain(*a[:10]), err,
+                   packed_bytes, flops, "serve_mega_any_kernel")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timing, library_ms=None):
     kernel_ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
@@ -1599,9 +2316,10 @@ def main() -> int:
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    bandwidth, f32_peak = card_peaks(kind)
+    bandwidth, f32_peak, bf16_peak = card_peaks(kind)
     emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, peak_bytes_per_s=bandwidth, peak_f32_flops=f32_peak)
+         cuda=torch.version.cuda, peak_bytes_per_s=bandwidth, peak_f32_flops=f32_peak,
+         peak_bf16_flops=bf16_peak)
 
     # 2. build every kernel from the checkout's sources
     build_kernels(cuda_build, ["ingest_features", "serve_mega", "epoch_features"])
@@ -1616,6 +2334,9 @@ def main() -> int:
     mega_err = phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     multi_err = phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     epoch_err = phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev)
+    packed_err = phase_packed_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
+    generic_err = phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
+                                      serve_mega_cuda, dev)
 
     # 4. the batch paths end to end on an 8 x 1,200-marker session, and a
     # float32 session; every counter is set to 0 just before each run
@@ -1669,6 +2390,9 @@ def main() -> int:
         float_info = write_float_session(float_dir, n_files=3)
         f32_launches, f32_path_err, k4_f32_path_err = phase_float_session(
             np, float_info, counters, n_files=3)
+        generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
+                                               n_float_files=3)
+        phase_bf16_host_runs(np, info, counters)
 
         # 5. the serving path end to end with the card's saved model
         kept = int(len(gpu.targets))
@@ -1676,6 +2400,9 @@ def main() -> int:
         served_launches = phase_serve_precisions(np, info, model, kept, windows, resolutions)
         multi_launches = phase_multi_service(torch, np, info, model, kept, windows,
                                              resolutions)
+        packed_launches = phase_quant_multi_service(torch, np, model, kept, windows,
+                                                    resolutions)
+        generic_launches.update(phase_generic_serve(torch, np, model, windows, resolutions))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1692,13 +2419,20 @@ def main() -> int:
     k1_f32 = ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.float32,
                            bandwidth, f32_peak, smi)
     k1_rungs = {p: ingest_timing(torch, ingest_cuda, device_ingest, W, dev, torch.int16,
-                                 bandwidth, f32_peak, smi, precision=p)
+                                 bandwidth, f32_peak, smi, precision=p, bf16_peak=bf16_peak)
                 for p in ("bf16", "int8", "int4")}
     mega_64, mega_big = ({p: mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
                                          bandwidth, f32_peak, smi, precision=p)
                           for p in ("f32", "int8", "int4")} for n in (64, 32_768))
     multi_64, multi_big = (mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n,
                                              bandwidth, f32_peak, smi) for n in (64, 32_768))
+    packed_64, packed_big = ({wp: packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev,
+                                                      n, wp, bandwidth, f32_peak, smi,
+                                                      packed_launches[wp])
+                              for wp in PACKED} for n in (64, 32_768))
+    generic = generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
+                             serve_mega_cuda, dev, GENERIC_SIZES, bandwidth, f32_peak, bf16_peak,
+                             smi, generic_launches)
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
     k4_run = [epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi)
               for n in (641, 1494)]  # the -pallas logreg run's own launches
@@ -1708,6 +2442,7 @@ def main() -> int:
     ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
     bank_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:462"
     mega_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259"
+    multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas, main_launches,
                      max(max_err["f32"], k1[4]), k1),
@@ -1726,9 +2461,30 @@ def main() -> int:
         *(kernel_entry(f"serve_mega_{p}", "serve_mega.cu", mega_pallas, served_launches[p],
                        max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p])
           for p in ("int8", "int4")),
-        kernel_entry("serve_mega_multi", "serve_mega.cu",
-                     "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484", multi_launches,
+        kernel_entry("serve_mega_multi", "serve_mega.cu", multi_pallas, multi_launches,
                      max(multi_err, multi_64[4], multi_big[4]), multi_64),
+        *(kernel_entry(f"serve_mega_multi_{wp}", "serve_mega.cu", multi_pallas,
+                       packed_launches[wp],
+                       max(packed_err[wp], packed_64[wp][4], packed_big[wp][4]), packed_64[wp])
+          for wp in PACKED),
+        # the generic engine: launches over its paths (phases 4 and 5), time
+        # at GENERIC_PATH_SIZE, the worst deviation over every size
+        *(kernel_entry(name, source, replaces, generic_launches[name],
+                       max(generic_err[name], *(generic[(name, size)][4]
+                                                for size in GENERIC_SIZES)),
+                       generic[(name, GENERIC_PATH_SIZE)])
+          for name, source, replaces in (
+              ("ingest_features_any", "ingest_features.cu", ingest_pallas),
+              ("ingest_features_any_f32", "ingest_features.cu", ingest_pallas),
+              ("ingest_features_any_bf16", "ingest_features.cu", bank_pallas),
+              ("ingest_features_any_int8", "ingest_features.cu", bank_pallas),
+              ("ingest_features_any_int4", "ingest_features.cu", bank_pallas),
+              ("serve_mega_any", "serve_mega.cu", mega_pallas),
+              ("serve_mega_any_int8", "serve_mega.cu", mega_pallas),
+              ("serve_mega_any_int4", "serve_mega.cu", mega_pallas),
+              ("serve_mega_multi_any", "serve_mega.cu", multi_pallas),
+              ("serve_mega_multi_any_int8", "serve_mega.cu", multi_pallas),
+              ("serve_mega_multi_any_int4", "serve_mega.cu", multi_pallas))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -47,6 +47,23 @@
 // 32,768 windows ~120.6 MB, 0.036 ms at 3.35 TB/s); the stack (24 KB) is
 // read from L2.
 //
+// K6-w8 and K6-w4, the quantized tenant stack (weights_precision int8 and
+// int4, serve/multiplex.py): the same kernel with template argument Wt,
+// reading row lanes[i] of the packed stack, (128, C*16) int8 levels or
+// (128, C*8) uint8 nibble pairs, and that lane's float32 scale. The
+// reference dequantizes the whole stack in XLA before its f32 kernel
+// (ops/serve_mega.py:562-578, wrap_quantized); here each term is
+// dequantized where it is used (packed_term: the exact level, then one
+// float32 multiply), in K6's order, so a margin equals K6's on the
+// dequantized f32 stack bit for bit. The resident stack is 6,144 or 3,072
+// bytes plus 512 of scales against the f32 stack's 24,576. Bound: K6's.
+//
+// Every other window and coefficient count (all instantiations above)
+// runs serve_mega_any_kernel, the generic engine of window_features.cuh:
+// one window a block at a time, the row in shared memory, warp 0's dot in
+// the same lane order. It is the simple form, right first; its time is in
+// PERF.md section 6, and its pace is later work.
+//
 // Design: window_features.cuh's run_windows (a persistent wave of blocks,
 // each keeping its next window's samples in flight as 16-byte cp.async
 // chunks while it computes one; every window starts on a 16-byte boundary,
@@ -73,16 +90,48 @@ namespace {
 
 using namespace window_features;
 
+// The tenant stack's resident precision (serve/multiplex.py
+// weights_precision; the launcher's code, as ops/decode_ingest.PRECISIONS
+// numbers the rungs): f32 weights, or int8 levels / int4 nibbles with one
+// float32 scale a lane.
+enum class Weights : int { kF32 = 0, kInt8 = 2, kInt4 = 3 };
+
+// Term i of a packed stack row: float(q_i) * scale for int8, or
+// (float(nibble) - 8) * scale for int4 (element 2j in the low nibble of
+// byte j, 2j + 1 in the high one): the exact small integer, then one
+// float32 multiply, never contracted into the margin's FMA, so the term
+// equals the dequantized f32 stack's element (ops/quant.py
+// dequantize_weight_stack) bit for bit.
+template <Weights Wt>
+__device__ __forceinline__ float packed_term(const uint8_t* __restrict__ row, float scale,
+                                             int i) {
+  if constexpr (Wt == Weights::kInt8) {
+    return __fmul_rn(static_cast<float>(reinterpret_cast<const int8_t*>(row)[i]), scale);
+  } else {
+    const unsigned byte = row[i >> 1];
+    const unsigned nibble = (i & 1) ? byte >> 4 : byte & 0xFu;
+    return __fmul_rn(__fsub_rn(static_cast<float>(nibble), 8.0f), scale);
+  }
+}
+
+// Bytes of one packed stack row of nfeat terms.
+__host__ __device__ constexpr int packed_row_bytes(Weights wt, int nfeat) {
+  return wt == Weights::kInt4 ? nfeat / 2 : nfeat;
+}
+
 // Margins of the megakernel: window `row` starts at row * stride and warp 0
 // dots its row with `weights` (kMulti: with row lanes[row] of the
-// tenant-major stack `weights`; K6).
-template <Precision P, bool kMulti>
+// tenant-major stack `weights`; K6). Wt: the stack's precision (K6-w8,
+// K6-w4: `weights` holds the packed rows, `scales` each lane's scale).
+template <Precision P, bool kMulti, Weights Wt>
 struct MegaMargins {
+  static_assert(Wt == Weights::kF32 || kMulti, "a packed stack is the tenant stack's");
   int stride;
   const float* __restrict__ weights;
   const int* __restrict__ lanes;
   float* __restrict__ out;
   int channels;
+  const float* __restrict__ scales;
 
   // capacity * stride fits an int (the wrapper checks the stream length)
   __device__ __forceinline__ int start(int row) const { return row * stride; }
@@ -92,33 +141,79 @@ struct MegaMargins {
     // loop, where they do not fit 64 registers beside W's column
     if constexpr (quantized(P)) asm volatile("" : "+r"(lane));
     const int nfeat = channels * kFeatures;
-    // K6: the row's lane, then the first two terms' weights of its row of
-    // the stack, loaded ahead of the reduce and the norm, whose time they
-    // overlap
-    const float* wrow = weights;
-    if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
-    const float w0 = lane < nfeat ? wrow[lane] : 0.0f;
-    const float w1 = lane + 32 < nfeat ? wrow[lane + 32] : 0.0f;
-    const float denom = reduce_and_norm(channels, s, lane);
-    float m = 0.0f;
-    if constexpr (quantized(P)) {
-      // two rounds of 32 elements at a time, their chains independent;
-      // lane l's terms l, l + 32, ... in order
-      for (int base = 0; base < nfeat; base += 64) {
-        const int i0 = base + lane;
-        const int i1 = i0 + 32;
-        const float q0 = quantize_lane<P>(i0 < nfeat ? s.feat[i0] / denom : 0.0f, lane);
-        const float q1 = quantize_lane<P>(i1 < nfeat ? s.feat[i1] / denom : 0.0f, lane);
-        if (i0 < nfeat) m = fmaf(q0, base == 0 ? w0 : wrow[i0], m);
-        if (i1 < nfeat) m = fmaf(q1, base == 0 ? w1 : wrow[i1], m);
-      }
-    } else {
-      // the normalized row first, then the dot: fewer values live across
-      // the divisions' slow-path calls
+    if constexpr (Wt != Weights::kF32) {
+      // K6-w8/w4: the row's lane, its packed row and scale, loaded ahead
+      // of the reduce and the norm; the terms in K6's order
+      const int t = lanes[row];
+      const uint8_t* prow = reinterpret_cast<const uint8_t*>(weights) +
+                            static_cast<long long>(t) * packed_row_bytes(Wt, nfeat);
+      const float scale = scales[t];
+      const float w0 = lane < nfeat ? packed_term<Wt>(prow, scale, lane) : 0.0f;
+      const float w1 = lane + 32 < nfeat ? packed_term<Wt>(prow, scale, lane + 32) : 0.0f;
+      const float denom = reduce_and_norm(channels, s, lane);
       for (int i = lane; i < nfeat; i += 32) s.feat[i] = s.feat[i] / denom;
+      float m = 0.0f;
       if (lane < nfeat) m = fmaf(s.feat[lane], w0, m);
       if (lane + 32 < nfeat) m = fmaf(s.feat[lane + 32], w1, m);
-      for (int i = lane + 64; i < nfeat; i += 32) m = fmaf(s.feat[i], wrow[i], m);
+      for (int i = lane + 64; i < nfeat; i += 32) {
+        m = fmaf(s.feat[i], packed_term<Wt>(prow, scale, i), m);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
+      if (lane == 0) out[row] = m;
+      return;
+    } else {
+      // K6: the row's lane, then the first two terms' weights of its row of
+      // the stack, loaded ahead of the reduce and the norm, whose time they
+      // overlap
+      const float* wrow = weights;
+      if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
+      const float w0 = lane < nfeat ? wrow[lane] : 0.0f;
+      const float w1 = lane + 32 < nfeat ? wrow[lane + 32] : 0.0f;
+      const float denom = reduce_and_norm(channels, s, lane);
+      float m = 0.0f;
+      if constexpr (quantized(P)) {
+        // two rounds of 32 elements at a time, their chains independent;
+        // lane l's terms l, l + 32, ... in order
+        for (int base = 0; base < nfeat; base += 64) {
+          const int i0 = base + lane;
+          const int i1 = i0 + 32;
+          const float q0 = quantize_lane<P>(i0 < nfeat ? s.feat[i0] / denom : 0.0f, lane);
+          const float q1 = quantize_lane<P>(i1 < nfeat ? s.feat[i1] / denom : 0.0f, lane);
+          if (i0 < nfeat) m = fmaf(q0, base == 0 ? w0 : wrow[i0], m);
+          if (i1 < nfeat) m = fmaf(q1, base == 0 ? w1 : wrow[i1], m);
+        }
+      } else {
+        // the normalized row first, then the dot: fewer values live across
+        // the divisions' slow-path calls
+        for (int i = lane; i < nfeat; i += 32) s.feat[i] = s.feat[i] / denom;
+        if (lane < nfeat) m = fmaf(s.feat[lane], w0, m);
+        if (lane + 32 < nfeat) m = fmaf(s.feat[lane + 32], w1, m);
+        for (int i = lane + 64; i < nfeat; i += 32) m = fmaf(s.feat[i], wrow[i], m);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
+      if (lane == 0) out[row] = m;
+    }
+  }
+
+  // The generic engine's (any window and coefficient count): warp 0 dots
+  // the finished row in the ring epilogue's order, lane l's terms l,
+  // l + 32, ... by FMAs, then a butterfly.
+  __device__ __forceinline__ void finish(int row, const float* y, int nfeat) const {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    float m = 0.0f;
+    if constexpr (Wt == Weights::kF32) {
+      const float* wrow = weights;
+      if constexpr (kMulti) wrow += static_cast<long long>(lanes[row]) * nfeat;
+      for (int i = lane; i < nfeat; i += 32) m = fmaf(y[i], wrow[i], m);
+    } else {
+      const int t = lanes[row];
+      const uint8_t* prow = reinterpret_cast<const uint8_t*>(weights) +
+                            static_cast<long long>(t) * packed_row_bytes(Wt, nfeat);
+      const float scale = scales[t];
+      for (int i = lane; i < nfeat; i += 32) m = fmaf(y[i], packed_term<Wt>(prow, scale, i), m);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
@@ -128,8 +223,9 @@ struct MegaMargins {
 
 // kMulti: `weights` is the tenant-major (128, channels*16) stack and row i
 // dots with its row lanes[i] (K6); otherwise `weights` is one vector and
-// `lanes` is not read (K5). kWide: run_windows' wide instantiation.
-template <Precision P, bool kMulti, bool kWide>
+// `lanes` is not read (K5). kWide: run_windows' wide instantiation. Wt:
+// the stack's precision (K6-w8/w4 read packed rows and `scales`).
+template <Precision P, bool kMulti, bool kWide, Weights Wt>
 __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
     serve_mega_kernel(const int16_t* __restrict__ stream,
                       const float* __restrict__ res,
@@ -137,46 +233,106 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
                       const float* __restrict__ weights,
                       float* __restrict__ out, int capacity, int channels,
                       int stride, int pre, int skip,
-                      const int* __restrict__ lanes, Ring ring, int n_samples) {
-  static_assert(!kMulti || P == Precision::kF32, "the tenant stack is f32");
+                      const int* __restrict__ lanes, Ring ring, int n_samples,
+                      const float* __restrict__ scales) {
+  static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
   extern __shared__ __align__(16) float smem[];
   // n_samples = capacity * stride, a launch argument rather than a product
   // the loop would hold in a register
   const StreamView<int16_t> v{stream, channels, n_samples};
-  run_windows<int16_t, P, kWide>(smem, v, res, w, capacity, pre, skip, ring,
-                                 MegaMargins<P, kMulti>{stride, weights, lanes, out, channels});
+  run_windows<int16_t, P, kWide>(
+      smem, v, res, w, capacity, pre, skip, ring,
+      MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
 }
 
-template <Precision P, bool kMulti, bool kWide>
-int launch_ring(const Ring& ring, size_t smem, const void* stream, const void* res,
-                const void* w, const void* weights, void* out, int capacity, int channels,
-                int stride, int pre, int skip, void* cuda_stream, const void* lanes) {
+// Every size but the main path's 512 / 16: the generic engine
+// (window_features.cuh run_windows_any).
+template <Precision P, bool kMulti, Weights Wt>
+__global__ void __launch_bounds__(kThreads)
+    serve_mega_any_kernel(const int16_t* __restrict__ stream,
+                          const float* __restrict__ res,
+                          const float* __restrict__ w,
+                          const float* __restrict__ weights,
+                          float* __restrict__ out, int capacity, int channels,
+                          int stride, int pre, int skip,
+                          const int* __restrict__ lanes, int n_samples,
+                          const float* __restrict__ scales, int epoch, int features) {
+  static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
+  extern __shared__ __align__(16) float smem[];
+  run_windows_any<int16_t, P>(
+      smem, stream, channels, n_samples, res, w, capacity, pre, skip, epoch, features,
+      MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
+}
+
+// One launch's arguments.
+struct Launch {
+  const void* stream;
+  const void* res;
+  const void* w;
+  const void* weights;
+  const void* scales;
+  const void* lanes;
+  void* out;
+  int capacity;
+  int channels;
+  int stride;
+  int pre;
+  int skip;
+  int epoch;
+  int features;
+  void* cuda_stream;
+};
+
+template <Precision P, bool kMulti, bool kWide, Weights Wt>
+int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
   int grid = 0;
-  const cudaError_t err = plan_grid(serve_mega_kernel<P, kMulti, kWide>, smem, capacity, &grid);
+  const cudaError_t err =
+      plan_grid(serve_mega_kernel<P, kMulti, kWide, Wt>, smem, a.capacity, &grid);
   if (err != cudaSuccess) return err;
-  serve_mega_kernel<P, kMulti, kWide>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-          static_cast<const int16_t*>(stream), static_cast<const float*>(res),
-          static_cast<const float*>(w), static_cast<const float*>(weights),
-          static_cast<float*>(out), capacity, channels, stride, pre, skip,
-          static_cast<const int*>(lanes), ring, capacity * stride);
+  serve_mega_kernel<P, kMulti, kWide, Wt>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
+          static_cast<const int16_t*>(a.stream), static_cast<const float*>(a.res),
+          static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
+          static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
+          static_cast<const int*>(a.lanes), ring, a.capacity * a.stride,
+          static_cast<const float*>(a.scales));
   return cudaGetLastError();
 }
 
-template <Precision P, bool kMulti = false>
-int launch(const void* stream, const void* res, const void* w, const void* weights,
-           void* out, int capacity, int channels, int stride, int pre, int skip,
-           void* cuda_stream, const void* lanes = nullptr) {
+template <Precision P, bool kMulti, Weights Wt>
+int launch_any(const Launch& a) {
+  size_t smem = 0;
+  int grid = 0;
+  const int err = plan_any(serve_mega_any_kernel<P, kMulti, Wt>, a.channels, a.epoch,
+                           a.features, a.capacity, &smem, &grid);
+  if (err != cudaSuccess) return err;
+  serve_mega_any_kernel<P, kMulti, Wt>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
+          static_cast<const int16_t*>(a.stream), static_cast<const float*>(a.res),
+          static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
+          static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
+          static_cast<const int*>(a.lanes), a.capacity * a.stride,
+          static_cast<const float*>(a.scales), a.epoch, a.features);
+  return cudaGetLastError();
+}
+
+template <Precision P, bool kMulti = false, Weights Wt = Weights::kF32>
+int launch(const Launch& a) {
+  if (a.epoch != kEpoch || a.features != kFeatures) return launch_any<P, kMulti, Wt>(a);
   Ring ring{};
   size_t smem = 0;
-  const cudaError_t err = plan_ring<int16_t>(channels, pre, &ring, &smem);
+  const cudaError_t err = plan_ring<int16_t>(a.channels, a.pre, &ring, &smem);
   if (err != cudaSuccess) return err;
-  if (wide_ring(ring, channels)) {
-    return launch_ring<P, kMulti, true>(ring, smem, stream, res, w, weights, out, capacity,
-                                        channels, stride, pre, skip, cuda_stream, lanes);
+  if (wide_ring(ring, a.channels)) return launch_ring<P, kMulti, true, Wt>(ring, smem, a);
+  return launch_ring<P, kMulti, false, Wt>(ring, smem, a);
+}
+
+int check(const Launch& a) {
+  if (a.channels <= 0 || a.pre <= 0 || a.skip < 0 || a.epoch <= 0 || a.features <= 0 ||
+      a.pre + a.skip + a.epoch > a.stride) {
+    return cudaErrorInvalidValue;
   }
-  return launch_ring<P, kMulti, false>(ring, smem, stream, res, w, weights, out, capacity,
-                                       channels, stride, pre, skip, cuda_stream, lanes);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -184,47 +340,62 @@ int launch(const void* stream, const void* res, const void* w, const void* weigh
 extern "C" {
 
 // Launch on `cuda_stream`. stream: (channels, capacity*stride) int16, window
-// i at columns [i*stride, i*stride + pre + skip + 512); res: (channels,)
-// float32; w: (512, 16) float32 cascade matrix; weights: (channels*16,)
-// float32; out: (capacity,) float32 margins before the intercept;
-// precision: 0 f32, 2 int8, 3 int4 (ops/decode_ingest.PRECISIONS; 1, bf16,
-// is refused). Returns the cudaError_t of the launch.
+// i at columns [i*stride, i*stride + pre + skip + epoch); res: (channels,)
+// float32; w: (epoch, features) float32 cascade matrix; weights:
+// (channels*features,) float32; out: (capacity,) float32 margins before
+// the intercept; precision: 0 f32, 2 int8, 3 int4
+// (ops/decode_ingest.PRECISIONS; 1, bf16, is refused). epoch 512 and
+// features 16 run the ring engine, every other size the generic one.
+// Returns the cudaError_t of the launch, or kSharedMemoryExceeded where the
+// generic engine's row does not fit a block's shared memory.
 int serve_mega_launch(const void* stream, const void* res, const void* w,
                       const void* weights, void* out, int capacity, int channels,
-                      int stride, int pre, int skip, int precision, void* cuda_stream) {
+                      int stride, int pre, int skip, int precision, int epoch, int features,
+                      void* cuda_stream) {
+  const Launch a{stream, res, w, weights, nullptr, nullptr, out, capacity, channels,
+                 stride, pre, skip, epoch, features, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
-  if (channels <= 0 || pre <= 0 || skip < 0 || pre + skip + kEpoch > stride) {
-    return cudaErrorInvalidValue;
-  }
+  if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
   switch (static_cast<Precision>(precision)) {
     case Precision::kF32:
-      return launch<Precision::kF32>(stream, res, w, weights, out, capacity, channels,
-                                     stride, pre, skip, cuda_stream);
+      return launch<Precision::kF32>(a);
     case Precision::kInt8:
-      return launch<Precision::kInt8>(stream, res, w, weights, out, capacity, channels,
-                                      stride, pre, skip, cuda_stream);
+      return launch<Precision::kInt8>(a);
     case Precision::kInt4:
-      return launch<Precision::kInt4>(stream, res, w, weights, out, capacity, channels,
-                                      stride, pre, skip, cuda_stream);
+      return launch<Precision::kInt4>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// K6: as serve_mega_launch at f32, with stack: (128, channels*16) float32,
-// tenant-major (row t is tenant lane t's weights), and lanes: (capacity,)
-// int32, each in [0, 128) (the wrapper checks them on the host). out[i] is
-// window i dotted with stack row lanes[i], before the intercept.
+// K6: as serve_mega_launch at f32, with lanes: (capacity,) int32, each in
+// [0, 128) (the wrapper checks them on the host), and the tenant-major
+// stack at `weights_precision` (0 f32, 2 int8, 3 int4): stack (128,
+// channels*features) float32 (scales unused), or (128, channels*features)
+// int8 levels, or (128, channels*features / 2) uint8 nibble pairs, with
+// scales (128,) float32 (row t is tenant lane t's). out[i] is window i
+// dotted with stack row lanes[i] (dequantized term by term), before the
+// intercept.
 int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
-                            const void* stack, const void* lanes, void* out,
-                            int capacity, int channels, int stride, int pre, int skip,
+                            const void* stack, const void* scales, const void* lanes,
+                            void* out, int capacity, int channels, int stride, int pre,
+                            int skip, int weights_precision, int epoch, int features,
                             void* cuda_stream) {
+  const Launch a{stream, res, w, stack, scales, lanes, out, capacity, channels,
+                 stride, pre, skip, epoch, features, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
-  if (channels <= 0 || pre <= 0 || skip < 0 || pre + skip + kEpoch > stride) {
-    return cudaErrorInvalidValue;
+  if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
+  switch (static_cast<Weights>(weights_precision)) {
+    case Weights::kF32:
+      return launch<Precision::kF32, true, Weights::kF32>(a);
+    case Weights::kInt8:
+      return launch<Precision::kF32, true, Weights::kInt8>(a);
+    case Weights::kInt4:
+      if ((channels * features) % 2) return cudaErrorInvalidValue;
+      return launch<Precision::kF32, true, Weights::kInt4>(a);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch<Precision::kF32, true>(stream, res, w, stack, out, capacity, channels,
-                                       stride, pre, skip, cuda_stream, lanes);
 }
 
 const char* serve_mega_error_string(int code) {

@@ -4,8 +4,9 @@ Parity with the reference's hard-coded switch
 (PipelineBuilder.java:128-139): ``dwt-8`` builds
 ``WaveletTransform(8, 512, 175, 16)``. The JAX package's spellings parse
 the same way: ``dwt-<i>`` (host), ``-tpu``, ``-tpu-compact``,
-``-pallas``, and the bf16 spellings, whose backends raise "not yet
-ported". Unknown names raise the reference's error message. The
+``-pallas``, and the bf16 spellings ``-tpu-bf16`` and
+``-tpu-compact-bf16``. Unknown names raise the reference's error
+message. The
 ``:``-option subband grammar (``dwt-<i>:level=<L>[:stats=…]``, the
 seizure workload) is not ported yet.
 """

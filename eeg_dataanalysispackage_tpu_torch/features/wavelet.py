@@ -21,10 +21,18 @@ Backends (``extract_batch`` returns a tensor on the extractor's device):
 - ``pallas`` (``fe=dwt-8-pallas``): the epoch-features CUDA kernel
   (``ops/dwt_cuda.py``) on a CUDA device, its plain version on the CPU;
   float32.
+- ``xla-bf16`` and ``xla-compact-bf16`` (``fe=dwt-8-tpu-bf16``,
+  ``-tpu-compact-bf16``): the two contractions in bfloat16, the JAX
+  package's dtype sequence: the epochs (for the compact form, the window
+  sliced first and cast to float32) are cast to bfloat16 on the host, so
+  only the bf16 buffer crosses to the device; the cascade matrix is
+  bf16, the product and the L2 normalize run in bf16, and the rows come
+  back as float32. About 2e-3 from the float32 features (the JAX
+  package's ``BF16_GATE_TOL`` is 5e-3).
 
 The float32 backends cast float64 epochs to float32 on the host, before
 the copy: the rounding matches the JAX package's and the copy is half
-the bytes. ``xla-bf16`` and ``xla-compact-bf16`` are not ported yet.
+the bytes.
 """
 
 from __future__ import annotations
@@ -39,8 +47,7 @@ from ..ops import dwt, dwt_cuda, dwt_host
 from ..utils import constants
 from ..utils.device import resolve_device
 
-BACKENDS = ("host", "xla", "xla-compact", "pallas")
-NOT_PORTED_BACKENDS = ("xla-bf16", "xla-compact-bf16")
+BACKENDS = ("host", "xla", "xla-compact", "pallas", "xla-bf16", "xla-compact-bf16")
 
 
 class WaveletTransform(base.FeatureExtraction):
@@ -71,8 +78,6 @@ class WaveletTransform(base.FeatureExtraction):
 
     @backend.setter
     def backend(self, value: str) -> None:
-        if value in NOT_PORTED_BACKENDS:
-            raise ValueError(f"backend {value!r} is not yet ported; see ROADMAP.md")
         if value not in BACKENDS:
             raise ValueError(f"unknown backend {value!r}; use one of {BACKENDS}")
         self._backend = value
@@ -140,25 +145,32 @@ class WaveletTransform(base.FeatureExtraction):
             coeffs = dwt_host.dwt_coefficients(sl, self.name, self.feature_size)
             feats = dwt_host.l2_normalize_seq(coeffs.reshape(x.shape[0], -1))
             return torch.from_numpy(feats).to(self.device)
-        if self.backend == "xla-compact":
+        bf16 = self.backend.endswith("-bf16")
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        if self.backend in ("xla-compact", "xla-compact-bf16"):
             if self._extractor is None:
                 self._extractor = dwt.make_compact_extractor(
-                    self.name, self.epoch_size, self.feature_size, device=self.device
+                    self.name, self.epoch_size, self.feature_size, device=self.device,
+                    dtype=dtype,
                 )
             # slice on the host and before the float32 copy: only the
-            # window crosses to the device
+            # window crosses to the device (bf16: cast on the host too)
             x = self._selected(np.asarray(epochs))
             x = np.ascontiguousarray(
                 x[:, :, self.skip_samples : self.skip_samples + self.epoch_size],
                 dtype=np.float32,
             )
-            return self._extractor(torch.from_numpy(x))
-        if self.backend == "xla":
+            return self._extractor(torch.from_numpy(x).to(dtype))
+        if self.backend in ("xla", "xla-bf16"):
             if self._extractor is None:
                 self._extractor = dwt.make_batched_extractor(
                     self.name, self.epoch_size, self.skip_samples, self.feature_size,
-                    channels=self.channels, device=self.device,
+                    channels=self.channels, device=self.device, dtype=dtype,
                 )
+            if bf16:
+                # the epochs cast to bf16 on the host, from their own
+                # dtype: the device-resident buffer is the bf16 one
+                return self._extractor(torch.from_numpy(np.asarray(epochs)).to(dtype))
             x = np.ascontiguousarray(epochs, dtype=np.float32)
             return self._extractor(torch.from_numpy(x))
         # pallas: the channel gather on the host, as the JAX package does
@@ -171,12 +183,14 @@ class WaveletTransform(base.FeatureExtraction):
     def cache_id(self) -> tuple:
         """Full config identity: wavelet family, window geometry,
         coefficient count, channel set and precision class, as the JAX
-        package keys it. The backend itself is absent: every ported
-        backend is float32 or better and computes the same features to
-        rung tolerance."""
+        package keys it. The backend itself is absent (the float32 and
+        better backends compute the same features to rung tolerance),
+        but the bf16 backends key apart: their features are ~2e-3 from
+        the float32 ones."""
+        precision = "bf16" if self.backend.endswith("-bf16") else "f32"
         return (
             "dwt", self.name, self.epoch_size, self.skip_samples,
-            self.feature_size, tuple(self.channels), "f32",
+            self.feature_size, tuple(self.channels), precision,
         )
 
     # -- config equality (WaveletTransform.java:223-244) ---------------

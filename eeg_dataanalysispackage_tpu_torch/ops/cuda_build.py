@@ -30,6 +30,11 @@ NVCC_FLAGS = (
 #: the largest count a kernel's C ``int`` launch argument holds
 INT32_MAX = 2**31 - 1
 
+#: the fused kernels' launchers' code (not a ``cudaError_t``) for a feature
+#: row that does not fit their generic engine's shared memory
+#: (``csrc/window_features.cuh``: kSharedMemoryExceeded)
+SHARED_MEMORY_EXCEEDED = -1
+
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: ptxas register / shared-memory report of each build made by this process

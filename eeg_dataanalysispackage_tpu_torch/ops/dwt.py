@@ -7,8 +7,11 @@ are that matrix applied to the analysis window, then L2-normalized.
 :func:`epoch_features` is the plain version of the epoch-features
 kernel (``ops/dwt_cuda.py``). :func:`make_batched_extractor` and
 :func:`make_compact_extractor` are the counterparts of the JAX
-package's XLA extractors (``fe=dwt-<i>-tpu`` and ``-tpu-compact``):
-float32 PyTorch contractions on an explicit device.
+package's XLA extractors (``fe=dwt-<i>-tpu`` and ``-tpu-compact``, and
+with ``dtype=torch.bfloat16`` their ``-bf16`` spellings): PyTorch
+contractions on an explicit device. The JAX package leaves these
+products to XLA outside any Pallas kernel, so here they are
+``torch.matmul``/``einsum`` (at bf16 they may run on tensor cores).
 :func:`kernel_operator` is the cascade matrix as a float32 tensor on
 the card, the fused CUDA kernels' operand; ``ops/dwt_cuda.kernel_operand``
 lays it out for the epoch-features kernel.
@@ -36,20 +39,11 @@ def cascade_matrix(wavelet_index: int, n: int, count: int) -> np.ndarray:
     return np.ascontiguousarray(dwt_host.fwt_periodic(eye, h, g)[:, :count])
 
 
-#: the analysis window and coefficient count the fused CUDA kernels
-#: compute (``csrc/window_features.cuh``: kEpoch, kFeatures); the
-#: epoch-features kernel takes any
+#: the main path's analysis window and coefficient count: the fused CUDA
+#: kernels' ring engine is built for them (``csrc/window_features.cuh``:
+#: kEpoch, kFeatures), every other size runs their generic engine
 KERNEL_EPOCH_SIZE = 512
 KERNEL_FEATURE_SIZE = 16
-
-
-def check_kernel_sizes(kernel: str, epoch_size: int, feature_size: int) -> None:
-    """Raise unless the sizes are the ones the fused CUDA kernels compute."""
-    if (epoch_size, feature_size) != (KERNEL_EPOCH_SIZE, KERNEL_FEATURE_SIZE):
-        raise ValueError(
-            f"the {kernel} kernel computes epoch_size={KERNEL_EPOCH_SIZE}, "
-            f"feature_size={KERNEL_FEATURE_SIZE}; got {epoch_size}, {feature_size}"
-        )
 
 
 def check_feature_size(wavelet_index: int, epoch_size: int, feature_size: int) -> None:
@@ -142,16 +136,20 @@ def make_compact_extractor(
     epoch_size: int = 512,
     feature_size: int = 16,
     device: Optional[Union[str, torch.device]] = None,
+    dtype: torch.dtype = torch.float32,
 ):
     """``(B, C, epoch_size) -> (B, C*feature_size)`` float32 extractor
     over compact epochs (the analysis window only), on ``device``; takes
-    a numpy array or a tensor and returns a tensor on ``device``."""
+    a numpy array or a tensor and returns a tensor on ``device``. The
+    contraction and the normalize run in ``dtype`` (float32, or
+    bfloat16 for ``-tpu-compact-bf16``)."""
     dev = resolve_device(device)
     cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
 
     def extract(epochs) -> torch.Tensor:
-        ep = torch.as_tensor(epochs, device=dev).to(torch.float32)
-        return compact_epoch_features(ep, wavelet_index, epoch_size, feature_size)
+        ep = torch.as_tensor(epochs).to(device=dev, dtype=dtype)
+        feats = compact_epoch_features(ep, wavelet_index, epoch_size, feature_size)
+        return feats.to(torch.float32)
 
     return extract
 
@@ -163,23 +161,26 @@ def make_batched_extractor(
     feature_size: int = 16,
     channels: Sequence[int] = (1, 2, 3),
     device: Optional[Union[str, torch.device]] = None,
+    dtype: torch.dtype = torch.float32,
 ):
     """``(B, n_ch, n_samples) -> (B, len(channels)*feature_size)``
     float32 extractor on ``device``: select the 1-based ``channels``,
     slice each one's analysis window, contract with the cascade matrix,
-    concatenate and L2-normalize. Takes a numpy array or a tensor and
-    returns a tensor on ``device``. The JAX package's other method, the
+    concatenate and L2-normalize, in ``dtype`` (float32, or bfloat16 for
+    ``-tpu-bf16``). Takes a numpy array or a tensor and returns a
+    float32 tensor on ``device``. The JAX package's other method, the
     level-by-level filter bank, is selected by no path and not ported."""
     dev = resolve_device(device)
     ch_idx = [c - 1 for c in channels]
     cascade_matrix(wavelet_index, epoch_size, feature_size)  # warm cache
 
     def extract(epochs) -> torch.Tensor:
-        ep = torch.as_tensor(epochs, device=dev).to(torch.float32)
+        ep = torch.as_tensor(epochs).to(device=dev, dtype=dtype)
         # channel gather only when the selection isn't the identity — a
         # no-op gather would copy the whole batch
         if ch_idx != list(range(ep.shape[1])):
             ep = ep[:, ch_idx, :]
-        return epoch_features(ep, wavelet_index, skip_samples, epoch_size, feature_size)
+        feats = epoch_features(ep, wavelet_index, skip_samples, epoch_size, feature_size)
+        return feats.to(torch.float32)
 
     return extract

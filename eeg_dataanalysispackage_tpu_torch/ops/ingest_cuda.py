@@ -8,13 +8,18 @@ L2-normalized features in marker order. A float32 stream (a recording
 in another binary format, staged already scaled) runs the kernel's
 float32-sample instantiation. ``precision=`` picks the rung's
 instantiation: ``f32``, ``bf16`` (bfloat16 contraction operands),
-``int8`` and ``int4`` (the quantize step as an epilogue).
+``int8`` and ``int4`` (the quantize step as an epilogue). The main
+path's sizes (a 512-sample window, 16 coefficients a channel) run the
+kernel's ring engine; every other window and coefficient count runs its
+generic engine, counted apart (the ``ANY_`` counters).
 
 :func:`ingest_features` checks its inputs, then for CUDA tensors
 launches the kernel (and counts the launch in the counter of its
 instantiation, below), and for CPU tensors runs the plain version,
 ``device_ingest.ingest_features_plain``. A CUDA launch that fails
-raises; nothing falls back to the plain version on the card.
+raises; nothing falls back to the plain version on the card. A size
+whose feature row does not fit the generic engine's shared memory
+raises a ``ValueError`` naming the sizes.
 
 Two forms sit on top, mirroring the JAX call sites:
 :func:`ingest_features_cuda` (``ingest_pallas.ingest_features_pallas``:
@@ -44,6 +49,13 @@ LAUNCHES_F32 = 0
 LAUNCHES_BF16 = 0
 LAUNCHES_INT8 = 0
 LAUNCHES_INT4 = 0
+#: launches of the generic engine (every size but 512 / 16), one counter
+#: per instantiation as above
+ANY_LAUNCHES = 0
+ANY_LAUNCHES_F32 = 0
+ANY_LAUNCHES_BF16 = 0
+ANY_LAUNCHES_INT8 = 0
+ANY_LAUNCHES_INT4 = 0
 
 #: the counter each (precision, float samples) instantiation adds to
 _COUNTERS = {
@@ -57,7 +69,7 @@ _COUNTERS = {
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ingest_features")
     fn = lib.ingest_features_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ingest_features_error_string.argtypes = [ctypes.c_int]
     lib.ingest_features_error_string.restype = ctypes.c_char_p
@@ -70,7 +82,8 @@ def build() -> str:
     return cuda_build.library_path("ingest_features")
 
 
-def _check(raw, resolutions, starts, operator, pre, skip_samples, precision) -> None:
+def _check(raw, resolutions, starts, operator, pre, skip_samples, precision,
+           epoch_size, feature_size) -> None:
     if precision not in decode_ingest.PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; use one of {decode_ingest.PRECISIONS}"
@@ -87,7 +100,7 @@ def _check(raw, resolutions, starts, operator, pre, skip_samples, precision) -> 
         )
     if starts.dim() != 1 or starts.dtype != torch.int32:
         raise ValueError(f"starts must be (n,) int32, got {tuple(starts.shape)} {starts.dtype}")
-    shape = (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE)
+    shape = (epoch_size, feature_size)
     if operator.shape != shape or operator.dtype != torch.float32:
         raise ValueError(
             f"operator must be {shape} float32, got "
@@ -113,12 +126,15 @@ def ingest_features(
     pre: int = constants.PRESTIMULUS_SAMPLES,
     skip_samples: int = 175,
     precision: str = "f32",
+    epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
+    feature_size: int = dwt.KERNEL_FEATURE_SIZE,
 ) -> torch.Tensor:
-    """(C, S) int16 or float32 + (C,) res + (n,) int32 starts + (512, 16)
-    operator -> (n, C*16) float32 features at ``precision``; see
-    ``device_ingest.ingest_features_plain`` for the exact function.
-    Samples at or past ``S`` read 0."""
-    _check(raw, resolutions, starts, operator, pre, skip_samples, precision)
+    """(C, S) int16 or float32 + (C,) res + (n,) int32 starts +
+    (epoch_size, feature_size) operator -> (n, C*feature_size) float32
+    features at ``precision``; see ``device_ingest.ingest_features_plain``
+    for the exact function. Samples at or past ``S`` read 0."""
+    _check(raw, resolutions, starts, operator, pre, skip_samples, precision,
+           epoch_size, feature_size)
     if raw.device.type == "cpu":
         return device_ingest.ingest_features_plain(
             raw, resolutions, starts, operator, pre, skip_samples, precision
@@ -127,7 +143,7 @@ def ingest_features(
         raise ValueError(f"unsupported device {raw.device}")
     C, S = raw.shape
     n = starts.shape[0]
-    out = torch.empty((n, C * dwt.KERNEL_FEATURE_SIZE), dtype=torch.float32, device=raw.device)
+    out = torch.empty((n, C * feature_size), dtype=torch.float32, device=raw.device)
     if n == 0:
         return out
     lib = _library()
@@ -138,7 +154,12 @@ def ingest_features(
             raw.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
             operator.data_ptr(), out.data_ptr(),
             n, C, S, pre, skip_samples, int(float_samples),
-            decode_ingest.PRECISIONS.index(precision), stream,
+            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size, stream,
+        )
+    if rc == cuda_build.SHARED_MEMORY_EXCEEDED:
+        raise ValueError(
+            f"ingest_features: a row of {C} channels x {feature_size} coefficients "
+            f"at epoch_size {epoch_size} does not fit the kernel's shared memory"
         )
     if rc != 0:
         raise RuntimeError(
@@ -146,6 +167,8 @@ def ingest_features(
             f"({lib.ingest_features_error_string(rc).decode()})"
         )
     counter = _COUNTERS[(precision, float_samples)]
+    if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+        counter = "ANY_" + counter
     globals()[counter] += 1
     return out
 
@@ -165,7 +188,8 @@ def ingest_features_cuda(
     marker order — the counterpart of ``ingest_pallas.ingest_features_pallas``
     (``precision="bf16"``: its ``bank128_bf16`` mode). Positions must be
     validated (``0 <= position - pre <= S``), as the planner guarantees;
-    others raise."""
+    others raise, as does a ``feature_size`` past the cascade's columns."""
+    dwt.check_feature_size(wavelet_index, epoch_size, feature_size)
     starts = np.asarray(positions, dtype=np.int64) - pre
     S = raw.shape[1]
     if starts.size and (starts.min() < 0 or starts.max() > S):
@@ -173,7 +197,6 @@ def ingest_features_cuda(
             f"window starts must lie in [0, {S}]; got "
             f"[{int(starts.min())}, {int(starts.max())}]"
         )
-    dwt.check_kernel_sizes("fused", epoch_size, feature_size)
     return ingest_features(
         raw,
         resolutions,
@@ -182,6 +205,8 @@ def ingest_features_cuda(
         pre,
         skip_samples,
         precision,
+        epoch_size,
+        feature_size,
     )
 
 
@@ -198,8 +223,9 @@ def make_cuda_ingest_featurizer(
     the decode rung's form, at ``precision`` (one of
     ``decode_ingest.PRECISIONS``). Padded rows start at ``S``, read only
     zeros and come out as zero rows (at every precision), so one launch
-    covers the whole plan."""
-    dwt.check_kernel_sizes("fused", epoch_size, feature_size)
+    covers the whole plan. A ``feature_size`` past the cascade's columns
+    raises here, before any work."""
+    dwt.check_feature_size(wavelet_index, epoch_size, feature_size)
     if precision not in decode_ingest.PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; use one of {decode_ingest.PRECISIONS}"
@@ -215,7 +241,7 @@ def make_cuda_ingest_featurizer(
         return ingest_features(
             raw, resolutions, torch.from_numpy(starts).to(raw.device),
             dwt.kernel_operator(wavelet_index, epoch_size, feature_size, raw.device),
-            pre, skip_samples, precision,
+            pre, skip_samples, precision, epoch_size, feature_size,
         )
 
     return featurize

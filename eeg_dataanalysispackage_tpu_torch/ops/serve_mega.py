@@ -21,13 +21,25 @@ the plain version :func:`serve_mega_margins_plain`. Nothing falls back
 from the card to the plain version.
 
 :func:`make_serve_mega_multi_program` is the tenant-stacked twin (the JAX
-package's ``_mega_multi_program``, f32 weights): one program serves every
-tenant mix, row ``i`` dotted with row ``lanes[i]`` of a tenant-major
+package's ``_mega_multi_program``): one program serves every tenant mix,
+row ``i`` dotted with row ``lanes[i]`` of a tenant-major
 ``(MAX_TENANTS, C*K)`` weight stack. Its plain version is
 :func:`serve_mega_multi_margins_plain`; its kernel is the megakernel's
 ``kMulti`` instantiation. A tenant's margin is bit-identical to the solo
 program's with that tenant's weights, on the card (the same kernel code)
-and on the CPU (the same matvec, :func:`lane_margins`).
+and on the CPU (the same matvec, :func:`lane_margins`). At
+``weights_precision="int8"|"int4"`` the program takes the quantized
+stack's resident payload (packed levels and per-lane scales,
+``ops/quant.py``) instead: the kernel (K6-w8, K6-w4) dequantizes each
+term where it uses it; the plain version
+(:func:`serve_mega_multi_packed_margins_plain`) dequantizes the stack
+(``quant.dequantize_weight_stack``, the JAX package's ``wrap_quantized``)
+and runs the f32 plain version, and the two agree bit for bit.
+
+Every program takes any window and coefficient count whose geometry fits
+the padded stride (the kernels' main path is 512 / 16; other sizes run
+their generic engine); a ``feature_size`` past the cascade's columns
+raises when the program is made.
 
 Not ported: the JAX package's lowering and rung decisions
 (``default_lowering``, ``accelerator_decision``,
@@ -42,7 +54,7 @@ import os
 import numpy as np
 import torch
 
-from . import device_ingest, dwt
+from . import device_ingest, dwt, quant
 from ..utils import constants
 
 #: lane width of the tenant weight stack: one row per tenant in the
@@ -161,6 +173,30 @@ def serve_mega_multi_margins_plain(
     return lane_margins(feats, stack, lanes.cpu().numpy())
 
 
+def serve_mega_multi_packed_margins_plain(
+    stream: torch.Tensor,
+    resolutions: torch.Tensor,
+    operator: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    lanes: torch.Tensor,
+    pre: int,
+    skip_samples: int,
+    stride: int,
+    weights_precision: str,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6-w8 / K6-w4: the tenant-major packed
+    stack ((MAX_TENANTS, C*K) int8, or (MAX_TENANTS, C*K/2) uint8) and
+    its (MAX_TENANTS,) scales dequantized
+    (``quant.dequantize_weight_stack`` on the JAX package's (d, 128)
+    layout, i.e. the transpose), then :func:`serve_mega_multi_margins_plain`."""
+    d = stream.shape[0] * operator.shape[1]
+    stack = quant.dequantize_weight_stack(packed.t(), scales, weights_precision, d)
+    return serve_mega_multi_margins_plain(
+        stream, resolutions, operator, stack.t().contiguous(), lanes, pre, skip_samples, stride
+    )
+
+
 def _checked_stride(pre: int, post: int, skip_samples: int, epoch_size: int) -> int:
     """The padded stride of a serving geometry the megakernel takes;
     raises for one it does not."""
@@ -211,6 +247,7 @@ def make_serve_mega_program(
     tensors run :func:`serve_mega_margins_plain`."""
     _check_precision(precision)
     C, K = int(n_channels), int(feature_size)
+    dwt.check_feature_size(wavelet_index, epoch_size, feature_size)
     Wp = _checked_stride(pre, post, skip_samples, epoch_size)
     cascade = dwt.cascade_matrix(wavelet_index, epoch_size, feature_size).astype(np.float32)
     operators = {}
@@ -229,7 +266,8 @@ def make_serve_mega_program(
         if dev not in operators:
             operators[dev] = torch.from_numpy(cascade).to(dev)
         return serve_mega_cuda.serve_mega_margins(
-            stream, resolutions, operators[dev], weights, pre, skip_samples, Wp, precision
+            stream, resolutions, operators[dev], weights, pre, skip_samples, Wp, precision,
+            epoch_size, feature_size,
         )
 
     return run
@@ -244,6 +282,7 @@ def make_serve_mega_multi_program(
     pre: int = constants.PRESTIMULUS_SAMPLES,
     post: int = constants.POSTSTIMULUS_SAMPLES,
     capacity: int = 64,
+    weights_precision: str = "f32",
 ):
     """The tenant-stacked megakernel program for one serving geometry:
     a callable ``(stream (C, capacity*Wp) int16, resolutions (C,)
@@ -252,16 +291,23 @@ def make_serve_mega_multi_program(
     intercept). Padded windows are zero and give margin 0.0, whatever
     their lane (padded rows carry lane 0). Tensors on the card launch
     the kernel; CPU tensors run
-    :func:`serve_mega_multi_margins_plain`."""
+    :func:`serve_mega_multi_margins_plain`. At ``weights_precision``
+    int8 or int4 the stack argument is the quantized stack's resident
+    payload, ``(stream, resolutions, packed, scales, lanes)``: K6-w8 or
+    K6-w4 on the card, :func:`serve_mega_multi_packed_margins_plain`
+    on the CPU."""
+    if weights_precision not in quant.WEIGHTS_PRECISIONS:
+        raise ValueError(
+            f"mega weights_precision {weights_precision!r}; use one of "
+            f"{quant.WEIGHTS_PRECISIONS}"
+        )
     C = int(n_channels)
+    dwt.check_feature_size(wavelet_index, epoch_size, feature_size)
     Wp = _checked_stride(pre, post, skip_samples, epoch_size)
     cascade = dwt.cascade_matrix(wavelet_index, epoch_size, feature_size).astype(np.float32)
     operators = {}
 
-    def run(stream: torch.Tensor, resolutions: torch.Tensor, stack: torch.Tensor,
-            lanes: torch.Tensor) -> torch.Tensor:
-        from . import serve_mega_cuda
-
+    def operator_on(stream: torch.Tensor) -> torch.Tensor:
         if stream.shape != (C, capacity * Wp):
             raise ValueError(
                 f"stream must be ({C}, {capacity * Wp}), got {tuple(stream.shape)}"
@@ -269,11 +315,27 @@ def make_serve_mega_multi_program(
         dev = stream.device
         if dev not in operators:
             operators[dev] = torch.from_numpy(cascade).to(dev)
+        return operators[dev]
+
+    def run(stream: torch.Tensor, resolutions: torch.Tensor, stack: torch.Tensor,
+            lanes: torch.Tensor) -> torch.Tensor:
+        from . import serve_mega_cuda
+
         return serve_mega_cuda.serve_mega_multi_margins(
-            stream, resolutions, operators[dev], stack, lanes, pre, skip_samples, Wp
+            stream, resolutions, operator_on(stream), stack, lanes, pre, skip_samples, Wp,
+            epoch_size, feature_size,
         )
 
-    return run
+    def run_packed(stream: torch.Tensor, resolutions: torch.Tensor, packed: torch.Tensor,
+                   scales: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+        from . import serve_mega_cuda
+
+        return serve_mega_cuda.serve_mega_multi_packed_margins(
+            stream, resolutions, operator_on(stream), packed, scales, lanes, pre,
+            skip_samples, Wp, weights_precision, epoch_size, feature_size,
+        )
+
+    return run if weights_precision == "f32" else run_packed
 
 
 def stage_mega_stream(

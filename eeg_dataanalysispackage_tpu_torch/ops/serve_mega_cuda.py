@@ -16,9 +16,19 @@ raises; nothing falls back to the plain version on the card.
 :func:`serve_mega_multi_margins` is K6, the tenant-stacked kernel
 (``ops/serve_mega.py:484`` of the JAX package, ``_mega_multi_program``):
 the same kernel's ``kMulti`` instantiation, each window dotted with its
-tenant's row of a (128, C*16) f32 stack, counted in
-:data:`MULTI_LAUNCHES`. Its lanes come from the host, where their range
-is checked before they are copied to the card.
+tenant's row of a (128, C*K) f32 stack, counted in
+:data:`MULTI_LAUNCHES`. :func:`serve_mega_multi_packed_margins` is K6-w8
+and K6-w4: the stack resident as packed int8 levels or int4 nibble pairs
+with one scale a lane (``ops/quant.py``), dequantized term by term in the
+kernel, counted in :data:`MULTI_LAUNCHES_INT8` and
+:data:`MULTI_LAUNCHES_INT4`. The lanes come from the host, where their
+range is checked before they are copied to the card.
+
+The main path's sizes (a 512-sample window, 16 coefficients a channel)
+run the kernel's ring engine; every other window and coefficient count
+runs its generic engine, counted apart (the ``ANY_`` counters). A size
+whose feature row does not fit the generic engine's shared memory
+raises a ``ValueError`` naming the sizes.
 """
 
 from __future__ import annotations
@@ -34,22 +44,34 @@ from . import cuda_build, decode_ingest, dwt, serve_mega
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
 LAUNCHES_INT4 = 0
-#: launches of the tenant-stacked instantiation (K6)
+#: launches of the tenant-stacked instantiations: K6 (f32 stack), K6-w8
+#: and K6-w4 (packed stacks)
 MULTI_LAUNCHES = 0
+MULTI_LAUNCHES_INT8 = 0
+MULTI_LAUNCHES_INT4 = 0
+#: launches of the generic engine (every size but 512 / 16), one counter
+#: per instantiation as above
+ANY_LAUNCHES = 0
+ANY_LAUNCHES_INT8 = 0
+ANY_LAUNCHES_INT4 = 0
+ANY_MULTI_LAUNCHES = 0
+ANY_MULTI_LAUNCHES_INT8 = 0
+ANY_MULTI_LAUNCHES_INT4 = 0
 
 _COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
-
-EPOCH_SIZE = dwt.KERNEL_EPOCH_SIZE
-FEATURE_SIZE = dwt.KERNEL_FEATURE_SIZE
+_MULTI_COUNTERS = {"f32": "MULTI_LAUNCHES", "int8": "MULTI_LAUNCHES_INT8",
+                   "int4": "MULTI_LAUNCHES_INT4"}
+#: the packed stack's dtype and bytes a term, by weights precision
+_PACKED = {"int8": (torch.int8, 1.0), "int4": (torch.uint8, 0.5)}
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("serve_mega")
     fn = lib.serve_mega_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     multi = lib.serve_mega_multi_launch
-    multi.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     multi.restype = ctypes.c_int
     lib.serve_mega_error_string.argtypes = [ctypes.c_int]
     lib.serve_mega_error_string.restype = ctypes.c_char_p
@@ -63,7 +85,8 @@ def build() -> str:
 
 
 def _check(stream, resolutions, operator, weights, pre, skip_samples, stride,
-           weights_name="weights", weights_shape=None) -> None:
+           epoch_size, feature_size, weights_name="weights", weights_shape=None,
+           weights_dtype=torch.float32) -> None:
     if stream.dim() != 2 or stream.dtype != torch.int16:
         raise ValueError(
             f"stream must be (C, capacity*stride) int16, got "
@@ -75,15 +98,15 @@ def _check(stream, resolutions, operator, weights, pre, skip_samples, stride,
             f"resolutions must be ({C},) float32, got "
             f"{tuple(resolutions.shape)} {resolutions.dtype}"
         )
-    if operator.shape != (EPOCH_SIZE, FEATURE_SIZE) or operator.dtype != torch.float32:
+    if operator.shape != (epoch_size, feature_size) or operator.dtype != torch.float32:
         raise ValueError(
-            f"operator must be ({EPOCH_SIZE}, {FEATURE_SIZE}) float32, got "
+            f"operator must be ({epoch_size}, {feature_size}) float32, got "
             f"{tuple(operator.shape)} {operator.dtype}"
         )
-    shape = weights_shape or (C * FEATURE_SIZE,)
-    if weights.shape != shape or weights.dtype != torch.float32:
+    shape = weights_shape or (C * feature_size,)
+    if weights.shape != shape or weights.dtype != weights_dtype:
         raise ValueError(
-            f"{weights_name} must be {shape} float32, got "
+            f"{weights_name} must be {shape} {str(weights_dtype).replace('torch.', '')}, got "
             f"{tuple(weights.shape)} {weights.dtype}"
         )
     for name, t in (("stream", stream), ("resolutions", resolutions),
@@ -92,15 +115,50 @@ def _check(stream, resolutions, operator, weights, pre, skip_samples, stride,
             raise ValueError(f"{name} is on {t.device}, stream on {stream.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if pre < 1 or skip_samples < 0 or pre + skip_samples + EPOCH_SIZE > stride:
+    if pre < 1 or skip_samples < 0 or pre + skip_samples + epoch_size > stride:
         raise ValueError(
-            f"need pre >= 1, skip >= 0 and pre + skip + {EPOCH_SIZE} <= stride; "
+            f"need pre >= 1, skip >= 0 and pre + skip + {epoch_size} <= stride; "
             f"got pre {pre}, skip {skip_samples}, stride {stride}"
         )
     if S % stride:
         raise ValueError(f"stream length {S} is not a multiple of the stride {stride}")
     if S > cuda_build.INT32_MAX:
         raise ValueError("stream length must fit in int32")
+
+
+def _check_lanes(lanes, capacity) -> None:
+    if (not isinstance(lanes, torch.Tensor) or lanes.dtype != torch.int32
+            or lanes.shape != (capacity,)):
+        raise ValueError(f"lanes must be a ({capacity},) int32 tensor, got {lanes!r}")
+    if lanes.device.type != "cpu":
+        raise ValueError(
+            f"lanes must be on the host (got {lanes.device}): their range is "
+            "checked before they are copied to the card"
+        )
+    if capacity and (int(lanes.min()) < 0 or int(lanes.max()) >= serve_mega.MAX_TENANTS):
+        raise ValueError(
+            f"lanes must lie in [0, {serve_mega.MAX_TENANTS}); got "
+            f"[{int(lanes.min())}, {int(lanes.max())}]"
+        )
+
+
+def _raise_on(rc: int, lib, kernel: str, C: int, epoch_size: int, feature_size: int) -> None:
+    if rc == cuda_build.SHARED_MEMORY_EXCEEDED:
+        raise ValueError(
+            f"{kernel}: a row of {C} channels x {feature_size} coefficients at "
+            f"epoch_size {epoch_size} does not fit the kernel's shared memory"
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: CUDA error {rc} "
+            f"({lib.serve_mega_error_string(rc).decode()})"
+        )
+
+
+def _count(counter: str, epoch_size: int, feature_size: int) -> None:
+    if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+        counter = "ANY_" + counter
+    globals()[counter] += 1
 
 
 def serve_mega_margins(
@@ -112,13 +170,16 @@ def serve_mega_margins(
     skip_samples: int,
     stride: int,
     precision: str = "f32",
+    epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
+    feature_size: int = dwt.KERNEL_FEATURE_SIZE,
 ) -> torch.Tensor:
-    """(C, capacity*stride) int16 + (C,) res + (512, 16) operator +
-    (C*16,) weights -> (capacity,) float32 margins before the intercept,
-    at ``precision`` (f32, int8 or int4); see
+    """(C, capacity*stride) int16 + (C,) res + (epoch_size, feature_size)
+    operator + (C*feature_size,) weights -> (capacity,) float32 margins
+    before the intercept, at ``precision`` (f32, int8 or int4); see
     ``serve_mega.serve_mega_margins_plain`` for the exact function."""
     serve_mega._check_precision(precision)
-    _check(stream, resolutions, operator, weights, pre, skip_samples, stride)
+    _check(stream, resolutions, operator, weights, pre, skip_samples, stride, epoch_size,
+           feature_size)
     if stream.device.type == "cpu":
         return serve_mega.serve_mega_margins_plain(
             stream, resolutions, operator, weights, pre, skip_samples, stride, precision
@@ -137,14 +198,35 @@ def serve_mega_margins(
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             weights.data_ptr(), out.data_ptr(),
             capacity, C, stride, pre, skip_samples,
-            decode_ingest.PRECISIONS.index(precision), cuda_stream,
+            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size, cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"serve_mega launch failed: CUDA error {rc} "
-            f"({lib.serve_mega_error_string(rc).decode()})"
+    _raise_on(rc, lib, "serve_mega", C, epoch_size, feature_size)
+    _count(_COUNTERS[precision], epoch_size, feature_size)
+    return out
+
+
+def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip_samples,
+                  stride, weights_precision, epoch_size, feature_size) -> torch.Tensor:
+    """One K6 launch (stack and lanes already checked)."""
+    C, S = stream.shape
+    capacity = S // stride
+    out = torch.empty((capacity,), dtype=torch.float32, device=stream.device)
+    if capacity == 0:
+        return out
+    lanes_dev = lanes.to(stream.device)
+    lib = _library()
+    with torch.cuda.device(stream.device):
+        cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
+        rc = lib.serve_mega_multi_launch(
+            stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
+            stack.data_ptr(), None if scales is None else scales.data_ptr(),
+            lanes_dev.data_ptr(), out.data_ptr(),
+            capacity, C, stride, pre, skip_samples,
+            decode_ingest.PRECISIONS.index(weights_precision), epoch_size, feature_size,
+            cuda_stream,
         )
-    globals()[_COUNTERS[precision]] += 1
+    _raise_on(rc, lib, "serve_mega_multi", C, epoch_size, feature_size)
+    _count(_MULTI_COUNTERS[weights_precision], epoch_size, feature_size)
     return out
 
 
@@ -157,54 +239,82 @@ def serve_mega_multi_margins(
     pre: int,
     skip_samples: int,
     stride: int,
+    epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
+    feature_size: int = dwt.KERNEL_FEATURE_SIZE,
 ) -> torch.Tensor:
-    """K6: (C, capacity*stride) int16 + (C,) res + (512, 16) operator +
-    (128, C*16) tenant-major f32 stack + (capacity,) int32 lanes on the
-    host -> (capacity,) float32 margins before the intercept, window
-    ``i`` dotted with ``stack[lanes[i]]``; see
-    ``serve_mega.serve_mega_multi_margins_plain`` for the exact
+    """K6: (C, capacity*stride) int16 + (C,) res + (epoch_size,
+    feature_size) operator + (128, C*feature_size) tenant-major f32 stack
+    + (capacity,) int32 lanes on the host -> (capacity,) float32 margins
+    before the intercept, window ``i`` dotted with ``stack[lanes[i]]``;
+    see ``serve_mega.serve_mega_multi_margins_plain`` for the exact
     function. The stack and the lanes are checked here, on the host,
     before the lanes are copied to the card and the kernel launches."""
     C = stream.shape[0] if stream.dim() == 2 else 0
-    _check(stream, resolutions, operator, stack, pre, skip_samples, stride,
-           weights_name="stack", weights_shape=(serve_mega.MAX_TENANTS, C * FEATURE_SIZE))
+    _check(stream, resolutions, operator, stack, pre, skip_samples, stride, epoch_size,
+           feature_size, weights_name="stack",
+           weights_shape=(serve_mega.MAX_TENANTS, C * feature_size))
     capacity = stream.shape[1] // stride
-    if (not isinstance(lanes, torch.Tensor) or lanes.dtype != torch.int32
-            or lanes.shape != (capacity,)):
-        raise ValueError(f"lanes must be a ({capacity},) int32 tensor, got {lanes!r}")
-    if lanes.device.type != "cpu":
-        raise ValueError(
-            f"lanes must be on the host (got {lanes.device}): their range is "
-            "checked before they are copied to the card"
-        )
-    if capacity and (int(lanes.min()) < 0 or int(lanes.max()) >= serve_mega.MAX_TENANTS):
-        raise ValueError(
-            f"lanes must lie in [0, {serve_mega.MAX_TENANTS}); got "
-            f"[{int(lanes.min())}, {int(lanes.max())}]"
-        )
+    _check_lanes(lanes, capacity)
     if stream.device.type == "cpu":
         return serve_mega.serve_mega_multi_margins_plain(
             stream, resolutions, operator, stack, lanes, pre, skip_samples, stride
         )
     if stream.device.type != "cuda":
         raise ValueError(f"unsupported device {stream.device}")
-    out = torch.empty((capacity,), dtype=torch.float32, device=stream.device)
-    if capacity == 0:
-        return out
-    lanes_dev = lanes.to(stream.device)
-    lib = _library()
-    with torch.cuda.device(stream.device):
-        cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
-        rc = lib.serve_mega_multi_launch(
-            stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
-            stack.data_ptr(), lanes_dev.data_ptr(), out.data_ptr(),
-            capacity, C, stride, pre, skip_samples, cuda_stream,
+    return _launch_multi(stream, resolutions, operator, stack, None, lanes, pre,
+                         skip_samples, stride, "f32", epoch_size, feature_size)
+
+
+def serve_mega_multi_packed_margins(
+    stream: torch.Tensor,
+    resolutions: torch.Tensor,
+    operator: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    lanes: torch.Tensor,
+    pre: int,
+    skip_samples: int,
+    stride: int,
+    weights_precision: str,
+    epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
+    feature_size: int = dwt.KERNEL_FEATURE_SIZE,
+) -> torch.Tensor:
+    """K6-w8 / K6-w4: as :func:`serve_mega_multi_margins`, with the stack
+    resident packed (``quant.quantize_weight_stack``, tenant-major):
+    ``packed`` (128, C*K) int8 levels at ``weights_precision="int8"``, or
+    (128, C*K/2) uint8 at ``"int4"`` (term 2j in the low nibble of byte
+    j, 2j+1 in the high, each stored +8), and ``scales`` (128,) float32,
+    one a lane. Term ``i`` of lane ``t`` is ``float(q) * scales[t]``, so
+    the margins equal K6's on the dequantized stack
+    (``quant.dequantize_weight_stack``) bit for bit; see
+    ``serve_mega.serve_mega_multi_packed_margins_plain``. Everything is
+    checked here, before the launch."""
+    if weights_precision not in _PACKED:
+        raise ValueError(
+            f"weights_precision {weights_precision!r} has no packed stack; use int8 or int4"
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"serve_mega_multi launch failed: CUDA error {rc} "
-            f"({lib.serve_mega_error_string(rc).decode()})"
+    C = stream.shape[0] if stream.dim() == 2 else 0
+    dtype, per_term = _PACKED[weights_precision]
+    terms = C * feature_size
+    if weights_precision == "int4" and terms % 2:
+        raise ValueError(f"an int4 stack packs an even number of terms, got {terms}")
+    _check(stream, resolutions, operator, packed, pre, skip_samples, stride, epoch_size,
+           feature_size, weights_name="packed",
+           weights_shape=(serve_mega.MAX_TENANTS, int(terms * per_term)), weights_dtype=dtype)
+    if (scales.shape != (serve_mega.MAX_TENANTS,) or scales.dtype != torch.float32
+            or scales.device != stream.device or not scales.is_contiguous()):
+        raise ValueError(
+            f"scales must be a contiguous ({serve_mega.MAX_TENANTS},) float32 tensor on "
+            f"{stream.device}, got {tuple(scales.shape)} {scales.dtype} on {scales.device}"
         )
-    global MULTI_LAUNCHES
-    MULTI_LAUNCHES += 1
-    return out
+    capacity = stream.shape[1] // stride
+    _check_lanes(lanes, capacity)
+    if stream.device.type == "cpu":
+        return serve_mega.serve_mega_multi_packed_margins_plain(
+            stream, resolutions, operator, packed, scales, lanes, pre, skip_samples, stride,
+            weights_precision,
+        )
+    if stream.device.type != "cuda":
+        raise ValueError(f"unsupported device {stream.device}")
+    return _launch_multi(stream, resolutions, operator, packed, scales, lanes, pre,
+                         skip_samples, stride, weights_precision, epoch_size, feature_size)

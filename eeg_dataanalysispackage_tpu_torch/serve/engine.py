@@ -41,8 +41,13 @@ depend on the batch it rides in.
 The multi-tenant engine (``serve/multiplex.py``) is a subclass: it
 overrides the rungs' margin hooks (:meth:`ServingEngine._mega_margins`,
 :meth:`ServingEngine._fused_margins`), the intercept and threshold step
-(:meth:`ServingEngine._postprocess`) and the megakernel program
-(:meth:`ServingEngine._make_mega_program`), and keeps the rest.
+(:meth:`ServingEngine._postprocess`), the megakernel program
+(:meth:`ServingEngine._make_mega_program`) and :meth:`ServingEngine.warmup`
+(its weights gate runs before this warmup's gates), and keeps the rest.
+
+Every rung takes any analysis window and coefficient count whose live
+window fits the padded stride: the kernels run their ring engine at the
+main path's 512 / 16 and their generic engine at every other size.
 
 Not ported: float32 (non-INT_16) windows, the host-extractor mode,
 non-linear classifiers and hot swap of a solo engine (the lifecycle).

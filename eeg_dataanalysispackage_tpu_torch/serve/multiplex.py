@@ -1,7 +1,7 @@
 """Multi-tenant serving: many tenants' linear models, one resident engine.
 
-Port of the JAX package's ``serve/multiplex.py`` for the f32 weight
-stack. A single-model service gives every tenant its own engine,
+Port of the JAX package's ``serve/multiplex.py``. A single-model service
+gives every tenant its own engine,
 batcher and queue; here N tenants' weight vectors are the rows of one
 tenant-major ``(MAX_TENANTS, C*K)`` float32 stack on the device (the
 transpose of the JAX package's ``(C*K, 128)`` matrix, whose layout the
@@ -21,6 +21,26 @@ host mirror keeps), and one engine serves every tenant mix:
   host-to-device copy of the 24 KB stack: no kernel is built and no
   program is made.
 
+**The quantized stack** (``weights_precision="int8"|"int4"``). The f32
+host mirror stays master; once the warmup's weights gate has promoted
+the requested precision, each publish quantizes it
+(``ops/quant.quantize_weight_stack``, per-lane scales, so an admin call
+on one tenant leaves every other lane's bytes and scale unchanged) and
+copies the packed stack and its scales to the device in one copy (6,656
+bytes at int8, 3,584 at int4, against 24,576 at f32). The ``mega`` rung
+runs K6-w8 or K6-w4 (the tenant-stacked megakernel reading the packed
+rows); the ``fused`` rung dequantizes the payload on the device
+(``quant.dequantize_weight_stack``) and takes the same per-lane
+matvecs. The warmup order is the JAX package's: the weights gate first
+(the quantized fused rung's margins against the f32 stack's on the gate
+windows, lanes cycling over the tenants, at
+``quant.weights_gate_tolerance``; a miss leaves the f32 stack standing,
+recorded in :attr:`MultiplexedEngine.weights_record`), then the mega
+gate at the residency that was published. An exception while building
+or launching the quantized path raises. Nothing steps down at run time:
+a failed quantized batch goes to the batcher's retries and then fails
+its requests, as any failed batch does, and the stack stays quantized.
+
 **Isolation.** :meth:`MultiplexedEngine.execute` reads the published
 stack once per batch, so an admin call on tenant A never tears tenant
 B's in-flight batch. A per-tenant admission quota
@@ -32,9 +52,11 @@ fused rung at ``serve_mega.mega_gate_tolerance()``, with the gate
 windows' lanes cycling over the registered tenants; a miss raises, and
 nothing steps down.
 
-Not ported: ``weights_precision=int8|int4`` (the quantized weight stack;
-it raises), the JAX package's ``accelerator_decision`` (it reads TPU
-sweep artifacts), the host rung, event records and tenant-scoped chaos.
+Not ported: the JAX package's runtime step-down of the quantized stack
+to the f32 mirror (``_disable_weights_quant``) and its
+``serve.weights_quant_unavailable`` fallback, its ``accelerator_decision``
+(it reads TPU sweep artifacts), the host rung, event records and
+tenant-scoped chaos.
 """
 
 from __future__ import annotations
@@ -52,7 +74,7 @@ from . import service as service_mod
 from ..models import linear
 from ..models import registry as clf_registry
 from ..obs import metrics_export
-from ..ops import serve_mega
+from ..ops import quant, serve_mega
 from ..utils import constants
 
 logger = logging.getLogger(__name__)
@@ -60,8 +82,8 @@ logger = logging.getLogger(__name__)
 #: lane width of the tenant stack: one row per tenant
 MAX_TENANTS = engine_mod.MAX_TENANTS
 
-#: the JAX package's weight-stack precisions; only f32 is ported
-WEIGHTS_PRECISIONS = ("f32", "int8", "int4")
+#: the weight-stack precisions (``ops/quant.py``)
+WEIGHTS_PRECISIONS = quant.WEIGHTS_PRECISIONS
 
 
 class TenantStack(NamedTuple):
@@ -73,13 +95,20 @@ class TenantStack(NamedTuple):
     values as ``(MAX_TENANTS,)`` float32 host arrays, each the float32
     the solo engine adds and compares with; ``classifiers`` holds each
     lane's classifier (or None); ``generations`` counts each lane's
-    swaps and removals."""
+    swaps and removals. A quantized stack (``weights_precision`` int8 or
+    int4) has ``weights`` None and keeps instead its resident payload:
+    ``packed``, tenant-major ``(MAX_TENANTS, C*K)`` int8 levels or
+    ``(MAX_TENANTS, C*K/2)`` uint8 nibble pairs, and ``scales``
+    ``(MAX_TENANTS,)`` float32, views of one device buffer."""
 
-    weights: torch.Tensor
+    weights: Optional[torch.Tensor]
     intercepts: np.ndarray
     thresholds: np.ndarray
     classifiers: tuple
     generations: tuple
+    packed: Optional[torch.Tensor] = None
+    scales: Optional[torch.Tensor] = None
+    weights_precision: str = "f32"
 
 
 def _weights_of(classifier) -> Optional[np.ndarray]:
@@ -96,7 +125,8 @@ class MultiplexedEngine(engine_mod.ServingEngine):
     tenant must be a linear classifier with float32 weights of one
     shape. The solo engine's rungs, warmup gate and geometry stand; each
     batch carries one lane per row and the rungs pick that row's tenant
-    weights."""
+    weights. ``weights_precision`` int8 or int4 asks for the quantized
+    stack, promoted at warmup behind the weights gate."""
 
     def __init__(
         self,
@@ -117,11 +147,6 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             raise ValueError(
                 f"weights_precision= must be one of {WEIGHTS_PRECISIONS}, "
                 f"got {weights_precision!r}"
-            )
-        if weights_precision != "f32":
-            raise ValueError(
-                f"weights_precision={weights_precision} (the quantized "
-                "weight stack) is not yet ported; see ROADMAP.md"
             )
         items = list(tenants.items() if isinstance(tenants, dict) else tenants)
         if not items:
@@ -160,6 +185,15 @@ class MultiplexedEngine(engine_mod.ServingEngine):
         self._classifiers: List[object] = [None] * MAX_TENANTS
         self._generations = [0] * MAX_TENANTS
         self._stack: Optional[TenantStack] = None
+        #: the requested stack precision; the active one starts at f32 and
+        #: becomes the requested one only when the warmup's weights gate
+        #: passes (_weights_quant_warmup)
+        self._weights_precision_requested = weights_precision
+        self._weights_precision = "f32"
+        #: the weights gate's decision, ``{"requested", "used", "gate"}``;
+        #: None at f32
+        self.weights_record: Optional[dict] = None
+        self._resident_bytes = 0
         # the batch in hand, (stack, lanes), set by execute (and by the
         # warmup gate) for the rung hooks; one batcher thread drives the
         # engine, as it drives the solo engine
@@ -215,17 +249,41 @@ class MultiplexedEngine(engine_mod.ServingEngine):
 
     def _publish(self) -> None:
         """Copy the host mirror's tenant-major transpose to the device
-        and publish a new immutable stack. No kernel is built and no
-        program made; an in-flight batch holds the previous snapshot and
-        is served wholly by it."""
-        weights = torch.from_numpy(self._w_host.T.copy()).to(self.device)
-        self._stack = TenantStack(
-            weights=weights,
+        and publish a new immutable stack; with a promoted quantized
+        stack, the mirror quantized (:func:`quant.quantize_weight_stack`)
+        and its packed rows and scales, in one copy. No kernel is built
+        and no program made; an in-flight batch holds the previous
+        snapshot and is served wholly by it."""
+        common = dict(
             intercepts=np.asarray(self._intercepts, np.float32),
             thresholds=np.asarray(self._thresholds, np.float32),
             classifiers=tuple(self._classifiers),
             generations=tuple(self._generations),
         )
+        wp = self._weights_precision
+        if wp == "f32":
+            self._resident_bytes = int(self._w_host.nbytes)
+            weights = torch.from_numpy(self._w_host.T.copy()).to(self.device)
+            self._stack = TenantStack(weights=weights, **common)
+            return
+        packed_np, scales_np = quant.quantize_weight_stack(self._w_host, wp)
+        packed, scales = self._to_device(packed_np, scales_np)
+        self._resident_bytes = quant.resident_weight_bytes(packed_np, scales_np)
+        self._stack = TenantStack(weights=None, packed=packed, scales=scales,
+                                  weights_precision=wp, **common)
+
+    def _to_device(self, packed_np: np.ndarray, scales_np: np.ndarray):
+        """The quantized payload on the device in one host-to-device
+        copy: the packed stack tenant-major (the transpose of the host
+        (d, 128) layout), then the scales; returns views of that buffer,
+        ``(packed (MAX_TENANTS, cols), scales (MAX_TENANTS,))``."""
+        rows = np.ascontiguousarray(packed_np.T)
+        buf = np.concatenate([rows.reshape(-1).view(np.uint8),
+                              np.ascontiguousarray(scales_np, np.float32).view(np.uint8)])
+        dev = torch.from_numpy(buf).to(self.device)
+        dtype = torch.int8 if rows.dtype == np.int8 else torch.uint8
+        packed = dev[:rows.size].view(dtype).view(rows.shape)
+        return packed, dev[rows.size:].view(torch.float32)
 
     @property
     def tenants(self) -> Tuple[str, ...]:
@@ -248,13 +306,15 @@ class MultiplexedEngine(engine_mod.ServingEngine):
     @property
     def resident_weight_bytes(self) -> int:
         """Bytes of the device-resident weight stack: every tenant's
-        model (one matrix serves all 128 lanes)."""
-        return int(self._w_host.nbytes)
+        model (one matrix serves all 128 lanes); with a promoted
+        quantized stack, its packed rows and per-lane scales."""
+        return int(self._resident_bytes)
 
     @property
     def weights_precision(self) -> str:
-        """The resident stack's precision (f32: the only one ported)."""
-        return "f32"
+        """The active stack's precision: f32 until the warmup's weights
+        gate promotes the requested one."""
+        return self._weights_precision
 
     def add_tenant(self, name: str, classifier) -> int:
         """Register a tenant at runtime; returns its lane. One column
@@ -369,21 +429,35 @@ class MultiplexedEngine(engine_mod.ServingEngine):
 
     def _mega_margins(self, windows, res) -> torch.Tensor:
         """K6: the batch at the padded stride, one copy, one launch, each
-        row against its tenant's row of the stack."""
+        row against its tenant's row of the stack (K6-w8/w4: of the
+        packed stack, with its lane's scale)."""
         stack, lanes = self._batch
-        return self._mega_program(
-            self._stage_mega(windows), res, stack.weights, self._capacity_lanes(lanes)
-        )
+        staged, lanes_host = self._stage_mega(windows), self._capacity_lanes(lanes)
+        if stack.weights_precision != "f32":
+            return self._mega_program(staged, res, stack.packed, stack.scales, lanes_host)
+        return self._mega_program(staged, res, stack.weights, lanes_host)
 
     def _fused_margins(self, windows, res) -> torch.Tensor:
         """The fused ingest kernel's rows, then for every lane present
         the solo fused rung's own ``feats @ weights``, and a per-row
-        pick (``serve_mega.lane_margins``)."""
+        pick (``serve_mega.lane_margins``); a quantized stack is
+        dequantized on the device first, as the JAX package's program
+        does."""
         stack, lanes = self._batch
         feats = self._fused_features(self._fused, windows, res)
         return serve_mega.lane_margins(
-            feats, stack.weights, self._capacity_lanes(lanes).numpy()
+            feats, self._f32_stack(stack), self._capacity_lanes(lanes).numpy()
         )
+
+    def _f32_stack(self, stack: TenantStack) -> torch.Tensor:
+        """The (MAX_TENANTS, C*K) float32 stack a snapshot serves: its
+        weights, or its packed payload dequantized on the device."""
+        if stack.weights_precision == "f32":
+            return stack.weights
+        d = self._w_host.shape[0]
+        return quant.dequantize_weight_stack(
+            stack.packed.t(), stack.scales, stack.weights_precision, d
+        ).t().contiguous()
 
     def _postprocess(self, margins: np.ndarray):
         """Each row's tenant intercept and threshold: the solo engine's
@@ -396,12 +470,77 @@ class MultiplexedEngine(engine_mod.ServingEngine):
 
     # -- warmup ---------------------------------------------------------
 
+    def warmup(self) -> None:
+        """The JAX package's order: the weights gate first
+        (:meth:`_weights_quant_warmup`, which publishes the quantized
+        stack on a pass), then the solo engine's warmup, whose mega gate
+        and program are made at the residency that was published.
+        Idempotent."""
+        if self._warmed:
+            return
+        self._weights_quant_warmup()
+        super().warmup()
+
+    def _weights_quant_warmup(self) -> None:
+        """Promote the requested quantized stack if its margins pass the
+        weights gate: the gate windows through the fused rung, their
+        lanes cycling over the registered tenants, against the published
+        f32 stack and against the quantized current host mirror, at
+        ``quant.weights_gate_tolerance`` (``EEG_TPU_WEIGHTS_GATE_TOL=0``
+        shuts it). A miss leaves the f32 stack standing and recorded; an
+        exception raises, records nothing, and raises again on the next
+        warmup."""
+        wp = self._weights_precision_requested
+        # once decided, never again: a warmup retried after a failed mega
+        # gate would otherwise hold the published quantized stack against
+        # itself
+        if wp == "f32" or self.weights_record is not None:
+            return
+        windows, res_np = self._gate_windows()
+        res = torch.from_numpy(res_np).to(self.device)
+        n = len(windows)
+        lanes = self._gate_lanes(n)
+        with self._tenant_lock:
+            f32_stack = self._stack
+            packed_np, scales_np = quant.quantize_weight_stack(self._w_host, wp)
+            tol = quant.weights_gate_tolerance(wp, self._w_host)
+        packed, scales = self._to_device(packed_np, scales_np)
+        candidate = f32_stack._replace(weights=None, packed=packed, scales=scales,
+                                       weights_precision=wp)
+        margins = {}
+        for label, stack in (("f32", f32_stack), (wp, candidate)):
+            self._batch = (stack, lanes)
+            try:
+                margins[label] = self._fused_margins(windows, res)[:n].cpu().numpy()
+            finally:
+                self._batch = None
+        dev = float(np.max(np.abs(margins[wp] - margins["f32"]))) if n else 0.0
+        gate = {"max_abs_dev": dev, "tolerance": tol, "ok": bool(dev <= tol),
+                "rows_checked": n}
+        if not gate["ok"]:
+            logger.warning(
+                "serve.weights_quant_gate refused the %s stack: max abs margin dev "
+                "%.3e > gate %.3e; serving the f32 stack", wp, dev, tol,
+            )
+            self.weights_record = {"requested": wp, "used": "f32", "gate": gate}
+            return
+        with self._tenant_lock:
+            self._weights_precision = wp
+            try:
+                self._publish()
+            except BaseException:
+                self._weights_precision = "f32"
+                raise
+        self.weights_record = {"requested": wp, "used": wp, "gate": gate}
+        logger.info("serve.weights_quant promoted %s (%d resident bytes)", wp,
+                    self._resident_bytes)
+
     def _make_mega_program(self, precision: str):
         return serve_mega.make_serve_mega_multi_program(
             wavelet_index=self.wavelet_index, epoch_size=self.epoch_size,
             skip_samples=self.skip_samples, feature_size=self.feature_size,
             n_channels=self.n_channels, pre=self.pre, post=self.post,
-            capacity=self.capacity,
+            capacity=self.capacity, weights_precision=self._weights_precision,
         )
 
     def _gate_lanes(self, n: int) -> np.ndarray:
@@ -421,6 +560,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             super()._mega_warmup(precision)
         finally:
             self._batch = None
+            self.mega_record["weights_precision"] = self._weights_precision
 
 
 class MultiplexedService(service_mod.InferenceService):
@@ -622,4 +762,6 @@ class MultiplexedService(service_mod.InferenceService):
         block["tenant_quota"] = self.config.tenant_quota
         block["resident_weight_bytes"] = self.engine.resident_weight_bytes
         block["weights_precision"] = self.engine.weights_precision
+        if self.engine.weights_record is not None:
+            block["weights"] = dict(self.engine.weights_record)
         return block

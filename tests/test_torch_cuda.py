@@ -811,3 +811,277 @@ def test_ingest_kernel_on_long_baselines(dtype, C, pre):
     want = device_ingest.ingest_features_plain(raw, res, starts, _operator(dev), pre=pre)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# The generic engine (csrc/window_features.cuh run_windows_any): every
+# window and coefficient count but the main path's 512 / 16, at every rung
+# of K1, K5 and K6; and the quantized tenant stack's K6-w8 and K6-w4.
+
+# (epoch_size, feature_size, skip): the sizes chip_smoke.py runs, then a
+# coefficient count of 1, one that is not a multiple of 16, windows under
+# 128 samples, and a count past 256 (more than one tile of coefficients)
+GENERIC_SIZES = [(256, 16, 175), (512, 64, 175), (333, 20, 100), (700, 32, 50), (1, 1, 0),
+                 (100, 3, 7), (16, 16, 0), (600, 300, 10)]
+
+
+def _operator_of(dev, n, K):
+    return torch.from_numpy(dwt.cascade_matrix(8, n, K).astype(np.float32)).to(dev)
+
+
+def _generic_counters():
+    return (ingest_cuda.ANY_LAUNCHES, ingest_cuda.ANY_LAUNCHES_F32,
+            ingest_cuda.ANY_LAUNCHES_BF16, ingest_cuda.ANY_LAUNCHES_INT8,
+            ingest_cuda.ANY_LAUNCHES_INT4, ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,skip", GENERIC_SIZES)
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_generic_ingest_matches_plain_at_every_rung(n, K, skip, dtype):
+    """K1's generic engine at each rung against its plain version: f32 and
+    bf16 within 2e-6, the int8/int4 quantize equal bit for bit to the
+    plain quantizer on the kernel's own f32 rows; windows past the end
+    give zero rows; each launch counts in its generic counter alone."""
+    dev = _card()
+    S = 20_000
+    raw = torch.from_numpy(_samples(dtype, 3, S, seed=n + K, dc=15000)).to(dev)
+    res = torch.from_numpy(_res(dtype, 3)).to(dev)
+    W = _operator_of(dev, n, K)
+    starts = torch.tensor([-120, 0, 7, 4999, 13_001, S - n - 40, S - 3, S], dtype=torch.int32,
+                          device=dev)
+    before = _generic_counters()
+    f32 = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, "f32", n, K)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, res, starts, W, 100, skip)
+    assert f32.shape == want.shape == (8, 3 * K)
+    assert (f32 - want).abs().max().item() <= 2e-6
+    assert (f32[-1] == 0).all()
+    bf16 = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, "bf16", n, K)
+    want = device_ingest.ingest_features_plain(raw, res, starts, W, 100, skip, "bf16")
+    assert (bf16 - want).abs().max().item() <= 2e-6
+    for precision, qmax in (("int8", 127.0), ("int4", 7.0)):
+        q = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, precision, n, K)
+        plain_q = decode_ingest.quantize_dequantize(f32.cpu(), K, qmax)[0]
+        assert q.cpu().numpy().tobytes() == plain_q.numpy().tobytes()
+    after = _generic_counters()
+    f32_counter = 1 if dtype == "float32" else 0
+    assert after[f32_counter] == before[f32_counter] + 1
+    assert [a - b for a, b in zip(after[2:5], before[2:5])] == [1, 1, 1]
+    assert after[5:] == before[5:]  # the ring's counters: no launch
+
+
+def _generic_mega_inputs(dev, n, K, skip, capacity, count, seed):
+    stride = serve_mega.padded_stride(100, 750)
+    rng = np.random.RandomState(seed)
+    windows = [(rng.randint(-3000, 3000, size=(3, 850)) + np.array([[15000], [-12000], [9000]]))
+               .astype(np.int16) for _ in range(count)]
+    stream = serve_mega.stage_mega_stream(windows, 3, 850, stride, capacity)
+    return (torch.from_numpy(stream).to(dev), torch.from_numpy(RES).to(dev),
+            _operator_of(dev, n, K), stride, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,skip", GENERIC_SIZES)
+def test_generic_mega_and_k6_match_plain(n, K, skip):
+    """K5's generic engine (f32, int8, int4) and K6's (f32 stack) at a
+    size off the main path: f32 margins within 2e-6 * ||w||_1 of the plain
+    version, int8/int4 within it of the quantized generic ingest rows
+    dotted with w; K6 bit-equal per lane to K5 with that lane's weights;
+    padded rows exactly 0."""
+    dev = _card()
+    capacity, count = 128, 77
+    stream, res, W, stride, rng = _generic_mega_inputs(dev, n, K, skip, capacity, count, n + K)
+    weights = torch.from_numpy(rng.randn(3 * K).astype(np.float32)).to(dev)
+    tol = 2e-6 * weights.abs().sum().item()
+    starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    for precision in ("f32", "int8", "int4"):
+        got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
+                                                 precision, n, K)
+        torch.cuda.synchronize()
+        if precision == "f32":
+            want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, skip,
+                                                       stride)
+        else:
+            want = ingest_cuda.ingest_features(stream, res, starts, W, 100, skip, precision, n,
+                                               K) @ weights
+        assert (got - want).abs().max().item() <= tol
+        assert (got[count:] == 0).all()
+    stack = torch.from_numpy(rng.randn(serve_mega.MAX_TENANTS, 3 * K).astype(np.float32)).to(dev)
+    lanes = torch.from_numpy(np.where(np.arange(capacity) < count,
+                                      rng.randint(0, 128, capacity), 0).astype(np.int32))
+    multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, skip,
+                                                     stride, n, K).cpu()
+    plain = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, 100, skip,
+                                                      stride).cpu()
+    l1 = stack.abs().sum(dim=1).cpu()[lanes.long()]
+    assert ((multi - plain).abs() <= 2e-6 * l1).all()
+    for lane in np.unique(lanes.numpy()[:count])[:6]:
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100, skip,
+                                                  stride, "f32", n, K).cpu()
+        rows = np.nonzero(lanes.numpy()[:count] == lane)[0]
+        assert multi[rows].numpy().tobytes() == solo[rows].numpy().tobytes()
+    assert (multi[count:] == 0).all()
+
+
+def _packed_stack(dev, rng, terms, wp):
+    """A random (d, 128) host mirror with a freed (zero) lane, quantized
+    (quant.quantize_weight_stack), as the engine keeps it on the card:
+    tenant-major packed rows and scales; and the dequantized f32 stack."""
+    w = rng.randn(terms, serve_mega.MAX_TENANTS).astype(np.float32)
+    w[:, 5] = 0.0
+    packed_np, scales_np = quant.quantize_weight_stack(w, wp)
+    packed = torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev)
+    scales = torch.from_numpy(scales_np).to(dev)
+    deq = quant.dequantize_weight_stack(packed.t(), scales, wp, terms).t().contiguous()
+    return packed, scales, deq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp", ["int8", "int4"])
+@pytest.mark.parametrize("capacity,count", [(64, 1), (64, 64), (4096, 4096)])
+def test_packed_k6_is_bit_equal_to_k6_on_the_dequantized_stack(wp, capacity, count):
+    """K6-w8 / K6-w4 at 1, 64 and 4,096 windows: margins bit-equal to K6
+    on the dequantized f32 stack (dequantized on the card), lanes cycling
+    over all 128; padded rows and the freed lane exactly 0; each launch
+    counted in its own counter."""
+    dev = _card()
+    stream, res, W, _w, stride = _mega_inputs(dev, capacity, count, (15000, -12000, 9000), 3000,
+                                              seed=count)
+    rng = np.random.RandomState(capacity + count)
+    packed, scales, deq = _packed_stack(dev, rng, 48, wp)
+    lanes = torch.from_numpy(np.where(np.arange(capacity) < count, np.arange(capacity) % 128,
+                                      0).astype(np.int32))
+    counter = {"int8": "MULTI_LAUNCHES_INT8", "int4": "MULTI_LAUNCHES_INT4"}[wp]
+    before = getattr(serve_mega_cuda, counter)
+    got = serve_mega_cuda.serve_mega_multi_packed_margins(stream, res, W, packed, scales, lanes,
+                                                          100, 175, stride, wp)
+    torch.cuda.synchronize()
+    assert getattr(serve_mega_cuda, counter) == before + 1
+    f32 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, 175, stride)
+    assert got.cpu().numpy().tobytes() == f32.cpu().numpy().tobytes()
+    plain = serve_mega.serve_mega_multi_packed_margins_plain(stream, res, W, packed, scales,
+                                                             lanes, 100, 175, stride, wp)
+    l1 = deq.abs().sum(dim=1)[lanes.to(dev).long()]
+    assert ((got - plain).abs() <= 2e-6 * l1).all()
+    assert (got[count:] == 0).all() and (got[:count][lanes[:count].to(dev) == 5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp", ["int8", "int4"])
+@pytest.mark.parametrize("n,K,skip", GENERIC_SIZES[:4] + [(100, 3, 7)])
+def test_packed_k6_at_generic_sizes(wp, n, K, skip):
+    """K6-w8 / K6-w4 through the generic engine: bit-equal to the generic
+    K6 on the dequantized stack (int4 needs an even term count: 3 x 3
+    terms raises before any launch)."""
+    dev = _card()
+    capacity, count = 128, 100
+    stream, res, W, stride, rng = _generic_mega_inputs(dev, n, K, skip, capacity, count, K)
+    lanes = torch.from_numpy((np.arange(capacity) % 128).astype(np.int32))
+    if wp == "int4" and (3 * K) % 2:
+        packed = torch.zeros((128, 4), dtype=torch.uint8, device=dev)
+        with pytest.raises(ValueError, match="even number of terms"):
+            serve_mega_cuda.serve_mega_multi_packed_margins(
+                stream, res, W, packed, torch.ones(128, device=dev), lanes, 100, skip, stride,
+                wp, n, K)
+        return
+    packed, scales, deq = _packed_stack(dev, rng, 3 * K, wp)
+    before = getattr(serve_mega_cuda, f"ANY_MULTI_LAUNCHES_{wp.upper()}")
+    got = serve_mega_cuda.serve_mega_multi_packed_margins(stream, res, W, packed, scales, lanes,
+                                                          100, skip, stride, wp, n, K)
+    f32 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, skip, stride,
+                                                   n, K)
+    torch.cuda.synchronize()
+    assert getattr(serve_mega_cuda, f"ANY_MULTI_LAUNCHES_{wp.upper()}") == before + 1
+    assert got.cpu().numpy().tobytes() == f32.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_packed_wrapper_checks_before_launching():
+    """A bad packed shape, dtype or contiguity, or bad scales, raise
+    before the launch (no counter moves)."""
+    dev = _card()
+    stream, res, W, _w, stride = _mega_inputs(dev, 64, 3, (0, 0, 0), 3000, seed=0)
+    packed, scales, _deq = _packed_stack(dev, np.random.RandomState(0), 48, "int8")
+    lanes = torch.zeros(64, dtype=torch.int32)
+    call = serve_mega_cuda.serve_mega_multi_packed_margins
+    before = serve_mega_cuda.MULTI_LAUNCHES_INT8 + serve_mega_cuda.MULTI_LAUNCHES_INT4
+    bad = {
+        "packed must be \\(128, 48\\) int8": (packed.to(torch.uint8), scales, "int8"),
+        "packed must be \\(128, 24\\) uint8": (packed.to(torch.uint8), scales, "int4"),
+        "packed must be contiguous": (packed.t().contiguous().t(), scales, "int8"),
+        "scales must be": (packed, scales[:64], "int8"),
+        "scales must be a contiguous": (packed, scales.double(), "int8"),
+        "no packed stack": (packed, scales, "f32"),
+        "packed is on cpu": (packed.cpu(), scales, "int8"),
+    }
+    for match, (p, s, wp) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            call(stream, res, W, p, s, lanes, 100, 175, stride, wp)
+    assert serve_mega_cuda.MULTI_LAUNCHES_INT8 + serve_mega_cuda.MULTI_LAUNCHES_INT4 == before
+
+
+@pytest.mark.cuda
+def test_oversized_row_raises_a_value_error_naming_the_sizes():
+    """76 channels x 745 coefficients at a 750-sample window: the row
+    does not fit a block's shared memory; each generic wrapper raises a
+    ValueError naming the sizes and counts no launch. 76 x 16 at 256
+    samples runs."""
+    dev = _card()
+    C = 76
+    raw = torch.from_numpy(_samples("int16", C, 3000, seed=1)).to(dev)
+    res = torch.full((C,), 0.1, device=dev)
+    starts = torch.tensor([0, 1000], dtype=torch.int32, device=dev)
+    before = _generic_counters()
+    with pytest.raises(ValueError, match="76 channels x 745 coefficients at epoch_size 750"):
+        ingest_cuda.ingest_features(raw, res, starts, _operator_of(dev, 750, 745), 100, 0,
+                                    "f32", 750, 745)
+    assert _generic_counters() == before
+    got = ingest_cuda.ingest_features(raw, res, starts, _operator_of(dev, 256, 16), 100, 175,
+                                      "f32", 256, 16)
+    want = device_ingest.ingest_features_plain(raw, res, starts, _operator_of(dev, 256, 16), 100,
+                                               175)
+    assert (got - want).abs().max().item() <= 2e-6
+    stride = 1024
+    stream = torch.from_numpy(_samples("int16", C, 2 * stride, seed=2)).to(dev)
+    with pytest.raises(ValueError, match="76 channels x 745 coefficients at epoch_size 750"):
+        serve_mega_cuda.serve_mega_margins(stream, res, _operator_of(dev, 750, 745),
+                                           torch.zeros(C * 745, device=dev), 100, 0, stride,
+                                           "f32", 750, 745)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre,post", [(1, 511), (37, 400), (250, 1000), (2800, 300)])
+def test_generic_engine_at_other_baselines_and_strides(pre, post):
+    """Baselines and serve geometries off the main path's (pre 100, post
+    750): K1's generic engine within 2e-6 of its plain version, K5's and
+    K6's within MEGA_GATE_TOL, at a (256, 16) window that fits each
+    padded stride (pre + skip + 256 <= stride)."""
+    dev = _card()
+    n, K = 256, 16
+    stride = serve_mega.padded_stride(pre, post)
+    skip = min(175, stride - pre - n)
+    W = _operator_of(dev, n, K)
+    raw = torch.from_numpy(_samples("int16", 3, 20_000, seed=pre, dc=12000)).to(dev)
+    res = torch.from_numpy(RES).to(dev)
+    starts = torch.tensor([-50, 0, 999, 17_000, 19_990, 20_000], dtype=torch.int32, device=dev)
+    got = ingest_cuda.ingest_features(raw, res, starts, W, pre, skip, "f32", n, K)
+    want = device_ingest.ingest_features_plain(raw, res, starts, W, pre, skip)
+    assert (got - want).abs().max().item() <= 2e-6
+    rng = np.random.RandomState(pre)
+    windows = [_samples("int16", 3, pre + post, seed=pre + i, dc=9000) for i in range(9)]
+    stream = torch.from_numpy(serve_mega.stage_mega_stream(windows, 3, pre + post, stride,
+                                                           64)).to(dev)
+    weights = torch.from_numpy(rng.randn(48).astype(np.float32)).to(dev)
+    margins = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, pre, skip, stride,
+                                                 "f32", n, K)
+    plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, pre, skip, stride)
+    assert (margins - plain).abs().max().item() <= serve_mega.MEGA_GATE_TOL
+    stack = torch.from_numpy(rng.randn(128, 48).astype(np.float32)).to(dev)
+    lanes = torch.from_numpy((np.arange(64) * 7 % 128).astype(np.int32))
+    multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, pre, skip,
+                                                     stride, n, K)
+    plain = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, pre, skip,
+                                                      stride)
+    assert (multi - plain).abs().max().item() <= serve_mega.MEGA_GATE_TOL
+    assert (margins[9:] == 0).all() and (multi[9:] == 0).all()

@@ -11,7 +11,11 @@ Tolerances:
   Pallas kernel in interpret mode: 5e-7, the tolerance of
   ``tests/test_pallas_dwt.py``, for windows of up to 512 samples; 1e-6
   for longer ones (see the test); against the float64 host path: 5e-5
-  (float32 single rounding against float64), as there.
+  (float32 single rounding against float64), as there;
+- ``xla-bf16`` and ``xla-compact-bf16`` against the JAX package's:
+  ``BF16_GATE_TOL`` (5e-3), the JAX package's own bound for its bf16
+  rung (the two follow one dtype sequence and agree far closer on the
+  CPU; the deviation is printed with ``-s``).
 """
 
 import numpy as np
@@ -155,9 +159,19 @@ def test_registry_unknown_names_raise_reference_message(name):
 @pytest.mark.parametrize("name", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16", "dwt-8:level=4",
                                   "dwt-4:level=3:stats=energy"])
 def test_registry_unported_spellings_raise(name):
-    jax_registry.create(name)  # the reference runs them
-    with pytest.raises(ValueError, match="not yet ported"):
-        _port(name)
+    """The subband grammar is not ported and raises. The bf16 spellings
+    raised here until they were ported: they now resolve to the JAX
+    package's backend, configuration and cache identity."""
+    theirs = jax_registry.create(name)  # the reference runs them
+    if "bf16" not in name:
+        with pytest.raises(ValueError, match="not yet ported"):
+            _port(name)
+        return
+    ours = _port(name)
+    assert (ours.name, ours.epoch_size, ours.skip_samples, ours.feature_size, ours.channels,
+            ours.backend) == (theirs.name, theirs.epoch_size, theirs.skip_samples,
+                              theirs.feature_size, theirs.channels, theirs.backend)
+    assert ours.cache_id() == theirs.cache_id() and ours.cache_id()[-1] == "bf16"
 
 
 def test_registry_register_adds_a_name():
@@ -370,3 +384,68 @@ def test_kernel_wrapper_rejects_bad_inputs_and_runs_plain_on_cpu():
     out = dwt_cuda.epoch_features_cuda(good)
     assert dwt_cuda.LAUNCHES == before
     assert out.shape == (2, 48) and not out.any()  # all-zero epochs, zero rows
+
+
+@pytest.mark.parametrize("spelling", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16",
+                                      "dwt-4-tpu-bf16"])
+@pytest.mark.parametrize("C", [3, 5])
+def test_bf16_backends_match_jax(spelling, C):
+    """The bf16 extractors against the JAX package's on the same float64
+    epochs (5 channels: the configured three selected), within the bf16
+    gate; float32 rows ~2e-3 from the float32 backend's."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+
+    ep = _epochs(21, C, seed=C + len(spelling))
+    ours = _port(spelling).extract_batch(ep)
+    theirs = np.asarray(jax_registry.create(spelling).extract_batch(ep))
+    f32 = _port(spelling.replace("-bf16", "")).extract_batch(ep).numpy()
+    dev = float(np.max(np.abs(ours.numpy() - theirs)))
+    print(f"\n{spelling} C={C}: {dev:.3e} from the JAX package, "
+          f"{float(np.max(np.abs(ours.numpy() - f32))):.3e} from float32")
+    assert ours.dtype == torch.float32 and ours.shape == theirs.shape == (21, 48)
+    assert dev <= decode_ingest.BF16_GATE_TOL
+    assert 0 < np.max(np.abs(ours.numpy() - f32)) <= decode_ingest.BF16_GATE_TOL
+
+
+def test_bf16_extractors_cast_on_the_host_and_return_float32(monkeypatch):
+    """Only the bf16 buffer goes to the device: the extractor receives a
+    bfloat16 tensor (for the compact form, the sliced window), and the
+    rows come back float32."""
+    seen = []
+    for backend, width in (("xla-bf16", 750), ("xla-compact-bf16", 512)):
+        fe = wavelet.WaveletTransform(backend=backend, device="cpu")
+        fe.extract_batch(_epochs(2, seed=1))  # builds the extractor
+        inner = fe._extractor
+        fe._extractor = lambda x, inner=inner: seen.append((x.dtype, x.shape[-1])) or inner(x)
+        assert fe.extract_batch(_epochs(2, seed=1)).dtype == torch.float32
+        assert seen[-1] == (torch.bfloat16, width)
+
+
+@pytest.mark.parametrize("spelling", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16"])
+def test_bf16_spellings_run_end_to_end_like_the_jax_package(spelling, tmp_path, monkeypatch,
+                                                            capsys):
+    """``PipelineBuilder(…&fe=dwt-8-tpu-bf16&train_clf=logreg)`` and the CLI
+    on a synthetic session: the statistics equal the JAX package's run.
+    The CLI runs on the card; here its builder is pinned to the CPU."""
+    import functools
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    from eeg_dataanalysispackage_tpu.pipeline.builder import PipelineBuilder as JaxBuilder
+    from eeg_dataanalysispackage_tpu_torch.pipeline import cli
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+
+    info = _synthetic.write_session(str(tmp_path))
+    query = f"info_file={info}&fe={spelling}&train_clf=logreg"
+    ours = PipelineBuilder(query, device="cpu")
+    stats = ours.execute()
+    assert ours.fe.backend.endswith("-bf16")
+    assert str(stats) == str(JaxBuilder(query + "&cache=false").execute())
+    monkeypatch.setattr(cli.builder, "PipelineBuilder",
+                        functools.partial(PipelineBuilder, device="cpu"))
+    capsys.readouterr()
+    assert cli.main([query]) == 0
+    assert capsys.readouterr().out == str(stats)

@@ -6,7 +6,9 @@ package's Pallas kernels in interpret mode and against its CPU decode
 rung, on the same numpy inputs.
 
 Tolerances: 1e-6 against ``exact`` and the decode ``slice`` rung (both
-subtract the baseline first; only summation orders differ), 5e-5
+subtract the baseline first; only summation orders differ; also at
+windows and coefficient counts off the main path, which the kernel's
+generic engine computes), 5e-5
 against ``bank128`` and ``aligned8`` (the JAX package's two-term
 formulations, whose own tolerance class is 5e-5). The DC-heavy stream
 is the JAX package's own DC-offset fixture shape
@@ -183,10 +185,17 @@ def test_wrapper_rejects_bad_inputs():
         ingest_cuda.ingest_features(raw[:, ::2], res, starts, W)  # not contiguous
     with pytest.raises(ValueError):
         ingest_cuda.ingest_features_cuda(raw, res, np.array([50]))  # start < 0
-    with pytest.raises(ValueError):
-        ingest_cuda.make_cuda_ingest_featurizer(epoch_size=256)(
-            raw, res, np.zeros(64, np.int32), np.zeros(64, bool)
-        )
+    # a 256-sample window was refused here until the kernels took any
+    # size; it now runs (every row masked: zero rows), and a coefficient
+    # count past the cascade's columns raises before any work
+    rows = ingest_cuda.make_cuda_ingest_featurizer(epoch_size=256)(
+        raw, res, np.zeros(64, np.int32), np.zeros(64, bool)
+    )
+    assert rows.shape == (64, 48) and bool((rows == 0).all())
+    with pytest.raises(ValueError, match="exceeds the 128 coefficients"):
+        ingest_cuda.make_cuda_ingest_featurizer(epoch_size=128, feature_size=200)
+    with pytest.raises(ValueError, match=r"operator must be \(256, 16\)"):
+        ingest_cuda.ingest_features(raw, res, starts, W, epoch_size=256)
 
 
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
@@ -194,3 +203,35 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     _port(_stream("random"), _positions("single", 30000))
     assert ingest_cuda.LAUNCHES == before
 
+
+
+# (epoch_size, feature_size, skip) off the main path: the sizes of
+# chip_smoke.py, a count of 1, one that is not a multiple of 16, windows
+# under 128 samples
+GENERIC_SIZES = [(256, 16, 175), (512, 64, 175), (333, 20, 100), (700, 32, 50), (1, 1, 0),
+                 (100, 3, 7), (16, 16, 0)]
+
+
+@pytest.mark.parametrize("n,K,skip", GENERIC_SIZES)
+def test_plain_version_at_any_size_matches_jax(n, K, skip):
+    """The wrapper's plain version at other windows and coefficient
+    counts against the JAX package's ``exact`` Pallas kernel (interpret
+    mode) and its XLA featurizer at the same sizes: 1e-6."""
+    from eeg_dataanalysispackage_tpu.ops import device_ingest as jax_device_ingest
+
+    raw = _stream("dc_heavy", seed=n + K)
+    positions = _positions("overhang", raw.shape[1])
+    ours = ingest_cuda.ingest_features_cuda(torch.from_numpy(raw), torch.from_numpy(RES),
+                                            positions, 8, n, skip, K).numpy()
+    exact = np.asarray(ingest_pallas.ingest_features_pallas(
+        raw, RES, positions, 8, n, skip, K, chunk=8192, tile_b=8, interpret=True,
+        mode="exact"))
+    featurize = jax_device_ingest.make_device_ingest_featurizer(8, n, skip, K, pre=100, post=750)
+    cap = 64 * (-(-len(positions) // 64))
+    pos = np.zeros(cap, np.int32)
+    pos[:len(positions)] = positions
+    mask = np.arange(cap) < len(positions)
+    xla = np.asarray(featurize(raw, RES, pos, mask))[:len(positions)]
+    assert ours.shape == exact.shape == (len(positions), 3 * K)
+    assert np.max(np.abs(ours - exact)) <= 1e-6
+    assert np.max(np.abs(ours - xla)) <= 1e-6

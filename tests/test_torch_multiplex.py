@@ -34,7 +34,8 @@ from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
 from eeg_dataanalysispackage_tpu_torch.io import deadline as deadline_mod
 from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
 from eeg_dataanalysispackage_tpu_torch.models import registry
-from eeg_dataanalysispackage_tpu_torch.ops import cuda_build, serve_mega, serve_mega_cuda
+from eeg_dataanalysispackage_tpu.ops import quant as jax_quant
+from eeg_dataanalysispackage_tpu_torch.ops import cuda_build, quant, serve_mega, serve_mega_cuda
 from eeg_dataanalysispackage_tpu_torch.serve import (
     InferenceService,
     MultiplexedEngine,
@@ -418,10 +419,17 @@ def test_refused_tenants_carry_the_jax_package_message(session, jax_tenants):
 
 @pytest.mark.parametrize("precision", ["int8", "int4"])
 def test_quantized_weight_stack_is_not_yet_ported(tenants, precision):
-    with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
-        MultiplexedEngine(tenants, weights_precision=precision, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
-        MultiplexedService(tenants, weights_precision=precision, device="cpu")
+    """The quantized stack was refused here until it was ported; it now
+    builds, and warmup promotes it: the engine and the service run at
+    the requested precision with the packed stack resident (6,656 B at
+    int8, 3,584 B at int4), and ``not yet ported`` is raised no more."""
+    nbytes = {"int8": 48 * 128 + 128 * 4, "int4": 48 // 2 * 128 + 128 * 4}[precision]
+    eng = _engine(tenants, weights_precision=precision)
+    assert eng.weights_precision == precision and eng.resident_weight_bytes == nbytes
+    svc = MultiplexedService(tenants, weights_precision=precision, device="cpu")
+    svc.engine.warmup()
+    assert svc.engine.weights_precision == precision
+    assert svc.stats_block()["resident_weight_bytes"] == nbytes
 
 
 def test_no_silent_cpu_without_cuda(tenants):
@@ -715,3 +723,286 @@ def test_serve_tenant_quota_is_read_from_the_query(query):
     want = jax_serve_pipeline.serve_config_from_query(query).tenant_quota
     assert serve_pipeline.serve_config_from_query(query).tenant_quota == want
     assert want == (8 if query.get("serve_tenant_quota") == "8" else None)
+
+
+# -- the quantized tenant stack (weights_precision=int8|int4) -----------------
+
+
+def _keys(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= _keys(v, prefix + k + ".")
+    return out
+
+
+@pytest.mark.parametrize("rung", ["auto", "fused"])
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_quantized_engine_matches_jax_quantized_engine(session, tenants, jax_tenants, rung,
+                                                       precision):
+    """Both packages' engines at the same weights_precision: the stack
+    promoted in both, the same resident bytes, weights records with the
+    same keys and decision, margins within MEGA_GATE_TOL, predictions
+    equal except near-threshold rows. ``auto`` is K6-w8/w4's plain
+    version here."""
+    windows, res = session["windows"], session["resolutions"]
+    mix = _mix(len(windows))
+    ours = _engine(tenants, engine_rung=rung, weights_precision=precision)
+    theirs = JaxMultiplexedEngine(jax_tenants, capacity=64, engine_rung=rung,
+                                  weights_precision=precision)
+    theirs.warmup()
+    assert ours.rung == theirs.rung
+    assert ours.weights_precision == theirs.weights_precision == precision
+    assert ours.resident_weight_bytes == theirs.resident_weight_bytes
+    assert _keys(ours.weights_record) == _keys(theirs.weights_record)
+    assert ours.weights_record["used"] == theirs.weights_record["used"] == precision
+    assert ours.weights_record["gate"]["tolerance"] == theirs.weights_record["gate"]["tolerance"]
+    if rung == "auto":
+        assert ours.mega_record["weights_precision"] == precision
+    p_ours, m_ours = ours.execute(windows, res, mix)
+    p_theirs, m_theirs = theirs.execute(windows, res, mix)
+    dev = float(np.max(np.abs(m_ours - m_theirs)))
+    print(f"\n{precision} {rung}: max margin deviation from the JAX package {dev:.3e}")
+    assert dev <= serve_mega.MEGA_GATE_TOL
+    thresholds = [tenants[t].margin_threshold for t in mix]
+    _near_threshold_only(p_ours, m_ours, p_theirs, m_theirs, thresholds)
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_quantized_stack_gate_promotes_with_margin_parity(session, tenants, precision):
+    """The JAX package's promotion scenario: the gate promotes, every
+    tenant's margins sit within the weights tolerance of the f32
+    engine's, and predictions agree wherever the f32 margin clears it;
+    the packed stack is resident, its bytes those of the JAX package's
+    quantizer transposed to tenant-major."""
+    multi = _engine(tenants, weights_precision=precision)
+    rec = multi.weights_record
+    assert rec["requested"] == rec["used"] == precision
+    gate = rec["gate"]
+    assert gate["ok"] and gate["max_abs_dev"] <= gate["tolerance"] and gate["rows_checked"] == 16
+    packed, scales = jax_quant.quantize_weight_stack(multi._w_host, precision)
+    stack = multi._stack
+    assert stack.weights is None and stack.weights_precision == precision
+    assert stack.packed.numpy().tobytes() == np.ascontiguousarray(packed.T).tobytes()
+    assert stack.scales.numpy().tobytes() == scales.tobytes()
+    f32 = _engine(tenants)
+    assert f32.resident_weight_bytes == 48 * 128 * 4
+    windows, res = session["windows"][:12], session["resolutions"]
+    mix = _mix(12)
+    qp, qm = multi.execute(windows, res, mix)
+    fp, fm = f32.execute(windows, res, mix)
+    tol = quant.weights_gate_tolerance(precision, multi._w_host)
+    assert float(np.max(np.abs(qm - fm))) <= tol
+    clear = np.abs(fm) > tol
+    np.testing.assert_array_equal(qp[clear], fp[clear])
+
+
+@pytest.mark.parametrize("rung", ["auto", "fused"])
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_quantized_stack_forced_off_is_identical_to_f32(session, tenants, monkeypatch, rung,
+                                                        precision):
+    """EEG_TPU_WEIGHTS_GATE_TOL=0 shuts the gate: the f32 stack stands,
+    recorded, and the margins equal a plain f32 engine's byte for byte."""
+    monkeypatch.setenv("EEG_TPU_WEIGHTS_GATE_TOL", "0")
+    multi = _engine(tenants, engine_rung=rung, weights_precision=precision)
+    assert multi.weights_precision == "f32"
+    rec = multi.weights_record
+    assert rec["requested"] == precision and rec["used"] == "f32"
+    assert rec["gate"]["ok"] is False and rec["gate"]["tolerance"] == 0.0
+    assert multi.resident_weight_bytes == 48 * 128 * 4 and multi._stack.packed is None
+    f32 = _engine(tenants, engine_rung=rung)
+    windows, res = session["windows"][:12], session["resolutions"]
+    mix = _mix(12)
+    qp, qm = multi.execute(windows, res, mix)
+    fp, fm = f32.execute(windows, res, mix)
+    assert qm.tobytes() == fm.tobytes()
+    np.testing.assert_array_equal(qp, fp)
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+def test_quantized_stack_admin_stays_quantized(session, tenants, precision):
+    """Add, swap and remove on a promoted stack build nothing, keep it
+    quantized, and touch no other lane: every other lane's packed bytes,
+    scale and margins stay as they were; the swapped tenant tracks its
+    new model within the weights tolerance."""
+    multi = _engine(tenants, weights_precision=precision)
+    windows, res = session["windows"][:9], session["resolutions"]
+    program, loaded = multi._mega_program, dict(cuda_build._LOADED)
+    before = multi._stack
+    _, alice_before = multi.execute(windows, res, ["alice"] * 9)
+    replacement = _tenant(session, 82)
+    multi.add_tenant("dave", _tenant(session, 81))
+    multi.swap_model(replacement, tenant="bob")
+    multi.remove_tenant("dave")
+    after = multi._stack
+    assert multi.weights_precision == precision and after.weights_precision == precision
+    assert multi._mega_program is program and dict(cuda_build._LOADED) == loaded
+    others = [lane for lane in range(128) if lane != 1]
+    assert after.packed[others].numpy().tobytes() == before.packed[others].numpy().tobytes()
+    assert after.scales[others].numpy().tobytes() == before.scales[others].numpy().tobytes()
+    _, alice_after = multi.execute(windows, res, ["alice"] * 9)
+    assert alice_after.tobytes() == alice_before.tobytes()
+    solo = ServingEngine(replacement, capacity=64, device="cpu")
+    solo.warmup()
+    _, sm = solo.execute(windows, res)
+    _, mm = multi.execute(windows, res, ["bob"] * 9)
+    assert float(np.max(np.abs(mm - sm))) <= quant.weights_gate_tolerance(precision,
+                                                                           multi._w_host)
+
+
+def test_quantized_batch_holds_its_snapshot_through_a_swap(session, tenants):
+    """A batch reads the published quantized stack once: a swap made
+    while it runs (here, from inside its margin step) publishes a new
+    stack that the batch does not see; the next batch does."""
+    multi = _engine(tenants, weights_precision="int8")
+    windows, res = session["windows"][:6], session["resolutions"]
+    _, want = multi.execute(windows, res, ["bob"] * 6)
+    inner = multi._mega_margins
+
+    def swap_then_margins(w, r):
+        multi.swap_model(_tenant(session, 90), tenant="bob")
+        return inner(w, r)
+
+    multi._mega_margins = swap_then_margins
+    _, got = multi.execute(windows, res, ["bob"] * 6)
+    multi._mega_margins = inner
+    assert got.tobytes() == want.tobytes()
+    _, later = multi.execute(windows, res, ["bob"] * 6)
+    assert later.tobytes() != want.tobytes()
+
+
+def test_failed_quantized_batch_fails_its_requests_and_the_stack_stays(session, tenants):
+    """No runtime step-down: a quantized batch whose kernel call fails is
+    retried by the batcher and then fails its requests with their
+    history; the stack stays quantized and the next batch is served."""
+    svc = MultiplexedService(tenants, weights_precision="int4", device="cpu",
+                             config=ServeConfig(max_batch=16, max_attempts=2,
+                                                retry_backoff_s=0.0))
+    svc.engine.warmup()
+    program = svc.engine._mega_program
+
+    def failing(*args):
+        raise RuntimeError("injected K6-w4 fault")
+
+    windows, res = session["windows"][:3], session["resolutions"]
+    with svc:
+        svc.engine._mega_program = failing
+        futures = [svc.submit(w, res, tenant=t) for w, t in zip(windows, _NAMES)]
+        for f in futures:
+            with pytest.raises(batcher_mod.RequestFailedError, match="injected K6-w4 fault"):
+                f.result(timeout=_WAIT)
+        assert svc.engine.weights_precision == "int4" and svc.engine.rung == "mega"
+        svc.engine._mega_program = program
+        served = svc.predict_all(windows, res, list(_NAMES))
+        block = svc.stats_block()
+    assert block["requests"]["failed"] == 3 and block["requests"]["completed"] == 3
+    assert block["weights_precision"] == "int4" and block["weights"]["used"] == "int4"
+    _, want = svc.engine.execute(windows, res, list(_NAMES))
+    assert [r.margin for r in served] == [float(m) for m in want]
+
+
+def test_quantized_stack_raises_on_a_failed_build(tenants, monkeypatch):
+    """An exception while the quantized path is built or run at warmup
+    raises, and raises again on every later warmup (a service's start
+    warms up again): no fallback to the f32 stack is taken quietly. Once
+    the fault is gone, warmup promotes the stack."""
+    multi = MultiplexedEngine(tenants, capacity=64, weights_precision="int8", device="cpu")
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("injected quantizer fault")
+
+    monkeypatch.setattr(quant, "quantize_weight_stack", broken)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="injected quantizer fault"):
+            multi.warmup()
+        assert multi.weights_precision == "f32" and multi.weights_record is None
+    monkeypatch.undo()
+    multi.warmup()
+    assert multi.weights_precision == "int8"
+    assert multi.weights_record["used"] == "int8"
+
+
+def test_quantized_stack_raises_on_a_failed_publish(tenants, monkeypatch):
+    """A fault in the promoted stack's copy to the device raises on every
+    warmup and leaves the f32 stack, its precision and its resident
+    bytes as they were."""
+    multi = MultiplexedEngine(tenants, capacity=64, weights_precision="int4", device="cpu")
+    calls = []
+    real = multi._to_device
+
+    def broken(packed_np, scales_np):
+        calls.append(len(calls))
+        if len(calls) % 2 == 0:  # the gate's copy passes, the publish's fails
+            raise RuntimeError("injected copy fault")
+        return real(packed_np, scales_np)
+
+    monkeypatch.setattr(multi, "_to_device", broken)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="injected copy fault"):
+            multi.warmup()
+        assert multi.weights_precision == "f32" and multi.weights_record is None
+        assert multi.resident_weight_bytes == 24_576
+
+
+def test_quantized_service_stats_match_the_jax_package_schema(session, tenants, jax_tenants):
+    """The service's stats block carries the active precision, the full
+    weights record and the resident bytes under the JAX package's keys;
+    a junk weights_precision is refused with the JAX package's message."""
+    svc = MultiplexedService(tenants, config=ServeConfig(max_batch=16),
+                             weights_precision="int4", device="cpu")
+    svc.engine.warmup()
+    theirs = JaxMultiplexedService(jax_tenants, config=JaxServeConfig(max_batch=16),
+                                   weights_precision="int4")
+    theirs.engine.warmup()
+    with svc:
+        svc.predict_all(session["windows"][:3], session["resolutions"], list(_NAMES))
+        block = svc.stats_block()
+    jax_block = theirs.stats_block()
+    assert block["weights_precision"] == jax_block["weights_precision"] == "int4"
+    assert block["resident_weight_bytes"] == jax_block["resident_weight_bytes"] == 3584
+    assert _keys(block["weights"]) == _keys(jax_block["weights"])
+    assert block["weights"]["used"] == "int4" and block["weights"]["gate"]["ok"] is True
+    assert _keys(block["tenants"]["alice"]) == _keys(jax_block["tenants"]["alice"])
+    with pytest.raises(ValueError) as ours:
+        MultiplexedEngine(tenants, capacity=64, weights_precision="fp8", device="cpu")
+    with pytest.raises(ValueError) as want:
+        JaxMultiplexedEngine(jax_tenants, capacity=64, weights_precision="fp8")
+    assert str(ours.value) == str(want.value)
+
+
+def _generic_tenants(n_tenants, K, seed):
+    """Random float32 logreg tenants of C*K weights, as port and JAX
+    classifiers."""
+    rng = np.random.RandomState(seed)
+    ours, theirs = {}, {}
+    for i in range(n_tenants):
+        clf = jax_registry.create("logreg")
+        clf.weights = rng.randn(3 * K).astype(np.float32)
+        clf.intercept = float(rng.randn() * 0.1)
+        theirs[f"g{i}"] = clf
+        ours[f"g{i}"] = _port_of(clf)
+    return ours, theirs
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (333, 20, 100)])
+def test_engines_at_generic_sizes_match_jax(session, precision, n, K, skip):
+    """The multiplexed engine at a window and coefficient count off the
+    main path (the generic engine's plain version) against the JAX
+    package's engine at the same sizes and weights precision: margins
+    within MEGA_GATE_TOL on the mega rung."""
+    ours_t, theirs_t = _generic_tenants(4, K, seed=n + K)
+    kwargs = dict(epoch_size=n, feature_size=K, skip_samples=skip, capacity=64,
+                  weights_precision=precision)
+    ours = MultiplexedEngine(ours_t, device="cpu", **kwargs)
+    ours.warmup()
+    theirs = JaxMultiplexedEngine(theirs_t, **kwargs)
+    theirs.warmup()
+    assert ours.rung == theirs.rung == "mega"
+    assert ours.weights_precision == theirs.weights_precision == precision
+    windows, res = session["windows"][:20], session["resolutions"]
+    mix = [f"g{i % 4}" for i in range(20)]
+    _, m_ours = ours.execute(windows, res, mix)
+    _, m_theirs = theirs.execute(windows, res, mix)
+    assert float(np.max(np.abs(m_ours - m_theirs))) <= serve_mega.MEGA_GATE_TOL

@@ -138,15 +138,30 @@ def test_no_silent_cpu_without_cuda(one_file):
      "task=seizure", "cv=3", "elastic=true"],
 )
 def test_unported_keys_raise(one_file, extra):
+    if extra == "fe=dwt-8-tpu-bf16":
+        _bf16_spelling_runs_like_the_jax_package(one_file, "dwt-8-tpu-bf16")
+        return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     with pytest.raises(ValueError, match="not yet ported"):
         PipelineBuilder(q, device="cpu").execute()
 
 
-# the host fe= modes run (tests/test_torch_host_path.py); their bf16
-# spellings and the subband grammar do not
+def _bf16_spelling_runs_like_the_jax_package(info, fe):
+    """A host bf16 spelling, refused until it was ported, now runs: the
+    run's statistics equal the JAX package's."""
+    q = f"info_file={info}&fe={fe}&train_clf=logreg"
+    ours = PipelineBuilder(q, device="cpu")
+    assert str(ours.execute()) == str(JaxBuilder(q + "&cache=false").execute())
+    assert ours.fe.backend.endswith("-bf16")
+
+
+# the host fe= modes run (tests/test_torch_host_path.py), their bf16
+# spellings too; the subband grammar does not
 @pytest.mark.parametrize("fe", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16", "dwt-8:level=4"])
 def test_host_fe_modes_raise(one_file, fe):
+    if "bf16" in fe:
+        _bf16_spelling_runs_like_the_jax_package(one_file, fe)
+        return
     q = f"info_file={one_file}&fe={fe}&train_clf=logreg"
     with pytest.raises(ValueError, match="not yet ported"):
         PipelineBuilder(q, device="cpu").execute()

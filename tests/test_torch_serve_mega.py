@@ -141,3 +141,49 @@ def test_wrapper_checks_inputs_and_runs_plain_on_cpu():
     for match, args in bad.items():
         with pytest.raises(ValueError, match=match):
             serve_mega_cuda.serve_mega_margins(*args)
+
+
+# (epoch_size, feature_size, skip) off the main path: the sizes of
+# chip_smoke.py, a count of 1 and one that is not a multiple of 16
+_GENERIC = [(256, 16, 175), (512, 64, 175), (333, 20, 100), (700, 32, 50), (100, 3, 7)]
+
+
+@pytest.mark.parametrize("lowering", ["pallas", "xla"])
+@pytest.mark.parametrize("n,K,skip", _GENERIC)
+def test_plain_mega_margins_match_jax_at_any_size(n, K, skip, lowering):
+    """The megakernel program at other windows and coefficient counts
+    (the generic engine's plain version) against the JAX package's
+    program at the same sizes: within MEGA_GATE_TOL; padded rows 0."""
+    import jax
+
+    capacity = 64
+    weights = np.random.RandomState(n + K).randn(_C * K).astype(np.float32)
+    windows = _windows(9, seed=K)
+    stride = serve_mega.padded_stride(_PRE, _POST)
+    stream = serve_mega.stage_mega_stream(windows, _C, _WIN, stride, capacity)
+    got = serve_mega.make_serve_mega_program(8, n, skip, K, _C, _PRE, _POST, capacity)(
+        torch.from_numpy(stream), torch.from_numpy(_RES), torch.from_numpy(weights)).numpy()
+    want = np.asarray(jax_serve_mega.make_serve_mega_program(
+        8, n, skip, K, _C, _PRE, _POST, capacity, lowering=lowering, interpret=True,
+        donate=False)(jax.device_put(stream), _RES, weights))
+    dev = float(np.max(np.abs(got - want)))
+    print(f"mega ({n}, {K}) {lowering}: max abs dev {dev:.3e}")
+    assert dev <= serve_mega.MEGA_GATE_TOL
+    assert np.all(got[9:] == 0.0)
+
+
+def test_programs_refuse_a_feature_size_past_the_cascade_when_made():
+    """A coefficient count the window's cascade does not have raises when
+    the program is made, before any work, on the solo and the stacked
+    program; the wrapper checks the operator against the sizes asked."""
+    for make in (serve_mega.make_serve_mega_program, serve_mega.make_serve_mega_multi_program):
+        with pytest.raises(ValueError, match="exceeds the 128 coefficients"):
+            make(epoch_size=128, feature_size=200, skip_samples=0)
+    W = torch.from_numpy(dwt.cascade_matrix(8, 256, 16).astype(np.float32))
+    stream = torch.zeros((3, 896), dtype=torch.int16)
+    with pytest.raises(ValueError, match=r"operator must be \(512, 16\)"):
+        serve_mega_cuda.serve_mega_margins(stream, torch.ones(3), W, torch.ones(48), 100, 175,
+                                           896)
+    out = serve_mega_cuda.serve_mega_margins(stream, torch.ones(3), W, torch.ones(48), 100, 175,
+                                             896, "f32", 256, 16)
+    assert out.shape == (1,) and out.item() == 0.0
