@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths on the card — the fused batch run,
+Drives the port's paths on the card, from local paths and from a
+loopback remote store — the fused batch run,
 ``PipelineBuilder('info_file=…&fe=dwt-8-fused&train_clf=logreg').execute()``
 at f32 and at ``precision=bf16|int8|int4``, the host ``fe=`` batch run
 (``fe=dwt-8-pallas``, ``dwt-8``, ``dwt-8-tpu``, ``dwt-8-tpu-bf16``,
@@ -122,6 +123,23 @@ Phases, one JSON line each (several for phases 2 to 6):
    serving at a 256-sample window (a ServingEngine at f32/int8/int4 and a
    128-tenant MultiplexedEngine at f32/int8/int4: the generic K5 and K6
    instantiations' launches, margins against the CPU engines);
+5b. remote locations: the 8-recording session on a loopback object store
+   and WebHDFS namenode (``tests/_loopback.py``, one ``http.server`` on
+   127.0.0.1): ``info_file=hdfs://…&fe=dwt-8-fused`` with logreg, saving
+   its model to ``hdfs://`` (K1 once per recording; statistics equal to
+   phase 4's local run byte for byte), ``info_file=http://…&fe=dwt-8-pallas``
+   (K4 twice; equal to the local ``-pallas`` run), ``serve=true`` with
+   ``load_name=hdfs://…`` (K5; equal to the batch ``load_clf=`` run from
+   the same store), four tenants from a ``load_tenants`` spec over
+   ``http://`` in a ``MultiplexedService`` (K6; each tenant's margins bit
+   for bit those of a solo service), ``gs://`` through
+   ``GcsFileSystem(endpoint=…)`` (features bit-equal to the local run's),
+   the fused run again with the store failing every third request with a
+   500 and cutting one body in half (retries counted; statistics
+   unchanged), and a dead endpoint (its circuit opens after ``threshold``
+   exhausted budgets and the next call fails fast); parse seconds and
+   MB/s over loopback beside the local parse, the retry and ``circuit.*``
+   counters and each run's launches;
 6. timing (CUDA events around one wrapper call, median of 25; and the
    kernel's own device time from ``torch.profiler``, mean of 10, taken
    before the plain version runs, with the SM clock read just after) beside
@@ -1221,8 +1239,8 @@ def phase_host_path(np, info, counters):
     and svm, the host-float64 fe=dwt-8 and the on-card contraction
     -tpu, each against the port's CPU run; the -pallas logreg run's
     features against the plain version. Returns the epoch-features
-    kernel's launches over the -pallas logreg run and the features'
-    largest deviation."""
+    kernel's launches over the -pallas logreg run, the features'
+    largest deviation and the -pallas logreg run's builder."""
     runs = {}
     feat_err = None
     for fe in ("dwt-8-pallas", "dwt-8", "dwt-8-tpu"):
@@ -1244,7 +1262,7 @@ def phase_host_path(np, info, counters):
     for fe in ("dwt-8", "dwt-8-tpu"):
         if runs[(fe, "logreg")][2]["epoch_features"] != 0:
             raise AssertionError(f"{fe} launched the epoch-features kernel")
-    return k4, feat_err
+    return k4, feat_err, runs[("dwt-8-pallas", "logreg")][0]
 
 
 def phase_precision_runs(np, info, counters, f32_gpu, n_files):
@@ -2283,6 +2301,199 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
     return out
 
 
+def phase_remote(torch, np, info, model, local, counters, windows, resolutions, smi):
+    """The batch and serving paths with the session and the models on a
+    loopback object store and WebHDFS namenode (``tests/_loopback.py``,
+    one server on 127.0.0.1 with both faces): a fused run from
+    ``hdfs://`` saving its model there, the ``-pallas`` run from
+    ``http://``, ``serve=true`` with ``load_name=hdfs://``, four tenants
+    from a ``load_tenants`` spec over ``http://``, ``gs://`` through
+    ``GcsFileSystem(endpoint=…)``, the fused run again with the store
+    failing every third request and cutting one body in half, and a dead
+    endpoint opening its circuit breaker. ``local`` holds phase 4's
+    statistics (``fused``, ``pallas``) and parse seconds. Every
+    statistics string must equal its local run's byte for byte."""
+    import socket
+
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.io import circuit, remote
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+    from eeg_dataanalysispackage_tpu_torch.obs import events
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService, MultiplexedService
+    from eeg_dataanalysispackage_tpu_torch.serve import pipeline as serve_pipeline
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _loopback
+
+    for name in ("WEBHDFS_ENDPOINT", "WEBHDFS_USER", "HDFS_DRIVER"):
+        os.environ.pop(name, None)  # the fake answers on the URI's own authority
+    circuit.reset()
+    obs.metrics.reset()
+    launches = {}
+
+    def check(label, got, want):
+        if got != want:
+            raise AssertionError(f"remote {label}: statistics differ from the local run:\n"
+                                 f"{got}\n--- local ---\n{want}")
+
+    with _loopback.Server() as srv:
+        store = srv.store
+        t0 = time.perf_counter()
+        store.add_tree(os.path.dirname(info), "/data")
+        emit("remote_store", authority=srv.authority, files=len(store.files),
+             store_mb=sum(len(v) for v in store.files.values()) / 1e6,
+             seconds=time.perf_counter() - t0)
+        hdfs, http = f"hdfs://{srv.authority}", srv.base
+        parse = {}
+
+        def remote_run(label, query):
+            store.bytes_sent = 0
+            if "&serve=true" in query:
+                for module, attr in counters.values():
+                    setattr(module, attr, 0)
+                builder = PipelineBuilder(query)
+                stats = builder.execute()
+                counts = {k: getattr(m, a) for k, (m, a) in counters.items()}
+            else:
+                builder, stats, counts = run_builder(label, query, None, counters)
+            # the serving path reads the session in its ingest stage
+            parse[label] = builder.timers["parse" if "parse" in builder.timers else "ingest"]
+            emit("remote_parse", run=label, parse_s=parse[label], mb=store.bytes_sent / 1e6,
+                 mb_per_s=store.bytes_sent / 1e6 / parse[label])
+            launches[label] = counts
+            return builder, str(stats), counts
+
+        # K1: the fused run from hdfs://, its model saved to hdfs://
+        fused_q = "&fe=dwt-8-fused&train_clf=logreg"
+        _b, fused, counts = remote_run(
+            "hdfs_fused", f"info_file={hdfs}/data/info.txt{fused_q}"
+            f"&save_clf=true&save_name={hdfs}/models/model")
+        check("hdfs fused", fused, local["fused"])
+        if counts["ingest_features"] != 8 or "/models/model.npz" not in store.files:
+            raise AssertionError("the hdfs:// fused run did not launch once per recording "
+                                 "or did not save its model")
+        with open(model + ".npz", "rb") as f:
+            model_bytes_equal = f.read() == store.files["/models/model.npz"]
+
+        # K4: the host -pallas run from http://
+        _b, pallas, counts = remote_run(
+            "http_pallas", f"info_file={http}/data/info.txt&fe=dwt-8-pallas&train_clf=logreg")
+        check("http -pallas", pallas, local["pallas"])
+        if counts["epoch_features"] != 2:
+            raise AssertionError("the http:// -pallas run did not launch the epoch-features "
+                                 "kernel twice")
+
+        # K5: serve=true with the model from hdfs://, against the batch load_clf= run
+        load_q = (f"info_file={hdfs}/data/info.txt&fe=dwt-8-fused&load_clf=logreg"
+                  f"&load_name={hdfs}/models/model")
+        _b, batch, _c = remote_run("hdfs_load", load_q)
+        serve_mega_cuda.LAUNCHES = 0
+        served_builder, served, _c = remote_run("hdfs_serve", load_q + "&serve=true")
+        launches["hdfs_serve"]["serve_mega"] = serve_mega_cuda.LAUNCHES
+        check("hdfs serve=true vs batch load_clf=", served, batch)
+        if served_builder.serve_block["rung"] != "mega" or serve_mega_cuda.LAUNCHES == 0:
+            raise AssertionError("the hdfs:// serve run did not serve through the megakernel")
+
+        # K6: four tenants from a load_tenants spec over http://
+        base = registry.create("logreg")
+        base.load(model)
+        names = ["a", "b", "c", "d"]
+        for i, name in enumerate(names):
+            (base if i == 0 else perturbed_tenant(np, base, 2000 + i)).save(
+                f"{http}/models/tenant_{name}")
+        tenants = serve_pipeline.load_tenants(
+            ",".join(f"{n}=logreg@{http}/models/tenant_{n}" for n in names))
+        mix = [names[i % 4] for i in range(len(windows))]
+        serve_mega_cuda.MULTI_LAUNCHES = 0
+        with MultiplexedService(tenants) as svc:
+            results = svc.predict_all(windows, resolutions, mix)
+        launches["http_tenants"] = {"serve_mega_multi": serve_mega_cuda.MULTI_LAUNCHES}
+        bit_equal = {}
+        for name in names:
+            rows = [i for i, t in enumerate(mix) if t == name]
+            with InferenceService(tenants[name]) as solo:
+                alone = solo.predict_all([windows[i] for i in rows],
+                                         [resolutions[i] for i in rows])
+            bit_equal[name] = ([results[i].margin for i in rows] == [r.margin for r in alone]
+                               and [results[i].prediction for i in rows]
+                               == [r.prediction for r in alone])
+        emit("remote_tenants", tenants=len(tenants), windows=len(windows),
+             serve_mega_multi_launches=launches["http_tenants"]["serve_mega_multi"],
+             margins_bit_equal_solo=bit_equal)
+        if not all(bit_equal.values()) or launches["http_tenants"]["serve_mega_multi"] == 0:
+            raise AssertionError("a tenant served from http:// differs from its solo service")
+
+        # K1 through GcsFileSystem(endpoint=…)
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        gcs = remote.GcsFileSystem(endpoint=http)
+        feats, _t = OfflineDataProvider(["gs://data/info.txt"],
+                                        filesystem=gcs).load_features_device()
+        launches["gs_features"] = {"ingest_features": ingest_cuda.LAUNCHES}
+        want, _t = OfflineDataProvider([info]).load_features_device()
+        gs_equal = torch.equal(feats, want)
+        emit("remote_gs", rows=int(feats.shape[0]), device=str(feats.device),
+             ingest_launches=launches["gs_features"]["ingest_features"],
+             features_bit_equal_local=gs_equal)
+        if not gs_equal or launches["gs_features"]["ingest_features"] != 8:
+            raise AssertionError("gs:// features differ from the local run's")
+
+        # the fused run while the store fails every third request and cuts
+        # one body in half: the retries absorb it
+        store.fail_every, store.truncate_next = 3, 1
+        n_requests = len(store.requests)
+        recorder = events.SpanRecorder("remote_faults")
+        with events.recording(recorder):
+            _b, faulted, _c = remote_run("hdfs_fused_faults",
+                                         f"info_file={hdfs}/data/info.txt{fused_q}")
+        store.fail_every = 0
+        retries = sum(e["name"] == "remote.retry" for e in recorder.recent_events())
+        emit("remote_faults", requests=len(store.requests) - n_requests, retries=retries,
+             truncations_left=store.truncate_next, statistics_equal_local=faulted == fused)
+        check("hdfs fused under faults", faulted, local["fused"])
+        if retries == 0 or store.truncate_next != 0:
+            raise AssertionError("the faults were not injected and retried")
+
+    # a dead endpoint: after `threshold` exhausted budgets the circuit opens
+    # and the next call fails fast
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        dead = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    fs = remote.HttpFileSystem(retry=remote.RetryPolicy(max_attempts=3, timeout_s=2.0,
+                                                        backoff_s=0.05))
+    breaker = circuit.breaker_for(dead)
+    budgets = []
+    for _ in range(breaker.threshold):
+        t0 = time.perf_counter()
+        try:
+            fs.read_bytes(f"{dead}/data/info.txt")
+        except remote.RemoteIOError:
+            budgets.append(time.perf_counter() - t0)
+        else:
+            raise AssertionError("a dead endpoint answered")
+    t0 = time.perf_counter()
+    try:
+        fs.read_bytes(f"{dead}/data/info.txt")
+    except circuit.CircuitOpenError:
+        fast_fail_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("the open circuit let a call through")
+    counters_now = obs.metrics.snapshot()["counters"]
+    emit("remote_circuit", endpoint=dead, threshold=breaker.threshold,
+         budget_s=budgets, fast_fail_s=fast_fail_s, state=breaker.state,
+         counters={k: v for k, v in counters_now.items() if k.startswith("circuit.")})
+    if breaker.state != circuit.OPEN or fast_fail_s > min(budgets) / 10:
+        raise AssertionError("the dead endpoint's breaker did not open and fail fast")
+    emit("remote", nvidia_smi=smi, parse_s_local=local["parse"], parse_s=parse,
+         model_bytes_equal_local=model_bytes_equal, retries=retries,
+         counters=counters_now, launches=launches)
+    circuit.reset()
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timing, library_ms=None):
     kernel_ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
@@ -2383,7 +2594,7 @@ def main() -> int:
         emit("recording_plan", rows=int(plan[2].shape[0]), kept=plan[3],
              samples=int(plan[0].shape[1]))
         rung_launches = phase_precision_runs(np, info, counters, gpu, n_files=8)
-        k4_launches, k4_path_err = phase_host_path(np, info, counters)
+        k4_launches, k4_path_err, pallas_run = phase_host_path(np, info, counters)
 
         float_dir = os.path.join(work, "float32")
         os.makedirs(float_dir)
@@ -2403,6 +2614,14 @@ def main() -> int:
         packed_launches = phase_quant_multi_service(torch, np, model, kept, windows,
                                                     resolutions)
         generic_launches.update(phase_generic_serve(torch, np, model, windows, resolutions))
+
+        # 5b. the same paths with the session and the models on a loopback
+        # object store and WebHDFS namenode
+        phase_remote(torch, np, info, model,
+                     {"fused": str(gpu.statistics), "pallas": str(pallas_run.statistics),
+                      "parse": {"hdfs_fused": gpu.timers["parse"],
+                                "http_pallas": pallas_run.timers["parse"]}},
+                     counters, windows, resolutions, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

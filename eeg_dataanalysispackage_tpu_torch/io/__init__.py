@@ -1,1 +1,2 @@
-"""Input: BrainVision parsing, the offline data provider, model files."""
+"""Input: BrainVision parsing, the offline data provider, model files,
+and the local and remote filesystems they read through."""

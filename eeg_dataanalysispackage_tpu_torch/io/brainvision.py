@@ -11,10 +11,13 @@ scales them there, and the host path reads scaled float64 channels.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from . import remote
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,3 +237,18 @@ def load_recording_bytes(
     else:  # VECTORIZED: ch1 all samples, ch2 all samples, ...
         raw = flat.reshape(nch, nsamp).T
     return Recording(header, markers, raw)
+
+
+def load_recording(eeg_path: str, filesystem=None) -> Recording:
+    """Load a BrainVision triplet through ``filesystem`` (an
+    ``io.sources`` filesystem; ``None`` routes by the path's URI scheme).
+    The sibling .vhdr/.vmrk are the .eeg path with the suffix
+    substituted, as ``setFileNames`` does (OffLineDataProvider.java:327-365);
+    a missing one raises ``FileNotFoundError``."""
+    fs = filesystem if filesystem is not None else remote.filesystem_for(eeg_path)
+    base = os.path.splitext(eeg_path)[0]
+    triplet = (base + ".vhdr", base + ".vmrk", eeg_path)
+    for p in triplet:
+        if not fs.exists(p):
+            raise FileNotFoundError(f"No related file found: {p}")
+    return load_recording_bytes(*(fs.read_bytes(p) for p in triplet))

@@ -1,7 +1,13 @@
-"""Local file helpers for model archives and report files.
+"""Model file bytes, routed through the pluggable filesystem.
 
-A location with a URI scheme raises before anything is opened
-(``io/remote.refuse_remote``): remote model files are not ported.
+Port of the JAX package's ``io/modelfiles.py``. The reference's
+classifiers save and load models on the cluster filesystem
+(``model.save(sc, path)`` onto HDFS —
+LogisticRegressionClassifier.java:144-152). Every classifier serializes
+to bytes and hands them here, so ``save_name=`` and ``load_name=`` work
+for local paths (``file://`` tolerated) and remote URIs (``http(s)://``,
+``gs://``, ``hdfs://`` — ``io/remote.py``) alike. Local model files and
+report files are written atomically (:func:`atomic_write_bytes`).
 """
 
 from __future__ import annotations
@@ -9,16 +15,16 @@ from __future__ import annotations
 import os
 import shutil
 
-from .remote import refuse_remote
+from . import remote, sources
 
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
-    """Crash-safe small-file write: tmp sibling, fsync, ``os.replace``.
+    """Crash-safe local small-file write: tmp sibling, fsync,
+    ``os.replace``; missing parent directories are made.
 
     A crash mid-write leaves the previous content (or nothing), never a
     truncated file.
     """
-    refuse_remote(path, "output file")
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp-{os.getpid()}-{os.path.basename(path)}")
@@ -34,14 +40,29 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 
 def delete_local_dir_target(path: str) -> None:
-    """A stale directory at a save target is deleted first
-    (LogisticRegressionClassifier.java:144-147)."""
-    refuse_remote(path, "model file")
-    if os.path.isdir(path):
-        shutil.rmtree(path)
+    """A stale directory at a local save target is deleted first
+    (LogisticRegressionClassifier.java:144-147); a no-op for remote URIs
+    and non-directories."""
+    fs = remote.filesystem_for(path)
+    if not isinstance(fs, sources.LocalFileSystem):
+        return
+    local = fs._strip(path)
+    if os.path.isdir(local):
+        shutil.rmtree(local)
+
+
+def write_model_bytes(path: str, data: bytes) -> None:
+    """Write serialized model bytes to a local path (atomically, parent
+    directories made) or a remote URI."""
+    fs = remote.filesystem_for(path)
+    if isinstance(fs, sources.LocalFileSystem):
+        atomic_write_bytes(fs._strip(path), data)
+    else:
+        fs.write_bytes(path, data)
 
 
 def read_model_bytes(path: str) -> bytes:
-    refuse_remote(path, "model file")
-    with open(path, "rb") as f:
-        return f.read()
+    """Read serialized model bytes from a local path or remote URI;
+    ``FileNotFoundError`` for a missing file on either (the remote layer
+    maps 404 onto it)."""
+    return remote.filesystem_for(path).read_bytes(path)

@@ -17,22 +17,24 @@ DWT features with no host epochs. Input-contract parity with
   missing one reuses the index resolved for the previous file (:172-183);
 - the balance counters span all files of a run, in info.txt order (:58-59).
 
-Remote inputs (``https://``, ``gs://``, ``hdfs://`` …) are not ported:
-they raise before anything is opened (``io/remote.py``).
+Every read goes through a filesystem chosen by the first argument's URI
+scheme (``io/remote.filesystem_for``: ``http(s)://``, ``gs://``,
+``hdfs://``, local paths), or through the ``filesystem=`` given, as in
+the JAX package (``io/provider.py:208-230``): the reference reads its
+sessions from HDFS (``OffLineDataProvider.java:90``).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import brainvision
-from .remote import refuse_remote
+from . import brainvision, remote, sources
+from .. import obs
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..ops import decode_ingest, device_ingest, ingest_cuda
@@ -51,38 +53,21 @@ _USAGE = (
 )
 
 
-def parse_info_txt(text: str) -> Dict[str, int]:
-    """``info.txt`` -> ordered {relative .eeg path: guessed number}."""
-    files: Dict[str, int] = {}
-    for line in text.splitlines():
-        if len(line) == 0 or line[0] == "#":
-            continue
-        # Java's String.split(" ") discards trailing empty strings, so
-        # 'path ' (trailing space) parses as a single-field line and is
-        # silently skipped (OffLineDataProvider.java:302-305).
-        parts = line.split(" ")
-        while parts and parts[-1] == "":
-            parts.pop()
-        if len(parts) > 1:
-            try:
-                num = int(parts[1])
-            except ValueError as e:
-                raise ValueError(
-                    f"Line {line!r} contains an improper number format"
-                ) from e
-            files[parts[0]] = num
-    return files
+#: re-exported: ``info.txt`` parsing lives in ``io/sources.py``
+parse_info_txt = sources.parse_info_txt
 
 
 class OfflineDataProvider:
     """Loads BrainVision recordings into balanced P300 epochs on the host
     (:meth:`load`) or featurizes them on ``device``
     (:meth:`load_features_device`; ``None`` -> ``cuda``, raises without
-    a card)."""
+    a card). ``filesystem``: an ``io.sources`` filesystem every read
+    goes through; ``None`` routes by the first argument's URI scheme."""
 
     def __init__(
         self,
         args: Sequence[str],
+        filesystem: Optional[sources.FileSystem] = None,
         channel_names: Sequence[str] = constants.CHANNEL_NAMES,
         pre: int = constants.PRESTIMULUS_SAMPLES,
         post: int = constants.POSTSTIMULUS_SAMPLES,
@@ -92,6 +77,7 @@ class OfflineDataProvider:
         if len(args) == 0 or len(args) > 6:
             raise ValueError(_USAGE)
         self._args = list(args)
+        self._fs = filesystem if filesystem is not None else remote.filesystem_for(self._args[0])
         self._channel_names = [c.lower() for c in channel_names]
         self._pre = pre
         self._post = post
@@ -106,7 +92,6 @@ class OfflineDataProvider:
     def _resolve_files(self) -> Tuple[str, Dict[str, int]]:
         """Returns (prefix, ordered {path: guessed number})."""
         loc = self._args[0]
-        refuse_remote(loc, "input")
         if loc.endswith(constants.EEG_EXTENSION):
             if len(self._args) < 2:
                 raise ValueError(
@@ -116,8 +101,7 @@ class OfflineDataProvider:
             return "", {loc: int(self._args[1])}
         if loc.endswith(".txt"):
             prefix = loc[: loc.rfind("/")] + "/" if "/" in loc else ""
-            with open(loc, encoding="utf-8", errors="replace") as f:
-                return prefix, parse_info_txt(f.read())
+            return prefix, sources.parse_info_txt(self._fs.read_text(loc))
         raise ValueError(_USAGE)
 
     @property
@@ -144,21 +128,14 @@ class OfflineDataProvider:
         the session through it."""
         prefix, files = self._resolve_files()
         for rel_path, guessed in files.items():
-            eeg_path = prefix + rel_path
-            base = os.path.splitext(eeg_path)[0]
-            triplet = (base + ".vhdr", base + ".vmrk", eeg_path)
-            missing = [p for p in triplet if not os.path.exists(p)]
-            if missing:
-                logger.warning(
-                    "Did not load %s: No related file found: %s",
-                    rel_path, missing[0],
-                )
+            try:
+                rec = brainvision.load_recording(prefix + rel_path, self._fs)
+            except FileNotFoundError as e:
+                logger.warning("Did not load %s: %s", rel_path, e)
                 continue
-            blobs = []
-            for p in triplet:
-                with open(p, "rb") as f:
-                    blobs.append(f.read())
-            yield rel_path, guessed, brainvision.load_recording_bytes(*blobs)
+            # one read per file of the triplet
+            obs.metrics.count("ingest.file_reads", 3)
+            yield rel_path, guessed, rec
 
     def _channel_indices(self, header: brainvision.Header) -> List[int]:
         """Channel resolution with the reference's stale-index reuse: a

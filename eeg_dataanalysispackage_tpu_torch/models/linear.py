@@ -121,7 +121,7 @@ class _LinearClassifier(base.Classifier):
             margin_threshold=np.float64(state["margin_threshold"]),
         )
         fname = path if path.endswith(".npz") else path + ".npz"
-        modelfiles.atomic_write_bytes(fname, buf.getvalue())
+        modelfiles.write_model_bytes(fname, buf.getvalue())
 
     def load(self, path: str) -> None:
         if os.path.isdir(path):

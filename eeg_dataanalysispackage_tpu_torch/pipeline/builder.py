@@ -28,12 +28,19 @@ for the whole run above the rung's tolerance (recorded in
 cache and no degradation ladder: ``cache=`` and ``degrade=`` parse, and
 a kernel failure raises. Keys whose paths are not ported yet raise
 ``ValueError``.
+
+``info_file=``, ``eeg_file=``, ``save_name=`` and ``load_name=`` are
+routed by URI scheme (``io/remote.filesystem_for``: ``http(s)://``,
+``gs://``, ``hdfs://``, local paths). ``result_path=`` is a local file,
+as the JAX package writes it (through ``os``): a ``scheme://``
+``result_path`` raises before the run reads anything.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import re
 import time
 from typing import Dict, Optional, Union
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from ..features import registry as fe_registry
-from ..io import modelfiles, provider
+from ..io import modelfiles, provider, remote
 from ..models import registry, stats
 from ..ops import decode_ingest
 from ..serve import pipeline as serve_pipeline
@@ -103,8 +110,19 @@ def _check_ported(query_map: Dict[str, str]) -> None:
     for key in NOT_PORTED_KEYS:
         if key in query_map:
             raise ValueError(f"{key}= is not yet ported; see ROADMAP.md")
+    if os.environ.get("EEG_TPU_FAULTS"):
+        # the JAX package's run reads its faults= spec from here
+        raise ValueError("EEG_TPU_FAULTS (a run's fault spec) is not yet ported; "
+                         "see ROADMAP.md")
     if query_map.get("task", "p300") != "p300":
         raise ValueError(f"task={query_map['task']} is not yet ported; see ROADMAP.md")
+    scheme = remote.uri_scheme(query_map.get("result_path", ""))
+    if scheme is not None:
+        raise ValueError(
+            f"result_path={query_map['result_path']!r}: remote locations ({scheme}://) "
+            "are not supported; the report is a local file, as the JAX package "
+            "writes it (see ROADMAP.md)"
+        )
 
 
 class PipelineBuilder:

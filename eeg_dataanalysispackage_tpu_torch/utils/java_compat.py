@@ -1,4 +1,5 @@
-"""Bit-exact java.util.Random + Collections.shuffle reproduction.
+"""Bit-exact java.util.Random + Collections.shuffle reproduction, and
+``Double.toString`` number formatting.
 
 The reference shuffles epochs and targets with
 ``Collections.shuffle(list, new Random(1))`` before the 70/30 split
@@ -8,6 +9,7 @@ requires Java's 48-bit LCG and Fisher-Yates order, implemented here.
 
 from __future__ import annotations
 
+import math
 from typing import List, TypeVar
 
 T = TypeVar("T")
@@ -66,3 +68,42 @@ def train_test_split_indices(n: int, seed: int = 1, train_frac: float = 0.7):
     perm = java_shuffle_indices(n, seed)
     cut = int(n * train_frac)
     return perm[:cut], perm[cut:]
+
+
+def java_double_to_string(value: float) -> str:
+    """``Double.toString(double)`` formatting (Double.java docs).
+
+    Decimal form for 1e-3 <= |d| < 1e7 (always one digit after the
+    point at least), otherwise ``D.DDDE±X`` with an uppercase bare-sign
+    exponent; specials are ``NaN`` / ``Infinity`` / ``-0.0``. Digits come
+    from Python's shortest-roundtrip repr, which is modern (JDK >= 19)
+    ``Double.toString`` digit selection.
+    """
+    v = float(value)
+    if math.isnan(v):
+        return "NaN"
+    if math.isinf(v):
+        return "Infinity" if v > 0 else "-Infinity"
+    sign = "-" if math.copysign(1.0, v) < 0 else ""
+    a = abs(v)
+    if a == 0.0:
+        return sign + "0.0"
+    r = repr(a)
+    if "e" in r:
+        mant, _, exp_s = r.partition("e")
+        exp = int(exp_s)
+    else:
+        mant, exp = r, 0
+    int_part, _, frac = mant.partition(".")
+    digits = int_part + frac
+    point = len(int_part) + exp  # the decimal point's position in digits
+    stripped = digits.lstrip("0")
+    point -= len(digits) - len(stripped)
+    digits = stripped.rstrip("0") or "0"
+    if -3 < point <= 7:  # 1e-3 <= a < 1e7
+        if point <= 0:
+            return f"{sign}0.{'0' * -point}{digits}"
+        if point >= len(digits):
+            return f"{sign}{digits}{'0' * (point - len(digits))}.0"
+        return f"{sign}{digits[:point]}.{digits[point:]}"
+    return f"{sign}{digits[0]}.{digits[1:] or '0'}E{point - 1}"

@@ -6,6 +6,10 @@ a multi-tenant service against solo services) and the epoch-features
 kernel (at every window alignment, at any window and coefficient count
 the cascade has, and on wide montages).
 
+Two cases run the batch path over a loopback WebHDFS namenode
+(``tests/_loopback.py``): a fused run and a served run from ``hdfs://``,
+held against the same runs from local paths.
+
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
 runs on a machine with only the port installed:
@@ -23,6 +27,9 @@ version of the whole chain a row may differ where an f32 ulp moves a
 value across a quantization boundary, by one step of its group.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +40,7 @@ from eeg_dataanalysispackage_tpu_torch.ops import (
     decode_ingest, device_ingest, dwt, dwt_cuda, ingest_cuda, quant, serve_mega,
     serve_mega_cuda,
 )
+from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
 from eeg_dataanalysispackage_tpu_torch.serve import (
     InferenceService, MultiplexedService, ServeConfig,
 )
@@ -1085,3 +1093,52 @@ def test_generic_engine_at_other_baselines_and_strides(pre, post):
                                                       stride)
     assert (multi - plain).abs().max().item() <= serve_mega.MEGA_GATE_TOL
     assert (margins[9:] == 0).all() and (multi[9:] == 0).all()
+
+
+@pytest.fixture
+def hdfs_session(tmp_path, monkeypatch):
+    """A two-recording session and a model trained on it on the card,
+    served from a loopback WebHDFS namenode: (local info.txt, local
+    model, namenode authority)."""
+    _card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _loopback
+
+    for name in ("WEBHDFS_ENDPOINT", "WEBHDFS_USER", "HDFS_DRIVER"):
+        monkeypatch.delenv(name, raising=False)
+    info = _loopback.write_remote_session(str(tmp_path / "session"), n_markers=200)
+    model = str(tmp_path / "model")
+    PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=logreg"
+                    f"&save_clf=true&save_name={model}").execute()
+    with _loopback.Server() as srv:
+        srv.store.add_tree(os.path.dirname(info), "/data")
+        with open(model + ".npz", "rb") as f:
+            srv.store.files["/models/model.npz"] = f.read()
+        yield info, model, srv.authority
+
+
+@pytest.mark.cuda
+def test_fused_run_over_hdfs_equals_local(hdfs_session):
+    info, _model, auth = hdfs_session
+    q = "fe=dwt-8-fused&train_clf=logreg"
+    local = PipelineBuilder(f"info_file={info}&{q}").execute()
+    before = ingest_cuda.LAUNCHES
+    builder = PipelineBuilder(f"info_file=hdfs://{auth}/data/infoTrain.txt&{q}")
+    got = builder.execute()
+    assert ingest_cuda.LAUNCHES - before == 2  # one launch per recording
+    assert builder.features.device.type == "cuda"
+    assert str(got) == str(local)
+
+
+@pytest.mark.cuda
+def test_served_run_over_hdfs_equals_local(hdfs_session):
+    info, model, auth = hdfs_session
+    load = "fe=dwt-8-fused&load_clf=logreg"
+    local = PipelineBuilder(f"info_file={info}&{load}&load_name={model}").execute()
+    before = serve_mega_cuda.LAUNCHES
+    served = PipelineBuilder(f"info_file=hdfs://{auth}/data/infoTrain.txt&{load}&serve=true"
+                             f"&load_name=hdfs://{auth}/models/model")
+    got = served.execute()
+    assert serve_mega_cuda.LAUNCHES > before
+    assert served.serve_block["rung"] == "mega"
+    assert str(got) == str(local)

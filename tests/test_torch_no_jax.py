@@ -69,3 +69,13 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in banned, f"{path}:{node.lineno} imports {name}"
+
+
+def test_the_remote_layer_is_scanned():
+    """The remote filesystem layer and the observability modules it
+    needs are among the scanned sources (and walked by the fresh import)."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("io/sources.py", "io/remote.py", "io/circuit.py", "io/deadline.py",
+                "io/export.py", "io/modelfiles.py", "obs/__init__.py", "obs/chaos.py",
+                "obs/events.py", "obs/domain.py"):
+        assert rel in scanned
