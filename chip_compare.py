@@ -19,18 +19,31 @@ did to the kernels:
    the others) and at 32,768 windows, the epoch-features kernel also at
    the ``-pallas`` logreg run's 641 and 1,494 epochs, and the precision
    rungs (the ingest kernel's bf16, int8 and int4 on the int16 stream, the
-   megakernel's int8 and int4) at 32,768 windows. One JSON line each: the kernel's
+   megakernel's int8 and int4) at 32,768 windows; and the generic-size
+   kernels (``*_any_kernel``) at each of ``chip_smoke.GENERIC_SIZES`` (3
+   channels) at 4,096 windows and, at ``chip_smoke.GENERIC_PATH_SIZE``,
+   at one serve batch of 64: K1-any at every rung and on float32 samples,
+   K5-any at f32, int8 and int4, K6-any on the f32, int8 and int4 stacks
+   (kernel names ``<kernel>@<epoch>x<features>``). One JSON line each: the kernel's
    device time per call from ``torch.profiler`` (``device_ms``, 20 calls,
    ``chip_smoke.profiled_device_ms``), the median CUDA-event time of one
-   wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``) and a
-   sha256 of the output, tagged with the checkout;
+   wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``), the
+   wall time per call of 200 back-to-back calls, host work included
+   (``call_ms``, median of 5), the median host time of one call, the card
+   not waited for (``host_ms``, 200 calls) and a sha256 of the output,
+   tagged with the checkout; and the generic fused path's wall (``load_features_device``
+   of an 8-recording session at ``GENERIC_PATH_SIZE``, three times in
+   the process: ``generic_path_wall``);
 2. ``outputs``: one line per kernel and size with ``bit_equal``, the
    checkouts' output digests compared;
 3. the SASS of every kernel instantiation both builds have (``cuobjdump
    -sass``), compared instruction by instruction, addresses left out: one
    JSON line per instantiation with ``identical`` and ``f32``; an
-   instantiation only this build has is listed as ``new``; and the
-   ``ptxas`` registers and spills of every kernel each build made.
+   instantiation only this build has is listed as ``new``; a generic-size
+   instantiation's line has ``generic: true`` (its SASS changes with the
+   generic engine); and the ``ptxas`` registers and spills of every kernel
+   each build made, and of each generic instantiation by key
+   (``ptxas_generic``).
 
 An instantiation is keyed by its kernel and template arguments, not by
 its mangled name (which carries a hash of its source file and its
@@ -38,8 +51,7 @@ parameter list): the sample type, the precision
 (``window_features::Precision``), the megakernel's ``kMulti``, the
 wide-ring ``kWide``, the tenant stack's precision (``Weights``; the f32
 stack where a build has none), the epoch-features kernel's ``kMain`` and
-``kL``. It counts as f32 at precision 0 (``kF32``) on an f32 stack. The
-generic-size kernels (``*_any_kernel``) are not compared.
+``kL``. It counts as f32 at precision 0 (``kF32``) on an f32 stack.
 
 Where this checkout has the quantized tenant stack's kernels (K6-w8,
 K6-w4) and the other does not, they are timed here alone, and each
@@ -59,10 +71,12 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("ingest_features", "serve_mega", "epoch_features")
-_KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_features_kernel)")
+_KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_features_kernel"
+                     r"|ingest_features_any_kernelI[sf]|serve_mega_any_kernel)")
 SIZES = (64, 320, 32_768)
 EPOCH_RUN_SIZES = (641, 1494)
 
@@ -95,7 +109,8 @@ def time_checkout(tree: str, label: str) -> None:
     libs = {name: cuda_build.build(name) for name in SOURCES}
     ptxas = {name: [ln.strip() for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln] for name in SOURCES}
-    emit(phase="libraries", libraries=libs, ptxas=ptxas)
+    emit(phase="libraries", libraries=libs, ptxas=ptxas,
+         ptxas_generic=generic_ptxas(cuda_build.BUILD_LOGS))
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -107,11 +122,15 @@ def time_checkout(tree: str, label: str) -> None:
         out = fn()
         torch.cuda.synchronize()
         digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-        device = cs.profiled_device_ms(fn, symbol, runs=20)
+        # the profiler now and then drops kernel records: a second round
+        # of retakes before giving up
+        device = (cs.profiled_device_ms(fn, symbol, runs=20)
+                  or cs.profiled_device_ms(fn, symbol, runs=20))
         if device is None:
             raise RuntimeError(f"the profiler saw no device time for {symbol}")
         emit(phase="timing", kernel=kernel, windows=size, device_ms=device,
-             event_ms=cs.time_ms(fn), sha256=digest, nvidia_smi=smi)
+             event_ms=cs.time_ms(fn), call_ms=call_ms(fn), host_ms=host_ms(fn), sha256=digest,
+             nvidia_smi=smi)
 
     # the fused ingest kernel: the plan's first 64 rows (the gate's launch),
     # the plan (chip_smoke.py's first session recording, staged and planned
@@ -190,6 +209,153 @@ def time_checkout(tree: str, label: str) -> None:
         x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
         run("epoch_features", "epoch_features_kernel", n, lambda: dwt_cuda.epoch_features_cuda(x))
 
+    time_generic(cs, run, dev)
+    time_generic_path(cs, emit, smi)
+
+
+def call_ms(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Wall time (ms) per call of ``calls`` back-to-back calls of ``fn``,
+    the card synchronized once at the end: the wrapper's host work and
+    the kernel as a loop of calls pays them (a call's host work overlaps
+    the previous kernel). Median of ``repeats``."""
+    import statistics
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / calls * 1e3)
+    return statistics.median(walls)
+
+
+def host_ms(fn, calls: int = 200, every: int = 20) -> float:
+    """Median host time (ms) of one call of ``fn``: the wrapper's work up
+    to the kernel's enqueue, the card not waited for (synchronized,
+    untimed, every ``every`` calls so the queue stays short)."""
+    import statistics
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i % every == every - 1:
+            torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def time_generic_path(cs, emit, smi, repeats: int = 3) -> None:
+    """The generic fused path end to end through the timed tree:
+    ``load_features_device`` of an 8-recording session at
+    ``chip_smoke.GENERIC_PATH_SIZE`` (f32), ``repeats`` times in this
+    process (the first call pays first-use costs), each one's wall."""
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    n, K, skip = cs.GENERIC_PATH_SIZE
+    work = tempfile.mkdtemp(prefix="chip_compare_path_")
+    try:
+        info = cs.write_session(work)
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            feats, _targets = OfflineDataProvider([info]).load_features_device(
+                8, n, skip, K, precision="f32")
+            feats.cpu()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(phase="generic_path_wall", epoch_size=n, feature_size=K, rows=int(feats.shape[0]),
+         wall_s=walls, nvidia_smi=smi)
+
+
+def time_generic(cs, run, dev) -> None:
+    """The generic-size kernels through the timed tree's wrappers: at each
+    of ``chip_smoke.GENERIC_SIZES`` on 4,096 windows of 3 channels, and at
+    ``GENERIC_PATH_SIZE`` on one serve batch of 64 windows: K1-any at
+    every rung on an int16 stream (1,000-sample stride) and f32 on a
+    float32 one, K5-any at f32/int8/int4 and K6-any on the f32, int8 and
+    int4 stacks at the serve stride (lanes cycling over 128 tenants)."""
+    import numpy as np
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        dwt, ingest_cuda, quant, serve_mega, serve_mega_cuda,
+    )
+
+    stride = serve_mega.padded_stride(100, 750)
+    res = torch.tensor([0.1, 0.1, 0.2], device=dev)
+    ones = torch.ones(3, device=dev)
+    cases = [(size, 4096) for size in cs.GENERIC_SIZES] + [(cs.GENERIC_PATH_SIZE, 64)]
+    for (e, K, skip), n in cases:
+        tag = f"@{e}x{K}"
+        gen = torch.Generator(device=dev).manual_seed(n + e + K)
+        W = dwt.kernel_operator(8, e, K, dev)
+        big = torch.randint(-3000, 3000, (3, n * 1000 + 1000), generator=gen, device=dev,
+                            dtype=torch.int32)
+        raw, raw_f = big.to(torch.int16), (big.to(torch.float32) * 0.1).contiguous()
+        starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
+        for p in ("f32", "bf16", "int8", "int4"):
+            run("ingest_features_any" + ("" if p == "f32" else f"_{p}") + tag,
+                "ingest_features_any_kernel", n,
+                lambda p=p: ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, p, e, K))
+        run("ingest_features_any_f32" + tag, "ingest_features_any_kernel", n,
+            lambda: ingest_cuda.ingest_features(raw_f, ones, starts, W, 100, skip, "f32", e, K))
+        stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int16)
+        weights = torch.randn(3 * K, generator=gen, device=dev)
+        stack = torch.randn((serve_mega.MAX_TENANTS, 3 * K), generator=gen, device=dev)
+        lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+        for p in ("f32", "int8", "int4"):
+            run("serve_mega_any" + ("" if p == "f32" else f"_{p}") + tag, "serve_mega_any_kernel",
+                n, lambda p=p: serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100,
+                                                                  skip, stride, p, e, K))
+        run("serve_mega_multi_any" + tag, "serve_mega_any_kernel", n,
+            lambda: serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100,
+                                                             skip, stride, e, K))
+        for wp in ("int8", "int4"):
+            packed_np, scales_np = quant.quantize_weight_stack(stack.t().cpu().numpy(), wp)
+            packed = torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev)
+            scales = torch.from_numpy(scales_np).to(dev)
+            run(f"serve_mega_multi_any_{wp}" + tag, "serve_mega_any_kernel", n,
+                lambda packed=packed, scales=scales, wp=wp:
+                serve_mega_cuda.serve_mega_multi_packed_margins(
+                    stream, res, W, packed, scales, lanes, 100, skip, stride, wp, e, K))
+
+
+def generic_ptxas(logs: dict) -> dict:
+    """{generic instantiation key: {registers, spill_stores, spill_loads}}
+    from the ``ptxas -v`` logs of this process's builds."""
+    out, current = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                keyed = instantiation_key(m.group(1))
+                current = keyed[0] if keyed and "_any_kernel" in keyed[0] else None
+                continue
+            if current is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                out.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
+                                                   spill_loads=int(spill.group(2)))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                out.setdefault(current, {})["registers"] = int(regs.group(1))
+    return out
+
 
 def instantiation_key(name: str):
     """(key, f32) of a kernel's mangled name, or None for a kernel not
@@ -214,13 +380,13 @@ def instantiation_key(name: str):
         elif flags:
             current += "_main" if flags[0] == "1" else "_any_size"
         flags = []
-    if current == "serve_mega_kernel" and flags and flags.pop(0) == "1":
+    if current in ("serve_mega_kernel", "serve_mega_any_kernel") and flags and flags.pop(0) == "1":
         current += "_multi"
     if flags and flags[0] == "1":
         current += "_wide"
     if precision:
         current += f"_p{p}"
-    if current.startswith("serve_mega_kernel_multi"):
+    if current.startswith(("serve_mega_kernel_multi", "serve_mega_any_kernel_multi")):
         current += f"_w{w}"
     return current, p == 0 and w == 0
 
@@ -255,6 +421,11 @@ def main(argv) -> int:
         return 2
     other = os.path.abspath(argv[1])
     libraries, digests = {}, {}
+    # each tree's first turn builds its kernels afresh, so its ptxas lines
+    # are printed; later turns load them
+    for tree in (other, HERE):
+        shutil.rmtree(os.path.join(tree, "eeg_dataanalysispackage_tpu_torch", "_build"),
+                      ignore_errors=True)
     for label, tree in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", tree, label],
                               capture_output=True, text=True)
@@ -263,14 +434,21 @@ def main(argv) -> int:
             return 1
         for line in proc.stdout.splitlines():
             record = json.loads(line)
-            if record["phase"] == "packed_vs_k6":
-                print(line, flush=True)
+            if record["phase"] not in ("timing", "libraries"):
+                print(line, flush=True)  # packed_vs_k6, profiler_retake, generic_path_wall
                 continue
             if record["phase"] == "libraries":
                 libraries[label] = record["libraries"]
                 if any(record["ptxas"].values()):
                     print(json.dumps({"phase": "ptxas", "checkout": label,
                                       "ptxas": record["ptxas"]}), flush=True)
+                generic = record.get("ptxas_generic", {})
+                if generic:
+                    print(json.dumps({"phase": "ptxas_generic", "checkout": label,
+                                      "kernels": generic,
+                                      "no_spills": all(not k.get("spill_stores")
+                                                       and not k.get("spill_loads")
+                                                       for k in generic.values())}), flush=True)
                 continue
             digests.setdefault((record["kernel"], record["windows"]), {}).setdefault(
                 label, set()).add(record["sha256"])
@@ -281,20 +459,23 @@ def main(argv) -> int:
                               "new": True, "digests_stable": len(by["this"]) == 1}), flush=True)
             continue
         print(json.dumps({"phase": "outputs", "kernel": kernel, "windows": windows,
-                          "bit_equal": len(by["other"] | by["this"]) == 1}), flush=True)
+                          "bit_equal": len(by["other"] | by["this"]) == 1,
+                          "generic": "_any" in kernel}), flush=True)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in SOURCES:
         sass = {label: kernel_sass(cuobjdump, libraries[label][name]) for label in libraries}
         for key in sorted(set(sass["other"]) | set(sass["this"])):
+            generic = "_any_kernel" in key
             if key not in sass["other"]:
                 print(json.dumps({"phase": "sass", "kernel": key, "new": True,
-                                  "f32": sass["this"][key][0],
+                                  "f32": sass["this"][key][0], "generic": generic,
                                   "instructions_this": len(sass["this"][key][1])}), flush=True)
                 continue
             (f32, a), (_, b) = sass["other"][key], sass["this"].get(key, (None, []))
             print(json.dumps({"phase": "sass", "kernel": key, "f32": f32, "identical": a == b,
-                              "instructions_other": len(a), "instructions_this": len(b)}),
+                              "generic": generic, "instructions_other": len(a),
+                              "instructions_this": len(b)}),
                   flush=True)
     return 0
 

@@ -156,7 +156,10 @@ Phases, one JSON line each (several for phases 2 to 6):
    one PyTorch reduction over the same window view; and at 4,096 epochs at
    each size off the main path of phase 3; K6-w8/w4 at capacity 64 and
    32,768 beside K6; the generic instantiations (K1 at every rung, K5,
-   K6, K6-w8/w4) at 4,096 windows at each generic size of phase 3.
+   K6, K6-w8/w4) at 4,096 windows at each generic size of phase 3 and at
+   one serve batch of 64 at GENERIC_PATH_SIZE, each with the windows a
+   tile its launch planned and ``library_ms``, one ``torch.matmul`` of the
+   centred windows with W (TF32 off: the contraction alone).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -2177,50 +2180,79 @@ def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandw
 
 
 def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve_mega_cuda, dev,
-                   sizes, bandwidth, f32_peak, bf16_peak, smi, launches, n=4096):
+                   sizes, bandwidth, f32_peak, bf16_peak, smi, launches, n=4096, serve_batch=64):
     """The generic instantiations at ``n`` windows, 3 channels, for each
-    (epoch_size, feature_size, skip) of ``sizes``: K1 at each rung on an
+    (epoch_size, feature_size, skip) of ``sizes``, and at one serve batch
+    (``serve_batch`` windows) at GENERIC_PATH_SIZE: K1 at each rung on an
     int16 stream (1,000-sample stride) and f32 on a float32 one; K5 at
     f32/int8/int4, K6 and K6-w8/w4 at the serve stride (lanes cycling).
-    Each beside its plain version's time and its bound (the needed
-    samples read once, rows or margins written once, operator, weights
-    or stack, lanes and resolutions once; operations against the float32
-    peak, the bf16 rung's against the bf16 tensor-core peak). Returns
-    {(kernel, size): (ms, plain ms, bound ms, bound by, max abs err)};
-    the outputs are held as in phase 3 (rows within
-    KERNEL_TOL, int8/int4 bit for bit to the plain quantizer on the
-    kernel's f32 rows, margins within MEGA_GATE_TOL, K6-w8/w4 bit-equal
-    to K6 on the dequantized stack). ``launches``: each instantiation's
-    launches over its path (phases 4 and 5), printed beside its times."""
-    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest
+    Each beside its plain version's time, its bound (the needed samples
+    read once, rows or margins written once, operator, weights or stack,
+    lanes and resolutions once; operations against the float32 peak, the
+    bf16 rung's against the bf16 tensor-core peak), the windows a tile its
+    launch planned (``planned_m``, ``ops/generic_plan.py``) and
+    ``library_ms``: one ``torch.matmul`` of the (windows * 3, epoch_size)
+    centred windows with W, TF32 off, the contraction alone
+    (``library_device_ms``: its GEMM's device time). Returns {(kernel,
+    size): (ms, plain ms, bound ms, bound by, max abs err, library ms)}
+    at ``n`` windows and {(kernel, size, serve_batch): ...} at the serve
+    batch; the outputs are held as in phase 3 (rows within KERNEL_TOL,
+    int8/int4 bit for bit to the plain quantizer on the kernel's f32 rows,
+    margins within MEGA_GATE_TOL, K6-w8/w4 bit-equal to K6 on the
+    dequantized stack). ``launches``: each instantiation's launches over its
+    path (phases 4 and 5), printed beside its times."""
+    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest, generic_plan
 
     out = {}
-    gen = torch.Generator(device=dev).manual_seed(n)
-    S = n * 1000 + 1000
-    big = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev, dtype=torch.int32)
+    sms, optin = ingest_cuda.device_limits(dev)
     res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
-    starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
     stride = serve_mega.padded_stride(100, 750)
-    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int16)
-    mstarts = torch.arange(n, dtype=torch.int32, device=dev) * stride
-    lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
-
-    def record(name, size, fn, plain_fn, err, bytes_moved, flops, symbol, peak=f32_peak):
-        kernel_ms = time_ms(fn)
-        device_ms = profiled_device_ms(fn, symbol)
-        plain_ms = time_ms(plain_fn)
-        bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, peak)
+    cases = [(size, n) for size in sizes] + [(GENERIC_PATH_SIZE, serve_batch)]
+    for size, rows in cases:
         e, K, skip = size
-        emit("timing", kernel=name, windows=n, epoch_size=e, feature_size=K, skip=skip,
-             kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
-             library_ms=None, max_abs_err=err, launches=launches[name], nvidia_smi=smi)
-        out[(name, size)] = (kernel_ms, plain_ms, bound_ms, bound_by, err)
-
-    for size in sizes:
-        e, K, skip = size
+        key = (size,) if rows == n else (size, rows)
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        S = rows * 1000 + 1000
+        big = torch.randint(-3000, 3000, (3, S), generator=gen, device=dev, dtype=torch.int32)
+        starts = torch.arange(rows, device=dev, dtype=torch.int32) * 1000
+        stream = torch.randint(-3000, 3000, (3, rows * stride), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int16)
+        mstarts = torch.arange(rows, dtype=torch.int32, device=dev) * stride
+        lanes = torch.arange(rows, dtype=torch.int32) % serve_mega.MAX_TENANTS
         W = dwt.kernel_operator(8, e, K, dev)
+        # the contraction alone by one library call, on the centred windows
+        windows = (big[:, (starts.long() + 100 + skip)[:, None]
+                       + torch.arange(e, device=dev)].to(torch.float32)
+                   * res[:, None, None])
+        windows = windows - windows.mean(dim=2, keepdim=True)
+        Z = windows.permute(1, 0, 2).reshape(rows * 3, e).contiguous()
+        del windows
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            library_ms = time_ms(lambda: torch.matmul(Z, W))
+            library_device_ms = profiled_device_ms(lambda: torch.matmul(Z, W), "gemm")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del Z
+
+        def record(name, fn, plain_fn, err, bytes_moved, flops, symbol, sample_bytes=2,
+                   peak=f32_peak):
+            kernel_ms = time_ms(fn)
+            device_ms = profiled_device_ms(fn, symbol)
+            plain_ms = time_ms(plain_fn)
+            bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, peak)
+            plan = generic_plan.generic_tile_plan(3, e, K, rows, sms, optin, 100, sample_bytes)
+            emit("timing", kernel=name, windows=rows, epoch_size=e, feature_size=K, skip=skip,
+                 kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
+                 library_ms=library_ms, library_device_ms=library_device_ms,
+                 library="torch.matmul of the centred windows with W, TF32 off "
+                         "(contraction only)",
+                 planned_m=plan.m, plan=plan._asdict(), max_abs_err=err,
+                 launches=launches[name], nvidia_smi=smi)
+            out[(name, *key)] = (kernel_ms, plain_ms, bound_ms, bound_by, err, library_ms)
+
         for dtype, precision in ((torch.int16, "f32"), (torch.int16, "bf16"),
                                  (torch.int16, "int8"), (torch.int16, "int4"),
                                  (torch.float32, "f32")):
@@ -2243,18 +2275,18 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
                                          f"{err}")
             del got
             samples = needed_samples(starts.cpu().numpy(), S, 100, skip, e)
-            bytes_moved = (3 * samples * raw.element_size() + n * 3 * K * 4 + n * 4
+            bytes_moved = (3 * samples * raw.element_size() + rows * 3 * K * 4 + rows * 4
                            + W.numel() * 4 + 3 * 4)
             name = "ingest_features_any" + ("_f32" if dtype == torch.float32 else
                                             ("" if precision == "f32" else f"_{precision}"))
-            record(name, size, lambda a=args: ingest_cuda.ingest_features(*a),
+            record(name, lambda a=args: ingest_cuda.ingest_features(*a),
                    lambda a=plain_args: device_ingest.ingest_features_plain(*a), err,
-                   bytes_moved, 2 * n * 3 * e * K, "ingest_features_any_kernel",
-                   bf16_peak if precision == "bf16" else f32_peak)
+                   bytes_moved, 2 * rows * 3 * e * K, "ingest_features_any_kernel",
+                   raw.element_size(), bf16_peak if precision == "bf16" else f32_peak)
             del raw
         weights = torch.randn(3 * K, generator=gen, device=dev)
-        mega_bytes = (3 * n * (100 + e) * 2 + n * 4 + W.numel() * 4 + 3 * K * 4 + 3 * 4)
-        flops = 2 * n * 3 * e * K + 2 * n * 3 * K
+        mega_bytes = (3 * rows * (100 + e) * 2 + rows * 4 + W.numel() * 4 + 3 * K * 4 + 3 * 4)
+        flops = 2 * rows * 3 * e * K + 2 * rows * 3 * K
         for precision in ("f32", "int8", "int4"):
             args = (stream, res, W, weights, 100, skip, stride, precision, e, K)
             got = serve_mega_cuda.serve_mega_margins(*args)
@@ -2267,7 +2299,7 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
             if err > serve_mega.MEGA_GATE_TOL:
                 raise AssertionError(f"generic megakernel ({precision}) disagrees at {size}")
             name = "serve_mega_any" + ("" if precision == "f32" else f"_{precision}")
-            record(name, size, lambda a=args: serve_mega_cuda.serve_mega_margins(*a),
+            record(name, lambda a=args: serve_mega_cuda.serve_mega_margins(*a),
                    lambda a=args: serve_mega.serve_mega_margins_plain(*a[:8]), err, mega_bytes,
                    flops, "serve_mega_any_kernel")
         stack = torch.randn((128, 3 * K), generator=gen, device=dev)
@@ -2276,8 +2308,8 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
         err = (got - serve_mega.serve_mega_multi_margins_plain(*args[:8])).abs().max().item()
         if err > serve_mega.MEGA_GATE_TOL:
             raise AssertionError(f"generic K6 disagrees at {size}: {err}")
-        k6_bytes = mega_bytes - 3 * K * 4 + 128 * 3 * K * 4 + n * 4
-        record("serve_mega_multi_any", size,
+        k6_bytes = mega_bytes - 3 * K * 4 + 128 * 3 * K * 4 + rows * 4
+        record("serve_mega_multi_any",
                lambda a=args: serve_mega_cuda.serve_mega_multi_margins(*a),
                lambda a=args: serve_mega.serve_mega_multi_margins_plain(*a[:8]), err, k6_bytes,
                flops, "serve_mega_any_kernel")
@@ -2293,11 +2325,12 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
             err = (got - serve_mega.serve_mega_multi_packed_margins_plain(*args[:10])
                    ).abs().max().item()
             packed_bytes = (mega_bytes - 3 * K * 4 + packed.numel() * packed.element_size()
-                            + 128 * 4 + n * 4)
-            record(f"serve_mega_multi_any_{wp}", size,
+                            + 128 * 4 + rows * 4)
+            record(f"serve_mega_multi_any_{wp}",
                    lambda a=args: serve_mega_cuda.serve_mega_multi_packed_margins(*a),
                    lambda a=args: serve_mega.serve_mega_multi_packed_margins_plain(*a[:10]), err,
                    packed_bytes, flops, "serve_mega_any_kernel")
+        del big, stream
     return out
 
 
@@ -2687,11 +2720,14 @@ def main() -> int:
                        max(packed_err[wp], packed_64[wp][4], packed_big[wp][4]), packed_64[wp])
           for wp in PACKED),
         # the generic engine: launches over its paths (phases 4 and 5), time
-        # at GENERIC_PATH_SIZE, the worst deviation over every size
+        # and library time at GENERIC_PATH_SIZE, the worst deviation over
+        # every size and the serve batch
         *(kernel_entry(name, source, replaces, generic_launches[name],
                        max(generic_err[name], *(generic[(name, size)][4]
-                                                for size in GENERIC_SIZES)),
-                       generic[(name, GENERIC_PATH_SIZE)])
+                                                for size in GENERIC_SIZES),
+                           generic[(name, GENERIC_PATH_SIZE, 64)][4]),
+                       generic[(name, GENERIC_PATH_SIZE)],
+                       library_ms=generic[(name, GENERIC_PATH_SIZE)][5])
           for name, source, replaces in (
               ("ingest_features_any", "ingest_features.cu", ingest_pallas),
               ("ingest_features_any_f32", "ingest_features.cu", ingest_pallas),

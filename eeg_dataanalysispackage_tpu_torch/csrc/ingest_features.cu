@@ -56,17 +56,18 @@
 // run at once, the 64 registers a thread allowing no more; a launch of
 // one recording's ~320 rows is one such chain.
 //
-// Every other window and coefficient count (a window of 1-750 samples, any
-// count its cascade has columns for) runs ingest_features_any_kernel, the
-// generic engine of window_features.cuh: one window a block at a time,
-// the row in shared memory. It is the simple form, right first; its time
-// is in PERF.md section 6, and its pace is later work.
+// Every other window and coefficient count (any window, any count its
+// cascade has columns for) runs ingest_features_any_kernel, the generic
+// engine of window_features_any.cuh: tiles of windows a block against W
+// in shared memory, the contraction register-blocked (its notes give the
+// design and the bound).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "window_features.cuh"
+#include "window_features_any.cuh"
 
 namespace {
 
@@ -99,10 +100,10 @@ struct IngestRows {
       for (int i = lane; i < nfeat; i += 32) dst[i] = s.feat[i] / denom;
     }
   }
-  // the generic engine's: every thread writes its share of the finished row
-  __device__ __forceinline__ void finish(int row, const float* y, int nfeat) const {
+  // the generic engine's: the calling warp writes the finished row
+  __device__ __forceinline__ void finish(int row, const float* y, int nfeat, int lane) const {
     float* dst = out + static_cast<long long>(row) * nfeat;
-    for (int i = threadIdx.x; i < nfeat; i += kThreads) dst[i] = y[i];
+    for (int i = lane; i < nfeat; i += 32) dst[i] = y[i];
   }
 };
 
@@ -121,19 +122,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
 }
 
 // Every size but the main path's 512 / 16: the generic engine
-// (window_features.cuh run_windows_any), `epoch` samples and `features`
-// coefficients a channel.
+// (window_features_any.cuh run_tiles_any), `epoch` samples and `features`
+// coefficients a channel, tiled as `plan` says.
 template <class Sample, Precision P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
     ingest_features_any_kernel(const Sample* __restrict__ raw,
                                const float* __restrict__ res,
                                const int* __restrict__ starts,
                                const float* __restrict__ w,
                                float* __restrict__ out, int n, int channels,
-                               int n_samples, int pre, int skip, int epoch, int features) {
+                               int n_samples, int pre, int skip, int epoch, int features,
+                               AnyPlan plan) {
   extern __shared__ __align__(16) float smem[];
-  run_windows_any<Sample, P>(smem, raw, channels, n_samples, res, w, n, pre, skip, epoch,
-                             features, IngestRows<P>{starts, out, channels});
+  const StreamView<Sample> v{raw, channels, n_samples};
+  run_tiles_any<Sample, P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
+                           IngestRows<P>{starts, out, channels});
 }
 
 template <class Sample, Precision P, bool kWide>
@@ -154,27 +157,31 @@ int launch_ring(const Ring& ring, size_t smem, const void* raw, const void* res,
 template <class Sample, Precision P>
 int launch_any(const void* raw, const void* res, const void* starts, const void* w, void* out,
                int n, int channels, int n_samples, int pre, int skip, int epoch, int features,
-               void* stream) {
+               const int* any_plan, void* stream) {
+  AnyPlan plan{};
   size_t smem = 0;
+  const int checked =
+      check_any_plan<Sample>(any_plan, channels, epoch, features, pre, &plan, &smem);
+  if (checked != cudaSuccess) return checked;
   int grid = 0;
-  const int err = plan_any(ingest_features_any_kernel<Sample, P>, channels, epoch, features, n,
-                           &smem, &grid);
+  const cudaError_t err = plan_grid(ingest_features_any_kernel<Sample, P>, smem,
+                                    (n + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
   ingest_features_any_kernel<Sample, P>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const Sample*>(raw), static_cast<const float*>(res),
           static_cast<const int*>(starts), static_cast<const float*>(w),
-          static_cast<float*>(out), n, channels, n_samples, pre, skip, epoch, features);
+          static_cast<float*>(out), n, channels, n_samples, pre, skip, epoch, features, plan);
   return cudaGetLastError();
 }
 
 template <class Sample, Precision P>
 int launch(const void* raw, const void* res, const void* starts, const void* w, void* out,
            int n, int channels, int n_samples, int pre, int skip, int epoch, int features,
-           void* stream) {
+           const int* any_plan, void* stream) {
   if (epoch != kEpoch || features != kFeatures) {
     return launch_any<Sample, P>(raw, res, starts, w, out, n, channels, n_samples, pre, skip,
-                                 epoch, features, stream);
+                                 epoch, features, any_plan, stream);
   }
   Ring ring{};
   size_t smem = 0;
@@ -191,20 +198,24 @@ int launch(const void* raw, const void* res, const void* starts, const void* w, 
 template <class Sample>
 int launch_rung(int precision, const void* raw, const void* res, const void* starts,
                 const void* w, void* out, int n, int channels, int n_samples, int pre,
-                int skip, int epoch, int features, void* stream) {
+                int skip, int epoch, int features, const int* any_plan, void* stream) {
   switch (static_cast<Precision>(precision)) {
     case Precision::kF32:
       return launch<Sample, Precision::kF32>(raw, res, starts, w, out, n, channels,
-                                             n_samples, pre, skip, epoch, features, stream);
+                                             n_samples, pre, skip, epoch, features, any_plan,
+                                             stream);
     case Precision::kBf16:
       return launch<Sample, Precision::kBf16>(raw, res, starts, w, out, n, channels,
-                                              n_samples, pre, skip, epoch, features, stream);
+                                              n_samples, pre, skip, epoch, features, any_plan,
+                                              stream);
     case Precision::kInt8:
       return launch<Sample, Precision::kInt8>(raw, res, starts, w, out, n, channels,
-                                              n_samples, pre, skip, epoch, features, stream);
+                                              n_samples, pre, skip, epoch, features, any_plan,
+                                              stream);
     case Precision::kInt4:
       return launch<Sample, Precision::kInt4>(raw, res, starts, w, out, n, channels,
-                                              n_samples, pre, skip, epoch, features, stream);
+                                              n_samples, pre, skip, epoch, features, any_plan,
+                                              stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -218,23 +229,33 @@ extern "C" {
 // window starts; w: (epoch, features) float32; out: (n, channels*features)
 // float32; precision: 0 f32, 1 bf16, 2 int8, 3 int4
 // (ops/decode_ingest.PRECISIONS). epoch 512 and features 16 run the ring
-// engine, every other size the generic one. Returns the cudaError_t of the
-// launch, or kSharedMemoryExceeded where the generic engine's row does not
-// fit a block's shared memory.
+// engine, every other size the generic one with the tile plan `any_plan`
+// (kAnyPlanFields ints, the order of AnyPlan; ops/generic_plan.py; not
+// read at 512 / 16). Returns the cudaError_t of the launch (an
+// inconsistent plan, or one that does not fit: cudaErrorInvalidValue), or
+// kSharedMemoryExceeded where the sizes lie outside the generic engine's
+// reach.
 int ingest_features_launch(const void* raw, const void* res, const void* starts,
                            const void* w, void* out, int n, int channels,
                            int n_samples, int pre, int skip, int float_samples,
-                           int precision, int epoch, int features, void* stream) {
+                           int precision, int epoch, int features, const int* any_plan,
+                           void* stream) {
   if (n <= 0) return cudaSuccess;
   if (channels <= 0 || pre <= 0 || skip < 0 || n_samples < 0 || epoch <= 0 || features <= 0) {
     return cudaErrorInvalidValue;
   }
   if (float_samples) {
     return launch_rung<float>(precision, raw, res, starts, w, out, n, channels, n_samples,
-                              pre, skip, epoch, features, stream);
+                              pre, skip, epoch, features, any_plan, stream);
   }
   return launch_rung<int16_t>(precision, raw, res, starts, w, out, n, channels, n_samples,
-                              pre, skip, epoch, features, stream);
+                              pre, skip, epoch, features, any_plan, stream);
+}
+
+// The current card's multiprocessor count and per-block shared-memory
+// opt-in limit; returns a cudaError_t.
+int ingest_features_device_limits(int* sms, int* smem_optin) {
+  return any_device_limits(sms, smem_optin);
 }
 
 const char* ingest_features_error_string(int code) {

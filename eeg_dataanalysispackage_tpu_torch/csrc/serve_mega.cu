@@ -59,10 +59,10 @@
 // bytes plus 512 of scales against the f32 stack's 24,576. Bound: K6's.
 //
 // Every other window and coefficient count (all instantiations above)
-// runs serve_mega_any_kernel, the generic engine of window_features.cuh:
-// one window a block at a time, the row in shared memory, warp 0's dot in
-// the same lane order. It is the simple form, right first; its time is in
-// PERF.md section 6, and its pace is later work.
+// runs serve_mega_any_kernel, the generic engine of window_features_any.cuh
+// (tiles of windows a block against W in shared memory; its notes give the
+// design and the bound): the warp that finishes a window dots its row in
+// the ring epilogue's lane order.
 //
 // Design: window_features.cuh's run_windows (a persistent wave of blocks,
 // each keeping its next window's samples in flight as 16-byte cp.async
@@ -85,6 +85,7 @@
 #include <cstdint>
 
 #include "window_features.cuh"
+#include "window_features_any.cuh"
 
 namespace {
 
@@ -197,12 +198,10 @@ struct MegaMargins {
     }
   }
 
-  // The generic engine's (any window and coefficient count): warp 0 dots
-  // the finished row in the ring epilogue's order, lane l's terms l,
-  // l + 32, ... by FMAs, then a butterfly.
-  __device__ __forceinline__ void finish(int row, const float* y, int nfeat) const {
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
+  // The generic engine's (any window and coefficient count): the calling
+  // warp dots the finished row in the ring epilogue's order, lane l's
+  // terms l, l + 32, ... by FMAs, then a butterfly.
+  __device__ __forceinline__ void finish(int row, const float* y, int nfeat, int lane) const {
     float m = 0.0f;
     if constexpr (Wt == Weights::kF32) {
       const float* wrow = weights;
@@ -246,9 +245,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
 }
 
 // Every size but the main path's 512 / 16: the generic engine
-// (window_features.cuh run_windows_any).
+// (window_features_any.cuh run_tiles_any), tiled as `plan` says.
 template <Precision P, bool kMulti, Weights Wt>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
     serve_mega_any_kernel(const int16_t* __restrict__ stream,
                           const float* __restrict__ res,
                           const float* __restrict__ w,
@@ -256,11 +255,13 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ out, int capacity, int channels,
                           int stride, int pre, int skip,
                           const int* __restrict__ lanes, int n_samples,
-                          const float* __restrict__ scales, int epoch, int features) {
+                          const float* __restrict__ scales, int epoch, int features,
+                          AnyPlan plan) {
   static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
   extern __shared__ __align__(16) float smem[];
-  run_windows_any<int16_t, P>(
-      smem, stream, channels, n_samples, res, w, capacity, pre, skip, epoch, features,
+  const StreamView<int16_t> v{stream, channels, n_samples};
+  run_tiles_any<int16_t, P>(
+      smem, v, res, w, capacity, pre, skip, epoch, features, plan,
       MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
 }
 
@@ -280,6 +281,7 @@ struct Launch {
   int skip;
   int epoch;
   int features;
+  const int* any_plan;  // the generic engine's tile plan (not read at 512 / 16)
   void* cuda_stream;
 };
 
@@ -301,10 +303,14 @@ int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
 
 template <Precision P, bool kMulti, Weights Wt>
 int launch_any(const Launch& a) {
+  AnyPlan plan{};
   size_t smem = 0;
+  const int checked =
+      check_any_plan<int16_t>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
+  if (checked != cudaSuccess) return checked;
   int grid = 0;
-  const int err = plan_any(serve_mega_any_kernel<P, kMulti, Wt>, a.channels, a.epoch,
-                           a.features, a.capacity, &smem, &grid);
+  const cudaError_t err = plan_grid(serve_mega_any_kernel<P, kMulti, Wt>, smem,
+                                    (a.capacity + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
   serve_mega_any_kernel<P, kMulti, Wt>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
@@ -312,7 +318,7 @@ int launch_any(const Launch& a) {
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
           static_cast<const int*>(a.lanes), a.capacity * a.stride,
-          static_cast<const float*>(a.scales), a.epoch, a.features);
+          static_cast<const float*>(a.scales), a.epoch, a.features, plan);
   return cudaGetLastError();
 }
 
@@ -345,15 +351,18 @@ extern "C" {
 // (channels*features,) float32; out: (capacity,) float32 margins before
 // the intercept; precision: 0 f32, 2 int8, 3 int4
 // (ops/decode_ingest.PRECISIONS; 1, bf16, is refused). epoch 512 and
-// features 16 run the ring engine, every other size the generic one.
-// Returns the cudaError_t of the launch, or kSharedMemoryExceeded where the
-// generic engine's row does not fit a block's shared memory.
+// features 16 run the ring engine, every other size the generic one with
+// the tile plan `any_plan` (kAnyPlanFields ints, the order of AnyPlan;
+// ops/generic_plan.py). Returns the cudaError_t of the launch (an
+// inconsistent plan, or one that does not fit: cudaErrorInvalidValue), or
+// kSharedMemoryExceeded where the sizes lie outside the generic engine's
+// reach.
 int serve_mega_launch(const void* stream, const void* res, const void* w,
                       const void* weights, void* out, int capacity, int channels,
                       int stride, int pre, int skip, int precision, int epoch, int features,
-                      void* cuda_stream) {
+                      const int* any_plan, void* cuda_stream) {
   const Launch a{stream, res, w, weights, nullptr, nullptr, out, capacity, channels,
-                 stride, pre, skip, epoch, features, cuda_stream};
+                 stride, pre, skip, epoch, features, any_plan, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
   switch (static_cast<Precision>(precision)) {
@@ -380,9 +389,9 @@ int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
                             const void* stack, const void* scales, const void* lanes,
                             void* out, int capacity, int channels, int stride, int pre,
                             int skip, int weights_precision, int epoch, int features,
-                            void* cuda_stream) {
+                            const int* any_plan, void* cuda_stream) {
   const Launch a{stream, res, w, stack, scales, lanes, out, capacity, channels,
-                 stride, pre, skip, epoch, features, cuda_stream};
+                 stride, pre, skip, epoch, features, any_plan, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
   switch (static_cast<Weights>(weights_precision)) {
@@ -396,6 +405,12 @@ int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The current card's multiprocessor count and per-block shared-memory
+// opt-in limit; returns a cudaError_t.
+int serve_mega_device_limits(int* sms, int* smem_optin) {
+  return any_device_limits(sms, smem_optin);
 }
 
 const char* serve_mega_error_string(int code) {

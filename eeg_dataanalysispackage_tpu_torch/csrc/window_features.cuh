@@ -3,9 +3,9 @@
 // (ingest_features.cu) and the serve megakernel (serve_mega.cu): both walk
 // their windows through run_windows below, so their feature rows agree bit
 // for bit. Every other window and coefficient count runs the generic
-// engine at the end of this file (run_windows_any), which both kernels
-// share too. The epoch-features kernel (epoch_features.cu) uses only the
-// 16-byte chunk copies (copy_async16, commit_async, wait_async).
+// engine of window_features_any.cuh, which both kernels share too. The
+// epoch-features kernel (epoch_features.cu) uses only the 16-byte chunk
+// copies (copy_async16, commit_async, wait_async).
 //
 // Per channel c of a window starting at `start`:
 //   x     = float(raw[c, start + j]) * res[c]      (0 outside [0, n_samples);
@@ -822,192 +822,6 @@ cudaError_t plan_ring(int channels, int pre, Ring* ring, size_t* smem) {
 // window, or no baseline in the ring.
 inline bool wide_ring(const Ring& r, int channels) {
   return r.group < channels || r.base_chunks == 0;
-}
-
-// ---------------------------------------------------------------------------
-// The generic engine: any analysis window (epoch samples) and coefficient
-// count (features), for every size but the main path's 512 / 16, which
-// runs the ring above. One window per block at a time, the rows walked
-// grid-stride by one resident wave (plan_grid). Per window and channel c:
-//   mean: threads strided over the pre baseline samples, summed in double
-//         (as the ring does, so for int16 samples the mean equals the
-//         plain version's bit for bit), reduced in a fixed order
-//   z:    x = float(sample) * res (0 outside the row), z = x - mean
-//         (__fmul_rn, __fsub_rn), rounded to bf16 for kBf16, into shared
-//         memory
-//   y:    per tile of up to 256 coefficients, thread (g, k) of G groups
-//         sums z[j] * W[j, k] over j = g, g + G, ... (W read from device
-//         memory through L1, row j of a tile coalesced; kBf16 rounds it),
-//         then the groups' partials add in group order
-// then the row's sum of squares in double (a float32 chain over a wide
-// row drifts past 2e-6), its norm, the row divided by it, for kInt8 and
-// kInt4 the quantize over the subband groups (subband_group), and the
-// caller's finish(row, y, nfeat), which every thread calls.
-// Every loop bound is known only at run time, and none is unrolled.
-// Shared memory: the row (channels * features floats), one channel's
-// centred window, the partials and the group maxima (any_smem_bytes); a
-// launch whose row does not fit is refused (kSharedMemoryExceeded).
-
-// Returned by a launcher (not a cudaError_t) where the generic engine's
-// shared memory for the launch's sizes exceeds the block's limit.
-constexpr int kSharedMemoryExceeded = -1;
-
-// Subband groups of one channel's `features` coefficients: [0, 1), then
-// [2^(g-1), min(2^g, features)) for g >= 1 (ops/decode_ingest.py
-// subband_group_bounds; the eegdsp layout [aK | dK | ... | d1]).
-__host__ __device__ inline int subband_groups(int features) {
-  int groups = 1;
-  for (int lo = 1; lo < features; lo *= 2) ++groups;
-  return groups;
-}
-
-// The group of coefficient k: 0 for k = 0, else 1 + floor(log2 k).
-__device__ __forceinline__ int subband_group(int k) { return k == 0 ? 0 : 32 - __clz(k); }
-
-inline size_t any_smem_bytes(int channels, int epoch, int features) {
-  const size_t c = static_cast<size_t>(channels);
-  return static_cast<size_t>(kWarps) * sizeof(double)                     // block sums
-         + (c * features + epoch + kThreads + c * subband_groups(features))  // y, z, part, gmax
-               * sizeof(float);
-}
-
-struct AnySmem {
-  double* red;   // [kWarps]                  each warp's share of a block sum
-  float* y;      // [channels * features]     the row
-  float* z;      // [epoch]                   one channel's centred window
-  float* part;   // [kThreads]                the groups' partial contractions
-  float* gmax;   // [channels * groups]       the subband groups' maxima
-};
-
-__device__ __forceinline__ AnySmem carve_any(void* smem, int channels, int epoch, int features) {
-  AnySmem s;
-  s.red = static_cast<double*>(smem);
-  s.y = reinterpret_cast<float*>(s.red + kWarps);
-  s.z = s.y + channels * features;
-  s.part = s.z + epoch;
-  s.gmax = s.part + kThreads;
-  return s;
-}
-
-// The block's sum of each thread's v, the same value to every thread: each
-// warp's butterfly, then the warps' sums in warp order.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  double total = 0.0;
-  for (int w = 0; w < kWarps; ++w) total += red[w];
-  __syncthreads();  // red is free again
-  return total;
-}
-
-// `Windows` supplies start(row) and finish(row, y, nfeat) (every thread
-// calls it, with the finished row in shared memory).
-template <class Sample, Precision P, class Windows>
-__device__ __forceinline__ void run_windows_any(void* smem, const Sample* __restrict__ raw,
-                                                int channels, int n_samples,
-                                                const float* __restrict__ res,
-                                                const float* __restrict__ w, int rows, int pre,
-                                                int skip, int epoch, int features,
-                                                const Windows& win) {
-  const AnySmem s = carve_any(smem, channels, epoch, features);
-  const int tid = threadIdx.x;
-  const int nfeat = channels * features;
-  const int tile = features < kThreads ? features : kThreads;
-  const int groups = kThreads / tile;
-  const int g = tid / tile;
-  const int kk = tid % tile;
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const long long start = win.start(row);
-    for (int c = 0; c < channels; ++c) {
-      const Sample* x = raw + static_cast<long long>(c) * n_samples;
-      const float rc = res[c];
-      double sum = 0.0;
-      for (int j = tid; j < pre; j += kThreads) {
-        const long long i = start + j;
-        if (i >= 0 && i < n_samples) {
-          sum += static_cast<double>(__fmul_rn(static_cast<float>(x[i]), rc));
-        }
-      }
-      const float mean = static_cast<float>(block_sum(sum, s.red) / static_cast<double>(pre));
-      const long long first = start + pre + skip;
-      for (int j = tid; j < epoch; j += kThreads) {
-        const long long i = first + j;
-        const float xv =
-            (i >= 0 && i < n_samples) ? __fmul_rn(static_cast<float>(x[i]), rc) : 0.0f;
-        float z = __fsub_rn(xv, mean);
-        if constexpr (P == Precision::kBf16) z = round_bf16(z);
-        s.z[j] = z;
-      }
-      __syncthreads();
-      for (int k0 = 0; k0 < features; k0 += tile) {
-        const int k = k0 + kk;
-        if (g < groups) {
-          float acc = 0.0f;
-          if (k < features) {
-            for (int j = g; j < epoch; j += groups) {
-              float wv = __ldg(w + static_cast<long long>(j) * features + k);
-              if constexpr (P == Precision::kBf16) wv = round_bf16(wv);
-              acc = fmaf(s.z[j], wv, acc);
-            }
-          }
-          s.part[tid] = acc;
-        }
-        __syncthreads();
-        if (tid < tile && k0 + tid < features) {
-          float y = 0.0f;
-          for (int q = 0; q < groups; ++q) y += s.part[q * tile + tid];
-          s.y[c * features + k0 + tid] = y;
-        }
-        __syncthreads();
-      }
-    }
-    double ss = 0.0;
-    for (int i = tid; i < nfeat; i += kThreads) {
-      const double v = s.y[i];
-      ss += v * v;
-    }
-    const float denom = fmaxf(static_cast<float>(sqrt(block_sum(ss, s.red))), 1e-30f);
-    for (int i = tid; i < nfeat; i += kThreads) s.y[i] = s.y[i] / denom;
-    __syncthreads();
-    if constexpr (quantized(P)) {
-      const int ng = subband_groups(features);
-      for (int q = tid; q < channels * ng; q += kThreads) {
-        const int c = q / ng;
-        const int gi = q % ng;
-        const int lo = gi == 0 ? 0 : 1 << (gi - 1);
-        const int hi = gi == 0 ? 1 : ((1 << gi) < features ? (1 << gi) : features);
-        float m = 0.0f;
-        for (int k = lo; k < hi; ++k) m = fmaxf(m, fabsf(s.y[c * features + k]));
-        s.gmax[q] = m;
-      }
-      __syncthreads();
-      for (int i = tid; i < nfeat; i += kThreads) {
-        const int q = (i / features) * ng + subband_group(i % features);
-        s.y[i] = quantize_feature<P>(s.y[i], s.gmax[q]);
-      }
-      __syncthreads();
-    }
-    win.finish(row, s.y, nfeat);
-    __syncthreads();  // the row is rewritten by the block's next window
-  }
-}
-
-// Size the generic engine's launch: kSharedMemoryExceeded where its shared
-// memory does not fit a block, else plan_grid's result for `kernel`.
-template <class Kernel>
-int plan_any(Kernel kernel, int channels, int epoch, int features, int rows, size_t* smem,
-             int* grid) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int max_optin = 0;
-  err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  *smem = any_smem_bytes(channels, epoch, features);
-  if (*smem > static_cast<size_t>(max_optin)) return kSharedMemoryExceeded;
-  return plan_grid(kernel, *smem, rows, grid);
 }
 
 }  // namespace window_features

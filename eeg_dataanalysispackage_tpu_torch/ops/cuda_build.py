@@ -10,6 +10,7 @@ compiled. A missing ``nvcc`` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,9 +31,9 @@ NVCC_FLAGS = (
 #: the largest count a kernel's C ``int`` launch argument holds
 INT32_MAX = 2**31 - 1
 
-#: the fused kernels' launchers' code (not a ``cudaError_t``) for a feature
-#: row that does not fit their generic engine's shared memory
-#: (``csrc/window_features.cuh``: kSharedMemoryExceeded)
+#: the fused kernels' launchers' code (not a ``cudaError_t``) for sizes
+#: outside their generic engine's reach (``csrc/window_features_any.cuh``:
+#: kSharedMemoryExceeded)
 SHARED_MEMORY_EXCEEDED = -1
 
 _LOCK = threading.Lock()
@@ -101,3 +102,39 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _LOADED[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_array(plan):
+    """A generic tile plan (``generic_plan.TilePlan``) as the launchers'
+    ``const int*``; ``None`` (a null pointer) where there is none. One
+    array a plan, made once: the launchers only read it."""
+    if plan is None:
+        return None
+    fields = plan.fields()
+    return (ctypes.c_int * len(fields))(*fields)
+
+
+_LIMITS: Dict[tuple, tuple] = {}
+
+
+def device_limits(fn, error_string, device) -> tuple:
+    """(multiprocessors, per-block shared-memory opt-in bytes) of the card
+    ``device`` (a ``torch.device``), through a library's
+    ``*_device_limits`` function; cached per library and card; raises on
+    a CUDA error."""
+    import torch
+
+    key = (fn.__name__, device.index)
+    limits = _LIMITS.get(key)
+    if limits is None:
+        sms, optin = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(ctypes.byref(sms), ctypes.byref(optin))
+        if rc != 0:
+            raise RuntimeError(
+                f"reading the card's limits failed: CUDA error {rc} "
+                f"({error_string(rc).decode()})"
+            )
+        limits = _LIMITS[key] = (sms.value, optin.value)
+    return limits

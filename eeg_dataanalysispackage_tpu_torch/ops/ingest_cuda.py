@@ -11,7 +11,8 @@ instantiation: ``f32``, ``bf16`` (bfloat16 contraction operands),
 ``int8`` and ``int4`` (the quantize step as an epilogue). The main
 path's sizes (a 512-sample window, 16 coefficients a channel) run the
 kernel's ring engine; every other window and coefficient count runs its
-generic engine, counted apart (the ``ANY_`` counters).
+generic engine, counted apart (the ``ANY_`` counters), tiled as
+``generic_plan.generic_tile_plan`` plans for the launch and the card.
 
 :func:`ingest_features` checks its inputs, then for CUDA tensors
 launches the kernel (and counts the launch in the counter of its
@@ -32,11 +33,12 @@ zero).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from . import cuda_build, decode_ingest, device_ingest, dwt
+from . import cuda_build, decode_ingest, device_ingest, dwt, generic_plan
 from ..utils import constants
 
 #: kernel launches made by this process (the wrapper adds one per
@@ -66,14 +68,26 @@ _COUNTERS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ingest_features")
     fn = lib.ingest_features_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    limits = lib.ingest_features_device_limits
+    limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    limits.restype = ctypes.c_int
     lib.ingest_features_error_string.argtypes = [ctypes.c_int]
     lib.ingest_features_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def device_limits(device: torch.device):
+    """(multiprocessors, per-block shared-memory opt-in bytes) of a
+    card, as the generic engine's plan takes them."""
+    lib = _library()
+    return cuda_build.device_limits(lib.ingest_features_device_limits,
+                                    lib.ingest_features_error_string, device)
 
 
 def build() -> str:
@@ -148,14 +162,22 @@ def ingest_features(
         return out
     lib = _library()
     float_samples = raw.dtype == torch.float32
-    with torch.cuda.device(raw.device):
-        stream = torch.cuda.current_stream(raw.device).cuda_stream
-        rc = lib.ingest_features_launch(
-            raw.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
-            operator.data_ptr(), out.data_ptr(),
-            n, C, S, pre, skip_samples, int(float_samples),
-            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size, stream,
-        )
+    generic = (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE)
+    plan = (generic_plan.generic_tile_plan(C, epoch_size, feature_size, n,
+                                           *device_limits(raw.device), pre, raw.element_size())
+            if generic else None)
+    if generic and plan is None:  # outside the generic engine's reach: no launch
+        rc = cuda_build.SHARED_MEMORY_EXCEEDED
+    else:
+        with torch.cuda.device(raw.device):
+            stream = torch.cuda.current_stream(raw.device).cuda_stream
+            rc = lib.ingest_features_launch(
+                raw.data_ptr(), resolutions.data_ptr(), starts.data_ptr(),
+                operator.data_ptr(), out.data_ptr(),
+                n, C, S, pre, skip_samples, int(float_samples),
+                decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size,
+                cuda_build.plan_array(plan), stream,
+            )
     if rc == cuda_build.SHARED_MEMORY_EXCEEDED:
         raise ValueError(
             f"ingest_features: a row of {C} channels x {feature_size} coefficients "
@@ -167,7 +189,7 @@ def ingest_features(
             f"({lib.ingest_features_error_string(rc).decode()})"
         )
     counter = _COUNTERS[(precision, float_samples)]
-    if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+    if generic:
         counter = "ANY_" + counter
     globals()[counter] += 1
     return out

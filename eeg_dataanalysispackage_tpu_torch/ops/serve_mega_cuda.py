@@ -26,18 +26,20 @@ range is checked before they are copied to the card.
 
 The main path's sizes (a 512-sample window, 16 coefficients a channel)
 run the kernel's ring engine; every other window and coefficient count
-runs its generic engine, counted apart (the ``ANY_`` counters). A size
-whose feature row does not fit the generic engine's shared memory
-raises a ``ValueError`` naming the sizes.
+runs its generic engine, counted apart (the ``ANY_`` counters), tiled as
+``generic_plan.generic_tile_plan`` plans for the launch and the card. A
+size outside the generic engine's reach raises a ``ValueError`` naming
+the sizes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from . import cuda_build, decode_ingest, dwt, serve_mega
+from . import cuda_build, decode_ingest, dwt, generic_plan, serve_mega
 
 #: kernel launches made by this process (the wrapper adds one per
 #: launch), one counter per instantiation: f32, int8, int4
@@ -65,14 +67,18 @@ _MULTI_COUNTERS = {"f32": "MULTI_LAUNCHES", "int8": "MULTI_LAUNCHES_INT8",
 _PACKED = {"int8": (torch.int8, 1.0), "int4": (torch.uint8, 0.5)}
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("serve_mega")
     fn = lib.serve_mega_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     multi = lib.serve_mega_multi_launch
-    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     multi.restype = ctypes.c_int
+    limits = lib.serve_mega_device_limits
+    limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    limits.restype = ctypes.c_int
     lib.serve_mega_error_string.argtypes = [ctypes.c_int]
     lib.serve_mega_error_string.restype = ctypes.c_char_p
     return lib
@@ -142,6 +148,22 @@ def _check_lanes(lanes, capacity) -> None:
         )
 
 
+def _plan(lib, stream: torch.Tensor, capacity: int, pre: int, epoch_size: int,
+          feature_size: int, kernel: str):
+    """The generic engine's tile plan of a launch (``None`` at the main
+    path's 512 / 16); raises, before any launch, outside its reach."""
+    if (epoch_size, feature_size) == (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+        return None
+    C = stream.shape[0]
+    limits = cuda_build.device_limits(lib.serve_mega_device_limits, lib.serve_mega_error_string,
+                                      stream.device)
+    plan = generic_plan.generic_tile_plan(C, epoch_size, feature_size, capacity, *limits, pre,
+                                          stream.element_size())
+    if plan is None:
+        _raise_on(cuda_build.SHARED_MEMORY_EXCEEDED, lib, kernel, C, epoch_size, feature_size)
+    return plan
+
+
 def _raise_on(rc: int, lib, kernel: str, C: int, epoch_size: int, feature_size: int) -> None:
     if rc == cuda_build.SHARED_MEMORY_EXCEEDED:
         raise ValueError(
@@ -192,13 +214,15 @@ def serve_mega_margins(
     if capacity == 0:
         return out
     lib = _library()
+    plan = _plan(lib, stream, capacity, pre, epoch_size, feature_size, "serve_mega")
     with torch.cuda.device(stream.device):
         cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
         rc = lib.serve_mega_launch(
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             weights.data_ptr(), out.data_ptr(),
             capacity, C, stride, pre, skip_samples,
-            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size, cuda_stream,
+            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size,
+            cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega", C, epoch_size, feature_size)
     _count(_COUNTERS[precision], epoch_size, feature_size)
@@ -213,8 +237,9 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
     out = torch.empty((capacity,), dtype=torch.float32, device=stream.device)
     if capacity == 0:
         return out
-    lanes_dev = lanes.to(stream.device)
     lib = _library()
+    plan = _plan(lib, stream, capacity, pre, epoch_size, feature_size, "serve_mega_multi")
+    lanes_dev = lanes.to(stream.device)
     with torch.cuda.device(stream.device):
         cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
         rc = lib.serve_mega_multi_launch(
@@ -223,7 +248,7 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
             lanes_dev.data_ptr(), out.data_ptr(),
             capacity, C, stride, pre, skip_samples,
             decode_ingest.PRECISIONS.index(weights_precision), epoch_size, feature_size,
-            cuda_stream,
+            cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega_multi", C, epoch_size, feature_size)
     _count(_MULTI_COUNTERS[weights_precision], epoch_size, feature_size)

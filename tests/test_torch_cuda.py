@@ -37,7 +37,7 @@ import torch
 from eeg_dataanalysispackage_tpu_torch.features import wavelet
 from eeg_dataanalysispackage_tpu_torch.models import registry
 from eeg_dataanalysispackage_tpu_torch.ops import (
-    decode_ingest, device_ingest, dwt, dwt_cuda, ingest_cuda, quant, serve_mega,
+    decode_ingest, device_ingest, dwt, dwt_cuda, generic_plan, ingest_cuda, quant, serve_mega,
     serve_mega_cuda,
 )
 from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
@@ -822,7 +822,7 @@ def test_ingest_kernel_on_long_baselines(dtype, C, pre):
 
 
 # ---------------------------------------------------------------------------
-# The generic engine (csrc/window_features.cuh run_windows_any): every
+# The generic engine (csrc/window_features_any.cuh run_tiles_any): every
 # window and coefficient count but the main path's 512 / 16, at every rung
 # of K1, K5 and K6; and the quantized tenant stack's K6-w8 and K6-w4.
 
@@ -1093,6 +1093,154 @@ def test_generic_engine_at_other_baselines_and_strides(pre, post):
                                                       stride)
     assert (multi - plain).abs().max().item() <= serve_mega.MEGA_GATE_TOL
     assert (margins[9:] == 0).all() and (multi[9:] == 0).all()
+
+
+
+# The generic engine's tiles (csrc/window_features_any.cuh run_tiles_any,
+# ops/generic_plan.py): a window's row does not depend on the launch or its
+# place in a tile, tiles cut short at the launch's end, and the engine's
+# reach.
+
+def _planned_windows(dev, C, n, K, rows, pre=100, sample_bytes=2):
+    """The windows a tile the wrappers plan for this launch on this card."""
+    return generic_plan.generic_tile_plan(C, n, K, rows, *ingest_cuda.device_limits(dev), pre,
+                                          sample_bytes).m
+
+
+def _placed(rows, seed):
+    """Where the 9 test windows sit in a launch of ``rows`` rows (spread,
+    first and last included), or None for rows < 9 (one launch each)."""
+    if rows < 9:
+        return None
+    rng = np.random.RandomState(seed + rows)
+    slots = np.concatenate([[0, rows - 1], rng.choice(np.arange(1, rows - 1), 7, replace=False)])
+    return rng.permutation(slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (700, 32, 50), (600, 300, 10)])
+def test_generic_rows_do_not_depend_on_the_launch(n, K, skip, precision):
+    """The same 9 windows at different positions in launches of 1, 9, 64,
+    1,000 and 4,096 rows (other rows random windows), hence in tiles of
+    different sizes and at different places in them: K1's generic rows and
+    K5's generic margins are bit-identical across the launches."""
+    dev = _card()
+    S = 1_000_000
+    raw = torch.from_numpy(_samples("int16", 3, S, seed=n + K, dc=12000)).to(dev)
+    res = torch.from_numpy(RES).to(dev)
+    W = _operator_of(dev, n, K)
+    rng = np.random.RandomState(K)
+    nine = rng.randint(-50, S - n - skip - 50, size=9).astype(np.int32)
+    stride = serve_mega.padded_stride(100, 750)
+    windows = [_samples("int16", 3, 850, seed=100 + i, dc=9000) for i in range(9)]
+    weights = torch.from_numpy(rng.randn(3 * K).astype(np.float32)).to(dev)
+    rows_by, margins_by = {}, {}
+    for rows in (1, 9, 64, 1_000, 4_096):
+        slots = _placed(rows, K)
+        if slots is None:
+            got = [ingest_cuda.ingest_features(raw, res, torch.tensor([s], dtype=torch.int32,
+                                                                      device=dev),
+                                               W, 100, skip, precision, n, K) for s in nine]
+            rows_by[rows] = torch.cat(got).cpu().numpy()
+            m = []
+            for win in windows:
+                stream = serve_mega.stage_mega_stream([win], 3, 850, stride, 1)
+                m.append(serve_mega_cuda.serve_mega_margins(
+                    torch.from_numpy(stream).to(dev), res, W, weights, 100, skip, stride,
+                    precision, n, K))
+            margins_by[rows] = torch.cat(m).cpu().numpy()
+            continue
+        starts = rng.randint(-50, S, size=rows).astype(np.int32)
+        starts[slots] = nine
+        got = ingest_cuda.ingest_features(raw, res, torch.from_numpy(starts).to(dev), W, 100,
+                                          skip, precision, n, K)
+        rows_by[rows] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
+        batch = [_samples("int16", 3, 850, seed=rows + i, dc=9000) for i in range(rows)]
+        for slot, win in zip(slots, windows):
+            batch[slot] = win
+        stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, 3, 850, stride,
+                                                               rows)).to(dev)
+        margins = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
+                                                     precision, n, K)
+        margins_by[rows] = margins[torch.from_numpy(slots).to(dev)].cpu().numpy()
+    plain = device_ingest.ingest_features_plain(raw, res, torch.from_numpy(nine).to(dev), W,
+                                                100, skip)
+    if precision == "f32":
+        assert np.abs(rows_by[1] - plain.cpu().numpy()).max() <= 2e-6
+    for rows in (9, 64, 1_000, 4_096):
+        assert rows_by[rows].tobytes() == rows_by[1].tobytes(), rows
+        assert margins_by[rows].tobytes() == margins_by[1].tobytes(), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 17, 76])
+def test_generic_tiles_cut_at_the_launch_end(C):
+    """Row counts that are not a multiple of the planned windows a tile
+    (1, M - 1, M + 1, 4,097), on 1 to 76 channels at (256, 16): K1 within
+    2e-6 of its plain version, windows past the stream's end exactly 0;
+    K5 within 2e-6 * ||w||_1, padded slots of the batch exactly 0."""
+    dev = _card()
+    n, K, skip = 256, 16, 175
+    S = 60_000
+    raw = torch.from_numpy(_samples("int16", C, S, seed=C, dc=9000)).to(dev)
+    res = torch.full((C,), 0.1, device=dev)
+    W = _operator_of(dev, n, K)
+    M = _planned_windows(dev, C, n, K, 4_097)
+    stride = serve_mega.padded_stride(100, 750)
+    rng = np.random.RandomState(C)
+    weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
+    windows = [_samples("int16", C, 850, seed=i, dc=9000) for i in range(7)]
+    for rows in sorted({1, max(1, M - 1), M + 1, 4_097}):
+        starts = rng.randint(-300, S + 300, size=rows).astype(np.int32)
+        starts[-1] = S  # past the end: a zero row
+        st = torch.from_numpy(starts).to(dev)
+        got = ingest_cuda.ingest_features(raw, res, st, W, 100, skip, "f32", n, K)
+        torch.cuda.synchronize()
+        want = device_ingest.ingest_features_plain(raw, res, st, W, 100, skip)
+        assert (got - want).abs().max().item() <= 2e-6, rows
+        assert (got[torch.from_numpy(starts >= S).to(dev)] == 0).all()
+        count = max(1, rows - 2)
+        batch = [windows[i % len(windows)] for i in range(count)]
+        stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, C, 850, stride,
+                                                               rows)).to(dev)
+        margins = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
+                                                     "f32", n, K)
+        plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, skip, stride)
+        assert (margins - plain).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+        assert (margins[count:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_generic_reach_is_unchanged_at_the_widest_row():
+    """76 channels x 740 coefficients at a 750-sample window, the widest
+    row the one-window-a-block engine's shared memory took: K1 and K5 run
+    and match their plain versions; 741 coefficients raise the ValueError
+    naming the sizes, before any launch (no counter moves)."""
+    dev = _card()
+    C, n, skip = 76, 750, 0
+    stride = 1024
+    raw = torch.from_numpy(_samples("int16", C, 4 * stride, seed=3, dc=9000)).to(dev)
+    res = torch.full((C,), 0.1, device=dev)
+    starts = torch.tensor([-40, 0, stride + 5, 3 * stride], dtype=torch.int32, device=dev)
+    W = _operator_of(dev, n, 740)
+    got = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, "f32", n, 740)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, res, starts, W, 100, skip)
+    assert (got - want).abs().max().item() <= 2e-6
+    weights = torch.from_numpy(np.random.RandomState(1).randn(C * 740).astype(np.float32)).to(dev)
+    margins = serve_mega_cuda.serve_mega_margins(raw, res, W, weights, 100, skip, stride, "f32",
+                                                 n, 740)
+    plain = serve_mega.serve_mega_margins_plain(raw, res, W, weights, 100, skip, stride)
+    assert (margins - plain).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+    before = (_generic_counters(), serve_mega_cuda.ANY_LAUNCHES)
+    W1 = _operator_of(dev, n, 741)
+    with pytest.raises(ValueError, match="76 channels x 741 coefficients at epoch_size 750"):
+        ingest_cuda.ingest_features(raw, res, starts, W1, 100, skip, "f32", n, 741)
+    with pytest.raises(ValueError, match="76 channels x 741 coefficients at epoch_size 750"):
+        serve_mega_cuda.serve_mega_margins(raw, res, W1, torch.zeros(C * 741, device=dev), 100,
+                                           skip, stride, "f32", n, 741)
+    assert (_generic_counters(), serve_mega_cuda.ANY_LAUNCHES) == before
 
 
 @pytest.fixture

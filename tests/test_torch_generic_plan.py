@@ -1,0 +1,141 @@
+"""The tile plan of the fused kernels' generic engine
+(``ops/generic_plan.generic_tile_plan``), on the CPU: where it refuses,
+that it fits where it does not, how many windows a tile it takes, and that
+it is a pure function of its inputs.
+
+The refusal boundary is held against the one-window-a-block engine's
+shared memory, copied here from its source as it stood
+(``window_features.cuh`` ``any_smem_bytes``): the redesign keeps that
+engine's reach exactly.
+"""
+
+import pytest
+
+from eeg_dataanalysispackage_tpu_torch.ops import cuda_build, dwt, generic_plan
+
+#: an H100's multiprocessors and per-block shared-memory opt-in limit
+SMS = 132
+OPTIN = 232_448
+
+
+def old_any_smem_bytes(channels, epoch, features):
+    """The one-window-a-block engine's shared memory: 8 doubles, then the
+    row, one channel's window, 256 partials and the subband groups'
+    maxima as floats."""
+    groups, lo = 1, 1
+    while lo < features:
+        groups += 1
+        lo *= 2
+    return 8 * 8 + (channels * features + epoch + 256 + channels * groups) * 4
+
+
+# (channels, epoch, features): the card tests' and chip_smoke.py's generic
+# sizes, the wide montage, the largest rows at a 750-sample window and one
+# coefficient past them, long windows, and sizes either side of the limit
+SIZES = [
+    (3, 256, 16), (3, 512, 64), (3, 333, 20), (3, 700, 32), (3, 1, 1), (3, 100, 3),
+    (3, 16, 16), (3, 600, 300), (76, 333, 20), (76, 750, 745), (76, 750, 740),
+    (76, 750, 741), (75, 750, 745), (77, 750, 730), (77, 750, 731), (1, 57_000, 1),
+    (1, 57_900, 1), (1, 30_000, 27_800), (2, 9_000, 8_000), (128, 512, 64),
+    (300, 256, 128), (1_000, 64, 40), (64, 750, 745), (16, 2_048, 2_000),
+]
+
+
+@pytest.mark.parametrize("channels,epoch,features", SIZES)
+def test_refusal_boundary_is_the_old_engines(channels, epoch, features):
+    """A plan exists exactly where the old engine's shared memory fits the
+    limit, and every plan fits the limit and the launcher's checks."""
+    for rows in (1, 64, 4_096):
+        plan = generic_plan.generic_tile_plan(channels, epoch, features, rows, SMS, OPTIN)
+        assert (plan is None) == (old_any_smem_bytes(channels, epoch, features) > OPTIN)
+        assert generic_plan.any_smem_bytes(channels, epoch, features) == old_any_smem_bytes(
+            channels, epoch, features)
+        if plan is None:
+            continue
+        assert plan.smem <= OPTIN
+        assert plan.smem == generic_plan.plan_smem_bytes(plan.fields(), channels, epoch,
+                                                         features)
+        _assert_consistent(plan, channels, epoch, features)
+
+
+def _assert_consistent(plan, channels, epoch, features, pre=100, sample_bytes=2):
+    """The launchers' checks (csrc/window_features_any.cuh check_any_plan)."""
+    kt = plan.qq << plan.tq_log2
+    assert 1 <= plan.m <= 1024 and plan.qq in (1, 4) and kt <= 128
+    assert 1 <= plan.rr <= (3 if sample_bytes == 2 else 2)
+    assert 1 <= plan.rz <= (256 >> plan.tq_log2) * plan.rr and plan.rz <= plan.m * channels
+    assert plan.jc == 0 or (plan.jc >= 4 and plan.jc % 4 == 0 and plan.jc * kt <= 256 * 8)
+    assert plan.ep >= (epoch + 3) // 4 * 4 and plan.ep % 32 == 4
+    if plan.seg_chunks == 0:
+        assert plan.base_chunks == 0
+    else:
+        assert plan.seg_chunks == generic_plan.segment_chunks(epoch, sample_bytes)
+        assert plan.base_chunks in (0, generic_plan.segment_chunks(pre, sample_bytes))
+
+
+def test_widest_row_at_a_750_sample_window():
+    """76 channels at a 750-sample window: 740 coefficients (within the
+    cascade's 745) are the most the old engine took, and plan; 741 do
+    not."""
+    dwt.check_feature_size(8, 750, 741)
+    assert generic_plan.generic_tile_plan(76, 750, 740, 8, SMS, OPTIN) is not None
+    assert generic_plan.generic_tile_plan(76, 750, 741, 8, SMS, OPTIN) is None
+
+
+@pytest.mark.parametrize("channels,epoch,features", SIZES[:8])
+def test_one_window_a_tile_at_a_serve_batch(channels, epoch, features):
+    """A capacity-64 batch on 132 multiprocessors takes one window a tile,
+    so its 64 windows spread over 64 blocks."""
+    plan = generic_plan.generic_tile_plan(channels, epoch, features, 64, SMS, OPTIN)
+    assert plan.m == 1
+
+
+@pytest.mark.parametrize("channels,epoch,features",
+                         [s for s in SIZES if old_any_smem_bytes(*s) <= OPTIN])
+def test_windows_a_tile_rise_with_rows_and_fit(channels, epoch, features):
+    """More rows never take fewer windows a tile, thousands of windows take
+    several where shared memory allows, and no plan passes the limit."""
+    last = 0
+    for rows in (1, 7, 64, 300, 1_000, 4_096, 32_768, 1_000_000):
+        plan = generic_plan.generic_tile_plan(channels, epoch, features, rows, SMS, OPTIN)
+        assert plan.m >= last and plan.smem <= OPTIN
+        last = plan.m
+    if (channels, epoch, features) in [(3, 256, 16), (3, 333, 20), (3, 700, 32), (3, 512, 64)]:
+        assert generic_plan.generic_tile_plan(channels, epoch, features, 4_096, SMS,
+                                              OPTIN).m >= 4
+
+
+@pytest.mark.parametrize("sample_bytes,pre", [(2, 100), (4, 100), (2, 2_800), (4, 40_000)])
+def test_plan_is_deterministic_and_fits_any_baseline(sample_bytes, pre):
+    """The same inputs give the same plan, the memoized one included; a
+    baseline too long to stage is read from device memory (no baseline
+    chunks), and float32 samples stage twice the bytes of int16."""
+    for channels, epoch, features in SIZES[:9]:
+        a = generic_plan.generic_tile_plan(channels, epoch, features, 4_096, SMS, OPTIN, pre,
+                                           sample_bytes)
+        b = generic_plan.generic_tile_plan.__wrapped__(channels, epoch, features, 4_096, SMS,
+                                                       OPTIN, pre, sample_bytes)
+        assert a == b and a.smem <= OPTIN
+        _assert_consistent(a, channels, epoch, features, pre, sample_bytes)
+        if pre == 40_000:
+            assert a.base_chunks == 0
+
+
+@pytest.mark.parametrize("rows", [1, 64, 4_096])
+def test_plan_and_its_array_are_memoized(rows):
+    """A launch's plan is searched once for its sizes (the search is more
+    host time than a serve batch's kernel), and its launch array is made
+    once: a second call returns the same objects without a search."""
+    args = (3, 256, 16, rows, SMS, OPTIN, 100, 2)
+    first = generic_plan.generic_tile_plan(*args)
+    misses = generic_plan.generic_tile_plan.cache_info().misses
+    assert generic_plan.generic_tile_plan(*args) is first
+    assert generic_plan.generic_tile_plan.cache_info().misses == misses
+    array = cuda_build.plan_array(first)
+    assert cuda_build.plan_array(first) is array and tuple(array) == first.fields()
+    assert cuda_build.plan_array(None) is None
+
+
+def test_plan_refuses_nonpositive_sizes():
+    with pytest.raises(ValueError):
+        generic_plan.generic_tile_plan(0, 256, 16, 64, SMS, OPTIN)
