@@ -140,6 +140,24 @@ Phases, one JSON line each (several for phases 2 to 6):
    exhausted budgets and the next call fails fast); parse seconds and
    MB/s over loopback beside the local parse, the retry and ``circuit.*``
    counters and each run's launches;
+5c. the serving lifecycle: ``serve=true&adapt=true&swap_gate=off`` with
+   the saved model at the JAX package's defaults (``adapt_batch=16``,
+   ``adapt_iters=20``, ``drift_window=64``, a 1,024-row ring) and a
+   ``checkpoint_path=``: statistics equal to the plain serve run's, the
+   ingest kernel's launches over the adapt stage (one per featurize
+   call: each feedback batch's run of equal resolutions) and the
+   megakernel's over serving, the lifecycle block's counts (every kept
+   epoch received, one chunk per batch, no failure) and the adapt
+   stage's wall split per batch into featurize, SGD chunk and checkpoint
+   (medians); then a service with a permissive gate fed the session
+   twice, the first time while the session is served again (latency
+   p50/p99 with the adapter busy beside phase 5's): at least one swap,
+   no library built, the mega program unchanged, and the predictions
+   served after the swap equal to the card's batch ``load_clf=`` run of
+   ``promoted.npz`` under the near-threshold rule, and bit for bit to a
+   fresh service around it; then an adapter abandoned after its 3rd
+   checkpoint and resumed over the same directory, its candidate weights
+   byte-equal to an uninterrupted twin's;
 6. timing (CUDA events around one wrapper call, median of 25; and the
    kernel's own device time from ``torch.profiler``, mean of 10, taken
    before the plain version runs, with the SM clock read just after) beside
@@ -159,7 +177,8 @@ Phases, one JSON line each (several for phases 2 to 6):
    K6, K6-w8/w4) at 4,096 windows at each generic size of phase 3 and at
    one serve batch of 64 at GENERIC_PATH_SIZE, each with the windows a
    tile its launch planned and ``library_ms``, one ``torch.matmul`` of the
-   centred windows with W (TF32 off: the contraction alone).
+   centred windows with W (TF32 off: the contraction alone); the same
+   library call for the 512/16 rows at 64 and 32,768 windows.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -663,7 +682,9 @@ def differing_rows(pred_a, m_a, pred_b, m_b, thr, label):
 def phase_serve(torch, np, info, model, kept):
     """serve=true end to end on the card, held against the card's batch
     load_clf= run and the CPU serve=true run; returns the megakernel's
-    launches over the serve run."""
+    launches over the serve run, the session's windows, resolutions and
+    targets in request order, and the serve run's statistics and latency
+    block."""
     from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
     from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
     from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega, serve_mega_cuda
@@ -700,13 +721,14 @@ def phase_serve(torch, np, info, model, kept):
 
     # per row: the session's windows through mega, fused and CPU services
     odp = OfflineDataProvider([info], device="cpu")
-    windows, resolutions = [], []
+    windows, resolutions, targets = [], [], []
     balance = BalanceState()
     for _rel, guessed, rec in odp.iter_recordings():
-        ws, _ts, res = engine.windows_from_recording(
+        ws, ts, res = engine.windows_from_recording(
             rec, odp.channel_indices_for(rec), guessed, balance=balance)
         windows.extend(ws)
         resolutions.extend([res] * len(ws))
+        targets.extend(float(t) for t in ts)
     runs = {}
     for label, kwargs in (("mega", {}), ("fused", {"engine_rung": "fused"}),
                           ("cpu", {"device": "cpu"})):
@@ -752,12 +774,13 @@ def phase_serve(torch, np, info, model, kept):
 
         stream = serve_mega.stage_mega_stream(batch_w, 3, 850, eng._mega_stride, eng.capacity)
         staged = torch.from_numpy(stream).to(eng.device)
-        margins = eng._mega_program(staged, res_t, eng._weights)
+        weights = eng._model.weights
+        margins = eng._mega_program(staged, res_t, weights)
         split = {
             "host_staging_ms": host_ms(lambda: serve_mega.stage_mega_stream(
                 batch_w, 3, 850, eng._mega_stride, eng.capacity)),
             "h2d_ms": host_ms(lambda: torch.from_numpy(stream).to(eng.device)),
-            "kernel_call_ms": host_ms(lambda: eng._mega_program(staged, res_t, eng._weights)),
+            "kernel_call_ms": host_ms(lambda: eng._mega_program(staged, res_t, weights)),
             "margin_sync_ms": host_ms(lambda: margins.cpu()),
             "engine_execute_ms": host_ms(lambda: eng.execute(batch_w, res_np)),
         }
@@ -778,7 +801,202 @@ def phase_serve(torch, np, info, model, kept):
          predictions_equal=probe_ok)
     if pblock["requests"]["completed"] != n_probe or not probe_ok:
         raise AssertionError("the 16-thread probe lost requests or changed predictions")
-    return launches, windows, resolutions
+    return launches, windows, resolutions, targets, str(served), block["latency_ms"]
+
+
+def adapt_split(rec):
+    """Per-batch medians (ms) of the adapter's featurize, SGD chunk and
+    checkpoint steps, from the ``serve.adapt_chunk`` events in ``rec``."""
+    chunks = [e["attrs"] for e in rec.recent_events() if e["name"] == "serve.adapt_chunk"]
+    split = {f"{k}_median_ms": (pystats.median(c[f"{k}_s"] for c in chunks) * 1e3
+                                if chunks else None)
+             for k in ("featurize", "chunk", "checkpoint")}
+    return len(chunks), split
+
+
+def resolution_runs(resolutions, batch):
+    """Featurize calls the adapter makes over a feedback stream: one per
+    run of equal resolutions within each batch of ``batch``."""
+    calls = 0
+    for i in range(0, len(resolutions), batch):
+        part = resolutions[i:i + batch]
+        calls += 1 + sum(1 for a, b in zip(part, part[1:]) if not (a == b).all())
+    return calls
+
+
+def phase_lifecycle(torch, np, info, model, kept, windows, resolutions, targets, work,
+                    plain_stats, plain_latency):
+    """Phase 5c, the serving lifecycle on the card: (1)
+    ``serve=true&adapt=true&swap_gate=off`` at the JAX package's defaults,
+    checkpointing every feedback batch: statistics equal to the plain
+    serve run's, K1's launches over the adapt stage (one per featurize
+    call) and K5's over serving, the lifecycle block's counts and the
+    adapt stage's wall split per batch; (2) a permissive-gate service
+    fed the session twice (the first pass while the session is served
+    again, for latency with the adapter busy): at least one swap, no
+    library built, the mega program unchanged, and predictions served
+    after the swap equal to the card's batch ``load_clf=`` run of
+    ``promoted.npz`` (a row may differ only within MARGIN_BAND of the
+    threshold on both) and bit for bit to a fresh engine around it; (3)
+    an adapter abandoned after its 3rd checkpoint and resumed over the
+    same directory ends at candidate weights byte-equal to an
+    uninterrupted twin's. Returns K1's and K5's launches over the gate-off
+    run's adapt and serve stages."""
+    import contextlib
+
+    from eeg_dataanalysispackage_tpu_torch.obs import events
+    from eeg_dataanalysispackage_tpu_torch.ops import cuda_build, ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import (
+        InferenceService, LifecycleConfig, LifecycleManager, ServingEngine,
+    )
+
+    class StageCounted(PipelineBuilder):
+        """K1's and K5's launches within each stage of the run."""
+
+        stage_launches = {}
+
+        @contextlib.contextmanager
+        def _stage(self, name):
+            before = (ingest_cuda.LAUNCHES, serve_mega_cuda.LAUNCHES)
+            with super()._stage(name):
+                yield
+            self.stage_launches[name] = (ingest_cuda.LAUNCHES - before[0],
+                                         serve_mega_cuda.LAUNCHES - before[1])
+
+    t_phase = time.perf_counter()
+    base = f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}"
+    ck_off = os.path.join(work, "lifecycle_off")
+    ingest_cuda.LAUNCHES = 0
+    serve_mega_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with events.recording(events.SpanRecorder("lifecycle", ring_capacity=65536)) as rec:
+        off = StageCounted(base + f"&serve=true&adapt=true&swap_gate=off&checkpoint_path={ck_off}")
+        off_stats = off.execute()
+    wall = time.perf_counter() - t0
+    k1_adapt, _ = off.stage_launches["adapt"]
+    _, k5_serve = off.stage_launches["serve"]
+    block = off.serve_block["lifecycle"]
+    n_chunks, split = adapt_split(rec)
+    expected_k1 = resolution_runs(resolutions, 16)
+    fb = block["feedback"]
+    emit("lifecycle_gate_off", statistics_equal_plain_serve=str(off_stats) == plain_stats,
+         k1_launches_adapt=k1_adapt, k1_launches_expected=expected_k1,
+         k5_launches_serve=k5_serve, feedback=fb, swaps=block["swaps"],
+         candidate=block["candidate"], checkpoint=block["checkpoint"],
+         adapt_stage_s=off.timers["adapt"], serve_stage_s=off.timers["serve"],
+         batches_timed=n_chunks, wall_s=wall, **split)
+    if not (str(off_stats) == plain_stats and fb["received"] == kept and fb["failures"] == 0
+            and fb["batches"] == fb["chunks"] == n_chunks == math.ceil(kept / 16)
+            and k1_adapt == expected_k1 and k5_serve >= math.ceil(kept / 64)
+            and block["swaps"] == 0 and block["checkpoint"]["steps"] <= 2):
+        raise AssertionError("adapt=true&swap_gate=off did not serve, adapt and checkpoint "
+                             "as the plain run")
+
+    # 2. promotion behind a permissive gate
+    ck_on = os.path.join(work, "lifecycle_on")
+    svc = InferenceService.from_saved("logreg", model, lifecycle=LifecycleConfig(
+        gate_ratio=100.0, checkpoint_dir=ck_on, rollback=False))
+    program, loaded = svc.engine._mega_program, dict(cuda_build._LOADED)
+    logs = dict(cuda_build.BUILD_LOGS)
+    with svc:
+        for w, r, y in zip(windows, resolutions, targets):
+            svc.feedback(w, r, y)
+        svc.predict_all(windows, resolutions)  # served while the adapter trains
+        busy_latency = svc.stats_block()["latency_ms"]
+        if not svc.lifecycle.flush(timeout_s=300.0):
+            raise AssertionError("the adapter did not go idle")
+        for w, r, y in zip(windows, resolutions, targets):
+            svc.feedback(w, r, y)
+        if not svc.lifecycle.flush(timeout_s=300.0):
+            raise AssertionError("the adapter did not go idle")
+        after = svc.predict_all(windows, resolutions)
+        pblock = svc.lifecycle.block()
+        built = dict(cuda_build._LOADED) != loaded or dict(cuda_build.BUILD_LOGS) != logs
+        same_program = svc.engine._mega_program is program
+    served_p = np.array([r.prediction for r in after])
+    served_m = np.array([r.margin for r in after], dtype=np.float64)
+    promoted = pblock["promoted_path"]
+    batch = PipelineBuilder(base.replace(f"load_name={model}", f"load_name={promoted}"))
+    batch.execute()
+    batch_m = batch.classifier.margin(batch.features).double().cpu().numpy()
+    thr = batch.classifier.margin_threshold
+    batch_p = (batch_m > thr).astype(np.float64)
+    near = differing_rows(served_p, served_m, batch_p, batch_m, thr,
+                          "served after the swap vs the batch run of promoted.npz")
+    fresh = InferenceService.from_saved("logreg", promoted)
+    with fresh:
+        fresh_m = np.array([r.margin for r in fresh.predict_all(windows, resolutions)],
+                           dtype=np.float64)
+    emit("lifecycle_promotion", swaps=pblock["swaps"], generation=pblock["generation"],
+         feedback=pblock["feedback"], gate=pblock["gate"], library_built=built,
+         mega_program_unchanged=same_program, rows=kept,
+         near_threshold_rows_batch=near, equal_batch_promoted=not near,
+         bit_equal_fresh_engine=served_m.tobytes() == fresh_m.tobytes(),
+         latency_ms_adapter_busy=busy_latency, latency_ms_phase5=plain_latency)
+    if not (pblock["swaps"] >= 1 and not built and same_program
+            and served_m.tobytes() == fresh_m.tobytes() and pblock["feedback"]["failures"] == 0):
+        raise AssertionError("the lifecycle's promotion did not hold on the card")
+
+    # 3. resume: an adapter abandoned after its 3rd checkpoint, resumed
+    # over the same directory, ends where an uninterrupted twin does
+    eng = ServingEngine(svc.engine.classifier, capacity=64)
+    eng.warmup()
+    stream = list(zip(windows[:96], resolutions[:96], targets[:96]))
+
+    def adapter(directory):
+        return LifecycleManager(eng, LifecycleConfig(
+            gate_mode="off", gate_ratio=None, checkpoint_dir=directory)).start()
+
+    def feed(lc, start, stop):
+        for b in range(start, stop):
+            for w, r, y in stream[16 * b:16 * (b + 1)]:
+                lc.feedback(w, r, y)
+            if not lc.flush(timeout_s=120.0):
+                raise AssertionError("the adapter did not go idle")
+
+    twin = adapter(os.path.join(work, "resume_twin"))
+    feed(twin, 0, 6)
+    twin.close()
+    victim_dir = os.path.join(work, "resume_victim")
+    victim = adapter(victim_dir)
+    feed(victim, 0, 3)
+    victim.close(flush=False)  # abandoned after its 3rd checkpoint
+    resumed = adapter(victim_dir)
+    resumed_at = resumed.batches_trained
+    feed(resumed, resumed_at, 6)
+    resumed.close()
+    equal = resumed.candidate.w.tobytes() == twin.candidate.w.tobytes()
+    emit("lifecycle_resume", resumed_at_batch=resumed_at, batches=6,
+         weights_byte_equal=equal, candidate_t=int(resumed.candidate.t),
+         phase_seconds=time.perf_counter() - t_phase)
+    if not (resumed_at == 3 and equal):
+        raise AssertionError("the resumed candidate is not the uninterrupted twin's")
+    return k1_adapt, k5_serve
+
+
+def contraction_library_ms(torch, dwt, dev, n, smi):
+    """``library_ms`` of the 512/16 kernels: one ``torch.matmul`` of
+    ``n`` windows x 3 channels of centred float32 windows (n * 3, 512)
+    with the (512, 16) operator, TF32 off: the contraction alone, without
+    the staging, centring, normalize or quantize the kernels also do
+    (event time, median of 25, and its GEMM's device time)."""
+    gen = torch.Generator(device=dev).manual_seed(n + 7)
+    Z = torch.randn((n * 3, 512), generator=gen, device=dev) * 40.0
+    Z = Z - Z.mean(dim=1, keepdim=True)
+    W = dwt.kernel_operator(8, 512, 16, dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library_ms = time_ms(lambda: torch.matmul(Z, W))
+        library_device_ms = profiled_device_ms(lambda: torch.matmul(Z, W), "gemm")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit("timing", kernel="library_contraction_512x16", windows=n, library_ms=library_ms,
+         library_device_ms=library_device_ms,
+         library="torch.matmul of the centred windows with W, TF32 off (contraction only)",
+         nvidia_smi=smi)
+    return library_ms
 
 
 def phase_serve_precisions(np, info, model, kept, windows, resolutions):
@@ -2640,13 +2858,15 @@ def main() -> int:
 
         # 5. the serving path end to end with the card's saved model
         kept = int(len(gpu.targets))
-        serve_launches, windows, resolutions = phase_serve(torch, np, info, model, kept)
+        (serve_launches, windows, resolutions, targets, plain_stats,
+         plain_latency) = phase_serve(torch, np, info, model, kept)
         served_launches = phase_serve_precisions(np, info, model, kept, windows, resolutions)
         multi_launches = phase_multi_service(torch, np, info, model, kept, windows,
                                              resolutions)
         packed_launches = phase_quant_multi_service(torch, np, model, kept, windows,
                                                     resolutions)
         generic_launches.update(phase_generic_serve(torch, np, model, windows, resolutions))
+
 
         # 5b. the same paths with the session and the models on a loopback
         # object store and WebHDFS namenode
@@ -2655,6 +2875,11 @@ def main() -> int:
                       "parse": {"hdfs_fused": gpu.timers["parse"],
                                 "http_pallas": pallas_run.timers["parse"]}},
                      counters, windows, resolutions, smi)
+
+        # 5c. the serving lifecycle: adapt=true at the defaults, a
+        # promotion, and a resumed adapter
+        phase_lifecycle(torch, np, info, model, kept, windows, resolutions, targets, work,
+                        plain_stats, plain_latency)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2689,6 +2914,9 @@ def main() -> int:
     k4_run = [epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi)
               for n in (641, 1494)]  # the -pallas logreg run's own launches
     epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
+    # the 512/16 rows' library call at their timing sizes: 32,768
+    # windows (K1 and its rungs) and one serve batch of 64 (K5, K6)
+    lib = {n: contraction_library_ms(torch, dwt, dev, n, smi) for n in (64, 32_768)}
 
     # 7. the kernels line, then the card line, then the result
     ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
@@ -2697,27 +2925,30 @@ def main() -> int:
     multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas, main_launches,
-                     max(max_err["f32"], k1[4]), k1),
+                     max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
-                     mega_64["f32"]),
+                     mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
         kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
-                     max(f32_err, f32_path_err, k1_f32[4]), k1_f32),
+                     max(f32_err, f32_path_err, k1_f32[4]), k1_f32, library_ms=lib[32_768]),
         *(kernel_entry(f"ingest_features_{p}", "ingest_features.cu", bank_pallas,
-                       rung_launches[p], max(max_err[p], k1_rungs[p][4]), k1_rungs[p])
+                       rung_launches[p], max(max_err[p], k1_rungs[p][4]), k1_rungs[p],
+                       library_ms=lib[32_768])
           for p in ("bf16", "int8", "int4")),
         *(kernel_entry(f"serve_mega_{p}", "serve_mega.cu", mega_pallas, served_launches[p],
-                       max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p])
+                       max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p],
+                       library_ms=lib[64])
           for p in ("int8", "int4")),
         kernel_entry("serve_mega_multi", "serve_mega.cu", multi_pallas, multi_launches,
-                     max(multi_err, multi_64[4], multi_big[4]), multi_64),
+                     max(multi_err, multi_64[4], multi_big[4]), multi_64, library_ms=lib[64]),
         *(kernel_entry(f"serve_mega_multi_{wp}", "serve_mega.cu", multi_pallas,
                        packed_launches[wp],
-                       max(packed_err[wp], packed_64[wp][4], packed_big[wp][4]), packed_64[wp])
+                       max(packed_err[wp], packed_64[wp][4], packed_big[wp][4]), packed_64[wp],
+                       library_ms=lib[64])
           for wp in PACKED),
         # the generic engine: launches over its paths (phases 4 and 5), time
         # and library time at GENERIC_PATH_SIZE, the worst deviation over

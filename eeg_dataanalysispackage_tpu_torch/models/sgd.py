@@ -16,6 +16,12 @@ Port of the JAX package's ``models/sgd.py`` engine (MLlib's
   freezes the weights inside a fixed-length scan; breaking out of the
   loop gives the same weights.
 
+:func:`train_linear` (the monolithic run) and :func:`partial_fit_linear`
+(one chunk of iterations ``t_start+1 .. t_start+n`` from a carry, over a
+fixed-capacity matrix with a sample mask: the serving lifecycle's
+streaming partial fit) run the one step function, :func:`_step`, so a
+chunked run replays the monolithic trajectory byte for byte.
+
 Mini-batch sampling (``mini_batch_fraction < 1``) draws JAX's threefry
 bits in the reference and is not ported yet.
 """
@@ -23,9 +29,14 @@ bits in the reference and is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
+
+_f32 = np.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +57,13 @@ class SGDConfig:
         return self.weight_pos != 1.0 or self.weight_neg != 1.0
 
 
-def train_linear(
-    features: torch.Tensor, labels: torch.Tensor, config: SGDConfig
-) -> torch.Tensor:
-    """Train a linear model on ``features``' device; returns (d,) float32
-    weights there."""
+#: ``(w, converged, n_updates)``: the (d,) float32 weights, whether the
+#: early stop fired (the weights are frozen from then on), and the
+#: updates made while not converged
+Carry = Tuple[torch.Tensor, bool, int]
+
+
+def _check_config(config: SGDConfig) -> None:
     if config.mini_batch_fraction < 1.0:
         raise NotImplementedError(
             "mini_batch_fraction < 1 samples with the reference's threefry "
@@ -59,41 +72,122 @@ def train_linear(
         )
     if config.loss not in ("logistic", "hinge"):
         raise ValueError(f"unknown loss {config.loss!r}")
-    x = features.to(torch.float32)
-    y = labels.to(device=x.device, dtype=torch.float32)
-    n, d = x.shape
-    w = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if n == 0:
-        return w  # an empty sample never updates
+
+
+def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
+          t: int) -> Carry:
+    """Iteration ``t`` (1-based, absolute) of the MLlib-SGD loop over
+    ``x`` (n, d), ``y`` (n,) and the optional sample ``mask`` (n,) whose
+    sum is ``count``; the JAX package's scan body (``_make_scan_step``).
+    The gradient is ``x.T @ (mult * mask)`` averaged over ``count``; an
+    empty sample neither decays nor updates. The scalars are float32, as
+    the JAX engine computes them. With ``convergence_tol == 0`` the early
+    stop cannot fire and the norms (a host sync each) are skipped."""
+    w, converged, n_updates = carry
+    margin = x @ w
+    if config.loss == "logistic":
+        mult = torch.sigmoid(margin) - y
+    else:
+        y_signed = 2.0 * y - 1.0
+        mult = torch.where(
+            y_signed * margin < 1.0, -y_signed, torch.zeros((), device=x.device)
+        )
+    if class_w is not None:
+        mult = mult * class_w
+    if mask is not None:
+        mult = mult * mask
+    g = x.T @ mult
+    updated = count > 0
+    step_t = _f32(config.step_size) / np.sqrt(_f32(t))
+    scale = _f32(1.0) / _f32(max(count, 1.0)) if updated else _f32(0.0)
+    decay = _f32(1.0) - step_t * _f32(config.reg_param) if updated else _f32(1.0)
+    w_cand = w * float(decay) - float(step_t * scale) * g
+    hit = False
+    tol = float(_f32(config.convergence_tol))
+    if updated and n_updates >= 1 and tol > 0.0:
+        diff = torch.linalg.vector_norm(w - w_cand)
+        bound = tol * torch.clamp(torch.linalg.vector_norm(w_cand), min=1.0)
+        hit = bool(diff < bound)
+    if converged:
+        return w, True, n_updates
+    return w_cand, hit, n_updates + (1 if updated else 0)
+
+
+def _prepare(features, labels, config: SGDConfig, sample_mask, device):
+    """(x, y, class weights or None, mask or None, count) on ``device``."""
+    x = torch.as_tensor(features, device=device).to(torch.float32)
+    y = torch.as_tensor(labels, device=device).to(torch.float32)
     class_w = (
         y * config.weight_pos + (1.0 - y) * config.weight_neg
         if config.weighted else None
     )
-    f32 = np.float32
-    # scalars in float32, as the JAX engine computes them
-    scale = f32(1.0) / f32(n)
-    tol = float(f32(config.convergence_tol))
-    n_updates = 0
+    if sample_mask is None:
+        return x, y, class_w, None, float(x.shape[0])
+    mask = torch.as_tensor(sample_mask, device=device).to(torch.float32)
+    return x, y, class_w, mask, float(mask.sum().item())
+
+
+def train_linear(
+    features: torch.Tensor, labels: torch.Tensor, config: SGDConfig
+) -> torch.Tensor:
+    """Train a linear model on ``features``' device; returns (d,) float32
+    weights there."""
+    _check_config(config)
+    x, y, class_w, _mask, count = _prepare(features, labels, config, None,
+                                           features.device)
+    carry: Carry = partial_fit_carry(x.shape[1], device=x.device)
+    if x.shape[0] == 0:
+        return carry[0]  # an empty sample never updates
     for t in range(1, int(config.num_iterations) + 1):
-        margin = x @ w
-        if config.loss == "logistic":
-            mult = torch.sigmoid(margin) - y
-        else:
-            y_signed = 2.0 * y - 1.0
-            mult = torch.where(
-                y_signed * margin < 1.0, -y_signed, torch.zeros((), device=x.device)
-            )
-        if class_w is not None:
-            mult = mult * class_w
-        g = x.T @ mult
-        step_t = f32(config.step_size) / np.sqrt(f32(t))
-        decay = f32(1.0) - step_t * f32(config.reg_param)
-        w_cand = w * float(decay) - float(step_t * scale) * g
-        if n_updates >= 1:
-            diff = torch.linalg.vector_norm(w - w_cand)
-            bound = tol * torch.clamp(torch.linalg.vector_norm(w_cand), min=1.0)
-            if bool(diff < bound):
-                return w_cand
-        w = w_cand
-        n_updates += 1
-    return w
+        carry = _step(x, y, class_w, None, count, config, carry, t)
+        if carry[1]:
+            break  # the JAX scan's frozen carry
+    return carry[0]
+
+
+def partial_fit_carry(
+    n_features: int,
+    weights=None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Carry:
+    """A fresh ``(w, converged, n_updates)`` carry on ``device``: zero
+    weights, or a warm start from a float32 weight vector (the serving
+    lifecycle stages its candidate from the live model's weights)."""
+    dev = resolve_device(device)
+    if weights is None:
+        w = torch.zeros(int(n_features), dtype=torch.float32, device=dev)
+    else:
+        w = torch.as_tensor(np.asarray(weights, np.float32), device=dev).clone()
+    return w, False, 0
+
+
+def partial_fit_linear(
+    carry,
+    t_start: int,
+    features,
+    labels,
+    config: SGDConfig,
+    n_iterations: int,
+    sample_mask=None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Carry:
+    """One streaming partial-fit chunk on ``device``: iterations
+    ``t_start+1 .. t_start+n_iterations`` of the MLlib-SGD loop over the
+    current (fixed-capacity) feedback matrix, from ``carry``.
+
+    Absolute iteration indices keep the step sizes on the one trajectory,
+    so a run that restores a checkpointed carry and replays the remaining
+    chunks gives the same weights; ``sample_mask`` marks the live rows.
+    ``features``, ``labels`` and ``sample_mask`` may be numpy arrays or
+    tensors (copied to ``device`` once). Returns the new carry."""
+    _check_config(config)
+    dev = resolve_device(device)
+    x, y, class_w, mask, count = _prepare(features, labels, config, sample_mask, dev)
+    w, converged, n_updates = carry
+    out: Carry = (
+        torch.as_tensor(w, device=dev).to(torch.float32), bool(converged),
+        int(n_updates),
+    )
+    for t in range(int(t_start) + 1, int(t_start) + int(n_iterations) + 1):
+        out = _step(x, y, class_w, mask, count, config, out, t)
+    return out

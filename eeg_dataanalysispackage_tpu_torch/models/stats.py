@@ -2,14 +2,22 @@
 
 Confusion-matrix counts with the reference's accuracy/MSE math, rounding
 rule (Math.round: half-up) and report text (ClassificationStatistics.java:
-50-96).
+50-96), and :class:`WindowedStatistics`, the serving lifecycle's sliding
+window of served outcomes (the JAX package's ``models/stats.py``).
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from collections import deque
 
 import numpy as np
+
+
+def _java_round(x: float) -> int:
+    """Java's ``Math.round`` for doubles: floor(x + 0.5)."""
+    return int(math.floor(x + 0.5))
 
 
 class ClassificationStatistics:
@@ -91,3 +99,91 @@ class ClassificationStatistics:
             f"Non-targets: {self.class1_sum}\n"
             f"Targets: {self.class2_sum}\n"
         )
+
+
+class WindowedStatistics:
+    """Bounded sliding window of served (prediction, label) outcomes.
+
+    The serving lifecycle's gate and drift currency
+    (serve/lifecycle.py): expected cost and recall over the most recent
+    ``window`` labeled outcomes, each rounded the reference's way.
+    Host-side and deterministic: the same outcome stream gives the same
+    numbers in any process. Reads and writes hold a lock, since the
+    adapter thread appends while a monitor snapshots the stats block.
+    """
+
+    def __init__(self, window: int, cost_fp: float = 1.0, cost_fn: float = 1.0):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.window = int(window)
+        self.cost_fp = float(cost_fp)
+        self.cost_fn = float(cost_fn)
+        #: (prediction, label) pairs, oldest first, len <= window
+        self._outcomes: deque = deque(maxlen=self.window)
+        self._lock = threading.Lock()
+        #: outcomes ever added (drift firing is paced against this)
+        self.seen = 0
+
+    def add(self, prediction: float, label: float) -> None:
+        with self._lock:
+            self._outcomes.append(
+                (_java_round(float(prediction)), _java_round(float(label)))
+            )
+            self.seen += 1
+
+    def reset(self) -> None:
+        """Forget the window (a swapped-in model earns its own record);
+        ``seen`` is kept."""
+        with self._lock:
+            self._outcomes.clear()
+
+    @property
+    def n(self) -> int:
+        with self._lock:
+            return len(self._outcomes)
+
+    @property
+    def full(self) -> bool:
+        return self.n >= self.window
+
+    def counts(self) -> tuple:
+        """(tp, tn, fp, fn) over the window."""
+        with self._lock:
+            outcomes = list(self._outcomes)
+        tp = tn = fp = fn = 0
+        for r, e in outcomes:
+            if e == 1:
+                if r == 1:
+                    tp += 1
+                else:
+                    fn += 1
+            elif r == 0:
+                tn += 1
+            else:
+                fp += 1
+        return tp, tn, fp, fn
+
+    def expected_cost(self) -> float:
+        tp, tn, fp, fn = self.counts()
+        total = tp + tn + fp + fn
+        if total == 0:
+            return math.nan
+        return (self.cost_fp * fp + self.cost_fn * fn) / total
+
+    def recall(self) -> float:
+        tp, _tn, _fp, fn = self.counts()
+        denom = tp + fn
+        return math.nan if denom == 0 else tp / denom
+
+    def summary(self) -> dict:
+        tp, tn, fp, fn = self.counts()
+        cost = self.expected_cost()
+        recall = self.recall()
+        return {
+            "window": self.window,
+            "n": self.n,
+            "seen": self.seen,
+            "tp": tp, "tn": tn, "fp": fp, "fn": fn,
+            "expected_cost": None if math.isnan(cost) else round(cost, 6),
+            "recall": None if math.isnan(recall) else round(recall, 6),
+        }

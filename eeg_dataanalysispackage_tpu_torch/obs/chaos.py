@@ -15,12 +15,15 @@ Spec grammar::
                | 'once@' n | 'err@' n     -- fire once, on the n-th call
                | 'every@' n               -- fire on every n-th call
 
-The port fires one point, ``remote.request`` (one HTTP request attempt
-in ``io/remote.py``; it raises a retryable ``RemoteIOError``). The JAX
-package's other points (``serve.request``, ``serve.batch``,
+The port fires ``remote.request`` (one HTTP request attempt in
+``io/remote.py``; it raises a retryable ``RemoteIOError``),
+``serve.adapt`` (one partial-fit chunk of the serving lifecycle) and
+``serve.swap`` (one promotion attempt; both in ``serve/lifecycle.py``).
+The JAX package's other points (``serve.request``, ``serve.batch``,
 ``ingest.fused``, ``device.step`` …) have no injection site in the port
 yet, so a spec that names one raises :class:`FaultSpecError` here
-rather than parse and never fire (see ROADMAP.md).
+rather than parse and never fire (see ROADMAP.md). A run's ``faults=``
+is not ported; tests install a plan with :func:`faults`.
 
 :func:`maybe_fire` with no plan installed is one thread-local read and
 a global ``None`` check. A firing counts ``chaos.fired.<point>`` in
@@ -41,7 +44,7 @@ from . import domain as _domain
 logger = logging.getLogger(__name__)
 
 #: the points the port has an injection site for
-PORTED_POINTS = ("remote.request",)
+PORTED_POINTS = ("remote.request", "serve.adapt", "serve.swap")
 
 
 class ChaosInjectedError(RuntimeError):

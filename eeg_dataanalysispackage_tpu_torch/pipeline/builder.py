@@ -14,8 +14,11 @@ the port, in two forms:
 then the seed-1 shuffle + 70/30 split, linear classifiers with MLlib-SGD
 semantics, ``config_*`` pass-through, ``save_clf``/``load_clf`` and the
 ``result_path`` report file. ``serve=true`` drives the session through
-the resident inference service (``serve/pipeline.py``); any other
-``serve=`` value runs the batch path, as in the JAX package.
+the resident inference service (``serve/pipeline.py``), with
+``adapt=true`` its model lifecycle (partial fit on the session's labeled
+outcomes, gated hot swap, drift; ``checkpoint_path=`` is the adapter's
+resume directory); any other ``serve=`` value runs the batch path, as in
+the JAX package.
 
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
@@ -63,7 +66,7 @@ NOT_PORTED_KEYS = (
     "classifiers", "overlap", "devices", "mesh_axes", "processes",
     "coordinator", "process_id", "cv", "cv_mode", "seeds",
     "sweep", "population_mode", "fe_sweep", "elastic", "checkpoint_path",
-    "faults", "faults_seed", "report", "adapt",
+    "faults", "faults_seed", "report",
 )
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
@@ -107,8 +110,11 @@ def resolve_precision(query_map: Dict[str, str]) -> str:
 
 
 def _check_ported(query_map: Dict[str, str]) -> None:
+    # checkpoint_path= is the serving lifecycle's resume directory; its
+    # other use (elastic=) is not ported
+    lifecycle_run = query_map.get("serve") == "true" and query_map.get("adapt") == "true"
     for key in NOT_PORTED_KEYS:
-        if key in query_map:
+        if key in query_map and not (key == "checkpoint_path" and lifecycle_run):
             raise ValueError(f"{key}= is not yet ported; see ROADMAP.md")
     if os.environ.get("EEG_TPU_FAULTS"):
         # the JAX package's run reads its faults= spec from here
@@ -176,6 +182,8 @@ class PipelineBuilder:
             # the reference's conflict messages come before any
             # not-yet-ported key of the conflicting modes
             serve_pipeline.check_conflicts(query_map)
+        else:
+            serve_pipeline.check_lifecycle_knobs(query_map)
         _check_ported(query_map)
 
         # 1. input (PipelineBuilder.java:104-113)

@@ -16,12 +16,14 @@ Port of the JAX package's ``serve/``:
                (:class:`MultiplexedService`): a tenant-major weight
                stack, the tenant-stacked megakernel, admin that builds
                nothing, per-tenant quotas and attribution (f32 stack);
+- ``lifecycle`` the model lifecycle of a solo service (``adapt=``):
+               streaming partial fit on labeled feedback featurized by
+               the engine's own kernel, shadow-scored hot swap with
+               rollback, drift detection, resumable candidate
+               checkpoints;
 - ``pipeline`` the ``serve=true`` query mode: drive a batch session
                through the service epoch by epoch, with the batch
                ``load_clf=`` run's statistics; the tenant spec loaders.
-
-Not ported yet: ``lifecycle`` and the quantized tenant stack (see
-ROADMAP.md).
 """
 
 from .batcher import (  # noqa: F401
@@ -33,6 +35,8 @@ from .batcher import (  # noqa: F401
     ServiceWedgedError,
     ShedError,
 )
+from . import lifecycle  # noqa: F401
 from .engine import ServingEngine, windows_from_recording  # noqa: F401
+from .lifecycle import LifecycleConfig, LifecycleManager  # noqa: F401
 from .multiplex import MultiplexedEngine, MultiplexedService, TenantStack  # noqa: F401
 from .service import InferenceService, ServeConfig  # noqa: F401

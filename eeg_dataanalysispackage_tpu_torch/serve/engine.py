@@ -17,6 +17,16 @@ both hand-written CUDA kernels on the card:
 The engine adds the intercept on the host and applies the model's
 threshold. The margins' device-to-host copy is the batch's one sync.
 
+The served model is one immutable snapshot (:class:`ServedModel`: the
+classifier, its weights on the device, intercept and threshold) that
+:meth:`ServingEngine.execute` reads once per batch, so
+:meth:`ServingEngine.swap_model` (the serving lifecycle's hot swap, one
+host-to-device copy of the new weights and one assignment) never pairs
+one model's weights with another's intercept: a batch is served wholly
+by the old or wholly by the new model. :meth:`ServingEngine.featurize`
+gives the lifecycle its feedback rows through the fused rung, the
+computation that features served traffic.
+
 ``engine_rung="auto"`` means ``mega`` (the JAX package's CPU default; no
 rung is chosen from TPU evidence). :meth:`ServingEngine.warmup` builds
 the kernels and holds the mega rung's margins against the fused rung's
@@ -49,14 +59,14 @@ Every rung takes any analysis window and coefficient count whose live
 window fits the padded stride: the kernels run their ring engine at the
 main path's 512 / 16 and their generic engine at every other size.
 
-Not ported: float32 (non-INT_16) windows, the host-extractor mode,
-non-linear classifiers and hot swap of a solo engine (the lifecycle).
+Not ported: float32 (non-INT_16) windows, the host-extractor mode and
+non-linear classifiers.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,6 +86,22 @@ ENGINE_RUNGS = ("auto", "mega", "fused")
 #: tenant per row of a tenant-major (MAX_TENANTS, C*K) matrix, so one
 #: program serves any tenant mix and a tenant add or swap rewrites one row
 MAX_TENANTS = serve_mega.MAX_TENANTS
+
+
+def weights_of(classifier) -> Optional[np.ndarray]:
+    """A classifier's linear weights as a host array, or None."""
+    weight = getattr(getattr(classifier, "model", None), "weight", None)
+    return None if weight is None else weight.detach().cpu().numpy()
+
+
+class ServedModel(NamedTuple):
+    """The model a solo engine serves, replaced whole by a swap."""
+
+    classifier: object
+    #: (C*K,) float32 weights on the engine's device
+    weights: torch.Tensor
+    intercept: float
+    threshold: float
 
 
 class ServingEngine:
@@ -126,10 +152,8 @@ class ServingEngine:
                 "model) is not yet ported; see ROADMAP.md"
             )
         self.device = resolve_device(device)
-        self.classifier = classifier
-        self._weights = weights.to(self.device).contiguous()
-        self._intercept = float(classifier.model.intercept)
-        self._threshold = float(classifier.margin_threshold)
+        #: the served model; replaced whole by :meth:`swap_model`
+        self._model = self._served(classifier)
         self.n_channels = int(n_channels)
         self.pre = int(pre)
         self.post = int(post)
@@ -161,6 +185,20 @@ class ServingEngine:
         # built at warmup, at the precision the precision gate leaves
         self._mega_program = None
 
+    def _served(self, classifier) -> ServedModel:
+        """``classifier``'s snapshot, its weights copied to the device."""
+        return ServedModel(
+            classifier,
+            classifier.model.weight.to(self.device).contiguous(),
+            float(classifier.model.intercept),
+            float(classifier.margin_threshold),
+        )
+
+    @property
+    def classifier(self):
+        """The classifier being served."""
+        return self._model.classifier
+
     def _fused_featurizer(self, precision: str):
         """The fused rung's featurizer at ``precision``."""
         return ingest_cuda.make_cuda_ingest_featurizer(
@@ -188,19 +226,23 @@ class ServingEngine:
                 f"micro-batch of {n} exceeds engine capacity {self.capacity}"
             )
         res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
+        # the one read of the served model: a swap during this batch
+        # serves the next one
+        model = self._model
         if self._rung == "mega":
-            margins = self._mega_margins(windows, res)
+            margins = self._mega_margins(windows, res, model)
         else:
-            margins = self._fused_margins(windows, res)
+            margins = self._fused_margins(windows, res, model)
         # the batch's one sync: the margins' device-to-host copy
-        return self._postprocess(margins[:n].cpu().numpy())
+        return self._postprocess(margins[:n].cpu().numpy(), model)
 
-    def _postprocess(self, margins: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def _postprocess(self, margins: np.ndarray, model: ServedModel
+                     ) -> Tuple[np.ndarray, np.ndarray]:
         """(n,) float32 margins before the intercept -> ``(predictions
-        (n,) float64, margins (n,) float32)``: the intercept added and
-        the model's strict ``margin > threshold``, both in float32."""
-        margins = margins + np.float32(self._intercept)
-        predictions = (margins > np.float32(self._threshold)).astype(np.float64)
+        (n,) float64, margins (n,) float32)``: ``model``'s intercept
+        added and its strict ``margin > threshold``, both in float32."""
+        margins = margins + np.float32(model.intercept)
+        predictions = (margins > np.float32(model.threshold)).astype(np.float64)
         return predictions, margins
 
     def _check_windows(self, windows) -> None:
@@ -217,11 +259,11 @@ class ServingEngine:
                     "not yet ported; see ROADMAP.md"
                 )
 
-    def _mega_margins(self, windows, res) -> torch.Tensor:
+    def _mega_margins(self, windows, res, model: ServedModel) -> torch.Tensor:
         """The megakernel rung: the batch at the padded stride, one
-        host-to-device copy, one launch; (capacity,) margins before the
-        intercept, on the device."""
-        return self._mega_program(self._stage_mega(windows), res, self._weights)
+        host-to-device copy, one launch with ``model``'s weights;
+        (capacity,) margins before the intercept, on the device."""
+        return self._mega_program(self._stage_mega(windows), res, model.weights)
 
     def _stage_mega(self, windows) -> torch.Tensor:
         """The batch at the padded stride on the device (one copy)."""
@@ -232,11 +274,12 @@ class ServingEngine:
         )
         return torch.from_numpy(stream).to(self.device, non_blocking=False)
 
-    def _fused_margins(self, windows, res) -> torch.Tensor:
+    def _fused_margins(self, windows, res, model: ServedModel) -> torch.Tensor:
         """The fused rung: the batch as a synthetic recording through
-        the batch path's fused ingest kernel, then ``feats @ weights``;
-        (capacity,) margins before the intercept, on the device."""
-        return self._fused_features(self._fused, windows, res) @ self._weights
+        the batch path's fused ingest kernel, then ``feats @ weights``
+        with ``model``'s weights; (capacity,) margins before the
+        intercept, on the device."""
+        return self._fused_features(self._fused, windows, res) @ model.weights
 
     def _fused_features(self, featurize, windows, res) -> torch.Tensor:
         """(capacity, C*K) feature rows of the batch laid out as a
@@ -287,22 +330,57 @@ class ServingEngine:
             capacity=self.capacity, precision=precision,
         )
 
+    def featurize(self, windows: Sequence[np.ndarray], resolutions: np.ndarray) -> np.ndarray:
+        """(n, C*K) float32 feature rows of ``windows`` through the fused
+        rung (the ingest kernel at the precision the warmup gate left),
+        the computation that features served traffic: the serving
+        lifecycle's feedback rows. Batches past the capacity run in
+        capacity-sized slices; the padded rows are dropped."""
+        n = len(windows)
+        if n == 0:
+            return np.zeros((0, self.n_channels * self.feature_size), np.float32)
+        if n > self.capacity:
+            return np.concatenate([
+                self.featurize(windows[i:i + self.capacity], resolutions)
+                for i in range(0, n, self.capacity)
+            ], axis=0)
+        res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
+        feats = self._fused_features(self._fused, windows, res)[:n]
+        return feats.cpu().numpy().astype(np.float32, copy=False)
+
     def swap_model(self, classifier, tenant: Optional[str] = None):
-        """The JAX package's hot-swap surface. ``tenant`` is the
-        multi-tenant engine's keyed swap (serve/multiplex.py), and this
-        single-model engine refuses it rather than swap the wrong
-        tenant's traffic. A solo engine's own hot swap belongs to the
-        model lifecycle, which is not ported."""
+        """Hot-swap the served model; returns the displaced classifier.
+
+        The replacement must carry float32 linear weights of the live
+        shape: it then runs the kernels already built, with one
+        host-to-device copy of its weights and one assignment of the
+        snapshot (no library is built, the mega program object stays).
+        An in-flight batch read the old snapshot and is served wholly by
+        it. ``tenant`` is the multi-tenant engine's keyed swap
+        (serve/multiplex.py); this single-model engine refuses it rather
+        than swap the wrong tenant's traffic."""
         if tenant is not None:
             raise ValueError(
                 f"this engine serves one model; a tenant-keyed swap "
                 f"(tenant={tenant!r}) needs the MultiplexedEngine "
                 f"(serve/multiplex.py)"
             )
-        raise ValueError(
-            "hot swap of a single-model engine (the serving lifecycle, "
-            "adapt=) is not yet ported; see ROADMAP.md"
-        )
+        old = self._model
+        w = weights_of(classifier)
+        live_shape = tuple(old.weights.shape)
+        if (
+            not isinstance(classifier, linear._LinearClassifier)
+            or w is None
+            or w.dtype != np.float32
+            or w.shape != live_shape
+        ):
+            raise ValueError(
+                "hot swap requires float32 linear weights of the live shape "
+                f"{live_shape} (the zero-recompile contract); got "
+                f"{None if w is None else (w.dtype, w.shape)}"
+            )
+        self._model = self._served(classifier)
+        return old.classifier
 
     def _gate_windows(self):
         """Deterministic synthetic int16 gate windows — full-amplitude
@@ -364,8 +442,9 @@ class ServingEngine:
         windows, res_np = self._gate_windows()
         res = torch.from_numpy(res_np).to(self.device)
         n = len(windows)
-        mega = self._mega_margins(windows, res)[:n].cpu().numpy()
-        fused = self._fused_margins(windows, res)[:n].cpu().numpy()
+        model = self._model
+        mega = self._mega_margins(windows, res, model)[:n].cpu().numpy()
+        fused = self._fused_margins(windows, res, model)[:n].cpu().numpy()
         tol = serve_mega.mega_gate_tolerance()
         if precision != "f32":
             tol = max(tol, decode_ingest.precision_gate_tolerance(precision))

@@ -111,12 +111,6 @@ class TenantStack(NamedTuple):
     weights_precision: str = "f32"
 
 
-def _weights_of(classifier) -> Optional[np.ndarray]:
-    """A classifier's linear weights as a host array, or None."""
-    weight = getattr(getattr(classifier, "model", None), "weight", None)
-    return None if weight is None else weight.detach().cpu().numpy()
-
-
 class MultiplexedEngine(engine_mod.ServingEngine):
     """One resident engine serving N tenants' models on ``device``
     (``None`` -> ``cuda``; raises without a card).
@@ -171,7 +165,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             engine_rung=engine_rung,
             device=device,
         )
-        self._weight_shape = _weights_of(first_clf).shape
+        self._weight_shape = engine_mod.weights_of(first_clf).shape
         # the registry: name -> lane. Every mutation holds the lock and
         # ends in _publish(); execute reads the published snapshot once
         self._tenant_lock = threading.RLock()
@@ -206,7 +200,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
 
     @staticmethod
     def _require_fused_linear(name: str, classifier) -> None:
-        w = _weights_of(classifier)
+        w = engine_mod.weights_of(classifier)
         if (
             not isinstance(classifier, linear._LinearClassifier)
             or w is None
@@ -221,7 +215,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             )
 
     def _write_lane(self, lane: int, classifier) -> None:
-        self._w_host[:, lane] = _weights_of(classifier).reshape(-1)
+        self._w_host[:, lane] = engine_mod.weights_of(classifier).reshape(-1)
         self._intercepts[lane] = float(classifier.model.intercept)
         self._thresholds[lane] = float(classifier.margin_threshold)
         self._classifiers[lane] = classifier
@@ -230,7 +224,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
         """Register one tenant in the first free lane (the caller
         publishes)."""
         self._require_fused_linear(name, classifier)
-        shape = _weights_of(classifier).shape
+        shape = engine_mod.weights_of(classifier).shape
         if shape != self._weight_shape:
             raise ValueError(
                 f"tenant {name!r} has weights of shape {shape}; the stack "
@@ -367,7 +361,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             if tenant not in self._lanes:
                 raise ValueError(f"unknown tenant {tenant!r}")
             self._require_fused_linear(tenant, classifier)
-            shape = _weights_of(classifier).shape
+            shape = engine_mod.weights_of(classifier).shape
             if shape != self._weight_shape:
                 raise ValueError(
                     f"hot swap for tenant {tenant!r} requires float32 linear "
@@ -427,17 +421,18 @@ class MultiplexedEngine(engine_mod.ServingEngine):
         out[:len(lanes)] = lanes
         return torch.from_numpy(out)
 
-    def _mega_margins(self, windows, res) -> torch.Tensor:
+    def _mega_margins(self, windows, res, model=None) -> torch.Tensor:
         """K6: the batch at the padded stride, one copy, one launch, each
         row against its tenant's row of the stack (K6-w8/w4: of the
-        packed stack, with its lane's scale)."""
+        packed stack, with its lane's scale). The tenants' models come
+        from the batch's stack snapshot, not from ``model``."""
         stack, lanes = self._batch
         staged, lanes_host = self._stage_mega(windows), self._capacity_lanes(lanes)
         if stack.weights_precision != "f32":
             return self._mega_program(staged, res, stack.packed, stack.scales, lanes_host)
         return self._mega_program(staged, res, stack.weights, lanes_host)
 
-    def _fused_margins(self, windows, res) -> torch.Tensor:
+    def _fused_margins(self, windows, res, model=None) -> torch.Tensor:
         """The fused ingest kernel's rows, then for every lane present
         the solo fused rung's own ``feats @ weights``, and a per-row
         pick (``serve_mega.lane_margins``); a quantized stack is
@@ -459,7 +454,7 @@ class MultiplexedEngine(engine_mod.ServingEngine):
             stack.packed.t(), stack.scales, stack.weights_precision, d
         ).t().contiguous()
 
-    def _postprocess(self, margins: np.ndarray):
+    def _postprocess(self, margins: np.ndarray, model=None):
         """Each row's tenant intercept and threshold: the solo engine's
         float32 add and compare with that tenant's values, so a tenant's
         margins and predictions stay bit-identical to its solo
@@ -679,10 +674,17 @@ class MultiplexedService(service_mod.InferenceService):
         tenant: Optional[str] = None,
         deadline_s: Optional[float] = None,
         block_s: float = 0.0,
+        label: Optional[float] = None,
     ) -> batcher_mod.ServeFuture:
         """Admit one tenant-keyed request; returns its future. A shed
         raises :class:`ShedError` with the structured per-tenant
-        evidence on ``.evidence``."""
+        evidence on ``.evidence``. A multi-tenant service has no
+        lifecycle manager: ``label=`` raises."""
+        if label is not None:
+            raise ValueError(
+                "multiplexed services have no lifecycle manager; "
+                "submit(label=) is the solo service's surface"
+            )
         return self._submit(window, resolutions, deadline_s, block_s, tenant)
 
     def predict_window(

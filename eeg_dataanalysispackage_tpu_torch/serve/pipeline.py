@@ -16,13 +16,21 @@ Query surface::
         [&serve_deadline_ms=2000] [&serve_batch=64] [&serve_queue=256]
         [&serve_flush_us=0] [&serve_threshold=<margin>]
         [&precision=f32|bf16|int8|int4]
+        [&adapt=true [&swap_gate=off|cost[:<ratio>]] [&drift_window=64]
+         [&adapt_batch=16] [&adapt_iters=20] [&checkpoint_path=<dir>]]
+
+``adapt=true`` attaches the model lifecycle (serve/lifecycle.py): after
+the session's predictions were served, every served window's true
+target is fed back (stage ``adapt``), so the run's statistics are those
+of the plain serve run while the adapter trains, scores and may promote
+a candidate for the next session.
 
 ``serve_tenant_quota=<n>`` sets the per-tenant admission budget of a
 multi-tenant service (serve/multiplex.py), whose tenant registry
 :func:`parse_tenant_spec` and :func:`load_tenants` read from a
 ``name=classifier@path,...`` spec.
 
-Not ported: ``adapt=`` and ``task=seizure``.
+Not ported: ``task=seizure``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import re
 import numpy as np
 
 from . import engine as engine_mod
+from . import lifecycle as lifecycle_mod
 from . import service as service_mod
 from ..epochs.extractor import BalanceState
 from ..models import linear as linear_mod
@@ -63,13 +72,59 @@ def _conflicting_keys(query_map) -> list:
 
 def check_conflicts(query_map) -> None:
     """Raise the reference's message when serve=true is combined with a
-    training or population mode."""
+    training or population mode, then check the lifecycle knobs
+    (:func:`check_lifecycle_knobs`)."""
     conflicts = _conflicting_keys(query_map)
     if conflicts:
         raise ValueError(
             f"serve=true is an inference mode; it cannot combine "
             f"with {', '.join(conflicts)}"
         )
+    check_lifecycle_knobs(query_map)
+
+
+def check_lifecycle_knobs(query_map) -> None:
+    """The ``adapt=`` knob family's grammar, with the JAX package's
+    messages (its plan parser's): a mistyped gate, or a knob without
+    ``adapt=true``, must never serve without the adaptation asked for."""
+    adapt_value = query_map.get("adapt", "")
+    if adapt_value not in ("", "true", "false"):
+        raise ValueError(f"adapt= must be true or false, got {adapt_value!r}")
+    adapt = adapt_value == "true"
+    if adapt and query_map.get("serve") != "true":
+        raise ValueError(
+            "adapt=true streams labeled feedback through the resident serving "
+            "service; it requires serve=true"
+        )
+    swap_gate = query_map.get("swap_gate") or None
+    if swap_gate is not None:
+        if not adapt:
+            raise ValueError(
+                "swap_gate= gates lifecycle promotions; it requires adapt=true"
+            )
+        lifecycle_mod.parse_swap_gate(swap_gate)
+    drift_window = _optional_int(query_map, "drift_window")
+    if drift_window is not None:
+        if not adapt:
+            raise ValueError(
+                "drift_window= sizes the lifecycle's windowed statistics; it "
+                "requires adapt=true"
+            )
+        if drift_window < 1:
+            raise ValueError(f"drift_window= must be >= 1, got {drift_window}")
+    for knob in ("adapt_batch", "adapt_iters"):
+        if _optional_int(query_map, knob) is not None and not adapt:
+            raise ValueError(
+                f"{knob}= tunes the lifecycle's partial-fit batches; it "
+                "requires adapt=true"
+            )
+
+
+def _optional_int(query_map, name: str):
+    """An optional integer knob: None when absent or empty."""
+    if not query_map.get(name, ""):
+        return None
+    return _int_knob(query_map, name, 0)
 
 
 def _int_knob(query_map, name: str, default: int) -> int:
@@ -179,6 +234,30 @@ def load_tenants(spec: str) -> dict:
     return loaded
 
 
+def lifecycle_config_from_query(query_map, cost_fp: float = 1.0, cost_fn: float = 1.0):
+    """The ``adapt=`` family -> a :class:`serve.lifecycle.LifecycleConfig`,
+    or None when the run did not ask for ``adapt=true``."""
+    if query_map.get("adapt") != "true":
+        return None
+    return lifecycle_mod.LifecycleConfig.from_query_map(
+        query_map, cost_fp=cost_fp, cost_fn=cost_fn
+    )
+
+
+def _adapt_feedback(service, stage, requests, targets_arr) -> None:
+    """Feed every served window's true target to the lifecycle manager,
+    in submission order, then flush the adapter: partial-fit chunks,
+    shadow scoring, gate decisions and any promotion happen here, after
+    the session's own predictions were served, so the run's statistics
+    are untouched by its own adaptation."""
+    if service.lifecycle is None or not requests:
+        return
+    with stage("adapt"):
+        for (window, resolutions), label in zip(requests, targets_arr):
+            service.feedback(window, resolutions, float(label))
+        service.lifecycle.flush(timeout_s=service.config.drain_timeout_s)
+
+
 def resolve_serve_threshold(query_map, classifier):
     """``serve_threshold=<margin>``: the recall-tuning decision knob,
     applied to the loaded linear model's margin threshold. Returns the
@@ -244,6 +323,7 @@ def run_serve(query_map, provider_factory, stage, device):
         config=serve_config_from_query(query_map),
         precision=precision,
         device=device,
+        lifecycle=lifecycle_config_from_query(query_map),
     )
 
     # 1. ingest: parse the session into per-epoch raw windows; the
@@ -272,6 +352,9 @@ def run_serve(query_map, provider_factory, stage, device):
                 results = service.predict_all(
                     [r[0] for r in requests], [r[1] for r in requests]
                 )
+        # adapt=true: the session's labeled outcomes feed the lifecycle
+        # manager after its predictions were served
+        _adapt_feedback(service, stage, requests, targets_arr)
     finally:
         drained = service.stop(drain=True)
 

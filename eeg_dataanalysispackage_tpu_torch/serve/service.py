@@ -19,8 +19,9 @@ Typical use::
 Closing the context drains gracefully: in-flight requests complete,
 new ones are rejected with :class:`serve.batcher.ServiceClosedError`.
 Many tenants' models behind one engine: :class:`serve.multiplex.MultiplexedService`,
-a subclass. The JAX package's model lifecycle (``adapt=``, ``feedback``)
-is not ported.
+a subclass. A service built with ``lifecycle=LifecycleConfig(...)``
+adapts its model to labeled feedback (``submit(..., label=)``,
+:meth:`InferenceService.feedback`; serve/lifecycle.py).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from . import batcher as batcher_mod
 from . import engine as engine_mod
+from . import lifecycle as lifecycle_mod
 from ..io import deadline as deadline_mod
 from ..models import registry as clf_registry
 from ..obs import metrics_export
@@ -103,6 +105,7 @@ class InferenceService:
         precision: str = "f32",
         engine_rung: str = "auto",
         device: Optional[Union[str, torch.device]] = None,
+        lifecycle: Optional[lifecycle_mod.LifecycleConfig] = None,
     ):
         self.config = config or ServeConfig()
         self._attach(engine_mod.ServingEngine(
@@ -117,11 +120,19 @@ class InferenceService:
             engine_rung=engine_rung,
             device=device,
         ))
+        #: the model lifecycle manager (serve/lifecycle.py): partial fit
+        #: on labeled feedback, shadow-scored hot swap, drift detection;
+        #: None unless the service was built with a LifecycleConfig
+        self.lifecycle = (
+            None if lifecycle is None
+            else lifecycle_mod.LifecycleManager(self.engine, lifecycle)
+        )
 
     def _attach(self, engine, **batcher_kwargs) -> None:
         """Serve ``engine`` through a micro-batcher configured from
         :attr:`config` (``batcher_kwargs`` add the tenant options)."""
         self.engine = engine
+        self.lifecycle: Optional[lifecycle_mod.LifecycleManager] = None
         self.batcher = batcher_mod.MicroBatcher(
             engine.execute,
             max_batch=self.config.max_batch,
@@ -162,12 +173,14 @@ class InferenceService:
         # build and check the kernels before traffic (idempotent —
         # from_saved already did it): a cold nvcc build must happen
         # here, not inside the batcher where the watchdog would read it
-        # as a wedge
+        # as a wedge, nor on the lifecycle's adapter thread
         self.engine.warmup()
         with self._lock:
             if self._started:
                 return self
             self.batcher.start()
+            if self.lifecycle is not None:
+                self.lifecycle.start()
             self._accepting = True
             self._started = True
         logger.info(
@@ -204,6 +217,13 @@ class InferenceService:
             req.future.fail(batcher_mod.ServiceClosedError(
                 "service stopped before the request could complete"
             ))
+        if self.lifecycle is not None:
+            # a clean drain also adapts on the queued feedback; an abort
+            # (drain=False or a failed drain) does not train through the
+            # backlog, and the adapter never outlives the service
+            self.lifecycle.close(
+                flush=drain and drained, timeout_s=self.config.drain_timeout_s,
+            )
         with self._lock:
             self._started = False
         self._drained_cleanly = drained
@@ -223,8 +243,14 @@ class InferenceService:
         resolutions: np.ndarray,
         deadline_s: Optional[float] = None,
         block_s: float = 0.0,
+        label: Optional[float] = None,
     ) -> batcher_mod.ServeFuture:
         """Admit one request; returns its future.
+
+        ``label`` (a lifecycle-enabled service only) is the request's
+        known true target, forwarded as feedback to the lifecycle
+        manager; when the label is known only later, call
+        :meth:`feedback`.
 
         Raises :class:`ShedError` when the bounded queue is full (pass
         ``block_s`` to cooperate with backpressure instead),
@@ -232,7 +258,36 @@ class InferenceService:
         :class:`ServiceWedgedError` when the watchdog has declared the
         batcher wedged — all synchronously, with evidence.
         """
-        return self._submit(window, resolutions, deadline_s, block_s, tenant=None)
+        if label is not None and self.lifecycle is None:
+            raise ValueError(
+                "submit(label=) needs a lifecycle-enabled service "
+                "(adapt=true); this one has no adapter to feed"
+            )
+        future = self._submit(window, resolutions, deadline_s, block_s, tenant=None)
+        if label is not None:
+            try:
+                self.lifecycle.feedback(window, resolutions, label)
+            except batcher_mod.ServiceClosedError:
+                # stop() closed the adapter after this request was
+                # admitted: its answer is still owed, the label is dropped
+                pass
+        return future
+
+    def feedback(self, window: np.ndarray, resolutions: np.ndarray, label: float) -> bool:
+        """One labeled served outcome for the lifecycle manager. True
+        when queued for the adapter, False when dropped (counted);
+        raises :class:`ServiceClosedError` once the service is draining
+        or stopped."""
+        if self.lifecycle is None:
+            raise ValueError(
+                "feedback() needs a lifecycle-enabled service "
+                "(adapt=true); this one has no adapter to feed"
+            )
+        if not self._accepting:
+            raise batcher_mod.ServiceClosedError(
+                "service is not accepting feedback (draining or stopped)"
+            )
+        return self.lifecycle.feedback(window, resolutions, label)
 
     def _submit(self, window, resolutions, deadline_s, block_s, tenant):
         """Admit one request owned by ``tenant`` (None for a
@@ -388,5 +443,6 @@ class InferenceService:
                 objective_ms=self.config.slo_latency_ms,
                 availability_target=self.config.slo_availability_target,
             ),
-            "lifecycle": None,
+            # the lifecycle manager's block; None without one
+            "lifecycle": None if self.lifecycle is None else self.lifecycle.block(),
         }

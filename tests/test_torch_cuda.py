@@ -1290,3 +1290,116 @@ def test_served_run_over_hdfs_equals_local(hdfs_session):
     assert serve_mega_cuda.LAUNCHES > before
     assert served.serve_block["rung"] == "mega"
     assert str(got) == str(local)
+
+
+# -- the serving lifecycle (adapt=) on the card ------------------------------
+
+
+def _lifecycle_model(seed=3):
+    from eeg_dataanalysispackage_tpu_torch.models import linear
+
+    clf = registry.create("logreg")
+    clf.model = linear.LinearModel(
+        torch.from_numpy(np.random.RandomState(seed).randn(48).astype(np.float32)), 0.0)
+    return clf
+
+
+def _lifecycle_windows(n, seed=5):
+    body = _stream([900, -700, 300], 2000, n * 850, seed)
+    return [body[:, i * 850:(i + 1) * 850] for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_engine_featurize_launches_the_ingest_kernel():
+    """The lifecycle's feedback rows: one ingest-kernel launch a capacity
+    slice, the rows within 2e-6 of the CPU engine's featurize."""
+    from eeg_dataanalysispackage_tpu_torch.serve import ServingEngine
+
+    _card()
+    windows = _lifecycle_windows(70)
+    eng = ServingEngine(_lifecycle_model(), capacity=64)
+    eng.warmup()
+    before = ingest_cuda.LAUNCHES
+    got = eng.featurize(windows, RES)
+    assert ingest_cuda.LAUNCHES - before == 2
+    want = ServingEngine(_lifecycle_model(), capacity=64, device="cpu").featurize(windows, RES)
+    assert got.shape == (70, 48) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_swap_on_the_card_builds_nothing_and_serves_the_new_model():
+    """A hot swap copies the weights and keeps the mega program: no
+    library is built, the next batch is the new model's (bit-equal to an
+    engine built around it)."""
+    from eeg_dataanalysispackage_tpu_torch.ops import cuda_build
+    from eeg_dataanalysispackage_tpu_torch.serve import ServingEngine
+
+    _card()
+    windows = _lifecycle_windows(20)
+    eng = ServingEngine(_lifecycle_model(3), capacity=64)
+    eng.warmup()
+    program, loaded = eng._mega_program, dict(cuda_build._LOADED)
+    new = _lifecycle_model(4)
+    eng.swap_model(new)
+    assert eng._mega_program is program and dict(cuda_build._LOADED) == loaded
+    assert eng._model.weights.device.type == "cuda"
+    fresh = ServingEngine(_lifecycle_model(4), capacity=64)
+    fresh.warmup()
+    got, want = eng.execute(windows, RES), fresh.execute(windows, RES)
+    assert got[1].tobytes() == want[1].tobytes()
+
+
+@pytest.mark.cuda
+def test_partial_fit_on_the_card_is_deterministic_and_matches_the_cpu():
+    """The SGD chunk on the card: the same bytes on a second run (the
+    resume pin's premise) and within 1e-5 of the CPU's."""
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+
+    _card()
+    rng = np.random.RandomState(0)
+    x = rng.randn(1024, 48).astype(np.float32)
+    y = (rng.rand(1024) > 0.5).astype(np.float32)
+    mask = np.zeros(1024, np.float32)
+    mask[:300] = 1.0
+    config = sgd.SGDConfig(reg_param=0.01, convergence_tol=0.0)
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        carry = sgd.partial_fit_carry(48, device=device)
+        for t0 in (0, 20, 40):
+            carry = sgd.partial_fit_linear(carry, t0, x, y, config, 20, sample_mask=mask,
+                                           device=device)
+        runs.append(carry[0].cpu().numpy())
+    assert runs[0].tobytes() == runs[1].tobytes()
+    assert np.abs(runs[0] - runs[2]).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lifecycle_service_promotes_on_the_card(tmp_path):
+    """A lifecycle service on the card: feedback batches featurized by the
+    ingest kernel (one launch each), a promotion under a permissive gate,
+    and served margins after it equal to a fresh engine around the
+    promoted model's file."""
+    from eeg_dataanalysispackage_tpu_torch.serve import LifecycleConfig, ServingEngine
+
+    _card()
+    windows = _lifecycle_windows(64, seed=8)
+    labels = (np.arange(64) % 2).astype(np.float64)
+    ckpt = str(tmp_path / "lc")
+    svc = InferenceService(_lifecycle_model(), lifecycle=LifecycleConfig(
+        adapt_batch=16, adapt_iters=5, drift_window=16, gate_ratio=100.0, checkpoint_dir=ckpt,
+        rollback=False))
+    with svc:
+        before = ingest_cuda.LAUNCHES
+        for w, y in zip(windows, labels):
+            svc.feedback(w, RES, float(y))
+        assert svc.lifecycle.flush(timeout_s=60.0)
+        assert ingest_cuda.LAUNCHES - before == 4
+        block = svc.lifecycle.block()
+        assert block["swaps"] >= 1 and block["feedback"]["failures"] == 0
+        served = [r.margin for r in svc.predict_all(windows, RES)]
+    promoted = registry.create("logreg")
+    promoted.load(block["promoted_path"])
+    fresh = ServingEngine(promoted, capacity=64)
+    fresh.warmup()
+    assert np.asarray(served, np.float32).tobytes() == fresh.execute(windows, RES)[1].tobytes()

@@ -390,8 +390,10 @@ def test_solo_engine_refuses_tenant_keyed_swap(tenants):
     solo = ServingEngine(tenants["alice"], capacity=64, device="cpu")
     with pytest.raises(ValueError, match="MultiplexedEngine"):
         solo.swap_model(tenants["bob"], tenant="bob")
-    with pytest.raises(ValueError, match="not yet ported"):
-        solo.swap_model(tenants["bob"])
+    assert solo.classifier is tenants["alice"]
+    # without tenant= the solo engine's own hot swap (the lifecycle's) runs
+    assert solo.swap_model(tenants["bob"]) is tenants["alice"]
+    assert solo.classifier is tenants["bob"]
 
 
 def test_refused_tenants_carry_the_jax_package_message(session, jax_tenants):
@@ -860,9 +862,9 @@ def test_quantized_batch_holds_its_snapshot_through_a_swap(session, tenants):
     _, want = multi.execute(windows, res, ["bob"] * 6)
     inner = multi._mega_margins
 
-    def swap_then_margins(w, r):
+    def swap_then_margins(w, r, model):
         multi.swap_model(_tenant(session, 90), tenant="bob")
-        return inner(w, r)
+        return inner(w, r, model)
 
     multi._mega_margins = swap_then_margins
     _, got = multi.execute(windows, res, ["bob"] * 6)

@@ -1,10 +1,13 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports the port and every one of its submodules
-and must leave ``jax`` and ``eeg_dataanalysispackage_tpu`` out of
-``sys.modules`` (a subprocess: tests/conftest.py imports JAX into this
-one). An AST scan pins the same for every source file of the port and
-for ``chip_smoke.py`` and ``chip_compare.py``, including imports inside
+and must leave ``jax``, ``flax``, ``msgpack`` and
+``eeg_dataanalysispackage_tpu`` out of ``sys.modules`` (a subprocess:
+tests/conftest.py imports JAX into this one; the card's host has none of
+them, so the checkpoint store writes flax's bytes with its own codec). An
+AST scan pins the same for every source file of the port, for
+``chip_smoke.py`` and ``chip_compare.py`` and for the lifecycle's kill
+worker ``tests/_torch_lifecycle_worker.py``, including imports inside
 functions.
 """
 
@@ -26,16 +29,16 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(
     k for k in sys.modules
-    if k == "jax" or k.startswith("jax.") or k == "eeg_dataanalysispackage_tpu"
-    or k.startswith("eeg_dataanalysispackage_tpu.")
+    if k.split(".")[0] in ("jax", "flax", "msgpack", "eeg_dataanalysispackage_tpu")
 )
-print(len(names), leaked)
+print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 """
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py"),
+           os.path.join(REPO, "tests", "_torch_lifecycle_worker.py")]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -58,7 +61,7 @@ def test_fresh_import_of_every_submodule_leaves_jax_out():
 def test_no_source_imports_jax_or_the_jax_package(path):
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
-    banned = ("jax", "eeg_dataanalysispackage_tpu")
+    banned = ("jax", "flax", "msgpack", "eeg_dataanalysispackage_tpu")
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -78,4 +81,27 @@ def test_the_remote_layer_is_scanned():
     for rel in ("io/sources.py", "io/remote.py", "io/circuit.py", "io/deadline.py",
                 "io/export.py", "io/modelfiles.py", "obs/__init__.py", "obs/chaos.py",
                 "obs/events.py", "obs/domain.py"):
+        assert rel in scanned
+
+
+def test_the_lifecycle_modules_are_walked_and_scanned():
+    """The serving lifecycle, the checkpoint store and its codec are among
+    the modules the fresh import walks, and (with the kill worker) among
+    the scanned sources."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("checkpoint", "checkpoint.manager", "checkpoint.codec", "serve.lifecycle",
+                 "models.sgd", "models.stats"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("eeg_dataanalysispackage_tpu_torch/checkpoint/__init__.py",
+                "eeg_dataanalysispackage_tpu_torch/checkpoint/manager.py",
+                "eeg_dataanalysispackage_tpu_torch/checkpoint/codec.py",
+                "eeg_dataanalysispackage_tpu_torch/serve/lifecycle.py",
+                "tests/_torch_lifecycle_worker.py"):
         assert rel in scanned

@@ -78,3 +78,149 @@ def test_mini_batch_sampling_is_not_ported_yet():
 def test_empty_training_set_keeps_zero_weights():
     w = sgd.train_linear(torch.zeros((0, 48)), torch.zeros(0), sgd.SGDConfig())
     assert w.shape == (48,) and not w.any()
+
+
+# -- the chunked partial-fit seam (the serving lifecycle's) -----------------
+
+
+def _train_linear_before_the_chunked_seam(features, labels, config):
+    """The port's monolithic loop as it stood before the chunked seam
+    shared its step: ``train_linear`` must keep its bytes."""
+    f32 = np.float32
+    x = features.to(torch.float32)
+    y = labels.to(device=x.device, dtype=torch.float32)
+    n, d = x.shape
+    w = torch.zeros(d, dtype=torch.float32, device=x.device)
+    class_w = (y * config.weight_pos + (1.0 - y) * config.weight_neg
+               if config.weighted else None)
+    scale = f32(1.0) / f32(n)
+    tol = float(f32(config.convergence_tol))
+    n_updates = 0
+    for t in range(1, int(config.num_iterations) + 1):
+        margin = x @ w
+        if config.loss == "logistic":
+            mult = torch.sigmoid(margin) - y
+        else:
+            y_signed = 2.0 * y - 1.0
+            mult = torch.where(y_signed * margin < 1.0, -y_signed,
+                               torch.zeros((), device=x.device))
+        if class_w is not None:
+            mult = mult * class_w
+        g = x.T @ mult
+        step_t = f32(config.step_size) / np.sqrt(f32(t))
+        decay = f32(1.0) - step_t * f32(config.reg_param)
+        w_cand = w * float(decay) - float(step_t * scale) * g
+        if n_updates >= 1:
+            diff = torch.linalg.vector_norm(w - w_cand)
+            bound = tol * torch.clamp(torch.linalg.vector_norm(w_cand), min=1.0)
+            if bool(diff < bound):
+                return w_cand
+        w = w_cand
+        n_updates += 1
+    return w
+
+
+@pytest.mark.parametrize("kwargs", CONFIGS)
+def test_train_linear_keeps_its_bytes(kwargs):
+    x, y = _data(seed=4)
+    config = sgd.SGDConfig(**kwargs)
+    got = sgd.train_linear(torch.from_numpy(x), torch.from_numpy(y), config)
+    want = _train_linear_before_the_chunked_seam(torch.from_numpy(x), torch.from_numpy(y),
+                                                 config)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
+CHUNK_CONFIGS = [
+    dict(loss="logistic", num_iterations=30, step_size=0.5, convergence_tol=0.0),
+    dict(loss="hinge", num_iterations=30, step_size=1.0, reg_param=0.01, convergence_tol=0.0),
+    dict(loss="logistic", num_iterations=30, reg_param=0.01, weight_pos=3.0, weight_neg=0.5,
+         convergence_tol=0.0),
+    # the early stop fires mid-run: the chunked carry freezes there too
+    dict(loss="hinge", num_iterations=30, step_size=0.01, convergence_tol=0.05),
+]
+
+
+@pytest.mark.parametrize("kwargs", CHUNK_CONFIGS)
+def test_chunked_partial_fit_replays_the_monolithic_trajectory(kwargs):
+    """Chunks of 10 iterations over the whole matrix with an all-ones
+    mask give the monolithic ``train_linear`` weights byte for byte (the
+    JAX package's test_lifecycle pin, on the port)."""
+    x, y = _data(n=32, d=8, seed=3)
+    config = sgd.SGDConfig(**kwargs)
+    whole = sgd.train_linear(torch.from_numpy(x), torch.from_numpy(y), config)
+    carry = sgd.partial_fit_carry(8, device="cpu")
+    mask = np.ones(32, np.float32)
+    for t0 in range(0, 30, 10):
+        carry = sgd.partial_fit_linear(carry, t0, x, y, config, 10, sample_mask=mask,
+                                       device="cpu")
+    assert carry[0].numpy().tobytes() == whole.numpy().tobytes()
+
+
+def _ring(n_live, cap=64, d=48, seed=5):
+    """A fixed-capacity feedback ring: ``n_live`` rows live, the rest zero
+    and masked out."""
+    x, y = _data(n=cap, d=d, seed=seed)
+    mask = np.zeros(cap, np.float32)
+    mask[:n_live] = 1.0
+    x[n_live:] = 0.0
+    y[n_live:] = 0.0
+    return x, y.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(loss="logistic", reg_param=0.01),
+    dict(loss="hinge", reg_param=0.01),
+    dict(loss="logistic", step_size=0.7, weight_pos=3.0, weight_neg=0.5),
+    dict(loss="hinge", step_size=2.0, reg_param=0.1, weight_pos=0.5, weight_neg=2.0),
+])
+@pytest.mark.parametrize("warm", [False, True])
+def test_partial_fit_matches_jax_over_chunks(kwargs, warm):
+    """Several chunks over a half-filled ring that fills up between them,
+    from a zero or a warm start: weights within 1e-5 of the JAX package's
+    after every chunk, the same converged flag and update count."""
+    config = dict(kwargs, convergence_tol=0.0)
+    rng = np.random.RandomState(11)
+    w0 = rng.randn(48).astype(np.float32) * 0.1 if warm else None
+    ours = sgd.partial_fit_carry(48, weights=w0, device="cpu")
+    theirs = jax_sgd.partial_fit_carry(48, weights=w0)
+    t = 0
+    for n_live in (16, 32, 48, 64):
+        x, y, mask = _ring(n_live)
+        ours = sgd.partial_fit_linear(ours, t, x, y, sgd.SGDConfig(**config), 20,
+                                      sample_mask=mask, device="cpu")
+        theirs = jax_sgd.partial_fit_linear(theirs, t, x, y, jax_sgd.SGDConfig(**config), 20,
+                                            sample_mask=mask)
+        t += 20
+        np.testing.assert_allclose(ours[0].numpy(), np.asarray(theirs[0]), rtol=0, atol=1e-5)
+        assert ours[1] == bool(theirs[1]) and ours[2] == int(theirs[2])
+
+
+def test_partial_fit_with_an_empty_mask_leaves_the_carry():
+    """A chunk over a ring with no live row neither decays nor updates,
+    as the JAX package's (count == 0)."""
+    x, y, mask = _ring(0)
+    w0 = np.linspace(-1, 1, 48).astype(np.float32)
+    config = sgd.SGDConfig(reg_param=0.5, convergence_tol=0.0)
+    w, converged, n_updates = sgd.partial_fit_linear(
+        sgd.partial_fit_carry(48, weights=w0, device="cpu"), 0, x, y, config, 5,
+        sample_mask=mask, device="cpu")
+    theirs = jax_sgd.partial_fit_linear(jax_sgd.partial_fit_carry(48, weights=w0), 0, x, y,
+                                        jax_sgd.SGDConfig(reg_param=0.5, convergence_tol=0.0),
+                                        5, sample_mask=mask)
+    assert w.numpy().tobytes() == w0.tobytes() == np.asarray(theirs[0]).tobytes()
+    assert (converged, n_updates) == (False, 0) == (bool(theirs[1]), int(theirs[2]))
+
+
+def test_partial_fit_carry_and_device_contract():
+    w, converged, n_updates = sgd.partial_fit_carry(5, device="cpu")
+    assert w.dtype == torch.float32 and not w.any() and (converged, n_updates) == (False, 0)
+    w0 = np.arange(5, dtype=np.float64)
+    w, _c, _n = sgd.partial_fit_carry(5, weights=w0, device="cpu")
+    assert w.dtype == torch.float32 and w.tolist() == [0.0, 1.0, 2.0, 3.0, 4.0]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sgd.partial_fit_carry(5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        x, y, mask = _ring(4, cap=8, d=4)
+        sgd.partial_fit_linear(sgd.partial_fit_carry(4, device="cpu"), 0, x, y,
+                               sgd.SGDConfig(mini_batch_fraction=0.5), 3, device="cpu")
