@@ -24,7 +24,9 @@ did to the kernels:
    channels) at 4,096 windows and, at ``chip_smoke.GENERIC_PATH_SIZE``,
    at one serve batch of 64: K1-any at every rung and on float32 samples,
    K5-any at f32, int8 and int4, K6-any on the f32, int8 and int4 stacks
-   (kernel names ``<kernel>@<epoch>x<features>``). One JSON line each: the kernel's
+   (kernel names ``<kernel>@<epoch>x<features>``); where a checkout's
+   megakernel takes float32 samples, every megakernel case above also on
+   the same windows scaled into float32 (kernel names ending ``_f32s``). One JSON line each: the kernel's
    device time per call from ``torch.profiler`` (``device_ms``, 20 calls,
    ``chip_smoke.profiled_device_ms``), the median CUDA-event time of one
    wrapper call (``event_ms``, 25 calls, ``chip_smoke.time_ms``), the
@@ -47,7 +49,9 @@ did to the kernels:
 
 An instantiation is keyed by its kernel and template arguments, not by
 its mangled name (which carries a hash of its source file and its
-parameter list): the sample type, the precision
+parameter list): the sample type (the megakernel's float32 samples as
+``_f32s``; its int16 samples, and a megakernel without the sample
+argument, alike), the precision
 (``window_features::Precision``), the megakernel's ``kMulti``, the
 wide-ring ``kWide``, the tenant stack's precision (``Weights``; the f32
 stack where a build has none), the epoch-features kernel's ``kMain`` and
@@ -79,6 +83,12 @@ _KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_feat
                      r"|ingest_features_any_kernelI[sf]|serve_mega_any_kernel)")
 SIZES = (64, 320, 32_768)
 EPOCH_RUN_SIZES = (641, 1494)
+
+
+def float_mega(serve_mega_cuda) -> bool:
+    """Whether a checkout's megakernel takes float32 samples (it has the
+    float32-sample instantiations' counters)."""
+    return hasattr(serve_mega_cuda, "LAUNCHES_F32S")
 
 
 def smoke_helpers():
@@ -164,23 +174,31 @@ def time_checkout(tree: str, label: str) -> None:
                                                             100, 175, p))
         del big_raw
 
-    # the megakernel and K6 on full windows at the serve stride
+    # the megakernel and K6 on full windows at the serve stride; a
+    # checkout whose megakernel takes float32 samples also times its
+    # float32-sample instantiations on the same windows scaled by the
+    # resolutions (``_f32s``)
     stride = serve_mega.padded_stride(100, 750)
-    for n in SIZES:
+    sample_types = ("int16", "float32") if float_mega(serve_mega_cuda) else ("int16",)
+    for n, samples in [(n, s) for n in SIZES for s in sample_types]:
+        suffix = "_f32s" if samples == "float32" else ""
         gen = torch.Generator(device=dev).manual_seed(n)
         stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
                                dtype=torch.int32).to(torch.int16)
         sres = torch.tensor([0.1, 0.1, 0.2], device=dev)
+        if samples == "float32":
+            stream = (stream.to(torch.float32) * sres[:, None]).contiguous()
+            sres = torch.ones(3, device=dev)
         weights = torch.randn(48, generator=gen, device=dev)
         stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
         lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
-        run("serve_mega", "serve_mega_kernel", n,
+        run("serve_mega" + suffix, "serve_mega_kernel", n,
             lambda: serve_mega_cuda.serve_mega_margins(stream, sres, W, weights, 100, 175, stride))
         for p in ("int8", "int4") if n == SIZES[-1] else ():
-            run(f"serve_mega_{p}", "serve_mega_kernel", n,
+            run(f"serve_mega_{p}{suffix}", "serve_mega_kernel", n,
                 lambda p=p: serve_mega_cuda.serve_mega_margins(stream, sres, W, weights, 100, 175,
                                                                stride, p))
-        run("serve_mega_multi", "serve_mega_kernel", n,
+        run("serve_mega_multi" + suffix, "serve_mega_kernel", n,
             lambda: serve_mega_cuda.serve_mega_multi_margins(stream, sres, W, stack, lanes, 100,
                                                              175, stride))
         if hasattr(serve_mega_cuda, "serve_mega_multi_packed_margins"):
@@ -198,9 +216,10 @@ def time_checkout(tree: str, label: str) -> None:
                       serve_mega_cuda.serve_mega_multi_packed_margins(
                           stream, sres, W, packed, scales, lanes, 100, 175, stride, wp))
                 equal = fn().cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
-                emit(phase="packed_vs_k6", kernel=f"serve_mega_multi_{wp}", windows=n,
+                emit(phase="packed_vs_k6", kernel=f"serve_mega_multi_{wp}{suffix}", windows=n,
                      bit_equal_k6_dequantized=equal)
-                run(f"serve_mega_multi_{wp}", "serve_mega_kernel", n, fn)
+                run(f"serve_mega_multi_{wp}{suffix}", "serve_mega_kernel", n, fn)
+        del stream
 
     # the epoch-features kernel on (n, 3, 750) float32 epochs, also at the
     # -pallas logreg run's own launches (641 and 1,494 epochs)
@@ -312,26 +331,35 @@ def time_generic(cs, run, dev) -> None:
                 lambda p=p: ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, p, e, K))
         run("ingest_features_any_f32" + tag, "ingest_features_any_kernel", n,
             lambda: ingest_cuda.ingest_features(raw_f, ones, starts, W, 100, skip, "f32", e, K))
-        stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
-                               dtype=torch.int32).to(torch.int16)
+        stream16 = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.int16)
         weights = torch.randn(3 * K, generator=gen, device=dev)
         stack = torch.randn((serve_mega.MAX_TENANTS, 3 * K), generator=gen, device=dev)
         lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
-        for p in ("f32", "int8", "int4"):
-            run("serve_mega_any" + ("" if p == "f32" else f"_{p}") + tag, "serve_mega_any_kernel",
-                n, lambda p=p: serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100,
-                                                                  skip, stride, p, e, K))
-        run("serve_mega_multi_any" + tag, "serve_mega_any_kernel", n,
-            lambda: serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100,
-                                                             skip, stride, e, K))
+        packed = {}
         for wp in ("int8", "int4"):
             packed_np, scales_np = quant.quantize_weight_stack(stack.t().cpu().numpy(), wp)
-            packed = torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev)
-            scales = torch.from_numpy(scales_np).to(dev)
-            run(f"serve_mega_multi_any_{wp}" + tag, "serve_mega_any_kernel", n,
-                lambda packed=packed, scales=scales, wp=wp:
-                serve_mega_cuda.serve_mega_multi_packed_margins(
-                    stream, res, W, packed, scales, lanes, 100, skip, stride, wp, e, K))
+            packed[wp] = (torch.from_numpy(np.ascontiguousarray(packed_np.T)).to(dev),
+                          torch.from_numpy(scales_np).to(dev))
+        for samples in ("int16", "float32") if float_mega(serve_mega_cuda) else ("int16",):
+            suffix = "_f32s" if samples == "float32" else ""
+            stream, sres = stream16, res
+            if samples == "float32":
+                stream = (stream16.to(torch.float32) * res[:, None]).contiguous()
+                sres = ones
+            for p in ("f32", "int8", "int4"):
+                run("serve_mega_any" + ("" if p == "f32" else f"_{p}") + suffix + tag,
+                    "serve_mega_any_kernel", n,
+                    lambda p=p, stream=stream, sres=sres: serve_mega_cuda.serve_mega_margins(
+                        stream, sres, W, weights, 100, skip, stride, p, e, K))
+            run("serve_mega_multi_any" + suffix + tag, "serve_mega_any_kernel", n,
+                lambda stream=stream, sres=sres: serve_mega_cuda.serve_mega_multi_margins(
+                    stream, sres, W, stack, lanes, 100, skip, stride, e, K))
+            for wp, (pk, scales) in packed.items():
+                run(f"serve_mega_multi_any_{wp}" + suffix + tag, "serve_mega_any_kernel", n,
+                    lambda pk=pk, scales=scales, wp=wp, stream=stream, sres=sres:
+                    serve_mega_cuda.serve_mega_multi_packed_margins(
+                        stream, sres, W, pk, scales, lanes, 100, skip, stride, wp, e, K))
 
 
 def generic_ptxas(logs: dict) -> dict:
@@ -388,6 +416,11 @@ def instantiation_key(name: str):
         current += f"_p{p}"
     if current.startswith(("serve_mega_kernel_multi", "serve_mega_any_kernel_multi")):
         current += f"_w{w}"
+    # the megakernel's sample type: float32 (template argument f) keys
+    # apart; int16 (s) and a checkout whose megakernel has no sample
+    # argument key alike
+    if re.search(r"serve_mega(?:_any)?_kernelIf", name):
+        current += "_f32s"
     return current, p == 0 and w == 0
 
 

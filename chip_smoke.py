@@ -12,9 +12,12 @@ at f32 and at ``precision=bf16|int8|int4``, the host ``fe=`` batch run
 ``…&serve=true&load_clf=logreg&load_name=…`` at f32 and at each rung, the
 multi-tenant service (``serve.MultiplexedService``, 128 tenants) on the
 f32 stack and on the quantized stacks (``weights_precision=int8|int4``),
-and the fused kernels' generic engine (a 256-sample window through
-``OfflineDataProvider.load_features_device`` and the serving engines) —
-and holds every CUDA kernel of them against its plain PyTorch version.
+the fused kernels' generic engine (a 256-sample window through
+``OfflineDataProvider.load_features_device`` and the serving engines),
+and the serving of an IEEE_FLOAT_32 session (float32 requests through
+the megakernel's float32-sample instantiations, one and 128 tenants,
+``adapt=true``, and the host-extractor mode) — and holds every CUDA
+kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
@@ -62,7 +65,15 @@ Phases, one JSON line each (several for phases 2 to 6):
    2e-6; int8/int4 bit for bit to the plain quantizer on the kernel's f32
    rows, flips against the plain chain counted), K5 at f32/int8/int4, K6
    and K6-w8/w4 (margins within MEGA_GATE_TOL, K6 bit-equal per lane to
-   K5, K6-w8/w4 bit-equal to K6 on the dequantized stack);
+   K5, K6-w8/w4 bit-equal to K6 on the dequantized stack); and the
+   megakernel's float32-sample instantiations (K5-f32s, K5-int8-f32s,
+   K5-int4-f32s, K6-f32s, K6-w8-f32s, K6-w4-f32s and their generic
+   twins) on float32 streams of the same windows scaled by their
+   resolutions (at the int16 limit's DC offsets too): K5 at capacity 64,
+   2,048 and 32,768 windows as the int16 cases are held, K6 and the
+   packed stacks at 64 and 2,048, the generic ones at every generic size
+   and on 76 channels, and K5/K6 on 64 and 76 float channels at 512 / 16
+   (77 refused, no launch counted);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
    ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
    ``-fused-pallas`` spelling; ``fe=dwt-8-fused&precision=bf16|int8|int4``
@@ -88,6 +99,20 @@ Phases, one JSON line each (several for phases 2 to 6):
    the ``-pallas`` logreg runs' own train and test epochs through the
    run's extractor, also against the plain version on the same float32
    tensor;
+4b. serving the float32 session with models the card's fused run saved:
+   ``serve=true`` with logreg and svm at f32 and with logreg at int8 and
+   int4 (each run's float32-sample megakernel launches, counted from 0
+   just before it; ``result_path`` equal byte for byte to the card's
+   batch ``load_clf=`` run, the f32 logreg run also to the CPU's serve
+   run, under phase 5's near-threshold rule); ``adapt=true&swap_gate=off``
+   (statistics of the plain serve run, the feedback featurized by the
+   ingest kernel's float32 instantiation); a 128-tenant
+   ``MultiplexedService`` on the f32, int8 and int4 stacks (K6-f32s,
+   K6-w8-f32s, K6-w4-f32s; every tenant's margins and predictions
+   bit-equal to a solo engine serving its dequantized weights); and
+   ``InferenceService(host_extractor=…)`` with ``dwt-8`` and
+   ``dwt-8-pallas`` (the host rung, the epoch-features kernel launched
+   once a batch by the latter, predictions equal to the CPU service's);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -122,7 +147,9 @@ Phases, one JSON line each (several for phases 2 to 6):
    every other lane's packed bytes, scale and margins unchanged; then
    serving at a 256-sample window (a ServingEngine at f32/int8/int4 and a
    128-tenant MultiplexedEngine at f32/int8/int4: the generic K5 and K6
-   instantiations' launches, margins against the CPU engines);
+   instantiations' launches, margins against the CPU engines), on the
+   session's int16 windows and on them scaled into float32 windows (the
+   generic float32-sample instantiations);
 5b. remote locations: the 8-recording session on a loopback object store
    and WebHDFS namenode (``tests/_loopback.py``, one ``http.server`` on
    127.0.0.1): ``info_file=hdfs://…&fe=dwt-8-fused`` with logreg, saving
@@ -173,8 +200,12 @@ Phases, one JSON line each (several for phases 2 to 6):
    off: the contraction without the normalize), and ``window_read_ms``,
    one PyTorch reduction over the same window view; and at 4,096 epochs at
    each size off the main path of phase 3; K6-w8/w4 at capacity 64 and
-   32,768 beside K6; the generic instantiations (K1 at every rung, K5,
-   K6, K6-w8/w4) at 4,096 windows at each generic size of phase 3 and at
+   32,768 beside K6; the float32-sample megakernels (K5-f32s at f32,
+   int8 and int4, K6-f32s, K6-w8-f32s, K6-w4-f32s) at 64 and 32,768
+   windows, their bound counting 4-byte samples; the epoch-features
+   kernel at one host-extractor batch of 64; the generic instantiations
+   (K1 at every rung, K5, K6, K6-w8/w4, and the megakernels on float32
+   samples) at 4,096 windows at each generic size of phase 3 and at
    one serve batch of 64 at GENERIC_PATH_SIZE, each with the windows a
    tile its launch planned and ``library_ms``, one ``torch.matmul`` of the
    centred windows with W (TF32 off: the contraction alone); the same
@@ -503,10 +534,13 @@ def build_kernels(cuda_build, names):
              library=os.path.relpath(lib, REPO), ptxas=ptxas)
 
 
-def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed):
+def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed, samples="int16"):
     """``n`` windows of int16 noise over ``dc`` staged at capacity
     ``capacity``, with resolutions, the cascade operator and random
-    weights, on ``dev``."""
+    weights, on ``dev``. ``samples="float32"``: the same windows scaled by
+    the resolutions into float32 with unit resolutions, as a recording in
+    another binary format is staged (at the int16 limit's DC, a float
+    stream of DC x resolution that stresses the baseline's cancellation)."""
     stride = serve_mega.padded_stride(100, 750)
     rng = np.random.RandomState(seed)
     windows = [
@@ -514,14 +548,18 @@ def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed):
                 -32768, 32767).astype(np.int16)
         for _ in range(n)
     ]
-    stream = serve_mega.stage_mega_stream(windows, 3, 850, stride, capacity)
+    stream = torch.from_numpy(serve_mega.stage_mega_stream(windows, 3, 850, stride,
+                                                           capacity)).to(dev)
     weights = torch.from_numpy(rng.randn(48).astype(np.float32)).to(dev)
     res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
-    return torch.from_numpy(stream).to(dev), res, weights, stride
+    if samples == "float32":
+        stream = (stream.to(torch.float32) * res[:, None]).contiguous()
+        res = torch.ones(3, dtype=torch.float32, device=dev)
+    return stream, res, weights, stride
 
 
 def check_mega_rungs(torch, np, serve_mega, serve_mega_cuda, stream, res, W, weights, stride,
-                     n, name, worst):
+                     n, name, worst, suffix=""):
     """The int8 and int4 megakernels on one case: margins within
     MARGIN_TOL_PER_L1 * ||w||_1 of the quantized ingest kernel's rows of
     the same windows dotted with w; within the rung's tolerance of the
@@ -558,8 +596,9 @@ def check_mega_rungs(torch, np, serve_mega, serve_mega_cuda, stream, res, W, wei
         fields[precision] = {"max_abs_err": err, "tol": tol, "max_dev_vs_plain": dev_plain,
                              "rung_tol": gate, "row_flips_vs_plain": flips,
                              "padded_rows_zero": pad_zero, "solo_equals_batch": solo_equal}
-        worst[precision] = max(worst.get(precision, 0.0), err)
-    emit("mega_rungs_vs_ingest", case=name, capacity=capacity, windows=n, **fields)
+        worst[precision + suffix] = max(worst.get(precision + suffix, 0.0), err)
+    emit("mega_rungs_vs_ingest", case=name, capacity=capacity, windows=n,
+         samples=str(stream.dtype).replace("torch.", ""), **fields)
     if not ok:
         raise AssertionError(f"a quantized megakernel disagrees on {name}: {fields}")
 
@@ -568,18 +607,31 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
     """The megakernel against its plain version on the card, per input
     case; padded rows exactly 0; one window's margin equal solo and in
     a batch; the int8 and int4 instantiations on every case
-    (:func:`check_mega_rungs`). Returns the worst deviation per rung."""
-    worst = {"f32": 0.0}
+    (:func:`check_mega_rungs`). Then the float32-sample instantiations
+    (K5-f32s, K5-int8-f32s, K5-int4-f32s) on float32 streams
+    (:func:`mega_batch`'s float form), at capacity 64, 2,048 and 32,768
+    windows. Returns the worst deviation per rung (``_f32s`` keys: the
+    float32-sample instantiations)."""
+    worst = {"f32": 0.0, "f32_f32s": 0.0}
     cases = []
     for capacity in (64, 128, 2048):
         for n in (1, capacity):
-            cases.append((f"random_cap{capacity}_n{n}", capacity, n, (0, 0, 0), 3000))
+            cases.append((f"random_cap{capacity}_n{n}", capacity, n, (0, 0, 0), 3000,
+                          "int16"))
             cases.append((f"dc_heavy_cap{capacity}_n{n}", capacity, n,
-                          (30000, -30000, 29500), 1500))
-    cases.append(("odd_count_cap128_n77", 128, 77, (15000, -12000, 9000), 3000))
-    for seed, (name, capacity, n, dc, noise) in enumerate(cases):
+                          (30000, -30000, 29500), 1500, "int16"))
+    cases.append(("odd_count_cap128_n77", 128, 77, (15000, -12000, 9000), 3000, "int16"))
+    for capacity, n in ((64, 1), (64, 64), (2048, 2048), (32_768, 32_768)):
+        cases.append((f"float32_random_cap{capacity}_n{n}", capacity, n, (0, 0, 0), 3000,
+                      "float32"))
+        cases.append((f"float32_dc_heavy_cap{capacity}_n{n}", capacity, n,
+                      (30000, -30000, 29500), 1500, "float32"))
+    cases.append(("float32_odd_count_cap128_n77", 128, 77, (15000, -12000, 9000), 3000,
+                  "float32"))
+    for seed, (name, capacity, n, dc, noise, samples) in enumerate(cases):
+        suffix = "_f32s" if samples == "float32" else ""
         stream, res, weights, stride = mega_batch(torch, np, serve_mega, dev, capacity,
-                                                  n, dc, noise, seed)
+                                                  n, dc, noise, seed, samples)
         got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride)
         torch.cuda.synchronize()
         want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175, stride)
@@ -592,14 +644,16 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         solo[:, :stride] = stream[:, (n - 1) * stride:n * stride]
         solo_m = serve_mega_cuda.serve_mega_margins(solo, res, W, weights, 100, 175, stride)
         solo_equal = solo_m[0].item() == got[n - 1].item()
-        emit("mega_vs_plain", case=name, capacity=capacity, windows=n, max_abs_err=err,
-             tol=tol, finite=finite, padded_rows_zero=pad_zero, solo_equals_batch=solo_equal)
+        emit("mega_vs_plain", case=name, capacity=capacity, windows=n, samples=samples,
+             max_abs_err=err, tol=tol, finite=finite, padded_rows_zero=pad_zero,
+             solo_equals_batch=solo_equal)
         if not (err <= tol and finite and pad_zero and solo_equal
                 and got.shape == (capacity,)):
             raise AssertionError(f"megakernel disagrees with its plain version on {name}")
-        worst["f32"] = max(worst["f32"], err)
+        worst["f32" + suffix] = max(worst["f32" + suffix], err)
         check_mega_rungs(torch, np, serve_mega, serve_mega_cuda, stream, res, W, weights,
-                         stride, n, name, worst)
+                         stride, n, name, worst, suffix)
+        del stream
     return worst
 
 
@@ -615,20 +669,26 @@ def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
     """K6, the tenant-stacked megakernel, against its plain version on
     the card per input case: each row within MARGIN_TOL_PER_L1 *
     ||w_lane||_1, bit-equal to the solo megakernel launched with that
-    lane's weights; padded rows and a freed (zero) lane exactly 0.
-    Returns the worst deviation."""
-    worst = 0.0
+    lane's weights; padded rows and a freed (zero) lane exactly 0. Then
+    K6-f32s, the float32-sample instantiation, on float32 streams
+    (DC-heavy, capacity 64 and 2,048). Returns the worst deviation,
+    ``{"": K6, "_f32s": K6-f32s}``."""
+    worst = {"": 0.0, "_f32s": 0.0}
     cases = []
     for capacity in (64, 128, 2048):
         for n in (1, capacity):
             for spread in ("cycling", "one_lane"):
                 cases.append((f"random_cap{capacity}_n{n}_{spread}", capacity, n, spread,
-                              (0, 0, 0), 3000))
+                              (0, 0, 0), 3000, "int16"))
                 cases.append((f"dc_heavy_cap{capacity}_n{n}_{spread}", capacity, n, spread,
-                              (30000, -30000, 29500), 1500))
-    for seed, (name, capacity, n, spread, dc, noise) in enumerate(cases):
+                              (30000, -30000, 29500), 1500, "int16"))
+    for capacity in (64, 2048):
+        for spread in ("cycling", "one_lane"):
+            cases.append((f"float32_dc_heavy_cap{capacity}_n{capacity}_{spread}", capacity,
+                          capacity, spread, (30000, -30000, 29500), 1500, "float32"))
+    for seed, (name, capacity, n, spread, dc, noise, samples) in enumerate(cases):
         stream, res, _w, stride = mega_batch(torch, np, serve_mega, dev, capacity, n, dc,
-                                             noise, 500 + seed)
+                                             noise, 500 + seed, samples)
         rng = np.random.RandomState(seed)
         stack_np = rng.randn(serve_mega.MAX_TENANTS, 48).astype(np.float32)
         stack_np[5] = 0.0  # a freed lane
@@ -654,7 +714,7 @@ def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         pad_zero = bool((got_np[n:] == 0).all())
         freed_zero = bool((got_np[:n][lanes_np[:n] == 5] == 0).all())
         finite = bool(np.isfinite(got_np).all())
-        emit("mega_multi_vs_plain", case=name, capacity=capacity, windows=n,
+        emit("mega_multi_vs_plain", case=name, capacity=capacity, windows=n, samples=samples,
              lanes_used=int(len(np.unique(lanes_np[:n]))), max_abs_err=err,
              tol_per_l1=MARGIN_TOL_PER_L1, within_tol=within,
              bit_equal_solo_kernel_per_lane=bit_equal, padded_rows_zero=pad_zero,
@@ -662,7 +722,8 @@ def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         if not (within and bit_equal and pad_zero and freed_zero and finite
                 and got.shape == (capacity,)):
             raise AssertionError(f"K6 disagrees on {name}")
-        worst = max(worst, err)
+        key = "_f32s" if samples == "float32" else ""
+        worst[key] = max(worst[key], err)
     return worst
 
 
@@ -1597,6 +1658,241 @@ def phase_float_session(np, info, counters, n_files):
     return fused["ingest_features_f32"], f32_err, k4_err
 
 
+#: the float32-sample megakernels' counters (serve_mega_cuda), by kernel name
+F32S_COUNTERS = {
+    "serve_mega_f32s": "LAUNCHES_F32S", "serve_mega_int8_f32s": "LAUNCHES_INT8_F32S",
+    "serve_mega_int4_f32s": "LAUNCHES_INT4_F32S", "serve_mega_multi_f32s": "MULTI_LAUNCHES_F32S",
+    "serve_mega_multi_int8_f32s": "MULTI_LAUNCHES_INT8_F32S",
+    "serve_mega_multi_int4_f32s": "MULTI_LAUNCHES_INT4_F32S",
+}
+
+
+def float_windows(info):
+    """The float32 session's serving requests (``windows_from_recording``
+    on the CPU provider): windows, per-window resolutions, targets."""
+    from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.serve import engine
+
+    odp = OfflineDataProvider([info], device="cpu")
+    windows, resolutions, targets = [], [], []
+    balance = BalanceState()
+    for _rel, guessed, rec in odp.iter_recordings():
+        ws, ts, res = engine.windows_from_recording(
+            rec, odp.channel_indices_for(rec), guessed, balance=balance)
+        windows.extend(ws)
+        resolutions.extend([res] * len(ws))
+        targets.extend(float(t) for t in ts)
+    return windows, resolutions, targets
+
+
+def phase_float_serve(torch, np, info, work):
+    """Serving the float32 session (IEEE_FLOAT_32 requests, float32
+    windows with unit resolutions) on the card, with models trained and
+    saved by the card's fused run: (1) ``serve=true`` for logreg and svm
+    at f32 and logreg at int8 and int4, each run's counters set to 0 just
+    before it: its requests through K5-f32s / K5-int8-f32s / K5-int4-f32s
+    (at least one launch a batch), ``result_path`` equal byte for byte to
+    the card's batch ``load_clf=`` run's statistics, and the f32 logreg
+    run's to the CPU's serve run (where they are not, every differing row
+    must lie within MARGIN_BAND of the threshold, as in phase 5); (2) ``adapt=true&swap_gate=off``
+    with the plain serve run's statistics and the adapter's feedback
+    featurized by K1-f32; (3) a MultiplexedService of 128 tenants on the
+    f32, int8 and int4 stacks over the session's windows (K6-f32s,
+    K6-w8-f32s, K6-w4-f32s), every tenant's margins and predictions
+    bit-equal to one solo engine serving that tenant's (dequantized)
+    weights; (4) host-extractor services with ``dwt-8`` and
+    ``dwt-8-pallas``: the host rung, K4 launched once a batch by the
+    latter, predictions equal to the same services on the CPU. Returns
+    {kernel name: launches}."""
+    from eeg_dataanalysispackage_tpu_torch.features import registry as fe_registry
+    from eeg_dataanalysispackage_tpu_torch.models import linear, registry
+    from eeg_dataanalysispackage_tpu_torch.ops import dwt_cuda, ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import (
+        InferenceService, MultiplexedService, ServingEngine,
+    )
+
+    t_phase = time.perf_counter()
+    models = {}
+    for clf in ("logreg", "svm"):
+        models[clf] = os.path.join(work, f"float_model_{clf}")
+        PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf={clf}&save_clf=true"
+                        f"&save_name={models[clf]}").execute()
+    windows, resolutions, _targets = float_windows(info)
+    kept = len(windows)
+    launches = {}
+
+    def zero():
+        for attr in F32S_COUNTERS.values():
+            setattr(serve_mega_cuda, attr, 0)
+        ingest_cuda.LAUNCHES_F32 = 0
+        dwt_cuda.LAUNCHES = 0
+
+    def counts():
+        return {k: getattr(serve_mega_cuda, a) for k, a in F32S_COUNTERS.items()}
+
+    # 1. serve=true
+    plain_stats = None
+    for clf, precision in (("logreg", "f32"), ("svm", "f32"), ("logreg", "int8"),
+                           ("logreg", "int4")):
+        base = f"info_file={info}&fe=dwt-8-fused&load_clf={clf}&load_name={models[clf]}"
+        if precision != "f32":
+            base += f"&precision={precision}"
+        batch = PipelineBuilder(base)
+        batch_stats = str(batch.execute())
+        result = os.path.join(work, f"float_serve_{clf}_{precision}.txt")
+        zero()
+        builder = PipelineBuilder(base + f"&serve=true&result_path={result}")
+        served = str(builder.execute())
+        got = counts()
+        with open(result) as f:
+            result_equal = f.read() == batch_stats + "\n"
+        kernel = "serve_mega_f32s" if precision == "f32" else f"serve_mega_{precision}_f32s"
+        block = builder.serve_block
+        req = block["requests"]
+        batch_rows = []
+        if served != batch_stats:
+            # the margins differ from the batch run's by summation order
+            # (the kernel's 48-term dot against torch's matvec): a row may
+            # flip only within MARGIN_BAND of the threshold
+            with InferenceService.from_saved(clf, models[clf], precision=precision) as svc:
+                results = svc.predict_all(windows, resolutions)
+            thr = batch.classifier.margin_threshold
+            batch_m = batch.classifier.margin(batch.features).double().cpu().numpy()
+            batch_rows = differing_rows(
+                np.array([r.prediction for r in results]),
+                np.array([r.margin for r in results], np.float64),
+                (batch_m > thr).astype(np.float64), batch_m, thr,
+                f"float32 serve ({clf}, {precision}) vs batch")
+            if not batch_rows:
+                raise AssertionError(f"float32 serve ({clf}, {precision}): statistics differ "
+                                     "from the batch run's with no near-threshold row")
+        fields = {}
+        if (clf, precision) == ("logreg", "f32"):
+            plain_stats = served
+            cpu = str(PipelineBuilder(base + "&serve=true", device="cpu").execute())
+            rows = []
+            if cpu != served:
+                runs = {}
+                for label, kwargs in (("cuda", {}), ("cpu", {"device": "cpu"})):
+                    with InferenceService.from_saved("logreg", models[clf], **kwargs) as svc:
+                        results = svc.predict_all(windows, resolutions)
+                    runs[label] = (np.array([r.prediction for r in results]),
+                                   np.array([r.margin for r in results], np.float64))
+                thr = registry.create("logreg")
+                thr.load(models[clf])
+                rows = differing_rows(*runs["cuda"], *runs["cpu"], thr.margin_threshold,
+                                      "float32 serve on the card vs on the CPU")
+                if not rows:
+                    raise AssertionError("float32 serve statistics differ from the CPU run's "
+                                         "with no near-threshold row")
+            fields = {"statistics_equal_cpu_serve": cpu == served,
+                      "near_threshold_rows_cpu": rows}
+        emit("float_serve", classifier=clf, precision=precision, rung=block["rung"],
+             launches=got, kept=kept, completed=req["completed"], shed=req["shed"],
+             batches=block["batches"], latency_ms=block["latency_ms"],
+             statistics_equal_batch=served == batch_stats, result_path_equal_batch=result_equal,
+             near_threshold_rows_batch=batch_rows, **fields)
+        if not ((result_equal or batch_rows) and block["rung"] == "mega"
+                and got[kernel] >= math.ceil(kept / 64) and req["completed"] == kept
+                and req["shed"] == 0 and block["drained_cleanly"] is True):
+            raise AssertionError(f"serve=true ({clf}, {precision}) on the float32 session did "
+                                 f"not serve through {kernel} with the batch statistics")
+        launches[kernel] = launches.get(kernel, 0) + got[kernel]
+
+    # 2. adapt=true&swap_gate=off
+    base = (f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={models['logreg']}"
+            "&serve=true&adapt=true&swap_gate=off")
+    zero()
+    builder = PipelineBuilder(base)
+    adapted = str(builder.execute())
+    fb = builder.serve_block["lifecycle"]["feedback"]
+    k1_f32 = ingest_cuda.LAUNCHES_F32
+    emit("float_adapt_gate_off", statistics_equal_plain_serve=adapted == plain_stats,
+         feedback=fb, k1_f32_launches=k1_f32, k5_f32s_launches=counts()["serve_mega_f32s"],
+         adapt_stage_s=builder.timers["adapt"])
+    if not (adapted == plain_stats and fb["received"] == kept and fb["failures"] == 0
+            and k1_f32 >= math.ceil(kept / 16)):
+        raise AssertionError("adapt=true on the float32 session did not adapt as the plain run")
+
+    # 3. 128 tenants on the f32, int8 and int4 stacks
+    base_clf = registry.create("logreg")
+    base_clf.load(models["logreg"])
+    names = [f"t{i:03d}" for i in range(128)]
+    tenants = {names[0]: base_clf}
+    tenants.update({name: perturbed_tenant(np, base_clf, i) for i, name in enumerate(names)
+                    if i})
+    mix = [names[i % 128] for i in range(kept)]
+    solo = ServingEngine(base_clf)
+    solo.warmup()
+    for wp in ("f32",) + PACKED:
+        kernel = "serve_mega_multi_f32s" if wp == "f32" else f"serve_mega_multi_{wp}_f32s"
+        zero()
+        t0 = time.perf_counter()
+        with MultiplexedService(tenants, weights_precision=wp) as svc:
+            served = svc.predict_all(windows, resolutions, mix)
+            eng = svc.engine
+            stack = eng._f32_stack(eng._stack)
+            lanes = {name: eng.tenant_info(name)["lane"] for name in tenants}
+            block = svc.stats_block()
+        wall = time.perf_counter() - t0
+        got = counts()
+        # every tenant against the solo engine serving its (dequantized) row
+        equal = True
+        for name, clf in tenants.items():
+            twin = registry.create("logreg")
+            twin.model = linear.LinearModel(stack[lanes[name]].cpu().contiguous(),
+                                            float(clf.model.intercept))
+            twin.margin_threshold = clf.margin_threshold
+            solo.swap_model(twin)
+            rows = [i for i, t in enumerate(mix) if t == name]
+            for part in batches_of(rows):
+                preds, margins = solo.execute([windows[i] for i in part], resolutions[part[0]])
+                equal = (equal and np.asarray([served[i].margin for i in part], np.float32)
+                         .tobytes() == margins.tobytes()
+                         and [served[i].prediction for i in part] == list(preds))
+        emit("float_serve_multitenant", weights_precision=wp, tenants=128, rung=block["rung"],
+             weights=block.get("weights"), launches=got, kept=kept,
+             completed=block["requests"]["completed"], batches=block["batches"],
+             latency_ms=block["latency_ms"], wall_s=wall,
+             every_tenant_bit_equal_solo=equal)
+        if not (block["rung"] == "mega" and block["weights_precision"] == wp and equal
+                and got[kernel] >= math.ceil(kept / 64)
+                and block["requests"]["completed"] == kept):
+            raise AssertionError(f"the 128-tenant float32 service ({wp}) did not serve as "
+                                 "expected")
+        launches[kernel] = got[kernel]
+
+    # 4. the host-extractor mode
+    clf = registry.create("logreg")
+    clf.load(models["logreg"])
+    for fe in ("dwt-8", "dwt-8-pallas"):
+        zero()
+        with InferenceService(clf, host_extractor=fe_registry.create(fe)) as svc:
+            warm = dwt_cuda.LAUNCHES
+            served = svc.predict_all(windows, resolutions)
+            block = svc.stats_block()
+        k4 = dwt_cuda.LAUNCHES - warm
+        with InferenceService(clf, host_extractor=fe_registry.create(fe, device="cpu"),
+                              device="cpu") as cpu:
+            want = cpu.predict_all(windows, resolutions)
+        equal = [r.prediction for r in served] == [r.prediction for r in want]
+        expected_k4 = block["batches"] if fe == "dwt-8-pallas" else 0
+        emit("float_host_extractor", fe=fe, mode=block["mode"], rung=block["rung"],
+             k4_launches=k4, batches=block["batches"], completed=block["requests"]["completed"],
+             latency_ms=block["latency_ms"], predictions_equal_cpu=equal,
+             other_launches=counts())
+        if not (block["mode"] == "host-extractor" and block["rung"] == "host" and equal
+                and k4 == expected_k4 and block["requests"]["completed"] == kept
+                and not any(counts().values())):
+            raise AssertionError(f"the host-extractor service ({fe}) did not serve as expected")
+        if fe == "dwt-8-pallas":
+            launches["epoch_features_host_extractor"] = k4
+    emit("float_serve_phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -1763,28 +2059,42 @@ def ingest_timing(torch, ingest_cuda, device_ingest, W, dev, dtype, bandwidth, f
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
-def mega_bound(n: int, bandwidth: float, f32_peak: float):
+def mega_bound(n: int, bandwidth: float, f32_peak: float, sample_bytes: int = 2):
     """Least card time for the megakernel's function on ``n`` windows:
-    the 612 needed int16 samples per channel and window read once, one
-    float32 margin written per window, operator, weights and
-    resolutions read once; against its float32 operations."""
-    bytes_moved = 3 * n * (100 + 512) * 2 + n * 4 + 512 * 16 * 4 + 48 * 4 + 3 * 4
+    the 612 needed samples (int16, or float32 at ``sample_bytes`` 4) per
+    channel and window read once, one float32 margin written per window,
+    operator, weights and resolutions read once; against its float32
+    operations."""
+    bytes_moved = (3 * n * (100 + 512) * sample_bytes + n * 4 + 512 * 16 * 4 + 48 * 4
+                   + 3 * 4)
     flops = 2 * n * 3 * 512 * 16 + 2 * n * 48
     return (*timed_bound(bytes_moved, flops, bandwidth, f32_peak), bytes_moved, flops)
 
 
+def timing_stream(torch, dev, gen, n, stride, samples):
+    """(3, n * stride) windows of int16 noise, and their resolutions; at
+    ``samples="float32"`` scaled into float32 with unit resolutions."""
+    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    if samples == "float32":
+        stream = (stream.to(torch.float32) * res[:, None]).contiguous()
+        res = torch.ones(3, dtype=torch.float32, device=dev)
+    return stream, res
+
+
 def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak, smi,
-                precision="f32"):
-    """Megakernel (at ``precision``) and plain times on ``n`` full
-    windows; int8/int4 margins are held against the quantized ingest
-    kernel's rows of the same windows dotted with the weights."""
+                precision="f32", samples="int16", launches=None):
+    """Megakernel (at ``precision``, on int16 or float32 ``samples``) and
+    plain times on ``n`` full windows; int8/int4 margins are held against
+    the quantized ingest kernel's rows of the same windows dotted with
+    the weights. ``launches``: the instantiation's launches over its
+    path, printed beside its times."""
     from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda
 
     stride = serve_mega.padded_stride(100, 750)
     gen = torch.Generator(device=dev).manual_seed(n)
-    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int16)
-    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    stream, res = timing_stream(torch, dev, gen, n, stride, samples)
     weights = torch.randn(48, generator=gen, device=dev, dtype=torch.float32)
     args = (stream, res, W, weights, 100, 175, stride, precision)
     got = serve_mega_cuda.serve_mega_margins(*args)
@@ -1801,26 +2111,28 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
                                    "serve_mega_kernel")
     clock = sm_clock_mhz()
     plain_ms = time_ms(lambda: serve_mega.serve_mega_margins_plain(*args))
-    bound_ms, bound_by, bytes_moved, flops = mega_bound(n, bandwidth, f32_peak)
-    name = "serve_mega" if precision == "f32" else f"serve_mega_{precision}"
+    bound_ms, bound_by, bytes_moved, flops = mega_bound(n, bandwidth, f32_peak,
+                                                        stream.element_size())
+    name = ("serve_mega" if precision == "f32" else f"serve_mega_{precision}") + (
+        "_f32s" if samples == "float32" else "")
     emit("timing", kernel=name, windows=n, stride=stride, kernel_ms=kernel_ms,
          kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by,
-         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, nvidia_smi=smi)
+         bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, launches=launches,
+         nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
 def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak,
-                      smi):
-    """K6 and its plain version on ``n`` full windows, lanes cycling
-    over 128 tenants; held against the plain version and, bit for bit,
-    against the solo megakernel per lane. Bound: the megakernel's bytes
-    plus the lanes (4 B a window) and the 128-lane stack read once."""
+                      smi, samples="int16", launches=None):
+    """K6 (on int16 or float32 ``samples``) and its plain version on ``n``
+    full windows, lanes cycling over 128 tenants; held against the plain
+    version and, bit for bit, against the solo megakernel per lane.
+    Bound: the megakernel's bytes plus the lanes (4 B a window) and the
+    128-lane stack read once."""
     stride = serve_mega.padded_stride(100, 750)
     gen = torch.Generator(device=dev).manual_seed(n + 1)
-    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int16)
-    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    stream, res = timing_stream(torch, dev, gen, n, stride, samples)
     stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
     lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
     args = (stream, res, W, stack, lanes, 100, 175, stride)
@@ -1838,13 +2150,14 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
                                    "serve_mega_kernel")
     clock = sm_clock_mhz()
     plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_margins_plain(*args))
-    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak)
+    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak, stream.element_size())
     bytes_moved = mega_bytes - 48 * 4 + serve_mega.MAX_TENANTS * 48 * 4 + n * 4
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
-    emit("timing", kernel="serve_mega_multi", windows=n, stride=stride, tenants=128,
+    emit("timing", kernel="serve_mega_multi" + ("_f32s" if samples == "float32" else ""),
+         windows=n, stride=stride, tenants=128,
          kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
-         library_ms=None, max_abs_err=err, nvidia_smi=smi)
+         library_ms=None, max_abs_err=err, launches=launches, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -1884,15 +2197,19 @@ def phase_packed_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
     MARGIN_TOL_PER_L1 * ||w_lane||_1 of the plain version; padded rows
     and the freed lane exactly 0; DC-heavy windows, n = 1 and n =
     capacity at capacity 64 and 2,048, lanes cycling over all 128 or all
-    on one. Returns {weights precision: worst deviation from plain}."""
+    on one; and K6-w8-f32s and K6-w4-f32s, the float32-sample
+    instantiations, on float32 streams of the same windows, against
+    K6-f32s. Returns {weights precision (with ``_f32s``: on float32
+    samples): worst deviation from plain}."""
     worst = {}
-    for wp in PACKED:
-        worst[wp] = 0.0
+    for wp, samples in [(wp, s) for s in ("int16", "float32") for wp in PACKED]:
+        key = wp + ("_f32s" if samples == "float32" else "")
+        worst[key] = 0.0
         for capacity, n in ((64, 1), (64, 64), (2048, 2048)):
             for spread in ("cycling", "one_lane"):
                 stream, res, _w, stride = mega_batch(torch, np, serve_mega, dev, capacity, n,
                                                      (30000, -30000, 29500), 1500,
-                                                     seed=capacity + n)
+                                                     seed=capacity + n, samples=samples)
                 rng = np.random.RandomState(capacity + n)
                 packed, scales, deq = packed_stack(np, torch, dev, rng, 48, wp)
                 lanes_np = multi_lanes(np, capacity, n, spread)
@@ -1911,14 +2228,67 @@ def phase_packed_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
                 within = bool((dev_rows <= MARGIN_TOL_PER_L1 * l1).all())
                 pad_zero = bool((got_np[n:] == 0).all())
                 freed_zero = bool((got_np[:n][lanes_np[:n] == 5] == 0).all())
-                emit("mega_multi_packed_vs_k6", weights_precision=wp,
+                emit("mega_multi_packed_vs_k6", weights_precision=wp, samples=samples,
                      case=f"cap{capacity}_n{n}_{spread}", capacity=capacity, windows=n,
                      bit_equal_k6_dequantized=bit_equal, max_abs_err=float(dev_rows.max()),
                      tol_per_l1=MARGIN_TOL_PER_L1, within_tol=within, padded_rows_zero=pad_zero,
                      freed_lane_zero=freed_zero)
                 if not (bit_equal and within and pad_zero and freed_zero):
-                    raise AssertionError(f"K6-{wp} disagrees at capacity {capacity}, n {n}")
-                worst[wp] = max(worst[wp], float(dev_rows.max()))
+                    raise AssertionError(f"K6-{wp} ({samples}) disagrees at capacity "
+                                         f"{capacity}, n {n}")
+                worst[key] = max(worst[key], float(dev_rows.max()))
+    return worst
+
+
+def phase_float_wide_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
+    """The float32-sample megakernels on wide montages at 512 / 16 (a
+    float ring slot holds half an int16 slot's samples, so the ring's
+    pieces of channels differ): K5-f32s at 64 and 76 channels within
+    MARGIN_TOL_PER_L1 * ||w||_1 of the plain version, K6-f32s bit-equal
+    per lane to K5-f32s; 77 channels, past the one-window-per-block
+    kernels' reach, raise and count no launch. Returns the worst
+    deviation."""
+    stride = serve_mega.padded_stride(100, 750)
+    worst = 0.0
+    for C in (64, 76, 77):
+        rng = np.random.RandomState(C)
+        windows = [int16_rows(np, rng, C, 850) for _ in range(5)]
+        stream = (torch.from_numpy(serve_mega.stage_mega_stream(windows, C, 850, stride, 5))
+                  .to(dev).to(torch.float32) * 0.1).contiguous()
+        ones = torch.ones(C, dtype=torch.float32, device=dev)
+        weights = torch.from_numpy(rng.randn(C * 16).astype(np.float32)).to(dev)
+        before = serve_mega_cuda.LAUNCHES_F32S
+        if C == 77:
+            try:
+                serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, 175, stride)
+            except RuntimeError as e:
+                refused = "launch failed" in str(e)
+            else:
+                refused = False
+            emit("mega_float_wide", channels=C, refused=refused,
+                 launches_counted=serve_mega_cuda.LAUNCHES_F32S - before)
+            if not refused or serve_mega_cuda.LAUNCHES_F32S != before:
+                raise AssertionError("77 float channels were not refused")
+            continue
+        got = serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, 175, stride)
+        want = serve_mega.serve_mega_margins_plain(stream, ones, W, weights, 100, 175, stride)
+        err = (got - want).abs().max().item()
+        stack = torch.from_numpy(rng.randn(128, C * 16).astype(np.float32)).to(dev)
+        lanes = torch.tensor([5, 127, 0, 64, 5], dtype=torch.int32)
+        multi = serve_mega_cuda.serve_mega_multi_margins(stream, ones, W, stack, lanes, 100, 175,
+                                                         stride).cpu()
+        per_lane = True
+        for lane in (0, 5, 64, 127):
+            solo = serve_mega_cuda.serve_mega_margins(stream, ones, W, stack[lane], 100, 175,
+                                                      stride).cpu()
+            rows = (lanes == lane).nonzero().flatten()
+            per_lane = per_lane and multi[rows].numpy().tobytes() == solo[rows].numpy().tobytes()
+        tol = MARGIN_TOL_PER_L1 * weights.abs().sum().item()
+        emit("mega_float_wide", channels=C, max_abs_err=err, tol=tol,
+             k6_bit_equal_k5_per_lane=per_lane)
+        if not (err <= tol and per_lane):
+            raise AssertionError(f"the float32 megakernels disagree at {C} channels")
+        worst = max(worst, err)
     return worst
 
 
@@ -2003,72 +2373,87 @@ def phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
         capacity, count = 128, 77
         stride = serve_mega.padded_stride(100, 750)
         windows = [int16_rows(np, rng, C, 850) for _ in range(count)]
-        stream = torch.from_numpy(
+        stream16 = torch.from_numpy(
             serve_mega.stage_mega_stream(windows, C, 850, stride, capacity)).to(dev)
         mstarts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
         weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
         margin_tol = serve_mega.MEGA_GATE_TOL
-        mfields, ok = {}, True
-        for precision in ("f32", "int8", "int4"):
-            got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
-                                                     precision, n, K)
-            torch.cuda.synchronize()
-            plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, skip,
-                                                        stride, precision)
-            dev_plain = (got - plain).abs().max().item()
-            pad_zero = bool((got[count:] == 0).all())
-            if precision == "f32":
-                good, err = dev_plain <= margin_tol, dev_plain
-                name = "serve_mega_any"
-            else:
-                rows = ingest_cuda.ingest_features(stream, res, mstarts, W, 100, skip, precision,
-                                                   n, K)
-                err = (got - rows @ weights).abs().max().item()
-                gate = max(margin_tol, decode_ingest.precision_gate_tolerance(precision))
-                good = (err <= MARGIN_TOL_PER_L1 * weights.abs().sum().item()
-                        and dev_plain <= gate)
-                name = f"serve_mega_any_{precision}"
-            ok = ok and good and pad_zero
-            mfields[name] = {"max_abs_err": err, "max_dev_vs_plain": dev_plain,
-                             "padded_rows_zero": pad_zero}
-            note(name, err)
         stack = torch.from_numpy(rng.randn(128, C * K).astype(np.float32)).to(dev)
         lanes_np = np.where(np.arange(capacity) < count, rng.randint(0, 128, capacity),
                             0).astype(np.int32)
         lanes = torch.from_numpy(lanes_np)
-        margs = (stream, res, W)
-        multi = serve_mega_cuda.serve_mega_multi_margins(*margs, stack, lanes, 100, skip, stride,
-                                                         n, K)
-        plain = serve_mega.serve_mega_multi_margins_plain(*margs, stack, lanes, 100, skip, stride)
-        err = (multi - plain).abs().max().item()
-        multi_np = multi.cpu().numpy()
-        per_lane = True
-        for lane in np.unique(lanes_np[:count])[:6]:
-            solo = serve_mega_cuda.serve_mega_margins(*margs, stack[int(lane)], 100, skip, stride,
-                                                      "f32", n, K).cpu().numpy()
-            rows = np.nonzero(lanes_np[:count] == lane)[0]
-            per_lane = per_lane and multi_np[rows].tobytes() == solo[rows].tobytes()
-        ok = ok and err <= margin_tol and per_lane and bool((multi_np[count:] == 0).all())
-        mfields["serve_mega_multi_any"] = {"max_abs_err": err, "bit_equal_k5_per_lane": per_lane}
-        note("serve_mega_multi_any", err)
-        for wp in PACKED:
-            packed, scales, deq = packed_stack(np, torch, dev, rng, C * K, wp)
-            got = serve_mega_cuda.serve_mega_multi_packed_margins(
-                *margs, packed, scales, lanes, 100, skip, stride, wp, n, K)
-            k6 = serve_mega_cuda.serve_mega_multi_margins(*margs, deq, lanes, 100, skip, stride,
-                                                          n, K)
-            bit_equal = got.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
-            plain = serve_mega.serve_mega_multi_packed_margins_plain(
-                *margs, packed, scales, lanes, 100, skip, stride, wp)
-            err = (got - plain).abs().max().item()
-            ok = ok and bit_equal and err <= margin_tol and bool((got[count:] == 0).all())
-            mfields[f"serve_mega_multi_any_{wp}"] = {"max_abs_err": err,
-                                                     "bit_equal_k6_dequantized": bit_equal}
-            note(f"serve_mega_multi_any_{wp}", err)
-        emit("generic_mega_vs_plain", case=label, capacity=capacity, windows=count,
-             margin_tol=margin_tol, **mfields)
-        if not ok:
-            raise AssertionError(f"the generic megakernel disagrees on {label}: {mfields}")
+        packed_stacks = {wp: packed_stack(np, torch, dev, rng, C * K, wp) for wp in PACKED}
+        # int16 samples, then the same windows scaled into float32 samples
+        # with unit resolutions (the _f32s instantiations)
+        for samples in ("int16", "float32"):
+            suffix = "_f32s" if samples == "float32" else ""
+            if samples == "int16":
+                stream, sres = stream16, res
+            else:
+                stream = (stream16.to(torch.float32) * res[:, None]).contiguous()
+                sres = torch.ones(C, dtype=torch.float32, device=dev)
+            mfields, ok = {}, True
+            for precision in ("f32", "int8", "int4"):
+                got = serve_mega_cuda.serve_mega_margins(stream, sres, W, weights, 100, skip,
+                                                         stride, precision, n, K)
+                torch.cuda.synchronize()
+                plain = serve_mega.serve_mega_margins_plain(stream, sres, W, weights, 100, skip,
+                                                            stride, precision)
+                dev_plain = (got - plain).abs().max().item()
+                pad_zero = bool((got[count:] == 0).all())
+                if precision == "f32":
+                    good, err = dev_plain <= margin_tol, dev_plain
+                    name = "serve_mega_any" + suffix
+                else:
+                    rows = ingest_cuda.ingest_features(stream, sres, mstarts, W, 100, skip,
+                                                       precision, n, K)
+                    err = (got - rows @ weights).abs().max().item()
+                    gate = max(margin_tol, decode_ingest.precision_gate_tolerance(precision))
+                    good = (err <= MARGIN_TOL_PER_L1 * weights.abs().sum().item()
+                            and dev_plain <= gate)
+                    name = f"serve_mega_any_{precision}{suffix}"
+                ok = ok and good and pad_zero
+                mfields[name] = {"max_abs_err": err, "max_dev_vs_plain": dev_plain,
+                                 "padded_rows_zero": pad_zero}
+                note(name, err)
+            margs = (stream, sres, W)
+            multi = serve_mega_cuda.serve_mega_multi_margins(*margs, stack, lanes, 100, skip,
+                                                             stride, n, K)
+            plain = serve_mega.serve_mega_multi_margins_plain(*margs, stack, lanes, 100, skip,
+                                                              stride)
+            err = (multi - plain).abs().max().item()
+            multi_np = multi.cpu().numpy()
+            per_lane = True
+            for lane in np.unique(lanes_np[:count])[:6]:
+                solo = serve_mega_cuda.serve_mega_margins(*margs, stack[int(lane)], 100, skip,
+                                                          stride, "f32", n, K).cpu().numpy()
+                rows = np.nonzero(lanes_np[:count] == lane)[0]
+                per_lane = per_lane and multi_np[rows].tobytes() == solo[rows].tobytes()
+            ok = (ok and err <= margin_tol and per_lane
+                  and bool((multi_np[count:] == 0).all()))
+            mfields["serve_mega_multi_any" + suffix] = {"max_abs_err": err,
+                                                        "bit_equal_k5_per_lane": per_lane}
+            note("serve_mega_multi_any" + suffix, err)
+            for wp in PACKED:
+                packed, scales, deq = packed_stacks[wp]
+                got = serve_mega_cuda.serve_mega_multi_packed_margins(
+                    *margs, packed, scales, lanes, 100, skip, stride, wp, n, K)
+                k6 = serve_mega_cuda.serve_mega_multi_margins(*margs, deq, lanes, 100, skip,
+                                                              stride, n, K)
+                bit_equal = got.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+                plain = serve_mega.serve_mega_multi_packed_margins_plain(
+                    *margs, packed, scales, lanes, 100, skip, stride, wp)
+                err = (got - plain).abs().max().item()
+                ok = (ok and bit_equal and err <= margin_tol
+                      and bool((got[count:] == 0).all()))
+                mfields[f"serve_mega_multi_any_{wp}{suffix}"] = {
+                    "max_abs_err": err, "bit_equal_k6_dequantized": bit_equal}
+                note(f"serve_mega_multi_any_{wp}{suffix}", err)
+            emit("generic_mega_vs_plain", case=label, samples=samples, capacity=capacity,
+                 windows=count, margin_tol=margin_tol, **mfields)
+            if not ok:
+                raise AssertionError(f"the generic megakernel disagrees on {label} "
+                                     f"({samples}): {mfields}")
     return worst
 
 
@@ -2139,9 +2524,12 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
     precision f32, int8 and int4 (K5's generic engine) and a
     MultiplexedEngine of 128 tenants at weights_precision f32, int8 and
     int4 (K6's), each warmed up and fed every kept window in batches of
-    64 (tenants interleaved), the megakernel counters set to 0 just before
-    each and read just after (the instantiation's generic counter at
-    least one launch a batch, the ring's none); margins against the same
+    64 (tenants interleaved), then the same on those windows scaled into
+    float32 samples with unit resolutions (the ``_f32s`` instantiations);
+    the megakernel counters set to 0 just before each run and read just
+    after (the instantiation's generic counter at least one launch a
+    batch, its other-sample twin only the warmup's and the mega gate's
+    int16 batches, every other counter none); margins against the same
     engine on the CPU within MEGA_GATE_TOL (int8/int4 features: within
     the rung's gate). Returns {kernel name: launches}."""
     from eeg_dataanalysispackage_tpu_torch.models import registry
@@ -2155,29 +2543,36 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
     tenants = {names[0]: base}
     tenants.update({name: perturbed_tenant(np, base, i) for i, name in enumerate(names) if i})
     mix = [names[i % 128] for i in range(len(windows))]
-    attrs = ("LAUNCHES", "LAUNCHES_INT8", "LAUNCHES_INT4", "MULTI_LAUNCHES",
-             "MULTI_LAUNCHES_INT8", "MULTI_LAUNCHES_INT4", "ANY_LAUNCHES", "ANY_LAUNCHES_INT8",
-             "ANY_LAUNCHES_INT4", "ANY_MULTI_LAUNCHES", "ANY_MULTI_LAUNCHES_INT8",
-             "ANY_MULTI_LAUNCHES_INT4")
+    attrs = [a for a in dir(serve_mega_cuda) if a.isupper() and "LAUNCHES" in a]
+    float_windows_ = [(w.astype(np.float32) * r[:, None]).astype(np.float32)
+                      for w, r in zip(windows, resolutions)]
+    ones = np.ones(3, np.float32)
     sizes = dict(epoch_size=n, feature_size=K, skip_samples=skip, capacity=64)
     launches = {}
-    runs = [("serve_mega_any" + ("" if p == "f32" else f"_{p}"), "ANY_LAUNCHES"
-             + ("" if p == "f32" else f"_{p.upper()}"),
-             lambda device, p=p: ServingEngine(base, precision=p, device=device, **sizes), p,
-             None) for p in ("f32", "int8", "int4")]
-    runs += [("serve_mega_multi_any" + ("" if p == "f32" else f"_{p}"), "ANY_MULTI_LAUNCHES"
-              + ("" if p == "f32" else f"_{p.upper()}"),
-              lambda device, p=p: MultiplexedEngine(tenants, weights_precision=p, device=device,
-                                                    **sizes), "f32", p) for p in ("f32",) + PACKED]
-    for kernel, attr, make, precision, wp in runs:
+    runs = []
+    for samples, suffix in (("int16", ""), ("float32", "_F32S")):
+        runs += [("serve_mega_any" + ("" if p == "f32" else f"_{p}") + suffix.lower(),
+                  "ANY_LAUNCHES" + ("" if p == "f32" else f"_{p.upper()}"), suffix,
+                  lambda device, p=p: ServingEngine(base, precision=p, device=device, **sizes),
+                  p, None, samples) for p in ("f32", "int8", "int4")]
+        runs += [("serve_mega_multi_any" + ("" if p == "f32" else f"_{p}") + suffix.lower(),
+                  "ANY_MULTI_LAUNCHES" + ("" if p == "f32" else f"_{p.upper()}"), suffix,
+                  lambda device, p=p: MultiplexedEngine(tenants, weights_precision=p,
+                                                        device=device, **sizes),
+                  "f32", p, samples) for p in ("f32",) + PACKED]
+    for kernel, stem, suffix, make, precision, wp, samples in runs:
+        attr = stem + suffix
+        twin = stem + ("" if suffix else "_F32S")
+        ws = windows if samples == "int16" else float_windows_
+        res = resolutions[0] if samples == "int16" else ones
         for a in attrs:
             setattr(serve_mega_cuda, a, 0)
         t0 = time.perf_counter()
         eng = make(None)
         eng.warmup()
         margins = []
-        for i, chunk in enumerate(batches_of(windows)):
-            args = (chunk, resolutions[0])
+        for i, chunk in enumerate(batches_of(ws)):
+            args = (chunk, res)
             if wp is not None:
                 args += (mix[i * 64:i * 64 + len(chunk)],)
             margins.append(eng.execute(*args)[1])
@@ -2185,20 +2580,21 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
         counts = {a: getattr(serve_mega_cuda, a) for a in attrs}
         cpu = make("cpu")
         cpu.warmup()
-        cpu_margins = [cpu.execute(chunk, resolutions[0],
+        cpu_margins = [cpu.execute(chunk, res,
                                    *(() if wp is None else (mix[i * 64:i * 64 + len(chunk)],)))[1]
-                       for i, chunk in enumerate(batches_of(windows))]
+                       for i, chunk in enumerate(batches_of(ws))]
         gap = float(np.max(np.abs(np.concatenate(margins) - np.concatenate(cpu_margins))))
         tol = serve_mega.MEGA_GATE_TOL
         if precision != "f32":
             tol = max(tol, decode_ingest.precision_gate_tolerance(precision))
         emit("generic_serve", kernel=kernel, epoch_size=n, feature_size=K, skip=skip,
-             precision=precision, weights_precision=wp, rung=eng.rung,
-             weights_record=getattr(eng, "weights_record", None), windows=len(windows),
-             launches=counts, wall_s=wall, max_margin_dev_vs_cpu=gap, tol=tol)
-        others = {a: v for a, v in counts.items() if a != attr}
-        if not (eng.rung == "mega" and counts[attr] >= math.ceil(len(windows) / 64)
-                and not any(others.values()) and gap <= tol
+             samples=samples, precision=precision, weights_precision=wp, rung=eng.rung,
+             weights_record=getattr(eng, "weights_record", None), windows=len(ws),
+             launches={a: v for a, v in counts.items() if v}, wall_s=wall,
+             max_margin_dev_vs_cpu=gap, tol=tol)
+        others = {a: v for a, v in counts.items() if a not in (attr, twin)}
+        if not (eng.rung == "mega" and counts[attr] >= math.ceil(len(ws) / 64)
+                and 1 <= counts[twin] <= 2 and not any(others.values()) and gap <= tol
                 and (wp is None or eng.weights_precision == wp)):
             raise AssertionError(f"the generic serve run ({kernel}) did not run as expected: "
                                  f"{counts}, gap {gap}")
@@ -2357,19 +2753,18 @@ def phase_bf16_host_runs(np, info, counters):
 
 
 def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandwidth, f32_peak,
-                        smi, launches):
-    """K6-w8 / K6-w4 on ``n`` full windows, lanes cycling over 128 tenants,
-    in the same process as K6: held bit for bit against K6 on the
-    dequantized stack and against the plain version. Bound: K6's bytes
-    with the packed stack and the scales in place of the f32 stack.
-    ``launches``: the instantiation's launches over phase 5's run."""
+                        smi, launches, samples="int16"):
+    """K6-w8 / K6-w4 (on int16 or float32 ``samples``) on ``n`` full
+    windows, lanes cycling over 128 tenants, in the same process as K6:
+    held bit for bit against K6 on the dequantized stack and against the
+    plain version. Bound: K6's bytes with the packed stack and the scales
+    in place of the f32 stack. ``launches``: the instantiation's launches
+    over its path."""
     import numpy as np
 
     stride = serve_mega.padded_stride(100, 750)
     gen = torch.Generator(device=dev).manual_seed(n + 2)
-    stream = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int16)
-    res = torch.tensor([0.1, 0.1, 0.2], dtype=torch.float32, device=dev)
+    stream, res = timing_stream(torch, dev, gen, n, stride, samples)
     packed, scales, deq = packed_stack(np, torch, dev, np.random.RandomState(n), 48, wp)
     lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
     args = (stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
@@ -2385,11 +2780,12 @@ def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandw
                                    "serve_mega_kernel")
     clock = sm_clock_mhz()
     plain_ms = time_ms(lambda: serve_mega.serve_mega_multi_packed_margins_plain(*args))
-    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak)
+    _bound, _by, mega_bytes, flops = mega_bound(n, bandwidth, f32_peak, stream.element_size())
     stack_bytes = packed.numel() * packed.element_size() + scales.numel() * 4
     bytes_moved = mega_bytes - 48 * 4 + stack_bytes + n * 4
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
-    emit("timing", kernel=f"serve_mega_multi_{wp}", windows=n, stride=stride, tenants=128,
+    emit("timing", kernel=f"serve_mega_multi_{wp}" + ("_f32s" if samples == "float32" else ""),
+         windows=n, stride=stride, tenants=128,
          kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
          library_ms=None, max_abs_err=err, bit_equal_k6_dequantized=True, launches=launches,
@@ -2503,51 +2899,66 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
                    raw.element_size(), bf16_peak if precision == "bf16" else f32_peak)
             del raw
         weights = torch.randn(3 * K, generator=gen, device=dev)
-        mega_bytes = (3 * rows * (100 + e) * 2 + rows * 4 + W.numel() * 4 + 3 * K * 4 + 3 * 4)
-        flops = 2 * rows * 3 * e * K + 2 * rows * 3 * K
-        for precision in ("f32", "int8", "int4"):
-            args = (stream, res, W, weights, 100, skip, stride, precision, e, K)
-            got = serve_mega_cuda.serve_mega_margins(*args)
-            if precision == "f32":
-                want = serve_mega.serve_mega_margins_plain(*args[:8])
-            else:
-                want = ingest_cuda.ingest_features(stream, res, mstarts, W, 100, skip, precision,
-                                                   e, K) @ weights
-            err = (got - want).abs().max().item()
-            if err > serve_mega.MEGA_GATE_TOL:
-                raise AssertionError(f"generic megakernel ({precision}) disagrees at {size}")
-            name = "serve_mega_any" + ("" if precision == "f32" else f"_{precision}")
-            record(name, lambda a=args: serve_mega_cuda.serve_mega_margins(*a),
-                   lambda a=args: serve_mega.serve_mega_margins_plain(*a[:8]), err, mega_bytes,
-                   flops, "serve_mega_any_kernel")
         stack = torch.randn((128, 3 * K), generator=gen, device=dev)
-        args = (stream, res, W, stack, lanes, 100, skip, stride, e, K)
-        got = serve_mega_cuda.serve_mega_multi_margins(*args)
-        err = (got - serve_mega.serve_mega_multi_margins_plain(*args[:8])).abs().max().item()
-        if err > serve_mega.MEGA_GATE_TOL:
-            raise AssertionError(f"generic K6 disagrees at {size}: {err}")
-        k6_bytes = mega_bytes - 3 * K * 4 + 128 * 3 * K * 4 + rows * 4
-        record("serve_mega_multi_any",
-               lambda a=args: serve_mega_cuda.serve_mega_multi_margins(*a),
-               lambda a=args: serve_mega.serve_mega_multi_margins_plain(*a[:8]), err, k6_bytes,
-               flops, "serve_mega_any_kernel")
-        for wp in PACKED:
-            packed, scales, deq = packed_stack(np, torch, dev, np.random.RandomState(K), 3 * K,
-                                               wp)
-            args = (stream, res, W, packed, scales, lanes, 100, skip, stride, wp, e, K)
-            got = serve_mega_cuda.serve_mega_multi_packed_margins(*args)
-            k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, skip,
-                                                          stride, e, K)
-            if got.cpu().numpy().tobytes() != k6.cpu().numpy().tobytes():
-                raise AssertionError(f"generic K6-{wp} is not K6 on the dequantized stack")
-            err = (got - serve_mega.serve_mega_multi_packed_margins_plain(*args[:10])
-                   ).abs().max().item()
-            packed_bytes = (mega_bytes - 3 * K * 4 + packed.numel() * packed.element_size()
-                            + 128 * 4 + rows * 4)
-            record(f"serve_mega_multi_any_{wp}",
-                   lambda a=args: serve_mega_cuda.serve_mega_multi_packed_margins(*a),
-                   lambda a=args: serve_mega.serve_mega_multi_packed_margins_plain(*a[:10]), err,
-                   packed_bytes, flops, "serve_mega_any_kernel")
+        packed_stacks = {wp: packed_stack(np, torch, dev, np.random.RandomState(K), 3 * K, wp)
+                         for wp in PACKED}
+        flops = 2 * rows * 3 * e * K + 2 * rows * 3 * K
+        # int16 samples, then the same windows scaled into float32 samples
+        # with unit resolutions (the _f32s instantiations)
+        for samples in ("int16", "float32"):
+            suffix = "_f32s" if samples == "float32" else ""
+            if samples == "int16":
+                sstream, sres = stream, res
+            else:
+                sstream = (stream.to(torch.float32) * res[:, None]).contiguous()
+                sres = torch.ones(3, dtype=torch.float32, device=dev)
+            sb = sstream.element_size()
+            mega_bytes = (3 * rows * (100 + e) * sb + rows * 4 + W.numel() * 4 + 3 * K * 4
+                          + 3 * 4)
+            for precision in ("f32", "int8", "int4"):
+                args = (sstream, sres, W, weights, 100, skip, stride, precision, e, K)
+                got = serve_mega_cuda.serve_mega_margins(*args)
+                if precision == "f32":
+                    want = serve_mega.serve_mega_margins_plain(*args[:8])
+                else:
+                    want = ingest_cuda.ingest_features(sstream, sres, mstarts, W, 100, skip,
+                                                       precision, e, K) @ weights
+                err = (got - want).abs().max().item()
+                if err > serve_mega.MEGA_GATE_TOL:
+                    raise AssertionError(f"generic megakernel ({precision}, {samples}) "
+                                         f"disagrees at {size}")
+                name = "serve_mega_any" + ("" if precision == "f32" else f"_{precision}") + suffix
+                record(name, lambda a=args: serve_mega_cuda.serve_mega_margins(*a),
+                       lambda a=args: serve_mega.serve_mega_margins_plain(*a[:8]), err,
+                       mega_bytes, flops, "serve_mega_any_kernel", sb)
+            args = (sstream, sres, W, stack, lanes, 100, skip, stride, e, K)
+            got = serve_mega_cuda.serve_mega_multi_margins(*args)
+            err = (got - serve_mega.serve_mega_multi_margins_plain(*args[:8])).abs().max().item()
+            if err > serve_mega.MEGA_GATE_TOL:
+                raise AssertionError(f"generic K6 ({samples}) disagrees at {size}: {err}")
+            k6_bytes = mega_bytes - 3 * K * 4 + 128 * 3 * K * 4 + rows * 4
+            record("serve_mega_multi_any" + suffix,
+                   lambda a=args: serve_mega_cuda.serve_mega_multi_margins(*a),
+                   lambda a=args: serve_mega.serve_mega_multi_margins_plain(*a[:8]), err,
+                   k6_bytes, flops, "serve_mega_any_kernel", sb)
+            for wp in PACKED:
+                packed, scales, deq = packed_stacks[wp]
+                args = (sstream, sres, W, packed, scales, lanes, 100, skip, stride, wp, e, K)
+                got = serve_mega_cuda.serve_mega_multi_packed_margins(*args)
+                k6 = serve_mega_cuda.serve_mega_multi_margins(sstream, sres, W, deq, lanes, 100,
+                                                              skip, stride, e, K)
+                if got.cpu().numpy().tobytes() != k6.cpu().numpy().tobytes():
+                    raise AssertionError(f"generic K6-{wp} ({samples}) is not K6 on the "
+                                         "dequantized stack")
+                err = (got - serve_mega.serve_mega_multi_packed_margins_plain(*args[:10])
+                       ).abs().max().item()
+                packed_bytes = (mega_bytes - 3 * K * 4 + packed.numel() * packed.element_size()
+                                + 128 * 4 + rows * 4)
+                record(f"serve_mega_multi_any_{wp}{suffix}",
+                       lambda a=args: serve_mega_cuda.serve_mega_multi_packed_margins(*a),
+                       lambda a=args: serve_mega.serve_mega_multi_packed_margins_plain(*a[:10]),
+                       err, packed_bytes, flops, "serve_mega_any_kernel", sb)
+            del sstream
         del big, stream
     return out
 
@@ -2797,6 +3208,7 @@ def main() -> int:
     multi_err = phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     epoch_err = phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev)
     packed_err = phase_packed_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
+    wide_f32s_err = phase_float_wide_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     generic_err = phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
                                       serve_mega_cuda, dev)
 
@@ -2852,6 +3264,7 @@ def main() -> int:
         float_info = write_float_session(float_dir, n_files=3)
         f32_launches, f32_path_err, k4_f32_path_err = phase_float_session(
             np, float_info, counters, n_files=3)
+        f32s_launches = phase_float_serve(torch, np, float_info, work)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -2907,16 +3320,46 @@ def main() -> int:
                                                       n, wp, bandwidth, f32_peak, smi,
                                                       packed_launches[wp])
                               for wp in PACKED} for n in (64, 32_768))
+    # the float32-sample instantiations at one serve batch and at 32,768
+    # windows, keyed by kernel name
+    f32s_64, f32s_big = ({**{("serve_mega" if p == "f32" else f"serve_mega_{p}") + "_f32s":
+                             mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth,
+                                         f32_peak, smi, precision=p, samples="float32",
+                                         launches=f32s_launches[
+                                             ("serve_mega" if p == "f32" else f"serve_mega_{p}")
+                                             + "_f32s"])
+                             for p in ("f32", "int8", "int4")},
+                          "serve_mega_multi_f32s": mega_multi_timing(
+                              torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak,
+                              smi, samples="float32",
+                              launches=f32s_launches["serve_mega_multi_f32s"]),
+                          **{f"serve_mega_multi_{wp}_f32s": packed_multi_timing(
+                              torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandwidth,
+                              f32_peak, smi, f32s_launches[f"serve_mega_multi_{wp}_f32s"],
+                              samples="float32") for wp in PACKED}}
+                         for n in (64, 32_768))
     generic = generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
                              serve_mega_cuda, dev, GENERIC_SIZES, bandwidth, f32_peak, bf16_peak,
                              smi, generic_launches)
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
     k4_run = [epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi)
               for n in (641, 1494)]  # the -pallas logreg run's own launches
+    # one host-extractor serve batch
+    k4_64 = epoch_timing(torch, dwt, dwt_cuda, dev, 64, bandwidth, f32_peak, smi)
     epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
     # the 512/16 rows' library call at their timing sizes: 32,768
     # windows (K1 and its rungs) and one serve batch of 64 (K5, K6)
     lib = {n: contraction_library_ms(torch, dwt, dev, n, smi) for n in (64, 32_768)}
+
+    # the float32-sample instantiations' worst deviations over phase 3
+    f32s_phase_err = {
+        "serve_mega_f32s": max(mega_err["f32_f32s"], wide_f32s_err),
+        "serve_mega_int8_f32s": mega_err["int8_f32s"],
+        "serve_mega_int4_f32s": mega_err["int4_f32s"],
+        "serve_mega_multi_f32s": multi_err["_f32s"],
+        "serve_mega_multi_int8_f32s": packed_err["int8_f32s"],
+        "serve_mega_multi_int4_f32s": packed_err["int4_f32s"],
+    }
 
     # 7. the kernels line, then the card line, then the result
     ingest_pallas = "eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314"
@@ -2933,6 +3376,12 @@ def main() -> int:
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
+        # the epoch-features kernel behind the host-extractor service
+        # (fe=dwt-8-pallas, float32 session): one launch a batch of 64
+        kernel_entry("epoch_features_host_extractor", "epoch_features.cu",
+                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
+                     f32s_launches["epoch_features_host_extractor"], k4_64[4], k4_64,
+                     library_ms=k4_64[5]),
         kernel_entry("ingest_features_f32", "ingest_features.cu", ingest_pallas, f32_launches,
                      max(f32_err, f32_path_err, k1_f32[4]), k1_f32, library_ms=lib[32_768]),
         *(kernel_entry(f"ingest_features_{p}", "ingest_features.cu", bank_pallas,
@@ -2944,12 +3393,19 @@ def main() -> int:
                        library_ms=lib[64])
           for p in ("int8", "int4")),
         kernel_entry("serve_mega_multi", "serve_mega.cu", multi_pallas, multi_launches,
-                     max(multi_err, multi_64[4], multi_big[4]), multi_64, library_ms=lib[64]),
+                     max(multi_err[""], multi_64[4], multi_big[4]), multi_64, library_ms=lib[64]),
         *(kernel_entry(f"serve_mega_multi_{wp}", "serve_mega.cu", multi_pallas,
                        packed_launches[wp],
                        max(packed_err[wp], packed_64[wp][4], packed_big[wp][4]), packed_64[wp],
                        library_ms=lib[64])
           for wp in PACKED),
+        # the float32-sample instantiations (float32 requests): launches
+        # over the float32 session's serving runs (phase 4b)
+        *(kernel_entry(name, "serve_mega.cu", multi_pallas if "multi" in name else mega_pallas,
+                       f32s_launches[name],
+                       max(f32s_phase_err[name], f32s_64[name][4], f32s_big[name][4]),
+                       f32s_64[name], library_ms=lib[64])
+          for name in F32S_COUNTERS),
         # the generic engine: launches over its paths (phases 4 and 5), time
         # and library time at GENERIC_PATH_SIZE, the worst deviation over
         # every size and the serve batch
@@ -2970,7 +3426,13 @@ def main() -> int:
               ("serve_mega_any_int4", "serve_mega.cu", mega_pallas),
               ("serve_mega_multi_any", "serve_mega.cu", multi_pallas),
               ("serve_mega_multi_any_int8", "serve_mega.cu", multi_pallas),
-              ("serve_mega_multi_any_int4", "serve_mega.cu", multi_pallas))),
+              ("serve_mega_multi_any_int4", "serve_mega.cu", multi_pallas),
+              ("serve_mega_any_f32s", "serve_mega.cu", mega_pallas),
+              ("serve_mega_any_int8_f32s", "serve_mega.cu", mega_pallas),
+              ("serve_mega_any_int4_f32s", "serve_mega.cu", mega_pallas),
+              ("serve_mega_multi_any_f32s", "serve_mega.cu", multi_pallas),
+              ("serve_mega_multi_any_int8_f32s", "serve_mega.cu", multi_pallas),
+              ("serve_mega_multi_any_int4_f32s", "serve_mega.cu", multi_pallas))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

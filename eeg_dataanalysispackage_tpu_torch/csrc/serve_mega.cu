@@ -1,6 +1,11 @@
-// The serve megakernel for Hopper (sm_90a): a micro-batch of int16 windows
-// laid out at a regular stride -> one linear margin per window, with the
-// features kept in shared memory and never written to device memory.
+// The serve megakernel for Hopper (sm_90a): a micro-batch of windows laid
+// out at a regular stride -> one linear margin per window, with the
+// features kept in shared memory and never written to device memory. The
+// samples are int16 (INT_16 recordings, scaled by their resolutions on the
+// card) or float32 (other formats, staged already scaled with unit
+// resolutions): every instantiation below exists for both (template
+// argument Sample, as in ingest_features.cu; the float32 ones are named
+// K5-f32s, K5-int8-f32s, K5-int4-f32s, K6-f32s, K6-w8-f32s and K6-w4-f32s).
 //
 // Replaces the TPU kernel eeg_dataanalysispackage_tpu/ops/serve_mega.py:259
 // (_make_mega_kernel, launched by _mega_program at :329, pallas_call :467),
@@ -30,8 +35,10 @@
 // int16 samples (baseline and analysis segments) and writes one float:
 // about 3.7 KB, against 2*C*512*16 + 2*48 = 49 kFLOP. At 32,768 windows
 // that is 120.5 MB, 0.036 ms at 3.35 TB/s, against 0.024 ms for 1.61
-// GFLOP at 67 TFLOP/s (f32, no tensor cores). At one serve batch (64
-// windows) the bound is under 0.1 us and one window's chain sets the time.
+// GFLOP at 67 TFLOP/s (f32, no tensor cores). Float32 samples double the
+// bytes read (about 7.3 KB a window, 0.072 ms at 32,768 windows). At one
+// serve batch (64 windows) the bound is under 0.2 us and one window's
+// chain sets the time.
 //
 // K6, the tenant-stacked instantiation (kMulti, f32 only), replaces the TPU
 // kernel eeg_dataanalysispackage_tpu/ops/serve_mega.py:484
@@ -67,7 +74,8 @@
 // Design: window_features.cuh's run_windows (a persistent wave of blocks,
 // each keeping its next window's samples in flight as 16-byte cp.async
 // chunks while it computes one; every window starts on a 16-byte boundary,
-// stride 896 x 2 B, and its analysis segment 3 samples into a chunk; warp
+// stride 896 x 2 B or x 4 B, and its analysis segment 3 samples into a
+// chunk of 8 int16 or 4 float samples; warp
 // 0's epilogue, the norm and the dot, overlaps warps 1..7's means and
 // staging of the next window, and for the int8/int4 rungs, with the
 // quantize step, their centre as well). The
@@ -224,9 +232,9 @@ struct MegaMargins {
 // dots with its row lanes[i] (K6); otherwise `weights` is one vector and
 // `lanes` is not read (K5). kWide: run_windows' wide instantiation. Wt:
 // the stack's precision (K6-w8/w4 read packed rows and `scales`).
-template <Precision P, bool kMulti, bool kWide, Weights Wt>
+template <class Sample, Precision P, bool kMulti, bool kWide, Weights Wt>
 __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
-    serve_mega_kernel(const int16_t* __restrict__ stream,
+    serve_mega_kernel(const Sample* __restrict__ stream,
                       const float* __restrict__ res,
                       const float* __restrict__ w,
                       const float* __restrict__ weights,
@@ -238,17 +246,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
   extern __shared__ __align__(16) float smem[];
   // n_samples = capacity * stride, a launch argument rather than a product
   // the loop would hold in a register
-  const StreamView<int16_t> v{stream, channels, n_samples};
-  run_windows<int16_t, P, kWide>(
+  const StreamView<Sample> v{stream, channels, n_samples};
+  run_windows<Sample, P, kWide>(
       smem, v, res, w, capacity, pre, skip, ring,
       MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
 }
 
 // Every size but the main path's 512 / 16: the generic engine
 // (window_features_any.cuh run_tiles_any), tiled as `plan` says.
-template <Precision P, bool kMulti, Weights Wt>
+template <class Sample, Precision P, bool kMulti, Weights Wt>
 __global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
-    serve_mega_any_kernel(const int16_t* __restrict__ stream,
+    serve_mega_any_kernel(const Sample* __restrict__ stream,
                           const float* __restrict__ res,
                           const float* __restrict__ w,
                           const float* __restrict__ weights,
@@ -259,8 +267,8 @@ __global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
                           AnyPlan plan) {
   static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
   extern __shared__ __align__(16) float smem[];
-  const StreamView<int16_t> v{stream, channels, n_samples};
-  run_tiles_any<int16_t, P>(
+  const StreamView<Sample> v{stream, channels, n_samples};
+  run_tiles_any<Sample, P>(
       smem, v, res, w, capacity, pre, skip, epoch, features, plan,
       MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
 }
@@ -285,15 +293,15 @@ struct Launch {
   void* cuda_stream;
 };
 
-template <Precision P, bool kMulti, bool kWide, Weights Wt>
+template <class Sample, Precision P, bool kMulti, bool kWide, Weights Wt>
 int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
   int grid = 0;
   const cudaError_t err =
-      plan_grid(serve_mega_kernel<P, kMulti, kWide, Wt>, smem, a.capacity, &grid);
+      plan_grid(serve_mega_kernel<Sample, P, kMulti, kWide, Wt>, smem, a.capacity, &grid);
   if (err != cudaSuccess) return err;
-  serve_mega_kernel<P, kMulti, kWide, Wt>
+  serve_mega_kernel<Sample, P, kMulti, kWide, Wt>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
-          static_cast<const int16_t*>(a.stream), static_cast<const float*>(a.res),
+          static_cast<const Sample*>(a.stream), static_cast<const float*>(a.res),
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
           static_cast<const int*>(a.lanes), ring, a.capacity * a.stride,
@@ -301,20 +309,20 @@ int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
   return cudaGetLastError();
 }
 
-template <Precision P, bool kMulti, Weights Wt>
+template <class Sample, Precision P, bool kMulti, Weights Wt>
 int launch_any(const Launch& a) {
   AnyPlan plan{};
   size_t smem = 0;
   const int checked =
-      check_any_plan<int16_t>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
+      check_any_plan<Sample>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
   if (checked != cudaSuccess) return checked;
   int grid = 0;
-  const cudaError_t err = plan_grid(serve_mega_any_kernel<P, kMulti, Wt>, smem,
+  const cudaError_t err = plan_grid(serve_mega_any_kernel<Sample, P, kMulti, Wt>, smem,
                                     (a.capacity + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
-  serve_mega_any_kernel<P, kMulti, Wt>
+  serve_mega_any_kernel<Sample, P, kMulti, Wt>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
-          static_cast<const int16_t*>(a.stream), static_cast<const float*>(a.res),
+          static_cast<const Sample*>(a.stream), static_cast<const float*>(a.res),
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
           static_cast<const int*>(a.lanes), a.capacity * a.stride,
@@ -322,15 +330,46 @@ int launch_any(const Launch& a) {
   return cudaGetLastError();
 }
 
-template <Precision P, bool kMulti = false, Weights Wt = Weights::kF32>
+template <class Sample, Precision P, bool kMulti = false, Weights Wt = Weights::kF32>
 int launch(const Launch& a) {
-  if (a.epoch != kEpoch || a.features != kFeatures) return launch_any<P, kMulti, Wt>(a);
+  if (a.epoch != kEpoch || a.features != kFeatures) return launch_any<Sample, P, kMulti, Wt>(a);
   Ring ring{};
   size_t smem = 0;
-  const cudaError_t err = plan_ring<int16_t>(a.channels, a.pre, &ring, &smem);
+  const cudaError_t err = plan_ring<Sample>(a.channels, a.pre, &ring, &smem);
   if (err != cudaSuccess) return err;
-  if (wide_ring(ring, a.channels)) return launch_ring<P, kMulti, true, Wt>(ring, smem, a);
-  return launch_ring<P, kMulti, false, Wt>(ring, smem, a);
+  if (wide_ring(ring, a.channels)) return launch_ring<Sample, P, kMulti, true, Wt>(ring, smem, a);
+  return launch_ring<Sample, P, kMulti, false, Wt>(ring, smem, a);
+}
+
+// K5 at `precision` on Sample streams.
+template <class Sample>
+int launch_rung(int precision, const Launch& a) {
+  switch (static_cast<Precision>(precision)) {
+    case Precision::kF32:
+      return launch<Sample, Precision::kF32>(a);
+    case Precision::kInt8:
+      return launch<Sample, Precision::kInt8>(a);
+    case Precision::kInt4:
+      return launch<Sample, Precision::kInt4>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K6 on the stack at `weights_precision`, on Sample streams.
+template <class Sample>
+int launch_stack(int weights_precision, const Launch& a) {
+  switch (static_cast<Weights>(weights_precision)) {
+    case Weights::kF32:
+      return launch<Sample, Precision::kF32, true, Weights::kF32>(a);
+    case Weights::kInt8:
+      return launch<Sample, Precision::kF32, true, Weights::kInt8>(a);
+    case Weights::kInt4:
+      if ((a.channels * a.features) % 2) return cudaErrorInvalidValue;
+      return launch<Sample, Precision::kF32, true, Weights::kInt4>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int check(const Launch& a) {
@@ -345,41 +384,35 @@ int check(const Launch& a) {
 
 extern "C" {
 
-// Launch on `cuda_stream`. stream: (channels, capacity*stride) int16, window
-// i at columns [i*stride, i*stride + pre + skip + epoch); res: (channels,)
-// float32; w: (epoch, features) float32 cascade matrix; weights:
-// (channels*features,) float32; out: (capacity,) float32 margins before
-// the intercept; precision: 0 f32, 2 int8, 3 int4
-// (ops/decode_ingest.PRECISIONS; 1, bf16, is refused). epoch 512 and
-// features 16 run the ring engine, every other size the generic one with
-// the tile plan `any_plan` (kAnyPlanFields ints, the order of AnyPlan;
-// ops/generic_plan.py). Returns the cudaError_t of the launch (an
-// inconsistent plan, or one that does not fit: cudaErrorInvalidValue), or
-// kSharedMemoryExceeded where the sizes lie outside the generic engine's
-// reach.
+// Launch on `cuda_stream`. stream: (channels, capacity*stride) int16, or
+// float32 when `float_samples` is 1 (a recording in another binary format,
+// staged already scaled, unit resolutions), window i at columns
+// [i*stride, i*stride + pre + skip + epoch); res: (channels,) float32; w:
+// (epoch, features) float32 cascade matrix; weights: (channels*features,)
+// float32; out: (capacity,) float32 margins before the intercept;
+// precision: 0 f32, 2 int8, 3 int4 (ops/decode_ingest.PRECISIONS; 1, bf16,
+// is refused). epoch 512 and features 16 run the ring engine, every other
+// size the generic one with the tile plan `any_plan` (kAnyPlanFields ints,
+// the order of AnyPlan; ops/generic_plan.py). Returns the cudaError_t of
+// the launch (an inconsistent plan, or one that does not fit:
+// cudaErrorInvalidValue), or kSharedMemoryExceeded where the sizes lie
+// outside the generic engine's reach.
 int serve_mega_launch(const void* stream, const void* res, const void* w,
                       const void* weights, void* out, int capacity, int channels,
-                      int stride, int pre, int skip, int precision, int epoch, int features,
-                      const int* any_plan, void* cuda_stream) {
+                      int stride, int pre, int skip, int float_samples, int precision,
+                      int epoch, int features, const int* any_plan, void* cuda_stream) {
   const Launch a{stream, res, w, weights, nullptr, nullptr, out, capacity, channels,
                  stride, pre, skip, epoch, features, any_plan, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
-  switch (static_cast<Precision>(precision)) {
-    case Precision::kF32:
-      return launch<Precision::kF32>(a);
-    case Precision::kInt8:
-      return launch<Precision::kInt8>(a);
-    case Precision::kInt4:
-      return launch<Precision::kInt4>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (float_samples) return launch_rung<float>(precision, a);
+  return launch_rung<int16_t>(precision, a);
 }
 
-// K6: as serve_mega_launch at f32, with lanes: (capacity,) int32, each in
-// [0, 128) (the wrapper checks them on the host), and the tenant-major
-// stack at `weights_precision` (0 f32, 2 int8, 3 int4): stack (128,
+// K6: as serve_mega_launch at f32 (int16 or, with `float_samples`, float32
+// samples), with lanes: (capacity,) int32, each in [0, 128) (the wrapper
+// checks them on the host), and the tenant-major stack at
+// `weights_precision` (0 f32, 2 int8, 3 int4): stack (128,
 // channels*features) float32 (scales unused), or (128, channels*features)
 // int8 levels, or (128, channels*features / 2) uint8 nibble pairs, with
 // scales (128,) float32 (row t is tenant lane t's). out[i] is window i
@@ -388,23 +421,14 @@ int serve_mega_launch(const void* stream, const void* res, const void* w,
 int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
                             const void* stack, const void* scales, const void* lanes,
                             void* out, int capacity, int channels, int stride, int pre,
-                            int skip, int weights_precision, int epoch, int features,
-                            const int* any_plan, void* cuda_stream) {
+                            int skip, int float_samples, int weights_precision, int epoch,
+                            int features, const int* any_plan, void* cuda_stream) {
   const Launch a{stream, res, w, stack, scales, lanes, out, capacity, channels,
                  stride, pre, skip, epoch, features, any_plan, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
-  switch (static_cast<Weights>(weights_precision)) {
-    case Weights::kF32:
-      return launch<Precision::kF32, true, Weights::kF32>(a);
-    case Weights::kInt8:
-      return launch<Precision::kF32, true, Weights::kInt8>(a);
-    case Weights::kInt4:
-      if ((channels * features) % 2) return cudaErrorInvalidValue;
-      return launch<Precision::kF32, true, Weights::kInt4>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (float_samples) return launch_stack<float>(weights_precision, a);
+  return launch_stack<int16_t>(weights_precision, a);
 }
 
 // The current card's multiprocessor count and per-block shared-memory

@@ -2,10 +2,11 @@
 
 Port of the JAX package's ``ops/serve_mega.py``. The serving engine lays
 each micro-batch out itself, so window ``i`` sits at the static offset
-``i * padded_stride(pre, post)`` of one int16 stream, and the whole
-request path
+``i * padded_stride(pre, post)`` of one stream (int16 for INT_16
+recordings; float32 with unit resolutions otherwise, the ``stage_raw``
+convention), and the whole request path
 
-    int16 decode -> window cut -> pre-stimulus mean subtract ->
+    decode -> window cut -> pre-stimulus mean subtract ->
     Db cascade contraction -> 48-dim L2-normalized feature -> linear
     margin
 
@@ -111,8 +112,8 @@ def serve_mega_margins_plain(
     precision: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch version of the megakernel: (C, capacity*stride)
-    int16 stream + (C,) resolutions + (E, K) cascade matrix + (C*K,)
-    weights -> (capacity,) float32 margins before the intercept.
+    int16 or float32 stream + (C,) resolutions + (E, K) cascade matrix +
+    (C*K,) weights -> (capacity,) float32 margins before the intercept.
 
     Window ``i`` is cut at ``i * stride``; its features are
     ``device_ingest.ingest_features_plain``'s (scale, baseline mean
@@ -158,7 +159,7 @@ def serve_mega_multi_margins_plain(
     stride: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tenant-stacked megakernel (K6):
-    (C, capacity*stride) int16 stream + (C,) resolutions + (E, K)
+    (C, capacity*stride) int16 or float32 stream + (C,) resolutions + (E, K)
     cascade matrix + (MAX_TENANTS, C*K) tenant-major f32 stack +
     (capacity,) int32 lanes -> (capacity,) float32 margins before the
     intercept: :func:`serve_mega_margins_plain`'s feature rows, row
@@ -237,7 +238,7 @@ def make_serve_mega_program(
     precision: str = "f32",
 ):
     """The megakernel program for one serving geometry: a callable
-    ``(stream (C, capacity*Wp) int16, resolutions (C,) float32,
+    ``(stream (C, capacity*Wp) int16 or float32, resolutions (C,) float32,
     weights (C*K,) float32) -> margins (capacity,) float32`` (before the
     intercept), with ``Wp = padded_stride(pre, post)``. Padded windows
     are zero and give margin 0.0; each window's compute is
@@ -285,8 +286,8 @@ def make_serve_mega_multi_program(
     weights_precision: str = "f32",
 ):
     """The tenant-stacked megakernel program for one serving geometry:
-    a callable ``(stream (C, capacity*Wp) int16, resolutions (C,)
-    float32, stack (MAX_TENANTS, C*K) float32, lanes (capacity,) int32
+    a callable ``(stream (C, capacity*Wp) int16 or float32, resolutions
+    (C,) float32, stack (MAX_TENANTS, C*K) float32, lanes (capacity,) int32
     on the host) -> margins (capacity,) float32`` (before the
     intercept). Padded windows are zero and give margin 0.0, whatever
     their lane (padded rows carry lane 0). Tensors on the card launch

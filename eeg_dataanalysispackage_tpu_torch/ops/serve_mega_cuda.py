@@ -2,14 +2,20 @@
 
 Counterpart of the JAX package's Pallas megakernel
 (``ops/serve_mega.py:259``, ``_make_mega_kernel``): a micro-batch of
-int16 windows at a regular stride -> one margin per window, features
-kept on chip; at ``precision`` int8 or int4, quantized before the
-margin.
+windows at a regular stride -> one margin per window, features kept on
+chip; at ``precision`` int8 or int4, quantized before the margin. The
+stream is int16 (INT_16 recordings) or float32 (other formats, staged
+already scaled with unit resolutions, the ``stage_raw`` convention): a
+float32 stream runs the kernel's float32-sample instantiations (K5-f32s,
+K5-int8-f32s, K5-int4-f32s; K6-f32s, K6-w8-f32s, K6-w4-f32s), each with
+its own counter (the ``_F32S`` names).
 
 :func:`serve_mega_margins` checks its inputs, then for CUDA tensors
 launches the kernel (and counts the launch in the counter of its
 instantiation: :data:`LAUNCHES`, :data:`LAUNCHES_INT8` or
-:data:`LAUNCHES_INT4`), and for CPU tensors runs the plain version,
+:data:`LAUNCHES_INT4` on int16 samples, :data:`LAUNCHES_F32S`,
+:data:`LAUNCHES_INT8_F32S` or :data:`LAUNCHES_INT4_F32S` on float32
+ones), and for CPU tensors runs the plain version,
 ``serve_mega.serve_mega_margins_plain``. A CUDA launch that fails
 raises; nothing falls back to the plain version on the card.
 
@@ -42,27 +48,42 @@ import torch
 from . import cuda_build, decode_ingest, dwt, generic_plan, serve_mega
 
 #: kernel launches made by this process (the wrapper adds one per
-#: launch), one counter per instantiation: f32, int8, int4
+#: launch), one counter per instantiation: f32, int8, int4 on int16
+#: samples, and the same on float32 samples (``_F32S``)
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
 LAUNCHES_INT4 = 0
+LAUNCHES_F32S = 0
+LAUNCHES_INT8_F32S = 0
+LAUNCHES_INT4_F32S = 0
 #: launches of the tenant-stacked instantiations: K6 (f32 stack), K6-w8
-#: and K6-w4 (packed stacks)
+#: and K6-w4 (packed stacks), on int16 and on float32 samples
 MULTI_LAUNCHES = 0
 MULTI_LAUNCHES_INT8 = 0
 MULTI_LAUNCHES_INT4 = 0
+MULTI_LAUNCHES_F32S = 0
+MULTI_LAUNCHES_INT8_F32S = 0
+MULTI_LAUNCHES_INT4_F32S = 0
 #: launches of the generic engine (every size but 512 / 16), one counter
 #: per instantiation as above
 ANY_LAUNCHES = 0
 ANY_LAUNCHES_INT8 = 0
 ANY_LAUNCHES_INT4 = 0
+ANY_LAUNCHES_F32S = 0
+ANY_LAUNCHES_INT8_F32S = 0
+ANY_LAUNCHES_INT4_F32S = 0
 ANY_MULTI_LAUNCHES = 0
 ANY_MULTI_LAUNCHES_INT8 = 0
 ANY_MULTI_LAUNCHES_INT4 = 0
+ANY_MULTI_LAUNCHES_F32S = 0
+ANY_MULTI_LAUNCHES_INT8_F32S = 0
+ANY_MULTI_LAUNCHES_INT4_F32S = 0
 
 _COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
 _MULTI_COUNTERS = {"f32": "MULTI_LAUNCHES", "int8": "MULTI_LAUNCHES_INT8",
                    "int4": "MULTI_LAUNCHES_INT4"}
+#: the stream dtypes the kernel takes
+SAMPLE_DTYPES = (torch.int16, torch.float32)
 #: the packed stack's dtype and bytes a term, by weights precision
 _PACKED = {"int8": (torch.int8, 1.0), "int4": (torch.uint8, 0.5)}
 
@@ -71,10 +92,10 @@ _PACKED = {"int8": (torch.int8, 1.0), "int4": (torch.uint8, 0.5)}
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("serve_mega")
     fn = lib.serve_mega_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     multi = lib.serve_mega_multi_launch
-    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     multi.restype = ctypes.c_int
     limits = lib.serve_mega_device_limits
     limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -93,9 +114,9 @@ def build() -> str:
 def _check(stream, resolutions, operator, weights, pre, skip_samples, stride,
            epoch_size, feature_size, weights_name="weights", weights_shape=None,
            weights_dtype=torch.float32) -> None:
-    if stream.dim() != 2 or stream.dtype != torch.int16:
+    if stream.dim() != 2 or stream.dtype not in SAMPLE_DTYPES:
         raise ValueError(
-            f"stream must be (C, capacity*stride) int16, got "
+            f"stream must be (C, capacity*stride) int16 or float32, got "
             f"{tuple(stream.shape)} {stream.dtype}"
         )
     C, S = stream.shape
@@ -177,7 +198,9 @@ def _raise_on(rc: int, lib, kernel: str, C: int, epoch_size: int, feature_size: 
         )
 
 
-def _count(counter: str, epoch_size: int, feature_size: int) -> None:
+def _count(counter: str, stream: torch.Tensor, epoch_size: int, feature_size: int) -> None:
+    if stream.dtype == torch.float32:
+        counter += "_F32S"
     if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
         counter = "ANY_" + counter
     globals()[counter] += 1
@@ -195,10 +218,11 @@ def serve_mega_margins(
     epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
     feature_size: int = dwt.KERNEL_FEATURE_SIZE,
 ) -> torch.Tensor:
-    """(C, capacity*stride) int16 + (C,) res + (epoch_size, feature_size)
-    operator + (C*feature_size,) weights -> (capacity,) float32 margins
-    before the intercept, at ``precision`` (f32, int8 or int4); see
-    ``serve_mega.serve_mega_margins_plain`` for the exact function."""
+    """(C, capacity*stride) int16 or float32 + (C,) res + (epoch_size,
+    feature_size) operator + (C*feature_size,) weights -> (capacity,)
+    float32 margins before the intercept, at ``precision`` (f32, int8 or
+    int4); see ``serve_mega.serve_mega_margins_plain`` for the exact
+    function."""
     serve_mega._check_precision(precision)
     _check(stream, resolutions, operator, weights, pre, skip_samples, stride, epoch_size,
            feature_size)
@@ -220,12 +244,12 @@ def serve_mega_margins(
         rc = lib.serve_mega_launch(
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             weights.data_ptr(), out.data_ptr(),
-            capacity, C, stride, pre, skip_samples,
+            capacity, C, stride, pre, skip_samples, int(stream.dtype == torch.float32),
             decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size,
             cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega", C, epoch_size, feature_size)
-    _count(_COUNTERS[precision], epoch_size, feature_size)
+    _count(_COUNTERS[precision], stream, epoch_size, feature_size)
     return out
 
 
@@ -246,12 +270,12 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             stack.data_ptr(), None if scales is None else scales.data_ptr(),
             lanes_dev.data_ptr(), out.data_ptr(),
-            capacity, C, stride, pre, skip_samples,
+            capacity, C, stride, pre, skip_samples, int(stream.dtype == torch.float32),
             decode_ingest.PRECISIONS.index(weights_precision), epoch_size, feature_size,
             cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega_multi", C, epoch_size, feature_size)
-    _count(_MULTI_COUNTERS[weights_precision], epoch_size, feature_size)
+    _count(_MULTI_COUNTERS[weights_precision], stream, epoch_size, feature_size)
     return out
 
 
@@ -267,7 +291,7 @@ def serve_mega_multi_margins(
     epoch_size: int = dwt.KERNEL_EPOCH_SIZE,
     feature_size: int = dwt.KERNEL_FEATURE_SIZE,
 ) -> torch.Tensor:
-    """K6: (C, capacity*stride) int16 + (C,) res + (epoch_size,
+    """K6: (C, capacity*stride) int16 or float32 + (C,) res + (epoch_size,
     feature_size) operator + (128, C*feature_size) tenant-major f32 stack
     + (capacity,) int32 lanes on the host -> (capacity,) float32 margins
     before the intercept, window ``i`` dotted with ``stack[lanes[i]]``;

@@ -1,9 +1,10 @@
 """The resident serving engine: raw epoch windows -> predictions.
 
 Port of the JAX package's ``serve/engine.py`` for linear models. One
-micro-batch of requests — each carrying the raw (unscaled int16)
-samples of one stimulus-locked window — runs through one of two rungs,
-both hand-written CUDA kernels on the card:
+micro-batch of requests — each carrying the raw samples of one
+stimulus-locked window: unscaled int16 for INT_16 recordings, float32
+with unit resolutions otherwise (the ``stage_raw`` convention) — runs
+through one of two rungs, both hand-written CUDA kernels on the card:
 
 - ``mega`` (the default): the batch is laid out at the padded stride
   (``ops/serve_mega.stage_mega_stream``), copied to the device once,
@@ -57,10 +58,25 @@ overrides the rungs' margin hooks (:meth:`ServingEngine._mega_margins`,
 
 Every rung takes any analysis window and coefficient count whose live
 window fits the padded stride: the kernels run their ring engine at the
-main path's 512 / 16 and their generic engine at every other size.
+main path's 512 / 16 and their generic engine at every other size. Each
+rung stages a batch in its windows' own dtype, so float32 windows run
+the kernels' float32-sample instantiations (K1-f32 on the fused rung,
+K5-f32s on the mega rung); :meth:`ServingEngine.warmup` runs one batch
+of each dtype.
 
-Not ported: float32 (non-INT_16) windows, the host-extractor mode and
-non-linear classifiers.
+**The host-extractor mode** (``host_extractor=`` a registry feature
+extractor, ``features.registry.create``): the engine is pinned to the
+``host`` rung (``mode`` ``"host-extractor"``) and builds no kernel of
+its own. Each batch is scaled and baseline-corrected on the host in
+float64 (with ``pre=0``, not corrected), featurized by the extractor's
+``extract_batch`` (a ``-pallas`` extractor on the card launches the
+epoch-features kernel, ``csrc/epoch_features.cu``, once a batch) and
+classified by the classifier's own ``predict``; no margins are returned.
+The warmup runs one window through the extractor, so its kernel builds
+before traffic. A non-f32 ``precision`` is recorded as ``used:
+"host-f64"``.
+
+Not ported: non-linear classifiers.
 """
 
 from __future__ import annotations
@@ -124,10 +140,6 @@ class ServingEngine:
         engine_rung: str = "auto",
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if host_extractor is not None:
-            raise ValueError(
-                "the host-extractor serving mode is not yet ported; see ROADMAP.md"
-            )
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if precision not in decode_ingest.PRECISIONS:
@@ -173,9 +185,13 @@ class ServingEngine:
         #: mega-rung resolution and its warmup parity gate; None when
         #: the engine was pinned to the fused rung or serves bf16
         self.mega_record: Optional[dict] = None
-        self._rung = "fused"
         self._warmed = False
-        self._fused = self._fused_featurizer(precision)
+        #: the host-extractor mode's registry extractor; None otherwise
+        self._host_fe = host_extractor
+        # the host-extractor mode builds no kernel of the engine's own:
+        # the host rung is the mode
+        self._rung = "fused" if host_extractor is None else "host"
+        self._fused = None if host_extractor is not None else self._fused_featurizer(precision)
         # the synthetic stream's static plan: window i lives at
         # [i * window_len, (i + 1) * window_len), its marker at + pre
         self._positions = (
@@ -215,9 +231,11 @@ class ServingEngine:
         resolutions: np.ndarray,
     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Run one micro-batch: ``windows`` is a sequence of
-        ``(n_channels, window_len)`` int16 raw sample arrays, all sharing
+        ``(n_channels, window_len)`` raw sample arrays (int16 for INT_16
+        recordings; float32 with unit resolutions otherwise), all sharing
         ``resolutions``. Returns ``(predictions (B,) float64, margins
-        (B,) float32)``."""
+        (B,) float32)``; the host-extractor mode returns no margins
+        (``None``)."""
         n = len(windows)
         if n == 0:
             return np.zeros((0,), np.float64), None
@@ -225,10 +243,12 @@ class ServingEngine:
             raise ValueError(
                 f"micro-batch of {n} exceeds engine capacity {self.capacity}"
             )
-        res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
         # the one read of the served model: a swap during this batch
         # serves the next one
         model = self._model
+        if self._rung == "host":
+            return self._execute_host(windows, resolutions, model)
+        res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
         if self._rung == "mega":
             margins = self._mega_margins(windows, res, model)
         else:
@@ -246,6 +266,9 @@ class ServingEngine:
         return predictions, margins
 
     def _check_windows(self, windows) -> None:
+        """Every window ``(n_channels, window_len)``, int16 or float32,
+        and of one dtype: a batch is staged in its windows' dtype."""
+        dtype = np.asarray(windows[0]).dtype
         for i, w in enumerate(windows):
             w = np.asarray(w)
             if w.shape != (self.n_channels, self.window_len):
@@ -253,11 +276,40 @@ class ServingEngine:
                     f"window {i} has shape {w.shape}, expected "
                     f"({self.n_channels}, {self.window_len})"
                 )
-            if w.dtype != np.int16:
+            if w.dtype not in (np.int16, np.float32) or w.dtype != dtype:
                 raise ValueError(
-                    f"serving {w.dtype} windows (non-INT_16 recordings) is "
-                    "not yet ported; see ROADMAP.md"
+                    f"window {i} is {w.dtype}; a batch holds int16 or float32 "
+                    f"windows of one dtype (window 0 is {dtype})"
                 )
+
+    def _execute_host(self, windows, resolutions, model: ServedModel):
+        """The host-extractor mode: :meth:`_host_features`, then
+        ``model``'s classifier's own ``predict``; no margins."""
+        feats = self._host_features(windows, resolutions)
+        predictions = model.classifier.predict(feats)
+        return predictions.cpu().numpy().astype(np.float64, copy=False), None
+
+    def _host_features(self, windows, resolutions) -> torch.Tensor:
+        """Each window scaled by ``resolutions`` in float64, its
+        pre-stimulus mean subtracted from the samples after it (with
+        ``pre=0`` the window as it is), then the host extractor's
+        ``extract_batch``: (n, d) rows on the extractor's device."""
+        res = np.asarray(resolutions, dtype=np.float64)
+        epochs = []
+        for i, w in enumerate(windows):
+            w = np.asarray(w)
+            if w.shape != (self.n_channels, self.window_len):
+                raise ValueError(
+                    f"window {i} has shape {w.shape}, expected "
+                    f"({self.n_channels}, {self.window_len})"
+                )
+            scaled = w.astype(np.float64) * res[:, None]
+            if self.pre:
+                base = scaled[:, :self.pre].mean(axis=1)
+                epochs.append((scaled - base[:, None])[:, self.pre:])
+            else:
+                epochs.append(scaled)
+        return self._host_fe.extract_batch(np.stack(epochs))
 
     def _mega_margins(self, windows, res, model: ServedModel) -> torch.Tensor:
         """The megakernel rung: the batch at the padded stride, one
@@ -283,11 +335,13 @@ class ServingEngine:
 
     def _fused_features(self, featurize, windows, res) -> torch.Tensor:
         """(capacity, C*K) feature rows of the batch laid out as a
-        synthetic recording, through ``featurize``; padded rows zero."""
+        synthetic recording in the windows' own dtype, through
+        ``featurize``; padded rows zero."""
         self._check_windows(windows)
         n = len(windows)
         stream = np.zeros(
-            (self.n_channels, self.capacity * self.window_len), dtype=np.int16
+            (self.n_channels, self.capacity * self.window_len),
+            dtype=np.asarray(windows[0]).dtype,
         )
         for i, w in enumerate(windows):
             stream[:, i * self.window_len:(i + 1) * self.window_len] = w
@@ -305,8 +359,22 @@ class ServingEngine:
         precision gate first (:meth:`_precision_warmup_gate`); an engine
         not pinned to ``fused`` and not serving bf16 then holds the mega
         rung against the fused rung (:meth:`_mega_warmup`) and raises if
-        that gate fails. Idempotent."""
+        that gate fails. Then one batch of each request dtype (int16 and
+        float32) runs on the rung that serves. The host-extractor mode
+        builds no kernel of its own: one window goes through its
+        extractor (so a kernel-backed one, ``-pallas``, builds here, not
+        in the batcher), and at a non-f32 ``precision`` it records
+        ``used: "host-f64"``. Idempotent."""
         if self._warmed:
+            return
+        if self._host_fe is not None:
+            if self._precision != "f32":
+                self.precision_record = {
+                    "requested": self._precision, "used": "host-f64", "gate": None,
+                }
+            self._host_features([np.zeros((self.n_channels, self.window_len), np.float32)],
+                                np.ones(self.n_channels, np.float32))
+            self._warmed = True
             return
         effective = "f32"
         if self._precision != "f32":
@@ -314,10 +382,11 @@ class ServingEngine:
         if self._engine_rung_requested != "fused" and effective != "bf16":
             self._mega_program = self._make_mega_program(effective)
             self._mega_warmup(effective)
-        self.execute(
-            [np.zeros((self.n_channels, self.window_len), np.int16)],
-            np.ones(self.n_channels, np.float32),
-        )
+        for dtype in (np.int16, np.float32):
+            self.execute(
+                [np.zeros((self.n_channels, self.window_len), dtype)],
+                np.ones(self.n_channels, np.float32),
+            )
         self._warmed = True
 
     def _make_mega_program(self, precision: str):
@@ -331,11 +400,13 @@ class ServingEngine:
         )
 
     def featurize(self, windows: Sequence[np.ndarray], resolutions: np.ndarray) -> np.ndarray:
-        """(n, C*K) float32 feature rows of ``windows`` through the fused
-        rung (the ingest kernel at the precision the warmup gate left),
-        the computation that features served traffic: the serving
-        lifecycle's feedback rows. Batches past the capacity run in
-        capacity-sized slices; the padded rows are dropped."""
+        """(n, d) float32 feature rows of ``windows`` through the fused
+        rung (the ingest kernel at the precision the warmup gate left, on
+        the windows' own sample type), or in the host-extractor mode
+        through the host extractor: the computation that features served
+        traffic, the serving lifecycle's feedback rows. Batches past the
+        capacity run in capacity-sized slices; the padded rows are
+        dropped."""
         n = len(windows)
         if n == 0:
             return np.zeros((0, self.n_channels * self.feature_size), np.float32)
@@ -344,8 +415,11 @@ class ServingEngine:
                 self.featurize(windows[i:i + self.capacity], resolutions)
                 for i in range(0, n, self.capacity)
             ], axis=0)
-        res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
-        feats = self._fused_features(self._fused, windows, res)[:n]
+        if self._host_fe is not None:
+            feats = self._host_features(windows, resolutions)
+        else:
+            res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
+            feats = self._fused_features(self._fused, windows, res)[:n]
         return feats.cpu().numpy().astype(np.float32, copy=False)
 
     def swap_model(self, classifier, tenant: Optional[str] = None):
@@ -467,12 +541,12 @@ class ServingEngine:
 
     @property
     def mode(self) -> str:
-        return "fused-linear"
+        return "fused-linear" if self._host_fe is None else "host-extractor"
 
     @property
     def rung(self) -> str:
-        """The rung currently serving: ``mega`` (promoted at warmup) or
-        ``fused``."""
+        """The rung currently serving: ``mega`` (promoted at warmup),
+        ``fused``, or ``host`` (the host-extractor mode)."""
         return self._rung
 
 
@@ -487,20 +561,16 @@ def windows_from_recording(
     """One recording -> per-epoch serving requests.
 
     Returns ``(windows, targets, resolutions)``: the kept markers' raw
-    ``(n_channels, pre+post)`` unscaled int16 windows (the bytes
-    ``stage_raw`` ships to the device, sliced per epoch, zero past the
-    end of the recording), their 0/1 targets under the shared
+    ``(n_channels, pre+post)`` windows (the bytes ``stage_raw`` ships to
+    the device, sliced per epoch, zero past the end of the recording:
+    unscaled int16 for INT_16 recordings, already scaled float32 with
+    unit resolutions otherwise), their 0/1 targets under the shared
     cross-file ``balance`` state, and the per-channel resolutions. The
     serve pipeline drives a batch session through the service with it.
     """
     raw, resolutions, n_samples = device_ingest.stage_raw(
         recording, list(channel_indices), torch.device("cpu")
     )
-    if raw.dtype != torch.int16:
-        raise ValueError(
-            f"serving non-INT_16 recordings ({recording.header.binary_format}) "
-            "is not yet ported; see ROADMAP.md"
-        )
     plan = device_ingest.plan_ingest(
         recording.markers, guessed, n_samples,
         pre=pre, post=post, balance=balance,

@@ -777,6 +777,13 @@ class LifecycleManager:
                 busy = self._processing
             age = time.monotonic() - self._heartbeat
             if busy and age > self.config.watchdog_s:
+                # the wedged thread may never return: the candidate is
+                # discarded here so a late wake-up cannot promote it, and
+                # before ``wedged`` is set, so whoever waits on it reads
+                # the discarded state
+                self.candidate = None
+                with self._cond:
+                    self._queue.clear()
                 self.wedged.set()
                 self._count("lifecycle_wedged")
                 events.event("serve.lifecycle_wedged", heartbeat_age_s=round(age, 2))
@@ -784,11 +791,6 @@ class LifecycleManager:
                     "lifecycle adapter wedged (heartbeat %.1fs old); candidate "
                     "discarded, live serving continues", age,
                 )
-                # the wedged thread may never return: the candidate is
-                # discarded here so a late wake-up cannot promote it
-                self.candidate = None
-                with self._cond:
-                    self._queue.clear()
                 return
 
     # -- observability ----------------------------------------------------

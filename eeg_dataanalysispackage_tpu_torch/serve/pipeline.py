@@ -4,7 +4,8 @@ Port of the JAX package's ``serve/pipeline.py`` (``run_serve``). The
 batch pipeline's ``load_clf=`` mode answers "how does this saved model
 score this session" with one fused featurization; this mode answers the
 same question through the online path — every kept epoch becomes one
-request (raw int16 window bytes) submitted to a resident
+request (the raw window bytes: int16 for INT_16 recordings, scaled
+float32 for IEEE_FLOAT_32 and INT_32 ones) submitted to a resident
 :class:`serve.service.InferenceService`, micro-batched,
 deadline-bounded and admission-controlled. The statistics are the batch
 ``load_clf=`` run's on the same inputs.

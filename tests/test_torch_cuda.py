@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the fused
 ingest kernel (int16 and float32 streams, at every precision= rung), the
-serve megakernel (f32, int8, int4), its tenant-stacked instantiation
-(K6, held bit for bit against the solo megakernel per lane, and through
-a multi-tenant service against solo services) and the epoch-features
+serve megakernel (f32, int8, int4, on int16 and float32 streams), its
+tenant-stacked instantiation (K6, held bit for bit against the solo
+megakernel per lane, and through a multi-tenant service against solo
+services), float32 sessions served on the card, the host-extractor
+service, and the epoch-features
 kernel (at every window alignment, at any window and coefficient count
 the cascade has, and on wide montages).
 
@@ -1403,3 +1405,251 @@ def test_lifecycle_service_promotes_on_the_card(tmp_path):
     fresh = ServingEngine(promoted, capacity=64)
     fresh.warmup()
     assert np.asarray(served, np.float32).tobytes() == fresh.execute(windows, RES)[1].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The megakernel's float32-sample instantiations (K5-f32s, K5-int8-f32s,
+# K5-int4-f32s, K6-f32s, K6-w8-f32s, K6-w4-f32s, and their generic twins):
+# a float32 stream, staged already scaled with unit resolutions, as a
+# recording in another binary format than INT_16 is served.
+
+_ONES = np.ones(3, np.float32)
+
+
+def _float_mega_inputs(dev, capacity, n, dc, noise, seed):
+    """:func:`_mega_inputs`' int16 windows scaled by RES into float32
+    windows (at the int16 limit's DC offsets, a cancellation stress), unit
+    resolutions."""
+    stream, _res, W, weights, stride = _mega_inputs(dev, capacity, n, dc, noise, seed)
+    scaled = (stream.to(torch.float32) * torch.from_numpy(RES).to(dev)[:, None]).contiguous()
+    return scaled, torch.from_numpy(_ONES).to(dev), W, weights, stride
+
+
+_COUNTER_OF = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
+_ALL_MEGA_COUNTERS = [name for name in dir(serve_mega_cuda)
+                      if name.isupper() and "LAUNCHES" in name]
+
+
+def _f32s_counter(name, generic=False):
+    return ("ANY_" if generic else "") + name + "_F32S"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (2048, 2048)])
+@pytest.mark.parametrize("dc,noise", [((0, 0, 0), 3000), ((30000, -30000, 29500), 1500)])
+def test_float_mega_kernel_matches_plain_version(precision, capacity, n, dc, noise):
+    """K5-f32s / K5-int8-f32s / K5-int4-f32s: margins within 2e-6 *
+    ||w||_1 of K1-f32's rows of the same windows dotted with w (and, at
+    f32, of the plain version; at int8/int4 within the rung's tolerance of
+    it); padded rows 0; a window's margin the same solo and in a batch;
+    each launch counted in its own counter alone."""
+    dev = _card()
+    stream, res, W, weights, stride = _float_mega_inputs(dev, capacity, n, dc, noise, seed=n)
+    counter = _f32s_counter(_COUNTER_OF[precision])
+    before = {name: getattr(serve_mega_cuda, name) for name in _ALL_MEGA_COUNTERS}
+    got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride,
+                                             precision)
+    torch.cuda.synchronize()
+    moved = {name: getattr(serve_mega_cuda, name) - before[name] for name in before}
+    assert moved == {name: int(name == counter) for name in before}
+    starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    rows = ingest_cuda.ingest_features(stream, res, starts, W, 100, 175, precision)
+    tol = 2e-6 * weights.abs().sum().item()
+    assert (got - rows @ weights).abs().max().item() <= tol
+    plain = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175, stride,
+                                                precision)
+    gate = tol if precision == "f32" else decode_ingest.precision_gate_tolerance(precision)
+    assert (got - plain).abs().max().item() <= gate
+    assert torch.isfinite(got).all() and (got[n:] == 0).all()
+    solo = torch.zeros_like(stream)
+    solo[:, :stride] = stream[:, (n - 1) * stride:n * stride]
+    assert serve_mega_cuda.serve_mega_margins(solo, res, W, weights, 100, 175, stride,
+                                              precision)[0].item() == got[n - 1].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", ["cycling", "one_lane"])
+@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (2048, 2048)])
+def test_float_k6_matches_plain_and_equals_solo_kernel_per_lane(capacity, n, spread):
+    """K6-f32s: each row within 2e-6 * ||w_lane||_1 of the plain version
+    and bit-equal to K5-f32s with that lane's weights; K6-w8-f32s and
+    K6-w4-f32s bit-equal to K6-f32s on the dequantized stack; padded rows
+    and a freed lane exactly 0."""
+    dev = _card()
+    stream, res, W, _w, stride = _float_mega_inputs(dev, capacity, n, (30000, -30000, 29500),
+                                                    1500, seed=n)
+    stack, lanes = _stack_and_lanes(dev, capacity, n, spread, seed=capacity + n)
+    before = serve_mega_cuda.MULTI_LAUNCHES_F32S
+    got = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, 175,
+                                                   stride)
+    torch.cuda.synchronize()
+    assert serve_mega_cuda.MULTI_LAUNCHES_F32S == before + 1
+    plain = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, 100, 175,
+                                                      stride)
+    l1 = stack.abs().sum(dim=1)[lanes.to(dev).long()]
+    assert ((got - plain).abs() <= 2e-6 * l1).all()
+    for lane in np.unique(lanes.numpy()[:n])[:8]:
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100, 175,
+                                                  stride)
+        rows = torch.from_numpy(np.nonzero(lanes.numpy()[:n] == lane)[0]).to(dev)
+        assert got[rows].cpu().numpy().tobytes() == solo[rows].cpu().numpy().tobytes()
+    assert (got[n:] == 0).all() and (got[:n][lanes[:n].to(dev) == 5] == 0).all()
+    for wp in ("int8", "int4"):
+        packed, scales, deq = _packed_stack(dev, np.random.RandomState(n), 48, wp)
+        counter = _f32s_counter(f"MULTI_LAUNCHES_{wp.upper()}")
+        before = getattr(serve_mega_cuda, counter)
+        q = serve_mega_cuda.serve_mega_multi_packed_margins(stream, res, W, packed, scales, lanes,
+                                                            100, 175, stride, wp)
+        torch.cuda.synchronize()
+        assert getattr(serve_mega_cuda, counter) == before + 1
+        k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, 175,
+                                                      stride)
+        assert q.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,skip", GENERIC_SIZES[:4] + [(100, 3, 7), (600, 300, 10)])
+def test_float_generic_mega_and_k6_match_plain(n, K, skip):
+    """The generic engine's float32-sample instantiations at sizes off the
+    main path: K5-any-f32s (f32, int8, int4) within 2e-6 * ||w||_1 of the
+    plain version or of K1-any-f32's quantized rows dotted with w;
+    K6-any-f32s bit-equal per lane to K5-any-f32s; K6-w8/w4-any-f32s
+    bit-equal to K6-any-f32s on the dequantized stack; each launch in its
+    generic counter."""
+    dev = _card()
+    capacity, count = 128, 77
+    stream, _r, W, stride, rng = _generic_mega_inputs(dev, n, K, skip, capacity, count, n + K)
+    stream = (stream.to(torch.float32) * torch.from_numpy(RES).to(dev)[:, None]).contiguous()
+    res = torch.from_numpy(_ONES).to(dev)
+    weights = torch.from_numpy(rng.randn(3 * K).astype(np.float32)).to(dev)
+    tol = 2e-6 * weights.abs().sum().item()
+    starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    for precision in ("f32", "int8", "int4"):
+        counter = _f32s_counter(_COUNTER_OF[precision], generic=True)
+        before = getattr(serve_mega_cuda, counter)
+        got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
+                                                 precision, n, K)
+        torch.cuda.synchronize()
+        assert getattr(serve_mega_cuda, counter) == before + 1
+        if precision == "f32":
+            want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, skip,
+                                                       stride)
+        else:
+            want = ingest_cuda.ingest_features(stream, res, starts, W, 100, skip, precision, n,
+                                               K) @ weights
+        assert (got - want).abs().max().item() <= tol
+        assert (got[count:] == 0).all()
+    stack = torch.from_numpy(rng.randn(serve_mega.MAX_TENANTS, 3 * K).astype(np.float32)).to(dev)
+    lanes = torch.from_numpy(np.where(np.arange(capacity) < count,
+                                      rng.randint(0, 128, capacity), 0).astype(np.int32))
+    multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, skip,
+                                                     stride, n, K).cpu()
+    for lane in np.unique(lanes.numpy()[:count])[:6]:
+        solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[int(lane)], 100, skip,
+                                                  stride, "f32", n, K).cpu()
+        rows = np.nonzero(lanes.numpy()[:count] == lane)[0]
+        assert multi[rows].numpy().tobytes() == solo[rows].numpy().tobytes()
+    if (3 * K) % 2 == 0:
+        for wp in ("int8", "int4"):
+            packed, scales, deq = _packed_stack(dev, rng, 3 * K, wp)
+            q = serve_mega_cuda.serve_mega_multi_packed_margins(
+                stream, res, W, packed, scales, lanes, 100, skip, stride, wp, n, K)
+            k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, skip,
+                                                          stride, n, K)
+            assert q.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_float_mega_on_the_widest_montage_and_one_channel_more_is_refused():
+    """76 channels of float32 samples at 512 / 16 (a float ring slot holds
+    half the samples of an int16 one, so the pieces differ): K5-f32s
+    within 2e-6 * ||w||_1 of the plain version, K6-f32s bit-equal per
+    lane to K5-f32s; 77 channels raise and count no launch."""
+    dev = _card()
+    W = _operator(dev)
+    stride = serve_mega.padded_stride(100, 750)
+    for C in (64, 76, 77):
+        stream = torch.from_numpy(_samples("float32", C, 5 * stride, seed=C, dc=15000)).to(dev)
+        res = torch.ones(C, device=dev)
+        weights = torch.from_numpy(np.random.RandomState(C).randn(C * 16).astype(np.float32)
+                                   ).to(dev)
+        before = serve_mega_cuda.LAUNCHES_F32S
+        if C == 77:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride)
+            assert serve_mega_cuda.LAUNCHES_F32S == before
+            continue
+        got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride)
+        want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100, 175, stride)
+        assert (got - want).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+        stack = torch.from_numpy(np.random.RandomState(C + 1).randn(
+            serve_mega.MAX_TENANTS, C * 16).astype(np.float32)).to(dev)
+        lanes = torch.tensor([5, 127, 0, 64, 5], dtype=torch.int32)
+        multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100, 175,
+                                                         stride).cpu()
+        for lane in (0, 5, 64, 127):
+            solo = serve_mega_cuda.serve_mega_margins(stream, res, W, stack[lane], 100, 175,
+                                                      stride).cpu()
+            rows = (lanes == lane).nonzero().flatten()
+            assert multi[rows].numpy().tobytes() == solo[rows].numpy().tobytes()
+
+
+def _float_session(directory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _torch_sessions import write_coded_recording
+
+    lines = [write_coded_recording(directory, "flt_0", "IEEE_FLOAT_32", 200, 4, seed=1),
+             write_coded_recording(directory, "i32_1", "INT_32", 150, 7, seed=2)]
+    info = os.path.join(directory, "info.txt")
+    with open(info, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
+def test_float_session_serves_through_the_float_megakernel(tmp_path, precision):
+    """serve=true on an IEEE_FLOAT_32 + INT_32 session on the card: the
+    statistics of the card's batch load_clf= run and of the CPU's serve
+    run, the requests served by K5-f32s at the precision (at least one
+    launch a batch)."""
+    _card()
+    info = _float_session(str(tmp_path))
+    q = f"info_file={info}&fe=dwt-8-fused"
+    PipelineBuilder(f"{q}&train_clf=logreg&save_clf=true&save_name={tmp_path}/m").execute()
+    load = f"{q}&load_clf=logreg&load_name={tmp_path}/m&precision={precision}"
+    batch = PipelineBuilder(load).execute()
+    counter = _f32s_counter(_COUNTER_OF[precision])
+    before = getattr(serve_mega_cuda, counter)
+    served = PipelineBuilder(f"{load}&serve=true")
+    got = served.execute()
+    assert getattr(serve_mega_cuda, counter) - before >= served.serve_block["batches"] >= 1
+    assert served.serve_block["rung"] == "mega"
+    cpu = PipelineBuilder(f"{load}&serve=true", device="cpu").execute()
+    assert str(got) == str(batch) == str(cpu)
+
+
+@pytest.mark.cuda
+def test_host_extractor_service_launches_the_epoch_kernel_once_a_batch():
+    """InferenceService(host_extractor=dwt-8-pallas) on the card: the host
+    rung, one epoch-features launch a batch, predictions equal to the
+    same service on the CPU."""
+    from eeg_dataanalysispackage_tpu_torch.features import registry as fe_registry
+
+    _card()
+    clf = _random_linear(7)
+    rng = np.random.RandomState(4)
+    windows = [rng.randint(-3000, 3000, size=(3, 850)).astype(np.int16) for _ in range(100)]
+    config = ServeConfig(max_batch=64)
+    with InferenceService(clf, config=config,
+                          host_extractor=fe_registry.create("dwt-8-pallas")) as svc:
+        assert (svc.engine.rung, svc.engine.mode) == ("host", "host-extractor")
+        before = dwt_cuda.LAUNCHES
+        served = svc.predict_all(windows, RES)
+        launches = dwt_cuda.LAUNCHES - before
+        assert launches == svc.stats_block()["batches"] >= 2
+    with InferenceService(clf, config=config, device="cpu",
+                          host_extractor=fe_registry.create("dwt-8-pallas", device="cpu")) as cpu:
+        want = cpu.predict_all(windows, RES)
+    assert [r.prediction for r in served] == [r.prediction for r in want]

@@ -27,6 +27,7 @@ from eeg_dataanalysispackage_tpu.serve import InferenceService as JaxService
 from eeg_dataanalysispackage_tpu.serve import engine as jax_engine
 from eeg_dataanalysispackage_tpu.epochs.extractor import BalanceState as JaxBalance
 from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
+from eeg_dataanalysispackage_tpu_torch.features import registry as fe_registry
 from eeg_dataanalysispackage_tpu_torch.io import deadline as deadline_mod
 from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
 from eeg_dataanalysispackage_tpu_torch.models import registry
@@ -247,16 +248,23 @@ def test_unported_engine_inputs_raise(session):
     assert bf16.rung == "fused" and bf16.mega_record is None
     with pytest.raises(ValueError, match="unknown precision"):
         engine.ServingEngine(clf, precision="f16", device="cpu")
-    with pytest.raises(ValueError, match="host-extractor serving mode is not yet ported"):
-        InferenceService(clf, host_extractor=object(), device="cpu")
+    # the host-extractor mode is served (tests/test_torch_serve_float.py):
+    # the engine is pinned to the host rung and builds no kernel
+    host = InferenceService(clf, host_extractor=fe_registry.create("dwt-8", device="cpu"),
+                            device="cpu")
+    assert (host.engine.rung, host.engine.mode) == ("host", "host-extractor")
     with pytest.raises(ValueError, match="not yet ported"):
         engine.ServingEngine(registry.create("logreg"), device="cpu")  # untrained
     eng = engine.ServingEngine(clf, capacity=4, device="cpu")
     assert eng.capacity == 64
     with pytest.raises(ValueError, match="shape"):
         eng.execute([np.zeros((3, 10), np.int16)], _RES)
-    with pytest.raises(ValueError, match="not yet ported"):
-        eng.execute([_WINDOW.astype(np.float32)], _RES)
+    # float32 windows are served (tests/test_torch_serve_float.py); other
+    # dtypes, and a batch mixing the two, are refused
+    with pytest.raises(ValueError, match="int16 or float32"):
+        eng.execute([_WINDOW.astype(np.float64)], _RES)
+    with pytest.raises(ValueError, match="of one dtype"):
+        eng.execute([_WINDOW, _WINDOW.astype(np.float32)], _RES)
     with pytest.raises(ValueError, match="capacity"):
         eng.execute([_WINDOW] * 65, _RES)
     preds, _ = eng.execute([], _RES)
