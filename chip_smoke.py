@@ -16,8 +16,10 @@ the fused kernels' generic engine (a 256-sample window through
 ``OfflineDataProvider.load_features_device`` and the serving engines),
 and the serving of an IEEE_FLOAT_32 session (float32 requests through
 the megakernel's float32-sample instantiations, one and 128 tenants,
-``adapt=true``, and the host-extractor mode) — and holds every CUDA
-kernel of them against its plain PyTorch version.
+``adapt=true``, and the host-extractor mode), mini-batch SGD
+(``config_mini_batch_fraction=0.5``) and the neural-network classifier
+(``train_clf=nn``, ``load_clf=nn`` and ``serve=true&load_clf=nn``) — and
+holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
@@ -113,6 +115,24 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``InferenceService(host_extractor=…)`` with ``dwt-8`` and
    ``dwt-8-pallas`` (the host rung, the epoch-features kernel launched
    once a batch by the latter, predictions equal to the CPU service's);
+4c. threefry sampling and the neural network on the same session: the
+   threefry draws (bits, uniforms, Bernoulli masks with scalar and tensor
+   ``p``, the SGD mini-batch masks) on the card bit-equal to the CPU's,
+   and the card's time to draw one mask of the session's rows; logreg and
+   svm at ``config_mini_batch_fraction=0.5`` (statistics against the CPU
+   run under phase 4's near-threshold rule); ``train_clf=nn`` with
+   configuration A (the JAX package's ``test_nn_pipeline`` network) and B
+   (a 64-unit denoising autoencoder with dropout, a 32-unit LSTM, adam,
+   ``relu`` init, mse, 200 iterations) on ``fe=dwt-8-fused`` and A on
+   ``fe=dwt-8-pallas``, each saved, the network on the card, test
+   predictions within NN_TOL of the CPU run's (a row may round
+   differently only within NN_TOL of 0.5 on both), the train wall and
+   per-step ms printed; then ``load_clf=nn`` of the saved A model and
+   ``serve=true&load_clf=nn`` (mode ``featurize+host``, the ``fused``
+   rung, no megakernel launch, K1 once a batch plus the warmup's,
+   statistics byte-equal to the batch load run's), and one 64-window
+   batch: K1's served rows against the batch run's rows and the engine's
+   featurize and predict steps (host wall, medians of 25);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -1893,6 +1913,227 @@ def phase_float_serve(torch, np, info, work):
     return launches
 
 
+# configuration A: the JAX package's test_nn_pipeline network; B: the
+# rest of the surface (denoising AE pretraining with dropout, an LSTM,
+# adam, he_normal init, mse)
+NN_A = ("&config_seed=1&config_num_iterations=50&config_learning_rate=0.1&config_momentum=0.9"
+        "&config_weight_init=xavier&config_updater=nesterovs"
+        "&config_optimization_algo=stochastic_gradient_descent&config_pretrain=false"
+        "&config_backprop=true&config_loss_function=xent"
+        "&config_layer1_layer_type=dense&config_layer1_n_out=8&config_layer1_drop_out=0.0"
+        "&config_layer1_activation_function=relu&config_layer2_layer_type=output"
+        "&config_layer2_n_out=2&config_layer2_drop_out=0.0"
+        "&config_layer2_activation_function=softmax")
+NN_B = ("&config_seed=1&config_num_iterations=200&config_learning_rate=0.01&config_momentum=0.9"
+        "&config_weight_init=relu&config_updater=adam"
+        "&config_optimization_algo=stochastic_gradient_descent&config_pretrain=true"
+        "&config_backprop=true&config_loss_function=mse"
+        "&config_layer1_layer_type=auto_encoder&config_layer1_n_out=64"
+        "&config_layer1_drop_out=0.2&config_layer1_activation_function=sigmoid"
+        "&config_layer2_layer_type=graves_lstm&config_layer2_n_out=32&config_layer2_drop_out=0.0"
+        "&config_layer2_activation_function=tanh&config_layer3_layer_type=output"
+        "&config_layer3_n_out=2&config_layer3_drop_out=0.0"
+        "&config_layer3_activation_function=softmax")
+# the nn's steps a fit runs: backprop iterations plus those of each
+# pretrained layer
+NN_STEPS = {"a": 50, "b": 400}
+NN_TOL = 1e-4  # card predictions against the CPU run's
+
+
+def nn_predictions(builder):
+    """(n_test,) float64 predictions of a run's network on its test rows."""
+    import torch
+
+    if builder.features is not None:
+        idx = torch.as_tensor(builder.test_index, device=builder.features.device)
+        feats = builder.features[idx]
+    else:
+        feats = builder.fe.extract_batch(builder.batch.epochs[builder.test_index])
+    return builder.classifier.predict(feats).cpu().numpy()
+
+
+def compare_nn_runs(np, gpu, cpu, label):
+    """Card predictions within NN_TOL of the CPU run's; a test row may
+    round differently only within NN_TOL of 0.5 on both runs, and the
+    counts differ by those rows alone."""
+    p_g, p_c = nn_predictions(gpu), nn_predictions(cpu)
+    dev = float(np.abs(p_g - p_c).max())
+    r_g, r_c = np.floor(p_g + 0.5), np.floor(p_c + 0.5)
+    flips = [{"row": int(gpu.test_index[r]), "pred_cuda": float(p_g[r]), "pred_cpu": float(p_c[r])}
+             for r in np.nonzero(r_g != r_c)[0]]
+    a, b = gpu.statistics, cpu.statistics
+    count_gap = (abs(a.true_positives - b.true_positives) + abs(a.true_negatives - b.true_negatives)
+                 + abs(a.false_positives - b.false_positives)
+                 + abs(a.false_negatives - b.false_negatives)) // 2
+    near = all(abs(f["pred_cuda"] - 0.5) <= NN_TOL and abs(f["pred_cpu"] - 0.5) <= NN_TOL
+               for f in flips)
+    emit("nn_cpu_parity", run=label, max_abs_pred_dev=dev, tol=NN_TOL,
+         near_threshold_rows=flips, count_gap=count_gap,
+         statistics_equal=str(a) == str(b), mse_cuda=a.mse / max(a.num_patterns, 1),
+         mse_cpu=b.mse / max(b.num_patterns, 1))
+    if not (dev <= NN_TOL and near and count_gap == len(flips) and np.isfinite(p_g).all()):
+        raise AssertionError(f"{label}: card predictions disagree with the CPU run's")
+
+
+def threefry_card_checks(torch, np, dev, kept):
+    """The threefry streams on the card against the CPU: bits, uniforms,
+    Bernoulli masks (scalar and tensor p, the dropout shape of
+    configuration B) and the SGD mini-batch masks, bit for bit; the
+    card's time to draw one mini-batch mask of the session's rows."""
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.utils import threefry
+
+    checked = 0
+    for seed in (0, 1, 42, 2**31 - 1):
+        key = threefry.fold_in(threefry.prng_key(seed), 2**32 - 1)
+        for shape in ((), (7,), (kept,), (1494, 64)):
+            pairs = [(threefry.random_bits(key, shape, dev), threefry.random_bits(key, shape)),
+                     (threefry.uniform(key, shape, -1.0, 1.0, dev),
+                      threefry.uniform(key, shape, -1.0, 1.0)),
+                     (threefry.bernoulli(key, 0.8, shape, dev), threefry.bernoulli(key, 0.8, shape))]
+            p = torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+            pairs.append((threefry.bernoulli(key, p.to(dev)), threefry.bernoulli(key, p)))
+            config = sgd.SGDConfig(mini_batch_fraction=0.5, seed=seed)
+            for t in (1, 2, 100):
+                pairs.append((sgd.mini_batch_mask(config, t, kept, dev),
+                              sgd.mini_batch_mask(config, t, kept, "cpu")))
+            for got, want in pairs:
+                if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"threefry draw on the card differs (seed {seed}, {shape})")
+                checked += 1
+    config = sgd.SGDConfig(mini_batch_fraction=0.5)
+    mask_ms = time_ms(lambda: sgd.mini_batch_mask(config, 7, kept, dev))
+    emit("threefry_card_vs_cpu", draws_checked=checked, bit_equal=True,
+         mini_batch_mask_ms=mask_ms, rows=kept)
+    return mask_ms
+
+
+def phase_nn(torch, np, info, counters, work, kept):
+    """Threefry mini-batch sampling and the neural network on the card:
+    logreg and svm at config_mini_batch_fraction=0.5, train_clf=nn with
+    configurations A and B on fe=dwt-8-fused (K1) and A on fe=dwt-8-pallas
+    (K4), each against the port's CPU run; then load_clf=nn and
+    serve=true&load_clf=nn of the saved A model on the card (K1 on the
+    fused rung, no megakernel), the served statistics byte-equal to the
+    batch load run's. Returns (K1 launches, K4 launches) over the card
+    runs."""
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService, engine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    mask_ms = threefry_card_checks(torch, np, dev, kept)
+    base = f"info_file={info}"
+    k1 = k4 = 0
+    for clf in ("logreg", "svm"):
+        q = (f"{base}&fe=dwt-8-fused&train_clf={clf}&config_num_iterations=100"
+             "&config_step_size=1.0&config_reg_param=0.01&config_mini_batch_fraction=0.5")
+        gpu = run_builder(f"{clf}_minibatch_cuda", q, None, counters)
+        cpu = run_builder(f"{clf}_minibatch_cpu", q, "cpu", counters)
+        if gpu[2]["ingest_features"] < 8 or cpu[2]["ingest_features"] != 0:
+            raise AssertionError(f"{clf} mini-batch run did not featurize on the card")
+        compare_runs(np, gpu[0], cpu[0], f"{clf}_minibatch")
+        k1 += gpu[2]["ingest_features"]
+    models = {"a": os.path.join(work, "model_a.nn"), "b": os.path.join(work, "model_b.nn")}
+    train = {}
+    for label, fe, cfg, name in (("a_fused", "dwt-8-fused", NN_A, "a"),
+                                 ("b_fused", "dwt-8-fused", NN_B, "b"),
+                                 ("a_pallas", "dwt-8-pallas", NN_A, None)):
+        q = f"{base}&fe={fe}&train_clf=nn{cfg}"
+        save = f"&save_clf=true&save_name={models[name]}" if name else ""
+        gpu = run_builder(f"nn_{label}_cuda", q + save, None, counters)
+        cpu = run_builder(f"nn_{label}_cpu", q, "cpu", counters)
+        net_dev = next(gpu[0].classifier.net.parameters()).device
+        if net_dev.type != "cuda":
+            raise AssertionError(f"nn {label}: the network trained on {net_dev}")
+        if cpu[2]["ingest_features"] or cpu[2]["epoch_features"]:
+            raise AssertionError(f"nn {label}: a kernel launched on the CPU path")
+        if fe == "dwt-8-fused" and gpu[2]["ingest_features"] < 8:
+            raise AssertionError(f"nn {label}: the fused run did not launch K1 per recording")
+        if fe == "dwt-8-pallas" and gpu[2]["epoch_features"] != 2:
+            raise AssertionError(f"nn {label}: -pallas launched K4 {gpu[2]['epoch_features']} "
+                                 "times, not 2")
+        compare_nn_runs(np, gpu[0], cpu[0], f"nn_{label}")
+        k1 += gpu[2]["ingest_features"]
+        k4 += gpu[2]["epoch_features"]
+        steps = NN_STEPS[label[0]]
+        train_s = gpu[0].timers["train"]
+        train[label] = {"train_s": train_s, "steps": steps,
+                        "per_iteration_ms": train_s * 1e3 / steps,
+                        "cpu_train_s": cpu[0].timers["train"], "stages_s": gpu[0].timers}
+        emit("nn_train", run=f"nn_{label}", fe=fe, train_s=train_s, steps=steps,
+             per_iteration_ms=train_s * 1e3 / steps, cpu_train_s=cpu[0].timers["train"],
+             accuracy=gpu[1].calc_accuracy())
+
+    # load_clf=nn and serve=true&load_clf=nn of the saved A model
+    load = f"{base}&fe=dwt-8-fused&load_clf=nn&load_name={models['a']}"
+    batch, batch_stats, batch_launches = run_builder("nn_a_load_cuda", load, None, counters)
+    k1 += batch_launches["ingest_features"]
+    ingest_cuda.LAUNCHES = 0
+    ingest_cuda.LAUNCHES_F32 = 0
+    serve_mega_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    served_builder = PipelineBuilder(load + "&serve=true")
+    served = served_builder.execute()
+    wall = time.perf_counter() - t0
+    serve_k1, mega = ingest_cuda.LAUNCHES, serve_mega_cuda.LAUNCHES
+    block = served_builder.serve_block
+    req = block["requests"]
+    equal = str(served) == str(batch_stats)
+    emit("nn_serve_e2e", mode=block["mode"], rung=block["rung"], mega=block["mega"],
+         ingest_launches=serve_k1, ingest_f32s_launches_warmup=ingest_cuda.LAUNCHES_F32,
+         serve_mega_launches=mega, kept=kept, completed=req["completed"], shed=req["shed"],
+         batches=block["batches"], mean_batch_size=block["mean_batch_size"],
+         latency_ms=block["latency_ms"], drained_cleanly=block["drained_cleanly"],
+         wall_s=wall, stages_s=served_builder.timers, statistics_equal_batch=equal)
+    if not (block["mode"] == "featurize+host" and block["rung"] == "fused"
+            and block["mega"] is None and mega == 0 and req["completed"] == kept
+            and serve_k1 >= block["batches"] >= math.ceil(kept / 64) and equal):
+        raise AssertionError("serve=true&load_clf=nn did not serve like the batch load run "
+                             "on the fused rung")
+    k1 += serve_k1
+
+    # one 64-window batch: K1's rows against the batch run's, and the
+    # engine's featurize and predict steps (host wall, medians of 25)
+    from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    odp = OfflineDataProvider([info], device="cpu")
+    balance = BalanceState()
+    windows, res_np = [], None
+    for _rel, guessed, rec in odp.iter_recordings():
+        ws, _ts, res_np = engine.windows_from_recording(
+            rec, odp.channel_indices_for(rec), guessed, balance=balance)
+        windows.extend(ws)
+        if len(windows) >= 64:
+            break
+    with InferenceService(batch.classifier) as svc:
+        eng = svc.engine
+        batch_w = windows[:64]
+        res_t = torch.from_numpy(res_np).to(dev)
+        feats = eng._fused_features(eng._fused, batch_w, res_t)[:64]
+        row_dev = (feats - batch.features[:64]).abs().max().item()
+        clf = batch.classifier
+
+        def host_ms(fn, runs=25):
+            times = []
+            for _ in range(runs):
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            return pystats.median(times)
+
+        split = {"featurize_ms": host_ms(lambda: eng._fused_features(eng._fused, batch_w, res_t)),
+                 "predict_ms": host_ms(lambda: clf.predict(feats)),
+                 "engine_execute_ms": host_ms(lambda: eng.execute(batch_w, res_np))}
+    emit("nn_serve_split", batch=64, fused_rows_vs_batch_rows_max_abs_dev=row_dev, **split)
+    emit("nn_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1, k4_launches=k4,
+         mini_batch_mask_ms=mask_ms, train=train)
+    return k1, k4
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -3265,6 +3506,8 @@ def main() -> int:
         f32_launches, f32_path_err, k4_f32_path_err = phase_float_session(
             np, float_info, counters, n_files=3)
         f32s_launches = phase_float_serve(torch, np, float_info, work)
+        # 4c. threefry mini-batch sampling and the neural network
+        nn_k1, nn_k4 = phase_nn(torch, np, info, counters, work, int(len(gpu.targets)))
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -3367,13 +3610,16 @@ def main() -> int:
     mega_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259"
     multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
-        kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas, main_launches,
-                     max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
+        # the main path's run and the runs of phase 4c (mini-batch SGD,
+        # the nn batch, load and serve runs)
+        kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
+                     main_launches + nn_k1, max(max_err["f32"], k1[4]), k1,
+                     library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
-                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches,
+                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches + nn_k4,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
         # the epoch-features kernel behind the host-extractor service

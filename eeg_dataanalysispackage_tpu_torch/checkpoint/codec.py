@@ -1,13 +1,18 @@
-"""flax's msgpack state-dict bytes for a flat dict of numpy arrays.
+"""flax's msgpack state-dict bytes for nested dicts of numpy arrays.
 
-The JAX package writes a checkpoint's ``state.msgpack`` with
-``flax.serialization.to_bytes`` of the host state dict. For a flat
-``{str: ndarray}`` dict that is one msgpack map, its keys in sorted
-order (the JAX package maps its state through ``jax.tree_util``, which
-rebuilds a dict in sorted key order), each value
-``ExtType(1, packb([shape, dtype name, C-order bytes]))``; a 0-d array
-is an array like any other. This module writes and reads exactly that
-subset, with neither flax nor msgpack installed.
+The JAX package writes a checkpoint's ``state.msgpack`` and the body of
+a neural-network model file with ``flax.serialization.to_bytes``. For a
+tree of ``{str: ndarray | dict}`` that is one msgpack map per dict, each
+array ``ExtType(1, packb([shape, dtype name, C-order bytes]))``; a 0-d
+array is an array like any other. The key order is the dict's own: a
+tree that went through ``jax.tree_util`` (a checkpoint's state, a
+trained network's parameters) comes back with its keys sorted at every
+level (``layer10`` before ``layer2``, ``bias`` before ``kernel``); the
+tree ``model.init`` returns, and one ``from_bytes`` restored into it,
+keep flax's creation order. :func:`to_bytes` sorts, as for the former;
+``keep_order=True`` writes each dict in its own order, as for the
+latter. This module writes and reads exactly that subset, with neither
+flax nor msgpack installed.
 """
 
 from __future__ import annotations
@@ -92,16 +97,27 @@ def _ndarray(arr: np.ndarray) -> bytes:
     return _ext(_EXT_NDARRAY, payload)
 
 
-def to_bytes(state: Dict[str, np.ndarray]) -> bytes:
-    """``flax.serialization.to_bytes`` of the JAX package's host copy of
-    ``state`` (every value an array, or a scalar made one)."""
-    keys = sorted(state)
-    out = [_array_header(len(keys), 0x80, b"\xde", b"\xdf")]
+def _map(state: dict, keep_order: bool, out: list) -> None:
+    keys = list(state) if keep_order else sorted(state)
+    out.append(_array_header(len(keys), 0x80, b"\xde", b"\xdf"))
     for key in keys:
         if not isinstance(key, str):
             raise ValueError(f"checkpoint keys must be str, got {key!r}")
         out.append(_str(key))
-        out.append(_ndarray(np.asarray(state[key])))
+        value = state[key]
+        if isinstance(value, dict):
+            _map(value, keep_order, out)
+        else:
+            out.append(_ndarray(np.asarray(value)))
+
+
+def to_bytes(state: Dict[str, object], keep_order: bool = False) -> bytes:
+    """``flax.serialization.to_bytes`` of the JAX package's host copy of
+    ``state``: every value an array (or a scalar made one) or a nested
+    dict of them; keys sorted at every level, or each dict in its own
+    order with ``keep_order``."""
+    out: list = []
+    _map(state, keep_order, out)
     return b"".join(out)
 
 
@@ -182,17 +198,26 @@ def _ndarray_from(payload: bytes) -> np.ndarray:
     return np.frombuffer(buffer, dtype=dtype).reshape(shape, order="C").copy()
 
 
-def from_bytes(data: bytes) -> Dict[str, np.ndarray]:
-    """The ``{key: ndarray}`` dict of a ``state.msgpack`` (either
-    package's)."""
-    r = _Reader(data)
+def _read_map(r: _Reader) -> dict:
     out = {}
     for _ in range(r.container(0x80, 0xDE, 0xDF, "map")):
         key = r.str()
+        b = r.data[r.pos] if r.pos < len(r.data) else None
+        if b is not None and (b & 0xF0 == 0x80 or b in (0xDE, 0xDF)):
+            out[key] = _read_map(r)
+            continue
         code, payload = r.ext()
         if code != _EXT_NDARRAY:
             raise ValueError(f"checkpoint entry {key!r} is not an ndarray (ext {code})")
         out[key] = _ndarray_from(payload)
+    return out
+
+
+def from_bytes(data: bytes) -> Dict[str, object]:
+    """The ``{key: ndarray | dict}`` tree of a ``state.msgpack`` or of a
+    model file's body (either package's), in the file's key order."""
+    r = _Reader(data)
+    out = _read_map(r)
     if r.pos != len(data):
         raise ValueError("trailing bytes after the checkpoint map")
     return out

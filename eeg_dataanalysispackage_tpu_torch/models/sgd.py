@@ -22,8 +22,14 @@ fixed-capacity matrix with a sample mask: the serving lifecycle's
 streaming partial fit) run the one step function, :func:`_step`, so a
 chunked run replays the monolithic trajectory byte for byte.
 
-Mini-batch sampling (``mini_batch_fraction < 1``) draws JAX's threefry
-bits in the reference and is not ported yet.
+Mini-batch sampling (``mini_batch_fraction < 1``): iteration ``t``
+trains on the rows where ``uniform(fold_in(prng_key(seed), t), (n,)) <
+fraction`` (``utils/threefry``: the JAX package's threefry draws, bit for
+bit), times the sample mask where one is given, and averages over the
+sampled count. The mask is drawn on the training device; the count and
+the step's scalars stay there, so sampling adds no host round trip (the
+convergence test, when ``convergence_tol > 0``, reads its one flag pair
+a step, as the full-batch step does).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import threefry
 from ..utils.device import resolve_device
 
 _f32 = np.float32
@@ -59,31 +66,28 @@ class SGDConfig:
 
 #: ``(w, converged, n_updates)``: the (d,) float32 weights, whether the
 #: early stop fired (the weights are frozen from then on), and the
-#: updates made while not converged
+#: updates made while not converged (a 0-d device tensor inside a
+#: sampled run without the early stop, an int everywhere else)
 Carry = Tuple[torch.Tensor, bool, int]
 
 
 def _check_config(config: SGDConfig) -> None:
-    if config.mini_batch_fraction < 1.0:
-        raise NotImplementedError(
-            "mini_batch_fraction < 1 samples with the reference's threefry "
-            "bits, not yet ported; see ROADMAP.md (threefry mini-batch "
-            "sampling)"
-        )
     if config.loss not in ("logistic", "hinge"):
         raise ValueError(f"unknown loss {config.loss!r}")
 
 
-def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
-          t: int) -> Carry:
-    """Iteration ``t`` (1-based, absolute) of the MLlib-SGD loop over
-    ``x`` (n, d), ``y`` (n,) and the optional sample ``mask`` (n,) whose
-    sum is ``count``; the JAX package's scan body (``_make_scan_step``).
-    The gradient is ``x.T @ (mult * mask)`` averaged over ``count``; an
-    empty sample neither decays nor updates. The scalars are float32, as
-    the JAX engine computes them. With ``convergence_tol == 0`` the early
-    stop cannot fire and the norms (a host sync each) are skipped."""
-    w, converged, n_updates = carry
+def mini_batch_mask(config: SGDConfig, t: int, n: int, device=None) -> torch.Tensor:
+    """Iteration ``t``'s (1-based) Bernoulli(mini_batch_fraction) rows as
+    a float32 0/1 vector of ``n`` on ``device``: the JAX engine's
+    ``uniform(fold_in(PRNGKey(seed), t), (n,)) < fraction``."""
+    key = threefry.fold_in(threefry.prng_key(config.seed), t)
+    draw = threefry.uniform(key, (int(n),), device=device)
+    return (draw < float(_f32(config.mini_batch_fraction))).to(torch.float32)
+
+
+def _gradient(x, y, w, class_w, mask, config: SGDConfig) -> torch.Tensor:
+    """``x.T @ (mult * class weight * mask)``, the loss's per-sample
+    multiplier at ``w``."""
     margin = x @ w
     if config.loss == "logistic":
         mult = torch.sigmoid(margin) - y
@@ -96,7 +100,24 @@ def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
         mult = mult * class_w
     if mask is not None:
         mult = mult * mask
-    g = x.T @ mult
+    return x.T @ mult
+
+
+def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
+          t: int) -> Carry:
+    """Iteration ``t`` (1-based, absolute) of the MLlib-SGD loop over
+    ``x`` (n, d), ``y`` (n,) and the optional sample ``mask`` (n,) whose
+    sum is ``count``; the JAX package's scan body (``_make_scan_step``).
+    The gradient is ``x.T @ (mult * mask)`` averaged over ``count``; an
+    empty sample neither decays nor updates. The scalars are float32, as
+    the JAX engine computes them. With ``convergence_tol == 0`` the early
+    stop cannot fire and the norms (a host sync each) are skipped.
+    Under mini-batch sampling the iteration's draw multiplies the mask
+    and the step runs in :func:`_sampled_step`."""
+    if config.mini_batch_fraction < 1.0:
+        return _sampled_step(x, y, class_w, mask, config, carry, t)
+    w, converged, n_updates = carry
+    g = _gradient(x, y, w, class_w, mask, config)
     updated = count > 0
     step_t = _f32(config.step_size) / np.sqrt(_f32(t))
     scale = _f32(1.0) / _f32(max(count, 1.0)) if updated else _f32(0.0)
@@ -111,6 +132,37 @@ def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
     if converged:
         return w, True, n_updates
     return w_cand, hit, n_updates + (1 if updated else 0)
+
+
+def _sampled_step(x, y, class_w, mask, config: SGDConfig, carry: Carry,
+                  t: int) -> Carry:
+    """:func:`_step` with iteration ``t``'s sampled rows: the count, the
+    ``1/max(count, 1)`` scale and the decay are float32 device scalars,
+    selected on ``count > 0`` as the JAX scan selects them."""
+    w, converged, n_updates = carry
+    if converged:
+        return w, True, n_updates
+    draw = mini_batch_mask(config, t, x.shape[0], x.device)
+    mask = draw if mask is None else mask * draw
+    g = _gradient(x, y, w, class_w, mask, config)
+    count = mask.sum()
+    updated = count > 0
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    step_t = _f32(config.step_size) / np.sqrt(_f32(t))
+    scale = torch.where(updated, 1.0 / torch.clamp(count, min=1.0), zero)
+    decay = torch.where(updated, one * float(_f32(1.0) - step_t * _f32(config.reg_param)),
+                        one)
+    w_cand = w * decay - (scale * float(step_t)) * g
+    tol = float(_f32(config.convergence_tol))
+    if tol <= 0.0:
+        # the early stop cannot fire: the update count stays on the device
+        return w_cand, False, n_updates + updated.to(torch.int64)
+    diff = torch.linalg.vector_norm(w - w_cand)
+    bound = tol * torch.clamp(torch.linalg.vector_norm(w_cand), min=1.0)
+    was_updated, below = torch.stack([updated, diff < bound]).tolist()
+    hit = bool(was_updated and int(n_updates) >= 1 and below)
+    return w_cand, hit, int(n_updates) + (1 if was_updated else 0)
 
 
 def _prepare(features, labels, config: SGDConfig, sample_mask, device):
@@ -190,4 +242,4 @@ def partial_fit_linear(
     )
     for t in range(int(t_start) + 1, int(t_start) + int(n_iterations) + 1):
         out = _step(x, y, class_w, mask, count, config, out, t)
-    return out
+    return out[0], out[1], int(out[2])

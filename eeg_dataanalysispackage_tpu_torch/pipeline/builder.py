@@ -11,9 +11,11 @@ the port, in two forms:
   inside ``classifier.train``/``test`` (``-pallas`` runs the CUDA
   epoch-features kernel);
 
-then the seed-1 shuffle + 70/30 split, linear classifiers with MLlib-SGD
-semantics, ``config_*`` pass-through, ``save_clf``/``load_clf`` and the
-``result_path`` report file. ``serve=true`` drives the session through
+then the seed-1 shuffle + 70/30 split, the classifiers (logreg and svm
+with MLlib-SGD semantics, ``config_mini_batch_fraction`` sampling
+included; ``nn``, the neural network of ``models/nn.py``, trained on the
+run's device), ``config_*`` pass-through, ``save_clf``/``load_clf`` and
+the ``result_path`` report file. ``serve=true`` drives the session through
 the resident inference service (``serve/pipeline.py``), with
 ``adapt=true`` its model lifecycle (partial fit on the session's labeled
 outcomes, gated hot swap, drift; ``checkpoint_path=`` is the adapter's

@@ -1,6 +1,6 @@
 """The resident serving engine: raw epoch windows -> predictions.
 
-Port of the JAX package's ``serve/engine.py`` for linear models. One
+Port of the JAX package's ``serve/engine.py``. One
 micro-batch of requests — each carrying the raw samples of one
 stimulus-locked window: unscaled int16 for INT_16 recordings, float32
 with unit resolutions otherwise (the ``stage_raw`` convention) — runs
@@ -76,7 +76,17 @@ The warmup runs one window through the extractor, so its kernel builds
 before traffic. A non-f32 ``precision`` is recorded as ``used:
 "host-f64"``.
 
-Not ported: non-linear classifiers.
+**Classifiers without a fused margin** (``mode`` ``"featurize+host"``):
+a non-linear classifier (``nn``), or a linear one not yet trained, is
+served as the JAX package serves it. The batch goes through the fused
+rung's ingest kernel without a margin and the classifier's own
+``predict`` runs on the rows (on the engine's device: the network's
+products on the card); no margins are returned and the mega rung is not
+a candidate (``mega_record`` None). An untrained classifier's
+``predict`` raises at warmup, its own "model not trained or loaded".
+A hot swap into such an engine takes any classifier with a ``predict``.
+
+Not ported: float64 linear weights (an imported MLlib model).
 """
 
 from __future__ import annotations
@@ -114,15 +124,16 @@ class ServedModel(NamedTuple):
     """The model a solo engine serves, replaced whole by a swap."""
 
     classifier: object
-    #: (C*K,) float32 weights on the engine's device
-    weights: torch.Tensor
+    #: (C*K,) float32 weights on the engine's device; None without a
+    #: fused margin
+    weights: Optional[torch.Tensor]
     intercept: float
     threshold: float
 
 
 class ServingEngine:
-    """Executes micro-batches for one loaded linear classifier on
-    ``device`` (``None`` -> ``cuda``; raises without a card)."""
+    """Executes micro-batches for one loaded classifier on ``device``
+    (``None`` -> ``cuda``; raises without a card)."""
 
     def __init__(
         self,
@@ -152,17 +163,17 @@ class ServingEngine:
                 f"unknown engine_rung {engine_rung!r}; use 'auto', "
                 f"'mega', or 'fused'"
             )
-        if not isinstance(classifier, linear._LinearClassifier) or classifier.model is None:
+        weights = weights_of(classifier) if isinstance(
+            classifier, linear._LinearClassifier) else None
+        if weights is not None and weights.dtype != np.float32:
             raise ValueError(
-                "serving a non-linear or untrained classifier is not yet "
-                "ported; see ROADMAP.md"
+                f"serving {classifier.model.weight.dtype} linear weights (an "
+                "imported MLlib model) is not yet ported; see ROADMAP.md"
             )
-        weights = classifier.model.weight
-        if weights.dtype != torch.float32:
-            raise ValueError(
-                f"serving {weights.dtype} linear weights (an imported MLlib "
-                "model) is not yet ported; see ROADMAP.md"
-            )
+        #: the fused-margin path: trained float32 linear weights; every
+        #: other classifier is featurized by the fused rung and predicts
+        #: itself (the JAX package's "featurize+host" mode)
+        self._fused_linear = weights is not None
         self.device = resolve_device(device)
         #: the served model; replaced whole by :meth:`swap_model`
         self._model = self._served(classifier)
@@ -202,7 +213,10 @@ class ServingEngine:
         self._mega_program = None
 
     def _served(self, classifier) -> ServedModel:
-        """``classifier``'s snapshot, its weights copied to the device."""
+        """``classifier``'s snapshot, its weights copied to the device
+        (no weights, intercept or threshold without a fused margin)."""
+        if not self._fused_linear:
+            return ServedModel(classifier, None, 0.0, 0.0)
         return ServedModel(
             classifier,
             classifier.model.weight.to(self.device).contiguous(),
@@ -249,6 +263,10 @@ class ServingEngine:
         if self._rung == "host":
             return self._execute_host(windows, resolutions, model)
         res = torch.from_numpy(np.asarray(resolutions, dtype=np.float32)).to(self.device)
+        if not self._fused_linear:
+            feats = self._fused_features(self._fused, windows, res)[:n]
+            predictions = model.classifier.predict(feats)
+            return predictions.cpu().numpy().astype(np.float64, copy=False), None
         if self._rung == "mega":
             margins = self._mega_margins(windows, res, model)
         else:
@@ -379,7 +397,8 @@ class ServingEngine:
         effective = "f32"
         if self._precision != "f32":
             effective = self._precision_warmup_gate()
-        if self._engine_rung_requested != "fused" and effective != "bf16":
+        if (self._fused_linear and self._engine_rung_requested != "fused"
+                and effective != "bf16"):
             self._mega_program = self._make_mega_program(effective)
             self._mega_warmup(effective)
         for dtype in (np.int16, np.float32):
@@ -440,6 +459,11 @@ class ServingEngine:
                 f"(serve/multiplex.py)"
             )
         old = self._model
+        if not self._fused_linear:
+            if getattr(classifier, "predict", None) is None:
+                raise ValueError("hot swap requires a classifier with a predict surface")
+            self._model = ServedModel(classifier, None, 0.0, 0.0)
+            return old.classifier
         w = weights_of(classifier)
         live_shape = tuple(old.weights.shape)
         if (
@@ -541,7 +565,9 @@ class ServingEngine:
 
     @property
     def mode(self) -> str:
-        return "fused-linear" if self._host_fe is None else "host-extractor"
+        if self._host_fe is not None:
+            return "host-extractor"
+        return "fused-linear" if self._fused_linear else "featurize+host"
 
     @property
     def rung(self) -> str:

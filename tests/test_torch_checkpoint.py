@@ -205,3 +205,47 @@ def test_clear_and_retention(tmp_path):
     # a step directory without its state file is not a step
     os.makedirs(tmp_path / "step_00000009")
     assert manager.all_steps() == []
+
+
+# -- nested maps: a neural network's parameter tree ---------------------------
+
+
+def _flax_nn_tree():
+    """``model.init``'s tree of the JAX package's network: eleven layers
+    (``layer10`` sorts before ``layer2``) and an LSTM's eight gates."""
+    import jax
+    import jax.numpy as jnp
+
+    from eeg_dataanalysispackage_tpu.models import nn as jax_nn
+
+    types = ("dense",) * 9 + ("graves_lstm", "output")
+    net = jax_nn._Net(types, (3,) * 10 + (2,), ("relu",) * 10 + ("softmax",), (0.0,) * 11,
+                      "xavier")
+    rng = jax.random.PRNGKey(0)
+    return net.init({"params": rng, "dropout": rng}, jnp.zeros((1, 5)), train=False)
+
+
+@pytest.mark.parametrize("order", ["init", "sorted"])
+def test_codec_nested_maps_equal_flax(order):
+    """A nested tree in ``model.init``'s creation order (``keep_order``)
+    or in a jax.tree_util-rebuilt tree's sorted order (the default):
+    bytes equal ``flax.serialization.to_bytes``; ``from_bytes`` reads the
+    tree back in the file's order."""
+    import jax
+
+    tree = _flax_nn_tree()
+    if order == "sorted":
+        tree = jax.tree_util.tree_map(lambda a: a, tree)
+
+    def host(t):
+        return {k: host(v) if isinstance(v, dict) else np.asarray(v) for k, v in t.items()}
+
+    want = serialization.to_bytes(tree)
+    got = codec.to_bytes(host(tree), keep_order=(order == "init"))
+    assert got == want
+    back = codec.from_bytes(want)
+    assert list(back["params"]) == list(tree["params"])
+    assert list(back["params"]["layer10"]) == ["hf", "hg", "hi", "ho", "if", "ig", "ii", "io"]
+    assert back["params"]["layer10"]["ii"]["kernel"].tobytes() == np.asarray(
+        tree["params"]["layer10"]["ii"]["kernel"]).tobytes()
+    assert codec.to_bytes(back, keep_order=True) == want

@@ -1653,3 +1653,116 @@ def test_host_extractor_service_launches_the_epoch_kernel_once_a_batch():
                           host_extractor=fe_registry.create("dwt-8-pallas", device="cpu")) as cpu:
         want = cpu.predict_all(windows, RES)
     assert [r.prediction for r in served] == [r.prediction for r in want]
+
+
+# -- threefry streams and the neural network on the card --------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
+def test_threefry_draws_on_the_card_equal_the_cpu(seed):
+    """Integer threefry on the card: bits, uniforms, Bernoulli draws and
+    the SGD mini-batch masks bit-equal to the CPU's."""
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.utils import threefry
+
+    dev = _card()
+    key = threefry.fold_in(threefry.prng_key(seed), 2**32 - 1)
+    for shape in ((), (7,), (3, 5), (2135,), (1494, 64)):
+        bits = threefry.random_bits(key, shape, dev)
+        assert bits.device.type == "cuda"
+        assert torch.equal(bits.cpu(), threefry.random_bits(key, shape))
+        for lo, hi in ((0.0, 1.0), (-1.0, 1.0), (-0.9544997, 0.9544997)):
+            got = threefry.uniform(key, shape, lo, hi, dev).cpu().numpy()
+            assert got.tobytes() == threefry.uniform(key, shape, lo, hi).numpy().tobytes()
+        assert torch.equal(threefry.bernoulli(key, 0.7, shape, dev).cpu(),
+                           threefry.bernoulli(key, 0.7, shape))
+    p = torch.rand(50, 9, generator=torch.Generator().manual_seed(seed))
+    assert torch.equal(threefry.bernoulli(key, p.to(dev)).cpu(), threefry.bernoulli(key, p))
+    config = sgd.SGDConfig(mini_batch_fraction=0.5, seed=seed)
+    for t in (1, 2, 100):
+        assert torch.equal(sgd.mini_batch_mask(config, t, 2135, dev).cpu(),
+                           sgd.mini_batch_mask(config, t, 2135, "cpu"))
+
+
+def _nn_config(updater, algo="stochastic_gradient_descent"):
+    cfg = {"config_seed": "3", "config_num_iterations": "20", "config_learning_rate": "0.05",
+           "config_momentum": "0.9", "config_weight_init": "xavier",
+           "config_updater": updater, "config_optimization_algo": algo,
+           "config_pretrain": "true", "config_backprop": "true",
+           "config_loss_function": "xent"}
+    for i, (ltype, n, act, drop) in enumerate((("auto_encoder", 16, "sigmoid", "0.2"),
+                                               ("graves_lstm", 8, "tanh", "0.0"),
+                                               ("output", 2, "softmax", "0.0")), start=1):
+        cfg.update({f"config_layer{i}_layer_type": ltype, f"config_layer{i}_n_out": str(n),
+                    f"config_layer{i}_drop_out": drop,
+                    f"config_layer{i}_activation_function": act})
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater,algo", [
+    ("sgd", "stochastic_gradient_descent"), ("nesterovs", "stochastic_gradient_descent"),
+    ("adam", "stochastic_gradient_descent"), ("adagrad", "stochastic_gradient_descent"),
+    ("rmsprop", "stochastic_gradient_descent"), ("sgd", "conjugate_gradient"),
+])
+def test_nn_fit_on_the_card_matches_the_cpu(updater, algo):
+    """One fit of each updater (and CG) on the card, with denoising
+    pretraining, dropout and an LSTM: the parameters live on the card and
+    the predictions lie within 1e-4 of the CPU fit's."""
+    _card()
+    rng = np.random.RandomState(0)
+    x = rng.randn(300, 48).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.float32)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        clf = registry.create("nn")
+        clf.set_config(_nn_config(updater, algo))
+        feats = torch.from_numpy(x).to(device)
+        clf.fit(feats, torch.from_numpy(y).to(device))
+        assert next(clf.net.parameters()).device.type == torch.device(device).type
+        preds[device] = clf.predict(feats).cpu().numpy()
+    assert preds["cuda"].dtype == np.float64 and np.isfinite(preds["cuda"]).all()
+    assert np.abs(preds["cuda"] - preds["cpu"]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_nn_service_on_the_card_equals_the_nn_batch_run(tmp_path):
+    """train_clf=nn on the card (fused features, K1), then load_clf=nn and
+    serve=true&load_clf=nn on the card: the served statistics equal the
+    batch load run's, the served predictions equal the batch
+    classifier's, K1 launches, the megakernel does not."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=200)
+    cfg = "&".join(f"{k}={v}" for k, v in _nn_config("adam").items())
+    model = str(tmp_path / "model.nn")
+    PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=nn&{cfg}"
+                    f"&save_clf=true&save_name={model}").execute()
+    base = f"info_file={info}&fe=dwt-8-fused&load_clf=nn&load_name={model}"
+    batch = PipelineBuilder(base)
+    want = str(batch.execute())
+    ingest_before, mega_before = ingest_cuda.LAUNCHES, serve_mega_cuda.LAUNCHES
+    served = PipelineBuilder(base + "&serve=true")
+    assert str(served.execute()) == want
+    block = served.serve_block
+    assert (block["mode"], block["rung"], block["mega"]) == ("featurize+host", "fused", None)
+    assert ingest_cuda.LAUNCHES - ingest_before >= block["batches"] >= 1
+    assert serve_mega_cuda.LAUNCHES == mega_before
+    from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.serve import engine as engine_mod
+
+    provider = OfflineDataProvider([info], device="cpu")
+    balance = BalanceState()
+    windows, res = [], None
+    for _rel, guessed, rec in provider.iter_recordings():
+        ws, _ts, res = engine_mod.windows_from_recording(
+            rec, provider.channel_indices_for(rec), guessed, balance=balance)
+        windows.extend(ws)
+    # the batch run's loaded classifier, on the card, served
+    with InferenceService(batch.classifier) as svc:
+        got = np.array([r.prediction for r in svc.predict_all(windows, res)])
+    np.testing.assert_array_equal(got, batch.classifier.predict(batch.features).cpu().numpy())

@@ -1,7 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports the port and every one of its submodules
-and must leave ``jax``, ``flax``, ``msgpack`` and
+and must leave ``jax``, ``flax``, ``optax``, ``msgpack`` and
 ``eeg_dataanalysispackage_tpu`` out of ``sys.modules`` (a subprocess:
 tests/conftest.py imports JAX into this one; the card's host has none of
 them, so the checkpoint store writes flax's bytes with its own codec). An
@@ -29,7 +29,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(
     k for k in sys.modules
-    if k.split(".")[0] in ("jax", "flax", "msgpack", "eeg_dataanalysispackage_tpu")
+    if k.split(".")[0] in ("jax", "flax", "optax", "msgpack", "eeg_dataanalysispackage_tpu")
 )
 print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
@@ -61,7 +61,7 @@ def test_fresh_import_of_every_submodule_leaves_jax_out():
 def test_no_source_imports_jax_or_the_jax_package(path):
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
-    banned = ("jax", "flax", "msgpack", "eeg_dataanalysispackage_tpu")
+    banned = ("jax", "flax", "optax", "msgpack", "eeg_dataanalysispackage_tpu")
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -104,4 +104,22 @@ def test_the_lifecycle_modules_are_walked_and_scanned():
                 "eeg_dataanalysispackage_tpu_torch/checkpoint/codec.py",
                 "eeg_dataanalysispackage_tpu_torch/serve/lifecycle.py",
                 "tests/_torch_lifecycle_worker.py"):
+        assert rel in scanned
+
+
+def test_the_nn_slice_modules_are_walked_and_scanned():
+    """The threefry streams, the neural-network classifier and the DL4J
+    architecture import keep their own copies of flax's fold-in and
+    initializers and optax's rules: walked by the fresh import, scanned."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("utils.threefry", "models.nn", "io.dl4j_compat"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("utils/threefry.py", "models/nn.py", "io/dl4j_compat.py"):
         assert rel in scanned

@@ -253,8 +253,19 @@ def test_unported_engine_inputs_raise(session):
     host = InferenceService(clf, host_extractor=fe_registry.create("dwt-8", device="cpu"),
                             device="cpu")
     assert (host.engine.rung, host.engine.mode) == ("host", "host-extractor")
-    with pytest.raises(ValueError, match="not yet ported"):
-        engine.ServingEngine(registry.create("logreg"), device="cpu")  # untrained
+    # an untrained classifier is served as the JAX package serves it: the
+    # featurize+host mode, whose warmup predict raises the classifier's own
+    # message (the refusal this check pinned before nn serving was ported)
+    from eeg_dataanalysispackage_tpu.models import registry as jax_registry
+    untrained = engine.ServingEngine(registry.create("logreg"), device="cpu")
+    jax_untrained = jax_engine.ServingEngine(jax_registry.create("logreg"))
+    assert untrained.mode == jax_untrained.mode == "featurize+host"
+    with pytest.raises(ValueError) as ours_err:
+        untrained.warmup()
+    with pytest.raises(ValueError) as jax_err:
+        jax_untrained.warmup()
+    assert str(ours_err.value) == str(jax_err.value) == "model not trained or loaded"
+    assert untrained.mega_record is None
     eng = engine.ServingEngine(clf, capacity=4, device="cpu")
     assert eng.capacity == 64
     with pytest.raises(ValueError, match="shape"):
@@ -538,3 +549,90 @@ def test_config_knobs_parse_like_jax_package(monkeypatch):
         serve_pipeline.serve_config_from_query({"serve_batch": "many"})
     with pytest.raises(ValueError, match="must be a number"):
         serve_pipeline.serve_config_from_query({"serve_slo_ms": "fast"})
+
+
+# -- a non-linear classifier (nn): the featurize+host mode -------------------
+
+_NN_CONFIG = (
+    "&config_seed=1&config_num_iterations=50&config_learning_rate=0.1"
+    "&config_momentum=0.9&config_weight_init=xavier&config_updater=nesterovs"
+    "&config_optimization_algo=stochastic_gradient_descent"
+    "&config_pretrain=false&config_backprop=true&config_loss_function=xent"
+    "&config_layer1_layer_type=dense&config_layer1_n_out=8"
+    "&config_layer1_drop_out=0.0&config_layer1_activation_function=relu"
+    "&config_layer2_layer_type=output&config_layer2_n_out=2"
+    "&config_layer2_drop_out=0.0&config_layer2_activation_function=softmax"
+)
+
+
+@pytest.fixture(scope="module")
+def nn_model(session, tmp_path_factory):
+    """Configuration A trained and saved by the port on the session."""
+    path = str(tmp_path_factory.mktemp("nn_model") / "model.nn")
+    PipelineBuilder(f"info_file={session['info']}&fe=dwt-8-fused&train_clf=nn{_NN_CONFIG}"
+                    f"&save_clf=true&save_name={path}", device="cpu").execute()
+    return path
+
+
+def test_nn_serve_statistics_equal_the_batch_load_run(session, nn_model, tmp_path):
+    base = f"info_file={session['info']}&fe=dwt-8-fused&load_clf=nn&load_name={nn_model}"
+    batch = PipelineBuilder(base, device="cpu")
+    want = str(batch.execute())
+    builder = PipelineBuilder(base + f"&serve=true&result_path={tmp_path}/serve.txt",
+                              device="cpu")
+    assert str(builder.execute()) == want
+    assert (tmp_path / "serve.txt").read_text() == want + "\n"
+    block = builder.serve_block
+    assert (block["mode"], block["rung"], block["mega"]) == ("featurize+host", "fused", None)
+    assert block["requests"]["completed"] == len(session["windows"])
+    # the JAX package serves the same file in the same mode; predictions
+    # agree within float32 rounding of the network's products
+    jax_builder = JaxBuilder(base + "&serve=true")
+    theirs = jax_builder.execute()
+    ours = builder.statistics
+    assert (ours.true_positives, ours.true_negatives, ours.false_positives,
+            ours.false_negatives) == (theirs.true_positives, theirs.true_negatives,
+                                      theirs.false_positives, theirs.false_negatives)
+    np.testing.assert_allclose(ours.mse, theirs.mse, rtol=1e-4)
+
+
+def test_nn_engine_predicts_on_the_fused_rows(session, nn_model):
+    clf = registry.create("nn")
+    clf.load(nn_model)
+    eng = engine.ServingEngine(clf, capacity=64, device="cpu")
+    eng.warmup()
+    assert (eng.mode, eng.rung, eng.mega_record) == ("featurize+host", "fused", None)
+    windows = session["windows"][:40]
+    preds, margins = eng.execute(windows, session["resolutions"])
+    assert margins is None and preds.dtype == np.float64
+    feats = torch.from_numpy(eng.featurize(windows, session["resolutions"]))
+    np.testing.assert_array_equal(preds, clf.predict(feats).numpy())
+    from eeg_dataanalysispackage_tpu.models import registry as jax_registry
+    jax_clf = jax_registry.create("nn")
+    jax_clf.load(nn_model)
+    jax_eng = jax_engine.ServingEngine(jax_clf)
+    assert jax_eng.mode == eng.mode and jax_eng.mega_record is None
+    # a hot swap into this engine takes any classifier with a predict
+    assert eng.swap_model(registry.create("nn")) is clf
+
+
+def test_nn_serve_refusals_match_jax(session, nn_model):
+    base = (f"info_file={session['info']}&fe=dwt-8-fused&serve=true"
+            f"&load_clf=nn&load_name={nn_model}")
+    for extra in ("&serve_threshold=0.3", "&adapt=true&swap_gate=off"):
+        with pytest.raises(ValueError) as ours:
+            PipelineBuilder(base + extra, device="cpu").execute()
+        with pytest.raises(ValueError) as theirs:
+            JaxBuilder(base + extra).execute()
+        assert str(ours.value) == str(theirs.value), extra
+    from eeg_dataanalysispackage_tpu.models import registry as jax_registry
+    from eeg_dataanalysispackage_tpu.serve import multiplex as jax_multiplex
+    from eeg_dataanalysispackage_tpu_torch.serve import multiplex
+    clf, jax_clf = registry.create("nn"), jax_registry.create("nn")
+    clf.load(nn_model)
+    jax_clf.load(nn_model)
+    with pytest.raises(ValueError) as ours:
+        multiplex.MultiplexedEngine({"a": clf}, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jax_multiplex.MultiplexedEngine({"a": jax_clf})
+    assert str(ours.value) == str(theirs.value)
