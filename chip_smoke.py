@@ -17,8 +17,10 @@ the fused kernels' generic engine (a 256-sample window through
 and the serving of an IEEE_FLOAT_32 session (float32 requests through
 the megakernel's float32-sample instantiations, one and 128 tenants,
 ``adapt=true``, and the host-extractor mode), mini-batch SGD
-(``config_mini_batch_fraction=0.5``) and the neural-network classifier
-(``train_clf=nn``, ``load_clf=nn`` and ``serve=true&load_clf=nn``) — and
+(``config_mini_batch_fraction=0.5``), the neural-network classifier
+(``train_clf=nn``, ``load_clf=nn`` and ``serve=true&load_clf=nn``) and the
+tree families (``train_clf=dt|rf|gbt`` and their ``-tpu`` growers, saved,
+loaded and served) — and
 holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
@@ -133,6 +135,24 @@ Phases, one JSON line each (several for phases 2 to 6):
    statistics byte-equal to the batch load run's), and one 64-window
    batch: K1's served rows against the batch run's rows and the engine's
    featurize and predict steps (host wall, medians of 25);
+4d. the tree families on the same session: ``train_clf=dt``, ``rf``,
+   ``gbt``, ``dt-tpu``, ``rf-tpu`` and ``gbt-tpu`` on ``fe=dwt-8-fused``
+   at the defaults, each saved (K1 once per recording, the ``-tpu``
+   forests grown on the card, the train wall printed), each against the
+   port's CPU run (a test row may differ only within EDGE_TOL of a split
+   edge on its path, counted); the growers on the card runs' own rows:
+   ``dt-tpu``'s tree equal to the host ``dt`` grower's, ``rf-tpu``'s
+   forest equal to the CPU's, ``gbt-tpu``'s leaves within TREE_LEAF_TOL of
+   the CPU's and its predictions equal except where ``|F| < F_NEAR``;
+   ``fe=dwt-8-pallas&train_clf=rf`` (K4 twice); ``load_clf=`` of each
+   saved model (the test half equal to the train run's statistics);
+   ``serve=true&load_clf=rf`` and ``gbt-tpu`` (mode ``featurize+host``,
+   the ``fused`` rung, no megakernel launch, K1 once a batch plus the
+   warmup's, statistics byte-equal to the batch load run's);
+   ``InferenceService.from_saved("gbt", …)`` predicting the session's
+   windows as the batch load run's classifier does, and the CLI's
+   ``load_clf=rf-tpu`` report equal to the batch run's; and a depth-13
+   ``dt-tpu`` refused with no launch;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -760,17 +780,45 @@ def differing_rows(pred_a, m_a, pred_b, m_b, thr, label):
     return rows
 
 
+def session_windows(info):
+    """A session's serving requests in request order: (windows,
+    per-window resolutions, targets)."""
+    from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.serve import engine
+
+    odp = OfflineDataProvider([info], device="cpu")
+    windows, resolutions, targets = [], [], []
+    balance = BalanceState()
+    for _rel, guessed, rec in odp.iter_recordings():
+        ws, ts, res = engine.windows_from_recording(
+            rec, odp.channel_indices_for(rec), guessed, balance=balance)
+        windows.extend(ws)
+        resolutions.extend([res] * len(ws))
+        targets.extend(float(t) for t in ts)
+    return windows, resolutions, targets
+
+
+def run_cli(query):
+    """``python -m eeg_dataanalysispackage_tpu_torch.pipeline.cli <query>``
+    from the checkout; returns (exit code, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "eeg_dataanalysispackage_tpu_torch.pipeline.cli",
+                           query], cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    return proc.returncode, time.perf_counter() - t0
+
+
 def phase_serve(torch, np, info, model, kept):
     """serve=true end to end on the card, held against the card's batch
     load_clf= run and the CPU serve=true run; returns the megakernel's
     launches over the serve run, the session's windows, resolutions and
     targets in request order, and the serve run's statistics and latency
     block."""
-    from eeg_dataanalysispackage_tpu_torch.epochs.extractor import BalanceState
-    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
     from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega, serve_mega_cuda
     from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
-    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService, engine
+    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService
 
     base = f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}"
     batch = PipelineBuilder(base)
@@ -801,15 +849,7 @@ def phase_serve(torch, np, info, model, kept):
     cpu_served = PipelineBuilder(base + "&serve=true", device="cpu").execute()
 
     # per row: the session's windows through mega, fused and CPU services
-    odp = OfflineDataProvider([info], device="cpu")
-    windows, resolutions, targets = [], [], []
-    balance = BalanceState()
-    for _rel, guessed, rec in odp.iter_recordings():
-        ws, ts, res = engine.windows_from_recording(
-            rec, odp.channel_indices_for(rec), guessed, balance=balance)
-        windows.extend(ws)
-        resolutions.extend([res] * len(ws))
-        targets.extend(float(t) for t in ts)
+    windows, resolutions, targets = session_windows(info)
     runs = {}
     for label, kwargs in (("mega", {}), ("fused", {"engine_rung": "fused"}),
                           ("cpu", {"device": "cpu"})):
@@ -1467,18 +1507,20 @@ def phase_epoch_cases(torch, np, dwt, dwt_cuda, wavelet, dev):
     return worst
 
 
-def margins_on_test_rows(builder):
-    """(n_test,) float64 margins of a run's classifier on its test rows:
-    the fused run's kept feature rows, or the host run's test epochs
-    featurized again by its extractor."""
+def test_features(builder):
+    """A run's test rows on its device: the fused run's kept feature rows,
+    or the host run's test epochs featurized again by its extractor."""
     import torch
 
     if builder.features is not None:
         idx = torch.as_tensor(builder.test_index, device=builder.features.device)
-        feats = builder.features[idx]
-    else:
-        feats = builder.fe.extract_batch(builder.batch.epochs[builder.test_index])
-    return builder.classifier.margin(feats).double().cpu().numpy()
+        return builder.features[idx]
+    return builder.fe.extract_batch(builder.batch.epochs[builder.test_index])
+
+
+def margins_on_test_rows(builder):
+    """(n_test,) float64 margins of a run's classifier on its test rows."""
+    return builder.classifier.margin(test_features(builder)).double().cpu().numpy()
 
 
 def run_builder(label, query, device, counters):
@@ -1942,14 +1984,7 @@ NN_TOL = 1e-4  # card predictions against the CPU run's
 
 def nn_predictions(builder):
     """(n_test,) float64 predictions of a run's network on its test rows."""
-    import torch
-
-    if builder.features is not None:
-        idx = torch.as_tensor(builder.test_index, device=builder.features.device)
-        feats = builder.features[idx]
-    else:
-        feats = builder.fe.extract_batch(builder.batch.epochs[builder.test_index])
-    return builder.classifier.predict(feats).cpu().numpy()
+    return builder.classifier.predict(test_features(builder)).cpu().numpy()
 
 
 def compare_nn_runs(np, gpu, cpu, label):
@@ -2131,6 +2166,260 @@ def phase_nn(torch, np, info, counters, work, kept):
     emit("nn_serve_split", batch=64, fused_rows_vs_batch_rows_max_abs_dev=row_dev, **split)
     emit("nn_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1, k4_launches=k4,
          mini_batch_mask_ms=mask_ms, train=train)
+    return k1, k4
+
+
+TREE_NAMES = ("dt", "rf", "gbt", "dt-tpu", "rf-tpu", "gbt-tpu")
+EDGE_TOL = 2e-6  # a differing tree test row lies this close to an edge on its path
+TREE_LEAF_TOL = 1e-6  # gbt-tpu leaf values, card against CPU (tests/test_torch_trees_device.py)
+F_NEAR = 1e-5  # a gbt-tpu prediction may differ only where |F| is this small
+
+
+def compare_tree_runs(np, gpu, cpu, label):
+    """Equal statistics, or differing test rows each within EDGE_TOL of a
+    split edge on its path in the card's or the CPU's model (counted and
+    printed)."""
+    from eeg_dataanalysispackage_tpu_torch.models import trees
+
+    import torch
+
+    rows = []
+    if str(gpu.statistics) != str(cpu.statistics):
+        x_g, x_c = (test_features(r).double().cpu().numpy() for r in (gpu, cpu))
+        a = gpu.classifier.predict(torch.from_numpy(x_g)).numpy()
+        b = cpu.classifier.predict(torch.from_numpy(x_c)).numpy()
+        gap = np.minimum(trees.edge_distance(gpu.classifier.trees, gpu.classifier.edges, x_g),
+                         trees.edge_distance(cpu.classifier.trees, cpu.classifier.edges, x_c))
+        for r in np.nonzero(a != b)[0]:
+            rows.append({"row": int(gpu.test_index[r]), "edge_distance": float(gap[r])})
+        if not rows or any(x["edge_distance"] > EDGE_TOL for x in rows):
+            raise AssertionError(f"{label}: statistics differ beyond near-edge rows: {rows}")
+    emit("tree_cpu_parity", run=label, statistics_equal=not rows, near_edge_rows=rows,
+         edge_tol=EDGE_TOL)
+
+
+def same_tree(a, b, i=0, j=0) -> bool:
+    """Two trees in either layout (heap or linked) split alike from the
+    root and predict alike at every leaf."""
+    fa, fb = int(a["feature"][i]), int(b["feature"][j])
+    if fa < 0 or fb < 0:
+        return fa < 0 and fb < 0 and a["prediction"][i] == b["prediction"][j]
+    return (fa == fb and a["threshold_bin"][i] == b["threshold_bin"][j]
+            and same_tree(a, b, a["left"][i], b["left"][j])
+            and same_tree(a, b, a["right"][i], b["right"][j]))
+
+
+def hold_growers(torch, np, runs):
+    """The growers on the card held on the card runs' own feature rows:
+    dt-tpu's tree against the host dt grower's, rf-tpu's forest against
+    the port's rf-tpu grown on the CPU from the same rows, gbt-tpu's
+    rounds against the CPU's (leaf values within TREE_LEAF_TOL,
+    predictions equal except |F| < F_NEAR)."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry, trees
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    out = {}
+    for name, against in (("dt-tpu", "dt"), ("rf-tpu", "rf-tpu"), ("gbt-tpu", "gbt-tpu")):
+        card = runs[name]
+        train = java_compat.train_test_split_indices(len(card.targets), seed=1)[0]
+        rows = card.features[torch.as_tensor(train, device=card.features.device)].cpu()
+        labels = torch.as_tensor(np.asarray(card.targets)[train], dtype=torch.float32)
+        ref = registry.create(against)
+        t0 = time.perf_counter()
+        ref.fit(rows, labels)
+        cpu_fit_s = time.perf_counter() - t0
+        got, want = card.classifier.trees, ref.trees
+        record = {"trees": len(got), "cpu_fit_s": cpu_fit_s}
+        if name == "dt-tpu":
+            ok = len(got) == len(want) == 1 and same_tree(got[0], want[0])
+        elif name == "rf-tpu":
+            flips = sum(any(not np.array_equal(g[k], w[k]) for k in w)
+                        for g, w in zip(got, want))
+            record["trees_differing"] = flips
+            ok = len(got) == len(want) and flips == 0
+        else:
+            split = [r for r, (g, w) in enumerate(zip(got, want))
+                     if not (np.array_equal(g["feature"], w["feature"])
+                             and np.array_equal(g["threshold_bin"], w["threshold_bin"]))]
+            first = split[0] if split else len(got)
+            leaf_dev = max((float(np.abs(g["prediction"] - w["prediction"]).max())
+                            for g, w in zip(got[:first], want[:first])), default=0.0)
+            binned = trees.bin_features(rows.double().numpy(), card.classifier.edges)
+            lr = card.classifier._params["learning_rate"]
+            F_g, F_c = (sum(lr * trees._predict_tree(t, binned) for t in ts) for ts in (got, want))
+            pred_flips = np.nonzero((F_g >= 0) != (F_c >= 0))[0]
+            record.update(rounds_with_split_flips=split, leaf_dev=leaf_dev,
+                          leaf_tol=TREE_LEAF_TOL, prediction_flips=int(len(pred_flips)),
+                          flip_abs_F=[float(abs(F_g[r])) for r in pred_flips])
+            ok = (len(got) == len(want) and leaf_dev <= TREE_LEAF_TOL
+                  and all(abs(F_g[r]) < F_NEAR for r in pred_flips))
+        ok = bool(ok)
+        emit("tree_grower_card_vs_cpu", run=name, against=f"{against} on the CPU", equal=ok,
+             **record)
+        if not ok:
+            raise AssertionError(f"{name}: the card's trees disagree with {against} on the CPU")
+        out[name] = record
+    return out
+
+
+def phase_trees(torch, np, info, counters, work, kept, n_files):
+    """The tree families on the card: dt, rf, gbt, dt-tpu, rf-tpu and
+    gbt-tpu on fe=dwt-8-fused at the defaults (K1 once per recording),
+    each saved and held against the port's CPU run under the edge rule;
+    the growers held on the card runs' own rows; rf on fe=dwt-8-pallas
+    (K4 twice); load_clf= of each saved model; serve=true&load_clf=rf and
+    gbt-tpu (featurize+host, no megakernel) byte-equal to the batch load
+    runs; InferenceService.from_saved and the CLI against the batch load
+    runs; a depth-13 dt-tpu refused with no launch. Returns (K1 launches,
+    K4 launches) over the card runs of this process."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry, trees_device
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.serve import InferenceService
+
+    t_phase = time.perf_counter()
+    base = f"info_file={info}"
+    k1 = k4 = 0
+    # every device growth records the device it ran on
+    grown = []
+    real = {f: getattr(trees_device, f) for f in ("grow_forest", "boost_gbt")}
+
+    def spy(name):
+        def grow(binned, *args, **kwargs):
+            grown.append(binned.device.type)
+            return real[name](binned, *args, **kwargs)
+        return grow
+
+    for name in real:
+        setattr(trees_device, name, spy(name))
+    try:
+        runs, models, train = {}, {}, {}
+        for name in TREE_NAMES:
+            models[name] = os.path.join(work, f"model_{name}")
+            q = f"{base}&fe=dwt-8-fused&train_clf={name}"
+            del grown[:]
+            gpu = run_builder(f"{name}_fused_cuda", q + f"&save_clf=true&save_name={models[name]}",
+                              None, counters)
+            card_growths = list(grown)
+            cpu = run_builder(f"{name}_fused_cpu", q, "cpu", counters)
+            if gpu[2]["ingest_features"] != n_files or cpu[2]["ingest_features"]:
+                raise AssertionError(f"{name}: K1 launched {gpu[2]['ingest_features']} times on "
+                                     f"the card run, not once per recording")
+            if name.endswith("-tpu") and card_growths != [gpu[0].device.type]:
+                raise AssertionError(f"{name}: the forest grew on {card_growths}, not on "
+                                     f"{gpu[0].device}")
+            compare_tree_runs(np, gpu[0], cpu[0], f"{name}_fused")
+            k1 += gpu[2]["ingest_features"]
+            runs[name] = gpu[0]
+            train[name] = {"train_s": gpu[0].timers["train"], "stages_s": gpu[0].timers,
+                           "cpu_train_s": cpu[0].timers["train"],
+                           "accuracy": gpu[1].calc_accuracy()}
+            emit("tree_train", run=name, fe="dwt-8-fused", train_s=gpu[0].timers["train"],
+                 cpu_train_s=cpu[0].timers["train"], trees=len(gpu[0].classifier.trees),
+                 statistics=str(gpu[1]))
+        growers = hold_growers(torch, np, runs)
+
+        # rf on the host fe= path through the epoch-features kernel
+        q = f"{base}&fe=dwt-8-pallas&train_clf=rf"
+        gpu = run_builder("rf_pallas_cuda", q, None, counters)
+        cpu = run_builder("rf_pallas_cpu", q, "cpu", counters)
+        if gpu[2]["epoch_features"] != 2 or cpu[2]["epoch_features"]:
+            raise AssertionError(f"rf -pallas: K4 launched {gpu[2]['epoch_features']} times, "
+                                 "not 2")
+        compare_tree_runs(np, gpu[0], cpu[0], "rf_pallas")
+        k4 += gpu[2]["epoch_features"]
+        train["rf_pallas"] = {"train_s": gpu[0].timers["train"]}
+
+        # load_clf= of each saved model: the test half equals the train run
+        loads = {}
+        for name in TREE_NAMES:
+            load = f"{base}&fe=dwt-8-fused&load_clf={name}&load_name={models[name]}"
+            batch, batch_stats, launches = run_builder(f"{name}_load_cuda", load, None, counters)
+            k1 += launches["ingest_features"]
+            trained = runs[name]
+            idx = torch.as_tensor(trained.test_index, device=batch.features.device)
+            half = batch.classifier.test_features(
+                batch.features[idx], np.asarray(trained.targets)[trained.test_index])
+            equal = (str(half) == str(trained.statistics)
+                     and torch.equal(batch.features, trained.features))
+            emit("tree_load", run=name, test_half_equal_train_run=equal,
+                 statistics=str(batch_stats))
+            if not equal:
+                raise AssertionError(f"load_clf={name}: the test half differs from the train run")
+            loads[name] = (load, batch_stats, batch)
+
+        # serve=true of the saved rf and gbt-tpu models
+        served = {}
+        for name in ("rf", "gbt-tpu"):
+            load, batch_stats, _batch = loads[name]
+            ingest_cuda.LAUNCHES = 0
+            ingest_cuda.LAUNCHES_F32 = 0
+            serve_mega_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            builder = PipelineBuilder(load + "&serve=true")
+            stats_ = builder.execute()
+            wall = time.perf_counter() - t0
+            serve_k1, mega = ingest_cuda.LAUNCHES, serve_mega_cuda.LAUNCHES
+            block, req = builder.serve_block, builder.serve_block["requests"]
+            equal = str(stats_) == str(batch_stats)
+            served[name] = {"wall_s": wall, "latency_ms": block["latency_ms"],
+                            "batches": block["batches"], "ingest_launches": serve_k1}
+            emit("tree_serve_e2e", run=name, mode=block["mode"], rung=block["rung"],
+                 mega=block["mega"], ingest_launches=serve_k1,
+                 ingest_f32s_launches_warmup=ingest_cuda.LAUNCHES_F32, serve_mega_launches=mega,
+                 kept=kept, completed=req["completed"], shed=req["shed"],
+                 batches=block["batches"], mean_batch_size=block["mean_batch_size"],
+                 latency_ms=block["latency_ms"], drained_cleanly=block["drained_cleanly"],
+                 wall_s=wall, stages_s=builder.timers, statistics_equal_batch=equal)
+            if not (block["mode"] == "featurize+host" and block["rung"] == "fused"
+                    and block["mega"] is None and mega == 0 and req["completed"] == kept
+                    and serve_k1 >= block["batches"] >= math.ceil(kept / 64) and equal):
+                raise AssertionError(f"serve=true&load_clf={name} did not serve like the batch "
+                                     "load run on the fused rung")
+            k1 += serve_k1
+
+        # the other entry points: InferenceService.from_saved and the CLI
+        windows, resolutions, _ = session_windows(info)
+        batch = loads["gbt"][2]
+        t0 = time.perf_counter()
+        with InferenceService.from_saved("gbt", models["gbt"], device=batch.device) as svc:
+            got = np.array([r.prediction for r in svc.predict_all(windows, resolutions)])
+        from_saved_s = time.perf_counter() - t0
+        from_saved_equal = bool(np.array_equal(
+            got, batch.classifier.predict(batch.features).cpu().numpy()))
+        result = os.path.join(work, "cli_result.txt")
+        rc, cli_s = run_cli(loads["rf-tpu"][0] + f"&result_path={result}")
+        with open(result, encoding="utf-8") as f:
+            cli_equal = rc == 0 and f.read() == str(loads["rf-tpu"][1]) + "\n"
+        emit("tree_entry_points", from_saved="gbt", from_saved_equal_batch=from_saved_equal,
+             from_saved_s=from_saved_s, cli="load_clf=rf-tpu", cli_rc=rc,
+             cli_equal_batch=cli_equal, cli_wall_s=cli_s)
+        if not (from_saved_equal and cli_equal):
+            raise AssertionError("InferenceService.from_saved or the CLI disagrees with the "
+                                 "batch load runs")
+
+        # a depth-13 dt-tpu is refused before any launch
+        del grown[:]
+        before = ingest_cuda.LAUNCHES
+        clf = registry.create("dt-tpu")
+        clf.set_config({"config_max_bins": "32", "config_impurity": "gini",
+                        "config_max_depth": "13", "config_min_instances_per_node": "1"})
+        card = runs["dt-tpu"]
+        try:
+            clf.fit(card.features, torch.zeros(len(card.targets), device=card.features.device))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("a depth-13 dt-tpu fit was not refused")
+        emit("tree_refusal", message=refused, growths=len(grown),
+             launches=ingest_cuda.LAUNCHES - before)
+        if grown or ingest_cuda.LAUNCHES != before or "max_depth <= 12" not in refused:
+            raise AssertionError("the depth-13 dt-tpu refusal launched work on the card")
+    finally:
+        for name, fn in real.items():
+            setattr(trees_device, name, fn)
+    emit("tree_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1, k4_launches=k4,
+         train=train, growers=growers, serve=served)
     return k1, k4
 
 
@@ -3508,6 +3797,9 @@ def main() -> int:
         f32s_launches = phase_float_serve(torch, np, float_info, work)
         # 4c. threefry mini-batch sampling and the neural network
         nn_k1, nn_k4 = phase_nn(torch, np, info, counters, work, int(len(gpu.targets)))
+        # 4d. the tree families
+        tree_k1, tree_k4 = phase_trees(torch, np, info, counters, work, int(len(gpu.targets)),
+                                       n_files=8)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -3610,16 +3902,17 @@ def main() -> int:
     mega_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:259"
     multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
-        # the main path's run and the runs of phase 4c (mini-batch SGD,
-        # the nn batch, load and serve runs)
+        # the main path's run and the runs of phases 4c (mini-batch SGD,
+        # the nn batch, load and serve runs) and 4d (the tree families)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
-                     main_launches + nn_k1, max(max_err["f32"], k1[4]), k1,
+                     main_launches + nn_k1 + tree_k1, max(max_err["f32"], k1[4]), k1,
                      library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
-                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44", k4_launches + nn_k4,
+                     "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
+                     k4_launches + nn_k4 + tree_k4,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
         # the epoch-features kernel behind the host-extractor service

@@ -32,6 +32,12 @@ class Classifier(abc.ABC):
     # from MulticlassMetrics' confusion matrix only (the MLlib paths)
     confusion_only_stats: bool = True
 
+    #: the dtype :meth:`train` casts the extracted rows to before
+    #: :meth:`fit`: float32, as the JAX engines cast them; None keeps the
+    #: extractor's own dtype, as the JAX package hands it to every
+    #: ``fit`` (the tree families bin float64 host features)
+    fit_dtype: Optional[torch.dtype] = torch.float32
+
     def __init__(self) -> None:
         self.config: Dict[str, str] = {}
         self.fe: Optional[features_base.FeatureExtraction] = None
@@ -48,8 +54,8 @@ class Classifier(abc.ABC):
     def train(self, epochs: np.ndarray, targets: np.ndarray,
               fe: features_base.FeatureExtraction) -> None:
         """Extract features from host ``epochs`` with ``fe`` and fit on
-        them: the features reach :meth:`fit` as float32 rows on the
-        extractor's device, as the JAX engine casts them."""
+        them: the features reach :meth:`fit` on the extractor's device,
+        cast to :attr:`fit_dtype` where it is set."""
         self.fe = fe
         features = self._extract(epochs)
         t0 = time.perf_counter()
@@ -57,7 +63,9 @@ class Classifier(abc.ABC):
             np.asarray(targets, dtype=np.float64), dtype=torch.float32,
             device=features.device,
         )
-        self.fit(features.to(torch.float32), labels)
+        if self.fit_dtype is not None:
+            features = features.to(self.fit_dtype)
+        self.fit(features, labels)
         _sync(features.device)
         self._tick("fit", t0)
 

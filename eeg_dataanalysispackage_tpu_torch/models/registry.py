@@ -1,24 +1,31 @@
 """``train_clf=`` / ``load_clf=`` registry.
 
-The reference's classifier switch (PipelineBuilder.java:156-169) for the
-families ported so far (logreg, svm, nn); unknown names raise the
-reference's message.
+The reference's classifier switch (PipelineBuilder.java:156-169): svm,
+logreg, dt, rf, nn, and the JAX package's gbt and ``-tpu`` tree growers
+(``models/trees_device.py``, on the features' device); unknown names
+raise the reference's message.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import base, linear, nn
+from . import base, linear, nn, trees
 
 _REGISTRY: Dict[str, Callable[[], base.Classifier]] = {
     "logreg": linear.LogisticRegressionClassifier,
     "svm": linear.SVMClassifier,
+    "dt": trees.DecisionTreeClassifier,
+    "rf": trees.RandomForestClassifier,
+    "dt-tpu": lambda: trees.DecisionTreeClassifier(backend="device"),
+    "rf-tpu": lambda: trees.RandomForestClassifier(backend="device"),
+    "gbt": trees.GradientBoostedTreesClassifier,
+    "gbt-tpu": lambda: trees.GradientBoostedTreesClassifier(backend="device"),
     "nn": nn.NeuralNetworkClassifier,
 }
 
-#: the JAX package's other families, not yet ported (see ROADMAP.md)
-NOT_PORTED = ("dt", "rf", "dt-tpu", "rf-tpu", "gbt", "gbt-tpu")
+#: the JAX package's classifier families not yet ported (see ROADMAP.md)
+NOT_PORTED: tuple = ()
 
 
 def create(name: str) -> base.Classifier:

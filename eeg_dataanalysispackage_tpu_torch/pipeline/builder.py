@@ -14,7 +14,9 @@ the port, in two forms:
 then the seed-1 shuffle + 70/30 split, the classifiers (logreg and svm
 with MLlib-SGD semantics, ``config_mini_batch_fraction`` sampling
 included; ``nn``, the neural network of ``models/nn.py``, trained on the
-run's device), ``config_*`` pass-through, ``save_clf``/``load_clf`` and
+run's device; the trees ``dt``, ``rf``, ``gbt`` of ``models/trees.py``,
+grown on the host, and their ``-tpu`` names, grown on the run's device),
+``config_*`` pass-through, ``save_clf``/``load_clf`` and
 the ``result_path`` report file. ``serve=true`` drives the session through
 the resident inference service (``serve/pipeline.py``), with
 ``adapt=true`` its model lifecycle (partial fit on the session's labeled

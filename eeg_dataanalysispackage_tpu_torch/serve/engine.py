@@ -77,12 +77,14 @@ before traffic. A non-f32 ``precision`` is recorded as ``used:
 "host-f64"``.
 
 **Classifiers without a fused margin** (``mode`` ``"featurize+host"``):
-a non-linear classifier (``nn``), or a linear one not yet trained, is
-served as the JAX package serves it. The batch goes through the fused
-rung's ingest kernel without a margin and the classifier's own
-``predict`` runs on the rows (on the engine's device: the network's
-products on the card); no margins are returned and the mega rung is not
-a candidate (``mega_record`` None). An untrained classifier's
+a non-linear classifier (``nn``; the trees ``dt``, ``rf``, ``gbt`` and
+their ``-tpu`` names, which have no linear weights), or a linear one not
+yet trained, is served as the JAX package serves it. The batch goes
+through the fused rung's ingest kernel without a margin and the
+classifier's own ``predict`` runs on the rows (the network's products on
+the engine's device; a tree bins the rows on the host and walks them
+there, or on the rows' device for ``dt-tpu``/``rf-tpu``); no margins are
+returned and the mega rung is not a candidate (``mega_record`` None). An untrained classifier's
 ``predict`` raises at warmup, its own "model not trained or loaded".
 A hot swap into such an engine takes any classifier with a ``predict``.
 

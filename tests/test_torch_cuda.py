@@ -4,7 +4,8 @@ serve megakernel (f32, int8, int4, on int16 and float32 streams), its
 tenant-stacked instantiation (K6, held bit for bit against the solo
 megakernel per lane, and through a multi-tenant service against solo
 services), float32 sessions served on the card, the host-extractor
-service, and the epoch-features
+service, the tree growers on the card (against the host grower and the
+CPU, ties included, and a served forest), and the epoch-features
 kernel (at every window alignment, at any window and coefficient count
 the cascade has, and on wide montages).
 
@@ -1766,3 +1767,116 @@ def test_nn_service_on_the_card_equals_the_nn_batch_run(tmp_path):
     with InferenceService(batch.classifier) as svc:
         got = np.array([r.prediction for r in svc.predict_all(windows, res)])
     np.testing.assert_array_equal(got, batch.classifier.predict(batch.features).cpu().numpy())
+
+
+# -- the tree families ---------------------------------------------------------------
+
+
+def _tree_data(n=1494, d=48, seed=0):
+    """L2-normalized float32 rows (the fused path's features) and labels."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d)
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    y = ((x[:, 0] + x[:, 5] + 0.2 * rng.randn(n)) > 0).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def _same_tree(a, b, i=0, j=0):
+    fa, fb = int(a["feature"][i]), int(b["feature"][j])
+    if fa < 0 or fb < 0:
+        return fa < 0 and fb < 0 and a["prediction"][i] == b["prediction"][j]
+    return (fa == fb and a["threshold_bin"][i] == b["threshold_bin"][j]
+            and _same_tree(a, b, a["left"][i], b["left"][j])
+            and _same_tree(a, b, a["right"][i], b["right"][j]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impurity", ["gini", "entropy"])
+def test_dt_tpu_on_the_card_equals_the_host_dt(impurity):
+    """The device grower on the card grows the host dt grower's tree
+    (split for split, leaf for leaf) from the same rows, and predicts on
+    the card as the host tree does."""
+    dev = _card()
+    x, y = _tree_data()
+    config = {"config_max_bins": "32", "config_impurity": impurity, "config_max_depth": "5",
+              "config_min_instances_per_node": "1"}
+    card, host = registry.create("dt-tpu"), registry.create("dt")
+    for clf in (card, host):
+        clf.set_config(config)
+    card.fit(x.to(dev), y.to(dev))
+    host.fit(x, y)
+    assert _same_tree(card.trees[0], host.trees[0])
+    got = card.predict(x.to(dev))
+    assert got.device.type == dev.type and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.cpu().numpy(), host.predict(x).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rf-tpu", "gbt-tpu"])
+def test_device_growers_on_the_card_equal_the_cpu(name):
+    """rf-tpu (100 trees, sqrt subsets) and gbt-tpu (100 rounds) at the
+    defaults: the card's tree arrays equal the CPU's (the impurities and
+    gains are IEEE operations both devices share; gbt-tpu's float64
+    histogram sums round to the same float32 values)."""
+    dev = _card()
+    x, y = _tree_data(seed=1)
+    card, cpu = registry.create(name), registry.create(name)
+    card.fit(x.to(dev), y.to(dev))
+    cpu.fit(x, y)
+    assert len(card.trees) == len(cpu.trees) == 100
+    for a, b in zip(card.trees, cpu.trees):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(card.predict(x.to(dev)).cpu().numpy(),
+                                  cpu.predict(x).numpy())
+
+
+@pytest.mark.cuda
+def test_argmax_ties_on_the_card_take_the_first_index():
+    """Rows of exactly equal maxima (and of -inf) pick the first index on
+    the card, as on the CPU: the growers' tie-break."""
+    dev = _card()
+    rng = np.random.RandomState(0)
+    scores = np.full((512, 48 * 31), -np.inf, np.float32)
+    for r in range(512):
+        k = rng.randint(1, 40)
+        at = np.sort(rng.choice(scores.shape[1], size=k, replace=False))
+        scores[r, at] = np.float32(0.125)
+    scores[::7] = -np.inf
+    t = torch.from_numpy(scores)
+    got = torch.argmax(t.to(dev), dim=1).cpu()
+    want = torch.from_numpy(np.argmax(scores, axis=1))
+    assert torch.equal(got, want) and torch.equal(torch.argmax(t, dim=1), want)
+    from eeg_dataanalysispackage_tpu_torch.models import trees_device
+    x = np.repeat(np.arange(4.0), 10)[:, None]
+    binned = np.concatenate([x, x, x], axis=1).astype(np.int64)  # identical columns
+    y = torch.from_numpy((x[:, 0] >= 2).astype(np.int64))[None]
+    mask = torch.ones((1, 3, 3), dtype=torch.bool)
+    for device in (dev, torch.device("cpu")):
+        heap = trees_device._grow_one(
+            torch.from_numpy(binned)[None].to(device), y.to(device), mask.to(device),
+            max_bins=4, impurity="gini", max_depth=2, min_instances=1)
+        assert int(heap["feature"][0, 0]) == 0 and int(heap["threshold_bin"][0, 0]) == 1
+
+
+@pytest.mark.cuda
+def test_served_rf_on_the_card_equals_the_batch_run(tmp_path):
+    """train_clf=rf on the card's fused features, then serve=true&load_clf=rf:
+    mode featurize+host on the fused rung, no megakernel, statistics equal
+    to the batch load run's."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=300)
+    model = str(tmp_path / "rf")
+    PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=rf&save_clf=true"
+                    f"&save_name={model}").execute()
+    base = f"info_file={info}&fe=dwt-8-fused&load_clf=rf&load_name={model}"
+    want = str(PipelineBuilder(base).execute())
+    mega_before = serve_mega_cuda.LAUNCHES
+    served = PipelineBuilder(base + "&serve=true")
+    assert str(served.execute()) == want
+    block = served.serve_block
+    assert (block["mode"], block["rung"], block["mega"]) == ("featurize+host", "fused", None)
+    assert serve_mega_cuda.LAUNCHES == mega_before

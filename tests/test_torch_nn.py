@@ -356,10 +356,28 @@ def test_refusals_match_jax(tmp_path):
 
 
 def test_registry_creates_nn_and_keeps_the_tree_families_out():
+    """The registry creates nn and the six tree names (the tree families
+    were refused here until they were ported; the name is kept), each
+    the JAX registry's class and backend, and refuses none."""
+    from eeg_dataanalysispackage_tpu.models import registry as jax_registry
+
+    from eeg_dataanalysispackage_tpu_torch.models import trees
+
     assert isinstance(registry.create("nn"), nn.NeuralNetworkClassifier)
-    for name in ("dt", "rf", "dt-tpu", "rf-tpu", "gbt", "gbt-tpu"):
-        with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
-            registry.create(name)
+    assert registry.NOT_PORTED == ()
+    for name, cls, backend in (
+        ("dt", trees.DecisionTreeClassifier, "host"),
+        ("rf", trees.RandomForestClassifier, "host"),
+        ("dt-tpu", trees.DecisionTreeClassifier, "device"),
+        ("rf-tpu", trees.RandomForestClassifier, "device"),
+        ("gbt", trees.GradientBoostedTreesClassifier, "host"),
+        ("gbt-tpu", trees.GradientBoostedTreesClassifier, "device"),
+    ):
+        clf, theirs = registry.create(name), jax_registry.create(name)
+        assert type(clf) is cls and clf.backend == backend
+        assert type(clf).__name__ == type(theirs).__name__ and theirs.backend == backend
+    with pytest.raises(ValueError, match="Unsupported classifier argument"):
+        registry.create("xgb")
 
 
 # -- the pipeline ------------------------------------------------------------------

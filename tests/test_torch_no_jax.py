@@ -123,3 +123,24 @@ def test_the_nn_slice_modules_are_walked_and_scanned():
     scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
     for rel in ("utils/threefry.py", "models/nn.py", "io/dl4j_compat.py"):
         assert rel in scanned
+
+
+def test_the_tree_modules_are_walked_and_scanned():
+    """The tree classifiers and the device growers keep their own copy of
+    the MLlib split sketch (the JAX package's ``mllib_tree_oracle`` is
+    JAX-free, but it is the JAX package's): walked by the fresh import,
+    scanned, and neither names ``mllib_tree_oracle``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("models.trees", "models.trees_device"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("models/trees.py", "models/trees_device.py"):
+        assert rel in scanned
+        with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+            assert "mllib_tree_oracle" not in f.read()
