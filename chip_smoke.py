@@ -153,6 +153,23 @@ Phases, one JSON line each (several for phases 2 to 6):
    windows as the batch load run's classifier does, and the CLI's
    ``load_clf=rf-tpu`` report equal to the batch run's; and a depth-13
    ``dt-tpu`` refused with no launch;
+4e. the training surface beyond one model on the same session:
+   ``classifiers=logreg,svm,dt,rf,nn`` on ``fe=dwt-8-fused`` (K1 once per
+   recording, each leg byte-equal to its single card run, ``result_path``
+   the legs' reports in request order) and ``logreg,svm,rf`` on
+   ``fe=dwt-8-pallas`` (K4 once); the bench's 16-member population
+   (``cv=4`` x a 2 x 2 lr/reg grid, 6,000 iterations) batched and looped,
+   their ``result_path`` byte-equal and the looped train under
+   LOOPED_LIMIT_S; an svm population with a live seed axis (batched equal
+   to looped, the member masks equal to the CPU's); an nn population
+   (``seeds=4&sweep=lr:0.1,0.05``, batched); ``elastic=true`` logreg, nn
+   and rf under a ``device.step`` fault (one restart, the plain run's
+   statistics, the checkpoints cleared); nn's ``lbfgs`` and
+   ``line_gradient_descent`` through the builder (train wall, line-search
+   steps), then each optimizer alone: LBFGS_HORIZON updates on the card
+   run's own train rows, on the card and on the CPU, the same line-search
+   steps at every update and predictions within NN_TOL. Every run against
+   the port's CPU run under phase 4's near-threshold rules;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -1535,8 +1552,10 @@ def run_builder(label, query, device, counters):
     stats = builder.execute()
     wall = time.perf_counter() - t0
     launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    accuracy = (stats.calc_accuracy() if hasattr(stats, "calc_accuracy")
+                else {name: leg.calc_accuracy() for name, leg in stats.items()})
     emit("e2e", run=label, device=str(builder.device), launches=launches,
-         rows=int(len(builder.targets)), accuracy=stats.calc_accuracy(),
+         rows=int(len(builder.targets)), accuracy=accuracy,
          wall_s=wall, stages_s=builder.timers)
     return builder, stats, launches
 
@@ -2420,6 +2439,317 @@ def phase_trees(torch, np, info, counters, work, kept, n_files):
             setattr(trees_device, name, fn)
     emit("tree_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1, k4_launches=k4,
          train=train, growers=growers, serve=served)
+    return k1, k4
+
+
+# the bench's fan-out configuration (tools/pipeline_bench.py _CONFIG): every
+# classifier picks the keys it knows
+FANOUT_CONFIG = (
+    "&config_num_iterations=20&config_step_size=1.0&config_mini_batch_fraction=1.0"
+    "&config_reg_param=0.01&config_max_bins=16&config_impurity=gini&config_max_depth=4"
+    "&config_min_instances_per_node=1&config_num_trees=5&config_feature_subset=auto"
+    "&config_seed=1&config_learning_rate=0.1&config_momentum=0.9"
+    "&config_weight_init=xavier&config_updater=nesterovs"
+    "&config_optimization_algo=stochastic_gradient_descent&config_pretrain=false"
+    "&config_backprop=true&config_loss_function=xent&config_layer1_layer_type=dense"
+    "&config_layer1_n_out=8&config_layer1_drop_out=0.0"
+    "&config_layer1_activation_function=relu&config_layer2_layer_type=output"
+    "&config_layer2_n_out=2&config_layer2_drop_out=0.0"
+    "&config_layer2_activation_function=softmax")
+# the bench's population pair: cv=4 x a 2 x 2 lr/reg grid = 16 members
+POPULATION_AXES = "cv=4&sweep=lr:1.0,0.5;reg:0.0,0.01"
+POPULATION_ITERS = 6000
+LOOPED_LIMIT_S = 60.0  # the looped population's train stage must stay under it
+LBFGS_HORIZON = 20  # updates of the optimizer-alone check on the card run's rows
+
+
+def leg_view(builder, name):
+    """One fan-out leg seen as a single run (classifier, statistics, the
+    shared test rows), for the phase-4 comparison helpers."""
+    import types
+
+    return types.SimpleNamespace(classifier=builder.classifiers[name],
+                                 statistics=builder.statistics[name],
+                                 test_index=builder.test_index, features=builder.features,
+                                 batch=builder.batch, fe=builder.fe, device=builder.device)
+
+
+def compare_legs(np, gpu, cpu, name, label):
+    """A leg against another run of it under phase 4's near-threshold rule
+    for its family (margins, network predictions, tree edges)."""
+    if name in ("logreg", "svm"):
+        compare_runs(np, gpu, cpu, label)
+    elif name == "nn":
+        compare_nn_runs(np, gpu, cpu, label)
+    else:
+        compare_tree_runs(np, gpu, cpu, label)
+
+
+def compare_members(np, torch, gpu, cpu, label, linear):
+    """A population's members on the card against the CPU run's: equal
+    statistics, or differing test rows within MARGIN_BAND of the threshold
+    on both (linear), or predictions within NN_TOL rounding apart only
+    within NN_TOL of 0.5 (nn). Returns the differing rows."""
+    if list(gpu.statistics) != list(cpu.statistics):
+        raise AssertionError(f"{label}: the member sets differ")
+    rows = []
+    for m in gpu.statistics:
+        g, c = gpu.population_states[m], cpu.population_states[m]
+        if linear:
+            idx = torch.as_tensor(g["test_index"])
+            m_g = (gpu.features[idx.to(gpu.features.device)] @ g["state"]).double().cpu().numpy()
+            m_c = (cpu.features[idx] @ c["state"]).double().numpy()
+            differ = np.nonzero((m_g > 0) != (m_c > 0))[0]
+            rows += [{"member": m, "row": int(r), "margin_cuda": float(m_g[r]),
+                      "margin_cpu": float(m_c[r])} for r in differ]
+            ok = all(abs(m_g[r]) <= MARGIN_BAND and abs(m_c[r]) <= MARGIN_BAND for r in differ)
+        else:
+            p_g, p_c = g["predictions"], c["predictions"]
+            differ = np.nonzero(np.floor(p_g + 0.5) != np.floor(p_c + 0.5))[0]
+            rows += [{"member": m, "row": int(r), "pred_cuda": float(p_g[r]),
+                      "pred_cpu": float(p_c[r])} for r in differ]
+            ok = (float(np.abs(p_g - p_c).max()) <= NN_TOL
+                  and all(abs(p_g[r] - 0.5) <= NN_TOL for r in differ))
+        if not ok:
+            raise AssertionError(f"{label} {m}: members disagree beyond the near-threshold rule")
+    emit("population_cpu_parity", run=label, members=len(gpu.statistics),
+         statistics_equal=str(gpu.statistics) == str(cpu.statistics), near_threshold_rows=rows)
+    return rows
+
+
+def population_pair(np, info, counters, work, iters, label):
+    """The bench's population on the card, batched and looped: the two
+    result_path texts byte-equal; returns (vmap run, looped run)."""
+    out = {}
+    for mode in ("vmap", "looped"):
+        q = (f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&{POPULATION_AXES}"
+             f"&population_mode={mode}&config_num_iterations={iters}&config_step_size=1.0"
+             f"&config_mini_batch_fraction=1.0&result_path={work}/pop_{mode}.txt")
+        out[mode] = run_builder(f"{label}_{mode}_cuda", q, None, counters)
+    texts = {m: open(f"{work}/pop_{m}.txt").read() for m in out}
+    vm, lo = out["vmap"][0], out["looped"][0]
+    emit("population_pair", run=label, iterations=iters, members=len(vm.statistics),
+         modes=[vm.population_block["mode"], lo.population_block["mode"]],
+         result_path_equal=texts["vmap"] == texts["looped"],
+         train_s={m: out[m][0].timers["train"] for m in out},
+         members_per_s={m: len(vm.statistics) / out[m][0].timers["train"] for m in out})
+    if not (texts["vmap"] == texts["looped"] and vm.population_block["mode"] == "vmap"
+            and lo.population_block["mode"] == "looped"):
+        raise AssertionError(f"{label}: the batched and looped populations disagree")
+    return out["vmap"], out["looped"]
+
+
+def optimizer_alone(torch, np, builder, updates):
+    """A value-function nn run's optimizer alone: its classifier's config
+    refit for ``updates`` updates on the run's own train rows, on the card
+    and on the CPU (the same float32 rows copied to the host). Returns
+    ({device: per-update line-search steps}, max abs prediction deviation
+    on the run's test rows)."""
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    train, _ = java_compat.train_test_split_indices(len(builder.targets), seed=1)
+    idx = torch.as_tensor(train, device=builder.features.device)
+    x = builder.features[idx]
+    y = torch.as_tensor(builder.targets, device=x.device)[idx].to(torch.float32)
+    test = test_features(builder)
+    steps, preds = {}, {}
+    for device in ("cuda", "cpu"):
+        clf = registry.create("nn")
+        clf.set_config(dict(builder.classifier.config, config_num_iterations=str(updates)))
+        clf.fit(x.to(device), y.to(device))
+        preds[device] = clf.predict(test.to(device)).cpu().numpy()
+        steps[device] = [n for n, _ in clf.linesearch_history]
+    return steps, float(np.abs(preds["cuda"] - preds["cpu"]).max())
+
+
+def phase_training_surface(torch, np, info, counters, work, kept, n_files):
+    """The training surface beyond one model on the card: classifiers=
+    fan-outs (fused: K1 once per recording, legs byte-equal to single card
+    runs; -pallas: K4 once, legs equal to single runs under the
+    near-threshold rule), the bench's 16-member logreg population batched
+    and looped, an svm population with a live seed axis, an nn population,
+    elastic runs under a device.step fault, and nn's lbfgs and
+    line_gradient_descent; every run against the port's CPU run. Returns
+    (K1 launches, K4 launches) over the card runs."""
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.obs import chaos
+
+    t_phase = time.perf_counter()
+    base = f"info_file={info}"
+    k1 = k4 = 0
+
+    # 1. the five-classifier fan-out on fe=dwt-8-fused
+    names = ("logreg", "svm", "dt", "rf", "nn")
+    q = f"{base}&fe=dwt-8-fused&classifiers={','.join(names)}{FANOUT_CONFIG}"
+    fan = run_builder("fanout5_fused_cuda", q + f"&result_path={work}/fan.txt", None, counters)
+    fan_cpu = run_builder("fanout5_fused_cpu", q, "cpu", counters)
+    if fan[2]["ingest_features"] != n_files or fan_cpu[2]["ingest_features"]:
+        raise AssertionError(f"the fused fan-out launched K1 {fan[2]['ingest_features']} times, "
+                             f"not once per recording ({n_files})")
+    k1 += fan[2]["ingest_features"]
+    text = open(f"{work}/fan.txt").read()
+    concat = "\n".join(f"classifier: {n}\n{fan[1][n]}" for n in names) + "\n"
+    singles = {}
+    for name in names:
+        single = run_builder(f"fanout_single_{name}_cuda",
+                             f"{base}&fe=dwt-8-fused&train_clf={name}{FANOUT_CONFIG}", None,
+                             counters)
+        k1 += single[2]["ingest_features"]
+        singles[name] = str(single[1]) == str(fan[1][name])
+        compare_legs(np, leg_view(fan[0], name), leg_view(fan_cpu[0], name), name,
+                     f"fanout5_fused_{name}")
+    emit("fanout_fused", legs=list(names), k1_launches=fan[2]["ingest_features"],
+         legs_equal_single_runs=singles, result_path_is_concatenation=text == concat,
+         train_s=fan[0].timers["train"], wall_stages_s=fan[0].timers)
+    if not (all(singles.values()) and text == concat):
+        raise AssertionError("the fused fan-out's legs differ from the single card runs")
+
+    # 2. logreg, svm and rf on fe=dwt-8-pallas: one K4 launch over all epochs
+    names_p = ("logreg", "svm", "rf")
+    q = f"{base}&fe=dwt-8-pallas&classifiers={','.join(names_p)}{FANOUT_CONFIG}"
+    fan_p = run_builder("fanout3_pallas_cuda", q, None, counters)
+    fan_p_cpu = run_builder("fanout3_pallas_cpu", q, "cpu", counters)
+    if fan_p[2]["epoch_features"] != 1 or fan_p_cpu[2]["epoch_features"]:
+        raise AssertionError(f"the -pallas fan-out launched K4 {fan_p[2]['epoch_features']} "
+                             "times, not once")
+    k4 += fan_p[2]["epoch_features"]
+    for name in names_p:
+        single = run_builder(f"fanout_single_{name}_pallas_cuda",
+                             f"{base}&fe=dwt-8-pallas&train_clf={name}{FANOUT_CONFIG}", None,
+                             counters)
+        k4 += single[2]["epoch_features"]
+        compare_legs(np, leg_view(fan_p[0], name), single[0], name,
+                     f"fanout3_pallas_{name}_vs_single")
+        compare_legs(np, leg_view(fan_p[0], name), leg_view(fan_p_cpu[0], name), name,
+                     f"fanout3_pallas_{name}")
+
+    # 3. the bench's 16-member logreg population, batched and looped
+    vm, lo = population_pair(np, info, counters, work, POPULATION_ITERS, "population16")
+    k1 += vm[2]["ingest_features"] + lo[2]["ingest_features"]
+    if lo[0].timers["train"] > LOOPED_LIMIT_S:
+        raise AssertionError(f"the looped population trained {lo[0].timers['train']} s, over "
+                             f"{LOOPED_LIMIT_S} s")
+    q = (f"{base}&fe=dwt-8-fused&train_clf=logreg&{POPULATION_AXES}"
+         f"&config_num_iterations={POPULATION_ITERS}&config_step_size=1.0"
+         "&config_mini_batch_fraction=1.0")
+    pop_cpu = run_builder("population16_vmap_cpu", q, "cpu", counters)
+    compare_members(np, torch, vm[0], pop_cpu[0], "population16", linear=True)
+
+    # 4. svm, two Monte-Carlo folds x four seeds at a mini-batch fraction of
+    # 0.5 (the full svm config: svm applies config_* only when all four are
+    # given, and a live seed axis needs the fraction)
+    q = (f"{base}&fe=dwt-8-fused&train_clf=svm&cv=2&cv_mode=mc&seeds=4"
+         "&config_num_iterations=100&config_step_size=1.0&config_reg_param=0.01"
+         "&config_mini_batch_fraction=0.5")
+    svm_runs = {m: run_builder(f"svm_population_{m}_cuda", q + f"&population_mode={m}", None,
+                               counters) for m in ("vmap", "looped")}
+    svm_cpu = run_builder("svm_population_vmap_cpu", q, "cpu", counters)
+    k1 += sum(r[2]["ingest_features"] for r in svm_runs.values())
+    seeds = torch.tensor([42, 43, 44, 45])
+    ts = torch.arange(1, 101)
+    masks_equal = torch.equal(sgd.mini_batch_masks(seeds.cuda(), ts.cuda(), kept, 0.5).cpu(),
+                              sgd.mini_batch_masks(seeds, ts, kept, 0.5))
+    svm_vm, svm_lo = svm_runs["vmap"], svm_runs["looped"]
+    emit("svm_population", members=len(svm_vm[1]), modes=[svm_vm[0].population_block["mode"],
+                                                          svm_lo[0].population_block["mode"]],
+         vmap_equals_looped=str(svm_vm[1]) == str(svm_lo[1]), member_masks_equal_cpu=masks_equal,
+         train_s={m: r[0].timers["train"] for m, r in svm_runs.items()})
+    if not (len(svm_vm[1]) == 8 and str(svm_vm[1]) == str(svm_lo[1]) and masks_equal):
+        raise AssertionError("the svm population: vmap differs from looped, or its masks "
+                             "differ from the CPU's")
+    compare_members(np, torch, svm_vm[0], svm_cpu[0], "svm_population", linear=True)
+
+    # 5. nn configuration A, four seeds x two learning rates
+    q = f"{base}&fe=dwt-8-fused&train_clf=nn{NN_A}&seeds=4&sweep=lr:0.1,0.05"
+    nn_pop = run_builder("nn_population_cuda", q, None, counters)
+    nn_pop_cpu = run_builder("nn_population_cpu", q, "cpu", counters)
+    k1 += nn_pop[2]["ingest_features"]
+    block = nn_pop[0].population_block
+    emit("nn_population", members=block["members"], mode=block["mode"],
+         train_s=nn_pop[0].timers["train"], cpu_train_s=nn_pop_cpu[0].timers["train"])
+    if block["mode"] != "vmap" or block["members"] != 8:
+        raise AssertionError(f"the nn population trained {block['mode']}, not vmap")
+    compare_members(np, torch, nn_pop[0], nn_pop_cpu[0], "nn_population", linear=False)
+
+    # 6. elastic runs under a device.step fault on the 3rd chunk
+    elastic = {}
+    for clf, cfg, chunks in (("logreg", "", 10), ("nn", NN_A, 5), ("rf", "", 0)):
+        q = f"{base}&fe=dwt-8-fused&train_clf={clf}{cfg}"
+        plain = run_builder(f"{clf}_plain_cuda", q, None, counters)
+        ck = os.path.join(work, f"ck_{clf}")
+        before = obs.metrics.snapshot()["counters"].get("elastic.restarts", 0.0)
+        with chaos.faults("device.step:once@3"):
+            el = run_builder(f"{clf}_elastic_cuda",
+                             q + f"&elastic=true&checkpoint_path={ck}&save_every=1", None,
+                             counters)
+        restarts = obs.metrics.snapshot()["counters"].get("elastic.restarts", 0.0) - before
+        cleared = not os.listdir(ck)
+        k1 += plain[2]["ingest_features"] + el[2]["ingest_features"]
+        overhead = (el[0].timers["train"] - plain[0].timers["train"]) / chunks if chunks else None
+        elastic[clf] = {"restarts": restarts, "chunks": chunks, "cleared": cleared,
+                        "train_s": el[0].timers["train"], "plain_train_s": plain[0].timers["train"],
+                        "overhead_per_chunk_s": overhead,
+                        "statistics_equal_plain": str(el[1]) == str(plain[1])}
+        emit("elastic", run=clf, **elastic[clf])
+        if not (str(el[1]) == str(plain[1]) and cleared
+                and restarts == (1 if chunks else 0)):
+            raise AssertionError(f"elastic {clf}: not the plain run's statistics after "
+                                 f"{restarts} restarts")
+
+    # 7. nn configuration A with the value-function algorithms, through the
+    # builder on the card (train wall, line-search steps), then each
+    # optimizer alone on the card run's own rows. The card and CPU builder
+    # runs train on rows that K1 and the plain version round apart (by
+    # float32 roundoff, largest in relative terms on entries near 0), which
+    # an L-BFGS fit amplifies over its updates: that run's deviation is
+    # printed, the backtracking run held to the CPU's steps and NN_TOL
+    lines = {}
+    for algo in ("lbfgs", "line_gradient_descent"):
+        q = (f"{base}&fe=dwt-8-fused&train_clf=nn"
+             + NN_A.replace("stochastic_gradient_descent", algo))
+        label = f"nn_{algo}"
+        gpu = run_builder(f"{label}_cuda", q, None, counters)
+        cpu = run_builder(f"{label}_cpu", q, "cpu", counters)
+        k1 += gpu[2]["ingest_features"]
+        history = {"cuda": gpu[0].classifier.linesearch_history,
+                   "cpu": cpu[0].classifier.linesearch_history}
+        differ = [u for u, (a, b) in enumerate(zip(history["cuda"], history["cpu"]))
+                  if a[0] != b[0]]
+        alone_steps, alone_dev = optimizer_alone(torch, np, gpu[0], LBFGS_HORIZON)
+        rows_dev = (gpu[0].features.cpu() - cpu[0].features).abs()
+        lines[label] = {"train_s": gpu[0].timers["train"],
+                        "linesearch_steps": gpu[0].classifier.linesearch_steps,
+                        "cpu_linesearch_steps": cpu[0].classifier.linesearch_steps,
+                        "differing_branches": len(differ),
+                        "first_differing_update": differ[0] if differ else None,
+                        "max_abs_pred_dev": float(np.abs(nn_predictions(gpu[0])
+                                                         - nn_predictions(cpu[0])).max()),
+                        "rows_max_abs_dev": float(rows_dev.max()),
+                        "rows_max_rel_dev": float((rows_dev / cpu[0].features.abs()
+                                                   .clamp(min=1e-30)).max()),
+                        "alone_updates": LBFGS_HORIZON,
+                        "alone_differing_branches": sum(
+                            a != b for a, b in zip(alone_steps["cuda"], alone_steps["cpu"])),
+                        "alone_max_abs_pred_dev": alone_dev, "tol": NN_TOL,
+                        "cpu_train_s": cpu[0].timers["train"]}
+        emit("nn_linesearch", run=label, **lines[label])
+        if len(history["cuda"]) != NN_STEPS["a"]:
+            raise AssertionError(f"{label}: {len(history['cuda'])} updates, not {NN_STEPS['a']}")
+        if not (alone_steps["cuda"] == alone_steps["cpu"]
+                and len(alone_steps["cuda"]) == LBFGS_HORIZON and alone_dev <= NN_TOL):
+            raise AssertionError(f"{label}: the optimizer on the card parts from the CPU's on "
+                                 f"the same rows within {LBFGS_HORIZON} updates")
+        if algo != "lbfgs":
+            if differ:
+                raise AssertionError(f"{label}: the card's line searches branch apart from the "
+                                     f"CPU's at update {differ[0]}")
+            compare_nn_runs(np, gpu[0], cpu[0], label)
+    emit("training_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         k4_launches=k4, population_pair_iterations=POPULATION_ITERS,
+         population16_train_s={"vmap": vm[0].timers["train"], "looped": lo[0].timers["train"]},
+         elastic=elastic, linesearch=lines)
     return k1, k4
 
 
@@ -3800,6 +4130,9 @@ def main() -> int:
         # 4d. the tree families
         tree_k1, tree_k4 = phase_trees(torch, np, info, counters, work, int(len(gpu.targets)),
                                        n_files=8)
+        # 4e. fan-out, populations, elastic training and the line searches
+        train_k1, train_k4 = phase_training_surface(torch, np, info, counters, work,
+                                                    int(len(gpu.targets)), n_files=8)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -3903,16 +4236,17 @@ def main() -> int:
     multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
         # the main path's run and the runs of phases 4c (mini-batch SGD,
-        # the nn batch, load and serve runs) and 4d (the tree families)
+        # the nn batch, load and serve runs), 4d (the tree families) and 4e
+        # (fan-out, populations, elastic, line searches)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
-                     main_launches + nn_k1 + tree_k1, max(max_err["f32"], k1[4]), k1,
+                     main_launches + nn_k1 + tree_k1 + train_k1, max(max_err["f32"], k1[4]), k1,
                      library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
-                     k4_launches + nn_k4 + tree_k4,
+                     k4_launches + nn_k4 + tree_k4 + train_k4,
                      max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
         # the epoch-features kernel behind the host-extractor service

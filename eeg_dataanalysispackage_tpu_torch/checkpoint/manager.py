@@ -14,8 +14,13 @@ renamed into place, then the directory is fsync'd: a crash mid-write
 never corrupts the latest checkpoint, and a finished save survives a
 power loss. Overwriting a step displaces the old directory to
 ``.old-<step>`` first; :meth:`CheckpointManager._recover` repairs a
-crash between the two renames. States are flat dicts of numpy arrays
-(or tensors, copied to the host).
+crash between the two renames. States are dicts of numpy arrays (or
+tensors, copied to the host), nested dicts of them too.
+
+:func:`run_resumable` drives a step function over a batch sequence with
+a checkpoint every ``save_every`` steps, skipping the steps a previous
+incarnation already saved (JAX package: ``checkpoint/manager.py``
+``run_resumable``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -55,8 +60,11 @@ def _write_synced(path: str, data: bytes) -> None:
         os.fsync(f.fileno())
 
 
-def _to_host(value) -> np.ndarray:
-    """A state leaf as a host array (tensors are copied off the device)."""
+def _to_host(value):
+    """A state leaf as a host array (tensors are copied off the device);
+    a nested dict leaf by leaf."""
+    if isinstance(value, dict):
+        return {k: _to_host(v) for k, v in value.items()}
     if hasattr(value, "detach"):
         value = value.detach().cpu().numpy()
     return np.asarray(value)
@@ -184,3 +192,38 @@ class CheckpointManager:
         steps = self.all_steps()
         for step in steps[: max(0, len(steps) - self.max_to_keep)]:
             shutil.rmtree(self._step_dir(step))
+
+
+def run_resumable(
+    manager: CheckpointManager,
+    init_state: Callable[[], Any],
+    train_step: Callable,
+    batches: Iterable,
+    save_every: int = 10,
+    on_step: Optional[Callable[[int, Any], None]] = None,
+):
+    """Drive ``train_step(state, *batch) -> (state, loss)`` over
+    ``batches`` with a checkpoint every ``save_every`` steps (and one at
+    the end); steps already recorded under ``manager`` are skipped, so a
+    re-invocation after a crash continues from the latest checkpoint.
+    A restored state is the checkpoint's host arrays under
+    ``init_state()``'s keys. Returns ``(state, last_step)``."""
+    latest = manager.latest_step()
+    if latest is None:
+        state, start = init_state(), 0
+    else:
+        state, _ = manager.restore(init_state(), step=latest)
+        start = latest
+    step = start
+    for i, batch in enumerate(batches):
+        if i < start:
+            continue  # trained by a previous incarnation
+        state, loss = train_step(state, *batch)
+        step = i + 1
+        if on_step is not None:
+            on_step(step, loss)
+        if step % save_every == 0:
+            manager.save(step, state, extra={"loss": float(loss)})
+    if step > start and step % save_every != 0:
+        manager.save(step, state)
+    return state, step

@@ -5,11 +5,16 @@ The reference's seam — ``set_feature_extraction``, ``train``, ``test``,
 (IClassifier.java:43-85). ``train`` and ``test`` take host epochs and
 run the classifier's feature extractor on them; ``fit`` and
 ``test_features`` take feature rows that already lie on the device.
+``fit_elastic`` and ``train_elastic`` are their checkpointed forms
+(``elastic=true``): the SGD family and the network override
+``fit_elastic`` with chunked training; every other classifier trains
+monolithically, with a logged note.
 """
 
 from __future__ import annotations
 
 import abc
+import logging
 import time
 from typing import Dict, Optional
 
@@ -18,6 +23,8 @@ import torch
 
 from . import stats
 from ..features import base as features_base
+
+logger = logging.getLogger(__name__)
 
 
 def _sync(device: torch.device) -> None:
@@ -44,6 +51,8 @@ class Classifier(abc.ABC):
         #: wall seconds spent by train/test, by step: featurize, fit,
         #: predict (each device step ends in a sync)
         self.timings: Dict[str, float] = {}
+        #: the (n,) float64 predictions of the last test_features call
+        self.last_predictions: Optional[np.ndarray] = None
 
     def set_config(self, config: Dict[str, str]) -> None:
         self.config = dict(config)
@@ -69,6 +78,37 @@ class Classifier(abc.ABC):
         _sync(features.device)
         self._tick("fit", t0)
 
+    def train_elastic(self, epochs: np.ndarray, targets: np.ndarray,
+                      fe: features_base.FeatureExtraction, manager, **elastic_kwargs) -> None:
+        """:meth:`train` routed through :meth:`fit_elastic`: the host epoch
+        path's checkpointed, restartable training."""
+        self.fe = fe
+        features = self._extract(epochs)
+        t0 = time.perf_counter()
+        labels = torch.as_tensor(
+            np.asarray(targets, dtype=np.float64), dtype=torch.float32,
+            device=features.device,
+        )
+        if self.fit_dtype is not None:
+            features = features.to(self.fit_dtype)
+        self.fit_elastic(features, labels, manager, **elastic_kwargs)
+        _sync(features.device)
+        self._tick("fit", t0)
+
+    def fit_elastic(self, features: torch.Tensor, labels: torch.Tensor, manager,
+                    save_every: int = 1, max_restarts: int = 3, sentinel=None,
+                    chunk_iters: int = 10, probe_on_failure: bool = True) -> None:
+        """:meth:`fit` with mid-train checkpoints where the training loop
+        has steps; a classifier whose training is one opaque program (the
+        tree growers) trains monolithically: there is no intermediate
+        state to checkpoint."""
+        del manager, save_every, max_restarts, sentinel, chunk_iters, probe_on_failure
+        logger.info(
+            "%s has no steppable training loop; elastic mode trains "
+            "monolithically (no mid-train checkpoints)", type(self).__name__,
+        )
+        self.fit(features, labels)
+
     def test(self, epochs: np.ndarray, targets: np.ndarray) -> stats.ClassificationStatistics:
         """Extract features from host ``epochs`` and evaluate on them."""
         features = self._extract(epochs)
@@ -81,8 +121,9 @@ class Classifier(abc.ABC):
         self, features: torch.Tensor, targets: np.ndarray
     ) -> stats.ClassificationStatistics:
         """Evaluate on feature rows; the one place statistics are built
-        from predictions."""
+        from predictions (kept in :attr:`last_predictions`)."""
         predictions = self.predict(features).cpu().numpy()
+        self.last_predictions = predictions
         return stats.ClassificationStatistics.from_arrays(
             predictions,
             np.asarray(targets, dtype=np.float64),

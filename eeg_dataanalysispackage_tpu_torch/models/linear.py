@@ -67,6 +67,21 @@ class _LinearClassifier(base.Classifier):
         self.model = LinearModel(weight)
         self.margin_threshold = 0.0
 
+    def fit_elastic(self, features: torch.Tensor, labels: torch.Tensor, manager,
+                    save_every: int = 1, max_restarts: int = 3, sentinel=None,
+                    chunk_iters: int = 10, probe_on_failure: bool = True) -> None:
+        """MLlib-SGD training with mid-train checkpoint/restore
+        (``sgd.train_linear_elastic``): a transient failure restores the
+        latest chunk carry; absolute iteration indices keep the weights
+        equal to :meth:`fit`'s."""
+        weight = sgd.train_linear_elastic(
+            features, labels, self._sgd_config(), manager, chunk_iters=chunk_iters,
+            save_every=save_every, max_restarts=max_restarts, sentinel=sentinel,
+            probe_on_failure=probe_on_failure,
+        )
+        self.model = LinearModel(weight)
+        self.margin_threshold = 0.0
+
     def margin(self, features: torch.Tensor) -> torch.Tensor:
         """(n,) margins on the features' device (float64 for float64
         weights, as the JAX package computes imported MLlib models)."""

@@ -21,6 +21,10 @@ Port of the JAX package's ``models/sgd.py`` engine (MLlib's
 fixed-capacity matrix with a sample mask: the serving lifecycle's
 streaming partial fit) run the one step function, :func:`_step`, so a
 chunked run replays the monolithic trajectory byte for byte.
+:func:`train_linear_elastic` runs those chunks through
+``obs.failure.elastic_train``: each chunk's carry is checkpointed in the
+JAX package's layout (``w`` float32, ``converged`` bool, ``n_updates``
+int32), and a failed chunk is replayed from the latest checkpoint.
 
 Mini-batch sampling (``mini_batch_fraction < 1``): iteration ``t``
 trains on the rows where ``uniform(fold_in(prng_key(seed), t), (n,)) <
@@ -83,6 +87,17 @@ def mini_batch_mask(config: SGDConfig, t: int, n: int, device=None) -> torch.Ten
     key = threefry.fold_in(threefry.prng_key(config.seed), t)
     draw = threefry.uniform(key, (int(n),), device=device)
     return (draw < float(_f32(config.mini_batch_fraction))).to(torch.float32)
+
+
+def mini_batch_masks(seeds: torch.Tensor, ts: torch.Tensor, n: int,
+                     fraction: float) -> torch.Tensor:
+    """:func:`mini_batch_mask` of every iteration in ``ts`` (T,) for every
+    member seed in ``seeds`` (P,), in one pass: a (T, P, n) float32 0/1
+    tensor on the seeds' device whose ``[i, p]`` row equals
+    ``mini_batch_mask`` of seed ``p`` at iteration ``ts[i]`` bit for bit."""
+    keys = threefry.fold_in(threefry.prng_keys(seeds.reshape(1, -1)), ts.reshape(-1, 1))
+    draw = threefry.uniform(keys, (int(n),))
+    return (draw < float(_f32(fraction))).to(torch.float32)
 
 
 def _gradient(x, y, w, class_w, mask, config: SGDConfig) -> torch.Tensor:
@@ -180,18 +195,21 @@ def _prepare(features, labels, config: SGDConfig, sample_mask, device):
 
 
 def train_linear(
-    features: torch.Tensor, labels: torch.Tensor, config: SGDConfig
+    features: torch.Tensor, labels: torch.Tensor, config: SGDConfig,
+    sample_mask=None,
 ) -> torch.Tensor:
     """Train a linear model on ``features``' device; returns (d,) float32
-    weights there."""
+    weights there. ``sample_mask`` (n,) selects the training rows of the
+    full matrix (a multi-fold population member's fold), as the JAX
+    engine's ``sample_mask`` does: mini-batch draws still span all n."""
     _check_config(config)
-    x, y, class_w, _mask, count = _prepare(features, labels, config, None,
-                                           features.device)
+    x, y, class_w, mask, count = _prepare(features, labels, config, sample_mask,
+                                          features.device)
     carry: Carry = partial_fit_carry(x.shape[1], device=x.device)
     if x.shape[0] == 0:
         return carry[0]  # an empty sample never updates
     for t in range(1, int(config.num_iterations) + 1):
-        carry = _step(x, y, class_w, None, count, config, carry, t)
+        carry = _step(x, y, class_w, mask, count, config, carry, t)
         if carry[1]:
             break  # the JAX scan's frozen carry
     return carry[0]
@@ -243,3 +261,56 @@ def partial_fit_linear(
     for t in range(int(t_start) + 1, int(t_start) + int(n_iterations) + 1):
         out = _step(x, y, class_w, mask, count, config, out, t)
     return out[0], out[1], int(out[2])
+
+
+def train_linear_elastic(
+    features: torch.Tensor,
+    labels,
+    config: SGDConfig,
+    manager,
+    chunk_iters: int = 10,
+    save_every: int = 1,
+    max_restarts: int = 3,
+    sentinel=None,
+    probe_on_failure: bool = True,
+) -> torch.Tensor:
+    """:func:`train_linear` with mid-train checkpoint/restore: the
+    iterations run in ``chunk_iters`` chunks (:func:`partial_fit_linear`,
+    absolute indices) through ``obs.failure.elastic_train``; every
+    chunk's carry is checkpointed under ``manager`` as ``{"w",
+    "converged", "n_updates"}`` (float32, bool, int32: the JAX package's
+    layout, so either package restores the other's). A failed chunk
+    restores the latest carry and replays only what was not saved, on
+    the one trajectory, so the weights equal :func:`train_linear`'s.
+    Each chunk fires the ``device.step`` chaos point; the weight norm is
+    the divergence sentinel's loss stream. Returns (d,) float32 weights
+    on ``features``' device."""
+    from ..obs import chaos, events, failure
+
+    _check_config(config)
+    dev = features.device
+    x = features.to(torch.float32)
+    y = torch.as_tensor(labels, device=dev).to(torch.float32)
+    total = int(config.num_iterations)
+    chunks = [(t0, min(int(chunk_iters), total - t0))
+              for t0 in range(0, total, int(chunk_iters))]
+
+    def init_state():
+        return {"w": torch.zeros(x.shape[1], dtype=torch.float32, device=dev),
+                "converged": np.bool_(False), "n_updates": np.int32(0)}
+
+    def chunk_step(state, t0, n):
+        events.event("train.sgd_chunk", t0=int(t0), iters=int(n))
+        chaos.maybe_fire("device.step")
+        w = torch.as_tensor(state["w"], device=dev).to(torch.float32)
+        out = partial_fit_linear((w, bool(state["converged"]), int(state["n_updates"])),
+                                 t0, x, y, config, n, device=dev)
+        new = {"w": out[0], "converged": np.bool_(out[1]), "n_updates": np.int32(out[2])}
+        return new, torch.linalg.vector_norm(out[0])
+
+    state, _, _ = failure.elastic_train(
+        manager, init_state, chunk_step, lambda: list(chunks),
+        max_restarts=max_restarts, save_every=save_every, sentinel=sentinel,
+        probe_on_failure=probe_on_failure,
+    )
+    return torch.as_tensor(state["w"], device=dev).to(torch.float32)

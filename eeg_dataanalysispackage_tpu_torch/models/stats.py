@@ -2,8 +2,11 @@
 
 Confusion-matrix counts with the reference's accuracy/MSE math, rounding
 rule (Math.round: half-up) and report text (ClassificationStatistics.java:
-50-96), and :class:`WindowedStatistics`, the serving lifecycle's sliding
-window of served outcomes (the JAX package's ``models/stats.py``).
+50-96), :class:`WindowedStatistics`, the serving lifecycle's sliding
+window of served outcomes, and the multi-model reports
+:class:`PopulationStatistics` (``cv=``/``seeds=``/``sweep=`` members) and
+:class:`FanOutStatistics` (``classifiers=`` legs), whose text is the JAX
+package's byte for byte (its ``models/stats.py``).
 """
 
 from __future__ import annotations
@@ -187,3 +190,63 @@ class WindowedStatistics:
             "expected_cost": None if math.isnan(cost) else round(cost, 6),
             "recall": None if math.isnan(recall) else round(recall, 6),
         }
+
+
+class PopulationStatistics(dict):
+    """Ordered ``{member label: ClassificationStatistics}`` of a population
+    run (``models/population.py``), with ``shape`` (the population axes)
+    and ``mode`` (``vmap`` or ``looped``: how the members trained).
+    ``summary()`` is the cross-member digest (best member, mean and std
+    accuracy) that ``str()`` and the population block embed."""
+
+    def __init__(self, shape: dict | None = None, mode: str = "vmap"):
+        super().__init__()
+        self.shape = dict(shape or {})
+        self.mode = mode
+
+    def summary(self) -> dict:
+        accs = {name: s.calc_accuracy() for name, s in self.items()}
+        finite = {n: a for n, a in accs.items() if not math.isnan(a)}
+        if not finite:
+            return {"members": len(self), "best": None, "best_accuracy": math.nan,
+                    "mean_accuracy": math.nan, "std_accuracy": math.nan}
+        # the highest accuracy, the first label on ties
+        best = max(sorted(finite), key=lambda n: finite[n])
+        values = np.array([finite[n] for n in sorted(finite)])
+        return {
+            "members": len(self),
+            "best": best,
+            "best_accuracy": float(finite[best]),
+            "mean_accuracy": float(values.mean()),
+            "std_accuracy": float(values.std()),
+        }
+
+    def calc_accuracy(self) -> float:
+        """The best member's accuracy: what a sweep selects."""
+        return self.summary()["best_accuracy"]
+
+    def __str__(self) -> str:
+        # mode-free on purpose: the batched engine and its looped twin
+        # render byte-equal reports for the same members
+        s = self.summary()
+        header = (
+            f"population: {s['members']} members "
+            f"(folds={self.shape.get('folds', 1)} "
+            f"seeds={self.shape.get('seeds', 1)} "
+            f"grid={self.shape.get('grid_points', 1)})\n"
+            f"best member: {s['best']} "
+            f"(accuracy {s['best_accuracy'] * 100}%)\n"
+            f"mean accuracy: {s['mean_accuracy'] * 100}% "
+            f"(std {s['std_accuracy'] * 100}%)\n"
+        )
+        members = "\n".join(f"member: {name}\n{stats}" for name, stats in self.items())
+        return header + "\n" + members
+
+
+class FanOutStatistics(dict):
+    """Ordered ``{classifier name: statistics}`` of a ``classifiers=`` run;
+    ``str()`` concatenates the legs' reports in request order (a leg that
+    trained as a population holds a :class:`PopulationStatistics`)."""
+
+    def __str__(self) -> str:
+        return "\n".join(f"classifier: {name}\n{stats}" for name, stats in self.items())

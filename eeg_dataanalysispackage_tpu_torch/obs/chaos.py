@@ -17,10 +17,12 @@ Spec grammar::
 
 The port fires ``remote.request`` (one HTTP request attempt in
 ``io/remote.py``; it raises a retryable ``RemoteIOError``),
-``serve.adapt`` (one partial-fit chunk of the serving lifecycle) and
-``serve.swap`` (one promotion attempt; both in ``serve/lifecycle.py``).
+``serve.adapt`` (one partial-fit chunk of the serving lifecycle),
+``serve.swap`` (one promotion attempt; both in ``serve/lifecycle.py``)
+and ``device.step`` (one chunk of an elastic training run:
+``models/sgd.train_linear_elastic`` and the network's ``fit_elastic``).
 The JAX package's other points (``serve.request``, ``serve.batch``,
-``ingest.fused``, ``device.step`` …) have no injection site in the port
+``ingest.fused`` …) have no injection site in the port
 yet, so a spec that names one raises :class:`FaultSpecError` here
 rather than parse and never fire (see ROADMAP.md). A run's ``faults=``
 is not ported; tests install a plan with :func:`faults`.
@@ -44,7 +46,7 @@ from . import domain as _domain
 logger = logging.getLogger(__name__)
 
 #: the points the port has an injection site for
-PORTED_POINTS = ("remote.request", "serve.adapt", "serve.swap")
+PORTED_POINTS = ("remote.request", "serve.adapt", "serve.swap", "device.step")
 
 
 class ChaosInjectedError(RuntimeError):

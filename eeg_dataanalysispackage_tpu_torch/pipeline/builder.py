@@ -17,7 +17,18 @@ included; ``nn``, the neural network of ``models/nn.py``, trained on the
 run's device; the trees ``dt``, ``rf``, ``gbt`` of ``models/trees.py``,
 grown on the host, and their ``-tpu`` names, grown on the run's device),
 ``config_*`` pass-through, ``save_clf``/``load_clf`` and
-the ``result_path`` report file. ``serve=true`` drives the session through
+the ``result_path`` report file. The training surface beyond one model:
+``classifiers=a,b,…`` trains and tests every named classifier on the one
+feature matrix the run made (``models.stats.FanOutStatistics``); the
+population axes ``cv=``, ``cv_mode=``, ``seeds=``, ``sweep=`` and
+``population_mode=`` expand SGD-family training into a member population
+(``models/population.py``, ``models.stats.PopulationStatistics``; its
+record is :attr:`PipelineBuilder.population_block`); and
+``elastic=true&checkpoint_path=<dir>`` (``save_every=``,
+``max_restarts=``) trains through ``fit_elastic``: chunks checkpointed
+under the directory, bounded restarts, a divergence sentinel, the
+directory cleared when training ends. The JAX package's conflict rules
+for these modes raise its messages before any file is read. ``serve=true`` drives the session through
 the resident inference service (``serve/pipeline.py``), with
 ``adapt=true`` its model lifecycle (partial fit on the session's labeled
 outcomes, gated hot swap, drift; ``checkpoint_path=`` is the adapter's
@@ -55,9 +66,11 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..features import registry as fe_registry
 from ..io import modelfiles, provider, remote
-from ..models import registry, stats
+from ..models import population, registry, stats
+from ..obs import events
 from ..ops import decode_ingest
 from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
@@ -67,10 +80,8 @@ logger = logging.getLogger(__name__)
 
 #: query keys whose paths the port does not run yet (see ROADMAP.md)
 NOT_PORTED_KEYS = (
-    "classifiers", "overlap", "devices", "mesh_axes", "processes",
-    "coordinator", "process_id", "cv", "cv_mode", "seeds",
-    "sweep", "population_mode", "fe_sweep", "elastic", "checkpoint_path",
-    "faults", "faults_seed", "report",
+    "overlap", "devices", "mesh_axes", "processes", "coordinator",
+    "process_id", "faults", "faults_seed", "report",
 )
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
@@ -114,12 +125,14 @@ def resolve_precision(query_map: Dict[str, str]) -> str:
 
 
 def _check_ported(query_map: Dict[str, str]) -> None:
-    # checkpoint_path= is the serving lifecycle's resume directory; its
-    # other use (elastic=) is not ported
-    lifecycle_run = query_map.get("serve") == "true" and query_map.get("adapt") == "true"
     for key in NOT_PORTED_KEYS:
-        if key in query_map and not (key == "checkpoint_path" and lifecycle_run):
+        if key in query_map:
             raise ValueError(f"{key}= is not yet ported; see ROADMAP.md")
+    if query_map.get("fe_sweep") and query_map.get("task", "p300") != "seizure":
+        raise ValueError(
+            "fe_sweep= compares feature configs over the seizure workload; it "
+            "requires task=seizure"
+        )
     if os.environ.get("EEG_TPU_FAULTS"):
         # the JAX package's run reads its faults= spec from here
         raise ValueError("EEG_TPU_FAULTS (a run's fault spec) is not yet ported; "
@@ -133,6 +146,87 @@ def _check_ported(query_map: Dict[str, str]) -> None:
             "are not supported; the report is a local file, as the JAX package "
             "writes it (see ROADMAP.md)"
         )
+
+
+def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSpec) -> None:
+    """The JAX package's classifier-action conflict rules (its plan
+    parser's ``_validate_action``), with its messages."""
+    pop_active = pop_spec.active
+    axes = "cv=/seeds=/sweep="
+    train_clf = query_map.get("train_clf") if "train_clf" in query_map else None
+    load_clf = query_map.get("load_clf") if "load_clf" in query_map else None
+    save_clf = query_map.get("save_clf") == "true"
+    elastic = query_map.get("elastic") == "true"
+    if pop_active:
+        if load_clf is not None:
+            raise ValueError(
+                f"population axes ({axes}) train models; they cannot combine with load_clf="
+            )
+        if save_clf:
+            raise ValueError(
+                "population runs train many members; save_clf= has no single model to persist"
+            )
+        if elastic:
+            raise ValueError(
+                "population training does not support elastic=true; the stacked "
+                "program has no per-member checkpoints"
+            )
+    if "classifiers" in query_map:
+        if train_clf is not None or load_clf is not None:
+            raise ValueError(
+                "classifiers= replaces train_clf=/load_clf=; pass exactly one of them"
+            )
+        if save_clf:
+            raise ValueError(
+                "classifiers= fan-out does not support save_clf; train the model to "
+                "persist via train_clf="
+            )
+        if elastic:
+            raise ValueError(
+                "classifiers= fan-out does not support elastic=true; use train_clf= "
+                "for elastic training"
+            )
+        if not [s for s in query_map["classifiers"].split(",") if s]:
+            raise ValueError("classifiers= requires a comma-separated classifier list")
+        return
+    if train_clf is not None:
+        if pop_active and train_clf not in population.SGD_FAMILY:
+            raise ValueError(
+                f"population axes ({axes}) apply to the SGD family "
+                f"({', '.join(population.SGD_FAMILY)}); {train_clf!r} trains one "
+                f"model per run"
+            )
+        if elastic and not pop_active and not query_map.get("checkpoint_path"):
+            raise ValueError("elastic=true requires a checkpoint_path query parameter")
+        if save_clf and "save_name" not in query_map:
+            raise ValueError(
+                "Please provide a location to save a classifier within the save_name "
+                "query parameter"
+            )
+        return
+    if load_clf is not None:
+        if "load_name" not in query_map:
+            raise ValueError("Classifier location not provided")
+        return
+    raise ValueError("Missing classifier argument")
+
+
+def _elastic_kwargs(query_map: Dict[str, str]) -> Optional[dict]:
+    """``elastic=true`` -> ``fit_elastic``'s keyword arguments (a manager
+    over ``checkpoint_path``, ``save_every`` default 1, ``max_restarts``
+    default 3, a divergence sentinel); None when elastic training is
+    off."""
+    if query_map.get("elastic") != "true":
+        return None
+    from ..checkpoint.manager import CheckpointManager
+    from ..obs import failure
+
+    return {
+        "manager": CheckpointManager(query_map["checkpoint_path"]),
+        "save_every": int(query_map.get("save_every", 1) or 1),
+        "max_restarts": int(query_map.get("max_restarts", 3) or 3),
+        "sentinel": failure.DivergenceSentinel(),
+    }
 
 
 class PipelineBuilder:
@@ -149,8 +243,9 @@ class PipelineBuilder:
         #: or epoch (host fe=), featurize, train, test (each device
         #: stage ends in a sync)
         self.timers: Dict[str, float] = {}
-        #: the last fused run's feature rows (on ``device``); the last
-        #: run's targets
+        #: the last run's feature rows on ``device``: the fused run's, or
+        #: the host path's one extraction for a population or fan-out;
+        #: the last run's targets
         self.features: Optional[torch.Tensor] = None
         self.targets: Optional[np.ndarray] = None
         #: the last host fe= run's epochs and feature extractor
@@ -165,17 +260,29 @@ class PipelineBuilder:
         #: "used", "gate"}`` (``used`` is f32 when the gate tripped);
         #: None at f32
         self.precision_resolved: Optional[dict] = None
+        #: the last population run's record (the JAX package's
+        #: ``telemetry.population``): the block of
+        #: ``models.population.run_population``, or ``{"legs": {name:
+        #: block}}`` for a fan-out whose SGD legs ran as populations
+        self.population_block: Optional[dict] = None
+        #: the last population run's members, ``{label: {"state",
+        #: "test_index", "predictions"}}`` (for a fan-out, by leg name)
+        self.population_states: Optional[dict] = None
+        #: the last fan-out's trained plain legs, by name
+        self.classifiers: Optional[dict] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
-        """Accumulate a stage's wall seconds into :attr:`timers`."""
+    def _stage(self, name: str, **attrs):
+        """Accumulate a stage's wall seconds into :attr:`timers`, inside a
+        ``stage.<name>`` span carrying ``attrs``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with events.span(f"stage.{name}", **attrs):
+                yield
         finally:
             self.timers[name] = self.timers.get(name, 0.0) + time.perf_counter() - t0
 
@@ -218,11 +325,13 @@ class PipelineBuilder:
         # 2. feature extraction (PipelineBuilder.java:128-139)
         if "fe" not in query_map:
             raise ValueError("Missing the feature extraction argument")
+        # the population axes and the classifier action's conflict rules
+        # (the JAX package's plan parser), before anything is read
+        pop_spec = population.PopulationSpec.from_query_map(query_map)
+        validate_action(query_map, pop_spec)
         fused = _FUSED_FE.fullmatch(query_map["fe"])
         # an unknown or unported fe= spelling raises here, before loading
         fe = None if fused else fe_registry.create(query_map["fe"], device=self.device)
-        if "train_clf" not in query_map and "load_clf" not in query_map:
-            raise ValueError("Missing classifier argument")
         odp = provider.OfflineDataProvider(files, device=self.device)
         if fe is None:
             wavelet_index = int(fused.group(1))
@@ -258,30 +367,48 @@ class PipelineBuilder:
         self.features, self.targets, self.batch, self.fe = features, targets, batch, fe
         n = len(targets)
 
+        self.population_block = self.population_states = self.classifiers = None
+        if "classifiers" in query_map:
+            return self._finish_run(
+                self._execute_fanout(query_map, features, targets, batch, fe, pop_spec),
+                query_map)
+        if "train_clf" in query_map and pop_spec.active:
+            return self._finish_run(
+                self._execute_population(query_map, features, targets, batch, fe, pop_spec),
+                query_map)
+
         # 3. classifier (PipelineBuilder.java:151-284)
         if "train_clf" in query_map:
             name = query_map["train_clf"]
             classifier = registry.create(name)
             train_idx, test_idx = java_compat.train_test_split_indices(n, seed=1)
-            classifier.set_config(
-                {k: v for k, v in query_map.items() if k.startswith("config_")}
-            )
+            classifier.set_config(self._config(query_map))
+            # elastic=true: chunked training with checkpoints under
+            # checkpoint_path, bounded restarts and a divergence sentinel
+            elastic = _elastic_kwargs(query_map)
             if fe is None:
                 train = torch.as_tensor(train_idx, dtype=torch.long, device=self.device)
                 t0 = time.perf_counter()
-                classifier.fit(features[train], labels[train])
+                if elastic is None:
+                    classifier.fit(features[train], labels[train])
+                else:
+                    classifier.fit_elastic(features[train], labels[train], **elastic)
                 self._sync()
                 self.timers["train"] = time.perf_counter() - t0
             else:
                 rows = np.asarray(train_idx, dtype=np.int64)
-                classifier.train(batch.epochs[rows], batch.targets[rows], fe)
+                if elastic is None:
+                    classifier.train(batch.epochs[rows], batch.targets[rows], fe)
+                else:
+                    classifier.train_elastic(batch.epochs[rows], batch.targets[rows], fe,
+                                             **elastic)
+            if elastic is not None:
+                # the checkpoints guarded this run's training, which is
+                # done; left behind, the next run under the directory
+                # would restore this trajectory and skip its own
+                elastic["manager"].clear()
             logger.info("trained %s", name)
             if query_map.get("save_clf") == "true":
-                if "save_name" not in query_map:
-                    raise ValueError(
-                        "Please provide a location to save a classifier "
-                        "within the save_name query parameter"
-                    )
                 classifier.save(query_map["save_name"])
         else:
             classifier = registry.create(query_map["load_clf"])
@@ -309,6 +436,91 @@ class PipelineBuilder:
             self.timers["test"] = timings["predict"]
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
+
+    def _host_features(self, batch, fe):
+        """The host path's whole feature matrix in one extraction pass (a
+        row's features depend on its epoch alone, so slicing afterwards
+        equals extracting the slices) and the targets."""
+        with self._stage("features"):
+            features = fe.extract_batch(np.asarray(batch.epochs, np.float64))
+            self._sync()
+        self.features = features
+        return features, np.asarray(batch.targets, dtype=np.float64)
+
+    @staticmethod
+    def _config(query_map) -> Dict[str, str]:
+        return {k: v for k, v in query_map.items() if k.startswith("config_")}
+
+    def _execute_population(self, query_map, features, targets, batch, fe, pop_spec):
+        """``train_clf=<sgd family>`` with population axes: the members
+        train through ``models.population.run_population``."""
+        name = query_map["train_clf"]
+        if features is None:
+            features, targets = self._host_features(batch, fe)
+        self.population_states = {}
+        statistics, block = population.run_population(
+            name, lambda: registry.create(name), self._config(query_map), features, targets,
+            pop_spec, stage=self._stage, states=self.population_states,
+        )
+        self.population_block = block
+        logger.info("trained population %s: %d members (%s)", name, block["members"],
+                    block["mode"])
+        return statistics
+
+    def _execute_fanout(self, query_map, features, targets, batch, fe, pop_spec):
+        """``classifiers=a,b,c``: every named classifier trains and tests
+        on the one feature matrix this run made, on the seed-1 70/30
+        split, through the calls of a single ``train_clf=`` run (so each
+        leg's statistics are that run's). SGD-family legs expand into the
+        population when population axes are present; every other leg
+        trains once (``population.sequential_legs``). The gathered split
+        rows are shared by every leg; legs that train in float32 share
+        one float32 buffer of them."""
+        names = [s for s in query_map["classifiers"].split(",") if s]
+        if features is None:
+            features, targets = self._host_features(batch, fe)
+        n = len(targets)
+        train_idx, test_idx = java_compat.train_test_split_indices(n, seed=1)
+        dev = features.device
+        x_train = features[torch.as_tensor(train_idx, dtype=torch.long, device=dev)]
+        x_test = features[torch.as_tensor(test_idx, dtype=torch.long, device=dev)]
+        y_train = torch.as_tensor(targets[train_idx], dtype=torch.float32, device=dev)
+        y_test = targets[test_idx]
+        cast = {x_train.dtype: x_train}
+        config = self._config(query_map)
+        pop_blocks = {}
+        statistics = stats.FanOutStatistics()
+        self.classifiers, self.population_states = {}, {}
+        for name in names:
+            with events.span(f"fanout.{name}", classifier=name):
+                if pop_spec.active and name in population.SGD_FAMILY:
+                    states = self.population_states.setdefault(name, {})
+                    statistics[name], pop_blocks[name] = population.run_population(
+                        name, lambda name=name: registry.create(name), config, features,
+                        targets, pop_spec, stage=self._stage, states=states,
+                    )
+                    obs.metrics.count("pipeline.fanout.classifiers")
+                    continue
+                if pop_spec.active:
+                    logger.warning("population axes do not apply to %s; the leg trains "
+                                   "once on the plain split", name)
+                    obs.metrics.count("population.sequential_legs")
+                classifier = registry.create(name)
+                classifier.set_config(config)
+                dtype = classifier.fit_dtype or x_train.dtype
+                x = cast.setdefault(dtype, x_train.to(dtype))
+                with self._stage("train", classifier=name):
+                    classifier.fit(x, y_train)
+                    self._sync()
+                logger.info("trained %s", name)
+                with self._stage("test", classifier=name):
+                    statistics[name] = classifier.test_features(x_test, y_test)
+                self.classifiers[name] = classifier
+            obs.metrics.count("pipeline.fanout.classifiers")
+        if pop_blocks:
+            self.population_block = {"legs": pop_blocks}
+        self.test_index = list(test_idx)
+        return statistics
 
     def _precision_gate(self, odp, wavelet_index: int, precision: str):
         """Parse the session, then run the per-run accuracy gate on its

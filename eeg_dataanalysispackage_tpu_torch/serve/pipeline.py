@@ -47,6 +47,7 @@ from . import lifecycle as lifecycle_mod
 from . import service as service_mod
 from ..epochs.extractor import BalanceState
 from ..models import linear as linear_mod
+from ..models import population
 from ..models import registry as clf_registry
 from ..models import stats
 from ..ops import decode_ingest
@@ -54,19 +55,15 @@ from ..utils import java_compat
 
 logger = logging.getLogger(__name__)
 
-#: query keys of the modes that cannot combine with serve=true; the
-#: port has no population mode, so their presence alone conflicts
-_POPULATION_KEYS = ("cv", "seeds", "sweep")
-
-
 def _conflicting_keys(query_map) -> list:
-    """Keys that actually ENABLE a conflicting mode, so an explicit
-    no-op like ``save_clf=false`` does not reject the run."""
+    """Keys that actually ENABLE a conflicting mode, judged as the batch
+    path judges them, so an explicit no-op like ``elastic=false`` or
+    ``cv=1`` does not reject the run."""
     conflicts = [k for k in ("train_clf", "classifiers") if k in query_map]
     for flag in ("save_clf", "elastic"):
         if query_map.get(flag) == "true":
             conflicts.append(flag)
-    if any(k in query_map for k in _POPULATION_KEYS):
+    if population.PopulationSpec.from_query_map(query_map).active:
         conflicts.append("cv=/seeds=/sweep=")
     return conflicts
 

@@ -25,7 +25,11 @@ package's trajectories:
 Keys are plain Python integers, so deriving one costs no device work;
 the bits are computed with int64 tensors whose values stay below 2**32
 (torch has no unsigned 32-bit shift or rotate on every backend), on the
-device of the request. ``bits``, ``uniform`` and ``bernoulli`` are equal
+device of the request. A key may also be a pair of int64 tensors of one
+shape ``K`` (:func:`prng_keys`, :func:`fold_in` of a tensor): a batch of
+keys, whose draws of ``shape`` come back as one ``K + shape`` tensor in
+a single pass, each row equal to that key's own draw (a population's
+members draw their masks this way). ``bits``, ``uniform`` and ``bernoulli`` are equal
 bit for bit to ``jax.random``'s on every device; the transcendental
 maps of ``normal`` and ``truncated_normal`` agree within a few ulp
 (``tests/test_torch_threefry.py`` states the bound).
@@ -56,8 +60,9 @@ def _rotl(x, d: int):
 def threefry2x32(key: Key, x0, x1):
     """The threefry2x32 block cipher (20 rounds) of the counter pair
     ``(x0, x1)`` under ``key``: Python ints or int64 tensors holding
-    uint32 values; returns the pair in the same form."""
-    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    uint32 values (the key's words too, broadcast against the counters);
+    returns the pair in the same form."""
+    k0, k1 = (k if isinstance(k, torch.Tensor) else int(k) & _MASK for k in key)
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -75,17 +80,23 @@ def prng_key(seed: int) -> Key:
     return 0, int(seed) & _MASK
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``: ``data`` taken as a uint32."""
-    return threefry2x32(key, 0, int(data) & _MASK)
+def prng_keys(seeds: torch.Tensor) -> Key:
+    """:func:`prng_key` of each of an int64 tensor of 32-bit seeds: a
+    batch of keys of the seeds' shape."""
+    seeds = seeds.to(torch.int64) & _MASK
+    return torch.zeros_like(seeds), seeds
 
 
-def fold_in_static(key: Key, *data: Union[str, int]) -> Key:
-    """flax's ``_fold_in_static``: fold the SHA-1 of the path ``data``
-    (strings as UTF-8, ints as their minimal big-endian bytes, nothing
-    between them) into ``key``; no data returns ``key``."""
-    if not data:
-        return key
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)``: ``data`` (an int, or an int64
+    tensor broadcast against a batch of keys) taken as a uint32."""
+    data = data & _MASK if isinstance(data, torch.Tensor) else int(data) & _MASK
+    return threefry2x32(key, 0, data)
+
+
+def static_hash(*data: Union[str, int]) -> int:
+    """The uint32 that flax's ``_fold_in_static`` folds in for a path
+    ``data``: the first four bytes (big-endian) of its SHA-1."""
     m = hashlib.sha1()
     for x in data:
         if isinstance(x, str):
@@ -94,7 +105,16 @@ def fold_in_static(key: Key, *data: Union[str, int]) -> Key:
             m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
         else:
             raise ValueError(f"Expected int or string, got: {x}")
-    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def fold_in_static(key: Key, *data: Union[str, int]) -> Key:
+    """flax's ``_fold_in_static``: fold the SHA-1 of the path ``data``
+    (strings as UTF-8, ints as their minimal big-endian bytes, nothing
+    between them) into ``key``; no data returns ``key``."""
+    if not data:
+        return key
+    return fold_in(key, static_hash(*data))
 
 
 def _shape(shape) -> Tuple[int, ...]:
@@ -103,12 +123,17 @@ def _shape(shape) -> Tuple[int, ...]:
 
 def random_bits(key: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as an int64 tensor on
-    ``device`` (default: the CPU)."""
+    ``device`` (default: the CPU); a batch of keys of shape ``K`` gives
+    ``K + shape`` on the keys' device."""
     shape = _shape(shape)
     n = math.prod(shape)
+    lead: Tuple[int, ...] = ()
+    if isinstance(key[0], torch.Tensor):
+        lead, device = tuple(key[0].shape), key[0].device
+        key = (key[0].reshape(lead + (1,)), key[1].reshape(lead + (1,)))
     idx = torch.arange(n, dtype=torch.int64, device=device)
     out0, out1 = threefry2x32(key, idx >> 32, idx & _MASK)
-    return (out0 ^ out1).reshape(shape)
+    return (out0 ^ out1).reshape(lead + shape)
 
 
 def _f32(x) -> float:

@@ -1880,3 +1880,189 @@ def test_served_rf_on_the_card_equals_the_batch_run(tmp_path):
     block = served.serve_block
     assert (block["mode"], block["rung"], block["mega"]) == ("featurize+host", "fused", None)
     assert serve_mega_cuda.LAUNCHES == mega_before
+
+
+# -- the training surface: populations, elastic, line searches ----------------
+
+
+def _population_data(n=400, d=48, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] + 0.5 * rng.randn(n) > 0).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac,multi_fold", [(1.0, False), (0.5, False), (0.5, True)])
+def test_batched_linear_engine_on_the_card_equals_looped(frac, multi_fold):
+    """The batched engine on CUDA tensors at the default early stop, for
+    logistic and hinge members: each member stops after as many updates
+    as the looped step function on the card (and the batched engine on
+    the CPU), and its weights lie within 1e-6 of theirs. A hinge member
+    may differ beyond that only where a row's activity (y m < 1) differs
+    at the final weights, a decision roundoff can move: those rows are
+    counted and printed."""
+    import dataclasses
+
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import population as engines
+
+    dev = _card()
+    x, y = _population_data()
+    masks = (np.random.RandomState(1).rand(4, len(y)) > 0.3).astype(np.float32) \
+        if multi_fold else None
+    steps, regs, seeds = [1.0, 0.5, 1.0, 0.25], [0.0, 0.01, 0.01, 0.0], [42, 43, 44, 45]
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    y_signed = 2.0 * y.astype(np.float64) - 1.0
+    flipped = []
+    for loss in ("logistic", "hinge"):
+        config = sgd.SGDConfig(num_iterations=200, mini_batch_fraction=frac, loss=loss)
+        args = (config, steps, regs, seeds, masks)
+        got = engines.train_linear_population(xs.to(dev), ys.to(dev), *args)
+        assert got[0].device.type == "cuda"
+        looped_w = engines.train_linear_population_looped(xs.to(dev), ys.to(dev), *args)
+        looped = []
+        for i in range(len(seeds)):
+            cfg = dataclasses.replace(config, step_size=steps[i], reg_param=regs[i],
+                                      seed=seeds[i])
+            looped.append(sgd.partial_fit_linear(
+                sgd.partial_fit_carry(x.shape[1], device=dev), 0, xs, ys, cfg, 200,
+                sample_mask=None if masks is None else masks[i], device=dev))
+        assert torch.equal(looped_w, torch.stack([c[0] for c in looped]))
+        on_cpu = engines.train_linear_population(xs, ys, *args)
+        for i in range(len(seeds)):
+            rows = np.ones(len(y), bool) if masks is None else masks[i] > 0
+            w_got = got[0][i].double().cpu().numpy()
+            for name, (w, n_updates) in (("looped", (looped[i][0], looped[i][2])),
+                                         ("cpu", (on_cpu[0][i], on_cpu[2][i]))):
+                assert int(got[2][i]) == int(n_updates), (loss, i, name)
+                w = w.double().cpu().numpy()
+                if np.abs(w_got - w).max() <= 1e-6:
+                    continue
+                active = [(y_signed * (x.astype(np.float64) @ v) < 1.0) & rows
+                          for v in (w_got, w)]
+                differ = np.nonzero(active[0] != active[1])[0]
+                assert loss == "hinge" and len(differ), (loss, i, name)
+                flipped += [(i, name, int(r)) for r in differ]
+    print(f"frac {frac}, multi-fold {multi_fold}: {len(flipped)} rows of differing hinge "
+          f"activity {flipped}")
+
+
+@pytest.mark.cuda
+def test_member_masks_on_the_card_equal_mini_batch_mask():
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+
+    dev = _card()
+    seeds, ts = torch.tensor([42, 43, 7, 2**31 - 1]), torch.arange(1, 70)
+    got = sgd.mini_batch_masks(seeds.to(dev), ts.to(dev), 2135, 0.5)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), sgd.mini_batch_masks(seeds, ts, 2135, 0.5))
+    for i in (0, 33, 68):
+        for j, seed in enumerate(seeds.tolist()):
+            config = sgd.SGDConfig(mini_batch_fraction=0.5, seed=seed)
+            assert torch.equal(got[i, j], sgd.mini_batch_mask(config, i + 1, 2135, dev))
+
+
+@pytest.mark.cuda
+def test_batched_linear_engine_reads_back_only_at_its_polls():
+    """No host read-back per iteration: the synchronizing calls of a run
+    do not grow with its iterations without the early stop, and grow by
+    its polls alone with it (torch's sync debug mode counts them)."""
+    import warnings
+
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import population as engines
+
+    dev = _card()
+    x, y = _population_data()
+    xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    def syncs(iterations, tol, frac=1.0):
+        config = sgd.SGDConfig(num_iterations=iterations, convergence_tol=tol,
+                               mini_batch_fraction=frac)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                engines.train_linear_population(xs, ys, config, [1.0, 0.5], [0.0, 0.01],
+                                                [1, 2], None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+    syncs(10, 1e-12, 0.5)  # the first call's one-time initializations
+    for frac in (1.0, 0.5):
+        assert syncs(100, 0.0, frac) == syncs(1000, 0.0, frac)
+    polls = (1000 - 1) // engines.POLL_EVERY - (100 - 1) // engines.POLL_EVERY
+    assert syncs(1000, 1e-12) - syncs(100, 1e-12) == polls
+
+
+@pytest.mark.cuda
+def test_nn_population_on_the_card_equals_looped():
+    """The vmapped network engine on the card (dropout on): each member's
+    predictions within 1e-5 of its own fit on the card."""
+    dev = _card()
+    x, y = _population_data(n=300)
+    cfg = _nn_config("nesterovs", "stochastic_gradient_descent")
+    cfg.update(config_pretrain="false")
+    clf = registry.create("nn")
+    clf.set_config(cfg)
+    feats, labels = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    nets = clf.population_fit(feats, labels, [1, 2], [0.01, 0.005])
+    for net, (seed, lr) in zip(nets, [(1, 0.01), (2, 0.005)]):
+        assert next(net.parameters()).device.type == "cuda"
+        single = registry.create("nn")
+        single.set_config(dict(cfg, config_seed=str(seed), config_learning_rate=str(lr)))
+        single.fit(feats, labels)
+        clf.net = net
+        assert (clf.predict(feats) - single.predict(feats)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["lbfgs", "line_gradient_descent"])
+def test_line_search_fit_on_the_card_matches_the_cpu(algo, tmp_path):
+    """The optimizer alone on real rows: 20 updates of an 8-unit network
+    on a synthetic session's feature rows, the same rows on the card and
+    on the CPU. The card takes the CPU's line-search steps at every update
+    and predicts within 1e-4 of it."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=300)
+    rows = PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=logreg", device="cpu")
+    rows.execute()
+    train, _test = java_compat.train_test_split_indices(len(rows.targets), seed=1)
+    x = rows.features[torch.as_tensor(train)]
+    y = torch.as_tensor(rows.targets)[torch.as_tensor(train)].float()
+    cfg = {"config_seed": "1", "config_num_iterations": "20", "config_learning_rate": "0.1",
+           "config_momentum": "0.9", "config_weight_init": "xavier",
+           "config_updater": "nesterovs", "config_optimization_algo": algo,
+           "config_pretrain": "false", "config_backprop": "true",
+           "config_loss_function": "xent"}
+    for i, (ltype, n, act) in enumerate((("dense", 8, "relu"), ("output", 2, "softmax")), 1):
+        cfg.update({f"config_layer{i}_layer_type": ltype, f"config_layer{i}_n_out": str(n),
+                    f"config_layer{i}_drop_out": "0.0",
+                    f"config_layer{i}_activation_function": act})
+    preds, history = {}, {}
+    for device in ("cuda", "cpu"):
+        clf = registry.create("nn")
+        clf.set_config(cfg)
+        clf.fit(x.to(device), y.to(device))
+        preds[device] = clf.predict(rows.features.to(device)).cpu().numpy()
+        history[device] = [steps for steps, _ in clf.linesearch_history]
+    assert len(history["cuda"]) == 20 and history["cuda"] == history["cpu"]
+    assert np.abs(preds["cuda"] - preds["cpu"]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_probe_devices_on_the_card():
+    from eeg_dataanalysispackage_tpu_torch.obs import failure
+
+    _card()
+    probe = failure.probe_devices()
+    assert probe.all_healthy
+    assert [d.type for d in probe.healthy] == ["cuda"] * torch.cuda.device_count()

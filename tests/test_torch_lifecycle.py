@@ -225,8 +225,18 @@ def test_knob_grammar_refusals_carry_the_jax_messages(extra):
     "elastic=true&checkpoint_path=/tmp/c",
 ])
 def test_checkpoint_path_outside_the_lifecycle_stays_refused(extra):
-    with pytest.raises(ValueError, match="not yet ported"):
-        PipelineBuilder(f"{_BASE}&{extra}", device="cpu").execute()
+    """Since elastic training was ported, checkpoint_path= outside the
+    lifecycle is what it is in the JAX package: elastic=true's directory,
+    and ignored by a load or serve run. The query passes the JAX package's
+    plan parser and the port's checks, and both packages fail alike on the
+    missing session."""
+    query = f"{_BASE}&{extra}"
+    ExecutionPlan.parse(query)
+    with pytest.raises(Exception) as theirs:
+        JaxBuilder(query).execute()
+    with pytest.raises(Exception) as ours:
+        PipelineBuilder(query, device="cpu").execute()
+    assert type(ours.value) is type(theirs.value) is FileNotFoundError
 
 
 # -- the manager against the JAX package's, on one stream -----------------

@@ -138,13 +138,48 @@ def test_no_silent_cpu_without_cuda(one_file):
      pytest.param("serve=true&report=/tmp/never", id="serve=true"),
      "task=seizure", "cv=3", "elastic=true"],
 )
-def test_unported_keys_raise(one_file, extra):
+def test_unported_keys_raise(one_file, extra, tmp_path):
     if extra == "fe=dwt-8-tpu-bf16":
         _bf16_spelling_runs_like_the_jax_package(one_file, "dwt-8-tpu-bf16")
+        return
+    if extra in _TRAINING_SURFACE:
+        _training_surface_runs_like_the_jax_package(one_file, extra, tmp_path)
         return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     with pytest.raises(ValueError, match="not yet ported"):
         PipelineBuilder(q, device="cpu").execute()
+
+
+#: keys refused until the fan-out, population and elastic slice ported them:
+#: each case's train run, and its load_clf= conflict where the JAX package
+#: has one
+_TRAINING_SURFACE = {
+    "classifiers=logreg,svm": "classifiers=logreg,svm",
+    "cv=3": "train_clf=logreg&cv=3",
+    "elastic=true": "train_clf=logreg&elastic=true&checkpoint_path={ck}",
+}
+
+
+def _training_surface_runs_like_the_jax_package(info, extra, tmp_path):
+    """The run prints the JAX package's statistics; combined with
+    load_clf= it raises the JAX package's message (elastic=true is ignored
+    by a load run in both packages)."""
+    from eeg_dataanalysispackage_tpu.pipeline.plan import ExecutionPlan
+
+    q = f"info_file={info}&fe=dwt-8-fused&" + _TRAINING_SURFACE[extra]
+    ours = PipelineBuilder(q.format(ck=tmp_path / "port"), device="cpu").execute()
+    assert str(ours) == str(JaxBuilder(q.format(ck=tmp_path / "jax")).execute())
+    load = f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
+    if extra == "elastic=true":
+        ExecutionPlan.parse(load)  # no conflict in either package
+        with pytest.raises(FileNotFoundError):
+            PipelineBuilder(load, device="cpu").execute()
+        return
+    with pytest.raises(ValueError) as theirs:
+        ExecutionPlan.parse(load)
+    with pytest.raises(ValueError) as got:
+        PipelineBuilder(load, device="cpu").execute()
+    assert str(got.value) == str(theirs.value)
 
 
 def _bf16_spelling_runs_like_the_jax_package(info, fe):

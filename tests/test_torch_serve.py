@@ -200,8 +200,9 @@ def test_conflicts_raise_the_reference_messages(session):
     # faults= spec for its injection points does not
     [pytest.param("adapt=true&faults=serve.adapt:once@1", "not yet ported", id="adapt=true")]
     + [pytest.param(e, "not yet ported", id=e)
-       for e in ("task=seizure", "faults=serve.batch:once@1",
-                 "report=/tmp/never", "save_clf=false&elastic=false")]
+       for e in ("task=seizure", "faults=serve.batch:once@1", "report=/tmp/never")]
+    # explicit no-ops of the training modes serve, as in the JAX package
+    + [pytest.param("save_clf=false&elastic=false", None, id="save_clf=false&elastic=false")]
     # precision=bf16 serves (tests/test_torch_precision.py); a precision
     # outside the ladder raises the JAX package's message
     + [pytest.param("precision=f16", "must be f32, bf16, int8, or int4", id="precision=bf16")],
@@ -209,6 +210,11 @@ def test_conflicts_raise_the_reference_messages(session):
 def test_unported_serve_keys_raise(session, extra, match):
     q = (f"info_file={session['info']}&fe=dwt-8-fused&serve=true"
          f"&load_clf=logreg&load_name={session['model']}&{extra}")
+    if match is None:
+        batch = q.replace("&serve=true", "")
+        assert str(PipelineBuilder(q, device="cpu").execute()) == str(
+            PipelineBuilder(batch, device="cpu").execute())
+        return
     with pytest.raises(ValueError, match=match):
         PipelineBuilder(q, device="cpu").execute()
 
