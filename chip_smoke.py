@@ -20,7 +20,9 @@ the megakernel's float32-sample instantiations, one and 128 tenants,
 (``config_mini_batch_fraction=0.5``), the neural-network classifier
 (``train_clf=nn``, ``load_clf=nn`` and ``serve=true&load_clf=nn``) and the
 tree families (``train_clf=dt|rf|gbt`` and their ``-tpu`` growers, saved,
-loaded and served) — and
+loaded and served), and the seizure workload (``task=seizure``: sliding
+windows, subband features, cost-sensitive training, ``fe_sweep=`` and
+serving) — and
 holds every CUDA kernel of them against its plain PyTorch version.
 Phases, one JSON line each (several for phases 2 to 6):
 
@@ -170,6 +172,30 @@ Phases, one JSON line each (several for phases 2 to 6):
    run's own train rows, on the card and on the CPU, the same line-search
    steps at every update and predictions within NN_TOL. Every run against
    the port's CPU run under phase 4's near-threshold rules;
+4f. the seizure workload (``task=seizure``) on four continuous INT_16
+   recordings of 921,600 samples (one hour at CHB-MIT's 256 Hz) with two
+   annotated seizures each, cut into 512-sample windows at a stride of 256
+   (14,396 windows, ~3% positive): ``fe=dwt-4:level=4:stats=energy,std``
+   with logreg (SEIZURE_LOGREG) at ``cost_fp=1&cost_fn=8`` (saved) and
+   unweighted (expected cost and recall of both printed; the costs must
+   raise recall and lower the expected cost), svm at ``class_weight=balanced``,
+   ``classifiers=logreg,svm,rf,nn`` (each leg byte-equal to its single
+   card run, every leg's ``config_weight_pos`` the resolved 8.0), the
+   ``fe_sweep=`` population (``dwt-4`` and ``dwt-8`` subbands x ``cv=2``
+   x ``cost_fn:2,8``) batched and looped (``result_path`` byte-equal),
+   ``elastic=true`` logreg under ``device.step:once@3`` (one restart, the
+   plain run's statistics), ``fe=dwt-8-pallas`` at 768-sample windows
+   (9,596 windows, K4 once, its rows within KERNEL_TOL of the plain
+   version and of the CPU run's) and ``load_clf=`` of the saved model,
+   each against the port's CPU run under phase 4's near-threshold rules;
+   then ``task=seizure&serve=true`` on a one-recording session (3,599
+   windows, host-extractor mode: statistics byte-equal to the card's batch
+   ``load_clf=`` run, p50/p99, mean batch size, completed, shed, a clean
+   drain), the same at ``fe=dwt-8-pallas`` (K4 once a batch and once at
+   warmup; the served rows run K4's small kernel, so statistics equal the
+   batch run's but for rows within MARGIN_BAND of the threshold) and with
+   ``serve_threshold=`` (recall no lower). Every run prints its
+   ``timers``, the phase its wall;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -252,7 +278,8 @@ Phases, one JSON line each (several for phases 2 to 6):
    megakernel (f32, int8, int4) at capacity 64
    (one serve batch) and at 32,768 windows, K6 at the same sizes with
    lanes cycling over 128 tenants, the epoch-features kernel at 32,768
-   epochs and at the ``-pallas`` run's 641 and 1,494, beside
+   epochs, at the ``-pallas`` run's 641 and 1,494 and at the seizure
+   ``-pallas`` run's 9,596 epochs of 768 samples, beside
    ``library_ms``, one ``torch.matmul`` of the window view with W (TF32
    off: the contraction without the normalize), and ``window_read_ms``,
    one PyTorch reduction over the same window view; and at 4,096 epochs at
@@ -1555,7 +1582,7 @@ def run_builder(label, query, device, counters):
     accuracy = (stats.calc_accuracy() if hasattr(stats, "calc_accuracy")
                 else {name: leg.calc_accuracy() for name, leg in stats.items()})
     emit("e2e", run=label, device=str(builder.device), launches=launches,
-         rows=int(len(builder.targets)), accuracy=accuracy,
+         rows=None if builder.targets is None else int(len(builder.targets)), accuracy=accuracy,
          wall_s=wall, stages_s=builder.timers)
     return builder, stats, launches
 
@@ -2753,24 +2780,358 @@ def phase_training_surface(torch, np, info, counters, work, kept, n_files):
     return k1, k4
 
 
+# phase 4f, the seizure workload: four CHB-MIT-scale continuous recordings
+# (one hour at 256 Hz each), two annotated seizures apiece
+SEIZURE_SAMPLES = 921_600
+SEIZURE_INTERVALS = ((200_000, 215_000), (600_000, 616_000))
+SEIZURE_MAIN = "task=seizure&window=512&stride=256&fe=dwt-4:level=4:stats=energy,std"
+SEIZURE_PALLAS = "task=seizure&window=768&stride=384&fe=dwt-8-pallas"
+SEIZURE_SWEEP = ("fe_sweep=dwt-4:level=4:stats=energy,std|dwt-8:level=4:stats=energy,std"
+                 "&cv=2&sweep=cost_fn:2,8")
+SEIZURE_THRESHOLD = -1.0  # the serve_threshold= run's margin
+# the logreg runs' SGD: at the defaults (100 iterations, step 1, reg 0.01)
+# the unweighted and the cost_fn=8 model both predict no seizure at this
+# 3.4% prevalence; here the costs move recall
+SEIZURE_LOGREG = ("&config_num_iterations=200&config_step_size=10.0"
+                  "&config_mini_batch_fraction=1.0")
+
+
+def write_seizure_smoke_session(directory: str, n_files: int) -> str:
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _synthetic
+
+    os.makedirs(directory)
+    return _synthetic.write_seizure_session(directory, n_files=n_files,
+                                            n_samples=SEIZURE_SAMPLES,
+                                            seizure_intervals=SEIZURE_INTERVALS)
+
+
+def rows_apart(a, b) -> int:
+    """Test rows two statistics of the same rows classify apart."""
+    return (abs(a.true_positives - b.true_positives) + abs(a.true_negatives - b.true_negatives)
+            + abs(a.false_positives - b.false_positives)
+            + abs(a.false_negatives - b.false_negatives)) // 2
+
+
+def compare_sweep_members(np, torch, gpu, cpu, label):
+    """An fe_sweep= population's members on the card against the CPU
+    run's: equal statistics, or differing test rows within MARGIN_BAND of
+    0 on both, each member on its own feature config's rows."""
+    if list(gpu.statistics) != list(cpu.statistics):
+        raise AssertionError(f"{label}: the member sets differ")
+    rows = []
+    for m in gpu.statistics:
+        fe = int(m.split(".", 1)[0][2:])  # the "fe<i>." label prefix
+        g, c = gpu.population_states[m], cpu.population_states[m]
+        idx = torch.as_tensor(g["test_index"])
+        x_g = gpu.feature_sets[fe][1][idx.to(gpu.features.device)].to(torch.float32)
+        x_c = cpu.feature_sets[fe][1][idx].to(torch.float32)
+        m_g = (x_g @ g["state"]).double().cpu().numpy()
+        m_c = (x_c @ c["state"]).double().numpy()
+        differ = np.nonzero((m_g > 0) != (m_c > 0))[0]
+        rows += [{"member": m, "row": int(r), "margin_cuda": float(m_g[r]),
+                  "margin_cpu": float(m_c[r])} for r in differ]
+        if not all(abs(m_g[r]) <= MARGIN_BAND and abs(m_c[r]) <= MARGIN_BAND for r in differ):
+            raise AssertionError(f"{label} {m}: members disagree beyond the near-threshold rule")
+    emit("population_cpu_parity", run=label, members=len(gpu.statistics),
+         statistics_equal=str(gpu.statistics) == str(cpu.statistics), near_threshold_rows=rows)
+
+
+class ExtractorSpy:
+    """Inside ``with``: every ``WaveletTransform.extract_batch`` call
+    kept as (extractor, float64 epochs, rows), in call order (a service's
+    batcher calls it once a batch, after its warmup window)."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from eeg_dataanalysispackage_tpu_torch.features.wavelet import WaveletTransform
+
+        self.cls, self.calls = WaveletTransform, []
+        original = self.original = WaveletTransform.extract_batch
+
+        def spy(fe, epochs):
+            rows = original(fe, epochs)
+            self.calls.append((fe, np.array(epochs, dtype=np.float64), rows.detach().clone()))
+            return rows
+
+        WaveletTransform.extract_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.extract_batch = self.original
+
+
+def k4_rows_vs_plain(torch, np, calls, label, dev=None):
+    """Each (extractor, epochs, rows) call's rows, the epoch-features
+    kernel's at that batch shape (rows None: launched here on ``dev``),
+    against the plain version on the same float32 windows; returns (the
+    largest deviation, the batch sizes)."""
+    from eeg_dataanalysispackage_tpu_torch.ops import dwt, dwt_cuda
+
+    worst, sizes = 0.0, []
+    for fe, epochs, rows in calls:
+        x = torch.from_numpy(np.ascontiguousarray(fe._selected(epochs.astype(np.float32))))
+        geometry = (fe.name, fe.skip_samples, fe.epoch_size, fe.feature_size)
+        if rows is None:
+            rows = dwt_cuda.epoch_features_cuda(x.to(dev), *geometry)
+        want = dwt.epoch_features(x.to(rows.device), *geometry)
+        if rows.device.type != "cuda" or rows.shape != want.shape:
+            raise AssertionError(f"{label}: the rows are not the kernel's on the card")
+        worst = max(worst, (rows - want).abs().max().item())
+        sizes.append(len(epochs))
+    if worst > KERNEL_TOL:
+        raise AssertionError(f"{label}: K4 rows disagree with the plain version: {worst}")
+    return worst, sizes
+
+
+def served_margins_vs_batch(np, batch, statistics, served_rows, label):
+    """The served windows' margins (``served_rows`` in request order,
+    through the batch run's classifier) against the batch run's on its
+    test rows, row by row: every row classified apart lies within
+    MARGIN_BAND of the threshold on both runs, and the served margins
+    give the served statistics' confusion counts."""
+    clf, idx = batch.classifier, np.asarray(batch.test_index, dtype=np.int64)
+    thr = clf.margin_threshold
+    m_s = clf.margin(served_rows).double().cpu().numpy()[idx]
+    m_b = margins_on_test_rows(batch)
+    y = np.asarray(batch.targets, dtype=np.float64)[idx]
+    p = m_s > thr
+    counts = (int((p & (y == 1)).sum()), int((~p & (y == 0)).sum()),
+              int((p & (y == 0)).sum()), int((~p & (y == 1)).sum()))
+    if counts != (statistics.true_positives, statistics.true_negatives,
+                  statistics.false_positives, statistics.false_negatives):
+        raise AssertionError(f"{label}: the spied rows are not the served ones: {counts}")
+    differ = np.nonzero(p != (m_b > thr))[0]
+    rows = [{"row": int(idx[r]), "margin_served": float(m_s[r]),
+             "margin_batch": float(m_b[r])} for r in differ]
+    if not all(abs(m_s[r] - thr) <= MARGIN_BAND and abs(m_b[r] - thr) <= MARGIN_BAND
+               for r in differ):
+        raise AssertionError(f"{label}: served rows differ beyond the near-threshold rule: "
+                             f"{rows}")
+    return rows
+
+
+def phase_seizure(torch, np, counters, work):
+    """The seizure workload on the card (task=seizure): a cost-sensitive
+    logreg (saved) and its unweighted twin, svm with balanced class
+    weights, a four-classifier fan-out (legs byte-equal to single card
+    runs with the resolved weights), an fe_sweep= population batched and
+    looped (result_path byte-equal), elastic logreg under a device.step
+    fault, fe=dwt-8-pallas at 768-sample windows (K4 once over the run's
+    windows, rows within KERNEL_TOL of the plain version), load_clf= of
+    the saved model; every run against the port's CPU run under phase 4's
+    near-threshold rules. Then serve=true on a one-recording session in
+    host-extractor mode (statistics byte-equal to the card's batch
+    load_clf= run), with fe=dwt-8-pallas (K4 once a batch) and with
+    serve_threshold=. Returns (K4 launches over the phase, the largest K4
+    row deviation)."""
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.obs import chaos
+    from eeg_dataanalysispackage_tpu_torch.ops import dwt
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    info = write_seizure_smoke_session(os.path.join(work, "seizure"), 4)
+    one = write_seizure_smoke_session(os.path.join(work, "seizure_one"), 1)
+    emit("seizure_session", recordings=4, samples_each=SEIZURE_SAMPLES,
+         intervals=SEIZURE_INTERVALS, seconds=time.perf_counter() - t0)
+    base = f"info_file={info}&{SEIZURE_MAIN}"
+    model = os.path.join(work, "seizure_logreg")
+    model_p = os.path.join(work, "seizure_logreg_pallas")
+    k4 = 0
+
+    def pair(label, query, compare=compare_runs, card_extra=""):
+        gpu = run_builder(f"{label}_cuda", query + card_extra, None, counters)
+        cpu = run_builder(f"{label}_cpu", query, "cpu", counters)
+        if gpu[0].features.device.type != "cuda" or cpu[2]["epoch_features"]:
+            raise AssertionError(f"{label}: the card run's rows are not on the card")
+        compare(np, gpu[0], cpu[0], label)
+        return gpu, cpu
+
+    # 1. cost-sensitive logreg (saved) and the unweighted twin
+    costed, _ = pair("seizure_logreg_cost",
+                     base + f"&train_clf=logreg{SEIZURE_LOGREG}&cost_fp=1&cost_fn=8",
+                     card_extra=f"&save_clf=true&save_name={model}")
+    plain, _ = pair("seizure_logreg", base + f"&train_clf=logreg{SEIZURE_LOGREG}")
+    workload = costed[0].workload_block
+    rows = costed[0].features
+    recall = {k: r[1].recall() for k, r in (("cost_fn=8", costed), ("unweighted", plain))}
+    emit("seizure_cost", workload=workload, feature_rows=list(rows.shape),
+         expected_cost_1_8={"cost_fn=8": costed[1].expected_cost(1, 8),
+                            "unweighted": plain[1].expected_cost(1, 8)}, recall=recall)
+    if not (workload["windows"] == 4 * 3599 and 0.01 < workload["class_ratio"] < 0.1
+            and tuple(rows.shape) == (4 * 3599, 30) and bool(torch.isfinite(rows).all())):
+        raise AssertionError(f"seizure features or windows are off: {workload}")
+    if not (costed[1].extended_report and recall["cost_fn=8"] > (
+            0.0 if math.isnan(recall["unweighted"]) else recall["unweighted"])
+            and costed[1].expected_cost(1, 8) < plain[1].expected_cost(1, 8)):
+        raise AssertionError("cost-sensitive training did not raise recall and lower the "
+                             "expected cost")
+
+    # 2. svm with balanced class weights
+    pair("seizure_svm_balanced", base + "&train_clf=svm&class_weight=balanced")
+
+    # 3. the four-classifier fan-out, each leg against its single card run
+    names = ("logreg", "svm", "rf", "nn")
+    q = f"{base}&classifiers={','.join(names)}&cost_fn=8{FANOUT_CONFIG}"
+    fan = run_builder("seizure_fanout_cuda", q, None, counters)
+    fan_cpu = run_builder("seizure_fanout_cpu", q, "cpu", counters)
+    singles = {}
+    for name in names:
+        single = run_builder(f"seizure_single_{name}_cuda",
+                             f"{base}&train_clf={name}&cost_fn=8{FANOUT_CONFIG}", None, counters)
+        singles[name] = str(single[1]) == str(fan[1][name])
+        compare_legs(np, leg_view(fan[0], name), leg_view(fan_cpu[0], name), name,
+                     f"seizure_fanout_{name}")
+    weights = {n: fan[0].classifiers[n].config.get("config_weight_pos") for n in names}
+    emit("seizure_fanout", legs=list(names), legs_equal_single_runs=singles,
+         config_weight_pos=weights, stages_s=fan[0].timers)
+    if not all(singles.values()) or set(weights.values()) != {repr(8.0)}:
+        raise AssertionError("a seizure fan-out leg differs from its single card run")
+
+    # 4. the fe_sweep= population, batched and looped
+    q = f"{base}&train_clf=logreg&{SEIZURE_SWEEP}"
+    sweep = {m: run_builder(f"seizure_sweep_{m}_cuda",
+                            q + f"&population_mode={m}&result_path={work}/sweep_{m}.txt", None,
+                            counters) for m in ("vmap", "looped")}
+    sweep_cpu = run_builder("seizure_sweep_vmap_cpu", q, "cpu", counters)
+    texts = {m: open(f"{work}/sweep_{m}.txt").read() for m in sweep}
+    vm = sweep["vmap"][0]
+    emit("seizure_sweep", members=len(vm.statistics), labels=list(vm.statistics),
+         modes=[sweep[m][0].population_block["mode"] for m in sweep],
+         result_path_equal=texts["vmap"] == texts["looped"],
+         train_s={m: sweep[m][0].timers["train"] for m in sweep})
+    if not (texts["vmap"] == texts["looped"] and len(vm.statistics) == 8
+            and sweep["looped"][0].population_block["mode"] == "looped"):
+        raise AssertionError("the fe_sweep= population: batched and looped disagree")
+    compare_sweep_members(np, torch, vm, sweep_cpu[0], "seizure_sweep")
+
+    # 5. elastic logreg under a device.step fault on the 3rd chunk
+    ck = os.path.join(work, "seizure_ck")
+    before = obs.metrics.snapshot()["counters"].get("elastic.restarts", 0.0)
+    with chaos.faults("device.step:once@3"):
+        el = run_builder("seizure_logreg_elastic_cuda",
+                         base + f"&train_clf=logreg{SEIZURE_LOGREG}&elastic=true"
+                         f"&checkpoint_path={ck}", None, counters)
+    restarts = obs.metrics.snapshot()["counters"].get("elastic.restarts", 0.0) - before
+    emit("seizure_elastic", restarts=restarts, cleared=not os.listdir(ck),
+         statistics_equal_plain=str(el[1]) == str(plain[1]), train_s=el[0].timers["train"],
+         plain_train_s=plain[0].timers["train"])
+    if not (str(el[1]) == str(plain[1]) and restarts == 1 and not os.listdir(ck)):
+        raise AssertionError("elastic seizure logreg: not the plain run's statistics")
+
+    # 6. fe=dwt-8-pallas at 768-sample windows: K4 once over the run's windows
+    q = f"info_file={info}&{SEIZURE_PALLAS}&train_clf=logreg"
+    pallas, pallas_cpu = pair("seizure_pallas", q, card_extra=f"&save_clf=true&save_name={model_p}")
+    g = pallas[0]
+    epochs = torch.from_numpy(np.ascontiguousarray(g.batch.epochs, dtype=np.float32)).to(
+        g.features.device)
+    err_plain = (g.features - dwt.epoch_features(epochs)).abs().max().item()
+    err_cpu = (g.features.cpu() - pallas_cpu[0].features).abs().max().item()
+    del epochs
+    k4 += pallas[2]["epoch_features"]
+    emit("seizure_pallas", epochs=list(g.batch.epochs.shape),
+         k4_launches=pallas[2]["epoch_features"], max_abs_err_plain=err_plain,
+         max_abs_err_cpu=err_cpu, tol=KERNEL_TOL)
+    if not (pallas[2]["epoch_features"] == 1 and g.batch.epochs.shape == (4 * 2399, 3, 768)
+            and max(err_plain, err_cpu) <= KERNEL_TOL):
+        raise AssertionError("the seizure -pallas run's K4 rows disagree with the plain version")
+    k4_err = max(err_plain, err_cpu)
+
+    # 7. load_clf= of the saved model
+    pair("seizure_load", base + f"&load_clf=logreg&load_name={model}&cost_fp=1&cost_fn=8")
+
+    # 8. serve=true on a one-recording session: host-extractor mode, then
+    # K4 once a batch, then a lowered margin threshold
+    served = {}
+    for label, fe_part, saved, k4_batch in (("dwt4", SEIZURE_MAIN, model, False),
+                                            ("pallas", SEIZURE_PALLAS, model_p, True)):
+        q = f"info_file={one}&{fe_part}&load_clf=logreg&load_name={saved}&cost_fp=1&cost_fn=8"
+        batch = run_builder(f"seizure_serve_batch_{label}_cuda", q, None, counters)
+        with ExtractorSpy() as spy:
+            srv = run_builder(f"seizure_serve_{label}_cuda", q + "&serve=true", None,
+                              counters)
+        block = srv[0].serve_block
+        launches = srv[2]["epoch_features"]
+        gap = rows_apart(srv[1], batch[1])
+        checks = {}
+        if k4_batch:
+            # every served batch's K4 rows against the plain version, then
+            # the served margins against the batch run's row by row (the
+            # first spied call is the warmup's window)
+            err, sizes = k4_rows_vs_plain(torch, np, spy.calls, "seizure_serve_pallas")
+            near = served_margins_vs_batch(
+                np, batch[0], srv[1], torch.cat([r for _, _, r in spy.calls[1:]]),
+                "seizure_serve_pallas")
+            # K4's small kernel at the full serve batch's and the last
+            # batch's shapes, on the session's own windows
+            windows = batch[0].batch.epochs
+            tail = len(windows) % 64 or 64
+            err = max(err, k4_rows_vs_plain(
+                torch, np, [(batch[0].fe, windows[:64], None), (batch[0].fe, windows[-tail:], None)],
+                "seizure_serve_pallas_shapes", batch[0].features.device)[0])
+            k4_err = max(k4_err, err)
+            checks = {"served_rows_max_abs_err_plain": err, "served_batch_sizes": sizes,
+                      "near_threshold_rows": near}
+        served[label] = {"statistics_equal_batch": str(srv[1]) == str(batch[1]),
+                         "rows_apart": gap, **checks,
+                         "mode": block["mode"], "rung": block["rung"],
+                         "completed": block["requests"]["completed"],
+                         "shed": block["requests"]["shed"],
+                         "drained_cleanly": block["drained_cleanly"],
+                         "latency_ms": block["latency_ms"],
+                         "mean_batch_size": block["mean_batch_size"],
+                         "batches": block["batches"], "k4_launches": launches,
+                         "stages_s": srv[0].timers}
+        emit("seizure_serve", run=label, **served[label])
+        n = srv[0].workload_block["windows"]
+        ok = (block["mode"] == "host-extractor" and block["requests"]["completed"] == n
+              and block["requests"]["shed"] == 0 and block["drained_cleanly"])
+        if k4_batch:
+            k4 += batch[2]["epoch_features"] + launches
+            # the serve batches run K4's small kernel, the batch run its
+            # ring kernel: rows may round apart, so flips only near the
+            # threshold (served_margins_vs_batch)
+            ok = ok and launches == block["batches"] + 1 and len(spy.calls) == launches
+        else:
+            ok = ok and str(srv[1]) == str(batch[1]) and launches == 0 and n == 3599
+        if not ok:
+            raise AssertionError(f"seizure serving ({label}) disagrees with the batch run")
+    q = (f"info_file={one}&{SEIZURE_MAIN}&load_clf=logreg&load_name={model}&cost_fp=1"
+         f"&cost_fn=8&serve=true")
+    lowered = run_builder("seizure_serve_threshold_cuda",
+                          q + f"&serve_threshold={SEIZURE_THRESHOLD}", None, counters)
+    default = run_builder("seizure_serve_default_cuda", q, None, counters)
+    emit("seizure_serve_threshold", threshold=SEIZURE_THRESHOLD,
+         recall={"lowered": lowered[1].recall(), "default": default[1].recall()},
+         positive_predictions={r: s.true_positives + s.false_positives
+                               for r, s in (("lowered", lowered[1]), ("default", default[1]))})
+    if not lowered[1].recall() >= default[1].recall():
+        raise AssertionError("serve_threshold= lowered recall")
+    emit("seizure_phase", seconds=time.perf_counter() - t_phase, k4_launches=k4,
+         k4_max_abs_err=k4_err)
+    return k4, k4_err
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
-    """The epoch-features kernel and its plain version on ``n`` (3, 750)
-    float32 epochs; bound: the 512-sample windows read once, the rows
-    written once, the operator read once. ``library_ms``: one
-    ``torch.matmul`` of the window view (B, 3, 512), strides (3*750, 750,
-    1), with the (512, 16) operator (cuBLAS SGEMM, TF32 off): the
+def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi, T=750):
+    """The epoch-features kernel and its plain version on ``n`` (3, T)
+    float32 epochs (T = 768: the seizure run's windows); bound: the
+    512-sample windows read once, the rows written once, the operator read
+    once. ``library_ms``: one ``torch.matmul`` of the window view (B, 3,
+    512), strides (3*T, T, 1), with the (512, 16) operator (cuBLAS SGEMM, TF32 off): the
     contraction, all of the kernel's FMAs and most of its bytes, without
     the normalize (``library_device_ms``: its GEMM kernel's device time).
     ``window_read_ms``: the device time of one PyTorch reduction over that
     view, what its strided read costs the card."""
     gen = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randn((n, 3, 750), generator=gen, device=dev) * 40.0
+    x = torch.randn((n, 3, T), generator=gen, device=dev) * 40.0
     got = dwt_cuda.epoch_features_cuda(x)
     want = dwt.epoch_features(x)
     err = (got - want).abs().max().item()
@@ -2803,7 +3164,7 @@ def epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi):
     bytes_moved = n * 3 * 512 * 4 + n * 48 * 4 + 512 * 16 * 4
     flops = 2 * n * 3 * 512 * 16
     bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, f32_peak)
-    emit("timing", kernel="epoch_features", epochs=n, kernel_ms=kernel_ms,
+    emit("timing", kernel="epoch_features", epochs=n, epoch_length=T, kernel_ms=kernel_ms,
          kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by, bytes=bytes_moved, flops=flops, library_ms=library_ms,
          library="torch.matmul of the window view with W, TF32 off (contraction only)",
@@ -4133,6 +4494,8 @@ def main() -> int:
         # 4e. fan-out, populations, elastic training and the line searches
         train_k1, train_k4 = phase_training_surface(torch, np, info, counters, work,
                                                     int(len(gpu.targets)), n_files=8)
+        # 4f. the seizure workload
+        seizure_k4, seizure_k4_err = phase_seizure(torch, np, counters, work)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -4214,6 +4577,9 @@ def main() -> int:
               for n in (641, 1494)]  # the -pallas logreg run's own launches
     # one host-extractor serve batch
     k4_64 = epoch_timing(torch, dwt, dwt_cuda, dev, 64, bandwidth, f32_peak, smi)
+    # the seizure -pallas run's one launch: 9,596 windows of 768 samples
+    k4_seizure = epoch_timing(torch, dwt, dwt_cuda, dev, 4 * 2399, bandwidth, f32_peak, smi,
+                              T=768)
     epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
     # the 512/16 rows' library call at their timing sizes: 32,768
     # windows (K1 and its rungs) and one serve batch of 64 (K5, K6)
@@ -4236,8 +4602,9 @@ def main() -> int:
     multi_pallas = "eeg_dataanalysispackage_tpu/ops/serve_mega.py:484"
     print(json.dumps({"kernels": [
         # the main path's run and the runs of phases 4c (mini-batch SGD,
-        # the nn batch, load and serve runs), 4d (the tree families) and 4e
-        # (fan-out, populations, elastic, line searches)
+        # the nn batch, load and serve runs), 4d (the tree families), 4e
+        # (fan-out, populations, elastic, line searches) and 4f (the seizure
+        # workload's -pallas runs)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1, max(max_err["f32"], k1[4]), k1,
                      library_ms=lib[32_768]),
@@ -4246,8 +4613,9 @@ def main() -> int:
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
-                     k4_launches + nn_k4 + tree_k4 + train_k4,
-                     max(epoch_err, k4_path_err, k4_f32_path_err, k4[4], *(t[4] for t in k4_run)),
+                     k4_launches + nn_k4 + tree_k4 + train_k4 + seizure_k4,
+                     max(epoch_err, k4_path_err, k4_f32_path_err, seizure_k4_err, k4[4],
+                         k4_seizure[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),
         # the epoch-features kernel behind the host-extractor service
         # (fe=dwt-8-pallas, float32 session): one launch a batch of 64

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``io/provider.OfflineDataProvider`` for one
 device: :meth:`OfflineDataProvider.load` gives host epochs (the ``fe=``
-path), :meth:`OfflineDataProvider.load_features_device` gives fused
+path), :meth:`OfflineDataProvider.load_sliding` the seizure workload's
+sliding windows, :meth:`OfflineDataProvider.load_features_device` fused
 DWT features with no host epochs. Input-contract parity with
 ``DataTransformation/OffLineDataProvider.java``:
 
@@ -188,6 +189,35 @@ class OfflineDataProvider:
             channels, rec.markers, guessed,
             pre=self._pre, post=self._post, balance=balance,
         )
+
+    def load_sliding(self, config) -> extractor.EpochBatch:
+        """Sliding-window epochs of every resolvable recording, in info.txt
+        order (the seizure workload; ``config`` an
+        ``epochs.sliding.SlidingConfig``): ``(n, n_channels, window)``
+        float64 windows labeled from each recording's ``Seizure`` interval
+        annotations, bit-equal to the JAX package's. The manifest's guessed
+        numbers are ignored and there is no balance scan."""
+        timings = {"parse": 0.0, "epoch": 0.0}
+        batches: List[extractor.EpochBatch] = []
+        t0 = time.perf_counter()
+        for _rel_path, _guessed, rec in self.iter_recordings():
+            t1 = time.perf_counter()
+            timings["parse"] += t1 - t0
+            batches.append(self.sliding_batch_for(rec, config))
+            t0 = time.perf_counter()
+            timings["epoch"] += t0 - t1
+        self._batch = extractor.EpochBatch.concatenate(batches)
+        self.timings = timings
+        return self._batch
+
+    def sliding_batch_for(self, rec: brainvision.Recording, config) -> extractor.EpochBatch:
+        """One recording's sliding-window batch (scaled float64 channels ->
+        ``epochs/sliding.py``); the serving path cuts its windows here
+        too, so they are the batch run's."""
+        from ..epochs import sliding
+
+        channels = rec.read_channels(self.channel_indices_for(rec))
+        return sliding.extract_sliding_epochs(channels, rec.markers, config)
 
     # -- reference-parity accessors ------------------------------------
 

@@ -141,6 +141,9 @@ class Classifier(abc.ABC):
         if arr.ndim == 2:  # single epoch
             arr = arr[None]
         features = self.fe.extract_batch(arr)
+        if isinstance(features, np.ndarray):
+            # a host extractor's rows (features/subband.py) go to its device
+            features = torch.from_numpy(features).to(self.fe.device)
         _sync(features.device)
         self._tick("featurize", t0)
         return features

@@ -1,11 +1,12 @@
 """Population training: folds x seeds x a hyperparameter grid.
 
-Port of the JAX package's ``models/population.py`` (without its
-``fe_sweep=`` feature-config axis, which belongs to the seizure workload,
-and without the mesh-sharded engine; see ROADMAP.md). A population is
-the cartesian expansion of
+Port of the JAX package's ``models/population.py`` (without the
+mesh-sharded engine; see ROADMAP.md). A population is the cartesian
+expansion of
 
-    cross-validation folds (``cv=k``, k-fold or Monte-Carlo ``cv_mode=mc``)
+    feature configs         (``fe_sweep=a|b``, the seizure workload,
+                             linear family only)
+  x cross-validation folds (``cv=k``, k-fold or Monte-Carlo ``cv_mode=mc``)
   x init/sampling seeds   (``seeds=m``: the base seed, base+1, ...)
   x a hyperparameter grid (``sweep=lr:0.1,0.03;reg:0.0,0.01``)
 
@@ -90,8 +91,8 @@ class PopulationSpec:
     seeds: int = 1
     sweep: Tuple[Tuple[str, Tuple[float, ...]], ...] = ()
     mode: str = "vmap"  # "vmap" | "looped"
-    #: the seizure workload's feature-config axis (``fe_sweep=``): parsed
-    #: as the JAX package parses it, refused by the builder (not ported)
+    #: the seizure workload's feature-config axis (``fe_sweep=``, ``fe=``
+    #: grammar strings): every member trains on its config's matrix
     fe_configs: Tuple[str, ...] = ()
 
     @classmethod
@@ -184,7 +185,8 @@ def folds_for(spec: PopulationSpec, n: int) -> List[Tuple[np.ndarray, np.ndarray
 @dataclasses.dataclass(frozen=True)
 class Member:
     """One member: a fold, a seed and grid overrides (None = the
-    classifier config's base value)."""
+    classifier config's base value); ``fe`` indexes the spec's
+    ``fe_configs`` when the feature-config axis rides along."""
 
     fold: int
     seed: int
@@ -212,10 +214,10 @@ class Member:
 
 def expand_members(spec: PopulationSpec, n_folds: int, base_seed: int, supports_reg: bool,
                    name: str = "", supports_cost: bool = True) -> List[Member]:
-    """The member list, fold-major, then seed, then grid: the order every
-    engine and report keeps. Axes a family cannot express collapse onto
-    the base config with a log line (the network has no ``reg`` and no
-    per-member class weights)."""
+    """The member list, feature-config-major, then fold, then seed, then
+    grid: the order every engine and report keeps. Axes a family cannot
+    express collapse onto the base config with a log line (the network
+    has no ``reg`` and no per-member class weights)."""
     lrs: Sequence[Optional[float]] = spec.axis_values("lr") or (None,)
     regs: Sequence[Optional[float]] = spec.axis_values("reg") or (None,)
     cfps: Sequence[Optional[float]] = spec.axis_values("cost_fp") or (None,)
@@ -233,8 +235,12 @@ def expand_members(spec: PopulationSpec, n_folds: int, base_seed: int, supports_
             "%d grid points onto the base config", name, len(cfps) * len(cfns),
         )
         cfps = cfns = (None,)
+    fes: Sequence[Optional[int]] = (
+        tuple(range(len(spec.fe_configs))) if spec.fe_configs else (None,)
+    )
     return [
-        Member(fold=f, seed=base_seed + s, lr=lr, reg=reg, cost_fp=cfp, cost_fn=cfn)
+        Member(fold=f, seed=base_seed + s, lr=lr, reg=reg, cost_fp=cfp, cost_fn=cfn, fe=fe)
+        for fe in fes
         for f in range(n_folds)
         for s in range(spec.seeds)
         for lr in lrs
@@ -273,6 +279,17 @@ def _rows(features: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     return features[torch.as_tensor(idx, dtype=torch.long, device=features.device)]
 
 
+def _stacked_features(members, feature_sets, row_idx=None) -> torch.Tensor:
+    """(P, n, d) float32 member-axis stack of an ``fe_sweep=`` population:
+    member i's matrix is its config's, gathered to ``row_idx`` (the
+    shared single-fold train rows) when given."""
+    mats = []
+    for m in members:
+        f = feature_sets[m.fe][1].to(torch.float32)
+        mats.append(f if row_idx is None else _rows(f, row_idx))
+    return torch.stack(mats)
+
+
 def run_population(
     name: str,
     make_classifier: Callable,
@@ -282,6 +299,7 @@ def run_population(
     spec: PopulationSpec,
     stage: Optional[Callable] = None,
     states: Optional[Dict] = None,
+    feature_sets: Optional[Sequence[Tuple[str, torch.Tensor]]] = None,
 ) -> Tuple[stats.PopulationStatistics, Dict]:
     """Train and test one classifier family's population on ``features``
     (n, d) rows on the run's device with ``targets`` (n,).
@@ -293,7 +311,13 @@ def run_population(
     the builder's stage context (the ``train`` and ``test`` wall times);
     ``states``, when given, receives ``{label: {"state", "test_index",
     "predictions"}}`` per member (the trained weights or network, the
-    member's test rows and its predictions on them)."""
+    member's test rows and its predictions on them).
+
+    ``feature_sets`` carries the ``fe_sweep=`` axis: ``(config, (n, d)
+    rows)`` pairs, one per ``spec.fe_configs`` entry, all over the same
+    rows and of one shape; each member trains and tests on its config's
+    matrix (the batched engine takes them stacked on the member axis).
+    Linear family only."""
     from .. import obs
     from ..obs import events
     from ..parallel.population import PopulationVmapUnsupported
@@ -303,9 +327,26 @@ def run_population(
             f"population training supports the SGD family "
             f"({', '.join(SGD_FAMILY)}); {name!r} trains one model per run"
         )
-    if spec.fe_configs:
-        raise ValueError("fe_sweep= is not yet ported; see ROADMAP.md")
     linear = name in ("logreg", "svm")
+    if spec.fe_configs and not linear:
+        raise ValueError(
+            "fe_sweep= applies to the linear family (logreg/svm); the "
+            f"{name} engine shares one feature matrix"
+        )
+    if spec.fe_configs:
+        if feature_sets is None or len(feature_sets) != len(spec.fe_configs):
+            raise ValueError(
+                f"fe_sweep= lists {len(spec.fe_configs)} configs but "
+                f"{0 if feature_sets is None else len(feature_sets)} "
+                f"feature matrices were provided"
+            )
+        shapes = {tuple(f.shape) for _, f in feature_sets}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"fe_sweep= feature configs must agree on the feature "
+                f"matrix shape to share one stacked program; got "
+                f"{sorted(shapes)} — match the level=/stats= sets"
+            )
     stage = stage or _null_stage
     targets = np.asarray(targets, dtype=np.float64)
     n = len(targets)
@@ -338,14 +379,14 @@ def run_population(
         if spec.mode == "vmap":
             try:
                 trained = _train_vmapped(name, template, features, targets, folds, members,
-                                         base_cfg)
+                                         base_cfg, feature_sets)
             except PopulationVmapUnsupported as e:
                 logger.warning("population %s falls back to looped training: %s", name, e)
                 obs.metrics.count("population.fallback_looped")
                 mode_used = "looped"
         if trained is None:
             trained = _train_looped(name, make_classifier, config, features, targets, folds,
-                                    members, base_cfg, template)
+                                    members, base_cfg, template, feature_sets)
         if features.device.type == "cuda":
             torch.cuda.synchronize(features.device)
     obs.metrics.count("population.members", len(members))
@@ -360,9 +401,11 @@ def run_population(
             else:
                 template.net = state
             _, test_idx = folds[m.fold]
+            # the member's fe_sweep config's matrix, else the shared one
+            rows = features if m.fe is None else feature_sets[m.fe][1]
             with events.span("population.member", classifier=name, member=m.label,
                              fold=m.fold, seed=m.seed):
-                result[m.label] = template.test_features(_rows(features, test_idx),
+                result[m.label] = template.test_features(_rows(rows, test_idx),
                                                          targets[test_idx])
             if states is not None:
                 states[m.label] = {"state": state, "test_index": test_idx,
@@ -387,24 +430,34 @@ def _labels(targets: np.ndarray, idx, device) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32, device=device)
 
 
-def _train_vmapped(name, template, features, targets, folds, members, base_cfg) -> List:
-    """All members at once (``parallel/population.py``)."""
+def _stacked(members, feature_sets) -> bool:
+    return feature_sets is not None and any(m.fe is not None for m in members)
+
+
+def _train_vmapped(name, template, features, targets, folds, members, base_cfg,
+                   feature_sets=None) -> List:
+    """All members at once (``parallel/population.py``); an ``fe_sweep=``
+    population hands the engine its (P, n, d) feature stack."""
     from ..parallel import population as engines
     from ..parallel.population import PopulationVmapUnsupported
 
     dev = features.device
     if name in ("logreg", "svm"):
         steps, regs, seeds, wpos, wneg = _member_axes(members, base_cfg)
+        stacked = _stacked(members, feature_sets)
         if len(folds) == 1:
             # single fold: the shared train rows, gathered once
             train_idx = folds[0][0]
+            x = (_stacked_features(members, feature_sets, train_idx) if stacked
+                 else _rows(features, train_idx))
             weights, _, _ = engines.train_linear_population(
-                _rows(features, train_idx), _labels(targets, train_idx, dev), base_cfg,
+                x, _labels(targets, train_idx, dev), base_cfg,
                 steps, regs, seeds, masks=None, weight_pos=wpos, weight_neg=wneg,
             )
         else:
+            x = _stacked_features(members, feature_sets) if stacked else features
             weights, _, _ = engines.train_linear_population(
-                features, _labels(targets, None, dev), base_cfg, steps, regs, seeds,
+                x, _labels(targets, None, dev), base_cfg, steps, regs, seeds,
                 masks=_fold_masks(members, folds, len(targets)), weight_pos=wpos,
                 weight_neg=wneg,
             )
@@ -424,22 +477,33 @@ def _train_vmapped(name, template, features, targets, folds, members, base_cfg) 
 
 
 def _train_looped(name, make_classifier, config, features, targets, folds, members,
-                  base_cfg, template=None) -> List:
+                  base_cfg, template=None, feature_sets=None) -> List:
     """One member at a time: single-fold linear members are the
     ``train_clf=`` invocation (the gathered rows); multi-fold linear
     members train over the full matrix with their fold's mask, so their
-    mini-batch draws span the same n rows as the batched engine's; nn
-    members are ``fit`` with the member's seed and learning rate."""
+    mini-batch draws span the same n rows as the batched engine's; an
+    ``fe_sweep=`` member trains on its config's matrix of the stack the
+    batched engine takes; nn members are ``fit`` with the member's seed
+    and learning rate."""
     from . import sgd
     from ..parallel import population as engines
 
     dev = features.device
     linear = name in ("logreg", "svm")
-    if linear and len(folds) > 1:
+    stacked = linear and _stacked(members, feature_sets)
+    if linear and (len(folds) > 1 or stacked):
         steps, regs, seeds, wpos, wneg = _member_axes(members, base_cfg)
+        if len(folds) > 1:
+            masks = _fold_masks(members, folds, len(targets))
+            x = _stacked_features(members, feature_sets) if stacked else features
+            y = _labels(targets, None, dev)
+        else:
+            train_idx = folds[0][0]
+            masks = None
+            x = _stacked_features(members, feature_sets, train_idx)
+            y = _labels(targets, train_idx, dev)
         weights = engines.train_linear_population_looped(
-            features, _labels(targets, None, dev), base_cfg, steps, regs, seeds,
-            _fold_masks(members, folds, len(targets)), weight_pos=wpos, weight_neg=wneg,
+            x, y, base_cfg, steps, regs, seeds, masks, weight_pos=wpos, weight_neg=wneg,
         )
         return list(weights)
     trained = []

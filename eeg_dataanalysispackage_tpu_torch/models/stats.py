@@ -2,7 +2,9 @@
 
 Confusion-matrix counts with the reference's accuracy/MSE math, rounding
 rule (Math.round: half-up) and report text (ClassificationStatistics.java:
-50-96), :class:`WindowedStatistics`, the serving lifecycle's sliding
+50-96), the seizure workload's imbalanced-class metrics and extended
+report (:func:`mark_extended`; off by default, so every P300 report is
+unchanged), :class:`WindowedStatistics`, the serving lifecycle's sliding
 window of served outcomes, and the multi-model reports
 :class:`PopulationStatistics` (``cv=``/``seeds=``/``sweep=`` members) and
 :class:`FanOutStatistics` (``classifiers=`` legs), whose text is the JAX
@@ -14,8 +16,24 @@ from __future__ import annotations
 import math
 import threading
 from collections import deque
+from typing import Optional
 
 import numpy as np
+
+
+def mark_extended(statistics, cost_fp: float = 1.0, cost_fn: float = 1.0) -> None:
+    """Opt ``statistics`` into the extended imbalanced-class report
+    (precision, recall, F1, balanced accuracy, expected cost) with the
+    run's misclassification costs. Recurses through the dict-shaped
+    reports (:class:`PopulationStatistics`, :class:`FanOutStatistics`),
+    so every member's text carries the block."""
+    if isinstance(statistics, dict):
+        for member in statistics.values():
+            mark_extended(member, cost_fp, cost_fn)
+        return
+    statistics.extended_report = True
+    statistics.cost_fp = float(cost_fp)
+    statistics.cost_fn = float(cost_fn)
 
 
 def _java_round(x: float) -> int:
@@ -32,6 +50,11 @@ class ClassificationStatistics:
         self.mse = 0.0
         self.class1_sum = 0.0  # sum of real outputs on expected-0 patterns
         self.class2_sum = 0.0  # sum of real outputs on expected-1 patterns
+        # the seizure workload's report (mark_extended); off, the text is
+        # the reference's
+        self.extended_report = False
+        self.cost_fp = 1.0  # cost of one false positive
+        self.cost_fn = 1.0  # cost of one false negative
 
     @classmethod
     def from_arrays(
@@ -88,10 +111,63 @@ class ClassificationStatistics:
             return math.nan
         return (self.true_positives + self.true_negatives) / self.num_patterns
 
+    # -- imbalanced-class metrics (the seizure workload); every 0/0 is NaN,
+    # as accuracy's is
+
+    def precision(self) -> float:
+        denom = self.true_positives + self.false_positives
+        return math.nan if denom == 0 else self.true_positives / denom
+
+    def recall(self) -> float:
+        denom = self.true_positives + self.false_negatives
+        return math.nan if denom == 0 else self.true_positives / denom
+
+    def specificity(self) -> float:
+        denom = self.true_negatives + self.false_positives
+        return math.nan if denom == 0 else self.true_negatives / denom
+
+    def f1(self) -> float:
+        p, r = self.precision(), self.recall()
+        if math.isnan(p) or math.isnan(r) or (p + r) == 0:
+            return math.nan
+        return 2.0 * p * r / (p + r)
+
+    def balanced_accuracy(self) -> float:
+        r, s = self.recall(), self.specificity()
+        if math.isnan(r) or math.isnan(s):
+            return math.nan
+        return (r + s) / 2.0
+
+    def expected_cost(self, cost_fp: Optional[float] = None,
+                      cost_fn: Optional[float] = None) -> float:
+        """Mean per-pattern misclassification cost: each false positive
+        bills ``cost_fp``, each false negative ``cost_fn`` (defaults: the
+        run's costs)."""
+        cfp = self.cost_fp if cost_fp is None else float(cost_fp)
+        cfn = self.cost_fn if cost_fn is None else float(cost_fn)
+        if self.num_patterns == 0:
+            return math.nan
+        return (cfp * self.false_positives + cfn * self.false_negatives) / self.num_patterns
+
+    def extended_summary(self) -> dict:
+        """The imbalanced-class metric block (the JAX package's report
+        ``classification`` field of an extended run)."""
+        return {
+            "accuracy": self.calc_accuracy(),
+            "precision": self.precision(),
+            "recall": self.recall(),
+            "specificity": self.specificity(),
+            "f1": self.f1(),
+            "balanced_accuracy": self.balanced_accuracy(),
+            "cost_fp": self.cost_fp,
+            "cost_fn": self.cost_fn,
+            "expected_cost": self.expected_cost(),
+        }
+
     def __str__(self) -> str:
         # Field order and wording match ClassificationStatistics.java:86-96.
         mse = math.nan if self.num_patterns == 0 else self.mse / self.num_patterns
-        return (
+        base = (
             f"Number of patterns: {self.num_patterns}\n"
             f"True positives: {self.true_positives}\n"
             f"True negatives: {self.true_negatives}\n"
@@ -101,6 +177,16 @@ class ClassificationStatistics:
             f"MSE: {mse}\n"
             f"Non-targets: {self.class1_sum}\n"
             f"Targets: {self.class2_sum}\n"
+        )
+        if not self.extended_report:
+            return base
+        return base + (
+            f"Precision: {self.precision()}\n"
+            f"Recall: {self.recall()}\n"
+            f"F1: {self.f1()}\n"
+            f"Balanced accuracy: {self.balanced_accuracy()}\n"
+            f"Expected cost (fp={self.cost_fp}, fn={self.cost_fn}): "
+            f"{self.expected_cost()}\n"
         )
 
 

@@ -9,6 +9,8 @@ operator (``ops/dwt.cascade_matrix``) by running on the identity.
 
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import numpy as np
 
 from . import eegdsp_compat
@@ -19,21 +21,38 @@ def _seq_dot(block: np.ndarray, f: np.ndarray) -> np.ndarray:
     return np.cumsum(block * f, axis=-1)[..., -1]
 
 
-def fwt_periodic(signal: np.ndarray, h: np.ndarray, g: np.ndarray) -> np.ndarray:
-    """Full FWT over the last axis in the eegdsp coefficient layout
-    ``[a_K | d_K | d_{K-1} | ... | d_1]``; decomposes while the current
-    length >= len(h), indices taken mod the current length."""
+def fwt_subbands(
+    signal: np.ndarray,
+    h: np.ndarray,
+    g: np.ndarray,
+    max_levels: Optional[int] = None,
+) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The cascade over the last axis: ``(approximation, [d_1, d_2, ...,
+    d_K])``, the one implementation of the eegdsp convention, shared by
+    :func:`fwt_periodic` and the per-subband statistics
+    (``features/subband.py``). Each level keeps ``floor(n/2)``
+    coefficients, indices taken mod the current length; it decomposes
+    while the current length >= len(h), and at most ``max_levels`` levels
+    when that is given."""
     a = np.array(signal, dtype=np.float64, copy=True)
     n = a.shape[-1]
     L = len(h)
     details = []
-    while n >= L:
+    while n >= L and (max_levels is None or len(details) < max_levels):
         half = n // 2
         idx = (2 * np.arange(half)[:, None] + np.arange(L)[None, :]) % n
         block = a[..., idx]  # (..., half, L)
         details.append(_seq_dot(block, g))
         a = _seq_dot(block, h)
         n = half
+    return a, details
+
+
+def fwt_periodic(signal: np.ndarray, h: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """Full FWT over the last axis in the eegdsp coefficient layout
+    ``[a_K | d_K | d_{K-1} | ... | d_1]`` (:func:`fwt_subbands` to the
+    full depth)."""
+    a, details = fwt_subbands(signal, h, g)
     return np.concatenate([a] + details[::-1], axis=-1)
 
 

@@ -8,7 +8,10 @@ is the sequential one, batched:
 - :func:`train_linear_population`: logreg and svm (MLlib-SGD) with the
   members' weights a (P, d) tensor on the run's device. A single-fold
   population shares the gathered train rows; a multi-fold one keeps the
-  full matrix and a (P, n) train-row mask per member. Step sizes, regs,
+  full matrix and a (P, n) train-row mask per member. An ``fe_sweep=``
+  population gives every member its own (n, d) matrix, a (P, n, d)
+  stack: its margins and gradients are
+  batched products of each member's matrix with its own weights. Step sizes, regs,
   seeds and class weights are (P,) device tensors; every member's step
   scalars are the float32 values ``models/sgd._step`` computes. A member
   that meets MLlib's convergence test is frozen on the device, as the
@@ -87,7 +90,9 @@ def train_linear_population(
 
     ``features`` (n, d) and ``labels`` (n,) are the shared rows: the
     gathered train split when ``masks`` is None, else the full matrix
-    with ``masks`` (P, n) selecting each member's train rows. ``config``
+    with ``masks`` (P, n) selecting each member's train rows. Features of
+    shape (P, n, d) are one matrix per member over the same rows and
+    labels. ``config``
     gives the shared iteration count, loss, mini-batch fraction and
     convergence tolerance. Returns the members' carries in member order:
     ``(weights (P, d) float32, converged (P,) bool, n_updates (P,)
@@ -97,7 +102,8 @@ def train_linear_population(
     dev = features.device
     x = features.to(torch.float32)
     y = torch.as_tensor(labels, device=dev).to(torch.float32)
-    n, d = x.shape
+    n, d = x.shape[-2:]
+    stacked = x.dim() == 3
     p = len(list(seeds))
     f32 = dict(dtype=torch.float32, device=dev)
     steps = torch.tensor([float(np.float32(v)) for v in step_sizes], **f32)
@@ -132,7 +138,10 @@ def train_linear_population(
                 draws = sgd.mini_batch_masks(seeds_t, ts, n, config.mini_batch_fraction)
             mask = draws[i] if base is None else base * draws[i]
             count = mask.sum(dim=1)
-        margin = w @ x.T  # (P, n)
+        if stacked:
+            margin = torch.bmm(x, w.unsqueeze(2)).squeeze(2)  # (P, n)
+        else:
+            margin = w @ x.T  # (P, n)
         if config.loss == "logistic":
             mult = torch.sigmoid(margin) - y
         else:
@@ -142,7 +151,10 @@ def train_linear_population(
             mult = mult * class_w
         if mask is not None:
             mult = mult * mask
-        g = mult @ x  # (P, d)
+        if stacked:
+            g = torch.bmm(mult.unsqueeze(1), x).squeeze(1)  # (P, d)
+        else:
+            g = mult @ x  # (P, d)
         step_t = steps / sqrt_t[t - 1]
         updated = count > 0
         scale = torch.where(updated, 1.0 / torch.clamp(count, min=1.0), torch.zeros_like(count))
@@ -175,7 +187,8 @@ def train_linear_population_looped(
 ) -> torch.Tensor:
     """The sequential twin of :func:`train_linear_population`: each
     member's ``sgd.train_linear`` in turn, with its fold's mask when
-    ``masks`` is given. Returns (P, d) float32 weights."""
+    ``masks`` is given, on its own matrix ``features[i]`` when the
+    features are (P, n, d). Returns (P, d) float32 weights."""
     import dataclasses
 
     p = len(list(seeds))
@@ -187,7 +200,8 @@ def train_linear_population_looped(
             seed=int(seeds[i]), weight_pos=wp[i], weight_neg=wn[i],
         )
         mask = None if masks is None else masks[i]
-        out.append(sgd.train_linear(features, labels, cfg, sample_mask=mask))
+        x = features[i] if features.dim() == 3 else features
+        out.append(sgd.train_linear(x, labels, cfg, sample_mask=mask))
     return torch.stack(out)
 
 

@@ -35,6 +35,16 @@ outcomes, gated hot swap, drift; ``checkpoint_path=`` is the adapter's
 resume directory); any other ``serve=`` value runs the batch path, as in
 the JAX package.
 
+``task=seizure`` runs the seizure workload: the session's continuous
+recordings cut into sliding windows labeled from their ``Seizure``
+interval markers (``window=``, ``stride=``, ``label_overlap=``),
+featurized on the host by any registry ``fe=`` (the subband grammar
+``dwt-<family>:level=<L>[:stats=…]``, or ``fe=dwt-8-pallas`` through the
+epoch-features kernel), trained cost-sensitively (``class_weight=``,
+``cost_fp=``, ``cost_fn=``) by every route above and ``fe_sweep=``, with
+the extended statistics; its record is :attr:`PipelineBuilder.workload_block`.
+With ``serve=true`` its windows are served in the host-extractor mode.
+
 Every fused spelling of the JAX package (``-fused`` and
 ``-fused-decode|-pallas|-block|-xla``) parses, and all of them run the
 one CUDA kernel. ``precision=bf16|int8|int4`` (or ``EEG_TPU_PRECISION``)
@@ -69,7 +79,7 @@ import torch
 from .. import obs
 from ..features import registry as fe_registry
 from ..io import modelfiles, provider, remote
-from ..models import population, registry, stats
+from ..models import population, registry, seizure, stats
 from ..obs import events
 from ..ops import decode_ingest
 from ..serve import pipeline as serve_pipeline
@@ -137,8 +147,9 @@ def _check_ported(query_map: Dict[str, str]) -> None:
         # the JAX package's run reads its faults= spec from here
         raise ValueError("EEG_TPU_FAULTS (a run's fault spec) is not yet ported; "
                          "see ROADMAP.md")
-    if query_map.get("task", "p300") != "p300":
-        raise ValueError(f"task={query_map['task']} is not yet ported; see ROADMAP.md")
+    task = query_map.get("task", "")
+    if task and task not in ("p300", "seizure"):
+        raise ValueError(f"unknown task {task!r}; supported: p300 (default), seizure")
     scheme = remote.uri_scheme(query_map.get("result_path", ""))
     if scheme is not None:
         raise ValueError(
@@ -148,11 +159,13 @@ def _check_ported(query_map: Dict[str, str]) -> None:
         )
 
 
-def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSpec) -> None:
+def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSpec,
+                    task: str = "p300") -> None:
     """The JAX package's classifier-action conflict rules (its plan
-    parser's ``_validate_action``), with its messages."""
+    parser's ``_validate_action``), with its messages; a ``task=seizure``
+    run names ``fe_sweep=`` among the population axes."""
     pop_active = pop_spec.active
-    axes = "cv=/seeds=/sweep="
+    axes = "cv=/seeds=/sweep=/fe_sweep=" if task == "seizure" else "cv=/seeds=/sweep="
     train_clf = query_map.get("train_clf") if "train_clf" in query_map else None
     load_clf = query_map.get("load_clf") if "load_clf" in query_map else None
     save_clf = query_map.get("save_clf") == "true"
@@ -171,6 +184,11 @@ def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSp
                 "population training does not support elastic=true; the stacked "
                 "program has no per-member checkpoints"
             )
+    if pop_spec.fe_configs and "classifiers" in query_map:
+        raise ValueError(
+            "fe_sweep= expands the train_clf= population; it cannot combine with "
+            "classifiers="
+        )
     if "classifiers" in query_map:
         if train_clf is not None or load_clf is not None:
             raise ValueError(
@@ -209,6 +227,33 @@ def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSp
             raise ValueError("Classifier location not provided")
         return
     raise ValueError("Missing classifier argument")
+
+
+def check_seizure_knobs(query_map: Dict[str, str],
+                        pop_spec: Optional[population.PopulationSpec]) -> list:
+    """The seizure workload's typed knobs, checked before anything is read
+    with the JAX package's messages (its plan parser's): ``window=`` and
+    ``stride=`` integers, ``label_overlap=`` a float, ``cost_fp=``/``cost_fn=`` positive,
+    ``class_weight=`` ``balanced`` or a positive float; for a batch run
+    (``pop_spec`` given) the ``fe=`` names, or ``fe_sweep=``'s, none of
+    them a ``-fused`` mode. Returns those names (empty for a serve run)."""
+    seizure.optional_int(query_map, "window")
+    seizure.optional_int(query_map, "stride")
+    float(query_map.get("label_overlap") or 0.5)
+    seizure.seizure_weights(query_map, ())  # the costs' and weights' checks
+    if pop_spec is None:
+        return []
+    fe = query_map.get("fe") or None
+    fe_names = list(pop_spec.fe_configs) if pop_spec.fe_configs else ([fe] if fe else [])
+    if not fe_names:
+        raise ValueError("Missing the feature extraction argument")
+    for name in fe_names:
+        if "-fused" in name:
+            raise ValueError(
+                "task=seizure extracts features on the host; fe= must be a registry "
+                "form (e.g. dwt-4:level=4:stats=energy), not a -fused mode"
+            )
+    return fe_names
 
 
 def _elastic_kwargs(query_map: Dict[str, str]) -> Optional[dict]:
@@ -270,6 +315,13 @@ class PipelineBuilder:
         self.population_states: Optional[dict] = None
         #: the last fan-out's trained plain legs, by name
         self.classifiers: Optional[dict] = None
+        #: the last task=seizure run's feature matrices, ``[(fe name, (n,
+        #: d) rows on device)]`` (one per ``fe_sweep=`` config)
+        self.feature_sets: Optional[list] = None
+        #: the last task=seizure run's record (the JAX package's
+        #: ``telemetry.workload``): window geometry, window and positive
+        #: counts, the resolved class weights and costs, the fe= config(s)
+        self.workload_block: Optional[dict] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -305,6 +357,29 @@ class PipelineBuilder:
         else:
             raise ValueError("Missing the input file argument")
         self.precision_resolved = None
+        self.workload_block = self.feature_sets = None
+
+        # task=seizure: sliding windows over interval annotations, subband
+        # features on the host, cost-sensitive training, the extended
+        # statistics (served with serve=true)
+        if (query_map.get("task", "") or "p300") == "seizure":
+            self.timers = {}
+            if serve:
+                check_seizure_knobs(query_map, None)
+                statistics, self.serve_block, self.workload_block = (
+                    serve_pipeline.run_serve_seizure(
+                        query_map,
+                        lambda: provider.OfflineDataProvider(files, device=self.device),
+                        self._stage,
+                        self.device,
+                    )
+                )
+                return self._finish_run(statistics, query_map)
+            pop_spec = population.PopulationSpec.from_query_map(query_map)
+            validate_action(query_map, pop_spec, task="seizure")
+            fe_names = check_seizure_knobs(query_map, pop_spec)
+            return self._finish_run(
+                self._execute_seizure(query_map, files, pop_spec, fe_names), query_map)
 
         # serve=true: the saved classifier loads once and every kept
         # epoch becomes a request through the resident micro-batching
@@ -352,7 +427,6 @@ class PipelineBuilder:
                 wavelet_index=wavelet_index, backend=backend,
                 precision=precision_used, recordings=recordings,
             )
-            labels = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -378,6 +452,11 @@ class PipelineBuilder:
                 query_map)
 
         # 3. classifier (PipelineBuilder.java:151-284)
+        if fe is None:
+            return self._finish_run(
+                self._fit_and_test(query_map, features, targets, registry.create,
+                                   self._config(query_map)),
+                query_map)
         if "train_clf" in query_map:
             name = query_map["train_clf"]
             classifier = registry.create(name)
@@ -386,23 +465,12 @@ class PipelineBuilder:
             # elastic=true: chunked training with checkpoints under
             # checkpoint_path, bounded restarts and a divergence sentinel
             elastic = _elastic_kwargs(query_map)
-            if fe is None:
-                train = torch.as_tensor(train_idx, dtype=torch.long, device=self.device)
-                t0 = time.perf_counter()
-                if elastic is None:
-                    classifier.fit(features[train], labels[train])
-                else:
-                    classifier.fit_elastic(features[train], labels[train], **elastic)
-                self._sync()
-                self.timers["train"] = time.perf_counter() - t0
+            rows = np.asarray(train_idx, dtype=np.int64)
+            if elastic is None:
+                classifier.train(batch.epochs[rows], batch.targets[rows], fe)
             else:
-                rows = np.asarray(train_idx, dtype=np.int64)
-                if elastic is None:
-                    classifier.train(batch.epochs[rows], batch.targets[rows], fe)
-                else:
-                    classifier.train_elastic(batch.epochs[rows], batch.targets[rows], fe,
-                                             **elastic)
-            if elastic is not None:
+                classifier.train_elastic(batch.epochs[rows], batch.targets[rows], fe,
+                                         **elastic)
                 # the checkpoints guarded this run's training, which is
                 # done; left behind, the next run under the directory
                 # would restore this trajectory and skip its own
@@ -412,37 +480,78 @@ class PipelineBuilder:
                 classifier.save(query_map["save_name"])
         else:
             classifier = registry.create(query_map["load_clf"])
-            if "load_name" not in query_map:
-                raise ValueError("Classifier location not provided")
             # load mode tests on ALL shuffled data — no split
             # (PipelineBuilder.java:261-278)
             test_idx = java_compat.java_shuffle_indices(n, seed=1)
-            if fe is not None:
-                classifier.set_feature_extraction(fe)
+            classifier.set_feature_extraction(fe)
             classifier.load(query_map["load_name"])
 
         rows = np.asarray(test_idx, dtype=np.int64)
-        if fe is None:
-            test = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-            t0 = time.perf_counter()
-            statistics = classifier.test_features(features[test], targets[rows])
-            self.timers["test"] = time.perf_counter() - t0
-        else:
-            statistics = classifier.test(batch.epochs[rows], batch.targets[rows])
-            timings = classifier.timings
-            self.timers["featurize"] = timings["featurize"]
-            if "fit" in timings:
-                self.timers["train"] = timings["fit"]
-            self.timers["test"] = timings["predict"]
+        statistics = classifier.test(batch.epochs[rows], batch.targets[rows])
+        timings = classifier.timings
+        self.timers["featurize"] = timings["featurize"]
+        if "fit" in timings:
+            self.timers["train"] = timings["fit"]
+        self.timers["test"] = timings["predict"]
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
+
+    def _fit_and_test(self, query_map, features, targets, make_classifier, config, **attrs):
+        """``train_clf=`` on the seed-1 70/30 split of device feature rows
+        (``elastic=true`` through ``fit_elastic``, ``save_clf=true``
+        saving), or ``load_clf=`` tested on all rows in the seed-1
+        shuffled order; ``make_classifier(name)`` makes the classifier.
+        Stages ``train`` and ``test`` carry ``attrs``."""
+        n = len(targets)
+        if "train_clf" in query_map:
+            name = query_map["train_clf"]
+            classifier = make_classifier(name)
+            classifier.set_config(config)
+            train_idx, test_idx = java_compat.train_test_split_indices(n, seed=1)
+            # elastic=true: chunked training with checkpoints under
+            # checkpoint_path, bounded restarts and a divergence sentinel
+            elastic = _elastic_kwargs(query_map)
+            x = features.to(classifier.fit_dtype or features.dtype)
+            train = torch.as_tensor(train_idx, dtype=torch.long, device=features.device)
+            labels = torch.as_tensor(targets[train_idx], dtype=torch.float32,
+                                     device=features.device)
+            with self._stage("train", classifier=name, elastic=elastic is not None, **attrs):
+                if elastic is None:
+                    classifier.fit(x[train], labels)
+                else:
+                    classifier.fit_elastic(x[train], labels, **elastic)
+                self._sync()
+            if elastic is not None:
+                # the checkpoints guarded this run's training, which is
+                # done; left behind, the next run under the directory
+                # would restore this trajectory and skip its own
+                elastic["manager"].clear()
+            logger.info("trained %s", name)
+            if query_map.get("save_clf") == "true":
+                classifier.save(query_map["save_name"])
+        else:
+            name = query_map["load_clf"]
+            classifier = make_classifier(name)
+            classifier.load(query_map["load_name"])
+            # load mode tests on ALL shuffled data — no split
+            # (PipelineBuilder.java:261-278)
+            test_idx = java_compat.java_shuffle_indices(n, seed=1)
+        rows = np.asarray(test_idx, dtype=np.int64)
+        with self._stage("test", classifier=name, **attrs):
+            statistics = classifier.test_features(
+                features[torch.as_tensor(rows, device=features.device)], targets[rows])
+        self.classifier, self.test_index = classifier, list(test_idx)
+        return statistics
 
     def _host_features(self, batch, fe):
         """The host path's whole feature matrix in one extraction pass (a
         row's features depend on its epoch alone, so slicing afterwards
         equals extracting the slices) and the targets."""
         with self._stage("features"):
-            features = fe.extract_batch(np.asarray(batch.epochs, np.float64))
+            # a host extractor's numpy rows (features/subband.py) go to
+            # the run's device
+            features = torch.as_tensor(fe.extract_batch(np.asarray(batch.epochs, np.float64)),
+                                       device=self.device)
             self._sync()
         self.features = features
         return features, np.asarray(batch.targets, dtype=np.float64)
@@ -467,7 +576,8 @@ class PipelineBuilder:
                     block["mode"])
         return statistics
 
-    def _execute_fanout(self, query_map, features, targets, batch, fe, pop_spec):
+    def _execute_fanout(self, query_map, features, targets, batch, fe, pop_spec,
+                        classifier_factory=registry.create):
         """``classifiers=a,b,c``: every named classifier trains and tests
         on the one feature matrix this run made, on the seed-1 70/30
         split, through the calls of a single ``train_clf=`` run (so each
@@ -475,7 +585,9 @@ class PipelineBuilder:
         population when population axes are present; every other leg
         trains once (``population.sequential_legs``). The gathered split
         rows are shared by every leg; legs that train in float32 share
-        one float32 buffer of them."""
+        one float32 buffer of them. ``classifier_factory(name)`` makes each
+        leg's classifier (the seizure path's true-confusion-matrix
+        variant)."""
         names = [s for s in query_map["classifiers"].split(",") if s]
         if features is None:
             features, targets = self._host_features(batch, fe)
@@ -496,7 +608,7 @@ class PipelineBuilder:
                 if pop_spec.active and name in population.SGD_FAMILY:
                     states = self.population_states.setdefault(name, {})
                     statistics[name], pop_blocks[name] = population.run_population(
-                        name, lambda name=name: registry.create(name), config, features,
+                        name, lambda name=name: classifier_factory(name), config, features,
                         targets, pop_spec, stage=self._stage, states=states,
                     )
                     obs.metrics.count("pipeline.fanout.classifiers")
@@ -505,7 +617,7 @@ class PipelineBuilder:
                     logger.warning("population axes do not apply to %s; the leg trains "
                                    "once on the plain split", name)
                     obs.metrics.count("population.sequential_legs")
-                classifier = registry.create(name)
+                classifier = classifier_factory(name)
                 classifier.set_config(config)
                 dtype = classifier.fit_dtype or x_train.dtype
                 x = cast.setdefault(dtype, x_train.to(dtype))
@@ -520,6 +632,87 @@ class PipelineBuilder:
         if pop_blocks:
             self.population_block = {"legs": pop_blocks}
         self.test_index = list(test_idx)
+        return statistics
+
+    # -- the seizure workload ------------------------------------------------
+
+    _seizure_classifier = staticmethod(seizure.seizure_classifier)
+    seizure_weights = staticmethod(seizure.seizure_weights)
+
+    def _seizure_features(self, files, slide_cfg, fe_names):
+        """One read pass of the session cut into sliding windows
+        (``provider.load_sliding``; stage ``ingest``, its ``parse`` and
+        ``epoch`` parts in :attr:`timers` too), then every named extractor
+        over the windows (stage ``features``; a ``-pallas`` extractor on
+        the card launches the epoch-features kernel once). Returns
+        ``(feature_sets, targets)``: ``(fe name, (n, d) rows on the run's
+        device)`` in ``fe_names`` order. No feature cache: the port has
+        none (ROADMAP.md A7)."""
+        odp = provider.OfflineDataProvider(files, device=self.device)
+        # an unknown fe= raises here, before the session is read
+        extractors = [(name, fe_registry.create(name, device=self.device)) for name in fe_names]
+        with self._stage("ingest", task="seizure"):
+            batch = odp.load_sliding(slide_cfg)
+        self.timers.update(odp.timings)
+        targets = np.asarray(batch.targets, dtype=np.float64)
+        with self._stage("features", task="seizure"):
+            feature_sets = [
+                (name, torch.as_tensor(fe.extract_batch(batch.epochs), device=self.device))
+                for name, fe in extractors
+            ]
+            self._sync()
+        self.batch, self.fe = batch, extractors[0][1]
+        return feature_sets, targets
+
+    def _execute_seizure(self, query_map, files, pop_spec, fe_names):
+        """``task=seizure``: sliding windows -> subband (or any registry)
+        features -> cost-sensitive training -> the extended statistics.
+        The JAX package's four routes (``classifiers=`` fan-out with the
+        resolved class weights, a population, ``train_clf=`` with
+        ``elastic=``, ``load_clf=``) over the one feature matrix, the
+        classifiers made by :meth:`_seizure_classifier`."""
+        slide_cfg = seizure.sliding_config(query_map)
+        feature_sets, targets = self._seizure_features(files, slide_cfg, fe_names)
+        features = feature_sets[0][1]
+        n = len(targets)
+        if n == 0:
+            raise ValueError(
+                f"no sliding windows: every recording is shorter than window={slide_cfg.window}"
+            )
+        obs.metrics.count("pipeline.epochs_loaded", n)
+        weights = seizure.seizure_weights(query_map, targets)
+        wp, wn, cost_fp, cost_fn = weights
+        self.workload_block = seizure.workload_record(
+            slide_cfg, targets, weights, fe_names if len(fe_names) > 1 else fe_names[0])
+        config = self._config(query_map)
+        if wp != 1.0 or wn != 1.0:
+            config["config_weight_pos"] = repr(wp)
+            config["config_weight_neg"] = repr(wn)
+        self.features, self.targets, self.feature_sets = features, targets, feature_sets
+        self.population_block = self.population_states = self.classifiers = None
+
+        if "classifiers" in query_map:
+            # the fan-out reads its config_* map from the query map: the
+            # resolved class weights go in, so every leg trains with them
+            fanout_qm = dict(query_map)
+            fanout_qm.update({k: v for k, v in config.items()
+                              if k.startswith("config_weight_")})
+            statistics = self._execute_fanout(fanout_qm, features, targets, None, None,
+                                              pop_spec, self._seizure_classifier)
+        elif "train_clf" in query_map and pop_spec.active:
+            name = query_map["train_clf"]
+            self.population_states = {}
+            statistics, self.population_block = population.run_population(
+                name, lambda: self._seizure_classifier(name), config, features, targets,
+                pop_spec, stage=self._stage, states=self.population_states,
+                feature_sets=feature_sets if pop_spec.fe_configs else None,
+            )
+        else:
+            statistics = self._fit_and_test(query_map, features, targets,
+                                            self._seizure_classifier, config, task="seizure")
+
+        # every seizure report carries the imbalanced-class block
+        stats.mark_extended(statistics, cost_fp=cost_fp, cost_fn=cost_fn)
         return statistics
 
     def _precision_gate(self, odp, wavelet_index: int, precision: str):

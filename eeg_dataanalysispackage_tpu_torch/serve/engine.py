@@ -313,7 +313,8 @@ class ServingEngine:
         """Each window scaled by ``resolutions`` in float64, its
         pre-stimulus mean subtracted from the samples after it (with
         ``pre=0`` the window as it is), then the host extractor's
-        ``extract_batch``: (n, d) rows on the extractor's device."""
+        ``extract_batch``: (n, d) rows on the engine's device (a host
+        extractor's numpy rows are moved there)."""
         res = np.asarray(resolutions, dtype=np.float64)
         epochs = []
         for i, w in enumerate(windows):
@@ -329,7 +330,7 @@ class ServingEngine:
                 epochs.append((scaled - base[:, None])[:, self.pre:])
             else:
                 epochs.append(scaled)
-        return self._host_fe.extract_batch(np.stack(epochs))
+        return torch.as_tensor(self._host_fe.extract_batch(np.stack(epochs)), device=self.device)
 
     def _mega_margins(self, windows, res, model: ServedModel) -> torch.Tensor:
         """The megakernel rung: the batch at the padded stride, one

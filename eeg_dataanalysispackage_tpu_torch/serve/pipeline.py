@@ -31,7 +31,10 @@ multi-tenant service (serve/multiplex.py), whose tenant registry
 :func:`parse_tenant_spec` and :func:`load_tenants` read from a
 ``name=classifier@path,...`` spec.
 
-Not ported: ``task=seizure``.
+``task=seizure&serve=true`` (:func:`run_serve_seizure`) streams a
+continuous session's sliding windows through the service in its
+host-extractor mode; its statistics are the batch ``task=seizure&
+load_clf=`` run's.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..epochs.extractor import BalanceState
 from ..models import linear as linear_mod
 from ..models import population
 from ..models import registry as clf_registry
+from ..models import seizure
 from ..models import stats
 from ..ops import decode_ingest
 from ..utils import java_compat
@@ -278,13 +282,9 @@ def resolve_serve_threshold(query_map, classifier):
     return threshold
 
 
-def run_serve(query_map, provider_factory, stage, device):
-    """Execute one ``serve=true`` run on ``device``.
-
-    ``provider_factory`` builds the run's ``OfflineDataProvider``;
-    ``stage(name)`` is the builder's stage-timer context. Returns
-    ``(ClassificationStatistics, serve_block)``.
-    """
+def _check_serve_keys(query_map) -> None:
+    """The conflict rules, then ``load_clf=`` and ``load_name=``: a
+    serve run serves a saved model."""
     check_conflicts(query_map)
     if "load_clf" not in query_map:
         raise ValueError(
@@ -292,6 +292,67 @@ def run_serve(query_map, provider_factory, stage, device):
         )
     if "load_name" not in query_map:
         raise ValueError("Classifier location not provided")
+
+
+def _load_served_model(query_map):
+    """The saved classifier and the ``serve_threshold=`` applied to it
+    (None when absent)."""
+    classifier = clf_registry.create(query_map["load_clf"])
+    classifier.load(query_map["load_name"])
+    return classifier, resolve_serve_threshold(query_map, classifier)
+
+
+def _serve_session(service, stage, requests, targets_arr, threshold, confusion_only,
+                   what, **attrs):
+    """Every ``(window, resolutions)`` request through ``service`` (started
+    here, stopped with a drain): micro-batched, deadline-bounded,
+    shed-don't-stall; with ``adapt=true`` the session's labeled outcomes
+    then feed the lifecycle manager. The statistics are the batch
+    ``load_clf=`` run's way: over the seed-1 shuffled order. Returns
+    ``(ClassificationStatistics, serve block)``."""
+    n = len(requests)
+    service.start()  # builds and checks the kernels before traffic
+    try:
+        with stage("serve", **attrs):
+            results = []
+            if n:
+                results = service.predict_all(
+                    [r[0] for r in requests], [r[1] for r in requests]
+                )
+        _adapt_feedback(service, stage, requests, targets_arr)
+    finally:
+        drained = service.stop(drain=True)
+
+    predictions = np.array([r.prediction for r in results], dtype=np.float64)
+    with stage("test", **attrs):
+        perm = java_compat.java_shuffle_indices(n, seed=1)
+        statistics = stats.ClassificationStatistics.from_arrays(
+            predictions[perm], targets_arr[perm], confusion_only=confusion_only,
+        )
+
+    block = service.stats_block()
+    block["requests"]["total_epochs"] = n
+    block["drained_cleanly"] = drained
+    if threshold is not None:
+        block["serve_threshold"] = threshold
+    logger.info(
+        "served %d %s: %d completed, %d shed, %d deadline-"
+        "exceeded, %d failed (drained=%s)",
+        n, what, block["requests"]["completed"], block["requests"]["shed"],
+        block["requests"]["deadline_exceeded"],
+        block["requests"]["failed"], drained,
+    )
+    return statistics, block
+
+
+def run_serve(query_map, provider_factory, stage, device):
+    """Execute one ``serve=true`` run on ``device``.
+
+    ``provider_factory`` builds the run's ``OfflineDataProvider``;
+    ``stage(name)`` is the builder's stage-timer context. Returns
+    ``(ClassificationStatistics, serve_block)``.
+    """
+    _check_serve_keys(query_map)
     fused_match = re.fullmatch(
         r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?",
         query_map.get("fe", ""),
@@ -306,10 +367,7 @@ def run_serve(query_map, provider_factory, stage, device):
     # behind the engine's warmup accuracy gate; the decision is the serve
     # block's ``precision`` entry
     precision = decode_ingest.requested_precision(query_map)
-
-    classifier = clf_registry.create(query_map["load_clf"])
-    classifier.load(query_map["load_name"])
-    threshold = resolve_serve_threshold(query_map, classifier)
+    classifier, threshold = _load_served_model(query_map)
 
     odp = provider_factory()
     service = service_mod.InferenceService(
@@ -338,45 +396,79 @@ def run_serve(query_map, provider_factory, stage, device):
             requests.extend((w, resolutions) for w in windows)
             targets.append(rec_targets)
     targets_arr = np.concatenate(targets) if targets else np.zeros(0, np.float64)
-    n = len(requests)
 
-    # 2. serve: every epoch as an online request — micro-batched,
-    # deadline-bounded, shed-don't-stall
-    service.start()  # builds and checks the kernels before traffic
-    try:
-        with stage("serve"):
-            results = []
-            if n:
-                results = service.predict_all(
-                    [r[0] for r in requests], [r[1] for r in requests]
-                )
-        # adapt=true: the session's labeled outcomes feed the lifecycle
-        # manager after its predictions were served
-        _adapt_feedback(service, stage, requests, targets_arr)
-    finally:
-        drained = service.stop(drain=True)
+    # 2. serve, 3. statistics
+    return _serve_session(service, stage, requests, targets_arr, threshold,
+                          classifier.confusion_only_stats, "epochs")
 
-    predictions = np.array([r.prediction for r in results], dtype=np.float64)
 
-    # 3. statistics, the load_clf= way: evaluated over the seed-1
-    # shuffled order
-    with stage("test"):
-        perm = java_compat.java_shuffle_indices(n, seed=1)
-        statistics = stats.ClassificationStatistics.from_arrays(
-            predictions[perm], targets_arr[perm],
-            confusion_only=classifier.confusion_only_stats,
+def run_serve_seizure(query_map, provider_factory, stage, device):
+    """``task=seizure&serve=true`` on ``device``: the session's sliding
+    windows, each one request through the resident service.
+
+    The engine runs in its host-extractor mode (``serve/engine.py``,
+    ``pre=0``, ``post=window``): every batch takes the featurize-and-
+    predict path of the batch ``task=seizure&load_clf=`` run, on the same
+    float64 scaled windows (``provider.sliding_batch_for``) shipped with
+    unit resolutions, so the served statistics equal the batch run's. A
+    ``-pallas`` ``fe=`` launches the epoch-features kernel once a batch.
+    ``serve_threshold=`` re-thresholds the linear margin (statistics then
+    differ from the batch run's on purpose); ``adapt=true`` judges on the
+    run's ``cost_fp=``/``cost_fn=``.
+
+    Returns ``(ClassificationStatistics, serve block, workload block)``.
+    """
+    from ..features import registry as fe_registry
+
+    _check_serve_keys(query_map)
+    fe_value = query_map.get("fe", "")
+    if not fe_value:
+        raise ValueError("Missing the feature extraction argument")
+    if "-fused" in fe_value:
+        raise ValueError(
+            "task=seizure serves host-extracted features; fe= must be "
+            "a registry form, not a -fused mode"
         )
+    slide_cfg = seizure.sliding_config(query_map)
+    fe = fe_registry.create(fe_value, device=device)
+    classifier, threshold = _load_served_model(query_map)
 
-    block = service.stats_block()
-    block["requests"]["total_epochs"] = n
-    block["drained_cleanly"] = drained
-    if threshold is not None:
-        block["serve_threshold"] = threshold
-    logger.info(
-        "served %d epochs: %d completed, %d shed, %d deadline-"
-        "exceeded, %d failed (drained=%s)",
-        n, block["requests"]["completed"], block["requests"]["shed"],
-        block["requests"]["deadline_exceeded"],
-        block["requests"]["failed"], drained,
+    odp = provider_factory()
+    service = service_mod.InferenceService(
+        classifier,
+        n_channels=odp.n_channels,
+        pre=0,  # a continuous window has no prestimulus segment
+        post=slide_cfg.window,
+        config=serve_config_from_query(query_map),
+        host_extractor=fe,
+        device=device,
+        # the lifecycle judges on the run's misclassification costs (the
+        # explicit knobs; class_weight=balanced sets training weights)
+        lifecycle=lifecycle_config_from_query(
+            query_map,
+            cost_fp=float(query_map.get("cost_fp") or 1.0),
+            cost_fn=float(query_map.get("cost_fn") or 1.0),
+        ),
     )
-    return statistics, block
+
+    # 1. ingest: the batch run's sliding windows, float64 and scaled, with
+    # unit resolutions (scaling by 1.0 is exact)
+    requests = []
+    targets = []
+    unit_res = np.ones(odp.n_channels, dtype=np.float32)
+    with stage("ingest", mode="serve", task="seizure"):
+        for _rel, _guessed, rec in odp.iter_recordings():
+            batch = odp.sliding_batch_for(rec, slide_cfg)
+            requests.extend((w, unit_res) for w in batch.epochs)
+            targets.append(batch.targets)
+    targets_arr = np.concatenate(targets) if targets else np.zeros(0, np.float64)
+
+    # 2. serve, 3. statistics with the true confusion matrix (the seizure
+    # classifiers' contract) and the extended block
+    statistics, block = _serve_session(service, stage, requests, targets_arr, threshold,
+                                       False, "seizure windows", task="seizure")
+    weights = seizure.seizure_weights(query_map, targets_arr)
+    stats.mark_extended(statistics, cost_fp=weights[2], cost_fn=weights[3])
+    workload = seizure.workload_record(slide_cfg, targets_arr, weights, fe_value)
+    workload["serve_threshold"] = threshold
+    return statistics, block, workload

@@ -2066,3 +2066,106 @@ def test_probe_devices_on_the_card():
     probe = failure.probe_devices()
     assert probe.all_healthy
     assert [d.type for d in probe.healthy] == ["cuda"] * torch.cuda.device_count()
+
+
+# -- the seizure workload on the card ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def seizure_session(tmp_path_factory):
+    import _synthetic
+
+    return _synthetic.write_seizure_session(
+        str(tmp_path_factory.mktemp("cuda_seizure")), n_files=2, n_samples=40000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multi_fold", [False, True])
+def test_stacked_features_engine_on_the_card_equals_looped(multi_fold):
+    """The fe_sweep= engine (a (P, n, d) stack, one matrix per member) on
+    CUDA tensors: each member stops after as many updates as its looped
+    twin on the card, weights within 1e-6 of it and of the CPU's."""
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import population as engines
+
+    dev = _card()
+    x0, y = _population_data()
+    x1, _ = _population_data(seed=1)
+    xs = torch.from_numpy(np.stack([x0, x1, x0, x1]))
+    ys = torch.from_numpy(y)
+    masks = (np.random.RandomState(1).rand(4, len(y)) > 0.3).astype(np.float32) \
+        if multi_fold else None
+    config = sgd.SGDConfig(num_iterations=200)
+    args = (config, [1.0, 1.0, 0.5, 0.5], [0.01] * 4, [42] * 4, masks)
+    kw = dict(weight_pos=[1.0, 8.0, 1.0, 8.0])
+    got = engines.train_linear_population(xs.to(dev), ys.to(dev), *args, **kw)
+    assert got[0].device.type == "cuda"
+    looped = engines.train_linear_population_looped(xs.to(dev), ys.to(dev), *args, **kw)
+    on_cpu = engines.train_linear_population(xs, ys, *args, **kw)
+    assert torch.equal(got[2].cpu(), on_cpu[2])
+    for other in (looped, on_cpu[0]):
+        assert (got[0].cpu().double() - other.cpu().double()).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_seizure_pallas_rows_on_the_card_match_the_plain_version(seizure_session):
+    """task=seizure&fe=dwt-8-pallas at 768-sample windows: one
+    epoch-features launch over the run's windows, rows within 2e-6 of
+    the plain version's on the same float32 windows, the statistics the
+    CPU run's under the near-threshold rule."""
+    q = (f"info_file={seizure_session}&task=seizure&fe=dwt-8-pallas&window=768"
+         "&stride=384&train_clf=logreg")
+    _card()
+    before = dwt_cuda.LAUNCHES
+    gpu = PipelineBuilder(q)
+    gpu.execute()
+    assert dwt_cuda.LAUNCHES - before == 1
+    assert gpu.features.device.type == "cuda"
+    epochs = torch.from_numpy(np.ascontiguousarray(gpu.batch.epochs, dtype=np.float32))
+    plain = dwt.epoch_features(epochs, 8, 175, 512, 16)
+    assert (gpu.features.cpu() - plain).abs().max().item() <= 2e-6
+    cpu = PipelineBuilder(q, device="cpu")
+    cpu.execute()
+    a, b = gpu.statistics, cpu.statistics
+    if str(a) != str(b):
+        rows = torch.as_tensor(np.asarray(cpu.test_index, np.int64))
+        margins = cpu.classifier.margin(cpu.features[rows]).double().numpy()
+        assert np.abs(margins).min() < 1e-4, (str(a), str(b))
+
+
+@pytest.mark.cuda
+def test_seizure_serving_launches_the_epoch_kernel_once_a_batch(seizure_session, tmp_path):
+    """task=seizure&serve=true with fe=dwt-8-pallas on the card: the host
+    rung, one epoch-features launch a batch (and the warmup's), the
+    statistics the card's batch load_clf= run's."""
+    base = (f"info_file={seizure_session}&task=seizure&fe=dwt-8-pallas&window=768"
+            "&stride=384")
+    _card()
+    model = str(tmp_path / "model")
+    PipelineBuilder(f"{base}&train_clf=logreg&save_clf=true&save_name={model}").execute()
+    batch = PipelineBuilder(f"{base}&load_clf=logreg&load_name={model}").execute()
+    before = dwt_cuda.LAUNCHES
+    served = PipelineBuilder(f"{base}&load_clf=logreg&load_name={model}&serve=true")
+    got = served.execute()
+    block = served.serve_block
+    assert (block["rung"], block["mode"]) == ("host", "host-extractor")
+    assert dwt_cuda.LAUNCHES - before == block["batches"] + 1  # + the warmup's window
+    assert str(got) == str(batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 31])
+def test_epoch_kernel_at_seizure_serve_batch_shapes(seizure_session, n):
+    """The epoch-features kernel on a seizure serve batch's shape, (n, 3,
+    768) sliding windows of the session (64 a full batch, 31 a last
+    one), within 2e-6 of the plain version on the same float32 windows."""
+    from eeg_dataanalysispackage_tpu_torch.epochs.sliding import SlidingConfig
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    dev = _card()
+    batch = OfflineDataProvider([seizure_session], device="cpu").load_sliding(
+        SlidingConfig(window=768, stride=384))
+    x = torch.from_numpy(np.ascontiguousarray(batch.epochs[-n:], dtype=np.float32)).to(dev)
+    got = dwt_cuda.epoch_features_cuda(x, 8, 175, 512, 16)
+    assert got.shape == (n, 48)
+    assert (got - dwt.epoch_features(x, 8, 175, 512, 16)).abs().max().item() <= 2e-6

@@ -159,15 +159,17 @@ def test_registry_unknown_names_raise_reference_message(name):
 @pytest.mark.parametrize("name", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16", "dwt-8:level=4",
                                   "dwt-4:level=3:stats=energy"])
 def test_registry_unported_spellings_raise(name):
-    """The subband grammar is not ported and raises. The bf16 spellings
-    raised here until they were ported: they now resolve to the JAX
-    package's backend, configuration and cache identity."""
+    """Spellings refused here until they were ported (the name is kept):
+    the subband grammar resolves to the JAX package's subband extractor
+    and cache identity (its rows: tests/test_torch_subband.py), the bf16
+    spellings to the JAX package's backend, configuration and cache
+    identity."""
     theirs = jax_registry.create(name)  # the reference runs them
-    if "bf16" not in name:
-        with pytest.raises(ValueError, match="not yet ported"):
-            _port(name)
-        return
     ours = _port(name)
+    if "bf16" not in name:
+        assert type(ours).__name__ == type(theirs).__name__ == "SubbandWaveletFeatures"
+        assert ours.cache_id() == theirs.cache_id()
+        return
     assert (ours.name, ours.epoch_size, ours.skip_samples, ours.feature_size, ours.channels,
             ours.backend) == (theirs.name, theirs.epoch_size, theirs.skip_samples,
                               theirs.feature_size, theirs.channels, theirs.backend)

@@ -144,3 +144,23 @@ def test_the_tree_modules_are_walked_and_scanned():
         assert rel in scanned
         with open(os.path.join(PORT, rel), encoding="utf-8") as f:
             assert "mllib_tree_oracle" not in f.read()
+
+
+def test_the_seizure_modules_are_walked_and_scanned():
+    """The seizure workload keeps its own copies of the JAX package's
+    JAX-free sliding epocher and subband extractor: walked by the fresh
+    import, scanned, and neither names the JAX package's modules."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("epochs.sliding", "features.subband", "features.registry", "ops.dwt_host",
+                 "io.provider", "models.population", "models.seizure", "parallel.population",
+                 "serve.pipeline", "pipeline.builder"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("epochs/sliding.py", "features/subband.py", "models/seizure.py"):
+        assert rel in scanned

@@ -146,6 +146,15 @@ def test_unported_keys_raise(one_file, extra, tmp_path):
         _training_surface_runs_like_the_jax_package(one_file, extra, tmp_path)
         return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
+    if extra == "task=seizure":
+        # ported (tests/test_torch_seizure.py): a -fused fe= raises the JAX
+        # package's refusal
+        with pytest.raises(ValueError) as theirs:
+            JaxBuilder(q).execute()
+        with pytest.raises(ValueError) as ours:
+            PipelineBuilder(q, device="cpu").execute()
+        assert str(ours.value) == str(theirs.value) and "-fused" in str(ours.value)
+        return
     with pytest.raises(ValueError, match="not yet ported"):
         PipelineBuilder(q, device="cpu").execute()
 
@@ -192,15 +201,17 @@ def _bf16_spelling_runs_like_the_jax_package(info, fe):
 
 
 # the host fe= modes run (tests/test_torch_host_path.py), their bf16
-# spellings too; the subband grammar does not
+# spellings too, and the subband grammar (refused here until it was
+# ported; the name is kept)
 @pytest.mark.parametrize("fe", ["dwt-8-tpu-bf16", "dwt-8-tpu-compact-bf16", "dwt-8:level=4"])
 def test_host_fe_modes_raise(one_file, fe):
     if "bf16" in fe:
         _bf16_spelling_runs_like_the_jax_package(one_file, fe)
         return
     q = f"info_file={one_file}&fe={fe}&train_clf=logreg"
-    with pytest.raises(ValueError, match="not yet ported"):
-        PipelineBuilder(q, device="cpu").execute()
+    ours = PipelineBuilder(q, device="cpu")
+    assert str(ours.execute()) == str(JaxBuilder(q + "&cache=false").execute())
+    assert type(ours.fe).__name__ == "SubbandWaveletFeatures"
 
 
 def test_cache_and_degrade_parse(one_file):

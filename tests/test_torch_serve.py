@@ -200,7 +200,11 @@ def test_conflicts_raise_the_reference_messages(session):
     # faults= spec for its injection points does not
     [pytest.param("adapt=true&faults=serve.adapt:once@1", "not yet ported", id="adapt=true")]
     + [pytest.param(e, "not yet ported", id=e)
-       for e in ("task=seizure", "faults=serve.batch:once@1", "report=/tmp/never")]
+       for e in ("faults=serve.batch:once@1", "report=/tmp/never")]
+    # task=seizure serves (tests/test_torch_seizure.py) host-extracted
+    # features: a -fused fe= raises the JAX package's refusal
+    + [pytest.param("task=seizure", "task=seizure serves host-extracted features; fe= must "
+                    "be a registry form, not a -fused mode", id="task=seizure")]
     # explicit no-ops of the training modes serve, as in the JAX package
     + [pytest.param("save_clf=false&elastic=false", None, id="save_clf=false&elastic=false")]
     # precision=bf16 serves (tests/test_torch_precision.py); a precision
