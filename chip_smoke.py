@@ -196,6 +196,26 @@ Phases, one JSON line each (several for phases 2 to 6):
    batch run's but for rows within MARGIN_BAND of the threshold) and with
    ``serve_threshold=`` (recall no lower). Every run prints its
    ``timers``, the phase its wall;
+4g. the run record (every earlier phase runs with the feature cache off,
+   ``EEG_TPU_NO_FEATURE_CACHE=1``; this one turns it on in a fresh
+   directory): the main path's fused logreg twice (the miss launches K1
+   once a recording, the hit launches nothing and returns the miss's
+   rows on the card, byte-equal statistics) and with ``cache=false`` (K1
+   again); the same pair at ``precision=int8`` (the hit's gate record
+   ``source: cache``, no gate launches); the seizure ``fe=dwt-8-pallas``
+   pair (K4 once, then not); ``report=`` on the int8 miss and the
+   seizure miss (``run_report.json`` names the card and holds the
+   backend, precision, workload and classification blocks); a
+   ``faults=ingest.fused:once@1`` run (it raises; ``crash_report.json``
+   records the rule fired once) and ``serve=true&faults=
+   serve.request:once@4;serve.batch:once@2`` on two recordings
+   (statistics byte-equal to the batch ``load_clf=`` run); a
+   ``trace_path=`` run (its trace holds K1's kernel record); and the MLlib
+   directories: with ``pyarrow`` (the card's host has 24.0.0) a saved
+   directory loads and serves on the card, the served statistics the
+   batch load run's; without it ``config_model_format=mllib`` and
+   ``load_name=<dir>`` raise the JAX package's ``pyarrow`` message. The
+   phase's wall is printed;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -3114,6 +3134,180 @@ def phase_seizure(torch, np, counters, work):
     return k4, k4_err
 
 
+def phase_run_record(torch, np, info, model, counters, work):
+    """Phase 4g: the feature cache, the run report, fault plans, a
+    profiler trace and MLlib directories on the card. Returns (K1
+    launches, K2-int8 launches and K4 launches over the phase)."""
+    import glob
+
+    from eeg_dataanalysispackage_tpu_torch.io import mllib_format
+    from eeg_dataanalysispackage_tpu_torch.obs import chaos
+
+    t_phase = time.perf_counter()
+    k1 = k4 = 0
+    saved_env = {k: os.environ.get(k) for k in ("EEG_TPU_NO_FEATURE_CACHE",
+                                                "EEG_TPU_FEATURE_CACHE_DIR")}
+    os.environ.pop("EEG_TPU_NO_FEATURE_CACHE", None)
+    os.environ["EEG_TPU_FEATURE_CACHE_DIR"] = os.path.join(work, "feature-cache")
+    base = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg"
+
+    def read_json(path):
+        with open(path) as f:
+            return json.load(f)
+
+    try:
+        # 1. the fused main path: miss, hit, cache=false
+        miss, miss_stats, launches = run_builder("cache_miss", base, None, counters)
+        if launches["ingest_features"] < 1 or miss.backend_resolved["landed"] != "decode":
+            raise AssertionError(f"cache miss did not run K1: {launches}")
+        k1 += launches["ingest_features"]
+        hit, hit_stats, launches = run_builder("cache_hit", base, None, counters)
+        if any(launches.values()) or hit.backend_resolved["landed"] != "cache":
+            raise AssertionError(f"cache hit launched a kernel: {launches}")
+        if (hit.features.device.type != "cuda" or hit.features.dtype != torch.float32
+                or not torch.equal(hit.features, miss.features)
+                or str(hit_stats) != str(miss_stats)):
+            raise AssertionError("cache hit differs from the miss")
+        off, off_stats, launches = run_builder("cache_false", base + "&cache=false", None,
+                                               counters)
+        if launches["ingest_features"] < 1 or str(off_stats) != str(miss_stats):
+            raise AssertionError(f"cache=false did not run K1 again: {launches}")
+        k1 += launches["ingest_features"]
+        emit("cache_fused", miss_s=miss.timers, hit_s=hit.timers,
+             entries=len(os.listdir(os.environ["EEG_TPU_FEATURE_CACHE_DIR"])))
+
+        # 2. int8 and its gate (reported), then the hit
+        report = os.path.join(work, "report_int8")
+        q8 = base + "&precision=int8"
+        miss8, stats8, launches = run_builder("cache_miss_int8", q8 + f"&report={report}",
+                                              None, counters)
+        if launches["ingest_features_int8"] < 1:
+            raise AssertionError(f"int8 miss did not run K2-int8: {launches}")
+        k1 += launches["ingest_features"]  # the gate's f32 rows
+        k1_int8 = launches["ingest_features_int8"]
+        hit8, hit8_stats, launches = run_builder("cache_hit_int8", q8, None, counters)
+        if (any(launches.values()) or str(hit8_stats) != str(stats8)
+                or hit8.precision_resolved["gate"] != {"source": "cache"}):
+            raise AssertionError(f"int8 hit: {launches}, {hit8.precision_resolved}")
+        rep = read_json(os.path.join(report, "run_report.json"))
+        if (rep["device"]["name"] != torch.cuda.get_device_name(0)
+                or rep["device"]["platform"] != "gpu" or rep["backend"]["landed"] != "decode"
+                or rep["precision"]["used"] != "int8"):
+            raise AssertionError(f"int8 report: {rep['device']}, {rep['backend']}")
+        emit("report_int8", device=rep["device"], backend=rep["backend"],
+             precision=rep["precision"], stages=rep["stages"], caches=rep["caches"])
+
+        # 3. the seizure -pallas pair (reported)
+        seizure = write_seizure_smoke_session(os.path.join(work, "cache_seizure"), 1)
+        qs = f"info_file={seizure}&{SEIZURE_PALLAS}&train_clf=logreg{SEIZURE_LOGREG}"
+        report_s = os.path.join(work, "report_seizure")
+        smiss, smiss_stats, launches = run_builder(
+            "cache_miss_seizure", qs + f"&report={report_s}", None, counters)
+        if launches["epoch_features"] != 1:
+            raise AssertionError(f"seizure miss: K4 {launches}")
+        k4 += 1
+        shit, shit_stats, launches = run_builder("cache_hit_seizure", qs, None, counters)
+        if (any(launches.values()) or str(shit_stats) != str(smiss_stats)
+                or shit.features.device.type != "cuda"
+                or not torch.equal(shit.features, smiss.features)):
+            raise AssertionError(f"seizure hit: {launches}")
+        rep = read_json(os.path.join(report_s, "run_report.json"))
+        if rep["workload"] is None or rep["classification"] is None:
+            raise AssertionError("seizure report lacks its workload or classification block")
+        emit("report_seizure", workload=rep["workload"], classification=rep["classification"])
+        os.environ["EEG_TPU_NO_FEATURE_CACHE"] = "1"  # the rest counts real launches
+
+        # 4. faults: an ingest fault fails the run and leaves a crash report;
+        # serve faults are retried
+        crash_dir = os.path.join(work, "report_crash")
+        try:
+            run_builder("fault_ingest", base + f"&faults=ingest.fused:once@1&report={crash_dir}",
+                        None, counters)
+        except chaos.ChaosInjectedError:
+            pass
+        else:
+            raise AssertionError("faults=ingest.fused:once@1 did not fail the run")
+        crash = read_json(os.path.join(crash_dir, "crash_report.json"))
+        if crash["chaos"]["rules"] != {"ingest.fused": {"calls": 1, "fired": 1}}:
+            raise AssertionError(f"crash report: {crash['chaos']}")
+        small = os.path.join(work, "fault_session")
+        os.makedirs(small)
+        small_info = write_session(small, n_files=2, n_markers=300)
+        load = f"info_file={small_info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}"
+        batch, batch_stats, _ = run_builder("fault_batch", load, None, counters)
+        served, served_stats, launches = run_builder(
+            "fault_serve", load + "&serve=true&faults=serve.request:once@4;serve.batch:once@2"
+            + f"&report={os.path.join(work, 'report_serve')}", None, counters)
+        rules = read_json(os.path.join(work, "report_serve", "run_report.json"))["chaos"]["rules"]
+        if (str(served_stats) != str(batch_stats)
+                or any(r["fired"] != 1 for r in rules.values())):
+            raise AssertionError(f"faulted serve run: {rules}")
+        emit("faults", crash_rules=crash["chaos"]["rules"], serve_rules=rules,
+             retries=served.serve_block["requests"]["retries"])
+
+        # 5. MLlib model directories on the card
+        mdir = os.path.join(work, "mllib_logreg")
+        save = base + f"&save_clf=true&config_model_format=mllib&save_name={mdir}"
+        try:
+            mllib_format._pq()
+            has_pyarrow = True
+        except ImportError as e:
+            has_pyarrow, message = False, str(e)
+        if has_pyarrow:
+            _b, _s, launches = run_builder("mllib_save", save, None, counters)
+            k1 += launches["ingest_features"]
+            mload = f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={mdir}"
+            lb, lstats, launches = run_builder("mllib_load", mload, None, counters)
+            k1 += launches["ingest_features"]
+            _sb, sstats, launches = run_builder("mllib_serve", mload + "&serve=true", None,
+                                                counters)
+            k1 += launches["ingest_features"]  # featurize+host: K1 a batch
+            if str(sstats) != str(lstats):
+                raise AssertionError("served imported model differs from its batch run")
+            emit("mllib", pyarrow=True, weights_dtype=str(lb.classifier.model.weight.dtype))
+        else:
+            os.makedirs(os.path.join(mdir, "metadata"))
+            with open(os.path.join(mdir, "metadata", "part-00000"), "w") as f:
+                f.write(json.dumps({"class": mllib_format.GLM_LOGREG, "version": "1.0"}) + "\n")
+            refused = []
+            for label, query in (("mllib_save", save.replace(mdir, mdir + "_new")),
+                                 ("mllib_load", f"info_file={info}&fe=dwt-8-fused"
+                                  f"&load_clf=logreg&load_name={mdir}")):
+                try:
+                    run_builder(label, query, None, counters)
+                except ImportError as e:
+                    refused.append(str(e) == message)
+                else:
+                    raise AssertionError(f"{label} ran without pyarrow")
+                # the save run featurized and trained before its save refused
+                k1 += getattr(*counters["ingest_features"])
+            if not all(refused):
+                raise AssertionError("MLlib refusal is not the pyarrow message")
+            emit("mllib", pyarrow=False, message=message)
+        # 6. a profiler trace holds K1's record
+        trace_dir = os.path.join(work, "trace")
+        _b, _s, launches = run_builder("trace", base + f"&trace_path={trace_dir}", None,
+                                       counters)
+        k1 += launches["ingest_features"]
+        (trace,) = glob.glob(os.path.join(trace_dir, "torch-trace-*.json"))
+        kernels = {e["name"] for e in read_json(trace)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+        if not any("ingest_features_kernel" in name for name in kernels):
+            raise AssertionError(f"the trace holds no K1 record: {sorted(kernels)[:10]}")
+        emit("trace", kernel_records=sorted(k for k in kernels if "features" in k),
+             bytes=os.path.getsize(trace))
+
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit("run_record_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         k1_int8_launches=k1_int8, k4_launches=k4)
+    return k1, k1_int8, k4
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -4404,6 +4598,9 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
 
+    # every phase counts real launches: the feature cache (on by default)
+    # stays off but in phase 4g, which turns it on in a directory of its own
+    os.environ["EEG_TPU_NO_FEATURE_CACHE"] = "1"
     dev = torch.device("cuda")
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -4496,6 +4693,10 @@ def main() -> int:
                                                     int(len(gpu.targets)), n_files=8)
         # 4f. the seizure workload
         seizure_k4, seizure_k4_err = phase_seizure(torch, np, counters, work)
+        # 4g. the feature cache, reports, faults, a trace, MLlib directories
+        record_k1, record_k1_int8, record_k4 = phase_run_record(torch, np, info, model,
+                                                                counters, work)
+        rung_launches["int8"] += record_k1_int8
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -4603,17 +4804,17 @@ def main() -> int:
     print(json.dumps({"kernels": [
         # the main path's run and the runs of phases 4c (mini-batch SGD,
         # the nn batch, load and serve runs), 4d (the tree families), 4e
-        # (fan-out, populations, elastic, line searches) and 4f (the seizure
-        # workload's -pallas runs)
+        # (fan-out, populations, elastic, line searches), 4f (the seizure
+        # workload's -pallas runs) and 4g (cache misses, the trace, MLlib)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
-                     main_launches + nn_k1 + tree_k1 + train_k1, max(max_err["f32"], k1[4]), k1,
-                     library_ms=lib[32_768]),
+                     main_launches + nn_k1 + tree_k1 + train_k1 + record_k1,
+                     max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
-                     k4_launches + nn_k4 + tree_k4 + train_k4 + seizure_k4,
+                     k4_launches + nn_k4 + tree_k4 + train_k4 + seizure_k4 + record_k4,
                      max(epoch_err, k4_path_err, k4_f32_path_err, seizure_k4_err, k4[4],
                          k4_seizure[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),

@@ -18,6 +18,16 @@ import shutil
 from . import remote, sources
 
 
+def _fs_for(path: str):
+    """The filesystem that serves ``path`` (``io/remote.filesystem_for``,
+    the one scheme dispatch)."""
+    return remote.filesystem_for(path)
+
+
+def _is_local(path: str) -> bool:
+    return isinstance(_fs_for(path), sources.LocalFileSystem)
+
+
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Crash-safe local small-file write: tmp sibling, fsync,
     ``os.replace``; missing parent directories are made.
@@ -43,10 +53,9 @@ def delete_local_dir_target(path: str) -> None:
     """A stale directory at a local save target is deleted first
     (LogisticRegressionClassifier.java:144-147); a no-op for remote URIs
     and non-directories."""
-    fs = remote.filesystem_for(path)
-    if not isinstance(fs, sources.LocalFileSystem):
+    if not _is_local(path):
         return
-    local = fs._strip(path)
+    local = sources.LocalFileSystem._strip(path)
     if os.path.isdir(local):
         shutil.rmtree(local)
 
@@ -54,7 +63,7 @@ def delete_local_dir_target(path: str) -> None:
 def write_model_bytes(path: str, data: bytes) -> None:
     """Write serialized model bytes to a local path (atomically, parent
     directories made) or a remote URI."""
-    fs = remote.filesystem_for(path)
+    fs = _fs_for(path)
     if isinstance(fs, sources.LocalFileSystem):
         atomic_write_bytes(fs._strip(path), data)
     else:
@@ -65,4 +74,4 @@ def read_model_bytes(path: str) -> bytes:
     """Read serialized model bytes from a local path or remote URI;
     ``FileNotFoundError`` for a missing file on either (the remote layer
     maps 404 onto it)."""
-    return remote.filesystem_for(path).read_bytes(path)
+    return _fs_for(path).read_bytes(path)

@@ -18,6 +18,13 @@ DWT features with no host epochs. Input-contract parity with
   missing one reuses the index resolved for the previous file (:172-183);
 - the balance counters span all files of a run, in info.txt order (:58-59).
 
+The feature cache's key comes from one read pass
+(:meth:`OfflineDataProvider.prepare_fused_run`): every triplet's bytes
+are read once, digested and parsed, and on a miss the parsed recordings
+are featurized from memory. The per-run precision gate's decision is
+memoized under the first recording's content digest, so a re-run of the
+same session replays it (``cached: True``) instead of featurizing twice.
+
 Every read goes through a filesystem chosen by the first argument's URI
 scheme (``io/remote.filesystem_for``: ``http(s)://``, ``gs://``,
 ``hdfs://``, local paths), or through the ``filesystem=`` given, as in
@@ -27,7 +34,13 @@ sessions from HDFS (``OffLineDataProvider.java:90``).
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import hashlib
+import inspect
 import logging
+import os
+import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -38,6 +51,7 @@ from . import brainvision, remote, sources
 from .. import obs
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
+from ..obs import chaos
 from ..ops import decode_ingest, device_ingest, ingest_cuda
 from ..utils import constants
 from ..utils.device import resolve_device
@@ -56,6 +70,76 @@ _USAGE = (
 
 #: re-exported: ``info.txt`` parsing lives in ``io/sources.py``
 parse_info_txt = sources.parse_info_txt
+
+# -- precision-gate memo ---------------------------------------------
+# The gate's decision is pure (content bytes x geometry x tolerance ->
+# record), and the double featurize behind it is paid once per content:
+# a bounded, thread-safe LRU keyed on the first recording's digest.
+_GATE_MEMO: "collections.OrderedDict" = collections.OrderedDict()
+_GATE_MEMO_CAP = 32
+_GATE_MEMO_LOCK = threading.Lock()
+
+
+def _gate_memo_get(key):
+    with _GATE_MEMO_LOCK:
+        record = _GATE_MEMO.get(key)
+        if record is not None:
+            _GATE_MEMO.move_to_end(key)
+        return record
+
+
+def _gate_memo_put(key, record) -> None:
+    with _GATE_MEMO_LOCK:
+        _GATE_MEMO[key] = dict(record)
+        _GATE_MEMO.move_to_end(key)
+        while len(_GATE_MEMO) > _GATE_MEMO_CAP:
+            _GATE_MEMO.popitem(last=False)
+
+
+def reset_gate_memo() -> None:
+    """Drop the memoized gate decisions."""
+    with _GATE_MEMO_LOCK:
+        _GATE_MEMO.clear()
+
+
+def fused_extractor_id(wavelet_index: int, precision: str = "f32") -> Tuple:
+    """The fused path's extractor id tuple (a feature-cache key part),
+    taken from :meth:`OfflineDataProvider.load_features_device`'s own
+    parameter defaults, so the key follows the geometry the kernel runs.
+    A non-f32 precision folds its class into the key: a reduced-precision
+    matrix never serves an f32 request or the other way round. The
+    tuple is the JAX package's, so the packages share entries."""
+    defaults = {
+        k: p.default
+        for k, p in inspect.signature(
+            OfflineDataProvider.load_features_device
+        ).parameters.items()
+        if p.default is not inspect.Parameter.empty
+    }
+    base = (
+        "dwt-fused",
+        int(wavelet_index),
+        defaults["epoch_size"],
+        defaults["skip_samples"],
+        defaults["feature_size"],
+    )
+    if precision == "f32":
+        return base
+    return base + (str(precision),)
+
+
+@dataclasses.dataclass
+class PreparedRun:
+    """One read pass's products: the feature-cache key and the parsed
+    recordings behind it (a miss featurizes them from memory, so a cold
+    cached run reads each file once)."""
+
+    key: str
+    recordings: List[Tuple[str, int, "brainvision.Recording"]]
+    #: the ordered ``(rel_path, guessed, content digest)`` triples behind
+    #: ``key``: a further extractor config keys from them without a
+    #: second read (:meth:`OfflineDataProvider.run_key_for`)
+    digests: List[Tuple[str, int, str]] = dataclasses.field(default_factory=list)
 
 
 class OfflineDataProvider:
@@ -127,16 +211,83 @@ class OfflineDataProvider:
         order; files with a missing sibling are skipped with a log. The
         batch path and the serving layer (serve/pipeline.py) both read
         the session through it."""
+        for rel_path, guessed, rec, _digest in self._iter_recordings():
+            yield rel_path, guessed, rec
+
+    def _iter_recordings(
+        self, with_digests: bool = False,
+    ) -> Iterator[Tuple[str, int, brainvision.Recording, Optional[str]]]:
+        """``(rel_path, guessed, recording, digest)`` in info.txt order:
+        one read per file of each triplet (counted in
+        ``ingest.file_reads``); ``digest`` is the sha256 of the triplet's
+        bytes (.vhdr, .vmrk, .eeg) with ``with_digests``, else None."""
         prefix, files = self._resolve_files()
         for rel_path, guessed in files.items():
             try:
-                rec = brainvision.load_recording(prefix + rel_path, self._fs)
+                blobs = self._read_triplet(prefix + rel_path)
             except FileNotFoundError as e:
                 logger.warning("Did not load %s: %s", rel_path, e)
                 continue
-            # one read per file of the triplet
-            obs.metrics.count("ingest.file_reads", 3)
-            yield rel_path, guessed, rec
+            digest = None
+            if with_digests:
+                h = hashlib.sha256()
+                for blob in blobs:
+                    h.update(blob)
+                digest = h.hexdigest()
+            yield rel_path, guessed, brainvision.load_recording_bytes(*blobs), digest
+
+    def _read_triplet(self, eeg_path: str) -> List[bytes]:
+        """The .vhdr, .vmrk and .eeg bytes of one recording, one read
+        each (``FileNotFoundError`` when a sibling is missing, as
+        ``setFileNames`` finds, OffLineDataProvider.java:327-365)."""
+        base = os.path.splitext(eeg_path)[0]
+        triplet = (base + ".vhdr", base + ".vmrk", eeg_path)
+        for p in triplet:
+            if not self._fs.exists(p):
+                raise FileNotFoundError(f"No related file found: {p}")
+        blobs = [self._fs.read_bytes(p) for p in triplet]
+        obs.metrics.count("ingest.file_reads", 3)
+        return blobs
+
+    def prepare_fused_run(self, extractor_id: Tuple) -> PreparedRun:
+        """One read pass giving both the feature-cache key and the parsed
+        recordings (the JAX package's ``prepare_fused_run``): the caller
+        looks the key up, and on a miss hands ``recordings`` to
+        :meth:`load_features_device`, which featurizes them without a
+        second read. Files with a missing sibling are skipped as
+        :meth:`load` skips them, so the key fingerprints the run that
+        happens. Its wall seconds are ``timings["parse"]``."""
+        from . import feature_cache
+
+        t0 = time.perf_counter()
+        recordings, digests = [], []
+        for rel_path, guessed, rec, digest in self._iter_recordings(with_digests=True):
+            recordings.append((rel_path, guessed, rec))
+            digests.append((rel_path, guessed, digest))
+        key = feature_cache.run_key(digests, self._channel_names, self._pre, self._post,
+                                    extractor_id)
+        self.timings = {"parse": time.perf_counter() - t0}
+        return PreparedRun(key=key, recordings=recordings, digests=digests)
+
+    #: the one-read-pass seam is extractor-agnostic: the seizure path
+    #: keys its windows' features through it too
+    prepare_run = prepare_fused_run
+
+    def run_key_for(self, prepared: PreparedRun, extractor_id: Tuple) -> str:
+        """A further extractor config's cache key over a
+        :class:`PreparedRun`'s digests: no re-read, no re-digest."""
+        from . import feature_cache
+
+        return feature_cache.run_key(prepared.digests, self._channel_names, self._pre,
+                                     self._post, extractor_id)
+
+    def content_digests(self) -> List[Tuple[str, int, str]]:
+        """Ordered ``(rel_path, guessed, content digest)`` of every
+        recording this run would load: the sha256 of the whole
+        BrainVision triplet's bytes, so any content change gives a new
+        digest. The provider half of ``io/feature_cache.run_key``."""
+        return [(rel_path, guessed, digest)
+                for rel_path, guessed, _rec, digest in self._iter_recordings(with_digests=True)]
 
     def _channel_indices(self, header: brainvision.Header) -> List[int]:
         """Channel resolution with the reference's stale-index reuse: a
@@ -273,6 +424,9 @@ class OfflineDataProvider:
                 f"precision={precision!r} is a decode-rung feature; "
                 f"backend {backend!r} computes f32"
             )
+        # chaos: one fused ingest fails (a kernel error, an OOM); the
+        # port has no degradation ladder, so the run fails with it
+        chaos.maybe_fire("ingest.fused")
         featurize = ingest_cuda.make_cuda_ingest_featurizer(
             wavelet_index=wavelet_index,
             epoch_size=epoch_size,
@@ -324,6 +478,7 @@ class OfflineDataProvider:
         wavelet_index: int = 8,
         precision: str = "bf16",
         max_rows: int = 64,
+        content_key: Optional[str] = None,
     ) -> dict:
         """The per-run precision accuracy gate (bf16, int8 and int4 share
         it): the first recording's first ``max_rows`` kept markers are
@@ -336,10 +491,23 @@ class OfflineDataProvider:
 
         Returns the gate record with ``gate_seconds`` (the double
         featurize, so a report can tell gate overhead from steady
-        state) and ``cached``. ``cached`` is always False: the JAX
-        package memoizes the decision per content digest, and the port
-        computes no content digests (it has no feature cache yet).
+        state) and ``cached``. ``content_key`` (the first recording's
+        content digest) memoizes the decision, which is a function of
+        the bytes, the geometry and the tolerance: a re-gating of the
+        same content replays the record with ``cached: True`` and
+        ``gate_seconds`` 0.0, and launches nothing.
         """
+        tol = decode_ingest.precision_gate_tolerance(precision)
+        memo_key = None
+        if content_key is not None:
+            memo_key = (str(content_key), int(wavelet_index), str(precision), int(max_rows),
+                        float(tol), self._pre, self._post, tuple(self._channel_names))
+            cached = _gate_memo_get(memo_key)
+            if cached is not None:
+                record = dict(cached)
+                record["cached"] = True
+                record["gate_seconds"] = 0.0
+                return record
         t0 = time.perf_counter()
         if not recordings:
             gate = decode_ingest.feature_precision_gate(
@@ -368,4 +536,6 @@ class OfflineDataProvider:
             )
         gate["gate_seconds"] = round(time.perf_counter() - t0, 6)
         gate["cached"] = False
+        if memo_key is not None:
+            _gate_memo_put(memo_key, gate)
         return gate

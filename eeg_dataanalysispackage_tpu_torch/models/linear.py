@@ -10,14 +10,17 @@ SVMClassifier.java:95-109); prediction is MLlib's strict
 Models persist as one ``.npz`` in the JAX package's layout (weights,
 config JSON, kind, intercept, margin_threshold), so a model saved by
 either package loads into the other: :meth:`to_numpy_state` and
-:meth:`from_numpy_state` are the interchange.
+:meth:`from_numpy_state` are the interchange. ``config_model_format=mllib``
+saves a Spark 1.6 MLlib model directory instead
+(:meth:`_LinearClassifier.export_mllib_dir`, ``io/mllib_format.py``), and
+:meth:`_LinearClassifier.load` adopts such a directory: its float64
+weights keep the JAX package's host float64 margin, bit for bit.
 """
 
 from __future__ import annotations
 
 import io
 import json
-import os
 from typing import Optional
 
 import numpy as np
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from . import base, sgd
-from ..io import modelfiles
+from ..io import mllib_format, modelfiles
 
 
 class LinearModel(nn.Module):
@@ -83,10 +86,16 @@ class _LinearClassifier(base.Classifier):
         self.margin_threshold = 0.0
 
     def margin(self, features: torch.Tensor) -> torch.Tensor:
-        """(n,) margins on the features' device (float64 for float64
-        weights, as the JAX package computes imported MLlib models)."""
+        """(n,) margins on the features' device. Float64 weights (an
+        imported MLlib model) keep the JAX package's predict: the rows
+        widened to float64 on the host, ``x @ w + intercept`` in numpy,
+        so the margins equal its bit for bit."""
         if self.model is None:
             raise ValueError("model not trained or loaded")
+        if self.model.weight.dtype == torch.float64:
+            x = features.detach().cpu().numpy().astype(np.float64)
+            m = x @ self.model.weight.detach().cpu().numpy() + self.model.intercept
+            return torch.from_numpy(m).to(features.device)
         return self.model.to(features.device)(features)
 
     def predict(self, features: torch.Tensor) -> torch.Tensor:
@@ -119,11 +128,14 @@ class _LinearClassifier(base.Classifier):
         self.config = dict(state.get("config", {}))
 
     def save(self, path: str) -> None:
+        # a stale directory at the raw target is deleted first
+        # (LogisticRegressionClassifier.java:144-147)
         if self.config.get("config_model_format") == "mllib":
-            raise ValueError(
-                "config_model_format=mllib (MLlib model directories) is "
-                "not yet ported; see ROADMAP.md"
-            )
+            # save_clf=true&config_model_format=mllib writes the
+            # Spark-loadable model directory instead of the npz
+            modelfiles.delete_local_dir_target(path)
+            self.export_mllib_dir(path)
+            return
         state = self.to_numpy_state()
         modelfiles.delete_local_dir_target(path)
         buf = io.BytesIO()
@@ -139,11 +151,9 @@ class _LinearClassifier(base.Classifier):
         modelfiles.write_model_bytes(fname, buf.getvalue())
 
     def load(self, path: str) -> None:
-        if os.path.isdir(path):
-            raise ValueError(
-                f"{path} is a directory; MLlib model directories are not "
-                "yet ported; see ROADMAP.md"
-            )
+        if mllib_format.is_model_dir(path):
+            self._load_mllib_dir(path)
+            return
         fname = path if path.endswith(".npz") else path + ".npz"
         data = np.load(io.BytesIO(modelfiles.read_model_bytes(fname)), allow_pickle=False)
         state = {
@@ -158,6 +168,50 @@ class _LinearClassifier(base.Classifier):
                 state[key] = float(data[key])
         self.from_numpy_state(state)
 
+    def export_mllib_dir(self, path: str) -> None:
+        """Write this model as a Spark 1.6 MLlib model directory (the
+        artifact ``LogisticRegressionModel.load`` / ``SVMModel.load``
+        consumes, LogisticRegressionClassifier.java:150-152). Weights
+        widen float32 -> float64 exactly; the margin threshold maps back
+        to the class's saved-threshold convention."""
+        if self.model is None:
+            raise ValueError("model not trained or loaded")
+        mllib_format.write_glm(
+            path,
+            self._mllib_class,
+            self.model.weight.detach().cpu().numpy().astype(np.float64),
+            intercept=self.model.intercept,
+            threshold=self._from_margin_threshold(self.margin_threshold),
+        )
+
+    def _load_mllib_dir(self, path: str) -> None:
+        """Adopt an MLlib model directory, with the JAX package's checks
+        and messages: the class tag, a binary model, a set threshold."""
+        m = mllib_format.read_glm(path)
+        if m.model_class != self._mllib_class:
+            raise ValueError(
+                f"model dir at {path} holds {m.model_class}, but "
+                f"{self.__class__.__name__} loads {self._mllib_class}"
+            )
+        if m.num_classes != 2:
+            # multinomial logreg packs (numClasses-1) weight blocks;
+            # the binary margin would misread them
+            raise NotImplementedError(
+                f"multinomial MLlib model (numClasses="
+                f"{m.num_classes}) is not supported; the reference "
+                f"pipeline is binary"
+            )
+        # a cleared threshold (MLlib clearThreshold, raw-score mode) has
+        # no label semantics; the pipeline always classifies
+        if m.threshold is None:
+            raise ValueError(
+                "model dir was saved with a cleared threshold (raw "
+                "scores); set one before exporting"
+            )
+        # float64 weights route margin() to the host float64 predict
+        self.model = LinearModel(torch.from_numpy(m.weights), m.intercept)
+        self.margin_threshold = self._to_margin_threshold(m.threshold)
+
 
 class LogisticRegressionClassifier(_LinearClassifier):
     loss = "logistic"
@@ -166,6 +220,23 @@ class LogisticRegressionClassifier(_LinearClassifier):
         "config_step_size",
         "config_mini_batch_fraction",
     )
+    _mllib_class = mllib_format.GLM_LOGREG
+
+    @staticmethod
+    def _to_margin_threshold(saved: float) -> float:
+        # LogisticRegressionModel stores a probability threshold:
+        # sigmoid(margin) > p <=> margin > logit(p); p=1 and p=0 are the
+        # constant classifiers they mean in MLlib
+        if saved >= 1.0:
+            return float("inf")
+        if saved <= 0.0:
+            return float("-inf")
+        return float(np.log(saved / (1.0 - saved)))
+
+    @staticmethod
+    def _from_margin_threshold(margin: float) -> float:
+        # the inverse: sigmoid maps +/-inf to 1.0 / 0.0
+        return float(1.0 / (1.0 + np.exp(-margin)))
 
     def _sgd_config(self) -> sgd.SGDConfig:
         c = self.config
@@ -196,6 +267,11 @@ class SVMClassifier(_LinearClassifier):
         "config_reg_param",
         "config_mini_batch_fraction",
     )
+    _mllib_class = mllib_format.GLM_SVM
+
+    # SVMModel's threshold is a margin (SVMModel.predictPoint)
+    _to_margin_threshold = staticmethod(float)
+    _from_margin_threshold = staticmethod(float)
 
     def _sgd_config(self) -> sgd.SGDConfig:
         c = self.config

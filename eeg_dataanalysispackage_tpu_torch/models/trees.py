@@ -35,9 +35,11 @@ float64 for binning (the JAX package bins the extractor's own dtype:
 float64 on the host ``fe=`` paths, float32 rows on the fused path), and
 ``predict`` returns float64 labels on the features' device.
 
-Not ported: MLlib model directories (``load_name=<dir>``,
-``config_model_format=mllib``, ``export_mllib_dir``) raise; see
-ROADMAP.md.
+MLlib model directories (``io/mllib_format.py``): :meth:`load` of one
+keeps the imported ensemble and predicts through its raw-threshold
+descent; ``config_model_format=mllib`` saves one
+(:meth:`DecisionTreeClassifier.export_mllib_dir`, binned thresholds
+mapped back to their bin edges; an imported model re-exports as it is).
 """
 
 from __future__ import annotations
@@ -45,20 +47,15 @@ from __future__ import annotations
 import io
 import json
 import math
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import base, trees_device
-from ..io import modelfiles
+from ..io import mllib_format, modelfiles
 
 _EPS = 1e-12
-
-_MLLIB_NOT_PORTED = (
-    "config_model_format=mllib (MLlib model directories) is not yet ported; see ROADMAP.md"
-)
 
 
 def find_splits_for_continuous_feature(samples: np.ndarray, num_splits: int) -> np.ndarray:
@@ -376,6 +373,12 @@ class DecisionTreeClassifier(base.Classifier):
         # (device, packed (T, n_nodes) tensors) for predict_linked_forest,
         # built lazily and dropped whenever self.trees changes
         self._device_pack = None
+        # a loaded MLlib model directory: raw continuous thresholds, so
+        # prediction runs its own descent instead of the binned forest
+        self._mllib = None
+
+    #: the MLlib class tag this classifier accepts from a model directory
+    _mllib_class = mllib_format.TREE_DT
 
     def _resolved_backend(self) -> str:
         """The run's backend: ``config_backend`` overrides the ctor
@@ -407,6 +410,7 @@ class DecisionTreeClassifier(base.Classifier):
         p = self._tree_params()
         self._params = p
         self._device_pack = None
+        self._mllib = None  # training replaces any imported model
         x = _host_rows(features)
         y = _labels01(labels).astype(np.int64)
         self.edges = compute_bin_edges(x, p["max_bins"])
@@ -453,7 +457,14 @@ class DecisionTreeClassifier(base.Classifier):
             raise ValueError("model not trained or loaded")
         return bin_features(_host_rows(features), self.edges)
 
+    def _predict_mllib(self, features) -> torch.Tensor:
+        """The imported ensemble's prediction (MLlib semantics over the
+        raw float64 rows, on the host) on the features' device."""
+        return torch.from_numpy(self._mllib.predict(_host_rows(features))).to(features.device)
+
     def predict(self, features) -> torch.Tensor:
+        if self._mllib is not None:
+            return self._predict_mllib(features)
         binned = self._binned(features)
         device = features.device
         if self._resolved_backend() == "device":
@@ -477,12 +488,64 @@ class DecisionTreeClassifier(base.Classifier):
         return path[7:] if path.startswith("file://") else path
 
     def export_mllib_dir(self, path: str) -> None:
-        raise ValueError(_MLLIB_NOT_PORTED)
+        """Write this model as a Spark 1.6 MLlib model directory (the
+        artifact ``DecisionTreeModel.load`` / ``RandomForestModel.load``
+        consumes, DecisionTreeClassifier.java:163-165). A binned split
+        ``bin <= b`` is ``value <= edges[feature, b]`` (``bin_features``'
+        ``(lo, hi]`` bins), MLlib's own continuous-split predicate, so
+        the exported model predicts as this one does. An imported model
+        re-exports as it is."""
+        if self._mllib is not None:
+            mllib_format.write_tree_ensemble(
+                path,
+                self._mllib.model_class,
+                self._mllib.trees,
+                tree_weights=self._mllib.tree_weights,
+                algo=self._mllib.algo,
+                # kept verbatim, in Spark's capitalized spelling
+                combining={"vote": "Vote", "sum": "Sum",
+                           "average": "Average"}[self._mllib.combining],
+            )
+            return
+        if not self.trees or self.edges is None:
+            raise ValueError("model not trained or loaded")
+        trees = []
+        for t in self.trees:
+            feat = np.asarray(t["feature"])
+            leaf = feat < 0  # the growers' leaf marker
+            safe_feat = np.maximum(feat, 0)
+            thr_bin = np.clip(np.asarray(t["threshold_bin"]), 0, self.edges.shape[1] - 1)
+            k = len(feat)
+            trees.append({
+                "feature": safe_feat,
+                "threshold": np.where(leaf, np.inf, self.edges[safe_feat, thr_bin]),
+                "left": np.where(leaf, np.arange(k), t["left"]),
+                "right": np.where(leaf, np.arange(k), t["right"]),
+                "leaf": leaf,
+                "predict": np.asarray(t["prediction"], np.float64),
+            })
+        mllib_format.write_tree_ensemble(
+            path, self._mllib_class, trees,
+            tree_weights=self._export_tree_weights(len(trees)),
+        )
+
+    def _export_tree_weights(self, n_trees: int):
+        return [1.0] * n_trees
 
     def save(self, path: str) -> None:
         path = self._strip_prefix(path)
         if self.config.get("config_model_format") == "mllib":
-            raise ValueError(_MLLIB_NOT_PORTED)
+            # checked before the imported-model guard: with the explicit
+            # format key, re-saving an imported directory is what the
+            # user asked for
+            modelfiles.delete_local_dir_target(path)
+            self.export_mllib_dir(path)
+            return
+        if self._mllib is not None:
+            raise ValueError(
+                "this model was loaded from an MLlib model directory; "
+                "re-export it with export_mllib_dir(path)"
+            )
         modelfiles.delete_local_dir_target(path)
         meta = {"kind": self.__class__.__name__, "params": self._params,
                 "config": self.config, "n_trees": len(self.trees)}
@@ -494,11 +557,22 @@ class DecisionTreeClassifier(base.Classifier):
 
     def load(self, path: str) -> None:
         path = self._strip_prefix(path)
-        if os.path.isdir(path):
-            raise ValueError(
-                f"{path} is a directory; MLlib model directories are not "
-                "yet ported; see ROADMAP.md"
-            )
+        if mllib_format.is_model_dir(path):
+            # a reference-deployment artifact (the directory
+            # DecisionTreeClassifier.java:163-165 hands to
+            # DecisionTreeModel.load)
+            ens = mllib_format.read_tree_ensemble(path)
+            if ens.model_class != self._mllib_class:
+                raise ValueError(
+                    f"model dir at {path} holds {ens.model_class}, but "
+                    f"{self.__class__.__name__} loads {self._mllib_class}"
+                )
+            self._mllib = ens
+            self.trees = []
+            self.edges = None
+            self._device_pack = None
+            return
+        self._mllib = None
         fname = path if path.endswith(".npz") else path + ".npz"
         data = np.load(io.BytesIO(modelfiles.read_model_bytes(fname)), allow_pickle=False)
         meta = json.loads(str(data["meta"]))
@@ -526,6 +600,7 @@ class RandomForestClassifier(DecisionTreeClassifier):
         "config_num_trees",
         "config_feature_subset",
     )
+    _mllib_class = mllib_format.TREE_RF
 
     def _n_trees(self) -> int:
         c = self.config
@@ -571,6 +646,15 @@ class GradientBoostedTreesClassifier(DecisionTreeClassifier):
         "config_learning_rate",
         "config_max_depth",
     )
+    _mllib_class = mllib_format.TREE_GBT
+
+    def _export_tree_weights(self, n_trees: int):
+        # the boosting applies the learning rate to every round (F = sum
+        # lr * t_i); MLlib's Sum combining computes sum(w_i * t_i), so
+        # uniform lr weights reproduce F. The one difference from this
+        # class's predict is the F == 0 boundary (MLlib: > 0 -> 1; here
+        # >= 0 -> 1).
+        return [float(self._params.get("learning_rate", 0.1))] * n_trees
 
     def _boost_params(self) -> Dict:
         c = self.config
@@ -587,6 +671,7 @@ class GradientBoostedTreesClassifier(DecisionTreeClassifier):
         bp = {"max_bins": 32, "min_instances": 1}
         self._params = {**p, **bp}
         self._device_pack = None
+        self._mllib = None  # training replaces any imported model
         x = _host_rows(features)
         y = _labels01(labels)
         self.edges = compute_bin_edges(x, bp["max_bins"])
@@ -620,6 +705,8 @@ class GradientBoostedTreesClassifier(DecisionTreeClassifier):
         self.trees = trees_device.heap_to_host_arrays(heaps)
 
     def predict(self, features) -> torch.Tensor:
+        if self._mllib is not None:
+            return self._predict_mllib(features)
         binned = self._binned(features)
         lr = self._params.get("learning_rate", 0.1)
         F = np.zeros(binned.shape[0], dtype=np.float64)

@@ -18,14 +18,22 @@ Spec grammar::
 The port fires ``remote.request`` (one HTTP request attempt in
 ``io/remote.py``; it raises a retryable ``RemoteIOError``),
 ``serve.adapt`` (one partial-fit chunk of the serving lifecycle),
-``serve.swap`` (one promotion attempt; both in ``serve/lifecycle.py``)
-and ``device.step`` (one chunk of an elastic training run:
-``models/sgd.train_linear_elastic`` and the network's ``fit_elastic``).
-The JAX package's other points (``serve.request``, ``serve.batch``,
-``ingest.fused`` …) have no injection site in the port
-yet, so a spec that names one raises :class:`FaultSpecError` here
-rather than parse and never fire (see ROADMAP.md). A run's ``faults=``
-is not ported; tests install a plan with :func:`faults`.
+``serve.swap`` (one promotion attempt; both in ``serve/lifecycle.py``),
+``device.step`` (one chunk of an elastic training run:
+``models/sgd.train_linear_elastic`` and the network's ``fit_elastic``),
+``serve.request`` (one admitted request), ``serve.batch`` (one
+micro-batch execution) and ``serve.batch.tenant.<name>`` (one tenant's
+rows of a mixed batch; all three in ``serve/batcher.py``, where the
+batcher's retries take them), ``ingest.fused`` (one
+``load_features_device`` call in ``io/provider.py``; the port has no
+degradation ladder, so it fails the run) and ``scheduler.plan`` (one
+run, in the run bracket ``scheduler/runtime.py``). The JAX package's
+other points (``staging.producer``, ``fleet.*``,
+``scheduler.journal``) have no injection site in the port yet, so a
+spec that names one raises :class:`FaultSpecError` here rather than
+parse and never fire (see ROADMAP.md). A run's ``faults=`` query key
+(or ``EEG_TPU_FAULTS``, :func:`plan_from_env`) installs its plan in
+the run's domain; :func:`faults` installs one process-wide.
 
 :func:`maybe_fire` with no plan installed is one thread-local read and
 a global ``None`` check. A firing counts ``chaos.fired.<point>`` in
@@ -35,6 +43,7 @@ a global ``None`` check. A firing counts ``chaos.fired.<point>`` in
 from __future__ import annotations
 
 import logging
+import os
 import random
 import re
 import threading
@@ -46,7 +55,19 @@ from . import domain as _domain
 logger = logging.getLogger(__name__)
 
 #: the points the port has an injection site for
-PORTED_POINTS = ("remote.request", "serve.adapt", "serve.swap", "device.step")
+PORTED_POINTS = (
+    "remote.request", "serve.adapt", "serve.swap", "device.step",
+    "serve.request", "serve.batch", "ingest.fused", "scheduler.plan",
+)
+#: the per-tenant batch point, ``serve.batch.tenant.<name>``
+TENANT_BATCH_PREFIX = "serve.batch.tenant."
+#: a run's fault spec when its query has no ``faults=``
+ENV_SPEC = "EEG_TPU_FAULTS"
+
+
+def _is_ported(point: str) -> bool:
+    return point in PORTED_POINTS or (
+        point.startswith(TENANT_BATCH_PREFIX) and len(point) > len(TENANT_BATCH_PREFIX))
 
 
 class ChaosInjectedError(RuntimeError):
@@ -132,10 +153,11 @@ def parse_fault_spec(spec: str, seed: int = 0) -> FaultPlan:
                 f"fault entry {entry!r} is not 'point:directive' "
                 f"(e.g. 'remote.request:p=0.2')"
             )
-        if point not in PORTED_POINTS:
+        if not _is_ported(point):
             raise FaultSpecError(
                 f"fault point {point!r} is not yet ported (the port injects "
-                f"at {', '.join(PORTED_POINTS)}); see ROADMAP.md"
+                f"at {', '.join(PORTED_POINTS)} and {TENANT_BATCH_PREFIX}<name>); "
+                f"see ROADMAP.md"
             )
         m = _DIRECTIVE_RE.match(directive.strip())
         if m is None:
@@ -199,6 +221,11 @@ def faults(spec: str, seed: int = 0) -> Iterator[FaultPlan]:
         yield plan
     finally:
         _PLAN = previous
+
+
+def plan_from_env() -> Optional[str]:
+    """The ``EEG_TPU_FAULTS`` spec string, or None when unset or empty."""
+    return os.environ.get(ENV_SPEC) or None
 
 
 def maybe_fire(point: str, exc_type: type = ChaosInjectedError) -> None:

@@ -1,13 +1,15 @@
 """Per-plan fault domains: the ambient execution context of one plan.
 
-Port of the JAX package's ``obs/domain.py`` (without the worker-thread
-adoption and the per-plan metrics child, which the multi-plan scheduler
-needs). A :class:`RunDomain` carries what must be per plan — its
-``plan_id`` (which tags circuit-breaker evidence), its own fault plan
-and span recorder — installed on the executing thread with
-:func:`activate`. ``obs/chaos.py`` and ``obs/events.py`` resolve the
-domain first and fall back to their process-wide installation outside
-any domain.
+Port of the JAX package's ``obs/domain.py`` (without the per-plan
+metrics child, which the multi-plan scheduler needs: a run's own
+numbers come from ``obs.Metrics.scope``). A :class:`RunDomain` carries
+what must be per plan — its ``plan_id`` (which tags circuit-breaker
+evidence), its own fault plan and span recorder — installed on the
+executing thread with :func:`activate`; a worker thread the run starts
+(the serving batcher's) takes it over with :func:`capture` on the
+starting thread and :func:`adopt` in its body. ``obs/chaos.py`` and
+``obs/events.py`` resolve the domain first and fall back to their
+process-wide installation outside any domain.
 
 This module imports nothing else of the package (thread-local plumbing
 only), so chaos and events can consult it without cycles.
@@ -70,3 +72,14 @@ def activate(domain: Optional[RunDomain]) -> Iterator[Optional[RunDomain]]:
         yield domain
     finally:
         stack.pop()
+
+
+def capture() -> Optional[RunDomain]:
+    """The domain a to-be-started worker thread should adopt: the
+    caller's current domain (None outside any). Call on the starting
+    thread and wrap the worker's body in :func:`adopt`."""
+    return current()
+
+
+#: adoption is installation, under the name thread bodies read by
+adopt = activate

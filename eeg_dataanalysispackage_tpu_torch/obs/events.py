@@ -1,10 +1,13 @@
 """Structured span and event telemetry.
 
-Port of the JAX package's ``obs/events.py`` (its span recorder, without
-the JSONL and cross-replica trace sinks and the run-report summary,
-which belong to ``report=``): hierarchical spans with ids, parent ids,
-monotonic times and attributes, bounded retention, and a ring of recent
-*events* (``remote.retry``, ``circuit.opened``, ``chaos.fired`` …). One
+Port of the JAX package's ``obs/events.py`` (its span recorder with the
+JSONL sink and the run-report summary, without the cross-replica trace
+sink, which belongs to its replica fleet): hierarchical spans with ids,
+parent ids, monotonic times and attributes, bounded retention, an
+optional JSONL file of every finished span and event (``report=``
+writes ``spans.jsonl`` beside ``run_report.json``), and a ring of recent
+*events* (``remote.retry``, ``circuit.opened``, ``chaos.fired`` …) that
+a crash report dumps. One
 process-wide recorder is installed for the scope of a run
 (:func:`recording`); the module-level :func:`span`, :func:`event` and
 :func:`set_attr` are a thread-local read and a ``None`` check when none
@@ -21,6 +24,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import json
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
@@ -37,17 +41,27 @@ _MAX_EVENTS_PER_SPAN = 64
 
 
 class SpanRecorder:
-    """Hierarchical span/event recorder for one run. Thread-safe."""
+    """Hierarchical span/event recorder for one run. Thread-safe.
+
+    ``jsonl_path`` gets one JSON line per finished span and per event
+    (``{"kind": "span"|"event", ...}``); a write failure drops the sink
+    and keeps the in-memory record."""
 
     def __init__(
         self,
         name: str = "run",
+        jsonl_path: Optional[str] = None,
         max_spans: int = DEFAULT_MAX_SPANS,
         ring_capacity: int = DEFAULT_RING_CAPACITY,
     ):
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._t0 = time.perf_counter()
+        self.wall_start = time.time()
+        self._jsonl_path = jsonl_path
+        self._jsonl_file = None
+        self._jsonl_failed = False
+        self._jsonl_closed = False
         self._local = threading.local()
         self._spans: List[Dict[str, Any]] = []
         self.dropped_spans = 0
@@ -101,6 +115,7 @@ class SpanRecorder:
                     self._spans.append(rec)
                 else:
                     self.dropped_spans += 1
+            self._sink({"kind": "span", **_span_line(rec)})
 
     def event(self, name: str, **attrs: Any) -> None:
         """Point-in-time mark on the current span; retained in the ring."""
@@ -111,15 +126,26 @@ class SpanRecorder:
             self._ring.append(rec)
             if len(span["events"]) < _MAX_EVENTS_PER_SPAN:
                 span["events"].append(rec)
+        self._sink({"kind": "event", **rec})
 
     def set_attr(self, name: str, value: Any) -> None:
         """Attach an attribute to the calling thread's current span."""
         self.current_span()["attrs"][name] = value
 
     def finish(self) -> None:
-        """Close the root span."""
+        """Close the root span and the JSONL sink (a straggler thread
+        finishing a span later does not reopen it)."""
         if self.root["end"] is None:
             self.root["end"] = self._now()
+            self._sink({"kind": "span", **_span_line(self.root)})
+        with self._lock:
+            self._jsonl_closed = True
+            if self._jsonl_file is not None:
+                try:
+                    self._jsonl_file.close()
+                except OSError:
+                    pass
+                self._jsonl_file = None
 
     def spans(self) -> List[Dict[str, Any]]:
         with self._lock:
@@ -129,6 +155,56 @@ class SpanRecorder:
         """The event ring, oldest first."""
         with self._lock:
             return list(self._ring)
+
+    def summary(self) -> Dict[str, Any]:
+        """The run report's view: per span name its count, total, min
+        and max seconds, and the retention accounting."""
+        by_name: Dict[str, Dict[str, float]] = {}
+        with self._lock:
+            spans = list(self._spans)
+            dropped = self.dropped_spans
+        for s in spans:
+            dur = (s["end"] if s["end"] is not None else self._now()) - s["start"]
+            agg = by_name.setdefault(
+                s["name"], {"count": 0, "seconds": 0.0, "min_s": dur, "max_s": dur})
+            agg["count"] += 1
+            agg["seconds"] += dur
+            agg["min_s"] = min(agg["min_s"], dur)
+            agg["max_s"] = max(agg["max_s"], dur)
+        for agg in by_name.values():
+            for k in ("seconds", "min_s", "max_s"):
+                agg[k] = round(agg[k], 6)
+        return {
+            "root": self.root["name"],
+            "wall_start": self.wall_start,
+            "span_count": len(spans) + dropped + 1,
+            "dropped_spans": dropped,
+            "by_name": dict(sorted(by_name.items())),
+        }
+
+    def _sink(self, line: Dict[str, Any]) -> None:
+        if self._jsonl_path is None or self._jsonl_failed:
+            return
+        with self._lock:
+            if self._jsonl_closed:
+                return
+            try:
+                if self._jsonl_file is None:
+                    # one recorder is one run is one file: a rerun into
+                    # the same report directory replaces it
+                    self._jsonl_file = open(self._jsonl_path, "w")
+                self._jsonl_file.write(json.dumps(line, sort_keys=True, default=str) + "\n")
+                self._jsonl_file.flush()
+            except OSError:
+                # a broken sink never fails the run it observes
+                self._jsonl_failed = True
+                self._jsonl_file = None
+
+
+def _span_line(rec: Dict[str, Any]) -> Dict[str, Any]:
+    out = {k: rec[k] for k in ("id", "parent", "name", "start", "end", "thread", "attrs")}
+    out["events"] = len(rec["events"])
+    return out
 
 
 @contextlib.contextmanager

@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import decode_ingest, dwt, quant
+from . import decode_ingest, dwt, plan_cache, quant
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..io.brainvision import Marker, Recording
@@ -110,6 +110,12 @@ def plan_ingest(
     (start < 0 or start > n_samples); the label is 1.0 iff
     stimulus_index + 1 == guessed_number; the global balance scan
     decides retention.
+
+    The plan is memoized in ``ops/plan_cache`` (``ingest_plan``), keyed
+    on the in-range marker positions and stimulus indices, the guessed
+    number, the capacity multiple and the balance counters the scan
+    starts from; a hit returns the cached plan and leaves ``balance``
+    at the counters the scan ended with.
     """
     del post  # the window length never decides retention
     positions = np.array([m.position for m in markers], dtype=np.int64)
@@ -118,8 +124,32 @@ def plan_ingest(
     valid = extractor.valid_window_starts(positions, pre, n_samples)
     positions, stim_idx = positions[valid], stim_idx[valid]
 
-    is_target = (stim_idx + 1) == guessed_number
     balance = balance or BalanceState()
+    entering = (balance.n_targets, balance.n_nontargets)
+    key = plan_cache.digest(
+        positions, stim_idx,
+        extra=(int(guessed_number), int(capacity_multiple), *entering),
+    )
+    plan, leaving = _PLANS.get_or_build(
+        key, lambda: _build_plan(positions, stim_idx, guessed_number, capacity_multiple,
+                                 entering),
+    )
+    balance.n_targets, balance.n_nontargets = leaving
+    return plan
+
+
+#: the memo of :func:`plan_ingest`
+_PLANS = plan_cache.cache("ingest_plan")
+
+
+def _build_plan(positions: np.ndarray, stim_idx: np.ndarray, guessed_number: int,
+                capacity_multiple: int, entering: Tuple[int, int]):
+    """:func:`plan_ingest`'s work on the in-range markers: the balance
+    scan from the ``entering`` counters, then the padded plan. Returns
+    ``(plan, counters the scan ends with)``."""
+    is_target = (stim_idx + 1) == guessed_number
+    balance = BalanceState()
+    balance.n_targets, balance.n_nontargets = entering
     keep = balance.scan(is_target)
 
     kept = positions[keep]
@@ -133,12 +163,13 @@ def plan_ingest(
     padded[: kept.shape[0]] = kept
     mask = np.zeros(capacity, dtype=bool)
     mask[: kept.shape[0]] = True
-    return IngestPlan(
+    plan = IngestPlan(
         positions=padded,
         mask=mask,
         targets=is_target[keep].astype(np.float64),
         stimulus_indices=stim_idx[keep],
     )
+    return plan, (balance.n_targets, balance.n_nontargets)
 
 
 @lru_cache(maxsize=None)

@@ -52,10 +52,20 @@ runs the kernel's reduced-precision rung on the bare ``-fused`` and
 ``-fused-decode`` spellings, behind the JAX package's per-run accuracy
 gate: the first recording's first 64 rows in both precisions, and f32
 for the whole run above the rung's tolerance (recorded in
-:attr:`PipelineBuilder.precision_resolved`). The port has no feature
-cache and no degradation ladder: ``cache=`` and ``degrade=`` parse, and
-a kernel failure raises. Keys whose paths are not ported yet raise
-``ValueError``.
+:attr:`PipelineBuilder.precision_resolved`; the decision is memoized
+under the recording's content digest). The fused and seizure paths read
+and write the content-addressed feature cache (``io/feature_cache.py``,
+on by default; ``cache=false`` or ``EEG_TPU_NO_FEATURE_CACHE=1`` turn it
+off): a hit skips parsing the rest, the gate and every kernel launch.
+The port has no degradation ladder: ``degrade=`` parses, and a kernel
+failure (or an ``ingest.fused`` fault) fails the run.
+
+Every run goes through the run bracket (``scheduler/runtime.py``):
+``faults=``/``faults_seed=`` (or ``EEG_TPU_FAULTS``) install a fault
+plan in the run's domain, ``report=`` (or ``EEG_TPU_RUN_REPORT_DIR``)
+writes ``run_report.json`` or ``crash_report.json``, and
+``trace_path=<dir>`` writes a ``torch.profiler`` trace of the run. Keys
+whose paths are not ported yet raise ``ValueError``.
 
 ``info_file=``, ``eeg_file=``, ``save_name=`` and ``load_name=`` are
 routed by URI scheme (``io/remote.filesystem_for``: ``http(s)://``,
@@ -68,7 +78,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import os
 import re
 import time
 from typing import Dict, Optional, Union
@@ -77,10 +86,11 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..epochs import extractor
 from ..features import registry as fe_registry
-from ..io import modelfiles, provider, remote
+from ..io import feature_cache, modelfiles, provider, remote
 from ..models import population, registry, seizure, stats
-from ..obs import events
+from ..obs import chaos, events
 from ..ops import decode_ingest
 from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
@@ -91,7 +101,7 @@ logger = logging.getLogger(__name__)
 #: query keys whose paths the port does not run yet (see ROADMAP.md)
 NOT_PORTED_KEYS = (
     "overlap", "devices", "mesh_axes", "processes", "coordinator",
-    "process_id", "faults", "faults_seed", "report",
+    "process_id",
 )
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
@@ -143,10 +153,11 @@ def _check_ported(query_map: Dict[str, str]) -> None:
             "fe_sweep= compares feature configs over the seizure workload; it "
             "requires task=seizure"
         )
-    if os.environ.get("EEG_TPU_FAULTS"):
-        # the JAX package's run reads its faults= spec from here
-        raise ValueError("EEG_TPU_FAULTS (a run's fault spec) is not yet ported; "
-                         "see ROADMAP.md")
+    if query_map.get("faults"):
+        # the grammar check before anything is read; the run bracket
+        # parses the plan again with fresh call counts
+        chaos.parse_fault_spec(query_map["faults"],
+                               seed=int(query_map.get("faults_seed", 0) or 0))
     task = query_map.get("task", "")
     if task and task not in ("p300", "seizure"):
         raise ValueError(f"unknown task {task!r}; supported: p300 (default), seizure")
@@ -322,33 +333,58 @@ class PipelineBuilder:
         #: ``telemetry.workload``): window geometry, window and positive
         #: counts, the resolved class weights and costs, the fe= config(s)
         self.workload_block: Optional[dict] = None
+        #: the last fused run's ``{"requested": backend, "landed":
+        #: backend or "cache"}`` (the report's ``backend`` block)
+        self.backend_resolved: Optional[dict] = None
+        #: the last run's report telemetry (``obs/report.RunTelemetry``;
+        #: None when the run was not reported), per-run metrics scope and
+        #: stage timer (the report's ``stages``), set by the run bracket
+        self.telemetry = None
+        self.run_metrics = None
+        self.stage_timer = obs.StageTimer()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def _stage(self, name: str, **attrs):
-        """Accumulate a stage's wall seconds into :attr:`timers`, inside a
-        ``stage.<name>`` span carrying ``attrs``."""
+    def _stage(self, name: str, *, into_timers: bool = True, **attrs):
+        """A stage: its wall seconds into :attr:`stage_timer` (the
+        report's ``stages``) and, unless ``into_timers`` is False, into
+        :attr:`timers`, inside a ``stage.<name>`` span carrying
+        ``attrs``."""
         t0 = time.perf_counter()
         try:
             with events.span(f"stage.{name}", **attrs):
                 yield
         finally:
-            self.timers[name] = self.timers.get(name, 0.0) + time.perf_counter() - t0
+            elapsed = time.perf_counter() - t0
+            self.stage_timer.record(name, elapsed)
+            if into_timers:
+                self.timers[name] = self.timers.get(name, 0.0) + elapsed
+
+    def _add_timings(self, timings: Dict[str, float]) -> None:
+        """A provider's stage seconds, added into :attr:`timers`."""
+        for name, seconds in timings.items():
+            self.timers[name] = self.timers.get(name, 0.0) + seconds
 
     def execute(self) -> stats.ClassificationStatistics:
+        """Check the query, then run it through the run bracket
+        (``scheduler/runtime.execute_plan``: fault plan, report, trace)."""
+        from ..scheduler import runtime
+
         query_map = get_query_map(self.query)
-        serve = query_map.get("serve") == "true"
-        if serve:
+        if query_map.get("serve") == "true":
             # the reference's conflict messages come before any
             # not-yet-ported key of the conflicting modes
             serve_pipeline.check_conflicts(query_map)
         else:
             serve_pipeline.check_lifecycle_knobs(query_map)
         _check_ported(query_map)
+        return runtime.execute_plan(self.query, query_map, self)
 
+    def _execute(self, query_map: Dict[str, str]) -> stats.ClassificationStatistics:
+        serve = query_map.get("serve") == "true"
         # 1. input (PipelineBuilder.java:104-113)
         if "info_file" in query_map:
             files = [query_map["info_file"]]
@@ -356,14 +392,15 @@ class PipelineBuilder:
             files = [query_map["eeg_file"], query_map["guessed_num"]]
         else:
             raise ValueError("Missing the input file argument")
-        self.precision_resolved = None
+        self.timers = {}
+        self.precision_resolved = self.backend_resolved = self.serve_block = None
         self.workload_block = self.feature_sets = None
+        self.population_block = self.population_states = self.classifiers = None
 
         # task=seizure: sliding windows over interval annotations, subband
         # features on the host, cost-sensitive training, the extended
         # statistics (served with serve=true)
         if (query_map.get("task", "") or "p300") == "seizure":
-            self.timers = {}
             if serve:
                 check_seizure_knobs(query_map, None)
                 statistics, self.serve_block, self.workload_block = (
@@ -385,7 +422,6 @@ class PipelineBuilder:
         # epoch becomes a request through the resident micro-batching
         # service; the statistics are the batch load_clf= run's
         if serve:
-            self.timers = {}
             statistics, self.serve_block = serve_pipeline.run_serve(
                 query_map,
                 lambda: provider.OfflineDataProvider(files, device=self.device),
@@ -412,21 +448,8 @@ class PipelineBuilder:
             wavelet_index = int(fused.group(1))
             suffix = fused.group(2)
             backend = "decode" if suffix is None else suffix[1:]
-            logger.info(
-                "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s "
-                "at precision %s (no feature cache, no degradation ladder)",
-                query_map["fe"], backend, self.device, precision,
-            )
-            recordings, pre_timers = None, {}
-            precision_used = precision
-            if precision != "f32":
-                recordings, pre_timers, precision_used = self._precision_gate(
-                    odp, wavelet_index, precision
-                )
-            features, targets = odp.load_features_device(
-                wavelet_index=wavelet_index, backend=backend,
-                precision=precision_used, recordings=recordings,
-            )
+            features, targets = self._fused_features(
+                query_map, odp, wavelet_index, backend, precision)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -434,14 +457,11 @@ class PipelineBuilder:
             # each featurize their own rows with fe
             batch = odp.load()
             features, targets = None, batch.targets
-        self.timers = dict(odp.timings)
-        if fe is None:
-            for name, seconds in pre_timers.items():
-                self.timers[name] = self.timers.get(name, 0.0) + seconds
+            self._add_timings(odp.timings)
         self.features, self.targets, self.batch, self.fe = features, targets, batch, fe
         n = len(targets)
+        obs.metrics.count("pipeline.epochs_loaded", n)
 
-        self.population_block = self.population_states = self.classifiers = None
         if "classifiers" in query_map:
             return self._finish_run(
                 self._execute_fanout(query_map, features, targets, batch, fe, pop_spec),
@@ -639,29 +659,73 @@ class PipelineBuilder:
     _seizure_classifier = staticmethod(seizure.seizure_classifier)
     seizure_weights = staticmethod(seizure.seizure_weights)
 
-    def _seizure_features(self, files, slide_cfg, fe_names):
-        """One read pass of the session cut into sliding windows
-        (``provider.load_sliding``; stage ``ingest``, its ``parse`` and
-        ``epoch`` parts in :attr:`timers` too), then every named extractor
-        over the windows (stage ``features``; a ``-pallas`` extractor on
-        the card launches the epoch-features kernel once). Returns
-        ``(feature_sets, targets)``: ``(fe name, (n, d) rows on the run's
-        device)`` in ``fe_names`` order. No feature cache: the port has
-        none (ROADMAP.md A7)."""
+    def _seizure_features(self, query_map, files, slide_cfg, fe_names):
+        """One read pass of the session, a feature-cache lookup per
+        extractor config (JAX package: pipeline/builder.py:1078-1160;
+        the key ``("seizure", fe.cache_id(), window, stride,
+        label_overlap)``), then for the misses the session cut into
+        sliding windows (stage ``ingest``, its ``parse`` and ``epoch``
+        parts in :attr:`timers` too) and each missing extractor over them
+        (stage ``features``; a ``-pallas`` extractor on the card launches
+        the epoch-features kernel once). Returns ``(feature_sets,
+        targets)``: ``(fe name, (n, d) rows on the run's device)`` in
+        ``fe_names`` order; a hit's rows go to the device in the dtype a
+        miss gives, and launch nothing."""
         odp = provider.OfflineDataProvider(files, device=self.device)
         # an unknown fe= raises here, before the session is read
         extractors = [(name, fe_registry.create(name, device=self.device)) for name in fe_names]
-        with self._stage("ingest", task="seizure"):
-            batch = odp.load_sliding(slide_cfg)
-        self.timers.update(odp.timings)
-        targets = np.asarray(batch.targets, dtype=np.float64)
-        with self._stage("features", task="seizure"):
-            feature_sets = [
-                (name, torch.as_tensor(fe.extract_batch(batch.epochs), device=self.device))
-                for name, fe in extractors
-            ]
-            self._sync()
-        self.batch, self.fe = batch, extractors[0][1]
+
+        def extractor_tuple(fe):
+            return ("seizure", fe.cache_id(), slide_cfg.window, slide_cfg.stride,
+                    slide_cfg.label_overlap)
+
+        cache = (feature_cache.open_cache()
+                 if query_map.get("cache", "true") != "false" else None)
+        prepared, keys, hits = None, {}, {}
+        if cache is not None:
+            with self._stage("ingest", into_timers=False, phase="cache_lookup",
+                             task="seizure"):
+                prepared = odp.prepare_run(extractor_tuple(extractors[0][1]))
+                self._add_timings(odp.timings)
+                keys[fe_names[0]] = prepared.key
+                for name, fe in extractors[1:]:
+                    keys[name] = odp.run_key_for(prepared, extractor_tuple(fe))
+                for name, _ in extractors:
+                    hit = cache.lookup(keys[name])
+                    if hit is not None:
+                        hits[name] = hit
+        targets = None
+        missing = [(name, fe) for name, fe in extractors if name not in hits]
+        if missing:
+            with self._stage("ingest", task="seizure"):
+                if prepared is not None:
+                    # the recordings the key pass parsed: no second read
+                    t0 = time.perf_counter()
+                    batch = extractor.EpochBatch.concatenate([
+                        odp.sliding_batch_for(rec, slide_cfg)
+                        for _rel, _guessed, rec in prepared.recordings
+                    ])
+                    self._add_timings({"epoch": time.perf_counter() - t0})
+                else:
+                    batch = odp.load_sliding(slide_cfg)
+                    self._add_timings(odp.timings)
+            targets = np.asarray(batch.targets, dtype=np.float64)
+            with self._stage("features", task="seizure"):
+                for name, fe in missing:
+                    rows = torch.as_tensor(fe.extract_batch(batch.epochs), device=self.device)
+                    hits[name] = (rows, targets)
+                    if cache is not None:
+                        cache.store(keys[name], rows.cpu().numpy(), targets)
+                self._sync()
+            self.batch = batch
+        else:
+            self.batch = None
+        if targets is None:
+            targets = np.asarray(hits[fe_names[0]][1], dtype=np.float64)
+        feature_sets = [
+            (name, torch.as_tensor(hits[name][0], device=self.device)) for name, _ in extractors
+        ]
+        self.fe = extractors[0][1]
         return feature_sets, targets
 
     def _execute_seizure(self, query_map, files, pop_spec, fe_names):
@@ -672,7 +736,7 @@ class PipelineBuilder:
         ``elastic=``, ``load_clf=``) over the one feature matrix, the
         classifiers made by :meth:`_seizure_classifier`."""
         slide_cfg = seizure.sliding_config(query_map)
-        feature_sets, targets = self._seizure_features(files, slide_cfg, fe_names)
+        feature_sets, targets = self._seizure_features(query_map, files, slide_cfg, fe_names)
         features = feature_sets[0][1]
         n = len(targets)
         if n == 0:
@@ -715,26 +779,112 @@ class PipelineBuilder:
         stats.mark_extended(statistics, cost_fp=cost_fp, cost_fn=cost_fn)
         return statistics
 
-    def _precision_gate(self, odp, wavelet_index: int, precision: str):
-        """Parse the session, then run the per-run accuracy gate on its
-        first recording (JAX package: pipeline/builder.py:524-570).
-        Returns ``(recordings, {"parse": s, "gate": s}, precision
-        used)``; above the rung's tolerance the run computes f32,
-        recorded in :attr:`precision_resolved`, never silently."""
-        t0 = time.perf_counter()
-        recordings = list(odp.iter_recordings())
-        t1 = time.perf_counter()
-        gate = odp.precision_gate_check(recordings, wavelet_index, precision=precision)
-        used = precision
-        if not gate["ok"]:
-            used = "f32"
-            logger.warning(
-                "pipeline.%s_gate auto-disable: max abs dev %.3e > gate %.3e; "
-                "the run computes f32",
-                precision, gate["max_abs_dev"], gate["tolerance"],
-            )
-        self.precision_resolved = {"requested": precision, "used": used, "gate": gate}
-        return recordings, {"parse": t1 - t0, "gate": time.perf_counter() - t1}, used
+    def _fused_features(self, query_map, odp, wavelet_index: int, backend: str,
+                        precision: str):
+        """The fused path's feature rows on the run's device, and the
+        targets (JAX package: pipeline/builder.py:388-600, without its
+        prefix dedup and degradation ladder): the feature-cache lookup,
+        the per-run precision gate, the f32 re-key when the gate trips,
+        the kernel run, the store. A hit's host rows go to the run's
+        device in the dtype a miss gives, and no kernel is launched.
+        Sets :attr:`precision_resolved` and :attr:`backend_resolved`."""
+        cache = (feature_cache.open_cache()
+                 if query_map.get("cache", "true") != "false" else None)
+        logger.info(
+            "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s at "
+            "precision %s (feature cache %s, no degradation ladder)",
+            query_map["fe"], backend, self.device, precision,
+            "off" if cache is None else cache.directory,
+        )
+        prepared = cache_key = build_slot = landed = gate_record = None
+        features = targets = None
+        precision_used = precision
+        try:
+            if cache is not None:
+                with self._stage("ingest", into_timers=False, phase="cache_lookup"):
+                    # one read pass: the digests for the key and the parsed
+                    # recordings a miss featurizes from memory
+                    prepared = odp.prepare_fused_run(
+                        provider.fused_extractor_id(wavelet_index, precision))
+                    self._add_timings(odp.timings)
+                    cache_key = prepared.key
+                    # single flight: a concurrent run missing the same
+                    # entry waits here for this one's store, then hits
+                    build_slot = cache.begin_build(cache_key)
+                    hit = cache.lookup(cache_key)
+                if hit is not None:
+                    features, targets = hit
+                    landed = "cache"
+                    if precision != "f32":
+                        # keys carry the precision class: a non-f32 entry
+                        # passed its gate when it was computed
+                        gate_record = {"source": "cache"}
+                    logger.info("feature cache hit (%d rows): ingest and "
+                                "featurization skipped", len(targets))
+            if landed is None and precision != "f32":
+                if prepared is None:
+                    with self._stage("ingest", into_timers=False, phase="cache_lookup"):
+                        prepared = odp.prepare_fused_run(
+                            provider.fused_extractor_id(wavelet_index, precision))
+                        self._add_timings(odp.timings)
+                # the per-run accuracy gate (JAX package:
+                # pipeline/builder.py:524-570), memoized under the first
+                # recording's content digest
+                t0 = time.perf_counter()
+                with self._stage("ingest", into_timers=False, phase=f"{precision}_gate"):
+                    gate_record = odp.precision_gate_check(
+                        prepared.recordings, wavelet_index, precision=precision,
+                        content_key=prepared.digests[0][2] if prepared.digests else None,
+                    )
+                self.timers["gate"] = time.perf_counter() - t0
+                events.event(f"pipeline.{precision}_gate", **gate_record)
+                if not gate_record["ok"]:
+                    precision_used = "f32"
+                    obs.metrics.count(f"pipeline.{precision}_gate_disabled")
+                    logger.warning(
+                        "pipeline.%s_gate auto-disable: max abs dev %.3e > gate %.3e; "
+                        "the run computes f32",
+                        precision, gate_record["max_abs_dev"], gate_record["tolerance"],
+                    )
+                    # a gated-off run is an f32 run: re-key from the same
+                    # read pass, the single-flight slot moved to the new key
+                    if cache is not None:
+                        cache_key = odp.run_key_for(
+                            prepared, provider.fused_extractor_id(wavelet_index, "f32"))
+                        build_slot.release()
+                        build_slot = cache.begin_build(cache_key)
+                        hit = cache.lookup(cache_key)
+                        if hit is not None:
+                            features, targets = hit
+                            landed = "cache"
+                            logger.info("feature cache hit (%d rows, f32 fallback): "
+                                        "ingest and featurization skipped", len(targets))
+            if landed is None:
+                with self._stage("ingest", into_timers=False, backend=backend):
+                    features, targets = odp.load_features_device(
+                        wavelet_index=wavelet_index, backend=backend,
+                        precision=precision_used,
+                        recordings=None if prepared is None else prepared.recordings,
+                    )
+                self._add_timings(odp.timings)
+                landed = backend
+                if cache is not None:
+                    cache.store(cache_key, features.cpu().numpy(), targets)
+            else:
+                # the entry's host rows, on the run's device as a miss
+                # leaves them
+                features = torch.from_numpy(np.asarray(features)).to(self.device)
+                targets = np.asarray(targets, dtype=np.float64)
+        finally:
+            if build_slot is not None:
+                build_slot.release()
+        events.event("pipeline.rung_landed", requested=backend, landed=landed)
+        self.backend_resolved = {"requested": backend, "landed": landed}
+        self.precision_resolved = (
+            {"requested": precision, "used": precision_used, "gate": gate_record}
+            if precision != "f32" else None
+        )
+        return features, targets
 
     def _finish_run(self, statistics, query_map):
         """Logging, the atomic ``result_path`` report, and the hand-off."""

@@ -30,9 +30,14 @@ an explicit owner:
   oldest age as evidence, and a tenant-aware batcher keeps per-tenant
   outcome counters, latency reservoirs and histograms.
 
-Counters and latencies live in the batcher's own snapshot. The JAX
-package's chaos points (``serve.batch.tenant.<name>`` among them),
-per-plan fault domains and event spans are not ported.
+Counters and latencies live in the batcher's own snapshot. The
+batcher and watchdog threads adopt the run domain of the thread that
+starts them, so a run's ``faults=`` plan and span recorder reach them:
+the chaos points ``serve.request`` (one admitted request: it is
+re-admitted, or failed with its history), ``serve.batch.tenant.<name>``
+(one tenant's rows of a mixed batch, each re-admitted or failed alone)
+and ``serve.batch`` (one batch execution, inside a ``serve.batch``
+span: the batch retry path) fire here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import time
 from typing import Any, Callable, List, Optional
 
 from ..io import deadline as deadline_mod
-from ..obs import metrics_export
+from ..obs import chaos, domain as run_domain, events, metrics_export
 
 logger = logging.getLogger(__name__)
 
@@ -451,15 +456,24 @@ class MicroBatcher:
     # -- lifecycle ------------------------------------------------------
 
     def start(self) -> None:
+        # both threads adopt the starter's run domain: its fault plan and
+        # span recorder
+        domain = run_domain.capture()
         self._thread = threading.Thread(
-            target=self._run, name=f"eeg-{self.name}-batcher", daemon=True,
+            target=lambda: self._adopted(domain, self._run),
+            name=f"eeg-{self.name}-batcher", daemon=True,
         )
         self._thread.start()
         self._watchdog_thread = threading.Thread(
-            target=self._watchdog_run, name=f"eeg-{self.name}-watchdog",
-            daemon=True,
+            target=lambda: self._adopted(domain, self._watchdog_run),
+            name=f"eeg-{self.name}-watchdog", daemon=True,
         )
         self._watchdog_thread.start()
+
+    @staticmethod
+    def _adopted(domain, body) -> None:
+        with run_domain.adopt(domain):
+            body()
 
     def stop(self, join_timeout_s: float = 5.0) -> None:
         self._stop.set()
@@ -596,17 +610,46 @@ class MicroBatcher:
                     f"queue; request was never executed"
                 ))
                 continue
+            # 2. per-request chaos: one admitted request fails inside the
+            # batcher; it retries or fails with evidence, never hangs
+            try:
+                chaos.maybe_fire("serve.request")
+            except Exception as e:
+                self._retry_or_fail(req, e)
+                continue
             live.append(req)
         if not live:
             return
-        # 2. execute, with deadline-aware retries
+        # 2b. tenant-scoped batch chaos: serve.batch.tenant.<name> fails
+        # one tenant's rows of the mixed batch, each retried or failed
+        # alone, while the other tenants' rows run untouched
+        if self.tenant_aware:
+            failed_tenants = {}
+            for tenant in {r.tenant for r in live if r.tenant}:
+                try:
+                    chaos.maybe_fire(f"{chaos.TENANT_BATCH_PREFIX}{tenant}")
+                except Exception as e:
+                    failed_tenants[tenant] = e
+            if failed_tenants:
+                survivors = []
+                for req in live:
+                    if req.tenant in failed_tenants:
+                        self._retry_or_fail(req, failed_tenants[req.tenant])
+                    else:
+                        survivors.append(req)
+                live = survivors
+                if not live:
+                    return
+        # 3. execute, with deadline-aware retries
         while True:
             self._heartbeat = time.monotonic()
             try:
                 args = ([r.window for r in live], live[0].resolutions)
                 if self.tenant_aware:
                     args += ([r.tenant for r in live],)
-                predictions, margins = self._execute(*args)
+                with events.span("serve.batch", size=len(live), attempt=live[0].attempts + 1):
+                    chaos.maybe_fire("serve.batch")
+                    predictions, margins = self._execute(*args)
             except Exception as e:
                 gone = [r for r in live if isinstance(e, UnknownTenantError)
                         and r.tenant in e.tenants]
@@ -675,6 +718,21 @@ class MicroBatcher:
             if delivered:
                 self.count("completed", delivered)
             return
+
+    def _retry_or_fail(self, req: Request, error: Exception) -> None:
+        """One request failed on its own: re-admitted while the retry
+        and deadline budgets allow, else failed with its history."""
+        req.attempts += 1
+        req.history.append(f"attempt {req.attempts}: {type(error).__name__}: {error}")
+        if req.attempts >= self.max_attempts:
+            self._fail_exhausted(req)
+        elif req.deadline.expired:
+            self._fail_deadline(req)
+        else:
+            self.count("retries")
+            self._count_tenant(req.tenant, "retries")
+            events.event("serve.retry", attempts=req.attempts)
+            self.queue.readmit(req)
 
     def _fail_exhausted(self, req: Request) -> None:
         self.count("failed")

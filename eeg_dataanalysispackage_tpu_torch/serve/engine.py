@@ -87,8 +87,9 @@ there, or on the rows' device for ``dt-tpu``/``rf-tpu``); no margins are
 returned and the mega rung is not a candidate (``mega_record`` None). An untrained classifier's
 ``predict`` raises at warmup, its own "model not trained or loaded".
 A hot swap into such an engine takes any classifier with a ``predict``.
-
-Not ported: float64 linear weights (an imported MLlib model).
+A linear model with float64 weights (an imported MLlib model directory)
+is served in this mode too, as in the JAX package: it keeps its
+bit-exact host float64 predict, which a fused margin would downcast.
 """
 
 from __future__ import annotations
@@ -167,15 +168,11 @@ class ServingEngine:
             )
         weights = weights_of(classifier) if isinstance(
             classifier, linear._LinearClassifier) else None
-        if weights is not None and weights.dtype != np.float32:
-            raise ValueError(
-                f"serving {classifier.model.weight.dtype} linear weights (an "
-                "imported MLlib model) is not yet ported; see ROADMAP.md"
-            )
         #: the fused-margin path: trained float32 linear weights; every
-        #: other classifier is featurized by the fused rung and predicts
-        #: itself (the JAX package's "featurize+host" mode)
-        self._fused_linear = weights is not None
+        #: other classifier, float64 (imported MLlib) weights included, is
+        #: featurized by the fused rung and predicts itself (the JAX
+        #: package's "featurize+host" mode)
+        self._fused_linear = weights is not None and weights.dtype == np.float32
         self.device = resolve_device(device)
         #: the served model; replaced whole by :meth:`swap_model`
         self._model = self._served(classifier)

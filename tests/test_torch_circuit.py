@@ -315,8 +315,10 @@ def test_fault_spec_fires_at_the_jax_package_calls(spec, seed):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("serve.request:once@4", "not yet ported"),
-    ("remote.request:once@1;ingest.fused:p=0.5", "not yet ported"),
+    # serve.request, serve.batch, ingest.fused and scheduler.plan fire in
+    # the port since the run bracket came (tests/test_torch_report.py)
+    ("fleet.lease:once@4", "not yet ported"),
+    ("remote.request:once@1;scheduler.journal:p=0.5", "not yet ported"),
     # device.step fires in the port since its elastic trainer came
     ("staging.producer:err@7", "not yet ported"),
     ("remote.request", "point:directive"),
@@ -407,17 +409,17 @@ def test_span_recorder_nests_and_records_errors():
 
 @pytest.mark.parametrize("how", ["query", "env"])
 def test_a_run_refuses_a_fault_spec(how, monkeypatch):
-    """A run's faults= spec (the query key or EEG_TPU_FAULTS) is not
-    ported: it raises before anything is read, rather than parse and
-    never fire."""
+    """A run's faults= spec (the query key or EEG_TPU_FAULTS) that names
+    a point the port has no site for raises before anything is read,
+    rather than parse and never fire. (A spec of ported points runs:
+    tests/test_torch_report.py.)"""
     from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
 
     q = "info_file=/nonexistent/info.txt&fe=dwt-8-fused&train_clf=logreg"
     if how == "query":
-        q += "&faults=remote.request:p=0.5"
-        match = "faults= is not yet ported"
+        q += "&faults=remote.request:p=0.5;staging.producer:once@1"
     else:
-        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5")
-        match = "EEG_TPU_FAULTS .* is not yet ported"
-    with pytest.raises(ValueError, match=match):
+        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5;staging.producer:once@1")
+    with pytest.raises(chaos.FaultSpecError,
+                       match="fault point 'staging.producer' is not yet ported"):
         PipelineBuilder(q, device="cpu").execute()

@@ -13,6 +13,14 @@ Two cases run the batch path over a loopback WebHDFS namenode
 (``tests/_loopback.py``): a fused run and a served run from ``hdfs://``,
 held against the same runs from local paths.
 
+Three cases hold the run record on the card: a feature-cache hit
+returns the miss's rows on the card and launches no ingest (or, for a
+seizure run, epoch-features) kernel, and a ``trace_path=`` trace holds
+the ingest kernel's record. The file turns the feature cache off when
+it is imported (``EEG_TPU_NO_FEATURE_CACHE=1``, as the conftest it runs
+without does), so every other case's launch counts read misses; the
+cache cases turn it on in a directory of their own.
+
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
 runs on a machine with only the port installed:
@@ -30,12 +38,18 @@ version of the whole chain a row may differ where an f32 ulp moves a
 value across a quantization boundary, by one step of its group.
 """
 
+import glob
+import json
 import os
 import sys
 
 import numpy as np
 import pytest
 import torch
+
+# the feature cache is on by default: off for every case that counts
+# launches (tests/conftest.py does the same, and this file runs without it)
+os.environ.setdefault("EEG_TPU_NO_FEATURE_CACHE", "1")
 
 from eeg_dataanalysispackage_tpu_torch.features import wavelet
 from eeg_dataanalysispackage_tpu_torch.models import registry
@@ -2169,3 +2183,77 @@ def test_epoch_kernel_at_seizure_serve_batch_shapes(seizure_session, n):
     got = dwt_cuda.epoch_features_cuda(x, 8, 175, 512, 16)
     assert got.shape == (n, 48)
     assert (got - dwt.epoch_features(x, 8, 175, 512, 16)).abs().max().item() <= 2e-6
+
+
+@pytest.fixture()
+def feature_cache_dir(tmp_path, monkeypatch):
+    """The feature cache on, in a fresh directory."""
+    monkeypatch.delenv("EEG_TPU_NO_FEATURE_CACHE", raising=False)
+    monkeypatch.setenv("EEG_TPU_FEATURE_CACHE_DIR", str(tmp_path / "feature-cache"))
+    return tmp_path / "feature-cache"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_cache_hit_on_the_card_stays_there_and_launches_no_kernel(tmp_path, feature_cache_dir,
+                                                                  precision):
+    """A fused run twice into a fresh cache: the miss launches the ingest
+    kernel, the hit launches none (no gate either), returns the miss's
+    rows on the card in float32 and the miss's statistics; cache=false
+    launches again."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=200)
+    q = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&precision={precision}"
+    counter = "LAUNCHES" if precision == "f32" else "LAUNCHES_INT8"
+    before = getattr(ingest_cuda, counter)
+    miss = PipelineBuilder(q)
+    miss.execute()
+    assert getattr(ingest_cuda, counter) > before
+    before_hit = (ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_INT8)
+    hit = PipelineBuilder(q)
+    hit.execute()
+    assert (ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_INT8) == before_hit
+    assert hit.backend_resolved["landed"] == "cache"
+    assert hit.features.device.type == "cuda" and hit.features.dtype == torch.float32
+    assert torch.equal(hit.features, miss.features)
+    assert str(hit.statistics) == str(miss.statistics)
+    PipelineBuilder(q + "&cache=false").execute()
+    assert getattr(ingest_cuda, counter) > before_hit[0 if precision == "f32" else 1]
+
+
+@pytest.mark.cuda
+def test_seizure_cache_hit_launches_no_epoch_kernel(seizure_session, feature_cache_dir):
+    q = (f"info_file={seizure_session}&task=seizure&fe=dwt-8-pallas&window=768"
+         "&stride=384&train_clf=logreg")
+    _card()
+    before = dwt_cuda.LAUNCHES
+    miss = PipelineBuilder(q)
+    miss.execute()
+    assert dwt_cuda.LAUNCHES - before == 1
+    hit = PipelineBuilder(q)
+    hit.execute()
+    assert dwt_cuda.LAUNCHES - before == 1
+    assert hit.features.device.type == "cuda" and torch.equal(hit.features, miss.features)
+    assert str(hit.statistics) == str(miss.statistics)
+
+
+@pytest.mark.cuda
+def test_trace_path_holds_the_ingest_kernel(tmp_path):
+    """trace_path= on the card: the Chrome trace holds the ingest kernel's
+    device record and the run's stages."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=200)
+    PipelineBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=logreg"
+                    f"&trace_path={tmp_path / 'trace'}&report={tmp_path / 'report'}").execute()
+    (trace,) = glob.glob(str(tmp_path / "trace" / "torch-trace-*.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("ingest_features_kernel" in name for name in kernels), sorted(set(kernels))[:20]
+    assert "stage.train" in {e.get("name") for e in events}

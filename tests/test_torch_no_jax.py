@@ -164,3 +164,27 @@ def test_the_seizure_modules_are_walked_and_scanned():
     scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
     for rel in ("epochs/sliding.py", "features/subband.py", "models/seizure.py"):
         assert rel in scanned
+
+
+def test_the_run_record_modules_are_walked_and_scanned():
+    """The MLlib directory interchange, the feature and plan caches, the
+    run report and the run bracket keep their own copies of the JAX
+    package's modules (``io/mllib_format.py`` imports no JAX, but it is
+    the JAX package's): walked by the fresh import without ``pyarrow``
+    being imported, and scanned."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _PROBE + "\nassert 'pyarrow' not in sys.modules\n"
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    modules = ("io.mllib_format", "io.feature_cache", "ops.plan_cache", "obs.report",
+               "scheduler", "scheduler.runtime")
+    for name in modules:
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("io/mllib_format.py", "io/feature_cache.py", "ops/plan_cache.py",
+                "obs/report.py", "scheduler/__init__.py", "scheduler/runtime.py"):
+        assert rel in scanned

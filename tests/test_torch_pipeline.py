@@ -133,9 +133,10 @@ def test_no_silent_cpu_without_cuda(one_file):
      # the host path's bf16 spelling does not
      pytest.param("fe=dwt-8-tpu-bf16", id="precision=bf16"),
      "overlap=true", "devices=2",
-     # serve=true itself runs (tests/test_torch_serve.py), and so does its
-     # adapt= (tests/test_torch_lifecycle.py); its report= does not
-     pytest.param("serve=true&report=/tmp/never", id="serve=true"),
+     # serve=true itself runs (tests/test_torch_serve.py), and so do its
+     # adapt= (tests/test_torch_lifecycle.py) and report=
+     # (tests/test_torch_report.py); its overlap= does not
+     pytest.param("serve=true&overlap=true", id="serve=true"),
      "task=seizure", "cv=3", "elastic=true"],
 )
 def test_unported_keys_raise(one_file, extra, tmp_path):

@@ -389,6 +389,13 @@ _RUNS = [
 @pytest.mark.parametrize("precision,env", _RUNS)
 def test_trained_statistics_and_gate_equal_jax(session, monkeypatch, precision, env, clf):
     _env(monkeypatch, env)
+    # both packages memoize the gate per content digest: start from an
+    # empty memo, so each run computes its gate here
+    from eeg_dataanalysispackage_tpu.io import provider as jax_provider
+    from eeg_dataanalysispackage_tpu_torch.io import provider as port_provider
+
+    jax_provider.reset_gate_memo()
+    port_provider.reset_gate_memo()
     q = (f"info_file={session['info']}&fe=dwt-8-fused&train_clf={clf}"
          f"&precision={precision}")
     ours = PipelineBuilder(q, device="cpu")

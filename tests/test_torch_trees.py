@@ -279,21 +279,44 @@ def test_model_files_have_equal_members_and_load_across_packages(name, tmp_path)
 
 
 def test_mllib_model_directories_are_refused(tmp_path):
-    clf = registry.create("rf")
-    with pytest.raises(ValueError, match="is a directory; MLlib model directories are not yet"):
-        clf.load(str(tmp_path))
+    """MLlib model directories load and save (tests/test_torch_mllib_format.py);
+    what is still refused is refused as the JAX package refuses it: a
+    directory that is no model, an imported model's native save, another
+    class's directory, another class's npz."""
+    pytest.importorskip("pyarrow")
+    clf, other = registry.create("rf"), jax_registry.create("rf")
+    for c in (clf, other):
+        with pytest.raises(FileNotFoundError):
+            c.load(str(tmp_path))
     x = np.random.RandomState(0).randn(40, 3)
-    clf.set_config({"config_model_format": "mllib"})
-    clf.fit(t(x), t((x[:, 0] > 0).astype(float)))
-    with pytest.raises(ValueError, match="config_model_format=mllib .* not yet ported"):
-        clf.save(str(tmp_path / "m"))
-    with pytest.raises(ValueError, match="config_model_format=mllib .* not yet ported"):
-        clf.export_mllib_dir(str(tmp_path / "d"))
-    assert not os.path.exists(tmp_path / "m.npz")
+    y = (x[:, 0] > 0).astype(float)
+    clf.set_config({"config_model_format": "mllib", "config_num_trees": "3",
+                    **{k: v for k, v in zip(trees.DecisionTreeClassifier.required_keys,
+                                            ("8", "gini", "3", "1"))},
+                    "config_feature_subset": "all"})
+    clf.fit(t(x), t(y))
+    clf.save(str(tmp_path / "m"))
+    assert not os.path.exists(tmp_path / "m.npz") and os.path.isdir(tmp_path / "m" / "metadata")
+    errors = []
+    for mine, theirs in ((registry.create("rf"), jax_registry.create("rf")),
+                         (registry.create("gbt"), jax_registry.create("gbt"))):
+        got = []
+        for c in (mine, theirs):
+            try:
+                c.load(str(tmp_path / "m"))
+                c.set_config({})
+                c.save(str(tmp_path / "native"))
+            except ValueError as e:
+                got.append(str(e))
+        assert got[0] == got[1] and got[0], got
+        errors.append(got[0])
+    assert errors[0] == ("this model was loaded from an MLlib model directory; re-export it "
+                         "with export_mllib_dir(path)")
+    assert "holds org.apache.spark.mllib.tree.model.RandomForestModel" in errors[1]
     with pytest.raises(ValueError, match="was saved by RandomForestClassifier, not Gradient"):
         clf.set_config({})
-        clf.save(str(tmp_path / "m"))
-        registry.create("gbt").load(str(tmp_path / "m"))
+        clf.save(str(tmp_path / "n"))
+        registry.create("gbt").load(str(tmp_path / "n"))
 
 
 # -- the pipeline ---------------------------------------------------------------------
