@@ -216,6 +216,24 @@ Phases, one JSON line each (several for phases 2 to 6):
    batch load run's; without it ``config_model_format=mllib`` and
    ``load_name=<dir>`` raise the JAX package's ``pyarrow`` message. The
    phase's wall is printed;
+4h. the input pipeline, every run with ``cache=false``: the fused logreg
+   run at ``ingest_workers=1`` and ``=4``, each serial and with
+   ``overlap=true`` at ``prefetch=1``, 2 and 5 (features bit-equal on the
+   card, statistics byte-equal, K1 8 a run; each run's wall and
+   ``timers`` side by side in the ``input_pipeline_runs`` line); the
+   overlapped run under ``trace_path=`` (``overlap_trace``: K1's records
+   on a stream other than the consumer's, the host-to-device copies from
+   pinned memory, whether a copy overlapped a K1 record; for the record,
+   not a gate); ``faults=staging.producer:once@1`` under overlap (the run
+   raises, its crash report ``fired: 1``); the host ``fe=dwt-8-pallas``
+   run through the native epoch stage and with ``EEG_TPU_NATIVE=0``
+   (epochs bit-equal, statistics byte-equal, K4 as often, each
+   ``timers["epoch"]``); ``serve=true`` at ``ingest_workers=4`` equal to
+   ``=1``; three recordings on a loopback WebHDFS namenode at
+   ``ingest_workers=4`` equal to ``=1`` with no retry. Phase 2 builds the
+   native host library (``csrc/eeg_host.cc``, ``g++``) beside the
+   ``nvcc`` builds and prints both times (``build_native``). No earlier
+   phase is pinned to ``ingest_workers=1``: the pool moves no launch;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -620,22 +638,34 @@ def compare_runs(np, gpu, cpu, label: str) -> None:
     emit("cpu_parity", run=label, statistics_equal=not rows, near_threshold_rows=rows)
 
 
-def build_kernels(cuda_build, names):
+def build_kernels(cuda_build, names, host_names=("eeg_host",)):
     """Build every named kernel from the checkout's sources, one nvcc
-    each, all started together; a stale library is rebuilt."""
+    each, and the input pipeline's native host library (g++), all started
+    together; a stale library is rebuilt."""
     for name in names:
         stale = cuda_build.library_path(name)
         if os.path.exists(stale):
             os.remove(stale)
+    for name in host_names:
+        stale = cuda_build.host_library_path(name)
+        if os.path.exists(stale):
+            os.remove(stale)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(cuda_build.build, names))
+    with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
+        kernels = [pool.submit(cuda_build.build, name) for name in names]
+        hosts = [pool.submit(cuda_build.build_host, name) for name in host_names]
+        libs = [f.result() for f in kernels]
+        host_libs = [f.result() for f in hosts]
     seconds = time.perf_counter() - t0
     for name, lib in zip(names, libs):
         ptxas = [ln.strip() for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines()
                  if "registers" in ln or "spill" in ln]
         emit("build", kernel=name, seconds_all=seconds,
              library=os.path.relpath(lib, REPO), ptxas=ptxas)
+    for name, lib in zip(host_names, host_libs):
+        emit("build_native", source=f"{name}.cc", seconds=cuda_build.BUILD_SECONDS[f"{name}.cc"],
+             nvcc_seconds={n: cuda_build.BUILD_SECONDS[f"{n}.cu"] for n in names},
+             seconds_all=seconds, library=os.path.relpath(lib, REPO))
 
 
 def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed, samples="int16"):
@@ -3308,6 +3338,218 @@ def phase_run_record(torch, np, info, model, counters, work):
     return k1, k1_int8, k4
 
 
+def trace_overlap(events):
+    """From a Chrome trace's events: K1's records, the consumer's streams
+    (where the run's rows are concatenated), K1's records on another
+    stream, the host-to-device copies and those from pinned memory, and
+    whether any such copy overlapped a K1 record in time."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "ingest_features_kernel" in e["name"]]
+    consumer = sorted({e["args"]["stream"] for e in kernels if "CatArray" in e["name"]})
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    overlapped = sum(any(c["ts"] < k["ts"] + k["dur"] and k["ts"] < c["ts"] + c["dur"]
+                         for k in k1) for c in h2d)
+    return {"k1_records": len(k1), "consumer_streams": consumer,
+            "k1_streams": sorted({e["args"]["stream"] for e in k1}),
+            "k1_off_consumer_stream": sum(e["args"]["stream"] not in consumer for e in k1),
+            "h2d_copies": len(h2d), "h2d_pinned": sum("Pinned" in e["name"] for e in h2d),
+            "h2d_overlapping_k1": overlapped, "any_copy_overlapped_k1": overlapped > 0}
+
+
+def phase_input_pipeline(torch, np, info, model, counters, work):
+    """Phase 4h: the input pipeline on the card, every run with
+    ``cache=false``. The fused logreg run at ``ingest_workers=1`` and
+    ``=4``, each serial and with ``overlap=true`` at ``prefetch=1``, 2 and
+    5 (features bit-equal on the card, statistics byte-equal, K1 once a
+    recording); the overlapped run under ``trace_path=`` (K1's streams and
+    the pinned copies, printed for the record); ``faults=staging.producer``
+    under overlap (the run fails, ``crash_report.json`` fired 1); the host
+    ``fe=dwt-8-pallas`` run with the native epoch stage and with
+    ``EEG_TPU_NATIVE=0`` (epochs bit-equal, statistics byte-equal, K4 as
+    often); ``serve=true`` at ``ingest_workers=4`` against ``=1``; three
+    recordings on the loopback store at ``ingest_workers=4`` against
+    ``=1``; ``stage_raw`` alone, pinned against a pageable copy. Returns
+    (K1, K4 and K5 launches over the phase)."""
+    import glob
+
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.io import circuit
+    from eeg_dataanalysispackage_tpu_torch.obs import chaos, events
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _loopback
+
+    t_phase = time.perf_counter()
+    k1 = k4 = k5 = 0
+    base = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&cache=false"
+
+    def read_json(path):
+        with open(path) as f:
+            return json.load(f)
+
+    # 1. the parse pool and overlap: 2 pool sizes x (serial, 3 depths)
+    ref, table = None, {}
+    for workers in (1, 4):
+        for overlap, depth in (("false", None), ("true", 1), ("true", 2), ("true", 5)):
+            label = f"inpipe_w{workers}_" + ("serial" if depth is None else f"overlap_p{depth}")
+            q = base + f"&ingest_workers={workers}&overlap={overlap}"
+            if depth is not None:
+                q += f"&prefetch={depth}"
+            t0 = time.perf_counter()
+            b, st, launches = run_builder(label, q, None, counters)
+            wall = time.perf_counter() - t0
+            if launches["ingest_features"] != 8 or b.overlap_resolved is not (overlap == "true"):
+                raise AssertionError(f"{label}: K1 {launches['ingest_features']} times, not 8, "
+                                     f"or overlap {b.overlap_resolved}")
+            k1 += launches["ingest_features"]
+            if ref is None:
+                ref = b
+            elif not torch.equal(b.features, ref.features) or str(st) != str(ref.statistics):
+                raise AssertionError(f"{label}: features or statistics differ from the "
+                                     "serial pool-of-one run")
+            table[label] = {"wall_s": wall, "timers": dict(b.timers)}
+    emit("input_pipeline_runs", runs=table, features_bit_equal=True, statistics_equal=True)
+
+    # 2. the overlapped run under a trace: K1's streams and the copies
+    trace_dir = os.path.join(work, "inpipe_trace")
+    _b, _s, launches = run_builder("inpipe_trace", base + "&ingest_workers=4&overlap=true"
+                                   f"&trace_path={trace_dir}", None, counters)
+    k1 += launches["ingest_features"]
+    (trace,) = glob.glob(os.path.join(trace_dir, "torch-trace-*.json"))
+    emit("overlap_trace", **trace_overlap(read_json(trace)["traceEvents"]))
+
+    # 3. a staging.producer fault under overlap fails the run
+    crash_dir = os.path.join(work, "inpipe_crash")
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    try:
+        PipelineBuilder(base + "&overlap=true&faults=staging.producer:once@1"
+                        f"&report={crash_dir}").execute()
+    except chaos.ChaosInjectedError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("faults=staging.producer under overlap did not fail the run")
+    k1 += ingest_cuda.LAUNCHES
+    rules = read_json(os.path.join(crash_dir, "crash_report.json"))["chaos"]["rules"]
+    if rules["staging.producer"]["fired"] != 1:
+        raise AssertionError(f"staging.producer crash report: {rules}")
+    emit("staging_producer_fault", raised=raised, rules=rules)
+
+    # 4. the native epoch stage against the numpy paths on the card's host
+    pallas_q = f"info_file={info}&fe=dwt-8-pallas&train_clf=logreg&cache=false"
+    nat, nat_stats, nat_launches = run_builder("inpipe_pallas_native", pallas_q, None, counters)
+    os.environ["EEG_TPU_NATIVE"] = "0"
+    try:
+        plain, plain_stats, plain_launches = run_builder("inpipe_pallas_numpy", pallas_q, None,
+                                                         counters)
+    finally:
+        os.environ.pop("EEG_TPU_NATIVE")
+    epochs_equal = bool(np.array_equal(nat.batch.epochs, plain.batch.epochs)
+                        and np.array_equal(nat.batch.targets, plain.batch.targets))
+    emit("native_epoch_stage", epochs_bit_equal=epochs_equal,
+         statistics_equal=str(nat_stats) == str(plain_stats),
+         epoch_s_native=nat.timers["epoch"], epoch_s_numpy=plain.timers["epoch"],
+         parse_s_native=nat.timers["parse"], parse_s_numpy=plain.timers["parse"],
+         k4_native=nat_launches["epoch_features"], k4_numpy=plain_launches["epoch_features"])
+    if (not epochs_equal or str(nat_stats) != str(plain_stats)
+            or nat_launches["epoch_features"] != plain_launches["epoch_features"]
+            or nat_launches["epoch_features"] < 1):
+        raise AssertionError("the native epoch stage differs from the numpy paths")
+    k4 += nat_launches["epoch_features"] + plain_launches["epoch_features"]
+
+    # 5. serve=true with the pool of four against the pool of one
+    serve_q = (f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}"
+               "&serve=true&cache=false")
+    served = {}
+    for workers in (1, 4):
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        serve_mega_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sb = PipelineBuilder(serve_q + f"&ingest_workers={workers}")
+        served[workers] = str(sb.execute())
+        k1 += ingest_cuda.LAUNCHES
+        k5 += serve_mega_cuda.LAUNCHES
+        emit("inpipe_serve", ingest_workers=workers, wall_s=time.perf_counter() - t0,
+             rung=sb.serve_block["rung"], serve_mega_launches=serve_mega_cuda.LAUNCHES,
+             stages_s=sb.timers)
+        if serve_mega_cuda.LAUNCHES == 0:
+            raise AssertionError("the serve run did not launch the megakernel")
+    if served[1] != served[4]:
+        raise AssertionError("serve=true at ingest_workers=4 differs from =1")
+
+    # 6. three recordings on the loopback store, the pool on
+    circuit.reset()
+    with _loopback.Server() as srv:
+        directory = os.path.dirname(info)
+        with open(info) as f:
+            lines = f.read().splitlines()[:3]
+        srv.store.files["/data3/info.txt"] = ("\n".join(lines) + "\n").encode()
+        for line in lines:
+            stem = os.path.splitext(line.split()[0])[0]
+            for ext in (".vhdr", ".vmrk", ".eeg"):
+                with open(os.path.join(directory, stem + ext), "rb") as f:
+                    srv.store.files[f"/data3/{stem}{ext}"] = f.read()
+        remote_q = (f"info_file=hdfs://{srv.authority}/data3/info.txt&fe=dwt-8-fused"
+                    "&train_clf=logreg&cache=false")
+        remote = {}
+        recorder = events.SpanRecorder("inpipe_remote")
+        with events.recording(recorder), obs.metrics.scope() as m:
+            for workers in (1, 4):
+                b, st, launches = run_builder(f"inpipe_remote_w{workers}",
+                                              remote_q + f"&ingest_workers={workers}", None,
+                                              counters)
+                remote[workers] = (b, str(st))
+                k1 += launches["ingest_features"]
+        retries = sum(e["name"] == "remote.retry" for e in recorder.recent_events())
+        equal = (remote[1][1] == remote[4][1]
+                 and torch.equal(remote[1][0].features, remote[4][0].features))
+        emit("inpipe_remote", recordings=3, statistics_equal=equal, retries=retries,
+             parallel_workers=m.snapshot()["gauges"].get("ingest.parallel_workers"),
+             parse_s={w: remote[w][0].timers["parse"] for w in remote})
+        if not equal or retries:
+            raise AssertionError("the remote run at ingest_workers=4 differs from =1")
+    circuit.reset()
+
+    # 7. stage_raw alone over the session: pinned, non-blocking copies
+    # against a pageable copy (the staging before this phase's slice), in
+    # turns, each pass of 8 recordings ending in a sync; the staged
+    # tensors equal
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.ops import device_ingest
+
+    odp = OfflineDataProvider([info], workers=4)
+    recs = [(rec, odp.channel_indices_for(rec)) for _rel, _g, rec in odp.iter_recordings()]
+    dev = odp.device
+
+    def pageable(rec, idx):
+        raw = rec.raw_int16(idx)
+        staged = torch.empty((raw.shape[0], device_ingest._round_capacity(raw.shape[1], 16384)),
+                             dtype=torch.int16, device=dev)
+        staged[:, :raw.shape[1]].copy_(torch.from_numpy(raw))
+        staged[:, raw.shape[1]:].zero_()
+        return staged
+
+    paths = {"pageable": pageable, "pinned": lambda rec, idx: device_ingest.stage_raw(
+        rec, idx, dev)[0]}
+    stage_s = {name: [] for name in paths}
+    for name in ("pageable", "pinned", "pinned", "pageable") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = [paths[name](rec, idx) for rec, idx in recs]
+        torch.cuda.synchronize()
+        stage_s[name].append(time.perf_counter() - t0)
+        if not all(torch.equal(a, paths["pageable"](*r)) for a, r in zip(staged, recs)):
+            raise AssertionError(f"stage_raw ({name}) staged other bytes")
+    emit("stage_raw_alone", recordings=len(recs), seconds=stage_s,
+         median_s={k: pystats.median(v) for k, v in stage_s.items()})
+    emit("input_pipeline_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         k4_launches=k4, serve_mega_launches=k5)
+    return k1, k4, k5
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -4697,6 +4939,9 @@ def main() -> int:
         record_k1, record_k1_int8, record_k4 = phase_run_record(torch, np, info, model,
                                                                 counters, work)
         rung_launches["int8"] += record_k1_int8
+        # 4h. the parse pool, overlapped staging, the native epoch stage
+        inpipe_k1, inpipe_k4, inpipe_k5 = phase_input_pipeline(torch, np, info, model, counters,
+                                                               work)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -4805,16 +5050,18 @@ def main() -> int:
         # the main path's run and the runs of phases 4c (mini-batch SGD,
         # the nn batch, load and serve runs), 4d (the tree families), 4e
         # (fan-out, populations, elastic, line searches), 4f (the seizure
-        # workload's -pallas runs) and 4g (cache misses, the trace, MLlib)
+        # workload's -pallas runs), 4g (cache misses, the trace, MLlib) and
+        # 4h (the parse pool, overlap, the remote pool)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
-                     main_launches + nn_k1 + tree_k1 + train_k1 + record_k1,
+                     main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
-        kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches,
+        kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
                      mega_64["f32"], library_ms=lib[64]),
         kernel_entry("epoch_features", "epoch_features.cu",
                      "eeg_dataanalysispackage_tpu/ops/dwt_pallas.py:44",
-                     k4_launches + nn_k4 + tree_k4 + train_k4 + seizure_k4 + record_k4,
+                     k4_launches + nn_k4 + tree_k4 + train_k4 + seizure_k4 + record_k4
+                     + inpipe_k4,
                      max(epoch_err, k4_path_err, k4_f32_path_err, seizure_k4_err, k4[4],
                          k4_seizure[4], *(t[4] for t in k4_run)),
                      k4, library_ms=k4[5]),

@@ -21,6 +21,10 @@ bit for bit:
 4. the trailing 750 samples are widened back to float64
    (``EpochHolder.setFZ/CZ/PZ`` — EpochHolder.java:75-91);
 5. the balance scan.
+
+Steps 1-5 run in the native epoch stage (``io/native.py``) when
+``EEG_TPU_NATIVE`` is not ``0``; the numpy lines here are its bit-equal
+reference.
 """
 
 from __future__ import annotations
@@ -139,6 +143,16 @@ class BalanceState:
         self.n_nontargets = 0
 
     def scan(self, is_target: np.ndarray) -> np.ndarray:
+        """The keep mask of ``is_target``, the counters moved past it:
+        the native scan (``io/native.py``), or the loop below under
+        ``EEG_TPU_NATIVE=0``; the two are bit-equal."""
+        from ..io import native
+
+        counters = np.array([self.n_targets, self.n_nontargets], dtype=np.int64)
+        keep_native = native.balance_scan(np.asarray(is_target, bool), counters)
+        if keep_native is not None:
+            self.n_targets, self.n_nontargets = int(counters[0]), int(counters[1])
+            return keep_native
         keep = np.zeros(len(is_target), dtype=bool)
         for i, t in enumerate(is_target):
             if t and self.n_targets <= self.n_nontargets:
@@ -166,15 +180,25 @@ def extract_epochs(
     empty digit-string yields stimulus index -1 and whose position is
     usually out of range), the window is float32 baseline-corrected,
     the label is 1.0 iff stimulus_index + 1 == guessed_number, and the
-    global balance scan decides retention.
+    global balance scan decides retention. The gather and baseline run in
+    the native epoch stage (``io/native.gather_baseline``), or in numpy
+    under ``EEG_TPU_NATIVE=0`` and for windows past its ``MAX_WINDOW``;
+    the two are bit-equal.
     """
+    from ..io import native
+
     positions = np.array([m.position for m in markers], dtype=np.int64)
     stim_idx = np.array([m.stimulus_index() for m in markers], dtype=int)
 
-    windows, valid = gather_windows(channels, positions, pre, post)
-    corrected = baseline_correct_f32(windows, pre)
-    # widen to float64 and drop the pre-stimulus prefix (EpochHolder)
-    epochs = corrected[..., pre:].astype(np.float64)
+    native_out = native.gather_baseline(np.asarray(channels, dtype=np.float64), positions,
+                                        pre, post)
+    if native_out is not None:
+        epochs, valid = native_out
+    else:
+        windows, valid = gather_windows(channels, positions, pre, post)
+        corrected = baseline_correct_f32(windows, pre)
+        # widen to float64 and drop the pre-stimulus prefix (EpochHolder)
+        epochs = corrected[..., pre:].astype(np.float64)
     stim_idx = stim_idx[valid]
 
     is_target = (stim_idx + 1) == guessed_number

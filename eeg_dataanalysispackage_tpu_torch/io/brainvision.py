@@ -3,9 +3,14 @@
 Parses the Brain Vision Data Exchange format (INI-style header + marker
 files, multiplexed or vectorized INT_16, INT_32 or IEEE_FLOAT_32 binary
 data) the way the reference's closed ``eegloader-hdfs`` jar does
-(OffLineDataProvider.java:167-196). Pure Python parsers and a numpy
-demux; the fused path ships the unscaled int16 samples to the card and
-scales them there, and the host path reads scaled float64 channels.
+(OffLineDataProvider.java:167-196). The header and marker files parse
+through the native C++ parser and the host path's int16 channels demux
+through the native kernel (``io/native.py``), where the JAX package calls
+its own; the Python parsers (:func:`parse_vhdr_py`, :func:`parse_vmrk_py`)
+and the numpy demux are the reference they are bit-equal to, and the
+paths ``EEG_TPU_NATIVE=0`` selects. The fused path ships the unscaled
+int16 samples to the card and scales them there, and the host path reads
+scaled float64 channels.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from . import remote
+from . import native, remote
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +111,14 @@ def _unescape_name(name: str) -> str:
     return name.replace("\\1", ",")
 
 
+def parse_vhdr(text: str) -> Header:
+    """Parse a .vhdr header: the C++ parser, or :func:`parse_vhdr_py` for
+    text the C++ side cannot represent exactly and under
+    ``EEG_TPU_NATIVE=0`` (the two agree wherever both parse)."""
+    header = native.parse_vhdr(text)
+    return header if header is not None else parse_vhdr_py(text)
+
+
 def parse_vhdr_py(text: str) -> Header:
     sections = _parse_ini(text)
     common = sections.get("Common Infos", {})
@@ -144,6 +157,12 @@ def parse_vhdr_py(text: str) -> Header:
 
 
 _MARKER_KEY_RE = re.compile(r"^Mk\d+$")
+
+
+def parse_vmrk(text: str) -> List[Marker]:
+    """Parse a .vmrk marker file, routed as :func:`parse_vhdr`."""
+    markers = native.parse_vmrk(text)
+    return markers if markers is not None else parse_vmrk_py(text)
 
 
 def parse_vmrk_py(text: str) -> List[Marker]:
@@ -185,19 +204,25 @@ class Recording:
     def num_samples(self) -> int:
         return self._raw.shape[0]
 
-    def raw_int16(self, indices: Sequence[int]) -> np.ndarray:
+    def raw_int16(self, indices: Sequence[int], out: Optional[np.ndarray] = None) -> np.ndarray:
         """(len(indices), num_samples) UNSCALED int16 channel matrix.
 
         The fused path stages these raw samples to the card and scales
-        them there, halving host->device bytes against float32. Raises
-        TypeError for non-INT_16 recordings (callers fall back to
-        :meth:`read_channels`).
+        them there, halving host->device bytes against float32. With
+        ``out`` (int16, ``len(indices)`` rows of at least ``num_samples``),
+        the channels are written into its leading columns, one pass a
+        channel, and ``out`` is returned. Raises TypeError for non-INT_16
+        recordings (callers fall back to :meth:`read_channels`).
         """
         if self._raw.dtype != np.int16:
             raise TypeError(
                 f"raw_int16 requires INT_16 data, got {self._raw.dtype}"
             )
-        return np.ascontiguousarray(self._raw[:, list(indices)].T)
+        if out is None:
+            return np.ascontiguousarray(self._raw[:, list(indices)].T)
+        for row, i in enumerate(indices):
+            out[row, : self.num_samples] = self._raw[:, i]
+        return out
 
     def resolutions(self, indices: Sequence[int]) -> np.ndarray:
         """(len(indices),) float32 per-channel resolution factors."""
@@ -212,9 +237,21 @@ class Recording:
         Matches ``DataTransformer.readBinaryData`` returning double[]
         (OffLineDataProvider.java:186-188): the closed eegloader jar
         scales sample x resolution in float32 before widening to double,
-        for INT_16, INT_32 and IEEE_FLOAT_32 data alike.
+        for INT_16, INT_32 and IEEE_FLOAT_32 data alike. INT_16 samples in
+        either layout demux through the native kernel (bit-equal to the
+        numpy lines below, which take every other case and
+        ``EEG_TPU_NATIVE=0``).
         """
         res = self.resolutions(indices)
+        if self._raw.dtype == np.int16:
+            if self._raw.flags["C_CONTIGUOUS"]:
+                out = native.demux_int16(self._raw, indices, res)
+            elif self._raw.T.flags["C_CONTIGUOUS"]:
+                out = native.demux_int16(self._raw.T, indices, res, vectorized=True)
+            else:
+                out = None
+            if out is not None:
+                return out
         scaled32 = self._raw[:, list(indices)].T.astype(np.float32) * res[:, None]
         return scaled32.astype(np.float64)
 
@@ -223,8 +260,8 @@ def load_recording_bytes(
     vhdr_bytes: bytes, vmrk_bytes: bytes, eeg_bytes: bytes
 ) -> Recording:
     """Build a :class:`Recording` from an already-read triplet."""
-    header = parse_vhdr_py(vhdr_bytes.decode("utf-8", errors="replace"))
-    markers = parse_vmrk_py(vmrk_bytes.decode("utf-8", errors="replace"))
+    header = parse_vhdr(vhdr_bytes.decode("utf-8", errors="replace"))
+    markers = parse_vmrk(vmrk_bytes.decode("utf-8", errors="replace"))
     dtype = _BINARY_DTYPES.get(header.binary_format)
     if dtype is None:
         raise ValueError(f"Unsupported BinaryFormat: {header.binary_format}")

@@ -18,6 +18,15 @@ DWT features with no host epochs. Input-contract parity with
   missing one reuses the index resolved for the previous file (:172-183);
 - the balance counters span all files of a run, in info.txt order (:58-59).
 
+Multi-file runs parse their triplets in a bounded thread pool
+(``workers=``, ``ingest_workers=`` in a query, ``EEG_TPU_INGEST_WORKERS``;
+default ``min(4, cpu count)``) with ``workers + prefetch_depth`` triplets
+in flight, merged back in info.txt order, so every output is bit-equal to
+the sequential loop at any pool size: the balance scan, the stale
+channel-index reuse and the ingest planner run on one thread in order,
+never in the pool. An installed fault plan clamps the pool to 1, so a
+chaos replay stays deterministic.
+
 The feature cache's key comes from one read pass
 (:meth:`OfflineDataProvider.prepare_fused_run`): every triplet's bytes
 are read once, digested and parsed, and on a miss the parsed recordings
@@ -42,16 +51,18 @@ import logging
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import brainvision, remote, sources
+from . import brainvision, remote, sources, staging
+from . import ENV_PREFETCH_DEPTH, default_prefetch_depth, env_int  # noqa: F401
 from .. import obs
 from ..epochs import extractor
 from ..epochs.extractor import BalanceState
-from ..obs import chaos
+from ..obs import chaos, domain as run_domain, events
 from ..ops import decode_ingest, device_ingest, ingest_cuda
 from ..utils import constants
 from ..utils.device import resolve_device
@@ -66,6 +77,33 @@ _USAGE = (
     "1. <location of info.txt file> "
     "2. <location of a .eeg file> <guessed number> *<optional values>"
 )
+
+
+#: the parse pool's size for multi-file runs when the caller pins none
+#: (a query's ``ingest_workers=`` pins it per run); the look-ahead beyond
+#: the parses in flight is the shared ``EEG_TPU_PREFETCH_DEPTH``
+ENV_INGEST_WORKERS = "EEG_TPU_INGEST_WORKERS"
+_DEFAULT_INGEST_WORKERS = 4
+
+
+def default_ingest_workers() -> int:
+    """The env override, else ``min(4, cpu count)``: reading and the
+    native parse and demux release the GIL, and past a few workers the
+    ordered merge is the bottleneck, not parsing."""
+    if os.environ.get(ENV_INGEST_WORKERS):
+        return env_int(ENV_INGEST_WORKERS, _DEFAULT_INGEST_WORKERS)
+    return min(_DEFAULT_INGEST_WORKERS, os.cpu_count() or 1)
+
+
+#: ``EEG_TPU_OVERLAP=1`` turns the overlapped fused ingest on process-wide
+#: (a query's ``overlap=`` decides per run)
+ENV_OVERLAP = "EEG_TPU_OVERLAP"
+
+
+def default_overlap() -> bool:
+    """Whether :meth:`OfflineDataProvider.load_features_device` overlaps
+    when its caller does not say: ``EEG_TPU_OVERLAP=1``."""
+    return os.environ.get(ENV_OVERLAP) == "1"
 
 
 #: re-exported: ``info.txt`` parsing lives in ``io/sources.py``
@@ -147,7 +185,11 @@ class OfflineDataProvider:
     (:meth:`load`) or featurizes them on ``device``
     (:meth:`load_features_device`; ``None`` -> ``cuda``, raises without
     a card). ``filesystem``: an ``io.sources`` filesystem every read
-    goes through; ``None`` routes by the first argument's URI scheme."""
+    goes through; ``None`` routes by the first argument's URI scheme.
+    ``workers``: the parse pool's size (``None``:
+    :func:`default_ingest_workers`); ``prefetch_depth``: the parsed
+    triplets queued beyond the ones in flight (``None``:
+    ``EEG_TPU_PREFETCH_DEPTH``, default 2)."""
 
     def __init__(
         self,
@@ -157,6 +199,8 @@ class OfflineDataProvider:
         pre: int = constants.PRESTIMULUS_SAMPLES,
         post: int = constants.POSTSTIMULUS_SAMPLES,
         device: Optional[Union[str, torch.device]] = None,
+        workers: Optional[int] = None,
+        prefetch_depth: Optional[int] = None,
     ):
         args = [a for a in args if a is not None]
         if len(args) == 0 or len(args) > 6:
@@ -167,11 +211,14 @@ class OfflineDataProvider:
         self._pre = pre
         self._post = post
         self.device = resolve_device(device)
+        self._workers = max(1, int(workers)) if workers is not None else default_ingest_workers()
+        self._prefetch_depth = (max(1, int(prefetch_depth)) if prefetch_depth is not None
+                                else default_prefetch_depth())
         self._last_indices: Dict[str, int] = {c: 0 for c in self._channel_names}
         self._batch: Optional[extractor.EpochBatch] = None
         #: wall seconds of the last load (parse, epoch) or
         #: load_features_device (parse, stage, featurize; featurize
-        #: ends in a device sync), by stage
+        #: ends in a device sync; under overlap also wall), by stage
         self.timings: Dict[str, float] = {}
 
     def _resolve_files(self) -> Tuple[str, Dict[str, int]]:
@@ -214,32 +261,23 @@ class OfflineDataProvider:
         for rel_path, guessed, rec, _digest in self._iter_recordings():
             yield rel_path, guessed, rec
 
-    def _iter_recordings(
-        self, with_digests: bool = False,
-    ) -> Iterator[Tuple[str, int, brainvision.Recording, Optional[str]]]:
-        """``(rel_path, guessed, recording, digest)`` in info.txt order:
-        one read per file of each triplet (counted in
-        ``ingest.file_reads``); ``digest`` is the sha256 of the triplet's
-        bytes (.vhdr, .vmrk, .eeg) with ``with_digests``, else None."""
-        prefix, files = self._resolve_files()
-        for rel_path, guessed in files.items():
-            try:
-                blobs = self._read_triplet(prefix + rel_path)
-            except FileNotFoundError as e:
-                logger.warning("Did not load %s: %s", rel_path, e)
-                continue
-            digest = None
-            if with_digests:
-                h = hashlib.sha256()
-                for blob in blobs:
-                    h.update(blob)
-                digest = h.hexdigest()
-            yield rel_path, guessed, brainvision.load_recording_bytes(*blobs), digest
+    def _resolved_workers(self, n_files: int) -> int:
+        """The parse pool's size for a run of ``n_files``. A chaos replay
+        counts injection-point calls in call order, which a parallel
+        parse would scramble: an installed fault plan clamps the pool to
+        1."""
+        if chaos.active_plan() is not None:
+            return 1
+        return min(self._workers, n_files)
 
-    def _read_triplet(self, eeg_path: str) -> List[bytes]:
-        """The .vhdr, .vmrk and .eeg bytes of one recording, one read
-        each (``FileNotFoundError`` when a sibling is missing, as
-        ``setFileNames`` finds, OffLineDataProvider.java:327-365)."""
+    def _read_recording(
+        self, eeg_path: str, digest: bool = False,
+    ) -> Tuple[brainvision.Recording, Optional[str]]:
+        """Read one triplet, one read per file (counted in
+        ``ingest.file_reads``; ``FileNotFoundError`` when a sibling is
+        missing, as ``setFileNames`` finds, OffLineDataProvider.java:327-365),
+        and parse it; with ``digest``, the sha256 of the triplet's bytes
+        (.vhdr, .vmrk, .eeg), computed from the bytes this call read."""
         base = os.path.splitext(eeg_path)[0]
         triplet = (base + ".vhdr", base + ".vmrk", eeg_path)
         for p in triplet:
@@ -247,7 +285,73 @@ class OfflineDataProvider:
                 raise FileNotFoundError(f"No related file found: {p}")
         blobs = [self._fs.read_bytes(p) for p in triplet]
         obs.metrics.count("ingest.file_reads", 3)
-        return blobs
+        fingerprint = None
+        if digest:
+            h = hashlib.sha256()
+            for blob in blobs:
+                h.update(blob)
+            fingerprint = h.hexdigest()
+        return brainvision.load_recording_bytes(*blobs), fingerprint
+
+    def _iter_recordings(
+        self, with_digests: bool = False,
+    ) -> Iterator[Tuple[str, int, brainvision.Recording, Optional[str]]]:
+        """``(rel_path, guessed, recording, digest)`` in info.txt order
+        (``digest`` None unless ``with_digests``). Each parse is an
+        ``ingest.parse`` span.
+
+        With a pool of more than one worker, ``workers + prefetch_depth``
+        triplets are read, digested and parsed in flight on the pool's
+        threads (which adopt the run's domain; their spans carry
+        ``pooled=True``), and the results come back in info.txt order.
+        A file with a missing sibling is skipped with a log line; any
+        other error surfaces at the file's place in the order. A consumer
+        that stops early cancels the queued parses."""
+        prefix, files = self._resolve_files()
+        items = list(files.items())
+        workers = self._resolved_workers(len(items))
+        if workers <= 1:
+            for rel_path, guessed in items:
+                try:
+                    with events.span("ingest.parse", file=rel_path):
+                        rec, fingerprint = self._read_recording(prefix + rel_path, with_digests)
+                except FileNotFoundError as e:
+                    logger.warning("Did not load %s: %s", rel_path, e)
+                    continue
+                yield rel_path, guessed, rec, fingerprint
+            return
+
+        obs.metrics.gauge("ingest.parallel_workers", workers)
+        domain = run_domain.capture()
+
+        def parse_one(path: str, rel_path: str):
+            with run_domain.adopt(domain), events.span("ingest.parse", file=rel_path,
+                                                       pooled=True):
+                return self._read_recording(path, with_digests)
+
+        depth = workers + self._prefetch_depth
+        pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="eeg-tpu-ingest")
+        pending: "collections.deque" = collections.deque()
+        idx = 0
+        try:
+            while idx < len(items) or pending:
+                while idx < len(items) and len(pending) < depth:
+                    rel_path, guessed = items[idx]
+                    pending.append((rel_path, guessed,
+                                    pool.submit(parse_one, prefix + rel_path, rel_path)))
+                    idx += 1
+                rel_path, guessed, future = pending.popleft()
+                try:
+                    rec, fingerprint = future.result()
+                except FileNotFoundError as e:
+                    logger.warning("Did not load %s: %s", rel_path, e)
+                    continue
+                obs.metrics.count("ingest.files_parsed")
+                yield rel_path, guessed, rec, fingerprint
+        finally:
+            # a consumer that stopped early, or a parse that failed: the
+            # queued parses are cancelled, the running ones finish alone
+            pool.shutdown(wait=False, cancel_futures=True)
 
     def prepare_fused_run(self, extractor_id: Tuple) -> PreparedRun:
         """One read pass giving both the feature-cache key and the parsed
@@ -396,15 +500,16 @@ class OfflineDataProvider:
         backend: str = "decode",
         precision: str = "f32",
         recordings: Optional[Sequence[Tuple[str, int, brainvision.Recording]]] = None,
+        overlap: Optional[bool] = None,
     ) -> Tuple[torch.Tensor, np.ndarray]:
         """info.txt run -> DWT features without host epochs.
 
         Per recording, in info.txt order with one shared
-        :class:`BalanceState`: the raw channels (int16, or scaled float32
-        for other binary formats) are staged to the device once, the host
-        plans the kept markers, and one launch of
-        the fused kernel (``ops/ingest_cuda.py``) produces the
-        L2-normalized feature rows. Returns (features (n, C*K) float32
+        :class:`BalanceState` (:func:`featurize_one` below): the raw
+        channels (int16, or scaled float32 for other binary formats) are
+        staged to the device once, the host plans the kept markers, and
+        one launch of the fused kernel (``ops/ingest_cuda.py``) produces
+        the L2-normalized feature rows. Returns (features (n, C*K) float32
         on the provider's device, targets (n,) float64).
 
         ``backend`` takes the JAX package's fused rung names
@@ -414,8 +519,22 @@ class OfflineDataProvider:
         kernel's rung; as in the JAX package, a non-f32 rung rides the
         decode backend only. ``recordings``: the run's already parsed
         ``(rel_path, guessed, recording)`` triplets (the builder parses
-        them first when a precision gate needs the first one), else
+        them first for the feature cache's key), else
         :meth:`iter_recordings` reads them.
+
+        ``overlap`` (``None``: ``EEG_TPU_OVERLAP``) runs
+        :func:`featurize_one` on ``io/staging.prefetch``'s producer
+        thread, so recording K+1's staging, planning and kernel launch
+        overlap the consumer's handling of recording K; on a card the
+        producer launches on a stream of its own and hands each
+        recording's rows over with an event. The rows, their order and
+        the targets are bit-equal to the serial loop's at any prefetch
+        depth. ``timings``: ``parse`` is the time spent waiting on the
+        recording source, ``stage`` the staging and planning, ``featurize``
+        the kernel launches and the final device sync, each measured on
+        the thread that does the work. Under overlap the three run at
+        once on two or more threads, so their sum exceeds the wall, which
+        ``timings["wall"]`` gives.
         """
         if backend not in FUSED_BACKENDS:
             raise ValueError(f"unknown device-ingest backend {backend!r}")
@@ -437,13 +556,24 @@ class OfflineDataProvider:
         )
         balance = BalanceState()
         timings = {"parse": 0.0, "stage": 0.0, "featurize": 0.0}
-        rows: List[torch.Tensor] = []
-        targets: List[np.ndarray] = []
-        t0 = time.perf_counter()
-        source = self.iter_recordings() if recordings is None else iter(recordings)
-        for _rel_path, guessed, rec in source:
+        t_start = time.perf_counter()
+
+        def timed(source):
+            """``source``, its waits counted as parse time."""
+            t0 = time.perf_counter()
+            for item in source:
+                timings["parse"] += time.perf_counter() - t0
+                yield item
+                t0 = time.perf_counter()
+
+        def featurize_one(item):
+            """One recording: stage, plan, launch -> (kept rows on the
+            device, targets). Shared by the serial loop and the overlap
+            producer; either way it runs on one thread in info.txt order
+            (the balance scan and the stale channel-index reuse are
+            order-dependent)."""
+            _rel_path, guessed, rec = item
             t1 = time.perf_counter()
-            timings["parse"] += t1 - t0
             raw, res, n_samples = device_ingest.stage_raw(
                 rec, self.channel_indices_for(rec), self.device
             )
@@ -454,21 +584,30 @@ class OfflineDataProvider:
             t2 = time.perf_counter()
             timings["stage"] += t2 - t1
             out = featurize(raw, res, plan.positions, plan.mask)
-            rows.append(out[: plan.n_kept])  # kept rows lead the plan
-            targets.append(plan.targets)
-            t0 = time.perf_counter()
-            timings["featurize"] += t0 - t2
+            timings["featurize"] += time.perf_counter() - t2
+            return out[: plan.n_kept], plan.targets  # kept rows lead the plan
+
+        source = timed(self.iter_recordings() if recordings is None else iter(recordings))
+        use_overlap = default_overlap() if overlap is None else bool(overlap)
+        if use_overlap:
+            obs.metrics.count("ingest.overlap_runs")
+            results = list(staging.prefetch(source, device=self.device,
+                                            stage_fn=featurize_one))
+        else:
+            results = [featurize_one(item) for item in source]
         n_feat = len(self._channel_names) * feature_size
         t2 = time.perf_counter()
-        if rows:
-            features = torch.cat(rows)
-            target_arr = np.concatenate(targets)
+        if results:
+            features = torch.cat([rows for rows, _ in results])
+            target_arr = np.concatenate([t for _, t in results])
         else:
             features = torch.zeros((0, n_feat), dtype=torch.float32, device=self.device)
             target_arr = np.zeros((0,), dtype=np.float64)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timings["featurize"] += time.perf_counter() - t2
+        if use_overlap:
+            timings["wall"] = time.perf_counter() - t_start
         self.timings = timings
         return features, target_arr
 

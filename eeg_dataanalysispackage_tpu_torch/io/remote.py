@@ -27,6 +27,7 @@ import logging
 import os
 import random
 import re
+import threading
 import time
 import urllib.parse
 from typing import Optional, Tuple
@@ -119,10 +120,11 @@ class HttpFileSystem:
         self.retry = retry or RetryPolicy()
         self.chunk_size = int(chunk_size)
         self.headers = dict(headers or {})
-        # one keep-alive connection per (scheme, netloc), reused across
-        # the chunked read loop and dropped on any error or server
-        # close; instances are not thread-safe (one per worker thread)
-        self._conns: dict = {}
+        # one keep-alive connection per (scheme, netloc) and thread,
+        # reused across the chunked read loop and dropped on any error or
+        # server close: one instance serves the provider's parse pool,
+        # each thread on connections of its own
+        self._local = threading.local()
 
     def _split(self, path: str) -> Tuple[str, str, str]:
         """path -> (scheme, netloc, request path)."""
@@ -135,13 +137,22 @@ class HttpFileSystem:
             req_path += "?" + parts.query
         return parts.scheme, parts.netloc, req_path
 
+    @property
+    def _conns(self) -> dict:
+        """The calling thread's connections, by (scheme, netloc)."""
+        conns = getattr(self._local, "conns", None)
+        if conns is None:
+            conns = self._local.conns = {}
+        return conns
+
     def _connect(self, scheme: str, netloc: str) -> http.client.HTTPConnection:
-        conn = self._conns.get((scheme, netloc))
+        conns = self._conns
+        conn = conns.get((scheme, netloc))
         if conn is not None:
             return conn
         cls = http.client.HTTPSConnection if scheme == "https" else http.client.HTTPConnection
         conn = cls(netloc, timeout=self.retry.timeout_s)
-        self._conns[(scheme, netloc)] = conn
+        conns[(scheme, netloc)] = conn
         return conn
 
     def _drop(self, scheme: str, netloc: str) -> None:
@@ -525,12 +536,13 @@ class NativeHdfsFileSystem:
     A missing ``pyarrow`` or libhdfs runtime raises a
     :class:`RemoteIOError` naming the fix. ``hdfs:///path`` dials the
     ``fs.defaultFS`` of the node's Hadoop configuration. Connections are
-    cached per authority.
+    cached per authority and shared by the parse pool's threads.
     """
 
     def __init__(self, user: Optional[str] = None):
         self.user = user or os.environ.get("HDFS_USER")
         self._conns: dict = {}
+        self._lock = threading.Lock()
 
     @staticmethod
     def _split(path: str) -> tuple:
@@ -540,16 +552,17 @@ class NativeHdfsFileSystem:
         return authority, "/" + hpath
 
     def _fs(self, authority: str):
-        if authority not in self._conns:
-            if authority:
-                host, _, port = authority.partition(":")
-                port_n = int(port) if port else 8020
-            else:
-                # hdfs:/// -> libhdfs "default": fs.defaultFS from the
-                # local Hadoop configuration
-                host, port_n = "default", 0
-            self._conns[authority] = _hadoop_connect(host, port_n, self.user)
-        return self._conns[authority]
+        with self._lock:
+            if authority not in self._conns:
+                if authority:
+                    host, _, port = authority.partition(":")
+                    port_n = int(port) if port else 8020
+                else:
+                    # hdfs:/// -> libhdfs "default": fs.defaultFS from the
+                    # local Hadoop configuration
+                    host, port_n = "default", 0
+                self._conns[authority] = _hadoop_connect(host, port_n, self.user)
+            return self._conns[authority]
 
     def exists(self, path: str) -> bool:
         from pyarrow import fs as pafs

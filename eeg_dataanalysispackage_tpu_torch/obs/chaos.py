@@ -26,9 +26,11 @@ micro-batch execution) and ``serve.batch.tenant.<name>`` (one tenant's
 rows of a mixed batch; all three in ``serve/batcher.py``, where the
 batcher's retries take them), ``ingest.fused`` (one
 ``load_features_device`` call in ``io/provider.py``; the port has no
-degradation ladder, so it fails the run) and ``scheduler.plan`` (one
-run, in the run bracket ``scheduler/runtime.py``). The JAX package's
-other points (``staging.producer``, ``fleet.*``,
+degradation ladder, so it fails the run), ``staging.producer`` (one
+item staged by ``io/staging.prefetch``'s producer thread: under
+``overlap=true`` one recording's featurize, which fails the run for the
+same reason) and ``scheduler.plan`` (one run, in the run bracket
+``scheduler/runtime.py``). The JAX package's other points (``fleet.*``,
 ``scheduler.journal``) have no injection site in the port yet, so a
 spec that names one raises :class:`FaultSpecError` here rather than
 parse and never fire (see ROADMAP.md). A run's ``faults=`` query key
@@ -57,7 +59,7 @@ logger = logging.getLogger(__name__)
 #: the points the port has an injection site for
 PORTED_POINTS = (
     "remote.request", "serve.adapt", "serve.swap", "device.step",
-    "serve.request", "serve.batch", "ingest.fused", "scheduler.plan",
+    "serve.request", "serve.batch", "ingest.fused", "staging.producer", "scheduler.plan",
 )
 #: the per-tenant batch point, ``serve.batch.tenant.<name>``
 TENANT_BATCH_PREFIX = "serve.batch.tenant."

@@ -126,6 +126,9 @@ class RunTelemetry:
         self.lifecycle: Optional[Dict[str, Any]] = None
         self.workload: Optional[Dict[str, Any]] = None
         self.precision: Optional[Dict[str, Any]] = None
+        #: whether the fused ingest overlapped (``overlap=``); None when
+        #: the run never reached the fused ingest
+        self.overlap: Optional[bool] = None
 
     @property
     def report_path(self) -> str:
@@ -155,7 +158,7 @@ class RunTelemetry:
             "lifecycle": self.lifecycle,
             "workload": self.workload,
             "precision": self.precision,
-            "overlap": None,
+            "overlap": self.overlap,
             "mesh": None,
             "dedup": None,
             "gateway": None,

@@ -1,10 +1,14 @@
-"""Build the package's CUDA sources into shared libraries, at first use.
+"""Build the package's native sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/<name>-<hash>.so``, keyed by a hash of the source, the shared
 ``csrc/*.cuh`` headers and the flags, and loads with ``ctypes``. The kernels expose plain ``extern "C"``
 launchers that return ``cudaGetLastError()``, so no PyTorch header is
-compiled. A missing ``nvcc`` or a failed build raises.
+compiled. The host library ``csrc/<name>.cc`` (the input pipeline's
+parsers, demux and epoch stage) compiles the same way with ``g++``
+(:data:`HOST_FLAGS`, no ``-ffast-math``). Each build writes a file of its own and renames it into
+place, so processes building at once never load a partial library. A
+missing compiler or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+import time
+from typing import Dict, Optional, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -27,6 +32,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: the host library's compiler and flags: strict IEEE float arithmetic
+#: (no ``-ffast-math``), so the float32 baseline fold stays bit-equal to
+#: numpy
+CXX = "g++"
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 #: the largest count a kernel's C ``int`` launch argument holds
 INT32_MAX = 2**31 - 1
@@ -40,6 +51,8 @@ _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: ptxas register / shared-memory report of each build made by this process
 BUILD_LOGS: Dict[str, str] = {}
+#: wall seconds of each build made by this process, by source file name
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -58,39 +71,65 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _hashed_path(name: str, sources: Sequence[str], flags: Sequence[str]) -> str:
+    h = hashlib.sha256()
+    for fname in sources:
+        with open(os.path.join(SOURCE_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to for its current content and
     that of the headers it may include."""
     headers = sorted(f for f in os.listdir(SOURCE_DIR) if f.endswith(".cuh"))
-    h = hashlib.sha256()
-    for fname in [name + ".cu", *headers]:
-        with open(os.path.join(SOURCE_DIR, fname), "rb") as f:
-            h.update(fname.encode() + b"\0" + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    return _hashed_path(name, [name + ".cu", *headers], NVCC_FLAGS)
+
+
+def host_library_path(name: str) -> str:
+    """Where the host source ``csrc/<name>.cc`` builds to."""
+    return _hashed_path(name, [name + ".cc"], HOST_FLAGS)
+
+
+def _compile(path: str, compiler: Sequence[str], source: str) -> str:
+    """Run ``compiler -o <tmp> source`` and rename the result to
+    ``path``; returns the compiler's output, raises with it."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([*compiler, "-o", tmp, os.path.join(SOURCE_DIR, source)],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{compiler[0]} failed to build {source}: {e}") from e
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(
+            f"{compiler[0]} failed to build {source} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    BUILD_SECONDS[source] = time.perf_counter() - t0
+    return proc.stdout + proc.stderr
 
 
 def build(name: str, nvcc: Optional[str] = None) -> str:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists;
     returns the library path."""
     path = library_path(name)
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
-    cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(SOURCE_DIR, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    if not os.path.exists(path):
+        BUILD_LOGS[name] = _compile(path, [nvcc or find_nvcc(), *NVCC_FLAGS], name + ".cu")
+    return path
+
+
+def build_host(name: str) -> str:
+    """Compile the host source ``csrc/<name>.cc`` with :data:`CXX` unless
+    its hashed library exists; returns the library path."""
+    path = host_library_path(name)
+    if not os.path.exists(path):
+        _compile(path, [CXX, *HOST_FLAGS], name + ".cc")
     return path
 
 

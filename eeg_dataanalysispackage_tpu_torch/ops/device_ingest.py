@@ -33,6 +33,7 @@ from ..epochs import extractor
 from ..epochs.extractor import BalanceState
 from ..io.brainvision import Marker, Recording
 from ..utils import constants
+from ..utils.device import host_to_device
 
 
 def _round_capacity(n: int, multiple: int) -> int:
@@ -52,24 +53,29 @@ def stage_raw(
     float32 transfer bytes); other formats fall back to the already
     scaled float32 channels with unit resolutions, as the JAX package
     does. The sample axis is zero-padded up to a multiple of
-    ``sample_multiple``. The padding is semantically free: window
-    validity is decided against the true ``n_samples``, and windows
-    overhanging the end read zeros exactly as Java's copyOfRange
-    zero-pads.
+    ``sample_multiple``. The channels are written straight into one
+    zero-padded host buffer, pinned on a card, which reaches the card by
+    one non-blocking copy on the current stream (the overlap producer's
+    own under ``overlap=true``); PyTorch's caching host allocator hands
+    the pinned block out again only once that copy has run. The padding
+    is semantically free: window validity is decided against the true
+    ``n_samples``, and windows overhanging the end read zeros exactly as
+    Java's copyOfRange zero-pads.
     """
+    device = torch.device(device)
+    pinned = device.type == "cuda"
+    C, n_samples = len(channel_indices), recording.num_samples
+    padded = _round_capacity(n_samples, sample_multiple)
     try:
-        raw = recording.raw_int16(channel_indices)
+        host = torch.empty((C, padded), dtype=torch.int16, pin_memory=pinned)
+        recording.raw_int16(channel_indices, out=host.numpy())
         res = recording.resolutions(channel_indices)
     except TypeError:
-        raw = recording.read_channels(channel_indices).astype(np.float32)
-        res = np.ones(len(channel_indices), dtype=np.float32)
-    C, n_samples = raw.shape
-    padded = _round_capacity(n_samples, sample_multiple)
-    host = torch.from_numpy(raw)
-    staged = torch.empty((C, padded), dtype=host.dtype, device=device)
-    staged[:, :n_samples].copy_(host)
-    staged[:, n_samples:].zero_()
-    return staged, torch.from_numpy(res).to(device), n_samples
+        host = torch.empty((C, padded), dtype=torch.float32, pin_memory=pinned)
+        host.numpy()[:, :n_samples] = recording.read_channels(channel_indices)
+        res = np.ones(C, dtype=np.float32)
+    host.numpy()[:, n_samples:] = 0
+    return host.to(device, non_blocking=pinned), host_to_device(res, device), n_samples
 
 
 @dataclasses.dataclass

@@ -40,6 +40,7 @@ import torch
 
 from . import cuda_build, decode_ingest, device_ingest, dwt, generic_plan
 from ..utils import constants
+from ..utils.device import host_to_device
 
 #: kernel launches made by this process (the wrapper adds one per
 #: launch), one counter per instantiation: the f32 rung on int16 streams
@@ -261,7 +262,7 @@ def make_cuda_ingest_featurizer(
             S,
         ).astype(np.int32)
         return ingest_features(
-            raw, resolutions, torch.from_numpy(starts).to(raw.device),
+            raw, resolutions, host_to_device(starts, raw.device),
             dwt.kernel_operator(wavelet_index, epoch_size, feature_size, raw.device),
             pre, skip_samples, precision, epoch_size, feature_size,
         )

@@ -60,6 +60,14 @@ off): a hit skips parsing the rest, the gate and every kernel launch.
 The port has no degradation ladder: ``degrade=`` parses, and a kernel
 failure (or an ``ingest.fused`` fault) fails the run.
 
+The input pipeline's knobs: ``ingest_workers=`` sizes every run's
+parallel parse pool and ``prefetch=`` its look-ahead (``io/provider.py``;
+``EEG_TPU_INGEST_WORKERS``, ``EEG_TPU_PREFETCH_DEPTH``); ``overlap=true``
+runs the fused ingest on ``io/staging.prefetch``'s producer thread and
+CUDA stream (``EEG_TPU_OVERLAP=1``; recorded in
+:attr:`PipelineBuilder.overlap_resolved`), where a ``staging.producer``
+fault fails the run. None of them changes a result.
+
 Every run goes through the run bracket (``scheduler/runtime.py``):
 ``faults=``/``faults_seed=`` (or ``EEG_TPU_FAULTS``) install a fault
 plan in the run's domain, ``report=`` (or ``EEG_TPU_RUN_REPORT_DIR``)
@@ -100,8 +108,7 @@ logger = logging.getLogger(__name__)
 
 #: query keys whose paths the port does not run yet (see ROADMAP.md)
 NOT_PORTED_KEYS = (
-    "overlap", "devices", "mesh_axes", "processes", "coordinator",
-    "process_id",
+    "devices", "mesh_axes", "processes", "coordinator", "process_id",
 )
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
@@ -118,6 +125,29 @@ def get_query_map(query: str) -> Dict[str, str]:
         name, sep, value = param.partition("=")
         out[name] = value if sep else ""
     return out
+
+
+def int_param(query_map: Dict[str, str], name: str) -> Optional[int]:
+    """An optional integer query parameter (None when absent or empty),
+    with the JAX package's message (its plan parser's ``_int_param``)."""
+    value = query_map.get(name, "")
+    if not value:
+        return None
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError(f"query parameter {name}= must be an integer, got {value!r}") from None
+
+
+def resolve_overlap(query_map: Dict[str, str]) -> Optional[bool]:
+    """``overlap=true|false`` -> True/False, absent -> None (the
+    provider's ``EEG_TPU_OVERLAP`` default); any other value raises the
+    JAX package's message. Only the fused batch run reads it: the
+    seizure and serve runs ignore it, as in the JAX package."""
+    value = query_map.get("overlap", "")
+    if value not in ("", "true", "false"):
+        raise ValueError(f"overlap= must be true or false, got {value!r}")
+    return None if not value else value == "true"
 
 
 def resolve_precision(query_map: Dict[str, str]) -> str:
@@ -153,6 +183,9 @@ def _check_ported(query_map: Dict[str, str]) -> None:
             "fe_sweep= compares feature configs over the seizure workload; it "
             "requires task=seizure"
         )
+    # the pool's knobs are typed before anything is read
+    int_param(query_map, "ingest_workers")
+    int_param(query_map, "prefetch")
     if query_map.get("faults"):
         # the grammar check before anything is read; the run bracket
         # parses the plan again with fresh call counts
@@ -336,6 +369,10 @@ class PipelineBuilder:
         #: the last fused run's ``{"requested": backend, "landed":
         #: backend or "cache"}`` (the report's ``backend`` block)
         self.backend_resolved: Optional[dict] = None
+        #: whether the last fused run's ingest overlapped (``overlap=``,
+        #: else ``EEG_TPU_OVERLAP``; the report's ``overlap``); None
+        #: before a fused run
+        self.overlap_resolved: Optional[bool] = None
         #: the last run's report telemetry (``obs/report.RunTelemetry``;
         #: None when the run was not reported), per-run metrics scope and
         #: stage timer (the report's ``stages``), set by the run bracket
@@ -394,6 +431,7 @@ class PipelineBuilder:
             raise ValueError("Missing the input file argument")
         self.timers = {}
         self.precision_resolved = self.backend_resolved = self.serve_block = None
+        self.overlap_resolved = None
         self.workload_block = self.feature_sets = None
         self.population_block = self.population_states = self.classifiers = None
 
@@ -406,7 +444,7 @@ class PipelineBuilder:
                 statistics, self.serve_block, self.workload_block = (
                     serve_pipeline.run_serve_seizure(
                         query_map,
-                        lambda: provider.OfflineDataProvider(files, device=self.device),
+                        lambda: self._provider(files, query_map),
                         self._stage,
                         self.device,
                     )
@@ -424,14 +462,16 @@ class PipelineBuilder:
         if serve:
             statistics, self.serve_block = serve_pipeline.run_serve(
                 query_map,
-                lambda: provider.OfflineDataProvider(files, device=self.device),
+                lambda: self._provider(files, query_map),
                 self._stage,
                 self.device,
             )
             return self._finish_run(statistics, query_map)
 
-        # the JAX package checks precision= before the other arguments
+        # the JAX package checks precision= and overlap= before the other
+        # arguments
         precision = resolve_precision(query_map)
+        overlap = resolve_overlap(query_map)
 
         # 2. feature extraction (PipelineBuilder.java:128-139)
         if "fe" not in query_map:
@@ -443,13 +483,13 @@ class PipelineBuilder:
         fused = _FUSED_FE.fullmatch(query_map["fe"])
         # an unknown or unported fe= spelling raises here, before loading
         fe = None if fused else fe_registry.create(query_map["fe"], device=self.device)
-        odp = provider.OfflineDataProvider(files, device=self.device)
+        odp = self._provider(files, query_map)
         if fe is None:
             wavelet_index = int(fused.group(1))
             suffix = fused.group(2)
             backend = "decode" if suffix is None else suffix[1:]
             features, targets = self._fused_features(
-                query_map, odp, wavelet_index, backend, precision)
+                query_map, odp, wavelet_index, backend, precision, overlap)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -515,6 +555,16 @@ class PipelineBuilder:
         self.timers["test"] = timings["predict"]
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
+
+    def _provider(self, files, query_map) -> provider.OfflineDataProvider:
+        """The run's provider on its device: ``ingest_workers=`` sizes the
+        parse pool and ``prefetch=`` its look-ahead (the JAX package's
+        ``make_provider``; absent, the env defaults)."""
+        return provider.OfflineDataProvider(
+            files, device=self.device,
+            workers=int_param(query_map, "ingest_workers"),
+            prefetch_depth=int_param(query_map, "prefetch"),
+        )
 
     def _fit_and_test(self, query_map, features, targets, make_classifier, config, **attrs):
         """``train_clf=`` on the seed-1 70/30 split of device feature rows
@@ -671,7 +721,7 @@ class PipelineBuilder:
         targets)``: ``(fe name, (n, d) rows on the run's device)`` in
         ``fe_names`` order; a hit's rows go to the device in the dtype a
         miss gives, and launch nothing."""
-        odp = provider.OfflineDataProvider(files, device=self.device)
+        odp = self._provider(files, query_map)
         # an unknown fe= raises here, before the session is read
         extractors = [(name, fe_registry.create(name, device=self.device)) for name in fe_names]
 
@@ -780,14 +830,16 @@ class PipelineBuilder:
         return statistics
 
     def _fused_features(self, query_map, odp, wavelet_index: int, backend: str,
-                        precision: str):
+                        precision: str, overlap: Optional[bool] = None):
         """The fused path's feature rows on the run's device, and the
         targets (JAX package: pipeline/builder.py:388-600, without its
         prefix dedup and degradation ladder): the feature-cache lookup,
         the per-run precision gate, the f32 re-key when the gate trips,
         the kernel run, the store. A hit's host rows go to the run's
         device in the dtype a miss gives, and no kernel is launched.
-        Sets :attr:`precision_resolved` and :attr:`backend_resolved`."""
+        ``overlap`` is the provider's (``None``: ``EEG_TPU_OVERLAP``). Sets
+        :attr:`precision_resolved`, :attr:`backend_resolved` and
+        :attr:`overlap_resolved`."""
         cache = (feature_cache.open_cache()
                  if query_map.get("cache", "true") != "false" else None)
         logger.info(
@@ -865,6 +917,7 @@ class PipelineBuilder:
                         wavelet_index=wavelet_index, backend=backend,
                         precision=precision_used,
                         recordings=None if prepared is None else prepared.recordings,
+                        overlap=overlap,
                     )
                 self._add_timings(odp.timings)
                 landed = backend
@@ -880,6 +933,7 @@ class PipelineBuilder:
                 build_slot.release()
         events.event("pipeline.rung_landed", requested=backend, landed=landed)
         self.backend_resolved = {"requested": backend, "landed": landed}
+        self.overlap_resolved = provider.default_overlap() if overlap is None else overlap
         self.precision_resolved = (
             {"requested": precision, "used": precision_used, "gate": gate_record}
             if precision != "f32" else None

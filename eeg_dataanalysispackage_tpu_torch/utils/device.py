@@ -34,3 +34,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def host_to_device(a, device: Union[str, torch.device]) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``. For a card:
+    copied into pinned memory (an already pinned tensor is used as it is)
+    and then to the card by a non-blocking copy on the current stream;
+    PyTorch's caching host allocator records an event for that copy and
+    hands the pinned block out again only once the copy is done. On the
+    CPU: ``torch.as_tensor``, sharing the array's memory."""
+    host = torch.as_tensor(a)
+    if torch.device(device).type != "cuda":
+        return host
+    if not host.is_pinned():
+        host = host.contiguous().pin_memory()
+    return host.to(device, non_blocking=True)

@@ -319,8 +319,9 @@ def test_fault_spec_fires_at_the_jax_package_calls(spec, seed):
     # the port since the run bracket came (tests/test_torch_report.py)
     ("fleet.lease:once@4", "not yet ported"),
     ("remote.request:once@1;scheduler.journal:p=0.5", "not yet ported"),
-    # device.step fires in the port since its elastic trainer came
-    ("staging.producer:err@7", "not yet ported"),
+    # device.step fires in the port since its elastic trainer came, and
+    # staging.producer since its overlapped staging came
+    ("scheduler.journal:err@7", "not yet ported"),
     ("remote.request", "point:directive"),
     ("remote.request:sometimes", "bad directive"),
     ("remote.request:p=1.5", "out of"),
@@ -417,9 +418,9 @@ def test_a_run_refuses_a_fault_spec(how, monkeypatch):
 
     q = "info_file=/nonexistent/info.txt&fe=dwt-8-fused&train_clf=logreg"
     if how == "query":
-        q += "&faults=remote.request:p=0.5;staging.producer:once@1"
+        q += "&faults=remote.request:p=0.5;scheduler.journal:once@1"
     else:
-        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5;staging.producer:once@1")
+        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5;scheduler.journal:once@1")
     with pytest.raises(chaos.FaultSpecError,
-                       match="fault point 'staging.producer' is not yet ported"):
+                       match="fault point 'scheduler.journal' is not yet ported"):
         PipelineBuilder(q, device="cpu").execute()

@@ -21,6 +21,13 @@ it is imported (``EEG_TPU_NO_FEATURE_CACHE=1``, as the conftest it runs
 without does), so every other case's launch counts read misses; the
 cache cases turn it on in a directory of their own.
 
+The input pipeline on the card: overlapped fused ingest bit-equal to the
+serial run over 20 repeats (on ``cuda`` and ``cuda:0``), K1 on the
+producer's own stream and the samples from pinned memory in a profiler
+trace, ``stage_raw``'s pinned non-blocking copies equal to a pageable
+copy behind a busy stream, the native epoch stage equal to numpy's, and
+``staging.prefetch``'s pinned stage and event handoff.
+
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
 runs on a machine with only the port installed:
@@ -2257,3 +2264,149 @@ def test_trace_path_holds_the_ingest_kernel(tmp_path):
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("ingest_features_kernel" in name for name in kernels), sorted(set(kernels))[:20]
     assert "stage.train" in {e.get("name") for e in events}
+
+
+# -- the input pipeline: the parse pool, overlapped staging, the native stage
+
+
+@pytest.fixture(scope="module")
+def pipeline_session(tmp_path_factory):
+    """Four recordings: overlap is about recording K+1 against K."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    d = tmp_path_factory.mktemp("input_pipeline")
+    lines = []
+    for i in range(4):
+        _synthetic.write_recording(str(d), name=f"ip_{i}", n_markers=300, guessed=2 + i,
+                                   seed=40 + i)
+        lines.append(f"ip_{i}.eeg {2 + i}")
+    (d / "info.txt").write_text("\n".join(lines) + "\n")
+    return str(d / "info.txt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_overlap_features_on_the_card_equal_serial_over_20_repeats(pipeline_session, device):
+    """A wrong lifetime (a pinned buffer reused before its copy ran, a
+    producer-stream tensor handed out again before the consumer read it)
+    gives wrong rows only sometimes: 20 overlapped runs at depths 1, 2
+    and 5, every one bit-equal to the serial run, K1 once a recording."""
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    _card()
+    want, want_t = OfflineDataProvider([pipeline_session], device=device,
+                                       workers=1).load_features_device(overlap=False)
+    for i in range(20):
+        before = ingest_cuda.LAUNCHES
+        odp = OfflineDataProvider([pipeline_session], device=device, workers=4,
+                                  prefetch_depth=(1, 2, 5)[i % 3])
+        got, got_t = odp.load_features_device(overlap=True)
+        assert ingest_cuda.LAUNCHES - before == 4
+        assert got.device.type == "cuda" and torch.equal(got, want), i
+        assert np.array_equal(got_t, want_t)
+        assert "wall" in odp.timings
+
+
+@pytest.mark.cuda
+def test_overlap_launches_the_ingest_kernel_on_a_stream_of_its_own(pipeline_session, tmp_path):
+    """Under overlap=true the profiler's trace shows every K1 record on a
+    stream other than the consumer's (where the rows are concatenated),
+    and the recordings' samples reach the card from pinned memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    _card()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        OfflineDataProvider([pipeline_session]).load_features_device(overlap=True)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "ingest_features_kernel" in e["name"]]
+    assert len(k1) == 4
+    consumer = {e["args"]["stream"] for e in kernels if "CatArray" in e["name"]}
+    k1_streams = {e["args"]["stream"] for e in k1}
+    assert consumer and not (k1_streams & consumer), (k1_streams, consumer)
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    assert sum("Pinned" in name for name in copies) >= 4, copies
+
+
+@pytest.mark.cuda
+def test_stage_raw_equals_a_pageable_copy_behind_a_busy_stream(pipeline_session):
+    """Pinned, non-blocking staging behind a stream kept busy: each
+    recording's staged tensor (and its zeroed padding) equals a plain
+    pageable copy, so no pinned block was handed out again before its
+    copy ran."""
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    dev = _card()
+    odp = OfflineDataProvider([pipeline_session], device="cpu", workers=1)
+    recs = [rec for _rel, _g, rec in odp.iter_recordings()]
+    indices = [odp.channel_indices_for(rec) for rec in recs]
+    staged = []
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream's time ahead of every copy
+    for _ in range(3):
+        for rec, idx in zip(recs, indices):
+            staged.append(device_ingest.stage_raw(rec, idx, dev))
+    torch.cuda.synchronize()
+    for k, (raw, res, n) in enumerate(staged):
+        rec, idx = recs[k % 4], indices[k % 4]
+        want = torch.from_numpy(rec.raw_int16(idx))
+        assert torch.equal(raw[:, :n].cpu(), want)
+        assert not raw[:, n:].any()
+        assert torch.equal(res.cpu(), torch.from_numpy(rec.resolutions(idx)))
+        cpu_raw, _r, _n = device_ingest.stage_raw(rec, idx, torch.device("cpu"))
+        assert torch.equal(raw.cpu(), cpu_raw)
+
+
+@pytest.mark.cuda
+def test_the_native_epoch_stage_equals_numpy_on_the_cards_host(pipeline_session, monkeypatch):
+    """The host fe=dwt-8-pallas run through the native epoch stage and
+    through the numpy paths (EEG_TPU_NATIVE=0): epochs bit-equal,
+    statistics byte-equal, the epoch-features kernel once each."""
+    from eeg_dataanalysispackage_tpu_torch.io import native
+
+    _card()
+    assert native.available()
+    q = f"info_file={pipeline_session}&fe=dwt-8-pallas&train_clf=logreg"
+    before = dwt_cuda.LAUNCHES
+    nat = PipelineBuilder(q)
+    nat_stats = str(nat.execute())
+    assert dwt_cuda.LAUNCHES - before >= 1
+    monkeypatch.setenv("EEG_TPU_NATIVE", "0")
+    before = dwt_cuda.LAUNCHES
+    plain = PipelineBuilder(q)
+    assert str(plain.execute()) == nat_stats
+    assert dwt_cuda.LAUNCHES - before >= 1
+    assert np.array_equal(nat.batch.epochs, plain.batch.epochs)
+    assert np.array_equal(nat.batch.targets, plain.batch.targets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [False, True])
+def test_prefetch_stages_through_pinned_memory_and_hands_over_an_event(pinned):
+    """The built-in stage from numpy and from an already pinned source:
+    the consumer's stream waits on the producer's event, so a consumer
+    kernel reading the tensor at once sees the staged values, with the
+    producer's stream held busy before each copy."""
+    from eeg_dataanalysispackage_tpu_torch.io import staging
+
+    dev = _card()
+    rng = np.random.RandomState(5)
+    arrays = [rng.randn(1 << 20).astype(np.float32) for _ in range(6)]
+
+    def source():
+        for a in arrays:
+            torch.cuda._sleep(50_000_000)  # on the producer's stream
+            yield (torch.from_numpy(a).pin_memory() if pinned else a,)
+
+    sums = []
+    for (t,) in staging.prefetch(source(), device=dev, buffer_size=2):
+        assert t.device.type == "cuda"
+        sums.append(t.double().sum())  # the consumer's stream, no sync first
+    torch.cuda.synchronize()
+    for s, a in zip(sums, arrays, strict=True):
+        assert s.item() == torch.from_numpy(a).double().sum().item()

@@ -188,3 +188,31 @@ def test_the_run_record_modules_are_walked_and_scanned():
     for rel in ("io/mllib_format.py", "io/feature_cache.py", "ops/plan_cache.py",
                 "obs/report.py", "scheduler/__init__.py", "scheduler/runtime.py"):
         assert rel in scanned
+
+
+def test_the_input_pipeline_modules_are_walked_and_scanned():
+    """The input pipeline's modules (the staging producer, the native
+    binding, the pooled provider, the plan cache's file) are walked by
+    the fresh import, which builds nothing, and scanned; the native
+    binding builds the port's own ``csrc/eeg_host.cc`` and names nothing
+    of the JAX package's ``native/`` build."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _PROBE + (
+        "\nfrom eeg_dataanalysispackage_tpu_torch.ops import cuda_build"
+        "\nassert cuda_build.BUILD_SECONDS == {}, cuda_build.BUILD_SECONDS\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("io.staging", "io.native", "io.provider", "ops.plan_cache", "ops.cuda_build"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("io/__init__.py", "io/staging.py", "io/native.py", "ops/cuda_build.py"):
+        assert rel in scanned
+    assert os.path.isfile(os.path.join(PORT, "csrc", "eeg_host.cc"))
+    with open(os.path.join(PORT, "io", "native.py"), encoding="utf-8") as f:
+        source = f.read()
+    assert "build_host(_SOURCE)" in source and '_SOURCE = "eeg_host"' in source
+    assert "libeeg_host" not in source and "Makefile" not in source

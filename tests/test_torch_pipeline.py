@@ -132,10 +132,12 @@ def test_no_silent_cpu_without_cuda(one_file):
      # precision=bf16 runs on the fused path (tests/test_torch_precision.py);
      # the host path's bf16 spelling does not
      pytest.param("fe=dwt-8-tpu-bf16", id="precision=bf16"),
+     # overlap= runs (tests/test_torch_overlap.py), on a batch run and,
+     # ignored there as in the JAX package, on a serve run
      "overlap=true", "devices=2",
      # serve=true itself runs (tests/test_torch_serve.py), and so do its
      # adapt= (tests/test_torch_lifecycle.py) and report=
-     # (tests/test_torch_report.py); its overlap= does not
+     # (tests/test_torch_report.py)
      pytest.param("serve=true&overlap=true", id="serve=true"),
      "task=seizure", "cv=3", "elastic=true"],
 )
@@ -145,6 +147,9 @@ def test_unported_keys_raise(one_file, extra, tmp_path):
         return
     if extra in _TRAINING_SURFACE:
         _training_surface_runs_like_the_jax_package(one_file, extra, tmp_path)
+        return
+    if "overlap=" in extra:
+        _overlap_runs_like_the_jax_package(one_file, extra, tmp_path)
         return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     if extra == "task=seizure":
@@ -190,6 +195,19 @@ def _training_surface_runs_like_the_jax_package(info, extra, tmp_path):
     with pytest.raises(ValueError) as got:
         PipelineBuilder(load, device="cpu").execute()
     assert str(got.value) == str(theirs.value)
+
+
+def _overlap_runs_like_the_jax_package(info, extra, tmp_path):
+    """overlap=, refused until the input pipeline's slice ported it, now
+    runs: a load_clf= run carrying it (batch, or serve=true, which ignores
+    it in both packages) prints the JAX package's statistics."""
+    model = tmp_path / "model"
+    JaxBuilder(f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&save_clf=true"
+               f"&save_name={model}").execute()
+    q = f"info_file={info}&fe=dwt-8-fused&load_clf=logreg&load_name={model}&{extra}"
+    ours = PipelineBuilder(q, device="cpu")
+    assert str(ours.execute()) == str(JaxBuilder(q).execute())
+    assert ours.overlap_resolved is (None if "serve=true" in extra else True)
 
 
 def _bf16_spelling_runs_like_the_jax_package(info, fe):
