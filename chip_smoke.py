@@ -234,6 +234,25 @@ Phases, one JSON line each (several for phases 2 to 6):
    native host library (``csrc/eeg_host.cc``, ``g++``) beside the
    ``nvcc`` builds and prints both times (``build_native``). No earlier
    phase is pinned to ``ingest_workers=1``: the pool moves no launch;
+4i. single-process meshes (``devices=``, ``mesh_axes=``): the number of
+   cards is printed (``mesh_devices``); a population run with
+   ``devices=1`` (and ``devices=<cards>`` where there are two or more)
+   through the builder, statistics byte-equal to the unmeshed run;
+   ``devices=<cards + 1>`` raising, ``processes=2`` still refused; then
+   on a 4-shard mesh (four distinct cards where there are four, else
+   ``cuda:0`` four times, printed: on one card no copy crosses cards)
+   the sharded fused ingest of the 8-recording session (K1 once a shard
+   and recording; the rows against the unsharded kernel's and the plain
+   version's, the halo windows counted; its wall beside the unsharded
+   ingest's, two of each in turns), the 4- and 16-member sharded
+   populations against the unsharded engine, ``grow_forest_sharded``
+   bit-equal to ``grow_forest``, data-parallel SGD against the unmeshed
+   run; and the raw-stream trainers (K2's two call sites):
+   ``make_raw_train_step`` (``formulation="bank"``, K1) and
+   ``make_irregular_bank_train_step`` at ``bank128`` (K1) and
+   ``bank128_bf16`` (K2-bf16), each 20 steps with its launches counted
+   from 0, its rows against the plain version and its losses against the
+   CPU run's, the ``bank128`` step also data-parallel on the 4-shard mesh;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -3550,6 +3569,239 @@ def phase_input_pipeline(torch, np, info, model, counters, work):
     return k1, k4, k5
 
 
+# phase 4i: the population axes of the meshed builder runs (4 members), the
+# engine-level member counts, the tolerances (measured: PERF.md, PR 20)
+MESH_POP_AXES = "cv=2&sweep=lr:1.0,0.5"
+MESH_MEMBERS = (4, 16)
+MESH_WEIGHT_TOL = 5e-6  # sharded against unsharded member weights (the JAX package's)
+MESH_SGD_TOL = 2e-5  # data-parallel SGD against the unmeshed run (the JAX package's)
+MESH_LOSS_TOL = 1e-5  # 20 steps' losses, card against CPU
+MESH_STEPS = 20
+
+
+def mesh_shards(torch):
+    """The 4-shard mesh's devices: four distinct cards where there are
+    four, else the first card four times."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i if count >= 4 else 0) for i in range(4)], count
+
+
+def train_losses(torch, init, step, params, args, steps=MESH_STEPS):
+    """``steps`` steps of a ``parallel/train.py`` step from ``params``;
+    (final state, losses)."""
+    state, losses = init(params), []
+    for _ in range(steps):
+        state, loss = step(state, *args)
+        losses.append(float(loss))
+    return state, losses
+
+
+def phase_mesh(torch, np, info, counters):
+    """Phase 4i (see the module docstring). Returns (K1 launches,
+    K2-bf16 launches) over the phase's path runs; the launches made to
+    compare a kernel with its plain version, or a path with the unmeshed
+    one, are not counted."""
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.models import sgd, trees, trees_device as td
+    from eeg_dataanalysispackage_tpu_torch.ops import device_ingest, dwt, ingest_cuda
+    from eeg_dataanalysispackage_tpu_torch.parallel import (
+        mesh as pmesh, population as engines, train as ptrain,
+    )
+    from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
+    from eeg_dataanalysispackage_tpu_torch.utils import java_compat
+
+    t_phase = time.perf_counter()
+    shards, count = mesh_shards(torch)
+    emit("mesh_devices", cards=count, four_shard_mesh=[str(d) for d in shards],
+         distinct_cards=count >= 4)
+    k1 = k1_bf16 = 0
+
+    # 1. the builder: devices=1 (and devices=<cards>) against the unmeshed run
+    base = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&{MESH_POP_AXES}&cache=false"
+    _b, plain, _launches = run_builder("mesh_unmeshed", base, None, counters)
+    for label, extra in [("mesh_devices1", "&devices=1")] + (
+            [(f"mesh_devices{count}", f"&devices={count}")] if count >= 2 else []):
+        b, st, launches = run_builder(label, base + extra, None, counters)
+        k1 += launches["ingest_features"]
+        if str(st) != str(plain) or b.population_block["mode"] != "sharded":
+            raise AssertionError(f"{label}: statistics differ from the unmeshed run's")
+        emit("mesh_run", run=label, mesh=b.mesh_resolved, statistics_equal=True)
+    for extra, match in ((f"&devices={count + 1}", "present"), ("&processes=2", "not yet ported")):
+        try:
+            PipelineBuilder(base + extra).execute()
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{extra} did not raise")
+    mesh4_time = pmesh.make_mesh(devices=shards, axes=("time",))
+    mesh4 = pmesh.make_mesh(devices=shards)
+
+    # 2. the sharded fused ingest of the session, 4 shards; walls in turns
+    # (unsharded, sharded, sharded, unsharded), the second pair uncounted
+    def load(mesh=None):
+        t0 = time.perf_counter()
+        out = OfflineDataProvider([info]).load_features_device(mesh=mesh)
+        return out, time.perf_counter() - t0
+
+    (ref, ref_targets), unsharded_s = load()
+    cpu_rows, _ = OfflineDataProvider([info], device="cpu").load_features_device()
+    before = obs.metrics.snapshot()["counters"]
+    ingest_cuda.LAUNCHES = 0
+    (got, got_targets), sharded_s = load(mesh4_time)
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    after = obs.metrics.snapshot()["counters"]
+    grew = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "ingest.sharded_recordings", "ingest.sharded_halo_windows", "ingest.sharded_fallback")}
+    sharded_again_s = load(mesh4_time)[1]
+    ingest_wall = {"unsharded_s": [unsharded_s, load()[1]],
+                   "sharded_s": [sharded_s, sharded_again_s]}
+    dev_unsharded = (got - ref).abs().max().item()
+    dev_plain = (got.cpu() - cpu_rows).abs().max().item()
+    rows_bit_equal = int((got == ref).all(dim=1).sum())
+    emit("mesh_sharded_ingest", rows=int(got.shape[0]), launches=launches, counters=grew,
+         max_abs_vs_unsharded=dev_unsharded, rows_bit_equal=rows_bit_equal,
+         max_abs_vs_plain=dev_plain, tol=KERNEL_TOL, **ingest_wall)
+    if (not np.array_equal(got_targets, ref_targets) or launches != 32
+            or grew["ingest.sharded_recordings"] != 8 or grew["ingest.sharded_halo_windows"] < 1
+            or max(dev_unsharded, dev_plain) > KERNEL_TOL):
+        raise AssertionError("the sharded ingest disagrees with the unsharded kernel")
+
+    # 3. the sharded population engine against the unsharded one
+    n = len(ref_targets)
+    train = java_compat.train_test_split_indices(n, seed=1)[0]
+    x = ref[torch.as_tensor(train, device=ref.device)]
+    y = torch.as_tensor(ref_targets[train], dtype=torch.float32, device=ref.device)
+    cfg = sgd.SGDConfig(num_iterations=200, convergence_tol=0.0)
+    pops = {}
+    for p in MESH_MEMBERS:
+        steps = [1.0 / (1 + i % 4) for i in range(p)]
+        regs = [0.0, 0.01] * (p // 2)
+        seeds = list(range(p))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w_sharded = engines.train_linear_population_sharded(x, y, cfg, steps, regs, seeds, None,
+                                                            mesh4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w_single, _, _ = engines.train_linear_population(x, y, cfg, steps, regs, seeds, None)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pops[p] = {"max_abs": (w_sharded - w_single).abs().max().item(),
+                   "sharded_s": t1 - t0, "unsharded_s": t2 - t1}
+    emit("mesh_population", members=pops, tol=MESH_WEIGHT_TOL, iterations=200)
+    if max(v["max_abs"] for v in pops.values()) > MESH_WEIGHT_TOL:
+        raise AssertionError("the sharded population disagrees with the unsharded engine")
+
+    # 4. tree-parallel growth, bit-equal
+    rows = x.double().cpu().numpy()
+    binned = torch.as_tensor(trees.bin_features(rows, trees.compute_bin_edges(rows, 32)),
+                             device=ref.device)
+    labels = y.long()
+    n_trees = 22
+    boot = torch.as_tensor(np.random.RandomState(3).randint(0, len(train), (n_trees, len(train))),
+                           device=ref.device)
+    masks = torch.as_tensor(td.draw_feature_masks(n_trees, td.n_heap_nodes(4), x.shape[1], 7),
+                            device=ref.device)
+    kw = dict(max_bins=32, impurity="gini", max_depth=5, min_instances=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest = td.grow_forest_sharded(binned, labels, boot, masks, mesh=mesh4, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = td.grow_forest(binned, labels, boot, masks, **kw)
+    torch.cuda.synchronize()
+    forest_equal = all(torch.equal(forest[k], want[k]) for k in want)
+    emit("mesh_forest", trees=n_trees, bit_equal=forest_equal, sharded_s=t1 - t0,
+         unsharded_s=time.perf_counter() - t1)
+    if not forest_equal:
+        raise AssertionError("grow_forest_sharded differs from grow_forest")
+
+    # 5. data-parallel SGD against the unmeshed run
+    w_dp = sgd.train_linear(x, y, sgd.SGDConfig(num_iterations=100), mesh=mesh4)
+    w_1 = sgd.train_linear(x, y, sgd.SGDConfig(num_iterations=100))
+    sgd_dev = (w_dp.to(w_1.device) - w_1).abs().max().item()
+    emit("mesh_sgd", max_abs=sgd_dev, tol=MESH_SGD_TOL)
+    if sgd_dev > MESH_SGD_TOL:
+        raise AssertionError("data-parallel SGD disagrees with the unmeshed run")
+
+    # 6. the raw-stream trainers (K2's call sites), card against the CPU
+    rng = np.random.RandomState(20)
+    n_reg, stride, first = 2048, 800, 150
+    S = first + n_reg * stride + 1024
+    raw = (rng.randint(-3000, 3000, size=(3, S)) + np.array([[1500], [-900], [400]])
+           ).astype(np.int16)
+    res = np.array([0.1, 0.1, 0.2], np.float32)
+    reg_labels = rng.randint(0, 2, size=n_reg).astype(np.float32)
+    positions = np.sort(rng.choice(np.arange(200, S - 900), size=4096, replace=False))
+    irr_labels = rng.randint(0, 2, size=4096).astype(np.float32)
+    params = {k: v.numpy() for k, v in ptrain.init_mlp_params(0, device="cpu").items()}
+    raw_card = torch.from_numpy(raw).cuda()
+    trainers = {}
+    for label, make, args in (
+        ("raw_bank", lambda d, mesh=None: ptrain.make_raw_train_step(
+            stride, n_reg, formulation="bank", device=d, mesh=mesh),
+         (res, reg_labels, np.ones(n_reg, np.float32), first)),
+        ("irregular_bank128", lambda d, mesh=None: ptrain.make_irregular_bank_train_step(
+            positions, mode="bank128", device=d, mesh=mesh), (res, irr_labels)),
+        ("irregular_bank128_bf16", lambda d, mesh=None: ptrain.make_irregular_bank_train_step(
+            positions, mode="bank128_bf16", device=d, mesh=mesh), (res, irr_labels)),
+    ):
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _state, card_losses = train_losses(torch, *make("cuda"), params, (raw_card, *args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        _state, cpu_losses = train_losses(torch, *make("cpu"), params,
+                                          (torch.from_numpy(raw), *args))
+        loss_dev = float(np.max(np.abs(np.array(card_losses) - np.array(cpu_losses))))
+        record = {"wall_s": wall, "launches": launched, "loss_max_abs_vs_cpu": loss_dev,
+                  "first_loss": card_losses[0], "last_loss": card_losses[-1]}
+        precision = "bf16" if label.endswith("bf16") else "f32"
+        counter = "ingest_features_bf16" if precision == "bf16" else "ingest_features"
+        if label == "raw_bank":
+            starts = first - 100 + stride * np.arange(n_reg)
+        else:
+            starts = positions - 100
+        starts_t = torch.as_tensor(starts.astype(np.int32))
+        W = dwt.kernel_operator(8, 512, 16, "cpu")
+        plain = device_ingest.ingest_features_plain(torch.from_numpy(raw), torch.from_numpy(res),
+                                                    starts_t, W, precision=precision)
+        kernel = ingest_cuda.ingest_features(raw_card, torch.from_numpy(res).cuda(),
+                                             starts_t.cuda(), W.cuda(), precision=precision)
+        record["rows_max_abs_vs_plain"] = (kernel.cpu() - plain).abs().max().item()
+        if label == "irregular_bank128":
+            for module, attr in counters.values():
+                setattr(module, attr, 0)
+            _s, mesh_losses = train_losses(torch, *make("cuda", mesh4), params, (raw_card, *args))
+            record["data_parallel_launches"] = ingest_cuda.LAUNCHES
+            record["data_parallel_loss_max_abs"] = float(
+                np.max(np.abs(np.array(mesh_losses) - np.array(card_losses))))
+            if record["data_parallel_launches"] != MESH_STEPS:
+                raise AssertionError("the data-parallel bank128 step did not launch K1 each step")
+            k1 += MESH_STEPS
+        trainers[label] = record
+        if (launched[counter] != MESH_STEPS or loss_dev > MESH_LOSS_TOL
+                or record["rows_max_abs_vs_plain"] > KERNEL_TOL
+                or record.get("data_parallel_loss_max_abs", 0.0) > MESH_LOSS_TOL
+                or not card_losses[-1] < card_losses[0]):
+            emit("mesh_trainers", trainers=trainers, loss_tol=MESH_LOSS_TOL, tol=KERNEL_TOL)
+            raise AssertionError(f"{label}: launches, rows or losses off")
+        if precision == "bf16":
+            k1_bf16 += launched[counter]
+        else:
+            k1 += launched[counter]
+    emit("mesh_trainers", trainers=trainers, loss_tol=MESH_LOSS_TOL, tol=KERNEL_TOL)
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         k1_bf16_launches=k1_bf16)
+    return k1, k1_bf16
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -4942,6 +5194,9 @@ def main() -> int:
         # 4h. the parse pool, overlapped staging, the native epoch stage
         inpipe_k1, inpipe_k4, inpipe_k5 = phase_input_pipeline(torch, np, info, model, counters,
                                                                work)
+        # 4i. single-process meshes and the raw-stream trainers
+        mesh_k1, mesh_k1_bf16 = phase_mesh(torch, np, info, counters)
+        rung_launches["bf16"] += mesh_k1_bf16
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -5050,10 +5305,12 @@ def main() -> int:
         # the main path's run and the runs of phases 4c (mini-batch SGD,
         # the nn batch, load and serve runs), 4d (the tree families), 4e
         # (fan-out, populations, elastic, line searches), 4f (the seizure
-        # workload's -pallas runs), 4g (cache misses, the trace, MLlib) and
-        # 4h (the parse pool, overlap, the remote pool)
+        # workload's -pallas runs), 4g (cache misses, the trace, MLlib), 4h
+        # (the parse pool, overlap, the remote pool) and 4i (meshes, the
+        # raw-stream trainers)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
-                     main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1,
+                     main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
+                     + mesh_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),

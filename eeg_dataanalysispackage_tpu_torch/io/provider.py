@@ -501,6 +501,8 @@ class OfflineDataProvider:
         precision: str = "f32",
         recordings: Optional[Sequence[Tuple[str, int, brainvision.Recording]]] = None,
         overlap: Optional[bool] = None,
+        mesh=None,
+        mesh_axis: Optional[str] = None,
     ) -> Tuple[torch.Tensor, np.ndarray]:
         """info.txt run -> DWT features without host epochs.
 
@@ -535,6 +537,22 @@ class OfflineDataProvider:
         the thread that does the work. Under overlap the three run at
         once on two or more threads, so their sum exceeds the wall, which
         ``timings["wall"]`` gives.
+
+        ``mesh`` (a ``parallel.mesh.Mesh`` with two or more devices on its
+        ingest axis: ``mesh_axis``, else ``time`` when the mesh has one,
+        else its last axis) splits each INT_16 recording over the axis's
+        devices through ``parallel/sharded_ingest.py``: the stream padded
+        to the shard grid (validity judged on the true length), one block
+        a device with its right neighbour's halo, the kernel once a shard,
+        the rows gathered in marker order (``ingest.sharded_recordings``;
+        ``ingest.sharded_halo_windows`` counts the windows that read a
+        neighbour's halo).
+        As in the JAX package, a recording the sharded path cannot express
+        (a non-INT_16 stream) takes the unsharded kernel and counts
+        ``ingest.sharded_fallback``; the route is decided from the
+        recording's header before anything is launched. The sharded path
+        computes f32 rows, as the JAX package's does. A one-device axis
+        is the unsharded path.
         """
         if backend not in FUSED_BACKENDS:
             raise ValueError(f"unknown device-ingest backend {backend!r}")
@@ -555,6 +573,19 @@ class OfflineDataProvider:
             precision=precision,
         )
         balance = BalanceState()
+        sharded_extract, n_shards = None, 1
+        if mesh is not None:
+            from ..parallel import mesh as pmesh, sharded_ingest
+
+            axis = mesh_axis or (pmesh.TIME_AXIS if pmesh.TIME_AXIS in mesh.axis_names
+                                 else mesh.axis_names[-1])
+            n_shards = int(mesh.shape[axis])
+            if n_shards >= 2:
+                sharded_extract = sharded_ingest.make_sharded_ingest(
+                    mesh, wavelet_index=wavelet_index, epoch_size=epoch_size,
+                    skip_samples=skip_samples, feature_size=feature_size, pre=self._pre,
+                    axis=axis,
+                )
         timings = {"parse": 0.0, "stage": 0.0, "featurize": 0.0}
         t_start = time.perf_counter()
 
@@ -573,6 +604,13 @@ class OfflineDataProvider:
             (the balance scan and the stale channel-index reuse are
             order-dependent)."""
             _rel_path, guessed, rec = item
+            if sharded_extract is not None:
+                if rec.header.binary_format == "INT_16":
+                    return featurize_sharded(guessed, rec)
+                logger.warning("sharded ingest stages raw int16 streams; %s is %s: the "
+                               "unsharded kernel featurizes it", _rel_path,
+                               rec.header.binary_format)
+                obs.metrics.count("ingest.sharded_fallback")
             t1 = time.perf_counter()
             raw, res, n_samples = device_ingest.stage_raw(
                 rec, self.channel_indices_for(rec), self.device
@@ -586,6 +624,33 @@ class OfflineDataProvider:
             out = featurize(raw, res, plan.positions, plan.mask)
             timings["featurize"] += time.perf_counter() - t2
             return out[: plan.n_kept], plan.targets  # kept rows lead the plan
+
+        def featurize_sharded(guessed, rec):
+            """One INT_16 recording through the sharded ingest: the stream
+            padded to the shard grid, planned (validity on the true
+            length), split over the devices, the kernel once a shard ->
+            (kept rows on the mesh's first device, targets)."""
+            from ..parallel import sharded_ingest
+
+            t1 = time.perf_counter()
+            indices = self.channel_indices_for(rec)
+            raw, res = rec.raw_int16(indices), rec.resolutions(indices)
+            n_true = raw.shape[1]
+            block = sharded_ingest.shard_block_for(n_true, n_shards)
+            raw = np.pad(raw, ((0, 0), (0, n_shards * block - n_true)))
+            plan = sharded_ingest.plan_sharded_ingest(
+                rec.markers, guessed, raw.shape[1], n_shards, block, pre=self._pre,
+                balance=balance, valid_n_samples=n_true,
+            )
+            staged = sharded_ingest.stage_recording_local_int16(raw, mesh, axis)
+            t2 = time.perf_counter()
+            timings["stage"] += t2 - t1
+            rows = sharded_extract(staged, res, plan).to(self.device)
+            timings["featurize"] += time.perf_counter() - t2
+            obs.metrics.count("ingest.sharded_recordings")
+            obs.metrics.count("ingest.sharded_halo_windows",
+                              plan.halo_windows(self._pre + skip_samples + epoch_size))
+            return rows, plan.targets
 
         source = timed(self.iter_recordings() if recordings is None else iter(recordings))
         use_overlap = default_overlap() if overlap is None else bool(overlap)

@@ -24,8 +24,11 @@ whatever it launches (the fused ingest kernel under ``overlap=true``,
 the CPU the built-in stage is ``torch.as_tensor`` (no pinning: pinned
 memory needs CUDA).
 
-The JAX package's ``mesh=`` form (a batch padded and sharded over a
-device mesh) comes with the multi-device slice (ROADMAP.md A8).
+The ``mesh=`` form pads each batch and splits it over the mesh's data
+axis (``parallel/mesh.shard_batch_with_mask``: the arrays as float32
+:class:`~..parallel.mesh.ShardedArray` s and a trailing validity mask,
+or without the mask when ``with_mask`` is False); the producer waits for
+its copies to the mesh's other cards before it hands an item over.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from . import ENV_PREFETCH_DEPTH  # noqa: F401  (re-export: the knob's name)
 from . import default_prefetch_depth
 from ..obs import chaos, domain as run_domain, events
+from ..parallel import mesh as pmesh
 from ..utils.device import host_to_device, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -90,9 +94,12 @@ def minibatches(
 
 
 def _tensors(obj) -> Iterator[torch.Tensor]:
-    """Every tensor inside a staged item (nested tuples and lists)."""
+    """Every tensor inside a staged item (nested tuples and lists, and
+    the shards of a sharded array)."""
     if isinstance(obj, torch.Tensor):
         yield obj
+    elif isinstance(obj, pmesh.ShardedArray):
+        yield from obj.shards
     elif isinstance(obj, (tuple, list)):
         for x in obj:
             yield from _tensors(x)
@@ -117,6 +124,8 @@ def prefetch(
     buffer_size: Optional[int] = None,
     stage_fn=None,
     watchdog_poll_s: float = _WATCHDOG_POLL_S,
+    mesh=None,
+    with_mask: bool = True,
 ) -> Iterator:
     """Stage the items of ``batches`` on ``device`` ahead of consumption.
 
@@ -130,12 +139,16 @@ def prefetch(
     early close, the consumer's watchdog and the ``staging.producer``
     chaos point apply to a ``stage_fn`` producer unchanged.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``): each item padded and split over
+    the mesh's data axis, with a trailing validity mask when
+    ``with_mask``; ``device`` is then the mesh's first device.
+
     ``buffer_size`` bounds the staged items in flight; None resolves
     ``EEG_TPU_PREFETCH_DEPTH`` (default 2). An exception raised by the
     source or by staging surfaces at the consumer, at its place in the
     order.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.first_device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if buffer_size is None:
@@ -146,7 +159,14 @@ def prefetch(
     def stage(batch: Sequence[np.ndarray]):
         if stage_fn is not None:
             return stage_fn(batch)
-        return tuple(host_to_device(a, dev) for a in batch)
+        if mesh is None:
+            return tuple(host_to_device(a, dev) for a in batch)
+        staged = (pmesh.shard_batch_with_mask(mesh, *batch) if with_mask
+                  else tuple(pmesh.shard_batch(a, mesh)[0] for a in batch))
+        # the item's event covers this thread's stream on dev only
+        for other in {d for d in mesh.devices.flat if d.type == "cuda" and d != dev}:
+            torch.cuda.current_stream(other).synchronize()
+        return staged
 
     buf: "queue.Queue" = queue.Queue(maxsize=buffer_size)
     stop = threading.Event()
@@ -246,7 +266,7 @@ def prefetch(
                 stream = torch.cuda.current_stream(dev)
                 stream.wait_event(ready)
                 for t in _tensors(staged):
-                    if t.is_cuda:
+                    if t.device == dev:
                         t.record_stream(stream)
             yield staged
     finally:

@@ -1,8 +1,7 @@
 """Population training: folds x seeds x a hyperparameter grid.
 
-Port of the JAX package's ``models/population.py`` (without the
-mesh-sharded engine; see ROADMAP.md). A population is the cartesian
-expansion of
+Port of the JAX package's ``models/population.py``. A population is the
+cartesian expansion of
 
     feature configs         (``fe_sweep=a|b``, the seizure workload,
                              linear family only)
@@ -15,6 +14,12 @@ default, ``population_mode=vmap``) or one member at a time
 (``population_mode=looped``, and the fallback for members the batched
 engines cannot express: ``PopulationVmapUnsupported``, logged and
 counted as ``population.fallback_looped``; nothing else is caught).
+Given a device mesh (``devices=``/``mesh_axes=``), a linear population in
+``vmap`` mode trains sharded (``train_linear_population_sharded``: the
+member axis over :func:`member_mesh_axis`); nn and ``looped`` populations
+keep the JAX package's single-device rule (``population.mesh_unsupported_family``).
+A failed sharded training raises: the JAX package's
+``population.mesh_fallback`` to one device is not ported.
 
 ``cv=1`` is the reference's seed-1 shuffle and 70/30 split, so
 ``cv=1&seeds=1`` without a sweep is the plain ``train_clf=`` run;
@@ -290,6 +295,15 @@ def _stacked_features(members, feature_sets, row_idx=None) -> torch.Tensor:
     return torch.stack(mats)
 
 
+def member_mesh_axis(mesh) -> str:
+    """The mesh axis the member axis shards over: ``data`` when the mesh
+    has it (the population is data parallelism over members), else its
+    first axis."""
+    from ..parallel import mesh as pmesh
+
+    return pmesh.DATA_AXIS if pmesh.DATA_AXIS in mesh.axis_names else mesh.axis_names[0]
+
+
 def run_population(
     name: str,
     make_classifier: Callable,
@@ -300,14 +314,18 @@ def run_population(
     stage: Optional[Callable] = None,
     states: Optional[Dict] = None,
     feature_sets: Optional[Sequence[Tuple[str, torch.Tensor]]] = None,
+    mesh=None,
 ) -> Tuple[stats.PopulationStatistics, Dict]:
     """Train and test one classifier family's population on ``features``
     (n, d) rows on the run's device with ``targets`` (n,).
 
     Returns ``(PopulationStatistics, block)``, the block being the JAX
     package's population record (``classifier``, ``members``, ``mode``,
-    ``requested_mode``, ``mesh`` None, ``shape``, ``compiles`` None: the
-    port compiles no programs, ``accuracy``, ``summary``). ``stage`` is
+    ``requested_mode``, ``mesh``, ``shape``, ``compiles`` None: the port
+    compiles no programs, ``accuracy``, ``summary``); ``mesh`` is None
+    without a mesh, else the JAX package's record (``rung``, ``axis``,
+    ``shape``, ``devices``, and for a sharded training
+    ``members_per_device`` and ``padded_members``). ``stage`` is
     the builder's stage context (the ``train`` and ``test`` wall times);
     ``states``, when given, receives ``{label: {"state", "test_index",
     "predictions"}}`` per member (the trained weights or network, the
@@ -317,7 +335,11 @@ def run_population(
     rows)`` pairs, one per ``spec.fe_configs`` entry, all over the same
     rows and of one shape; each member trains and tests on its config's
     matrix (the batched engine takes them stacked on the member axis).
-    Linear family only."""
+    Linear family only.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; the linear family in ``vmap``
+    mode trains with its members split over :func:`member_mesh_axis`
+    (block ``mode`` "sharded")."""
     from .. import obs
     from ..obs import events
     from ..parallel.population import PopulationVmapUnsupported
@@ -373,10 +395,33 @@ def run_population(
         obs.metrics.count("population.degenerate_seed_axis")
 
     mode_used = spec.mode
+    mesh_block = None
+    if mesh is not None:
+        axis = member_mesh_axis(mesh)
+        mesh_block = {"rung": "single_device", "axis": axis, "shape": mesh.shape,
+                      "devices": int(mesh.devices.size)}
+        if not linear:
+            logger.warning("population mesh sharding applies to the linear family "
+                           "(logreg/svm); %s trains single-device", name)
+            obs.metrics.count("population.mesh_unsupported_family")
+        elif spec.mode != "vmap":
+            logger.warning("population_mode=looped trains single-device; the mesh "
+                           "applies to the vmapped engine")
     with stage("train", classifier=name, population=len(members)), events.span(
             f"population.{name}", classifier=name, members=len(members), mode=spec.mode):
         trained = None
-        if spec.mode == "vmap":
+        if mesh is not None and linear and spec.mode == "vmap":
+            from ..parallel import population as engines
+
+            trained = _train_sharded(features, targets, folds, members, base_cfg, mesh,
+                                     feature_sets)
+            mode_used = "sharded"
+            n_shards = int(mesh.shape[mesh_block["axis"]])
+            padded = engines.pad_members(len(members), n_shards)
+            mesh_block.update(rung="mesh", members_per_device=padded // n_shards,
+                              padded_members=padded - len(members))
+            obs.metrics.count("population.sharded_members", len(members))
+        elif spec.mode == "vmap":
             try:
                 trained = _train_vmapped(name, template, features, targets, folds, members,
                                          base_cfg, feature_sets)
@@ -416,7 +461,7 @@ def run_population(
         "members": len(members),
         "mode": mode_used,
         "requested_mode": spec.mode,
-        "mesh": None,
+        "mesh": mesh_block,
         "shape": spec.describe(),
         "compiles": None,
         "accuracy": {label: round(s.calc_accuracy(), 6) for label, s in result.items()},
@@ -474,6 +519,31 @@ def _train_vmapped(name, template, features, targets, folds, members, base_cfg,
     return template.population_fit(_rows(features, train_idx),
                                    _labels(targets, train_idx, dev),
                                    [m.seed for m in members], lrs)
+
+
+def _train_sharded(features, targets, folds, members, base_cfg, mesh,
+                   feature_sets=None) -> List:
+    """The linear family's members over ``mesh``: the fold and feature
+    dispatch of :func:`_train_vmapped`, handed to
+    ``train_linear_population_sharded``."""
+    from ..parallel import population as engines
+
+    dev = features.device
+    steps, regs, seeds, wpos, wneg = _member_axes(members, base_cfg)
+    stacked = _stacked(members, feature_sets)
+    if len(folds) == 1:
+        train_idx = folds[0][0]
+        x = (_stacked_features(members, feature_sets, train_idx) if stacked
+             else _rows(features, train_idx))
+        y, masks = _labels(targets, train_idx, dev), None
+    else:
+        x = _stacked_features(members, feature_sets) if stacked else features
+        y, masks = _labels(targets, None, dev), _fold_masks(members, folds, len(targets))
+    weights = engines.train_linear_population_sharded(
+        x, y, base_cfg, steps, regs, seeds, masks, mesh, weight_pos=wpos, weight_neg=wneg,
+        axis=member_mesh_axis(mesh),
+    )
+    return list(weights.to(dev))
 
 
 def _train_looped(name, make_classifier, config, features, targets, folds, members,

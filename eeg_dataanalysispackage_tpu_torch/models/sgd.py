@@ -34,6 +34,14 @@ sampled count. The mask is drawn on the training device; the count and
 the step's scalars stay there, so sampling adds no host round trip (the
 convergence test, when ``convergence_tol > 0``, reads its one flag pair
 a step, as the full-batch step does).
+
+Data parallelism (``mesh=`` of :func:`train_linear` and
+:func:`train_linear_elastic`): the batch is padded and split over the
+mesh's data axis with a validity mask (``parallel/mesh.shard_batch_with_mask``),
+each shard's gradient is computed on its device, the shard gradients are
+added in shard order on the first device (the JAX package's psum, whose
+order is XLA's), and the updated weights go back to every shard. As in
+the JAX package, mini-batch draws span the padded rows.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from ..utils import threefry
 from ..utils.device import resolve_device
 
@@ -102,7 +111,16 @@ def mini_batch_masks(seeds: torch.Tensor, ts: torch.Tensor, n: int,
 
 def _gradient(x, y, w, class_w, mask, config: SGDConfig) -> torch.Tensor:
     """``x.T @ (mult * class weight * mask)``, the loss's per-sample
-    multiplier at ``w``."""
+    multiplier at ``w``. For a sharded ``x`` each shard's gradient is
+    computed on its device and the shard gradients are added in shard
+    order on ``w``'s device."""
+    if isinstance(x, pmesh.ShardedArray):
+        parts = [
+            _gradient(xs, ys, w.to(xs.device), None if class_w is None else class_w.shards[i],
+                      None if mask is None else mask.shards[i], config)
+            for i, (xs, ys) in enumerate(zip(x.shards, y.shards))
+        ]
+        return pmesh.sum_in_order(parts, w.device)
     margin = x @ w
     if config.loss == "logistic":
         mult = torch.sigmoid(margin) - y
@@ -122,7 +140,8 @@ def _step(x, y, class_w, mask, count: float, config: SGDConfig, carry: Carry,
           t: int) -> Carry:
     """Iteration ``t`` (1-based, absolute) of the MLlib-SGD loop over
     ``x`` (n, d), ``y`` (n,) and the optional sample ``mask`` (n,) whose
-    sum is ``count``; the JAX package's scan body (``_make_scan_step``).
+    sum is ``count`` (or, data-parallel, sharded ``x``, ``y``, class
+    weights and mask); the JAX package's scan body (``_make_scan_step``).
     The gradient is ``x.T @ (mult * mask)`` averaged over ``count``; an
     empty sample neither decays nor updates. The scalars are float32, as
     the JAX engine computes them. With ``convergence_tol == 0`` the early
@@ -181,7 +200,12 @@ def _sampled_step(x, y, class_w, mask, config: SGDConfig, carry: Carry,
 
 
 def _prepare(features, labels, config: SGDConfig, sample_mask, device):
-    """(x, y, class weights or None, mask or None, count) on ``device``."""
+    """(x, y, class weights or None, mask or None, count) on ``device``;
+    sharded inputs (the data-parallel form) stay on their shards."""
+    if isinstance(features, pmesh.ShardedArray):
+        class_w = (labels.map(lambda y: y * config.weight_pos + (1.0 - y) * config.weight_neg)
+                   if config.weighted else None)
+        return features, labels, class_w, sample_mask, float(sample_mask.sum().item())
     x = torch.as_tensor(features, device=device).to(torch.float32)
     y = torch.as_tensor(labels, device=device).to(torch.float32)
     class_w = (
@@ -194,15 +218,32 @@ def _prepare(features, labels, config: SGDConfig, sample_mask, device):
     return x, y, class_w, mask, float(mask.sum().item())
 
 
+def _shard(mesh, features, labels, sample_mask):
+    """The data-parallel inputs: ``features``, ``labels`` and the validity
+    mask (times ``sample_mask``, padded with zeros, when given) split
+    over ``mesh``'s data axis."""
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    x, y, mask = pmesh.shard_batch_with_mask(mesh, host(features), host(labels))
+    if sample_mask is not None:
+        mask = mask * pmesh.shard_batch(np.asarray(host(sample_mask), np.float32), mesh)[0]
+    return x, y, mask
+
+
 def train_linear(
     features: torch.Tensor, labels: torch.Tensor, config: SGDConfig,
-    sample_mask=None,
+    sample_mask=None, mesh=None,
 ) -> torch.Tensor:
     """Train a linear model on ``features``' device; returns (d,) float32
     weights there. ``sample_mask`` (n,) selects the training rows of the
     full matrix (a multi-fold population member's fold), as the JAX
-    engine's ``sample_mask`` does: mini-batch draws still span all n."""
+    engine's ``sample_mask`` does: mini-batch draws still span all n.
+    With ``mesh`` the batch is split over its data axis (data-parallel;
+    the module's docstring) and the weights land on its first device."""
     _check_config(config)
+    if mesh is not None:
+        features, labels, sample_mask = _shard(mesh, features, labels, sample_mask)
     x, y, class_w, mask, count = _prepare(features, labels, config, sample_mask,
                                           features.device)
     carry: Carry = partial_fit_carry(x.shape[1], device=x.device)
@@ -273,6 +314,7 @@ def train_linear_elastic(
     max_restarts: int = 3,
     sentinel=None,
     probe_on_failure: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
     """:func:`train_linear` with mid-train checkpoint/restore: the
     iterations run in ``chunk_iters`` chunks (:func:`partial_fit_linear`,
@@ -284,13 +326,18 @@ def train_linear_elastic(
     the one trajectory, so the weights equal :func:`train_linear`'s.
     Each chunk fires the ``device.step`` chaos point; the weight norm is
     the divergence sentinel's loss stream. Returns (d,) float32 weights
-    on ``features``' device."""
+    on ``features``' device (``mesh``: data-parallel over its data axis,
+    the weights on its first device)."""
     from ..obs import chaos, events, failure
 
     _check_config(config)
-    dev = features.device
-    x = features.to(torch.float32)
-    y = torch.as_tensor(labels, device=dev).to(torch.float32)
+    sample_mask = None
+    if mesh is not None:
+        x, y, sample_mask = _shard(mesh, features, labels, None)
+    else:
+        x = features.to(torch.float32)
+        y = torch.as_tensor(labels, device=features.device).to(torch.float32)
+    dev = x.device
     total = int(config.num_iterations)
     chunks = [(t0, min(int(chunk_iters), total - t0))
               for t0 in range(0, total, int(chunk_iters))]
@@ -304,7 +351,7 @@ def train_linear_elastic(
         chaos.maybe_fire("device.step")
         w = torch.as_tensor(state["w"], device=dev).to(torch.float32)
         out = partial_fit_linear((w, bool(state["converged"]), int(state["n_updates"])),
-                                 t0, x, y, config, n, device=dev)
+                                 t0, x, y, config, n, sample_mask=sample_mask, device=dev)
         new = {"w": out[0], "converged": np.bool_(out[1]), "n_updates": np.int32(out[2])}
         return new, torch.linalg.vector_norm(out[0])
 

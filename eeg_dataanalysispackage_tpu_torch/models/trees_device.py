@@ -33,8 +33,9 @@ other (the host random forest draws feature subsets lazily per splittable
 node, this path a mask per heap slot, :func:`draw_feature_masks`); single
 trees with no feature subsetting agree with the host grower.
 
-Not ported: ``grow_forest_sharded`` (tree-parallel growth over a device
-mesh; see ROADMAP.md).
+:func:`grow_forest_sharded` grows a forest tree-parallel over a device
+mesh (``parallel/mesh.py``), each device its block of trees, bit-equal to
+:func:`grow_forest`.
 """
 
 from __future__ import annotations
@@ -305,6 +306,64 @@ def grow_forest(
             min_instances=min_instances,
         ))
     return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
+
+def grow_forest_sharded(
+    binned,  # (n, d) int — the base (un-bootstrapped) data
+    labels,  # (n,) int
+    bootstrap,  # (T, n) int sample indices per tree
+    feature_masks,  # (T, internal nodes, d) bool
+    *,
+    mesh,
+    max_bins: int,
+    impurity: str,
+    max_depth: int,
+    min_instances: int,
+) -> Dict[str, torch.Tensor]:
+    """Tree-parallel forest growth over ``mesh``'s first axis.
+
+    The forest axis is the natural parallel dimension (MLlib grows trees
+    as independent jobs): each device grows ``T / n_devices`` trees
+    through :func:`_grow_all_vmapped` on its own stream
+    (``parallel/mesh.run_on_shards``), with
+    the dataset and labels copied to it; ``T`` is padded up to a multiple
+    of the axis with repeat trees, then trimmed, so any forest size works
+    on any mesh. Returns :func:`grow_forest`'s (T, n_nodes) heap arrays,
+    gathered in tree order to the mesh's first device."""
+    _check_device_depth(max_depth)
+    from ..parallel import mesh as pmesh
+
+    devices = mesh.axis_devices(mesh.axis_names[0])
+    n_dev = len(devices)
+    bootstrap = torch.as_tensor(bootstrap)
+    feature_masks = torch.as_tensor(feature_masks)
+    T = bootstrap.shape[0]
+    pad = (-T) % n_dev
+    if pad:
+        bootstrap = torch.cat([bootstrap, bootstrap[:pad]])
+        feature_masks = torch.cat([feature_masks, feature_masks[:pad]])
+    per = bootstrap.shape[0] // n_dev
+
+    def shard(i, dev):
+        block = slice(i * per, (i + 1) * per)
+        return _grow_all_vmapped(
+            torch.as_tensor(binned).to(dev), torch.as_tensor(labels).to(dev),
+            bootstrap[block].to(dev), feature_masks[block].to(dev), max_bins=max_bins,
+            impurity=impurity, max_depth=max_depth, min_instances=min_instances,
+        )
+
+    parts = pmesh.run_on_shards(devices, shard)
+    return {k: pmesh.gather([p[k] for p in parts], devices[0])[:T] for k in parts[0]}
+
+
+def _grow_all_vmapped(binned, labels, bootstrap, feature_masks, *, max_bins: int,
+                      impurity: str, max_depth: int, min_instances: int):
+    """Every tree of ``bootstrap`` grown at once on the inputs' device:
+    :func:`grow_forest` with all trees in one chunk (the JAX package's
+    vmapped grower)."""
+    return grow_forest(binned, labels, bootstrap, feature_masks, max_bins=max_bins,
+                       impurity=impurity, max_depth=max_depth, min_instances=min_instances,
+                       tree_chunk=max(1, bootstrap.shape[0]))
 
 
 def _grow_one_reg(

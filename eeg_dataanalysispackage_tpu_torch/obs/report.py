@@ -4,10 +4,10 @@ Port of the JAX package's ``obs/report.py``. One run under
 ``report=<dir>`` (or ``EEG_TPU_RUN_REPORT_DIR``) writes one atomic
 ``run_report.json``: the query and the environment knobs set, the
 device (platform, count, the card's name), the fused backend, the
-precision decision, the population, serving, lifecycle and workload
-blocks, the stage timers, the run's metrics, the span summary (its
-spans also go to ``spans.jsonl``), the feature and plan caches'
-counters, the fault plan's per-rule calls and firings, and the
+precision decision, the mesh (``devices=``/``mesh_axes=``), the
+population, serving, lifecycle and workload blocks, the stage timers,
+the run's metrics, the span summary (its spans also go to
+``spans.jsonl``), the feature and plan caches' counters, the fault plan's per-rule calls and firings, and the
 statistics' sha256, accuracy and extended classification block.
 
 When the run raises instead, the same telemetry writes
@@ -17,7 +17,7 @@ ring, the metrics and the fault plan with its counts. Schemas:
 package's; ``tools/obs_report.py show`` renders either package's.
 
 Keys for machinery the port does not have keep the JAX package's names:
-``mesh``, ``dedup``, ``gateway``, ``fleet``, ``overlap``, ``trace`` and
+``dedup``, ``gateway``, ``fleet``, ``trace`` and
 ``caches.compile_cache_dir`` are None, ``degradation`` is empty (the
 port has no degradation ladder), and ``xla`` is the JAX package's
 compilation block as it reads without a compiler to monitor
@@ -129,6 +129,10 @@ class RunTelemetry:
         #: whether the fused ingest overlapped (``overlap=``); None when
         #: the run never reached the fused ingest
         self.overlap: Optional[bool] = None
+        #: the run's mesh record (``requested``, ``rung``, ``shape``,
+        #: ``devices``, the population's), None without ``devices=`` or
+        #: ``mesh_axes=``
+        self.mesh: Optional[Dict[str, Any]] = None
 
     @property
     def report_path(self) -> str:
@@ -159,7 +163,7 @@ class RunTelemetry:
             "workload": self.workload,
             "precision": self.precision,
             "overlap": self.overlap,
-            "mesh": None,
+            "mesh": self.mesh,
             "dedup": None,
             "gateway": None,
             "fleet": None,

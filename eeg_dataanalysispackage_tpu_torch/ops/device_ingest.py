@@ -22,6 +22,7 @@ kernel's wrapper takes it for CPU tensors, and the tests and
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
@@ -270,3 +271,85 @@ def ingest_features_plain(
     if precision == "int4":
         return quant.int4_feature_path(rows, K)
     return rows
+
+
+#: the JAX package's regular-train formulations; every one runs the fused
+#: ingest kernel here
+REGULAR_FORMULATIONS = ("reshape", "conv", "phase", "partial", "bank")
+# the JAX package's phase-formulation group bound (its ``auto`` rule)
+_PHASE_MAX_GROUP = 16
+
+
+def resolve_regular_formulation(formulation: str, stride: int, device=None) -> str:
+    """The JAX package's ``auto`` rule: ``reshape`` on the CPU; on a card
+    ``phase`` when ``lcm(stride, 128) / stride`` is at most 16, else
+    ``conv``. Any other name must be one of :data:`REGULAR_FORMULATIONS`.
+    The name only labels the featurizer: every formulation runs the one
+    kernel."""
+    if formulation == "auto":
+        if torch.device(device if device is not None else "cuda").type == "cpu":
+            return "reshape"
+        group = math.lcm(stride, 128) // stride
+        return "phase" if group <= _PHASE_MAX_GROUP else "conv"
+    if formulation not in REGULAR_FORMULATIONS:
+        raise ValueError(f"unknown regular-ingest formulation {formulation!r}")
+    return formulation
+
+
+def make_regular_ingest_featurizer(
+    stride: int,
+    n_epochs: int,
+    wavelet_index: int = 8,
+    epoch_size: int = 512,
+    skip_samples: int = 175,
+    feature_size: int = 16,
+    pre: int = constants.PRESTIMULUS_SAMPLES,
+    n_channels: int = 3,
+    formulation: str = "auto",
+    device=None,
+):
+    """Fused int16 ingest for a regular stimulus train (a fixed stimulus
+    onset asynchrony ``stride``): ``(raw (C, S), resolutions (C,),
+    first_position) -> (n_epochs, C*feature_size)`` features, epoch k's
+    marker at ``first_position + k*stride``.
+
+    The JAX package forms these windows five ways (``formulation``); here
+    every one of them, ``bank`` (K2's call site) included, launches the
+    fused ingest kernel (``ops/ingest_cuda``) once at the positions
+    ``first + k*stride``, with subtract-first numerics (within the
+    ``bank`` formulation's 5e-5 of the JAX package's rows). ``device``
+    (None: the card) resolves ``auto``; the callable carries the
+    resolved name as ``.formulation``. Needs ``stride >= pre + skip +
+    epoch_size`` (787 at the defaults), as the JAX package does, and the
+    windows inside the stream: ``first_position >= pre`` and the last
+    window ending by ``S``."""
+    from . import ingest_cuda
+
+    formulation = resolve_regular_formulation(formulation, stride, device)
+    win = pre + skip_samples + epoch_size
+    if stride < win:
+        raise ValueError(
+            f"regular ingest needs stride >= {win}; got {stride} "
+            "(use the irregular-position kernel instead)"
+        )
+    featurize = ingest_cuda.make_cuda_ingest_featurizer(
+        wavelet_index=wavelet_index, epoch_size=epoch_size, skip_samples=skip_samples,
+        feature_size=feature_size, pre=pre,
+    )
+    offsets = np.arange(n_epochs, dtype=np.int64) * stride
+    mask = np.ones(n_epochs, dtype=bool)
+
+    def ingest(raw, resolutions, first_position):
+        C, S = raw.shape
+        if C != n_channels:
+            raise ValueError(f"regular ingest built for {n_channels} channels; got {C}")
+        first = int(first_position)
+        if first < pre or first - pre + (n_epochs - 1) * stride + win > S:
+            raise ValueError(
+                f"{n_epochs} windows of stride {stride} from position {first} do not fit "
+                f"a stream of {S} samples (pre {pre})"
+            )
+        return featurize(raw, resolutions, first + offsets, mask)
+
+    ingest.formulation = formulation
+    return ingest

@@ -1,2 +1,4 @@
-"""Member-axis training engines (the JAX package's ``parallel/``); the
-mesh-sharded engines are not ported yet (see ROADMAP.md)."""
+"""Device meshes and the engines over them (the JAX package's
+``parallel/``): single-process meshes, the sharded ingest, the member-axis
+population engines and the data-parallel MLP trainers; the multi-process
+half is not ported yet (see ROADMAP.md)."""

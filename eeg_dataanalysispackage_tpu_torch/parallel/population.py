@@ -1,9 +1,8 @@
 """Population training engines: P members on one leading member axis.
 
-Port of the JAX package's ``parallel/population.py`` (its single-device
-engines; the mesh-sharded one is not ported). Three engines, each built
-on the per-member step the sequential runs take, so a member's trajectory
-is the sequential one, batched:
+Port of the JAX package's ``parallel/population.py``. Four engines, each
+built on the per-member step the sequential runs take, so a member's
+trajectory is the sequential one, batched:
 
 - :func:`train_linear_population`: logreg and svm (MLlib-SGD) with the
   members' weights a (P, d) tensor on the run's device. A single-fold
@@ -23,6 +22,13 @@ is the sequential one, batched:
   (``sgd.mini_batch_masks``), each row bit-equal to the member's own
   ``sgd.mini_batch_mask``; multi-fold members draw over all n rows, as
   the JAX package keys them.
+- :func:`train_linear_population_sharded`: the batched linear engine with
+  the member axis split over a mesh axis (``parallel/mesh.py``): the
+  members padded to a multiple of the axis with inert members (an
+  all-zero sample mask: no update ever fires, the weights stay zero),
+  each device's block of members trained by
+  :func:`train_linear_population` on its own device and stream,
+  the weights gathered in member order to the mesh's first device.
 - :func:`train_linear_population_looped`: the same per-member invocation,
   one member at a time (a single-fold member is ``sgd.train_linear``
   exactly, a multi-fold one ``train_linear`` with its fold's
@@ -172,6 +178,74 @@ def train_linear_population(
         if tol > 0.0 and t % POLL_EVERY == 0 and t < total and bool(converged.all()):
             break
     return w, converged, n_updates
+
+
+def pad_members(n_members: int, n_shards: int) -> int:
+    """The smallest multiple of ``n_shards`` >= ``n_members``: the
+    sharded engine's padded member count, shared with its record."""
+    return -(-int(n_members) // int(n_shards)) * int(n_shards)
+
+
+def train_linear_population_sharded(
+    features: torch.Tensor,
+    labels,
+    config: sgd.SGDConfig,
+    step_sizes: Sequence[float],
+    reg_params: Sequence[float],
+    seeds: Sequence[int],
+    masks: Optional[np.ndarray],
+    mesh,
+    weight_pos: Optional[Sequence[float]] = None,
+    weight_neg: Optional[Sequence[float]] = None,
+    axis: Optional[str] = None,
+) -> torch.Tensor:
+    """:func:`train_linear_population` with the member axis split over
+    ``mesh``'s ``axis`` (None: its first axis): P members on N devices in
+    blocks of ``pad_members(P, N) / N``. The argument contract is the
+    batched engine's; a (P, n, d) ``features`` stack is split with the
+    members. Padded members reuse member 0's hyperparameters and train
+    under an all-zero sample mask, so they never update; real members get
+    an explicit all-ones mask where ``masks`` is None, which the engine
+    treats value for value as its implicit one. Each device's block runs
+    the batched engine on that device; a failure raises. Returns (P, d)
+    float32 weights in member order on the mesh's first device."""
+    axis = axis or mesh.axis_names[0]
+    devices = mesh.axis_devices(axis)
+    n_shards = len(devices)
+    n_members = len(list(seeds))
+    padded = pad_members(n_members, n_shards)
+    pad = padded - n_members
+    x = features.to(torch.float32)
+    n = x.shape[-2]
+    wp, wn, _weighted = _weight_arrays(config, n_members, weight_pos, weight_neg)
+
+    def member_axis(values):
+        values = list(values)
+        return values + values[:1] * pad
+
+    masks_arr = (np.ones((n_members, n), np.float32) if masks is None
+                 else np.asarray(masks, np.float32))
+    masks_arr = np.concatenate([masks_arr, np.zeros((pad, n), np.float32)])
+    if x.dim() == 3 and pad:
+        x = torch.cat([x, x[:1].expand(pad, -1, -1)])
+    steps, regs, seeds_p = (member_axis(step_sizes), member_axis(reg_params),
+                            member_axis(int(v) for v in seeds))
+    wp, wn = member_axis(wp), member_axis(wn)
+    per = padded // n_shards
+
+    def shard(i, dev):
+        block = slice(i * per, (i + 1) * per)
+        xi = x[block] if x.dim() == 3 else x
+        w, _, _ = train_linear_population(
+            xi.to(dev), torch.as_tensor(labels).to(dev), config, steps[block], regs[block],
+            seeds_p[block], masks_arr[block], weight_pos=wp[block], weight_neg=wn[block],
+        )
+        return w
+
+    from . import mesh as pmesh
+
+    weights = pmesh.run_on_shards(devices, shard)
+    return pmesh.gather(weights, devices[0])[:n_members]
 
 
 def train_linear_population_looped(

@@ -68,6 +68,15 @@ CUDA stream (``EEG_TPU_OVERLAP=1``; recorded in
 :attr:`PipelineBuilder.overlap_resolved`), where a ``staging.producer``
 fault fails the run. None of them changes a result.
 
+``devices=N`` and ``mesh_axes=data:2,time:4`` (the JAX package's grammar
+and messages, ``parallel/mesh.parse_mesh``) build a mesh over the devices
+this process sees (``parallel/mesh.make_mesh``: the cards, or N logical
+CPU shards for ``device="cpu"``); a mesh the machine cannot build raises,
+as there is no ladder. The fused ingest splits each recording over the
+mesh's time axis (``parallel/sharded_ingest.py``) and a linear population
+its members over the data axis (``models/population.py``); the record is
+:attr:`PipelineBuilder.mesh_resolved` (the report's ``mesh`` block).
+
 Every run goes through the run bracket (``scheduler/runtime.py``):
 ``faults=``/``faults_seed=`` (or ``EEG_TPU_FAULTS``) install a fault
 plan in the run's domain, ``report=`` (or ``EEG_TPU_RUN_REPORT_DIR``)
@@ -100,6 +109,7 @@ from ..io import feature_cache, modelfiles, provider, remote
 from ..models import population, registry, seizure, stats
 from ..obs import chaos, events
 from ..ops import decode_ingest
+from ..parallel import mesh as pmesh
 from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
 from ..utils.device import resolve_device
@@ -107,9 +117,7 @@ from ..utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 #: query keys whose paths the port does not run yet (see ROADMAP.md)
-NOT_PORTED_KEYS = (
-    "devices", "mesh_axes", "processes", "coordinator", "process_id",
-)
+NOT_PORTED_KEYS = ("processes", "coordinator", "process_id")
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
 
@@ -373,6 +381,12 @@ class PipelineBuilder:
         #: else ``EEG_TPU_OVERLAP``; the report's ``overlap``); None
         #: before a fused run
         self.overlap_resolved: Optional[bool] = None
+        #: the last run's mesh record, ``{"requested", "rung", "shape",
+        #: "devices"}`` and the population's ``"population"`` block; None
+        #: without ``devices=``/``mesh_axes=``
+        self.mesh_resolved: Optional[dict] = None
+        #: the last query's validated ``devices=``/``mesh_axes=`` request
+        self._mesh_request = None
         #: the last run's report telemetry (``obs/report.RunTelemetry``;
         #: None when the run was not reported), per-run metrics scope and
         #: stage timer (the report's ``stages``), set by the run bracket
@@ -411,6 +425,9 @@ class PipelineBuilder:
         from ..scheduler import runtime
 
         query_map = get_query_map(self.query)
+        # the mesh grammar comes before the serve conflicts, as in the JAX
+        # package's plan parser
+        self._mesh_request = pmesh.parse_mesh(query_map, query_map.get("serve") == "true")
         if query_map.get("serve") == "true":
             # the reference's conflict messages come before any
             # not-yet-ported key of the conflicting modes
@@ -434,6 +451,8 @@ class PipelineBuilder:
         self.overlap_resolved = None
         self.workload_block = self.feature_sets = None
         self.population_block = self.population_states = self.classifiers = None
+        self.mesh_resolved = None
+        mesh = self._resolve_mesh(self._mesh_request)
 
         # task=seizure: sliding windows over interval annotations, subband
         # features on the host, cost-sensitive training, the extended
@@ -454,7 +473,7 @@ class PipelineBuilder:
             validate_action(query_map, pop_spec, task="seizure")
             fe_names = check_seizure_knobs(query_map, pop_spec)
             return self._finish_run(
-                self._execute_seizure(query_map, files, pop_spec, fe_names), query_map)
+                self._execute_seizure(query_map, files, pop_spec, fe_names, mesh), query_map)
 
         # serve=true: the saved classifier loads once and every kept
         # epoch becomes a request through the resident micro-batching
@@ -489,7 +508,7 @@ class PipelineBuilder:
             suffix = fused.group(2)
             backend = "decode" if suffix is None else suffix[1:]
             features, targets = self._fused_features(
-                query_map, odp, wavelet_index, backend, precision, overlap)
+                query_map, odp, wavelet_index, backend, precision, overlap, mesh)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -504,11 +523,13 @@ class PipelineBuilder:
 
         if "classifiers" in query_map:
             return self._finish_run(
-                self._execute_fanout(query_map, features, targets, batch, fe, pop_spec),
+                self._execute_fanout(query_map, features, targets, batch, fe, pop_spec,
+                                     mesh=mesh),
                 query_map)
         if "train_clf" in query_map and pop_spec.active:
             return self._finish_run(
-                self._execute_population(query_map, features, targets, batch, fe, pop_spec),
+                self._execute_population(query_map, features, targets, batch, fe, pop_spec,
+                                         mesh),
                 query_map)
 
         # 3. classifier (PipelineBuilder.java:151-284)
@@ -630,24 +651,52 @@ class PipelineBuilder:
     def _config(query_map) -> Dict[str, str]:
         return {k: v for k, v in query_map.items() if k.startswith("config_")}
 
-    def _execute_population(self, query_map, features, targets, batch, fe, pop_spec):
+    def _resolve_mesh(self, request):
+        """A validated :class:`~..parallel.mesh.MeshRequest` -> a built
+        mesh on the run's device kind, or None when none was requested.
+        A mesh the machine cannot build (more cards than visible) raises:
+        the port has no ladder. Sets :attr:`mesh_resolved`."""
+        if request is None:
+            return None
+        sizes = list(request.shape or ())
+        product = int(np.prod(sizes)) if sizes else None
+        requested = {"devices": request.devices or product, "axes": list(request.axes),
+                     "shape": sizes or None}
+        self.mesh_resolved = {"requested": requested, "rung": "single_device", "shape": None}
+        mesh = pmesh.make_mesh(requested["devices"], axes=request.axes,
+                               shape=tuple(sizes) if sizes else None, device=self.device)
+        self.mesh_resolved.update(rung="mesh", shape=mesh.shape, devices=int(mesh.devices.size))
+        events.event("pipeline.mesh_built", devices=int(mesh.devices.size),
+                     axes=",".join(mesh.axis_names))
+        return mesh
+
+    def _note_population_mesh(self, block) -> None:
+        """The population's mesh record into the run's."""
+        mesh_block = (block or {}).get("mesh")
+        if mesh_block and self.mesh_resolved is not None:
+            self.mesh_resolved["population"] = mesh_block
+
+    def _execute_population(self, query_map, features, targets, batch, fe, pop_spec,
+                            mesh=None):
         """``train_clf=<sgd family>`` with population axes: the members
-        train through ``models.population.run_population``."""
+        train through ``models.population.run_population`` (over
+        ``mesh``'s member axis for the linear family)."""
         name = query_map["train_clf"]
         if features is None:
             features, targets = self._host_features(batch, fe)
         self.population_states = {}
         statistics, block = population.run_population(
             name, lambda: registry.create(name), self._config(query_map), features, targets,
-            pop_spec, stage=self._stage, states=self.population_states,
+            pop_spec, stage=self._stage, states=self.population_states, mesh=mesh,
         )
+        self._note_population_mesh(block)
         self.population_block = block
         logger.info("trained population %s: %d members (%s)", name, block["members"],
                     block["mode"])
         return statistics
 
     def _execute_fanout(self, query_map, features, targets, batch, fe, pop_spec,
-                        classifier_factory=registry.create):
+                        classifier_factory=registry.create, mesh=None):
         """``classifiers=a,b,c``: every named classifier trains and tests
         on the one feature matrix this run made, on the seed-1 70/30
         split, through the calls of a single ``train_clf=`` run (so each
@@ -679,8 +728,9 @@ class PipelineBuilder:
                     states = self.population_states.setdefault(name, {})
                     statistics[name], pop_blocks[name] = population.run_population(
                         name, lambda name=name: classifier_factory(name), config, features,
-                        targets, pop_spec, stage=self._stage, states=states,
+                        targets, pop_spec, stage=self._stage, states=states, mesh=mesh,
                     )
+                    self._note_population_mesh(pop_blocks[name])
                     obs.metrics.count("pipeline.fanout.classifiers")
                     continue
                 if pop_spec.active:
@@ -778,7 +828,7 @@ class PipelineBuilder:
         self.fe = extractors[0][1]
         return feature_sets, targets
 
-    def _execute_seizure(self, query_map, files, pop_spec, fe_names):
+    def _execute_seizure(self, query_map, files, pop_spec, fe_names, mesh=None):
         """``task=seizure``: sliding windows -> subband (or any registry)
         features -> cost-sensitive training -> the extended statistics.
         The JAX package's four routes (``classifiers=`` fan-out with the
@@ -812,15 +862,16 @@ class PipelineBuilder:
             fanout_qm.update({k: v for k, v in config.items()
                               if k.startswith("config_weight_")})
             statistics = self._execute_fanout(fanout_qm, features, targets, None, None,
-                                              pop_spec, self._seizure_classifier)
+                                              pop_spec, self._seizure_classifier, mesh)
         elif "train_clf" in query_map and pop_spec.active:
             name = query_map["train_clf"]
             self.population_states = {}
             statistics, self.population_block = population.run_population(
                 name, lambda: self._seizure_classifier(name), config, features, targets,
                 pop_spec, stage=self._stage, states=self.population_states,
-                feature_sets=feature_sets if pop_spec.fe_configs else None,
+                feature_sets=feature_sets if pop_spec.fe_configs else None, mesh=mesh,
             )
+            self._note_population_mesh(self.population_block)
         else:
             statistics = self._fit_and_test(query_map, features, targets,
                                             self._seizure_classifier, config, task="seizure")
@@ -830,14 +881,15 @@ class PipelineBuilder:
         return statistics
 
     def _fused_features(self, query_map, odp, wavelet_index: int, backend: str,
-                        precision: str, overlap: Optional[bool] = None):
+                        precision: str, overlap: Optional[bool] = None, mesh=None):
         """The fused path's feature rows on the run's device, and the
         targets (JAX package: pipeline/builder.py:388-600, without its
         prefix dedup and degradation ladder): the feature-cache lookup,
         the per-run precision gate, the f32 re-key when the gate trips,
         the kernel run, the store. A hit's host rows go to the run's
         device in the dtype a miss gives, and no kernel is launched.
-        ``overlap`` is the provider's (``None``: ``EEG_TPU_OVERLAP``). Sets
+        ``overlap`` is the provider's (``None``: ``EEG_TPU_OVERLAP``), as is
+        ``mesh`` (the sharded ingest over its time axis). Sets
         :attr:`precision_resolved`, :attr:`backend_resolved` and
         :attr:`overlap_resolved`."""
         cache = (feature_cache.open_cache()
@@ -917,7 +969,7 @@ class PipelineBuilder:
                         wavelet_index=wavelet_index, backend=backend,
                         precision=precision_used,
                         recordings=None if prepared is None else prepared.recordings,
-                        overlap=overlap,
+                        overlap=overlap, mesh=mesh,
                     )
                 self._add_timings(odp.timings)
                 landed = backend

@@ -95,6 +95,7 @@ def _note_blocks(builder, telemetry) -> None:
     telemetry.backend = dict(builder.backend_resolved or {})
     telemetry.precision = builder.precision_resolved
     telemetry.overlap = builder.overlap_resolved
+    telemetry.mesh = builder.mesh_resolved
     telemetry.population = builder.population_block
     telemetry.workload = builder.workload_block
     serve = builder.serve_block

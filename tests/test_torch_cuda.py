@@ -2410,3 +2410,147 @@ def test_prefetch_stages_through_pinned_memory_and_hands_over_an_event(pinned):
     torch.cuda.synchronize()
     for s, a in zip(sums, arrays, strict=True):
         assert s.item() == torch.from_numpy(a).double().sum().item()
+
+
+# -- single-process meshes (devices=, mesh_axes=) and the raw-stream trainers ---------
+
+
+def _mesh4():
+    """Four shards: four distinct cards where there are four, else the
+    first card four times (streams of their own, one device)."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import mesh as pmesh
+
+    _card()
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i if n >= 4 else 0) for i in range(4)], pmesh
+
+
+@pytest.mark.cuda
+def test_devices_one_through_the_builder_equals_the_unmeshed_run(pipeline_session):
+    _card()
+    q = f"info_file={pipeline_session}&fe=dwt-8-fused&train_clf=logreg&cv=2&cache=false"
+    plain = PipelineBuilder(q).execute()
+    b = PipelineBuilder(q + "&devices=1")
+    assert str(b.execute()) == str(plain)
+    assert b.mesh_resolved["rung"] == "mesh" and b.population_block["mode"] == "sharded"
+    with pytest.raises(ValueError, match="present"):
+        PipelineBuilder(q + f"&devices={torch.cuda.device_count() + 1}").execute()
+    with pytest.raises(ValueError, match="not yet ported"):
+        PipelineBuilder(q + "&processes=2").execute()
+
+
+@pytest.mark.cuda
+def test_sharded_fused_ingest_on_the_card_equals_the_unsharded_kernel(pipeline_session):
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+
+    shards, pmesh = _mesh4()
+    mesh = pmesh.make_mesh(devices=shards, axes=("time",))
+    ref, ref_t = OfflineDataProvider([pipeline_session]).load_features_device()
+    cpu, _ = OfflineDataProvider([pipeline_session], device="cpu").load_features_device()
+    before = ingest_cuda.LAUNCHES
+    got, got_t = OfflineDataProvider([pipeline_session]).load_features_device(mesh=mesh)
+    assert ingest_cuda.LAUNCHES - before == 4 * 4  # a launch a shard and recording
+    assert np.array_equal(got_t, ref_t)
+    assert (got - ref).abs().max().item() <= 2e-6
+    assert (got.cpu() - cpu).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [4, 11])
+def test_sharded_population_on_the_card_equals_the_unsharded_engine(members):
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import population as engines
+
+    shards, pmesh = _mesh4()
+    rng = np.random.RandomState(members)
+    x = torch.from_numpy(rng.randn(300, 48).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.rand(300) > 0.5).astype(np.float32)).cuda()
+    cfg = sgd.SGDConfig(num_iterations=100, convergence_tol=0.0)
+    steps = [1.0 / (1 + i % 3) for i in range(members)]
+    regs = [0.01 * (i % 2) for i in range(members)]
+    seeds = list(range(members))
+    got = engines.train_linear_population_sharded(x, y, cfg, steps, regs, seeds, None,
+                                                  pmesh.make_mesh(devices=shards))
+    want, _, _ = engines.train_linear_population(x, y, cfg, steps, regs, seeds, None)
+    assert got.shape == (members, 48) and got.device == want.device
+    assert (got - want).abs().max().item() <= 5e-6
+
+
+@pytest.mark.cuda
+def test_grow_forest_sharded_on_the_card_is_bit_equal():
+    from eeg_dataanalysispackage_tpu_torch.models import trees_device as td
+
+    shards, pmesh = _mesh4()
+    rng = np.random.RandomState(0)
+    binned = torch.from_numpy(rng.randint(0, 16, size=(400, 6))).cuda()
+    labels = torch.from_numpy((rng.rand(400) > 0.5).astype(np.int64)).cuda()
+    boot = torch.from_numpy(rng.randint(0, 400, size=(11, 400))).cuda()
+    masks = torch.from_numpy(td.draw_feature_masks(11, td.n_heap_nodes(3), 6, 3)).cuda()
+    kw = dict(max_bins=16, impurity="entropy", max_depth=4, min_instances=1)
+    got = td.grow_forest_sharded(binned, labels, boot, masks, mesh=pmesh.make_mesh(devices=shards),
+                                 **kw)
+    want = td.grow_forest(binned, labels, boot, masks, **kw)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_data_parallel_sgd_and_prefetch_on_the_card():
+    from eeg_dataanalysispackage_tpu_torch.io import staging
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+
+    shards, pmesh = _mesh4()
+    mesh = pmesh.make_mesh(devices=shards)
+    rng = np.random.RandomState(1)
+    x = rng.randn(203, 16).astype(np.float32)
+    y = (x @ rng.randn(16) > 0).astype(np.float32)
+    cfg = sgd.SGDConfig(num_iterations=40)
+    w = sgd.train_linear(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), cfg, mesh=mesh)
+    w1 = sgd.train_linear(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), cfg)
+    assert (w.to(w1.device) - w1).abs().max().item() <= 2e-5
+    batches = [(rng.randn(n, 3).astype(np.float32),) for n in (10, 7)]
+    for (a,), (xs, mask) in zip(batches, staging.prefetch(iter(batches), mesh=mesh)):
+        assert [s.device.type for s in xs.shards] == ["cuda"] * 4
+        assert torch.equal(xs.gather().cpu()[: len(a)], torch.from_numpy(a))
+        assert float(mask.sum()) == len(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["raw_bank", "bank128", "bank128_bf16"])
+def test_raw_stream_trainers_launch_the_kernel_and_follow_the_cpu(mode):
+    """K2's two call sites on the card: one launch a step (K1, or K2-bf16
+    at ``bank128_bf16``), 10 steps' losses within 1e-5 of the CPU run's
+    from the same weights."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import train as ptrain
+
+    _card()
+    rng = np.random.RandomState(2)
+    n, stride, first = 256, 800, 150
+    S = first + n * stride + 1024
+    raw = rng.randint(-3000, 3000, size=(3, S)).astype(np.int16)
+    labels = rng.randint(0, 2, size=n).astype(np.float32)
+    positions = np.sort(rng.choice(np.arange(200, S - 900), size=n, replace=False))
+    params = {k: v.numpy() for k, v in ptrain.init_mlp_params(0, device="cpu").items()}
+
+    def make(device):
+        if mode == "raw_bank":
+            init, step = ptrain.make_raw_train_step(stride, n, formulation="bank", device=device)
+            return init, step, (RES, labels, np.ones(n, np.float32), first)
+        init, step = ptrain.make_irregular_bank_train_step(positions, mode=mode, device=device)
+        return init, step, (RES, labels)
+
+    losses = {}
+    for device in ("cuda", "cpu"):
+        init, step, args = make(device)
+        state = init(params)
+        before = (ingest_cuda.LAUNCHES, ingest_cuda.LAUNCHES_BF16)
+        out = []
+        for _ in range(10):
+            state, loss = step(state, torch.from_numpy(raw).to(device), *args)
+            out.append(float(loss))
+        launched = (ingest_cuda.LAUNCHES - before[0], ingest_cuda.LAUNCHES_BF16 - before[1])
+        if device == "cuda":
+            assert launched == ((0, 10) if mode == "bank128_bf16" else (10, 0))
+        else:
+            assert launched == (0, 0)
+        losses[device] = out
+    assert np.max(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"]))) <= 1e-5

@@ -216,3 +216,27 @@ def test_the_input_pipeline_modules_are_walked_and_scanned():
         source = f.read()
     assert "build_host(_SOURCE)" in source and '_SOURCE = "eeg_host"' in source
     assert "libeeg_host" not in source and "Makefile" not in source
+
+
+def test_the_single_process_mesh_modules_are_walked_and_scanned():
+    """The mesh, the sharded ingest, the sharded population engine and the
+    data-parallel trainers keep their own copies of the JAX package's
+    mesh grammar and helpers: walked by the fresh import, which builds no
+    kernel and touches no card, and scanned."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _PROBE + (
+        "\nfrom eeg_dataanalysispackage_tpu_torch.ops import cuda_build"
+        "\nassert cuda_build.BUILD_SECONDS == {}, cuda_build.BUILD_SECONDS\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("parallel", "parallel.mesh", "parallel.sharded_ingest", "parallel.population",
+                 "parallel.train", "models.trees_device", "models.sgd", "ops.device_ingest"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ingest.py",
+                "parallel/population.py", "parallel/train.py"):
+        assert rel in scanned

@@ -134,7 +134,10 @@ def test_no_silent_cpu_without_cuda(one_file):
      pytest.param("fe=dwt-8-tpu-bf16", id="precision=bf16"),
      # overlap= runs (tests/test_torch_overlap.py), on a batch run and,
      # ignored there as in the JAX package, on a serve run
-     "overlap=true", "devices=2",
+     "overlap=true",
+     # devices= runs (tests/test_torch_sharded_population.py); the
+     # multi-process keys are still refused
+     "devices=2", "processes=2",
      # serve=true itself runs (tests/test_torch_serve.py), and so do its
      # adapt= (tests/test_torch_lifecycle.py) and report=
      # (tests/test_torch_report.py)
@@ -150,6 +153,9 @@ def test_unported_keys_raise(one_file, extra, tmp_path):
         return
     if "overlap=" in extra:
         _overlap_runs_like_the_jax_package(one_file, extra, tmp_path)
+        return
+    if extra == "devices=2":
+        _mesh_runs_like_the_jax_package(one_file, extra)
         return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     if extra == "task=seizure":
@@ -195,6 +201,16 @@ def _training_surface_runs_like_the_jax_package(info, extra, tmp_path):
     with pytest.raises(ValueError) as got:
         PipelineBuilder(load, device="cpu").execute()
     assert str(got.value) == str(theirs.value)
+
+
+def _mesh_runs_like_the_jax_package(info, extra):
+    """devices=, refused until the single-process mesh slice ported it,
+    now runs on two logical CPU shards (the fused ingest split over them):
+    the statistics are the JAX package's unmeshed run's."""
+    q = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg"
+    ours = PipelineBuilder(f"{q}&{extra}", device="cpu")
+    assert str(ours.execute()) == str(JaxBuilder(q).execute())
+    assert ours.mesh_resolved["rung"] == "mesh" and ours.mesh_resolved["shape"] == {"data": 2}
 
 
 def _overlap_runs_like_the_jax_package(info, extra, tmp_path):
