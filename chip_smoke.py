@@ -238,7 +238,8 @@ Phases, one JSON line each (several for phases 2 to 6):
    cards is printed (``mesh_devices``); a population run with
    ``devices=1`` (and ``devices=<cards>`` where there are two or more)
    through the builder, statistics byte-equal to the unmeshed run;
-   ``devices=<cards + 1>`` raising, ``processes=2`` still refused; then
+   ``devices=<cards + 1>`` raising, ``processes=2`` without a coordinator
+   raising ``PodBootstrapError``; then
    on a 4-shard mesh (four distinct cards where there are four, else
    ``cuda:0`` four times, printed: on one card no copy crosses cards)
    the sharded fused ingest of the 8-recording session (K1 once a shard
@@ -253,6 +254,25 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``bank128_bf16`` (K2-bf16), each 20 steps with its launches counted
    from 0, its rows against the plain version and its losses against the
    CPU run's, the ``bank128`` step also data-parallel on the 4-shard mesh;
+4j. multi-process runs (``processes=``): whether torch has NCCL and gloo
+   (``pod_devices``); two ranks (``parallel/pod.spawn_pod_member``, one
+   process each, both on the first card, over gloo) of the population run
+   ``cv=2&sweep=lr:1.0,0.5`` and of the default fused logreg run on the
+   8-recording session, each rank's line (``pod_rank``) with its K1
+   launches (one per owned recording, 4), its exchanged (2,135, 48)
+   matrix bit-equal to the one-process kernel's rows, its statistics
+   digest equal to the one-process card run's, the backend, its wall and
+   the exchange's time, and a ``pod_run`` line with the walls side by
+   side; the two-process worker ``tests/_torch_distributed_worker.py`` on
+   the card (the time-sharded ingest and the streaming halo across the
+   process boundary, the train step, SGD, the member-sharded population),
+   every output bit-equal to one process over the same four shards of the
+   card; the streaming extractor at BASELINE config 5's width (256
+   channels, 65,536 samples, window 512 / stride 256) on the 4-shard mesh
+   against the CPU port within STREAM_TOL, three walls; and on four cards
+   a rank a card (``CUDA_VISIBLE_DEVICES``) over NCCL with the same checks
+   and each rank's ingest and train walls beside the one-process run's,
+   else one line saying why that part did not run;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -3627,10 +3647,11 @@ def phase_mesh(torch, np, info, counters):
         if str(st) != str(plain) or b.population_block["mode"] != "sharded":
             raise AssertionError(f"{label}: statistics differ from the unmeshed run's")
         emit("mesh_run", run=label, mesh=b.mesh_resolved, statistics_equal=True)
-    for extra, match in ((f"&devices={count + 1}", "present"), ("&processes=2", "not yet ported")):
+    for extra, match in ((f"&devices={count + 1}", "present"),
+                         ("&processes=2", "no coordinator address")):
         try:
             PipelineBuilder(base + extra).execute()
-        except ValueError as e:
+        except (ValueError, ConnectionError) as e:
             if match not in str(e):
                 raise
         else:
@@ -3800,6 +3821,258 @@ def phase_mesh(torch, np, info, counters):
     emit("mesh_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
          k1_bf16_launches=k1_bf16)
     return k1, k1_bf16
+
+
+POD_QUERY = "fe=dwt-8-fused&train_clf=logreg&cv=2&sweep=lr:1.0,0.5&cache=false"
+POD_FOUR_QUERY = ("fe=dwt-8-fused&train_clf=logreg&cv=4&sweep=lr:1.0,0.5;reg:0.0,0.01"
+                  "&config_num_iterations=200&cache=false")
+STREAM_CHANNELS, STREAM_SAMPLES = 256, 65_536  # BASELINE config 5's width, ~64 s at 1 kHz
+STREAM_TOL = 2e-5  # card against the CPU port: float32 contractions, summation order
+
+
+def session_size(info) -> int:
+    """The recordings an info.txt lists."""
+    with open(info) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def run_ranks(query, n, visible=None):
+    """``n`` ranks of ``query`` through ``pod.spawn_pod_member`` on a
+    loopback coordinator (``visible``: each rank's CUDA_VISIBLE_DEVICES);
+    their JSON results in rank order and the wall from spawn to the last
+    result. Every rank is bounded; stragglers are killed."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed, pod
+
+    port = distributed.free_port_pair()
+    t0 = time.perf_counter()
+    procs = [pod.spawn_pod_member(query, f"127.0.0.1:{port}", n, r, timeout_s="120",
+                                  visible_devices=None if visible is None else visible[r])
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"pod rank failed ({p.returncode}):\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def check_ranks(label, outs, stats_text, rows_sha, owned, backend, wall):
+    """Each rank's K1 launches equal to its owned recordings, its
+    exchanged matrix the one-process kernel's rows bit for bit, its
+    statistics the one-process card run's, its backend; one line a rank."""
+    import hashlib
+
+    want_sha = hashlib.sha256(stats_text.encode()).hexdigest()
+    for pid, o in enumerate(outs):
+        rank = {"k1_launches": o["k1"], "owned_recordings": owned[pid],
+                "rows_bit_equal": o["features_sha256"] == rows_sha,
+                "statistics_sha_equal": o["sha"] == want_sha,
+                "backend": o["mesh"]["backend"], "wall_s": o["wall_s"],
+                "exchange_s": o["timers"].get("exchange"), "timers_s": o["timers"],
+                "exchange_bytes": o["metrics"].get("pod.exchange_bytes")}
+        emit("pod_rank", run=label, rank=pid, processes=len(outs), spawn_wall_s=wall, **rank)
+        if (o["k1"] != owned[pid] or not rank["rows_bit_equal"]
+                or not rank["statistics_sha_equal"] or rank["backend"] != backend
+                or o["mesh"]["rung"] != "pod"):
+            raise AssertionError(f"{label}: rank {pid} disagrees with the one-process run")
+    return sum(o["k1"] for o in outs)
+
+
+def first_card(torch, n):
+    """``n`` shards of the first card."""
+    return [torch.device("cuda", 0)] * n
+
+
+def run_distributed_worker(params_path):
+    """The two ranks of ``tests/_torch_distributed_worker.py`` on the card
+    (loopback coordinator, env-driven bootstrap); their JSON results and
+    the wall from spawn to the last result."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed
+
+    port = distributed.free_port_pair()
+    t0 = time.perf_counter()
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", "_torch_distributed_worker.py"),
+             params_path, "cuda"], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"distributed worker failed:\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def phase_pod(torch, np, info, counters, work):
+    """Phase 4j (see the module docstring). Returns the K1 launches of the
+    phase's path runs: the one-process runs here and every rank's own."""
+    import hashlib
+
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import (
+        mesh as pmesh, pod, population, sharded_ingest, streaming, train as ptrain,
+    )
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    emit("pod_devices", cards=count, nccl_available=torch.distributed.is_nccl_available(),
+         gloo_available=torch.distributed.is_gloo_available())
+    k1 = 0
+    n_files = session_size(info)
+    owned2 = [hi - lo for lo, hi in pod.partition(n_files, 2)]
+
+    # 1. two ranks on the first card over gloo: the population query alone
+    # (its walls are the ones compared), then the default run and the
+    # two-process worker (tests/_torch_distributed_worker.py: the
+    # cross-process time-sharded ingest, SGD, the train step, streaming and
+    # the member-sharded population) side by side; each against its
+    # one-process card run
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _torch_distributed_worker as dworker
+
+    params = {k: v.numpy() for k, v in ptrain.init_mlp_params(0, device="cpu").items()}
+    params_path = os.path.join(work, "pod_params.npz")
+    np.savez(params_path, **params)
+    single = {}
+    for label, query in (("population", POD_QUERY),
+                         ("default", "fe=dwt-8-fused&train_clf=logreg")):
+        q = f"info_file={info}&{query}"
+        t0 = time.perf_counter()
+        b, stats, launches = run_builder(f"pod_one_process_{label}", q, None, counters)
+        single[label] = (q, str(stats), time.perf_counter() - t0, b.timers,
+                      hashlib.sha256(b.features.cpu().numpy().tobytes()).hexdigest())
+        k1 += launches["ingest_features"]
+    ranks = {"population": run_ranks(single["population"][0], 2)}
+    with ThreadPoolExecutor(2) as pool:
+        default = pool.submit(run_ranks, single["default"][0], 2)
+        twin = pool.submit(run_distributed_worker, params_path)
+        ranks["default"] = default.result()
+        worker_outs, worker_wall = twin.result()
+    for label, (outs, wall) in ranks.items():
+        _q, stats_text, one_wall, timers, rows_sha = single[label]
+        k1 += check_ranks(f"pod2_{label}", outs, stats_text, rows_sha, owned2, "gloo", wall)
+        emit("pod_run", run=label, processes=2, one_process_wall_s=one_wall,
+             one_process_timers_s=timers, rank_walls_s=[o["wall_s"] for o in outs],
+             spawn_wall_s=wall, exchange_s=[o["timers"].get("exchange") for o in outs],
+             beside_the_worker=label == "default")
+
+    # 2. the worker's outputs against one process over the same four
+    # shards of the card
+    outs, wall = worker_outs, worker_wall
+    epochs, labels, sig, raw, markers, x, y = dworker.cases()
+    four = first_card(torch, 4)
+    mesh4, tmesh4 = pmesh.make_mesh(devices=four), pmesh.make_mesh(devices=four, axes=("time",))
+    init, step = ptrain.make_train_step(mesh4)
+    _, loss = step(init(params), epochs, labels, np.ones(4, np.float32))
+    T = raw.shape[1]
+    plan = sharded_ingest.plan_sharded_ingest(markers, 2, T, 4, T // 4)
+    rows = sharded_ingest.make_sharded_ingest(tmesh4)(raw, np.full(3, 0.1, np.float32), plan)
+    xs, ys = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    steps, regs, seeds = dworker.population_args()
+    pop = population.train_linear_population_sharded(
+        xs, ys, sgd.SGDConfig(num_iterations=200, convergence_tol=0.0), steps, regs, seeds,
+        None, mesh4)
+    one = {"loss": loss.reshape(1), "stream": streaming.make_streaming_extractor(tmesh4)(sig),
+           "ingest": rows, "population": pop}
+    one.update({f"sgd_{k}": sgd.train_linear(xs, ys, sgd.SGDConfig(**cfg), mesh=mesh4)
+                for k, cfg in dworker.SGD_CONFIGS.items()})
+    equal = {}
+    for name, want in one.items():
+        want = want.cpu().numpy().astype(np.float32).reshape(-1)
+        got = [np.frombuffer(bytes.fromhex(o["sgd"][name[4:]] if name.startswith("sgd_")
+                                           else o[name]), dtype=np.float32) for o in outs]
+        equal[name] = all(np.array_equal(g, want) for g in got)
+    emit("pod_distributed_worker", processes=2, backend=[o["backend"] for o in outs],
+         mesh=outs[0]["mesh"], bit_equal_to_one_process=equal, wall_s=wall,
+         ingest_rows=outs[0]["ingest_rows"], grad=outs[0]["grad"], total=outs[0]["total"])
+    k1 += sum(o["k1"] for o in outs)  # each rank's sharded ingest: a launch a local shard
+    if (not all(equal.values()) or outs[0]["grad"] != [26.0, 30.0, 34.0]
+            or [o["k1"] for o in outs] != [2, 2]):
+        raise AssertionError("the two-process worker disagrees with one process")
+
+    # 3. streaming at BASELINE config 5's width: 256 channels, 65,536
+    # samples, window 512 / stride 256, on a 4-shard time mesh
+    shards, _count = mesh_shards(torch)
+    tmesh = pmesh.make_mesh(devices=shards, axes=("time",))
+    signal = (np.random.RandomState(5).randn(STREAM_CHANNELS, STREAM_SAMPLES) * 30.0).astype(
+        np.float32)
+    extract = streaming.make_streaming_extractor(tmesh, window=512, stride=256, fs=1000.0)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract(streaming.stage_recording(signal, tmesh))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    cpu_mesh = pmesh.make_mesh(4, axes=("time",), device="cpu")
+    t0 = time.perf_counter()
+    want = streaming.make_streaming_extractor(cpu_mesh, window=512, stride=256, fs=1000.0)(signal)
+    cpu_s = time.perf_counter() - t0
+    dev = (feats.cpu() - want).abs().max().item()
+    emit("pod_streaming", channels=STREAM_CHANNELS, samples=STREAM_SAMPLES,
+         mb=signal.nbytes / 1e6, shards=[str(d) for d in shards],
+         windows=int(feats.shape[0]), width=int(feats.shape[1]), max_abs_vs_cpu=dev,
+         tol=STREAM_TOL, card_walls_s=walls, cpu_wall_s=cpu_s)
+    if feats.shape != (STREAM_SAMPLES // 256, STREAM_CHANNELS * 16) or dev > STREAM_TOL:
+        raise AssertionError("the card's streaming features disagree with the CPU port's")
+
+    # 4. four cards: a rank a card (CUDA_VISIBLE_DEVICES) over NCCL
+    if count >= 4:
+        k1 += phase_pod_four_cards(torch, np, info, counters)
+    else:
+        emit("pod_four_cards", ran=False,
+             reason=f"{count} card(s) visible; a rank a card needs four (a --chips 4 call)")
+    emit("pod_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1)
+    return k1
+
+
+def phase_pod_four_cards(torch, np, info, counters):
+    """Four ranks, one card each, over NCCL: the checks of the one-card
+    ranks, and each rank's ingest and train walls beside the one-process
+    card run's."""
+    import hashlib
+
+    from eeg_dataanalysispackage_tpu_torch.parallel import pod
+
+    n_files = session_size(info)
+    owned = [hi - lo for lo, hi in pod.partition(n_files, 4)]
+    k1 = 0
+    for label, query in (("population16", POD_FOUR_QUERY), ("population", POD_QUERY)):
+        q = f"info_file={info}&{query}"
+        t0 = time.perf_counter()
+        b, stats, launches = run_builder(f"pod_one_process_{label}_4cards", q, None, counters)
+        one_wall = time.perf_counter() - t0
+        k1 += launches["ingest_features"]
+        rows_sha = hashlib.sha256(b.features.cpu().numpy().tobytes()).hexdigest()
+        outs, wall = run_ranks(q, 4, visible=[str(r) for r in range(4)])
+        k1 += check_ranks(f"pod4_{label}", outs, str(stats), rows_sha, owned, "nccl", wall)
+        ingest = [sum(o["timers"].get(k, 0.0) for k in ("parse", "featurize", "exchange"))
+                  for o in outs]
+        emit("pod_four_cards", ran=True, run=label, processes=4,
+             one_process={"ingest_s": sum(b.timers.get(k, 0.0) for k in ("parse", "stage",
+                                                                           "featurize")),
+                          "train_s": b.timers.get("train"), "wall_s": one_wall},
+             ranks={"ingest_s": ingest, "train_s": [o["timers"].get("train") for o in outs],
+                    "wall_s": [o["wall_s"] for o in outs]}, spawn_wall_s=wall)
+    return k1
 
 
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
@@ -5104,7 +5377,7 @@ def main() -> int:
     bandwidth, f32_peak, bf16_peak = card_peaks(kind)
     emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, peak_bytes_per_s=bandwidth, peak_f32_flops=f32_peak,
-         peak_bf16_flops=bf16_peak)
+         peak_bf16_flops=bf16_peak, nccl=torch.distributed.is_nccl_available())
 
     # 2. build every kernel from the checkout's sources
     build_kernels(cuda_build, ["ingest_features", "serve_mega", "epoch_features"])
@@ -5197,6 +5470,8 @@ def main() -> int:
         # 4i. single-process meshes and the raw-stream trainers
         mesh_k1, mesh_k1_bf16 = phase_mesh(torch, np, info, counters)
         rung_launches["bf16"] += mesh_k1_bf16
+        # 4j. multi-process runs (a rank a process) and the streaming front end
+        pod_k1 = phase_pod(torch, np, info, counters, work)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -5306,11 +5581,11 @@ def main() -> int:
         # the nn batch, load and serve runs), 4d (the tree families), 4e
         # (fan-out, populations, elastic, line searches), 4f (the seizure
         # workload's -pallas runs), 4g (cache misses, the trace, MLlib), 4h
-        # (the parse pool, overlap, the remote pool) and 4i (meshes, the
-        # raw-stream trainers)
+        # (the parse pool, overlap, the remote pool), 4i (meshes, the
+        # raw-stream trainers) and 4j (the ranks' own launches too)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
-                     + mesh_k1,
+                     + mesh_k1 + pod_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),

@@ -262,6 +262,13 @@ def load_recording_bytes(
     """Build a :class:`Recording` from an already-read triplet."""
     header = parse_vhdr(vhdr_bytes.decode("utf-8", errors="replace"))
     markers = parse_vmrk(vmrk_bytes.decode("utf-8", errors="replace"))
+    return recording_from_blob(header, markers, eeg_bytes)
+
+
+def recording_from_blob(header: Header, markers: List[Marker], eeg_bytes: bytes) -> Recording:
+    """A :class:`Recording` from a parsed header and markers and the .eeg
+    bytes (the pod path parses the text files in its metadata pass and
+    reads only its own recordings' waveforms)."""
     dtype = _BINARY_DTYPES.get(header.binary_format)
     if dtype is None:
         raise ValueError(f"Unsupported BinaryFormat: {header.binary_format}")

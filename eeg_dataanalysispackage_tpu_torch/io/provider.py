@@ -306,7 +306,8 @@ class OfflineDataProvider:
         ``pooled=True``), and the results come back in info.txt order.
         A file with a missing sibling is skipped with a log line; any
         other error surfaces at the file's place in the order. A consumer
-        that stops early cancels the queued parses."""
+        that stops early, or an error, cancels the queued parses and waits
+        for the running ones before it returns or the error propagates."""
         prefix, files = self._resolve_files()
         items = list(files.items())
         workers = self._resolved_workers(len(items))
@@ -350,8 +351,10 @@ class OfflineDataProvider:
                 yield rel_path, guessed, rec, fingerprint
         finally:
             # a consumer that stopped early, or a parse that failed: the
-            # queued parses are cancelled, the running ones finish alone
-            pool.shutdown(wait=False, cancel_futures=True)
+            # queued parses are cancelled and the running ones waited for,
+            # so no parse of this run outlives it (or counts into the
+            # metrics scope of the next)
+            pool.shutdown(wait=True, cancel_futures=True)
 
     def prepare_fused_run(self, extractor_id: Tuple) -> PreparedRun:
         """One read pass giving both the feature-cache key and the parsed
@@ -393,10 +396,12 @@ class OfflineDataProvider:
         return [(rel_path, guessed, digest)
                 for rel_path, guessed, _rec, digest in self._iter_recordings(with_digests=True)]
 
-    def _channel_indices(self, header: brainvision.Header) -> List[int]:
-        """Channel resolution with the reference's stale-index reuse: a
-        file missing a channel reuses the index of the previous file
-        (OffLineDataProvider.java:49-51,172-183)."""
+    def _channel_indices_for_header(self, header: brainvision.Header) -> List[int]:
+        """Channel resolution from the header alone, with the reference's
+        stale-index reuse: a file missing a channel reuses the index of
+        the previous file (OffLineDataProvider.java:49-51,172-183), which
+        is why it advances in load order (the pod metadata pass resolves
+        every recording's indices without reading its waveform)."""
         indices = []
         for name in self._channel_names:
             idx = header.channel_index(name)
@@ -411,8 +416,8 @@ class OfflineDataProvider:
 
     def channel_indices_for(self, rec: brainvision.Recording) -> List[int]:
         """Resolved channel indices for one recording, with the
-        reference's stale-index reuse (:meth:`_channel_indices`)."""
-        return self._channel_indices(rec.header)
+        reference's stale-index reuse (:meth:`_channel_indices_for_header`)."""
+        return self._channel_indices_for_header(rec.header)
 
     def load(self) -> extractor.EpochBatch:
         """Parse the inputs and extract host epochs from every resolvable
@@ -503,6 +508,7 @@ class OfflineDataProvider:
         overlap: Optional[bool] = None,
         mesh=None,
         mesh_axis: Optional[str] = None,
+        pod=None,
     ) -> Tuple[torch.Tensor, np.ndarray]:
         """info.txt run -> DWT features without host epochs.
 
@@ -553,6 +559,15 @@ class OfflineDataProvider:
         recording's header before anything is launched. The sharded path
         computes f32 rows, as the JAX package's does. A one-device axis
         is the unsharded path.
+
+        ``pod`` (a ``parallel.pod.PodRuntime`` of two or more processes)
+        routes the run to ``parallel/pod.pod_features`` before any mesh
+        or overlap handling, as in the JAX package: this process reads
+        and featurizes only its contiguous block of the recordings, one
+        launch a recording at the globally planned positions
+        (:meth:`planned_featurizer`), and one all-gather assembles the
+        global matrix; ``timings`` are then the pod's (``parse``: the
+        metadata pass, ``featurize``, ``exchange``).
         """
         if backend not in FUSED_BACKENDS:
             raise ValueError(f"unknown device-ingest backend {backend!r}")
@@ -572,6 +587,11 @@ class OfflineDataProvider:
             pre=self._pre,
             precision=precision,
         )
+        if pod is not None and int(pod.num_processes) > 1:
+            from ..parallel import pod as pod_mod
+
+            return pod_mod.pod_features(pod, self, self._planned_entry_featurizer(featurize),
+                                        n_feat=len(self._channel_names) * feature_size)
         balance = BalanceState()
         sharded_extract, n_shards = None, 1
         if mesh is not None:
@@ -675,6 +695,59 @@ class OfflineDataProvider:
             timings["wall"] = time.perf_counter() - t_start
         self.timings = timings
         return features, target_arr
+
+    def _planned_entry_featurizer(self, featurize):
+        """A closure featurizing one pod-plan entry
+        (``parallel/pod.PodRecording``) with ``featurize`` (a fused-kernel
+        featurizer): read the owned waveform, stage it, launch at the
+        globally planned positions and mask, keep the kept rows (they
+        lead the plan)."""
+
+        def featurize_entry(entry) -> torch.Tensor:
+            blob = self._fs.read_bytes(entry.eeg_path)
+            obs.metrics.count("ingest.file_reads", 1)
+            rec = brainvision.recording_from_blob(entry.header, entry.markers, blob)
+            raw, res, n_samples = device_ingest.stage_raw(rec, entry.channel_indices,
+                                                          self.device)
+            if n_samples != entry.n_samples:
+                # the metadata pass sized this recording from its byte
+                # count: the file changed between the plan and this read,
+                # so the plan (and every later recording's) is stale
+                raise ValueError(
+                    f"{entry.rel_path}: {n_samples} samples on read "
+                    f"vs {entry.n_samples} at plan time; recording "
+                    f"changed mid-run"
+                )
+            plan = entry.plan
+            obs.metrics.count(
+                "ingest.h2d_bytes",
+                raw.numel() * raw.element_size() + res.numel() * res.element_size()
+                + int(plan.positions.nbytes) + int(plan.mask.nbytes),
+            )
+            return featurize(raw, res, plan.positions, plan.mask)[: plan.n_kept]
+
+        return featurize_entry
+
+    def planned_featurizer(
+        self,
+        backend: str = "decode",
+        wavelet_index: int = 8,
+        epoch_size: int = 512,
+        skip_samples: int = 175,
+        feature_size: int = 16,
+        precision: str = "f32",
+    ):
+        """The pod path's seam: an entry-featurizing closure over a fresh
+        fused-kernel featurizer (tests drive the partitioned ingest
+        through it without a live multi-process runtime). ``backend``
+        takes the JAX package's fused rung names; every one runs the
+        CUDA kernel."""
+        if backend not in FUSED_BACKENDS:
+            raise ValueError(f"unknown device-ingest backend {backend!r}")
+        return self._planned_entry_featurizer(ingest_cuda.make_cuda_ingest_featurizer(
+            wavelet_index=wavelet_index, epoch_size=epoch_size, skip_samples=skip_samples,
+            feature_size=feature_size, pre=self._pre, precision=precision,
+        ))
 
     def precision_gate_check(
         self,

@@ -295,12 +295,18 @@ def _stacked_features(members, feature_sets, row_idx=None) -> torch.Tensor:
     return torch.stack(mats)
 
 
-def member_mesh_axis(mesh) -> str:
-    """The mesh axis the member axis shards over: ``data`` when the mesh
-    has it (the population is data parallelism over members), else its
-    first axis."""
+def member_mesh_axis(mesh):
+    """The mesh axis (or axes) the member axis shards over: on a pod's
+    hybrid mesh (its process axis, ``hosts``, outermost) every axis,
+    hosts first, so the members span every device of every process;
+    otherwise ``data`` when the mesh has it (the population is data
+    parallelism over members), else its first axis. A string for one
+    axis, a tuple for several."""
     from ..parallel import mesh as pmesh
 
+    if mesh.process_axis is not None:
+        return (mesh.process_axis,) + tuple(a for a in mesh.axis_names
+                                            if a != mesh.process_axis)
     return pmesh.DATA_AXIS if pmesh.DATA_AXIS in mesh.axis_names else mesh.axis_names[0]
 
 
@@ -396,10 +402,15 @@ def run_population(
 
     mode_used = spec.mode
     mesh_block = None
+    n_shards = 1
     if mesh is not None:
         axis = member_mesh_axis(mesh)
-        mesh_block = {"rung": "single_device", "axis": axis, "shape": mesh.shape,
-                      "devices": int(mesh.devices.size)}
+        for a in (axis,) if isinstance(axis, str) else axis:
+            n_shards *= int(mesh.shape[a])
+        # the pod's multi-axis member spec renders joined ("hosts,data")
+        mesh_block = {"rung": "single_device",
+                      "axis": axis if isinstance(axis, str) else ",".join(axis),
+                      "shape": mesh.shape, "devices": int(mesh.devices.size)}
         if not linear:
             logger.warning("population mesh sharding applies to the linear family "
                            "(logreg/svm); %s trains single-device", name)
@@ -416,7 +427,6 @@ def run_population(
             trained = _train_sharded(features, targets, folds, members, base_cfg, mesh,
                                      feature_sets)
             mode_used = "sharded"
-            n_shards = int(mesh.shape[mesh_block["axis"]])
             padded = engines.pad_members(len(members), n_shards)
             mesh_block.update(rung="mesh", members_per_device=padded // n_shards,
                               padded_members=padded - len(members))

@@ -41,7 +41,11 @@ mesh's data axis with a validity mask (``parallel/mesh.shard_batch_with_mask``),
 each shard's gradient is computed on its device, the shard gradients are
 added in shard order on the first device (the JAX package's psum, whose
 order is XLA's), and the updated weights go back to every shard. As in
-the JAX package, mini-batch draws span the padded rows.
+the JAX package, mini-batch draws span the padded rows. Over a mesh that
+spans processes (a pod's hybrid mesh) each process holds its own shards of
+the padded batch, every shard's gradient is all-gathered and every
+process adds them in the same global shard order: a 2-process x 2-device
+mesh gives the bits of one process's 4-shard mesh.
 """
 
 from __future__ import annotations
@@ -120,7 +124,7 @@ def _gradient(x, y, w, class_w, mask, config: SGDConfig) -> torch.Tensor:
                       None if mask is None else mask.shards[i], config)
             for i, (xs, ys) in enumerate(zip(x.shards, y.shards))
         ]
-        return pmesh.sum_in_order(parts, w.device)
+        return pmesh.sum_in_order(parts, w.device, across_processes=x.across_processes)
     margin = x @ w
     if config.loss == "logistic":
         mult = torch.sigmoid(margin) - y

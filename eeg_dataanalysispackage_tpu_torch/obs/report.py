@@ -4,7 +4,8 @@ Port of the JAX package's ``obs/report.py``. One run under
 ``report=<dir>`` (or ``EEG_TPU_RUN_REPORT_DIR``) writes one atomic
 ``run_report.json``: the query and the environment knobs set, the
 device (platform, count, the card's name), the fused backend, the
-precision decision, the mesh (``devices=``/``mesh_axes=``), the
+precision decision, the mesh (``devices=``/``mesh_axes=``, and a pod's
+record: ``processes=``/``coordinator=``/``process_id=``), the
 population, serving, lifecycle and workload blocks, the stage timers,
 the run's metrics, the span summary (its spans also go to
 ``spans.jsonl``), the feature and plan caches' counters, the fault plan's per-rule calls and firings, and the
@@ -130,8 +131,11 @@ class RunTelemetry:
         #: the run never reached the fused ingest
         self.overlap: Optional[bool] = None
         #: the run's mesh record (``requested``, ``rung``, ``shape``,
-        #: ``devices``, the population's), None without ``devices=`` or
-        #: ``mesh_axes=``
+        #: ``devices``, the population's; on a pod ``rung: "pod"`` with
+        #: ``processes``, ``process_id``, ``coordinator``, ``dcn_shape``
+        #: and ``backend``; a ``pod`` block for ``processes=1`` or a
+        #: bootstrap that failed, with its evidence), None without
+        #: ``devices=``, ``mesh_axes=`` or the pod keys
         self.mesh: Optional[Dict[str, Any]] = None
 
     @property

@@ -13,11 +13,20 @@ package degrades to one device there; the port has no ladder). With
 explicit ``devices=`` list may repeat a device (tests, and one-card
 hosts).
 
-There are no collectives here, only explicit copies. A sharded array is
-a :class:`ShardedArray`: one tensor a shard on that shard's device.
-:func:`run_on_shards` runs one function a shard, each on its own device
-and stream; results are gathered to the mesh's first device in shard
-order (:func:`gather`, :func:`sum_in_order`).
+Within a process there are no collectives, only explicit copies. A
+sharded array is a :class:`ShardedArray`: one tensor a shard on that
+shard's device. :func:`run_on_shards` runs one function a shard, each on
+its own device and stream; results are gathered to the mesh's first
+device in shard order (:func:`gather`, :func:`sum_in_order`).
+
+A mesh may span processes (``parallel/distributed.hybrid_mesh``: a
+``hosts`` axis outermost, one entry a process): it then knows its
+``process_count``, its ``process_id`` and which of its entries are this
+process's own (:meth:`Mesh.is_local`). A process holds only its own
+shards; a :class:`ShardedArray` staged over such a mesh records the
+process layout, and its sums and gathers cross processes by one
+all-gather each (``distributed.all_gather_parts``), added or
+concatenated in global shard order.
 """
 
 from __future__ import annotations
@@ -36,25 +45,55 @@ TIME_AXIS = "time"
 
 class Mesh:
     """Devices laid out on named axes: ``devices`` is an object ndarray
-    of ``torch.device`` shaped by the axes."""
+    of ``torch.device`` shaped by the axes. A mesh over several processes
+    names its ``process_axis`` (one entry a process, this one at
+    ``process_id``); the entries of the other processes hold the devices
+    those processes drive, as each sees them."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 process_count: int = 1, process_id: int = 0,
+                 process_axis: Optional[str] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.process_count = int(process_count)
+        self.process_id = int(process_id)
+        self.process_axis = process_axis
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, (int(s) for s in self.devices.shape)))
 
+    def _local_row(self):
+        """This process's index on every axis: its own on the process
+        axis, a full slice elsewhere."""
+        where = [slice(None)] * len(self.axis_names)
+        if self.process_axis is not None:
+            where[self.axis_names.index(self.process_axis)] = self.process_id
+        return where
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """This process's devices, in mesh order."""
+        return list(np.asarray(self.devices[tuple(self._local_row())]).flat)
+
     @property
     def first_device(self) -> torch.device:
-        return self.devices.flat[0]
+        """This process's first device, where results are gathered."""
+        return self.local_devices[0]
+
+    def is_local(self, index: Sequence[int]) -> bool:
+        """Whether the entry at ``index`` is one of this process's."""
+        if self.process_axis is None:
+            return True
+        return int(index[self.axis_names.index(self.process_axis)]) == self.process_id
 
     def axis_devices(self, axis: str) -> List[torch.device]:
-        """The devices along ``axis`` (index 0 on every other axis): the
-        shards of an array sharded over ``axis`` and replicated over the
-        rest."""
+        """The devices along ``axis`` (index 0 on every other axis, this
+        process's own on the process axis): the shards of an array
+        sharded over ``axis`` and replicated over the rest."""
         where = [0] * len(self.axis_names)
+        if self.process_axis is not None and axis != self.process_axis:
+            where[self.axis_names.index(self.process_axis)] = self.process_id
         where[self.axis_names.index(axis)] = slice(None)
         return list(self.devices[tuple(where)])
 
@@ -189,11 +228,20 @@ def parse_mesh(query_map: Mapping[str, str], serve: bool) -> Optional[MeshReques
 
 class ShardedArray:
     """One array split along ``dim`` into contiguous shards, shard ``i``
-    a tensor on the ``i``-th device of the axis it was split over."""
+    a tensor on the ``i``-th device of the axis it was split over. Over
+    ``process_count`` processes, ``shards`` are this process's, the
+    ``process_id``-th equal block of the global array (process-major)."""
 
-    def __init__(self, shards: Sequence[torch.Tensor], dim: int = 0):
+    def __init__(self, shards: Sequence[torch.Tensor], dim: int = 0,
+                 process_count: int = 1, process_id: int = 0):
         self.shards = list(shards)
         self.dim = dim
+        self.process_count = int(process_count)
+        self.process_id = int(process_id)
+
+    @property
+    def across_processes(self) -> bool:
+        return self.process_count > 1
 
     @property
     def devices(self) -> List[torch.device]:
@@ -205,33 +253,50 @@ class ShardedArray:
         return self.shards[0].device
 
     @property
+    def local_length(self) -> int:
+        """This process's extent along ``dim``."""
+        return sum(s.shape[self.dim] for s in self.shards)
+
+    @property
     def shape(self) -> Tuple[int, ...]:
+        """The global shape (every process holds an equal block)."""
         shape = list(self.shards[0].shape)
-        shape[self.dim] = sum(s.shape[self.dim] for s in self.shards)
+        shape[self.dim] = self.local_length * self.process_count
         return tuple(shape)
 
+    def _like(self, shards) -> "ShardedArray":
+        return ShardedArray(shards, self.dim, self.process_count, self.process_id)
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ShardedArray":
-        return ShardedArray([fn(s) for s in self.shards], self.dim)
+        return self._like([fn(s) for s in self.shards])
 
     def split(self, full: torch.Tensor) -> "ShardedArray":
-        """``full`` (this array's length along ``dim``) cut like this
-        array, each piece on its shard's device."""
+        """``full`` (this array's global length along ``dim``) cut like
+        this array: this process's block, each piece on its shard's
+        device."""
+        if self.across_processes:
+            full = full.narrow(self.dim, self.process_id * self.local_length, self.local_length)
         sizes = [s.shape[self.dim] for s in self.shards]
-        return ShardedArray([p.to(d) for p, d in zip(torch.split(full, sizes, self.dim),
-                                                      self.devices)], self.dim)
+        return self._like([p.to(d) for p, d in zip(torch.split(full, sizes, self.dim),
+                                                    self.devices)])
 
     def __mul__(self, other) -> "ShardedArray":
         if isinstance(other, torch.Tensor):
             other = self.split(other)
-        return ShardedArray([a * b for a, b in zip(self.shards, other.shards)], self.dim)
+        return self._like([a * b for a, b in zip(self.shards, other.shards)])
 
     def sum(self) -> torch.Tensor:
-        """The sum of every element, shard sums added in shard order on
-        the first device."""
-        return sum_in_order([s.sum() for s in self.shards], self.device)
+        """The sum of every element, shard sums added in global shard
+        order on the first device."""
+        return sum_in_order([s.sum() for s in self.shards], self.device,
+                            across_processes=self.across_processes)
 
     def gather(self) -> torch.Tensor:
-        """The whole array on the first device, shards in order."""
+        """The whole array on the first device, shards in global order."""
+        if self.across_processes:
+            from . import distributed
+
+            return torch.cat(distributed.all_gather_parts(self.shards, self.device), self.dim)
         return gather(self.shards, self.device, self.dim)
 
 
@@ -240,10 +305,18 @@ def gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int = 0) ->
     return torch.cat([p.to(device) for p in parts], dim)
 
 
-def sum_in_order(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+def sum_in_order(parts: Sequence[torch.Tensor], device: torch.device,
+                 across_processes: bool = False) -> torch.Tensor:
     """``parts`` copied to ``device`` and added one after another, in
     order (the port's all-reduce: the order is fixed, XLA's psum's is
-    not)."""
+    not). ``across_processes``: ``parts`` are this process's shards of a
+    multi-process mesh; every process's are all-gathered first and added
+    in global shard order, so every process gets the bits one process
+    over all the shards gives."""
+    if across_processes:
+        from . import distributed
+
+        parts = distributed.all_gather_parts(parts, device)
     total = parts[0].to(device)
     for p in parts[1:]:
         total = total + p.to(device)
@@ -267,12 +340,17 @@ def pad_to_multiple(array: np.ndarray, multiple: int, axis: int = 0):
 
 def shard_batch(array, mesh: Mesh, axis_name: str = DATA_AXIS):
     """Pad a host batch and copy one even piece to each device of the
-    mesh's ``axis_name``; returns (ShardedArray, original length)."""
-    padded, n = pad_to_multiple(np.asarray(array), mesh.shape[axis_name])
+    mesh's ``axis_name``; returns (ShardedArray, original length). Over a
+    multi-process mesh the batch (the same on every process) is padded
+    and cut for the processes' devices together, and this process keeps
+    its own pieces."""
     devices = mesh.axis_devices(axis_name)
-    pieces = np.split(padded, len(devices))
+    n_shards = len(devices) * mesh.process_count
+    padded, n = pad_to_multiple(np.asarray(array), n_shards)
+    pieces = np.split(padded, n_shards)[mesh.process_id * len(devices):][:len(devices)]
     return ShardedArray([host_to_device(np.ascontiguousarray(p), d)
-                         for p, d in zip(pieces, devices)]), n
+                         for p, d in zip(pieces, devices)],
+                        process_count=mesh.process_count, process_id=mesh.process_id), n
 
 
 def shard_batch_with_mask(mesh: Mesh, *arrays, axis_name: str = DATA_AXIS):

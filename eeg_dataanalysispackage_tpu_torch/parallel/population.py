@@ -28,7 +28,10 @@ trajectory is the sequential one, batched:
   all-zero sample mask: no update ever fires, the weights stay zero),
   each device's block of members trained by
   :func:`train_linear_population` on its own device and stream,
-  the weights gathered in member order to the mesh's first device.
+  the weights gathered in member order to the mesh's first device. Over
+  a pod's hybrid mesh (``hosts`` outermost) each process trains its
+  contiguous block of the padded members on its own devices, and one
+  all-gather in process order gives every process all of them.
 - :func:`train_linear_population_looped`: the same per-member invocation,
   one member at a time (a single-fold member is ``sgd.train_linear``
   exactly, a multi-fold one ``train_linear`` with its fold's
@@ -197,10 +200,11 @@ def train_linear_population_sharded(
     mesh,
     weight_pos: Optional[Sequence[float]] = None,
     weight_neg: Optional[Sequence[float]] = None,
-    axis: Optional[str] = None,
+    axis=None,
 ) -> torch.Tensor:
     """:func:`train_linear_population` with the member axis split over
-    ``mesh``'s ``axis`` (None: its first axis): P members on N devices in
+    ``mesh``'s ``axis`` (None: its first axis; a tuple of names splits it
+    over those axes, the first outermost): P members on N devices in
     blocks of ``pad_members(P, N) / N``. The argument contract is the
     batched engine's; a (P, n, d) ``features`` stack is split with the
     members. Padded members reuse member 0's hyperparameters and train
@@ -208,10 +212,30 @@ def train_linear_population_sharded(
     an explicit all-ones mask where ``masks`` is None, which the engine
     treats value for value as its implicit one. Each device's block runs
     the batched engine on that device; a failure raises. Returns (P, d)
-    float32 weights in member order on the mesh's first device."""
-    axis = axis or mesh.axis_names[0]
-    devices = mesh.axis_devices(axis)
-    n_shards = len(devices)
+    float32 weights in member order on the mesh's first device.
+
+    Over a mesh of several processes the member axis must have the
+    process axis (``hosts``) outermost: each process trains members
+    ``[pid * per_host, (pid + 1) * per_host)`` of the padded ones
+    (``per_host = padded // process_count``) on its own devices, and the
+    (per_host, d) blocks are all-gathered in process order. The shared
+    rows are the same on every process (the pod's features were
+    exchanged), so nothing else crosses processes."""
+    axes = (mesh.axis_names[0],) if axis is None else (
+        (axis,) if isinstance(axis, str) else tuple(axis))
+    multiproc = mesh.process_count > 1
+    if multiproc and axes[0] != mesh.process_axis:
+        raise ValueError(
+            f"multi-process member sharding needs the "
+            f"{mesh.process_axis!r} axis outermost, got {axes}"
+        )
+    local_axes = [a for a in axes if a != mesh.process_axis]
+    if len(local_axes) == 1:
+        devices = mesh.axis_devices(local_axes[0])
+    else:  # every local axis (a pod's hosts x data), or none
+        devices = mesh.local_devices if local_axes else [mesh.first_device]
+    over_hosts = mesh.process_axis in axes
+    n_shards = len(devices) * (mesh.process_count if over_hosts else 1)
     n_members = len(list(seeds))
     padded = pad_members(n_members, n_shards)
     pad = padded - n_members
@@ -232,9 +256,11 @@ def train_linear_population_sharded(
                             member_axis(int(v) for v in seeds))
     wp, wn = member_axis(wp), member_axis(wn)
     per = padded // n_shards
+    # this process's first member: its block of the padded members
+    first = mesh.process_id * per * len(devices) if over_hosts else 0
 
     def shard(i, dev):
-        block = slice(i * per, (i + 1) * per)
+        block = slice(first + i * per, first + (i + 1) * per)
         xi = x[block] if x.dim() == 3 else x
         w, _, _ = train_linear_population(
             xi.to(dev), torch.as_tensor(labels).to(dev), config, steps[block], regs[block],
@@ -244,8 +270,12 @@ def train_linear_population_sharded(
 
     from . import mesh as pmesh
 
-    weights = pmesh.run_on_shards(devices, shard)
-    return pmesh.gather(weights, devices[0])[:n_members]
+    weights = pmesh.gather(pmesh.run_on_shards(devices, shard), devices[0])
+    if multiproc:
+        from . import distributed
+
+        weights = torch.cat(distributed.all_gather(weights))
+    return weights[:n_members]
 
 
 def train_linear_population_looped(

@@ -11,7 +11,12 @@ halo; the last shard's halo is zeros, as Java's copyOfRange zero-pads).
 Each shard runs the fused ingest kernel (``ops/ingest_cuda``,
 ``csrc/ingest_features.cu``) once, on its own stream, at its local
 positions; the rows are gathered to the mesh's first device in shard
-order and put back in marker order.
+order and put back in marker order. On a mesh that spans processes the
+time axis runs over the processes too (process-major): a process holds
+and featurizes only its own blocks, the halo of its last block comes from
+the next process by one point-to-point exchange
+(``distributed.exchange_halo``; the last process's is zeros), and one
+all-gather assembles the rows of every shard.
 
 Division of labour as in ``ops/device_ingest``: the host plans (marker
 validity, the order-dependent balance scan, shard assignment, per-shard
@@ -30,7 +35,7 @@ from ..epochs.extractor import BalanceState
 from ..ops import device_ingest, ingest_cuda
 from ..utils import constants
 from ..utils.device import host_to_device
-from . import mesh as pmesh
+from . import distributed, mesh as pmesh
 
 #: the halo a shard reads from its right neighbour; a window (pre + skip
 #: + epoch_size samples, 787 at the defaults) must fit in it
@@ -136,7 +141,9 @@ def make_sharded_ingest(
             f"{_SLAB}-sample halo of the sharded ingest"
         )
     devices = mesh.axis_devices(axis)
-    n_shards = len(devices)
+    n_local = len(devices)
+    n_shards = n_local * mesh.process_count
+    first = mesh.process_id * n_local  # this process's first global shard
     featurize = ingest_cuda.make_cuda_ingest_featurizer(
         wavelet_index=wavelet_index, epoch_size=epoch_size, skip_samples=skip_samples,
         feature_size=feature_size, pre=pre,
@@ -147,7 +154,7 @@ def make_sharded_ingest(
             raw_sharded = stage_recording_int16(raw_sharded, mesh, axis)
         T = raw_sharded.shape[1]
         blocks = raw_sharded.shards
-        if len(blocks) != n_shards or len({b.shape[1] for b in blocks}) != 1:
+        if len(blocks) != n_local or len({b.shape[1] for b in blocks}) != 1:
             raise ValueError(f"recording length {T} not divisible by {n_shards} shards")
         if T // n_shards < _SLAB:
             raise ValueError(
@@ -168,20 +175,29 @@ def make_sharded_ingest(
                 f"pre {pre}); re-plan with plan_sharded_ingest"
             )
         res = np.asarray(resolutions, np.float32)
+        # the last local block's halo: the next process's head (one hop
+        # across the process boundary), zeros at the recording's end
+        tail = None
+        if raw_sharded.across_processes:
+            tail = distributed.exchange_halo(blocks[0][:, :_SLAB])
+            if mesh.process_id == mesh.process_count - 1:
+                tail = None
 
         def shard(i, dev):
             block = blocks[i]
-            if i + 1 < n_shards:
+            if i + 1 < n_local:
                 # the ring halo: the right neighbour's head, copied over
                 halo = blocks[i + 1][:, :_SLAB].to(dev)
+            elif tail is not None:
+                halo = tail.to(dev)
             else:
                 halo = torch.zeros((block.shape[0], _SLAB), dtype=block.dtype, device=dev)
             ext = torch.cat([block, halo], dim=1)
-            return featurize(ext, host_to_device(res, dev), plan.local_positions[i],
-                             plan.mask[i])
+            return featurize(ext, host_to_device(res, dev), plan.local_positions[first + i],
+                             plan.mask[first + i])
 
         rows = pmesh.run_on_shards(devices, shard)
-        flat = pmesh.gather(rows, devices[0])
+        flat = pmesh.ShardedArray(rows, 0, mesh.process_count, mesh.process_id).gather()
         out = flat[torch.as_tensor(plan.unsort, device=devices[0])]
         if out.is_cuda:
             torch.cuda.current_stream(out.device).synchronize()
@@ -203,19 +219,16 @@ def shard_block_for(n_samples: int, n_shards: int, quantum: int = 2048) -> int:
 def stage_recording_int16(signal, mesh: pmesh.Mesh, axis: str = pmesh.TIME_AXIS):
     """A (C, T) int16 recording split over ``axis``: block ``i`` (raw
     int16 bytes, half the float32 transfer) on the axis's ``i``-th
-    device."""
-    devices = mesh.axis_devices(axis)
-    signal = signal.cpu().numpy() if isinstance(signal, torch.Tensor) else np.asarray(signal)
-    T = signal.shape[1]
-    if T % len(devices):
-        raise ValueError(f"recording length {T} not divisible by {len(devices)} shards")
-    blocks = np.split(np.asarray(signal, np.int16), len(devices), axis=1)
-    return pmesh.ShardedArray([host_to_device(np.ascontiguousarray(b), d)
-                               for b, d in zip(blocks, devices)], dim=1)
+    device (``parallel/streaming.stage_recording``)."""
+    from . import streaming
+
+    return streaming.stage_recording(signal, mesh, axis, dtype=torch.int16)
 
 
 def stage_recording_local_int16(local_block, mesh: pmesh.Mesh, axis: str = pmesh.TIME_AXIS):
-    """The multi-process twin of :func:`stage_recording_int16`, where each
-    process stages only its contiguous time block; in one process the
-    local block is the whole recording."""
-    return stage_recording_int16(local_block, mesh, axis)
+    """The multi-process twin of :func:`stage_recording_int16`: each
+    process stages only its contiguous time block, raw int16
+    (``parallel/streaming.stage_recording_local``)."""
+    from . import streaming
+
+    return streaming.stage_recording_local(local_block, mesh, axis, dtype=np.int16)

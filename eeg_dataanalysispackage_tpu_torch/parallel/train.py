@@ -24,7 +24,11 @@ each shard's forward and backward run on its device (on that device's
 current stream), the shard gradients and losses are added in shard order
 on the first device (the port's all-reduce; XLA's psum adds in its own
 order), and the update is applied there, the parameters going to every
-shard at the next step.
+shard at the next step. Over a mesh that spans processes each process
+runs its own shards (a batch staged by ``distributed.stage_global_batch``,
+or a tensor taken as this process's rows), and the shards' partial sums
+are all-gathered and added in global shard order, so every process
+applies the update one process over all the shards would.
 
 The raw-stream steps run the fused ingest kernel (``ops/ingest_cuda``,
 ``csrc/ingest_features.cu``) on the card and its plain version on the
@@ -160,6 +164,7 @@ def make_feature_train_step(
                                 else mesh.axis_names[0]) if mesh is not None else [dev]
     neg_lr = float(np.float32(-learning_rate))
     m = float(np.float32(momentum))
+    across = mesh is not None and mesh.process_count > 1
 
     def init_state(key):
         if isinstance(key, Mapping):
@@ -174,7 +179,8 @@ def make_feature_train_step(
         names = list(params)
         parts = [_shards(a if isinstance(a, pmesh.ShardedArray) else _tensor(a, dev, torch.float32),
                          devices) for a in (features, labels, mask)]
-        total = torch.clamp(pmesh.sum_in_order([mk.sum() for mk in parts[2]], dev), min=1.0)
+        total = torch.clamp(pmesh.sum_in_order([mk.sum() for mk in parts[2]], dev, across),
+                            min=1.0)
         grads, losses = [], []
         for x, y, mk in zip(*parts):
             d = x.device
@@ -187,11 +193,11 @@ def make_feature_train_step(
                 loss = per_example.sum() / total.to(d)
                 grads.append(torch.autograd.grad(loss, [p[k] for k in names]))
             losses.append(loss.detach())
-        loss = pmesh.sum_in_order(losses, dev)
+        loss = pmesh.sum_in_order(losses, dev, across)
         new_params, new_trace = {}, {}
         with torch.no_grad():
             for j, k in enumerate(names):
-                g = pmesh.sum_in_order([gs[j] for gs in grads], dev)
+                g = pmesh.sum_in_order([gs[j] for gs in grads], dev, across)
                 trace = g + m * state["opt"]["trace"][k]
                 new_trace[k] = trace
                 new_params[k] = params[k] + neg_lr * (g + m * trace)

@@ -77,6 +77,20 @@ mesh's time axis (``parallel/sharded_ingest.py``) and a linear population
 its members over the data axis (``models/population.py``); the record is
 :attr:`PipelineBuilder.mesh_resolved` (the report's ``mesh`` block).
 
+``processes=N&coordinator=host:port&process_id=i`` (or the env twins
+``JAX_NUM_PROCESSES``, ``JAX_COORDINATOR_ADDRESS``/``JAX_COORDINATOR``,
+``JAX_PROCESS_ID``; the JAX plan parser's grammar and messages,
+``parallel/pod.parse_pod``) make the run one rank of a multi-process pod:
+the bootstrap (``parallel/distributed.initialize``: the preflight, then
+``torch.distributed``) runs before any mesh, and a live pod's hybrid
+mesh (hosts x local devices) supersedes ``devices=``/``mesh_axes=``. The
+fused ingest is partitioned by recording (``parallel/pod.py``: each rank
+launches K1 on its own block, one all-gather assembles the matrix; no
+feature cache) and a linear population's members split over hosts x
+devices. ``processes=1`` runs the unchanged path and records the request.
+A pod that cannot assemble raises ``distributed.PodBootstrapError`` (the
+JAX package degrades to one host; the port has no ladder).
+
 Every run goes through the run bracket (``scheduler/runtime.py``):
 ``faults=``/``faults_seed=`` (or ``EEG_TPU_FAULTS``) install a fault
 plan in the run's domain, ``report=`` (or ``EEG_TPU_RUN_REPORT_DIR``)
@@ -109,15 +123,12 @@ from ..io import feature_cache, modelfiles, provider, remote
 from ..models import population, registry, seizure, stats
 from ..obs import chaos, events
 from ..ops import decode_ingest
-from ..parallel import mesh as pmesh
+from ..parallel import mesh as pmesh, pod as pod_mod
 from ..serve import pipeline as serve_pipeline
 from ..utils import java_compat
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-#: query keys whose paths the port does not run yet (see ROADMAP.md)
-NOT_PORTED_KEYS = ("processes", "coordinator", "process_id")
 
 _FUSED_FE = re.compile(r"dwt-(\d+)-fused(-pallas|-block|-xla|-decode)?")
 
@@ -183,9 +194,6 @@ def resolve_precision(query_map: Dict[str, str]) -> str:
 
 
 def _check_ported(query_map: Dict[str, str]) -> None:
-    for key in NOT_PORTED_KEYS:
-        if key in query_map:
-            raise ValueError(f"{key}= is not yet ported; see ROADMAP.md")
     if query_map.get("fe_sweep") and query_map.get("task", "p300") != "seizure":
         raise ValueError(
             "fe_sweep= compares feature configs over the seizure workload; it "
@@ -338,7 +346,7 @@ class PipelineBuilder:
         self.statistics: Optional[stats.ClassificationStatistics] = None
         #: wall seconds of the last run by stage: parse, stage (fused)
         #: or epoch (host fe=), featurize, train, test (each device
-        #: stage ends in a sync)
+        #: stage ends in a sync); a pod rank's also bootstrap and exchange
         self.timers: Dict[str, float] = {}
         #: the last run's feature rows on ``device``: the fused run's, or
         #: the host path's one extraction for a population or fan-out;
@@ -382,11 +390,19 @@ class PipelineBuilder:
         #: before a fused run
         self.overlap_resolved: Optional[bool] = None
         #: the last run's mesh record, ``{"requested", "rung", "shape",
-        #: "devices"}`` and the population's ``"population"`` block; None
-        #: without ``devices=``/``mesh_axes=``
+        #: "devices"}`` and the population's ``"population"`` block; on a
+        #: pod ``rung: "pod"`` with ``processes``, ``process_id``,
+        #: ``coordinator``, ``dcn_shape`` and ``backend``; a ``"pod"`` block
+        #: for ``processes=1``; None without ``devices=``/``mesh_axes=`` or
+        #: the pod keys
         self.mesh_resolved: Optional[dict] = None
-        #: the last query's validated ``devices=``/``mesh_axes=`` request
+        #: the last query's validated ``devices=``/``mesh_axes=`` and
+        #: ``processes=``/``coordinator=``/``process_id=`` requests, and the
+        #: record of a requested pod that did not run one
+        #: (``processes=1``), folded into :attr:`mesh_resolved`
         self._mesh_request = None
+        self._pod_request = None
+        self._pod_block = None
         #: the last run's report telemetry (``obs/report.RunTelemetry``;
         #: None when the run was not reported), per-run metrics scope and
         #: stage timer (the report's ``stages``), set by the run bracket
@@ -428,6 +444,7 @@ class PipelineBuilder:
         # the mesh grammar comes before the serve conflicts, as in the JAX
         # package's plan parser
         self._mesh_request = pmesh.parse_mesh(query_map, query_map.get("serve") == "true")
+        self._pod_request = pod_mod.parse_pod(query_map, query_map.get("serve") == "true")
         if query_map.get("serve") == "true":
             # the reference's conflict messages come before any
             # not-yet-ported key of the conflicting modes
@@ -452,7 +469,17 @@ class PipelineBuilder:
         self.workload_block = self.feature_sets = None
         self.population_block = self.population_states = self.classifiers = None
         self.mesh_resolved = None
-        mesh = self._resolve_mesh(self._mesh_request)
+        # the bootstrap runs before any mesh is built; a live pod's hybrid
+        # mesh supersedes devices=/mesh_axes=
+        pod = self._resolve_pod(self._pod_request)
+        if pod is not None:
+            mesh = pod.mesh
+            if self._mesh_request is not None:
+                logger.info("pod bootstrap succeeded: the hybrid hosts x devices mesh "
+                            "supersedes devices=/mesh_axes=")
+        else:
+            mesh = self._resolve_mesh(self._mesh_request)
+            self._note_pod_block()
 
         # task=seizure: sliding windows over interval annotations, subband
         # features on the host, cost-sensitive training, the extended
@@ -508,7 +535,7 @@ class PipelineBuilder:
             suffix = fused.group(2)
             backend = "decode" if suffix is None else suffix[1:]
             features, targets = self._fused_features(
-                query_map, odp, wavelet_index, backend, precision, overlap, mesh)
+                query_map, odp, wavelet_index, backend, precision, overlap, mesh, pod)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -669,6 +696,87 @@ class PipelineBuilder:
         events.event("pipeline.mesh_built", devices=int(mesh.devices.size),
                      axes=",".join(mesh.axis_names))
         return mesh
+
+    def _resolve_pod(self, request) -> Optional[pod_mod.PodRuntime]:
+        """``processes=``/``coordinator=``/``process_id=`` (or their env
+        twins, ``distributed.resolve_env_knobs``) -> a live
+        :class:`~..parallel.pod.PodRuntime` over the hybrid mesh, or None
+        (no pod asked for, or ``processes=1``: the unchanged path, its
+        request recorded by :meth:`_note_pod_block`). A bootstrap that
+        cannot assemble raises ``PodBootstrapError`` with the JAX
+        package's evidence text (the JAX package degrades to one host
+        there); the pod's record is in :attr:`mesh_resolved` first, so a
+        crash report carries it."""
+        from ..parallel import distributed
+
+        self._pod_block = None
+        processes = coordinator = process_id = None
+        if request is not None:
+            processes, coordinator, process_id = (
+                request.processes, request.coordinator, request.process_id)
+        coordinator, processes, process_id = distributed.resolve_env_knobs(
+            coordinator, processes, process_id)
+        if processes is None and coordinator is None:
+            if process_id is not None:
+                raise ValueError(
+                    "JAX_PROCESS_ID/process_id is set but neither a "
+                    "coordinator address nor a process count is "
+                    "configured — refusing to run as single-process "
+                    "with a partial multi-host setup"
+                )
+            return None
+        requested = {"processes": processes, "coordinator": coordinator,
+                     "process_id": process_id}
+        if processes is not None and processes <= 1:
+            # the degenerate pod: the single-process path, only recorded
+            self._pod_block = dict(requested, rung="single_host")
+            return None
+        t0 = time.perf_counter()
+        try:
+            coordinator_used, n_proc, pid = distributed.initialize(
+                coordinator, processes, process_id, device=self.device)
+            hmesh = distributed.hybrid_mesh(device=self.device)
+            self.timers["bootstrap"] = time.perf_counter() - t0
+        except Exception as e:
+            evidence = f"{type(e).__name__}: {e}"
+            obs.metrics.count("pipeline.pod_unavailable")
+            events.event("pipeline.pod_unavailable", error=evidence)
+            self.mesh_resolved = {"requested": requested, "rung": "single_device",
+                                  "shape": None,
+                                  "pod": dict(requested, rung="failed", error=evidence)}
+            # a half-assembled bootstrap must not wedge the latch
+            distributed.shutdown()
+            raise
+        self.mesh_resolved = {
+            "requested": requested,
+            "rung": "pod",
+            "shape": hmesh.shape,
+            "devices": int(hmesh.devices.size),
+            "processes": int(n_proc),
+            "process_id": int(pid),
+            "coordinator": coordinator_used,
+            "dcn_shape": {distributed.DCN_AXIS: int(n_proc)},
+            "backend": distributed.backend(),
+        }
+        events.event("pipeline.pod_up", processes=int(n_proc), process_id=int(pid),
+                     devices=int(hmesh.devices.size), backend=distributed.backend())
+        obs.metrics.count("pipeline.pod_runs")
+        return pod_mod.PodRuntime(mesh=hmesh, num_processes=int(n_proc), process_id=int(pid),
+                                  coordinator=coordinator_used)
+
+    def _note_pod_block(self) -> None:
+        """A requested pod that runs as one process (``processes=1``):
+        its record into the run's mesh block, as ``mesh_resolved["pod"]``."""
+        if self._pod_block is None:
+            return
+        if self.mesh_resolved is None:
+            self.mesh_resolved = {
+                "requested": {k: self._pod_block.get(k)
+                              for k in ("processes", "coordinator", "process_id")},
+                "rung": "single_device",
+                "shape": None,
+            }
+        self.mesh_resolved["pod"] = self._pod_block
 
     def _note_population_mesh(self, block) -> None:
         """The population's mesh record into the run's."""
@@ -881,7 +989,8 @@ class PipelineBuilder:
         return statistics
 
     def _fused_features(self, query_map, odp, wavelet_index: int, backend: str,
-                        precision: str, overlap: Optional[bool] = None, mesh=None):
+                        precision: str, overlap: Optional[bool] = None, mesh=None,
+                        pod=None):
         """The fused path's feature rows on the run's device, and the
         targets (JAX package: pipeline/builder.py:388-600, without its
         prefix dedup and degradation ladder): the feature-cache lookup,
@@ -889,11 +998,26 @@ class PipelineBuilder:
         the kernel run, the store. A hit's host rows go to the run's
         device in the dtype a miss gives, and no kernel is launched.
         ``overlap`` is the provider's (``None``: ``EEG_TPU_OVERLAP``), as is
-        ``mesh`` (the sharded ingest over its time axis). Sets
+        ``mesh`` (the sharded ingest over its time axis). ``pod``: a live
+        pod's runtime; its ingest is partitioned by recording and bypasses
+        the feature cache (a content key would need every process to
+        digest bytes it never reads), and it computes f32 only. Sets
         :attr:`precision_resolved`, :attr:`backend_resolved` and
         :attr:`overlap_resolved`."""
         cache = (feature_cache.open_cache()
                  if query_map.get("cache", "true") != "false" else None)
+        if pod is not None:
+            if precision != "f32":
+                # the grammar refuses precision= on a pod; this is the
+                # environment's EEG_TPU_PRECISION
+                raise ValueError(
+                    f"precision={precision} runs behind a per-run f32 reference "
+                    "gate the pod-partitioned ingest cannot stage; pod runs compute f32"
+                )
+            if cache is not None:
+                logger.info("pod run: feature cache bypassed (partitioned ingest "
+                            "reads 1/N of the bytes instead)")
+                cache = None
         logger.info(
             "fe=%s: fused rung %r runs the CUDA fused-ingest kernel on %s at "
             "precision %s (feature cache %s, no degradation ladder)",
@@ -969,7 +1093,7 @@ class PipelineBuilder:
                         wavelet_index=wavelet_index, backend=backend,
                         precision=precision_used,
                         recordings=None if prepared is None else prepared.recordings,
-                        overlap=overlap, mesh=mesh,
+                        overlap=overlap, mesh=None if pod is not None else mesh, pod=pod,
                     )
                 self._add_timings(odp.timings)
                 landed = backend

@@ -2,14 +2,16 @@
 
 Run by tests/test_torch_lifecycle.py as its own process:
 
-    python _torch_lifecycle_worker.py <ckpt_dir> <n_batches>
+    python _torch_lifecycle_worker.py <ckpt_dir> <n_batches> [<kill_after>]
 
 Feeds a deterministic labeled feedback stream (:func:`feedback_stream`,
 the JAX package's worker's stream) through the port's
 ``LifecycleManager`` on the CPU, whose featurizer is the identity over
 ready-made feature rows: no engine and no model, only the partial-fit
 and checkpoint machinery. After each flushed batch it prints
-``CKPT <batches>``; the test SIGKILLs it mid-stream, runs it again over
+``CKPT <batches>``. Given ``kill_after``, it stops after that many
+batches' checkpoints and blocks on a line from stdin that never comes,
+so the test's SIGKILL lands at a fixed point; the test then runs it again over
 the same directory (the manager restores the latest checkpoint and
 :func:`run` resumes from ``batches_trained``) and compares the final
 candidate weights byte for byte with an uninterrupted twin. Imports
@@ -54,9 +56,10 @@ def make_lifecycle(ckpt_dir: str):
     )
 
 
-def run(ckpt_dir: str, n_batches: int):
+def run(ckpt_dir: str, n_batches: int, kill_after=None):
     """Feed batches ``batches_trained .. n_batches`` (resume-aware), one
-    flush a batch, printing a CKPT line after each."""
+    flush a batch, printing a CKPT line after each; with ``kill_after``,
+    wait for the kill after that many checkpoints instead of going on."""
     lc = make_lifecycle(ckpt_dir)
     stream = feedback_stream(n_batches)
     res = np.ones(3, np.float32)
@@ -67,12 +70,16 @@ def run(ckpt_dir: str, n_batches: int):
             lc.feedback(rows[i], res, float(labels[i]))
         assert lc.flush(timeout_s=60.0), "adapter did not go idle"
         print(f"CKPT {lc.batches_trained}", flush=True)
+        if kill_after is not None and lc.batches_trained >= kill_after:
+            sys.stdin.readline()  # the parent kills this process here
+            raise SystemExit("stdin closed before the kill")
     lc.close(flush=True)
     return lc
 
 
 if __name__ == "__main__":
-    manager = run(sys.argv[1], int(sys.argv[2]))
+    manager = run(sys.argv[1], int(sys.argv[2]),
+                  int(sys.argv[3]) if len(sys.argv) > 3 else None)
     w = manager.candidate.w if manager.candidate is not None else None
     print("W " + (w.astype(np.float32).tobytes().hex() if w is not None else "none"),
           flush=True)

@@ -28,6 +28,15 @@ trace, ``stage_raw``'s pinned non-blocking copies equal to a pageable
 copy behind a busy stream, the native epoch stage equal to numpy's, and
 ``staging.prefetch``'s pinned stage and event handoff.
 
+Multi-process runs on the card (two ranks over gloo on one card, or a
+card a rank where there are several): a ``processes=2`` population run
+through ``parallel/pod.spawn_pod_member`` whose ranks launch K1 once per
+owned recording and whose statistics and exchanged matrix equal the
+one-process card run's; the two-process worker
+(``tests/_torch_distributed_worker.py``) on the card, bit-equal to one
+process over the same four shards; the streaming front end on a 4-shard
+time mesh and the blocked iterator against the CPU.
+
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it
 runs on a machine with only the port installed:
@@ -48,6 +57,7 @@ value across a quantization boundary, by one step of its group.
 import glob
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -2435,7 +2445,9 @@ def test_devices_one_through_the_builder_equals_the_unmeshed_run(pipeline_sessio
     assert b.mesh_resolved["rung"] == "mesh" and b.population_block["mode"] == "sharded"
     with pytest.raises(ValueError, match="present"):
         PipelineBuilder(q + f"&devices={torch.cuda.device_count() + 1}").execute()
-    with pytest.raises(ValueError, match="not yet ported"):
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed
+
+    with pytest.raises(distributed.PodBootstrapError, match="no coordinator address"):
         PipelineBuilder(q + "&processes=2").execute()
 
 
@@ -2554,3 +2566,173 @@ def test_raw_stream_trainers_launch_the_kernel_and_follow_the_cpu(mode):
             assert launched == (0, 0)
         losses[device] = out
     assert np.max(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"]))) <= 1e-5
+
+
+# -- multi-process runs and the streaming front end ------------------------------
+
+
+def _pod_session(directory, n_files=4, n_markers=200):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    lines = []
+    for i in range(n_files):
+        _synthetic.write_recording(str(directory), name=f"pod_{i}", n_markers=n_markers,
+                                   guessed=2 + i, seed=60 + i)
+        lines.append(f"pod_{i}.eeg {2 + i}")
+    (directory / "info.txt").write_text("\n".join(lines) + "\n")
+    return str(directory / "info.txt")
+
+
+@pytest.mark.cuda
+def test_hybrid_mesh_on_the_card_covers_the_visible_cards():
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed
+
+    _card()
+    n = torch.cuda.device_count()
+    mesh = distributed.hybrid_mesh()
+    assert mesh.shape == {"hosts": 1, "data": n}
+    assert mesh.local_devices == [torch.device("cuda", i) for i in range(n)]
+    with pytest.raises(ValueError, match="local devices"):
+        distributed.hybrid_mesh(ici_shape=(n + 1,))
+
+
+@pytest.mark.cuda
+def test_a_two_rank_pod_on_the_card_equals_the_one_process_run(tmp_path, monkeypatch):
+    """processes=2 through spawn_pod_member on the card: each rank launches
+    K1 once per recording it owns, its exchanged matrix is the one-process
+    card run's rows bit for bit, and its statistics are that run's."""
+    import hashlib
+
+    from eeg_dataanalysispackage_tpu_torch.io.provider import OfflineDataProvider
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed, pod
+
+    _card()
+    info = _pod_session(tmp_path)
+    q = (f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&cv=2&sweep=lr:1.0,0.5"
+         "&cache=false")
+    plain = PipelineBuilder(q).execute()
+    rows, _ = OfflineDataProvider([info]).load_features_device()
+    rows_sha = hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    port = distributed.free_port_pair()
+    procs = [pod.spawn_pod_member(q, f"127.0.0.1:{port}", 2, r, timeout_s="120")
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, o in enumerate(outs):
+        assert o["statistics"] == str(plain)
+        assert o["features_sha256"] == rows_sha
+        assert o["k1"] == 2 == o["metrics"]["pod.recordings_owned"]
+        assert o["mesh"]["rung"] == "pod" and o["mesh"]["process_id"] == pid
+        assert o["mesh"]["backend"] == "gloo"  # both ranks see every card
+
+
+def _two_card_ranks(params_path):
+    """The two ranks of tests/_torch_distributed_worker.py on the card."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = distributed.free_port_pair()
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "_torch_distributed_worker.py"), params_path,
+             "cuda"], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+@pytest.mark.cuda
+def test_the_two_process_worker_on_the_card_is_one_process_over_four_shards(tmp_path):
+    """Two ranks x two shards of the card: the train step, data-parallel
+    SGD, the member-sharded population, the streaming extractor and the
+    sharded ingest (halos across the process boundary) give the bits one
+    process gives over four shards of the card."""
+    from eeg_dataanalysispackage_tpu_torch.models import sgd
+    from eeg_dataanalysispackage_tpu_torch.parallel import (
+        mesh as pmesh, population, sharded_ingest, streaming, train as ptrain,
+    )
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_distributed_worker as worker
+
+    _card()
+    params = {k: v.numpy() for k, v in ptrain.init_mlp_params(0, device="cpu").items()}
+    path = str(tmp_path / "params.npz")
+    np.savez(path, **params)
+    outs = _two_card_ranks(path)
+
+    def arr(h, shape):
+        return np.frombuffer(bytes.fromhex(h), dtype=np.float32).reshape(shape)
+
+    epochs, labels, sig, raw, markers, x, y = worker.cases()
+    four = [torch.device("cuda", 0)] * 4
+    mesh4 = pmesh.make_mesh(devices=four)
+    tmesh4 = pmesh.make_mesh(devices=four, axes=("time",))
+    init, step = ptrain.make_train_step(mesh4)
+    _, loss = step(init(params), epochs, labels, np.ones(4, np.float32))
+    feats = streaming.make_streaming_extractor(tmesh4)(sig)
+    T = raw.shape[1]
+    plan = sharded_ingest.plan_sharded_ingest(markers, 2, T, 4, T // 4)
+    rows = sharded_ingest.make_sharded_ingest(tmesh4)(raw, np.full(3, 0.1, np.float32), plan)
+    xs, ys = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    steps, regs, seeds = worker.population_args()
+    pop = population.train_linear_population_sharded(
+        xs, ys, sgd.SGDConfig(num_iterations=200, convergence_tol=0.0), steps, regs, seeds,
+        None, mesh4)
+    for o in outs:
+        assert o["backend"] == "gloo" and o["mesh"] == {"hosts": 2, "data": 2}
+        assert o["grad"] == [26.0, 30.0, 34.0] and o["total"] == 90.0
+        np.testing.assert_array_equal(arr(o["loss"], (1,)), loss.reshape(1).cpu().numpy())
+        np.testing.assert_array_equal(arr(o["stream"], (8, 32)), feats.cpu().numpy())
+        np.testing.assert_array_equal(arr(o["ingest"], (3, 48)), rows.cpu().numpy())
+        np.testing.assert_array_equal(arr(o["population"], (worker.POP_MEMBERS, 16)),
+                                      pop.cpu().numpy())
+        for name, cfg in worker.SGD_CONFIGS.items():
+            w = sgd.train_linear(xs, ys, sgd.SGDConfig(**cfg), mesh=mesh4)
+            np.testing.assert_array_equal(arr(o["sgd"][name], (16,)), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_streaming_on_the_card_follows_the_cpu():
+    """The time-sharded extractor on four shards of the card, at 64
+    channels, and the blocked iterator: within 2e-5 of the CPU."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import streaming
+
+    shards, pmesh = _mesh4()
+    rng = np.random.RandomState(7)
+    raw = (rng.randn(64, 4 * 4096) * 500).astype(np.int16)
+    res = np.full(64, 0.1, np.float32)
+    tmesh = pmesh.make_mesh(devices=shards, axes=("time",))
+    got = streaming.make_streaming_extractor(tmesh, resolutions=res)(
+        streaming.stage_recording(raw, tmesh, dtype=torch.int16))
+    assert got.is_cuda and got.shape == (4 * 4096 // 256, 64 * 16)
+    cpu_mesh = pmesh.make_mesh(4, axes=("time",), device="cpu")
+    want = streaming.make_streaming_extractor(cpu_mesh, resolutions=res)(raw)
+    assert (got.cpu() - want).abs().max().item() <= 2e-5
+    card = streaming.blocked_features(raw, block=2048, resolutions=res)
+    host = streaming.blocked_features(raw, block=2048, resolutions=res, device="cpu")
+    assert np.abs(card - host).max() <= 2e-5

@@ -812,10 +812,13 @@ def _run_worker(ckpt_dir, n_batches, kill_after=None):
     worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_torch_lifecycle_worker.py")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # a worker given kill_after blocks on stdin after that checkpoint, so
+    # the kill lands at a fixed point
+    args = [] if kill_after is None else [str(kill_after)]
     proc = subprocess.Popen(
-        [sys.executable, worker, ckpt_dir, str(n_batches)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
+        [sys.executable, worker, ckpt_dir, str(n_batches), *args],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
     )
     if kill_after is None:
         out, err = proc.communicate(timeout=240)
@@ -831,6 +834,7 @@ def _run_worker(ckpt_dir, n_batches, kill_after=None):
     finally:
         os.kill(proc.pid, signal.SIGKILL)
         proc.wait(timeout=60)
+        proc.stdin.close()
         proc.stdout.close()
         proc.stderr.close()
     assert seen == kill_after

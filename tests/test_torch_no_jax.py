@@ -6,9 +6,11 @@ and must leave ``jax``, ``flax``, ``optax``, ``msgpack`` and
 tests/conftest.py imports JAX into this one; the card's host has none of
 them, so the checkpoint store writes flax's bytes with its own codec). An
 AST scan pins the same for every source file of the port, for
-``chip_smoke.py`` and ``chip_compare.py`` and for the lifecycle's kill
-worker ``tests/_torch_lifecycle_worker.py``, including imports inside
-functions.
+``chip_smoke.py`` and ``chip_compare.py``, for the lifecycle's kill
+worker ``tests/_torch_lifecycle_worker.py`` and for the two-process
+worker ``tests/_torch_distributed_worker.py``, including imports inside
+functions. A pod member (``parallel/pod_worker``) runs a whole query and
+its ``sys.modules`` holds none of them either.
 """
 
 import ast
@@ -38,7 +40,8 @@ assert not leaked, leaked
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py"),
-           os.path.join(REPO, "tests", "_torch_lifecycle_worker.py")]
+           os.path.join(REPO, "tests", "_torch_lifecycle_worker.py"),
+           os.path.join(REPO, "tests", "_torch_distributed_worker.py")]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -240,3 +243,68 @@ def test_the_single_process_mesh_modules_are_walked_and_scanned():
     for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ingest.py",
                 "parallel/population.py", "parallel/train.py"):
         assert rel in scanned
+
+
+def test_the_multi_process_modules_are_walked_and_scanned():
+    """The multi-process runtime, the pod layer, the pod worker and the
+    streaming front end keep their own copies of the JAX package's
+    JAX-free parts (the preflight, the partition, the signal helpers):
+    walked by the fresh import, which starts no process group, and
+    scanned with the two-process worker."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _PROBE + (
+        "\nfrom eeg_dataanalysispackage_tpu_torch.parallel import distributed"
+        "\nassert not distributed.is_initialized()\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    for name in ("parallel.distributed", "parallel.pod", "parallel.pod_worker",
+                 "parallel.streaming", "ops.signal"):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("eeg_dataanalysispackage_tpu_torch/parallel/distributed.py",
+                "eeg_dataanalysispackage_tpu_torch/parallel/pod.py",
+                "eeg_dataanalysispackage_tpu_torch/parallel/pod_worker.py",
+                "eeg_dataanalysispackage_tpu_torch/parallel/streaming.py",
+                "eeg_dataanalysispackage_tpu_torch/ops/signal.py",
+                "tests/_torch_distributed_worker.py"):
+        assert rel in scanned
+
+
+_POD_MEMBER_PROBE = """
+import runpy, sys
+sys.argv = ["pod_worker", "--query=" + sys.argv[1], "--device=cpu"]
+try:
+    runpy.run_module("eeg_dataanalysispackage_tpu_torch.parallel.pod_worker", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+leaked = sorted(
+    k for k in sys.modules
+    if k.split(".")[0] in ("jax", "flax", "optax", "msgpack", "eeg_dataanalysispackage_tpu")
+)
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_a_pod_members_modules_hold_no_jax(tmp_path):
+    """A pod member runs a whole fused population query (``processes=1``:
+    the pod grammar and its record, the single-process path) and leaves
+    no JAX module in its ``sys.modules``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    info = _synthetic.write_session(str(tmp_path))
+    query = (f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&cv=2&cache=false"
+             "&processes=1")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _POD_MEMBER_PROBE, query], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout
+    assert '"sha"' in proc.stdout

@@ -17,6 +17,7 @@ import logging
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ import pytest
 from eeg_dataanalysispackage_tpu.io import provider as jax_provider
 from eeg_dataanalysispackage_tpu.pipeline.plan import ExecutionPlan
 from eeg_dataanalysispackage_tpu_torch import obs
-from eeg_dataanalysispackage_tpu_torch.io import circuit, provider, remote
+from eeg_dataanalysispackage_tpu_torch.io import circuit, provider, remote, sources
 from eeg_dataanalysispackage_tpu_torch.obs import chaos, events
 from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
 
@@ -108,6 +109,37 @@ def test_a_parse_error_surfaces_in_order(tmp_path):
         for rel_path, _guessed, _rec in odp.iter_recordings():
             seen.append(rel_path)
     assert seen == ["synth_00.eeg"]
+
+
+class _SlowTail(sources.LocalFileSystem):
+    """Reads of the files after the broken one take a while, so they are
+    still running when the broken parse fails."""
+
+    def read_bytes(self, path):
+        if "synth_00" not in path and "synth_01" not in path:
+            time.sleep(0.3)
+        return super().read_bytes(path)
+
+
+def _ingest_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("eeg-tpu-ingest")]
+
+
+def test_a_failed_pooled_run_leaves_no_parse_running(tmp_path, session):
+    """A parse error waits for the pool's running parses before it
+    propagates: no ``eeg-tpu-ingest`` thread outlives the failed run, and
+    the next run's metrics scope counts only its own file reads."""
+    info = _session(tmp_path, n_files=6, n_markers=10)
+    with open(str(tmp_path / "synth_01.vhdr"), "w") as f:
+        f.write("[Binary Infos]\nBinaryFormat=NO_SUCH_FORMAT\n")
+    odp = provider.OfflineDataProvider([info], device="cpu", workers=4, filesystem=_SlowTail())
+    with pytest.raises(ValueError, match="Unsupported BinaryFormat"):
+        list(odp.iter_recordings())
+    assert _ingest_threads() == []
+    with obs.metrics.scope() as m:
+        list(provider.OfflineDataProvider([session], device="cpu", workers=4).iter_recordings())
+    assert m.snapshot()["counters"]["ingest.file_reads"] == 9
+    assert _ingest_threads() == []
 
 
 def test_the_pool_is_counted_and_traced(session):

@@ -135,8 +135,9 @@ def test_no_silent_cpu_without_cuda(one_file):
      # overlap= runs (tests/test_torch_overlap.py), on a batch run and,
      # ignored there as in the JAX package, on a serve run
      "overlap=true",
-     # devices= runs (tests/test_torch_sharded_population.py); the
-     # multi-process keys are still refused
+     # devices= runs (tests/test_torch_sharded_population.py), and so do
+     # the multi-process keys (tests/test_torch_pod.py,
+     # tests/test_torch_pod_pipeline.py)
      "devices=2", "processes=2",
      # serve=true itself runs (tests/test_torch_serve.py), and so do its
      # adapt= (tests/test_torch_lifecycle.py) and report=
@@ -156,6 +157,9 @@ def test_unported_keys_raise(one_file, extra, tmp_path):
         return
     if extra == "devices=2":
         _mesh_runs_like_the_jax_package(one_file, extra)
+        return
+    if extra == "processes=2":
+        _pod_bootstraps_like_the_jax_package(one_file, extra)
         return
     q = f"info_file={one_file}&fe=dwt-8-fused&load_clf=logreg&load_name=unused&{extra}"
     if extra == "task=seizure":
@@ -211,6 +215,25 @@ def _mesh_runs_like_the_jax_package(info, extra):
     ours = PipelineBuilder(f"{q}&{extra}", device="cpu")
     assert str(ours.execute()) == str(JaxBuilder(q).execute())
     assert ours.mesh_resolved["rung"] == "mesh" and ours.mesh_resolved["shape"] == {"data": 2}
+
+
+def _pod_bootstraps_like_the_jax_package(info, extra):
+    """processes=, refused until the multi-process slice ported it, now
+    bootstraps a pod: with no coordinator anywhere neither package can
+    assemble one. The JAX package degrades to one host with the evidence
+    recorded; the port has no ladder and raises PodBootstrapError before
+    it reads any file."""
+    from eeg_dataanalysispackage_tpu_torch.parallel import distributed
+
+    q = f"info_file={info}&fe=dwt-8-fused&train_clf=logreg"
+    theirs = JaxBuilder(f"{q}&{extra}")
+    assert str(theirs.execute()) == str(JaxBuilder(q).execute())
+    assert theirs.mesh_resolved["pod"]["rung"] == "single_host"
+    ours = PipelineBuilder(f"{q}&{extra}", device="cpu")
+    with pytest.raises(distributed.PodBootstrapError, match="no coordinator address"):
+        ours.execute()
+    assert "ingest.file_reads" not in ours.run_metrics.snapshot()["counters"]
+    assert not distributed.is_initialized()
 
 
 def _overlap_runs_like_the_jax_package(info, extra, tmp_path):
