@@ -172,10 +172,11 @@ Phases, one JSON line each (several for phases 2 to 6):
    run's own train rows, on the card and on the CPU, the same line-search
    steps at every update and predictions within NN_TOL. Every run against
    the port's CPU run under phase 4's near-threshold rules;
-4f. the seizure workload (``task=seizure``) on four continuous INT_16
-   recordings of 921,600 samples (one hour at CHB-MIT's 256 Hz) with two
-   annotated seizures each, cut into 512-sample windows at a stride of 256
-   (14,396 windows, ~3% positive): ``fe=dwt-4:level=4:stats=energy,std``
+4f. the seizure workload (``task=seizure``) on two continuous INT_16
+   recordings (SEIZURE_FILES; four until phase 4k came) of 921,600
+   samples (one hour at CHB-MIT's 256 Hz) with two annotated seizures
+   each, cut into 512-sample windows at a stride of 256 (7,198 windows,
+   ~3% positive): ``fe=dwt-4:level=4:stats=energy,std``
    with logreg (SEIZURE_LOGREG) at ``cost_fp=1&cost_fn=8`` (saved) and
    unweighted (expected cost and recall of both printed; the costs must
    raise recall and lower the expected cost), svm at ``class_weight=balanced``,
@@ -185,7 +186,7 @@ Phases, one JSON line each (several for phases 2 to 6):
    x ``cost_fn:2,8``) batched and looped (``result_path`` byte-equal),
    ``elastic=true`` logreg under ``device.step:once@3`` (one restart, the
    plain run's statistics), ``fe=dwt-8-pallas`` at 768-sample windows
-   (9,596 windows, K4 once, its rows within KERNEL_TOL of the plain
+   (4,798 windows, K4 once, its rows within KERNEL_TOL of the plain
    version and of the CPU run's) and ``load_clf=`` of the saved model,
    each against the port's CPU run under phase 4's near-threshold rules;
    then ``task=seizure&serve=true`` on a one-recording session (3,599
@@ -273,6 +274,24 @@ Phases, one JSON line each (several for phases 2 to 6):
    a rank a card (``CUDA_VISIBLE_DEVICES``) over NCCL with the same checks
    and each rank's ingest and train walls beside the one-process run's,
    else one line saying why that part did not run;
+4k. the plan executor (``scheduler.PlanExecutor``) on the card over the
+   8-recording session, four fused logreg plans (step sizes 1.0, 0.5,
+   0.25, 0.125) first run alone (``PipelineBuilder(q).execute()``):
+   ``max_concurrent=1``, 2 and 4, journaled, each plan's statistics
+   byte-equal to its solo run, K1 8 x 4 over each batch, the wall and
+   plans/s at each (``sched_concurrency``); a ``faults=ingest.fused:once@1``
+   plan failing with its ``crash_report.json`` beside a clean plan whose
+   statistics and per-plan counters equal its solo run's
+   (``sched_isolation``); a ``faults=scheduler.plan:once@1`` plan absorbed
+   by a retry, two attempts (``sched_retry``); a child process
+   (``tests/_torch_scheduler_worker.py --device=cuda``) SIGKILLed mid-plan
+   after its first plan completed, then ``recover()`` here: the completed
+   record byte-untouched and not re-run, each unfinished plan run once
+   (K1 8 x unfinished), statistics byte-equal to solo (``sched_recovery``);
+   two executors with lease directories over one journal racing
+   ``claim_and_run`` for an orphaned record, run exactly once
+   (``sched_takeover``); and ``faults=scheduler.journal:p=1.0``: the plan
+   runs unjournaled, the failed writes counted (``sched_journal_chaos``);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -356,7 +375,8 @@ Phases, one JSON line each (several for phases 2 to 6):
    (one serve batch) and at 32,768 windows, K6 at the same sizes with
    lanes cycling over 128 tenants, the epoch-features kernel at 32,768
    epochs, at the ``-pallas`` run's 641 and 1,494 and at the seizure
-   ``-pallas`` run's 9,596 epochs of 768 samples, beside
+   ``-pallas`` run's launch at four recordings, 9,596 epochs of 768
+   samples, beside
    ``library_ms``, one ``torch.matmul`` of the window view with W (TF32
    off: the contraction without the normalize), and ``window_read_ms``,
    one PyTorch reduction over the same window view; and at 4,096 epochs at
@@ -2869,8 +2889,11 @@ def phase_training_surface(torch, np, info, counters, work, kept, n_files):
     return k1, k4
 
 
-# phase 4f, the seizure workload: four CHB-MIT-scale continuous recordings
-# (one hour at 256 Hz each), two annotated seizures apiece
+# phase 4f, the seizure workload: CHB-MIT-scale continuous recordings (one
+# hour at 256 Hz each), two annotated seizures apiece; two recordings since
+# phase 4k came (four before: the phase's runs are host-bound and the whole
+# smoke keeps its earlier time)
+SEIZURE_FILES = 2
 SEIZURE_SAMPLES = 921_600
 SEIZURE_INTERVALS = ((200_000, 215_000), (600_000, 616_000))
 SEIZURE_MAIN = "task=seizure&window=512&stride=256&fe=dwt-4:level=4:stats=energy,std"
@@ -3021,9 +3044,9 @@ def phase_seizure(torch, np, counters, work):
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    info = write_seizure_smoke_session(os.path.join(work, "seizure"), 4)
+    info = write_seizure_smoke_session(os.path.join(work, "seizure"), SEIZURE_FILES)
     one = write_seizure_smoke_session(os.path.join(work, "seizure_one"), 1)
-    emit("seizure_session", recordings=4, samples_each=SEIZURE_SAMPLES,
+    emit("seizure_session", recordings=SEIZURE_FILES, samples_each=SEIZURE_SAMPLES,
          intervals=SEIZURE_INTERVALS, seconds=time.perf_counter() - t0)
     base = f"info_file={info}&{SEIZURE_MAIN}"
     model = os.path.join(work, "seizure_logreg")
@@ -3049,8 +3072,9 @@ def phase_seizure(torch, np, counters, work):
     emit("seizure_cost", workload=workload, feature_rows=list(rows.shape),
          expected_cost_1_8={"cost_fn=8": costed[1].expected_cost(1, 8),
                             "unweighted": plain[1].expected_cost(1, 8)}, recall=recall)
-    if not (workload["windows"] == 4 * 3599 and 0.01 < workload["class_ratio"] < 0.1
-            and tuple(rows.shape) == (4 * 3599, 30) and bool(torch.isfinite(rows).all())):
+    if not (workload["windows"] == SEIZURE_FILES * 3599 and 0.01 < workload["class_ratio"] < 0.1
+            and tuple(rows.shape) == (SEIZURE_FILES * 3599, 30)
+            and bool(torch.isfinite(rows).all())):
         raise AssertionError(f"seizure features or windows are off: {workload}")
     if not (costed[1].extended_report and recall["cost_fn=8"] > (
             0.0 if math.isnan(recall["unweighted"]) else recall["unweighted"])
@@ -3123,7 +3147,8 @@ def phase_seizure(torch, np, counters, work):
     emit("seizure_pallas", epochs=list(g.batch.epochs.shape),
          k4_launches=pallas[2]["epoch_features"], max_abs_err_plain=err_plain,
          max_abs_err_cpu=err_cpu, tol=KERNEL_TOL)
-    if not (pallas[2]["epoch_features"] == 1 and g.batch.epochs.shape == (4 * 2399, 3, 768)
+    if not (pallas[2]["epoch_features"] == 1
+            and g.batch.epochs.shape == (SEIZURE_FILES * 2399, 3, 768)
             and max(err_plain, err_cpu) <= KERNEL_TOL):
         raise AssertionError("the seizure -pallas run's K4 rows disagree with the plain version")
     k4_err = max(err_plain, err_cpu)
@@ -4072,6 +4097,209 @@ def phase_pod_four_cards(torch, np, info, counters):
                           "train_s": b.timers.get("train"), "wall_s": one_wall},
              ranks={"ingest_s": ingest, "train_s": [o["timers"].get("train") for o in outs],
                     "wall_s": [o["wall_s"] for o in outs]}, spawn_wall_s=wall)
+    return k1
+
+
+SCHED_QUERY = "fe=dwt-8-fused&train_clf=logreg"
+SCHED_STEPS = ("1.0", "0.5", "0.25", "0.125")
+
+
+def sched_results(handles, timeout=300):
+    return [h.result(timeout=timeout) for h in handles]
+
+
+def phase_scheduler(torch, np, info, counters, work):
+    """Phase 4k (see the module docstring). Returns the K1 launches of the
+    phase's plans: in this process and, before its kill, the child's."""
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda
+    from eeg_dataanalysispackage_tpu_torch.scheduler import (
+        LeaseDir, PlanExecutor, PlanFailedError, PlanJournal,
+    )
+
+    t_phase = time.perf_counter()
+    queries = [f"info_file={info}&{SCHED_QUERY}&config_step_size={s}" for s in SCHED_STEPS]
+    solo, solo_counters, k1 = {}, {}, 0
+    for i, q in enumerate(queries):
+        b, stats, launches = run_builder(f"sched_solo_{i}", q, None, counters)
+        solo[q], solo_counters[q] = str(stats), b.run_metrics.snapshot()["counters"]
+        k1 += launches["ingest_features"]
+
+    def zero():
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+
+    def check(label, results, want_queries):
+        got = [str(r.statistics) for r in results]
+        if got != [solo[q] for q in want_queries]:
+            raise AssertionError(f"{label}: a plan's statistics differ from its solo run's")
+
+    # 1. concurrency: four plans at max_concurrent 1, 2 and 4
+    walls = {}
+    for mc in (1, 2, 4):
+        jdir = os.path.join(work, f"sched_journal_{mc}")
+        zero()
+        t0 = time.perf_counter()
+        with PlanExecutor(max_concurrent=mc, journal_dir=jdir) as ex:
+            results = sched_results([ex.submit(q) for q in queries])
+        wall = time.perf_counter() - t0
+        launches = ingest_cuda.LAUNCHES
+        k1 += launches
+        check(f"max_concurrent={mc}", results, queries)
+        states = [e["state"] for e in PlanJournal(jdir).entries()]
+        walls[mc] = wall
+        emit("sched_concurrency", max_concurrent=mc, plans=len(queries), wall_s=wall,
+             plans_per_s=len(queries) / wall, k1_launches=launches,
+             journal_states=states, attempts=[r.attempts for r in results],
+             featurize_s=[r.builder.timers.get("featurize") for r in results],
+             train_s=[r.builder.timers.get("train") for r in results])
+        if launches != 8 * len(queries) or states != ["completed"] * len(queries):
+            raise AssertionError(f"max_concurrent={mc}: K1 {launches} or journal {states}")
+
+    # 2. fault isolation: a failing ingest.fused plan beside a clean one
+    reports = os.path.join(work, "sched_reports")
+    zero()
+    with PlanExecutor(max_concurrent=2, max_attempts=1, report_root=reports) as ex:
+        h_clean = ex.submit(queries[0])
+        h_fault = ex.submit(queries[0] + "&faults=ingest.fused:once@1")
+        clean = h_clean.result(timeout=300)
+        try:
+            h_fault.result(timeout=300)
+            raise AssertionError("the ingest.fused plan did not fail")
+        except PlanFailedError as e:
+            fault_error = str(e)
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    with open(os.path.join(reports, h_fault.plan_id, "crash_report.json")) as f:
+        crash = json.load(f)
+    with open(os.path.join(reports, h_clean.plan_id, "run_report.json")) as f:
+        clean_report = json.load(f)
+    clean_counters = clean.builder.run_metrics.snapshot()["counters"]
+    emit("sched_isolation", k1_launches=launches, clean_counters=clean_counters,
+         solo_counters=solo_counters[queries[0]], fault_error=fault_error[:200],
+         crash_fired=crash["chaos"]["rules"]["ingest.fused"]["fired"],
+         clean_report_chaos=clean_report["chaos"])
+    check("isolation", [clean], queries[:1])
+    if (clean_counters != solo_counters[queries[0]] or launches != 8
+            or crash["chaos"]["rules"]["ingest.fused"]["fired"] != 1
+            or clean_report["chaos"] is not None or "chaos.fired.ingest.fused" in clean_counters):
+        raise AssertionError("a fault crossed from one plan into another")
+
+    # 3. a scheduler.plan fault absorbed by a retry
+    zero()
+    with PlanExecutor(max_concurrent=1) as ex:
+        retried = ex.submit(queries[1] + "&faults=scheduler.plan:once@1").result(timeout=300)
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    emit("sched_retry", attempts=retried.attempts, k1_launches=launches)
+    check("retry", [retried], queries[1:2])
+    if retried.attempts != 2 or launches != 8:
+        raise AssertionError("the scheduler.plan fault was not absorbed by one retry")
+
+    # 4. SIGKILL mid-plan, then recovery here
+    jdir = os.path.join(work, "sched_crash")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tests", "_torch_scheduler_worker.py"),
+         "--device=cuda", jdir, *queries[:3]],
+        capture_output=True, text=True, timeout=240)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -9:
+        raise AssertionError(f"the child was not SIGKILLed (rc {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    journal = PlanJournal(jdir)
+    before = {e["plan_id"]: e["state"] for e in journal.entries()}
+    with open(os.path.join(jdir, "plan-p0001.json")) as f:
+        completed_record = f.read()
+    unfinished = [e["query"] for e in journal.unfinished()]
+    zero()
+    t0 = time.perf_counter()
+    ex = PlanExecutor(max_concurrent=2, journal_dir=jdir)
+    try:
+        recovery = ex.recover()
+        resumed = sched_results(recovery["resumed"])
+    finally:
+        ex.close()
+    recover_s = time.perf_counter() - t0
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches + child["k1_before_kill"]
+    with open(os.path.join(jdir, "plan-p0001.json")) as f:
+        untouched = f.read() == completed_record
+    emit("sched_recovery", child_wall_s=child_s, child_k1_first=child["k1_a"],
+         child_k1_at_kill=child["k1_before_kill"], states_after_kill=before,
+         resumed=[h.plan_id for h in recovery["resumed"]], k1_launches=launches,
+         recover_wall_s=recover_s, completed_record_untouched=untouched,
+         all_recovered=all(r.recovered for r in resumed))
+    check("recovery", resumed, [h.query for h in recovery["resumed"]])
+    if (before != {"p0001": "completed", "p0002": "submitted", "p0003": "submitted"}
+            or unfinished != queries[1:3] or launches != 8 * len(unfinished) or not untouched
+            or child["a_statistics"] != solo[queries[0]] or journal.unfinished()
+            or [e["plan_id"] for e in recovery["completed"]] != ["p0001"]):
+        raise AssertionError("recovery re-ran a completed plan or missed an unfinished one")
+
+    # 5. two executors over one journal race for an orphaned record
+    jdir = os.path.join(work, "sched_fleet")
+    journal = PlanJournal(jdir)
+    journal.record_submitted("p0001", queries[3])
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    lease_path = os.path.join(jdir, "plan-p0001.lease")
+    with open(lease_path, "w") as f:
+        f.write(f"gw-dead\n{dead.pid}\n\n")
+    os.utime(lease_path, (time.time() - 100, time.time() - 100))
+    previous = os.environ.get("EEG_TPU_LEASE_TIMEOUT_S")
+    os.environ["EEG_TPU_LEASE_TIMEOUT_S"] = "1"
+    zero()
+    executors = []
+    try:
+        for holder in ("gw-a", "gw-b"):
+            ex = PlanExecutor(journal_dir=jdir)
+            ex.leases = LeaseDir(jdir, holder=holder)
+            executors.append(ex)
+        (entry,) = journal.unfinished()
+        with ThreadPoolExecutor(2) as pool:
+            won = [h for h in pool.map(lambda e: e.claim_and_run(entry), executors) if h]
+        taken = sched_results(won)
+    finally:
+        for ex in executors:
+            ex.close()
+        if previous is None:
+            os.environ.pop("EEG_TPU_LEASE_TIMEOUT_S", None)
+        else:
+            os.environ["EEG_TPU_LEASE_TIMEOUT_S"] = previous
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    record = journal.entry("p0001")
+    emit("sched_takeover", claims_won=len(won), k1_launches=launches, state=record["state"],
+         fleet=record["meta"].get("fleet"), lease_left=os.path.exists(lease_path))
+    check("takeover", taken, queries[3:4])
+    if (len(won) != 1 or launches != 8 or record["state"] != "completed"
+            or not record["meta"]["fleet"]["takeover"] or os.path.exists(lease_path)):
+        raise AssertionError("the orphaned plan did not run exactly once")
+
+    # 6. every journal write fails: the plan runs unjournaled, counted
+    jdir = os.path.join(work, "sched_journal_chaos")
+    before = obs.metrics.snapshot()["counters"]
+    zero()
+    with PlanExecutor(journal_dir=jdir) as ex:
+        unjournaled = ex.submit(queries[2] + "&faults=scheduler.journal:p=1.0").result(
+            timeout=300)
+        entries = ex.journal.entries()
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    after = obs.metrics.snapshot()["counters"]
+    failed = after.get("scheduler.journal_write_failed", 0) - before.get(
+        "scheduler.journal_write_failed", 0)
+    fired = after.get("chaos.fired.scheduler.journal", 0) - before.get(
+        "chaos.fired.scheduler.journal", 0)
+    emit("sched_journal_chaos", entries=len(entries), write_failures=failed, fired=fired,
+         k1_launches=launches)
+    check("journal chaos", [unjournaled], queries[2:3])
+    if entries or failed != 2 or fired != 4 or launches != 8:
+        raise AssertionError("a journal fault was not absorbed and counted")
+    emit("sched_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         walls_s=walls)
     return k1
 
 
@@ -5472,6 +5700,8 @@ def main() -> int:
         rung_launches["bf16"] += mesh_k1_bf16
         # 4j. multi-process runs (a rank a process) and the streaming front end
         pod_k1 = phase_pod(torch, np, info, counters, work)
+        # 4k. the plan executor: concurrent, journaled, fault-isolated plans
+        sched_k1 = phase_scheduler(torch, np, info, counters, work)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -5553,7 +5783,8 @@ def main() -> int:
               for n in (641, 1494)]  # the -pallas logreg run's own launches
     # one host-extractor serve batch
     k4_64 = epoch_timing(torch, dwt, dwt_cuda, dev, 64, bandwidth, f32_peak, smi)
-    # the seizure -pallas run's one launch: 9,596 windows of 768 samples
+    # the seizure -pallas run's one launch at four recordings (the size
+    # its earlier timings used, kept): 9,596 windows of 768 samples
     k4_seizure = epoch_timing(torch, dwt, dwt_cuda, dev, 4 * 2399, bandwidth, f32_peak, smi,
                               T=768)
     epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
@@ -5582,10 +5813,11 @@ def main() -> int:
         # (fan-out, populations, elastic, line searches), 4f (the seizure
         # workload's -pallas runs), 4g (cache misses, the trace, MLlib), 4h
         # (the parse pool, overlap, the remote pool), 4i (meshes, the
-        # raw-stream trainers) and 4j (the ranks' own launches too)
+        # raw-stream trainers), 4j (the ranks' own launches too) and 4k (the
+        # executor's plans, and the killed child's before its kill)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
-                     + mesh_k1 + pod_k1,
+                     + mesh_k1 + pod_k1 + sched_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),

@@ -38,19 +38,21 @@ from . import codec
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 
 
-def _fsync_directory(directory: str) -> None:
+def _fsync_directory(directory: str) -> bool:
     """fsync a directory, making a completed rename durable
-    (best-effort: some filesystems refuse a directory descriptor)."""
+    (best-effort: some filesystems refuse a directory descriptor). False
+    on a refusal, which the plan journal counts."""
     try:
         fd = os.open(directory, os.O_RDONLY)
     except OSError:
-        return
+        return False
     try:
         os.fsync(fd)
     except OSError:
-        pass
+        return False
     finally:
         os.close(fd)
+    return True
 
 
 def _write_synced(path: str, data: bytes) -> None:

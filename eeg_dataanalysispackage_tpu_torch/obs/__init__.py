@@ -5,9 +5,12 @@ latency histograms and the SLO block.
 :class:`Metrics` is the port of the JAX package's ``obs.Metrics``
 (``obs/__init__.py:107-193``): process-wide counters and gauges with
 JSON export. Subsystems count into the default sink :data:`metrics`
-(``ingest.file_reads``, ``circuit.*``, ``chaos.fired.<point>``);
-:meth:`Metrics.scope` gives one run its own numbers (the run bracket,
-``scheduler/runtime.py``, opens one per run). :class:`StageTimer`
+(``ingest.file_reads``, ``circuit.*``, ``chaos.fired.<point>``), which
+also routes each count and gauge into the active run domain's child
+(``obs/domain.py``): the run bracket (``scheduler/runtime.py``) gives each
+plan its own, so two plans running at once never count into each other's
+numbers. :meth:`Metrics.scope` mirrors every count into a child while it
+is open, whichever plan made it. :class:`StageTimer`
 accumulates a run's stage seconds for its report. :func:`trace` wraps a
 region in a ``torch.profiler`` trace (host and CUDA activity, exported
 as a Chrome trace) and :func:`annotate` names a host region inside it:
@@ -23,6 +26,8 @@ import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
+
+from . import domain as _domain
 
 
 class StageTimer:
@@ -62,9 +67,11 @@ class Metrics:
     """Counters and gauges with JSON export.
 
     :meth:`scope` registers a fresh child that receives a copy of every
-    count and gauge while the ``with`` block is open, so a run gets its
-    own numbers while the process-wide sink keeps accumulating.
-    :meth:`reset` zeroes an instance outright.
+    count and gauge while the ``with`` block is open, whichever thread
+    made it. The default sink :data:`metrics` alone also routes each
+    count and gauge into the active run domain's child, so a plan's own
+    numbers stay its own when plans run at once. :meth:`reset` zeroes an
+    instance outright.
     """
 
     def __init__(self) -> None:
@@ -72,6 +79,15 @@ class Metrics:
         self._gauges: Dict[str, float] = {}
         self._scopes: list = []
         self._lock = threading.Lock()
+        #: set on the default sink only: a domain's child (or any other
+        #: private instance) must not route again, which would count twice
+        self._route_domains = False
+
+    def _domain_child(self):
+        if not self._route_domains:
+            return None
+        d = _domain.current()
+        return None if d is None else d.metrics
 
     def count(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -79,6 +95,9 @@ class Metrics:
             scopes = list(self._scopes)
         for scope in scopes:
             scope.count(name, value)
+        child = self._domain_child()
+        if child is not None:
+            child.count(name, value)
 
     def gauge(self, name: str, value: float) -> None:
         with self._lock:
@@ -86,6 +105,9 @@ class Metrics:
             scopes = list(self._scopes)
         for scope in scopes:
             scope.gauge(name, value)
+        child = self._domain_child()
+        if child is not None:
+            child.gauge(name, value)
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
@@ -117,6 +139,7 @@ class Metrics:
 
 #: the process-wide default sink
 metrics = Metrics()
+metrics._route_domains = True
 
 
 @contextlib.contextmanager

@@ -29,11 +29,16 @@ batcher's retries take them), ``ingest.fused`` (one
 degradation ladder, so it fails the run), ``staging.producer`` (one
 item staged by ``io/staging.prefetch``'s producer thread: under
 ``overlap=true`` one recording's featurize, which fails the run for the
-same reason) and ``scheduler.plan`` (one run, in the run bracket
-``scheduler/runtime.py``). The JAX package's other points (``fleet.*``,
-``scheduler.journal``) have no injection site in the port yet, so a
-spec that names one raises :class:`FaultSpecError` here rather than
-parse and never fire (see ROADMAP.md). A run's ``faults=`` query key
+same reason), ``scheduler.plan`` (one run, in the run bracket
+``scheduler/runtime.py``; the executor's retry budget absorbs it),
+``scheduler.journal`` (one journal record write,
+``scheduler/journal.py``: retried once, then the plan runs unjournaled,
+counted), ``fleet.lease`` (one lease claim attempt) and
+``fleet.heartbeat`` (one heartbeat; both in ``scheduler/lease.py``,
+raised as ``OSError``: a failed claim is no claim, a failed beat a
+skipped one, both counted). These are all the JAX package's points. A
+spec that names a point with no injection site raises
+:class:`FaultSpecError` here rather than parse and never fire. A run's ``faults=`` query key
 (or ``EEG_TPU_FAULTS``, :func:`plan_from_env`) installs its plan in
 the run's domain; :func:`faults` installs one process-wide.
 
@@ -60,6 +65,7 @@ logger = logging.getLogger(__name__)
 PORTED_POINTS = (
     "remote.request", "serve.adapt", "serve.swap", "device.step",
     "serve.request", "serve.batch", "ingest.fused", "staging.producer", "scheduler.plan",
+    "scheduler.journal", "fleet.lease", "fleet.heartbeat",
 )
 #: the per-tenant batch point, ``serve.batch.tenant.<name>``
 TENANT_BATCH_PREFIX = "serve.batch.tenant."
@@ -157,9 +163,8 @@ def parse_fault_spec(spec: str, seed: int = 0) -> FaultPlan:
             )
         if not _is_ported(point):
             raise FaultSpecError(
-                f"fault point {point!r} is not yet ported (the port injects "
-                f"at {', '.join(PORTED_POINTS)} and {TENANT_BATCH_PREFIX}<name>); "
-                f"see ROADMAP.md"
+                f"fault point {point!r} has no injection site (the port injects "
+                f"at {', '.join(PORTED_POINTS)} and {TENANT_BATCH_PREFIX}<name>)"
             )
         m = _DIRECTIVE_RE.match(directive.strip())
         if m is None:

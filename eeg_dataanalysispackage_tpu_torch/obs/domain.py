@@ -1,15 +1,16 @@
 """Per-plan fault domains: the ambient execution context of one plan.
 
-Port of the JAX package's ``obs/domain.py`` (without the per-plan
-metrics child, which the multi-plan scheduler needs: a run's own
-numbers come from ``obs.Metrics.scope``). A :class:`RunDomain` carries
-what must be per plan — its ``plan_id`` (which tags circuit-breaker
-evidence), its own fault plan and span recorder — installed on the
-executing thread with :func:`activate`; a worker thread the run starts
-(the serving batcher's) takes it over with :func:`capture` on the
-starting thread and :func:`adopt` in its body. ``obs/chaos.py`` and
-``obs/events.py`` resolve the domain first and fall back to their
-process-wide installation outside any domain.
+Port of the JAX package's ``obs/domain.py``. A :class:`RunDomain` carries
+what must be per plan, so that plans running at once (the executor's
+workers, ``scheduler/executor.py``) never see each other's state: its
+``plan_id`` (which tags circuit-breaker evidence), its own fault plan,
+span recorder and ``obs.Metrics`` child. It is installed on the executing
+thread with :func:`activate`; a worker thread the run starts (the parse
+pool, the staging producer, the serving batcher and watchdog) takes it
+over with :func:`capture` on the starting thread and :func:`adopt` in its
+body. ``obs/chaos.py``, ``obs/events.py`` and the default metrics sink
+(``obs.metrics``) resolve the domain first; outside any domain they
+behave as before.
 
 This module imports nothing else of the package (thread-local plumbing
 only), so chaos and events can consult it without cycles.
@@ -25,17 +26,19 @@ from typing import Any, Iterator, Optional
 class RunDomain:
     """The ambient per-plan context."""
 
-    __slots__ = ("plan_id", "chaos", "recorder")
+    __slots__ = ("plan_id", "chaos", "recorder", "metrics")
 
     def __init__(
         self,
         plan_id: Optional[str] = None,
         chaos: Optional[Any] = None,
         recorder: Optional[Any] = None,
+        metrics: Optional[Any] = None,
     ):
         self.plan_id = plan_id
         self.chaos = chaos
         self.recorder = recorder
+        self.metrics = metrics
 
 
 _TLS = threading.local()

@@ -17,8 +17,14 @@ ring, the metrics and the fault plan with its counts. Schemas:
 ``eeg-tpu-run-report/v1`` and ``eeg-tpu-crash-report/v1``, the JAX
 package's; ``tools/obs_report.py show`` renders either package's.
 
-Keys for machinery the port does not have keep the JAX package's names:
-``dedup``, ``gateway``, ``fleet``, ``trace`` and
+A plan run by the executor (``scheduler/executor.py``) carries its
+``plan_id`` and the ``gateway``, ``fleet`` and ``trace`` attribution its
+submission passed (``trace.segment`` is None: the port has no trace
+sink), and a crash report's ``fleet_context`` names the replica and the
+process's lease counters (``scheduler/lease.py``; the JAX package's
+``held_leases`` comes with the fleet, which registers its lease
+directory). Keys for machinery the port
+does not have keep the JAX package's names: ``dedup`` and
 ``caches.compile_cache_dir`` are None, ``degradation`` is empty (the
 port has no degradation ladder), and ``xla`` is the JAX package's
 compilation block as it reads without a compiler to monitor
@@ -137,6 +143,13 @@ class RunTelemetry:
         #: bootstrap that failed, with its evidence), None without
         #: ``devices=``, ``mesh_axes=`` or the pod keys
         self.mesh: Optional[Dict[str, Any]] = None
+        #: the executor's plan id, and the submission's attribution:
+        #: networked (``{"via", "idempotency_key", "client"}``), replica
+        #: (``{"replica", "takeover"}``) and the distributed trace id
+        self.plan_id: Optional[str] = None
+        self.gateway: Optional[Dict[str, Any]] = None
+        self.fleet: Optional[Dict[str, Any]] = None
+        self.trace_id: Optional[str] = None
 
     @property
     def report_path(self) -> str:
@@ -156,7 +169,7 @@ class RunTelemetry:
         return {
             "query": self.query,
             "query_map": self.query_map,
-            "plan_id": None,
+            "plan_id": self.plan_id,
             "circuit": circuit.snapshot(),
             "env": {k: os.environ[k] for k in _ENV_KNOBS if k in os.environ},
             "device": device_block(self.device),
@@ -169,9 +182,10 @@ class RunTelemetry:
             "overlap": self.overlap,
             "mesh": self.mesh,
             "dedup": None,
-            "gateway": None,
-            "fleet": None,
-            "trace": None,
+            "gateway": self.gateway,
+            "fleet": self.fleet,
+            "trace": None if self.trace_id is None else {"trace_id": self.trace_id,
+                                                         "segment": None},
             "degradation": [],
             "stages": timers.as_dict() if timers is not None else {},
             "metrics": metrics.snapshot() if metrics is not None else {},
@@ -211,6 +225,23 @@ class RunTelemetry:
         logger.info("run report written: %s", self.report_path)
         return self.report_path
 
+    def _fleet_context(self) -> Optional[Dict[str, Any]]:
+        """The replica and the process's lease state for a plan that
+        died on a fleet replica; None outside a fleet."""
+        if not self.fleet:
+            return None
+        try:
+            from ..scheduler import lease
+
+            return {
+                "replica": self.fleet.get("replica"),
+                "takeover": bool(self.fleet.get("takeover")),
+                "devices": self.fleet.get("devices"),
+                "lease_counters": lease.stats(),
+            }
+        except Exception:  # the dump must never mask the real error
+            return {"replica": self.fleet.get("replica")}
+
     def dump_crash(self, error: BaseException, timers, metrics) -> str:
         """The failure artifact: the error, the flight-recorder ring and
         the run's state; a stale run report in the directory is
@@ -228,7 +259,7 @@ class RunTelemetry:
             **self._common(timers, metrics),
             "spans": self.recorder.summary(),
             "events": self.recorder.recent_events(),
-            "fleet_context": None,
+            "fleet_context": self._fleet_context(),
         }
         try:
             _atomic_json(self.crash_path, payload)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -60,6 +61,8 @@ ANY_LAUNCHES_BF16 = 0
 ANY_LAUNCHES_INT8 = 0
 ANY_LAUNCHES_INT4 = 0
 
+#: guards the counters' increments (plans launch from several threads)
+_COUNT_LOCK = threading.Lock()
 #: the counter each (precision, float samples) instantiation adds to
 _COUNTERS = {
     ("f32", False): "LAUNCHES", ("f32", True): "LAUNCHES_F32",
@@ -192,7 +195,8 @@ def ingest_features(
     counter = _COUNTERS[(precision, float_samples)]
     if generic:
         counter = "ANY_" + counter
-    globals()[counter] += 1
+    with _COUNT_LOCK:
+        globals()[counter] += 1
     return out
 
 

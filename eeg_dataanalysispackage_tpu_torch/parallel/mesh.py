@@ -1,8 +1,8 @@
 """Device meshes over the devices one process sees, and batch sharding.
 
-Port of the JAX package's ``parallel/mesh.py`` and of its plan parser's
-``devices=``/``mesh_axes=`` grammar (``pipeline/plan.py``:
-:class:`MeshRequest`, :func:`parse_mesh`, with its messages).
+Port of the JAX package's ``parallel/mesh.py``; :func:`parse_mesh` is
+the plan parser's ``devices=``/``mesh_axes=`` grammar and
+:class:`MeshRequest` its request (both defined in ``pipeline/plan.py``).
 
 :class:`Mesh` stands in for ``jax.sharding.Mesh``: an ndarray of
 ``torch.device`` objects shaped by the mesh axes, with ``axis_names``, a
@@ -31,12 +31,12 @@ concatenated in global shard order.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..pipeline.plan import MeshRequest
 from ..utils.device import host_to_device, resolve_device
 
 DATA_AXIS = "data"
@@ -158,69 +158,13 @@ def make_mesh(
 # -- the devices=/mesh_axes= grammar ------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class MeshRequest:
-    """The ``devices=``/``mesh_axes=`` grammar, validated."""
-
-    devices: Optional[int]
-    axes: Tuple[str, ...]
-    shape: Optional[Tuple[int, ...]]
-
-
 def parse_mesh(query_map: Mapping[str, str], serve: bool) -> Optional[MeshRequest]:
-    """The JAX package's ``_parse_mesh`` with its messages: the typed
-    request, or None when neither key is given."""
-    from ..pipeline.builder import int_param
+    """The plan parser's ``devices=``/``mesh_axes=`` grammar
+    (``pipeline/plan.ExecutionPlan._parse_mesh``): the typed request, or
+    None when neither key is given."""
+    from ..pipeline.plan import ExecutionPlan
 
-    devices_param = int_param(query_map, "devices")
-    axes_value = query_map.get("mesh_axes", "")
-    if devices_param is None and not axes_value:
-        return None
-    if serve:
-        raise ValueError(
-            "devices=/mesh_axes= shard the batch pipeline; they "
-            "cannot combine with serve=true (the serving engine "
-            "is resident single-device)"
-        )
-    axes, sizes = [], []
-    if axes_value:
-        for part in axes_value.split(","):
-            name, sep, size = part.partition(":")
-            name = name.strip()
-            if not name:
-                raise ValueError(f"mesh_axes= has an empty axis name in {axes_value!r}")
-            axes.append(name)
-            if sep:
-                try:
-                    sizes.append(int(size))
-                except ValueError:
-                    raise ValueError(
-                        f"mesh_axes= axis {name!r} has a non-integer extent {size!r}"
-                    ) from None
-        if len(set(axes)) != len(axes):
-            raise ValueError("mesh_axes= repeats an axis name")
-        if sizes and len(sizes) != len(axes):
-            raise ValueError(
-                "mesh_axes= extents must be given for every axis "
-                "or for none (e.g. mesh_axes=data:2,time:4)"
-            )
-        if len(axes) > 1 and not sizes:
-            raise ValueError(
-                "multi-axis mesh_axes= needs explicit extents "
-                "(e.g. mesh_axes=data:2,time:4)"
-            )
-    if not axes:
-        axes = [DATA_AXIS]
-    if devices_param is not None and devices_param < 1:
-        raise ValueError("devices= must be >= 1")
-    product = int(np.prod(sizes)) if sizes else None
-    if product is not None and devices_param is not None and product != devices_param:
-        raise ValueError(
-            f"mesh_axes= extents cover {product} devices but "
-            f"devices={devices_param}; drop one or make them agree"
-        )
-    return MeshRequest(devices=devices_param, axes=tuple(axes),
-                       shape=tuple(sizes) if sizes else None)
+    return ExecutionPlan._parse_mesh(query_map, serve)
 
 
 # -- sharded arrays -----------------------------------------------------------

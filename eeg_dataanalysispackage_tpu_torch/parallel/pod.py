@@ -23,8 +23,8 @@ Port of the JAX package's ``parallel/pod.py``:
 The JAX package's ``exchange_collective_hlo`` asserts the all-gather in
 XLA's compiled program; there is no such program here.
 
-:func:`parse_pod` is the JAX plan parser's ``processes=``/``coordinator=``/
-``process_id=`` grammar, with its checks, order and messages.
+The ``processes=``/``coordinator=``/``process_id=`` grammar is the plan
+parser's (``pipeline/plan.ExecutionPlan._parse_pod``).
 """
 
 from __future__ import annotations
@@ -33,79 +33,12 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
-
-
-@dataclasses.dataclass(frozen=True)
-class PodRequest:
-    """The ``processes=``/``coordinator=``/``process_id=`` grammar,
-    validated; fields left None resolve from the env twins when the run
-    starts."""
-
-    processes: Optional[int]
-    coordinator: Optional[str]
-    process_id: Optional[int]
-
-
-def parse_pod(query_map: Mapping[str, str], serve: bool) -> Optional[PodRequest]:
-    """The JAX plan parser's ``_parse_pod``: statically decidable errors
-    only, with its messages; None when none of the keys is given."""
-    from ..pipeline.builder import int_param
-
-    processes = int_param(query_map, "processes")
-    process_id = int_param(query_map, "process_id")
-    coordinator = query_map.get("coordinator") or None
-    if processes is None and process_id is None and coordinator is None:
-        return None
-    if serve:
-        raise ValueError(
-            "processes=/coordinator=/process_id= configure the "
-            "multi-process batch pipeline; they cannot combine "
-            "with serve=true (the serving engine is resident "
-            "single-process)"
-        )
-    if (query_map.get("task", "") or "p300") == "seizure":
-        raise ValueError(
-            "processes=/coordinator=/process_id= partition the "
-            "fused P300 ingest; task=seizure has no pod path yet "
-            "— run it single-host (devices= still shards the "
-            "member axis)"
-        )
-    if query_map.get("precision") in ("bf16", "int8", "int4"):
-        raise ValueError(
-            f"precision={query_map.get('precision')} runs behind "
-            "a per-run f32 reference gate the pod-partitioned "
-            "ingest cannot stage; pod runs compute f32"
-        )
-    if processes is not None and processes < 1:
-        raise ValueError("processes= must be >= 1")
-    if coordinator is not None:
-        host, sep, port = coordinator.rpartition(":")
-        if not sep or not host:
-            raise ValueError(f"coordinator= must be host:port, got {coordinator!r}")
-        try:
-            port_n = int(port)
-        except ValueError:
-            raise ValueError(f"coordinator= port must be an integer, got {port!r}") from None
-        if not 0 < port_n < 65536:
-            raise ValueError(f"coordinator= port must be in (0, 65536), got {port_n}")
-    if process_id is not None:
-        if process_id < 0:
-            raise ValueError("process_id= must be >= 0")
-        if processes is None:
-            raise ValueError(
-                "process_id= identifies this process within processes=N; pass both"
-            )
-        if process_id >= processes:
-            raise ValueError(
-                f"process_id= must be < processes={processes}, got {process_id}"
-            )
-    return PodRequest(processes=processes, coordinator=coordinator, process_id=process_id)
 
 
 #: the pod knobs' env twins a spawner's own environment must not leak

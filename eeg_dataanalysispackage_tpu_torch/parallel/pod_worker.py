@@ -4,8 +4,9 @@ eeg_dataanalysispackage_tpu_torch.parallel.pod_worker --query=...``.
 Port of the JAX package's ``parallel/pod_worker.py``. The query alone
 decides pod membership (``processes=``/``coordinator=``/``process_id=``
 ride in it; ``parallel/pod.spawn_pod_member`` builds it); the builder's
-``_resolve_pod`` does the bootstrap. The port has no ``ExecutionPlan``
-yet, so the worker runs ``PipelineBuilder(query, device=).execute()``.
+``_resolve_pod`` does the bootstrap. The worker runs
+``runtime.execute_plan(ExecutionPlan.parse(query), builder)``, as the JAX
+package's does, through ``PipelineBuilder(query, device=)``.
 
 The last stdout line is one JSON object ``{"sha", "statistics"}``, with
 ``mesh`` (the run's mesh record), ``timers`` (stage seconds, the pod's
@@ -63,11 +64,14 @@ def main(argv=None) -> int:
 
     from ..ops import ingest_cuda
     from ..pipeline.builder import PipelineBuilder
+    from ..pipeline.plan import ExecutionPlan
+    from ..scheduler import runtime
 
-    builder = PipelineBuilder(query, device=device)
+    plan = ExecutionPlan.parse(query)
+    builder = PipelineBuilder(plan.query, device=device)
     ingest_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
-    statistics = builder.execute()
+    statistics = runtime.execute_plan(plan, builder)
     wall = time.perf_counter() - t0
     text = str(statistics)
     features = builder.features

@@ -91,7 +91,10 @@ devices. ``processes=1`` runs the unchanged path and records the request.
 A pod that cannot assemble raises ``distributed.PodBootstrapError`` (the
 JAX package degrades to one host; the port has no ladder).
 
-Every run goes through the run bracket (``scheduler/runtime.py``):
+:meth:`PipelineBuilder.execute` parses the query into its
+``pipeline/plan.ExecutionPlan`` (every statically decidable conflict
+raises there with the JAX package's message, before anything is read) and
+runs the plan through the run bracket (``scheduler/runtime.py``):
 ``faults=``/``faults_seed=`` (or ``EEG_TPU_FAULTS``) install a fault
 plan in the run's domain, ``report=`` (or ``EEG_TPU_RUN_REPORT_DIR``)
 writes ``run_report.json`` or ``crash_report.json``, and
@@ -119,9 +122,9 @@ import torch
 from .. import obs
 from ..epochs import extractor
 from ..features import registry as fe_registry
-from ..io import feature_cache, modelfiles, provider, remote
+from ..io import feature_cache, modelfiles, provider
 from ..models import population, registry, seizure, stats
-from ..obs import chaos, events
+from ..obs import events
 from ..ops import decode_ingest
 from ..parallel import mesh as pmesh, pod as pod_mod
 from ..serve import pipeline as serve_pipeline
@@ -146,29 +149,6 @@ def get_query_map(query: str) -> Dict[str, str]:
     return out
 
 
-def int_param(query_map: Dict[str, str], name: str) -> Optional[int]:
-    """An optional integer query parameter (None when absent or empty),
-    with the JAX package's message (its plan parser's ``_int_param``)."""
-    value = query_map.get(name, "")
-    if not value:
-        return None
-    try:
-        return int(value)
-    except ValueError:
-        raise ValueError(f"query parameter {name}= must be an integer, got {value!r}") from None
-
-
-def resolve_overlap(query_map: Dict[str, str]) -> Optional[bool]:
-    """``overlap=true|false`` -> True/False, absent -> None (the
-    provider's ``EEG_TPU_OVERLAP`` default); any other value raises the
-    JAX package's message. Only the fused batch run reads it: the
-    seizure and serve runs ignore it, as in the JAX package."""
-    value = query_map.get("overlap", "")
-    if value not in ("", "true", "false"):
-        raise ValueError(f"overlap= must be true or false, got {value!r}")
-    return None if not value else value == "true"
-
-
 def resolve_precision(query_map: Dict[str, str]) -> str:
     """The batch run's feature precision
     (``decode_ingest.requested_precision``); raises the JAX package's
@@ -191,129 +171,6 @@ def resolve_precision(query_map: Dict[str, str]) -> str:
             f"with the explicit fe=...-fused{suffix} backend"
         )
     return precision
-
-
-def _check_ported(query_map: Dict[str, str]) -> None:
-    if query_map.get("fe_sweep") and query_map.get("task", "p300") != "seizure":
-        raise ValueError(
-            "fe_sweep= compares feature configs over the seizure workload; it "
-            "requires task=seizure"
-        )
-    # the pool's knobs are typed before anything is read
-    int_param(query_map, "ingest_workers")
-    int_param(query_map, "prefetch")
-    if query_map.get("faults"):
-        # the grammar check before anything is read; the run bracket
-        # parses the plan again with fresh call counts
-        chaos.parse_fault_spec(query_map["faults"],
-                               seed=int(query_map.get("faults_seed", 0) or 0))
-    task = query_map.get("task", "")
-    if task and task not in ("p300", "seizure"):
-        raise ValueError(f"unknown task {task!r}; supported: p300 (default), seizure")
-    scheme = remote.uri_scheme(query_map.get("result_path", ""))
-    if scheme is not None:
-        raise ValueError(
-            f"result_path={query_map['result_path']!r}: remote locations ({scheme}://) "
-            "are not supported; the report is a local file, as the JAX package "
-            "writes it (see ROADMAP.md)"
-        )
-
-
-def validate_action(query_map: Dict[str, str], pop_spec: population.PopulationSpec,
-                    task: str = "p300") -> None:
-    """The JAX package's classifier-action conflict rules (its plan
-    parser's ``_validate_action``), with its messages; a ``task=seizure``
-    run names ``fe_sweep=`` among the population axes."""
-    pop_active = pop_spec.active
-    axes = "cv=/seeds=/sweep=/fe_sweep=" if task == "seizure" else "cv=/seeds=/sweep="
-    train_clf = query_map.get("train_clf") if "train_clf" in query_map else None
-    load_clf = query_map.get("load_clf") if "load_clf" in query_map else None
-    save_clf = query_map.get("save_clf") == "true"
-    elastic = query_map.get("elastic") == "true"
-    if pop_active:
-        if load_clf is not None:
-            raise ValueError(
-                f"population axes ({axes}) train models; they cannot combine with load_clf="
-            )
-        if save_clf:
-            raise ValueError(
-                "population runs train many members; save_clf= has no single model to persist"
-            )
-        if elastic:
-            raise ValueError(
-                "population training does not support elastic=true; the stacked "
-                "program has no per-member checkpoints"
-            )
-    if pop_spec.fe_configs and "classifiers" in query_map:
-        raise ValueError(
-            "fe_sweep= expands the train_clf= population; it cannot combine with "
-            "classifiers="
-        )
-    if "classifiers" in query_map:
-        if train_clf is not None or load_clf is not None:
-            raise ValueError(
-                "classifiers= replaces train_clf=/load_clf=; pass exactly one of them"
-            )
-        if save_clf:
-            raise ValueError(
-                "classifiers= fan-out does not support save_clf; train the model to "
-                "persist via train_clf="
-            )
-        if elastic:
-            raise ValueError(
-                "classifiers= fan-out does not support elastic=true; use train_clf= "
-                "for elastic training"
-            )
-        if not [s for s in query_map["classifiers"].split(",") if s]:
-            raise ValueError("classifiers= requires a comma-separated classifier list")
-        return
-    if train_clf is not None:
-        if pop_active and train_clf not in population.SGD_FAMILY:
-            raise ValueError(
-                f"population axes ({axes}) apply to the SGD family "
-                f"({', '.join(population.SGD_FAMILY)}); {train_clf!r} trains one "
-                f"model per run"
-            )
-        if elastic and not pop_active and not query_map.get("checkpoint_path"):
-            raise ValueError("elastic=true requires a checkpoint_path query parameter")
-        if save_clf and "save_name" not in query_map:
-            raise ValueError(
-                "Please provide a location to save a classifier within the save_name "
-                "query parameter"
-            )
-        return
-    if load_clf is not None:
-        if "load_name" not in query_map:
-            raise ValueError("Classifier location not provided")
-        return
-    raise ValueError("Missing classifier argument")
-
-
-def check_seizure_knobs(query_map: Dict[str, str],
-                        pop_spec: Optional[population.PopulationSpec]) -> list:
-    """The seizure workload's typed knobs, checked before anything is read
-    with the JAX package's messages (its plan parser's): ``window=`` and
-    ``stride=`` integers, ``label_overlap=`` a float, ``cost_fp=``/``cost_fn=`` positive,
-    ``class_weight=`` ``balanced`` or a positive float; for a batch run
-    (``pop_spec`` given) the ``fe=`` names, or ``fe_sweep=``'s, none of
-    them a ``-fused`` mode. Returns those names (empty for a serve run)."""
-    seizure.optional_int(query_map, "window")
-    seizure.optional_int(query_map, "stride")
-    float(query_map.get("label_overlap") or 0.5)
-    seizure.seizure_weights(query_map, ())  # the costs' and weights' checks
-    if pop_spec is None:
-        return []
-    fe = query_map.get("fe") or None
-    fe_names = list(pop_spec.fe_configs) if pop_spec.fe_configs else ([fe] if fe else [])
-    if not fe_names:
-        raise ValueError("Missing the feature extraction argument")
-    for name in fe_names:
-        if "-fused" in name:
-            raise ValueError(
-                "task=seizure extracts features on the host; fe= must be a registry "
-                "form (e.g. dwt-4:level=4:stats=energy), not a -fused mode"
-            )
-    return fe_names
 
 
 def _elastic_kwargs(query_map: Dict[str, str]) -> Optional[dict]:
@@ -396,12 +253,8 @@ class PipelineBuilder:
         #: for ``processes=1``; None without ``devices=``/``mesh_axes=`` or
         #: the pod keys
         self.mesh_resolved: Optional[dict] = None
-        #: the last query's validated ``devices=``/``mesh_axes=`` and
-        #: ``processes=``/``coordinator=``/``process_id=`` requests, and the
-        #: record of a requested pod that did not run one
+        #: the record of a requested pod that did not run one
         #: (``processes=1``), folded into :attr:`mesh_resolved`
-        self._mesh_request = None
-        self._pod_request = None
         self._pod_block = None
         #: the last run's report telemetry (``obs/report.RunTelemetry``;
         #: None when the run was not reported), per-run metrics scope and
@@ -436,33 +289,19 @@ class PipelineBuilder:
             self.timers[name] = self.timers.get(name, 0.0) + seconds
 
     def execute(self) -> stats.ClassificationStatistics:
-        """Check the query, then run it through the run bracket
+        """Parse the query into its :class:`~.plan.ExecutionPlan` (every
+        statically decidable conflict raises there, before anything is
+        read) and run it through the run bracket
         (``scheduler/runtime.execute_plan``: fault plan, report, trace)."""
         from ..scheduler import runtime
+        from .plan import ExecutionPlan
 
-        query_map = get_query_map(self.query)
-        # the mesh grammar comes before the serve conflicts, as in the JAX
-        # package's plan parser
-        self._mesh_request = pmesh.parse_mesh(query_map, query_map.get("serve") == "true")
-        self._pod_request = pod_mod.parse_pod(query_map, query_map.get("serve") == "true")
-        if query_map.get("serve") == "true":
-            # the reference's conflict messages come before any
-            # not-yet-ported key of the conflicting modes
-            serve_pipeline.check_conflicts(query_map)
-        else:
-            serve_pipeline.check_lifecycle_knobs(query_map)
-        _check_ported(query_map)
-        return runtime.execute_plan(self.query, query_map, self)
+        return runtime.execute_plan(ExecutionPlan.parse(self.query), self)
 
-    def _execute(self, query_map: Dict[str, str]) -> stats.ClassificationStatistics:
-        serve = query_map.get("serve") == "true"
-        # 1. input (PipelineBuilder.java:104-113)
-        if "info_file" in query_map:
-            files = [query_map["info_file"]]
-        elif "eeg_file" in query_map and "guessed_num" in query_map:
-            files = [query_map["eeg_file"], query_map["guessed_num"]]
-        else:
-            raise ValueError("Missing the input file argument")
+    def _execute(self, plan) -> stats.ClassificationStatistics:
+        query_map = plan.query_map
+        serve = plan.serve
+        files = list(plan.input_files)
         self.timers = {}
         self.precision_resolved = self.backend_resolved = self.serve_block = None
         self.overlap_resolved = None
@@ -471,36 +310,34 @@ class PipelineBuilder:
         self.mesh_resolved = None
         # the bootstrap runs before any mesh is built; a live pod's hybrid
         # mesh supersedes devices=/mesh_axes=
-        pod = self._resolve_pod(self._pod_request)
+        pod = self._resolve_pod(plan.pod)
         if pod is not None:
             mesh = pod.mesh
-            if self._mesh_request is not None:
+            if plan.mesh is not None:
                 logger.info("pod bootstrap succeeded: the hybrid hosts x devices mesh "
                             "supersedes devices=/mesh_axes=")
         else:
-            mesh = self._resolve_mesh(self._mesh_request)
+            mesh = self._resolve_mesh(plan.mesh)
             self._note_pod_block()
 
         # task=seizure: sliding windows over interval annotations, subband
         # features on the host, cost-sensitive training, the extended
         # statistics (served with serve=true)
-        if (query_map.get("task", "") or "p300") == "seizure":
+        if plan.task == "seizure":
             if serve:
-                check_seizure_knobs(query_map, None)
                 statistics, self.serve_block, self.workload_block = (
                     serve_pipeline.run_serve_seizure(
                         query_map,
-                        lambda: self._provider(files, query_map),
+                        lambda: self._provider(files, plan),
                         self._stage,
                         self.device,
                     )
                 )
                 return self._finish_run(statistics, query_map)
-            pop_spec = population.PopulationSpec.from_query_map(query_map)
-            validate_action(query_map, pop_spec, task="seizure")
-            fe_names = check_seizure_knobs(query_map, pop_spec)
+            pop_spec = plan.population
+            fe_names = list(pop_spec.fe_configs) if pop_spec.fe_configs else [plan.fe]
             return self._finish_run(
-                self._execute_seizure(query_map, files, pop_spec, fe_names, mesh), query_map)
+                self._execute_seizure(plan, files, pop_spec, fe_names, mesh), query_map)
 
         # serve=true: the saved classifier loads once and every kept
         # epoch becomes a request through the resident micro-batching
@@ -508,28 +345,23 @@ class PipelineBuilder:
         if serve:
             statistics, self.serve_block = serve_pipeline.run_serve(
                 query_map,
-                lambda: self._provider(files, query_map),
+                lambda: self._provider(files, plan),
                 self._stage,
                 self.device,
             )
             return self._finish_run(statistics, query_map)
 
-        # the JAX package checks precision= and overlap= before the other
-        # arguments
+        # the plan checked the query's precision=; the environment's
+        # EEG_TPU_PRECISION is checked here, as the JAX package's builder does
         precision = resolve_precision(query_map)
-        overlap = resolve_overlap(query_map)
+        overlap = plan.overlap
 
         # 2. feature extraction (PipelineBuilder.java:128-139)
-        if "fe" not in query_map:
-            raise ValueError("Missing the feature extraction argument")
-        # the population axes and the classifier action's conflict rules
-        # (the JAX package's plan parser), before anything is read
-        pop_spec = population.PopulationSpec.from_query_map(query_map)
-        validate_action(query_map, pop_spec)
+        pop_spec = plan.population
         fused = _FUSED_FE.fullmatch(query_map["fe"])
         # an unknown or unported fe= spelling raises here, before loading
         fe = None if fused else fe_registry.create(query_map["fe"], device=self.device)
-        odp = self._provider(files, query_map)
+        odp = self._provider(files, plan)
         if fe is None:
             wavelet_index = int(fused.group(1))
             suffix = fused.group(2)
@@ -604,14 +436,13 @@ class PipelineBuilder:
         self.classifier, self.test_index = classifier, list(test_idx)
         return self._finish_run(statistics, query_map)
 
-    def _provider(self, files, query_map) -> provider.OfflineDataProvider:
+    def _provider(self, files, plan) -> provider.OfflineDataProvider:
         """The run's provider on its device: ``ingest_workers=`` sizes the
         parse pool and ``prefetch=`` its look-ahead (the JAX package's
         ``make_provider``; absent, the env defaults)."""
         return provider.OfflineDataProvider(
             files, device=self.device,
-            workers=int_param(query_map, "ingest_workers"),
-            prefetch_depth=int_param(query_map, "prefetch"),
+            workers=plan.ingest_workers, prefetch_depth=plan.prefetch,
         )
 
     def _fit_and_test(self, query_map, features, targets, make_classifier, config, **attrs):
@@ -867,7 +698,7 @@ class PipelineBuilder:
     _seizure_classifier = staticmethod(seizure.seizure_classifier)
     seizure_weights = staticmethod(seizure.seizure_weights)
 
-    def _seizure_features(self, query_map, files, slide_cfg, fe_names):
+    def _seizure_features(self, plan, files, slide_cfg, fe_names):
         """One read pass of the session, a feature-cache lookup per
         extractor config (JAX package: pipeline/builder.py:1078-1160;
         the key ``("seizure", fe.cache_id(), window, stride,
@@ -879,7 +710,8 @@ class PipelineBuilder:
         targets)``: ``(fe name, (n, d) rows on the run's device)`` in
         ``fe_names`` order; a hit's rows go to the device in the dtype a
         miss gives, and launch nothing."""
-        odp = self._provider(files, query_map)
+        query_map = plan.query_map
+        odp = self._provider(files, plan)
         # an unknown fe= raises here, before the session is read
         extractors = [(name, fe_registry.create(name, device=self.device)) for name in fe_names]
 
@@ -936,15 +768,16 @@ class PipelineBuilder:
         self.fe = extractors[0][1]
         return feature_sets, targets
 
-    def _execute_seizure(self, query_map, files, pop_spec, fe_names, mesh=None):
+    def _execute_seizure(self, plan, files, pop_spec, fe_names, mesh=None):
         """``task=seizure``: sliding windows -> subband (or any registry)
         features -> cost-sensitive training -> the extended statistics.
         The JAX package's four routes (``classifiers=`` fan-out with the
         resolved class weights, a population, ``train_clf=`` with
         ``elastic=``, ``load_clf=``) over the one feature matrix, the
         classifiers made by :meth:`_seizure_classifier`."""
+        query_map = plan.query_map
         slide_cfg = seizure.sliding_config(query_map)
-        feature_sets, targets = self._seizure_features(query_map, files, slide_cfg, fe_names)
+        feature_sets, targets = self._seizure_features(plan, files, slide_cfg, fe_names)
         features = feature_sets[0][1]
         n = len(targets)
         if n == 0:

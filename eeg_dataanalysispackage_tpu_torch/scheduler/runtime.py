@@ -1,31 +1,42 @@
-"""``execute_plan``: one run, executed in its own fault domain.
+"""``execute_plan``: one validated plan, executed in its own fault domain.
 
-Port of the per-run bracket of the JAX package's
-``scheduler/runtime.py`` (``execute_plan`` and ``_run_in_domain``), over
-the builder's query map (the JAX package's ``ExecutionPlan`` IR and its
-multi-plan executor are not ported). Around
-``PipelineBuilder._execute`` it
+Port of the JAX package's ``scheduler/runtime.py``. ``PipelineBuilder.execute``
+is a shim over ``ExecutionPlan.parse`` and this function, and the executor's
+workers (``scheduler/executor.py``) call it for every plan they run, so one
+code path serves both. Around ``PipelineBuilder._execute(plan)`` it
 
 - resolves the fault plan: ``faults=`` (seeded by ``faults_seed=``), or
-  ``EEG_TPU_FAULTS`` when the query has none;
-- resolves the report directory (``report=``, ``EEG_TPU_RUN_REPORT_DIR``;
-  ``obs/report.resolve_report_dir``) and opens the run's telemetry;
-- activates a :class:`~..obs.domain.RunDomain` carrying the fault plan
-  and the span recorder, with a per-run ``obs.Metrics`` scope;
+  ``EEG_TPU_FAULTS`` when the query has none, unless the caller passes one
+  (the executor resolves it once a submission, so a retried plan keeps one
+  set of call counts);
+- resolves the report directory: ``report=``, else
+  ``EEG_TPU_RUN_REPORT_DIR`` (under the executor, the plan's own
+  ``<dir>/<plan_id>``), else the executor's ``default_report_dir``;
+  ``report=false`` opts out;
+- activates a :class:`~..obs.domain.RunDomain` carrying the plan id, the
+  fault plan, the span recorder and the plan's own ``obs.Metrics`` child
+  (the builder's ``run_metrics``): counts made on the plan's threads go to
+  it and to no other plan's;
 - fires ``scheduler.plan`` (one run attempt);
 - runs the body under ``obs.trace(trace_path)`` when ``trace_path=`` is
   given;
-- writes ``crash_report.json`` inside the domain when the run raises
-  (so it carries the fault plan's counts), then re-raises; on success
-  writes ``run_report.json``. A report write failure is logged and never
-  fails the run it observed.
+- writes ``crash_report.json`` inside the domain when the run raises, then
+  re-raises; on success writes ``run_report.json``, with the plan id and the
+  ``gateway``, ``fleet`` and ``trace_id`` attribution the caller passed. A
+  report write failure is logged and never fails the run it observed.
+
+The JAX package's persistent compile cache has no counterpart (the CUDA
+kernels are built by ``nvcc`` outside any run), and a ``placement`` grant
+raises: device placement (ROADMAP A9.4) is not ported, and a plan never
+runs unplaced without telling its caller.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
-from typing import Dict
+from typing import Optional
 
 from .. import obs
 from ..obs import chaos, domain as run_domain
@@ -33,47 +44,77 @@ from ..obs import report as run_report
 
 logger = logging.getLogger(__name__)
 
+#: "no fault plan was passed: resolve one from the plan or the environment"
+_RESOLVE = object()
 
-def resolve_fault_plan(query_map: Dict[str, str]):
-    """The run's :class:`~..obs.chaos.FaultPlan` from ``faults=`` (or
+
+def resolve_fault_plan(plan):
+    """The plan's :class:`~..obs.chaos.FaultPlan` from ``faults=`` (or
     ``EEG_TPU_FAULTS``) and ``faults_seed=``; None without a spec."""
-    spec = query_map.get("faults") or chaos.plan_from_env()
-    if not spec:
-        return None
-    return chaos.parse_fault_spec(spec, seed=int(query_map.get("faults_seed", 0) or 0))
+    spec = plan.faults or chaos.plan_from_env()
+    return chaos.parse_fault_spec(spec, seed=plan.faults_seed) if spec else None
 
 
-def execute_plan(query: str, query_map: Dict[str, str], builder):
-    """Run ``builder._execute(query_map)`` inside a fresh fault domain;
-    returns its statistics and leaves ``builder.telemetry``,
-    ``builder.run_metrics`` and ``builder.stage_timer`` set for the run."""
+def execute_plan(
+    plan,
+    builder,
+    plan_id: Optional[str] = None,
+    fault_plan=_RESOLVE,
+    default_report_dir: Optional[str] = None,
+    gateway: Optional[dict] = None,
+    fleet: Optional[dict] = None,
+    trace_id: Optional[str] = None,
+    placement=None,
+):
+    """Run ``plan`` through ``builder`` inside a fresh fault domain; returns
+    its statistics and leaves ``builder.telemetry``, ``builder.run_metrics``
+    and ``builder.stage_timer`` set for the run."""
+    if placement is not None:
+        raise ValueError(
+            "placement= grants leased device ordinals (scheduler/placement.py), "
+            "which the port does not have yet (ROADMAP A9.4); the plan was not run"
+        )
+    query_map = plan.query_map
     logger.info("query: %s", query_map)
-    fault_plan = resolve_fault_plan(query_map)
+    if fault_plan is _RESOLVE:
+        fault_plan = resolve_fault_plan(plan)
     builder.telemetry = None
     builder.stage_timer = obs.StageTimer()
     report_dir = run_report.resolve_report_dir(query_map)
+    if report_dir is not None and plan_id is not None and not query_map.get("report", ""):
+        # the environment's directory under an executor: each plan its own
+        # subdirectory, or concurrent plans would overwrite one report
+        report_dir = os.path.join(report_dir, plan_id)
+    if report_dir is None and default_report_dir and query_map.get("report", "") != "false":
+        report_dir = default_report_dir
     if report_dir:
         try:
-            builder.telemetry = run_report.RunTelemetry(query, query_map, report_dir,
+            builder.telemetry = run_report.RunTelemetry(plan.query, query_map, report_dir,
                                                         builder.device)
+            builder.telemetry.plan_id = plan_id
+            builder.telemetry.gateway = gateway
+            builder.telemetry.fleet = fleet
+            builder.telemetry.trace_id = trace_id
         except OSError as e:
             logger.warning("run telemetry unavailable (%s: %s); running unreported",
                            type(e).__name__, e)
     telemetry = builder.telemetry
+    run_metrics = obs.Metrics()
     domain = run_domain.RunDomain(
-        chaos=fault_plan, recorder=None if telemetry is None else telemetry.recorder)
-    trace_path = query_map.get("trace_path") or None
+        plan_id=plan_id, chaos=fault_plan,
+        recorder=None if telemetry is None else telemetry.recorder, metrics=run_metrics)
+    builder.run_metrics = run_metrics
     start = time.perf_counter()
-    with obs.metrics.scope() as run_metrics, run_domain.activate(domain):
-        builder.run_metrics = run_metrics
+    with run_domain.activate(domain):
         try:
-            # one run attempt (fires when the plan has a scheduler.plan rule)
+            # one run attempt (fires when the plan has a scheduler.plan rule;
+            # the executor's retry budget absorbs it)
             chaos.maybe_fire("scheduler.plan")
-            if trace_path:
-                with obs.trace(trace_path):
-                    statistics = builder._execute(query_map)
+            if plan.trace_path:
+                with obs.trace(plan.trace_path):
+                    statistics = builder._execute(plan)
             else:
-                statistics = builder._execute(query_map)
+                statistics = builder._execute(plan)
         except Exception as e:
             if telemetry is not None:
                 _note_blocks(builder, telemetry)

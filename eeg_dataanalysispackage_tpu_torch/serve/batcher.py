@@ -387,6 +387,19 @@ class AdmissionQueue:
                 self._not_full.notify(len(batch))
         return batch
 
+    def remove(self, request: Request) -> bool:
+        """Withdraw one still-queued item (the plan executor's
+        cancel-if-queued): True when it was queued and is gone, False when
+        a worker already popped it. The pop path shares the lock, so an
+        item is removed or collected, never both."""
+        with self._lock:
+            try:
+                self._items.remove(request)
+            except ValueError:
+                return False
+            self._not_full.notify()
+            return True
+
     def drain_pending(self) -> List[Request]:
         """Remove and return everything queued (watchdog / shutdown)."""
         with self._lock:

@@ -74,59 +74,14 @@ def _conflicting_keys(query_map) -> list:
 
 def check_conflicts(query_map) -> None:
     """Raise the reference's message when serve=true is combined with a
-    training or population mode, then check the lifecycle knobs
-    (:func:`check_lifecycle_knobs`)."""
+    training or population mode (the lifecycle knobs' grammar is the
+    plan parser's, ``pipeline/plan.py``)."""
     conflicts = _conflicting_keys(query_map)
     if conflicts:
         raise ValueError(
             f"serve=true is an inference mode; it cannot combine "
             f"with {', '.join(conflicts)}"
         )
-    check_lifecycle_knobs(query_map)
-
-
-def check_lifecycle_knobs(query_map) -> None:
-    """The ``adapt=`` knob family's grammar, with the JAX package's
-    messages (its plan parser's): a mistyped gate, or a knob without
-    ``adapt=true``, must never serve without the adaptation asked for."""
-    adapt_value = query_map.get("adapt", "")
-    if adapt_value not in ("", "true", "false"):
-        raise ValueError(f"adapt= must be true or false, got {adapt_value!r}")
-    adapt = adapt_value == "true"
-    if adapt and query_map.get("serve") != "true":
-        raise ValueError(
-            "adapt=true streams labeled feedback through the resident serving "
-            "service; it requires serve=true"
-        )
-    swap_gate = query_map.get("swap_gate") or None
-    if swap_gate is not None:
-        if not adapt:
-            raise ValueError(
-                "swap_gate= gates lifecycle promotions; it requires adapt=true"
-            )
-        lifecycle_mod.parse_swap_gate(swap_gate)
-    drift_window = _optional_int(query_map, "drift_window")
-    if drift_window is not None:
-        if not adapt:
-            raise ValueError(
-                "drift_window= sizes the lifecycle's windowed statistics; it "
-                "requires adapt=true"
-            )
-        if drift_window < 1:
-            raise ValueError(f"drift_window= must be >= 1, got {drift_window}")
-    for knob in ("adapt_batch", "adapt_iters"):
-        if _optional_int(query_map, knob) is not None and not adapt:
-            raise ValueError(
-                f"{knob}= tunes the lifecycle's partial-fit batches; it "
-                "requires adapt=true"
-            )
-
-
-def _optional_int(query_map, name: str):
-    """An optional integer knob: None when absent or empty."""
-    if not query_map.get(name, ""):
-        return None
-    return _int_knob(query_map, name, 0)
 
 
 def _int_knob(query_map, name: str, default: int) -> int:

@@ -317,11 +317,14 @@ def test_fault_spec_fires_at_the_jax_package_calls(spec, seed):
 @pytest.mark.parametrize("spec,match", [
     # serve.request, serve.batch, ingest.fused and scheduler.plan fire in
     # the port since the run bracket came (tests/test_torch_report.py)
-    ("fleet.lease:once@4", "not yet ported"),
-    ("remote.request:once@1;scheduler.journal:p=0.5", "not yet ported"),
+    # scheduler.journal, fleet.lease and fleet.heartbeat fire since the
+    # executor came (tests/test_torch_scheduler.py, test_torch_lease.py):
+    # every JAX point has a site, so only a point with none is refused
+    ("fleet.scan:once@4", "no injection site"),
+    ("remote.request:once@1;scheduler.dedup:p=0.5", "no injection site"),
     # device.step fires in the port since its elastic trainer came, and
     # staging.producer since its overlapped staging came
-    ("scheduler.journal:err@7", "not yet ported"),
+    ("gateway.request:err@7", "no injection site"),
     ("remote.request", "point:directive"),
     ("remote.request:sometimes", "bad directive"),
     ("remote.request:p=1.5", "out of"),
@@ -418,9 +421,9 @@ def test_a_run_refuses_a_fault_spec(how, monkeypatch):
 
     q = "info_file=/nonexistent/info.txt&fe=dwt-8-fused&train_clf=logreg"
     if how == "query":
-        q += "&faults=remote.request:p=0.5;scheduler.journal:once@1"
+        q += "&faults=remote.request:p=0.5;scheduler.dedup:once@1"
     else:
-        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5;scheduler.journal:once@1")
+        monkeypatch.setenv("EEG_TPU_FAULTS", "remote.request:p=0.5;scheduler.dedup:once@1")
     with pytest.raises(chaos.FaultSpecError,
-                       match="fault point 'scheduler.journal' is not yet ported"):
+                       match="fault point 'scheduler.dedup' has no injection site"):
         PipelineBuilder(q, device="cpu").execute()

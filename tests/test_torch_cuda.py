@@ -2736,3 +2736,49 @@ def test_streaming_on_the_card_follows_the_cpu():
     card = streaming.blocked_features(raw, block=2048, resolutions=res)
     host = streaming.blocked_features(raw, block=2048, resolutions=res, device="cpu")
     assert np.abs(card - host).max() <= 2e-5
+
+
+# -- the plan executor on the card
+
+
+@pytest.mark.cuda
+def test_two_concurrent_fused_plans_on_the_card_equal_solo(tmp_path):
+    """Two fused plans through ``PlanExecutor(max_concurrent=2)`` on the
+    card, at once: each one's statistics byte-equal to its solo run on the
+    card, and K1 launched once a recording a plan."""
+    from eeg_dataanalysispackage_tpu_torch.scheduler import PlanExecutor
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=200)
+    n_files = sum(1 for line in open(info) if line.strip())
+    queries = [f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&config_step_size={s}"
+               "&config_num_iterations=40&config_mini_batch_fraction=1.0"
+               for s in ("1.0", "0.5")]
+    solo = [str(PipelineBuilder(q).execute()) for q in queries]
+    before = ingest_cuda.LAUNCHES
+    with PlanExecutor(max_concurrent=2, journal_dir=str(tmp_path / "journal")) as ex:
+        handles = [ex.submit(q) for q in queries]
+        results = [h.result(timeout=300) for h in handles]
+    assert ingest_cuda.LAUNCHES - before == 2 * n_files
+    assert [str(r.statistics) for r in results] == solo
+    assert all(r.builder.device.type == "cuda" and r.attempts == 1 for r in results)
+
+
+@pytest.mark.cuda
+def test_plan_executor_takes_the_card_by_default():
+    """``PlanExecutor()`` (``device=None``) runs on the card, and raises on
+    a host without one: nothing falls back to the CPU."""
+    from eeg_dataanalysispackage_tpu_torch.scheduler import PlanExecutor
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PlanExecutor()
+        return
+    ex = PlanExecutor()
+    try:
+        assert ex.device == torch.device("cuda")
+    finally:
+        ex.close()

@@ -7,9 +7,11 @@ tests/conftest.py imports JAX into this one; the card's host has none of
 them, so the checkpoint store writes flax's bytes with its own codec). An
 AST scan pins the same for every source file of the port, for
 ``chip_smoke.py`` and ``chip_compare.py``, for the lifecycle's kill
-worker ``tests/_torch_lifecycle_worker.py`` and for the two-process
-worker ``tests/_torch_distributed_worker.py``, including imports inside
-functions. A pod member (``parallel/pod_worker``) runs a whole query and
+worker ``tests/_torch_lifecycle_worker.py``, the two-process worker
+``tests/_torch_distributed_worker.py`` and the executor's kill worker
+``tests/_torch_scheduler_worker.py``, including imports inside
+functions. The plan IR and the scheduler's modules are its own copies
+of the JAX package's pure-Python ones, walked and scanned like the rest. A pod member (``parallel/pod_worker``) runs a whole query and
 its ``sys.modules`` holds none of them either.
 """
 
@@ -41,7 +43,8 @@ assert not leaked, leaked
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py"),
            os.path.join(REPO, "tests", "_torch_lifecycle_worker.py"),
-           os.path.join(REPO, "tests", "_torch_distributed_worker.py")]
+           os.path.join(REPO, "tests", "_torch_distributed_worker.py"),
+           os.path.join(REPO, "tests", "_torch_scheduler_worker.py")]
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -308,3 +311,25 @@ def test_a_pod_members_modules_hold_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "LEAKED []" in proc.stdout
     assert '"sha"' in proc.stdout
+
+
+def test_the_plan_ir_and_scheduler_modules_are_walked_and_scanned():
+    """``pipeline/plan`` and ``scheduler/*`` are the port's own copies of
+    JAX-free modules of the JAX package: walked by the fresh import and
+    scanned, so none of them reaches into the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    modules = ("pipeline.plan", "scheduler", "scheduler.runtime", "scheduler.journal",
+               "scheduler.lease", "scheduler.executor")
+    for name in modules:
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in modules:
+        rel = name.replace(".", "/") + ("/__init__.py" if name == "scheduler" else ".py")
+        assert rel in scanned
+    assert os.path.join("..", "tests", "_torch_scheduler_worker.py") in scanned

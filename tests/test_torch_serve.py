@@ -198,8 +198,8 @@ def test_conflicts_raise_the_reference_messages(session):
     "extra,match",
     # adapt=true itself runs (tests/test_torch_lifecycle.py); a run's
     # faults= spec naming a point the port has no site for does not
-    [pytest.param("adapt=true&faults=scheduler.journal:once@1",
-                  "fault point 'scheduler.journal' is not yet ported", id="adapt=true")]
+    [pytest.param("adapt=true&faults=scheduler.dedup:once@1",
+                  "fault point 'scheduler.dedup' has no injection site", id="adapt=true")]
     # a serve fault is retried and report= writes its report (under the
     # test's own directory): both serve the batch run's statistics
     + [pytest.param(e, None, id=e)
