@@ -292,6 +292,29 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``claim_and_run`` for an orphaned record, run exactly once
    (``sched_takeover``); and ``faults=scheduler.journal:p=1.0``: the plan
    runs unjournaled, the failed writes counted (``sched_journal_chaos``);
+   its plans carry ``dedup=false``, so each runs its own ingest;
+4l. the plan service on the card over the 8-recording session: a fused
+   logreg and svm plan (``config_reg_param=0.1``) through
+   ``PlanExecutor(max_concurrent=2)`` share one prefix build
+   (``scheduler/dedup.py``): K1 8 for the pair, the files read once, both
+   statistics byte-equal to their solo ``dedup=false`` runs, one leader and
+   one follower block, the follower fitting on the leader's card tensor,
+   whose digest after both fits is the solo build's (``service_dedup_pair``);
+   with ``EEG_TPU_DEVICE_POOL=auto`` the pool is the one card, and two
+   plans take ordinal 0 in turn (``placement.grants`` 2, the waits
+   counted, K1 16, statistics byte-equal to solo; ``service_placement``);
+   a ``GatewayServer`` on 127.0.0.1:0 over a journal: ``POST /plans`` 201,
+   its keyed replay 200, an invalid query 400, the report byte-equal to
+   solo with K1 8, 16 ``POST /predict`` requests over a
+   ``MultiplexedService`` of four tenants with margins equal to the
+   service's engine called directly (K6's launches counted over the
+   requests only), ``/metrics`` parsing, ``/healthz`` and ``/readyz`` 200
+   (``service_gateway``); and two ``python -m
+   eeg_dataanalysispackage_tpu_torch.gateway --fleet --device=cuda``
+   replicas over one journal: the one running a host random forest over
+   K1's rows is SIGKILLed, the other completes the plan under its id by
+   takeover with the solo run's statistics, then exits 0 on SIGTERM
+   (``service_fleet``); every wall beside the card's name and power limit;
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -403,6 +426,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics as pystats
 import subprocess
 import sys
@@ -4100,7 +4124,9 @@ def phase_pod_four_cards(torch, np, info, counters):
     return k1
 
 
-SCHED_QUERY = "fe=dwt-8-fused&train_clf=logreg"
+# dedup=false: phase 4k's plans share one prefix, and each is to run its own
+# ingest; phase 4l drives the prefix dedup
+SCHED_QUERY = "fe=dwt-8-fused&train_clf=logreg&dedup=false"
 SCHED_STEPS = ("1.0", "0.5", "0.25", "0.125")
 
 
@@ -4301,6 +4327,253 @@ def phase_scheduler(torch, np, info, counters, work):
     emit("sched_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
          walls_s=walls)
     return k1
+
+
+# phase 4l: the dedup pair's second plan, and the fleet's heavy plan (a host
+# random forest over K1's rows: seconds of host work that a SIGKILL lands in)
+SERVICE_SVM = "&train_clf=svm&config_reg_param=0.1"
+FLEET_HEAVY = ("&train_clf=rf&config_max_bins=32&config_impurity=gini&config_max_depth=8"
+               "&config_min_instances_per_node=1&config_num_trees=200&config_feature_subset=auto")
+
+
+def http(url, body=None, method="GET", headers=None, timeout=120):
+    """(status, JSON payload or text) of one request to a gateway."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else body.encode(),
+                                 method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, raw, ctype = r.status, r.read().decode(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read().decode(), e.headers["Content-Type"]
+    return code, json.loads(raw) if ctype == "application/json" else raw
+
+
+def await_plan(url, plan_id, states=("completed", "failed", "cancelled"), timeout_s=300):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        _code, status = http(f"{url}/plans/{plan_id}")
+        if status.get("state") in states:
+            return status["state"]
+        if time.monotonic() > deadline:
+            raise AssertionError(f"plan {plan_id} stuck in {status}")
+        time.sleep(0.02)
+
+
+def spawn_replica(replica_id, journal_dir, device):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "eeg_dataanalysispackage_tpu_torch.gateway", "--port", "0",
+         "--journal-dir", journal_dir, "--max-concurrent", "1", "--drain-timeout-s", "300",
+         "--fleet", "--replica-id", replica_id, f"--device={device}"],
+        cwd=REPO, env=dict(os.environ, EEG_TPU_LEASE_TIMEOUT_S="1",
+                           EEG_TPU_FLEET_SCAN_INTERVAL_S="0.1"),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    line = proc.stdout.readline()
+    if "listening on " not in line:
+        proc.kill()
+        raise AssertionError(f"replica {replica_id} did not start: {line!r}")
+    return proc, line.split("listening on ", 1)[1].split()[0]
+
+
+def phase_plan_service(torch, np, info, model, counters, work, smi, device="cuda"):
+    """Phase 4l (see the module docstring). Returns the K1 launches of the
+    phase's plans in this process and K6's over its /predict requests."""
+    import hashlib
+
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.gateway import GatewayServer
+    from eeg_dataanalysispackage_tpu_torch.models import registry
+    from eeg_dataanalysispackage_tpu_torch.obs import metrics_export
+    from eeg_dataanalysispackage_tpu_torch.ops import ingest_cuda, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.scheduler import (
+        LeaseDir, PlanExecutor, PlanJournal, dedup, placement,
+    )
+    from eeg_dataanalysispackage_tpu_torch.serve import MultiplexedService
+
+    t_phase = time.perf_counter()
+    run_device = None if device == "cuda" else device  # None: the builder's default card
+    base = f"info_file={info}&fe=dwt-8-fused"
+    q_lr, q_svm = base + "&train_clf=logreg", base + SERVICE_SVM
+    solo, k1, walls = {}, 0, {}
+
+    def reads():
+        return obs.metrics.snapshot()["counters"].get("ingest.file_reads", 0)
+
+    def zero():
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+
+    before = reads()
+    lr_builder, stats, launches = run_builder("service_solo_logreg", q_lr + "&dedup=false",
+                                              run_device, counters)
+    reads_one_build = reads() - before
+    solo[q_lr], k1 = str(stats), k1 + launches["ingest_features"]
+    solo_digest = hashlib.sha256(lr_builder.features.cpu().numpy().tobytes()).hexdigest()
+    _b, stats, launches = run_builder("service_solo_svm", q_svm + "&dedup=false",
+                                      run_device, counters)
+    solo[q_svm], k1 = str(stats), k1 + launches["ingest_features"]
+
+    # 1. the dedup pair: one prefix build, two fits on the one card tensor
+    dedup.reset()
+    zero()
+    before, t0 = reads(), time.perf_counter()
+    with PlanExecutor(max_concurrent=2, device=device) as ex:
+        pair = sched_results([ex.submit(q) for q in (q_lr, q_svm)])
+    walls["dedup_pair"] = time.perf_counter() - t0
+    launches, pair_reads = ingest_cuda.LAUNCHES, reads() - before
+    k1 += launches
+    blocks = [r.builder.dedup_resolved for r in pair]
+    leader = next(r for r, b in zip(pair, blocks) if b["role"] == "leader")
+    follower = next(r for r in pair if r is not leader)
+    after_digest = hashlib.sha256(leader.builder.features.cpu().numpy().tobytes()).hexdigest()
+    emit("service_dedup_pair", k1_launches=launches, file_reads=pair_reads,
+         file_reads_one_build=reads_one_build, blocks=blocks, stats=dedup.stats(),
+         leader_rows_sha256_solo=solo_digest, leader_rows_sha256_after=after_digest,
+         shared_tensor=follower.builder.features is leader.builder.features,
+         rows_device=str(leader.builder.features.device), wall_s=walls["dedup_pair"], nvidia_smi=smi)
+    check_equal = [str(r.statistics) for r in pair] == [solo[q_lr], solo[q_svm]]
+    if (launches != 8 or pair_reads != reads_one_build or not check_equal
+            or sorted(b["role"] for b in blocks) != ["follower", "leader"]
+            or after_digest != solo_digest
+            or follower.builder.features is not leader.builder.features):
+        raise AssertionError("the dedup pair did not share one prefix build byte-equally")
+
+    # 2. placement: a pool of the visible cards, two plans taking ordinal 0 in turn
+    jdir = os.path.join(work, "service_placement")
+    os.environ[placement.ENV_DEVICE_POOL] = "auto" if device == "cuda" else "1"
+    try:
+        pool = placement.DevicePool.from_env(LeaseDir(jdir, holder="gw-smoke"))
+    finally:
+        os.environ.pop(placement.ENV_DEVICE_POOL, None)
+    before_counters = obs.metrics.snapshot()["counters"]
+    zero()
+    t0 = time.perf_counter()
+    ex = PlanExecutor(max_concurrent=2, journal_dir=jdir, device=device)
+    ex.leases, ex.placement = pool.leases, pool
+    try:
+        placed = sched_results([ex.submit(q + "&dedup=false") for q in (q_lr, q_svm)])
+    finally:
+        ex.close()
+    walls["placement"] = time.perf_counter() - t0
+    launches = ingest_cuda.LAUNCHES
+    k1 += launches
+    after_counters = obs.metrics.snapshot()["counters"]
+    delta = {k: after_counters.get(k, 0) - before_counters.get(k, 0)
+             for k in ("placement.grants", "placement.waits", "placement.backfills")}
+    devices = [PlanJournal(jdir).entry(r.plan_id)["meta"]["fleet"]["devices"] for r in placed]
+    emit("service_placement", pool_size=pool.size, counters=delta, devices=devices,
+         k1_launches=launches, leases_left=placement.device_table(jdir),
+         wall_s=walls["placement"], nvidia_smi=smi)
+    if (pool.size != 1 or delta["placement.grants"] != 2 or devices != [[0], [0]]
+            or [str(r.statistics) for r in placed] != [solo[q_lr], solo[q_svm]]
+            or launches != 16 or placement.device_table(jdir)):
+        raise AssertionError("the placed plans did not take the pool's ordinal in turn")
+
+    # 3. the gateway over a journal, with /predict over four tenants
+    dedup.reset()
+    base_clf = registry.create("logreg")
+    base_clf.load(model)
+    tenants = {f"t{i}": perturbed_tenant(np, base_clf, i) if i else base_clf for i in range(4)}
+    windows, resolutions, _targets = session_windows(info)
+    svc = MultiplexedService(tenants, device=device)
+    svc.start()
+    gw = GatewayServer(journal_dir=os.path.join(work, "service_journal"),
+                       report_root=os.path.join(work, "service_reports"),
+                       predict_service=svc, device=device)
+    try:
+        gw.start()
+        zero()
+        serve_mega_cuda.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        codes = {}
+        codes["submit"], first = http(f"{gw.url}/plans", q_lr, "POST",
+                                      {"X-Idempotency-Key": "smoke", "X-Trace-Id": "smoke-1"})
+        codes["replay"], replay = http(f"{gw.url}/plans", q_lr, "POST",
+                                       {"X-Idempotency-Key": "smoke"})
+        codes["invalid"], _ = http(f"{gw.url}/plans", "fe=dwt-8&train_clf=logreg", "POST")
+        state = await_plan(gw.url, first["plan_id"])
+        codes["report"], report = http(f"{gw.url}/plans/{first['plan_id']}/report")
+        walls["gateway_plan"] = time.perf_counter() - t0
+        plan_k1 = ingest_cuda.LAUNCHES
+        k1 += plan_k1
+        mix = [f"t{i % 4}" for i in range(16)]
+        t0 = time.perf_counter()
+        answers = []
+        for w, r, t in zip(windows[:16], resolutions[:16], mix):
+            code, payload = http(f"{gw.url}/predict", json.dumps(
+                {"tenant": t, "window": np.asarray(w).tolist(),
+                 "resolutions": np.asarray(r).tolist()}), "POST")
+            answers.append((code, payload))
+        walls["predict_16"] = time.perf_counter() - t0
+        k6 = serve_mega_cuda.MULTI_LAUNCHES
+        # the service called directly, for the comparison (not counted)
+        direct = [svc.engine.execute([w], r, [t])[1][0] for w, r, t in
+                  zip(windows[:16], resolutions[:16], mix)]
+        codes["metrics"], text = http(f"{gw.url}/metrics")
+        codes["healthz"], _ = http(f"{gw.url}/healthz")
+        codes["readyz"], _ = http(f"{gw.url}/readyz")
+        codes["stats"], stats_payload = http(f"{gw.url}/stats")
+    finally:
+        gw.close()
+        svc.stop()
+    series = metrics_export.parse(text)
+    margins_equal = all(code == 200 and payload["margin"] == float(m)
+                        for (code, payload), m in zip(answers, direct))
+    emit("service_gateway", codes=codes, state=state, k1_launches=plan_k1, k6_launches=k6,
+         statistics_equal=report["statistics"] == solo[q_lr],
+         replay=replay.get("idempotent_replay"), trace_id=first.get("trace_id"),
+         predict_codes=sorted({code for code, _ in answers}), margins_equal=margins_equal,
+         tenants_served=sorted(stats_payload["serve"]["tenants"]),
+         metrics_series=len(series), walls_s=dict(walls), nvidia_smi=smi)
+    if (codes != {"submit": 201, "replay": 200, "invalid": 400, "report": 200, "metrics": 200,
+                  "healthz": 200, "readyz": 200, "stats": 200}
+            or state != "completed" or report["statistics"] != solo[q_lr] or plan_k1 != 8
+            or not margins_equal or k6 < 1 or "eeg_tpu_build_info" not in series):
+        raise AssertionError("the gateway's wire contract did not hold on the card")
+
+    # 4. the fleet: two replica processes over one journal, one SIGKILLed
+    heavy = base + FLEET_HEAVY
+    _b, stats, launches = run_builder("service_fleet_solo", heavy,
+                                      run_device, counters)
+    heavy_solo, k1 = str(stats), k1 + launches["ingest_features"]
+    jdir = os.path.join(work, "service_fleet")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        procs = [spawn_replica(rid, jdir, device) for rid in ("gw-a", "gw-b")]
+        (proc_a, url_a), (proc_b, url_b) = procs
+        walls["fleet_start"] = time.perf_counter() - t0
+        code, sub = http(f"{url_a}/plans", heavy, "POST", {"X-Idempotency-Key": "fleet"})
+        running = await_plan(url_a, sub["plan_id"], ("running", "completed", "failed"))
+        proc_a.kill()
+        killed_rc = proc_a.wait(timeout=60)
+        t1 = time.perf_counter()
+        final = await_plan(url_b, sub["plan_id"])
+        walls["takeover"] = time.perf_counter() - t1
+        entry = PlanJournal(jdir).entry(sub["plan_id"])
+        proc_b.send_signal(signal.SIGTERM)
+        drain_rc = proc_b.wait(timeout=120)
+    finally:
+        for proc, _url in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    walls["fleet"] = time.perf_counter() - t0
+    emit("service_fleet", submit_code=code, state_at_kill=running, killed_rc=killed_rc,
+         final=final, fleet=entry["meta"].get("fleet"),
+         statistics_equal=entry.get("statistics") == heavy_solo, drain_rc=drain_rc,
+         leases_left=sorted(n for n in os.listdir(jdir) if n.endswith(".lease")),
+         walls_s={k: walls[k] for k in ("fleet_start", "takeover", "fleet")}, nvidia_smi=smi)
+    if (code != 201 or running != "running" or killed_rc != -9 or final != "completed"
+            or entry["meta"]["fleet"] != {"replica": "gw-b", "takeover": True}
+            or entry.get("statistics") != heavy_solo or drain_rc != 0):
+        raise AssertionError("the fleet did not complete the killed replica's plan")
+    dedup.reset()
+    emit("service_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
+         k6_launches=k6, nvidia_smi=smi)
+    return k1, k6
 
 
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
@@ -5702,6 +5975,9 @@ def main() -> int:
         pod_k1 = phase_pod(torch, np, info, counters, work)
         # 4k. the plan executor: concurrent, journaled, fault-isolated plans
         sched_k1 = phase_scheduler(torch, np, info, counters, work)
+        # 4l. the plan service: prefix dedup, placement, the gateway, the fleet
+        service_k1, service_k6 = phase_plan_service(torch, np, info, model, counters, work,
+                                                    smi)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -5813,11 +6089,12 @@ def main() -> int:
         # (fan-out, populations, elastic, line searches), 4f (the seizure
         # workload's -pallas runs), 4g (cache misses, the trace, MLlib), 4h
         # (the parse pool, overlap, the remote pool), 4i (meshes, the
-        # raw-stream trainers), 4j (the ranks' own launches too) and 4k (the
-        # executor's plans, and the killed child's before its kill)
+        # raw-stream trainers), 4j (the ranks' own launches too), 4k (the
+        # executor's plans, and the killed child's before its kill) and 4l (the
+        # plan service's plans in this process)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
-                     + mesh_k1 + pod_k1 + sched_k1,
+                     + mesh_k1 + pod_k1 + sched_k1 + service_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),
@@ -5845,7 +6122,8 @@ def main() -> int:
                        max(mega_err[p], mega_64[p][4], mega_big[p][4]), mega_64[p],
                        library_ms=lib[64])
           for p in ("int8", "int4")),
-        kernel_entry("serve_mega_multi", "serve_mega.cu", multi_pallas, multi_launches,
+        kernel_entry("serve_mega_multi", "serve_mega.cu", multi_pallas,
+                     multi_launches + service_k6,
                      max(multi_err[""], multi_64[4], multi_big[4]), multi_64, library_ms=lib[64]),
         *(kernel_entry(f"serve_mega_multi_{wp}", "serve_mega.cu", multi_pallas,
                        packed_launches[wp],

@@ -20,12 +20,14 @@ package's; ``tools/obs_report.py show`` renders either package's.
 A plan run by the executor (``scheduler/executor.py``) carries its
 ``plan_id`` and the ``gateway``, ``fleet`` and ``trace`` attribution its
 submission passed (``trace.segment`` is None: the port has no trace
-sink), and a crash report's ``fleet_context`` names the replica and the
-process's lease counters (``scheduler/lease.py``; the JAX package's
-``held_leases`` comes with the fleet, which registers its lease
-directory). Keys for machinery the port
-does not have keep the JAX package's names: ``dedup`` and
-``caches.compile_cache_dir`` are None, ``degradation`` is empty (the
+sink), its ``dedup`` block the prefix-dedup attribution
+(``scheduler/dedup.py``: leader or follower, the prefix key, the rows and
+the seconds and bytes saved; None when the run claimed no prefix), and a
+crash report's ``fleet_context`` names the replica, the leased devices,
+the leases the process held (those of the lease directory the fleet
+replica registered, ``scheduler/lease.active_held``) and the process's
+lease counters. Keys for machinery the port does not have keep the JAX
+package's names: ``caches.compile_cache_dir`` is None, ``degradation`` is empty (the
 port has no degradation ladder), and ``xla`` is the JAX package's
 compilation block as it reads without a compiler to monitor
 (``available`` False, no counts).
@@ -147,6 +149,8 @@ class RunTelemetry:
         #: networked (``{"via", "idempotency_key", "client"}``), replica
         #: (``{"replica", "takeover"}``) and the distributed trace id
         self.plan_id: Optional[str] = None
+        #: the run's prefix-dedup attribution (``scheduler/dedup.py``)
+        self.dedup: Optional[Dict[str, Any]] = None
         self.gateway: Optional[Dict[str, Any]] = None
         self.fleet: Optional[Dict[str, Any]] = None
         self.trace_id: Optional[str] = None
@@ -181,7 +185,7 @@ class RunTelemetry:
             "precision": self.precision,
             "overlap": self.overlap,
             "mesh": self.mesh,
-            "dedup": None,
+            "dedup": self.dedup,
             "gateway": self.gateway,
             "fleet": self.fleet,
             "trace": None if self.trace_id is None else {"trace_id": self.trace_id,
@@ -237,6 +241,7 @@ class RunTelemetry:
                 "replica": self.fleet.get("replica"),
                 "takeover": bool(self.fleet.get("takeover")),
                 "devices": self.fleet.get("devices"),
+                "held_leases": lease.active_held(),
                 "lease_counters": lease.stats(),
             }
         except Exception:  # the dump must never mask the real error

@@ -149,6 +149,36 @@ def get_query_map(query: str) -> Dict[str, str]:
     return out
 
 
+def decode_percent_query(query: str) -> str:
+    """Percent-decode a network-submitted query string, pair by pair (the
+    JAX package's ``decode_percent_query``).
+
+    The gateway's clients URL-encode option values whose grammar carries
+    reserved characters (``fe=dwt-8%3Alevel%3D5%3Astats%3Denergy%2Cmean``);
+    the journal and the plan IR keep the decoded string. Each parameter is
+    split on ``&`` and its first ``=`` before it is unquoted, so a decoded
+    ``=`` or ``&`` is never read as query structure; a decoded value
+    holding ``&`` (or a decoded name holding ``&`` or ``=``) cannot be
+    written in the ``k=v&k=v`` surface and raises ``ValueError``. A string
+    without ``%`` passes through unchanged."""
+    if "%" not in query:
+        return query
+    from urllib.parse import unquote
+
+    parts = []
+    for param in query.split("&"):
+        name, sep, value = param.partition("=")
+        name = unquote(name)
+        value = unquote(value)
+        if "&" in name or "=" in name or "&" in value:
+            raise ValueError(
+                f"percent-decoded query parameter {param!r} contains a "
+                f"reserved '&'/'=' the k=v&k=v surface cannot represent"
+            )
+        parts.append(name + sep + value)
+    return "&".join(parts)
+
+
 def resolve_precision(query_map: Dict[str, str]) -> str:
     """The batch run's feature precision
     (``decode_ingest.requested_precision``); raises the JAX package's
@@ -253,6 +283,16 @@ class PipelineBuilder:
         #: for ``processes=1``; None without ``devices=``/``mesh_axes=`` or
         #: the pod keys
         self.mesh_resolved: Optional[dict] = None
+        #: the last run's prefix-dedup record (``scheduler/dedup.py``; the
+        #: report's ``dedup`` block): ``{"role", "prefix_key", "rows"}`` and
+        #: the leader's ``build_seconds`` or the follower's
+        #: ``leader_plan``, ``bytes_saved``, ``seconds_saved``; None when
+        #: the run claimed no prefix
+        self.dedup_resolved: Optional[dict] = None
+        #: the device-pool ordinals the run was granted
+        #: (``scheduler/placement.py``, set by the run bracket): a meshed
+        #: plan's mesh is built from exactly them; None unplaced
+        self.placement_devices: Optional[tuple] = None
         #: the record of a requested pod that did not run one
         #: (``processes=1``), folded into :attr:`mesh_resolved`
         self._pod_block = None
@@ -307,7 +347,7 @@ class PipelineBuilder:
         self.overlap_resolved = None
         self.workload_block = self.feature_sets = None
         self.population_block = self.population_states = self.classifiers = None
-        self.mesh_resolved = None
+        self.mesh_resolved = self.dedup_resolved = None
         # the bootstrap runs before any mesh is built; a live pod's hybrid
         # mesh supersedes devices=/mesh_axes=
         pod = self._resolve_pod(plan.pod)
@@ -367,7 +407,7 @@ class PipelineBuilder:
             suffix = fused.group(2)
             backend = "decode" if suffix is None else suffix[1:]
             features, targets = self._fused_features(
-                query_map, odp, wavelet_index, backend, precision, overlap, mesh, pod)
+                query_map, odp, wavelet_index, backend, precision, overlap, mesh, pod, plan)
             batch = None
         else:
             # the host fe= path (JAX package: pipeline/builder.py:834-840,
@@ -512,8 +552,12 @@ class PipelineBuilder:
     def _resolve_mesh(self, request):
         """A validated :class:`~..parallel.mesh.MeshRequest` -> a built
         mesh on the run's device kind, or None when none was requested.
-        A mesh the machine cannot build (more cards than visible) raises:
-        the port has no ladder. Sets :attr:`mesh_resolved`."""
+        A placed plan's mesh is built from exactly its leased ordinals
+        (:attr:`placement_devices`, recorded as ``mesh_resolved["leased"]``):
+        the process's visible CUDA indices on the card, as many logical CPU
+        shards on the CPU. A mesh the machine cannot build (more cards than
+        visible, a leased ordinal this process cannot see) raises: the port
+        has no ladder. Sets :attr:`mesh_resolved`."""
         if request is None:
             return None
         sizes = list(request.shape or ())
@@ -521,12 +565,35 @@ class PipelineBuilder:
         requested = {"devices": request.devices or product, "axes": list(request.axes),
                      "shape": sizes or None}
         self.mesh_resolved = {"requested": requested, "rung": "single_device", "shape": None}
-        mesh = pmesh.make_mesh(requested["devices"], axes=request.axes,
-                               shape=tuple(sizes) if sizes else None, device=self.device)
+        leased = self.placement_devices
+        shape = tuple(sizes) if sizes else None
+        if leased:
+            self.mesh_resolved["leased"] = list(leased)
+            mesh = pmesh.make_mesh(len(leased), axes=request.axes, shape=shape,
+                                   devices=self._leased_devices(leased))
+        else:
+            mesh = pmesh.make_mesh(requested["devices"], axes=request.axes, shape=shape,
+                                   device=self.device)
         self.mesh_resolved.update(rung="mesh", shape=mesh.shape, devices=int(mesh.devices.size))
         events.event("pipeline.mesh_built", devices=int(mesh.devices.size),
                      axes=",".join(mesh.axis_names))
         return mesh
+
+    def _leased_devices(self, leased):
+        """The devices of leased pool ordinals: ``cuda:<i>`` for each on the
+        card (an ordinal past ``torch.cuda.device_count()`` raises), the
+        run's device once each on the CPU."""
+        if self.device.type != "cuda":
+            return [self.device] * len(leased)
+        present = torch.cuda.device_count()
+        unseen = [i for i in leased if not 0 <= int(i) < present]
+        if unseen:
+            raise ValueError(
+                f"leased device ordinal(s) {unseen} are not visible to this process "
+                f"({present} CUDA device(s) present); replicas that share a device pool "
+                "must see the same cards in the same order"
+            )
+        return [torch.device("cuda", int(i)) for i in leased]
 
     def _resolve_pod(self, request) -> Optional[pod_mod.PodRuntime]:
         """``processes=``/``coordinator=``/``process_id=`` (or their env
@@ -768,6 +835,54 @@ class PipelineBuilder:
         self.fe = extractors[0][1]
         return feature_sets, targets
 
+    def _seizure_prefix(self, plan, files, slide_cfg, fe_names):
+        """:meth:`_seizure_features` behind the plan's prefix-dedup claim
+        (``scheduler/dedup.py``; JAX package: pipeline/builder.py:1221-1251):
+        a follower takes the leader's published feature sets (on its own
+        device) and reads nothing; a leader publishes its own after the
+        features stage's sync."""
+        from ..scheduler import dedup as dedup_mod
+
+        claim = None
+        if dedup_mod.eligible(plan):
+            with self._stage("ingest", into_timers=False, phase="prefix_dedup",
+                             task="seizure"):
+                claim = dedup_mod.acquire_for(plan)
+        try:
+            if claim is not None and claim.role == "follower":
+                shared, targets = claim.value
+                feature_sets = [(name, rows.to(self.device)) for name, rows in shared]
+                self.batch = None
+                self._note_dedup(claim, rows=len(targets))
+                logger.info("prefix dedup hit (%d windows, leader %s): seizure ingest and "
+                            "featurization skipped", len(targets), claim.leader_plan)
+                return feature_sets, targets
+            feature_sets, targets = self._seizure_features(plan, files, slide_cfg, fe_names)
+            if claim is not None:
+                self._sync()
+                claim.publish((tuple(feature_sets), targets))
+                self._note_dedup(claim, rows=len(targets))
+            return feature_sets, targets
+        finally:
+            if claim is not None:
+                # an unpublished leader abandons: the first waiting follower
+                # is promoted and computes its own prefix
+                claim.settle()
+
+    def _note_dedup(self, claim, rows: int) -> None:
+        """The run's prefix-dedup attribution into :attr:`dedup_resolved`
+        (the report's ``dedup`` block), with the JAX package's keys."""
+        block = {"role": claim.role, "prefix_key": claim.key, "rows": int(rows)}
+        if claim.role == "leader":
+            block["build_seconds"] = round(claim.build_seconds, 6)
+            if claim.leader_failed:
+                block["promoted_after_leader_failure"] = True
+        else:
+            block["leader_plan"] = claim.leader_plan
+            block["bytes_saved"] = int(claim.bytes_saved)
+            block["seconds_saved"] = round(claim.build_seconds, 6)
+        self.dedup_resolved = block
+
     def _execute_seizure(self, plan, files, pop_spec, fe_names, mesh=None):
         """``task=seizure``: sliding windows -> subband (or any registry)
         features -> cost-sensitive training -> the extended statistics.
@@ -777,7 +892,7 @@ class PipelineBuilder:
         classifiers made by :meth:`_seizure_classifier`."""
         query_map = plan.query_map
         slide_cfg = seizure.sliding_config(query_map)
-        feature_sets, targets = self._seizure_features(plan, files, slide_cfg, fe_names)
+        feature_sets, targets = self._seizure_prefix(plan, files, slide_cfg, fe_names)
         features = feature_sets[0][1]
         n = len(targets)
         if n == 0:
@@ -823,13 +938,18 @@ class PipelineBuilder:
 
     def _fused_features(self, query_map, odp, wavelet_index: int, backend: str,
                         precision: str, overlap: Optional[bool] = None, mesh=None,
-                        pod=None):
+                        pod=None, plan=None):
         """The fused path's feature rows on the run's device, and the
         targets (JAX package: pipeline/builder.py:388-600, without its
-        prefix dedup and degradation ladder): the feature-cache lookup,
-        the per-run precision gate, the f32 re-key when the gate trips,
-        the kernel run, the store. A hit's host rows go to the run's
-        device in the dtype a miss gives, and no kernel is launched.
+        degradation ladder): the prefix-dedup claim (``scheduler/dedup.py``,
+        before any I/O: a follower takes the leader's rows, on its own
+        device, and reads nothing; a bf16/int8/int4 follower inherits the
+        leader's precision decision, its gate record ``{"source": "dedup",
+        "leader_plan"}``), the feature-cache lookup, the per-run precision
+        gate, the f32 re-key when the gate trips, the kernel run, the
+        store, and a leader's publish after the device sync. A cache hit's
+        host rows go to the run's device in the dtype a miss gives, and no
+        kernel is launched.
         ``overlap`` is the provider's (``None``: ``EEG_TPU_OVERLAP``), as is
         ``mesh`` (the sharded ingest over its time axis). ``pod``: a live
         pod's runtime; its ingest is partitioned by recording and bypasses
@@ -860,8 +980,25 @@ class PipelineBuilder:
         prepared = cache_key = build_slot = landed = gate_record = None
         features = targets = None
         precision_used = precision
+        from ..scheduler import dedup as dedup_mod
+
+        claim = None
+        if pod is None and dedup_mod.eligible(plan):
+            with self._stage("ingest", into_timers=False, phase="prefix_dedup"):
+                claim = dedup_mod.acquire_for(plan)
         try:
-            if cache is not None:
+            if claim is not None and claim.role == "follower":
+                features, targets = claim.value
+                features = features.to(self.device)
+                landed = "dedup"
+                if precision != "f32":
+                    # the leader resolved the gate for this exact prefix
+                    precision_used = claim.meta.get("precision_used", precision)
+                    gate_record = {"source": "dedup", "leader_plan": claim.leader_plan}
+                self._note_dedup(claim, rows=len(targets))
+                logger.info("prefix dedup hit (%d rows, leader %s): ingest and featurization "
+                            "skipped", len(targets), claim.leader_plan)
+            if landed is None and cache is not None:
                 with self._stage("ingest", into_timers=False, phase="cache_lookup"):
                     # one read pass: the digests for the key and the parsed
                     # recordings a miss featurizes from memory
@@ -932,14 +1069,24 @@ class PipelineBuilder:
                 landed = backend
                 if cache is not None:
                     cache.store(cache_key, features.cpu().numpy(), targets)
-            else:
+            elif landed == "cache":
                 # the entry's host rows, on the run's device as a miss
                 # leaves them
                 features = torch.from_numpy(np.asarray(features)).to(self.device)
                 targets = np.asarray(targets, dtype=np.float64)
+            if claim is not None and claim.role == "leader":
+                # whatever the run landed on, cache hits included; published
+                # after the sync, so no follower reads rows a kernel still writes
+                self._sync()
+                claim.publish((features, targets), meta={"precision_used": precision_used})
+                self._note_dedup(claim, rows=len(targets))
         finally:
             if build_slot is not None:
                 build_slot.release()
+            if claim is not None:
+                # an unpublished leader (any raise) abandons: the first waiting
+                # follower is promoted and computes its own prefix
+                claim.settle()
         events.event("pipeline.rung_landed", requested=backend, landed=landed)
         self.backend_resolved = {"requested": backend, "landed": landed}
         self.overlap_resolved = provider.default_overlap() if overlap is None else overlap

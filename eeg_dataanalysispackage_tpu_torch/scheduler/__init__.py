@@ -9,15 +9,20 @@ IR (ports of the JAX package's modules of the same names).
   admission with shed-with-evidence, N worker threads, per-plan deadlines
   and retry budgets, idempotency-keyed submission, cancel-if-queued,
   :meth:`PlanExecutor.recover`);
+- :mod:`scheduler.dedup`: cross-tenant plan-prefix dedup; plans that share
+  an ingest+featurize prefix (``ExecutionPlan.prefix_key``) compute it once,
+  with per-plan leader/follower attribution;
 - :mod:`scheduler.lease`: the cross-process plan claim (``plan-<id>.lease``
   beside the journal records), so executors over one journal directory run
-  each plan exactly once.
+  each plan exactly once;
+- :mod:`scheduler.placement`: the fleet's shared device pool (leased CUDA
+  ordinals, gang scheduling with backfill in the executor).
 
-The JAX package's prefix dedup and device placement (``scheduler/dedup``,
-``scheduler/placement``) and its gateway are not ported yet (ROADMAP A9.3-
-A9.5).
+The HTTP front door and the replica fleet over all of this are in
+``gateway/``.
 """
 
+from .dedup import PrefixClaim, PrefixRegistry  # noqa: F401
 from .executor import (  # noqa: F401
     IdempotencyConflictError,
     PlanCancelledError,

@@ -32,20 +32,31 @@ sharing the process's feature and plan caches, behind a write-ahead journal
   plans back, their records still ``submitted``) and
   :meth:`~PlanExecutor.close`.
 
+- **Gang scheduling** (``placement``, a ``scheduler/placement.DevicePool``
+  the fleet attaches): a popped plan's footprint is lease-claimed
+  all-or-nothing before it runs; a footprint that cannot be met now goes
+  back to the queue's tail (its journal record stays ``submitted``) so
+  smaller plans backfill past it, bounded by the pool's age-based
+  promotion. The grant's ordinals reach ``runtime.execute_plan(placement=)``
+  and the plan's fleet attribution, and the grant is released when the
+  plan's execution ends. A placement attempt that raises runs the plan
+  unplaced, counted in ``placement.errors``.
+- **Pod assist** (``pod_assist``, ``gateway/fleet.PodAssist``): a
+  ``processes=N`` plan without a ``process_id`` runs through it; when it
+  returns None the plan runs inline, where a pod that cannot assemble
+  raises ``PodBootstrapError`` (the JAX package degrades to one host) and
+  the plan ends ``failed`` after its attempts.
+
 The executor runs on ``device`` (``None``: ``cuda``, which raises without a
 card). Its plans' kernels go on the device's current stream, and the
 builder's stage syncs are device-wide, so a plan's ``featurize`` time may
-include a neighbour's kernels; the bits do not change. Device placement
-(``EEG_TPU_DEVICE_POOL``, a ``placement`` pool) and the fleet's pod assist
-are not ported (ROADMAP A9.4, A9.5): setting either raises, and a pod plan
-runs in-process through the builder's own bootstrap.
+include a neighbour's kernels; the bits do not change.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
-import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -61,16 +72,10 @@ from . import runtime
 
 logger = logging.getLogger(__name__)
 
-#: enables the fleet's shared device pool in the JAX package; placement
-#: is not ported, so the executor refuses to start with it set
-ENV_DEVICE_POOL = "EEG_TPU_DEVICE_POOL"
-
-
-def _placement_refused(what: str) -> ValueError:
-    return ValueError(
-        f"{what} asks for device placement (scheduler/placement.py), which the port "
-        "does not have yet (ROADMAP A9.4); refusing rather than run plans unplaced"
-    )
+#: :meth:`PlanExecutor._try_place`'s answer when the plan's footprint
+#: cannot be met now: the worker readmits it to the queue's tail (distinct
+#: from None, "run unplaced")
+_PLACEMENT_WAIT = object()
 
 
 class PlanShedError(ShedError):
@@ -138,7 +143,7 @@ class _PlanTicket:
 
     __slots__ = ("plan", "plan_id", "deadline", "future", "submitted_at", "attempts",
                  "history", "fault_plan", "report_dir", "recovered", "state",
-                 "idempotency_key", "gateway", "fleet", "trace_id", "tenant")
+                 "idempotency_key", "gateway", "fleet", "trace_id", "tenant", "footprint")
 
     def __init__(self, plan, plan_id, deadline, fault_plan, report_dir, recovered=False,
                  idempotency_key=None, gateway=None, fleet=None, trace_id=None):
@@ -160,6 +165,8 @@ class _PlanTicket:
         self.trace_id = trace_id
         #: the admission queue's per-tenant quota does not apply to plans
         self.tenant = None
+        #: ``plan.device_footprint()``, computed at the first placement try
+        self.footprint = None
 
     def batch_key(self):
         return self.plan_id  # plans never coalesce
@@ -250,8 +257,6 @@ class PlanExecutor:
     ):
         if max_concurrent < 1:
             raise ValueError(f"max_concurrent must be >= 1, got {max_concurrent}")
-        if os.environ.get(ENV_DEVICE_POOL):
-            raise _placement_refused(f"{ENV_DEVICE_POOL}={os.environ[ENV_DEVICE_POOL]!r}")
         #: every plan runs on this device (None: cuda, raising without a card)
         self.device = resolve_device(device)
         self.max_concurrent = int(max_concurrent)
@@ -262,6 +267,19 @@ class PlanExecutor:
         #: before its write-ahead record lands and released when its
         #: terminal record lands. None: no leases
         self.leases: Optional[lease_mod.LeaseDir] = None
+        #: the fleet's shared device pool (``scheduler/placement.DevicePool``,
+        #: attached by ``gateway/fleet.py`` when ``EEG_TPU_DEVICE_POOL`` turns
+        #: placement on); None: unplaced execution
+        self.placement = None
+        #: the fleet's pod-assist runner (``gateway/fleet.PodAssist``); None:
+        #: pod plans run in-process through the builder's own bootstrap
+        self.pod_assist = None
+        #: seconds a worker pauses after parking an unplaceable plan back on
+        #: the queue
+        self.placement_backoff_s = 0.02
+        #: set by :meth:`drain_queued`: a worker holding a placement-waiting
+        #: ticket hands it back instead of requeueing it
+        self._drain_requested = False
         self.report_root = report_root
         self.max_attempts = int(max_attempts)
         self.retry_backoff_s = float(retry_backoff_s)
@@ -280,30 +298,6 @@ class PlanExecutor:
         self._tickets: Dict[str, Any] = {}
         #: idempotency key -> plan id, seeded from the journal
         self._idempotency: Dict[str, str] = self._seed_idempotency()
-
-    # placement and the pod assist are the fleet's (not ported): attaching
-    # either raises rather than be ignored
-
-    @property
-    def placement(self):
-        return None
-
-    @placement.setter
-    def placement(self, value) -> None:
-        if value is not None:
-            raise _placement_refused("a placement pool")
-
-    @property
-    def pod_assist(self):
-        return None
-
-    @pod_assist.setter
-    def pod_assist(self, value) -> None:
-        if value is not None:
-            raise ValueError(
-                "the fleet's pod assist (gateway/fleet.py) is not ported (ROADMAP A9.5); "
-                "pod plans run in-process through the builder's bootstrap"
-            )
 
     def _seed_id(self) -> int:
         if self.journal is None:
@@ -644,6 +638,17 @@ class PlanExecutor:
             self._tickets.pop(plan_id, None)
         return True
 
+    def handle(self, plan_id: str) -> Optional[PlanHandle]:
+        """The handle for a live (this-process) plan id, or None."""
+        ticket = self._tickets.get(plan_id)
+        return None if ticket is None else PlanHandle(ticket)
+
+    def live_ids(self) -> List[str]:
+        """Plan ids with a live ticket: queued, running, or terminal with a
+        journal write that degraded (the ones the journal does not know
+        yet)."""
+        return list(self._tickets)
+
     # -- crash-only recovery
 
     def recover(self) -> Dict[str, Any]:
@@ -724,6 +729,9 @@ class PlanExecutor:
         record stays ``submitted``, its lease is released so a peer claims
         it at once, its handle fails with ``ServiceClosedError``. Running
         plans are untouched. Returns the released plan ids."""
+        # a placement-waiting ticket a worker holds is invisible to the
+        # queue.remove pass below: the flag makes the worker hand it back
+        self._drain_requested = True
         with self._submit_lock:
             queued = [t for t in self._tickets.values()
                       if isinstance(t, _PlanTicket) and t.state == "queued"]
@@ -748,13 +756,84 @@ class PlanExecutor:
     def _worker(self) -> None:
         while not self._stop.is_set():
             batch = self.queue.collect(max_batch=1, wait_s=0.05, coalesce_s=0.0)
-            if batch:
-                self._execute_ticket(batch[0])
+            if not batch:
+                continue
+            ticket = batch[0]
+            grant = None
+            if (self.placement is not None and isinstance(ticket, _PlanTicket)
+                    and ticket.state == "queued"):
+                placed = self._try_place(ticket)
+                if placed is _PLACEMENT_WAIT:
+                    if self._drain_requested:
+                        self._drain_waiting_ticket(ticket)
+                        continue
+                    if ticket.deadline is not None and ticket.deadline.expired:
+                        # fail on time, with the deadline's own evidence
+                        self._execute_ticket(ticket)
+                        continue
+                    # back to the tail: smaller plans backfill past this
+                    # footprint (the record stays submitted, the lease held)
+                    self.queue.readmit(ticket)
+                    self._stop.wait(self.placement_backoff_s)
+                    continue
+                grant = placed
+            try:
+                self._execute_ticket(ticket, grant=grant)
+            finally:
+                if grant is not None:
+                    grant.release()
 
-    def _execute_ticket(self, ticket: _PlanTicket) -> None:
+    def _try_place(self, ticket: _PlanTicket):
+        """One placement attempt: a ``DeviceGrant``, None (run unplaced:
+        exempt, larger than the pool, or the attempt raised, counted in
+        ``placement.errors``) or :data:`_PLACEMENT_WAIT` (requeue)."""
+        from . import placement as placement_mod
+
+        try:
+            if ticket.footprint is None:
+                ticket.footprint = ticket.plan.device_footprint()
+            placed = self.placement.admit(ticket.plan_id, ticket.footprint)
+        except Exception as e:
+            obs.metrics.count("placement.errors")
+            logger.warning("placement failed for %s (%s: %s); running unplaced",
+                           ticket.plan_id, type(e).__name__, e)
+            return None
+        if placed is placement_mod.UNPLACED:
+            return None
+        if placed is None:
+            return _PLACEMENT_WAIT
+        return placed
+
+    def _drain_waiting_ticket(self, ticket: _PlanTicket) -> None:
+        """:meth:`drain_queued`'s hand-back for a placement-waiting ticket a
+        worker holds: the record stays ``submitted``, the lease is released
+        for a peer, the handle fails."""
+        ticket.state = "failed"
+        with self._submit_lock:
+            self._tickets.pop(ticket.plan_id, None)
+        if self.placement is not None:
+            self.placement.clear_waiting(ticket.plan_id)
+        self._release_lease(ticket.plan_id)
+        obs.metrics.count("scheduler.drain_released")
+        events.event("scheduler.drain_released", plan=ticket.plan_id)
+        ticket.future.fail(ServiceClosedError(
+            f"plan {ticket.plan_id} released for peer takeover during drain; its "
+            f"journal record stays 'submitted'"))
+
+    def _execute_ticket(self, ticket: _PlanTicket, grant=None) -> None:
         from ..pipeline.builder import PipelineBuilder
 
         ticket.state = "running"
+        if grant is not None:
+            # the granted ordinals ride the fleet attribution into the run
+            # report and the journal
+            ticket.fleet = dict(ticket.fleet or {})
+            ticket.fleet["devices"] = list(grant.ordinals)
+        # a fleet-won processes=N plan (no process_id: a pod, not a member)
+        # runs through the pod assist; its None runs the plan inline
+        pod = ticket.plan.pod
+        assist = (self.pod_assist if self.pod_assist is not None and pod is not None
+                  and (pod.processes or 0) > 1 and pod.process_id is None else None)
         while True:
             if ticket.deadline is not None and ticket.deadline.expired:
                 waited = time.monotonic() - ticket.submitted_at
@@ -775,13 +854,17 @@ class PlanExecutor:
             extra = {"fleet": ticket.fleet} if ticket.fleet else {}
             if ticket.trace_id:
                 extra["trace_id"] = ticket.trace_id
+            if grant is not None:
+                extra["placement"] = grant.ordinals
             try:
                 builder = PipelineBuilder(ticket.plan.query, device=self.device)
                 with deadline_mod.deadline_scope(ticket.deadline):
-                    statistics = runtime.execute_plan(
-                        ticket.plan, builder, plan_id=ticket.plan_id,
-                        fault_plan=ticket.fault_plan, default_report_dir=ticket.report_dir,
-                        gateway=ticket.gateway, **extra)
+                    statistics = assist.run(ticket) if assist is not None else None
+                    if statistics is None:
+                        statistics = runtime.execute_plan(
+                            ticket.plan, builder, plan_id=ticket.plan_id,
+                            fault_plan=ticket.fault_plan, default_report_dir=ticket.report_dir,
+                            gateway=ticket.gateway, **extra)
             except Exception as e:
                 ticket.attempts += 1
                 ticket.history.append(f"attempt {ticket.attempts}: {type(e).__name__}: {e}")

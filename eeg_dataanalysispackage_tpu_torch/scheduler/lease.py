@@ -28,9 +28,11 @@ fresh mtime means a live owner even where its pid cannot be seen).
 The same files serialize an idempotency key's registration across
 executors (``key-<hash>.lease``, :func:`key_claim_id`); ``device:<n>``
 claims (``device-<n>.lease``) and ``assist:<plan>:<k>`` claims
-(``assist-<plan>-<k>.lease``) are written as the JAX package writes them;
-their consumers, device placement and the fleet's pod assist, are not
-ported.
+(``assist-<plan>-<k>.lease``) are written as the JAX package writes them,
+for device placement (``scheduler/placement.py``) and the fleet's pod
+assist (``gateway/fleet.py``). A fleet replica registers its lease
+directory with :func:`set_active`, so a crash report can name the leases
+the process held (:func:`active_held`).
 
 Chaos points: ``fleet.lease`` fires inside one claim attempt and
 ``fleet.heartbeat`` inside one heartbeat, both raised as ``OSError`` so
@@ -46,7 +48,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
@@ -90,6 +92,28 @@ def reset_stats() -> None:
     with _lock:
         for name in _COUNTERS:
             _stats[name] = 0
+
+
+#: the replica's live LeaseDir (a weak reference), registered by
+#: gateway/fleet.py so the crash report (obs/report.py) can name the
+#: leases the process held when a plan died
+_active_dir = None
+
+
+def set_active(lease_dir: "LeaseDir") -> None:
+    import weakref
+
+    global _active_dir
+    _active_dir = weakref.ref(lease_dir)
+
+
+def active_held() -> List[str]:
+    """Names of the leases the registered LeaseDir holds right now; []
+    when no fleet replica runs in this process."""
+    ld = _active_dir() if _active_dir is not None else None
+    if ld is None:
+        return []
+    return sorted(lease.plan_id for lease in ld.held_leases())
 
 
 def _count(name: str) -> None:
@@ -380,10 +404,41 @@ class LeaseDir:
             lease = self._held.get(plan_id)
         return None if lease is None or lease.released else lease
 
+    def held_leases(self) -> List[PlanLease]:
+        with self._held_lock:
+            return [lease for lease in self._held.values() if not lease.released]
+
+    def held_plan_leases(self) -> List[PlanLease]:
+        """Held plan leases only (device, assist and key claims left out):
+        the plans this holder is executing."""
+        return [lease for lease in self.held_leases() if ":" not in lease.plan_id]
+
+    def held_device_ordinals(self) -> List[int]:
+        """The device-pool ordinals this holder holds right now."""
+        out = []
+        for lease in self.held_leases():
+            if lease.plan_id.startswith("device:"):
+                try:
+                    out.append(int(lease.plan_id[len("device:"):]))
+                except ValueError:
+                    continue
+        return sorted(out)
+
+    def heartbeat_all(self) -> int:
+        """One beat across every held lease; returns the beats that landed."""
+        return sum(1 for lease in self.held_leases() if lease.heartbeat())
+
     def release(self, plan_id: str) -> None:
         with self._held_lock:
             lease = self._held.pop(plan_id, None)
         if lease is not None:
+            lease.release()
+
+    def release_all(self) -> None:
+        with self._held_lock:
+            leases = list(self._held.values())
+            self._held.clear()
+        for lease in leases:
             lease.release()
 
     def holder_info(self, plan_id: str) -> Optional[Dict[str, Any]]:
@@ -402,3 +457,17 @@ class LeaseDir:
         dead = _holder_dead(pid, token)
         return {"plan_id": plan_id, "holder": holder, "pid": pid, "age_s": age_s,
                 "pid_dead": dead, "stale": age_s > lease_timeout() and dead}
+
+    def scan(self) -> List[Dict[str, Any]]:
+        """:meth:`holder_info` of every plan lease in the directory."""
+        try:
+            names = sorted(os.listdir(self.directory))
+        except OSError:
+            return []
+        out = []
+        for name in names:
+            if name.startswith("plan-") and name.endswith(".lease"):
+                info = self.holder_info(name[len("plan-"):-len(".lease")])
+                if info is not None:
+                    out.append(info)
+        return out

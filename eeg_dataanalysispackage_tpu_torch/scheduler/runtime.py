@@ -25,10 +25,12 @@ code path serves both. Around ``PipelineBuilder._execute(plan)`` it
   ``gateway``, ``fleet`` and ``trace_id`` attribution the caller passed. A
   report write failure is logged and never fails the run it observed.
 
-The JAX package's persistent compile cache has no counterpart (the CUDA
-kernels are built by ``nvcc`` outside any run), and a ``placement`` grant
-raises: device placement (ROADMAP A9.4) is not ported, and a plan never
-runs unplaced without telling its caller.
+``placement`` (the device pool's leased ordinals, ``scheduler/placement.py``)
+sets ``builder.placement_devices``: a meshed plan's mesh is built from
+exactly those ordinals, and a single-device plan's one ordinal is a capacity
+token (it runs on the builder's device, as in the JAX package). The JAX
+package's persistent compile cache has no counterpart (the CUDA kernels are
+built by ``nvcc`` outside any run).
 """
 
 from __future__ import annotations
@@ -69,16 +71,12 @@ def execute_plan(
     """Run ``plan`` through ``builder`` inside a fresh fault domain; returns
     its statistics and leaves ``builder.telemetry``, ``builder.run_metrics``
     and ``builder.stage_timer`` set for the run."""
-    if placement is not None:
-        raise ValueError(
-            "placement= grants leased device ordinals (scheduler/placement.py), "
-            "which the port does not have yet (ROADMAP A9.4); the plan was not run"
-        )
     query_map = plan.query_map
     logger.info("query: %s", query_map)
     if fault_plan is _RESOLVE:
         fault_plan = resolve_fault_plan(plan)
     builder.telemetry = None
+    builder.placement_devices = tuple(placement) if placement else None
     builder.stage_timer = obs.StageTimer()
     report_dir = run_report.resolve_report_dir(query_map)
     if report_dir is not None and plan_id is not None and not query_map.get("report", ""):
@@ -137,6 +135,7 @@ def _note_blocks(builder, telemetry) -> None:
     telemetry.precision = builder.precision_resolved
     telemetry.overlap = builder.overlap_resolved
     telemetry.mesh = builder.mesh_resolved
+    telemetry.dedup = builder.dedup_resolved
     telemetry.population = builder.population_block
     telemetry.workload = builder.workload_block
     serve = builder.serve_block

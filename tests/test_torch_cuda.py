@@ -2745,7 +2745,8 @@ def test_streaming_on_the_card_follows_the_cpu():
 def test_two_concurrent_fused_plans_on_the_card_equal_solo(tmp_path):
     """Two fused plans through ``PlanExecutor(max_concurrent=2)`` on the
     card, at once: each one's statistics byte-equal to its solo run on the
-    card, and K1 launched once a recording a plan."""
+    card, and K1 launched once a recording a plan (``dedup=false``: each
+    plan runs its own ingest)."""
     from eeg_dataanalysispackage_tpu_torch.scheduler import PlanExecutor
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2755,7 +2756,7 @@ def test_two_concurrent_fused_plans_on_the_card_equal_solo(tmp_path):
     info = _synthetic.write_session(str(tmp_path), n_markers=200)
     n_files = sum(1 for line in open(info) if line.strip())
     queries = [f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&config_step_size={s}"
-               "&config_num_iterations=40&config_mini_batch_fraction=1.0"
+               "&config_num_iterations=40&config_mini_batch_fraction=1.0&dedup=false"
                for s in ("1.0", "0.5")]
     solo = [str(PipelineBuilder(q).execute()) for q in queries]
     before = ingest_cuda.LAUNCHES
@@ -2765,6 +2766,36 @@ def test_two_concurrent_fused_plans_on_the_card_equal_solo(tmp_path):
     assert ingest_cuda.LAUNCHES - before == 2 * n_files
     assert [str(r.statistics) for r in results] == solo
     assert all(r.builder.device.type == "cuda" and r.attempts == 1 for r in results)
+
+
+@pytest.mark.cuda
+def test_a_dedup_pair_on_the_card_launches_k1_once(tmp_path):
+    """A logreg and an svm plan over one session through the executor on
+    the card: K1 runs once a recording for the pair, the follower fits on
+    the leader's card tensor, both statistics byte-equal to solo."""
+    from eeg_dataanalysispackage_tpu_torch.scheduler import PlanExecutor, dedup
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _synthetic
+
+    _card()
+    info = _synthetic.write_session(str(tmp_path), n_markers=200)
+    n_files = sum(1 for line in open(info) if line.strip())
+    base = (f"info_file={info}&fe=dwt-8-fused&config_num_iterations=40"
+            "&config_mini_batch_fraction=1.0&config_step_size=1.0&cache=false")
+    queries = [base + "&train_clf=logreg", base + "&train_clf=svm&config_reg_param=0.1"]
+    solo = [str(PipelineBuilder(q + "&dedup=false").execute()) for q in queries]
+    dedup.reset()
+    before = ingest_cuda.LAUNCHES
+    with PlanExecutor(max_concurrent=2) as ex:
+        results = [h.result(timeout=300) for h in [ex.submit(q) for q in queries]]
+    assert ingest_cuda.LAUNCHES - before == n_files
+    assert [str(r.statistics) for r in results] == solo
+    roles = sorted(r.builder.dedup_resolved["role"] for r in results)
+    assert roles == ["follower", "leader"]
+    assert results[0].builder.features is results[1].builder.features
+    assert results[0].builder.features.device.type == "cuda"
+    dedup.reset()
 
 
 @pytest.mark.cuda

@@ -22,8 +22,8 @@
   completed plan's record stays byte-untouched;
 - the feature cache's single flight across plans, the circuit breaker's
   evidence naming the opening plan, per-plan report directories, the
-  metrics routed domain-first, and the refusals: no card, placement, the
-  pod assist.
+  metrics routed domain-first, the no-card refusal, and a device pool and
+  pod assist attaching.
 """
 
 import json
@@ -48,6 +48,7 @@ from eeg_dataanalysispackage_tpu_torch.scheduler import (
     PlanJournal,
     PlanShedError,
 )
+from eeg_dataanalysispackage_tpu_torch.scheduler import dedup as dedup_mod
 from eeg_dataanalysispackage_tpu_torch.scheduler import executor as executor_mod
 from eeg_dataanalysispackage_tpu_torch.scheduler import runtime as runtime_mod
 from eeg_dataanalysispackage_tpu_torch.serve.batcher import ServiceClosedError
@@ -66,7 +67,9 @@ def PlanExecutor(**kwargs):
 def _clean_ambient():
     assert chaos.active_plan() is None
     assert run_domain.current() is None
+    dedup_mod.reset()
     yield
+    dedup_mod.reset()
     chaos.uninstall()
     assert run_domain.current() is None
 
@@ -301,10 +304,16 @@ def test_concurrent_fault_domains_are_isolated(session, solo, tmp_path):
     plan: the clean plan's statistics, per-plan counters and run report
     equal its solo run's."""
     clean_q = _fused(session)
-    faulted_q = clean_q + "&faults=ingest.fused:once@1"
-    mesh_q = _fused(session, "&devices=2")
+    # dedup=false, as the JAX package's pin has it: the faulted plan's own
+    # ingest must fire its fault, and the meshed plan must run its own
+    # sharded ingest (as followers of the clean plan's prefix they would
+    # read neither; tests/test_torch_dedup.py pins that interplay)
+    faulted_q = clean_q + "&faults=ingest.fused:once@1&dedup=false"
+    mesh_q = _fused(session, "&devices=2&dedup=false")
     with PlanExecutor(max_concurrent=3, report_root=str(tmp_path / "solo")) as ex:
         alone = ex.submit(clean_q).result(timeout=300)
+    # the solo run's published prefix would make the clean plan a follower
+    dedup_mod.reset()
     with PlanExecutor(max_concurrent=3, max_attempts=1,
                       report_root=str(tmp_path / "multi")) as ex:
         h_clean, h_fault, h_mesh = (ex.submit(q) for q in (clean_q, faulted_q, mesh_q))
@@ -446,7 +455,9 @@ def test_run_backpressures_past_queue_depth(session, solo):
 def test_concurrent_plans_single_flight_feature_cache(session, tmp_path, monkeypatch):
     monkeypatch.delenv("EEG_TPU_NO_FEATURE_CACHE", raising=False)
     monkeypatch.setenv("EEG_TPU_FEATURE_CACHE_DIR", str(tmp_path / "fc"))
-    q = _fused(session)
+    # dedup=false, as the JAX package's pin has it: prefix dedup sits above
+    # the feature cache, and this pin is about the cache's single flight
+    q = _fused(session, "&dedup=false")
     before = obs.metrics.snapshot()["counters"]
     with PlanExecutor(max_concurrent=2) as ex:
         h1, h2 = ex.submit(q), ex.submit(q)
@@ -521,27 +532,29 @@ def test_report_echoes_the_submission_attribution(session, tmp_path):
 # -- no fallback
 
 
-def test_no_card_no_placement_no_pod_assist(session, monkeypatch):
+def test_no_card_no_placement_no_pod_assist(session, tmp_path, monkeypatch):
+    """No card: an executor built with device=None raises. A device pool and
+    a pod assist attach to an executor (EEG_TPU_DEVICE_POOL no longer
+    refuses), and execute_plan(placement=(0,)) runs the plan on its grant."""
     import torch
+
+    from eeg_dataanalysispackage_tpu_torch.pipeline.plan import ExecutionPlan
+    from eeg_dataanalysispackage_tpu_torch.scheduler import lease as lease_mod
+    from eeg_dataanalysispackage_tpu_torch.scheduler import placement
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _PlanExecutor()
     monkeypatch.setenv("EEG_TPU_DEVICE_POOL", "4")
-    with pytest.raises(ValueError, match="A9.4"):
-        PlanExecutor()
-    monkeypatch.delenv("EEG_TPU_DEVICE_POOL")
     ex = PlanExecutor()
-    with pytest.raises(ValueError, match="A9.4"):
-        ex.placement = object()
-    with pytest.raises(ValueError, match="A9.5"):
-        ex.pod_assist = object()
-    ex.placement = ex.pod_assist = None
-    from eeg_dataanalysispackage_tpu_torch.pipeline.plan import ExecutionPlan
-
-    with pytest.raises(ValueError, match="A9.4"):
-        runtime_mod.execute_plan(ExecutionPlan.parse(_q(session)),
-                                 PipelineBuilder(_q(session), device="cpu"), placement=(0,))
+    pool = placement.DevicePool(lease_mod.LeaseDir(str(tmp_path), holder="gw-a"), size=1)
+    assist = object()
+    ex.placement, ex.pod_assist = pool, assist
+    assert ex.placement is pool and ex.pod_assist is assist
+    builder = PipelineBuilder(_q(session), device="cpu")
+    stats = runtime_mod.execute_plan(ExecutionPlan.parse(_q(session)), builder, placement=(0,))
+    assert builder.placement_devices == (0,)
+    assert str(stats) == str(PipelineBuilder(_q(session), device="cpu").execute())
 
 
 def test_jax_session_runs_match_for_reference(session, jax_results):
