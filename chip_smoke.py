@@ -315,6 +315,20 @@ Phases, one JSON line each (several for phases 2 to 6):
    K1's rows is SIGKILLed, the other completes the plan under its id by
    takeover with the solo run's statistics, then exits 0 on SIGTERM
    (``service_fleet``); every wall beside the card's name and power limit;
+   the replicas run with ``EEG_TPU_TRACE_DIR`` and ``--report-root`` set
+   and the plan carries ``X-Trace-Id``, for phase 4m;
+4m. the operator plane: before the survivor's drain, the killed and the
+   surviving replica's trace segments carry the plan's trace id, the
+   survivor's ``run_report.json`` names its segment (``trace.segment``
+   ``gw-b``), and a fresh interpreter running the port's ``plan_admin
+   trace/list/fleet`` and ``fleet_top --snapshot --journal`` over the
+   survivor and the killed replica's URL prints one tree with the takeover
+   seam, renders the dead URL DOWN and holds no JAX module
+   (``operator_trace``, ``operator_tools``); then ``chaos_run --device
+   cuda`` exits 0 on ``device.step:once@2`` under ``elastic=true`` with K1
+   16 (``operator_chaos``), ``obs.save_memory_profile`` writes the
+   allocator's snapshot (``operator_memory``), and the trace sink's cost a
+   span is timed in this process (``operator_sink_cost``);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -4362,14 +4376,32 @@ def await_plan(url, plan_id, states=("completed", "failed", "cancelled"), timeou
         time.sleep(0.02)
 
 
-def spawn_replica(replica_id, journal_dir, device):
+def await_segment_header(path, timeout_s=60):
+    """Until a replica's trace segment holds its whole header line (a kill
+    before that leaves the holder no segment)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            with open(path) as f:
+                if f.readline().endswith("\n"):
+                    return
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no segment header in {path}")
+        time.sleep(0.01)
+
+
+def spawn_replica(replica_id, journal_dir, device, trace_dir=None, report_root=None):
+    env = dict(os.environ, EEG_TPU_LEASE_TIMEOUT_S="1", EEG_TPU_FLEET_SCAN_INTERVAL_S="0.1")
+    if trace_dir:
+        env["EEG_TPU_TRACE_DIR"] = trace_dir
     proc = subprocess.Popen(
         [sys.executable, "-m", "eeg_dataanalysispackage_tpu_torch.gateway", "--port", "0",
          "--journal-dir", journal_dir, "--max-concurrent", "1", "--drain-timeout-s", "300",
-         "--fleet", "--replica-id", replica_id, f"--device={device}"],
-        cwd=REPO, env=dict(os.environ, EEG_TPU_LEASE_TIMEOUT_S="1",
-                           EEG_TPU_FLEET_SCAN_INTERVAL_S="0.1"),
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+         "--fleet", "--replica-id", replica_id, f"--device={device}"]
+        + (["--report-root", report_root] if report_root else []),
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     line = proc.stdout.readline()
     if "listening on " not in line:
         proc.kill()
@@ -4377,9 +4409,13 @@ def spawn_replica(replica_id, journal_dir, device):
     return proc, line.split("listening on ", 1)[1].split()[0]
 
 
-def phase_plan_service(torch, np, info, model, counters, work, smi, device="cuda"):
+def phase_plan_service(torch, np, info, model, counters, work, smi, device="cuda",
+                       operator=None):
     """Phase 4l (see the module docstring). Returns the K1 launches of the
-    phase's plans in this process and K6's over its /predict requests."""
+    phase's plans in this process and K6's over its /predict requests.
+    With ``operator`` (a dict), the fleet runs with the trace plane on and
+    phase 4m's checks of the live fleet run before the survivor's drain,
+    their record and seconds stored in ``operator``."""
     import hashlib
 
     from eeg_dataanalysispackage_tpu_torch import obs
@@ -4539,20 +4575,31 @@ def phase_plan_service(torch, np, info, model, counters, work, smi, device="cuda
                                       run_device, counters)
     heavy_solo, k1 = str(stats), k1 + launches["ingest_features"]
     jdir = os.path.join(work, "service_fleet")
+    trace_dir = os.path.join(work, "service_traces") if operator is not None else None
+    report_root = os.path.join(work, "service_fleet_reports") if operator is not None else None
     procs = []
     t0 = time.perf_counter()
     try:
-        procs = [spawn_replica(rid, jdir, device) for rid in ("gw-a", "gw-b")]
+        procs = [spawn_replica(rid, jdir, device, trace_dir, report_root)
+                 for rid in ("gw-a", "gw-b")]
         (proc_a, url_a), (proc_b, url_b) = procs
         walls["fleet_start"] = time.perf_counter() - t0
-        code, sub = http(f"{url_a}/plans", heavy, "POST", {"X-Idempotency-Key": "fleet"})
+        code, sub = http(f"{url_a}/plans", heavy, "POST",
+                         {"X-Idempotency-Key": "fleet", "X-Trace-Id": FLEET_TRACE_ID})
         running = await_plan(url_a, sub["plan_id"], ("running", "completed", "failed"))
+        if operator is not None:
+            await_segment_header(os.path.join(trace_dir, "trace-gw-a.jsonl"))
         proc_a.kill()
         killed_rc = proc_a.wait(timeout=60)
         t1 = time.perf_counter()
         final = await_plan(url_b, sub["plan_id"])
         walls["takeover"] = time.perf_counter() - t1
         entry = PlanJournal(jdir).entry(sub["plan_id"])
+        if operator is not None and final == "completed":
+            t1 = time.perf_counter()
+            operator.update(check_operator_tools(jdir, trace_dir, report_root, sub["plan_id"],
+                                                 url_b, url_a, smi))
+            operator["seconds_live"] = time.perf_counter() - t1
         proc_b.send_signal(signal.SIGTERM)
         drain_rc = proc_b.wait(timeout=120)
     finally:
@@ -4574,6 +4621,151 @@ def phase_plan_service(torch, np, info, model, counters, work, smi, device="cuda
     emit("service_phase", seconds=time.perf_counter() - t_phase, k1_launches=k1,
          k6_launches=k6, nvidia_smi=smi)
     return k1, k6
+
+
+# phase 4m: the fleet plan's trace id, and the port's operator tools run
+# in a fresh interpreter over the live fleet (the survivor and the killed
+# replica's URL), which must hold no JAX module
+FLEET_TRACE_ID = "smoke-fleet"
+OPERATOR_PROBE = """
+import contextlib, io, json, sys
+from eeg_dataanalysispackage_tpu_torch.tools import fleet_top, plan_admin
+journal, traces, plan, live, dead = sys.argv[1:6]
+out = {}
+for name, fn, argv in (
+        ("trace", plan_admin.main, ["trace", plan, "--journal", journal, "--trace-dir", traces]),
+        ("list", plan_admin.main, ["list", "--journal", journal]),
+        ("fleet", plan_admin.main, ["fleet", "--journal", journal]),
+        ("fleet_top", fleet_top.main, ["--snapshot", "--journal", journal, live, dead])):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    out[name] = {"rc": rc, "stdout": buf.getvalue()}
+out["leaked"] = sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("jax", "flax", "optax", "eeg_dataanalysispackage_tpu"))
+print(json.dumps(out))
+"""
+
+
+def check_operator_tools(jdir, trace_dir, report_root, plan_id, url_live, url_dead, smi):
+    """Phase 4m over the live fleet, after the takeover and before the
+    survivor's drain: the two segments, the survivor's report, and the
+    operator tools in a fresh interpreter."""
+    headers, spans = {}, {}
+    for name in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, name)) as f:
+            lines = [json.loads(line) for line in f.read().splitlines() if line.strip()]
+        headers[name] = [(line["trace_id"], line["attrs"].get("takeover")) for line in lines
+                         if line["kind"] == "segment"]
+        spans[name] = sum(1 for line in lines if line["kind"] == "span"
+                          and line["trace_id"] == FLEET_TRACE_ID)
+    with open(os.path.join(report_root, plan_id, "run_report.json")) as f:
+        report_trace = json.load(f)["trace"]
+    emit("operator_trace", segments=sorted(headers), headers=headers, spans=spans,
+         report_trace=report_trace, nvidia_smi=smi)
+    if (headers != {"trace-gw-a.jsonl": [(FLEET_TRACE_ID, False)],
+                    "trace-gw-b.jsonl": [(FLEET_TRACE_ID, True)]}
+            or report_trace != {"trace_id": FLEET_TRACE_ID, "segment": "gw-b"}
+            or not spans["trace-gw-b.jsonl"]):
+        raise AssertionError("the killed and surviving segments do not carry the plan's trace")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", OPERATOR_PROBE, jdir, trace_dir, plan_id,
+                           url_live, url_dead], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the operator tools failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.splitlines()[-1])
+    trace_text = out["trace"]["stdout"]
+    snap = json.loads(out["fleet_top"]["stdout"])
+    rows = [(r.get("replica"), "error" in r) for r in snap["replicas"]]
+    emit("operator_tools", rcs={k: v["rc"] for k, v in out.items() if k != "leaked"},
+         leaked=out["leaked"], trace=trace_text.splitlines(), fleet_top_rows=rows,
+         fleet_takeovers=snap["fleet"]["takeovers"], wall_s=wall, nvidia_smi=smi)
+    if ({k: v["rc"] for k, v in out.items() if k != "leaked"}
+            != {"trace": 0, "list": 0, "fleet": 0, "fleet_top": 1}
+            or out["leaked"] or "2 segment(s)" not in trace_text
+            or "segment gw-b  <-- TAKEOVER boundary: continued after gw-a died" not in trace_text
+            or trace_text.index("segment gw-a") > trace_text.index("segment gw-b")
+            or plan_id not in out["list"]["stdout"]
+            or rows != [("gw-b", False), (None, True)] or snap["fleet"]["takeovers"] != 1):
+        raise AssertionError("the operator tools did not show the fleet's takeover")
+    return {"spans": spans, "tools_wall_s": wall}
+
+
+def sink_cost_us(events, directory, n=500, repeats=3):
+    """Microseconds a span the trace sink adds (one appended line): the
+    same spans through a recorder joined to a trace and one that is not,
+    median of ``repeats`` pairs."""
+    costs = []
+    for r in range(repeats):
+        walls = []
+        for traced in (False, True):
+            rec = events.SpanRecorder(name="plan", max_spans=512)
+            if traced:
+                rec.set_trace("cost", trace_dir=directory, segment=f"cost-{r}")
+            t0 = time.perf_counter()
+            for i in range(n):
+                with rec.span("stage.cost", i=i):
+                    pass
+            walls.append(time.perf_counter() - t0)
+            rec.finish()
+        costs.append((walls[1] - walls[0]) / n * 1e6)
+    return pystats.median(costs), costs
+
+
+def phase_operator_plane(info, counters, work, smi, operator, device="cuda"):
+    """Phase 4m after the fleet (see the module docstring). Returns the K1
+    launches of ``chaos_run``'s two runs."""
+    import contextlib
+    import io
+    import pickle
+
+    from eeg_dataanalysispackage_tpu_torch import obs
+    from eeg_dataanalysispackage_tpu_torch.obs import events
+    from eeg_dataanalysispackage_tpu_torch.tools import chaos_run
+
+    t_phase = time.perf_counter()
+    if "spans" not in operator:
+        raise AssertionError("phase 4l's fleet did not run the operator checks")
+    # chaos_run on a fused query the elastic path absorbs
+    query = (f"info_file={info}&fe=dwt-8-fused&train_clf=logreg&elastic=true"
+             f"&checkpoint_path={os.path.join(work, 'chaos_ck')}")
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = chaos_run.main([query, "--faults", "device.step:once@2", "--device", device])
+    chaos_wall = time.perf_counter() - t0
+    k1 = counters["ingest_features"][0].LAUNCHES
+    text = buf.getvalue()
+    emit("operator_chaos", rc=rc, k1_launches=k1, parity="PARITY:" in text,
+         events=json.loads(text.split("== resilience events ==\n", 1)[1].split("\n\n")[0]),
+         wall_s=chaos_wall, nvidia_smi=smi)
+    if rc != 0 or k1 != 16 or "PARITY:" not in text:
+        raise AssertionError(f"chaos_run did not hold parity on the card: rc {rc}, K1 {k1}")
+    # the allocator's snapshot
+    path = os.path.join(work, "memory", "mem.pkl")
+    ok = obs.save_memory_profile(path)
+    size = os.path.getsize(path) if ok else 0
+    segments = []
+    if ok:
+        with open(path, "rb") as f:
+            segments = pickle.load(f)
+    emit("operator_memory", ok=ok, bytes=size, segments=len(segments),
+         reserved_bytes=sum(sg["total_size"] for sg in segments),
+         allocated_bytes=sum(sg["allocated_size"] for sg in segments), nvidia_smi=smi)
+    if device == "cuda" and (not ok or size == 0 or not segments):
+        raise AssertionError("save_memory_profile wrote no snapshot on the card")
+    # the trace sink's cost a span, and on the fleet plan's segment
+    per_span, runs = sink_cost_us(events, os.path.join(work, "sink_cost"))
+    spans = operator["spans"]["trace-gw-b.jsonl"]
+    emit("operator_sink_cost", us_per_span=per_span, runs_us=runs, fleet_plan_spans=spans,
+         fleet_plan_cost_ms=per_span * spans / 1e3, nvidia_smi=smi)
+    seconds = time.perf_counter() - t_phase + operator["seconds_live"]
+    emit("operator_phase", seconds=seconds, k1_launches=k1, nvidia_smi=smi)
+    return k1
 
 
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
@@ -5976,8 +6168,12 @@ def main() -> int:
         # 4k. the plan executor: concurrent, journaled, fault-isolated plans
         sched_k1 = phase_scheduler(torch, np, info, counters, work)
         # 4l. the plan service: prefix dedup, placement, the gateway, the fleet
+        # (traced, with 4m's checks of the live fleet)
+        operator = {}
         service_k1, service_k6 = phase_plan_service(torch, np, info, model, counters, work,
-                                                    smi)
+                                                    smi, operator=operator)
+        # 4m. the operator plane: the trace, the tools, chaos_run, the memory profile
+        operator_k1 = phase_operator_plane(info, counters, work, smi, operator)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -6090,11 +6286,11 @@ def main() -> int:
         # workload's -pallas runs), 4g (cache misses, the trace, MLlib), 4h
         # (the parse pool, overlap, the remote pool), 4i (meshes, the
         # raw-stream trainers), 4j (the ranks' own launches too), 4k (the
-        # executor's plans, and the killed child's before its kill) and 4l (the
-        # plan service's plans in this process)
+        # executor's plans, and the killed child's before its kill), 4l (the
+        # plan service's plans in this process) and 4m (chaos_run's two runs)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
-                     + mesh_k1 + pod_k1 + sched_k1 + service_k1,
+                     + mesh_k1 + pod_k1 + sched_k1 + service_k1 + operator_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),

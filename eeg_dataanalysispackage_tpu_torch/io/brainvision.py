@@ -69,6 +69,10 @@ class Header:
     binary_format: str  # INT_16 | IEEE_FLOAT_32
     channels: List[ChannelInfo]
 
+    @property
+    def sampling_rate_hz(self) -> float:
+        return 1e6 / self.sampling_interval_us
+
     def channel_index(self, name: str) -> Optional[int]:
         """0-based index of a channel by case-insensitive name."""
         lname = name.lower()
@@ -203,6 +207,12 @@ class Recording:
     @property
     def num_samples(self) -> int:
         return self._raw.shape[0]
+
+    def read_channel(self, index: int) -> np.ndarray:
+        """One whole channel (0-based) as float64, scaled by its resolution
+        in float32 as :meth:`read_channels` does."""
+        res = np.float32(self.header.channels[index].resolution)
+        return (self._raw[:, index].astype(np.float32) * res).astype(np.float64)
 
     def raw_int16(self, indices: Sequence[int], out: Optional[np.ndarray] = None) -> np.ndarray:
         """(len(indices), num_samples) UNSCALED int16 channel matrix.

@@ -41,6 +41,10 @@ class Deadline:
         self._clock = clock
         self._expiry = clock() + float(budget_s)
 
+    @classmethod
+    def after(cls, budget_s: float, clock=time.monotonic) -> "Deadline":
+        return cls(budget_s, clock=clock)
+
     def remaining(self) -> float:
         """Seconds left; never negative."""
         return max(0.0, self._expiry - self._clock())

@@ -388,6 +388,15 @@ class OfflineDataProvider:
         return feature_cache.run_key(prepared.digests, self._channel_names, self._pre,
                                      self._post, extractor_id)
 
+    def feature_cache_key(self, extractor: Tuple) -> str:
+        """This run's feature-matrix key: the ordered triplet digests, the
+        channel set, the epoch window and the ``extractor`` id tuple
+        (``io/feature_cache.run_key``)."""
+        from . import feature_cache
+
+        return feature_cache.run_key(self.content_digests(), self._channel_names, self._pre,
+                                     self._post, extractor)
+
     def content_digests(self) -> List[Tuple[str, int, str]]:
         """Ordered ``(rel_path, guessed, content digest)`` of every
         recording this run would load: the sha256 of the whole
@@ -748,6 +757,16 @@ class OfflineDataProvider:
             wavelet_index=wavelet_index, epoch_size=epoch_size, skip_samples=skip_samples,
             feature_size=feature_size, pre=self._pre, precision=precision,
         ))
+
+    def bf16_gate_check(
+        self,
+        recordings: Sequence[Tuple[str, int, brainvision.Recording]],
+        wavelet_index: int = 8,
+        max_rows: int = 64,
+    ) -> dict:
+        """:meth:`precision_gate_check` at ``bf16``."""
+        return self.precision_gate_check(recordings, wavelet_index=wavelet_index,
+                                         precision="bf16", max_rows=max_rows)
 
     def precision_gate_check(
         self,

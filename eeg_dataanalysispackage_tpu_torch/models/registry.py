@@ -28,6 +28,16 @@ _REGISTRY: Dict[str, Callable[[], base.Classifier]] = {
 NOT_PORTED: tuple = ()
 
 
+def register(name: str, factory: Callable[[], base.Classifier]) -> None:
+    """Add (or replace) a classifier factory under ``name``."""
+    _REGISTRY[name] = factory
+
+
+def names() -> list:
+    """The registered classifier names, sorted."""
+    return sorted(_REGISTRY)
+
+
 def create(name: str) -> base.Classifier:
     if name in NOT_PORTED:
         raise ValueError(f"classifier {name!r} is not yet ported; see ROADMAP.md")

@@ -365,3 +365,8 @@ def train_linear_elastic(
         probe_on_failure=probe_on_failure,
     )
     return torch.as_tensor(state["w"], device=dev).to(torch.float32)
+
+
+def predict_margin(features: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The linear margin ``features @ weights``."""
+    return features @ weights

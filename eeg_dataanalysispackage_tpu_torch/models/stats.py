@@ -56,6 +56,25 @@ class ClassificationStatistics:
         self.cost_fp = 1.0  # cost of one false positive
         self.cost_fn = 1.0  # cost of one false negative
 
+    def add(self, real_output: float, expected_output: float) -> None:
+        """One pattern, accumulated incrementally
+        (ClassificationStatistics.java:68-83)."""
+        self.mse += (expected_output - real_output) ** 2
+        e = _java_round(expected_output)
+        r = _java_round(real_output)
+        if e == 0:
+            if e == r:
+                self.true_negatives += 1
+            else:
+                self.false_positives += 1
+            self.class1_sum += real_output
+        elif e == 1:
+            if e == r:
+                self.true_positives += 1
+            else:
+                self.false_negatives += 1
+            self.class2_sum += real_output
+
     @classmethod
     def from_arrays(
         cls,

@@ -15,17 +15,24 @@ accumulates a run's stage seconds for its report. :func:`trace` wraps a
 region in a ``torch.profiler`` trace (host and CUDA activity, exported
 as a Chrome trace) and :func:`annotate` names a host region inside it:
 ``trace_path=<dir>`` runs the whole run under :func:`trace`.
+:func:`save_memory_profile` pickles the CUDA caching allocator's snapshot,
+and :func:`configure_logging` sets up console and daily-rolling file
+logging, the file named by ``LOGFILE_NAME`` (the reference's
+``-Dlogfile.name``, log4j.xml:23-31).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
+import logging.handlers
 import os
+import pickle
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 from . import domain as _domain
 
@@ -49,6 +56,19 @@ class StageTimer:
             self._mins[name] = min(self._mins.get(name, elapsed), elapsed)
             self._maxs[name] = max(self._maxs.get(name, elapsed), elapsed)
 
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        """Time the block as one ``name`` stage (recorded if it raises too)."""
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - start)
+
+    def total(self, name: str) -> float:
+        """A stage's seconds so far; 0.0 for a stage never recorded."""
+        return self._totals.get(name, 0.0)
+
     def as_dict(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
             return {
@@ -61,6 +81,17 @@ class StageTimer:
                 }
                 for name in self._totals
             }
+
+    def report(self) -> str:
+        """The stages as an aligned table, slowest first (ties by name)."""
+        rows = sorted(self.as_dict().items(), key=lambda kv: (-kv[1]["seconds"], kv[0]))
+        width = max((len(n) for n, _ in rows), default=5)
+        cwidth = max((len(str(v["count"])) for _, v in rows), default=1)
+        return "\n".join(
+            f"{name:<{width}}  {v['seconds']:9.4f}s  x{v['count']:<{cwidth}}  "
+            f"mean {v['mean_s']:9.4f}s  min {v['min_s']:9.4f}s  max {v['max_s']:9.4f}s"
+            for name, v in rows
+        )
 
 
 class Metrics:
@@ -170,3 +201,46 @@ def annotate(name: str) -> Iterator[None]:
 
     with torch.profiler.record_function(name):
         yield
+
+
+def save_memory_profile(path: str) -> bool:
+    """Write the CUDA caching allocator's snapshot
+    (``torch.cuda.memory_snapshot()``: a list of segment dicts with their
+    blocks, sizes and states) to ``path`` as a pickle; returns True. With
+    no CUDA allocator (no card) it logs and returns False, as the JAX
+    package's function does where its backend has no memory profiling:
+    best-effort observability, never a failure of the caller."""
+    import torch
+
+    log = logging.getLogger(__name__)
+    if not torch.cuda.is_available():
+        log.warning("device memory profile unavailable (%s): no CUDA device", path)
+        return False
+    try:
+        snapshot = torch.cuda.memory_snapshot()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(snapshot, f)
+        return True
+    except Exception as e:
+        log.warning("device memory profile unavailable (%s): %s", path, e)
+        return False
+
+
+def configure_logging(level: int = logging.INFO, logfile: Optional[str] = None) -> None:
+    """Console and, with ``logfile`` (default: the ``LOGFILE_NAME``
+    environment variable), daily-rolling file logging (seven files kept),
+    in the JAX package's format."""
+    handlers: list = [logging.StreamHandler()]
+    logfile = logfile or os.environ.get("LOGFILE_NAME")
+    if logfile:
+        os.makedirs(os.path.dirname(logfile) or ".", exist_ok=True)
+        handlers.append(logging.handlers.TimedRotatingFileHandler(
+            logfile, when="midnight", backupCount=7))
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s.%(msecs)03d %(levelname)s %(name)s - %(message)s",
+        datefmt="%H:%M:%S",
+        handlers=handlers,
+        force=True,
+    )

@@ -1,13 +1,15 @@
 """Structured span and event telemetry.
 
-Port of the JAX package's ``obs/events.py`` (its span recorder with the
-JSONL sink and the run-report summary, without the cross-replica trace
-sink, which belongs to its replica fleet): hierarchical spans with ids,
+Port of the JAX package's ``obs/events.py``: hierarchical spans with ids,
 parent ids, monotonic times and attributes, bounded retention, an
-optional JSONL file of every finished span and event (``report=``
-writes ``spans.jsonl`` beside ``run_report.json``), and a ring of recent
-*events* (``remote.retry``, ``circuit.opened``, ``chaos.fired`` …) that
-a crash report dumps. One
+optional JSONL file of every finished span and event (``report=`` writes
+``spans.jsonl`` beside ``run_report.json``), a ring of recent *events*
+(``remote.retry``, ``circuit.opened``, ``chaos.fired`` …) that a crash
+report dumps, and the cross-replica trace sink: a recorder joined to a
+distributed trace (:meth:`SpanRecorder.set_trace`) appends a ``segment``
+header and every finished span to ``<EEG_TPU_TRACE_DIR>/trace-<segment>.jsonl``,
+one file a replica, in the JAX package's line format, so one stitcher
+(``tools/plan_admin trace``) reads either package's segments. One
 process-wide recorder is installed for the scope of a run
 (:func:`recording`); the module-level :func:`span`, :func:`event` and
 :func:`set_attr` are a thread-local read and a ``None`` check when none
@@ -25,6 +27,8 @@ import collections
 import contextlib
 import itertools
 import json
+import os
+import re
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
@@ -39,13 +43,21 @@ DEFAULT_RING_CAPACITY = 512
 #: events attached per span before the span only counts them
 _MAX_EVENTS_PER_SPAN = 64
 
+#: the per-replica trace directory: with it set, a plan that carries a
+#: trace id appends its spans to ``<dir>/trace-<segment>.jsonl``, the
+#: durable trace a lease takeover continues under the same trace id
+ENV_TRACE_DIR = "EEG_TPU_TRACE_DIR"
+
+_SEGMENT_BAD = re.compile(r"[^a-zA-Z0-9._-]")
+
 
 class SpanRecorder:
     """Hierarchical span/event recorder for one run. Thread-safe.
 
     ``jsonl_path`` gets one JSON line per finished span and per event
     (``{"kind": "span"|"event", ...}``); a write failure drops the sink
-    and keeps the in-memory record."""
+    and keeps the in-memory record. :meth:`set_trace` joins the recorder
+    to a distributed trace and its append-mode segment file."""
 
     def __init__(
         self,
@@ -67,6 +79,13 @@ class SpanRecorder:
         self.dropped_spans = 0
         self._max_spans = int(max_spans)
         self._ring: collections.deque = collections.deque(maxlen=int(ring_capacity))
+        # the distributed trace (set_trace): span ids made unique across
+        # replicas by the segment prefix
+        self.trace_id: Optional[str] = None
+        self.trace_segment: Optional[str] = None
+        self._trace_path: Optional[str] = None
+        self._trace_file = None
+        self._trace_failed = False
         # the root span is open for the recorder's whole life and closed
         # by finish(); spans of threads with no open span parent onto it
         self.root: Dict[str, Any] = {
@@ -77,6 +96,63 @@ class SpanRecorder:
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
+
+    def set_trace(self, trace_id: str, trace_dir: Optional[str] = None,
+                  segment: Optional[str] = None, **attrs: Any) -> None:
+        """Join a distributed trace: every span carries ``trace_id`` and a
+        segment-prefixed span id, and with ``trace_dir`` goes to
+        ``trace-<segment>.jsonl`` there, opened in append mode (a
+        replica's plans share one file; a survivor's takeover segment
+        lands beside the dead holder's). ``segment`` defaults to
+        ``pid<pid>``. ``attrs`` (``plan_id``, ``takeover``) go on the root
+        span and on the file's ``segment`` header line, so a stitcher
+        finds the takeover seam even when the holder never closed its
+        root."""
+        self.trace_id = str(trace_id)
+        segment = segment or f"pid{os.getpid()}"
+        self.trace_segment = _SEGMENT_BAD.sub("_", str(segment))
+        self.root["attrs"].update(attrs)
+        if trace_dir:
+            self._trace_path = os.path.join(trace_dir, f"trace-{self.trace_segment}.jsonl")
+            self._trace_sink({
+                "kind": "segment", "trace_id": self.trace_id, "segment": self.trace_segment,
+                "root_span_id": self._span_id(self.root["id"]),
+                "wall_start": self.wall_start, "attrs": dict(self.root["attrs"]),
+            })
+
+    def _span_id(self, local_id: Optional[int]) -> Optional[str]:
+        return None if local_id is None else f"{self.trace_segment}:{local_id}"
+
+    def _trace_line(self, rec: Dict[str, Any]) -> Dict[str, Any]:
+        return {
+            "kind": "span", "trace_id": self.trace_id, "segment": self.trace_segment,
+            "span_id": self._span_id(rec["id"]), "parent_id": self._span_id(rec["parent"]),
+            "name": rec["name"], "wall_start": self.wall_start + rec["start"],
+            "wall_end": None if rec["end"] is None else self.wall_start + rec["end"],
+            "thread": rec["thread"], "attrs": rec["attrs"],
+        }
+
+    def _trace_sink(self, line: Dict[str, Any]) -> None:
+        if self._trace_path is None or self._trace_failed:
+            return
+        with self._lock:
+            if self._trace_failed:
+                return
+            try:
+                if self._trace_file is None:
+                    os.makedirs(os.path.dirname(self._trace_path) or ".", exist_ok=True)
+                    self._trace_file = open(self._trace_path, "a")
+                self._trace_file.write(json.dumps(line, sort_keys=True, default=str) + "\n")
+                self._trace_file.flush()
+                return
+            except OSError:
+                # a broken trace sink never fails the run it observes
+                self._trace_failed = True
+                self._trace_file = None
+        # counted once (the JAX package only drops the sink)
+        from . import metrics
+
+        metrics.count("trace.sink_failures")
 
     def _stack(self) -> List[Dict[str, Any]]:
         stack = getattr(self._local, "stack", None)
@@ -116,6 +192,8 @@ class SpanRecorder:
                 else:
                     self.dropped_spans += 1
             self._sink({"kind": "span", **_span_line(rec)})
+            if self.trace_id is not None:
+                self._trace_sink(self._trace_line(rec))
 
     def event(self, name: str, **attrs: Any) -> None:
         """Point-in-time mark on the current span; retained in the ring."""
@@ -133,19 +211,24 @@ class SpanRecorder:
         self.current_span()["attrs"][name] = value
 
     def finish(self) -> None:
-        """Close the root span and the JSONL sink (a straggler thread
-        finishing a span later does not reopen it)."""
+        """Close the root span, the JSONL sink (a straggler thread
+        finishing a span later does not reopen it) and the trace
+        segment file."""
         if self.root["end"] is None:
             self.root["end"] = self._now()
             self._sink({"kind": "span", **_span_line(self.root)})
+            if self.trace_id is not None:
+                self._trace_sink(self._trace_line(self.root))
         with self._lock:
             self._jsonl_closed = True
-            if self._jsonl_file is not None:
-                try:
-                    self._jsonl_file.close()
-                except OSError:
-                    pass
-                self._jsonl_file = None
+            for attr in ("_jsonl_file", "_trace_file"):
+                f = getattr(self, attr)
+                if f is not None:
+                    try:
+                        f.close()
+                    except OSError:
+                        pass
+                    setattr(self, attr, None)
 
     def spans(self) -> List[Dict[str, Any]]:
         with self._lock:
@@ -226,6 +309,18 @@ def active_recorder() -> Optional[SpanRecorder]:
     if d is not None and d.recorder is not None:
         return d.recorder
     return _RECORDER
+
+
+def install(recorder: SpanRecorder) -> SpanRecorder:
+    """Install ``recorder`` process-wide until :func:`uninstall`."""
+    global _RECORDER
+    _RECORDER = recorder
+    return recorder
+
+
+def uninstall() -> None:
+    global _RECORDER
+    _RECORDER = None
 
 
 @contextlib.contextmanager

@@ -19,8 +19,8 @@ package's; ``tools/obs_report.py show`` renders either package's.
 
 A plan run by the executor (``scheduler/executor.py``) carries its
 ``plan_id`` and the ``gateway``, ``fleet`` and ``trace`` attribution its
-submission passed (``trace.segment`` is None: the port has no trace
-sink), its ``dedup`` block the prefix-dedup attribution
+submission passed (``trace.segment`` names the segment file its spans
+went to under ``EEG_TPU_TRACE_DIR``, None when the directory is unset), its ``dedup`` block the prefix-dedup attribution
 (``scheduler/dedup.py``: leader or follower, the prefix key, the rows and
 the seconds and bytes saved; None when the run claimed no prefix), and a
 crash report's ``fleet_context`` names the replica, the leased devices,
@@ -188,8 +188,8 @@ class RunTelemetry:
             "dedup": self.dedup,
             "gateway": self.gateway,
             "fleet": self.fleet,
-            "trace": None if self.trace_id is None else {"trace_id": self.trace_id,
-                                                         "segment": None},
+            "trace": None if self.trace_id is None else {
+                "trace_id": self.trace_id, "segment": self.recorder.trace_segment},
             "degradation": [],
             "stages": timers.as_dict() if timers is not None else {},
             "metrics": metrics.snapshot() if metrics is not None else {},

@@ -193,3 +193,8 @@ def feature_precision_gate(
         "ok": bool(dev <= tol),
         "rows_checked": int(rows.shape[0]),
     }
+
+
+def bf16_feature_gate(bf16_rows, f32_rows, tolerance: Optional[float] = None) -> dict:
+    """:func:`feature_precision_gate` at ``bf16``."""
+    return feature_precision_gate(bf16_rows, f32_rows, precision="bf16", tolerance=tolerance)

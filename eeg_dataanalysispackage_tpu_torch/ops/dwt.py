@@ -39,6 +39,24 @@ def cascade_matrix(wavelet_index: int, n: int, count: int) -> np.ndarray:
     return np.ascontiguousarray(dwt_host.fwt_periodic(eye, h, g)[:, :count])
 
 
+def fwt_coefficient_prefix(x: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                           count: int) -> torch.Tensor:
+    """First ``count`` entries of the eegdsp layout [aK|dK|...|d1] of the
+    (N, n) signals ``x``, level by level (the JAX package's convolution
+    form: each level one stride-2 correlation with the scaling and
+    wavelet filters over the circularly extended signal)."""
+    L = h.shape[0]
+    kernel = torch.stack([h, g])[:, None, :]
+    a, details, n = x, [], x.shape[1]
+    while n >= L:
+        ext = torch.cat([a, a[:, : L - 2]], dim=1) if L > 2 else a
+        out = torch.nn.functional.conv1d(ext[:, None, :], kernel, stride=2)
+        a = out[:, 0, : n // 2]
+        details.append(out[:, 1, : n // 2])
+        n //= 2
+    return torch.cat([a] + details[::-1], dim=1)[:, :count]
+
+
 #: the main path's analysis window and coefficient count: the fused CUDA
 #: kernels' ring engine is built for them (``csrc/window_features.cuh``:
 #: kEpoch, kFeatures), every other size runs their generic engine

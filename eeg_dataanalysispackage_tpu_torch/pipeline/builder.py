@@ -149,6 +149,16 @@ def get_query_map(query: str) -> Dict[str, str]:
     return out
 
 
+def get_raw_param(query: str, name: str) -> Optional[str]:
+    """The whole value (first ``=`` to the end) of one query parameter, or
+    None when it is absent: a missing parameter told from an empty one
+    without building the map (the JAX package's ``get_raw_param``)."""
+    for param in query.split("&"):
+        if param.startswith(name + "="):
+            return param[len(name) + 1:]
+    return None
+
+
 def decode_percent_query(query: str) -> str:
     """Percent-decode a network-submitted query string, pair by pair (the
     JAX package's ``decode_percent_query``).
@@ -1099,7 +1109,7 @@ class PipelineBuilder:
     def _finish_run(self, statistics, query_map):
         """Logging, the atomic ``result_path`` report, and the hand-off."""
         logger.info("statistics:\n%s", statistics)
-        logger.info("stage timings (s): %s", self.timers)
+        logger.info("stage timings:\n%s", self.stage_timer.report())
         if "result_path" in query_map:
             # PrintWriter.println parity: a newline after toString()
             modelfiles.atomic_write_bytes(

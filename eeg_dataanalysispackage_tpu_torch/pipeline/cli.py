@@ -13,11 +13,13 @@ import sys
 import traceback
 
 from . import builder
+from .. import obs
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    logging.basicConfig(level=logging.INFO)
+    # the log file from LOGFILE_NAME, the -Dlogfile.name analogue
+    obs.configure_logging(level=logging.INFO)
     log = logging.getLogger("eeg_dataanalysispackage_tpu_torch")
     log.info("Application started with arguments %s", argv)
     if not argv:

@@ -23,7 +23,14 @@ code path serves both. Around ``PipelineBuilder._execute(plan)`` it
 - writes ``crash_report.json`` inside the domain when the run raises, then
   re-raises; on success writes ``run_report.json``, with the plan id and the
   ``gateway``, ``fleet`` and ``trace_id`` attribution the caller passed. A
-  report write failure is logged and never fails the run it observed.
+  report write failure is logged and never fails the run it observed;
+- with a ``trace_id`` and ``EEG_TPU_TRACE_DIR`` set, joins the plan's span
+  recorder (a standalone 512-span recorder when the plan is unreported) to
+  the trace: its segment is the fleet replica (else the gateway's), its
+  root carries ``plan_id`` and ``takeover``, and its spans go to
+  ``<dir>/trace-<segment>.jsonl``. A takeover re-submits with the
+  journaled trace id, so the survivor's segment continues the dead
+  holder's trace.
 
 ``placement`` (the device pool's leased ordinals, ``scheduler/placement.py``)
 sets ``builder.placement_devices``: a meshed plan's mesh is built from
@@ -41,7 +48,7 @@ import time
 from typing import Optional
 
 from .. import obs
-from ..obs import chaos, domain as run_domain
+from ..obs import chaos, domain as run_domain, events
 from ..obs import report as run_report
 
 logger = logging.getLogger(__name__)
@@ -97,11 +104,30 @@ def execute_plan(
             logger.warning("run telemetry unavailable (%s: %s); running unreported",
                            type(e).__name__, e)
     telemetry = builder.telemetry
+    recorder = None if telemetry is None else telemetry.recorder
+    standalone = None
+    trace_dir = os.environ.get(events.ENV_TRACE_DIR) if trace_id else None
+    if trace_dir:
+        if recorder is None:
+            recorder = standalone = events.SpanRecorder(name="plan", max_spans=512)
+        recorder.set_trace(
+            trace_id, trace_dir=trace_dir,
+            segment=(fleet or {}).get("replica") or (gateway or {}).get("replica"),
+            plan_id=plan_id, takeover=bool((fleet or {}).get("takeover")))
     run_metrics = obs.Metrics()
-    domain = run_domain.RunDomain(
-        plan_id=plan_id, chaos=fault_plan,
-        recorder=None if telemetry is None else telemetry.recorder, metrics=run_metrics)
+    domain = run_domain.RunDomain(plan_id=plan_id, chaos=fault_plan, recorder=recorder,
+                                  metrics=run_metrics)
     builder.run_metrics = run_metrics
+    try:
+        return _run_in_domain(plan, builder, domain, telemetry, run_metrics)
+    finally:
+        if standalone is not None:
+            # close the unreported plan's segment (its root span goes to
+            # the file); a report's recorder is finished by its writer
+            standalone.finish()
+
+
+def _run_in_domain(plan, builder, domain, telemetry, run_metrics):
     start = time.perf_counter()
     with run_domain.activate(domain):
         try:

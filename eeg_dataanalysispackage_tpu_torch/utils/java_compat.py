@@ -27,8 +27,13 @@ class JavaRandom:
 
     def _next(self, bits: int) -> int:
         self.seed = (self.seed * _MULT + _ADD) & _MASK
-        # callers only use bits <= 31, so the value is non-negative
+        # the top ``bits`` bits, unsigned (next_int32 signs a 32-bit draw)
         return self.seed >> (48 - bits)
+
+    def next_int32(self) -> int:
+        """nextInt(): the full signed 32-bit output."""
+        r = self._next(32)
+        return r - (1 << 32) if r >= (1 << 31) else r
 
     def next_int(self, bound: int) -> int:
         if bound <= 0:

@@ -2813,3 +2813,23 @@ def test_plan_executor_takes_the_card_by_default():
         assert ex.device == torch.device("cuda")
     finally:
         ex.close()
+
+
+@pytest.mark.cuda
+def test_save_memory_profile_writes_the_allocators_snapshot(tmp_path):
+    """On the card ``obs.save_memory_profile`` pickles
+    ``torch.cuda.memory_snapshot()``: the live block of a held tensor is
+    in one of its segments."""
+    import pickle
+
+    from eeg_dataanalysispackage_tpu_torch import obs
+
+    dev = _card()
+    held = torch.ones(1 << 20, device=dev)
+    path = tmp_path / "prof" / "mem.pkl"
+    assert obs.save_memory_profile(str(path)) is True
+    with open(path, "rb") as f:
+        segments = pickle.load(f)
+    blocks = [b for s in segments for b in s["blocks"] if b["state"] == "active_allocated"]
+    assert any(b["size"] >= held.numel() * 4 for b in blocks)
+    assert {"device", "address", "total_size", "blocks"} <= set(segments[0])

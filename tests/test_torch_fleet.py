@@ -33,6 +33,8 @@ the JAX package's ``tests/test_fleet.py`` (its lease part is
   replica built with ``device=None`` raises without a card.
 """
 
+import contextlib
+import io
 import json
 import os
 import signal
@@ -386,18 +388,35 @@ def _await_state(url, plan_id, states, deadline_s=300):
         time.sleep(0.02)
 
 
+def _await_segment_header(path, deadline_s=60):
+    """Until the holder's segment file holds its whole header line: a kill
+    before the line is flushed leaves the holder no segment to stitch."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        with contextlib.suppress(OSError):
+            with open(path) as f:
+                if f.readline().endswith("\n"):
+                    return
+        assert time.monotonic() < deadline, path
+        time.sleep(0.01)
+
+
 def test_sigkilled_replica_peer_completes_then_sigterm_drains(session, tmp_path):
     """Two replica processes over one journal: the one running a plan is
     SIGKILLed, the survivor breaks its lease and completes the plan under
     its id with its twin's statistics, exactly once, and counts it in
     /metrics; a keyed re-submit replays it; a SIGTERM then drains the
     survivor: the plan in flight finishes, the queued one is handed back,
-    exit 0."""
-    journal_dir = str(tmp_path / "journal")
+    exit 0. With ``EEG_TPU_TRACE_DIR`` set on both, the killed holder's
+    segment and the survivor's carry the plan's trace id, and the port's
+    ``plan_admin trace`` stitches them into one tree with the takeover
+    seam."""
+    journal_dir, trace_dir = str(tmp_path / "journal"), str(tmp_path / "traces")
     heavy = _slow(session)
     twin = str(PipelineBuilder(heavy, device="cpu").execute())
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               EEG_TPU_LEASE_TIMEOUT_S="1", EEG_TPU_FLEET_SCAN_INTERVAL_S="0.1")
+               EEG_TPU_LEASE_TIMEOUT_S="1", EEG_TPU_FLEET_SCAN_INTERVAL_S="0.1",
+               EEG_TPU_TRACE_DIR=trace_dir)
     for var in ("EEG_TPU_FAULTS", "EEG_TPU_RUN_REPORT_DIR", "EEG_TPU_DEVICE_POOL"):
         env.pop(var, None)
     procs = []
@@ -413,6 +432,7 @@ def test_sigkilled_replica_peer_completes_then_sigterm_drains(session, tmp_path)
         assert code == 201 and payload["trace_id"] == "fleet-pin-trace"
         plan_id = payload["plan_id"]
         assert _await_state(url_a, plan_id, ("running", "completed", "failed")) == "running"
+        _await_segment_header(os.path.join(trace_dir, "trace-gw-a.jsonl"))
         proc_a.kill()
         assert proc_a.wait(timeout=60) == -signal.SIGKILL
         assert _await_state(url_b, plan_id, ("completed", "failed")) == "completed"
@@ -443,6 +463,25 @@ def test_sigkilled_replica_peer_completes_then_sigterm_drains(session, tmp_path)
     assert journal.entry(inflight["plan_id"])["state"] == "completed"
     assert journal.entry(queued["plan_id"])["state"] == "submitted"
     assert not [n for n in os.listdir(journal_dir) if n.endswith(".lease")]
+    # the trace plane: both segments carry the trace id; one stitched tree
+    assert sorted(os.listdir(trace_dir)) == ["trace-gw-a.jsonl", "trace-gw-b.jsonl"]
+    for name, takeover in (("trace-gw-a.jsonl", False), ("trace-gw-b.jsonl", True)):
+        with open(os.path.join(trace_dir, name)) as f:
+            header = json.loads(f.readline())
+        assert (header["kind"], header["trace_id"], header["attrs"]) == \
+            ("segment", "fleet-pin-trace", {"plan_id": plan_id, "takeover": takeover})
+    from eeg_dataanalysispackage_tpu_torch.tools import plan_admin
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = plan_admin.main(["trace", plan_id, "--journal", journal_dir,
+                              "--trace-dir", trace_dir])
+    out = buf.getvalue()
+    assert rc == 0, out
+    assert "trace fleet-pin-trace" in out and "2 segment(s)" in out
+    assert out.index("segment gw-a") < out.index("segment gw-b")
+    assert "segment gw-b  <-- TAKEOVER boundary: continued after gw-a died" in out
+    assert "(segment root)  UNFINISHED (holder died mid-span)" in out
 
 
 # -- the pod assist

@@ -333,3 +333,14 @@ def test_the_plan_ir_and_scheduler_modules_are_walked_and_scanned():
         rel = name.replace(".", "/") + ("/__init__.py" if name == "scheduler" else ".py")
         assert rel in scanned
     assert os.path.join("..", "tests", "_torch_scheduler_worker.py") in scanned
+
+
+def test_the_operator_tools_are_scanned():
+    """The operator tools (``tools/``: ``plan_admin``, ``fleet_top``,
+    ``chaos_run``, ``obs_report``) are the port's own copies of the JAX
+    package's stdlib tools: scanned here, walked by the fresh import (which
+    runs none of them)."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("__init__", "plan_admin", "fleet_top", "chaos_run", "obs_report"):
+        assert f"tools/{name}.py" in scanned
+
