@@ -329,6 +329,23 @@ Phases, one JSON line each (several for phases 2 to 6):
    16 (``operator_chaos``), ``obs.save_memory_profile`` writes the
    allocator's snapshot (``operator_memory``), and the trace sink's cost a
    span is timed in this process (``operator_sink_cost``);
+4n. the walkthroughs (``eeg_dataanalysispackage_tpu_torch/examples``), each
+   ``run(device="cuda")`` in this process at the JAX scripts' sizes, K1's
+   launches counted from 0 just before each and its wall printed:
+   ``train_p300`` on the 8-recording session (K1 8), ``fused_ingest`` (K1
+   within KERNEL_TOL of its plain version; the regular featurizer's rows
+   bit-equal to K1 launched at the same positions; K1 2),
+   ``raw_stream_training`` (the resumed parameters bit-equal to the
+   uninterrupted run's; K1 18), ``sharded_long_recording`` and
+   ``stream_continuous`` over eight time shards (eight cards, else the
+   first card eight times): the sharded rows bit-equal to one unsharded
+   K1 launch on the same plan (K1 8 + 3), the blocked rows within
+   STREAM_TOL of the mesh rows before the ring wraps; ``mllib_migration``
+   (the imported GLM's predictions the manual margins', the forest's
+   predictions and round trip the CPU run's); then ``python -X importtime
+   -m eeg_dataanalysispackage_tpu_torch.examples.train_p300 <info>`` in a
+   fresh interpreter: this process's statistics, K1 8, no JAX module
+   imported (``walkthrough_cli``);
 5. the serving path end to end: ``serve=true`` with the saved model on
    the card (the ``mega`` rung, the megakernel's launch count over the
    run, every kept epoch completed, none shed, a clean drain, latency
@@ -4768,6 +4785,175 @@ def phase_operator_plane(info, counters, work, smi, operator, device="cuda"):
     return k1
 
 
+JAX_ROOTS = ("jax", "jaxlib", "flax", "optax", "eeg_dataanalysispackage_tpu")
+
+
+def walkthrough_mesh(torch):
+    """The two meshed walkthroughs' time axis: eight distinct cards where
+    there are eight, else the first card eight times (the JAX scripts'
+    eight devices)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i if count >= 8 else 0) for i in range(8)]
+
+
+def imported_modules(importtime_stderr):
+    """The top-level names of the modules a ``python -X importtime`` run
+    imported, from its stderr."""
+    names = set()
+    for line in importtime_stderr.splitlines():
+        if line.startswith("import time:") and "|" in line:
+            name = line.rsplit("|", 1)[1].strip()
+            if name and name != "package":
+                names.add(name.split(".")[0])
+    return names
+
+
+def phase_walkthroughs(torch, np, info, counters, smi, device="cuda"):
+    """Phase 4n (see the module docstring). Returns K1's launches over the
+    walkthroughs run in this process; the launches made to compare a row
+    with another launch's are not counted."""
+    from eeg_dataanalysispackage_tpu_torch.examples import (
+        fused_ingest, mllib_migration, raw_stream_training, sharded_long_recording,
+        stream_continuous, train_p300,
+    )
+    from eeg_dataanalysispackage_tpu_torch.ops import device_ingest, ingest_cuda
+    from eeg_dataanalysispackage_tpu_torch.utils.device import host_to_device
+
+    t_phase = time.perf_counter()
+    k1_total, walls = 0, {}
+    mesh_devices = walkthrough_mesh(torch) if device == "cuda" else [device] * 8
+
+    def counted(name, fn, want_k1):
+        nonlocal k1_total
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        k1 = counters["ingest_features"][0].LAUNCHES
+        k1_total += k1
+        if k1 != want_k1 or out.get("k1_launches", 0) != k1:
+            raise AssertionError(f"walkthrough {name}: K1 launched {k1} time(s) "
+                                 f"(its own count {out.get('k1_launches')}), want {want_k1}")
+        return out, k1
+
+    # train_p300 on the smoke's session: the query's host fe=dwt-8-tpu path,
+    # then load_features_device (K1 a recording) and a logreg fit
+    p300, k1 = counted("train_p300", lambda: train_p300.run(info, device=device), 8)
+    emit("walkthrough_train_p300", k1_launches=k1, features=list(p300["features_shape"]),
+         query_accuracy=p300["query_statistics"].calc_accuracy(),
+         fused_accuracy=p300["fused_statistics"].calc_accuracy(),
+         wall_s=walls["train_p300"], nvidia_smi=smi)
+
+    # fused_ingest: K1 against the plain rows; the regular rows against K1
+    # launched at the same positions (uncounted)
+    fused, k1 = counted("fused_ingest", lambda: fused_ingest.run(device=device), 2)
+    raw_t = host_to_device(fused["raw"], device)
+    res_t = host_to_device(fused["resolutions"], device)
+    regular_again = ingest_cuda.ingest_features_cuda(raw_t, res_t, fused["regular_positions"])
+    regular_equal = bool(torch.equal(fused["regular"], regular_again))
+    emit("walkthrough_fused_ingest", k1_launches=k1, rows=list(fused["k1"].shape),
+         max_abs_vs_plain=fused["max_abs_diff"], tol=KERNEL_TOL,
+         formulation=fused["formulation"], regular_bit_equal=regular_equal,
+         wall_s=walls["fused_ingest"], nvidia_smi=smi)
+    if fused["max_abs_diff"] > KERNEL_TOL or not regular_equal:
+        raise AssertionError("walkthrough fused_ingest: K1 disagrees with its plain version "
+                             "or the regular featurizer with K1")
+
+    # raw_stream_training: 3 + 3 steps, a crash at step 4, the resume and an
+    # uninterrupted run (4 + 2 + 6 steps), K1 once a step
+    raw, k1 = counted("raw_stream_training", lambda: raw_stream_training.run(device=device), 18)
+    losses = raw["regular_losses"] + raw["irregular_losses"]
+    emit("walkthrough_raw_stream_training", k1_launches=k1,
+         regular_losses=raw["regular_losses"], irregular_losses=raw["irregular_losses"],
+         crashed_checkpoints=raw["crashed_checkpoints"], resumed_at=raw["resumed_at"],
+         bit_identical=raw["bit_identical"], wall_s=walls["raw_stream_training"],
+         nvidia_smi=smi)
+    if (not raw["bit_identical"] or raw["crashed_checkpoints"] != [2, 4]
+            or raw["resumed_at"] != 6 or not np.isfinite(losses).all()):
+        raise AssertionError("walkthrough raw_stream_training: the resumed run is not the "
+                             "uninterrupted one")
+
+    # sharded_long_recording over eight time shards: K1 once a shard, then the
+    # raw-stream step 3 times; the rows against one unsharded launch on the
+    # same plan (uncounted)
+    sharded, k1 = counted("sharded_long_recording", lambda: sharded_long_recording.run(
+        device=device, mesh_devices=mesh_devices), 8 + 3)
+    T = sharded["raw"].shape[1]
+    base = device_ingest.plan_ingest(sharded["markers"], 4, T)
+    first = sharded["features"].device
+    unsharded = ingest_cuda.make_cuda_ingest_featurizer()(
+        host_to_device(sharded["raw"], first), host_to_device(sharded["resolutions"], first),
+        base.positions, base.mask)[: base.n_kept]
+    feats = sharded["features"]
+    rows_equal = 0
+    if feats.shape == unsharded.shape:
+        rows_equal = int((feats == unsharded).all(dim=1).sum())
+    emit("walkthrough_sharded_long_recording", k1_launches=k1,
+         mesh=[str(d) for d in mesh_devices], samples=int(T), markers=len(sharded["markers"]),
+         rows=list(feats.shape), halo_windows=sharded["halo_windows"],
+         rows_bit_equal=rows_equal, train_accuracy=sharded["train_accuracy"],
+         losses=sharded["losses"], wall_s=walls["sharded_long_recording"], nvidia_smi=smi)
+    if (rows_equal != base.n_kept or feats.shape[0] != base.n_kept
+            or not np.array_equal(sharded["plan"].targets, base.targets)
+            or sharded["halo_windows"] < 1 or not np.isfinite(sharded["losses"]).all()):
+        raise AssertionError("walkthrough sharded_long_recording: the sharded rows are not "
+                             "the unsharded kernel's")
+
+    # stream_continuous: blocked and mesh rows, which agree before the wrap
+    stream, _ = counted("stream_continuous", lambda: stream_continuous.run(
+        device=device, mesh_devices=mesh_devices), 0)
+    blocked, mesh_rows = stream["blocked"], stream["mesh"].cpu().numpy()
+    stream_dev = float(np.abs(mesh_rows[: len(blocked)] - blocked).max())
+    emit("walkthrough_stream_continuous", blocked=list(blocked.shape),
+         mesh=list(mesh_rows.shape), max_abs_before_wrap=stream_dev, tol=STREAM_TOL,
+         wall_s=walls["stream_continuous"], nvidia_smi=smi)
+    if (stream_dev > STREAM_TOL or blocked.shape != (511, 1024)
+            or mesh_rows.shape != (512, 1024)):
+        raise AssertionError("walkthrough stream_continuous: the blocked and mesh rows differ")
+
+    # mllib_migration: the imported GLM's predictions, the forest's round
+    # trip, equal to the CPU run's
+    mllib, _ = counted("mllib_migration", lambda: mllib_migration.run(device=device), 0)
+    mllib_cpu = mllib_migration.run(device="cpu")
+    same_as_cpu = all(np.array_equal(mllib[k], mllib_cpu[k]) for k in (
+        "imported_predictions", "forest_predictions", "round_trip_predictions"))
+    emit("walkthrough_mllib_migration", bit_equal=mllib["bit_equal"],
+         forest_accuracy=mllib["forest_accuracy"],
+         round_trip_agreement=mllib["round_trip_agreement"], equal_to_cpu=same_as_cpu,
+         wall_s=walls["mllib_migration"], nvidia_smi=smi)
+    if not mllib["bit_equal"] or not same_as_cpu:
+        raise AssertionError("walkthrough mllib_migration: the predictions moved")
+
+    # a fresh interpreter: python -m ...examples.train_p300 <info>, its
+    # statistics this process's, and no JAX module imported
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "eeg_dataanalysispackage_tpu_torch.examples.train_p300", info, "--device", device],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    cli_wall = time.perf_counter() - t0
+    leaked = sorted(imported_modules(proc.stderr).intersection(JAX_ROOTS))
+    want = (f"query-string pipeline:\n{p300['query_statistics']}\n"
+            f"fused device path: {p300['fused_statistics']}\n")
+    cli_k1 = [line for line in proc.stdout.splitlines() if line.startswith("K1")]
+    want_k1 = [("K1 (csrc/ingest_features.cu): 8 launch(es) on cuda" if device == "cuda"
+                else f"K1's plain PyTorch version on {device} (no kernel launch)")]
+    emit("walkthrough_cli", rc=proc.returncode, leaked=leaked,
+         modules=len(imported_modules(proc.stderr)),
+         statistics_equal=proc.stdout.startswith(want), k1_line=cli_k1, wall_s=cli_wall,
+         nvidia_smi=smi)
+    if (proc.returncode != 0 or leaked or not proc.stdout.startswith(want)
+            or cli_k1 != want_k1):
+        raise AssertionError(f"python -m ...examples.train_p300 failed or differs: "
+                             f"{proc.stdout[-1000:]}{proc.stderr[-1000:]}")
+    emit("walkthrough_phase", seconds=time.perf_counter() - t_phase, walls=walls,
+         cli_wall_s=cli_wall, k1_launches=k1_total, nvidia_smi=smi)
+    return k1_total
+
+
 def timed_bound(bytes_moved, flops, bandwidth, f32_peak):
     """(bound ms, "bytes" or "operations")."""
     t_bytes, t_flops = bytes_moved / bandwidth * 1e3, flops / f32_peak * 1e3
@@ -6174,6 +6360,8 @@ def main() -> int:
                                                     smi, operator=operator)
         # 4m. the operator plane: the trace, the tools, chaos_run, the memory profile
         operator_k1 = phase_operator_plane(info, counters, work, smi, operator)
+        # 4n. the walkthroughs: the six examples' run(), and one python -m
+        walk_k1 = phase_walkthroughs(torch, np, info, counters, smi)
         generic_launches = phase_generic_paths(np, torch, info, float_info, n_files=8,
                                                n_float_files=3)
         phase_bf16_host_runs(np, info, counters)
@@ -6287,10 +6475,11 @@ def main() -> int:
         # (the parse pool, overlap, the remote pool), 4i (meshes, the
         # raw-stream trainers), 4j (the ranks' own launches too), 4k (the
         # executor's plans, and the killed child's before its kill), 4l (the
-        # plan service's plans in this process) and 4m (chaos_run's two runs)
+        # plan service's plans in this process), 4m (chaos_run's two runs) and
+        # 4n (the walkthroughs run in this process)
         kernel_entry("ingest_features", "ingest_features.cu", ingest_pallas,
                      main_launches + nn_k1 + tree_k1 + train_k1 + record_k1 + inpipe_k1
-                     + mesh_k1 + pod_k1 + sched_k1 + service_k1 + operator_k1,
+                     + mesh_k1 + pod_k1 + sched_k1 + service_k1 + operator_k1 + walk_k1,
                      max(max_err["f32"], k1[4]), k1, library_ms=lib[32_768]),
         kernel_entry("serve_mega", "serve_mega.cu", mega_pallas, serve_launches + inpipe_k5,
                      max(mega_err["f32"], mega_64["f32"][4], mega_big["f32"][4]),

@@ -6,7 +6,8 @@ Port of the JAX package's ``parallel/train.py``. Every factory returns
 ``(init_state, step)``; ``step(state, ...) -> (state, loss)`` is
 functional (the incoming state is never changed in place), and each
 returned step fires the ``device.step`` chaos point once a call
-(:func:`_chaos_step`). ``init_state(key)`` takes an integer seed or a
+(:func:`_chaos_step`) and takes the state ``checkpoint.run_resumable``
+restores (the checkpoint's host arrays) as it is. ``init_state(key)`` takes an integer seed or a
 threefry key (``utils/threefry``: the port's own draws, not
 ``jax.random``'s), or a mapping of arrays: the JAX package's
 ``init_mlp_params`` dict carried over as it is (:func:`as_params`), so
@@ -61,17 +62,30 @@ from . import mesh as pmesh
 BANK_MODES = ("bank128", "bank128_bf16")
 
 
-def _chaos_step(step):
+def _chaos_step(step, device):
     """The ``device.step`` chaos point around a step a factory returns
     (never around the inner step another factory composes: that one is
-    reached through ``__wrapped__``, :func:`_raw_step`)."""
+    reached through ``__wrapped__``, :func:`_raw_step`). The incoming
+    state's host leaves go to ``device`` first (:func:`_state_on`)."""
 
     @functools.wraps(step)
     def wrapped(state, *args, **kwargs):
         chaos.maybe_fire("device.step")
-        return step(state, *args, **kwargs)
+        return step(_state_on(state, device), *args, **kwargs)
 
     return wrapped
+
+
+def _state_on(state, device):
+    """``state`` with each host leaf as a tensor on ``device``, bit for
+    bit: a state ``checkpoint.run_resumable`` restored holds the
+    checkpoint's numpy arrays, which the JAX package's steps take as they
+    are. Tensor leaves pass unchanged."""
+    if isinstance(state, Mapping):
+        return {k: _state_on(v, device) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state
+    return host_to_device(np.asarray(state), device)
 
 
 def _raw_step(step):
@@ -203,7 +217,8 @@ def make_feature_train_step(
                 new_params[k] = params[k] + neg_lr * (g + m * trace)
         return {"params": new_params, "opt": {"trace": new_trace}}, loss
 
-    return init_state, _chaos_step(step)
+    step.device = dev
+    return init_state, _chaos_step(step, dev)
 
 
 def make_train_step(
@@ -230,7 +245,7 @@ def make_train_step(
                                              torch.float32))
         return feat_step(state, feats, labels, mask)
 
-    return init_state, _chaos_step(step)
+    return init_state, _chaos_step(step, feat_step.device)
 
 
 def make_compact_train_step(
@@ -264,7 +279,7 @@ def make_compact_train_step(
             feats = featurize(_tensor(epochs_512, state["params"]["w0"].device, torch.float32))
         return feat_step(state, feats, labels, mask)
 
-    return init_state, _chaos_step(step)
+    return init_state, _chaos_step(step, feat_step.device)
 
 
 def make_raw_train_step(
@@ -299,7 +314,7 @@ def make_raw_train_step(
         return feat_step(state, feats, labels, mask)
 
     step.formulation = ing.formulation
-    return init_state, _chaos_step(step)
+    return init_state, _chaos_step(step, feat_step.device)
 
 
 def make_irregular_train_step(
@@ -332,7 +347,7 @@ def make_irregular_train_step(
                           _host(positions), mask)
         return feat_step(state, feats, labels, _tensor(mask.astype(np.float32), d))
 
-    return init_state, _chaos_step(step)
+    return init_state, _chaos_step(step, feat_step.device)
 
 
 def make_irregular_bank_train_step(
@@ -398,7 +413,7 @@ def make_irregular_bank_train_step(
             skip_samples, precision, epoch_size, feature_size)
         return feat_step(state, feats, labels, torch.ones(n, dtype=torch.float32, device=d))
 
-    return init_state, _chaos_step(step)
+    return init_state, _chaos_step(step, feat_step.device)
 
 
 def make_decode_feature_stage(

@@ -344,3 +344,38 @@ def test_the_operator_tools_are_scanned():
     for name in ("__init__", "plan_admin", "fleet_top", "chaos_run", "obs_report"):
         assert f"tools/{name}.py" in scanned
 
+
+
+WALKTHROUGHS = ("train_p300", "fused_ingest", "raw_stream_training", "sharded_long_recording",
+                "stream_continuous", "mllib_migration")
+
+
+def test_the_walkthrough_modules_are_walked_and_scanned():
+    """The six walkthroughs (``examples/``, the twins of the JAX
+    package's ``examples/`` scripts) are walked by the fresh import, which
+    runs none of them (no build, no launch), and scanned; none imports
+    from ``tests/``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _PROBE + (
+        "\nfrom eeg_dataanalysispackage_tpu_torch.ops import cuda_build, ingest_cuda"
+        "\nassert cuda_build.BUILD_SECONDS == {}, cuda_build.BUILD_SECONDS"
+        "\nassert ingest_cuda.LAUNCHES == 0\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("] ", 1)[1].split())
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("examples",) + tuple(f"examples.{w}" for w in WALKTHROUGHS):
+        assert f"eeg_dataanalysispackage_tpu_torch.{name}" in walked
+    for rel in ("examples/__init__.py",) + tuple(f"examples/{w}.py" for w in WALKTHROUGHS):
+        assert rel in scanned
+        with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert (node.module or "").split(".")[0] not in ("tests", "_synthetic")
+            elif isinstance(node, ast.Import):
+                assert all(a.name.split(".")[0] not in ("tests", "_synthetic")
+                           for a in node.names)
