@@ -21,8 +21,9 @@ did to the kernels:
    rungs (the ingest kernel's bf16, int8 and int4 on the int16 stream, the
    megakernel's int8 and int4) at 32,768 windows; and the generic-size
    kernels (``*_any_kernel``) at each of ``chip_smoke.GENERIC_SIZES`` (3
-   channels) at 4,096 windows and, at ``chip_smoke.GENERIC_PATH_SIZE``,
-   at one serve batch of 64: K1-any at every rung and on float32 samples,
+   channels) at 4,096 windows, at ``chip_smoke.GENERIC_PATH_SIZE`` at one
+   serve batch of 64, and at ``chip_smoke.GENERIC_WIDE`` on 256 windows of
+   76 channels (names ending ``c76``): K1-any at every rung and on float32 samples,
    K5-any at f32, int8 and int4, K6-any on the f32, int8 and int4 stacks
    (kernel names ``<kernel>@<epoch>x<features>``); where a checkout's
    megakernel takes float32 samples, every megakernel case above also on
@@ -33,7 +34,9 @@ did to the kernels:
    wall time per call of 200 back-to-back calls, host work included
    (``call_ms``, median of 5), the median host time of one call, the card
    not waited for (``host_ms``, 200 calls) and a sha256 of the output,
-   tagged with the checkout; and the generic fused path's wall (``load_features_device``
+   tagged with the checkout; each checkout's float32-sample tile plans at
+   those sizes (``float_plans``: fields and shared memory); and the
+   generic fused path's wall (``load_features_device``
    of an 8-recording session at ``GENERIC_PATH_SIZE``, three times in
    the process: ``generic_path_wall``);
 2. ``outputs``: one line per kernel and size with ``bit_equal``, the
@@ -44,8 +47,8 @@ did to the kernels:
    instantiation only this build has is listed as ``new``; a generic-size
    instantiation's line has ``generic: true`` (its SASS changes with the
    generic engine); and the ``ptxas`` registers and spills of every kernel
-   each build made, and of each generic instantiation by key
-   (``ptxas_generic``).
+   each build made, and the registers, barriers and spills of each generic
+   instantiation by key (``ptxas_generic``, printed before the timings).
 
 An instantiation is keyed by its kernel and template arguments, not by
 its mangled name (which carries a hash of its source file and its
@@ -127,6 +130,16 @@ def time_checkout(tree: str, label: str) -> None:
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
 
     cs = smoke_helpers()
+    # the float32-sample generic launches' tile plans (shared memory and
+    # fields) at the timed sizes, as this tree plans them
+    from eeg_dataanalysispackage_tpu_torch.ops import generic_plan
+
+    limits = ingest_cuda.device_limits(dev)
+    emit(phase="float_plans", plans={
+        f"{C}x{e}x{K}@{n}": dict(generic_plan.generic_tile_plan(C, e, K, n, *limits, 100,
+                                                                4)._asdict())
+        for (e, K, _skip), n, C in ([(size, n, 3) for size in cs.GENERIC_SIZES
+                                     for n in (4096, 64)] + [(cs.GENERIC_WIDE, 256, 76)])})
 
     def run(kernel, symbol, size, fn):
         out = fn()
@@ -301,8 +314,9 @@ def time_generic_path(cs, emit, smi, repeats: int = 3) -> None:
 
 def time_generic(cs, run, dev) -> None:
     """The generic-size kernels through the timed tree's wrappers: at each
-    of ``chip_smoke.GENERIC_SIZES`` on 4,096 windows of 3 channels, and at
-    ``GENERIC_PATH_SIZE`` on one serve batch of 64 windows: K1-any at
+    of ``chip_smoke.GENERIC_SIZES`` on 4,096 windows of 3 channels, at
+    ``GENERIC_PATH_SIZE`` on one serve batch of 64 windows, and at
+    ``GENERIC_WIDE`` on 256 windows of 76 channels (tag ``c76``): K1-any at
     every rung on an int16 stream (1,000-sample stride) and f32 on a
     float32 one, K5-any at f32/int8/int4 and K6-any on the f32, int8 and
     int4 stacks at the serve stride (lanes cycling over 128 tenants)."""
@@ -314,14 +328,16 @@ def time_generic(cs, run, dev) -> None:
     )
 
     stride = serve_mega.padded_stride(100, 750)
-    res = torch.tensor([0.1, 0.1, 0.2], device=dev)
-    ones = torch.ones(3, device=dev)
-    cases = [(size, 4096) for size in cs.GENERIC_SIZES] + [(cs.GENERIC_PATH_SIZE, 64)]
-    for (e, K, skip), n in cases:
-        tag = f"@{e}x{K}"
+    cases = ([(size, 4096, 3) for size in cs.GENERIC_SIZES] + [(cs.GENERIC_PATH_SIZE, 64, 3)]
+             + [(cs.GENERIC_WIDE, 256, 76)])
+    for (e, K, skip), n, C in cases:
+        tag = f"@{e}x{K}" + ("" if C == 3 else f"c{C}")
+        res = (torch.tensor([0.1, 0.1, 0.2], device=dev) if C == 3
+               else torch.full((C,), 0.1, device=dev))
+        ones = torch.ones(C, device=dev)
         gen = torch.Generator(device=dev).manual_seed(n + e + K)
         W = dwt.kernel_operator(8, e, K, dev)
-        big = torch.randint(-3000, 3000, (3, n * 1000 + 1000), generator=gen, device=dev,
+        big = torch.randint(-3000, 3000, (C, n * 1000 + 1000), generator=gen, device=dev,
                             dtype=torch.int32)
         raw, raw_f = big.to(torch.int16), (big.to(torch.float32) * 0.1).contiguous()
         starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
@@ -331,10 +347,10 @@ def time_generic(cs, run, dev) -> None:
                 lambda p=p: ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, p, e, K))
         run("ingest_features_any_f32" + tag, "ingest_features_any_kernel", n,
             lambda: ingest_cuda.ingest_features(raw_f, ones, starts, W, 100, skip, "f32", e, K))
-        stream16 = torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+        stream16 = torch.randint(-3000, 3000, (C, n * stride), generator=gen, device=dev,
                                  dtype=torch.int32).to(torch.int16)
-        weights = torch.randn(3 * K, generator=gen, device=dev)
-        stack = torch.randn((serve_mega.MAX_TENANTS, 3 * K), generator=gen, device=dev)
+        weights = torch.randn(C * K, generator=gen, device=dev)
+        stack = torch.randn((serve_mega.MAX_TENANTS, C * K), generator=gen, device=dev)
         lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
         packed = {}
         for wp in ("int8", "int4"):
@@ -379,9 +395,11 @@ def generic_ptxas(logs: dict) -> dict:
             if spill:
                 out.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
                                                    spill_loads=int(spill.group(2)))
-            regs = re.search(r"Used (\d+) registers", line)
+            regs = re.search(r"Used (\d+) registers(?:, used (\d+) barriers)?", line)
             if regs:
                 out.setdefault(current, {})["registers"] = int(regs.group(1))
+                if regs.group(2):
+                    out[current]["barriers"] = int(regs.group(2))
     return out
 
 
@@ -468,7 +486,7 @@ def main(argv) -> int:
         for line in proc.stdout.splitlines():
             record = json.loads(line)
             if record["phase"] not in ("timing", "libraries"):
-                print(line, flush=True)  # packed_vs_k6, profiler_retake, generic_path_wall
+                print(line, flush=True)  # packed_vs_k6, float_plans, generic_path_wall
                 continue
             if record["phase"] == "libraries":
                 libraries[label] = record["libraries"]

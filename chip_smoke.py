@@ -456,6 +456,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics as pystats
@@ -780,6 +781,52 @@ def build_kernels(cuda_build, names, host_names=("eeg_host",)):
         emit("build_native", source=f"{name}.cc", seconds=cuda_build.BUILD_SECONDS[f"{name}.cc"],
              nvcc_seconds={n: cuda_build.BUILD_SECONDS[f"{n}.cu"] for n in names},
              seconds_all=seconds, library=os.path.relpath(lib, REPO))
+
+
+def generic_f32s_build(cuda_build, generic_plan, sms, optin):
+    """The generic engine's float32-sample instantiations as built: each
+    one's registers, barriers and spills from ``ptxas -v`` (keyed by kernel,
+    ``p``recision and tenant-stack ``w``eights), and the shared memory and
+    fields of its tile plan (``ops/generic_plan.float_tile_plan``) at
+    GENERIC_SIZES and GENERIC_WIDE, at 4,096 windows and a serve batch of
+    64."""
+    kernels, current = {}, None
+    for log in cuda_build.BUILD_LOGS.values():
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                name = entry.group(1)
+                kernel = re.search(r"(ingest_features_any_kernel|serve_mega_any_kernel)If", name)
+                current = None
+                if kernel:
+                    precision = re.search(r"PrecisionE(\d)E", name)
+                    multi = re.search(r"Lb([01])E", name)
+                    weights = re.search(r"WeightsE(\d)E", name)
+                    current = (kernel.group(1).replace("_kernel", "")
+                               + ("_multi" if multi and multi.group(1) == "1" else "")
+                               + f"_p{precision.group(1) if precision else 0}"
+                               + (f"_w{weights.group(1)}" if weights else "") + "_f32s")
+                continue
+            if current is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                kernels.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
+                                                       spill_loads=int(spill.group(2)))
+            regs = re.search(r"Used (\d+) registers(?:, used (\d+) barriers)?", line)
+            if regs:
+                kernels.setdefault(current, {})["registers"] = int(regs.group(1))
+                if regs.group(2):
+                    kernels[current]["barriers"] = int(regs.group(2))
+    plans = {}
+    for (e, K, _skip), C in ([(size, 3) for size in GENERIC_SIZES] + [(GENERIC_WIDE, 76)]):
+        for rows in (4096, 64):
+            plan = generic_plan.generic_tile_plan(C, e, K, rows, sms, optin, 100, 4)
+            plans[f"{C}x{e}x{K}@{rows}"] = plan._asdict()
+    return {"kernels": kernels, "no_spills": all(not k.get("spill_stores") and
+                                                 not k.get("spill_loads")
+                                                 for k in kernels.values()),
+            "plans": plans}
 
 
 def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed, samples="int16"):
@@ -6263,6 +6310,10 @@ def main() -> int:
     ingest_cuda.build()
     serve_mega_cuda.build()
     dwt_cuda.build()
+    from eeg_dataanalysispackage_tpu_torch.ops import generic_plan
+
+    emit("generic_f32s_build", **generic_f32s_build(cuda_build, generic_plan,
+                                                    *ingest_cuda.device_limits(dev)))
 
     # 3. each kernel against its plain version
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)

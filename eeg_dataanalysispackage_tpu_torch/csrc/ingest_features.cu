@@ -121,22 +121,28 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
                                 IngestRows<P>{starts, out, channels});
 }
 
-// Every size but the main path's 512 / 16: the generic engine
-// (window_features_any.cuh run_tiles_any), `epoch` samples and `features`
-// coefficients a channel, tiled as `plan` says.
+// Every size but the main path's 512 / 16: the generic engine, `epoch`
+// samples and `features` coefficients a channel, tiled as `plan` says
+// (window_features_any.cuh: run_tiles_any on int16 samples,
+// run_tiles_float on float32 ones).
 template <class Sample, Precision P>
-__global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
+__global__ void __launch_bounds__(any_threads<Sample>(), any_min_blocks<Sample>())
     ingest_features_any_kernel(const Sample* __restrict__ raw,
                                const float* __restrict__ res,
                                const int* __restrict__ starts,
                                const float* __restrict__ w,
                                float* __restrict__ out, int n, int channels,
                                int n_samples, int pre, int skip, int epoch, int features,
-                               AnyPlan plan) {
+                               AnyPlanOf<Sample> plan) {
   extern __shared__ __align__(16) float smem[];
   const StreamView<Sample> v{raw, channels, n_samples};
-  run_tiles_any<Sample, P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
-                           IngestRows<P>{starts, out, channels});
+  if constexpr (sizeof(Sample) == 4) {
+    run_tiles_float<P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
+                       IngestRows<P>{starts, out, channels});
+  } else {
+    run_tiles_any<Sample, P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
+                             IngestRows<P>{starts, out, channels});
+  }
 }
 
 template <class Sample, Precision P, bool kWide>
@@ -158,17 +164,17 @@ template <class Sample, Precision P>
 int launch_any(const void* raw, const void* res, const void* starts, const void* w, void* out,
                int n, int channels, int n_samples, int pre, int skip, int epoch, int features,
                const int* any_plan, void* stream) {
-  AnyPlan plan{};
+  AnyPlanOf<Sample> plan{};
   size_t smem = 0;
-  const int checked =
-      check_any_plan<Sample>(any_plan, channels, epoch, features, pre, &plan, &smem);
+  const int checked = check_plan<Sample>(any_plan, channels, epoch, features, pre, &plan, &smem);
   if (checked != cudaSuccess) return checked;
   int grid = 0;
-  const cudaError_t err = plan_grid(ingest_features_any_kernel<Sample, P>, smem,
-                                    (n + plan.m - 1) / plan.m, &grid);
+  const cudaError_t err =
+      plan_grid_threads(ingest_features_any_kernel<Sample, P>, any_threads<Sample>(), smem,
+                        (n + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
   ingest_features_any_kernel<Sample, P>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid, any_threads<Sample>(), smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const Sample*>(raw), static_cast<const float*>(res),
           static_cast<const int*>(starts), static_cast<const float*>(w),
           static_cast<float*>(out), n, channels, n_samples, pre, skip, epoch, features, plan);

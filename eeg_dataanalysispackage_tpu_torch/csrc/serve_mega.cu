@@ -252,10 +252,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
       MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
 }
 
-// Every size but the main path's 512 / 16: the generic engine
-// (window_features_any.cuh run_tiles_any), tiled as `plan` says.
+// Every size but the main path's 512 / 16: the generic engine, tiled as
+// `plan` says (window_features_any.cuh: run_tiles_any on int16 samples,
+// run_tiles_float on float32 ones).
 template <class Sample, Precision P, bool kMulti, Weights Wt>
-__global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
+__global__ void __launch_bounds__(any_threads<Sample>(), any_min_blocks<Sample>())
     serve_mega_any_kernel(const Sample* __restrict__ stream,
                           const float* __restrict__ res,
                           const float* __restrict__ w,
@@ -264,13 +265,17 @@ __global__ void __launch_bounds__(kThreads, kAnyMinBlocksPerSm)
                           int stride, int pre, int skip,
                           const int* __restrict__ lanes, int n_samples,
                           const float* __restrict__ scales, int epoch, int features,
-                          AnyPlan plan) {
+                          AnyPlanOf<Sample> plan) {
   static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
   extern __shared__ __align__(16) float smem[];
   const StreamView<Sample> v{stream, channels, n_samples};
-  run_tiles_any<Sample, P>(
-      smem, v, res, w, capacity, pre, skip, epoch, features, plan,
-      MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales});
+  const MegaMargins<P, kMulti, Wt> margins{stride, weights, lanes, out, channels, scales};
+  if constexpr (sizeof(Sample) == 4) {
+    run_tiles_float<P>(smem, v, res, w, capacity, pre, skip, epoch, features, plan, margins);
+  } else {
+    run_tiles_any<Sample, P>(smem, v, res, w, capacity, pre, skip, epoch, features, plan,
+                             margins);
+  }
 }
 
 // One launch's arguments.
@@ -311,17 +316,18 @@ int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
 
 template <class Sample, Precision P, bool kMulti, Weights Wt>
 int launch_any(const Launch& a) {
-  AnyPlan plan{};
+  AnyPlanOf<Sample> plan{};
   size_t smem = 0;
   const int checked =
-      check_any_plan<Sample>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
+      check_plan<Sample>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
   if (checked != cudaSuccess) return checked;
   int grid = 0;
-  const cudaError_t err = plan_grid(serve_mega_any_kernel<Sample, P, kMulti, Wt>, smem,
-                                    (a.capacity + plan.m - 1) / plan.m, &grid);
+  const cudaError_t err =
+      plan_grid_threads(serve_mega_any_kernel<Sample, P, kMulti, Wt>, any_threads<Sample>(),
+                        smem, (a.capacity + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
   serve_mega_any_kernel<Sample, P, kMulti, Wt>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
+      <<<grid, any_threads<Sample>(), smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
           static_cast<const Sample*>(a.stream), static_cast<const float*>(a.res),
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,

@@ -25,12 +25,14 @@
 // where it is long. At 4,096 windows of 3 channels: (256, 16) moves 9.6 MB
 // of int16 samples for 0.10 GFLOP (bytes: 0.0029 ms at 3.35 TB/s);
 // (512, 64) moves 15 MB for 0.81 GFLOP (operations: 0.012 ms at 67 TFLOP/s,
-// f32 on CUDA cores).
+// f32 on CUDA cores). Float32 samples move twice the bytes: 0.0052 ms at
+// (256, 16) and 0.012 ms at (700, 32) and (512, 64) are bytes.
 //
-// The one-window-a-block engine this replaces ran about five block-wide
-// barriers per channel per window, read W from L1/L2 once per window and
-// channel (1.6 GB of L2 traffic at (512, 64)), loaded samples 2 bytes a
-// thread and overlapped nothing. The design here:
+// Two engines share the contract below, one per sample type.
+//
+// The int16 engine, run_tiles_any (the one-window-a-block engine before
+// it ran about five block-wide barriers per channel per window, read W
+// from L1/L2 once per window and channel and overlapped nothing):
 //   - A tile of M windows a block (AnyPlan::m, chosen per launch by
 //     ops/generic_plan.py from the rows, sizes and the card: 1 at a serve
 //     batch of 64, about 8-16 at thousands of windows); persistent blocks
@@ -48,39 +50,63 @@
 //     samples, which convert by integer operations, not the quarter-rate
 //     I2F), the centred row written to z in shared memory.
 //   - W in shared memory: resident for the whole launch where it fits
-//     beside the tile (4-byte cp.async copies, all in flight at once),
-//     else streamed in chunks of rows through two slots shared by every
-//     row of the piece (one barrier a chunk; chunk c + 1 flies while c is
-//     contracted, and the next piece's samples after the last chunk).
+//     beside the tile, else streamed in chunks of rows through two slots.
 //   - The contraction is register-blocked: thread (row group, column
-//     group) owns rr rows x qq coefficients (qq = 4, or 1 for a tile of
-//     few outputs, such as a serve batch's single window, which then
-//     spreads over more threads, each with a shorter chain of FMAs), and
-//     reads 4 samples of a row of z as a float4 (z's row stride is 4 mod
-//     32 floats, so a warp's rows hit distinct banks). Each output is
-//     summed by one thread in ascending j, an order that depends on
-//     nothing but j: a window's row is the same bit for bit whatever M or
-//     qq, its place in the tile or the launch.
+//     group) owns rr rows x qq coefficients (rr up to kAnyMaxRows, qq = 4,
+//     or 1 for a tile of few outputs), reading 4 samples of a row of z as
+//     a float4.
 //   - The epilogue: each window's norm in double on a warp; for the int8
 //     and int4 rungs each subband group's maximum on a thread and the
 //     quantize on every thread of the block; the caller's finish on a
 //     warp a window.
-//   Block-wide barriers: two a piece, one more at a tile's end (three for
-//   the quantized rungs), and one a streamed W chunk; none scale with the
-//   channel count where a tile is one piece.
+//   A block's phases run in turn behind block-wide barriers, two blocks a
+//   multiprocessor at 128 registers a thread.
 //
-// What holds it at 6-9x its bound at 4,096 windows (PERF.md section 6): a
-// block's phases run in turn behind their barriers, 16 warps a
-// multiprocessor at 126-128 registers a thread, and each output's
-// ascending chain of FMAs.
+// The float32-sample engine, run_tiles_float (it replaced the int16
+// engine's float32 instantiations, whose phases ran in turn and whose
+// 2 x 4 register tile, all a thread could hold beside the staging, mean
+// and epilogue state, fed 32 FMAs with six 16-byte shared loads): one
+// block of 384 threads a multiprocessor (168 registers a thread), in two
+// roles that hand work on through a ring of up to four chunk slots, each
+// slot 32 samples of j of every row of a piece and W's 32 rows of a
+// k-tile:
+//   - warps 0-7 contract: thread (row thread, column thread) owns
+//     FloatPlan::rr x qq outputs, 8 x 4 or 4 x 4 (12 or 8 16-byte shared
+//     loads feed 128 or 64 FMAs), or 1 x 1 for a tile of few outputs such
+//     as a serve batch's single window. Each output is one chain of FMAs
+//     from 0 in ascending j over the chunks, in registers. The warps a
+//     piece leaves idle copy the chunks `slots` ahead into the slots the
+//     contraction frees (cp.async of whole 16-byte chunks, each thread's
+//     arrival on the slot's mbarrier tracking its copies; all eight warps
+//     where fewer than two are idle).
+//   - warps 8-11 centre: per piece each row's mean (lane_baseline_sum's
+//     order, on 4 lanes a row), then per chunk z = x - mean in place in
+//     the slot, once its mbarrier says the copies have landed; and a
+//     tile's epilogue while the next tile is contracted.
+//   - Hand-offs are named barriers between the roles (bar.sync on one
+//     side, bar.arrive on the other) and the slots' mbarriers; none is
+//     block-wide but the block's first piece's means and its last tile's
+//     epilogue, which nothing else overlaps and the whole block runs.
+//   Why cp.async from many warps and not 1D bulk copies: a chunk is a few
+//   hundred copies of 144 bytes, one a row; issued as bulk copies they
+//   queued on the copy engine, and issued by one warp as cp.async they
+//   queued on that warp (PERF.md section 6).
+//   Every output is still one fmaf chain from 0.0f in ascending j, the
+//   mean summed in double in lane_baseline_sum's lane order, the centre
+//   __fmul_rn then __fsub_rn, normalize_row's and quantize_feature's
+//   order: rows, margins and quantized rows equal the int16-engine
+//   design's bit for bit at any plan.
 //
 // Reach: a launch is refused (kSharedMemoryExceeded) exactly where the
 // one-window-a-block engine's shared memory (any_smem_bytes) exceeded the
-// block's opt-in limit. Every other launch has a plan that fits: one row a
-// piece, nothing staged and the smallest W chunk take less shared memory
-// than that engine did.
+// block's opt-in limit, for either sample type. Every other launch has a
+// plan that fits: one row a piece, nothing staged and the smallest W chunk
+// (int16), or one row, 4 coefficients and one slot (float32: 172 floats
+// beside the tile's row), take less shared memory than that engine did.
 
 #pragma once
+
+#include <type_traits>
 
 #include "window_features.cuh"
 
@@ -97,14 +123,10 @@ constexpr int kAnyMinBlocksPerSm = 2;
 constexpr int kAnyFetch = 8;
 // The plan's fields, in the order the launchers take them.
 constexpr int kAnyPlanFields = 9;
-// The most (window, channel) rows one thread of the contraction owns: its
-// RR x qq accumulators and two steps' samples fit 128 registers beside the
-// rest of the kernel without a spill (2 for float32 samples, whose
-// instantiations spill at 3).
-template <class Sample>
-__host__ __device__ constexpr int max_rows() {
-  return sizeof(Sample) == 2 ? 3 : 2;
-}
+// The most (window, channel) rows one thread of the int16 engine's
+// contraction owns: its RR x qq accumulators and two steps' samples fit
+// 128 registers beside the rest of the kernel without a spill.
+constexpr int kAnyMaxRows = 3;
 
 // Subband groups of one channel's `features` coefficients: [0, 1), then
 // [2^(g-1), min(2^g, features)) for g >= 1 (ops/decode_ingest.py
@@ -128,7 +150,7 @@ inline size_t any_smem_bytes(int channels, int epoch, int features) {
 struct AnyPlan {
   int m;            // windows a tile
   int rz;           // (window, channel) rows a piece: the rows of z
-  int rr;           // rows each thread contracts: 1 to max_rows<Sample>()
+  int rr;           // rows each thread contracts: 1 to kAnyMaxRows
   int tq_log2;      // log2 of the contraction's column threads; a k-tile is qq << tq_log2
   int jc;           // W rows a streamed chunk (a multiple of 4), 0: W resident
   int ep;           // z's row stride in floats (4 mod 32, at least epoch rounded up to 4)
@@ -178,7 +200,7 @@ int check_any_plan(const int* fields, int channels, int epoch, int features, int
                   fields[5], fields[6], fields[7], fields[8]};
   if ((p.qq != 1 && p.qq != 4) || p.tq_log2 < 0 || kt_log2(p) > 7) return cudaErrorInvalidValue;
   const bool ok =
-      p.m >= 1 && p.m <= 1024 && p.rr >= 1 && p.rr <= max_rows<Sample>() && p.rz >= 1 &&
+      p.m >= 1 && p.m <= 1024 && p.rr >= 1 && p.rr <= kAnyMaxRows && p.rz >= 1 &&
       p.rz <= (kThreads >> p.tq_log2) * p.rr &&
       static_cast<long long>(p.rz) <= static_cast<long long>(p.m) * channels &&
       (p.jc == 0 || (p.jc >= 4 && p.jc % 4 == 0 && p.jc * k_tile(p) <= kThreads * kAnyFetch)) &&
@@ -649,15 +671,12 @@ __device__ __forceinline__ void contract_piece(const AnyLaunch<Sample>& a, int r
   }
 }
 
-// contract_piece at the plan's rows a thread (RR = 3 only where
-// max_rows allows it, so the float32-sample kernels hold no such code).
+// contract_piece at the plan's rows a thread.
 template <int QQ, Precision P, class Sample, class Next>
 __device__ __forceinline__ void contract_rows(const AnyLaunch<Sample>& a, int r0, int nr,
                                               const Next& stage_next) {
   if (a.p.rr == 1) {
     contract_piece<1, QQ, P>(a, r0, nr, stage_next);
-  } else if constexpr (max_rows<Sample>() == 2) {
-    contract_piece<2, QQ, P>(a, r0, nr, stage_next);
   } else if (a.p.rr == 2) {
     contract_piece<2, QQ, P>(a, r0, nr, stage_next);
   } else {
@@ -684,15 +703,14 @@ __device__ __forceinline__ void normalize_row(float* yr, int nfeat, int lane) {
 __device__ __forceinline__ int subband_group(int k) { return k == 0 ? 0 : 32 - __clz(k); }
 
 // The quantize step of the int8 and int4 rungs on the tile's first nw
-// normalized rows, by the whole block between barriers: each subband
-// group's largest magnitude by one thread (exact in any order) into gmax,
-// then quantize_feature on every element.
-template <Precision P>
-__device__ __forceinline__ void quantize_rows(float* y, float* gmax, int nw, int channels,
-                                              int features) {
+// normalized rows, in two halves between barriers. The first: each
+// subband group's largest magnitude by one thread (exact in any order)
+// into gmax, thread t of `threads` taking groups t, t + threads, ...
+__device__ __forceinline__ void group_maxima(const float* y, float* gmax, int nw, int channels,
+                                             int features, int t, int threads) {
   const int ng = subband_groups(features);
   const int pairs = nw * channels * ng;
-  for (int q = threadIdx.x; q < pairs; q += kThreads) {
+  for (int q = t; q < pairs; q += threads) {
     const int g = q % ng;
     const int lo = g == 0 ? 0 : 1 << (g - 1);
     const int hi = g == 0 ? 1 : ((1 << g) < features ? (1 << g) : features);
@@ -701,12 +719,29 @@ __device__ __forceinline__ void quantize_rows(float* y, float* gmax, int nw, int
     for (int k = lo; k < hi; ++k) m = fmaxf(m, fabsf(yc[k]));
     gmax[q] = m;
   }
-  __syncthreads();  // the maxima visible
+}
+
+// The second, once the maxima are visible: quantize_feature on every
+// element, thread t of `threads` taking elements t, t + threads, ...
+template <Precision P>
+__device__ __forceinline__ void quantize_elements(float* y, const float* gmax, int nw,
+                                                  int channels, int features, int t,
+                                                  int threads) {
+  const int ng = subband_groups(features);
   const int n = nw * channels * features;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  for (int i = t; i < n; i += threads) {
     const int cw = i / features;  // the (window, channel) row
     y[i] = quantize_feature<P>(y[i], gmax[cw * ng + subband_group(i - cw * features)]);
   }
+}
+
+// Both halves by the whole block (the int16 engine).
+template <Precision P>
+__device__ __forceinline__ void quantize_rows(float* y, float* gmax, int nw, int channels,
+                                              int features) {
+  group_maxima(y, gmax, nw, channels, features, threadIdx.x, kThreads);
+  __syncthreads();  // the maxima visible
+  quantize_elements<P>(y, gmax, nw, channels, features, threadIdx.x, kThreads);
   __syncthreads();  // the quantized rows visible
 }
 
@@ -723,6 +758,7 @@ __device__ __forceinline__ void run_tiles_any(void* smem, const StreamView<Sampl
                                               const float* __restrict__ w, int rows, int pre,
                                               int skip, int epoch, int features,
                                               const AnyPlan& plan, const Windows& win) {
+  static_assert(sizeof(Sample) == 2, "float32 samples run run_tiles_float");
   AnyLaunch<Sample> a{v, res, w, rows, pre, skip, epoch, features, plan,
                       nullptr, nullptr, nullptr, nullptr, nullptr};
   const int e4 = round4(epoch);
@@ -812,6 +848,828 @@ __device__ __forceinline__ void run_tiles_any(void* smem, const StreamView<Sampl
       win.finish(tile * plan.m + wi, a.y + static_cast<size_t>(wi) * nfeat, nfeat, lane);
     }
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The float32-sample engine, run_tiles_float: a block of kFloatThreads
+// threads in two roles, handing work on through a ring of `slots` chunk
+// slots in shared memory.
+
+constexpr int kFloatThreads = 384;
+constexpr int kConsumerThreads = 256;  // warps 0-7: the contraction and the copies
+constexpr int kCentreWarp0 = 8;        // warps 8-11: means, centre, epilogue
+constexpr int kCentreWarps = 4;
+constexpr int kCentreThreads = kCentreWarps * 32;
+// A chunk: 32 samples of every row of a piece, and W's 32 rows of a
+// k-tile. A row's region of a slot holds the 16-byte chunks of the address
+// space that cover its 32 samples from any offset (9 of them), and its
+// centred samples in place of them once centred: a stride of 36 floats,
+// 4 mod 32, so a warp's float4 reads of 8 consecutive rows hit distinct
+// banks.
+constexpr int kChunkJ = 32;
+constexpr int kRowFloats = 36;
+constexpr int kMaxSlots = 4;
+// Shared memory before the ring: the slots' mbarriers and the baseline's.
+constexpr int kBarrierBytes = 64;
+
+// Named barriers (0 is __syncthreads). Those between the two roles are
+// met by whole warps, one side arriving (bar.arrive: it goes on), the
+// other waiting.
+constexpr int kZReady = 1;      // + slot: the slot centred; centring arrive, consumers wait
+constexpr int kSlotRead = 5;    // + slot: the slot contracted; the consumers that copy the
+                                // next chunk into it wait, the others arrive
+constexpr int kBaseFree = 9;    // a piece's means taken; centring arrive, consumers wait
+constexpr int kYFull = 10;      // a tile's rows written; consumers arrive, centring waits
+constexpr int kYFree = 11;      // a tile's epilogue done; centring arrive, consumers wait
+constexpr int kCentreBar = 12;  // the centring warps among themselves
+constexpr int kPieceStart = 13; // the consumers among themselves: a piece's rows known
+constexpr int kRoles = kConsumerThreads + kCentreThreads;
+
+// A float32-sample launch's tile plan (ops/generic_plan.py
+// float_tile_plan).
+struct FloatPlan {
+  int m;            // windows a tile
+  int rz;           // (window, channel) rows a piece
+  int rr;           // rows a consumer thread contracts: 1, 4 or 8
+  int qq;           // coefficients a consumer thread contracts: 1 (rr 1) or 4
+  int tq;           // consumer threads across a k-tile: kt = qq * tq coefficients
+  int slots;        // ring slots, 1 to kMaxSlots
+  int base_floats;  // a row's staged baseline floats, 0: the means read device memory
+};
+
+template <class Sample>
+using AnyPlanOf = std::conditional_t<sizeof(Sample) == 4, FloatPlan, AnyPlan>;
+
+// Threads a block and blocks a multiprocessor of the generic kernels
+// (__launch_bounds__): 384 and one for float32 samples (168 registers a
+// thread), 256 and two for int16.
+template <class Sample>
+__host__ __device__ constexpr int any_threads() {
+  return sizeof(Sample) == 4 ? kFloatThreads : kThreads;
+}
+template <class Sample>
+__host__ __device__ constexpr int any_min_blocks() {
+  return sizeof(Sample) == 4 ? 1 : kAnyMinBlocksPerSm;
+}
+
+__host__ __device__ inline int float_kt(const FloatPlan& p) { return p.qq * p.tq; }
+__host__ __device__ inline int float_slot_floats(const FloatPlan& p) {
+  return p.rz * kRowFloats + kChunkJ * float_kt(p);
+}
+
+// Words a row of a piece keeps beside the ring: two window starts (one a
+// piece, alternately), its mean, resolution, analysis segment and offset,
+// and the first chunks of its analysis segment and baseline.
+constexpr int kRowWords = 8;
+
+// Shared memory of a plan: the mbarriers, the ring's slots (each the
+// piece's rows, then W's chunk), the staged baselines, the tile's rows y
+// and their subband groups' maxima, and kRowWords a row of the piece.
+inline size_t float_plan_smem_bytes(const FloatPlan& p, int channels, int features) {
+  const size_t rows = static_cast<size_t>(p.m) * channels;
+  const size_t floats = static_cast<size_t>(p.slots) * float_slot_floats(p) +
+                        static_cast<size_t>(p.rz) * p.base_floats +
+                        rows * (features + subband_groups(features)) +
+                        kRowWords * static_cast<size_t>(p.rz);
+  return kBarrierBytes + floats * sizeof(float);
+}
+
+// check_any_plan for float32 samples: the same refusal
+// (kSharedMemoryExceeded where any_smem_bytes exceeds the limit), then the
+// plan's consistency and fit.
+inline int check_float_plan(const int* fields, int channels, int epoch, int features, int pre,
+                            FloatPlan* plan, size_t* smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int max_optin = 0;
+  err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t limit = static_cast<size_t>(max_optin);
+  if (any_smem_bytes(channels, epoch, features) > limit) return kSharedMemoryExceeded;
+  if (fields == nullptr) return cudaErrorInvalidValue;
+  const FloatPlan p{fields[0], fields[1], fields[2], fields[3], fields[4], fields[5], fields[6]};
+  const bool tile = (p.rr == 1 && p.qq == 1 && p.tq >= 4 && p.tq <= 64 && p.tq % 4 == 0) ||
+                    ((p.rr == 4 || p.rr == 8) && p.qq == 4 && p.tq >= 1 && p.tq <= 16);
+  const bool ok = tile && p.m >= 1 && p.m <= 1024 && p.rz >= 1 &&
+                  p.rz <= p.rr * (kConsumerThreads / p.tq) &&
+                  static_cast<long long>(p.rz) <= static_cast<long long>(p.m) * channels &&
+                  p.slots >= 1 && p.slots <= kMaxSlots &&
+                  (p.base_floats == 0 || p.base_floats == 4 * segment_chunks<float>(pre));
+  if (!ok) return cudaErrorInvalidValue;
+  *smem = float_plan_smem_bytes(p, channels, features);
+  if (*smem > limit) return cudaErrorInvalidValue;
+  *plan = p;
+  return cudaSuccess;
+}
+
+template <class Sample>
+int check_plan(const int* fields, int channels, int epoch, int features, int pre,
+               AnyPlanOf<Sample>* plan, size_t* smem) {
+  if constexpr (sizeof(Sample) == 4) {
+    return check_float_plan(fields, channels, epoch, features, pre, plan, smem);
+  } else {
+    return check_any_plan<Sample>(fields, channels, epoch, features, pre, plan, smem);
+  }
+}
+
+// plan_grid for a generic kernel of `threads` threads a block.
+template <class Kernel>
+cudaError_t plan_grid_threads(Kernel kernel, int threads, size_t smem, int tiles, int* grid) {
+  if (threads == kThreads) return plan_grid(kernel, smem, tiles, grid);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long want = static_cast<long long>(sms) * per_sm;
+  *grid = static_cast<int>(tiles < want ? tiles : want);
+  return cudaSuccess;
+}
+
+// A named barrier met by whole warps: the warp reconverged first (a role's
+// loops may leave its lanes apart), then bar.sync (wait) or bar.arrive
+// (arrive and go on), which order this thread's shared-memory accesses
+// before those of the threads that wait.
+__device__ __forceinline__ void role_sync(int id, int threads) {
+  __syncwarp();
+  named_sync(id, threads);
+}
+
+__device__ __forceinline__ void role_arrive(int id, int threads) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_address(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+// An arrival on `bar`, releasing this thread's earlier stores.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_address(bar)) : "memory");
+}
+
+// An arrival on `bar` once this thread's cp.async copies so far have
+// landed (counted in the barrier's arrivals: .noinc).
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_address(bar))
+               : "memory");
+}
+
+// A waiting thread may sleep in the barrier up to this long (ns) before it
+// checks again, rather than spin through the shared-memory pipe the
+// consumers' loads use.
+constexpr unsigned kSuspendNs = 0x989680;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      "  .reg .pred done;\n"
+      "WAIT_%=:\n"
+      "  mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1, %2;\n"
+      "  @!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_address(bar)),
+      "r"(parity), "r"(kSuspendNs)
+      : "memory");
+}
+
+// cp.async of 16 and of 4 bytes for the copying warps. Unlike copy_async16
+// and copy_async4 they do not order the thread's other memory accesses
+// (no "memory" clobber), so its loads of the next chunk's addresses are
+// not held back behind each copy; the copies stay in order among
+// themselves and before the arrival that tracks them (volatile asm).
+__device__ __forceinline__ void stage16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_address(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void stage4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_address(dst)), "l"(src));
+}
+
+// What the roles read of a launch, with the pieces of the carve.
+struct FloatLaunch {
+  StreamView<float> v;
+  const float* __restrict__ res;
+  const float* __restrict__ w;
+  int rows;
+  int pre;
+  int skip;
+  int epoch;
+  int features;
+  FloatPlan p;
+  uint64_t* bars;  // [kMaxSlots] the slots' copies, then [1] the baselines'
+  float* ring;     // [slots][rz x kRowFloats + kChunkJ x kt]
+  float* base;     // [rz][base_floats]  the piece's staged baselines
+  float* y;        // [m][channels * features]  the tile's rows
+  float* gmax;     // [m][channels][subband groups]
+  int* starts;     // [2][rz]  the window starts of a piece's rows (by piece parity)
+  float2* rcm;     // [rz]  a row's resolution and mean (0 and 0 past the launch's end)
+  int2* seg;       // [rz]  its analysis segment's in-row samples (lo | hi << 16; none: 0)
+                   //       and offset in its first chunk
+  int* chunk0;     // [rz]  the 16-byte chunk holding its analysis segment's first sample
+  int* base0;      // [rz]  and its baseline's (kNoRow: a row past the launch's end)
+  uintptr_t xb;    // the 16-byte chunk holding the sample tensor's first byte
+  uintptr_t xbeg;  // the sample tensor's first byte
+  uintptr_t xend;  // and one past its last
+
+  __device__ __forceinline__ int tile_rows() const { return p.m * v.channels; }
+  __device__ __forceinline__ int pieces() const { return (tile_rows() + p.rz - 1) / p.rz; }
+  __device__ __forceinline__ int k_tiles() const {
+    return (features + float_kt(p) - 1) / float_kt(p);
+  }
+  __device__ __forceinline__ int chunks() const { return (epoch + kChunkJ - 1) / kChunkJ; }
+  __device__ __forceinline__ int tiles() const { return (rows + p.m - 1) / p.m; }
+  __device__ __forceinline__ bool last_tile(int tile) const {
+    return tile + static_cast<int>(gridDim.x) >= tiles();
+  }
+  __device__ __forceinline__ float* slot(int s) const {
+    return ring + static_cast<size_t>(s) * float_slot_floats(p);
+  }
+  // The consumer warps a piece of nr rows keeps busy, and the first warp
+  // of those that copy the chunks ahead while it is contracted: the warps
+  // it leaves idle, or all of them where it leaves fewer than two.
+  __device__ __forceinline__ int busy_warps(int nr) const {
+    const int tre = (nr + p.rr - 1) / p.rr;
+    return (tre * p.tq + 31) / 32;
+  }
+  __device__ __forceinline__ int copy_warp0(int nr) const {
+    const int busy = busy_warps(nr);
+    return kConsumerThreads / 32 - busy >= 2 ? busy : 0;
+  }
+  // The threads that meet at a chunk's ready barrier: the centring warps
+  // and the consumer warps that read the chunk (all but those that copy,
+  // where those are apart).
+  __device__ __forceinline__ int ready_threads(int nr) const {
+    const int w0 = copy_warp0(nr);
+    return (w0 > 0 ? w0 * 32 : kConsumerThreads) + kCentreThreads;
+  }
+  // the launch row (window) of row tr of `tile`, and its channel
+  __device__ __forceinline__ int window_of(int tile, int tr, int* c) const {
+    const int wi = tr / v.channels;
+    *c = tr - wi * v.channels;
+    return tile * p.m + wi;
+  }
+  // the index, from xb, of the 16-byte chunk holding sample j of channel c
+  // (j may lie outside the row, the chunk outside the tensor)
+  __device__ __forceinline__ int chunk_of(int c, long long j) const {
+    const long long byte = static_cast<long long>(xbeg - xb) +
+                           (static_cast<long long>(c) * v.n + j) * 4;
+    return static_cast<int>(byte >> 4);
+  }
+  // Start copying chunk i into dst: a chunk inside the tensor is one
+  // 16-byte cp.async; of one across either end of it, its floats inside
+  // one 4-byte cp.async each; one outside it, nothing (its samples lie
+  // outside every row, masked where they are read).
+  __device__ __forceinline__ void copy_chunk(int i, float* dst) const {
+    const uintptr_t at = xb + static_cast<uintptr_t>(static_cast<long long>(i) * 16);
+    if (at >= xbeg && at + 16 <= xend) {
+      stage16(dst, reinterpret_cast<const void*>(at));
+    } else if (at + 16 > xbeg && at < xend) {
+      for (int u = 0; u < 4; ++u) {
+        const uintptr_t f = at + 4 * u;
+        if (f >= xbeg && f < xend) stage4(dst + u, reinterpret_cast<const void*>(f));
+      }
+    }
+  }
+};
+
+constexpr int kNoRow = -2147483647 - 1;
+// the 16-byte chunks of a row's region in a slot
+constexpr int kRowChunks = kRowFloats / 4;
+
+// Where the block's chunk q lies: its tile, piece (pc: among the block's
+// pieces), k-tile and chunk of j. (Computed afresh for each chunk copied:
+// the consumers keep only q across their loop, which leaves the registers
+// to the contraction.)
+struct StageCursor {
+  int q;
+  int tile;
+  int piece;
+  int pc;
+  int k;
+  int cc;
+};
+
+__device__ __forceinline__ StageCursor chunk_at(const FloatLaunch& a, int q) {
+  const int nc = a.chunks();
+  const int per_piece = a.k_tiles() * nc;
+  const int pc = q / per_piece;
+  const int kc = q - pc * per_piece;
+  const int t = pc / a.pieces();
+  return StageCursor{q, static_cast<int>(blockIdx.x) + t * static_cast<int>(gridDim.x),
+                     pc - t * a.pieces(), pc, kc / nc, kc % nc};
+}
+
+// The consumers' copies of the cursor's chunk into slot q % slots: the 9
+// 16-byte chunks of the address space from the one holding the chunk's
+// first sample, for each row of its piece (consecutive threads on
+// consecutive chunks of a row, so a warp's copies coalesce), copied whole,
+// and W's 32 rows of its k-tile, by the consumer warps from warp w0 (those
+// the piece being contracted leaves idle, or all); each of them arrives on
+// the slot's mbarrier when its copies land, every other consumer at once.
+// At a piece's first chunk every consumer first waits until the centring
+// warps have taken the previous piece's means, writes the piece's window
+// starts and the chunks of its rows to shared memory, and copies its rows'
+// baselines (the baselines' mbarrier: each thread's arrival for its stores
+// and one for its copies). The copies are spread over many warps because
+// one warp issuing them all, or the copy engine fed one bulk copy a row,
+// left the chunks waiting on their copies. Rows past the launch's end
+// stage nothing.
+template <class Windows>
+__device__ __forceinline__ void stage_chunk(const FloatLaunch& a, const StageCursor& at, int w0,
+                                            const Windows& win) {
+  const int t = threadIdx.x;
+  const int r0 = at.piece * a.p.rz;
+  const int nr = min(a.p.rz, a.tile_rows() - r0);
+  if (at.k == 0 && at.cc == 0) {
+    uint64_t* base_bar = a.bars + kMaxSlots;
+    // (every consumer meets here, so none still reads the last piece's
+    // chunks when they are overwritten)
+    if (at.pc > 0) role_sync(kBaseFree, kRoles);
+    int* st = a.starts + (at.pc & 1) * a.p.rz;
+    for (int r = t; r < nr; r += kConsumerThreads) {
+      int c;
+      const int row = a.window_of(at.tile, r0 + r, &c);
+      const int start = row < a.rows ? win.start(row) : 0;
+      st[r] = start;
+      a.chunk0[r] = row < a.rows ? a.chunk_of(c, static_cast<long long>(start) + a.pre + a.skip)
+                                 : kNoRow;
+      a.base0[r] = row < a.rows ? a.chunk_of(c, start) : kNoRow;
+    }
+    role_sync(kPieceStart, kConsumerThreads);  // the piece's chunks known to every consumer
+    // a row's baseline chunks on 8 consecutive threads
+    const int base_chunks = a.p.base_floats / 4;
+    for (int r = t / 8; r < nr; r += kConsumerThreads / 8) {
+      const int b0 = a.base0[r];
+      if (b0 == kNoRow) continue;
+      for (int k = t % 8; k < base_chunks; k += 8) {
+        a.copy_chunk(b0 + k, a.base + static_cast<size_t>(r) * a.p.base_floats + 4 * k);
+      }
+    }
+    mbar_arrive(base_bar);  // the starts written
+    mbar_arrive_on_copies(base_bar);
+  }
+  const int s = at.q % a.p.slots;
+  uint64_t* bar = a.bars + s;
+  if (t < w0 * 32) {
+    mbar_arrive(bar);
+    return;
+  }
+  const int u0 = t - w0 * 32;
+  const int n = kConsumerThreads - w0 * 32;
+  float* zs = a.slot(s);
+  float* ws = zs + a.p.rz * kRowFloats;
+  const int kt = float_kt(a.p);
+  const int j0 = at.cc * kChunkJ;
+  for (int i = u0; i < nr * kRowChunks; i += n) {
+    const int r = i / kRowChunks;
+    const int u = i - r * kRowChunks;
+    const int c0 = a.chunk0[r];
+    if (c0 != kNoRow) a.copy_chunk(c0 + at.cc * (kChunkJ / 4) + u, zs + r * kRowFloats + 4 * u);
+  }
+  const int rows_w = min(kChunkJ, a.epoch - j0);
+  if (kt == a.features && kt % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(a.w) % kChunkBytes == 0) {
+    // W's chunk is one contiguous run where a k-tile spans every coefficient
+    const float* src = a.w + static_cast<long long>(j0) * kt;
+    for (int i = u0; i < rows_w * kt / 4; i += n) stage16(ws + 4 * i, src + 4 * i);
+  } else {
+    const int col0 = at.k * kt;
+    const int ncols = min(kt, a.features - col0);
+    for (int i = u0; i < rows_w * ncols; i += n) {
+      const int jr = i / ncols;
+      const int col = i - jr * ncols;
+      stage4(ws + jr * kt + col, a.w + static_cast<long long>(j0 + jr) * a.features + col0 + col);
+    }
+  }
+  mbar_arrive_on_copies(bar);
+}
+
+// The epilogue of a tile's first nw windows by `warps` warps from warp
+// w0 (t: the thread's index among them; sync: their barrier): each
+// window's norm on a warp (normalize_row), for the int8 and int4 rungs the
+// quantize step by all of them, the caller's finish on a warp a window.
+template <Precision P, class Windows, class Sync>
+__device__ __forceinline__ void float_finish(const FloatLaunch& a, int tile, int w0, int warps,
+                                             const Sync& sync, const Windows& win) {
+  const int t = threadIdx.x - w0 * 32;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int C = a.v.channels;
+  const int nw = min(a.p.m, a.rows - tile * a.p.m);
+  const int nfeat = C * a.features;
+  for (int wi = warp; wi < nw; wi += warps) {
+    normalize_row(a.y + static_cast<size_t>(wi) * nfeat, nfeat, lane);
+  }
+  if constexpr (quantized(P)) {
+    sync();  // the normalized rows visible
+    group_maxima(a.y, a.gmax, nw, C, a.features, t, warps * 32);
+    sync();  // the maxima visible
+    quantize_elements<P>(a.y, a.gmax, nw, C, a.features, t, warps * 32);
+    sync();  // the quantized rows visible
+  } else {
+    __syncwarp();
+  }
+  for (int wi = warp; wi < nw; wi += warps) {
+    win.finish(tile * a.p.m + wi, a.y + static_cast<size_t>(wi) * nfeat, nfeat, lane);
+  }
+}
+
+// A piece's rows' resolutions, then their means and where their analysis
+// segments lie, by `threads` threads (t: this one's index among them;
+// sync: their barrier), once the piece's baselines have landed. The means:
+// group g of 4 lanes on rows g, g + threads / 4, ..., lane l4 summing
+// lane_baseline_sum's lanes l4 and l4 + 4 and adding them, the first step
+// of that function's butterfly over 8 lanes, then the other two steps over
+// the 4 (double addition commutes, so every mean is the 8-lane one bit for
+// bit); the loop's trip count is the warps', so every lane reaches each
+// butterfly.
+template <class Sync>
+__device__ __forceinline__ void piece_means(const FloatLaunch& a, int tile, int r0, int nr,
+                                            const int* st, int t, int threads,
+                                            const Sync& sync) {
+  for (int r = t; r < nr; r += threads) {
+    int c;
+    const int row = a.window_of(tile, r0 + r, &c);
+    a.rcm[r].x = row < a.rows ? a.res[c] : 0.0f;
+  }
+  sync();  // the resolutions visible
+  constexpr int kMeanLanes = kRowLanes / 2;
+  const int l4 = t % kMeanLanes;
+  for (int rb = 0; rb < nr; rb += threads / kMeanLanes) {
+    const int r = rb + t / kMeanLanes;
+    int c = 0;
+    const int row = r < nr ? a.window_of(tile, r0 + r, &c) : a.rows;
+    const bool valid = row < a.rows;
+    double sum = 0.0;
+    if (valid) {
+      const int start = st[r];
+      const float rcv = a.rcm[r].x;
+      const InRow in(start, a.pre, a.v.n);
+      // (each call site reads one memory space: shared or global loads)
+      if (a.p.base_floats) {
+        const float* b =
+            a.base + static_cast<size_t>(r) * a.p.base_floats + a.v.offset(c, start);
+        sum = lane_baseline_sum(b, in, a.pre, rcv, l4) +
+              lane_baseline_sum(b, in, a.pre, rcv, l4 + kMeanLanes);
+      } else {
+        const float* b = a.v.raw + static_cast<long long>(c) * a.v.n + start;
+        sum = lane_baseline_sum(b, in, a.pre, rcv, l4) +
+              lane_baseline_sum(b, in, a.pre, rcv, l4 + kMeanLanes);
+      }
+    }
+#pragma unroll
+    for (int off = kMeanLanes / 2; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    }
+    if (r < nr && l4 == 0) {
+      int2 seg = make_int2(0, 0);
+      if (valid) {
+        const long long first = static_cast<long long>(st[r]) + a.pre + a.skip;
+        const InRow in(first, a.epoch, a.v.n);
+        seg.x = static_cast<int>(static_cast<unsigned>(in.lo) |
+                                 (static_cast<unsigned>(in.hi) << 16));
+        seg.y = a.v.offset(c, first);
+      }
+      a.rcm[r].y = valid ? static_cast<float>(sum / static_cast<double>(a.pre)) : 0.0f;
+      a.seg[r] = seg;
+    }
+  }
+  sync();  // the means visible
+}
+
+// The centring warps. Per piece (but the block's first, whose means the
+// whole block takes), once its baselines have landed: piece_means. Then
+// per chunk, once its copies have landed, z = x - mean over the row's
+// staged samples in place: a row on 8 lanes, lane l8 on its samples l8,
+// l8 + 8, ... (a warp's four rows two apart, so its reads and writes hit
+// distinct banks), two rounds of 16 rows at a time, all loaded before any
+// is stored; for kBf16 rounded, and W's chunk rounded too. A tile's
+// epilogue (but the block's last, which the whole block runs) runs once
+// the chunk `slots` chunks into the next tile is centred: so it overlaps
+// the next tile's contraction, and the consumers' copies, which run that
+// far ahead, never wait on it.
+template <Precision P, class Windows>
+__device__ __forceinline__ void float_centring(const FloatLaunch& a, const Windows& win) {
+  const int ct = threadIdx.x - kCentreWarp0 * 32;
+  const int cw = ct / 32;
+  const int lane = ct % 32;
+  const int l8 = lane % kRowLanes;
+  const int S = a.p.slots;
+  const int nk = a.k_tiles();
+  const int nc = a.chunks();
+  const int pieces = a.pieces();
+  constexpr int kRound = kCentreThreads / kRowLanes;  // rows at once: 16
+  // this lane's row of each 16: warp cw on rows (cw & 1) + 2 g + 8 (cw >> 1)
+  const int rl = (cw & 1) + 2 * (lane / kRowLanes) + 8 * (cw >> 1);
+  const int tile_chunks = pieces * nk * nc;
+  const int tiles_here = (a.tiles() - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  uint64_t* base_bar = a.bars + kMaxSlots;
+  auto centre_sync = [] { role_sync(kCentreBar, kCentreThreads); };
+  int epilogues = 0;  // the block's tiles finished so far (but the last)
+  auto epilogue = [&] {
+    role_sync(kYFull, kRoles);
+    float_finish<P>(a, blockIdx.x + epilogues * gridDim.x, kCentreWarp0, kCentreWarps,
+                    centre_sync, win);
+    role_arrive(kYFree, kRoles);
+    ++epilogues;
+  };
+  int q = 0;
+  int pc = 0;
+  for (int tile = blockIdx.x; tile < a.tiles(); tile += gridDim.x) {
+    for (int p = 0; p < pieces; ++p, ++pc) {
+      const int r0 = p * a.p.rz;
+      const int nr = min(a.p.rz, a.tile_rows() - r0);
+      if (pc > 0) {
+        mbar_wait(base_bar, pc & 1);
+        centre_sync();  // the last piece's chunks centred: its rows' words free
+        piece_means(a, tile, r0, nr, a.starts + (pc & 1) * a.p.rz, ct, kCentreThreads,
+                    centre_sync);
+      }
+      role_arrive(kBaseFree, kRoles);
+      const int ready = a.ready_threads(nr);
+      for (int k = 0; k < nk; ++k) {
+        for (int cc = 0; cc < nc; ++cc, ++q) {
+          const int s = q % S;
+          mbar_wait(a.bars + s, (q / S) & 1);
+          float* zs = a.slot(s);
+          const int j0 = cc * kChunkJ;
+          const int len = min(kChunkJ, a.epoch - j0);
+          for (int rb = 0; rb < nr; rb += 2 * kRound) {
+            float z[2][4];
+            int at[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = rb + h * kRound + rl;
+              const int rs = r < nr ? r : 0;
+              at[h] = r < nr ? r * kRowFloats : -1;
+              const int2 seg = a.seg[rs];
+              const float2 rcm = a.rcm[rs];
+              const float* x0 = zs + rs * kRowFloats + seg.y;
+              const int lo = static_cast<int>(static_cast<unsigned>(seg.x) & 0xffffu) - j0;
+              const int hi = static_cast<int>(static_cast<unsigned>(seg.x) >> 16) - j0;
+              if (lo <= 0 && hi >= kChunkJ && len == kChunkJ) {
+                // the whole chunk in the row: the common case
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                  z[h][u] = __fsub_rn(__fmul_rn(x0[l8 + kRowLanes * u], rcm.x), rcm.y);
+                }
+              } else {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                  const int j = l8 + kRowLanes * u;
+                  const float x = (j >= lo && j < hi) ? __fmul_rn(x0[j], rcm.x) : 0.0f;
+                  z[h][u] = j < len ? __fsub_rn(x, rcm.y) : 0.0f;
+                }
+              }
+              if constexpr (P == Precision::kBf16) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) z[h][u] = round_bf16(z[h][u]);
+              }
+            }
+            __syncwarp();  // the rows' samples read before any is overwritten
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (at[h] >= 0) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) zs[at[h] + l8 + kRowLanes * u] = z[h][u];
+              }
+            }
+          }
+          if constexpr (P == Precision::kBf16) {
+            float* ws = zs + a.p.rz * kRowFloats;
+            for (int i = ct; i < kChunkJ * float_kt(a.p); i += kCentreThreads) {
+              ws[i] = round_bf16(ws[i]);
+            }
+          }
+          role_arrive(kZReady + s, ready);
+          while (epilogues < tiles_here - 1 && (epilogues + 1) * tile_chunks + S - 1 <= q) {
+            epilogue();
+          }
+        }
+      }
+    }
+  }
+  while (epilogues < tiles_here - 1) epilogue();
+}
+
+// acc[i][q] += sum over j < jlen (a multiple of 4) of z[row_i][j] *
+// w[j][QQ tq + q] in ascending j, w already at this thread's coefficients:
+// 4 samples of each of the RR rows (float4s) and 4 rows of W a step.
+template <int RR, int QQ>
+__device__ __forceinline__ void fma_chunk(float (&acc)[RR][QQ], const float* z,
+                                          const int (&off)[RR], const float* w, int kt,
+                                          int jlen) {
+  auto step = [&](int j) {
+    float4 zv[RR];
+#pragma unroll
+    for (int i = 0; i < RR; ++i) zv[i] = *reinterpret_cast<const float4*>(z + off[i] + j);
+    fma_step<RR, QQ>(acc, zv, w + j * kt, kt);
+  };
+  if (RR < 8 && jlen == kChunkJ) {
+    // a whole chunk, unrolled so the next steps' loads fly during this
+    // one's FMAs (the 8 x 4 tile is not: those loads would hold registers
+    // it needs, and its kernels spilled)
+#pragma unroll 4
+    for (int j = 0; j < kChunkJ; j += 4) step(j);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < jlen; j += 4) step(j);
+  }
+}
+
+// The consumers: thread (row thread tr, column thread tq) of a piece owns
+// rows tr, tr + TR, ... (RR of them, TR = ceil(rows / RR); a row past the
+// piece repeats its last row and is not written; warps with no row skip the
+// FMAs) and coefficients QQ tq .. QQ tq + QQ - 1 of each k-tile, and sums
+// each output in registers over the chunks of the k-tile, one chain of
+// FMAs from 0 in ascending j. Once all have read a slot, they start the
+// copies of the chunk `slots` ahead into it (stage_chunk; `next` is the
+// first chunk the block's start has not copied, `total` the block's
+// chunks). At a k-tile's end each writes its outputs to y (the first write
+// of a tile waits for the previous tile's epilogue); at a tile's end they
+// hand y to the epilogue (the block's last tile: to the block).
+template <int RR, int QQ, class Windows>
+__device__ __forceinline__ void float_consumers(const FloatLaunch& a, int next, int total,
+                                                const Windows& win) {
+  const int t = threadIdx.x;
+  const int TQ = a.p.tq;
+  const int kt = QQ * TQ;
+  const int tq = t % TQ;
+  const int tr = t / TQ;
+  const int first_tr = (t & ~31) / TQ;  // the warp's first thread's
+  const int S = a.p.slots;
+  const int F = a.features;
+  const int e4 = round4(a.epoch);
+  const int nk = a.k_tiles();
+  const int nc = a.chunks();
+  const int pieces = a.pieces();
+  int q = 0;
+  bool first_tile = true;
+  for (int tile = blockIdx.x; tile < a.tiles(); tile += gridDim.x) {
+    for (int p = 0; p < pieces; ++p) {
+      const int r0 = p * a.p.rz;
+      const int nr = min(a.p.rz, a.tile_rows() - r0);
+      const int tre = (nr + RR - 1) / RR;
+      int off[RR];
+#pragma unroll
+      for (int i = 0; i < RR; ++i) off[i] = min(tr + i * tre, nr - 1) * kRowFloats;
+      const bool active = first_tr < tre;
+      // the warps this piece leaves idle copy the chunks ahead (all of
+      // them where it leaves fewer than two) and do not read them
+      const int w0 = a.copy_warp0(nr);
+      const bool copies = static_cast<int>(t / 32) >= w0;
+      const bool reads = w0 == 0 || !copies;
+      const int ready = a.ready_threads(nr);
+      for (int k = 0; k < nk; ++k) {
+        float acc[RR][QQ];
+#pragma unroll
+        for (int i = 0; i < RR; ++i) {
+#pragma unroll
+          for (int u = 0; u < QQ; ++u) acc[i][u] = 0.0f;
+        }
+        for (int cc = 0; cc < nc; ++cc, ++q) {
+          const int s = q % S;
+          if (reads) role_sync(kZReady + s, ready);
+          const float* zs = a.slot(s);
+          if (active) {
+            fma_chunk<RR, QQ>(acc, zs, off, zs + a.p.rz * kRowFloats + QQ * tq, kt,
+                              min(kChunkJ, e4 - cc * kChunkJ));
+          }
+          if (cc + 1 == nc) {
+            if (p == 0 && k == 0 && !first_tile) role_sync(kYFree, kRoles);
+            const int col = k * kt + QQ * tq;
+            if (tr < tre) {
+#pragma unroll
+              for (int i = 0; i < RR; ++i) {
+                const int r = tr + i * tre;
+                if (r < nr) {
+                  float* yr = a.y + static_cast<size_t>(r0 + r) * F;
+#pragma unroll
+                  for (int u = 0; u < QQ; ++u) {
+                    if (col + u < F) yr[col + u] = acc[i][u];
+                  }
+                }
+              }
+            }
+            if (p + 1 == pieces && k + 1 == nk && !a.last_tile(tile)) {
+              role_arrive(kYFull, kRoles);
+            }
+          }
+          // the slot read by every consumer: those that copy wait for it
+          if (copies) {
+            role_sync(kSlotRead + s, kConsumerThreads);
+          } else {
+            role_arrive(kSlotRead + s, kConsumerThreads);
+          }
+          // the chunks up to `slots` ahead: the one into this slot, and any
+          // the first piece's copies left (they stop at its end)
+          for (; next < total && next <= q + S; ++next) stage_chunk(a, chunk_at(a, next), w0, win);
+        }
+      }
+    }
+    first_tile = false;
+  }
+  // the last piece's means: the hand-back the copies no longer wait for
+  role_sync(kBaseFree, kRoles);
+}
+
+// Walk this block's tiles (tile = blockIdx.x, + gridDim.x, ...) by roles:
+// warps 0-7 contract and copy, warps 8-11 centre and finish; the means of
+// the block's first piece and the epilogue of its last tile, which nothing
+// overlaps, by all 12 warps. No barrier is block-wide between those; each
+// hand-off is a named barrier or a slot's mbarrier. Every output is the
+// int16 engine's function in the same operations and order (the mean in
+// lane_baseline_sum's order, the centre as __fmul_rn then __fsub_rn, one
+// chain of FMAs from 0 in ascending j, normalize_row, quantize_feature),
+// so a window's row is the same bit for bit whatever the plan or its place
+// in the launch.
+template <Precision P, class Windows>
+__device__ __forceinline__ void run_tiles_float(void* smem, const StreamView<float>& v,
+                                                const float* __restrict__ res,
+                                                const float* __restrict__ w, int rows, int pre,
+                                                int skip, int epoch, int features,
+                                                const FloatPlan& plan, const Windows& win) {
+  FloatLaunch a{v, res, w, rows, pre, skip, epoch, features, plan};
+  a.bars = static_cast<uint64_t*>(smem);
+  a.ring = reinterpret_cast<float*>(static_cast<char*>(smem) + kBarrierBytes);
+  a.base = a.ring + static_cast<size_t>(plan.slots) * float_slot_floats(plan);
+  a.rcm = reinterpret_cast<float2*>(a.base + static_cast<size_t>(plan.rz) * plan.base_floats);
+  a.seg = reinterpret_cast<int2*>(a.rcm + plan.rz);
+  a.y = reinterpret_cast<float*>(a.seg + plan.rz);
+  const size_t tile_rows = static_cast<size_t>(plan.m) * v.channels;
+  a.gmax = a.y + tile_rows * features;
+  a.starts = reinterpret_cast<int*>(a.gmax + tile_rows * subband_groups(features));
+  a.chunk0 = a.starts + 2 * plan.rz;
+  a.base0 = a.chunk0 + plan.rz;
+  a.xbeg = reinterpret_cast<uintptr_t>(v.raw);
+  a.xb = a.xbeg & ~static_cast<uintptr_t>(15);
+  a.xend = a.xbeg + static_cast<uintptr_t>(v.channels) * static_cast<uintptr_t>(v.n) * 4;
+  const int tiles = a.tiles();
+  if (static_cast<int>(blockIdx.x) >= tiles) return;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < plan.slots; ++s) mbar_init(a.bars + s, kConsumerThreads);
+    mbar_init(a.bars + kMaxSlots, 2 * kConsumerThreads);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // W's chunk slots zeroed: a chunk's rows past epoch are never copied, and
+  // meet z = 0 (a finite value times 0 leaves a chain as it is)
+  const int wn = kChunkJ * float_kt(plan);
+  for (int i = threadIdx.x; i < plan.slots * wn; i += kFloatThreads) {
+    a.slot(i / wn)[plan.rz * kRowFloats + i % wn] = 0.0f;
+  }
+  __syncthreads();  // the mbarriers initialized, W's slots zeroed
+  const int warp = threadIdx.x / 32;
+  // the consumers copy the block's first piece's baselines and first
+  // chunks (as many as the ring holds), then the whole block takes that
+  // piece's means: nothing else is ready to run yet
+  const int total =
+      ((tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) * a.pieces() * a.k_tiles() *
+      a.chunks();
+  int next = 0;
+  if (warp < kCentreWarp0) {
+    const int first_piece = a.k_tiles() * a.chunks();
+    for (; next < total && next < plan.slots && next < first_piece; ++next) {
+      stage_chunk(a, chunk_at(a, next), 0, win);
+    }
+  }
+  mbar_wait(a.bars + kMaxSlots, 0);
+  piece_means(a, blockIdx.x, 0, min(plan.rz, a.tile_rows()), a.starts, threadIdx.x,
+              kFloatThreads, [] { __syncthreads(); });
+  if (warp < kCentreWarp0) {
+    if (plan.rr == 8) {
+      float_consumers<8, 4>(a, next, total, win);
+    } else if (plan.rr == 4) {
+      float_consumers<4, 4>(a, next, total, win);
+    } else {
+      float_consumers<1, 1>(a, next, total, win);
+    }
+  } else {
+    float_centring<P>(a, win);
+  }
+  __syncthreads();  // the last tile's rows written
+  const int last =
+      blockIdx.x + ((tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x) * gridDim.x;
+  float_finish<P>(a, last, 0, kFloatThreads / 32, [] { __syncthreads(); }, win);
 }
 
 }  // namespace window_features

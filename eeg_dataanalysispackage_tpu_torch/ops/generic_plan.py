@@ -1,22 +1,40 @@
-"""The tile plan of the fused kernels' generic engine
-(``csrc/window_features_any.cuh``: ``AnyPlan``, ``run_tiles_any``).
+"""The tile plans of the fused kernels' generic engine
+(``csrc/window_features_any.cuh``: ``AnyPlan`` and ``run_tiles_any`` for
+int16 samples, ``FloatPlan`` and ``run_tiles_float`` for float32 ones).
 
 Every window and coefficient count but the main path's 512 / 16 runs that
 engine. A block takes a tile of ``m`` windows at a time; a tile's
-(window, channel) rows run in pieces of up to ``rz`` rows, each piece's
-samples staged in shared memory by 16-byte chunks, centred into ``z`` and
-contracted with W, which stays in shared memory for the launch where it
-fits and is streamed through two chunk slots where it does not.
+(window, channel) rows run in pieces of up to ``rz`` rows.
+
+On int16 samples (:class:`TilePlan`) each piece's samples are staged in
+shared memory by 16-byte chunks, centred into ``z`` and contracted with
+W, which stays in shared memory for the launch where it fits and is
+streamed through two chunk slots where it does not; a block's phases run
+in turn behind block-wide barriers.
+
+On float32 samples (:class:`FloatTilePlan`) a block of 384 threads works
+in two roles through a ring of ``slots`` chunk slots, a chunk 32 samples
+of j of every row of a piece and W's 32 rows of a k-tile: eight consumer
+warps contract each chunk, each thread an ``rr`` x ``qq`` register tile
+(8 x 4 or 4 x 4, or 1 x 1 for a tile of few outputs such as a serve
+batch's single window), and the warps a piece leaves idle copy the chunks
+ahead (cp.async); four centring warps take the means and centre each
+chunk in place (and run each tile's epilogue while the next tile is
+contracted). One block runs on a multiprocessor (168 registers a
+thread), so the plan balances the tiles over the multiprocessors' rounds
+with :func:`float_launch_cost`, a model of the busiest sub-partition's
+issue slots, the centring, the copies and each tile's fixed cost.
 
 :func:`generic_tile_plan` is a pure function of the sizes, the launch's
-row count and the card's multiprocessor count and shared-memory limit:
-both wrappers (``ingest_cuda``, ``serve_mega_cuda``) call it and pass the
-plan to the launchers, which check it again and refuse one that does not
-fit. It is memoized: its search takes ~0.1 ms of Python, more than a
-serve batch's kernel, and a server calls it with the same sizes every
-batch. It returns ``None`` exactly where the one-window-a-block engine this
-engine replaced could not fit its shared memory (:func:`any_smem_bytes`),
-and a plan that fits everywhere else.
+row count, the sample width and the card's multiprocessor count and
+shared-memory limit: both wrappers (``ingest_cuda``, ``serve_mega_cuda``)
+call it and pass the plan to the launchers, which check it again and
+refuse one that does not fit. It is memoized: its search takes ~0.1-1 ms
+of Python, more than a serve batch's kernel, and a server calls it with
+the same sizes every batch. It returns ``None`` exactly where the
+one-window-a-block engine this engine replaced could not fit its shared
+memory (:func:`any_smem_bytes`), for either sample width, and a plan that
+fits everywhere else.
 """
 
 from __future__ import annotations
@@ -35,10 +53,11 @@ MAX_K_TILE = 128
 
 
 def max_rows(sample_bytes: int) -> int:
-    """The most rows one thread of the contraction owns (``max_rows`` of
-    window_features_any.cuh): 3 for int16 samples, 2 for float32, whose
-    kernels spill at 3."""
-    return 3 if sample_bytes == 2 else 2
+    """The most rows one consumer thread of the contraction owns: 3 in the
+    int16 engine (``kAnyMaxRows`` of window_features_any.cuh, which fits
+    128 registers without a spill), 8 in the float32-sample engine (its
+    8 x 4 register tile, ``FLOAT_TILES``)."""
+    return 3 if sample_bytes == 2 else FLOAT_TILES[0][0]
 
 
 #: a tile of at most this many outputs (windows x channels x
@@ -175,6 +194,186 @@ def launch_cost(rows: int, plan: TilePlan, channels: int, sm_count: int,
     return -(-tiles // slots) * (plan.m + PIECE_OVERHEAD * pieces)
 
 
+# ---------------------------------------------------------------------------
+# The float32-sample engine (run_tiles_float): 384 threads a block, one
+# block a multiprocessor, the work handed on through a ring of chunk slots.
+
+#: threads a block: 8 consumer warps (which also copy), 4 centring warps
+FLOAT_THREADS = 384
+CONSUMER_THREADS = 256
+#: registers a thread the kernels may use (``__launch_bounds__(384, 1)``:
+#: 65,536 / 384, rounded down to the allocation unit of 8)
+FLOAT_REGISTERS = 168
+#: samples of j a chunk (``kChunkJ``) and a row's floats in a slot
+#: (``kRowFloats``: the 9 16-byte chunks that hold 32 samples at any offset)
+CHUNK_J = 32
+ROW_FLOATS = 36
+#: words a row of a piece keeps beside the ring (``kRowWords``: two window
+#: starts, its mean, resolution, analysis segment and offset, and the
+#: first chunks of its analysis segment and baseline)
+ROW_WORDS = 8
+#: ring slots at most (``kMaxSlots``)
+MAX_SLOTS = 4
+#: bytes before the ring: the mbarriers (``kBarrierBytes``)
+BARRIER_BYTES = 64
+#: the consumers' register tiles: (rows, coefficients a thread, most column
+#: threads), widest first; the 1 x 1 tile spreads a tile of few outputs
+#: (a serve batch's one window) over more threads with shorter chains
+FLOAT_TILES = ((8, 4, 16), (4, 4, 16), (1, 1, 64))
+#: the most windows a float32-sample tile
+FLOAT_MAX_M = 128
+#: the cost model's clocks: a copy's latency from device memory, a tile's
+#: fixed cost (its first piece's copies, means and first chunk, and its
+#: epilogue) and a named barrier's hand-off
+COPY_LATENCY = 1500
+TILE_FIXED = 20000
+HANDOFF = 100
+#: clocks a consumer pays to issue one 16-byte copy of the chunks ahead,
+#: and one round of 32 rows' means from the staged baselines
+COPY_ISSUE = 200
+MEANS_ROUND = 2500
+
+
+class FloatTilePlan(NamedTuple):
+    """``csrc/window_features_any.cuh`` ``FloatPlan`` (the first seven
+    fields, in the launchers' order) and the shared memory it takes."""
+
+    m: int            # windows a tile
+    rz: int           # (window, channel) rows a piece
+    rr: int           # rows a consumer thread contracts: 1, 4 or 8
+    qq: int           # coefficients a consumer thread contracts: 1 (rr 1) or 4
+    tq: int           # consumer threads across a k-tile: kt = qq * tq
+    slots: int        # ring slots, 1 to MAX_SLOTS
+    base_floats: int  # a row's staged baseline floats, 0: read from device memory
+    smem: int         # bytes of shared memory
+
+    def fields(self) -> Tuple[int, ...]:
+        """The ints the launchers take."""
+        return tuple(self[:7])
+
+
+def float_plan_smem_bytes(plan_fields, channels: int, features: int) -> int:
+    """Bytes of shared memory of a float32-sample plan
+    (``float_plan_smem_bytes``): the mbarriers, the ring (each slot the
+    piece's rows, then W's chunk), the staged baselines, the tile's rows and
+    their subband groups' maxima, and ROW_WORDS a row of the piece."""
+    m, rz, _rr, qq, tq, slots, base_floats = plan_fields[:7]
+    slot = rz * ROW_FLOATS + CHUNK_J * qq * tq
+    y = m * channels * (features + subband_groups(features))
+    return BARRIER_BYTES + 4 * (slots * slot + rz * base_floats + y + ROW_WORDS * rz)
+
+
+def _float_tq(features: int, qq: int, most: int) -> int:
+    """Column threads for ``features`` coefficients at ``qq`` a thread (at
+    most ``most``); a 1 x 1 tile's is a multiple of 4, so W's chunk rows
+    stay 16-byte aligned."""
+    tq = min(most, -(-features // qq))
+    return _round4(tq) if qq == 1 else tq
+
+
+def _float_plan(m, rz, rr, qq, tq, slots, base_floats, channels, features) -> FloatTilePlan:
+    fields = (m, rz, rr, qq, tq, slots, base_floats)
+    return FloatTilePlan(*fields, float_plan_smem_bytes(fields, channels, features))
+
+
+def float_launch_cost(rows: int, plan: FloatTilePlan, channels: int, epoch: int, features: int,
+                      sm_count: int, pre: int = 100) -> float:
+    """The launch's time in a multiprocessor's clocks, modelled on the
+    engine's measured device times (PERF.md section 6): the rounds of tiles
+    each multiprocessor walks (one block each), each tile a fixed cost (its
+    first piece's copies and means and its epilogue, which the pipeline
+    hides only in part) and its pieces' chunks, a chunk the slowest of its
+    consumers (the issue slots of the busiest sub-partition's warps: FMAs
+    and their shared loads, and the copies of the chunks ahead where the
+    piece leaves fewer than two consumer warps idle to issue them), its
+    centring and its copies' latency over the ring's slots, and each
+    later piece's means."""
+    tiles = -(-rows // plan.m)
+    rounds = -(-tiles // sm_count)
+    kt = plan.qq * plan.tq
+    nk = -(-features // kt)
+    nc = -(-epoch // CHUNK_J)
+    tile_rows = plan.m * channels
+    loads = (plan.rr + plan.qq) / (plan.rr * plan.qq * 4.0) if plan.qq == 4 else 1.0
+    tile = TILE_FIXED + -(-plan.m // 12) * (channels * features / 32 * 40 + 1500)
+    for r0 in range(0, tile_rows, plan.rz):
+        nr = min(plan.rz, tile_rows - r0)
+        warps = -(-(-(-nr // plan.rr)) * plan.tq // 32)
+        consume = -(-warps // 4) * plan.rr * plan.qq * CHUNK_J * (1.0 + loads) * 2 + HANDOFF
+        if CONSUMER_THREADS // 32 - warps < 2:
+            copies = -(-(nr * ROW_FLOATS // 4 + CHUNK_J * kt // 4) // CONSUMER_THREADS)
+            consume += copies * COPY_ISSUE
+        centre = -(-nr // 32) * 300 + 100
+        chunk = max(consume, centre, COPY_LATENCY / plan.slots)
+        # the means: 32 rows at a time, from the staged baselines or, a few
+        # loads at a time, from device memory
+        means = -(-nr // 32) * (MEANS_ROUND if plan.base_floats else 4 * COPY_LATENCY * -(-pre // CHUNK_J))
+        tile += nk * nc * chunk + means
+    return rounds * tile
+
+
+def float_tile_plan(channels: int, epoch: int, features: int, rows: int, sm_count: int,
+                    smem_optin: int, pre: int = 100) -> FloatTilePlan:
+    """The float32-sample engine's plan of a launch within reach. For each
+    register tile of ``FLOAT_TILES`` and each count of windows a tile up to
+    FLOAT_MAX_M (at most ``rows``), a piece takes the tile's rows up to
+    what the tile's consumers hold, with the most ring slots that fit and
+    the baselines staged where they fit; the least
+    :func:`float_launch_cost` wins (the first found on a tie; past 16
+    windows only the counts that spread the tiles evenly over the
+    multiprocessors' rounds are tried). Where none
+    fits, one window a tile halves the piece's rows, then the column
+    threads, then the slots, staging no baseline, until it fits: one row,
+    4 coefficients and one slot take 172 floats beside the row, fewer than
+    the ``epoch + 256`` of :func:`any_smem_bytes`, so every size within
+    reach has a plan."""
+    base = 4 * segment_chunks(pre, 4)
+    top = min(FLOAT_MAX_M, rows)
+    counts = set(range(1, min(16, top) + 1))
+    for r in range(1, -(-rows // (17 * sm_count)) + 1):
+        m = -(-rows // (r * sm_count))
+        if m <= top:
+            counts.add(m)
+    counts.add(top)
+    best = None
+    for rr, qq, most in FLOAT_TILES:
+        tq = _float_tq(features, qq, most)
+        cap = rr * (CONSUMER_THREADS // tq)
+        for m in sorted(counts):
+            rz = min(m * channels, cap)
+            plan = None
+            for base_floats in (base, 0):
+                for slots in range(MAX_SLOTS, 1, -1):
+                    candidate = _float_plan(m, rz, rr, qq, tq, slots, base_floats, channels,
+                                            features)
+                    if candidate.smem <= smem_optin:
+                        plan = candidate
+                        break
+                if plan is not None:
+                    break
+            if plan is None:
+                break  # more windows only take more shared memory
+            cost = float_launch_cost(rows, plan, channels, epoch, features, sm_count, pre)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    if best is not None:
+        return best[1]
+    rr, qq, most = FLOAT_TILES[1]
+    tq = _float_tq(features, qq, most)
+    rz = min(channels, rr * (CONSUMER_THREADS // tq))
+    while True:
+        for slots in range(MAX_SLOTS, 0, -1):
+            plan = _float_plan(1, rz, rr, qq, tq, slots, 0, channels, features)
+            if plan.smem <= smem_optin:
+                return plan
+        if rz > 1:
+            rz = max(1, rz // 2)
+        elif tq > 1:
+            tq = max(1, tq // 2)
+        else:
+            raise AssertionError("no float32-sample tile plan fits within the engine's reach")
+
+
 @functools.lru_cache(maxsize=4096)
 def generic_tile_plan(channels: int, epoch: int, features: int, rows: int, sm_count: int,
                       smem_optin: int, pre: int = 100,
@@ -194,11 +393,17 @@ def generic_tile_plan(channels: int, epoch: int, features: int, rows: int, sm_co
     count fits, one window a tile stages nothing, then halves the piece's
     rows, shrinks W's chunk to 4 rows and halves the k-tile, until it
     fits; the last of these takes less shared memory than
-    :func:`any_smem_bytes`, so every size within reach has a plan."""
+    :func:`any_smem_bytes`, so every size within reach has a plan.
+
+    Float32 samples (``sample_bytes`` 4) run the float32-sample engine,
+    planned by :func:`float_tile_plan` (a :class:`FloatTilePlan`), with
+    the same refusal."""
     if min(channels, epoch, features, rows, sm_count, pre, sample_bytes) < 1:
         raise ValueError("generic_tile_plan needs positive sizes")
     if any_smem_bytes(channels, epoch, features) > smem_optin:
         return None
+    if sample_bytes == 4:
+        return float_tile_plan(channels, epoch, features, rows, sm_count, smem_optin, pre)
     tq = _natural_tq_log2(features)
     args = (channels, epoch, features, pre, sample_bytes)
     best = None

@@ -1592,6 +1592,211 @@ def test_float_generic_mega_and_k6_match_plain(n, K, skip):
             assert q.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
 
 
+# The float32-sample engine (run_tiles_float): tiles cut at any row count,
+# a ragged last chunk of j, rows that do not depend on the tiling, K1's rows
+# equal to the features behind K5's margins, and the engine's reach.
+
+_QMAX = {"int8": 127.0, "int4": 7.0}
+_STACK_OF = {"f32": None, "int8": "int8", "int4": "int4"}
+
+
+def _float_stream(dev, C, S, seed):
+    """A float32 stream (int16-like samples scaled by 0.1, staged already
+    scaled) and its unit resolutions."""
+    raw = torch.from_numpy(_samples("int16", C, S, seed=seed, dc=9000)).to(dev)
+    return (raw.to(torch.float32) * 0.1).contiguous(), torch.ones(C, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (512, 64, 175)])
+def test_float_generic_tiles_cut_at_the_launch_end(n, K, skip, precision):
+    """Float32 launches of 1, M - 1, M + 1 and 4,097 rows (M the planned
+    windows a tile at 4,097), at each rung: K1-any within 2e-6 of its plain
+    version (f32, bf16) or equal bit for bit to the plain quantizer on its
+    own f32 rows (int8, int4), windows past the stream's end exactly 0;
+    K5-any-f32s within 2e-6 * ||w||_1 of the plain version or of the rung's
+    rows dotted with w, padded slots 0; K6-any-f32s on the rung's stack
+    (f32, w8, w4) bit-equal per lane to K5-any-f32s on the same (for w8 and
+    w4, dequantized) rows of the stack."""
+    dev = _card()
+    C, S = 3, 60_000
+    raw, ones = _float_stream(dev, C, S, seed=n + K)
+    W = _operator_of(dev, n, K)
+    M = _planned_windows(dev, C, n, K, 4_097, sample_bytes=4)
+    stride = serve_mega.padded_stride(100, 750)
+    rng = np.random.RandomState(K)
+    weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
+    tol = 2e-6 * weights.abs().sum().item()
+    for rows in sorted({1, max(1, M - 1), M + 1, 4_097}):
+        starts = rng.randint(-300, S + 300, size=rows).astype(np.int32)
+        starts[-1] = S  # past the end: a zero row
+        st = torch.from_numpy(starts).to(dev)
+        got = ingest_cuda.ingest_features(raw, ones, st, W, 100, skip, precision, n, K)
+        torch.cuda.synchronize()
+        if precision in _QMAX:
+            f32 = ingest_cuda.ingest_features(raw, ones, st, W, 100, skip, "f32", n, K).cpu()
+            want = decode_ingest.quantize_dequantize(f32, K, _QMAX[precision])[0]
+            assert got.cpu().numpy().tobytes() == want.numpy().tobytes(), rows
+        else:
+            want = device_ingest.ingest_features_plain(raw, ones, st, W, 100, skip, precision)
+            assert (got - want).abs().max().item() <= 2e-6, rows
+        assert (got[torch.from_numpy(starts >= S).to(dev)] == 0).all()
+        if precision == "bf16":
+            continue
+        count = max(1, rows - 2)
+        stream, _ = _float_stream(dev, C, rows * stride, seed=rows)
+        stream[:, count * stride:] = 0
+        margins = serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, skip, stride,
+                                                     precision, n, K)
+        mstarts = torch.arange(rows, dtype=torch.int32, device=dev) * stride
+        if precision == "f32":
+            want = serve_mega.serve_mega_margins_plain(stream, ones, W, weights, 100, skip,
+                                                       stride)
+        else:
+            want = ingest_cuda.ingest_features(stream, ones, mstarts, W, 100, skip, precision,
+                                               n, K) @ weights
+        assert (margins - want).abs().max().item() <= tol, rows
+        assert (margins[count:] == 0).all()
+        stack = torch.from_numpy(rng.randn(serve_mega.MAX_TENANTS, C * K).astype(np.float32)
+                                 ).to(dev)
+        lanes = torch.from_numpy(rng.randint(0, 128, rows).astype(np.int32))
+        wp = _STACK_OF[precision]
+        if wp is None:
+            multi = serve_mega_cuda.serve_mega_multi_margins(stream, ones, W, stack, lanes, 100,
+                                                             skip, stride, n, K).cpu()
+        else:
+            packed, scales, stack = _packed_stack(dev, rng, C * K, wp)
+            multi = serve_mega_cuda.serve_mega_multi_packed_margins(
+                stream, ones, W, packed, scales, lanes, 100, skip, stride, wp, n, K).cpu()
+        for lane in np.unique(lanes.numpy())[:4]:
+            solo = serve_mega_cuda.serve_mega_margins(stream, ones, W, stack[int(lane)], 100,
+                                                      skip, stride, "f32", n, K).cpu()
+            at = np.nonzero(lanes.numpy() == lane)[0]
+            assert multi[at].numpy().tobytes() == solo[at].numpy().tobytes(), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,skip", [(333, 20, 100), (700, 32, 50), (100, 3, 7)])
+def test_float_generic_ragged_chunk_rows_do_not_depend_on_the_tiling(n, K, skip):
+    """A window (epoch) that is not a multiple of the 32-sample chunk: the
+    same 9 float32 windows launched alone, as 9 rows and inside 64 and
+    4,096 rows (other rows random windows), hence under different tile
+    plans: K1-any's rows and K5-any-f32s's margins bit-identical across the
+    launches, within 2e-6 (K1) and 2e-6 * ||w||_1 (K5) of the plain
+    versions."""
+    dev = _card()
+    C, S = 3, 1_000_000
+    raw, ones = _float_stream(dev, C, S, seed=n + K)
+    W = _operator_of(dev, n, K)
+    rng = np.random.RandomState(K)
+    nine = rng.randint(-50, S - n - skip - 50, size=9).astype(np.int32)
+    stride = serve_mega.padded_stride(100, 750)
+    windows = [(_samples("int16", C, 850, seed=100 + i, dc=9000).astype(np.float32) * 0.1)
+               for i in range(9)]
+    weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
+    plans, rows_by, margins_by = set(), {}, {}
+    for rows in (1, 9, 64, 4_096):
+        plans.add(generic_plan.generic_tile_plan(C, n, K, rows, *ingest_cuda.device_limits(dev),
+                                                 100, 4))
+        if rows == 1:
+            got = [ingest_cuda.ingest_features(raw, ones, torch.tensor([s], dtype=torch.int32,
+                                                                       device=dev),
+                                               W, 100, skip, "f32", n, K) for s in nine]
+            rows_by[rows] = torch.cat(got).cpu().numpy()
+            m = []
+            for win in windows:
+                stream = serve_mega.stage_mega_stream([win], C, 850, stride, 1)
+                m.append(serve_mega_cuda.serve_mega_margins(
+                    torch.from_numpy(stream).to(dev), ones, W, weights, 100, skip, stride,
+                    "f32", n, K))
+            margins_by[rows] = torch.cat(m).cpu().numpy()
+            continue
+        slots = _placed(rows, K) if rows > 9 else np.arange(9)
+        starts = rng.randint(-50, S, size=rows).astype(np.int32)
+        starts[slots] = nine
+        got = ingest_cuda.ingest_features(raw, ones, torch.from_numpy(starts).to(dev), W, 100,
+                                          skip, "f32", n, K)
+        rows_by[rows] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
+        batch = [(_samples("int16", C, 850, seed=rows + i, dc=9000).astype(np.float32) * 0.1)
+                 for i in range(rows)]
+        for slot, win in zip(slots, windows):
+            batch[slot] = win
+        stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, C, 850, stride,
+                                                               rows)).to(dev)
+        margins = serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, skip, stride,
+                                                     "f32", n, K)
+        margins_by[rows] = margins[torch.from_numpy(slots).to(dev)].cpu().numpy()
+        if rows == 9:
+            plain = serve_mega.serve_mega_margins_plain(stream, ones, W, weights, 100, skip,
+                                                        stride)
+            assert (margins - plain).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+    assert len(plans) >= 2
+    plain = device_ingest.ingest_features_plain(raw, ones, torch.from_numpy(nine).to(dev), W,
+                                                100, skip)
+    assert np.abs(rows_by[1] - plain.cpu().numpy()).max() <= 2e-6
+    for rows in (9, 64, 4_096):
+        assert rows_by[rows].tobytes() == rows_by[1].tobytes(), rows
+        assert margins_by[rows].tobytes() == margins_by[1].tobytes(), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (333, 20, 100)])
+def test_float_k1_rows_equal_the_features_behind_k5_margins(n, K, skip, precision):
+    """K1-any on float32 samples equals, bit for bit, the rows K5-any-f32s
+    dots with its weights: with the weights the unit vector e_i, a margin is
+    feature i itself (one FMA by 1, the rest by 0), so C * K launches of K5
+    give the rows of a capacity-64 batch, which K1 at the windows' starts
+    must equal."""
+    dev = _card()
+    C, capacity = 3, 64
+    stride = serve_mega.padded_stride(100, 750)
+    raw, ones = _float_stream(dev, C, capacity * stride, seed=n + K)
+    W = _operator_of(dev, n, K)
+    starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    rows = ingest_cuda.ingest_features(raw, ones, starts, W, 100, skip, precision, n, K)
+    features = torch.empty_like(rows)
+    for i in range(C * K):
+        unit = torch.zeros(C * K, device=dev)
+        unit[i] = 1.0
+        features[:, i] = serve_mega_cuda.serve_mega_margins(raw, ones, W, unit, 100, skip,
+                                                            stride, precision, n, K)
+    assert features.cpu().numpy().tobytes() == rows.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_float_generic_reach_is_unchanged_at_the_widest_row():
+    """76 channels x 740 coefficients of float32 samples at a 750-sample
+    window, the widest row the int16 engine takes too: K1-any and
+    K5-any-f32s run and match their plain versions; 741 coefficients raise
+    the ValueError naming the sizes, before any launch."""
+    dev = _card()
+    C, n, skip = 76, 750, 0
+    stride = 1024
+    raw = torch.from_numpy(_samples("float32", C, 4 * stride, seed=3, dc=9000)).to(dev)
+    ones = torch.ones(C, device=dev)
+    starts = torch.tensor([-40, 0, stride + 5, 3 * stride], dtype=torch.int32, device=dev)
+    W = _operator_of(dev, n, 740)
+    got = ingest_cuda.ingest_features(raw, ones, starts, W, 100, skip, "f32", n, 740)
+    torch.cuda.synchronize()
+    want = device_ingest.ingest_features_plain(raw, ones, starts, W, 100, skip)
+    assert (got - want).abs().max().item() <= 2e-6
+    weights = torch.from_numpy(np.random.RandomState(1).randn(C * 740).astype(np.float32)).to(dev)
+    margins = serve_mega_cuda.serve_mega_margins(raw, ones, W, weights, 100, skip, stride, "f32",
+                                                 n, 740)
+    plain = serve_mega.serve_mega_margins_plain(raw, ones, W, weights, 100, skip, stride)
+    assert (margins - plain).abs().max().item() <= 2e-6 * weights.abs().sum().item()
+    before = (_generic_counters(), serve_mega_cuda.ANY_LAUNCHES_F32S)
+    W1 = _operator_of(dev, n, 741)
+    with pytest.raises(ValueError, match="76 channels x 741 coefficients at epoch_size 750"):
+        ingest_cuda.ingest_features(raw, ones, starts, W1, 100, skip, "f32", n, 741)
+    with pytest.raises(ValueError, match="76 channels x 741 coefficients at epoch_size 750"):
+        serve_mega_cuda.serve_mega_margins(raw, ones, W1, torch.zeros(C * 741, device=dev), 100,
+                                           skip, stride, "f32", n, 741)
+    assert (_generic_counters(), serve_mega_cuda.ANY_LAUNCHES_F32S) == before
+
+
 @pytest.mark.cuda
 def test_float_mega_on_the_widest_montage_and_one_channel_more_is_refused():
     """76 channels of float32 samples at 512 / 16 (a float ring slot holds

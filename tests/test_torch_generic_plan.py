@@ -59,7 +59,11 @@ def test_refusal_boundary_is_the_old_engines(channels, epoch, features):
 
 
 def _assert_consistent(plan, channels, epoch, features, pre=100, sample_bytes=2):
-    """The launchers' checks (csrc/window_features_any.cuh check_any_plan)."""
+    """The launchers' checks (csrc/window_features_any.cuh check_any_plan;
+    check_float_plan for float32 samples)."""
+    if sample_bytes == 4:
+        _assert_float_consistent(plan, channels, features, pre)
+        return
     kt = plan.qq << plan.tq_log2
     assert 1 <= plan.m <= 1024 and plan.qq in (1, 4) and kt <= 128
     assert 1 <= plan.rr <= (3 if sample_bytes == 2 else 2)
@@ -71,6 +75,57 @@ def _assert_consistent(plan, channels, epoch, features, pre=100, sample_bytes=2)
     else:
         assert plan.seg_chunks == generic_plan.segment_chunks(epoch, sample_bytes)
         assert plan.base_chunks in (0, generic_plan.segment_chunks(pre, sample_bytes))
+
+
+def _assert_float_consistent(plan, channels, features, pre=100):
+    """The float32-sample launchers' checks (check_float_plan), and the
+    register budget they launch with: 384 threads of 168 registers on one
+    multiprocessor, each consumer thread's tile one of FLOAT_TILES."""
+    assert isinstance(plan, generic_plan.FloatTilePlan)
+    assert (plan.rr, plan.qq) in [(rr, qq) for rr, qq, _ in generic_plan.FLOAT_TILES]
+    most = {(rr, qq): most for rr, qq, most in generic_plan.FLOAT_TILES}[(plan.rr, plan.qq)]
+    assert 1 <= plan.tq <= most and (plan.qq == 4 or plan.tq % 4 == 0)
+    assert plan.rr <= generic_plan.max_rows(4)
+    assert 1 <= plan.m <= 1024 and 1 <= plan.slots <= generic_plan.MAX_SLOTS
+    assert 1 <= plan.rz <= plan.rr * (256 // plan.tq) and plan.rz <= plan.m * channels
+    assert plan.base_floats in (0, 4 * generic_plan.segment_chunks(pre, 4))
+    assert plan.smem == generic_plan.float_plan_smem_bytes(plan.fields(), channels, features)
+    assert plan.smem <= OPTIN
+    assert generic_plan.FLOAT_THREADS * generic_plan.FLOAT_REGISTERS <= 65_536
+    assert len(plan.fields()) == 7
+
+
+@pytest.mark.parametrize("channels,epoch,features", SIZES)
+def test_float_plan_keeps_the_reach_and_fits(channels, epoch, features):
+    """Float32 samples run the float32-sample engine: its plan exists
+    exactly where the old engine's shared memory fits the limit (the same
+    refusal as int16 samples), and every plan fits the limit, the
+    launcher's checks and its register budget."""
+    for rows in (1, 64, 4_096):
+        plan = generic_plan.generic_tile_plan(channels, epoch, features, rows, SMS, OPTIN, 100, 4)
+        assert (plan is None) == (old_any_smem_bytes(channels, epoch, features) > OPTIN)
+        if plan is not None:
+            _assert_float_consistent(plan, channels, features)
+
+
+# chip_smoke.py's GENERIC_SIZES (epoch, features) on 3 channels, and its
+# 76-channel montage at GENERIC_WIDE
+SMOKE_SIZES = [(3, 256, 16), (3, 512, 64), (3, 333, 20), (3, 700, 32), (76, 333, 20)]
+
+
+@pytest.mark.parametrize("rows", [64, 4_096])
+@pytest.mark.parametrize("channels,epoch,features", SMOKE_SIZES)
+def test_float_plan_at_the_smoke_sizes(channels, epoch, features, rows):
+    """At the smoke's sizes the float32-sample plan fits and passes the
+    launcher's checks; a serve batch of 64 on 3 channels takes one window a
+    tile (64 blocks) on the one-row tile, 4,096 windows several windows a
+    tile on a register tile of at least 4 x 4 with the baselines staged."""
+    plan = generic_plan.generic_tile_plan(channels, epoch, features, rows, SMS, OPTIN, 100, 4)
+    _assert_float_consistent(plan, channels, features)
+    if channels == 3 and rows == 64:
+        assert plan.m == 1 and (plan.rr, plan.qq) == (1, 1)
+    if channels == 3 and rows == 4_096:
+        assert plan.m >= 4 and plan.rr >= 4 and plan.base_floats > 0
 
 
 def test_widest_row_at_a_750_sample_window():
@@ -118,21 +173,24 @@ def test_plan_is_deterministic_and_fits_any_baseline(sample_bytes, pre):
         assert a == b and a.smem <= OPTIN
         _assert_consistent(a, channels, epoch, features, pre, sample_bytes)
         if pre == 40_000:
-            assert a.base_chunks == 0
+            assert (a.base_chunks if sample_bytes == 2 else a.base_floats) == 0
 
 
 @pytest.mark.parametrize("rows", [1, 64, 4_096])
 def test_plan_and_its_array_are_memoized(rows):
     """A launch's plan is searched once for its sizes (the search is more
     host time than a serve batch's kernel), and its launch array is made
-    once: a second call returns the same objects without a search."""
-    args = (3, 256, 16, rows, SMS, OPTIN, 100, 2)
-    first = generic_plan.generic_tile_plan(*args)
-    misses = generic_plan.generic_tile_plan.cache_info().misses
-    assert generic_plan.generic_tile_plan(*args) is first
-    assert generic_plan.generic_tile_plan.cache_info().misses == misses
-    array = cuda_build.plan_array(first)
-    assert cuda_build.plan_array(first) is array and tuple(array) == first.fields()
+    once: a second call returns the same objects without a search; so for
+    float32 samples, whose plan is the float32-sample engine's."""
+    for sample_bytes in (2, 4):
+        args = (3, 256, 16, rows, SMS, OPTIN, 100, sample_bytes)
+        first = generic_plan.generic_tile_plan(*args)
+        misses = generic_plan.generic_tile_plan.cache_info().misses
+        assert generic_plan.generic_tile_plan(*args) is first
+        assert generic_plan.generic_tile_plan.cache_info().misses == misses
+        assert first == generic_plan.generic_tile_plan.__wrapped__(*args)
+        array = cuda_build.plan_array(first)
+        assert cuda_build.plan_array(first) is array and tuple(array) == first.fields()
     assert cuda_build.plan_array(None) is None
 
 
