@@ -34,11 +34,17 @@ did to the kernels:
    wall time per call of 200 back-to-back calls, host work included
    (``call_ms``, median of 5), the median host time of one call, the card
    not waited for (``host_ms``, 200 calls) and a sha256 of the output,
-   tagged with the checkout; each checkout's float32-sample tile plans at
-   those sizes (``float_plans``: fields and shared memory); and the
-   generic fused path's wall (``load_features_device``
-   of an 8-recording session at ``GENERIC_PATH_SIZE``, three times in
-   the process: ``generic_path_wall``);
+   tagged with the checkout; each checkout's generic tile plans at those
+   sizes on int16 and float32 samples (``generic_plans``: fields, design
+   and shared memory); in this checkout's turns, both designs of the
+   generic engine at each generic case (``design_times``: K1-any, K5-any
+   and K6-any at f32 on int16 and float32 samples, each launched with the
+   phase-by-phase design's plan and with the ring design's, their device
+   times, modelled clocks, the design the plan picks and whether their
+   outputs are bit-equal); and the generic fused path's wall
+   (``load_features_device`` of an 8-recording session at
+   ``GENERIC_PATH_SIZE``, three times in the process:
+   ``generic_path_wall``);
 2. ``outputs``: one line per kernel and size with ``bit_equal``, the
    checkouts' output digests compared;
 3. the SASS of every kernel instantiation both builds have (``cuobjdump
@@ -57,8 +63,10 @@ parameter list): the sample type (the megakernel's float32 samples as
 argument, alike), the precision
 (``window_features::Precision``), the megakernel's ``kMulti``, the
 wide-ring ``kWide``, the tenant stack's precision (``Weights``; the f32
-stack where a build has none), the epoch-features kernel's ``kMain`` and
-``kL``. It counts as f32 at precision 0 (``kF32``) on an f32 stack.
+stack where a build has none), a generic kernel's design (``_d0`` the
+phase-by-phase design, ``_d1`` the ring design; a checkout without the
+argument ran ``_d0`` on int16 samples and ``_d1`` on float32 ones), the
+epoch-features kernel's ``kMain`` and ``kL``. It counts as f32 at precision 0 (``kF32``) on an f32 stack.
 
 Where this checkout has the quantized tenant stack's kernels (K6-w8,
 K6-w4) and the other does not, they are timed here alone, and each
@@ -135,11 +143,12 @@ def time_checkout(tree: str, label: str) -> None:
     from eeg_dataanalysispackage_tpu_torch.ops import generic_plan
 
     limits = ingest_cuda.device_limits(dev)
-    emit(phase="float_plans", plans={
-        f"{C}x{e}x{K}@{n}": dict(generic_plan.generic_tile_plan(C, e, K, n, *limits, 100,
-                                                                4)._asdict())
+    emit(phase="generic_plans", plans={
+        f"{C}x{e}x{K}@{n}/{sample_bytes}B": dict(
+            generic_plan.generic_tile_plan(C, e, K, n, *limits, 100, sample_bytes)._asdict())
         for (e, K, _skip), n, C in ([(size, n, 3) for size in cs.GENERIC_SIZES
-                                     for n in (4096, 64)] + [(cs.GENERIC_WIDE, 256, 76)])})
+                                     for n in (4096, 64)] + [(cs.GENERIC_WIDE, 256, 76)])
+        for sample_bytes in (2, 4)})
 
     def run(kernel, symbol, size, fn):
         out = fn()
@@ -242,6 +251,8 @@ def time_checkout(tree: str, label: str) -> None:
         run("epoch_features", "epoch_features_kernel", n, lambda: dwt_cuda.epoch_features_cuda(x))
 
     time_generic(cs, run, dev)
+    if label == "this":
+        time_designs(cs, emit, dev, smi)
     time_generic_path(cs, emit, smi)
 
 
@@ -378,6 +389,85 @@ def time_generic(cs, run, dev) -> None:
                         stream, sres, W, pk, scales, lanes, 100, skip, stride, wp, e, K))
 
 
+def time_designs(cs, emit, dev, smi) -> None:
+    """Both designs of the generic engine at each case of
+    :func:`time_generic` (``design_times``): K1-any at f32 on int16 and
+    float32 samples, K5-any at f32 and K6-any on the f32 stack on int16 and
+    float32 samples, each launched with the plan of the phase-by-phase
+    design, then the ring design's (``generic_plan.design_plans``): each
+    one's device time (``profiled_device_ms``, 20 calls), the modelled
+    clocks of both plans, the design the plan picks, and whether both
+    designs' outputs are bit-equal."""
+    import numpy as np
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        dwt, generic_plan, ingest_cuda, serve_mega, serve_mega_cuda,
+    )
+
+    plan_of = generic_plan.generic_tile_plan
+    limits = ingest_cuda.device_limits(dev)
+    stride = serve_mega.padded_stride(100, 750)
+    cases = ([(size, 4096, 3) for size in cs.GENERIC_SIZES] + [(cs.GENERIC_PATH_SIZE, 64, 3)]
+             + [(cs.GENERIC_WIDE, 256, 76)])
+    try:
+        for (e, K, skip), n, C in cases:
+            tag = f"@{e}x{K}" + ("" if C == 3 else f"c{C}")
+            res = torch.full((C,), 0.1, device=dev)
+            ones = torch.ones(C, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(n + e + K)
+            W = dwt.kernel_operator(8, e, K, dev)
+            big = torch.randint(-3000, 3000, (C, n * 1000 + 1000), generator=gen, device=dev,
+                                dtype=torch.int32)
+            starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
+            stream16 = torch.randint(-3000, 3000, (C, n * stride), generator=gen, device=dev,
+                                     dtype=torch.int32).to(torch.int16)
+            weights = torch.randn(C * K, generator=gen, device=dev)
+            stack = torch.randn((serve_mega.MAX_TENANTS, C * K), generator=gen, device=dev)
+            lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+            for samples in ("int16", "float32"):
+                sb = 2 if samples == "int16" else 4
+                suffix = "" if samples == "int16" else "_f32s"
+                raw = big.to(torch.int16) if sb == 2 else (big.to(torch.float32) * 0.1).contiguous()
+                stream = (stream16 if sb == 2
+                          else (stream16.to(torch.float32) * 0.1).contiguous())
+                rs = res if sb == 2 else ones
+                kernels = (
+                    ("ingest_features_any" + ("" if sb == 2 else "_f32") + tag,
+                     "ingest_features_any_kernel",
+                     lambda: ingest_cuda.ingest_features(raw, rs, starts, W, 100, skip, "f32", e,
+                                                         K)),
+                    ("serve_mega_any" + suffix + tag, "serve_mega_any_kernel",
+                     lambda: serve_mega_cuda.serve_mega_margins(stream, rs, W, weights, 100, skip,
+                                                                stride, "f32", e, K)),
+                    ("serve_mega_multi_any" + suffix + tag, "serve_mega_any_kernel",
+                     lambda: serve_mega_cuda.serve_mega_multi_margins(stream, rs, W, stack, lanes,
+                                                                      100, skip, stride, e, K)),
+                )
+                plans = generic_plan.design_plans(C, e, K, n, *limits, 100, sb)
+                chosen = plan_of(C, e, K, n, *limits, 100, sb)
+                for kernel, symbol, fn in kernels:
+                    times, digests = {}, {}
+                    for design, name in enumerate(generic_plan.DESIGNS):
+                        generic_plan.generic_tile_plan = (
+                            lambda *a, design=design: generic_plan.design_plans(*a)[design][0])
+                        out = fn()
+                        torch.cuda.synchronize()
+                        digests[name] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+                        times[name] = (cs.profiled_device_ms(fn, symbol, runs=20)
+                                       or cs.profiled_device_ms(fn, symbol, runs=20))
+                    generic_plan.generic_tile_plan = plan_of
+                    emit(phase="design_times", kernel=kernel, windows=n, device_ms=times,
+                         clocks={name: clocks for name, (_p, clocks)
+                                 in zip(generic_plan.DESIGNS, plans)},
+                         plans={name: list(p.fields()) for name, (p, _c)
+                                in zip(generic_plan.DESIGNS, plans)},
+                         chosen=generic_plan.DESIGNS[chosen.design],
+                         designs_bit_equal=len(set(digests.values())) == 1, nvidia_smi=smi)
+    finally:
+        generic_plan.generic_tile_plan = plan_of
+
+
 def generic_ptxas(logs: dict) -> dict:
     """{generic instantiation key: {registers, spill_stores, spill_loads}}
     from the ``ptxas -v`` logs of this process's builds."""
@@ -439,6 +529,15 @@ def instantiation_key(name: str):
     # argument key alike
     if re.search(r"serve_mega(?:_any)?_kernelIf", name):
         current += "_f32s"
+    # a generic kernel's design (its int template argument); a checkout
+    # without one ran the phase-by-phase design on int16 samples and, once
+    # it had a float32-sample engine, the ring design on float32 ones
+    if "_any_kernel" in current:
+        design = re.search(r"Li(\d+)E", name)
+        if design:
+            current += f"_d{design.group(1)}"
+        else:
+            current += "_d1" if re.search(r"_any_kernelIf", name) else "_d0"
     return current, p == 0 and w == 0
 
 
@@ -486,7 +585,7 @@ def main(argv) -> int:
         for line in proc.stdout.splitlines():
             record = json.loads(line)
             if record["phase"] not in ("timing", "libraries"):
-                print(line, flush=True)  # packed_vs_k6, float_plans, generic_path_wall
+                print(line, flush=True)  # packed_vs_k6, generic_plans, design_times, ...
                 continue
             if record["phase"] == "libraries":
                 libraries[label] = record["libraries"]

@@ -29,7 +29,10 @@ Phases, one JSON line each (several for phases 2 to 6):
 1. device: the card's name and ``nvidia-smi`` power limit;
 2. build: compile every kernel from ``eeg_dataanalysispackage_tpu_torch/csrc``
    (three sources, every precision instantiation in them), one ``nvcc``
-   per source, all started together, with ``ptxas`` registers and spills;
+   per source, all started together, with ``ptxas`` registers and spills
+   (the generic engine's instantiations by design in ``generic_build``,
+   beside both designs' tile plans at the generic sizes and the one each
+   launch takes);
 3. each kernel against its plain version (max abs deviation <= 2e-6):
    the fused ingest kernel on int16 streams (random, DC-heavy,
    overhanging, single-window, dense, odd-count and main-path-shaped
@@ -92,7 +95,8 @@ Phases, one JSON line each (several for phases 2 to 6):
    ``fe=dwt-8-tpu`` with logreg; then a 3-recording IEEE_FLOAT_32
    session through ``fe=dwt-8-fused`` and ``fe=dwt-8-pallas``; then the
    generic engine's path, ``load_features_device(epoch_size=256, …)`` on
-   both sessions at every rung (one generic launch per recording, the
+   both sessions at every rung (one generic launch per recording, each
+   launch's design and plan and the launches of each design printed, the
    features against the CPU provider's); and ``fe=dwt-8-tpu-bf16`` and
    ``-tpu-compact-bf16`` with logreg on the card and the CPU (features
    within BF16_GATE_TOL, both statistics printed). Every run
@@ -382,7 +386,9 @@ Phases, one JSON line each (several for phases 2 to 6):
    128-tenant MultiplexedEngine at f32/int8/int4: the generic K5 and K6
    instantiations' launches, margins against the CPU engines), on the
    session's int16 windows and on them scaled into float32 windows (the
-   generic float32-sample instantiations);
+   generic float32-sample instantiations), each launch's design and plan
+   printed, and a ``generic_designs`` line with the generic launches of
+   each design over phases 4 and 5, by kernel;
 5b. remote locations: the 8-recording session on a loopback object store
    and WebHDFS namenode (``tests/_loopback.py``, one ``http.server`` on
    127.0.0.1): ``info_file=hdfs://…&fe=dwt-8-fused`` with logreg, saving
@@ -442,8 +448,11 @@ Phases, one JSON line each (several for phases 2 to 6):
    (K1 at every rung, K5, K6, K6-w8/w4, and the megakernels on float32
    samples) at 4,096 windows at each generic size of phase 3 and at
    one serve batch of 64 at GENERIC_PATH_SIZE, each with the windows a
-   tile its launch planned and ``library_ms``, one ``torch.matmul`` of the
-   centred windows with W (TF32 off: the contraction alone); the same
+   tile, the design and the plan its launch took and ``library_ms``, one
+   ``torch.matmul`` of the
+   centred windows with W (TF32 off: the contraction alone), and that
+   library call and the bound at chip_compare.py's 76-channel case (256
+   windows at GENERIC_WIDE: ``generic_wide_library``); the same
    library call for the 512/16 rows at 64 and 32,768 windows.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
@@ -783,29 +792,35 @@ def build_kernels(cuda_build, names, host_names=("eeg_host",)):
              seconds_all=seconds, library=os.path.relpath(lib, REPO))
 
 
-def generic_f32s_build(cuda_build, generic_plan, sms, optin):
-    """The generic engine's float32-sample instantiations as built: each
-    one's registers, barriers and spills from ``ptxas -v`` (keyed by kernel,
-    ``p``recision and tenant-stack ``w``eights), and the shared memory and
-    fields of its tile plan (``ops/generic_plan.float_tile_plan``) at
-    GENERIC_SIZES and GENERIC_WIDE, at 4,096 windows and a serve batch of
-    64."""
+def generic_build(cuda_build, generic_plan, sms, optin):
+    """The generic engine's instantiations as built: each one's registers,
+    barriers and spills from ``ptxas -v`` (keyed by kernel, ``p``recision,
+    tenant-stack ``w``eights, sample type and ``d``esign: 0 the
+    phase-by-phase design, 1 the ring design), and both designs' tile plans
+    (``ops/generic_plan.design_plans``: fields, shared memory and modelled
+    clocks) with the one the launch takes, at GENERIC_SIZES and
+    GENERIC_WIDE, at 4,096 windows and a serve batch of 64, on int16 and
+    float32 samples."""
     kernels, current = {}, None
     for log in cuda_build.BUILD_LOGS.values():
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
                 name = entry.group(1)
-                kernel = re.search(r"(ingest_features_any_kernel|serve_mega_any_kernel)If", name)
+                kernel = re.search(r"(ingest_features_any_kernel|serve_mega_any_kernel)I([sf])",
+                                   name)
                 current = None
                 if kernel:
                     precision = re.search(r"PrecisionE(\d)E", name)
                     multi = re.search(r"Lb([01])E", name)
                     weights = re.search(r"WeightsE(\d)E", name)
+                    design = re.search(r"Li(\d)E", name)
                     current = (kernel.group(1).replace("_kernel", "")
                                + ("_multi" if multi and multi.group(1) == "1" else "")
                                + f"_p{precision.group(1) if precision else 0}"
-                               + (f"_w{weights.group(1)}" if weights else "") + "_f32s")
+                               + (f"_w{weights.group(1)}" if weights else "")
+                               + ("_f32s" if kernel.group(2) == "f" else "")
+                               + f"_d{design.group(1) if design else '?'}")
                 continue
             if current is None:
                 continue
@@ -821,12 +836,62 @@ def generic_f32s_build(cuda_build, generic_plan, sms, optin):
     plans = {}
     for (e, K, _skip), C in ([(size, 3) for size in GENERIC_SIZES] + [(GENERIC_WIDE, 76)]):
         for rows in (4096, 64):
-            plan = generic_plan.generic_tile_plan(C, e, K, rows, sms, optin, 100, 4)
-            plans[f"{C}x{e}x{K}@{rows}"] = plan._asdict()
+            for sample_bytes in (2, 4):
+                both = generic_plan.design_plans(C, e, K, rows, sms, optin, 100, sample_bytes)
+                chosen = generic_plan.generic_tile_plan(C, e, K, rows, sms, optin, 100,
+                                                        sample_bytes)
+                plans[f"{C}x{e}x{K}@{rows}/{sample_bytes}B"] = {
+                    "design": generic_plan.DESIGNS[chosen.design],
+                    **{name: {**plan._asdict(), "clocks": clocks}
+                       for name, (plan, clocks) in zip(generic_plan.DESIGNS, both)}}
     return {"kernels": kernels, "no_spills": all(not k.get("spill_stores") and
                                                  not k.get("spill_loads")
                                                  for k in kernels.values()),
             "plans": plans}
+
+
+class PlanLog:
+    """Records the plan of every generic launch while it is entered: the
+    wrappers call ``generic_plan.generic_tile_plan`` once a launch (a
+    memoized lookup), so each call is one launch's plan. ``summary()``
+    gives each distinct plan (its design, fields and launch sizes) with
+    how many launches took it."""
+
+    def __init__(self):
+        from eeg_dataanalysispackage_tpu_torch.ops import generic_plan
+
+        self.module = generic_plan
+        self.calls = []
+
+    def __enter__(self):
+        plan_of = self.orig = self.module.generic_tile_plan
+
+        def logged(*args, **kwargs):
+            plan = plan_of(*args, **kwargs)
+            if plan is not None:
+                self.calls.append((args[:4] + args[6:8], plan))
+            return plan
+
+        self.module.generic_tile_plan = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.generic_tile_plan = self.orig
+        return False
+
+    def summary(self):
+        counts = {}
+        for sizes, plan in self.calls:
+            key = (sizes, plan)
+            counts[key] = counts.get(key, 0) + 1
+        return [{"design": self.module.DESIGNS[plan.design], "fields": list(plan.fields()),
+                 "launch": list(sizes), "launches": n} for (sizes, plan), n in counts.items()]
+
+    def designs(self):
+        out = dict.fromkeys(self.module.DESIGNS, 0)
+        for _sizes, plan in self.calls:
+            out[self.module.DESIGNS[plan.design]] += 1
+        return out
 
 
 def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed, samples="int16"):
@@ -5565,6 +5630,18 @@ def phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
     return worst
 
 
+#: the wrappers' counters of generic launches by design (``ingest_cuda``,
+#: ``serve_mega_cuda``), and the runs' per-design launches, by kernel, that
+#: phases 4 and 5 gather for the ``generic_designs`` line
+DESIGN_COUNTERS = ("ANY_DESIGN_PHASE", "ANY_DESIGN_RING")
+GENERIC_DESIGNS = []
+
+
+def generic_design(counter: str) -> str:
+    """The design a ``DESIGN_COUNTERS`` counter counts."""
+    return counter[len("ANY_DESIGN_"):].lower()
+
+
 def phase_generic_paths(np, torch, info, float_info, n_files, n_float_files):
     """The fused batch path at GENERIC_PATH_SIZE, through
     ``OfflineDataProvider.load_features_device(epoch_size=…,
@@ -5593,13 +5670,15 @@ def phase_generic_paths(np, torch, info, float_info, n_files, n_float_files):
             ("int8", info, "ingest_features_any_int8", n_files),
             ("int4", info, "ingest_features_any_int4", n_files),
             ("f32", float_info, "ingest_features_any_f32", n_float_files)):
-        for attr in counters.values():
+        for attr in (*counters.values(), *DESIGN_COUNTERS):
             setattr(ingest_cuda, attr, 0)
         t0 = time.perf_counter()
-        feats, targets = OfflineDataProvider([path]).load_features_device(
-            8, n, skip, K, precision=precision)
+        with PlanLog() as plans:
+            feats, targets = OfflineDataProvider([path]).load_features_device(
+                8, n, skip, K, precision=precision)
         wall = time.perf_counter() - t0
         counts = {name: getattr(ingest_cuda, attr) for name, attr in counters.items()}
+        designs = {attr: getattr(ingest_cuda, attr) for attr in DESIGN_COUNTERS}
         cpu_feats, cpu_targets = OfflineDataProvider([path], device="cpu").load_features_device(
             8, n, skip, K, precision=precision)
         got = feats.cpu()
@@ -5611,10 +5690,13 @@ def phase_generic_paths(np, torch, info, float_info, n_files, n_float_files):
             flips, err = 0, (got - cpu_feats).abs().max().item()
         emit("generic_path", kernel=kernel, precision=precision, epoch_size=n, feature_size=K,
              skip=skip, rows=int(got.shape[0]), device=str(feats.device), launches=counts,
-             wall_s=wall, features_max_abs_err_vs_cpu=err, feature_flips_vs_cpu=flips,
-             tol=KERNEL_TOL)
+             designs=designs, plans=plans.summary(), wall_s=wall,
+             features_max_abs_err_vs_cpu=err, feature_flips_vs_cpu=flips, tol=KERNEL_TOL)
+        GENERIC_DESIGNS.append((kernel, plans.designs()))
         others = {k: v for k, v in counts.items() if k != kernel}
         if not (feats.device.type == "cuda" and counts[kernel] == files
+                and sum(designs.values()) == files and plans.designs() == {
+                    generic_design(a): v for a, v in designs.items()}
                 and not any(others.values()) and got.shape == (len(targets), 3 * K)
                 and err <= KERNEL_TOL and np.array_equal(targets, cpu_targets)):
             raise AssertionError(f"the generic fused path ({precision}) did not run as expected: "
@@ -5641,7 +5723,9 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
     engine on the CPU within MEGA_GATE_TOL (int8/int4 features: within
     the rung's gate). Returns {kernel name: launches}."""
     from eeg_dataanalysispackage_tpu_torch.models import registry
-    from eeg_dataanalysispackage_tpu_torch.ops import decode_ingest, serve_mega, serve_mega_cuda
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        decode_ingest, ingest_cuda, serve_mega, serve_mega_cuda,
+    )
     from eeg_dataanalysispackage_tpu_torch.serve import MultiplexedEngine, ServingEngine
 
     n, K, skip = GENERIC_PATH_SIZE
@@ -5675,17 +5759,23 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
         res = resolutions[0] if samples == "int16" else ones
         for a in attrs:
             setattr(serve_mega_cuda, a, 0)
+        for module in (serve_mega_cuda, ingest_cuda):  # K1 runs the warmup's gates
+            for a in DESIGN_COUNTERS:
+                setattr(module, a, 0)
         t0 = time.perf_counter()
-        eng = make(None)
-        eng.warmup()
-        margins = []
-        for i, chunk in enumerate(batches_of(ws)):
-            args = (chunk, res)
-            if wp is not None:
-                args += (mix[i * 64:i * 64 + len(chunk)],)
-            margins.append(eng.execute(*args)[1])
+        with PlanLog() as plans:
+            eng = make(None)
+            eng.warmup()
+            margins = []
+            for i, chunk in enumerate(batches_of(ws)):
+                args = (chunk, res)
+                if wp is not None:
+                    args += (mix[i * 64:i * 64 + len(chunk)],)
+                margins.append(eng.execute(*args)[1])
         wall = time.perf_counter() - t0
         counts = {a: getattr(serve_mega_cuda, a) for a in attrs}
+        designs = {a: getattr(serve_mega_cuda, a) for a in DESIGN_COUNTERS}
+        gate_designs = {a: getattr(ingest_cuda, a) for a in DESIGN_COUNTERS}
         cpu = make("cpu")
         cpu.warmup()
         cpu_margins = [cpu.execute(chunk, res,
@@ -5698,10 +5788,15 @@ def phase_generic_serve(torch, np, model, windows, resolutions):
         emit("generic_serve", kernel=kernel, epoch_size=n, feature_size=K, skip=skip,
              samples=samples, precision=precision, weights_precision=wp, rung=eng.rung,
              weights_record=getattr(eng, "weights_record", None), windows=len(ws),
-             launches={a: v for a, v in counts.items() if v}, wall_s=wall,
+             launches={a: v for a, v in counts.items() if v}, designs=designs,
+             gate_k1_designs=gate_designs, plans=plans.summary(), wall_s=wall,
              max_margin_dev_vs_cpu=gap, tol=tol)
+        GENERIC_DESIGNS.append((kernel, {generic_design(a): v for a, v in designs.items()}))
         others = {a: v for a, v in counts.items() if a not in (attr, twin)}
         if not (eng.rung == "mega" and counts[attr] >= math.ceil(len(ws) / 64)
+                and sum(designs.values()) == counts[attr] + counts[twin]
+                and plans.designs() == {generic_design(a): v + gate_designs[a]
+                                        for a, v in designs.items()}
                 and 1 <= counts[twin] <= 2 and not any(others.values()) and gap <= tol
                 and (wp is None or eng.weights_precision == wp)):
             raise AssertionError(f"the generic serve run ({kernel}) did not run as expected: "
@@ -5966,6 +6061,7 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
             bound_ms, bound_by = timed_bound(bytes_moved, flops, bandwidth, peak)
             plan = generic_plan.generic_tile_plan(3, e, K, rows, sms, optin, 100, sample_bytes)
             emit("timing", kernel=name, windows=rows, epoch_size=e, feature_size=K, skip=skip,
+                 design=generic_plan.DESIGNS[plan.design],
                  kernel_ms=kernel_ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
                  library_ms=library_ms, library_device_ms=library_device_ms,
@@ -6069,6 +6165,49 @@ def generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega, serve
             del sstream
         del big, stream
     return out
+
+
+def generic_wide_library(torch, dwt, dev, bandwidth, f32_peak, smi, n=256, C=76):
+    """The library call and the bound of chip_compare.py's 76-channel
+    generic case (``n`` windows of ``C`` channels at GENERIC_WIDE, a window
+    every 1,000 samples): ``library_ms`` (and its device time), one
+    ``torch.matmul`` of the (windows * C, epoch_size) centred windows with
+    W, TF32 off, the contraction alone; the bound of K1-any and K5-any
+    there on int16 and float32 samples (each window's baseline and
+    analysis segment read once, the rows written once (K5: one margin a
+    window and the weights read once), against the contraction's
+    operations over the float32 peak)."""
+    e, K, skip = GENERIC_WIDE
+    W = dwt.kernel_operator(8, e, K, dev)
+    gen = torch.Generator(device=dev).manual_seed(n + e + K)
+    big = torch.randint(-3000, 3000, (C, n * 1000 + 1000), generator=gen, device=dev,
+                        dtype=torch.int32)
+    starts = torch.arange(n, device=dev, dtype=torch.int32) * 1000
+    windows = (big[:, (starts.long() + 100 + skip)[:, None] + torch.arange(e, device=dev)]
+               .to(torch.float32) * 0.1)
+    Z = (windows - windows.mean(dim=2, keepdim=True)).permute(1, 0, 2).reshape(n * C, e)
+    Z = Z.contiguous()
+    del windows, big
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library_ms = time_ms(lambda: torch.matmul(Z, W))
+        library_device_ms = profiled_device_ms(lambda: torch.matmul(Z, W), "gemm")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    flops = 2 * n * C * e * K
+    bounds = {}
+    for samples, sb in (("int16", 2), ("float32", 4)):
+        read = C * n * (100 + e) * sb + W.numel() * 4 + C * 4
+        bounds[f"k1_{samples}"] = timed_bound(read + n * C * K * 4 + n * 4, flops, bandwidth,
+                                              f32_peak)
+        bounds[f"k5_{samples}"] = timed_bound(read + C * K * 4 + n * 4, flops, bandwidth,
+                                              f32_peak)
+    emit("generic_wide_library", windows=n, channels=C, epoch_size=e, feature_size=K,
+         library_ms=library_ms, library_device_ms=library_device_ms, flops=flops,
+         bounds={k: {"bound_ms": ms, "bound_by": by} for k, (ms, by) in bounds.items()},
+         library="torch.matmul of the centred windows with W, TF32 off (contraction only)",
+         nvidia_smi=smi)
 
 
 def phase_remote(torch, np, info, model, local, counters, windows, resolutions, smi):
@@ -6312,8 +6451,8 @@ def main() -> int:
     dwt_cuda.build()
     from eeg_dataanalysispackage_tpu_torch.ops import generic_plan
 
-    emit("generic_f32s_build", **generic_f32s_build(cuda_build, generic_plan,
-                                                    *ingest_cuda.device_limits(dev)))
+    emit("generic_build", **generic_build(cuda_build, generic_plan,
+                                          *ingest_cuda.device_limits(dev)))
 
     # 3. each kernel against its plain version
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
@@ -6427,6 +6566,13 @@ def main() -> int:
         packed_launches = phase_quant_multi_service(torch, np, model, kept, windows,
                                                     resolutions)
         generic_launches.update(phase_generic_serve(torch, np, model, windows, resolutions))
+        designs = {}
+        for kernel, counts in GENERIC_DESIGNS:
+            for design, n in counts.items():
+                designs.setdefault(design, {}).setdefault(kernel, 0)
+                designs[design][kernel] += n
+        emit("generic_designs", launches={d: sum(k.values()) for d, k in designs.items()},
+             by_kernel={d: {k: n for k, n in by.items() if n} for d, by in designs.items()})
 
 
         # 5b. the same paths with the session and the models on a loopback
@@ -6489,6 +6635,7 @@ def main() -> int:
     generic = generic_timing(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
                              serve_mega_cuda, dev, GENERIC_SIZES, bandwidth, f32_peak, bf16_peak,
                              smi, generic_launches)
+    generic_wide_library(torch, dwt, dev, bandwidth, f32_peak, smi)
     k4 = epoch_timing(torch, dwt, dwt_cuda, dev, 32_768, bandwidth, f32_peak, smi)
     k4_run = [epoch_timing(torch, dwt, dwt_cuda, dev, n, bandwidth, f32_peak, smi)
               for n in (641, 1494)]  # the -pallas logreg run's own launches

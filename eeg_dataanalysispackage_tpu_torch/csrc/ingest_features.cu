@@ -58,9 +58,11 @@
 //
 // Every other window and coefficient count (any window, any count its
 // cascade has columns for) runs ingest_features_any_kernel, the generic
-// engine of window_features_any.cuh: tiles of windows a block against W
-// in shared memory, the contraction register-blocked (its notes give the
-// design and the bound).
+// engine of window_features_any.cuh, in the design its plan picks: the
+// warp-specialised ring design (contracting and centring warps handing
+// 32-sample chunks on through a ring of slots) or the phase-by-phase one
+// (tiles of windows a block against W in shared memory); its notes give
+// both designs and their bounds.
 
 #include <cuda_runtime.h>
 
@@ -122,27 +124,22 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
 }
 
 // Every size but the main path's 512 / 16: the generic engine, `epoch`
-// samples and `features` coefficients a channel, tiled as `plan` says
-// (window_features_any.cuh: run_tiles_any on int16 samples,
-// run_tiles_float on float32 ones).
-template <class Sample, Precision P>
-__global__ void __launch_bounds__(any_threads<Sample>(), any_min_blocks<Sample>())
+// samples and `features` coefficients a channel, tiled as `plan` says in
+// the design kDesign (window_features_any.cuh: run_tiles_ring, or the
+// phase-by-phase run_tiles_any).
+template <class Sample, Precision P, int kDesign>
+__global__ void __launch_bounds__(design_threads<kDesign>(), design_min_blocks<kDesign>())
     ingest_features_any_kernel(const Sample* __restrict__ raw,
                                const float* __restrict__ res,
                                const int* __restrict__ starts,
                                const float* __restrict__ w,
                                float* __restrict__ out, int n, int channels,
                                int n_samples, int pre, int skip, int epoch, int features,
-                               AnyPlanOf<Sample> plan) {
+                               DesignPlan<kDesign> plan) {
   extern __shared__ __align__(16) float smem[];
   const StreamView<Sample> v{raw, channels, n_samples};
-  if constexpr (sizeof(Sample) == 4) {
-    run_tiles_float<P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
-                       IngestRows<P>{starts, out, channels});
-  } else {
-    run_tiles_any<Sample, P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
-                             IngestRows<P>{starts, out, channels});
-  }
+  run_design<kDesign, Sample, P>(smem, v, res, w, n, pre, skip, epoch, features, plan,
+                                 IngestRows<P>{starts, out, channels});
 }
 
 template <class Sample, Precision P, bool kWide>
@@ -160,25 +157,43 @@ int launch_ring(const Ring& ring, size_t smem, const void* raw, const void* res,
   return cudaGetLastError();
 }
 
-template <class Sample, Precision P>
-int launch_any(const void* raw, const void* res, const void* starts, const void* w, void* out,
-               int n, int channels, int n_samples, int pre, int skip, int epoch, int features,
-               const int* any_plan, void* stream) {
-  AnyPlanOf<Sample> plan{};
+template <class Sample, Precision P, int kDesign>
+int launch_design(const void* raw, const void* res, const void* starts, const void* w,
+                  void* out, int n, int channels, int n_samples, int pre, int skip, int epoch,
+                  int features, const int* fields, void* stream) {
+  DesignPlan<kDesign> plan{};
   size_t smem = 0;
-  const int checked = check_plan<Sample>(any_plan, channels, epoch, features, pre, &plan, &smem);
+  const int checked =
+      check_plan<kDesign, Sample>(fields, channels, epoch, features, pre, &plan, &smem);
   if (checked != cudaSuccess) return checked;
   int grid = 0;
   const cudaError_t err =
-      plan_grid_threads(ingest_features_any_kernel<Sample, P>, any_threads<Sample>(), smem,
-                        (n + plan.m - 1) / plan.m, &grid);
+      plan_grid_threads(ingest_features_any_kernel<Sample, P, kDesign>,
+                        design_threads<kDesign>(), smem, (n + plan.m - 1) / plan.m, &grid);
   if (err != cudaSuccess) return err;
-  ingest_features_any_kernel<Sample, P>
-      <<<grid, any_threads<Sample>(), smem, static_cast<cudaStream_t>(stream)>>>(
+  ingest_features_any_kernel<Sample, P, kDesign>
+      <<<grid, design_threads<kDesign>(), smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const Sample*>(raw), static_cast<const float*>(res),
           static_cast<const int*>(starts), static_cast<const float*>(w),
           static_cast<float*>(out), n, channels, n_samples, pre, skip, epoch, features, plan);
   return cudaGetLastError();
+}
+
+// The generic engine in the design the plan's first field names (a missing
+// plan, or one of no design, is refused by the phase-by-phase design's
+// check after the reach).
+template <class Sample, Precision P>
+int launch_any(const void* raw, const void* res, const void* starts, const void* w, void* out,
+               int n, int channels, int n_samples, int pre, int skip, int epoch, int features,
+               const int* any_plan, void* stream) {
+  if (const int* ring = design_fields(any_plan, kRingDesign)) {
+    return launch_design<Sample, P, kRingDesign>(raw, res, starts, w, out, n, channels,
+                                                 n_samples, pre, skip, epoch, features, ring,
+                                                 stream);
+  }
+  return launch_design<Sample, P, kPhaseDesign>(raw, res, starts, w, out, n, channels,
+                                                n_samples, pre, skip, epoch, features,
+                                                design_fields(any_plan, kPhaseDesign), stream);
 }
 
 template <class Sample, Precision P>
@@ -236,8 +251,8 @@ extern "C" {
 // float32; precision: 0 f32, 1 bf16, 2 int8, 3 int4
 // (ops/decode_ingest.PRECISIONS). epoch 512 and features 16 run the ring
 // engine, every other size the generic one with the tile plan `any_plan`
-// (kAnyPlanFields ints, the order of AnyPlan; ops/generic_plan.py; not
-// read at 512 / 16). Returns the cudaError_t of the launch (an
+// (kPlanFields ints: the design, then its AnyPlan or RingPlan fields in
+// their order; ops/generic_plan.py; not read at 512 / 16). Returns the cudaError_t of the launch (an
 // inconsistent plan, or one that does not fit: cudaErrorInvalidValue), or
 // kSharedMemoryExceeded where the sizes lie outside the generic engine's
 // reach.

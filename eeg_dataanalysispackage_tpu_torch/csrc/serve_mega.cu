@@ -67,9 +67,10 @@
 //
 // Every other window and coefficient count (all instantiations above)
 // runs serve_mega_any_kernel, the generic engine of window_features_any.cuh
-// (tiles of windows a block against W in shared memory; its notes give the
-// design and the bound): the warp that finishes a window dots its row in
-// the ring epilogue's lane order.
+// in the design its plan picks (the warp-specialised ring design, or the
+// phase-by-phase one for tiles of few outputs; its notes give both designs
+// and their bounds): the warp that finishes a window dots its row in the
+// ring epilogue's lane order.
 //
 // Design: window_features.cuh's run_windows (a persistent wave of blocks,
 // each keeping its next window's samples in flight as 16-byte cp.async
@@ -253,10 +254,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks_per_sm(kWide))
 }
 
 // Every size but the main path's 512 / 16: the generic engine, tiled as
-// `plan` says (window_features_any.cuh: run_tiles_any on int16 samples,
-// run_tiles_float on float32 ones).
-template <class Sample, Precision P, bool kMulti, Weights Wt>
-__global__ void __launch_bounds__(any_threads<Sample>(), any_min_blocks<Sample>())
+// `plan` says in the design kDesign (window_features_any.cuh:
+// run_tiles_ring, or the phase-by-phase run_tiles_any).
+template <class Sample, Precision P, bool kMulti, Weights Wt, int kDesign>
+__global__ void __launch_bounds__(design_threads<kDesign>(), design_min_blocks<kDesign>())
     serve_mega_any_kernel(const Sample* __restrict__ stream,
                           const float* __restrict__ res,
                           const float* __restrict__ w,
@@ -265,17 +266,13 @@ __global__ void __launch_bounds__(any_threads<Sample>(), any_min_blocks<Sample>(
                           int stride, int pre, int skip,
                           const int* __restrict__ lanes, int n_samples,
                           const float* __restrict__ scales, int epoch, int features,
-                          AnyPlanOf<Sample> plan) {
+                          DesignPlan<kDesign> plan) {
   static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
   extern __shared__ __align__(16) float smem[];
   const StreamView<Sample> v{stream, channels, n_samples};
   const MegaMargins<P, kMulti, Wt> margins{stride, weights, lanes, out, channels, scales};
-  if constexpr (sizeof(Sample) == 4) {
-    run_tiles_float<P>(smem, v, res, w, capacity, pre, skip, epoch, features, plan, margins);
-  } else {
-    run_tiles_any<Sample, P>(smem, v, res, w, capacity, pre, skip, epoch, features, plan,
-                             margins);
-  }
+  run_design<kDesign, Sample, P>(smem, v, res, w, capacity, pre, skip, epoch, features, plan,
+                                 margins);
 }
 
 // One launch's arguments.
@@ -314,26 +311,39 @@ int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
   return cudaGetLastError();
 }
 
-template <class Sample, Precision P, bool kMulti, Weights Wt>
-int launch_any(const Launch& a) {
-  AnyPlanOf<Sample> plan{};
+template <class Sample, Precision P, bool kMulti, Weights Wt, int kDesign>
+int launch_design(const Launch& a, const int* fields) {
+  DesignPlan<kDesign> plan{};
   size_t smem = 0;
   const int checked =
-      check_plan<Sample>(a.any_plan, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
+      check_plan<kDesign, Sample>(fields, a.channels, a.epoch, a.features, a.pre, &plan, &smem);
   if (checked != cudaSuccess) return checked;
   int grid = 0;
   const cudaError_t err =
-      plan_grid_threads(serve_mega_any_kernel<Sample, P, kMulti, Wt>, any_threads<Sample>(),
-                        smem, (a.capacity + plan.m - 1) / plan.m, &grid);
+      plan_grid_threads(serve_mega_any_kernel<Sample, P, kMulti, Wt, kDesign>,
+                        design_threads<kDesign>(), smem, (a.capacity + plan.m - 1) / plan.m,
+                        &grid);
   if (err != cudaSuccess) return err;
-  serve_mega_any_kernel<Sample, P, kMulti, Wt>
-      <<<grid, any_threads<Sample>(), smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
+  serve_mega_any_kernel<Sample, P, kMulti, Wt, kDesign>
+      <<<grid, design_threads<kDesign>(), smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
           static_cast<const Sample*>(a.stream), static_cast<const float*>(a.res),
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
           static_cast<const int*>(a.lanes), a.capacity * a.stride,
           static_cast<const float*>(a.scales), a.epoch, a.features, plan);
   return cudaGetLastError();
+}
+
+// The generic engine in the design the plan's first field names (a missing
+// plan, or one of no design, is refused by the phase-by-phase design's
+// check after the reach).
+template <class Sample, Precision P, bool kMulti, Weights Wt>
+int launch_any(const Launch& a) {
+  if (const int* ring = design_fields(a.any_plan, kRingDesign)) {
+    return launch_design<Sample, P, kMulti, Wt, kRingDesign>(a, ring);
+  }
+  return launch_design<Sample, P, kMulti, Wt, kPhaseDesign>(
+      a, design_fields(a.any_plan, kPhaseDesign));
 }
 
 template <class Sample, Precision P, bool kMulti = false, Weights Wt = Weights::kF32>
@@ -398,11 +408,11 @@ extern "C" {
 // float32; out: (capacity,) float32 margins before the intercept;
 // precision: 0 f32, 2 int8, 3 int4 (ops/decode_ingest.PRECISIONS; 1, bf16,
 // is refused). epoch 512 and features 16 run the ring engine, every other
-// size the generic one with the tile plan `any_plan` (kAnyPlanFields ints,
-// the order of AnyPlan; ops/generic_plan.py). Returns the cudaError_t of
-// the launch (an inconsistent plan, or one that does not fit:
-// cudaErrorInvalidValue), or kSharedMemoryExceeded where the sizes lie
-// outside the generic engine's reach.
+// size the generic one with the tile plan `any_plan` (kPlanFields ints:
+// the design, then its AnyPlan or RingPlan fields; ops/generic_plan.py).
+// Returns the cudaError_t of the launch (an inconsistent plan, or one that
+// does not fit: cudaErrorInvalidValue), or kSharedMemoryExceeded where the
+// sizes lie outside the generic engine's reach.
 int serve_mega_launch(const void* stream, const void* res, const void* w,
                       const void* weights, void* out, int capacity, int channels,
                       int stride, int pre, int skip, int float_samples, int precision,

@@ -1,9 +1,8 @@
 // The generic engine of the fused kernels: any analysis window (`epoch`
 // samples) and coefficient count (`features`) but the main path's 512 / 16,
 // which runs the ring engine of window_features.cuh. Both kernels walk
-// their windows through run_tiles_any below, so the rows of the fused
-// ingest kernel and the features behind the serve megakernel's margins
-// agree bit for bit.
+// their windows through it, so the rows of the fused ingest kernel and the
+// features behind the serve megakernel's margins agree bit for bit.
 //
 // Replaces, at non-default sizes, the TPU kernels
 // eeg_dataanalysispackage_tpu/ops/ingest_pallas.py:314 (_make_kernel) and
@@ -28,16 +27,56 @@
 // f32 on CUDA cores). Float32 samples move twice the bytes: 0.0052 ms at
 // (256, 16) and 0.012 ms at (700, 32) and (512, 64) are bytes.
 //
-// Two engines share the contract below, one per sample type.
+// Two designs share the contract below, each instantiated for int16 and
+// float32 samples; the plan (ops/generic_plan.py) picks one per launch by
+// its first field (kPhaseDesign, kRingDesign), the kernels take it as a
+// template argument, and the launchers check the plan again.
 //
-// The int16 engine, run_tiles_any (the one-window-a-block engine before
-// it ran about five block-wide barriers per channel per window, read W
-// from L1/L2 once per window and channel and overlapped nothing):
-//   - A tile of M windows a block (AnyPlan::m, chosen per launch by
-//     ops/generic_plan.py from the rows, sizes and the card: 1 at a serve
-//     batch of 64, about 8-16 at thousands of windows); persistent blocks
-//     walk the tiles grid-stride. A tile's (window, channel) rows run as
-//     pieces of up to AnyPlan::rz rows (one piece where they fit).
+// The ring design, run_tiles_ring (it replaced the phase-by-phase design
+// for float32 samples, then for int16 ones, where tiles have many
+// outputs): one block of 384 threads a multiprocessor (168 registers a
+// thread), in two roles that hand work on through a ring of up to four
+// chunk slots, each slot 32 samples of j of every row of a piece and W's
+// 32 rows of a k-tile:
+//   - warps 0-7 contract: thread (row thread, column thread) owns
+//     RingPlan::rr x qq outputs, 8 x 4 or 4 x 4 (12 or 8 16-byte shared
+//     loads feed 128 or 64 FMAs), or 1 x 1 for a tile of few outputs such
+//     as a serve batch's single window. Each output is one chain of FMAs
+//     from 0 in ascending j over the chunks, in registers. The warps a
+//     piece leaves idle copy the chunks `slots` ahead into the slots the
+//     contraction frees (cp.async of whole 16-byte chunks, each thread's
+//     arrival on the slot's mbarrier tracking its copies; all eight warps
+//     where fewer than two are idle): a row's chunk of 32 samples is the
+//     16-byte chunks that cover it from any offset, 9 of float32 samples
+//     and 5 of int16, so int16 rows cost the copying warps about half.
+//   - warps 8-11 centre: per piece each row's mean (lane_baseline_sum's
+//     order, on 4 lanes a row), then per chunk z = x - mean in place in
+//     the slot, once its mbarrier says the copies have landed (a row's
+//     region holds its raw chunks, then its 32 centred floats; int16 rows
+//     converted by integer operations, four samples a lane from three
+//     32-bit loads and stored as one 16-byte store); and a tile's epilogue
+//     while the next tile is contracted.
+//   - Hand-offs are named barriers between the roles (bar.sync on one
+//     side, bar.arrive on the other) and the slots' mbarriers; none is
+//     block-wide but the block's first piece's means and its last tile's
+//     epilogue, which nothing else overlaps and the whole block runs.
+//   Why cp.async from many warps and not 1D bulk copies: a chunk is a few
+//   hundred copies of 80 or 144 bytes, one a row; issued as bulk copies
+//   they queued on the copy engine, and issued by one warp as cp.async
+//   they queued on that warp (PERF.md section 6).
+//   What bounds it: each chunk's hand-off through the ring (the copies'
+//   latency over the slots, the centring, the contraction of a
+//   sub-partition's busiest warps, which share its issue slots with a
+//   centring warp), and per block a fixed cost that nothing overlaps (the
+//   first piece's copies and means, the last tile's epilogue).
+//
+// The phase-by-phase design, run_tiles_any, kept where the plan finds it
+// faster: tiles of few outputs, such as a serve batch's single window,
+// whose fixed cost the ring design's pipeline cannot hide:
+//   - A tile of M windows a block (AnyPlan::m: 1 at a serve batch of 64,
+//     up to 16 at thousands of windows); persistent blocks walk the tiles
+//     grid-stride. A tile's (window, channel) rows run as pieces of up to
+//     AnyPlan::rz rows (one piece where they fit).
 //   - A piece's samples are staged by 16-byte cp.async chunks (the ring's
 //     superset chunks and masking: any start, negative or past the end;
 //     rows aligned or not), started as soon as the previous piece is
@@ -52,57 +91,30 @@
 //   - W in shared memory: resident for the whole launch where it fits
 //     beside the tile, else streamed in chunks of rows through two slots.
 //   - The contraction is register-blocked: thread (row group, column
-//     group) owns rr rows x qq coefficients (rr up to kAnyMaxRows, qq = 4,
-//     or 1 for a tile of few outputs), reading 4 samples of a row of z as
-//     a float4.
+//     group) owns rr rows x qq coefficients (rr up to max_rows: 3 for
+//     int16 samples, 2 for float32; qq = 4, or 1 for a tile of few
+//     outputs), reading 4 samples of a row of z as a float4.
 //   - The epilogue: each window's norm in double on a warp; for the int8
 //     and int4 rungs each subband group's maximum on a thread and the
 //     quantize on every thread of the block; the caller's finish on a
 //     warp a window.
 //   A block's phases run in turn behind block-wide barriers, two blocks a
-//   multiprocessor at 128 registers a thread.
+//   multiprocessor at 128 registers a thread: what bounds it at many
+//   outputs a tile, where the ring design overlaps those phases.
 //
-// The float32-sample engine, run_tiles_float (it replaced the int16
-// engine's float32 instantiations, whose phases ran in turn and whose
-// 2 x 4 register tile, all a thread could hold beside the staging, mean
-// and epilogue state, fed 32 FMAs with six 16-byte shared loads): one
-// block of 384 threads a multiprocessor (168 registers a thread), in two
-// roles that hand work on through a ring of up to four chunk slots, each
-// slot 32 samples of j of every row of a piece and W's 32 rows of a
-// k-tile:
-//   - warps 0-7 contract: thread (row thread, column thread) owns
-//     FloatPlan::rr x qq outputs, 8 x 4 or 4 x 4 (12 or 8 16-byte shared
-//     loads feed 128 or 64 FMAs), or 1 x 1 for a tile of few outputs such
-//     as a serve batch's single window. Each output is one chain of FMAs
-//     from 0 in ascending j over the chunks, in registers. The warps a
-//     piece leaves idle copy the chunks `slots` ahead into the slots the
-//     contraction frees (cp.async of whole 16-byte chunks, each thread's
-//     arrival on the slot's mbarrier tracking its copies; all eight warps
-//     where fewer than two are idle).
-//   - warps 8-11 centre: per piece each row's mean (lane_baseline_sum's
-//     order, on 4 lanes a row), then per chunk z = x - mean in place in
-//     the slot, once its mbarrier says the copies have landed; and a
-//     tile's epilogue while the next tile is contracted.
-//   - Hand-offs are named barriers between the roles (bar.sync on one
-//     side, bar.arrive on the other) and the slots' mbarriers; none is
-//     block-wide but the block's first piece's means and its last tile's
-//     epilogue, which nothing else overlaps and the whole block runs.
-//   Why cp.async from many warps and not 1D bulk copies: a chunk is a few
-//   hundred copies of 144 bytes, one a row; issued as bulk copies they
-//   queued on the copy engine, and issued by one warp as cp.async they
-//   queued on that warp (PERF.md section 6).
-//   Every output is still one fmaf chain from 0.0f in ascending j, the
-//   mean summed in double in lane_baseline_sum's lane order, the centre
-//   __fmul_rn then __fsub_rn, normalize_row's and quantize_feature's
-//   order: rows, margins and quantized rows equal the int16-engine
-//   design's bit for bit at any plan.
+// Every output is one fmaf chain from 0.0f in ascending j, the mean
+// summed in double in lane_baseline_sum's lane order, the centre
+// __fmul_rn then __fsub_rn of sample_value's bits, normalize_row's and
+// quantize_feature's order, in both designs: rows, margins and quantized
+// rows are the same bit for bit whatever the design or the plan.
 //
 // Reach: a launch is refused (kSharedMemoryExceeded) exactly where the
 // one-window-a-block engine's shared memory (any_smem_bytes) exceeded the
-// block's opt-in limit, for either sample type. Every other launch has a
-// plan that fits: one row a piece, nothing staged and the smallest W chunk
-// (int16), or one row, 4 coefficients and one slot (float32: 172 floats
-// beside the tile's row), take less shared memory than that engine did.
+// block's opt-in limit, for either sample type and design. Every other
+// launch has a plan in each design that fits: one row a piece, nothing
+// staged and the smallest W chunk (phase-by-phase), or one row, 4
+// coefficients and one slot (ring: 172 floats beside the tile's row), take
+// less shared memory than that engine did.
 
 #pragma once
 
@@ -121,12 +133,14 @@ constexpr int kSharedMemoryExceeded = -1;
 constexpr int kAnyMinBlocksPerSm = 2;
 // W floats each thread copies for one streamed chunk (jc * KT <= 256 * 8).
 constexpr int kAnyFetch = 8;
-// The plan's fields, in the order the launchers take them.
-constexpr int kAnyPlanFields = 9;
-// The most (window, channel) rows one thread of the int16 engine's
-// contraction owns: its RR x qq accumulators and two steps' samples fit
-// 128 registers beside the rest of the kernel without a spill.
-constexpr int kAnyMaxRows = 3;
+// The most (window, channel) rows one thread of the phase-by-phase
+// design's contraction owns: its RR x qq accumulators and two steps'
+// samples fit 128 registers beside the rest of the kernel without a spill
+// (2 for float32 samples, whose instantiations spill at 3).
+template <class Sample>
+__host__ __device__ constexpr int max_rows() {
+  return sizeof(Sample) == 2 ? 3 : 2;
+}
 
 // Subband groups of one channel's `features` coefficients: [0, 1), then
 // [2^(g-1), min(2^g, features)) for g >= 1 (ops/decode_ingest.py
@@ -150,7 +164,7 @@ inline size_t any_smem_bytes(int channels, int epoch, int features) {
 struct AnyPlan {
   int m;            // windows a tile
   int rz;           // (window, channel) rows a piece: the rows of z
-  int rr;           // rows each thread contracts: 1 to kAnyMaxRows
+  int rr;           // rows each thread contracts: 1 to max_rows<Sample>()
   int tq_log2;      // log2 of the contraction's column threads; a k-tile is qq << tq_log2
   int jc;           // W rows a streamed chunk (a multiple of 4), 0: W resident
   int ep;           // z's row stride in floats (4 mod 32, at least epoch rounded up to 4)
@@ -200,7 +214,7 @@ int check_any_plan(const int* fields, int channels, int epoch, int features, int
                   fields[5], fields[6], fields[7], fields[8]};
   if ((p.qq != 1 && p.qq != 4) || p.tq_log2 < 0 || kt_log2(p) > 7) return cudaErrorInvalidValue;
   const bool ok =
-      p.m >= 1 && p.m <= 1024 && p.rr >= 1 && p.rr <= kAnyMaxRows && p.rz >= 1 &&
+      p.m >= 1 && p.m <= 1024 && p.rr >= 1 && p.rr <= max_rows<Sample>() && p.rz >= 1 &&
       p.rz <= (kThreads >> p.tq_log2) * p.rr &&
       static_cast<long long>(p.rz) <= static_cast<long long>(p.m) * channels &&
       (p.jc == 0 || (p.jc >= 4 && p.jc % 4 == 0 && p.jc * k_tile(p) <= kThreads * kAnyFetch)) &&
@@ -671,12 +685,15 @@ __device__ __forceinline__ void contract_piece(const AnyLaunch<Sample>& a, int r
   }
 }
 
-// contract_piece at the plan's rows a thread.
+// contract_piece at the plan's rows a thread (RR = 3 only where
+// max_rows allows it, so the float32-sample kernels hold no such code).
 template <int QQ, Precision P, class Sample, class Next>
 __device__ __forceinline__ void contract_rows(const AnyLaunch<Sample>& a, int r0, int nr,
                                               const Next& stage_next) {
   if (a.p.rr == 1) {
     contract_piece<1, QQ, P>(a, r0, nr, stage_next);
+  } else if constexpr (max_rows<Sample>() == 2) {
+    contract_piece<2, QQ, P>(a, r0, nr, stage_next);
   } else if (a.p.rr == 2) {
     contract_piece<2, QQ, P>(a, r0, nr, stage_next);
   } else {
@@ -735,7 +752,7 @@ __device__ __forceinline__ void quantize_elements(float* y, const float* gmax, i
   }
 }
 
-// Both halves by the whole block (the int16 engine).
+// Both halves by the whole block (the phase-by-phase design).
 template <Precision P>
 __device__ __forceinline__ void quantize_rows(float* y, float* gmax, int nw, int channels,
                                               int features) {
@@ -758,7 +775,6 @@ __device__ __forceinline__ void run_tiles_any(void* smem, const StreamView<Sampl
                                               const float* __restrict__ w, int rows, int pre,
                                               int skip, int epoch, int features,
                                               const AnyPlan& plan, const Windows& win) {
-  static_assert(sizeof(Sample) == 2, "float32 samples run run_tiles_float");
   AnyLaunch<Sample> a{v, res, w, rows, pre, skip, epoch, features, plan,
                       nullptr, nullptr, nullptr, nullptr, nullptr};
   const int e4 = round4(epoch);
@@ -852,26 +868,40 @@ __device__ __forceinline__ void run_tiles_any(void* smem, const StreamView<Sampl
 
 
 // ---------------------------------------------------------------------------
-// The float32-sample engine, run_tiles_float: a block of kFloatThreads
-// threads in two roles, handing work on through a ring of `slots` chunk
-// slots in shared memory.
+// The ring design, run_tiles_ring: a block of kRingThreads threads in two
+// roles, handing work on through a ring of `slots` chunk slots in shared
+// memory. One engine for both sample types: only the copies of a chunk's
+// rows (row_chunks) and the centring of a row in place differ.
 
-constexpr int kFloatThreads = 384;
+constexpr int kRingThreads = 384;
 constexpr int kConsumerThreads = 256;  // warps 0-7: the contraction and the copies
 constexpr int kCentreWarp0 = 8;        // warps 8-11: means, centre, epilogue
 constexpr int kCentreWarps = 4;
 constexpr int kCentreThreads = kCentreWarps * 32;
 // A chunk: 32 samples of every row of a piece, and W's 32 rows of a
 // k-tile. A row's region of a slot holds the 16-byte chunks of the address
-// space that cover its 32 samples from any offset (9 of them), and its
-// centred samples in place of them once centred: a stride of 36 floats,
-// 4 mod 32, so a warp's float4 reads of 8 consecutive rows hit distinct
-// banks.
+// space that cover its 32 samples from any offset (row_chunks: 9 of float32
+// samples, 5 of int16), and its 32 centred samples in place of them once
+// centred: a stride of 36 floats, 4 mod 32, so a warp's float4 reads of 8
+// consecutive rows hit distinct banks.
 constexpr int kChunkJ = 32;
 constexpr int kRowFloats = 36;
 constexpr int kMaxSlots = 4;
 // Shared memory before the ring: the slots' mbarriers and the baseline's.
 constexpr int kBarrierBytes = 64;
+
+// The raw 16-byte chunks of a row a slot holds, and how many of them one
+// chunk of j advances.
+template <class Sample>
+__host__ __device__ constexpr int row_chunks() {
+  return segment_chunks<Sample>(kChunkJ);
+}
+template <class Sample>
+__host__ __device__ constexpr int chunk_step() {
+  return kChunkJ / chunk_samples<Sample>();
+}
+static_assert(row_chunks<float>() * 4 <= kRowFloats && row_chunks<int16_t>() * 4 <= kRowFloats,
+              "a row's raw chunks fit its region");
 
 // Named barriers (0 is __syncthreads). Those between the two roles are
 // met by whole warps, one side arriving (bar.arrive: it goes on), the
@@ -886,36 +916,53 @@ constexpr int kCentreBar = 12;  // the centring warps among themselves
 constexpr int kPieceStart = 13; // the consumers among themselves: a piece's rows known
 constexpr int kRoles = kConsumerThreads + kCentreThreads;
 
-// A float32-sample launch's tile plan (ops/generic_plan.py
-// float_tile_plan).
-struct FloatPlan {
+// A ring-design launch's tile plan (ops/generic_plan.py ring_tile_plan).
+struct RingPlan {
   int m;            // windows a tile
   int rz;           // (window, channel) rows a piece
   int rr;           // rows a consumer thread contracts: 1, 4 or 8
   int qq;           // coefficients a consumer thread contracts: 1 (rr 1) or 4
   int tq;           // consumer threads across a k-tile: kt = qq * tq coefficients
   int slots;        // ring slots, 1 to kMaxSlots
-  int base_floats;  // a row's staged baseline floats, 0: the means read device memory
+  int base_floats;  // a row's staged baseline (4 floats a 16-byte chunk), 0: the means
+                    // read device memory
 };
 
-template <class Sample>
-using AnyPlanOf = std::conditional_t<sizeof(Sample) == 4, FloatPlan, AnyPlan>;
+// The two designs of the generic engine, chosen per launch by the plan's
+// first field (ops/generic_plan.py generic_tile_plan) and instantiated as
+// a template argument of each kernel: the phase-by-phase design
+// (run_tiles_any, AnyPlan; 256 threads, two blocks a multiprocessor) and
+// the ring design (run_tiles_ring, RingPlan; 384 threads, one block).
+constexpr int kPhaseDesign = 0;
+constexpr int kRingDesign = 1;
+// A plan's ints, in the order the launchers take them: the design, then
+// its AnyPlan (9) or RingPlan (7) fields.
+constexpr int kPlanFields = 10;
 
-// Threads a block and blocks a multiprocessor of the generic kernels
-// (__launch_bounds__): 384 and one for float32 samples (168 registers a
-// thread), 256 and two for int16.
-template <class Sample>
-__host__ __device__ constexpr int any_threads() {
-  return sizeof(Sample) == 4 ? kFloatThreads : kThreads;
+template <int kDesign>
+using DesignPlan = std::conditional_t<kDesign == kRingDesign, RingPlan, AnyPlan>;
+
+// Threads a block and blocks a multiprocessor of each design's kernels
+// (__launch_bounds__): 384 and one for the ring design (168 registers a
+// thread), 256 and two (128 registers) for the phase-by-phase one.
+template <int kDesign>
+__host__ __device__ constexpr int design_threads() {
+  return kDesign == kRingDesign ? kRingThreads : kThreads;
 }
-template <class Sample>
-__host__ __device__ constexpr int any_min_blocks() {
-  return sizeof(Sample) == 4 ? 1 : kAnyMinBlocksPerSm;
+template <int kDesign>
+__host__ __device__ constexpr int design_min_blocks() {
+  return kDesign == kRingDesign ? 1 : kAnyMinBlocksPerSm;
 }
 
-__host__ __device__ inline int float_kt(const FloatPlan& p) { return p.qq * p.tq; }
-__host__ __device__ inline int float_slot_floats(const FloatPlan& p) {
-  return p.rz * kRowFloats + kChunkJ * float_kt(p);
+// The fields of `design`'s plan in a launch's plan ints (after its design
+// field), or null where the plan is missing or of another design.
+inline const int* design_fields(const int* plan, int design) {
+  return plan != nullptr && plan[0] == design ? plan + 1 : nullptr;
+}
+
+__host__ __device__ inline int ring_kt(const RingPlan& p) { return p.qq * p.tq; }
+__host__ __device__ inline int ring_slot_floats(const RingPlan& p) {
+  return p.rz * kRowFloats + kChunkJ * ring_kt(p);
 }
 
 // Words a row of a piece keeps beside the ring: two window starts (one a
@@ -926,20 +973,21 @@ constexpr int kRowWords = 8;
 // Shared memory of a plan: the mbarriers, the ring's slots (each the
 // piece's rows, then W's chunk), the staged baselines, the tile's rows y
 // and their subband groups' maxima, and kRowWords a row of the piece.
-inline size_t float_plan_smem_bytes(const FloatPlan& p, int channels, int features) {
+inline size_t ring_plan_smem_bytes(const RingPlan& p, int channels, int features) {
   const size_t rows = static_cast<size_t>(p.m) * channels;
-  const size_t floats = static_cast<size_t>(p.slots) * float_slot_floats(p) +
+  const size_t floats = static_cast<size_t>(p.slots) * ring_slot_floats(p) +
                         static_cast<size_t>(p.rz) * p.base_floats +
                         rows * (features + subband_groups(features)) +
                         kRowWords * static_cast<size_t>(p.rz);
   return kBarrierBytes + floats * sizeof(float);
 }
 
-// check_any_plan for float32 samples: the same refusal
+// check_any_plan for the ring design: the same refusal
 // (kSharedMemoryExceeded where any_smem_bytes exceeds the limit), then the
 // plan's consistency and fit.
-inline int check_float_plan(const int* fields, int channels, int epoch, int features, int pre,
-                            FloatPlan* plan, size_t* smem) {
+template <class Sample>
+int check_ring_plan(const int* fields, int channels, int epoch, int features, int pre,
+                    RingPlan* plan, size_t* smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -949,26 +997,28 @@ inline int check_float_plan(const int* fields, int channels, int epoch, int feat
   const size_t limit = static_cast<size_t>(max_optin);
   if (any_smem_bytes(channels, epoch, features) > limit) return kSharedMemoryExceeded;
   if (fields == nullptr) return cudaErrorInvalidValue;
-  const FloatPlan p{fields[0], fields[1], fields[2], fields[3], fields[4], fields[5], fields[6]};
+  const RingPlan p{fields[0], fields[1], fields[2], fields[3], fields[4], fields[5], fields[6]};
   const bool tile = (p.rr == 1 && p.qq == 1 && p.tq >= 4 && p.tq <= 64 && p.tq % 4 == 0) ||
                     ((p.rr == 4 || p.rr == 8) && p.qq == 4 && p.tq >= 1 && p.tq <= 16);
   const bool ok = tile && p.m >= 1 && p.m <= 1024 && p.rz >= 1 &&
                   p.rz <= p.rr * (kConsumerThreads / p.tq) &&
                   static_cast<long long>(p.rz) <= static_cast<long long>(p.m) * channels &&
                   p.slots >= 1 && p.slots <= kMaxSlots &&
-                  (p.base_floats == 0 || p.base_floats == 4 * segment_chunks<float>(pre));
+                  (p.base_floats == 0 || p.base_floats == 4 * segment_chunks<Sample>(pre));
   if (!ok) return cudaErrorInvalidValue;
-  *smem = float_plan_smem_bytes(p, channels, features);
+  *smem = ring_plan_smem_bytes(p, channels, features);
   if (*smem > limit) return cudaErrorInvalidValue;
   *plan = p;
   return cudaSuccess;
 }
 
-template <class Sample>
+// A design's plan check: the refusal first, then a missing plan or one of
+// another design (fields null) is cudaErrorInvalidValue.
+template <int kDesign, class Sample>
 int check_plan(const int* fields, int channels, int epoch, int features, int pre,
-               AnyPlanOf<Sample>* plan, size_t* smem) {
-  if constexpr (sizeof(Sample) == 4) {
-    return check_float_plan(fields, channels, epoch, features, pre, plan, smem);
+               DesignPlan<kDesign>* plan, size_t* smem) {
+  if constexpr (kDesign == kRingDesign) {
+    return check_ring_plan<Sample>(fields, channels, epoch, features, pre, plan, smem);
   } else {
     return check_any_plan<Sample>(fields, channels, epoch, features, pre, plan, smem);
   }
@@ -1066,8 +1116,9 @@ __device__ __forceinline__ void stage4(void* dst, const void* src) {
 }
 
 // What the roles read of a launch, with the pieces of the carve.
-struct FloatLaunch {
-  StreamView<float> v;
+template <class Sample>
+struct RingLaunch {
+  StreamView<Sample> v;
   const float* __restrict__ res;
   const float* __restrict__ w;
   int rows;
@@ -1075,26 +1126,27 @@ struct FloatLaunch {
   int skip;
   int epoch;
   int features;
-  FloatPlan p;
+  RingPlan p;
   uint64_t* bars;  // [kMaxSlots] the slots' copies, then [1] the baselines'
   float* ring;     // [slots][rz x kRowFloats + kChunkJ x kt]
-  float* base;     // [rz][base_floats]  the piece's staged baselines
+  float* base;     // [rz][base_floats]  the piece's staged baselines (raw 16-byte chunks)
   float* y;        // [m][channels * features]  the tile's rows
   float* gmax;     // [m][channels][subband groups]
   int* starts;     // [2][rz]  the window starts of a piece's rows (by piece parity)
   float2* rcm;     // [rz]  a row's resolution and mean (0 and 0 past the launch's end)
   int2* seg;       // [rz]  its analysis segment's in-row samples (lo | hi << 16; none: 0)
-                   //       and offset in its first chunk
+                   //       and offset in its first chunk (in samples)
   int* chunk0;     // [rz]  the 16-byte chunk holding its analysis segment's first sample
   int* base0;      // [rz]  and its baseline's (kNoRow: a row past the launch's end)
   uintptr_t xb;    // the 16-byte chunk holding the sample tensor's first byte
-  uintptr_t xbeg;  // the sample tensor's first byte
-  uintptr_t xend;  // and one past its last
+  int xoff;        // the tensor's first byte within that chunk
+  uintptr_t xlo;   // the tensor's bytes, widened to whole 4-byte words: the first
+  uintptr_t xhi;   // and one past the last
 
   __device__ __forceinline__ int tile_rows() const { return p.m * v.channels; }
   __device__ __forceinline__ int pieces() const { return (tile_rows() + p.rz - 1) / p.rz; }
   __device__ __forceinline__ int k_tiles() const {
-    return (features + float_kt(p) - 1) / float_kt(p);
+    return (features + ring_kt(p) - 1) / ring_kt(p);
   }
   __device__ __forceinline__ int chunks() const { return (epoch + kChunkJ - 1) / kChunkJ; }
   __device__ __forceinline__ int tiles() const { return (rows + p.m - 1) / p.m; }
@@ -1102,7 +1154,7 @@ struct FloatLaunch {
     return tile + static_cast<int>(gridDim.x) >= tiles();
   }
   __device__ __forceinline__ float* slot(int s) const {
-    return ring + static_cast<size_t>(s) * float_slot_floats(p);
+    return ring + static_cast<size_t>(s) * ring_slot_floats(p);
   }
   // The consumer warps a piece of nr rows keeps busy, and the first warp
   // of those that copy the chunks ahead while it is contracted: the warps
@@ -1131,30 +1183,32 @@ struct FloatLaunch {
   // the index, from xb, of the 16-byte chunk holding sample j of channel c
   // (j may lie outside the row, the chunk outside the tensor)
   __device__ __forceinline__ int chunk_of(int c, long long j) const {
-    const long long byte = static_cast<long long>(xbeg - xb) +
-                           (static_cast<long long>(c) * v.n + j) * 4;
+    const long long byte = static_cast<long long>(xoff) +
+                           (static_cast<long long>(c) * v.n + j) *
+                               static_cast<long long>(sizeof(Sample));
     return static_cast<int>(byte >> 4);
   }
   // Start copying chunk i into dst: a chunk inside the tensor is one
-  // 16-byte cp.async; of one across either end of it, its floats inside
-  // one 4-byte cp.async each; one outside it, nothing (its samples lie
-  // outside every row, masked where they are read).
+  // 16-byte cp.async; of one across either end of it, its 4-byte words
+  // that hold a byte of the tensor one 4-byte cp.async each (an int16
+  // tensor may start or end inside a word: its other half, in the same
+  // word of the same allocation, holds no sample of any row and is masked
+  // where it is read); one outside it, nothing (its samples lie outside
+  // every row, masked where they are read).
   __device__ __forceinline__ void copy_chunk(int i, float* dst) const {
     const uintptr_t at = xb + static_cast<uintptr_t>(static_cast<long long>(i) * 16);
-    if (at >= xbeg && at + 16 <= xend) {
+    if (at >= xlo && at + 16 <= xhi) {
       stage16(dst, reinterpret_cast<const void*>(at));
-    } else if (at + 16 > xbeg && at < xend) {
+    } else if (at + 16 > xlo && at < xhi) {
       for (int u = 0; u < 4; ++u) {
         const uintptr_t f = at + 4 * u;
-        if (f >= xbeg && f < xend) stage4(dst + u, reinterpret_cast<const void*>(f));
+        if (f >= xlo && f < xhi) stage4(dst + u, reinterpret_cast<const void*>(f));
       }
     }
   }
 };
 
 constexpr int kNoRow = -2147483647 - 1;
-// the 16-byte chunks of a row's region in a slot
-constexpr int kRowChunks = kRowFloats / 4;
 
 // Where the block's chunk q lies: its tile, piece (pc: among the block's
 // pieces), k-tile and chunk of j. (Computed afresh for each chunk copied:
@@ -1169,7 +1223,8 @@ struct StageCursor {
   int cc;
 };
 
-__device__ __forceinline__ StageCursor chunk_at(const FloatLaunch& a, int q) {
+template <class Sample>
+__device__ __forceinline__ StageCursor chunk_at(const RingLaunch<Sample>& a, int q) {
   const int nc = a.chunks();
   const int per_piece = a.k_tiles() * nc;
   const int pc = q / per_piece;
@@ -1179,9 +1234,9 @@ __device__ __forceinline__ StageCursor chunk_at(const FloatLaunch& a, int q) {
                      pc - t * a.pieces(), pc, kc / nc, kc % nc};
 }
 
-// The consumers' copies of the cursor's chunk into slot q % slots: the 9
-// 16-byte chunks of the address space from the one holding the chunk's
-// first sample, for each row of its piece (consecutive threads on
+// The consumers' copies of the cursor's chunk into slot q % slots: the
+// row_chunks 16-byte chunks of the address space from the one holding the
+// chunk's first sample, for each row of its piece (consecutive threads on
 // consecutive chunks of a row, so a warp's copies coalesce), copied whole,
 // and W's 32 rows of its k-tile, by the consumer warps from warp w0 (those
 // the piece being contracted leaves idle, or all); each of them arrives on
@@ -1194,9 +1249,10 @@ __device__ __forceinline__ StageCursor chunk_at(const FloatLaunch& a, int q) {
 // one warp issuing them all, or the copy engine fed one bulk copy a row,
 // left the chunks waiting on their copies. Rows past the launch's end
 // stage nothing.
-template <class Windows>
-__device__ __forceinline__ void stage_chunk(const FloatLaunch& a, const StageCursor& at, int w0,
-                                            const Windows& win) {
+template <class Sample, class Windows>
+__device__ __forceinline__ void stage_chunk(const RingLaunch<Sample>& a, const StageCursor& at,
+                                            int w0, const Windows& win) {
+  constexpr int kRowChunks = row_chunks<Sample>();
   const int t = threadIdx.x;
   const int r0 = at.piece * a.p.rz;
   const int nr = min(a.p.rz, a.tile_rows() - r0);
@@ -1238,13 +1294,15 @@ __device__ __forceinline__ void stage_chunk(const FloatLaunch& a, const StageCur
   const int n = kConsumerThreads - w0 * 32;
   float* zs = a.slot(s);
   float* ws = zs + a.p.rz * kRowFloats;
-  const int kt = float_kt(a.p);
+  const int kt = ring_kt(a.p);
   const int j0 = at.cc * kChunkJ;
   for (int i = u0; i < nr * kRowChunks; i += n) {
     const int r = i / kRowChunks;
     const int u = i - r * kRowChunks;
     const int c0 = a.chunk0[r];
-    if (c0 != kNoRow) a.copy_chunk(c0 + at.cc * (kChunkJ / 4) + u, zs + r * kRowFloats + 4 * u);
+    if (c0 != kNoRow) {
+      a.copy_chunk(c0 + at.cc * chunk_step<Sample>() + u, zs + r * kRowFloats + 4 * u);
+    }
   }
   const int rows_w = min(kChunkJ, a.epoch - j0);
   if (kt == a.features && kt % 4 == 0 &&
@@ -1268,9 +1326,9 @@ __device__ __forceinline__ void stage_chunk(const FloatLaunch& a, const StageCur
 // w0 (t: the thread's index among them; sync: their barrier): each
 // window's norm on a warp (normalize_row), for the int8 and int4 rungs the
 // quantize step by all of them, the caller's finish on a warp a window.
-template <Precision P, class Windows, class Sync>
-__device__ __forceinline__ void float_finish(const FloatLaunch& a, int tile, int w0, int warps,
-                                             const Sync& sync, const Windows& win) {
+template <Precision P, class Sample, class Windows, class Sync>
+__device__ __forceinline__ void ring_finish(const RingLaunch<Sample>& a, int tile, int w0,
+                                            int warps, const Sync& sync, const Windows& win) {
   const int t = threadIdx.x - w0 * 32;
   const int warp = t / 32;
   const int lane = t % 32;
@@ -1303,8 +1361,8 @@ __device__ __forceinline__ void float_finish(const FloatLaunch& a, int tile, int
 // the 4 (double addition commutes, so every mean is the 8-lane one bit for
 // bit); the loop's trip count is the warps', so every lane reaches each
 // butterfly.
-template <class Sync>
-__device__ __forceinline__ void piece_means(const FloatLaunch& a, int tile, int r0, int nr,
+template <class Sample, class Sync>
+__device__ __forceinline__ void piece_means(const RingLaunch<Sample>& a, int tile, int r0, int nr,
                                             const int* st, int t, int threads,
                                             const Sync& sync) {
   for (int r = t; r < nr; r += threads) {
@@ -1327,12 +1385,13 @@ __device__ __forceinline__ void piece_means(const FloatLaunch& a, int tile, int 
       const InRow in(start, a.pre, a.v.n);
       // (each call site reads one memory space: shared or global loads)
       if (a.p.base_floats) {
-        const float* b =
-            a.base + static_cast<size_t>(r) * a.p.base_floats + a.v.offset(c, start);
+        const Sample* b =
+            reinterpret_cast<const Sample*>(a.base + static_cast<size_t>(r) * a.p.base_floats) +
+            a.v.offset(c, start);
         sum = lane_baseline_sum(b, in, a.pre, rcv, l4) +
               lane_baseline_sum(b, in, a.pre, rcv, l4 + kMeanLanes);
       } else {
-        const float* b = a.v.raw + static_cast<long long>(c) * a.v.n + start;
+        const Sample* b = a.v.raw + static_cast<long long>(c) * a.v.n + start;
         sum = lane_baseline_sum(b, in, a.pre, rcv, l4) +
               lane_baseline_sum(b, in, a.pre, rcv, l4 + kMeanLanes);
       }
@@ -1357,19 +1416,43 @@ __device__ __forceinline__ void piece_means(const FloatLaunch& a, int tile, int 
   sync();  // the means visible
 }
 
+// Four staged int16 samples, s0 .. s0 + 3 of a row's region (its raw
+// 16-byte chunks from `x32`, 32-bit words; s0 from 0), as floats by
+// integer operations: two words' pairs aligned by a byte permute (s0 odd)
+// or taken as they are, then each sample's offset binary placed under
+// 2^23's exponent (0x4B000000 | (x + 2^15), x + 2^15 = x ^ 0x8000 in 16
+// bits) and 2^23 + 2^15 subtracted, exactly: sample_value's bits.
+__device__ __forceinline__ void int16_quad(const unsigned* x32, int s0, float (&x)[4]) {
+  const unsigned* xw = x32 + (s0 >> 1);
+  const unsigned w0 = xw[0];
+  const unsigned w1 = xw[1];
+  const unsigned w2 = xw[2];
+  const unsigned sel = (s0 & 1) ? 0x5432u : 0x3210u;
+  const unsigned pair[2] = {__byte_perm(w0, w1, sel) ^ 0x80008000u,
+                            __byte_perm(w1, w2, sel) ^ 0x80008000u};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const unsigned bits = __byte_perm(pair[u >> 1], 0x4B000000u, (u & 1) ? 0x7632u : 0x7610u);
+    x[u] = __fsub_rn(__uint_as_float(bits), 8421376.0f);
+  }
+}
+
 // The centring warps. Per piece (but the block's first, whose means the
 // whole block takes), once its baselines have landed: piece_means. Then
 // per chunk, once its copies have landed, z = x - mean over the row's
-// staged samples in place: a row on 8 lanes, lane l8 on its samples l8,
-// l8 + 8, ... (a warp's four rows two apart, so its reads and writes hit
-// distinct banks), two rounds of 16 rows at a time, all loaded before any
-// is stored; for kBf16 rounded, and W's chunk rounded too. A tile's
-// epilogue (but the block's last, which the whole block runs) runs once
-// the chunk `slots` chunks into the next tile is centred: so it overlaps
-// the next tile's contraction, and the consumers' copies, which run that
-// far ahead, never wait on it.
-template <Precision P, class Windows>
-__device__ __forceinline__ void float_centring(const FloatLaunch& a, const Windows& win) {
+// staged samples in place, a row on 8 lanes (a warp's four rows two apart,
+// so its float reads hit distinct banks), two rounds of 16 rows at a
+// time, all loaded before any is stored; for kBf16 rounded, and W's chunk
+// rounded too. Float32 samples: lane l8 on samples l8, l8 + 8, ...; int16
+// samples: lane l8 on samples 4 l8 .. 4 l8 + 3 (three 32-bit loads, the
+// conversion by integer operations, one 16-byte store). A tile's epilogue
+// (but the block's last, which the whole block runs) runs once the chunk
+// `slots` chunks into the next tile is centred: so it overlaps the next
+// tile's contraction, and the consumers' copies, which run that far ahead,
+// never wait on it.
+template <Precision P, class Sample, class Windows>
+__device__ __forceinline__ void ring_centring(const RingLaunch<Sample>& a, const Windows& win) {
+  constexpr bool kInt16 = sizeof(Sample) == 2;
   const int ct = threadIdx.x - kCentreWarp0 * 32;
   const int cw = ct / 32;
   const int lane = ct % 32;
@@ -1388,8 +1471,8 @@ __device__ __forceinline__ void float_centring(const FloatLaunch& a, const Windo
   int epilogues = 0;  // the block's tiles finished so far (but the last)
   auto epilogue = [&] {
     role_sync(kYFull, kRoles);
-    float_finish<P>(a, blockIdx.x + epilogues * gridDim.x, kCentreWarp0, kCentreWarps,
-                    centre_sync, win);
+    ring_finish<P>(a, blockIdx.x + epilogues * gridDim.x, kCentreWarp0, kCentreWarps,
+                   centre_sync, win);
     role_arrive(kYFree, kRoles);
     ++epilogues;
   };
@@ -1424,21 +1507,28 @@ __device__ __forceinline__ void float_centring(const FloatLaunch& a, const Windo
               at[h] = r < nr ? r * kRowFloats : -1;
               const int2 seg = a.seg[rs];
               const float2 rcm = a.rcm[rs];
-              const float* x0 = zs + rs * kRowFloats + seg.y;
               const int lo = static_cast<int>(static_cast<unsigned>(seg.x) & 0xffffu) - j0;
               const int hi = static_cast<int>(static_cast<unsigned>(seg.x) >> 16) - j0;
+              // this lane's samples: 4 l8 + u (int16), l8 + 8 u (float32)
+              float x[4];
+              if constexpr (kInt16) {
+                int16_quad(reinterpret_cast<const unsigned*>(zs + rs * kRowFloats),
+                           seg.y + 4 * l8, x);
+              } else {
+                const float* x0 = zs + rs * kRowFloats + seg.y;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) x[u] = x0[l8 + kRowLanes * u];
+              }
               if (lo <= 0 && hi >= kChunkJ && len == kChunkJ) {
                 // the whole chunk in the row: the common case
 #pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                  z[h][u] = __fsub_rn(__fmul_rn(x0[l8 + kRowLanes * u], rcm.x), rcm.y);
-                }
+                for (int u = 0; u < 4; ++u) z[h][u] = __fsub_rn(__fmul_rn(x[u], rcm.x), rcm.y);
               } else {
 #pragma unroll
                 for (int u = 0; u < 4; ++u) {
-                  const int j = l8 + kRowLanes * u;
-                  const float x = (j >= lo && j < hi) ? __fmul_rn(x0[j], rcm.x) : 0.0f;
-                  z[h][u] = j < len ? __fsub_rn(x, rcm.y) : 0.0f;
+                  const int j = kInt16 ? 4 * l8 + u : l8 + kRowLanes * u;
+                  const float xs = (j >= lo && j < hi) ? __fmul_rn(x[u], rcm.x) : 0.0f;
+                  z[h][u] = j < len ? __fsub_rn(xs, rcm.y) : 0.0f;
                 }
               }
               if constexpr (P == Precision::kBf16) {
@@ -1450,14 +1540,19 @@ __device__ __forceinline__ void float_centring(const FloatLaunch& a, const Windo
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               if (at[h] >= 0) {
+                if constexpr (kInt16) {
+                  *reinterpret_cast<float4*>(zs + at[h] + 4 * l8) =
+                      make_float4(z[h][0], z[h][1], z[h][2], z[h][3]);
+                } else {
 #pragma unroll
-                for (int u = 0; u < 4; ++u) zs[at[h] + l8 + kRowLanes * u] = z[h][u];
+                  for (int u = 0; u < 4; ++u) zs[at[h] + l8 + kRowLanes * u] = z[h][u];
+                }
               }
             }
           }
           if constexpr (P == Precision::kBf16) {
             float* ws = zs + a.p.rz * kRowFloats;
-            for (int i = ct; i < kChunkJ * float_kt(a.p); i += kCentreThreads) {
+            for (int i = ct; i < kChunkJ * ring_kt(a.p); i += kCentreThreads) {
               ws[i] = round_bf16(ws[i]);
             }
           }
@@ -1508,9 +1603,9 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[RR][QQ], const float* z,
 // chunks). At a k-tile's end each writes its outputs to y (the first write
 // of a tile waits for the previous tile's epilogue); at a tile's end they
 // hand y to the epilogue (the block's last tile: to the block).
-template <int RR, int QQ, class Windows>
-__device__ __forceinline__ void float_consumers(const FloatLaunch& a, int next, int total,
-                                                const Windows& win) {
+template <int RR, int QQ, class Sample, class Windows>
+__device__ __forceinline__ void ring_consumers(const RingLaunch<Sample>& a, int next, int total,
+                                               const Windows& win) {
   const int t = threadIdx.x;
   const int TQ = a.p.tq;
   const int kt = QQ * TQ;
@@ -1598,21 +1693,21 @@ __device__ __forceinline__ void float_consumers(const FloatLaunch& a, int next, 
 // the block's first piece and the epilogue of its last tile, which nothing
 // overlaps, by all 12 warps. No barrier is block-wide between those; each
 // hand-off is a named barrier or a slot's mbarrier. Every output is the
-// int16 engine's function in the same operations and order (the mean in
-// lane_baseline_sum's order, the centre as __fmul_rn then __fsub_rn, one
-// chain of FMAs from 0 in ascending j, normalize_row, quantize_feature),
-// so a window's row is the same bit for bit whatever the plan or its place
-// in the launch.
-template <Precision P, class Windows>
-__device__ __forceinline__ void run_tiles_float(void* smem, const StreamView<float>& v,
-                                                const float* __restrict__ res,
-                                                const float* __restrict__ w, int rows, int pre,
-                                                int skip, int epoch, int features,
-                                                const FloatPlan& plan, const Windows& win) {
-  FloatLaunch a{v, res, w, rows, pre, skip, epoch, features, plan};
+// phase-by-phase design's function in the same operations and order (the
+// mean in lane_baseline_sum's order, the centre as __fmul_rn then
+// __fsub_rn of sample_value's bits, one chain of FMAs from 0 in ascending
+// j, normalize_row, quantize_feature), so a window's row is the same bit
+// for bit whatever the design, the plan or its place in the launch.
+template <class Sample, Precision P, class Windows>
+__device__ __forceinline__ void run_tiles_ring(void* smem, const StreamView<Sample>& v,
+                                               const float* __restrict__ res,
+                                               const float* __restrict__ w, int rows, int pre,
+                                               int skip, int epoch, int features,
+                                               const RingPlan& plan, const Windows& win) {
+  RingLaunch<Sample> a{v, res, w, rows, pre, skip, epoch, features, plan};
   a.bars = static_cast<uint64_t*>(smem);
   a.ring = reinterpret_cast<float*>(static_cast<char*>(smem) + kBarrierBytes);
-  a.base = a.ring + static_cast<size_t>(plan.slots) * float_slot_floats(plan);
+  a.base = a.ring + static_cast<size_t>(plan.slots) * ring_slot_floats(plan);
   a.rcm = reinterpret_cast<float2*>(a.base + static_cast<size_t>(plan.rz) * plan.base_floats);
   a.seg = reinterpret_cast<int2*>(a.rcm + plan.rz);
   a.y = reinterpret_cast<float*>(a.seg + plan.rz);
@@ -1621,9 +1716,13 @@ __device__ __forceinline__ void run_tiles_float(void* smem, const StreamView<flo
   a.starts = reinterpret_cast<int*>(a.gmax + tile_rows * subband_groups(features));
   a.chunk0 = a.starts + 2 * plan.rz;
   a.base0 = a.chunk0 + plan.rz;
-  a.xbeg = reinterpret_cast<uintptr_t>(v.raw);
-  a.xb = a.xbeg & ~static_cast<uintptr_t>(15);
-  a.xend = a.xbeg + static_cast<uintptr_t>(v.channels) * static_cast<uintptr_t>(v.n) * 4;
+  const uintptr_t xbeg = reinterpret_cast<uintptr_t>(v.raw);
+  const uintptr_t xend =
+      xbeg + static_cast<uintptr_t>(v.channels) * static_cast<uintptr_t>(v.n) * sizeof(Sample);
+  a.xb = xbeg & ~static_cast<uintptr_t>(15);
+  a.xoff = static_cast<int>(xbeg - a.xb);
+  a.xlo = xbeg & ~static_cast<uintptr_t>(3);
+  a.xhi = (xend + 3) & ~static_cast<uintptr_t>(3);
   const int tiles = a.tiles();
   if (static_cast<int>(blockIdx.x) >= tiles) return;
   if (threadIdx.x == 0) {
@@ -1633,8 +1732,8 @@ __device__ __forceinline__ void run_tiles_float(void* smem, const StreamView<flo
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   // W's chunk slots zeroed: a chunk's rows past epoch are never copied, and
   // meet z = 0 (a finite value times 0 leaves a chain as it is)
-  const int wn = kChunkJ * float_kt(plan);
-  for (int i = threadIdx.x; i < plan.slots * wn; i += kFloatThreads) {
+  const int wn = kChunkJ * ring_kt(plan);
+  for (int i = threadIdx.x; i < plan.slots * wn; i += kRingThreads) {
     a.slot(i / wn)[plan.rz * kRowFloats + i % wn] = 0.0f;
   }
   __syncthreads();  // the mbarriers initialized, W's slots zeroed
@@ -1654,22 +1753,37 @@ __device__ __forceinline__ void run_tiles_float(void* smem, const StreamView<flo
   }
   mbar_wait(a.bars + kMaxSlots, 0);
   piece_means(a, blockIdx.x, 0, min(plan.rz, a.tile_rows()), a.starts, threadIdx.x,
-              kFloatThreads, [] { __syncthreads(); });
+              kRingThreads, [] { __syncthreads(); });
   if (warp < kCentreWarp0) {
     if (plan.rr == 8) {
-      float_consumers<8, 4>(a, next, total, win);
+      ring_consumers<8, 4>(a, next, total, win);
     } else if (plan.rr == 4) {
-      float_consumers<4, 4>(a, next, total, win);
+      ring_consumers<4, 4>(a, next, total, win);
     } else {
-      float_consumers<1, 1>(a, next, total, win);
+      ring_consumers<1, 1>(a, next, total, win);
     }
   } else {
-    float_centring<P>(a, win);
+    ring_centring<P>(a, win);
   }
   __syncthreads();  // the last tile's rows written
   const int last =
       blockIdx.x + ((tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x) * gridDim.x;
-  float_finish<P>(a, last, 0, kFloatThreads / 32, [] { __syncthreads(); }, win);
+  ring_finish<P>(a, last, 0, kRingThreads / 32, [] { __syncthreads(); }, win);
+}
+
+// One generic launch of `kDesign` (the kernels' body): run_tiles_ring or
+// run_tiles_any on the launch's plan.
+template <int kDesign, class Sample, Precision P, class Windows>
+__device__ __forceinline__ void run_design(void* smem, const StreamView<Sample>& v,
+                                           const float* __restrict__ res,
+                                           const float* __restrict__ w, int rows, int pre,
+                                           int skip, int epoch, int features,
+                                           const DesignPlan<kDesign>& plan, const Windows& win) {
+  if constexpr (kDesign == kRingDesign) {
+    run_tiles_ring<Sample, P>(smem, v, res, w, rows, pre, skip, epoch, features, plan, win);
+  } else {
+    run_tiles_any<Sample, P>(smem, v, res, w, rows, pre, skip, epoch, features, plan, win);
+  }
 }
 
 }  // namespace window_features

@@ -145,9 +145,10 @@ def load(name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=4096)
 def plan_array(plan):
-    """A generic tile plan (``generic_plan.TilePlan``) as the launchers'
-    ``const int*``; ``None`` (a null pointer) where there is none. One
-    array a plan, made once: the launchers only read it."""
+    """A generic tile plan (``generic_plan.TilePlan`` or ``RingTilePlan``:
+    its design, then its fields) as the launchers' ``const int*``; ``None``
+    (a null pointer) where there is none. One array a plan, made once: the
+    launchers only read it."""
     if plan is None:
         return None
     fields = plan.fields()

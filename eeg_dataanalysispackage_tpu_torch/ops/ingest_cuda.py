@@ -11,7 +11,8 @@ instantiation: ``f32``, ``bf16`` (bfloat16 contraction operands),
 ``int8`` and ``int4`` (the quantize step as an epilogue). The main
 path's sizes (a 512-sample window, 16 coefficients a channel) run the
 kernel's ring engine; every other window and coefficient count runs its
-generic engine, counted apart (the ``ANY_`` counters), tiled as
+generic engine, counted apart (the ``ANY_`` counters, and by the design
+its plan picked in ``ANY_DESIGN_PHASE`` / ``ANY_DESIGN_RING``), tiled as
 ``generic_plan.generic_tile_plan`` plans for the launch and the card.
 
 :func:`ingest_features` checks its inputs, then for CUDA tensors
@@ -60,6 +61,10 @@ ANY_LAUNCHES_F32 = 0
 ANY_LAUNCHES_BF16 = 0
 ANY_LAUNCHES_INT8 = 0
 ANY_LAUNCHES_INT4 = 0
+#: the generic launches above by the design their plan chose
+#: (``generic_plan.DESIGNS``): the phase-by-phase one and the ring one
+ANY_DESIGN_PHASE = 0
+ANY_DESIGN_RING = 0
 
 #: guards the counters' increments (plans launch from several threads)
 _COUNT_LOCK = threading.Lock()
@@ -197,6 +202,8 @@ def ingest_features(
         counter = "ANY_" + counter
     with _COUNT_LOCK:
         globals()[counter] += 1
+        if generic:
+            globals()["ANY_DESIGN_" + generic_plan.DESIGNS[plan.design].upper()] += 1
     return out
 
 

@@ -32,10 +32,11 @@ range is checked before they are copied to the card.
 
 The main path's sizes (a 512-sample window, 16 coefficients a channel)
 run the kernel's ring engine; every other window and coefficient count
-runs its generic engine, counted apart (the ``ANY_`` counters), tiled as
-``generic_plan.generic_tile_plan`` plans for the launch and the card. A
-size outside the generic engine's reach raises a ``ValueError`` naming
-the sizes.
+runs its generic engine, counted apart (the ``ANY_`` counters, and by
+the design its plan picked in ``ANY_DESIGN_PHASE`` / ``ANY_DESIGN_RING``),
+tiled as ``generic_plan.generic_tile_plan`` plans for the launch and the
+card. A size outside the generic engine's reach raises a ``ValueError``
+naming the sizes.
 """
 
 from __future__ import annotations
@@ -78,6 +79,10 @@ ANY_MULTI_LAUNCHES_INT4 = 0
 ANY_MULTI_LAUNCHES_F32S = 0
 ANY_MULTI_LAUNCHES_INT8_F32S = 0
 ANY_MULTI_LAUNCHES_INT4_F32S = 0
+#: the generic launches above by the design their plan chose
+#: (``generic_plan.DESIGNS``): the phase-by-phase one and the ring one
+ANY_DESIGN_PHASE = 0
+ANY_DESIGN_RING = 0
 
 _COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
 _MULTI_COUNTERS = {"f32": "MULTI_LAUNCHES", "int8": "MULTI_LAUNCHES_INT8",
@@ -198,11 +203,15 @@ def _raise_on(rc: int, lib, kernel: str, C: int, epoch_size: int, feature_size: 
         )
 
 
-def _count(counter: str, stream: torch.Tensor, epoch_size: int, feature_size: int) -> None:
+def _count(counter: str, stream: torch.Tensor, plan) -> None:
+    """One launch in its instantiation's counter (``plan``: the generic
+    engine's, ``None`` at 512 / 16), and a generic launch in its design's."""
     if stream.dtype == torch.float32:
         counter += "_F32S"
-    if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+    if plan is not None:
         counter = "ANY_" + counter
+        design = "ANY_DESIGN_" + generic_plan.DESIGNS[plan.design].upper()
+        globals()[design] += 1
     globals()[counter] += 1
 
 
@@ -249,7 +258,7 @@ def serve_mega_margins(
             cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega", C, epoch_size, feature_size)
-    _count(_COUNTERS[precision], stream, epoch_size, feature_size)
+    _count(_COUNTERS[precision], stream, plan)
     return out
 
 
@@ -275,7 +284,7 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
             cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega_multi", C, epoch_size, feature_size)
-    _count(_MULTI_COUNTERS[weights_precision], stream, epoch_size, feature_size)
+    _count(_MULTI_COUNTERS[weights_precision], stream, plan)
     return out
 
 

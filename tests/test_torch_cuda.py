@@ -1135,6 +1135,31 @@ def test_generic_engine_at_other_baselines_and_strides(pre, post):
 # place in a tile, tiles cut short at the launch's end, and the engine's
 # reach.
 
+class _Designs:
+    """While entered, every generic launch takes the plan of ``design``
+    (``generic_plan.PHASE_DESIGN`` or ``RING_DESIGN``; ``None``: the one
+    the plan picks), and ``seen`` gathers the design of each launch."""
+
+    def __init__(self, design=None):
+        self.design, self.seen = design, []
+
+    def __enter__(self):
+        plan_of = self.plan_of = generic_plan.generic_tile_plan
+
+        def planned(*args):
+            plan = (plan_of(*args) if self.design is None
+                    else generic_plan.design_plans(*args)[self.design][0])
+            self.seen.append(plan.design)
+            return plan
+
+        generic_plan.generic_tile_plan = planned
+        return self
+
+    def __exit__(self, *exc):
+        generic_plan.generic_tile_plan = self.plan_of
+        return False
+
+
 def _planned_windows(dev, C, n, K, rows, pre=100, sample_bytes=2):
     """The windows a tile the wrappers plan for this launch on this card."""
     return generic_plan.generic_tile_plan(C, n, K, rows, *ingest_cuda.device_limits(dev), pre,
@@ -1157,8 +1182,11 @@ def _placed(rows, seed):
 def test_generic_rows_do_not_depend_on_the_launch(n, K, skip, precision):
     """The same 9 windows at different positions in launches of 1, 9, 64,
     1,000 and 4,096 rows (other rows random windows), hence in tiles of
-    different sizes and at different places in them: K1's generic rows and
-    K5's generic margins are bit-identical across the launches."""
+    different sizes and at different places in them, and in both designs
+    (the 1-row and 4,096-row launches plan different ones but at (256,
+    16); the 4,096-row launch also runs in each design by force): K1's
+    generic rows and K5's generic margins are bit-identical across the
+    launches."""
     dev = _card()
     S = 1_000_000
     raw = torch.from_numpy(_samples("int16", 3, S, seed=n + K, dc=12000)).to(dev)
@@ -1169,42 +1197,55 @@ def test_generic_rows_do_not_depend_on_the_launch(n, K, skip, precision):
     stride = serve_mega.padded_stride(100, 750)
     windows = [_samples("int16", 3, 850, seed=100 + i, dc=9000) for i in range(9)]
     weights = torch.from_numpy(rng.randn(3 * K).astype(np.float32)).to(dev)
-    rows_by, margins_by = {}, {}
-    for rows in (1, 9, 64, 1_000, 4_096):
+    rows_by, margins_by, designs = {}, {}, {}
+    launches = [(rows, None) for rows in (1, 9, 64, 1_000, 4_096)]
+    launches += [(4_096, generic_plan.PHASE_DESIGN), (4_096, generic_plan.RING_DESIGN)]
+    for rows, design in launches:
+        key = rows if design is None else (rows, design)
         slots = _placed(rows, K)
-        if slots is None:
-            got = [ingest_cuda.ingest_features(raw, res, torch.tensor([s], dtype=torch.int32,
-                                                                      device=dev),
-                                               W, 100, skip, precision, n, K) for s in nine]
-            rows_by[rows] = torch.cat(got).cpu().numpy()
-            m = []
-            for win in windows:
-                stream = serve_mega.stage_mega_stream([win], 3, 850, stride, 1)
-                m.append(serve_mega_cuda.serve_mega_margins(
-                    torch.from_numpy(stream).to(dev), res, W, weights, 100, skip, stride,
-                    precision, n, K))
-            margins_by[rows] = torch.cat(m).cpu().numpy()
-            continue
-        starts = rng.randint(-50, S, size=rows).astype(np.int32)
-        starts[slots] = nine
-        got = ingest_cuda.ingest_features(raw, res, torch.from_numpy(starts).to(dev), W, 100,
-                                          skip, precision, n, K)
-        rows_by[rows] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
-        batch = [_samples("int16", 3, 850, seed=rows + i, dc=9000) for i in range(rows)]
-        for slot, win in zip(slots, windows):
-            batch[slot] = win
-        stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, 3, 850, stride,
-                                                               rows)).to(dev)
-        margins = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip, stride,
-                                                     precision, n, K)
-        margins_by[rows] = margins[torch.from_numpy(slots).to(dev)].cpu().numpy()
+        with _Designs(design) as planned:
+            if slots is None:
+                got = [ingest_cuda.ingest_features(
+                    raw, res, torch.tensor([s], dtype=torch.int32, device=dev),
+                    W, 100, skip, precision, n, K) for s in nine]
+                rows_by[key] = torch.cat(got).cpu().numpy()
+                m = []
+                for win in windows:
+                    stream = serve_mega.stage_mega_stream([win], 3, 850, stride, 1)
+                    m.append(serve_mega_cuda.serve_mega_margins(
+                        torch.from_numpy(stream).to(dev), res, W, weights, 100, skip, stride,
+                        precision, n, K))
+                margins_by[key] = torch.cat(m).cpu().numpy()
+            else:
+                starts = np.random.RandomState(rows).randint(-50, S, size=rows).astype(np.int32)
+                starts[slots] = nine
+                got = ingest_cuda.ingest_features(raw, res, torch.from_numpy(starts).to(dev), W,
+                                                  100, skip, precision, n, K)
+                rows_by[key] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
+                batch = [_samples("int16", 3, 850, seed=rows + i, dc=9000) for i in range(rows)]
+                for slot, win in zip(slots, windows):
+                    batch[slot] = win
+                stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, 3, 850, stride,
+                                                                       rows)).to(dev)
+                margins = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip,
+                                                             stride, precision, n, K)
+                margins_by[key] = margins[torch.from_numpy(slots).to(dev)].cpu().numpy()
+        designs[key] = set(planned.seen)
+    # the plan runs 1 row phase by phase and 4,096 rows in the ring design,
+    # but at (256, 16), where the phase-by-phase design is the faster at
+    # both; the forced launches run each design there too
+    assert designs[1] == {generic_plan.PHASE_DESIGN}, designs
+    assert designs[4_096] == {generic_plan.PHASE_DESIGN if (n, K) == (256, 16)
+                              else generic_plan.RING_DESIGN}, designs
+    assert designs[(4_096, generic_plan.PHASE_DESIGN)] == {generic_plan.PHASE_DESIGN}
+    assert designs[(4_096, generic_plan.RING_DESIGN)] == {generic_plan.RING_DESIGN}
     plain = device_ingest.ingest_features_plain(raw, res, torch.from_numpy(nine).to(dev), W,
                                                 100, skip)
     if precision == "f32":
         assert np.abs(rows_by[1] - plain.cpu().numpy()).max() <= 2e-6
-    for rows in (9, 64, 1_000, 4_096):
-        assert rows_by[rows].tobytes() == rows_by[1].tobytes(), rows
-        assert margins_by[rows].tobytes() == margins_by[1].tobytes(), rows
+    for key in rows_by:
+        assert rows_by[key].tobytes() == rows_by[1].tobytes(), key
+        assert margins_by[key].tobytes() == margins_by[1].tobytes(), key
 
 
 @pytest.mark.cuda
@@ -1600,30 +1641,35 @@ _QMAX = {"int8": 127.0, "int4": 7.0}
 _STACK_OF = {"f32": None, "int8": "int8", "int4": "int4"}
 
 
-def _float_stream(dev, C, S, seed):
+def _float_stream(dev, C, S, seed, samples="float32"):
     """A float32 stream (int16-like samples scaled by 0.1, staged already
-    scaled) and its unit resolutions."""
+    scaled) and its unit resolutions; ``samples="int16"``: the int16
+    samples themselves and resolutions of 0.1."""
     raw = torch.from_numpy(_samples("int16", C, S, seed=seed, dc=9000)).to(dev)
+    if samples == "int16":
+        return raw, torch.full((C,), 0.1, device=dev)
     return (raw.to(torch.float32) * 0.1).contiguous(), torch.ones(C, device=dev)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("samples", ["float32", "int16"])
 @pytest.mark.parametrize("precision", ["f32", "bf16", "int8", "int4"])
 @pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (512, 64, 175)])
-def test_float_generic_tiles_cut_at_the_launch_end(n, K, skip, precision):
-    """Float32 launches of 1, M - 1, M + 1 and 4,097 rows (M the planned
-    windows a tile at 4,097), at each rung: K1-any within 2e-6 of its plain
-    version (f32, bf16) or equal bit for bit to the plain quantizer on its
-    own f32 rows (int8, int4), windows past the stream's end exactly 0;
-    K5-any-f32s within 2e-6 * ||w||_1 of the plain version or of the rung's
-    rows dotted with w, padded slots 0; K6-any-f32s on the rung's stack
-    (f32, w8, w4) bit-equal per lane to K5-any-f32s on the same (for w8 and
-    w4, dequantized) rows of the stack."""
+def test_float_generic_tiles_cut_at_the_launch_end(n, K, skip, precision, samples):
+    """Launches of 1, M - 1, M + 1 and 4,097 rows (M the planned windows a
+    tile at 4,097) on float32 samples and, in the same ring design, on
+    int16 ones, at each rung: K1-any within 2e-6 of its plain version (f32,
+    bf16) or equal bit for bit to the plain quantizer on its own f32 rows
+    (int8, int4), windows past the stream's end exactly 0; K5-any within
+    2e-6 * ||w||_1 of the plain version or of the rung's rows dotted with
+    w, padded slots 0; K6-any on the rung's stack (f32, w8, w4) bit-equal
+    per lane to K5-any on the same (for w8 and w4, dequantized) rows of the
+    stack."""
     dev = _card()
     C, S = 3, 60_000
-    raw, ones = _float_stream(dev, C, S, seed=n + K)
+    raw, ones = _float_stream(dev, C, S, seed=n + K, samples=samples)
     W = _operator_of(dev, n, K)
-    M = _planned_windows(dev, C, n, K, 4_097, sample_bytes=4)
+    M = _planned_windows(dev, C, n, K, 4_097, sample_bytes=raw.element_size())
     stride = serve_mega.padded_stride(100, 750)
     rng = np.random.RandomState(K)
     weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
@@ -1645,7 +1691,7 @@ def test_float_generic_tiles_cut_at_the_launch_end(n, K, skip, precision):
         if precision == "bf16":
             continue
         count = max(1, rows - 2)
-        stream, _ = _float_stream(dev, C, rows * stride, seed=rows)
+        stream, _ = _float_stream(dev, C, rows * stride, seed=rows, samples=samples)
         stream[:, count * stride:] = 0
         margins = serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, skip, stride,
                                                      precision, n, K)
@@ -1676,29 +1722,48 @@ def test_float_generic_tiles_cut_at_the_launch_end(n, K, skip, precision):
             assert multi[at].numpy().tobytes() == solo[at].numpy().tobytes(), rows
 
 
+def _window(samples, C, seed):
+    """One 850-sample window of int16-like noise: as it is (int16), or
+    scaled by 0.1 into float32."""
+    x = _samples("int16", C, 850, seed=seed, dc=9000)
+    return x if samples == "int16" else x.astype(np.float32) * 0.1
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("samples", ["float32", "int16"])
 @pytest.mark.parametrize("n,K,skip", [(333, 20, 100), (700, 32, 50), (100, 3, 7)])
-def test_float_generic_ragged_chunk_rows_do_not_depend_on_the_tiling(n, K, skip):
+def test_float_generic_ragged_chunk_rows_do_not_depend_on_the_tiling(n, K, skip, samples):
     """A window (epoch) that is not a multiple of the 32-sample chunk: the
-    same 9 float32 windows launched alone, as 9 rows and inside 64 and
-    4,096 rows (other rows random windows), hence under different tile
-    plans: K1-any's rows and K5-any-f32s's margins bit-identical across the
-    launches, within 2e-6 (K1) and 2e-6 * ||w||_1 (K5) of the plain
-    versions."""
+    same 9 windows (float32 samples, and int16 ones in the same ring
+    design) launched alone, as 9 rows and inside 64 and 4,096 rows (other
+    rows random windows), hence under different tile plans, and at 4,096
+    rows in each design by force: K1-any's rows and K5-any's margins
+    bit-identical across the launches, within 2e-6 (K1) and 2e-6 * ||w||_1
+    (K5) of the plain versions."""
     dev = _card()
     C, S = 3, 1_000_000
-    raw, ones = _float_stream(dev, C, S, seed=n + K)
+    raw, ones = _float_stream(dev, C, S, seed=n + K, samples=samples)
     W = _operator_of(dev, n, K)
     rng = np.random.RandomState(K)
     nine = rng.randint(-50, S - n - skip - 50, size=9).astype(np.int32)
     stride = serve_mega.padded_stride(100, 750)
-    windows = [(_samples("int16", C, 850, seed=100 + i, dc=9000).astype(np.float32) * 0.1)
-               for i in range(9)]
+    windows = [_window(samples, C, 100 + i) for i in range(9)]
     weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
     plans, rows_by, margins_by = set(), {}, {}
-    for rows in (1, 9, 64, 4_096):
+    launches = [(rows, None) for rows in (1, 9, 64, 4_096)]
+    launches += [(4_096, generic_plan.PHASE_DESIGN), (4_096, generic_plan.RING_DESIGN)]
+    for rows, design in launches:
+        if design is not None:
+            with _Designs(design):
+                got = ingest_cuda.ingest_features(raw, ones, torch.from_numpy(starts).to(dev), W,
+                                                  100, skip, "f32", n, K)
+                margins = serve_mega_cuda.serve_mega_margins(stream, ones, W, weights, 100, skip,
+                                                             stride, "f32", n, K)
+            rows_by[(rows, design)] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
+            margins_by[(rows, design)] = margins[torch.from_numpy(slots).to(dev)].cpu().numpy()
+            continue
         plans.add(generic_plan.generic_tile_plan(C, n, K, rows, *ingest_cuda.device_limits(dev),
-                                                 100, 4))
+                                                 100, raw.element_size()))
         if rows == 1:
             got = [ingest_cuda.ingest_features(raw, ones, torch.tensor([s], dtype=torch.int32,
                                                                        device=dev),
@@ -1718,8 +1783,7 @@ def test_float_generic_ragged_chunk_rows_do_not_depend_on_the_tiling(n, K, skip)
         got = ingest_cuda.ingest_features(raw, ones, torch.from_numpy(starts).to(dev), W, 100,
                                           skip, "f32", n, K)
         rows_by[rows] = got[torch.from_numpy(slots).to(dev)].cpu().numpy()
-        batch = [(_samples("int16", C, 850, seed=rows + i, dc=9000).astype(np.float32) * 0.1)
-                 for i in range(rows)]
+        batch = [_window(samples, C, rows + i) for i in range(rows)]
         for slot, win in zip(slots, windows):
             batch[slot] = win
         stream = torch.from_numpy(serve_mega.stage_mega_stream(batch, C, 850, stride,
@@ -1735,9 +1799,98 @@ def test_float_generic_ragged_chunk_rows_do_not_depend_on_the_tiling(n, K, skip)
     plain = device_ingest.ingest_features_plain(raw, ones, torch.from_numpy(nine).to(dev), W,
                                                 100, skip)
     assert np.abs(rows_by[1] - plain.cpu().numpy()).max() <= 2e-6
-    for rows in (9, 64, 4_096):
-        assert rows_by[rows].tobytes() == rows_by[1].tobytes(), rows
-        assert margins_by[rows].tobytes() == margins_by[1].tobytes(), rows
+    for key in rows_by:
+        assert rows_by[key].tobytes() == rows_by[1].tobytes(), key
+        assert margins_by[key].tobytes() == margins_by[1].tobytes(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", ["int16", "float32"])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (333, 20, 100), (700, 32, 50),
+                                      (512, 64, 175), (100, 3, 7)])
+def test_both_designs_match_plain_at_every_rung_and_stack(n, K, skip, samples):
+    """Each design of the generic engine by force, on int16 and float32
+    samples: K1-any on 300 windows over the stream's edges at f32 and bf16
+    within 2e-6 of its plain version, int8/int4 bit-equal to the plain
+    quantizer on its own f32 rows; K5-any on a capacity-128 batch of 77
+    windows at f32 within 2e-6 * ||w||_1 of its plain version, int8/int4
+    of the rung's rows dotted with w; K6-any on the f32 stack within 2e-6 *
+    ||row||_1 of its plain version, on the w8 and w4 stacks bit-equal to K6
+    on the dequantized stack; padded slots 0; every output bit-equal
+    between the two designs, and each launch counted in its design's
+    counter."""
+    dev = _card()
+    C, S = 3, 60_000
+    raw, res = _float_stream(dev, C, S, seed=n + K, samples=samples)
+    W = _operator_of(dev, n, K)
+    rng = np.random.RandomState(n + K)
+    starts = torch.from_numpy(np.concatenate(
+        [rng.randint(-300, S + 300, size=296), [-150, 0, S - n - skip - 40, S]]
+    ).astype(np.int32)).to(dev)
+    capacity, count = 128, 77
+    stride = serve_mega.padded_stride(100, 750)
+    stream, _ = _float_stream(dev, C, capacity * stride, seed=K, samples=samples)
+    stream[:, count * stride:] = 0
+    mstarts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    weights = torch.from_numpy(rng.randn(C * K).astype(np.float32)).to(dev)
+    stack = torch.from_numpy(rng.randn(serve_mega.MAX_TENANTS, C * K).astype(np.float32)).to(dev)
+    lanes = torch.from_numpy(np.where(np.arange(capacity) < count,
+                                      rng.randint(0, 128, capacity), 0).astype(np.int32))
+    packed = {wp: _packed_stack(dev, np.random.RandomState(K), C * K, wp)
+              for wp in ("int8", "int4") if (C * K) % 2 == 0 or wp == "int8"}
+    tol = 2e-6 * weights.abs().sum().item()
+    outs = {}
+    for design in (generic_plan.PHASE_DESIGN, generic_plan.RING_DESIGN):
+        counters = (ingest_cuda.ANY_DESIGN_PHASE, ingest_cuda.ANY_DESIGN_RING,
+                    serve_mega_cuda.ANY_DESIGN_PHASE, serve_mega_cuda.ANY_DESIGN_RING)
+        with _Designs(design) as planned:
+            f32 = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, "f32", n, K)
+            torch.cuda.synchronize()
+            want = device_ingest.ingest_features_plain(raw, res, starts, W, 100, skip)
+            assert (f32 - want).abs().max().item() <= 2e-6 and (f32[-1] == 0).all()
+            out = {"f32": f32}
+            bf16 = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, "bf16", n, K)
+            want = device_ingest.ingest_features_plain(raw, res, starts, W, 100, skip, "bf16")
+            assert (bf16 - want).abs().max().item() <= 2e-6
+            out["bf16"] = bf16
+            for precision, qmax in _QMAX.items():
+                q = ingest_cuda.ingest_features(raw, res, starts, W, 100, skip, precision, n, K)
+                plain_q = decode_ingest.quantize_dequantize(f32.cpu(), K, qmax)[0]
+                assert q.cpu().numpy().tobytes() == plain_q.numpy().tobytes()
+                out[precision] = q
+            for precision in ("f32", "int8", "int4"):
+                got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, skip,
+                                                         stride, precision, n, K)
+                if precision == "f32":
+                    want = serve_mega.serve_mega_margins_plain(stream, res, W, weights, 100,
+                                                               skip, stride)
+                else:
+                    want = ingest_cuda.ingest_features(stream, res, mstarts, W, 100, skip,
+                                                       precision, n, K) @ weights
+                assert (got - want).abs().max().item() <= tol and (got[count:] == 0).all()
+                out["k5_" + precision] = got
+            multi = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100,
+                                                             skip, stride, n, K)
+            plain = serve_mega.serve_mega_multi_margins_plain(stream, res, W, stack, lanes, 100,
+                                                              skip, stride)
+            l1 = stack.abs().sum(dim=1)[lanes.to(dev).long()]
+            assert ((multi - plain).abs() <= 2e-6 * l1).all() and (multi[count:] == 0).all()
+            out["k6_f32"] = multi
+            for wp, (pk, scales, deq) in packed.items():
+                got = serve_mega_cuda.serve_mega_multi_packed_margins(
+                    stream, res, W, pk, scales, lanes, 100, skip, stride, wp, n, K)
+                k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100,
+                                                              skip, stride, n, K)
+                assert got.cpu().numpy().tobytes() == k6.cpu().numpy().tobytes()
+                out["k6_" + wp] = got
+        assert set(planned.seen) == {design}
+        after = (ingest_cuda.ANY_DESIGN_PHASE, ingest_cuda.ANY_DESIGN_RING,
+                 serve_mega_cuda.ANY_DESIGN_PHASE, serve_mega_cuda.ANY_DESIGN_RING)
+        grew = [a - b for a, b in zip(after, counters)]
+        assert grew[1 - design] == 0 and grew[3 - design] == 0
+        assert grew[design] > 0 and grew[2 + design] > 0
+        outs[design] = {k: v.cpu().numpy().tobytes() for k, v in out.items()}
+    assert outs[generic_plan.PHASE_DESIGN] == outs[generic_plan.RING_DESIGN]
 
 
 @pytest.mark.cuda
