@@ -90,8 +90,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("ingest_features", "serve_mega", "epoch_features")
-_KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel|epoch_features_kernel"
-                     r"|ingest_features_any_kernelI[sf]|serve_mega_any_kernel)")
+_KERNEL = re.compile(r"(ingest_features_kernelI[sf]|serve_mega_kernel_tiles|serve_mega_kernel"
+                     r"|epoch_features_kernel|ingest_features_any_kernelI[sf]"
+                     r"|serve_mega_any_kernel)")
+#: the capacities at which both designs of the float32-sample megakernel
+#: at 512 / 16 are timed (``mega_design_times``)
+MEGA_DESIGN_SIZES = (64, 320, 1024, 4096, 32_768)
 SIZES = (64, 320, 32_768)
 EPOCH_RUN_SIZES = (641, 1494)
 
@@ -253,6 +257,7 @@ def time_checkout(tree: str, label: str) -> None:
     time_generic(cs, run, dev)
     if label == "this":
         time_designs(cs, emit, dev, smi)
+        time_mega_designs(cs, emit, dev, smi)
     time_generic_path(cs, emit, smi)
 
 
@@ -468,6 +473,68 @@ def time_designs(cs, emit, dev, smi) -> None:
         generic_plan.generic_tile_plan = plan_of
 
 
+def time_mega_designs(cs, emit, dev, smi) -> None:
+    """Both designs of the float32-sample megakernel at 512 / 16
+    (``serve_mega_cuda.MEGA_DESIGNS``: run_windows and the tile design) at
+    each of :data:`MEGA_DESIGN_SIZES` windows, every rung and stack (K5-f32s
+    at f32, int8 and int4, K6-f32s on the f32, int8 and int4 stacks), each
+    launched with each design forced (``mega_design_times``): its device
+    time (``profiled_device_ms``, 20 calls), the design the launch picks,
+    and whether both designs' margins are bit-equal. Where the crossover
+    (``serve_mega_cuda.TILES_WINDOWS_PER_SM``) is decided."""
+    import numpy as np
+    import torch
+
+    from eeg_dataanalysispackage_tpu_torch.ops import (
+        dwt, ingest_cuda, quant, serve_mega, serve_mega_cuda,
+    )
+
+    pick = serve_mega_cuda.mega_design
+    W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
+    stride = serve_mega.padded_stride(100, 750)
+    limits = ingest_cuda.device_limits(dev)
+    try:
+        for n in MEGA_DESIGN_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(n + 7)
+            stream = (torch.randint(-3000, 3000, (3, n * stride), generator=gen, device=dev,
+                                    dtype=torch.int32).to(torch.float32) * 0.1).contiguous()
+            ones = torch.ones(3, device=dev)
+            weights = torch.randn(48, generator=gen, device=dev)
+            stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
+            lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
+            kernels = {
+                f"serve_mega{'' if p == 'f32' else '_' + p}_f32s":
+                    (lambda p=p: serve_mega_cuda.serve_mega_margins(
+                        stream, ones, W, weights, 100, 175, stride, p))
+                for p in ("f32", "int8", "int4")}
+            kernels["serve_mega_multi_f32s"] = lambda: serve_mega_cuda.serve_mega_multi_margins(
+                stream, ones, W, stack, lanes, 100, 175, stride)
+            for wp in ("int8", "int4"):
+                pk, sc = quant.quantize_weight_stack(stack.t().cpu().numpy(), wp)
+                pk = torch.from_numpy(np.ascontiguousarray(pk.T)).to(dev)
+                sc = torch.from_numpy(sc).to(dev)
+                kernels[f"serve_mega_multi_{wp}_f32s"] = (
+                    lambda pk=pk, sc=sc, wp=wp: serve_mega_cuda.serve_mega_multi_packed_margins(
+                        stream, ones, W, pk, sc, lanes, 100, 175, stride, wp))
+            chosen = pick(n, 3, *limits, 100, stride)
+            for kernel, fn in kernels.items():
+                times, digests = {}, {}
+                for design, name in enumerate(serve_mega_cuda.MEGA_DESIGNS):
+                    serve_mega_cuda.mega_design = lambda *a, design=design: design
+                    out = fn()
+                    torch.cuda.synchronize()
+                    digests[name] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+                    times[name] = (cs.profiled_device_ms(fn, "serve_mega_kernel", runs=20)
+                                   or cs.profiled_device_ms(fn, "serve_mega_kernel", runs=20))
+                serve_mega_cuda.mega_design = pick
+                emit(phase="mega_design_times", kernel=kernel, windows=n, device_ms=times,
+                     chosen=serve_mega_cuda.MEGA_DESIGNS[chosen],
+                     designs_bit_equal=len(set(digests.values())) == 1, nvidia_smi=smi)
+            del stream
+    finally:
+        serve_mega_cuda.mega_design = pick
+
+
 def generic_ptxas(logs: dict) -> dict:
     """{generic instantiation key: {registers, spill_stores, spill_loads}}
     from the ``ptxas -v`` logs of this process's builds."""
@@ -501,6 +568,12 @@ def instantiation_key(name: str):
     if not key:
         return None
     current = key.group(1)
+    # the float32-sample megakernel's tile design keys as the megakernel
+    # with ``_t1`` (its template arguments: the precision, kMulti, the
+    # stack's precision); run_windows' keys are unchanged
+    tiles = current == "serve_mega_kernel_tiles"
+    if tiles:
+        current = "serve_mega_kernel"
     precision = re.search(r"9PrecisionE(\d)E", name)
     weights = re.search(r"7WeightsE(\d)E", name)
     p = int(precision.group(1)) if precision else 0
@@ -527,8 +600,10 @@ def instantiation_key(name: str):
     # the megakernel's sample type: float32 (template argument f) keys
     # apart; int16 (s) and a checkout whose megakernel has no sample
     # argument key alike
-    if re.search(r"serve_mega(?:_any)?_kernelIf", name):
+    if re.search(r"serve_mega(?:_any)?_kernelIf", name) or tiles:
         current += "_f32s"
+    if tiles:
+        current += "_t1"
     # a generic kernel's design (its int template argument); a checkout
     # without one ran the phase-by-phase design on int16 samples and, once
     # it had a float32-sample engine, the ring design on float32 ones

@@ -79,10 +79,15 @@ Phases, one JSON line each (several for phases 2 to 6):
    K5-int4-f32s, K6-f32s, K6-w8-f32s, K6-w4-f32s and their generic
    twins) on float32 streams of the same windows scaled by their
    resolutions (at the int16 limit's DC offsets too): K5 at capacity 64,
-   2,048 and 32,768 windows as the int16 cases are held, K6 and the
-   packed stacks at 64 and 2,048, the generic ones at every generic size
-   and on 76 channels, and K5/K6 on 64 and 76 float channels at 512 / 16
-   (77 refused, no launch counted);
+   2,048, 4,099 (4,000 and 4,099 windows: not a multiple of the tile
+   design's 4-window tiles) and 32,768 windows as
+   the int16 cases are held, K6 at 64, 2,048 and 4,099 and the packed
+   stacks at 64 and 2,048, every 512 / 16 float32 case of K5 (each rung)
+   and K6 with each megakernel design forced, their margins bit-equal
+   (``designs_bit_equal``; a ``mega_designs_phase3`` line counts the
+   phase's launches of each design), the generic ones at every generic
+   size and on 76 channels, and K5/K6 on 64 and 76 float channels at 512
+   / 16 (77 refused, no launch counted);
 4. the batch paths end to end on an 8-recording x 1,200-marker session:
    ``fe=dwt-8-fused`` with logreg (its model saved), svm and the
    ``-fused-pallas`` spelling; ``fe=dwt-8-fused&precision=bf16|int8|int4``
@@ -119,7 +124,12 @@ Phases, one JSON line each (several for phases 2 to 6):
    ingest kernel's float32 instantiation); a 128-tenant
    ``MultiplexedService`` on the f32, int8 and int4 stacks (K6-f32s,
    K6-w8-f32s, K6-w4-f32s; every tenant's margins and predictions
-   bit-equal to a solo engine serving its dequantized weights); and
+   bit-equal to a solo engine serving its dequantized weights); engines
+   of capacity 4,096 (``ServingEngine`` at f32, int8 and int4 and the
+   128-tenant ``MultiplexedEngine`` on each stack) serving 4,096 of the
+   session's windows in one batch through the megakernel's tile design,
+   margins bit-equal to the default 64-window engines' (run_windows) on
+   the same windows; and
    ``InferenceService(host_extractor=…)`` with ``dwt-8`` and
    ``dwt-8-pallas`` (the host rung, the epoch-features kernel launched
    once a batch by the latter, predictions equal to the CPU service's);
@@ -443,7 +453,9 @@ Phases, one JSON line each (several for phases 2 to 6):
    each size off the main path of phase 3; K6-w8/w4 at capacity 64 and
    32,768 beside K6; the float32-sample megakernels (K5-f32s at f32,
    int8 and int4, K6-f32s, K6-w8-f32s, K6-w4-f32s) at 64 and 32,768
-   windows, their bound counting 4-byte samples; the epoch-features
+   windows, their bound counting 4-byte samples, each line with the
+   design its launch took (run_windows at 64, the tile design at 32,768);
+   the epoch-features
    kernel at one host-extractor batch of 64; the generic instantiations
    (K1 at every rung, K5, K6, K6-w8/w4, and the megakernels on float32
    samples) at 4,096 windows at each generic size of phase 3 and at
@@ -453,7 +465,11 @@ Phases, one JSON line each (several for phases 2 to 6):
    centred windows with W (TF32 off: the contraction alone), and that
    library call and the bound at chip_compare.py's 76-channel case (256
    windows at GENERIC_WIDE: ``generic_wide_library``); the same
-   library call for the 512/16 rows at 64 and 32,768 windows.
+   library call for the 512/16 rows at 64, 320 and 32,768 windows.
+
+Phases 4 and 5 end in a ``mega_designs`` line: the float32-sample
+megakernel launches at 512 / 16 of this process by design and capacity
+(``MegaDesignLog``); at least one must have taken the tile design.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -894,6 +910,72 @@ class PlanLog:
         return out
 
 
+class MegaDesignLog:
+    """Records the design of every float32-sample megakernel launch at 512
+    / 16 while it is entered (the wrappers call
+    ``serve_mega_cuda.mega_design`` once a launch, a memoized lookup):
+    ``launches`` is {design: {capacity: launches}}. Launches in other
+    processes (pod ranks, fleet replicas) are not seen."""
+
+    def __init__(self):
+        from eeg_dataanalysispackage_tpu_torch.ops import serve_mega_cuda
+
+        self.module = serve_mega_cuda
+        self.launches = {}
+
+    def __enter__(self):
+        pick = self.orig = self.module.mega_design
+
+        def logged(capacity, *args):
+            design = pick(capacity, *args)
+            if (args[5] if len(args) > 5 else 4) == 4:
+                by = self.launches.setdefault(self.module.MEGA_DESIGNS[design], {})
+                by[capacity] = by.get(capacity, 0) + 1
+            return design
+
+        self.module.mega_design = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mega_design = self.orig
+        return False
+
+    def totals(self):
+        return {d: sum(self.launches.get(d, {}).values()) for d in self.module.MEGA_DESIGNS}
+
+
+class forced_design:
+    """Every float32-sample megakernel launch at 512 / 16 in the design
+    named ``design`` while entered (``serve_mega_cuda.mega_design``
+    replaced): the design comparisons of phases 3 and 4b. A launch outside
+    that design's reach raises, as any refused launch does."""
+
+    def __init__(self, design):
+        from eeg_dataanalysispackage_tpu_torch.ops import serve_mega_cuda
+
+        self.module = serve_mega_cuda
+        self.index = serve_mega_cuda.MEGA_DESIGNS.index(design)
+
+    def __enter__(self):
+        self.orig = self.module.mega_design
+        self.module.mega_design = lambda *args, index=self.index: index
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mega_design = self.orig
+        return False
+
+
+def designs_bit_equal(fn) -> bool:
+    """Whether ``fn``'s output is the same bytes with each float32-sample
+    megakernel design forced."""
+    outs = set()
+    for design in ("ring", "tiles"):
+        with forced_design(design):
+            outs.add(fn().cpu().numpy().tobytes())
+    return len(outs) == 1
+
+
 def mega_batch(torch, np, serve_mega, dev, capacity, n, dc, noise, seed, samples="int16"):
     """``n`` windows of int16 noise over ``dc`` staged at capacity
     ``capacity``, with resolutions, the cascade operator and random
@@ -981,7 +1063,10 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
             cases.append((f"dc_heavy_cap{capacity}_n{n}", capacity, n,
                           (30000, -30000, 29500), 1500, "int16"))
     cases.append(("odd_count_cap128_n77", 128, 77, (15000, -12000, 9000), 3000, "int16"))
-    for capacity, n in ((64, 1), (64, 64), (2048, 2048), (32_768, 32_768)):
+    # capacities on both sides of the tile design's crossover (1,056 windows
+    # on 132 multiprocessors), 4,099 not a multiple of its 4-window tiles
+    for capacity, n in ((64, 1), (64, 64), (2048, 2048), (4099, 4099), (4099, 4000),
+                        (32_768, 32_768)):
         cases.append((f"float32_random_cap{capacity}_n{n}", capacity, n, (0, 0, 0), 3000,
                       "float32"))
         cases.append((f"float32_dc_heavy_cap{capacity}_n{n}", capacity, n,
@@ -1004,10 +1089,15 @@ def phase_mega_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         solo[:, :stride] = stream[:, (n - 1) * stride:n * stride]
         solo_m = serve_mega_cuda.serve_mega_margins(solo, res, W, weights, 100, 175, stride)
         solo_equal = solo_m[0].item() == got[n - 1].item()
+        # float32 samples: both designs' margins bit-equal at every rung
+        designs = (all(designs_bit_equal(
+            lambda p=p: serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175,
+                                                           stride, p))
+            for p in ("f32", "int8", "int4")) if samples == "float32" else None)
         emit("mega_vs_plain", case=name, capacity=capacity, windows=n, samples=samples,
              max_abs_err=err, tol=tol, finite=finite, padded_rows_zero=pad_zero,
-             solo_equals_batch=solo_equal)
-        if not (err <= tol and finite and pad_zero and solo_equal
+             solo_equals_batch=solo_equal, designs_bit_equal=designs)
+        if not (err <= tol and finite and pad_zero and solo_equal and designs is not False
                 and got.shape == (capacity,)):
             raise AssertionError(f"megakernel disagrees with its plain version on {name}")
         worst["f32" + suffix] = max(worst["f32" + suffix], err)
@@ -1042,7 +1132,7 @@ def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
                               (0, 0, 0), 3000, "int16"))
                 cases.append((f"dc_heavy_cap{capacity}_n{n}_{spread}", capacity, n, spread,
                               (30000, -30000, 29500), 1500, "int16"))
-    for capacity in (64, 2048):
+    for capacity in (64, 2048, 4099):
         for spread in ("cycling", "one_lane"):
             cases.append((f"float32_dc_heavy_cap{capacity}_n{capacity}_{spread}", capacity,
                           capacity, spread, (30000, -30000, 29500), 1500, "float32"))
@@ -1074,13 +1164,15 @@ def phase_mega_multi_cases(torch, np, serve_mega, serve_mega_cuda, W, dev):
         pad_zero = bool((got_np[n:] == 0).all())
         freed_zero = bool((got_np[:n][lanes_np[:n] == 5] == 0).all())
         finite = bool(np.isfinite(got_np).all())
+        designs = (designs_bit_equal(lambda: serve_mega_cuda.serve_mega_multi_margins(
+            stream, res, W, stack, lanes, 100, 175, stride)) if samples == "float32" else None)
         emit("mega_multi_vs_plain", case=name, capacity=capacity, windows=n, samples=samples,
              lanes_used=int(len(np.unique(lanes_np[:n]))), max_abs_err=err,
              tol_per_l1=MARGIN_TOL_PER_L1, within_tol=within,
              bit_equal_solo_kernel_per_lane=bit_equal, padded_rows_zero=pad_zero,
-             freed_lane_zero=freed_zero, finite=finite)
+             freed_lane_zero=freed_zero, finite=finite, designs_bit_equal=designs)
         if not (within and bit_equal and pad_zero and freed_zero and finite
-                and got.shape == (capacity,)):
+                and designs is not False and got.shape == (capacity,)):
             raise AssertionError(f"K6 disagrees on {name}")
         key = "_f32s" if samples == "float32" else ""
         worst[key] = max(worst[key], err)
@@ -2043,6 +2135,9 @@ def phase_float_session(np, info, counters, n_files):
 
 
 #: the float32-sample megakernels' counters (serve_mega_cuda), by kernel name
+#: phase 4b's large float32 batches: past the tile design's crossover
+#: (1,056 windows on 132 multiprocessors)
+LARGE_F32S_BATCH = 4096
 F32S_COUNTERS = {
     "serve_mega_f32s": "LAUNCHES_F32S", "serve_mega_int8_f32s": "LAUNCHES_INT8_F32S",
     "serve_mega_int4_f32s": "LAUNCHES_INT4_F32S", "serve_mega_multi_f32s": "MULTI_LAUNCHES_F32S",
@@ -2094,7 +2189,7 @@ def phase_float_serve(torch, np, info, work):
     from eeg_dataanalysispackage_tpu_torch.ops import dwt_cuda, ingest_cuda, serve_mega_cuda
     from eeg_dataanalysispackage_tpu_torch.pipeline.builder import PipelineBuilder
     from eeg_dataanalysispackage_tpu_torch.serve import (
-        InferenceService, MultiplexedService, ServingEngine,
+        InferenceService, MultiplexedEngine, MultiplexedService, ServingEngine,
     )
 
     t_phase = time.perf_counter()
@@ -2247,6 +2342,48 @@ def phase_float_serve(torch, np, info, work):
             raise AssertionError(f"the 128-tenant float32 service ({wp}) did not serve as "
                                  "expected")
         launches[kernel] = got[kernel]
+
+    # 5. large float32 batches: engines of capacity LARGE_F32S_BATCH, past
+    # the tile design's crossover, serve the session's windows (cycled) in
+    # one batch; their margins must equal, bit for bit, those of the
+    # default 64-window engines (run_windows) on the same windows
+    big = [windows[i % kept] for i in range(LARGE_F32S_BATCH)]
+    if any(not np.array_equal(r, resolutions[0]) for r in resolutions):
+        raise AssertionError("the float32 session's windows carry different resolutions")
+    big_mix = [names[i % 128] for i in range(LARGE_F32S_BATCH)]
+    for label, kernel, make in (
+        [(p, "serve_mega_f32s" if p == "f32" else f"serve_mega_{p}_f32s",
+          lambda cap, p=p: ServingEngine(base_clf, capacity=cap, precision=p))
+         for p in ("f32", "int8", "int4")]
+        + [(f"tenants_{wp}",
+            "serve_mega_multi_f32s" if wp == "f32" else f"serve_mega_multi_{wp}_f32s",
+            lambda cap, wp=wp: MultiplexedEngine(tenants, capacity=cap, weights_precision=wp))
+           for wp in ("f32",) + PACKED]):
+        engines = {cap: make(cap) for cap in (LARGE_F32S_BATCH, 64)}
+        for eng in engines.values():
+            eng.warmup()
+        extra = (big_mix,) if label.startswith("tenants") else ()
+        zero()
+        serve_mega_cuda.F32S_DESIGN_RING = serve_mega_cuda.F32S_DESIGN_TILES = 0
+        t0 = time.perf_counter()
+        _preds, large = engines[LARGE_F32S_BATCH].execute(big, resolutions[0], *extra)
+        wall = time.perf_counter() - t0
+        designs = {"ring": serve_mega_cuda.F32S_DESIGN_RING,
+                   "tiles": serve_mega_cuda.F32S_DESIGN_TILES}
+        small = np.concatenate([
+            engines[64].execute(big[i:i + 64], resolutions[0],
+                                *((big_mix[i:i + 64],) if extra else ()))[1]
+            for i in range(0, LARGE_F32S_BATCH, 64)])
+        got = counts()
+        equal = large.tobytes() == small.tobytes()
+        emit("float_serve_large_batch", engine=label, windows=LARGE_F32S_BATCH,
+             large_batch_designs=designs, launches=got, large_batch_wall_s=wall,
+             margins_bit_equal_64_window_batches=equal, finite=bool(np.isfinite(large).all()))
+        if not (equal and designs == {"ring": 0, "tiles": 1}
+                and sum(got.values()) == 1 + LARGE_F32S_BATCH // 64):
+            raise AssertionError(f"the {label} engine's large float32 batch did not run the "
+                                 "tile design with run_windows' margins")
+        launches[kernel] += got[kernel]
 
     # 4. the host-extractor mode
     clf = registry.create("logreg")
@@ -5256,6 +5393,15 @@ def timing_stream(torch, dev, gen, n, stride, samples):
     return stream, res
 
 
+def launch_design(serve_mega_cuda, fn):
+    """Call ``fn`` (one megakernel launch) and return it with the design
+    the launch took (``serve_mega_cuda.MEGA_DESIGNS``; int16 samples and
+    generic sizes always ``ring``, whose counters do not move)."""
+    before = serve_mega_cuda.F32S_DESIGN_TILES
+    out = fn()
+    return out, "tiles" if serve_mega_cuda.F32S_DESIGN_TILES > before else "ring"
+
+
 def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_peak, smi,
                 precision="f32", samples="int16", launches=None):
     """Megakernel (at ``precision``, on int16 or float32 ``samples``) and
@@ -5270,7 +5416,7 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
     stream, res = timing_stream(torch, dev, gen, n, stride, samples)
     weights = torch.randn(48, generator=gen, device=dev, dtype=torch.float32)
     args = (stream, res, W, weights, 100, 175, stride, precision)
-    got = serve_mega_cuda.serve_mega_margins(*args)
+    got, design = launch_design(serve_mega_cuda, lambda: serve_mega_cuda.serve_mega_margins(*args))
     if precision == "f32":
         want = serve_mega.serve_mega_margins_plain(*args)
     else:
@@ -5292,7 +5438,7 @@ def mega_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, f32_pe
          kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by,
          bytes=bytes_moved, flops=flops, library_ms=None, max_abs_err=err, launches=launches,
-         nvidia_smi=smi)
+         design=design, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -5309,7 +5455,8 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
     stack = torch.randn((serve_mega.MAX_TENANTS, 48), generator=gen, device=dev)
     lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
     args = (stream, res, W, stack, lanes, 100, 175, stride)
-    got = serve_mega_cuda.serve_mega_multi_margins(*args)
+    got, design = launch_design(serve_mega_cuda,
+                                lambda: serve_mega_cuda.serve_mega_multi_margins(*args))
     err = (got - serve_mega.serve_mega_multi_margins_plain(*args)).abs().max().item()
     if err > MARGIN_TOL_PER_L1 * stack.abs().sum(dim=1).max().item():
         raise AssertionError(f"K6 disagrees at the timing size {n}: {err}")
@@ -5330,7 +5477,7 @@ def mega_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, bandwidth, 
          windows=n, stride=stride, tenants=128,
          kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
-         library_ms=None, max_abs_err=err, launches=launches, nvidia_smi=smi)
+         library_ms=None, max_abs_err=err, launches=launches, design=design, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -5971,7 +6118,8 @@ def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandw
     packed, scales, deq = packed_stack(np, torch, dev, np.random.RandomState(n), 48, wp)
     lanes = torch.arange(n, dtype=torch.int32) % serve_mega.MAX_TENANTS
     args = (stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
-    got = serve_mega_cuda.serve_mega_multi_packed_margins(*args)
+    got, design = launch_design(
+        serve_mega_cuda, lambda: serve_mega_cuda.serve_mega_multi_packed_margins(*args))
     k6 = serve_mega_cuda.serve_mega_multi_margins(stream, res, W, deq, lanes, 100, 175, stride)
     if got.cpu().numpy().tobytes() != k6.cpu().numpy().tobytes():
         raise AssertionError(f"K6-{wp} is not K6 on the dequantized stack at size {n}")
@@ -5992,7 +6140,7 @@ def packed_multi_timing(torch, serve_mega, serve_mega_cuda, W, dev, n, wp, bandw
          kernel_ms=kernel_ms, kernel_device_ms=device_ms, sm_clock_mhz=clock, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, flops=flops,
          library_ms=None, max_abs_err=err, bit_equal_k6_dequantized=True, launches=launches,
-         nvidia_smi=smi)
+         design=design, nvidia_smi=smi)
     return kernel_ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -6455,6 +6603,7 @@ def main() -> int:
                                           *ingest_cuda.device_limits(dev)))
 
     # 3. each kernel against its plain version
+    serve_mega_cuda.F32S_DESIGN_RING = serve_mega_cuda.F32S_DESIGN_TILES = 0
     W = torch.from_numpy(dwt.cascade_matrix(8, 512, 16).astype(np.float32)).to(dev)
     max_err = phase_kernel_cases(torch, np, ingest_cuda, device_ingest, W, dev)
     f32_err = phase_f32_stream_cases(torch, np, ingest_cuda, device_ingest, W, dev)
@@ -6465,6 +6614,12 @@ def main() -> int:
     wide_f32s_err = phase_float_wide_cases(torch, np, serve_mega, serve_mega_cuda, W, dev)
     generic_err = phase_generic_cases(torch, np, dwt, ingest_cuda, device_ingest, serve_mega,
                                       serve_mega_cuda, dev)
+    emit("mega_designs_phase3", launches={"ring": serve_mega_cuda.F32S_DESIGN_RING,
+                                          "tiles": serve_mega_cuda.F32S_DESIGN_TILES},
+         crossover_windows=serve_mega_cuda.tiles_crossover(
+             ingest_cuda.device_limits(dev)[0]))
+    # every float32-sample 512 / 16 launch of phases 4 and 5, by design
+    mega_log = MegaDesignLog().__enter__()
 
     # 4. the batch paths end to end on an 8 x 1,200-marker session, and a
     # float32 session; every counter is set to 0 just before each run
@@ -6587,6 +6742,10 @@ def main() -> int:
         # promotion, and a resumed adapter
         phase_lifecycle(torch, np, info, model, kept, windows, resolutions, targets, work,
                         plain_stats, plain_latency)
+        mega_log.__exit__()
+        emit("mega_designs", launches=mega_log.totals(), by_capacity=mega_log.launches)
+        if not mega_log.totals()["tiles"]:
+            raise AssertionError("no path run took the float32 megakernel's tile design")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6647,8 +6806,9 @@ def main() -> int:
                               T=768)
     epoch_size_timing(torch, dwt, dwt_cuda, dev, EPOCH_SIZES, bandwidth, f32_peak, smi)
     # the 512/16 rows' library call at their timing sizes: 32,768
-    # windows (K1 and its rungs) and one serve batch of 64 (K5, K6)
-    lib = {n: contraction_library_ms(torch, dwt, dev, n, smi) for n in (64, 32_768)}
+    # windows (K1 and its rungs, the tile design's launches) and one serve
+    # batch of 64 (K5, K6), and at one recording's 320 windows
+    lib = {n: contraction_library_ms(torch, dwt, dev, n, smi) for n in (64, 320, 32_768)}
 
     # the float32-sample instantiations' worst deviations over phase 3
     f32s_phase_err = {

@@ -72,22 +72,46 @@
 // and their bounds): the warp that finishes a window dots its row in the
 // ring epilogue's lane order.
 //
-// Design: window_features.cuh's run_windows (a persistent wave of blocks,
-// each keeping its next window's samples in flight as 16-byte cp.async
-// chunks while it computes one; every window starts on a 16-byte boundary,
-// stride 896 x 2 B or x 4 B, and its analysis segment 3 samples into a
-// chunk of 8 int16 or 4 float samples; warp
-// 0's epilogue, the norm and the dot, overlaps warps 1..7's means and
-// staging of the next window, and for the int8/int4 rungs, with the
-// quantize step, their centre as well). The
-// one-window-per-block kernel before it staged 2 bytes a thread at a time
-// and ran seven barriers a window; it reached 10% of the bound. K6's warp
-// 0 loads the row's lane, then its weights, before the reduce and the norm
-// (not after the norm), so both loads overlap them. What is left (PERF.md
-// section 6: about a fifth of the bound at 32,768 windows; one serve
-// batch is one window's chain): each block's chain of dependent steps per
-// window, of which four blocks a multiprocessor run at once (see
-// ingest_features.cu).
+// Design at 512 / 16: two, picked per launch on float32 samples
+// (ops/serve_mega_cuda.py mega_design, a pure function of the capacity,
+// the channels and the card, passed to the launchers as `design`; int16
+// samples always run the first). The margins are the same bit for bit in
+// both: the tile design computes run_windows' partials and runs the same
+// reduce_and_norm and MegaMargins::epilogue on them.
+//
+// run_windows (window_features.cuh; int16 samples, and float32 launches
+// below the crossover): a persistent wave of blocks, each keeping its next
+// window's samples in flight as 16-byte cp.async chunks while it computes
+// one (every window starts on a 16-byte boundary, stride 896 x 2 B or x 4
+// B, and its analysis segment 3 samples into a chunk of 8 int16 or 4 float
+// samples); warp 0's epilogue, the norm and the dot, overlaps warps 1..7's
+// means and staging of the next window, and for the int8/int4 rungs, with
+// the quantize step, their centre as well. K6's warp 0 loads the row's
+// lane, then its weights, before the reduce and the norm, so both loads
+// overlap them. What bounds it (PERF.md section 6): each block's chain of
+// dependent steps a window, of which four blocks a multiprocessor run at
+// once: about 36% of the bound at 32,768 float32 windows (0.196-0.212 ms),
+// while one serve batch is one window's chain (0.0042-0.0048 ms at 64).
+//
+// The tile design (window_tiles.cuh run_tiles_f32s, serve_mega_kernel_tiles:
+// float32 samples from the crossover, 8 windows a multiprocessor, 1,056 on
+// the H100): one persistent block of 736 threads a multiprocessor walks
+// tiles of 4 windows through a ring of TMA-fed stages, warp roles handing
+// work on through mbarriers (staging, centring, contraction, two epilogue
+// warps a window), the weights or the tenant stack resident in shared
+// memory (TileMargins below). Its notes give the roles. What bounds it
+// (PERF.md section 6, chip_tiles.py): the staging alone streams the
+// launch's bytes at 0.094-0.096 ms for 32,768 windows (2.5 TB/s); the
+// centring and the contraction sharing the multiprocessor with it take the
+// launch to 0.122-0.132 ms (55-58% of the bound, 1.25-1.33x the library
+// call's SGEMM).
+// Below about 1,024 windows a launch is a handful of tiles a
+// multiprocessor and the ring's fixed start-up (W, the first stage's
+// copies and centring) is not hidden: there run_windows is faster.
+//
+// The one-window-per-block kernel before run_windows staged 2 bytes a
+// thread at a time and ran seven barriers a window; it reached 10% of the
+// bound.
 
 #include <cuda_runtime.h>
 
@@ -95,6 +119,7 @@
 
 #include "window_features.cuh"
 #include "window_features_any.cuh"
+#include "window_tiles.cuh"
 
 namespace {
 
@@ -275,6 +300,106 @@ __global__ void __launch_bounds__(design_threads<kDesign>(), design_min_blocks<k
                                  margins);
 }
 
+// The tenant stack's rows (serve/multiplex.py MAX_TENANTS).
+constexpr int kMaxTenants = 128;
+
+// The tile design's epilogue (window_tiles.cuh run_tiles_f32s): MegaMargins
+// on copies in shared memory of the weights (K5), or of the tenant stack
+// and, packed, its scales (K6), staged once a block, so no window's
+// epilogue waits on device memory behind the stages' copies. K6 reads each
+// window's lane a tile ahead (prefetch) and hands it to the epilogue
+// through a shared slot of the warp, which `lanes` is rebased on: the
+// epilogue's lanes[row] reads that slot. The arithmetic is
+// MegaMargins::epilogue's own, so the margins are run_windows'.
+template <Precision P, bool kMulti, Weights Wt>
+struct TileMargins {
+  MegaMargins<P, kMulti, Wt> global;
+
+  // Bytes of the weights (K5: one row) or of the stack (K6), its scales
+  // (K6-w8/w4), and one lane slot an epilogue warp, 16-byte aligned each.
+  __host__ __device__ static int weights_bytes(int channels) {
+    const int nfeat = channels * kFeatures;
+    if constexpr (!kMulti) return nfeat * static_cast<int>(sizeof(float));
+    if constexpr (Wt == Weights::kF32) return kMaxTenants * nfeat * static_cast<int>(sizeof(float));
+    return kMaxTenants * packed_row_bytes(Wt, nfeat);
+  }
+  __host__ __device__ static int scales_bytes() {
+    return Wt == Weights::kF32 ? 0 : kMaxTenants * static_cast<int>(sizeof(float));
+  }
+  __host__ __device__ static int align16(int bytes) { return (bytes + 15) & ~15; }
+  __host__ __device__ static int resident_bytes(int channels) {
+    return align16(weights_bytes(channels)) + align16(scales_bytes()) +
+           tiles::kEpilogueWarps * static_cast<int>(sizeof(int));
+  }
+
+  // Thread t of `threads` copies its share (4-byte words: every size above
+  // is a multiple of 4); the margins on the copies.
+  __device__ __forceinline__ MegaMargins<P, kMulti, Wt> stage(char* dst, int t,
+                                                              int threads) const {
+    MegaMargins<P, kMulti, Wt> m = global;
+    const int wb = weights_bytes(global.channels);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(global.weights);
+    uint32_t* words = reinterpret_cast<uint32_t*>(dst);
+    for (int i = t; i < wb / 4; i += threads) words[i] = src[i];
+    m.weights = reinterpret_cast<const float*>(dst);
+    if constexpr (Wt != Weights::kF32) {
+      float* sc = reinterpret_cast<float*>(dst + align16(wb));
+      for (int i = t; i < kMaxTenants; i += threads) sc[i] = global.scales[i];
+      m.scales = sc;
+    }
+    return m;
+  }
+
+  __device__ __forceinline__ int prefetch(int row) const {
+    if constexpr (kMulti) return global.lanes[row];
+    return 0;
+  }
+
+  // Warp `slot`'s epilogue of `row`, its lane read ahead as `lane_of_row`.
+  __device__ __forceinline__ void epilogue(const MegaMargins<P, kMulti, Wt>& staged, int row,
+                                           const RingSmem& s, int lane, int slot,
+                                           int lane_of_row) const {
+    MegaMargins<P, kMulti, Wt> m = staged;
+    if constexpr (kMulti) {
+      int* slots = reinterpret_cast<int*>(const_cast<float*>(m.weights)) +
+                   (align16(weights_bytes(global.channels)) + align16(scales_bytes())) / 4;
+      if (lane == 0) slots[slot] = lane_of_row;
+      __syncwarp();
+      // lanes[row] is slots[slot]: the address arithmetic of a pointer
+      // `row` ints below the slot, in integers
+      m.lanes = reinterpret_cast<const int*>(reinterpret_cast<uintptr_t>(slots + slot) -
+                                             static_cast<uintptr_t>(row) * sizeof(int));
+    }
+    m.epilogue(row, s, lane);
+  }
+};
+
+// The float32-sample megakernel at 512 / 16 in the tile design
+// (window_tiles.cuh run_tiles_f32s): the launch's stream through two tensor
+// maps (the analysis samples' group boxes, the baseline's box).
+template <Precision P, bool kMulti, Weights Wt>
+__global__ void __launch_bounds__(tiles::kTileThreads, 1)
+    serve_mega_kernel_tiles(const __grid_constant__ CUtensorMap seg_map,
+                            const __grid_constant__ CUtensorMap base_map,
+                            const float* __restrict__ res, const float* __restrict__ w,
+                            const float* __restrict__ weights, float* __restrict__ out,
+                            int capacity, int channels, int stride, int pre, int skip,
+                            int stages, const int* __restrict__ lanes,
+                            const float* __restrict__ scales) {
+  static_assert(!kMulti || P == Precision::kF32, "the tenant stack serves f32 rows");
+  extern __shared__ __align__(16) float smem[];
+  const TileMargins<P, kMulti, Wt> win{
+      MegaMargins<P, kMulti, Wt>{stride, weights, lanes, out, channels, scales}};
+  tiles::run_tiles_f32s<P>(smem, &seg_map, &base_map, res, w, capacity, channels, pre, skip,
+                           stages, win);
+}
+
+// The designs of the float32-sample megakernel at 512 / 16, the launchers'
+// `design` argument (ops/serve_mega_cuda.py MEGA_DESIGNS): run_windows, or
+// the tile design. Every other launch takes kRingMega.
+constexpr int kRingMega = 0;
+constexpr int kTileMega = 1;
+
 // One launch's arguments.
 struct Launch {
   const void* stream;
@@ -292,6 +417,7 @@ struct Launch {
   int epoch;
   int features;
   const int* any_plan;  // the generic engine's tile plan (not read at 512 / 16)
+  int design;           // kRingMega or kTileMega (float32 samples at 512 / 16 only)
   void* cuda_stream;
 };
 
@@ -307,6 +433,35 @@ int launch_ring(const Ring& ring, size_t smem, const Launch& a) {
           static_cast<const float*>(a.w), static_cast<const float*>(a.weights),
           static_cast<float*>(a.out), a.capacity, a.channels, a.stride, a.pre, a.skip,
           static_cast<const int*>(a.lanes), ring, a.capacity * a.stride,
+          static_cast<const float*>(a.scales));
+  return cudaGetLastError();
+}
+
+// The tile design: refused (cudaErrorInvalidValue) outside its reach
+// (tiles::plan_tiles) or where a tensor map does not encode.
+template <Precision P, bool kMulti, Weights Wt>
+int launch_tiles(const Launch& a) {
+  int stages = 0;
+  size_t smem = 0;
+  cudaError_t err =
+      tiles::plan_tiles(a.channels, a.pre, a.stride, a.stream,
+                        TileMargins<P, kMulti, Wt>::resident_bytes(a.channels), &stages, &smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap seg_map, base_map;
+  err = tiles::encode_map(&seg_map, a.stream, a.channels, a.capacity, a.stride,
+                          tiles::kLineFloats);
+  if (err != cudaSuccess) return err;
+  err = tiles::encode_map(&base_map, a.stream, a.channels, a.capacity, a.stride, round4(a.pre));
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = plan_grid_threads(serve_mega_kernel_tiles<P, kMulti, Wt>, tiles::kTileThreads, smem,
+                          (a.capacity + tiles::kWindows - 1) / tiles::kWindows, &grid);
+  if (err != cudaSuccess) return err;
+  serve_mega_kernel_tiles<P, kMulti, Wt>
+      <<<grid, tiles::kTileThreads, smem, static_cast<cudaStream_t>(a.cuda_stream)>>>(
+          seg_map, base_map, static_cast<const float*>(a.res), static_cast<const float*>(a.w),
+          static_cast<const float*>(a.weights), static_cast<float*>(a.out), a.capacity,
+          a.channels, a.stride, a.pre, a.skip, stages, static_cast<const int*>(a.lanes),
           static_cast<const float*>(a.scales));
   return cudaGetLastError();
 }
@@ -348,7 +503,12 @@ int launch_any(const Launch& a) {
 
 template <class Sample, Precision P, bool kMulti = false, Weights Wt = Weights::kF32>
 int launch(const Launch& a) {
-  if (a.epoch != kEpoch || a.features != kFeatures) return launch_any<Sample, P, kMulti, Wt>(a);
+  const bool main_size = a.epoch == kEpoch && a.features == kFeatures;
+  if (a.design == kTileMega && main_size) {
+    if constexpr (sizeof(Sample) == sizeof(float)) return launch_tiles<P, kMulti, Wt>(a);
+  }
+  if (a.design != kRingMega) return cudaErrorInvalidValue;
+  if (!main_size) return launch_any<Sample, P, kMulti, Wt>(a);
   Ring ring{};
   size_t smem = 0;
   const cudaError_t err = plan_ring<Sample>(a.channels, a.pre, &ring, &smem);
@@ -407,18 +567,22 @@ extern "C" {
 // (epoch, features) float32 cascade matrix; weights: (channels*features,)
 // float32; out: (capacity,) float32 margins before the intercept;
 // precision: 0 f32, 2 int8, 3 int4 (ops/decode_ingest.PRECISIONS; 1, bf16,
-// is refused). epoch 512 and features 16 run the ring engine, every other
-// size the generic one with the tile plan `any_plan` (kPlanFields ints:
-// the design, then its AnyPlan or RingPlan fields; ops/generic_plan.py).
+// is refused). epoch 512 and features 16 run the ring engine, or on
+// float32 samples the design `design` names (kRingMega: run_windows,
+// kTileMega: the tile design; ops/serve_mega_cuda.py mega_design), every
+// other size the generic one with the tile plan `any_plan` (kPlanFields
+// ints: the design, then its AnyPlan or RingPlan fields;
+// ops/generic_plan.py) and `design` kRingMega.
 // Returns the cudaError_t of the launch (an inconsistent plan, or one that
 // does not fit: cudaErrorInvalidValue), or kSharedMemoryExceeded where the
 // sizes lie outside the generic engine's reach.
 int serve_mega_launch(const void* stream, const void* res, const void* w,
                       const void* weights, void* out, int capacity, int channels,
                       int stride, int pre, int skip, int float_samples, int precision,
-                      int epoch, int features, const int* any_plan, void* cuda_stream) {
+                      int epoch, int features, int design, const int* any_plan,
+                      void* cuda_stream) {
   const Launch a{stream, res, w, weights, nullptr, nullptr, out, capacity, channels,
-                 stride, pre, skip, epoch, features, any_plan, cuda_stream};
+                 stride, pre, skip, epoch, features, any_plan, design, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
   if (float_samples) return launch_rung<float>(precision, a);
@@ -438,9 +602,10 @@ int serve_mega_multi_launch(const void* stream, const void* res, const void* w,
                             const void* stack, const void* scales, const void* lanes,
                             void* out, int capacity, int channels, int stride, int pre,
                             int skip, int float_samples, int weights_precision, int epoch,
-                            int features, const int* any_plan, void* cuda_stream) {
+                            int features, int design, const int* any_plan,
+                            void* cuda_stream) {
   const Launch a{stream, res, w, stack, scales, lanes, out, capacity, channels,
-                 stride, pre, skip, epoch, features, any_plan, cuda_stream};
+                 stride, pre, skip, epoch, features, any_plan, design, cuda_stream};
   if (capacity <= 0) return cudaSuccess;
   if (check(a) != cudaSuccess) return cudaErrorInvalidValue;
   if (float_samples) return launch_stack<float>(weights_precision, a);

@@ -31,7 +31,13 @@ kernel, counted in :data:`MULTI_LAUNCHES_INT8` and
 range is checked before they are copied to the card.
 
 The main path's sizes (a 512-sample window, 16 coefficients a channel)
-run the kernel's ring engine; every other window and coefficient count
+run the kernel's ring engine (``run_windows``); on float32 samples they
+run one of two designs, picked per launch by :func:`mega_design` (a pure
+function of the launch's sizes and the card) and counted by design in
+:data:`F32S_DESIGN_RING` and :data:`F32S_DESIGN_TILES`: ``run_windows``,
+or the tile design (``csrc/window_tiles.cuh``: persistent blocks walking
+tiles of 4 windows through TMA-fed stages by warp role) from
+:func:`tiles_crossover` windows on. Every other window and coefficient count
 runs its generic engine, counted apart (the ``ANY_`` counters, and by
 the design its plan picked in ``ANY_DESIGN_PHASE`` / ``ANY_DESIGN_RING``),
 tiled as ``generic_plan.generic_tile_plan`` plans for the launch and the
@@ -83,6 +89,31 @@ ANY_MULTI_LAUNCHES_INT4_F32S = 0
 #: (``generic_plan.DESIGNS``): the phase-by-phase one and the ring one
 ANY_DESIGN_PHASE = 0
 ANY_DESIGN_RING = 0
+#: the float32-sample launches at 512 / 16 (K5-f32s and K6-f32s at every
+#: rung and stack) by the design :func:`mega_design` picked
+F32S_DESIGN_RING = 0
+F32S_DESIGN_TILES = 0
+
+#: the float32-sample megakernel's designs at 512 / 16, in the launchers'
+#: code: ``run_windows`` (one window a block in flight, four blocks a
+#: multiprocessor) and the tile design (``csrc/window_tiles.cuh``)
+MEGA_DESIGNS = ("ring", "tiles")
+#: windows a tile of the tile design, the channels its register tile
+#: holds, the most samples of a tensor-map box's dimension, and its
+#: stages: at least 2, at most 6 (as many as the block's shared memory
+#: holds)
+TILE_WINDOWS = 4
+TILE_MAX_CHANNELS = 3
+TILE_MAX_BOX = 256
+TILE_MIN_STAGES = 2
+TILE_MAX_STAGES = 6
+#: the tile design's crossover in windows a multiprocessor: launches of at
+#: least this many windows a multiprocessor (1,056 on the H100's 132) take
+#: it. On an H100 the two designs tie at 1,024 windows and the tile design
+#: takes 26-29% less time at 4,096 (PERF.md section 6, PR 28:
+#: device times of both designs at 64, 320, 1,024, 4,096 and 32,768
+#: windows, chip_compare.py)
+TILES_WINDOWS_PER_SM = 8
 
 _COUNTERS = {"f32": "LAUNCHES", "int8": "LAUNCHES_INT8", "int4": "LAUNCHES_INT4"}
 _MULTI_COUNTERS = {"f32": "MULTI_LAUNCHES", "int8": "MULTI_LAUNCHES_INT8",
@@ -97,10 +128,10 @@ _PACKED = {"int8": (torch.int8, 1.0), "int4": (torch.uint8, 0.5)}
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("serve_mega")
     fn = lib.serve_mega_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     multi = lib.serve_mega_multi_launch
-    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+    multi.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     multi.restype = ctypes.c_int
     limits = lib.serve_mega_device_limits
     limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -174,6 +205,75 @@ def _check_lanes(lanes, capacity) -> None:
         )
 
 
+def tiles_resident_bytes(channels: int) -> int:
+    """The most shared memory (bytes) a tile-design block keeps for its
+    epilogue (``csrc/serve_mega.cu`` TileMargins::resident_bytes): K6's
+    f32 tenant stack (128 rows of ``channels * 16`` floats) and a lane
+    slot for each of its 8 epilogue warps; K5's weights and the packed
+    stacks take less."""
+    return 128 * channels * dwt.KERNEL_FEATURE_SIZE * 4 + 8 * 4
+
+
+def tiles_smem_bytes(channels: int, pre: int, stages: int, resident: int = 0) -> int:
+    """Shared memory (bytes) of a tile-design block at ``stages`` stages
+    (``csrc/window_tiles.cuh`` tiles_smem_bytes): the stages (each the 16
+    analysis group boxes of :data:`TILE_WINDOWS` windows x ``channels``
+    rows of 36 floats, each box on a 128-byte boundary, then the baseline
+    box of ``round4(pre)`` samples, rounded up to 128 bytes), W (16 groups
+    of 32 rows, each padded by 16 floats), two tiles' partials and rows,
+    ``res``, the epilogue's ``resident`` bytes (16-byte aligned), the
+    mbarriers (3 a stage, 2 a partials buffer), and 128 bytes to align the
+    block's base."""
+    base = 4 * ((pre + 3) // 4)
+    box = -(-(channels * TILE_WINDOWS * 36 * 4) // 128) * 128
+    stage = -(-(16 * box + channels * TILE_WINDOWS * base * 4) // 128) * 128
+    w = 16 * (32 + 1) * dwt.KERNEL_FEATURE_SIZE * 4
+    parts = 2 * TILE_WINDOWS * 9 * channels * dwt.KERNEL_FEATURE_SIZE * 4
+    res_end = stages * stage + w + parts + channels * 4
+    bars = (((res_end + 15) & ~15) + resident + 7) & ~7
+    return 128 + bars + (3 * TILE_MAX_STAGES + 4) * 8
+
+
+def tiles_crossover(sms: int) -> int:
+    """The fewest windows a launch takes the tile design with on a card
+    of ``sms`` multiprocessors (:data:`TILES_WINDOWS_PER_SM` each)."""
+    return TILES_WINDOWS_PER_SM * sms
+
+
+@functools.lru_cache(maxsize=4096)
+def mega_design(capacity: int, channels: int, sms: int, smem_optin: int, pre: int, stride: int,
+                sample_bytes: int = 4, aligned: bool = True) -> int:
+    """The design (an index of :data:`MEGA_DESIGNS`) of a 512 / 16
+    megakernel launch of ``capacity`` windows of ``channels`` channels on
+    a card of ``sms`` multiprocessors and ``smem_optin`` bytes of shared
+    memory a block: the tile design (1) for float32 samples
+    (``sample_bytes`` 4) from :func:`tiles_crossover` windows on, where it
+    reaches the launch (at most :data:`TILE_MAX_CHANNELS` channels, a
+    baseline box of at most 256 samples, a stride of a multiple of 4
+    samples, a 16-byte ``aligned`` stream, two stages and the largest
+    epilogue state in ``smem_optin``);
+    ``run_windows`` (0) for every other launch, which it reaches wherever
+    the kernel runs at all. Pure: the same arguments, the same design."""
+    reach = (sample_bytes == 4 and 1 <= channels <= TILE_MAX_CHANNELS
+             and 4 * ((pre + 3) // 4) <= TILE_MAX_BOX and stride % 4 == 0 and aligned
+             and tiles_smem_bytes(channels, pre, TILE_MIN_STAGES,
+                                  tiles_resident_bytes(channels)) <= smem_optin)
+    return 1 if reach and capacity >= tiles_crossover(sms) else 0
+
+
+def _design(lib, stream: torch.Tensor, capacity: int, pre: int, stride: int, epoch_size: int,
+            feature_size: int) -> int:
+    """The launch's megakernel design: :func:`mega_design`'s at 512 / 16,
+    ``run_windows``' code (0, the generic engine's plan decides) at any
+    other size."""
+    if (epoch_size, feature_size) != (dwt.KERNEL_EPOCH_SIZE, dwt.KERNEL_FEATURE_SIZE):
+        return 0
+    limits = cuda_build.device_limits(lib.serve_mega_device_limits, lib.serve_mega_error_string,
+                                      stream.device)
+    return mega_design(capacity, stream.shape[0], *limits, pre, stride, stream.element_size(),
+                       stream.data_ptr() % 16 == 0)
+
+
 def _plan(lib, stream: torch.Tensor, capacity: int, pre: int, epoch_size: int,
           feature_size: int, kernel: str):
     """The generic engine's tile plan of a launch (``None`` at the main
@@ -203,15 +303,17 @@ def _raise_on(rc: int, lib, kernel: str, C: int, epoch_size: int, feature_size: 
         )
 
 
-def _count(counter: str, stream: torch.Tensor, plan) -> None:
+def _count(counter: str, stream: torch.Tensor, plan, design: int) -> None:
     """One launch in its instantiation's counter (``plan``: the generic
-    engine's, ``None`` at 512 / 16), and a generic launch in its design's."""
+    engine's, ``None`` at 512 / 16), a generic launch in its plan's
+    design's, and a float32-sample one at 512 / 16 in ``design``'s."""
     if stream.dtype == torch.float32:
         counter += "_F32S"
+        if plan is None:
+            globals()["F32S_DESIGN_" + MEGA_DESIGNS[design].upper()] += 1
     if plan is not None:
         counter = "ANY_" + counter
-        design = "ANY_DESIGN_" + generic_plan.DESIGNS[plan.design].upper()
-        globals()[design] += 1
+        globals()["ANY_DESIGN_" + generic_plan.DESIGNS[plan.design].upper()] += 1
     globals()[counter] += 1
 
 
@@ -248,17 +350,18 @@ def serve_mega_margins(
         return out
     lib = _library()
     plan = _plan(lib, stream, capacity, pre, epoch_size, feature_size, "serve_mega")
+    design = _design(lib, stream, capacity, pre, stride, epoch_size, feature_size)
     with torch.cuda.device(stream.device):
         cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
         rc = lib.serve_mega_launch(
             stream.data_ptr(), resolutions.data_ptr(), operator.data_ptr(),
             weights.data_ptr(), out.data_ptr(),
             capacity, C, stride, pre, skip_samples, int(stream.dtype == torch.float32),
-            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size,
+            decode_ingest.PRECISIONS.index(precision), epoch_size, feature_size, design,
             cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega", C, epoch_size, feature_size)
-    _count(_COUNTERS[precision], stream, plan)
+    _count(_COUNTERS[precision], stream, plan, design)
     return out
 
 
@@ -272,6 +375,7 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
         return out
     lib = _library()
     plan = _plan(lib, stream, capacity, pre, epoch_size, feature_size, "serve_mega_multi")
+    design = _design(lib, stream, capacity, pre, stride, epoch_size, feature_size)
     lanes_dev = lanes.to(stream.device)
     with torch.cuda.device(stream.device):
         cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
@@ -281,10 +385,10 @@ def _launch_multi(stream, resolutions, operator, stack, scales, lanes, pre, skip
             lanes_dev.data_ptr(), out.data_ptr(),
             capacity, C, stride, pre, skip_samples, int(stream.dtype == torch.float32),
             decode_ingest.PRECISIONS.index(weights_precision), epoch_size, feature_size,
-            cuda_build.plan_array(plan), cuda_stream,
+            design, cuda_build.plan_array(plan), cuda_stream,
         )
     _raise_on(rc, lib, "serve_mega_multi", C, epoch_size, feature_size)
-    _count(_MULTI_COUNTERS[weights_precision], stream, plan)
+    _count(_MULTI_COUNTERS[weights_precision], stream, plan, design)
     return out
 
 

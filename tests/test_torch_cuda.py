@@ -1507,25 +1507,49 @@ def _f32s_counter(name, generic=False):
     return ("ANY_" if generic else "") + name + "_F32S"
 
 
+def _mega_crossover(dev):
+    """The float32 megakernel's tile-design crossover on this card."""
+    return serve_mega_cuda.tiles_crossover(ingest_cuda.device_limits(dev)[0])
+
+
+def _designs_moved(before):
+    return (serve_mega_cuda.F32S_DESIGN_RING - before[0],
+            serve_mega_cuda.F32S_DESIGN_TILES - before[1])
+
+
+def _design_counts():
+    return serve_mega_cuda.F32S_DESIGN_RING, serve_mega_cuda.F32S_DESIGN_TILES
+
+
+# capacities on both sides of the tile design's crossover (1,056 windows on
+# 132 multiprocessors), 4,099 not a multiple of its 4-window tiles
+_F32S_CASES = [(64, 1), (64, 64), (1024, 1024), (1056, 1056), (2048, 2048), (4099, 4099),
+               (4099, 4000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
-@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (2048, 2048)])
+@pytest.mark.parametrize("capacity,n", _F32S_CASES)
 @pytest.mark.parametrize("dc,noise", [((0, 0, 0), 3000), ((30000, -30000, 29500), 1500)])
 def test_float_mega_kernel_matches_plain_version(precision, capacity, n, dc, noise):
     """K5-f32s / K5-int8-f32s / K5-int4-f32s: margins within 2e-6 *
     ||w||_1 of K1-f32's rows of the same windows dotted with w (and, at
     f32, of the plain version; at int8/int4 within the rung's tolerance of
     it); padded rows 0; a window's margin the same solo and in a batch;
-    each launch counted in its own counter alone."""
+    each launch counted in its own counter alone, and in the design it
+    took: the tile design from the crossover on, run_windows below it."""
     dev = _card()
     stream, res, W, weights, stride = _float_mega_inputs(dev, capacity, n, dc, noise, seed=n)
     counter = _f32s_counter(_COUNTER_OF[precision])
     before = {name: getattr(serve_mega_cuda, name) for name in _ALL_MEGA_COUNTERS}
+    designs = _design_counts()
     got = serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride,
                                              precision)
     torch.cuda.synchronize()
     moved = {name: getattr(serve_mega_cuda, name) - before[name] for name in before}
     assert moved == {name: int(name == counter) for name in before}
+    tiles = capacity >= _mega_crossover(dev)
+    assert _designs_moved(designs) == ((0, 1) if tiles else (1, 0))
     starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
     rows = ingest_cuda.ingest_features(stream, res, starts, W, 100, 175, precision)
     tol = 2e-6 * weights.abs().sum().item()
@@ -1543,7 +1567,7 @@ def test_float_mega_kernel_matches_plain_version(precision, capacity, n, dc, noi
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("spread", ["cycling", "one_lane"])
-@pytest.mark.parametrize("capacity,n", [(64, 1), (64, 64), (2048, 2048)])
+@pytest.mark.parametrize("capacity,n", _F32S_CASES)
 def test_float_k6_matches_plain_and_equals_solo_kernel_per_lane(capacity, n, spread):
     """K6-f32s: each row within 2e-6 * ||w_lane||_1 of the plain version
     and bit-equal to K5-f32s with that lane's weights; K6-w8-f32s and
@@ -1895,7 +1919,7 @@ def test_both_designs_match_plain_at_every_rung_and_stack(n, K, skip, samples):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
-@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (333, 20, 100)])
+@pytest.mark.parametrize("n,K,skip", [(256, 16, 175), (333, 20, 100), (512, 16, 175)])
 def test_float_k1_rows_equal_the_features_behind_k5_margins(n, K, skip, precision):
     """K1-any on float32 samples equals, bit for bit, the rows K5-any-f32s
     dots with its weights: with the weights the unit vector e_i, a margin is
@@ -1916,6 +1940,100 @@ def test_float_k1_rows_equal_the_features_behind_k5_margins(n, K, skip, precisio
         features[:, i] = serve_mega_cuda.serve_mega_margins(raw, ones, W, unit, 100, skip,
                                                             stride, precision, n, K)
     assert features.cpu().numpy().tobytes() == rows.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["ring", "tiles"])
+@pytest.mark.parametrize("precision", ["f32", "int8", "int4"])
+def test_float_k1_rows_equal_the_features_behind_k5_margins_in_each_design(precision, design,
+                                                                          monkeypatch):
+    """At 512 / 16, K1-f32's rows (the ring engine) equal bit for bit the
+    features behind K5-f32s margins with each megakernel design forced:
+    the unit vector e_i as the weights makes a margin feature i itself, so
+    48 launches give the rows of a batch of 1,001 windows (not a multiple
+    of the tile design's 4)."""
+    dev = _card()
+    C, capacity = 3, 1001
+    stride = serve_mega.padded_stride(100, 750)
+    raw, ones = _float_stream(dev, C, capacity * stride, seed=7)
+    W = _operator(dev)
+    starts = torch.arange(capacity, dtype=torch.int32, device=dev) * stride
+    rows = ingest_cuda.ingest_features(raw, ones, starts, W, 100, 175, precision)
+    index = serve_mega_cuda.MEGA_DESIGNS.index(design)
+    monkeypatch.setattr(serve_mega_cuda, "mega_design", lambda *a: index)
+    designs = _design_counts()
+    features = torch.empty_like(rows)
+    for i in range(C * 16):
+        unit = torch.zeros(C * 16, device=dev)
+        unit[i] = 1.0
+        features[:, i] = serve_mega_cuda.serve_mega_margins(raw, ones, W, unit, 100, 175, stride,
+                                                            precision)
+    assert features.cpu().numpy().tobytes() == rows.cpu().numpy().tobytes()
+    assert _designs_moved(designs) == ((48, 0) if design == "ring" else (0, 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,n", [(64, 64), (1001, 1001), (4099, 4000)])
+@pytest.mark.parametrize("kernel", ["f32", "int8", "int4", "stack_f32", "stack_int8",
+                                    "stack_int4"])
+def test_float_mega_designs_give_the_same_margins(kernel, capacity, n, monkeypatch):
+    """K5-f32s at each rung and K6-f32s on each stack: the margins of the
+    same windows are the same bytes with run_windows and with the tile
+    design forced, at a serve batch, at 1,001 windows and past the
+    crossover with padded slots (exactly 0 in both)."""
+    dev = _card()
+    stream, res, W, weights, stride = _float_mega_inputs(dev, capacity, n,
+                                                         (30000, -30000, 29500), 1500, seed=n)
+    stack, lanes = _stack_and_lanes(dev, capacity, n, "cycling", seed=capacity)
+    if kernel.startswith("stack"):
+        wp = kernel.split("_")[1]
+        if wp == "f32":
+            def fn():
+                return serve_mega_cuda.serve_mega_multi_margins(stream, res, W, stack, lanes, 100,
+                                                                175, stride)
+        else:
+            packed, scales, _deq = _packed_stack(dev, np.random.RandomState(n), 48, wp)
+
+            def fn():
+                return serve_mega_cuda.serve_mega_multi_packed_margins(
+                    stream, res, W, packed, scales, lanes, 100, 175, stride, wp)
+    else:
+        def fn():
+            return serve_mega_cuda.serve_mega_margins(stream, res, W, weights, 100, 175, stride,
+                                                      kernel)
+    outs = {}
+    for design, index in (("ring", 0), ("tiles", 1)):
+        monkeypatch.setattr(serve_mega_cuda, "mega_design", lambda *a, index=index: index)
+        designs = _design_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        assert _designs_moved(designs) == ((1, 0) if design == "ring" else (0, 1))
+        assert bool(torch.isfinite(out).all()) and (out[n:] == 0).all()
+        outs[design] = out.cpu().numpy().tobytes()
+    assert outs["ring"] == outs["tiles"]
+
+
+@pytest.mark.cuda
+def test_the_tile_design_refuses_what_it_cannot_reach(monkeypatch):
+    """Forced on launches outside its reach (int16 samples, four channels,
+    a stream off a 16-byte boundary), the tile design raises and counts no
+    launch: nothing runs run_windows in its place."""
+    dev = _card()
+    W = _operator(dev)
+    stride = serve_mega.padded_stride(100, 750)
+    monkeypatch.setattr(serve_mega_cuda, "mega_design", lambda *a: 1)
+    int16, res16 = _float_stream(dev, 3, 64 * stride, seed=1, samples="int16")
+    four, ones4 = _float_stream(dev, 4, 64 * stride, seed=2)
+    shifted = torch.zeros(3 * 64 * stride + 1, device=dev)[1:].view(3, 64 * stride)
+    cases = ((int16, res16, 48), (four, ones4, 64), (shifted, torch.ones(3, device=dev), 48))
+    for stream, res, terms in cases:
+        before = ({name: getattr(serve_mega_cuda, name) for name in _ALL_MEGA_COUNTERS},
+                  _design_counts())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            serve_mega_cuda.serve_mega_margins(stream, res, W, torch.ones(terms, device=dev), 100,
+                                               175, stride)
+        assert ({name: getattr(serve_mega_cuda, name) for name in _ALL_MEGA_COUNTERS},
+                _design_counts()) == before
 
 
 @pytest.mark.cuda
